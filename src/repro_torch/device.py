@@ -1,0 +1,21 @@
+"""Device choice for the port's entry points."""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """``cuda`` unless the caller names another device; never a quiet fallback.
+
+    Raises when CUDA is asked for (explicitly or by default) and there is no
+    card: a run meant for the GPU must not slip onto the CPU.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' (--device cpu) "
+            "to run on the CPU"
+        )
+    return dev

@@ -13,6 +13,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running (production dry-run subprocess)"
     )
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (skips without one)"
+    )
 
 
 @pytest.fixture
