@@ -11,16 +11,24 @@ Phases, each of which raises (and so exits non-zero) on failure:
    parallel);
 3. kernels vs plain: the fused LAMB kernels K1 (``lamb_moments``) and K2
    (``lamb_apply``) against their plain PyTorch version on the same inputs,
-   at BERT-large leaf shapes;
-4. reference: two bert-smoke fp32 train steps on the card against the same
-   steps on the CPU (the CPU path is the one the test suite holds to the JAX
-   package);
+   at BERT-large leaf shapes; the flash-attention kernels K3 (``flash_fwd``),
+   K4 (``flash_dq``) and K5 (``flash_dkv``), forward and backward through
+   the autograd boundary, against the plain version at the main path's
+   shape, at seq 512 and under causal, window, ragged-length, GQA,
+   cross-length and head-dim-128 cases;
+4. reference: two bert-smoke fp32 train steps with flash attention on the
+   card against the same steps on the CPU (the CPU path is the plain version
+   the test suite holds to the JAX package);
 5. main path: ``repro_torch.launch.train`` on full-width BERT-large
    (24 layers, d 1024, vocab 30522), batch 64 × seq 128, accum 2, bf16,
-   fused LAMB, 6 steps; finite losses, moved weights, and every LAMB kernel
-   launched 13 leaves × 6 steps times;
-6. timing: K1 and K2 over one full BERT-large update with CUDA events,
-   beside their plain version and the memory-bandwidth bound.
+   fused LAMB, flash attention, 6 steps; finite losses, moved weights, every
+   LAMB kernel launched 13 leaves × 6 steps times and every flash kernel
+   24 layers × 2 micro-batches × 6 steps times; then 3 steps at seq 512
+   (batch 32, accum 2) with their own counts;
+6. timing with CUDA events: K1 and K2 over one full BERT-large update, and
+   K3–K5 at the main path's shape and at seq 512, each beside its plain
+   version and its bound; ``scaled_dot_product_attention`` is timed beside
+   K3–K5 as a yardstick only (the port never calls it).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -40,12 +48,22 @@ SRC = ROOT / "src"
 MAIN_STEPS = 6
 MAIN_ARGV = [
     "--arch", "bert-large", "--batch", "64", "--seq", "128", "--accum-steps", "2",
-    "--precision", "bf16", "--fused-lamb", "--no-flash", "--no-fused-ce",
+    "--precision", "bf16", "--fused-lamb", "--no-fused-ce",
     "--steps", str(MAIN_STEPS), "--log-every", "1",
 ]
+SEQ512_STEPS = 3
+SEQ512_ARGV = [
+    "--arch", "bert-large", "--batch", "32", "--seq", "512", "--accum-steps", "2",
+    "--precision", "bf16", "--fused-lamb", "--no-fused-ce",
+    "--steps", str(SEQ512_STEPS), "--log-every", "1",
+]
+LAYERS, LEAVES, ACCUM = 24, 13, 2
 
 # Device-memory rate of the card by name (NVIDIA data sheets), for the bound.
 MEMORY_RATE = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H100": 3.35e12, "H200": 4.8e12}
+# Peak operation rates of an H100 SXM (data sheet, dense): bf16 on the tensor
+# cores, fp32 outside them.
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 
 KERNELS = {
     "lamb_moments": dict(route="cuda",
@@ -54,7 +72,17 @@ KERNELS = {
     "lamb_apply": dict(route="cuda",
                        source="src/repro_torch/kernels/csrc/lamb_update.cu",
                        replaces="src/repro/kernels/lamb_update.py:50"),
+    "flash_fwd": dict(route="cuda",
+                      source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                      replaces="src/repro/kernels/flash_attention.py:122"),
+    "flash_dq": dict(route="cuda",
+                     source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                     replaces="src/repro/kernels/flash_attention.py:213"),
+    "flash_dkv": dict(route="cuda",
+                      source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                      replaces="src/repro/kernels/flash_attention.py:246"),
 }
+FLASH = ("flash_fwd", "flash_dq", "flash_dkv")
 
 # BERT-large leaf shapes for the kernel check: (name, shape, layer_axis, x
 # dtype, g dtype, weight decay and trust ratio on)
@@ -66,6 +94,25 @@ CHECK_CASES = [
     ("blocks/attn/wq bf16", (24, 1024, 16, 64), 0, "bfloat16", "float32", True),
     ("blocks/attn/wo bf16 grads", (24, 16, 64, 1024), 0, "bfloat16", "bfloat16", True),
 ]
+
+
+# Flash-attention checks: (name, b, h, hkv, s, t, d, causal, window, kv_valid
+# or None, dtype).  The first two are the shapes the main path gives the
+# kernels at seq 128 and 512.
+FLASH_CASES = [
+    ("main path", 32, 16, 16, 128, 128, 64, False, 0, None, "bfloat16"),
+    ("seq 512", 16, 16, 16, 512, 512, 64, False, 0, None, "bfloat16"),
+    ("causal", 4, 16, 16, 256, 256, 64, True, 0, None, "bfloat16"),
+    ("window", 4, 8, 8, 512, 512, 64, True, 128, None, "float32"),
+    ("valid + window, dead rows", 3, 4, 4, 300, 300, 64, True, 64, [40, 300, 177], "float32"),
+    ("ragged valid", 4, 16, 16, 128, 128, 64, False, 0, [128, 77, 1, 0], "bfloat16"),
+    ("GQA 8/2 + valid", 4, 8, 2, 256, 256, 64, False, 0, [256, 200, 31, 129], "bfloat16"),
+    ("cross-length causal", 4, 8, 8, 128, 384, 64, True, 0, None, "float32"),
+    ("D 128 fp32", 4, 8, 8, 384, 384, 128, True, 0, None, "float32"),
+    ("D 128 bf16", 4, 8, 8, 384, 384, 128, False, 0, None, "bfloat16"),
+]
+# Flash timing shapes (b, h, s, d): what the main path gives the kernels.
+FLASH_TIMING = [("seq 128", 32, 16, 128, 64), ("seq 512", 16, 16, 512, 64)]
 
 
 def log(msg: str) -> None:
@@ -152,6 +199,72 @@ def check_kernels(device) -> dict:
     return errs
 
 
+def check_flash(device) -> dict:
+    """Max abs errors per flash kernel over FLASH_CASES; raises on a mismatch.
+
+    Both sides compute in fp32 from the same inputs, in another order (the
+    kernel's FMAs against cuBLAS), so fp32 outputs agree to 1e-4 relative
+    plus 1e-4 of the tensor's largest magnitude; bf16 outputs round those
+    fp32 values, so they may differ by one bf16 ulp (2^-7 relative): 1e-2
+    relative plus the same absolute term.  lse is fp32: 1e-5.
+    """
+    import torch
+
+    from repro_torch.kernels.flash_attention import FlashSpec, flash_attention, \
+        flash_attention_fwd
+
+    errs = dict.fromkeys(FLASH, 0.0)
+    gen = torch.Generator(device=device).manual_seed(2)
+    for name, b, h, hkv, s, t, d, causal, window, valid, dt in FLASH_CASES:
+        dtype = getattr(torch, dt)
+        q, do = (torch.randn((b, h, s, d), generator=gen, device=device).to(dtype)
+                 for _ in range(2))
+        k, v = (torch.randn((b, hkv, t, d), generator=gen, device=device).to(dtype)
+                for _ in range(2))
+        kv_valid = None if valid is None else torch.tensor(valid, dtype=torch.int32,
+                                                           device=device)
+        outs = {}
+        for plain in (True, False):
+            qkv = [x.clone().requires_grad_() for x in (q, k, v)]
+            o = flash_attention(*qkv, kv_valid, causal=causal, window=window, plain=plain)
+            outs[plain] = [o.detach(), *torch.autograd.grad(o, qkv, do)]
+        lim = None if valid is None else kv_valid.clamp(1, t)
+        spec = FlashSpec(d**-0.5, causal, window, valid is not None)
+        lse, lse_ref = (flash_attention_fwd(q, k, v, lim, spec, plain=p)[1]
+                        for p in (False, True))
+        torch.cuda.synchronize()
+        rtol = 1e-2 if dt == "bfloat16" else 1e-4
+        ok = bool(torch.allclose(lse, lse_ref, rtol=1e-5, atol=1e-5))
+        diffs = []
+        for a, r in zip(outs[False], outs[True]):
+            a, r = a.float(), r.float()
+            atol = 1e-4 * max(1.0, float(r.abs().max()))
+            ok = ok and bool(torch.isfinite(a).all()) and bool(
+                torch.allclose(a, r, rtol=rtol, atol=atol))
+            diffs.append(float((a - r).abs().max()))
+        if valid is not None and window:
+            # rows where window ∩ valid is empty: o = 0 and dq = 0 exactly
+            rows = torch.arange(s, device=device)
+            dead = rows[None, :] > lim[:, None] + window - 2 - (t - s)   # (b, s)
+            dead_o = outs[False][0].float()[dead[:, None, :, None].expand(b, h, s, d)]
+            dead_dq = outs[False][1].float()[dead[:, None, :, None].expand(b, h, s, d)]
+            ok = ok and int(dead.sum()) > 0 and float(dead_o.abs().max()) == 0.0 \
+                and float(dead_dq.abs().max()) == 0.0
+        log(f"check flash {name:26s} q {(b, h, s, d)} kv {(hkv, t)} causal {causal} "
+            f"window {window} valid {valid} {dt}: |do| {diffs[0]:.2e} |ddq| {diffs[1]:.2e} "
+            f"|ddk| {diffs[2]:.2e} |ddv| {diffs[3]:.2e} |dlse| "
+            f"{float((lse - lse_ref).abs().max()):.2e} (rtol {rtol:g}) "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"flash kernels disagree with the plain version on {name}")
+        errs["flash_fwd"] = max(errs["flash_fwd"], diffs[0])
+        errs["flash_dq"] = max(errs["flash_dq"], diffs[1])
+        errs["flash_dkv"] = max(errs["flash_dkv"], diffs[2], diffs[3])
+        del q, k, v, do, outs
+    torch.cuda.empty_cache()
+    return errs
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the card against the CPU on a small input
 # ---------------------------------------------------------------------------
@@ -163,14 +276,14 @@ def check_against_cpu(device) -> None:
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core import warmup_poly_decay
     from repro_torch.data import batch_iterator
-    from repro_torch.kernels import FusedLambState
+    from repro_torch.kernels import LAUNCHES, FusedLambState, reset_launches
     from repro_torch.models import build_model
     from repro_torch.train import TrainState, make_train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = bert_large.smoke().replace(activation_dtype="float32",
-                                     use_flash_kernel=False, use_fused_ce_head=False)
+    cfg = bert_large.smoke().replace(activation_dtype="float32", use_flash_kernel=True,
+                                     use_fused_ce_head=False)
     tc = TrainConfig(optimizer="lamb", use_fused_lamb=True, accum_steps=2,
                      learning_rate=0.01)
     init, step = make_train_step(build_model(cfg), tc, warmup_poly_decay(0.01, 10, 0))
@@ -184,6 +297,7 @@ def check_against_cpu(device) -> None:
 
     gpu = to(cpu, device)
     data = batch_iterator(cfg, 8, 32, seed=3)
+    reset_launches()
     for i in range(2):
         b = next(data)
         cpu, mc = step(cpu, {k: torch.from_numpy(v) for k, v in b.items()})
@@ -194,13 +308,24 @@ def check_against_cpu(device) -> None:
             f"update norm cuda {ug:.7f} cpu {uc:.7f}")
         if not (math.isclose(lg, lc, rel_tol=1e-4) and math.isclose(ug, uc, rel_tol=1e-4)):
             raise AssertionError("bert-smoke steps on the card disagree with the CPU")
+    want = 2 * cfg.n_layers * 2  # steps × layers × micro-batches
+    if any(LAUNCHES[k] != want for k in FLASH):
+        raise AssertionError(f"flash kernels launched {LAUNCHES}, want {want} each")
 
 
 # ---------------------------------------------------------------------------
 # phase 5: the main path
 # ---------------------------------------------------------------------------
 
-def run_main_path(device) -> dict:
+def _want_launches(steps: int) -> dict:
+    want = dict.fromkeys(("lamb_moments", "lamb_apply"), LEAVES * steps)
+    want.update(dict.fromkeys(FLASH, LAYERS * ACCUM * steps))
+    return want
+
+
+def _train(device, argv, steps, label):
+    """One launcher run with the counts set to 0 just before it; raises on
+    non-finite metrics or launch counts off the path's shape."""
     import torch
 
     from repro_torch.kernels import LAUNCHES, reset_launches
@@ -208,22 +333,38 @@ def run_main_path(device) -> dict:
 
     torch.cuda.reset_peak_memory_stats(device)
     reset_launches()
-    trainer = launch_train.main(MAIN_ARGV)
+    trainer = launch_train.main(argv)
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated(device)
 
     hist = trainer.history
     n_leaves = len(trainer.state.params)
-    if len(hist) != MAIN_STEPS or n_leaves != 13:
-        raise AssertionError(f"{len(hist)} logged steps, {n_leaves} leaves")
+    if len(hist) != steps or n_leaves != LEAVES or not trainer.model.cfg.use_flash_kernel:
+        raise AssertionError(f"{len(hist)} logged steps, {n_leaves} leaves, "
+                             f"flash {trainer.model.cfg.use_flash_kernel}")
     for h in hist:
         if not all(math.isfinite(h[k]) for k in ("loss/total", "grad_norm", "update_norm")):
             raise AssertionError(f"non-finite metrics at step {h['step']}: {h}")
-    want = n_leaves * MAIN_STEPS
-    for name, n in launches.items():
-        if n != want:
-            raise AssertionError(f"{name} launched {n} times on the main path, want {want}")
+    if launches != _want_launches(steps):
+        raise AssertionError(f"{label}: launches {launches}, want {_want_launches(steps)}")
+    walls = [h["wall_s"] for h in hist]
+    steady = [b - a for a, b in zip(walls[1:], walls[2:])]  # after two warm-up steps
+    step_s = sum(steady) / len(steady)
+    batch, seq = (int(argv[argv.index(f) + 1]) for f in ("--batch", "--seq"))
+    log(f"{label}: losses {[round(h['loss/total'], 4) for h in hist]}")
+    log(f"{label}: first step {walls[0]:.3f} s, steps 3-{steps} "
+        f"{[round(s, 4) for s in steady]} s, mean {step_s * 1e3:.1f} ms/step, "
+        f"{batch * seq / step_s:.0f} tokens/s, peak memory {peak / 2**30:.2f} GiB")
+    log(f"{label}: launches {launches}")
+    return trainer, launches
+
+
+def run_main_path(device) -> dict:
+    import torch
+
+    trainer, launches = _train(device, MAIN_ARGV, MAIN_STEPS, "main path")
+    hist = trainer.history
     # the same seed gives the same initial weights.  Every leaf under the
     # trust ratio must have moved (its step is lr·‖x‖-sized whatever the
     # gradient's scale); a leaf without it (norm scales and biases) moves by
@@ -246,23 +387,40 @@ def run_main_path(device) -> dict:
         f"leaves that did not move: {still}")
     if [k for k in still if trust[k]] or not 0.0 < math.sqrt(moved_sq) <= travelled * 1.0001:
         raise AssertionError("the parameters did not move as the kernels reported")
-    walls = [h["wall_s"] for h in hist]
-    steady = [b - a for a, b in zip(walls[1:], walls[2:])]  # steps 3..6
-    step_s = sum(steady) / len(steady)
-    tokens = 64 * 128
-    log(f"main path: losses {[round(h['loss/total'], 4) for h in hist]}")
-    log(f"main path: first step {walls[0]:.3f} s, steps 3-{MAIN_STEPS} "
-        f"{[round(s, 4) for s in steady]} s, mean {step_s * 1e3:.1f} ms/step, "
-        f"{tokens / step_s:.0f} tokens/s, peak memory {peak / 2**30:.2f} GiB")
-    log(f"main path: launches {launches}")
+    del trainer
+    torch.cuda.empty_cache()
+    # the paper's stage-2 length: same model, seq 512
+    trainer, _ = _train(device, SEQ512_ARGV, SEQ512_STEPS, "seq 512")
     del trainer
     torch.cuda.empty_cache()
     return launches
 
 
 # ---------------------------------------------------------------------------
-# phase 6: timing over one full BERT-large update
+# phase 6: timing
 # ---------------------------------------------------------------------------
+
+def cuda_ms(fn, reps: int = 10) -> float:
+    """Mean device ms of ``fn()`` over ``reps`` calls after two warm-up calls.
+
+    The device first sleeps (~20 ms at the H100's boost clock) while the host
+    queues every call behind it, so the span between the events is device
+    time even for a call whose host dispatch outlasts its kernels.
+    """
+    import torch
+
+    fn()
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(40_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
 
 def time_kernels(device, rate: float) -> dict:
     import torch
@@ -297,18 +455,6 @@ def time_kernels(device, rate: float) -> dict:
         for x, _, m, v, ratio, layers in leaves:
             lamb_apply(x, m, v, c, ratio, layers, plain=plain)
 
-    def ms(fn, plain, reps=10):
-        fn(plain)
-        fn(plain)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(reps):
-            fn(plain)
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-
     # bytes each function must move: inputs read once, outputs written once
     fp32 = 4
     bytes_ = {"lamb_moments": n * fp32 * (4 + 2), "lamb_apply": n * fp32 * (3 + 1)}
@@ -318,14 +464,16 @@ def time_kernels(device, rate: float) -> dict:
     times = {name: {"plain": [], "cuda": []} for name in fns}
     for name, fn in fns.items():
         for plain in (True, False, False, True):
-            times[name]["plain" if plain else "cuda"].append(ms(fn, plain))
+            times[name]["plain" if plain else "cuda"].append(cuda_ms(lambda: fn(plain)))
     out = {}
     for name in fns:
         t_k = min(times[name]["cuda"])
         t_p = min(times[name]["plain"])
-        bound = max(bytes_[name] / rate, flops[name] / 67e12) * 1e3
-        out[name] = dict(ms=t_k, plain_ms=t_p, bound_ms=bound, bound_by="bytes"
-                         if bytes_[name] / rate >= flops[name] / 67e12 else "operations")
+        t_bytes, t_ops = bytes_[name] / rate, flops[name] / PEAK_OPS["float32"]
+        bound = max(t_bytes, t_ops) * 1e3
+        out[name] = dict(ms=t_k, plain_ms=t_p, bound_ms=bound,
+                         bound_by="bytes" if t_bytes >= t_ops else "operations",
+                         library_ms=None)
         log(f"time {name}: kernel {times[name]['cuda']} ms, plain {times[name]['plain']} ms "
             f"over {n} elements in 13 leaves; bound {bound:.3f} ms "
             f"({bytes_[name] / 1e9:.2f} GB at {rate / 1e12:.2f} TB/s); "
@@ -334,6 +482,68 @@ def time_kernels(device, rate: float) -> dict:
     log(f"time full update (K1 + K2): kernel {out['lamb_moments']['ms'] + out['lamb_apply']['ms']:.3f}"
         f" ms, plain {out['lamb_moments']['plain_ms'] + out['lamb_apply']['plain_ms']:.3f} ms")
     return out
+
+
+def time_flash(device, rate: float) -> dict:
+    """K3–K5 at each FLASH_TIMING shape (bf16, no mask), plain, kernel,
+    kernel, plain, beside their bound and ``scaled_dot_product_attention``.
+    Returns the seq-128 (main path) numbers by kernel name."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import FlashSpec, flash_attention_fwd, \
+        flash_dkv, flash_dq, row_dot
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    result = {}
+    for label, b, h, s, d in FLASH_TIMING:
+        q, k, v, do = (torch.randn((b, h, s, d), generator=gen, device=device)
+                       .to(torch.bfloat16) for _ in range(4))
+        valid = None   # the main path's batches carry no lengths
+        spec = FlashSpec(d**-0.5, False, 0, False)
+        o, lse = flash_attention_fwd(q, k, v, valid, spec, plain=True)
+        di = row_dot(o, do)
+        fns = {
+            "flash_fwd": lambda plain: flash_attention_fwd(q, k, v, valid, spec, plain=plain),
+            "flash_dq": lambda plain: flash_dq(q, k, v, valid, lse, di, do, spec, plain=plain),
+            "flash_dkv": lambda plain: flash_dkv(q, k, v, valid, lse, di, do, spec,
+                                                 plain=plain),
+        }
+        # bytes each must move (bf16 tensors of n elements, fp32 rows of lse
+        # and di) and the operations of its (S x T x D) products
+        n, rows, mm = b * h * s * d, b * h * s, 2 * b * h * s * s * d
+        bytes_ = {"flash_fwd": 4 * n * 2 + rows * 4, "flash_dq": 5 * n * 2 + 2 * rows * 4,
+                  "flash_dkv": 6 * n * 2 + 2 * rows * 4}
+        flops = {"flash_fwd": 2 * mm, "flash_dq": 3 * mm, "flash_dkv": 4 * mm}
+        times = {name: {"plain": [], "cuda": []} for name in fns}
+        for name, fn in fns.items():
+            for plain in (True, False, False, True):
+                times[name]["plain" if plain else "cuda"].append(cuda_ms(lambda: fn(plain)))
+        sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        sdpa_fb = cuda_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qg, kg, vg), (qg, kg, vg), do))
+        out = {}
+        for name in fns:
+            t_k, t_p = min(times[name]["cuda"]), min(times[name]["plain"])
+            t_bytes, t_ops = bytes_[name] / rate, flops[name] / PEAK_OPS["bfloat16"]
+            out[name] = dict(ms=t_k, plain_ms=t_p, bound_ms=max(t_bytes, t_ops) * 1e3,
+                             bound_by="bytes" if t_bytes >= t_ops else "operations",
+                             library_ms=sdpa_fwd if name == "flash_fwd" else None)
+            log(f"time {name} {label} (b {b} h {h} s {s} d {d} bf16): kernel "
+                f"{times[name]['cuda']} ms, plain {times[name]['plain']} ms; bound "
+                f"{out[name]['bound_ms']:.4f} ms by {out[name]['bound_by']} "
+                f"({bytes_[name] / 1e6:.1f} MB, {flops[name] / 1e9:.2f} GFLOP); achieved "
+                f"{flops[name] / (t_k * 1e-3) / 1e12:.2f} TFLOP/s, "
+                f"{bytes_[name] / (t_k * 1e-3) / 1e12:.3f} TB/s")
+        log(f"time library {label}: scaled_dot_product_attention forward {sdpa_fwd:.4f} ms, "
+            f"forward + backward {sdpa_fb:.4f} ms (backward {sdpa_fb - sdpa_fwd:.4f} ms); "
+            f"K3 {out['flash_fwd']['ms']:.4f} ms, K4 + K5 "
+            f"{out['flash_dq']['ms'] + out['flash_dkv']['ms']:.4f} ms")
+        result[label] = out
+        del q, k, v, do, qg, kg, vg, o, lse, di
+    torch.cuda.empty_cache()
+    return result[FLASH_TIMING[0][0]]
 
 
 def main() -> None:
@@ -362,13 +572,13 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 log(f"ptxas {src}: {line.strip()}")
 
-    errs = check_kernels(device)
+    errs = {**check_kernels(device), **check_flash(device)}
     check_against_cpu(device)
     launches = run_main_path(device)
-    timing = time_kernels(device, rate)
+    timing = {**time_kernels(device, rate), **time_flash(device, rate)}
 
     kernels = [dict(name=k, **KERNELS[k], launches=launches[k], max_abs_err=errs[k],
-                    **timing[k], library_ms=None) for k in KERNELS]
+                    **timing[k]) for k in KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

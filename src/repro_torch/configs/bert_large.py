@@ -2,9 +2,10 @@
 24L d_model=1024 16H d_ff=4096 vocab=30522, bidirectional encoder, MLM.
 
 A copy of ``repro.configs.bert_large``.  ``use_flash_kernel`` and
-``use_fused_ce_head`` stay on as in the JAX config; the port has neither
-kernel yet, so callers turn them off (``--no-flash --no-fused-ce``) until
-they land, and ``models.api.build_model`` raises if they do not.
+``use_fused_ce_head`` stay on as in the JAX config.  Flash attention runs on
+the port's kernels; the fused CE head is not ported yet, so callers turn it
+off (``--no-fused-ce``) until it lands, and ``models.api.build_model``
+raises if they do not.
 """
 from repro_torch.configs.base import ModelConfig
 

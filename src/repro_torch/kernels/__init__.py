@@ -1,14 +1,14 @@
 from repro_torch.kernels.lamb_update import (
-    LAUNCHES,
     LambOut,
     lamb_apply,
     lamb_moments,
     lamb_update,
-    reset_launches,
     resolve_fused_backend,
 )
+from repro_torch.kernels.launches import LAUNCHES, reset_launches
 from repro_torch.kernels.ops import (
     FusedLambState,
+    flash_sdpa,
     fused_lamb_apply,
     fused_lamb_init,
     make_fused_lamb_step,
@@ -18,6 +18,7 @@ __all__ = [
     "LAUNCHES",
     "FusedLambState",
     "LambOut",
+    "flash_sdpa",
     "fused_lamb_apply",
     "fused_lamb_init",
     "lamb_apply",

@@ -1,0 +1,405 @@
+"""Differentiable flash attention: CUDA kernels K3–K5 and their plain version.
+
+Port of ``repro.kernels.flash_attention``: block-wise online-softmax
+attention that never materialises the (S, T) score matrix, forward or
+backward.  Three kernels share one ``torch.autograd.Function``, as the three
+Pallas kernels share one ``jax.custom_vjp`` (see ``csrc/flash_attention.cu``
+for the kernels, their bound and design):
+
+  forward (K3, ``flash_fwd``): o and the per-row logsumexp ``lse``;
+  backward dq (K4, ``flash_dq``): dq = scale·Σ_k ds·k, ds = p∘(do·vᵀ − di);
+  backward dk/dv (K5, ``flash_dkv``): one CUDA block owns a (kv tile) of
+      dk/dv and sums every q head of its GQA group and every q tile into it.
+
+di = rowsum(o∘do) is taken between them with torch ops, as the JAX package
+does.  q is (B, H, S, D), k/v are (B, Hkv, T, D) with Hkv dividing H (GQA:
+q head h reads kv head h // (H/Hkv); k/v are never repeated).  Masks:
+``causal`` with the T − S row offset, a sliding ``window``, and a per-example
+``kv_valid`` length; rows they mask entirely give o = 0 and zero gradients.
+
+Each pass dispatches on where its tensors lie: on the CPU it runs the plain
+PyTorch version below (the chunked online softmax of the JAX package's XLA
+backend); on a CUDA tensor it launches the kernel or raises.  There is no
+fallback from the kernel to the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.launches import LAUNCHES, register
+
+register("flash_fwd", "flash_dq", "flash_dkv")
+
+NEG_INF = -1e30
+HEAD_DIMS = (16, 32, 64, 128)
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_LIB: Optional[ctypes.CDLL] = None
+
+
+class FlashSpec(NamedTuple):
+    """Static configuration of one attention call.
+
+    ``block_k`` is the plain version's kv chunk (the JAX package's tile);
+    the CUDA kernels use tiles of their own.
+    """
+
+    scale: float
+    causal: bool
+    window: int          # sliding-window size; 0 = full attention
+    use_valid: bool      # apply the per-example kv_valid length mask
+    block_k: int = 128
+
+
+def _backend(device: torch.device, plain: bool) -> str:
+    if plain or device.type == "cpu":
+        return "plain"
+    if device.type == "cuda":
+        return "cuda"
+    raise ValueError(f"flash attention has no backend for device {device}")
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        from repro_torch.kernels.build import load
+
+        lib = load("flash_attention")
+        p, i, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        shape = [i] * 6 + [f64, i, i, i, p]   # B H Hkv S T D, scale, flags, stream
+        lib.flash_fwd.argtypes = [p, p, p, p, p, p, p, i] + shape
+        lib.flash_dq.argtypes = [p, p, p, p, p, p, p, p, p, i] + shape
+        lib.flash_dkv.argtypes = [p, p, p, p, p, p, p, p, p, p, i] + shape
+        for fn in (lib.flash_fwd, lib.flash_dq, lib.flash_dkv):
+            fn.restype = i
+        _LIB = lib
+    return _LIB
+
+
+# ---------------------------------------------------------------------------
+# mask algebra (the JAX package's ``_mask_conds``)
+# ---------------------------------------------------------------------------
+
+def _mask_conds(spec: FlashSpec, rows, cols, offset: int, valid):
+    """Keep-mask over (rows, cols) absolute indices; None if nothing is masked.
+
+    ``offset = T − S`` aligns causal masking for cross-length attention.
+    """
+    ok = None
+
+    def _and(a, b):
+        return b if a is None else a & b
+
+    if spec.causal:
+        ok = _and(ok, cols <= rows + offset)
+    if spec.window:
+        ok = _and(ok, cols > rows + offset - spec.window)
+    if spec.use_valid:
+        ok = _and(ok, cols < valid)
+    return ok
+
+
+def _chunk_mask(spec: FlashSpec, s: int, j0: int, width: int, valid, offset: int, dev):
+    """(B or 1, 1, 1, S or 1, width) keep-mask of kv columns [j0, j0+width)."""
+    rows = torch.arange(s, device=dev)[:, None]
+    cols = j0 + torch.arange(width, device=dev)[None, :]
+    lim = valid[:, None, None] if spec.use_valid else None
+    ok = _mask_conds(spec, rows[None], cols[None], offset, lim)
+    return None if ok is None else ok[:, None, None]
+
+
+def row_dot(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """di = rowsum(o∘do) in fp32, (B, H, S): the backward's one reduction
+    outside the kernels."""
+    return (o.to(torch.float32) * do.to(torch.float32)).sum(-1)
+
+
+# ---------------------------------------------------------------------------
+# plain versions (the CPU path, and the reference the kernels are held to)
+# ---------------------------------------------------------------------------
+
+def flash_attention_fwd_plain(q, k, v, valid, spec: FlashSpec
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse) by the chunked online softmax over kv blocks of
+    ``spec.block_k`` (port of ``_xla_fwd``): o in q's dtype, lse fp32."""
+    b, h, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    g = h // hkv
+    offset = t - s
+    f32 = torch.float32
+    qg = q.reshape(b, hkv, g, s, d).to(f32)
+    m = torch.full((b, hkv, g, s), NEG_INF, dtype=f32, device=q.device)
+    l = torch.zeros((b, hkv, g, s), dtype=f32, device=q.device)
+    acc = torch.zeros((b, hkv, g, s, d), dtype=f32, device=q.device)
+    for j0 in range(0, t, spec.block_k):
+        kj = k[:, :, j0:j0 + spec.block_k].to(f32)
+        vj = v[:, :, j0:j0 + spec.block_k].to(f32)
+        sij = torch.einsum("bngsd,bntd->bngst", qg, kj) * spec.scale
+        ok = _chunk_mask(spec, s, j0, kj.shape[2], valid, offset, q.device)
+        if ok is not None:
+            sij = torch.where(ok, sij, NEG_INF)
+        m_new = torch.maximum(m, sij.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sij - m_new[..., None])
+        if ok is not None:
+            p = torch.where(ok, p, 0.0)   # fully masked rows: p = 0, not 1
+        l = alpha * l + p.sum(-1)
+        acc = alpha[..., None] * acc + torch.einsum("bngst,bntd->bngsd", p, vj)
+        m = m_new
+    l = torch.clamp(l, min=1e-30)
+    o = (acc / l[..., None]).reshape(b, h, s, d).to(q.dtype)
+    lse = (m + torch.log(l)).reshape(b, h, s)
+    return o, lse
+
+
+def _grads_plain(q, k, v, valid, lse, di, do, spec: FlashSpec, *, want_dq: bool,
+                 want_dkv: bool):
+    """(dq, dk, dv) from the residuals, p rebuilt per kv block from lse
+    (port of ``_xla_bwd``); each in its input's dtype, None where not wanted."""
+    b, h, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    g = h // hkv
+    offset = t - s
+    f32 = torch.float32
+    qg = q.reshape(b, hkv, g, s, d).to(f32)
+    dog = do.reshape(b, hkv, g, s, d).to(f32)
+    lseg = lse.reshape(b, hkv, g, s)
+    dig = di.reshape(b, hkv, g, s)
+    dq = torch.zeros((b, hkv, g, s, d), dtype=f32, device=q.device)
+    dks, dvs = [], []
+    for j0 in range(0, t, spec.block_k):
+        kj = k[:, :, j0:j0 + spec.block_k].to(f32)
+        vj = v[:, :, j0:j0 + spec.block_k].to(f32)
+        sij = torch.einsum("bngsd,bntd->bngst", qg, kj) * spec.scale
+        ok = _chunk_mask(spec, s, j0, kj.shape[2], valid, offset, q.device)
+        if ok is not None:
+            sij = torch.where(ok, sij, NEG_INF)
+        p = torch.exp(sij - lseg[..., None])
+        if ok is not None:
+            # fully masked rows have lse ≈ NEG_INF: zero p as in the forward
+            p = torch.where(ok, p, 0.0)
+        dp = torch.einsum("bngsd,bntd->bngst", dog, vj)
+        ds = p * (dp - dig[..., None])
+        if want_dkv:
+            dks.append(spec.scale * torch.einsum("bngst,bngsd->bntd", ds, qg))
+            dvs.append(torch.einsum("bngst,bngsd->bntd", p, dog))
+        if want_dq:
+            dq = dq + spec.scale * torch.einsum("bngst,bntd->bngsd", ds, kj)
+    return (dq.reshape(b, h, s, d).to(q.dtype) if want_dq else None,
+            torch.cat(dks, 2).to(k.dtype) if want_dkv else None,
+            torch.cat(dvs, 2).to(v.dtype) if want_dkv else None)
+
+
+def flash_dq_plain(q, k, v, valid, lse, di, do, spec: FlashSpec) -> torch.Tensor:
+    """dq alone (what K4 computes), given di = rowsum(o∘do)."""
+    return _grads_plain(q, k, v, valid, lse, di, do, spec, want_dq=True, want_dkv=False)[0]
+
+
+def flash_dkv_plain(q, k, v, valid, lse, di, do, spec: FlashSpec
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) alone (what K5 computes), given di = rowsum(o∘do)."""
+    return _grads_plain(q, k, v, valid, lse, di, do, spec, want_dq=False, want_dkv=True)[1:]
+
+
+def flash_attention_bwd_plain(q, k, v, valid, o, lse, do, spec: FlashSpec
+                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) in one pass over the kv blocks."""
+    return _grads_plain(q, k, v, valid, lse, row_dot(o, do), do, spec, want_dq=True,
+                        want_dkv=True)
+
+
+# ---------------------------------------------------------------------------
+# kernel launches
+# ---------------------------------------------------------------------------
+
+def _check(q, k, v, valid, spec: FlashSpec, **more) -> None:
+    """Raise on what the kernels cannot take."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be 4-D: (B, H, S, D) and (B, Hkv, T, D)")
+    b, h, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not fit "
+                         f"q {tuple(q.shape)}")
+    if hkv < 1 or h % hkv:
+        raise ValueError(f"n_heads {h} not a multiple of kv heads {hkv}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} is not one of {HEAD_DIMS}")
+    if min(b, h, s, t) < 1 or max(b * h, s, t) >= 2**31:
+        raise ValueError(f"sizes out of range: q {tuple(q.shape)}, k {tuple(k.shape)}")
+    for name, x in (("q", q), ("k", k), ("v", v), *more.items()):
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+        if name in ("lse", "di"):
+            if x.dtype != torch.float32 or x.shape != (b, h, s) or not x.is_contiguous():
+                raise ValueError(f"{name} must be a contiguous float32 {(b, h, s)} tensor")
+            continue
+        if x.dtype != q.dtype:
+            raise TypeError(f"{name} dtype {x.dtype} differs from q's {q.dtype}")
+        if name == "do" and x.shape != q.shape:
+            raise ValueError(f"do has shape {tuple(x.shape)}, q {tuple(q.shape)}")
+        if x.stride(-1) != 1:
+            raise ValueError(f"{name} must have a contiguous last dim (stride {x.stride()})")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"dtype {q.dtype} is not float32 or bfloat16")
+    if valid is None:
+        if spec.use_valid:
+            raise ValueError("spec.use_valid needs a valid tensor")
+    elif valid.device != q.device or valid.dtype != torch.int32 or valid.shape != (b,) \
+            or not valid.is_contiguous():
+        raise ValueError("valid must be a contiguous int32 (B,) tensor on q's device")
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _strides(*ts) -> ctypes.Array:
+    """(B, H, S) element strides of each 4-D tensor, in order, as int64[]."""
+    vals = [st for x in ts for st in x.stride()[:3]]
+    return (ctypes.c_int64 * len(vals))(*vals)
+
+
+def _shape_args(q, k, spec: FlashSpec) -> list:
+    b, h, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
+    return [b, h, hkv, s, t, d, spec.scale, int(spec.causal), int(spec.window),
+            int(spec.use_valid), stream]
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed with CUDA error {err}")
+
+
+def _fwd_cuda(q, k, v, valid, spec: FlashSpec):
+    _check(q, k, v, valid, spec)
+    o = torch.empty_like(q)   # q's strides: a (B, S, H, D) caller gets its layout back
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    err = _lib().flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(valid),
+                           o.data_ptr(), lse.data_ptr(), _strides(q, k, v, o),
+                           _DTYPE_CODES[q.dtype], *_shape_args(q, k, spec))
+    _raise_on(err, "flash_fwd")
+    LAUNCHES["flash_fwd"] += 1
+    return o, lse
+
+
+def _dq_cuda(q, k, v, valid, lse, di, do, spec: FlashSpec):
+    _check(q, k, v, valid, spec, do=do, lse=lse, di=di)
+    dq = torch.empty_like(q)
+    err = _lib().flash_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                          lse.data_ptr(), di.data_ptr(), _ptr(valid), dq.data_ptr(),
+                          _strides(q, k, v, do, dq), _DTYPE_CODES[q.dtype],
+                          *_shape_args(q, k, spec))
+    _raise_on(err, "flash_dq")
+    LAUNCHES["flash_dq"] += 1
+    return dq
+
+
+def _dkv_cuda(q, k, v, valid, lse, di, do, spec: FlashSpec):
+    _check(q, k, v, valid, spec, do=do, lse=lse, di=di)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = _lib().flash_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                           lse.data_ptr(), di.data_ptr(), _ptr(valid), dk.data_ptr(),
+                           dv.data_ptr(), _strides(q, k, v, do, dk, dv),
+                           _DTYPE_CODES[q.dtype], *_shape_args(q, k, spec))
+    _raise_on(err, "flash_dkv")
+    LAUNCHES["flash_dkv"] += 1
+    return dk, dv
+
+
+def flash_attention_fwd(q, k, v, valid, spec: FlashSpec, *, plain: bool = False):
+    """(o, lse): kernel K3 on a CUDA tensor, the plain version on a CPU one
+    (or anywhere with ``plain=True``)."""
+    if _backend(q.device, plain) == "cuda":
+        return _fwd_cuda(q, k, v, valid, spec)
+    return flash_attention_fwd_plain(q, k, v, valid, spec)
+
+
+def flash_dq(q, k, v, valid, lse, di, do, spec: FlashSpec, *, plain: bool = False):
+    """dq: kernel K4 on a CUDA tensor, else the plain version."""
+    if _backend(q.device, plain) == "cuda":
+        return _dq_cuda(q, k, v, valid, lse, di, do, spec)
+    return flash_dq_plain(q, k, v, valid, lse, di, do, spec)
+
+
+def flash_dkv(q, k, v, valid, lse, di, do, spec: FlashSpec, *, plain: bool = False):
+    """(dk, dv): kernel K5 on a CUDA tensor, else the plain version."""
+    if _backend(q.device, plain) == "cuda":
+        return _dkv_cuda(q, k, v, valid, lse, di, do, spec)
+    return flash_dkv_plain(q, k, v, valid, lse, di, do, spec)
+
+
+def flash_attention_bwd(q, k, v, valid, o, lse, do, spec: FlashSpec, *, plain: bool = False):
+    """(dq, dk, dv): di = rowsum(o∘do) by torch, then K4 and K5 on CUDA
+    tensors, else the plain version in one pass."""
+    if _backend(q.device, plain) == "plain":
+        return flash_attention_bwd_plain(q, k, v, valid, o, lse, do, spec)
+    di = row_dot(o, do)
+    return (_dq_cuda(q, k, v, valid, lse, di, do, spec),
+            *_dkv_cuda(q, k, v, valid, lse, di, do, spec))
+
+
+# ---------------------------------------------------------------------------
+# autograd boundary and public entry
+# ---------------------------------------------------------------------------
+
+class FlashAttention(torch.autograd.Function):
+    """``(o, lse) = apply(q, k, v, valid, spec, plain)``; saves the residuals
+    of the JAX package's ``_flash_fwd``: q, k, v, valid, o, lse (``valid``
+    is None when ``spec.use_valid`` is off)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, valid, spec: FlashSpec, plain: bool):
+        o, lse = flash_attention_fwd(q, k, v, valid, spec, plain=plain)
+        ctx.save_for_backward(q, k, v, valid, o, lse)
+        ctx.spec, ctx.plain = spec, plain
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, valid, o, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, valid, o, lse, do, ctx.spec,
+                                         plain=ctx.plain)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, H, S, D)
+    k: torch.Tensor,  # (B, Hkv, T, D), Hkv dividing H
+    v: torch.Tensor,  # (B, Hkv, T, D)
+    kv_valid: Optional[torch.Tensor] = None,  # (B,) valid kv lengths
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    window: int = 0,
+    plain: bool = False,
+) -> torch.Tensor:
+    """Differentiable flash attention (port of ``repro.kernels.flash_attention``).
+
+    Keys at positions ``>= kv_valid[b]`` are masked for every query row of
+    example ``b`` (lengths clipped to [1, T]; None masks nothing and passes
+    the kernels no lengths at all); ``scale`` defaults to 1/√D.
+    Any S and T: the kernels mask their own ragged tails.  ``plain=True``
+    runs the plain version on any device, the reference a kernel run is held
+    to on the card.
+    """
+    h, d = q.shape[1], q.shape[3]
+    hkv, t = k.shape[1], k.shape[2]
+    if h % max(hkv, 1):
+        raise ValueError(f"n_heads {h} not a multiple of kv heads {hkv}")
+    scale = scale if scale is not None else 1.0 / (d**0.5)
+    valid = None
+    if kv_valid is not None:
+        valid = torch.clamp(kv_valid.to(device=q.device, dtype=torch.int32), 1, t).contiguous()
+    spec = FlashSpec(scale=float(scale), causal=bool(causal), window=int(window),
+                     use_valid=valid is not None)
+    o, _ = FlashAttention.apply(q, k, v, valid, spec, plain)
+    return o

@@ -21,17 +21,12 @@ from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
-# Launches of each CUDA kernel since the last reset; a run reads these to
-# show that its path went through the kernels.
-LAUNCHES = {"lamb_moments": 0, "lamb_apply": 0}
+from repro_torch.kernels.launches import LAUNCHES, register
+
+register("lamb_moments", "lamb_apply")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _LIB: Optional[ctypes.CDLL] = None
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def resolve_fused_backend(device: torch.device) -> str:

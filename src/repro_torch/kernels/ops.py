@@ -1,4 +1,5 @@
-"""Fused LAMB over a whole parameter dict (port of the fused-LAMB part of
+"""Fused LAMB over a whole parameter dict and flash attention on the model's
+layout (ports of the fused-LAMB and ``flash_sdpa`` parts of
 ``repro.kernels.ops``).
 
 The state and the order of a step are the JAX package's:
@@ -15,6 +16,7 @@ from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.lamb_update import lamb_update, resolve_fused_backend
 from repro_torch.optim.base import clip_tree_by_global_norm
 
@@ -22,6 +24,7 @@ Tensors = Dict[str, torch.Tensor]
 
 __all__ = [
     "FusedLambState",
+    "flash_sdpa",
     "fused_lamb_apply",
     "fused_lamb_init",
     "make_fused_lamb_step",
@@ -132,3 +135,24 @@ def make_fused_lamb_step(
         return delta_sq
 
     return step
+
+
+def flash_sdpa(
+    q: torch.Tensor,  # (B, S, H, D)  model layout
+    k: torch.Tensor,  # (B, T, Hkv, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    kv_valid: Optional[torch.Tensor] = None,  # (B,) valid kv lengths
+    window: int = 0,  # sliding-window size; 0 = full attention
+) -> torch.Tensor:
+    """Flash attention on the model's (B, S, H, D) layout, differentiable.
+
+    The kernels read (B, H, S, D) views of these tensors through their
+    strides and write o, dq, dk and dv in the callers' layouts, so nothing
+    is transposed by a copy; GQA is folded into the kernels' head index.
+    Ragged lengths need no padding: the kernels mask their own tails.
+    """
+    o = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                        kv_valid, causal=causal, window=window)
+    return o.transpose(1, 2)

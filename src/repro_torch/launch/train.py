@@ -2,18 +2,18 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch bert-large \
         --batch 64 --seq 128 --accum-steps 2 --precision bf16 \
-        --fused-lamb --no-flash --no-fused-ce --steps 6 [--device cpu] [--smoke]
+        --fused-lamb --no-fused-ce --steps 6 [--device cpu] [--smoke]
 
 LAMB pretraining of BERT-large (masked LM on synthetic data), the fused
-LAMB update running as CUDA kernels.  It runs on ``cuda`` unless
+LAMB update and flash attention running as CUDA kernels (``--no-flash``
+takes the dense attention instead).  It runs on ``cuda`` unless
 ``--device`` names another device, and raises when there is no card.
 
 The flags mirror ``repro.launch.train``.  Those whose code is not ported
-yet raise ``NotImplementedError`` naming their ROADMAP.md item: flash
-attention and the fused CE head (bert-large turns both on, so pass
-``--no-flash --no-fused-ce``), optimizers other than fused LAMB, meshes,
-checkpoints, mixed-batch stages, telemetry, trust-ratio logging and the
-non-finite guard.
+yet raise ``NotImplementedError`` naming their ROADMAP.md item: the fused
+CE head (bert-large turns it on, so pass ``--no-fused-ce``), optimizers
+other than fused LAMB, meshes, checkpoints, mixed-batch stages, telemetry,
+trust-ratio logging and the non-finite guard.
 """
 from __future__ import annotations
 

@@ -47,11 +47,6 @@ class Model:
 
 def build_model(cfg: ModelConfig) -> Model:
     """The model of ``cfg``; raises for what the port does not have yet."""
-    if cfg.use_flash_kernel:
-        raise NotImplementedError(
-            "flash attention (kernels K3–K5) is not ported yet (ROADMAP.md "
-            "queue 2); turn it off with use_flash_kernel=False / --no-flash"
-        )
     if cfg.use_fused_ce_head:
         raise NotImplementedError(
             "the fused CE head (kernels K6–K8) is not ported yet (ROADMAP.md "

@@ -1,9 +1,10 @@
 """Multi-head attention, train/encoder path (no KV cache).
 
-Port of the dense path of ``repro.models.layers.attention``: projections,
-RoPE, ``_sdpa`` under the additive ``_mask_bias`` and the output projection.
-The flash kernels (K3–K5) and the decode/prefill cache branch are not ported
-yet (ROADMAP.md queue 2 and queue 1, item 9).
+Port of the train/encoder path of ``repro.models.layers.attention``:
+projections, RoPE, then flash attention (kernels K3–K5 through
+``kernels.ops.flash_sdpa``) when ``cfg.use_flash_kernel``, else ``_sdpa``
+under the additive ``_mask_bias``, and the output projection.  The
+decode/prefill cache branch is not ported yet (ROADMAP.md queue 1, item 9).
 
 Layouts follow the JAX package: q (B, S, H, Dh), k/v (B, T, Hkv, Dh),
 ``wq`` (D, H, Dh), ``wo`` (H, Dh, D).
@@ -16,6 +17,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ops import flash_sdpa
 from repro_torch.models.layers.embeddings import apply_rope
 from repro_torch.nn.module import Param
 
@@ -91,7 +93,7 @@ def attention(
     """Train/encoder attention block (projections + SDPA + output projection).
 
     ``valid_len`` masks keys at positions >= valid_len[b] (at least key 0
-    stays visible, as in the JAX package).
+    stays visible on both paths, as in the JAX package).
     """
     b, s, d = x.shape
     dtype = x.dtype
@@ -106,8 +108,12 @@ def attention(
         k = apply_rope(k, positions, cfg.rope_theta)
     if valid_len is not None:
         valid_len = torch.clamp(valid_len.to(torch.int32), min=1)
-    kv_pos = torch.arange(s, dtype=torch.int32, device=x.device)
-    bias = _mask_bias(positions, kv_pos, valid_len, causal=cfg.causal,
-                      window=cfg.sliding_window)
-    out = _sdpa(q, k, v, bias, hkv)
+    if cfg.use_flash_kernel:
+        out = flash_sdpa(q, k, v, causal=cfg.causal, kv_valid=valid_len,
+                         window=cfg.sliding_window or 0)
+    else:
+        kv_pos = torch.arange(s, dtype=torch.int32, device=x.device)
+        bias = _mask_bias(positions, kv_pos, valid_len, causal=cfg.causal,
+                          window=cfg.sliding_window)
+        out = _sdpa(q, k, v, bias, hkv)
     return out.reshape(b, s, h * dh) @ p["wo"].to(dtype).reshape(h * dh, d)

@@ -17,6 +17,7 @@ from repro.train.step import make_train_step as jax_make_train_step
 from repro_torch.configs import bert_large
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core import warmup_poly_decay
+from repro_torch.kernels import flash_attention as flash_module
 from repro_torch.launch import train as launch_train
 from repro_torch.models import build_model
 from repro_torch.nn import flatten, params_from_jax, state_from_jax
@@ -143,8 +144,25 @@ def test_launcher_smoke_runs_to_done(capsys):
     assert all(np.isfinite(h["loss/total"]) for h in trainer.history)
 
 
+def test_launcher_flash_smoke_runs_to_done(capsys, monkeypatch):
+    """``--flash`` on the CPU: the plain version of K3–K5 in every layer."""
+    calls = {"fwd": 0, "bwd": 0}
+    for name, key in (("flash_attention_fwd_plain", "fwd"), ("flash_attention_bwd_plain", "bwd")):
+        def counted(*a, _f=getattr(flash_module, name), _k=key, **kw):
+            calls[_k] += 1
+            return _f(*a, **kw)
+        monkeypatch.setattr(flash_module, name, counted)
+    argv = [a for a in SMOKE if a != "--no-flash"]
+    trainer = launch_train.main(argv + ["--flash", "--device", "cpu", "--log-every", "1"])
+    out = capsys.readouterr().out
+    assert "flash=True" in out and "done: step=2 " in out and "status=ok" in out
+    assert len(trainer.history) == 2
+    assert all(np.isfinite(h["loss/total"]) for h in trainer.history)
+    assert calls == {"fwd": 4, "bwd": 4}   # 2 layers x 2 steps
+
+
 @pytest.mark.parametrize("extra", [
-    ["--flash"], ["--fused-ce"], ["--optimizer", "adamw"], ["--mesh", "data=4"],
+    ["--fused-ce"], ["--optimizer", "adamw"], ["--mesh", "data=4"],
     ["--checkpoint-dir", "ckpt"], ["--telemetry-dir", "runs"], ["--skip-nonfinite"],
 ])
 def test_launcher_unported_options_raise(extra):
