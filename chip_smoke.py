@@ -15,20 +15,26 @@ Phases, each of which raises (and so exits non-zero) on failure:
    K4 (``flash_dq``) and K5 (``flash_dkv``), forward and backward through
    the autograd boundary, against the plain version at the main path's
    shape, at seq 512 and under causal, window, ragged-length, GQA,
-   cross-length and head-dim-128 cases;
-4. reference: two bert-smoke fp32 train steps with flash attention on the
-   card against the same steps on the CPU (the CPU path is the plain version
-   the test suite holds to the JAX package);
+   cross-length and head-dim-128 cases; the fused CE kernels K6
+   (``fused_ce_fwd``), K7 (``fused_ce_dh``) and K8 (``fused_ce_dw``), forward
+   and backward through the autograd boundary, against the plain version at
+   the main path's shape, at seq 512, with ragged rows and vocab, in fp32,
+   with zero cotangents and with all-zero rows (ties);
+4. reference: two bert-smoke fp32 train steps with flash attention and the
+   fused CE head on the card against the same steps on the CPU (the CPU path
+   is the plain version the test suite holds to the JAX package);
 5. main path: ``repro_torch.launch.train`` on full-width BERT-large
    (24 layers, d 1024, vocab 30522), batch 64 × seq 128, accum 2, bf16,
-   fused LAMB, flash attention, 6 steps; finite losses, moved weights, every
-   LAMB kernel launched 13 leaves × 6 steps times and every flash kernel
-   24 layers × 2 micro-batches × 6 steps times; then 3 steps at seq 512
-   (batch 32, accum 2) with their own counts;
+   fused LAMB, flash attention, fused CE head, 6 steps; finite losses, moved
+   weights, every LAMB kernel launched 13 leaves × 6 steps times, every flash
+   kernel 24 layers × 2 micro-batches × 6 steps times and every fused CE
+   kernel 2 micro-batches × 6 steps times; then 3 steps at seq 512 (batch
+   32, accum 2) with their own counts;
 6. timing with CUDA events: K1 and K2 over one full BERT-large update, and
-   K3–K5 at the main path's shape and at seq 512, each beside its plain
-   version and its bound; ``scaled_dot_product_attention`` is timed beside
-   K3–K5 as a yardstick only (the port never calls it).
+   K3–K8 at the main path's shape and at seq 512, each beside its plain
+   version and its bound; ``scaled_dot_product_attention`` (beside K3–K5)
+   and the dense head's ``matmul`` + ``cross_entropy`` pair (beside K6–K8)
+   are timed as yardsticks only (the port never calls them).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -48,13 +54,13 @@ SRC = ROOT / "src"
 MAIN_STEPS = 6
 MAIN_ARGV = [
     "--arch", "bert-large", "--batch", "64", "--seq", "128", "--accum-steps", "2",
-    "--precision", "bf16", "--fused-lamb", "--no-fused-ce",
+    "--precision", "bf16", "--fused-lamb",
     "--steps", str(MAIN_STEPS), "--log-every", "1",
 ]
 SEQ512_STEPS = 3
 SEQ512_ARGV = [
     "--arch", "bert-large", "--batch", "32", "--seq", "512", "--accum-steps", "2",
-    "--precision", "bf16", "--fused-lamb", "--no-fused-ce",
+    "--precision", "bf16", "--fused-lamb",
     "--steps", str(SEQ512_STEPS), "--log-every", "1",
 ]
 LAYERS, LEAVES, ACCUM = 24, 13, 2
@@ -81,8 +87,15 @@ KERNELS = {
     "flash_dkv": dict(route="cuda",
                       source="src/repro_torch/kernels/csrc/flash_attention.cu",
                       replaces="src/repro/kernels/flash_attention.py:246"),
+    "fused_ce_fwd": dict(route="cuda", source="src/repro_torch/kernels/csrc/fused_ce.cu",
+                         replaces="src/repro/kernels/fused_ce.py:87"),
+    "fused_ce_dh": dict(route="cuda", source="src/repro_torch/kernels/csrc/fused_ce.cu",
+                        replaces="src/repro/kernels/fused_ce.py:162"),
+    "fused_ce_dw": dict(route="cuda", source="src/repro_torch/kernels/csrc/fused_ce.cu",
+                        replaces="src/repro/kernels/fused_ce.py:184"),
 }
 FLASH = ("flash_fwd", "flash_dq", "flash_dkv")
+FUSED_CE = ("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw")
 
 # BERT-large leaf shapes for the kernel check: (name, shape, layer_axis, x
 # dtype, g dtype, weight decay and trust ratio on)
@@ -113,6 +126,20 @@ FLASH_CASES = [
 ]
 # Flash timing shapes (b, h, s, d): what the main path gives the kernels.
 FLASH_TIMING = [("seq 128", 32, 16, 128, 64), ("seq 512", 16, 16, 512, 64)]
+
+# Fused CE checks: (name, n, d, v, dtype).  The first two are the shapes the
+# main path gives the kernels: 32 sequences × 20 gathered positions at
+# seq 128, 16 × 77 at seq 512, against the tied (30522, 1024) embedding.
+CE_CASES = [
+    ("main path", 640, 1024, 30522, "bfloat16"),
+    ("seq 512", 1232, 1024, 30522, "bfloat16"),
+    ("ragged rows and vocab", 97, 1024, 300, "bfloat16"),
+    ("fp32", 640, 1024, 30522, "float32"),
+    ("ragged fp32, D 80", 97, 80, 300, "float32"),
+]
+# Fused CE timing shapes (n rows; D 1024, V 30522, bf16).
+CE_TIMING = [("seq 128", 640), ("seq 512", 1232)]
+CE_D, CE_V = 1024, 30522
 
 
 def log(msg: str) -> None:
@@ -265,6 +292,83 @@ def check_flash(device) -> dict:
     return errs
 
 
+def check_fused_ce(device) -> dict:
+    """Max abs errors per fused CE kernel over CE_CASES; raises on a mismatch.
+
+    Inputs: h with std 1 whose first quarter of rows is all zero (every logit
+    0, so the argmax is column 0: ties), w with std 0.05, labels at 0 and
+    V − 1, the argmax on every other row (so ``correct`` is exercised) and
+    random elsewhere, a cotangent that is 0 on every third row.  Both sides
+    compute in fp32 from the same inputs in another order (the kernel's FMAs
+    against cuBLAS), so nll and lse agree to 1e-5; ``correct`` is equal except
+    where the label's logit ties the maximum within fp32 rounding; fp32
+    gradients agree to 1e-4 relative plus 1e-5 of the tensor's largest
+    magnitude, bf16 gradients round those fp32 values, so one bf16 ulp
+    (2^-7 relative) apart at most: 1e-2 relative plus 1e-4 of the largest.
+    Rows with a zero cotangent must get exactly zero dh.
+    """
+    import torch
+
+    from repro_torch.kernels.fused_ce import fused_ce, fused_ce_fwd
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # the plain version in full fp32
+    errs = dict.fromkeys(FUSED_CE, 0.0)
+    gen = torch.Generator(device=device).manual_seed(4)
+    for name, n, d, v, dt in CE_CASES:
+        dtype = getattr(torch, dt)
+        rows = torch.arange(n, device=device)
+        h = torch.randn((n, d), generator=gen, device=device)
+        h[: n // 4] = 0.0
+        h = h.to(dtype)
+        w = (0.05 * torch.randn((v, d), generator=gen, device=device)).to(dtype)
+        logits = h.float() @ w.float().t()
+        lbl = torch.randint(0, v, (n,), generator=gen, device=device, dtype=torch.int32)
+        lbl = torch.where(rows % 2 == 0, logits.argmax(1).to(torch.int32), lbl)
+        lbl[0], lbl[1] = 0, v - 1
+        g = torch.rand((n,), generator=gen, device=device)
+        g[rows % 3 == 1] = 0.0
+        outs = {}
+        for plain in (True, False):
+            hh, ww = (x.clone().requires_grad_() for x in (h, w))
+            nll, correct = fused_ce(hh, ww, lbl, plain=plain)
+            outs[plain] = [nll.detach(), correct, *torch.autograd.grad(nll, (hh, ww), g)]
+        lse, lse_ref = (fused_ce_fwd(h, w, lbl, plain=p)[2] for p in (False, True))
+        torch.cuda.synchronize()
+        (nll, correct, dh, dw), (nll_r, correct_r, dh_r, dw_r) = outs[False], outs[True]
+        ok = bool(torch.allclose(nll, nll_r, rtol=1e-5, atol=1e-5)
+                  and torch.allclose(lse, lse_ref, rtol=1e-5, atol=1e-5))
+        flips = correct != correct_r
+        if bool(flips.any()):
+            top = logits.amax(1)
+            gap = (top - logits.gather(1, lbl.long()[:, None])[:, 0]).abs()
+            ok = ok and bool((gap[flips] <= 1e-5 * (1 + top[flips].abs())).all())
+        bf16 = dtype == torch.bfloat16
+        diffs = []
+        for a, r in ((dh, dh_r), (dw, dw_r)):
+            a, r = a.float(), r.float()
+            scale = max(float(r.abs().max()), 1e-30)
+            ok = ok and bool(torch.isfinite(a).all()) and bool(torch.allclose(
+                a, r, rtol=1e-2 if bf16 else 1e-4, atol=(1e-4 if bf16 else 1e-5) * scale))
+            diffs.append(float((a - r).abs().max()))
+        zero = rows < n // 4
+        ties_ok = torch.equal(correct[zero], (lbl[zero] == 0).float())
+        still_ok = float(dh[g == 0].abs().max()) == 0.0
+        ok = ok and ties_ok and still_ok
+        e_fwd = max(float((nll - nll_r).abs().max()), float((lse - lse_ref).abs().max()))
+        log(f"check fused CE {name:22s} n {n} d {d} v {v} {dt}: |dnll|,|dlse| {e_fwd:.2e} "
+            f"correct flips {int(flips.sum())} of {n} (label wins on {int(correct_r.sum())}) "
+            f"|ddh| {diffs[0]:.2e} |ddw| {diffs[1]:.2e} ties {ties_ok} zero-g rows {still_ok} "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"fused CE kernels disagree with the plain version on {name}")
+        errs["fused_ce_fwd"] = max(errs["fused_ce_fwd"], e_fwd)
+        errs["fused_ce_dh"] = max(errs["fused_ce_dh"], diffs[0])
+        errs["fused_ce_dw"] = max(errs["fused_ce_dw"], diffs[1])
+        del h, w, logits, outs, dh, dw, dh_r, dw_r
+    torch.cuda.empty_cache()
+    return errs
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the card against the CPU on a small input
 # ---------------------------------------------------------------------------
@@ -283,7 +387,7 @@ def check_against_cpu(device) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = bert_large.smoke().replace(activation_dtype="float32", use_flash_kernel=True,
-                                     use_fused_ce_head=False)
+                                     use_fused_ce_head=True)
     tc = TrainConfig(optimizer="lamb", use_fused_lamb=True, accum_steps=2,
                      learning_rate=0.01)
     init, step = make_train_step(build_model(cfg), tc, warmup_poly_decay(0.01, 10, 0))
@@ -309,8 +413,9 @@ def check_against_cpu(device) -> None:
         if not (math.isclose(lg, lc, rel_tol=1e-4) and math.isclose(ug, uc, rel_tol=1e-4)):
             raise AssertionError("bert-smoke steps on the card disagree with the CPU")
     want = 2 * cfg.n_layers * 2  # steps × layers × micro-batches
-    if any(LAUNCHES[k] != want for k in FLASH):
-        raise AssertionError(f"flash kernels launched {LAUNCHES}, want {want} each")
+    if any(LAUNCHES[k] != want for k in FLASH) or any(LAUNCHES[k] != 2 * 2 for k in FUSED_CE):
+        raise AssertionError(f"kernels launched {LAUNCHES}, want {want} of each flash "
+                             "kernel and 4 of each fused CE kernel")
 
 
 # ---------------------------------------------------------------------------
@@ -320,6 +425,7 @@ def check_against_cpu(device) -> None:
 def _want_launches(steps: int) -> dict:
     want = dict.fromkeys(("lamb_moments", "lamb_apply"), LEAVES * steps)
     want.update(dict.fromkeys(FLASH, LAYERS * ACCUM * steps))
+    want.update(dict.fromkeys(FUSED_CE, ACCUM * steps))
     return want
 
 
@@ -340,9 +446,11 @@ def _train(device, argv, steps, label):
 
     hist = trainer.history
     n_leaves = len(trainer.state.params)
-    if len(hist) != steps or n_leaves != LEAVES or not trainer.model.cfg.use_flash_kernel:
-        raise AssertionError(f"{len(hist)} logged steps, {n_leaves} leaves, "
-                             f"flash {trainer.model.cfg.use_flash_kernel}")
+    cfg = trainer.model.cfg
+    if len(hist) != steps or n_leaves != LEAVES or not cfg.use_flash_kernel \
+            or not cfg.use_fused_ce_head:
+        raise AssertionError(f"{len(hist)} logged steps, {n_leaves} leaves, flash "
+                             f"{cfg.use_flash_kernel}, fused CE {cfg.use_fused_ce_head}")
     for h in hist:
         if not all(math.isfinite(h[k]) for k in ("loss/total", "grad_norm", "update_norm")):
             raise AssertionError(f"non-finite metrics at step {h['step']}: {h}")
@@ -546,6 +654,70 @@ def time_flash(device, rate: float) -> dict:
     return result[FLASH_TIMING[0][0]]
 
 
+def time_fused_ce(device, rate: float) -> dict:
+    """K6–K8 at each CE_TIMING shape (bf16), plain, kernel, kernel, plain,
+    beside their bound and the dense head's two calls (``matmul`` then
+    ``cross_entropy``) forward and forward + backward.  Returns the seq-128
+    (main path) numbers by kernel name."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.fused_ce import fused_ce_dh, fused_ce_dw, fused_ce_fwd
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    d, v = CE_D, CE_V
+    w = (0.05 * torch.randn((v, d), generator=gen, device=device)).to(torch.bfloat16)
+    result = {}
+    for label, n in CE_TIMING:
+        h = torch.randn((n, d), generator=gen, device=device).to(torch.bfloat16)
+        lbl = torch.randint(0, v, (n,), generator=gen, device=device, dtype=torch.int32)
+        g = torch.full((n,), 1.0 / n, device=device)
+        lse = fused_ce_fwd(h, w, lbl, plain=True)[2]
+        fns = {
+            "fused_ce_fwd": lambda plain: fused_ce_fwd(h, w, lbl, plain=plain),
+            "fused_ce_dh": lambda plain: fused_ce_dh(h, w, lbl, lse, g, plain=plain),
+            "fused_ce_dw": lambda plain: fused_ce_dw(h, w, lbl, lse, g, plain=plain),
+        }
+        # bytes each must move (bf16 h, w, dh, dw; int32 labels; fp32 per-row
+        # values) and the operations of its (N x V x D) products
+        hw, rows = (n * d + v * d) * 2, n * 4
+        bytes_ = {"fused_ce_fwd": hw + 4 * rows, "fused_ce_dh": hw + 3 * rows + n * d * 2,
+                  "fused_ce_dw": hw + 3 * rows + v * d * 2}
+        mm = 2 * n * v * d
+        flops = {"fused_ce_fwd": mm, "fused_ce_dh": 2 * mm, "fused_ce_dw": 2 * mm}
+        times = {name: {"plain": [], "cuda": []} for name in fns}
+        for name, fn in fns.items():
+            for plain in (True, False, False, True):
+                times[name]["plain" if plain else "cuda"].append(cuda_ms(lambda: fn(plain)))
+        lbl64 = lbl.long()
+        dense_fwd = cuda_ms(lambda: F.cross_entropy(torch.matmul(h, w.t()), lbl64,
+                                                    reduction="none"))
+        hg, wg = h.detach().requires_grad_(), w.detach().requires_grad_()
+        dense_fb = cuda_ms(lambda: torch.autograd.grad(
+            F.cross_entropy(torch.matmul(hg, wg.t()), lbl64, reduction="none"), (hg, wg), g))
+        out = {}
+        for name in fns:
+            t_k, t_p = min(times[name]["cuda"]), min(times[name]["plain"])
+            t_bytes, t_ops = bytes_[name] / rate, flops[name] / PEAK_OPS["bfloat16"]
+            out[name] = dict(ms=t_k, plain_ms=t_p, bound_ms=max(t_bytes, t_ops) * 1e3,
+                             bound_by="bytes" if t_bytes >= t_ops else "operations",
+                             library_ms=dense_fwd if name == "fused_ce_fwd" else None)
+            log(f"time {name} {label} (n {n} d {d} v {v} bf16): kernel "
+                f"{times[name]['cuda']} ms, plain {times[name]['plain']} ms; bound "
+                f"{out[name]['bound_ms']:.4f} ms by {out[name]['bound_by']} "
+                f"({bytes_[name] / 1e6:.1f} MB, {flops[name] / 1e9:.2f} GFLOP); achieved "
+                f"{flops[name] / (t_k * 1e-3) / 1e12:.2f} TFLOP/s")
+        log(f"time library {label}: dense head matmul + cross_entropy (two calls, bf16 "
+            f"logits) forward {dense_fwd:.4f} ms, forward + backward {dense_fb:.4f} ms "
+            f"(backward {dense_fb - dense_fwd:.4f} ms); K6 {out['fused_ce_fwd']['ms']:.4f} ms, "
+            f"K7 + K8 {out['fused_ce_dh']['ms'] + out['fused_ce_dw']['ms']:.4f} ms")
+        result[label] = out
+        del h, hg, lse, g
+    del w, wg
+    torch.cuda.empty_cache()
+    return result[CE_TIMING[0][0]]
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -572,10 +744,11 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 log(f"ptxas {src}: {line.strip()}")
 
-    errs = {**check_kernels(device), **check_flash(device)}
+    errs = {**check_kernels(device), **check_flash(device), **check_fused_ce(device)}
     check_against_cpu(device)
     launches = run_main_path(device)
-    timing = {**time_kernels(device, rate), **time_flash(device, rate)}
+    timing = {**time_kernels(device, rate), **time_flash(device, rate),
+              **time_fused_ce(device, rate)}
 
     kernels = [dict(name=k, **KERNELS[k], launches=launches[k], max_abs_err=errs[k],
                     **timing[k]) for k in KERNELS]

@@ -2,10 +2,8 @@
 24L d_model=1024 16H d_ff=4096 vocab=30522, bidirectional encoder, MLM.
 
 A copy of ``repro.configs.bert_large``.  ``use_flash_kernel`` and
-``use_fused_ce_head`` stay on as in the JAX config.  Flash attention runs on
-the port's kernels; the fused CE head is not ported yet, so callers turn it
-off (``--no-fused-ce``) until it lands, and ``models.api.build_model``
-raises if they do not.
+``use_fused_ce_head`` stay on as in the JAX config; both run on the port's
+kernels (flash attention K3–K5, the fused CE head K6–K8).
 """
 from repro_torch.configs.base import ModelConfig
 

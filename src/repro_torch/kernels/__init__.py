@@ -1,3 +1,4 @@
+from repro_torch.kernels.fused_ce import fused_ce
 from repro_torch.kernels.lamb_update import (
     LambOut,
     lamb_apply,
@@ -19,6 +20,7 @@ __all__ = [
     "FusedLambState",
     "LambOut",
     "flash_sdpa",
+    "fused_ce",
     "fused_lamb_apply",
     "fused_lamb_init",
     "lamb_apply",

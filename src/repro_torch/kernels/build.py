@@ -20,7 +20,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = {name: CSRC / f"{name}.cu" for name in ("lamb_update", "flash_attention")}
+SOURCES = {name: CSRC / f"{name}.cu" for name in ("lamb_update", "flash_attention", "fused_ce")}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,0 +1,331 @@
+"""Fused chunked-vocab cross-entropy: CUDA kernels K6–K8 and their plain version.
+
+Port of ``repro.kernels.fused_ce``, the MLM head without the logits: given
+gathered rows ``h`` (N, D) and the vocab projection ``w`` (V, D) in the
+embedding layout, it streams vocab chunks through projection + online
+log-sum-exp, so the (N, V) logits never exist, forward or backward.  Three
+kernels share one ``torch.autograd.Function``, as the three Pallas kernels
+share one ``jax.custom_vjp`` (see ``csrc/fused_ce.cu`` for the kernels, their
+bound and design):
+
+  forward (K6, ``fused_ce_fwd``): per-row nll, correct and lse;
+  backward dh (K7, ``fused_ce_dh``): dh = Σ_chunks ((p − onehot)·g)·w_c,
+      p rebuilt from lse;
+  backward dw (K8, ``fused_ce_dw``): one CUDA block owns a tile of dw rows and
+      sums every row of h into it.
+
+All statistics and products are fp32 whatever the inputs' type; dh comes
+back in h's type and dw in w's.  Each pass dispatches on where its tensors
+lie: on the CPU it runs the plain PyTorch version below (the chunked math of
+the JAX package's XLA backend, vocab chunks of ``block_v``); on a CUDA tensor
+it launches the kernel or raises.  There is no fallback from the kernel to
+the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.launches import LAUNCHES, register
+
+register("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw")
+
+NEG_INF = -1e30
+_IDX_INF = torch.iinfo(torch.int32).max
+MAX_D = 1024   # the kernels' accumulator holds 32 rows of at most this width
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def _backend(device: torch.device, plain: bool) -> str:
+    if plain or device.type == "cpu":
+        return "plain"
+    if device.type == "cuda":
+        return "cuda"
+    raise ValueError(f"fused CE has no backend for device {device}")
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        from repro_torch.kernels.build import load
+
+        lib = load("fused_ce")
+        p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.fused_ce_fwd.argtypes = [p] * 8 + [i64, i64, i, i, i, i, i, p]
+        lib.fused_ce_dh.argtypes = [p] * 7 + [i64, i64, i, i, i, i, i, p]
+        lib.fused_ce_dw.argtypes = [p] * 6 + [i64, i64, i, i, i, i, p]
+        lib.fused_ce_plan.argtypes = [i] * 5
+        for fn in (lib.fused_ce_fwd, lib.fused_ce_dh, lib.fused_ce_dw, lib.fused_ce_plan):
+            fn.restype = i
+        _LIB = lib
+    return _LIB
+
+
+# ---------------------------------------------------------------------------
+# plain versions (the CPU path, and the reference the kernels are held to)
+# ---------------------------------------------------------------------------
+
+def fused_ce_fwd_plain(h, w, lbl, block_v: int = 512
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(nll, correct, lse) in fp32 by the online log-sum-exp over vocab
+    chunks of ``block_v`` (port of ``_xla_fwd``).  ``lbl`` is int32 in
+    [0, V); ``correct`` takes the first maximum, as ``jnp.argmax`` does."""
+    n, v = h.shape[0], w.shape[0]
+    f32, dev = torch.float32, h.device
+    hf = h.to(f32)
+    m = torch.full((n,), NEG_INF, dtype=f32, device=dev)
+    l = torch.zeros((n,), dtype=f32, device=dev)
+    ll = torch.full((n,), NEG_INF, dtype=f32, device=dev)
+    bmax = torch.full((n,), NEG_INF, dtype=f32, device=dev)
+    bidx = torch.zeros((n,), dtype=torch.int32, device=dev)
+    for c0 in range(0, v, block_v):
+        s = hf @ w[c0:c0 + block_v].to(f32).t()               # (n, chunk)
+        cols = c0 + torch.arange(s.shape[1], dtype=torch.int32, device=dev)
+        m_cur = s.amax(1)
+        m_new = torch.maximum(m, m_cur)
+        l = torch.exp(m - m_new) * l + torch.exp(s - m_new[:, None]).sum(1)
+        m = m_new
+        hit = cols[None, :] == lbl[:, None]
+        ll = torch.where(hit.any(1), torch.where(hit, s, 0.0).sum(1), ll)
+        # lowest column reaching the chunk's max; a strict > across chunks
+        # keeps the earlier chunk's winner
+        cand = torch.where(s == m_cur[:, None], cols[None, :], _IDX_INF).amin(1)
+        bidx = torch.where(m_cur > bmax, cand, bidx)
+        bmax = torch.maximum(bmax, m_cur)
+    lse = m + torch.log(torch.clamp(l, min=1e-30))
+    return lse - ll, (bidx == lbl).to(f32), lse
+
+
+def _grads_plain(h, w, lbl, lse, g, block_v: int, *, want_dh: bool, want_dw: bool):
+    """(dh, dw) from the residuals, p rebuilt per vocab chunk from lse (port
+    of ``_xla_bwd``); dh in h's dtype, dw in w's, None where not wanted."""
+    f32, dev = torch.float32, h.device
+    hf = h.to(f32)
+    dh = torch.zeros(hf.shape, dtype=f32, device=dev)
+    dws = []
+    for c0 in range(0, w.shape[0], block_v):
+        wf = w[c0:c0 + block_v].to(f32)
+        s = hf @ wf.t()
+        cols = c0 + torch.arange(s.shape[1], dtype=torch.int32, device=dev)
+        onehot = (cols[None, :] == lbl[:, None]).to(f32)
+        dlog = (torch.exp(s - lse[:, None]) - onehot) * g[:, None]
+        if want_dw:
+            dws.append(dlog.t() @ hf)
+        if want_dh:
+            dh = dh + dlog @ wf
+    return (dh.to(h.dtype) if want_dh else None,
+            torch.cat(dws).to(w.dtype) if want_dw else None)
+
+
+def fused_ce_dh_plain(h, w, lbl, lse, g, block_v: int = 512) -> torch.Tensor:
+    """dh alone (what K7 computes)."""
+    return _grads_plain(h, w, lbl, lse, g, block_v, want_dh=True, want_dw=False)[0]
+
+
+def fused_ce_dw_plain(h, w, lbl, lse, g, block_v: int = 512) -> torch.Tensor:
+    """dw alone (what K8 computes)."""
+    return _grads_plain(h, w, lbl, lse, g, block_v, want_dh=False, want_dw=True)[1]
+
+
+# ---------------------------------------------------------------------------
+# kernel launches
+# ---------------------------------------------------------------------------
+
+def _check(h, w, lbl, **rows) -> None:
+    """Raise on what the kernels cannot take."""
+    if h.dim() != 2 or w.dim() != 2:
+        raise ValueError("h and w must be 2-D: (N, D) and (V, D)")
+    n, d = h.shape
+    v = w.shape[0]
+    if w.shape[1] != d:
+        raise ValueError(f"h feature dim {d} != w feature dim {w.shape[1]}")
+    if not (1 <= d <= MAX_D) or min(n, v) < 1 or max(n, v) >= 2**31 // 128:
+        raise ValueError(f"sizes out of range: h {tuple(h.shape)}, w {tuple(w.shape)} "
+                         f"(D at most {MAX_D})")
+    if h.dtype not in _DTYPE_CODES:
+        raise TypeError(f"dtype {h.dtype} is not float32 or bfloat16")
+    if w.dtype != h.dtype:
+        raise TypeError(f"w dtype {w.dtype} differs from h's {h.dtype}")
+    for name, x in (("h", h), ("w", w)):
+        if x.device != h.device:
+            raise ValueError(f"{name} is on {x.device}, h on {h.device}")
+        if x.stride(1) != 1 or (x.shape[0] > 1 and x.stride(0) < d):
+            raise ValueError(f"{name} must have contiguous rows (stride {x.stride()})")
+    for name, x in (("labels", lbl), *rows.items()):
+        want = torch.int32 if name == "labels" else torch.float32
+        if x.device != h.device or x.dtype != want or x.shape != (n,) or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {want} ({n},) tensor on h's device")
+
+
+def _row_stride(x: torch.Tensor) -> int:
+    return x.stride(0) if x.shape[0] > 1 else x.shape[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _splits(index: int, pass_: int, dtype: int, n: int, v: int, d: int) -> int:
+    """Vocab splits of K6 (``pass_`` 0) or K7 (1) on card ``index``, planned
+    by the library from the kernel's blocks per SM (once per shape)."""
+    with torch.cuda.device(index):
+        splits = _lib().fused_ce_plan(pass_, dtype, n, v, d)
+    if splits < 1:
+        raise RuntimeError(f"fused_ce_plan failed with CUDA error {-splits}")
+    return splits
+
+
+def _plan(h, w, pass_: int) -> int:
+    return _splits(h.device.index, pass_, _DTYPE_CODES[h.dtype], h.shape[0], w.shape[0],
+                   h.shape[1])
+
+
+def _shape_args(h, w) -> list:
+    return [_row_stride(h), _row_stride(w), _DTYPE_CODES[h.dtype], h.shape[0], w.shape[0],
+            h.shape[1]]
+
+
+def _stream(x: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed with CUDA error {err}")
+
+
+def _fwd_cuda(h, w, lbl):
+    _check(h, w, lbl)
+    n, dev = h.shape[0], h.device
+    splits = _plan(h, w, 0)
+    nll, correct, lse = torch.empty((3, n), dtype=torch.float32, device=dev)
+    part = torch.empty((3, splits, n), dtype=torch.float32, device=dev)
+    part_idx = torch.empty((splits, n), dtype=torch.int32, device=dev)
+    err = _lib().fused_ce_fwd(h.data_ptr(), w.data_ptr(), lbl.data_ptr(), nll.data_ptr(),
+                              correct.data_ptr(), lse.data_ptr(), part.data_ptr(),
+                              part_idx.data_ptr(), *_shape_args(h, w), splits, _stream(h))
+    _raise_on(err, "fused_ce_fwd")
+    LAUNCHES["fused_ce_fwd"] += 1
+    return nll, correct, lse
+
+
+def _dh_cuda(h, w, lbl, lse, g):
+    _check(h, w, lbl, lse=lse, g=g)
+    n, d, dev = h.shape[0], h.shape[1], h.device
+    splits = _plan(h, w, 1)
+    dh = torch.empty((n, d), dtype=h.dtype, device=dev)
+    part = torch.empty((splits, n, d), dtype=torch.float32, device=dev)
+    err = _lib().fused_ce_dh(h.data_ptr(), w.data_ptr(), lbl.data_ptr(), lse.data_ptr(),
+                             g.data_ptr(), dh.data_ptr(), part.data_ptr(),
+                             *_shape_args(h, w), splits, _stream(h))
+    _raise_on(err, "fused_ce_dh")
+    LAUNCHES["fused_ce_dh"] += 1
+    return dh
+
+
+def _dw_cuda(h, w, lbl, lse, g):
+    _check(h, w, lbl, lse=lse, g=g)
+    dw = torch.empty(w.shape, dtype=w.dtype, device=w.device)
+    err = _lib().fused_ce_dw(h.data_ptr(), w.data_ptr(), lbl.data_ptr(), lse.data_ptr(),
+                             g.data_ptr(), dw.data_ptr(), *_shape_args(h, w), _stream(h))
+    _raise_on(err, "fused_ce_dw")
+    LAUNCHES["fused_ce_dw"] += 1
+    return dw
+
+
+def fused_ce_fwd(h, w, lbl, *, block_v: int = 512, plain: bool = False):
+    """(nll, correct, lse): kernel K6 on a CUDA tensor, the plain version on
+    a CPU one (or anywhere with ``plain=True``)."""
+    if _backend(h.device, plain) == "cuda":
+        return _fwd_cuda(h, w, lbl)
+    return fused_ce_fwd_plain(h, w, lbl, block_v)
+
+
+def fused_ce_dh(h, w, lbl, lse, g, *, block_v: int = 512, plain: bool = False):
+    """dh: kernel K7 on a CUDA tensor, else the plain version."""
+    if _backend(h.device, plain) == "cuda":
+        return _dh_cuda(h, w, lbl, lse, g)
+    return fused_ce_dh_plain(h, w, lbl, lse, g, block_v)
+
+
+def fused_ce_dw(h, w, lbl, lse, g, *, block_v: int = 512, plain: bool = False):
+    """dw: kernel K8 on a CUDA tensor, else the plain version."""
+    if _backend(h.device, plain) == "cuda":
+        return _dw_cuda(h, w, lbl, lse, g)
+    return fused_ce_dw_plain(h, w, lbl, lse, g, block_v)
+
+
+def fused_ce_bwd(h, w, lbl, lse, g, *, want_dh: bool = True, want_dw: bool = True,
+                 block_v: int = 512, plain: bool = False):
+    """(dh, dw), None where not wanted: K7 and K8 on CUDA tensors, else the
+    plain version in one pass over the vocab chunks."""
+    if _backend(h.device, plain) == "plain":
+        return _grads_plain(h, w, lbl, lse, g, block_v, want_dh=want_dh, want_dw=want_dw)
+    return (_dh_cuda(h, w, lbl, lse, g) if want_dh else None,
+            _dw_cuda(h, w, lbl, lse, g) if want_dw else None)
+
+
+# ---------------------------------------------------------------------------
+# autograd boundary and public entry
+# ---------------------------------------------------------------------------
+
+class FusedCE(torch.autograd.Function):
+    """``(nll, correct) = apply(h, w, lbl, block_v, plain)``; saves the
+    residuals of the JAX package's ``_fused_ce_fwd``: h, w, lbl, lse.
+    ``correct`` is piecewise constant and ``lbl`` integral: neither gets a
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, h, w, lbl, block_v: int, plain: bool):
+        nll, correct, lse = fused_ce_fwd(h, w, lbl, block_v=block_v, plain=plain)
+        ctx.save_for_backward(h, w, lbl, lse)
+        ctx.block_v, ctx.plain = block_v, plain
+        ctx.mark_non_differentiable(correct)
+        return nll, correct
+
+    @staticmethod
+    def backward(ctx, d_nll, _d_correct):
+        h, w, lbl, lse = ctx.saved_tensors
+        g = d_nll.to(torch.float32).contiguous()
+        dh, dw = fused_ce_bwd(h, w, lbl, lse, g, want_dh=ctx.needs_input_grad[0],
+                              want_dw=ctx.needs_input_grad[1], block_v=ctx.block_v,
+                              plain=ctx.plain)
+        return dh, dw, None, None, None
+
+
+def fused_ce(
+    h: torch.Tensor,       # (N, D) gathered rows
+    w: torch.Tensor,       # (V, D) vocab projection, embedding layout
+    labels: torch.Tensor,  # (N,) int targets; clipped into [0, V)
+    *,
+    block_v: int = 512,
+    plain: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row ``(nll, correct)`` without materialising the (N, V) logits
+    (port of ``repro.kernels.fused_ce.fused_ce``).
+
+    ``nll[i] = logsumexp_v(h[i]·w[v]) − h[i]·w[labels[i]]`` in fp32;
+    ``correct[i] = argmax_v(h[i]·w[v]) == labels[i]`` with the first maximum
+    winning a tie.  Differentiable w.r.t. ``h`` and ``w``; a row whose ``nll``
+    gets a zero cotangent contributes exactly zero to both gradients.
+    ``block_v`` is the plain version's vocab chunk (the CUDA kernels use
+    tiles of their own).  ``h`` and ``w`` of different float types are both
+    taken in the wider one (exact: the products are fp32 either way).
+    ``plain=True`` runs the plain version on any device, the reference a
+    kernel run is held to on the card.
+    """
+    if h.dim() != 2 or w.dim() != 2:
+        raise ValueError("h and w must be 2-D: (N, D) and (V, D)")
+    n, d = h.shape
+    v = w.shape[0]
+    if w.shape[1] != d:
+        raise ValueError(f"h feature dim {d} != w feature dim {w.shape[1]}")
+    if tuple(labels.shape) != (n,):
+        raise ValueError(f"labels shape {tuple(labels.shape)} != ({n},)")
+    if h.dtype != w.dtype:
+        wide = torch.promote_types(h.dtype, w.dtype)
+        h, w = h.to(wide), w.to(wide)
+    lbl = torch.clamp(labels.to(device=h.device, dtype=torch.int32), 0, v - 1).contiguous()
+    return FusedCE.apply(h, w, lbl, min(block_v, v), plain)

@@ -3,12 +3,13 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_step [train flags]
 
 Takes the flags of :mod:`repro_torch.launch.train` (default: the BERT-large
-bf16 fused-LAMB, flash-attention path with batch 64 × seq 128, accum 2;
-``--no-flash`` profiles the dense attention instead), runs two warm-up
-steps, then one step under ``torch.profiler`` and five timed with CUDA
-events, all on batches made beforehand (the host's batch generation is
-timed on its own).  Prints the step time, the device's idle share, and the
-device time by kernel, grouped: the LAMB kernels, the flash-attention
+bf16 fused-LAMB, flash-attention, fused-CE path with batch 64 × seq 128,
+accum 2; ``--no-flash`` profiles the dense attention instead,
+``--no-fused-ce`` the dense MLM head), runs two warm-up steps, then one step
+under ``torch.profiler`` and five timed with CUDA events, all on batches
+made beforehand (the host's batch generation is timed on its own).  Prints
+the step time, the device's idle share, and the device time by kernel,
+grouped: the LAMB kernels, the flash-attention kernels, the fused CE
 kernels, matrix products, and everything else.
 """
 from __future__ import annotations
@@ -25,7 +26,7 @@ from repro_torch.launch.train import build, parse_args
 
 DEFAULT_ARGV = [
     "--arch", "bert-large", "--batch", "64", "--seq", "128", "--accum-steps", "2",
-    "--precision", "bf16", "--fused-lamb", "--no-fused-ce",
+    "--precision", "bf16", "--fused-lamb",
     "--log-every", "1000",
 ]
 TIMED = 5
@@ -36,6 +37,8 @@ def _group(name: str) -> str:
         return "lamb kernels"
     if any(f"flash_{k}_kernel" in name for k in ("fwd", "dq", "dkv")):
         return "flash kernels"
+    if "fused_ce_" in name:
+        return "fused CE kernels"
     if any(s in name for s in ("gemm", "Gemm", "sm90_xmma", "cutlass", "nvjet")):
         return "matrix products"
     return "other"

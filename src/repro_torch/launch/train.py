@@ -2,16 +2,16 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch bert-large \
         --batch 64 --seq 128 --accum-steps 2 --precision bf16 \
-        --fused-lamb --no-fused-ce --steps 6 [--device cpu] [--smoke]
+        --fused-lamb --steps 6 [--device cpu] [--smoke]
 
 LAMB pretraining of BERT-large (masked LM on synthetic data), the fused
-LAMB update and flash attention running as CUDA kernels (``--no-flash``
-takes the dense attention instead).  It runs on ``cuda`` unless
-``--device`` names another device, and raises when there is no card.
+LAMB update, flash attention and the fused CE head running as CUDA kernels
+(``--no-flash`` takes the dense attention instead, ``--no-fused-ce`` the
+dense MLM head).  It runs on ``cuda`` unless ``--device`` names another
+device, and raises when there is no card.
 
 The flags mirror ``repro.launch.train``.  Those whose code is not ported
-yet raise ``NotImplementedError`` naming their ROADMAP.md item: the fused
-CE head (bert-large turns it on, so pass ``--no-fused-ce``), optimizers
+yet raise ``NotImplementedError`` naming their ROADMAP.md item: optimizers
 other than fused LAMB, meshes, checkpoints, mixed-batch stages, telemetry,
 trust-ratio logging and the non-finite guard.
 """

@@ -37,9 +37,11 @@ class Model:
             return {k: -1 for k in axes}
         return axes
 
-    def apply(self, params: nn.Params, batch) -> torch.Tensor:
-        """Train/encoder forward: (B, S, V) logits in the activation dtype."""
-        return transformer.forward(params, batch, self.cfg)
+    def apply(self, params: nn.Params, batch, *, return_hidden: bool = False) -> torch.Tensor:
+        """Train/encoder forward: (B, S, V) logits in the activation dtype, or
+        with ``return_hidden`` the final hidden states (B, S, D) for the fused
+        CE head."""
+        return transformer.forward(params, batch, self.cfg, return_hidden=return_hidden)
 
     def param_count(self) -> int:
         return nn.param_count(self.defs)
@@ -47,9 +49,4 @@ class Model:
 
 def build_model(cfg: ModelConfig) -> Model:
     """The model of ``cfg``; raises for what the port does not have yet."""
-    if cfg.use_fused_ce_head:
-        raise NotImplementedError(
-            "the fused CE head (kernels K6–K8) is not ported yet (ROADMAP.md "
-            "queue 2); turn it off with use_fused_ce_head=False / --no-fused-ce"
-        )
     return Model(cfg, transformer.transformer_defs(cfg))

@@ -97,8 +97,15 @@ def forward(
     params: Dict[str, torch.Tensor],
     batch: Dict[str, torch.Tensor],
     cfg: ModelConfig,
+    *,
+    return_hidden: bool = False,
 ) -> torch.Tensor:
-    """(B, S, V) logits of the tied head."""
+    """(B, S, V) logits of the tied head.
+
+    ``return_hidden=True`` skips the vocab projection and returns the
+    post-final-norm hidden states (B, S, D) instead: the fused CE head's
+    path, which projects only the supervised positions (``train/loss.py``).
+    """
     dtype = nn.torch_dtype(cfg.activation_dtype)
     x = embed(params["embed"], batch["tokens"], dtype)
     b, s = x.shape[:2]
@@ -111,4 +118,6 @@ def forward(
         x = _one_block(bp, x, positions, cfg, valid_len=valid_len)
 
     x = apply_norm(_sub(params, "final_norm"), x)
+    if return_hidden:
+        return x
     return tied_unembed(x, params["embed"])

@@ -1,15 +1,23 @@
-"""Masked-LM / causal-LM loss, dense head (port of ``repro.train.loss``).
+"""Masked-LM / causal-LM loss (port of ``repro.train.loss``).
 
-The fused CE head (kernels K6–K8) is not ported yet (ROADMAP.md queue 2);
-``models.api.build_model`` refuses configs that ask for it.
+Two head paths share the loss:
+
+  * **dense** — the model returns ``(B, S, V)`` logits and
+    :func:`cross_entropy` takes an fp32 ``log_softmax`` over them;
+  * **fused** (``cfg.use_fused_ce_head``) — the model returns the final
+    hidden states, :func:`gather_supervised` packs the ``labels >= 0``
+    positions into a fixed-size ``(B, P, D)`` buffer before the vocab
+    projection, and ``kernels.fused_ce`` (K6–K8) streams vocab chunks through
+    projection + online log-sum-exp, so the logits never exist.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.fused_ce import fused_ce
 
 IGNORE = -1  # label value for unsupervised positions
 
@@ -32,19 +40,152 @@ def cross_entropy(
     return loss, acc
 
 
+# ---------------------------------------------------------------------------
+# fused head: gather supervised positions, then chunked-vocab CE
+# ---------------------------------------------------------------------------
+
+def mlm_buffer_size(cfg: ModelConfig, seq_len: int) -> int:
+    """The fused head's gather-buffer size P (see
+    :meth:`ModelConfig.mlm_buffer_size`, the bound the synthetic MLM data
+    caps per-row target counts at)."""
+    return cfg.mlm_buffer_size(seq_len)
+
+
+def gather_supervised(
+    hidden: torch.Tensor,  # (B, S, D)
+    labels: torch.Tensor,  # (B, S) with IGNORE marking unsupervised positions
+    p: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Pack the ``labels >= 0`` positions into a fixed-size (B, P, ...) buffer.
+
+    Returns ``(hidden_sel (B,P,D), labels_sel (B,P), valid (B,P) bool,
+    count (B,))``: supervised positions first, in their original order, pad
+    slots marked invalid with label IGNORE.  Overflow (``count > p``) is not
+    truncated here; callers check ``count`` (see :func:`fused_cross_entropy`).
+    """
+    mask = labels >= 0
+    count = mask.to(torch.int32).sum(-1)
+    # a stable argsort of the inverted mask puts supervised positions first
+    order = torch.argsort((~mask).to(torch.int32), dim=-1, stable=True)
+    idx = order[:, :p]
+    hidden_sel = torch.take_along_dim(hidden, idx[..., None], dim=1)
+    labels_sel = torch.take_along_dim(labels, idx, dim=1)
+    valid = torch.arange(p, device=labels.device)[None, :] < count[:, None]
+    return hidden_sel, torch.where(valid, labels_sel, IGNORE), valid, count
+
+
+def fused_cross_entropy(
+    hidden: torch.Tensor,  # (B, S, D) final hidden states
+    labels: torch.Tensor,  # (B, S) with IGNORE
+    w: torch.Tensor,       # (V, D) vocab projection (embedding layout)
+    *,
+    max_positions: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused-head (loss, accuracy): gather → chunked-vocab CE, no logits.
+
+    Semantics match :func:`cross_entropy` on the same labels (token mean
+    over ``labels >= 0``; zero supervision gives loss 0, accuracy 0 and zero
+    gradients).
+
+    A sequence with more than ``max_positions`` supervised positions does not
+    fit the gather buffer: the loss, the accuracy and every gradient are then
+    NaN, never a silent truncation.  Labels on the CPU, which can be read
+    without a device sync, raise a ValueError for it first.
+    """
+    p = max(1, min(max_positions, hidden.shape[1]))
+    if labels.device.type == "cpu":
+        mx = int((labels >= 0).to(torch.int32).sum(-1).max())
+        if mx > p:
+            raise ValueError(
+                f"a sequence supervises {mx} positions but the fused-CE "
+                f"gather buffer holds P={p}; raise "
+                f"ModelConfig.mlm_max_predictions (or cap masking in the "
+                f"data pipeline) — refusing to silently truncate"
+            )
+    return _gathered_cross_entropy(hidden, labels, w, p)
+
+
+def _gathered_cross_entropy(hidden, labels, w, p: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fused_cross_entropy` after its eager check: NaN on overflow."""
+    b, _, d = hidden.shape
+    hidden_sel, labels_sel, valid, count = gather_supervised(hidden, labels, p)
+    nll, correct = fused_ce(hidden_sel.reshape(b * p, d), w, labels_sel.reshape(b * p))
+    wrow = valid.reshape(b * p).to(torch.float32)
+    denom = torch.clamp(wrow.sum(), min=1.0)
+    loss = (nll * wrow).sum() / denom
+    acc = (correct * wrow).sum() / denom
+    # multiplicative, so the NaN reaches the gradients too (a select would
+    # zero the taken branch's cotangent)
+    poison = torch.where((count > p).any(), torch.nan, 1.0)
+    return loss * poison, acc * poison
+
+
+def head_weights(params, cfg: ModelConfig) -> torch.Tensor:
+    """The vocab projection in (V, D) embedding layout for the fused head:
+    the tied embedding (untied heads are not ported; the model refuses them)."""
+    return params["embed"]
+
+
+def check_fused_ce_supported(cfg: ModelConfig) -> None:
+    """Clear error for configs the fused head cannot express."""
+    if cfg.family in ("hybrid", "ssm"):
+        raise ValueError(
+            f"use_fused_ce_head is not supported for family {cfg.family!r} "
+            "(the hidden-states forward path is transformer-only)"
+        )
+    if cfg.logit_softcap:
+        raise ValueError(
+            "use_fused_ce_head cannot apply logit_softcap (the fused CE "
+            "streams raw projections); disable one of the two"
+        )
+    if cfg.frontend == "audio_stub" and cfg.mlm_max_predictions is None:
+        raise ValueError(
+            "use_fused_ce_head with audio_stub needs an explicit "
+            "ModelConfig.mlm_max_predictions: Bernoulli span masks are not "
+            "bounded by ceil(mask_ratio * seq) (that is their mean), so the "
+            "default gather buffer would overflow on most batches"
+        )
+
+
+def _masked_ce(
+    logits: Optional[torch.Tensor],
+    hidden: Optional[torch.Tensor],
+    labels: torch.Tensor,
+    cfg: ModelConfig,
+    params,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense or fused CE over ``labels >= 0``: one switch for the loss."""
+    if hidden is None:
+        return cross_entropy(logits, labels)
+    if params is None:
+        raise ValueError("the fused CE head needs params (vocab projection)")
+    return fused_cross_entropy(
+        hidden, labels, head_weights(params, cfg),
+        max_positions=mlm_buffer_size(cfg, labels.shape[-1]),
+    )
+
+
 def supervised_token_count(labels: torch.Tensor) -> torch.Tensor:
     """Number of positions contributing to the CE denominator (label >= 0)."""
     return (labels >= 0).to(torch.float32).sum()
 
 
 def lm_loss(
-    logits: torch.Tensor,
+    logits: Optional[torch.Tensor],
     batch: Dict[str, torch.Tensor],
     cfg: ModelConfig,
+    *,
+    params=None,
+    hidden: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """CE over ``batch["labels"]`` (aligned with the logits' positions)."""
+    """CE over ``batch["labels"]`` (aligned with the model's positions).
+
+    With ``hidden`` given (fused head), the CE runs gather + chunked-vocab CE
+    on the final hidden states against ``params``' vocab projection instead
+    of dense logits.
+    """
     labels = batch["labels"]
-    ce, acc = cross_entropy(logits, labels)
+    ce, acc = _masked_ce(logits, hidden, labels, cfg, params)
     metrics = {
         "loss/ce": ce,
         "accuracy": acc,

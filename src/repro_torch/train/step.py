@@ -18,7 +18,7 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.kernels import FusedLambState, fused_lamb_init, make_fused_lamb_step
 from repro_torch.models.api import Model
 from repro_torch.optim.base import global_norm
-from repro_torch.train.loss import loss_for
+from repro_torch.train.loss import check_fused_ce_supported, loss_for
 
 # Metric key carrying each microbatch's supervised-token count; drives the
 # token-weighted accumulation.
@@ -56,11 +56,23 @@ def check_train_config(tc: TrainConfig) -> None:
 
 
 def make_loss_fn(model: Model) -> Callable:
-    """``loss_fn(params, batch) -> (loss, metrics)``, dense head."""
+    """``loss_fn(params, batch) -> (loss, metrics)`` for this model.
+
+    With ``cfg.use_fused_ce_head`` the model returns final hidden states
+    instead of (B, S, V) logits and the loss runs the fused MLM head (gather
+    the supervised positions, then chunked-vocab CE, kernels K6–K8), so the
+    logits tensor never exists.  Its vocab projection is ``params``' own: in
+    a train step, the compute-dtype copy the forward ran on.
+    """
     cfg = model.cfg
+    if cfg.use_fused_ce_head:
+        check_fused_ce_supported(cfg)
     loss_impl = loss_for(cfg)
 
     def loss_fn(params, batch):
+        if cfg.use_fused_ce_head:
+            hidden = model.apply(params, batch, return_hidden=True)
+            return loss_impl(None, batch, cfg, params=params, hidden=hidden)
         logits = model.apply(params, batch)
         return loss_impl(logits, batch, cfg)
 

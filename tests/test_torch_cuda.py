@@ -3,6 +3,8 @@ one).  No JAX here, so on a machine with the card and no JAX:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
+import math
+
 import pytest
 import torch
 
@@ -157,3 +159,109 @@ def test_flash_wrapper_rejects_what_it_cannot_take(cuda):
         flash_attention_fwd(q, k, v, valid.cpu(), spec)
     with pytest.raises(ValueError, match="kv heads"):
         flash_attention_fwd(torch.cat([q, q[:, :1]], 1), k, v, valid, spec)
+
+
+# ---------------------------------------------------------------------------
+# fused CE head (K6–K8)
+# ---------------------------------------------------------------------------
+
+# (n, d, v, dtype): the main path's shape (32 x 20 gathered rows of BERT-large),
+# ragged rows and vocab, a D that is not a multiple of the kernels' chunks
+CE_CASES = [
+    (640, 1024, 30522, torch.bfloat16),
+    (97, 64, 300, torch.float32),
+    (33, 128, 1000, torch.bfloat16),
+    (256, 1024, 4099, torch.float32),
+    (50, 48, 777, torch.float32),
+]
+
+
+def _ce_inputs(n, d, v, dtype, device, seed=0):
+    """Rows of h with std 1, w with std 0.05; a quarter of the rows all zero
+    (every logit 0: the argmax is column 0), labels at 0, V - 1 and random,
+    and a cotangent that is 0 on a third of the rows."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    h = torch.randn((n, d), generator=gen, device=device)
+    h[: n // 4] = 0.0
+    w = 0.05 * torch.randn((v, d), generator=gen, device=device)
+    lbl = torch.randint(0, v, (n,), generator=gen, device=device, dtype=torch.int32)
+    lbl[0], lbl[1], lbl[-1] = 0, v - 1, 0
+    g = torch.rand((n,), generator=gen, device=device)
+    g[torch.arange(n, device=device) % 3 == 1] = 0.0
+    return h.to(dtype), w.to(dtype), lbl, g
+
+
+def _ce_close(a, ref, dtype):
+    """fp32: the kernels' FMA order against cuBLAS's, 1e-4 relative plus 1e-5
+    of the tensor's scale; bf16 gradients round those fp32 values, so one
+    bf16 ulp (2^-7 relative) apart at most, plus the same absolute term."""
+    a, ref = a.detach().float(), ref.detach().float()
+    scale = max(float(ref.abs().max()), 1e-30)
+    rtol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(a, ref, rtol=rtol, atol=(1e-4 if dtype == torch.bfloat16
+                                                        else 1e-5) * scale)
+
+
+@pytest.mark.parametrize("n,d,v,dtype", CE_CASES)
+def test_fused_ce_kernels_match_plain_on_card(cuda, n, d, v, dtype):
+    from repro_torch.kernels.fused_ce import fused_ce, fused_ce_fwd
+
+    h, w, lbl, g = _ce_inputs(n, d, v, dtype, cuda)
+    outs = {}
+    for plain in (True, False):
+        hh, ww = h.clone().requires_grad_(), w.clone().requires_grad_()
+        reset_launches()
+        nll, correct = fused_ce(hh, ww, lbl, plain=plain)
+        dh, dw = torch.autograd.grad(nll, (hh, ww), g)
+        torch.cuda.synchronize()
+        launched = {k: LAUNCHES[k] for k in ("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw")}
+        assert set(launched.values()) == {0 if plain else 1}, launched
+        assert dh.dtype == dw.dtype == dtype
+        outs[plain] = (nll, correct, dh, dw)
+    nll, correct, dh, dw = outs[False]
+    nll_r, correct_r, dh_r, dw_r = outs[True]
+    torch.testing.assert_close(nll, nll_r, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(correct, correct_r, rtol=0, atol=0)
+    _ce_close(dh, dh_r, dtype)
+    _ce_close(dw, dw_r, dtype)
+    # zero rows: every logit is 0, so the argmax is column 0 and nll = log V
+    zero = slice(0, n // 4)
+    assert torch.equal(correct[zero], (lbl[zero] == 0).float())
+    torch.testing.assert_close(nll[zero], torch.full_like(nll[zero], math.log(v)),
+                               rtol=1e-6, atol=1e-5)
+    # rows with a zero cotangent get exactly zero dh
+    assert float(dh[g == 0].abs().max()) == 0.0
+    (_, _, lse), (_, _, lse_r) = (fused_ce_fwd(h, w, lbl, plain=p) for p in (False, True))
+    torch.testing.assert_close(lse, lse_r, rtol=1e-5, atol=1e-5)
+
+
+def test_fused_ce_kernels_are_deterministic(cuda):
+    from repro_torch.kernels.fused_ce import fused_ce
+
+    h, w, lbl, g = _ce_inputs(300, 256, 5000, torch.float32, cuda, seed=1)
+    runs = []
+    for _ in range(2):
+        hh, ww = h.clone().requires_grad_(), w.clone().requires_grad_()
+        nll, correct = fused_ce(hh, ww, lbl)
+        runs.append((nll, correct, *torch.autograd.grad(nll, (hh, ww), g)))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_fused_ce_wrappers_reject_what_they_cannot_take(cuda):
+    from repro_torch.kernels.fused_ce import fused_ce_dh, fused_ce_fwd
+
+    h, w, lbl, g = _ce_inputs(16, 64, 100, torch.float32, cuda)
+    lse = fused_ce_fwd(h, w, lbl)[2]
+    with pytest.raises(ValueError, match="at most"):
+        fused_ce_fwd(torch.zeros((4, 1040), device=cuda), torch.zeros((8, 1040), device=cuda),
+                     lbl[:4])
+    with pytest.raises(TypeError, match="differs"):
+        fused_ce_fwd(h, w.bfloat16(), lbl)
+    with pytest.raises(TypeError):
+        fused_ce_fwd(h.half(), w.half(), lbl)
+    with pytest.raises(ValueError, match="contiguous rows"):
+        fused_ce_fwd(h.t().contiguous().t(), w, lbl)
+    with pytest.raises(ValueError, match="labels"):
+        fused_ce_fwd(h, w, lbl.long())
+    with pytest.raises(ValueError, match="g must"):
+        fused_ce_dh(h, w, lbl, lse, g.cpu())

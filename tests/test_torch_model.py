@@ -51,8 +51,13 @@ def test_unported_archs_and_kernels_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config("smollm-360m")
     assert build_model(bert_large.smoke().replace(use_fused_ce_head=False)).cfg.use_flash_kernel
-    with pytest.raises(NotImplementedError, match="K6"):
-        build_model(bert_large.smoke().replace(use_flash_kernel=False))
+    # the fused CE head (K6–K8) is ported: bert-smoke builds with it on and
+    # its forward returns the final hidden states for the head
+    model = build_model(bert_large.smoke())
+    assert model.cfg.use_fused_ce_head
+    batch = {k: torch.from_numpy(v) for k, v in
+             next(jax_synthetic.batch_iterator(jax_bert.smoke(), 2, 16, seed=0)).items()}
+    assert model.apply(model.init(0, "cpu"), batch, return_hidden=True).shape == (2, 16, 128)
     for field in (dict(norm_type="rmsnorm"), dict(gated_mlp=True), dict(act_fn="silu"),
                   dict(n_experts=4), dict(tie_embeddings=False), dict(remat="full")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

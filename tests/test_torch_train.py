@@ -162,7 +162,7 @@ def test_launcher_flash_smoke_runs_to_done(capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--fused-ce"], ["--optimizer", "adamw"], ["--mesh", "data=4"],
+    ["--log-trust-ratios"], ["--optimizer", "adamw"], ["--mesh", "data=4"],
     ["--checkpoint-dir", "ckpt"], ["--telemetry-dir", "runs"], ["--skip-nonfinite"],
 ])
 def test_launcher_unported_options_raise(extra):
