@@ -8,14 +8,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
 1. the card: its name and power limit from ``nvidia-smi``;
 2. build: the CUDA kernels, from ``src/repro_torch/kernels/csrc``, with
    ``nvcc`` for ``sm_90a`` into ``build/`` (one ``nvcc`` per source, in
-   parallel);
+   parallel); ptxas's registers and spills per kernel;
 3. kernels vs plain: the fused LAMB kernels K1 (``lamb_moments``) and K2
    (``lamb_apply``) against their plain PyTorch version on the same inputs,
    at BERT-large leaf shapes; the flash-attention kernels K3 (``flash_fwd``),
    K4 (``flash_dq``) and K5 (``flash_dkv``), forward and backward through
    the autograd boundary, against the plain version at the main path's
    shape, at seq 512 and under causal, window, ragged-length, GQA,
-   cross-length and head-dim-128 cases; the fused CE kernels K6
+   cross-length, model-layout and head-dim 16, 32 and 128 cases (bf16 K3
+   and K5 on the tensor cores, fp32 on the FMA kernels), and K5 run twice
+   for equal bits; the fused CE kernels K6
    (``fused_ce_fwd``), K7 (``fused_ce_dh``) and K8 (``fused_ce_dw``), forward
    and backward through the autograd boundary, against the plain version at
    the main path's shape, at seq 512, with ragged rows and vocab, in fp32,
@@ -28,7 +30,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    fused LAMB, flash attention, fused CE head, 6 steps; finite losses, moved
    weights, every LAMB kernel launched 13 leaves × 6 steps times, every flash
    kernel 24 layers × 2 micro-batches × 6 steps times and every fused CE
-   kernel 2 micro-batches × 6 steps times; then 3 steps at seq 512 (batch
+   kernel 2 micro-batches × 6 steps times, every K3 and K5 launch on the
+   tensor-core kernel and no copy of ``do``; then 3 steps at seq 512 (batch
    32, accum 2) with their own counts;
 6. timing with CUDA events: K1 and K2 over one full BERT-large update, and
    K3–K8 at the main path's shape and at seq 512, each beside its plain
@@ -43,6 +46,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -80,13 +84,20 @@ KERNELS = {
                        replaces="src/repro/kernels/lamb_update.py:50"),
     "flash_fwd": dict(route="cuda",
                       source="src/repro_torch/kernels/csrc/flash_attention.cu",
-                      replaces="src/repro/kernels/flash_attention.py:122"),
+                      replaces="src/repro/kernels/flash_attention.py:122",
+                      design="bf16: flash_fwd_mma_kernel, mma.sync m16n8k16 on the tensor "
+                             "cores, q in registers, k/v in a 2-stage cp.async ring, p as "
+                             "three bf16 terms; fp32: flash_fwd_kernel, FMA"),
     "flash_dq": dict(route="cuda",
                      source="src/repro_torch/kernels/csrc/flash_attention.cu",
                      replaces="src/repro/kernels/flash_attention.py:213"),
     "flash_dkv": dict(route="cuda",
                       source="src/repro_torch/kernels/csrc/flash_attention.cu",
-                      replaces="src/repro/kernels/flash_attention.py:246"),
+                      replaces="src/repro/kernels/flash_attention.py:246",
+                      design="bf16: flash_dkv_mma_kernel, mma.sync m16n8k16 on the tensor "
+                             "cores, k/v in shared memory, q/do/lse/di in a 2-stage cp.async "
+                             "ring, p and ds as bf16 hi+lo, dk/dv in fp32 registers; fp32: "
+                             "flash_dkv_kernel, FMA"),
     "fused_ce_fwd": dict(route="cuda", source="src/repro_torch/kernels/csrc/fused_ce.cu",
                          replaces="src/repro/kernels/fused_ce.py:87"),
     "fused_ce_dh": dict(route="cuda", source="src/repro_torch/kernels/csrc/fused_ce.cu",
@@ -110,19 +121,30 @@ CHECK_CASES = [
 
 
 # Flash-attention checks: (name, b, h, hkv, s, t, d, causal, window, kv_valid
-# or None, dtype).  The first two are the shapes the main path gives the
-# kernels at seq 128 and 512.
+# or None, dtype, layout).  The first two are the shapes the main path gives
+# the kernels at seq 128 and 512.  Layout "bshd": q, k, v and do are the
+# model's (B, S, H, D) tensors seen as (B, H, S, D) views, as flash_sdpa
+# hands them over.
 FLASH_CASES = [
-    ("main path", 32, 16, 16, 128, 128, 64, False, 0, None, "bfloat16"),
-    ("seq 512", 16, 16, 16, 512, 512, 64, False, 0, None, "bfloat16"),
-    ("causal", 4, 16, 16, 256, 256, 64, True, 0, None, "bfloat16"),
-    ("window", 4, 8, 8, 512, 512, 64, True, 128, None, "float32"),
-    ("valid + window, dead rows", 3, 4, 4, 300, 300, 64, True, 64, [40, 300, 177], "float32"),
-    ("ragged valid", 4, 16, 16, 128, 128, 64, False, 0, [128, 77, 1, 0], "bfloat16"),
-    ("GQA 8/2 + valid", 4, 8, 2, 256, 256, 64, False, 0, [256, 200, 31, 129], "bfloat16"),
-    ("cross-length causal", 4, 8, 8, 128, 384, 64, True, 0, None, "float32"),
-    ("D 128 fp32", 4, 8, 8, 384, 384, 128, True, 0, None, "float32"),
-    ("D 128 bf16", 4, 8, 8, 384, 384, 128, False, 0, None, "bfloat16"),
+    ("main path", 32, 16, 16, 128, 128, 64, False, 0, None, "bfloat16", "bhsd"),
+    ("seq 512", 16, 16, 16, 512, 512, 64, False, 0, None, "bfloat16", "bhsd"),
+    ("causal", 4, 16, 16, 256, 256, 64, True, 0, None, "bfloat16", "bhsd"),
+    ("window", 4, 8, 8, 512, 512, 64, True, 128, None, "float32", "bhsd"),
+    ("valid + window, dead rows", 3, 4, 4, 300, 300, 64, True, 64, [40, 300, 177], "float32",
+     "bhsd"),
+    ("valid + window, dead rows", 3, 4, 4, 300, 300, 64, True, 64, [40, 300, 177], "bfloat16",
+     "bhsd"),
+    ("ragged valid", 4, 16, 16, 128, 128, 64, False, 0, [128, 77, 1, 0], "bfloat16", "bhsd"),
+    ("ragged S = T", 4, 16, 16, 200, 200, 64, False, 0, None, "bfloat16", "bhsd"),
+    ("GQA 8/2 + valid", 4, 8, 2, 256, 256, 64, False, 0, [256, 200, 31, 129], "bfloat16",
+     "bhsd"),
+    ("model layout, GQA 16/4", 8, 16, 4, 128, 128, 64, False, 0,
+     [128, 100, 64, 1, 128, 77, 128, 5], "bfloat16", "bshd"),
+    ("cross-length causal", 4, 8, 8, 128, 384, 64, True, 0, None, "float32", "bhsd"),
+    ("D 16", 4, 8, 8, 256, 256, 16, False, 0, [256, 100, 17, 256], "bfloat16", "bhsd"),
+    ("D 32 causal", 4, 8, 8, 320, 320, 32, True, 0, None, "bfloat16", "bhsd"),
+    ("D 128 fp32", 4, 8, 8, 384, 384, 128, True, 0, None, "float32", "bhsd"),
+    ("D 128 bf16", 4, 8, 8, 384, 384, 128, False, 0, None, "bfloat16", "bhsd"),
 ]
 # Flash timing shapes (b, h, s, d): what the main path gives the kernels.
 FLASH_TIMING = [("seq 128", 32, 16, 128, 64), ("seq 512", 16, 16, 512, 64)]
@@ -161,6 +183,37 @@ def memory_rate(name: str) -> float:
         if key in name:
             return rate
     raise RuntimeError(f"no memory rate on record for {name!r}")
+
+
+def ptxas_lines(log_text: str) -> list:
+    """The registers and spill lines of ptxas's report, each after the
+    kernel it belongs to (``name<dtype, D>``)."""
+    out, name = [], "?"
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = _kernel_name(m.group(1))
+        elif "registers" in line or "spill" in line:
+            out.append(f"{name}: {line.strip()}")
+    return out
+
+
+def _kernel_name(sym: str) -> str:
+    """``flash_fwd_mma_kernel<64>`` from its mangled name in the anonymous
+    namespace (types: f = fp32, __nv_bfloat16 = bf16; ints: Li64E = 64)."""
+    m = re.match(r"_ZN(\d+)", sym)
+    if not m:
+        return sym
+    at = m.end() + int(m.group(1))   # past the namespace's name
+    m = re.match(r"\d+", sym[at:])
+    if not m:
+        return sym
+    at, n = at + m.end(), int(m.group())
+    name, args = sym[at:at + n], sym[at + n:]
+    targs = args[1:args.find("EEv") + 1] if args.startswith("I") else ""
+    shown = ["bf16" if t.group(0).startswith("13") else t.group(1) or "fp32"
+             for t in re.finditer(r"13__nv_bfloat16|Li(\d+)E|f", targs)]
+    return f"{name}<{', '.join(shown)}>" if shown else name
 
 
 def bf16_ulp(t):
@@ -229,25 +282,37 @@ def check_kernels(device) -> dict:
 def check_flash(device) -> dict:
     """Max abs errors per flash kernel over FLASH_CASES; raises on a mismatch.
 
-    Both sides compute in fp32 from the same inputs, in another order (the
-    kernel's FMAs against cuBLAS), so fp32 outputs agree to 1e-4 relative
+    The kernels run through the autograd boundary (K3, then K4 and K5);
+    each is held against the plain version on the same inputs: the forward
+    on q, k, v, the backward on the kernel forward's residuals (o, lse) and
+    do.  Both sides compute in fp32 from those inputs, in another order (the
+    kernel's sums against cuBLAS), so fp32 outputs agree to 1e-4 relative
     plus 1e-4 of the tensor's largest magnitude; bf16 outputs round those
     fp32 values, so they may differ by one bf16 ulp (2^-7 relative): 1e-2
-    relative plus the same absolute term.  lse is fp32: 1e-5.
+    relative plus the same absolute term.  lse is fp32: 1e-5.  A bf16 o
+    that rounds to the other neighbouring value changes di = rowsum(o do),
+    and through the cancelling dp - di the dq of its row by more than an
+    ulp; so the plain backward from the plain forward's own o is not the
+    same input, and how far the two chains part is logged, not held.
     """
     import torch
 
     from repro_torch.kernels.flash_attention import FlashSpec, flash_attention, \
-        flash_attention_fwd
+        flash_attention_bwd, flash_attention_fwd, flash_dkv, row_dot
 
     errs = dict.fromkeys(FLASH, 0.0)
     gen = torch.Generator(device=device).manual_seed(2)
-    for name, b, h, hkv, s, t, d, causal, window, valid, dt in FLASH_CASES:
+
+    def make(b, heads, n, d, dtype, layout):
+        if layout == "bshd":
+            x = torch.randn((b, n, heads, d), generator=gen, device=device)
+            return x.to(dtype).transpose(1, 2)
+        return torch.randn((b, heads, n, d), generator=gen, device=device).to(dtype)
+
+    for name, b, h, hkv, s, t, d, causal, window, valid, dt, layout in FLASH_CASES:
         dtype = getattr(torch, dt)
-        q, do = (torch.randn((b, h, s, d), generator=gen, device=device).to(dtype)
-                 for _ in range(2))
-        k, v = (torch.randn((b, hkv, t, d), generator=gen, device=device).to(dtype)
-                for _ in range(2))
+        q, do = (make(b, h, s, d, dtype, layout) for _ in range(2))
+        k, v = (make(b, hkv, t, d, dtype, layout) for _ in range(2))
         kv_valid = None if valid is None else torch.tensor(valid, dtype=torch.int32,
                                                            device=device)
         outs = {}
@@ -257,18 +322,20 @@ def check_flash(device) -> dict:
             outs[plain] = [o.detach(), *torch.autograd.grad(o, qkv, do)]
         lim = None if valid is None else kv_valid.clamp(1, t)
         spec = FlashSpec(d**-0.5, causal, window, valid is not None)
-        lse, lse_ref = (flash_attention_fwd(q, k, v, lim, spec, plain=p)[1]
-                        for p in (False, True))
+        (o_k, lse), (o_ref, lse_ref) = (flash_attention_fwd(q, k, v, lim, spec, plain=p)
+                                        for p in (False, True))
+        same_inputs = [o_ref, *flash_attention_bwd(q, k, v, lim, o_k, lse, do, spec, plain=True)]
         torch.cuda.synchronize()
         rtol = 1e-2 if dt == "bfloat16" else 1e-4
         ok = bool(torch.allclose(lse, lse_ref, rtol=1e-5, atol=1e-5))
-        diffs = []
-        for a, r in zip(outs[False], outs[True]):
-            a, r = a.float(), r.float()
+        diffs, parted = [], []
+        for a, r, c in zip(outs[False], same_inputs, outs[True]):
+            a, r, c = a.float(), r.float(), c.float()
             atol = 1e-4 * max(1.0, float(r.abs().max()))
             ok = ok and bool(torch.isfinite(a).all()) and bool(
                 torch.allclose(a, r, rtol=rtol, atol=atol))
             diffs.append(float((a - r).abs().max()))
+            parted.append(int(((a - c).abs() > rtol * c.abs() + atol).sum()))
         if valid is not None and window:
             # rows where window ∩ valid is empty: o = 0 and dq = 0 exactly
             rows = torch.arange(s, device=device)
@@ -278,16 +345,35 @@ def check_flash(device) -> dict:
             ok = ok and int(dead.sum()) > 0 and float(dead_o.abs().max()) == 0.0 \
                 and float(dead_dq.abs().max()) == 0.0
         log(f"check flash {name:26s} q {(b, h, s, d)} kv {(hkv, t)} causal {causal} "
-            f"window {window} valid {valid} {dt}: |do| {diffs[0]:.2e} |ddq| {diffs[1]:.2e} "
+            f"window {window} valid {valid} {dt} {layout}: |do| {diffs[0]:.2e} "
+            f"|ddq| {diffs[1]:.2e} "
             f"|ddk| {diffs[2]:.2e} |ddv| {diffs[3]:.2e} |dlse| "
             f"{float((lse - lse_ref).abs().max()):.2e} (rtol {rtol:g}) "
-            f"{'ok' if ok else 'MISMATCH'}")
+            f"{'ok' if ok else 'MISMATCH'}; against the plain chain, elements past "
+            f"that tolerance (o, dq, dk, dv): {parted} of {q.numel()}")
         if not ok:
             raise AssertionError(f"flash kernels disagree with the plain version on {name}")
         errs["flash_fwd"] = max(errs["flash_fwd"], diffs[0])
         errs["flash_dq"] = max(errs["flash_dq"], diffs[1])
         errs["flash_dkv"] = max(errs["flash_dkv"], diffs[2], diffs[3])
-        del q, k, v, do, outs
+        del q, k, v, do, outs, same_inputs, o_k, o_ref
+    # K5 owns its dk/dv tile and sums in a fixed order: two runs, equal bits
+    for name, b, h, hkv, s, t, d, causal, window, valid, dt, layout in (
+            FLASH_CASES[0], next(c for c in FLASH_CASES if c[0] == "GQA 8/2 + valid")):
+        dtype = getattr(torch, dt)
+        q, do = (make(b, h, s, d, dtype, layout) for _ in range(2))
+        k, v = (make(b, hkv, t, d, dtype, layout) for _ in range(2))
+        lim = None if valid is None else torch.tensor(valid, dtype=torch.int32,
+                                                      device=device).clamp(1, t)
+        spec = FlashSpec(d**-0.5, causal, window, valid is not None)
+        o, lse = flash_attention_fwd(q, k, v, lim, spec)
+        di = row_dot(o, do)
+        runs = [flash_dkv(q, k, v, lim, lse, di, do, spec) for _ in range(2)]
+        same = all(torch.equal(x, y) for x, y in zip(*runs))
+        log(f"check flash_dkv {name}: two runs {'equal' if same else 'DIFFER'} bit for bit")
+        if not same:
+            raise AssertionError(f"flash_dkv is not bit-reproducible on {name}")
+        del q, k, v, do, o, lse, di, runs
     torch.cuda.empty_cache()
     return errs
 
@@ -434,7 +520,7 @@ def _train(device, argv, steps, label):
     non-finite metrics or launch counts off the path's shape."""
     import torch
 
-    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import COPIES, LAUNCHES, VARIANT_LAUNCHES, reset_launches
     from repro_torch.launch import train as launch_train
 
     torch.cuda.reset_peak_memory_stats(device)
@@ -442,6 +528,8 @@ def _train(device, argv, steps, label):
     trainer = launch_train.main(argv)
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
+    designs = {k: dict(v) for k, v in VARIANT_LAUNCHES.items()}
+    copies = dict(COPIES)
     peak = torch.cuda.max_memory_allocated(device)
 
     hist = trainer.history
@@ -456,6 +544,15 @@ def _train(device, argv, steps, label):
             raise AssertionError(f"non-finite metrics at step {h['step']}: {h}")
     if launches != _want_launches(steps):
         raise AssertionError(f"{label}: launches {launches}, want {_want_launches(steps)}")
+    # bf16 K3 and K5 on the tensor cores, every launch; K4 on its FMA kernel;
+    # autograd's do read as it came, never copied
+    n_flash = LAYERS * ACCUM * steps
+    want_designs = {"flash_fwd": {"mma": n_flash, "fma": 0},
+                    "flash_dq": {"mma": 0, "fma": n_flash},
+                    "flash_dkv": {"mma": n_flash, "fma": 0}}
+    if designs != want_designs or any(copies.values()):
+        raise AssertionError(f"{label}: flash launches by design {designs}, want "
+                             f"{want_designs}; copies {copies}, want none")
     walls = [h["wall_s"] for h in hist]
     steady = [b - a for a, b in zip(walls[1:], walls[2:])]  # after two warm-up steps
     step_s = sum(steady) / len(steady)
@@ -465,6 +562,7 @@ def _train(device, argv, steps, label):
         f"{[round(s, 4) for s in steady]} s, mean {step_s * 1e3:.1f} ms/step, "
         f"{batch * seq / step_s:.0f} tokens/s, peak memory {peak / 2**30:.2f} GiB")
     log(f"{label}: launches {launches}")
+    log(f"{label}: flash launches by design {designs}; input copies {copies}")
     return trainer, launches
 
 
@@ -740,9 +838,8 @@ def main() -> None:
     secs = build.build_all()
     log(f"build: {json.dumps(secs)} ({time.perf_counter() - t0:.1f} s wall)")
     for src in build.SOURCES:
-        for line in (build.BUILD_DIR / f"{src}.log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {src}: {line.strip()}")
+        for line in ptxas_lines((build.BUILD_DIR / f"{src}.log").read_text()):
+            log(f"ptxas {src}: {line}")
 
     errs = {**check_kernels(device), **check_flash(device), **check_fused_ce(device)}
     check_against_cpu(device)

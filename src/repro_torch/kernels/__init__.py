@@ -6,7 +6,7 @@ from repro_torch.kernels.lamb_update import (
     lamb_update,
     resolve_fused_backend,
 )
-from repro_torch.kernels.launches import LAUNCHES, reset_launches
+from repro_torch.kernels.launches import COPIES, LAUNCHES, VARIANT_LAUNCHES, reset_launches
 from repro_torch.kernels.ops import (
     FusedLambState,
     flash_sdpa,
@@ -16,6 +16,7 @@ from repro_torch.kernels.ops import (
 )
 
 __all__ = [
+    "COPIES",
     "LAUNCHES",
     "FusedLambState",
     "LambOut",
@@ -29,4 +30,5 @@ __all__ = [
     "make_fused_lamb_step",
     "reset_launches",
     "resolve_fused_backend",
+    "VARIANT_LAUNCHES",
 ]

@@ -1,9 +1,11 @@
 // Differentiable flash attention for Hopper (sm_90a): forward, dq, dk/dv.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/flash_attention.py:
-//   flash_fwd_kernel  <- _fwd_kernel (K3, pallas_call at :313)
+//   flash_fwd_mma_kernel (bf16), flash_fwd_kernel (fp32)
+//                     <- _fwd_kernel (K3, pallas_call at :313)
 //   flash_dq_kernel   <- _dq_kernel  (K4, pallas_call at :360)
-//   flash_dkv_kernel  <- _dkv_kernel (K5, pallas_call at :386)
+//   flash_dkv_mma_kernel (bf16), flash_dkv_kernel (fp32)
+//                     <- _dkv_kernel (K5, pallas_call at :386)
 //
 // What they compute, for q (B, H, S, D) and k, v (B, Hkv, T, D), q head h
 // reading kv head h / (H / Hkv) (GQA: k and v are never repeated):
@@ -22,33 +24,82 @@
 // and zero gradients.  The ragged tails of S and T are masked here: the
 // caller pads nothing.
 //
+// Two designs, chosen by dtype in launch_pass (not a fallback: a call of one
+// dtype never reaches the other's kernels):
+//   bf16: K3 and K5 run on the tensor cores (flash_fwd_mma_kernel,
+//     flash_dkv_mma_kernel); K4 on the fp32 FMA kernel below.
+//   fp32: all three on fp32 FMA kernels.  The reference multiplies fp32
+//     inputs in fp32; the tensor cores would make that TF32, another
+//     function.
+//
 // Bound on an H100 SXM.  At BERT-large's shape (B 32, H 16, S = T 128,
 // D 64, bf16) each pass reads and writes a few (B, H, S, D) tensors of
-// 8.4 MB: 34 MB (K3), 42 MB (K4), 51 MB (K5), 10-15 us at 3.35 TB/s,
-// against 2.1-4.3 GFLOP, 2-4 us at the 989 TFLOP/s of bf16 tensor cores:
-// bound by bytes.  At S = 512 the work grows as S^2 and the same passes are
-// bound by operations.  This first version computes in fp32 FMA from
-// shared-memory tiles (no tensor cores), so it runs against the card's
-// 67 TFLOP/s fp32 rate instead and stays far above either bound.
+// 8.4 MB: 34 MB (K3), 42 MB (K4), 51 MB (K5), 10-15 us at 3.35 TB/s
+// (K3 0.0101 ms, K5 0.0152 ms), against 2.1-4.3 GFLOP, 2-4 us at the
+// 989 TFLOP/s of bf16 tensor cores: bound by bytes.  At S = 512 the work
+// grows as S^2: K5's 34 GFLOP take 0.0347 ms, more than its bytes, so it is
+// bound by operations; K3 (17 GFLOP, 0.0174 ms) stays just under its bytes
+// (0.0202 ms).
 //
-// Design.  The TPU kernels walk a sequential kv (or q) grid axis and carry
-// their accumulators in VMEM from one grid step to the next; on Hopper the
-// blocks run in parallel and nothing carries over, so that axis is a loop
-// inside one block:
-//   K3 and K4: one block per (b*h, 64-row q tile), looping over the kv tiles
-//     that hold any unmasked entry for the tile (causal, window and valid
-//     bounds skip the rest, where the FLOP saving is);
+// The tensor-core design (bf16).  The TPU kernels walk a sequential kv (or
+// q) grid axis and carry their accumulators in VMEM from one grid step to
+// the next; on Hopper the blocks run in parallel and nothing carries over,
+// so that axis is a loop inside one block.  A block has 4 warps; each warp
+// owns 16 rows (one m16 tile of mma.sync.m16n8k16, bf16 in, fp32
+// accumulate):
+//   K3: one block per (b*h, 64-row q tile).  The warp's q fragments stay in
+//     registers for the whole kv loop.  s = q k^T on the tensor cores, the
+//     online softmax on the fp32 accumulator registers (row max and sum over
+//     the quad of lanes that shares a row, by shuffles; masks on fragment
+//     coordinates, the same keep and kv_range as the FMA kernels), then
+//     o += p v on the tensor cores.  o leaves as bf16 through shared memory
+//     in 16-byte stores, lse as fp32.
 //   K5: one block per (b*hkv, 64-row kv tile), looping over (q head of the
-//     group x q tile); it owns its dk/dv tile, so there are no atomics and
-//     every run gives the same bits.
-// 256 threads form a 16 x 16 grid; each owns 4 rows x 4 columns of the
-// 64 x 64 score tile and 4 rows x D/16 columns of its accumulators, in
-// registers.  Row max and row sum reduce over the 16 threads of a half warp
-// with shuffles.  Tiles are held in fp32 in dynamic shared memory (up to
-// 162 KB at D = 128, above the 48 KB of static shared memory) with rows
+//     group x q tile of 64 rows, 32 at D 128 for registers); it owns its
+//     dk/dv tile, so there are no atomics and every run gives the same bits.
+//     k and v stay in shared memory; q, do, lse and di stream through a
+//     two-stage ring.  s^T = k q^T and dp^T = v do^T on the tensor cores,
+//     p^T = exp(scale s^T - lse) and ds^T = p^T (dp^T - di) in registers,
+//     then dv += p^T do and dk += ds^T q on the tensor cores; dk and dv
+//     stay in fp32 registers to the end.
+// p and ds enter the second products as sums of bf16 terms (t0 = bf16(x),
+// t1 = bf16(x - t0), ...), one mma per term: the reference keeps them in
+// fp32, and ds = p (dp - di) cancels, so one bf16 p or ds (8 bits) would
+// miss the fp32-level agreement the tests hold the kernels to.  K5 takes two
+// terms (~16 bits).  K3 takes three (all 24): o leaves as bf16, and its
+// rounding feeds di = rowsum(o do) and through the cancelling dp - di the dq
+// of rows that see few keys; with two terms o's fp32 value sits ~2^-18 off
+// the reference's, more of o's elements round to the other neighbouring
+// bf16 value, and that moved such dq past one bf16 ulp on the card (D 16,
+// causal, MQA).  The operands come straight from the accumulator registers:
+// the m16n8 C layout of two neighbouring n-tiles is the m16n8k16 A layout.
+// bf16 x bf16 products are exact in fp32, so q k^T and do v^T differ from
+// the reference only in the order of the sums.  Tiles are bf16 in shared
+// memory, copied by cp.async in 16-byte pieces (ragged rows zero-filled)
+// and read by ldmatrix (.trans where the operand is the transposed side);
+// rows are padded by 16 bytes so that the 8 rows of an ldmatrix phase fall
+// on distinct banks.  So the bf16 kernels need 16-byte aligned base
+// pointers and (b, h, s) strides that are multiples of 8 elements; the
+// wrapper checks that and raises.  Against the bound: the tiles move as
+// bf16 (half of the FMA design's fp32 tiles), each input row is read once
+// per block and each output row written once; the blocks are short (two
+// tiles each at seq 128), so launch bounds size both kernels for 3 blocks
+// per SM, whose loads overlap each other's products, and the work beside
+// the products is kept small: a tile with no masked entry (every tile of the
+// main path) skips the mask, and p = exp(scale s - m) is one fma into exp2f
+// (exp2(s scale log2 e - m log2 e)).  mma.sync rather than wgmma: at seq 128
+// both kernels are bound by bytes, where wgmma's rate buys nothing; wgmma,
+// TMA loads and warp specialisation are later work.
+//
+// The FMA design (fp32 inputs, and K4 in both dtypes): K3 and K4 take one
+// block of 256 threads per (b*h, 64-row q tile), K5 one per (b*hkv, 64-row
+// kv tile), with the same loops and ownership as above.  The threads form a
+// 16 x 16 grid; each owns 4 rows x 4 columns of the 64 x 64 score tile and
+// 4 rows x D/16 columns of its accumulators, in registers.  Row max and row
+// sum reduce over the 16 threads of a half warp with shuffles.  Tiles are
+// held in fp32 in dynamic shared memory (up to 162 KB at D = 128) with rows
 // padded by one float so that column reads do not conflict on banks.  p and
-// ds stay fp32, as the TPU kernel keeps them.  Tensor cores (wgmma), TMA
-// loads and a pipeline of tiles are left for later.
+// ds stay fp32, as the TPU kernel keeps them.
 //
 // Layouts: every 4-D tensor is read through its (b, h, s) element strides
 // with a contiguous last dim, so a (B, S, H, D) model tensor is taken as a
@@ -58,6 +109,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -458,6 +511,486 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16 on the tensor cores: building blocks
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+static_assert(16 * kMmaWarps == kBQ && 16 * kMmaWarps == kBK,
+              "a warp owns one m16 tile of the 64-row q (K3) or kv (K5) tile");
+
+// bf16 terms of p in K3's p v, and of p and ds in K5's products (see the
+// note at the top).
+constexpr int kFwdTerms = 3;
+constexpr int kDkvTerms = 2;
+
+// q rows of K5's streamed tile: 64, or 32 at D 128 to keep dk and dv in
+// registers without spilling.
+template <int D>
+__host__ __device__ constexpr int dkv_bq() { return D <= 64 ? 64 : 32; }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; with in = false nothing is read and the 16
+// bytes are zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Four 8 x 8 bf16 matrices from shared memory; lane i gives the address of
+// row i % 8 of matrix i / 8.  Without .trans lane l receives row l / 4,
+// columns 2 (l % 4) + {0, 1} of each; with .trans the transpose's.
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a b: a 16 x 16 (row), b 16 x 8 (col), d 16 x 8 fp32.  Lane l
+// (g = l / 4, t = l % 4) holds a: (g, 2t..), (g + 8, 2t..), (g, 2t + 8..),
+// (g + 8, 2t + 8..); b: (2t.., g), (2t + 8.., g); d: (g, 2t..), (g + 8, 2t..).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// One A register of (x0, x1) as P bf16 terms, x ~ t[0] + ... + t[P - 1]:
+// t[0] = bf16(x), t[1] = bf16(x - t[0]), ...; the remainders are exact in
+// fp32, so P terms keep ~8P mantissa bits (all 24 of fp32 at P = 3).
+template <int P>
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t* t) {
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    const float2 hf = __bfloat1622float2(h);
+    t[i * 4] = bits(h);
+    x0 -= hf.x;
+    x1 -= hf.y;
+  }
+}
+
+// The A operand of k-chunk kc (columns 16 kc .. 16 kc + 15) from fp32
+// accumulator tiles c (16 x 8 each, C layout), as P bf16 terms a[i].
+template <int P, int N>
+__device__ __forceinline__ void a_from_acc(const float (&c)[N][4], int kc, uint32_t (&a)[P][4]) {
+  split_pair<P>(c[2 * kc][0], c[2 * kc][1], &a[0][0]);
+  split_pair<P>(c[2 * kc][2], c[2 * kc][3], &a[0][1]);
+  split_pair<P>(c[2 * kc + 1][0], c[2 * kc + 1][1], &a[0][2]);
+  split_pair<P>(c[2 * kc + 1][2], c[2 * kc + 1][3], &a[0][3]);
+}
+
+// Rows [r0, r0 + R) of a (n, D) bf16 slab with row stride ss into a shared
+// tile of row stride D + 8, 16 bytes per cp.async; rows at or past n are
+// zero-filled.
+template <int D, int R>
+__device__ __forceinline__ void stage_rows(bf16* sm, const bf16* base, int64_t ss, int r0, int n) {
+  constexpr int CH = D / 8;
+  static_assert(R * CH % kMmaThreads == 0, "whole rounds of 16-byte copies");
+#pragma unroll
+  for (int i = 0; i < R * CH / kMmaThreads; ++i) {
+    const int e = i * kMmaThreads + threadIdx.x, r = e / CH, c = (e % CH) * 8, row = r0 + r;
+    const bool in = row < n;
+    cp_async16(sm + r * (D + 8) + c, base + (in ? row * ss : 0) + c, in);
+  }
+}
+
+// A warp's fp32 accumulator tiles c (16 rows x D, C layout) times f as bf16
+// into its 16 shared rows sm (row stride D + 8), then those rows to rows
+// [r0, r0 + 16) of a (n, D) bf16 slab with row stride ss, 16 bytes per
+// store; rows at or past n are dropped.
+template <int D>
+__device__ __forceinline__ void store_acc(bf16* dst, int64_t ss, int r0, int n, bf16* sm,
+                                          const float (&c)[D / 8][4], const float (&f)[2],
+                                          int lane) {
+  constexpr int CH = D / 8;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < CH; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<__nv_bfloat162*>(sm + (g + 8 * hh) * (D + 8) + 8 * j + 2 * t) =
+          __floats2bfloat162_rn(c[j][2 * hh] * f[hh], c[j][2 * hh + 1] * f[hh]);
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 16 * CH / 32; ++i) {
+    const int e = i * 32 + lane, r = e / CH, col = (e % CH) * 8;
+    if (r0 + r < n)
+      *reinterpret_cast<uint4*>(dst + (r0 + r) * ss + col) =
+          *reinterpret_cast<const uint4*>(sm + r * (D + 8) + col);
+  }
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// True if every (row, col) of rows [r0, r0 + nr) x cols [c0, c0 + nc) is
+// kept: the tile needs no mask (and, with rows_too, has no row past S).
+__device__ __forceinline__ bool tile_full(const Args& a, int r0, int nr, int c0, int nc,
+                                          int kv_end, bool rows_too) {
+  const int off = a.T - a.S;
+  return c0 + nc <= kv_end && (!rows_too || r0 + nr <= a.S) &&
+         (!a.causal || c0 + nc - 1 <= r0 + off) && (!a.window || c0 > r0 + nr - 1 + off - a.window);
+}
+
+// K3's online-softmax step for one kv tile, on this lane's rows row0 and
+// row0 + 8: s holds the raw scores q k^T of columns col0 + 8 j + 2 t + {0, 1}
+// and leaves as p; m and l are the running max (of scale s) and this lane's
+// share of the sum; alpha is each row's rescale.  MASKED applies keep()
+// entry by entry (a tile with no masked entry skips it).  p = exp(scale s -
+// m) is taken as exp2(s scale log2(e) - m log2(e)), one fma into exp2.
+template <bool MASKED, int NS>
+__device__ __forceinline__ void softmax_tile(float (&s)[NS][4], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], const Args& a, int row0,
+                                             int col0, int kv_end) {
+  const float sl2 = a.scale * kLog2e;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    uint32_t ok = ~0u;
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[j][2 * hh + e];
+        if (MASKED && !keep(a, row, col0 + 8 * j + e, kv_end)) {
+          ok &= ~(1u << (2 * j + e));
+          x = kNegInf;
+        }
+        mx = fmaxf(mx, x);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    // the reference's masked scores are -1e30, so a row with no key in this
+    // tile keeps its m; scale > 0, so max(scale s) = scale max(s)
+    const float m_new = MASKED && mx == kNegInf ? m[hh] : fmaxf(m[hh], mx * a.scale);
+    alpha[hh] = expf(m[hh] - m_new);
+    const float mb = m_new * kLog2e;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[j][2 * hh + e];
+        x = !MASKED || (ok >> (2 * j + e) & 1u) ? exp2f(fmaf(x, sl2, -mb)) : 0.f;
+        sum += x;
+      }
+    l[hh] = alpha[hh] * l[hh] + sum;  // this lane's share; the quad sums at the end
+    m[hh] = m_new;
+  }
+}
+
+// K5's p^T = exp(scale s^T - lse) and ds^T = p^T (dp^T - di) in place, on
+// this lane's kv rows col0 and col0 + 8 and q rows q0 + 8 j + 2 t + {0, 1}
+// (lse and di of the q tile in shared memory).  MASKED applies keep() and
+// the S tail entry by entry.
+template <bool MASKED, int NQ>
+__device__ __forceinline__ void dkv_probs(float (&sc)[NQ][4], float (&dp)[NQ][4], const float* sL,
+                                          const float* sDi, const Args& a, int q0, int col0,
+                                          int kv_end, int t) {
+  const float sl2 = a.scale * kLog2e;
+#pragma unroll
+  for (int j = 0; j < NQ; ++j) {
+    const float2 lse = *reinterpret_cast<const float2*>(sL + 8 * j + 2 * t);
+    const float2 di = *reinterpret_cast<const float2*>(sDi + 8 * j + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = q0 + 8 * j + 2 * t + (e & 1);
+      float p = exp2f(fmaf(sc[j][e], sl2, -kLog2e * ((e & 1) ? lse.y : lse.x)));
+      if (MASKED && !(row < a.S && keep(a, row, col0 + 8 * (e >> 1), kv_end))) p = 0.f;
+      sc[j][e] = p;
+      dp[j][e] = p * (dp[j][e] - ((e & 1) ? di.y : di.x));
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3 on the tensor cores (bf16)
+// ---------------------------------------------------------------------------
+
+// Blocks per SM the register budget is sized for (launch bounds): 3 at
+// D <= 64 (<= 168 registers) for K3 and K5, 2 and 1 at D 128.  K3 at 4
+// blocks (<= 128 registers) spilled and was no faster; K5 at 2 was slower.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 3 : 2) flash_fwd_mma_kernel(Args a) {
+  constexpr int LD = D + 8, KD = D / 16, NS = kBK / 8, ND = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // kBQ x LD, then o on its way out
+  bf16* sKV = sQ + kBQ * LD;                     // 2 stages x (k, v), kBK x LD each
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int mi = lane >> 3, mr = lane & 7;  // the ldmatrix matrix and row this lane addresses
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H, kvh = h / (a.H / a.Hkv);
+  const int q0 = blockIdx.y * kBQ;
+  const bf16* q = static_cast<const bf16*>(a.q) + b * a.sq.b + h * a.sq.h;
+  const bf16* k = static_cast<const bf16*>(a.k) + b * a.sk.b + kvh * a.sk.h;
+  const bf16* v = static_cast<const bf16*>(a.v) + b * a.sv.b + kvh * a.sv.h;
+  const int kv_end = kv_end_of(a, b);
+  int lo, hi;
+  kv_range(a, q0, kv_end, lo, hi);
+  const int first = (lo / kBK) * kBK;
+  const int ntiles = hi > first ? (hi - first + kBK - 1) / kBK : 0;
+  auto stage_kv = [&](int it) {
+    bf16* sK = sKV + (it & 1) * 2 * kBK * LD;
+    stage_rows<D, kBK>(sK, k, a.sk.s, first + it * kBK, a.T);
+    stage_rows<D, kBK>(sK + kBK * LD, v, a.sv.s, first + it * kBK, a.T);
+  };
+
+  stage_rows<D, kBQ>(sQ, q, a.sq.s, q0, a.S);
+  if (ntiles > 0) stage_kv(0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  uint32_t qf[KD][4];  // this warp's 16 q rows as A fragments, for the whole loop
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk)
+    ldsm4(qf[kk], sQ + (16 * warp + mr + 8 * (mi & 1)) * LD + 16 * kk + 8 * (mi >> 1));
+
+  float acc[ND][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) {  // the next tile streams in while this one is used
+      stage_kv(it + 1);
+      cp_async_commit();
+    }
+    const bf16* sK = sKV + (it & 1) * 2 * kBK * LD;
+    const bf16* sV = sK + kBK * LD;
+    const int kv0 = first + it * kBK;
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+      for (int j = 0; j < NS; j += 2) {
+        uint32_t kb[4];
+        ldsm4(kb, sK + (8 * j + mr + 8 * (mi >> 1)) * LD + 16 * kk + 8 * (mi & 1));
+        mma_bf16(s[j], qf[kk], kb[0], kb[1]);
+        mma_bf16(s[j + 1], qf[kk], kb[2], kb[3]);
+      }
+
+    // online softmax on the fragments: this lane's rows g and g + 8 of the
+    // warp's 16, columns 8 j + 2 t + {0, 1}; a row's 4 lanes form a quad
+    float alpha[2];
+    const int row0 = q0 + 16 * warp + g;
+    if (tile_full(a, q0, kBQ, kv0, kBK, kv_end, false))
+      softmax_tile<false>(s, m, l, alpha, a, row0, kv0 + 2 * t, kv_end);
+    else
+      softmax_tile<true>(s, m, l, alpha, a, row0, kv0 + 2 * t, kv_end);
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+
+    // o += p v, p as three bf16 terms straight from the score registers
+#pragma unroll
+    for (int kc = 0; kc < kBK / 16; ++kc) {
+      uint32_t pa[kFwdTerms][4];
+      a_from_acc(s, kc, pa);
+#pragma unroll
+      for (int n = 0; n < ND; n += 2) {
+        uint32_t vb[4];
+        ldsm4_t(vb, sV + (16 * kc + mr + 8 * (mi & 1)) * LD + 8 * n + 8 * (mi >> 1));
+#pragma unroll
+        for (int i = 0; i < kFwdTerms; ++i) {
+          mma_bf16(acc[n], pa[i], vb[0], vb[1]);
+          mma_bf16(acc[n + 1], pa[i], vb[2], vb[3]);
+        }
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();  // the next tile has landed; this one's readers are done
+  }
+
+  float lc[2], inv[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float x = l[hh];
+    x += __shfl_xor_sync(0xffffffffu, x, 1);
+    x += __shfl_xor_sync(0xffffffffu, x, 2);
+    lc[hh] = fmaxf(x, 1e-30f);
+    inv[hh] = 1.f / lc[hh];
+  }
+  // o through this warp's own rows of sQ: its q fragments are in registers
+  store_acc<D>(static_cast<bf16*>(a.o) + b * a.so.b + h * a.so.h, a.so.s, q0 + 16 * warp, a.S,
+               sQ + 16 * warp * LD, acc, inv, lane);
+  if (t == 0) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = q0 + 16 * warp + g + 8 * hh;
+      if (row < a.S) a.lse_out[(int64_t)bh * a.S + row] = m[hh] + logf(lc[hh]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K5 on the tensor cores (bf16)
+// ---------------------------------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 3 : 1) flash_dkv_mma_kernel(Args a) {
+  constexpr int LD = D + 8, BQ = dkv_bq<D>(), KD = D / 16, NQ = BQ / 8, ND = D / 8;
+  constexpr int TILE = BQ * LD;  // one streamed q or do tile
+  static_assert(2 * BQ <= kMmaThreads, "one thread per lse or di entry");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);  // kBK x LD, then dk on its way out
+  bf16* sV = sK + kBK * LD;                      // kBK x LD, then dv on its way out
+  bf16* sQO = sV + kBK * LD;                     // 2 stages x (q, do), BQ x LD each
+  float* sLD = reinterpret_cast<float*>(sQO + 4 * TILE);  // 2 stages x (lse, di), BQ each
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int mi = lane >> 3, mr = lane & 7;
+  const int n = blockIdx.x, b = n / a.Hkv, kvh = n % a.Hkv, group = a.H / a.Hkv;
+  const int k0 = blockIdx.y * kBK;
+  const int kv_end = kv_end_of(a, b), off = a.T - a.S;
+  // q rows [qlo, qhi) that see any unmasked key of this tile
+  const int k1 = min(k0 + kBK, kv_end);
+  const int qlo = a.causal ? max(0, k0 - off) : 0;
+  const int qhi = a.window ? min(a.S, k1 - 1 - off + a.window) : a.S;
+  const int qfirst = (qlo / BQ) * BQ;
+  const int nq = (k0 < kv_end && qhi > qfirst) ? (qhi - qfirst + BQ - 1) / BQ : 0;
+  const int total = group * nq;  // (q head of the group, q tile), head-major
+  auto stage_q = [&](int it) {
+    const int hq = kvh * group + it / nq, q0 = qfirst + (it % nq) * BQ;
+    bf16* sQ = sQO + (it & 1) * 2 * TILE;
+    stage_rows<D, BQ>(sQ, static_cast<const bf16*>(a.q) + b * a.sq.b + hq * a.sq.h, a.sq.s,
+                      q0, a.S);
+    stage_rows<D, BQ>(sQ + TILE, static_cast<const bf16*>(a.dout) + b * a.sdo.b + hq * a.sdo.h,
+                      a.sdo.s, q0, a.S);
+    if (threadIdx.x < 2 * BQ) {
+      const int row = q0 + threadIdx.x % BQ;
+      const float* src = (threadIdx.x < BQ ? a.lse : a.di) + ((int64_t)b * a.H + hq) * a.S;
+      cp_async4(sLD + (it & 1) * 2 * BQ + threadIdx.x, src + (row < a.S ? row : 0), row < a.S);
+    }
+  };
+
+  stage_rows<D, kBK>(sK, static_cast<const bf16*>(a.k) + b * a.sk.b + kvh * a.sk.h, a.sk.s, k0,
+                     a.T);
+  stage_rows<D, kBK>(sV, static_cast<const bf16*>(a.v) + b * a.sv.b + kvh * a.sv.h, a.sv.s, k0,
+                     a.T);
+  if (total > 0) stage_q(0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  float dk[ND][4], dv[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+  const bf16* sKw = sK + (16 * warp + mr + 8 * (mi & 1)) * LD + 8 * (mi >> 1);
+  const bf16* sVw = sV + (16 * warp + mr + 8 * (mi & 1)) * LD + 8 * (mi >> 1);
+  const int col0 = k0 + 16 * warp + g;  // this lane's kv rows: col0 and col0 + 8
+
+  for (int it = 0; it < total; ++it) {
+    if (it + 1 < total) {  // the next (q, do, lse, di) stream in while this one is used
+      stage_q(it + 1);
+      cp_async_commit();
+    }
+    const int q0 = qfirst + (it % nq) * BQ;
+    const bf16* sQ = sQO + (it & 1) * 2 * TILE;
+    const bf16* sO = sQ + TILE;
+    const float* sL = sLD + (it & 1) * 2 * BQ;
+    const float* sDi = sL + BQ;
+
+    // s^T = k q^T and dp^T = v do^T: this warp's 16 kv rows x BQ q columns
+    float sc[NQ][4], dp[NQ][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t ka[4], va[4];
+      ldsm4(ka, sKw + 16 * kk);
+      ldsm4(va, sVw + 16 * kk);
+#pragma unroll
+      for (int j = 0; j < NQ; j += 2) {
+        uint32_t qb[4], ob[4];
+        const int at = (8 * j + mr + 8 * (mi >> 1)) * LD + 16 * kk + 8 * (mi & 1);
+        ldsm4(qb, sQ + at);
+        ldsm4(ob, sO + at);
+        mma_bf16(sc[j], ka, qb[0], qb[1]);
+        mma_bf16(sc[j + 1], ka, qb[2], qb[3]);
+        mma_bf16(dp[j], va, ob[0], ob[1]);
+        mma_bf16(dp[j + 1], va, ob[2], ob[3]);
+      }
+    }
+    // p^T and ds^T in place, on fragment coordinates: kv row col0 + 8 (e / 2),
+    // q row q0 + 8 j + 2 t + e % 2
+    if (tile_full(a, q0, BQ, k0, kBK, kv_end, true))
+      dkv_probs<false>(sc, dp, sL, sDi, a, q0, col0, kv_end, t);
+    else
+      dkv_probs<true>(sc, dp, sL, sDi, a, q0, col0, kv_end, t);
+    // dv += p^T do and dk += ds^T q, p and ds as bf16 hi + lo
+#pragma unroll
+    for (int kc = 0; kc < BQ / 16; ++kc) {
+      uint32_t pa[kDkvTerms][4], da[kDkvTerms][4];
+      a_from_acc(sc, kc, pa);
+      a_from_acc(dp, kc, da);
+#pragma unroll
+      for (int j = 0; j < ND; j += 2) {
+        uint32_t ob[4], qb[4];
+        const int at = (16 * kc + mr + 8 * (mi & 1)) * LD + 8 * j + 8 * (mi >> 1);
+        ldsm4_t(ob, sO + at);
+        ldsm4_t(qb, sQ + at);
+#pragma unroll
+        for (int i = 0; i < kDkvTerms; ++i) {
+          mma_bf16(dv[j], pa[i], ob[0], ob[1]);
+          mma_bf16(dv[j + 1], pa[i], ob[2], ob[3]);
+          mma_bf16(dk[j], da[i], qb[0], qb[1]);
+          mma_bf16(dk[j + 1], da[i], qb[2], qb[3]);
+        }
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();  // the next stage has landed; this one's readers are done
+  }
+
+  // dk and dv through this warp's own rows of sK and sV
+  const float scale2[2] = {a.scale, a.scale}, one2[2] = {1.f, 1.f};
+  store_acc<D>(static_cast<bf16*>(a.dk) + b * a.sdk.b + kvh * a.sdk.h, a.sdk.s, k0 + 16 * warp,
+               a.T, sK + 16 * warp * LD, dk, scale2, lane);
+  store_acc<D>(static_cast<bf16*>(a.dv) + b * a.sdv.b + kvh * a.sdv.h, a.sdv.s, k0 + 16 * warp,
+               a.T, sV + 16 * warp * LD, dv, one2, lane);
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -469,13 +1002,19 @@ template <int D>
 constexpr size_t dkv_smem() {
   return sizeof(float) * (2 * (kBQ + kBK) * (D + 1) + 2 * kBK * kLDP + 2 * kBQ);
 }
+template <int D>
+constexpr size_t fwd_mma_smem() { return sizeof(bf16) * (kBQ + 4 * kBK) * (D + 8); }
+template <int D>
+constexpr size_t dkv_mma_smem() {
+  return sizeof(bf16) * (2 * kBK + 4 * dkv_bq<D>()) * (D + 8) + sizeof(float) * 4 * dkv_bq<D>();
+}
 
 // The dynamic shared memory a kernel may take is set once per kernel and
 // device (the attribute call costs host time on every launch otherwise):
 // `configured` holds one bit per device for this one kernel.
 template <typename Kernel>
-int launch(Kernel kernel, dim3 grid, size_t smem, const Args& a, cudaStream_t stream,
-           uint64_t& configured) {
+int launch(Kernel kernel, dim3 grid, int threads, size_t smem, const Args& a,
+           cudaStream_t stream, uint64_t& configured) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
@@ -485,24 +1024,35 @@ int launch(Kernel kernel, dim3 grid, size_t smem, const Args& a, cudaStream_t st
     if (err != cudaSuccess) return (int)err;
     configured |= uint64_t{1} << dev;
   }
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  kernel<<<grid, threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 enum Pass { kFwd, kDq, kDkv };
+
+// The dispatch on dtype: bf16 K3 and K5 take the tensor-core kernels; fp32
+// (all passes) and K4 (both dtypes) the FMA kernels.
+bool uses_tensor_cores(Pass pass, int dtype) { return dtype == 1 && pass != kDq; }
 
 template <typename T, int D>
 int launch_pass(Pass pass, const Args& a, cudaStream_t s) {
   static uint64_t configured[3] = {0, 0, 0};  // per pass of this (T, D)
   const dim3 q_grid((unsigned)(a.B * a.H), (unsigned)((a.S + kBQ - 1) / kBQ));
   const dim3 kv_grid((unsigned)(a.B * a.Hkv), (unsigned)((a.T + kBK - 1) / kBK));
-  switch (pass) {
-    case kFwd:
-      return launch(flash_fwd_kernel<T, D>, q_grid, fwd_smem<D>(), a, s, configured[kFwd]);
-    case kDq:
-      return launch(flash_dq_kernel<T, D>, q_grid, dq_smem<D>(), a, s, configured[kDq]);
-    default:
-      return launch(flash_dkv_kernel<T, D>, kv_grid, dkv_smem<D>(), a, s, configured[kDkv]);
+  if (pass == kDq)
+    return launch(flash_dq_kernel<T, D>, q_grid, kThreads, dq_smem<D>(), a, s, configured[kDq]);
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (pass == kFwd)
+      return launch(flash_fwd_mma_kernel<D>, q_grid, kMmaThreads, fwd_mma_smem<D>(), a, s,
+                    configured[kFwd]);
+    return launch(flash_dkv_mma_kernel<D>, kv_grid, kMmaThreads, dkv_mma_smem<D>(), a, s,
+                  configured[kDkv]);
+  } else {
+    if (pass == kFwd)
+      return launch(flash_fwd_kernel<T, D>, q_grid, kThreads, fwd_smem<D>(), a, s,
+                    configured[kFwd]);
+    return launch(flash_dkv_kernel<T, D>, kv_grid, kThreads, dkv_smem<D>(), a, s,
+                  configured[kDkv]);
   }
 }
 
@@ -534,10 +1084,25 @@ Args make_args(int B, int H, int Hkv, int S, int T, double scale, int causal, in
   return a;
 }
 
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+bool rows16(const Strides& s) { return s.b % 8 == 0 && s.h % 8 == 0 && s.s % 8 == 0; }
+
+// What the tensor-core kernels move in 16-byte pieces: base pointers and
+// (b, h, s) strides of bf16 tensors.
+bool mma_aligned(Pass pass, const Args& a) {
+  const bool in = aligned16(a.q) && aligned16(a.k) && aligned16(a.v) && rows16(a.sq) &&
+                  rows16(a.sk) && rows16(a.sv);
+  if (pass == kFwd) return in && aligned16(a.o) && rows16(a.so);
+  return in && aligned16(a.dout) && aligned16(a.dk) && aligned16(a.dv) && rows16(a.sdo) &&
+         rows16(a.sdk) && rows16(a.sdv);
+}
+
 int run(Pass pass, const Args& a, int dtype, int D, void* stream) {
   if (a.B < 1 || a.H < 1 || a.Hkv < 1 || a.H % a.Hkv || a.S < 1 || a.T < 1 ||
       (int64_t)a.S > 65535LL * kBQ || (int64_t)a.T > 65535LL * kBK)
     return (int)cudaErrorInvalidValue;
+  if (uses_tensor_cores(pass, dtype) && !mma_aligned(pass, a))
+    return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_d<float>(pass, a, D, s);
   if (dtype == 1) return launch_d<__nv_bfloat16>(pass, a, D, s);
@@ -551,7 +1116,14 @@ extern "C" {
 // dtype codes: 0 = float32, 1 = bfloat16 (q, k, v, o, do and the gradients
 // share it).  strides: the (b, h, s) element strides of each 4-D tensor
 // argument, in argument order.  Each returns cudaGetLastError() after the
-// launch (0 = launched).
+// launch (0 = launched), or cudaErrorMisalignedAddress (nothing launched)
+// for a bf16 forward or dk/dv whose tensors are not 16-byte aligned.
+
+// 1 if a pass (0 = forward, 1 = dq, 2 = dk/dv) of a dtype runs on the tensor
+// cores, 0 if on the fp32 FMA kernels.
+int flash_uses_tensor_cores(int pass, int dtype) {
+  return pass >= kFwd && pass <= kDkv && uses_tensor_cores(static_cast<Pass>(pass), dtype);
+}
 
 int flash_fwd(const void* q, const void* k, const void* v, const int* valid, void* o,
               float* lse, const int64_t* strides, int dtype, int B, int H, int Hkv, int S,

@@ -20,7 +20,12 @@ q head h reads kv head h // (H/Hkv); k/v are never repeated).  Masks:
 Each pass dispatches on where its tensors lie: on the CPU it runs the plain
 PyTorch version below (the chunked online softmax of the JAX package's XLA
 backend); on a CUDA tensor it launches the kernel or raises.  There is no
-fallback from the kernel to the plain version.
+fallback from the kernel to the plain version.  On the card, bf16 K3 and K5
+run on the tensor cores and fp32 (and K4) on fp32 FMA kernels, by dtype
+(``VARIANT_LAUNCHES`` counts which design ran).  The tensor-core kernels
+move bf16 rows in 16-byte pieces, so they need 16-byte aligned base pointers
+and (b, h, s) strides that are multiples of 8 elements; the wrappers raise
+on anything else.
 """
 from __future__ import annotations
 
@@ -29,15 +34,20 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.launches import LAUNCHES, register
+from repro_torch.kernels.launches import COPIES, LAUNCHES, VARIANT_LAUNCHES, register, \
+    register_copies
 
-register("flash_fwd", "flash_dq", "flash_dkv")
+DESIGNS = ("mma", "fma")   # bf16 on the tensor cores (mma.sync); fp32 FMA
+register("flash_fwd", "flash_dq", "flash_dkv", variants=DESIGNS)
+register_copies("flash_do")
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_PASS_CODES = {"flash_fwd": 0, "flash_dq": 1, "flash_dkv": 2}
 _LIB: Optional[ctypes.CDLL] = None
+_DESIGN: dict = {}   # (kernel, dtype) -> the design the library dispatches it to
 
 
 class FlashSpec(NamedTuple):
@@ -73,7 +83,8 @@ def _lib() -> ctypes.CDLL:
         lib.flash_fwd.argtypes = [p, p, p, p, p, p, p, i] + shape
         lib.flash_dq.argtypes = [p, p, p, p, p, p, p, p, p, i] + shape
         lib.flash_dkv.argtypes = [p, p, p, p, p, p, p, p, p, p, i] + shape
-        for fn in (lib.flash_fwd, lib.flash_dq, lib.flash_dkv):
+        lib.flash_uses_tensor_cores.argtypes = [i, i]
+        for fn in (lib.flash_fwd, lib.flash_dq, lib.flash_dkv, lib.flash_uses_tensor_cores):
             fn.restype = i
         _LIB = lib
     return _LIB
@@ -215,8 +226,15 @@ def flash_attention_bwd_plain(q, k, v, valid, o, lse, do, spec: FlashSpec
 # kernel launches
 # ---------------------------------------------------------------------------
 
-def _check(q, k, v, valid, spec: FlashSpec, **more) -> None:
-    """Raise on what the kernels cannot take."""
+def _rows_aligned(x: torch.Tensor) -> bool:
+    """A 16-byte aligned base pointer and (b, h, s) strides of whole 16 bytes."""
+    n = 16 // x.element_size()
+    return x.data_ptr() % 16 == 0 and all(st % n == 0 for st in x.stride()[:3])
+
+
+def _check(q, k, v, valid, spec: FlashSpec, *, aligned: bool = False, **more) -> None:
+    """Raise on what the kernels cannot take; ``aligned``: also on a bf16
+    tensor the tensor-core kernels could not copy in 16-byte pieces."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be 4-D: (B, H, S, D) and (B, Hkv, T, D)")
     b, h, s, d = q.shape
@@ -243,6 +261,11 @@ def _check(q, k, v, valid, spec: FlashSpec, **more) -> None:
             raise ValueError(f"do has shape {tuple(x.shape)}, q {tuple(q.shape)}")
         if x.stride(-1) != 1:
             raise ValueError(f"{name} must have a contiguous last dim (stride {x.stride()})")
+        if aligned and x.dtype == torch.bfloat16 and not _rows_aligned(x):
+            raise ValueError(
+                f"{name}: the bf16 tensor-core kernels need a 16-byte aligned base pointer "
+                f"and (b, h, s) strides that are multiples of 8 elements; got a pointer "
+                f"{x.data_ptr() % 16} bytes off a 16-byte boundary and strides {x.stride()}")
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"dtype {q.dtype} is not float32 or bfloat16")
     if valid is None:
@@ -276,15 +299,25 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed with CUDA error {err}")
 
 
+def _count(name: str, dtype: torch.dtype) -> None:
+    """One launch of ``name``, under the design the library ran it on."""
+    design = _DESIGN.get((name, dtype))
+    if design is None:
+        tc = _lib().flash_uses_tensor_cores(_PASS_CODES[name], _DTYPE_CODES[dtype])
+        design = _DESIGN[(name, dtype)] = DESIGNS[0] if tc else DESIGNS[1]
+    LAUNCHES[name] += 1
+    VARIANT_LAUNCHES[name][design] += 1
+
+
 def _fwd_cuda(q, k, v, valid, spec: FlashSpec):
-    _check(q, k, v, valid, spec)
+    _check(q, k, v, valid, spec, aligned=True)
     o = torch.empty_like(q)   # q's strides: a (B, S, H, D) caller gets its layout back
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     err = _lib().flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(valid),
                            o.data_ptr(), lse.data_ptr(), _strides(q, k, v, o),
                            _DTYPE_CODES[q.dtype], *_shape_args(q, k, spec))
     _raise_on(err, "flash_fwd")
-    LAUNCHES["flash_fwd"] += 1
+    _count("flash_fwd", q.dtype)
     return o, lse
 
 
@@ -296,19 +329,19 @@ def _dq_cuda(q, k, v, valid, lse, di, do, spec: FlashSpec):
                           _strides(q, k, v, do, dq), _DTYPE_CODES[q.dtype],
                           *_shape_args(q, k, spec))
     _raise_on(err, "flash_dq")
-    LAUNCHES["flash_dq"] += 1
+    _count("flash_dq", q.dtype)
     return dq
 
 
 def _dkv_cuda(q, k, v, valid, lse, di, do, spec: FlashSpec):
-    _check(q, k, v, valid, spec, do=do, lse=lse, di=di)
+    _check(q, k, v, valid, spec, aligned=True, do=do, lse=lse, di=di)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     err = _lib().flash_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                            lse.data_ptr(), di.data_ptr(), _ptr(valid), dk.data_ptr(),
                            dv.data_ptr(), _strides(q, k, v, do, dk, dv),
                            _DTYPE_CODES[q.dtype], *_shape_args(q, k, spec))
     _raise_on(err, "flash_dkv")
-    LAUNCHES["flash_dkv"] += 1
+    _count("flash_dkv", q.dtype)
     return dk, dv
 
 
@@ -364,8 +397,14 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do, _dlse):
         q, k, v, valid, o, lse = ctx.saved_tensors
-        if do.stride(-1) != 1:
-            do = do.contiguous()
+        # autograd may hand do in a layout the kernels cannot read (a strided
+        # last dim; for the tensor-core kernels, rows not in whole 16 bytes):
+        # then do alone is made contiguous, and COPIES counts it.  The main
+        # path's do is the (B, S, H, D) gradient, which needs no copy.
+        if do.stride(-1) != 1 or (not ctx.plain and do.is_cuda and do.dtype == torch.bfloat16
+                                  and not _rows_aligned(do)):
+            do = torch.empty_like(do, memory_format=torch.contiguous_format).copy_(do)
+            COPIES["flash_do"] += 1
         dq, dk, dv = flash_attention_bwd(q, k, v, valid, o, lse, do, ctx.spec,
                                          plain=ctx.plain)
         return dq, dk, dv, None, None, None

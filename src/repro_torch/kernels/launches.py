@@ -3,19 +3,36 @@
 Each kernel module registers its names here and its wrapper adds one where
 it launches the kernel, and nowhere else; a run resets the counts, drives
 its path and reads them to show that the path went through the kernels.
+A kernel with more than one design (flash attention: tensor-core or FMA)
+also counts its launches by the design that ran, and a wrapper that had to
+copy an input before a launch counts that copy.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 LAUNCHES: Dict[str, int] = {}
+VARIANT_LAUNCHES: Dict[str, Dict[str, int]] = {}   # kernel -> design -> launches
+COPIES: Dict[str, int] = {}                         # input a wrapper copied -> times
 
 
-def register(*names: str) -> None:
+def register(*names: str, variants: tuple = ()) -> None:
     for name in names:
         LAUNCHES.setdefault(name, 0)
+        if variants:
+            VARIANT_LAUNCHES.setdefault(name, dict.fromkeys(variants, 0))
+
+
+def register_copies(*names: str) -> None:
+    for name in names:
+        COPIES.setdefault(name, 0)
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for by_variant in VARIANT_LAUNCHES.values():
+        for k in by_variant:
+            by_variant[k] = 0
+    for k in COPIES:
+        COPIES[k] = 0

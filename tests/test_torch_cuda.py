@@ -8,8 +8,9 @@ import math
 import pytest
 import torch
 
-from repro_torch.kernels import LAUNCHES, lamb_update, reset_launches
-from repro_torch.kernels.flash_attention import FlashSpec, flash_attention, flash_attention_fwd
+from repro_torch.kernels import LAUNCHES, VARIANT_LAUNCHES, lamb_update, reset_launches
+from repro_torch.kernels.flash_attention import FlashSpec, flash_attention, \
+    flash_attention_bwd, flash_attention_fwd, flash_dkv, row_dot
 
 pytestmark = pytest.mark.cuda
 
@@ -73,6 +74,9 @@ FLASH_CASES = [
     (2, 8, 2, 200, 200, 32, False, 0, True),     # GQA, ragged tail, kv_valid
     (2, 4, 1, 128, 128, 16, True, 0, False),     # MQA
     (2, 2, 2, 256, 256, 32, True, 64, True),     # window ∩ valid: rows masked entirely
+    (2, 4, 4, 200, 200, 16, False, 0, False),    # D 16, ragged S = T
+    (1, 4, 2, 77, 77, 32, True, 0, True),        # D 32, ragged, GQA, causal, kv_valid
+    (2, 2, 2, 300, 300, 64, False, 0, True),     # ragged S = T at the main path's D
 ]
 
 
@@ -104,6 +108,12 @@ def _close(a, b, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_match_plain_on_card(cuda, b, h, hkv, s, t, d, causal, window,
                                            masked, dtype):
+    """K3, then K4 and K5 through the autograd boundary, each against the
+    plain version on the same inputs: the forward on q, k, v, the backward
+    on the kernel forward's residuals (o, lse) and do.  A bf16 o that rounds
+    to the other neighbouring value moves di = rowsum(o∘do), and through the
+    cancelling dp − di the dq of its row by more than an ulp, so the plain
+    backward is given the kernel's o, not its own."""
     q, k, v, do, valid = _flash_inputs(b, h, hkv, s, t, d, masked, dtype, cuda)
     kw = dict(causal=causal, window=window)
     outs = {}
@@ -115,22 +125,29 @@ def test_flash_kernels_match_plain_on_card(cuda, b, h, hkv, s, t, d, causal, win
         torch.cuda.synchronize()
         launched = {n: LAUNCHES[n] for n in ("flash_fwd", "flash_dq", "flash_dkv")}
         assert set(launched.values()) == {0 if plain else 1}, launched
+        if not plain:   # bf16 K3 and K5 on the tensor cores; K4 and fp32 on FMA
+            mma = {n: VARIANT_LAUNCHES[n]["mma"] for n in launched}
+            bf16 = int(dtype == torch.bfloat16)
+            assert mma == {"flash_fwd": bf16, "flash_dq": 0, "flash_dkv": bf16}, mma
         assert [g.dtype for g in grads] == [dtype] * 3
         outs[plain] = (o, *grads)
-    for name, a, ref in zip(("o", "dq", "dk", "dv"), outs[False], outs[True]):
-        assert torch.isfinite(a).all(), name
-        _close(a, ref, dtype)
     lim = None if valid is None else valid.clamp(1, t)
     spec = FlashSpec(d**-0.5, causal, window, valid is not None)
-    (_, lse), (_, lse_ref) = (flash_attention_fwd(q, k, v, lim, spec, plain=p)
-                              for p in (False, True))
+    (o, lse), (o_ref, lse_ref) = (flash_attention_fwd(q, k, v, lim, spec, plain=p)
+                                  for p in (False, True))
+    assert torch.equal(o, outs[False][0])
+    refs = (o_ref, *flash_attention_bwd(q, k, v, lim, o, lse, do, spec, plain=True))
+    for name, a, ref in zip(("o", "dq", "dk", "dv"), outs[False], refs):
+        assert torch.isfinite(a).all(), name
+        _close(a, ref, dtype)
     torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-5)
 
 
-def test_flash_reads_model_layout_through_strides(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_reads_model_layout_through_strides(cuda, dtype):
     """(B, S, H, D) tensors go in as transposed views and come back in the
     same layout: no copies, the same numbers as from contiguous inputs."""
-    q, k, v, do, _ = _flash_inputs(2, 4, 2, 96, 96, 64, False, torch.float32, cuda)
+    q, k, v, do, _ = _flash_inputs(2, 4, 2, 96, 96, 64, False, dtype, cuda)
     views = [x.transpose(1, 2).contiguous().transpose(1, 2).requires_grad_()
              for x in (q, k, v)]
     o = flash_attention(*views, causal=True)
@@ -141,6 +158,19 @@ def test_flash_reads_model_layout_through_strides(cuda):
     ref = flash_attention(*qkv, causal=True)
     for a, r in zip((o, *grads), (ref, *torch.autograd.grad(ref, qkv, do))):
         torch.testing.assert_close(a, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_dkv_is_deterministic(cuda, dtype):
+    """K5 owns its dk/dv tile and sums GQA heads and q tiles in a fixed
+    order: two runs give the same bits."""
+    q, k, v, do, valid = _flash_inputs(2, 8, 2, 320, 320, 64, True, dtype, cuda, seed=3)
+    spec = FlashSpec(0.125, False, 0, True)
+    lim = valid.clamp(1, 320)
+    o, lse = flash_attention_fwd(q, k, v, lim, spec)
+    di = row_dot(o, do)
+    runs = [flash_dkv(q, k, v, lim, lse, di, do, spec) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 def test_flash_wrapper_rejects_what_it_cannot_take(cuda):
@@ -159,6 +189,18 @@ def test_flash_wrapper_rejects_what_it_cannot_take(cuda):
         flash_attention_fwd(q, k, v, valid.cpu(), spec)
     with pytest.raises(ValueError, match="kv heads"):
         flash_attention_fwd(torch.cat([q, q[:, :1]], 1), k, v, valid, spec)
+    # bf16 rows the tensor-core kernels cannot copy in 16-byte pieces: a base
+    # pointer 2 bytes off, and rows 4 elements (8 bytes) apart from 16 B
+    qb, kb, vb = (x.bfloat16() for x in (q, k, v))
+    off = torch.zeros(qb.numel() + 1, dtype=torch.bfloat16, device=cuda)[1:].view(qb.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_fwd(off, kb, vb, valid, spec)
+    wide = torch.zeros((1, 2, 64, 68), dtype=torch.bfloat16, device=cuda)[..., :64]
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_fwd(qb, wide, vb, valid, spec)
+    lse = torch.zeros((1, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_dkv(qb, kb, vb, valid, lse, lse, off, spec)
 
 
 # ---------------------------------------------------------------------------

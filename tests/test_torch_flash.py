@@ -3,7 +3,8 @@ the JAX package's flash attention on the same numpy inputs: forward and lse,
 gradients, the ``flash_sdpa`` wrapper, the attention layer, and bert-smoke
 train steps with flash on.  The JAX side runs its Pallas kernels in interpret
 mode or its XLA backend, as the JAX suite does on the CPU.  Tolerances are the
-JAX suite's own: 3e-5 in fp32 and 3e-2 in bf16."""
+JAX suite's own: 3e-5 in fp32 and 3e-2 in bf16.  The bf16 kernels' rounding on
+the tensor cores (K3 and K5) is emulated in torch and held to the same."""
 import importlib
 
 import jax
@@ -26,7 +27,8 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.core import warmup_poly_decay
 from repro_torch.data import batch_iterator
 from repro_torch.kernels import LAUNCHES, flash_sdpa, reset_launches
-from repro_torch.kernels.flash_attention import FlashSpec, flash_attention, flash_attention_fwd
+from repro_torch.kernels.flash_attention import NEG_INF, FlashSpec, _chunk_mask, _check, \
+    flash_attention, flash_attention_fwd, flash_dq, row_dot
 from repro_torch.models import build_model
 from repro_torch.models.layers import attention
 from repro_torch.nn import params_from_jax, state_from_jax
@@ -235,6 +237,176 @@ def test_flash_runs_the_plain_version_on_the_cpu():
     assert torch.isfinite(q.grad).all()
     with pytest.raises(ValueError, match="kv heads"):
         flash_attention(q, q[:, :1].expand(1, 3, 64, 32), q[:, :1].expand(1, 3, 64, 32))
+
+
+# ---------------------------------------------------------------------------
+# the bf16 tensor-core kernels' arithmetic (K3, K5), emulated
+# ---------------------------------------------------------------------------
+
+MMA_KV_TILE = 64   # K3's kv tile: the online softmax rescales once per tile
+FWD_TERMS, DKV_TERMS = 3, 2   # bf16 terms of p in K3, of p and ds in K5
+
+
+def _terms(x, n):
+    """x as n bf16 terms t0 = bf16(x), t1 = bf16(x − t0), …: how the kernels
+    hand p and ds (fp32 in their registers) to the bf16 tensor cores."""
+    out = []
+    for _ in range(n):
+        out.append(x.to(torch.bfloat16).to(torch.float32))
+        x = x - out[-1]
+    return out
+
+
+def _mma_fwd(q, k, v, valid, spec: FlashSpec):
+    """K3's arithmetic: bf16 q, k, v; s = q·kᵀ with exact products and fp32
+    sums; the online softmax over 64-row kv tiles in fp32; o += p·v with p
+    as three bf16 terms, one product each.  Returns o in fp32 (the kernel
+    rounds it to bf16) and lse."""
+    b, h, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    f32 = torch.float32
+    qg = q.reshape(b, hkv, h // hkv, s, d).to(f32)
+    m = torch.full(qg.shape[:-1], NEG_INF)
+    l = torch.zeros(qg.shape[:-1])
+    acc = torch.zeros(qg.shape)
+    for j0 in range(0, t, MMA_KV_TILE):
+        kj, vj = (x[:, :, j0:j0 + MMA_KV_TILE].to(f32) for x in (k, v))
+        sij = torch.einsum("bngsd,bntd->bngst", qg, kj) * spec.scale
+        ok = _chunk_mask(spec, s, j0, kj.shape[2], valid, t - s, q.device)
+        if ok is not None:
+            sij = torch.where(ok, sij, NEG_INF)
+        m_new = torch.maximum(m, sij.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sij - m_new[..., None])
+        if ok is not None:
+            p = torch.where(ok, p, 0.0)
+        l = alpha * l + p.sum(-1)
+        acc = alpha[..., None] * acc
+        for term in _terms(p, FWD_TERMS):
+            acc = acc + torch.einsum("bngst,bntd->bngsd", term, vj)
+        m = m_new
+    l = torch.clamp(l, min=1e-30)
+    return (acc / l[..., None]).reshape(b, h, s, d), (m + torch.log(l)).reshape(b, h, s)
+
+
+def _mma_dkv(q, k, v, valid, lse, di, do, spec: FlashSpec):
+    """K5's arithmetic: sᵀ = k·qᵀ and dpᵀ = v·doᵀ with exact products and
+    fp32 sums, p and ds in fp32, then dv = Σ pᵀ·do and dk = scale·Σ dsᵀ·q
+    with p and ds as two bf16 terms (hi + lo), summed over the GQA group and
+    every q row.  Returns fp32 (dk, dv)."""
+    b, h, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    f32 = torch.float32
+    qg, dog = (x.reshape(b, hkv, h // hkv, s, d).to(f32) for x in (q, do))
+    kf, vf = k.to(f32), v.to(f32)
+    sij = torch.einsum("bngsd,bntd->bngst", qg, kf) * spec.scale
+    p = torch.exp(sij - lse.reshape(b, hkv, h // hkv, s)[..., None])
+    ok = _chunk_mask(spec, s, 0, t, valid, t - s, q.device)
+    if ok is not None:
+        p = torch.where(ok, p, 0.0)
+    dp = torch.einsum("bngsd,bntd->bngst", dog, vf)
+    ds = p * (dp - di.reshape(b, hkv, h // hkv, s)[..., None])
+    dv = sum(torch.einsum("bngst,bngsd->bntd", t, dog) for t in _terms(p, DKV_TERMS))
+    dk = sum(torch.einsum("bngst,bngsd->bntd", t, qg) for t in _terms(ds, DKV_TERMS))
+    return spec.scale * dk, dv
+
+
+# FLASH_GRAD_CASES plus a window whose intersection with kv_valid leaves
+# rows of example 0 with no key at all: (b, h, hkv, s, d, causal, masked, window)
+MMA_CASES = [(*c, 0) for c in FLASH_GRAD_CASES] + [(2, 2, 2, 256, 32, True, True, 64)]
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,causal,masked,window", MMA_CASES)
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+def test_flash_tensor_core_rounding_matches_jax(b, h, hkv, s, d, causal, masked, window, out):
+    """The bf16 kernels' rounding against the JAX package on the same
+    bf16-valued inputs.  ``float32``: JAX computes in fp32 and the emulation
+    keeps fp32 o, dk and dv, held to F32: p and ds as sums of bf16 terms keep
+    fp32-level accuracy (a single bf16 p or ds, 8 bits, would not).
+    ``bfloat16``: JAX's bf16 path against the emulation's outputs rounded to
+    bf16, held to BF16.  Rows with no key give o = 0 exactly."""
+    rng = np.random.default_rng(90)
+    valid = None
+    if window:
+        valid = np.array([40, s], np.int32)
+    elif masked:
+        valid = rng.integers(s // 2, s + 1, size=(b,)).astype(np.int32)
+    live = np.ones((b, s), bool)
+    if window:
+        live = np.arange(s)[None, :] <= valid[:, None] + window - 2
+    lm = np.broadcast_to(live[:, None, :, None], (b, h, s, d)).astype(np.float32)
+    arrays = [_np((b, h, s, d), 91), _np((b, hkv, s, d), 92), _np((b, hkv, s, d), 93),
+              _np((b, h, s, d), 94) * lm]   # do never reads a dead row, as above
+    jdt = jnp.float32 if out == "float32" else jnp.bfloat16
+    # bf16-valued inputs: the kernels' operands, given to JAX in jdt
+    (jq, q), (jk, k), (jv, v), (jd, do) = (
+        (jnp.asarray(a).astype(jnp.bfloat16).astype(jdt),
+         torch.from_numpy(np.array(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32)))
+         .to(torch.bfloat16)) for a in arrays)
+    jvalid = None if valid is None else jnp.asarray(valid)
+    jo, vjp = jax.vjp(lambda q, k, v: jax_flash(q, k, v, jvalid, causal=causal, window=window,
+                                                backend="xla"), jq, jk, jv)
+    _, jdk, jdv = vjp(jd)
+    _, jlse = _jax_fwd("xla", jq, jk, jv, jvalid, causal=causal, window=window)
+
+    spec = FlashSpec(1.0 / d**0.5, causal, window, valid is not None)
+    lim = None if valid is None else torch.clamp(torch.from_numpy(valid), 1, s)
+    o, lse = _mma_fwd(q, k, v, lim, spec)
+    if out == "bfloat16":
+        o = o.to(torch.bfloat16)
+    dk, dv = _mma_dkv(q, k, v, lim, lse, row_dot(o, do), do, spec)
+    tol = F32 if out == "float32" else BF16
+    if out == "bfloat16":
+        dk, dv = dk.to(torch.bfloat16), dv.to(torch.bfloat16)
+    assert float(np.abs(_f32(o) * (1 - lm)).max()) == 0.0   # dead rows: o = 0
+    for name, a, r in (("o", o, jo), ("lse", lse, jlse), ("dk", dk, jdk), ("dv", dv, jdv)):
+        _assert_close(a, r, tol, name)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_flash_tensor_core_o_rounds_as_the_plain_version(seed):
+    """K3's o is bf16 and feeds dq through di = rowsum(o∘do) and the
+    cancelling dp − di: an o that rounds to the other neighbouring bf16
+    value moves the dq of rows that see few keys.  With p as three bf16
+    terms the emulated o, and the dq the plain version takes from it, agree
+    with the plain version's at the card's tolerance (one bf16 ulp, 1e-4 of
+    the tensor's scale), on the causal MQA D 16 case where two terms did not
+    on the card."""
+    g = torch.Generator().manual_seed(seed)
+    b, h, hkv, s, d = 2, 4, 1, 128, 16
+    q, do = (torch.randn(b, h, s, d, generator=g).bfloat16() for _ in range(2))
+    k, v = (torch.randn(b, hkv, s, d, generator=g).bfloat16() for _ in range(2))
+    spec = FlashSpec(d**-0.5, True, 0, False)
+    o_ref, lse = flash_attention_fwd(q, k, v, None, spec)
+    o = _mma_fwd(q, k, v, None, spec)[0].to(torch.bfloat16)
+    dq_ref, dq = (flash_dq(q, k, v, None, lse, row_dot(x, do), do, spec) for x in (o_ref, o))
+    for a, r in ((o, o_ref), (dq, dq_ref)):
+        a, r = a.float(), r.float()
+        torch.testing.assert_close(a, r, rtol=1e-2, atol=1e-4 * max(1.0, float(r.abs().max())))
+
+
+def test_flash_alignment_check_on_cpu_tensors():
+    """The check the wrappers run before a bf16 tensor-core launch, on CPU
+    tensors: the model's transposed (B, S, H, D) view passes; a bf16 view
+    whose row start is 2 bytes off, or whose rows are 8 bytes off 16, raises
+    (for q, k, v and do alike); fp32, which the FMA kernels take, does not."""
+    spec = FlashSpec(0.125, False, 0, False)
+    b, s, h, d = 2, 64, 4, 64
+    model = torch.zeros((b, s, h, d), dtype=torch.bfloat16).transpose(1, 2)
+    _check(model, model, model, None, spec, aligned=True, do=model)
+    off = torch.zeros(model.numel() + 1, dtype=torch.bfloat16)[1:].view(b, h, s, d)
+    wide = torch.zeros((b, h, s, d + 4), dtype=torch.bfloat16)[..., :d]
+    for bad in (off, wide):
+        for i in range(3):
+            args = [model, model, model]
+            args[i] = bad
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                _check(*args, None, spec, aligned=True)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            _check(model, model, model, None, spec, aligned=True, do=bad)
+        _check(bad, bad, bad, None, spec)   # K4 (the FMA kernel) takes any row start
+    off32 = torch.zeros(model.numel() + 1)[1:].view(b, h, s, d)
+    _check(off32, off32, off32, None, spec, aligned=True)
 
 
 # ---------------------------------------------------------------------------
