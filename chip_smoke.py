@@ -20,8 +20,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    for equal bits; the fused CE kernels K6
    (``fused_ce_fwd``), K7 (``fused_ce_dh``) and K8 (``fused_ce_dw``), forward
    and backward through the autograd boundary, against the plain version at
-   the main path's shape, at seq 512, with ragged rows and vocab, in fp32,
-   with zero cotangents and with all-zero rows (ties);
+   the main path's shape, at seq 512, with ragged rows, vocab and D, in the
+   model's layout, in fp32, with zero cotangents and with all-zero rows
+   (ties) (bf16 K7 and K8 on the tensor cores, fp32 and bf16 rows off a
+   16-byte boundary on the FMA kernels), and K7 and K8 run twice for equal
+   bits;
 4. reference: two bert-smoke fp32 train steps with flash attention and the
    fused CE head on the card against the same steps on the CPU (the CPU path
    is the plain version the test suite holds to the JAX package);
@@ -30,14 +33,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
    fused LAMB, flash attention, fused CE head, 6 steps; finite losses, moved
    weights, every LAMB kernel launched 13 leaves × 6 steps times, every flash
    kernel 24 layers × 2 micro-batches × 6 steps times and every fused CE
-   kernel 2 micro-batches × 6 steps times, every K3 and K5 launch on the
-   tensor-core kernel and no copy of ``do``; then 3 steps at seq 512 (batch
-   32, accum 2) with their own counts;
+   kernel 2 micro-batches × 6 steps times, every K3, K5, K7 and K8 launch
+   on the tensor-core kernel and no copy of ``do``; then 3 steps at seq 512
+   (batch 32, accum 2) with their own counts;
 6. timing with CUDA events: K1 and K2 over one full BERT-large update, and
    K3–K8 at the main path's shape and at seq 512, each beside its plain
    version and its bound; ``scaled_dot_product_attention`` (beside K3–K5)
    and the dense head's ``matmul`` + ``cross_entropy`` pair (beside K6–K8)
-   are timed as yardsticks only (the port never calls them).
+   are timed as yardsticks only (the port never calls them); bf16 K7 and K8
+   also in their FMA design.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -101,9 +105,17 @@ KERNELS = {
     "fused_ce_fwd": dict(route="cuda", source="src/repro_torch/kernels/csrc/fused_ce.cu",
                          replaces="src/repro/kernels/fused_ce.py:87"),
     "fused_ce_dh": dict(route="cuda", source="src/repro_torch/kernels/csrc/fused_ce.cu",
-                        replaces="src/repro/kernels/fused_ce.py:162"),
+                        replaces="src/repro/kernels/fused_ce.py:162",
+                        design="bf16: fused_ce_dh_mma_kernel, mma.sync m16n8k16 on the tensor "
+                               "cores, 32 h rows and a 64-row w tile resident over all of D, "
+                               "refilled by cp.async two D chunks at a time, dlogits as bf16 "
+                               "hi+lo, 32 x D fp32 accumulator in registers, vocab split "
+                               "across blocks; fp32: fused_ce_dh_kernel, FMA"),
     "fused_ce_dw": dict(route="cuda", source="src/repro_torch/kernels/csrc/fused_ce.cu",
-                        replaces="src/repro/kernels/fused_ce.py:184"),
+                        replaces="src/repro/kernels/fused_ce.py:184",
+                        design="bf16: fused_ce_dw_mma_kernel, as fused_ce_dh_mma_kernel with "
+                               "a 32-row dw tile per block over every row of h; fp32: "
+                               "fused_ce_dw_kernel, FMA"),
 }
 FLASH = ("flash_fwd", "flash_dq", "flash_dkv")
 FUSED_CE = ("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw")
@@ -149,15 +161,24 @@ FLASH_CASES = [
 # Flash timing shapes (b, h, s, d): what the main path gives the kernels.
 FLASH_TIMING = [("seq 128", 32, 16, 128, 64), ("seq 512", 16, 16, 512, 64)]
 
-# Fused CE checks: (name, n, d, v, dtype).  The first two are the shapes the
-# main path gives the kernels: 32 sequences × 20 gathered positions at
-# seq 128, 16 × 77 at seq 512, against the tied (30522, 1024) embedding.
+# Fused CE checks: (name, n, d, v, dtype, layout).  The first two are the
+# shapes the main path gives the kernels: 32 sequences × 20 gathered positions
+# at seq 128, 16 × 77 at seq 512, against the tied (30522, 1024) embedding.
+# Layout "dense": h a contiguous (n, d) tensor; "model": h the rows
+# gather_supervised takes from a (32, 128, d) hidden state, as the model's
+# loss hands them over, against w cast from an fp32 embedding as the step
+# casts its masters; "offset": h starts 2 bytes past a 16-byte boundary, so
+# bf16 K7 and K8 take the FMA design.
 CE_CASES = [
-    ("main path", 640, 1024, 30522, "bfloat16"),
-    ("seq 512", 1232, 1024, 30522, "bfloat16"),
-    ("ragged rows and vocab", 97, 1024, 300, "bfloat16"),
-    ("fp32", 640, 1024, 30522, "float32"),
-    ("ragged fp32, D 80", 97, 80, 300, "float32"),
+    ("main path", 640, 1024, 30522, "bfloat16", "dense"),
+    ("seq 512", 1232, 1024, 30522, "bfloat16", "dense"),
+    ("ragged rows and vocab", 97, 1024, 300, "bfloat16", "dense"),
+    ("fp32", 640, 1024, 30522, "float32", "dense"),
+    ("ragged fp32, D 80", 97, 80, 300, "float32", "dense"),
+    ("ragged bf16, D 80", 97, 80, 300, "bfloat16", "dense"),
+    ("bf16 D 1000, N 333", 333, 1000, 5003, "bfloat16", "dense"),
+    ("model layout", 640, 1024, 30522, "bfloat16", "model"),
+    ("bf16 rows off 16 bytes", 97, 1024, 300, "bfloat16", "offset"),
 ]
 # Fused CE timing shapes (n rows; D 1024, V 30522, bf16).
 CE_TIMING = [("seq 128", 640), ("seq 512", 1232)]
@@ -378,6 +399,31 @@ def check_flash(device) -> dict:
     return errs
 
 
+def ce_operand(x, layout: str):
+    """``x`` (n, d) as the tensor the kernels are handed in CE_CASES's
+    ``layout``, made from a fresh leaf that requires grad; gradients are
+    taken against it."""
+    import torch
+
+    from repro_torch.train.loss import IGNORE, gather_supervised
+
+    n, d = x.shape
+    if layout == "dense":
+        return x.clone().requires_grad_()
+    if layout == "offset":
+        leaf = x.clone().requires_grad_()
+        return torch.cat([x.new_zeros(1), leaf.reshape(-1)])[1:].view(n, d)
+    b, s = 32, 128                  # layout "model": n = 32 sequences × n / 32 rows
+    p = n // b
+    pos = torch.stack([torch.randperm(s, device=x.device)[:p].sort().values for _ in range(b)])
+    leaf = torch.zeros((b, s, d), dtype=x.dtype, device=x.device)
+    leaf[torch.arange(b, device=x.device)[:, None], pos] = x.view(b, p, d)
+    leaf.requires_grad_()
+    labels = torch.full((b, s), IGNORE, dtype=torch.int32, device=x.device)
+    labels[torch.arange(b, device=x.device)[:, None], pos] = 0
+    return gather_supervised(leaf, labels, p)[0].reshape(n, d)
+
+
 def check_fused_ce(device) -> dict:
     """Max abs errors per fused CE kernel over CE_CASES; raises on a mismatch.
 
@@ -385,23 +431,29 @@ def check_fused_ce(device) -> dict:
     0, so the argmax is column 0: ties), w with std 0.05, labels at 0 and
     V − 1, the argmax on every other row (so ``correct`` is exercised) and
     random elsewhere, a cotangent that is 0 on every third row.  Both sides
-    compute in fp32 from the same inputs in another order (the kernel's FMAs
-    against cuBLAS), so nll and lse agree to 1e-5; ``correct`` is equal except
-    where the label's logit ties the maximum within fp32 rounding; fp32
-    gradients agree to 1e-4 relative plus 1e-5 of the tensor's largest
-    magnitude, bf16 gradients round those fp32 values, so one bf16 ulp
-    (2^-7 relative) apart at most: 1e-2 relative plus 1e-4 of the largest.
-    Rows with a zero cotangent must get exactly zero dh.
+    compute in fp32 from the same inputs in another order (the kernel's sums
+    against cuBLAS; in the tensor-core design the dlogits enter the second
+    product as two bf16 terms, ~16 bits), so nll and lse agree to 1e-5;
+    ``correct`` is equal except where the label's logit ties the maximum
+    within fp32 rounding; fp32 gradients agree to 1e-4 relative plus 1e-5 of
+    the tensor's largest magnitude, bf16 gradients round those fp32 values,
+    so one bf16 ulp (2^-7 relative) apart at most: 1e-2 relative plus 1e-4
+    of the largest.  Rows with a zero cotangent must get exactly zero dh.
+    Every case checks which design K7 and K8 ran: the tensor cores for bf16
+    they can stage, FMA otherwise.  Then K7 and K8 run twice on two cases
+    and must give equal bits.
     """
     import torch
 
-    from repro_torch.kernels.fused_ce import fused_ce, fused_ce_fwd
+    from repro_torch.kernels import VARIANT_LAUNCHES, reset_launches
+    from repro_torch.kernels.fused_ce import fused_ce, fused_ce_dh, fused_ce_dw, fused_ce_fwd
 
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain version in full fp32
     errs = dict.fromkeys(FUSED_CE, 0.0)
     gen = torch.Generator(device=device).manual_seed(4)
-    for name, n, d, v, dt in CE_CASES:
-        dtype = getattr(torch, dt)
+    torch.manual_seed(4)   # the model layout's positions
+
+    def make(n, d, v, dtype):
         rows = torch.arange(n, device=device)
         h = torch.randn((n, d), generator=gen, device=device)
         h[: n // 4] = 0.0
@@ -413,11 +465,23 @@ def check_fused_ce(device) -> dict:
         lbl[0], lbl[1] = 0, v - 1
         g = torch.rand((n,), generator=gen, device=device)
         g[rows % 3 == 1] = 0.0
+        return h, w, logits, lbl, g
+
+    for name, n, d, v, dt, layout in CE_CASES:
+        dtype = getattr(torch, dt)
+        rows = torch.arange(n, device=device)
+        h, w, logits, lbl, g = make(n, d, v, dtype)
         outs = {}
         for plain in (True, False):
-            hh, ww = (x.clone().requires_grad_() for x in (h, w))
+            hh = ce_operand(h, "dense" if plain else layout)
+            ww = w.clone().requires_grad_()
+            reset_launches()
             nll, correct = fused_ce(hh, ww, lbl, plain=plain)
             outs[plain] = [nll.detach(), correct, *torch.autograd.grad(nll, (hh, ww), g)]
+        designs = {k: dict(VARIANT_LAUNCHES[k]) for k in ("fused_ce_dh", "fused_ce_dw")}
+        want = "mma" if dtype == torch.bfloat16 and layout != "offset" else "fma"
+        design_ok = all(c == {"mma": int(want == "mma"), "fma": int(want == "fma")}
+                        for c in designs.values())
         lse, lse_ref = (fused_ce_fwd(h, w, lbl, plain=p)[2] for p in (False, True))
         torch.cuda.synchronize()
         (nll, correct, dh, dw), (nll_r, correct_r, dh_r, dw_r) = outs[False], outs[True]
@@ -439,11 +503,12 @@ def check_fused_ce(device) -> dict:
         zero = rows < n // 4
         ties_ok = torch.equal(correct[zero], (lbl[zero] == 0).float())
         still_ok = float(dh[g == 0].abs().max()) == 0.0
-        ok = ok and ties_ok and still_ok
+        ok = ok and ties_ok and still_ok and design_ok
         e_fwd = max(float((nll - nll_r).abs().max()), float((lse - lse_ref).abs().max()))
-        log(f"check fused CE {name:22s} n {n} d {d} v {v} {dt}: |dnll|,|dlse| {e_fwd:.2e} "
-            f"correct flips {int(flips.sum())} of {n} (label wins on {int(correct_r.sum())}) "
-            f"|ddh| {diffs[0]:.2e} |ddw| {diffs[1]:.2e} ties {ties_ok} zero-g rows {still_ok} "
+        log(f"check fused CE {name:24s} n {n} d {d} v {v} {dt} {layout}: |dnll|,|dlse| "
+            f"{e_fwd:.2e} correct flips {int(flips.sum())} of {n} (label wins on "
+            f"{int(correct_r.sum())}) |ddh| {diffs[0]:.2e} |ddw| {diffs[1]:.2e} ties {ties_ok} "
+            f"zero-g rows {still_ok} K7/K8 designs {designs} (want {want}) "
             f"{'ok' if ok else 'MISMATCH'}")
         if not ok:
             raise AssertionError(f"fused CE kernels disagree with the plain version on {name}")
@@ -451,6 +516,18 @@ def check_fused_ce(device) -> dict:
         errs["fused_ce_dh"] = max(errs["fused_ce_dh"], diffs[0])
         errs["fused_ce_dw"] = max(errs["fused_ce_dw"], diffs[1])
         del h, w, logits, outs, dh, dw, dh_r, dw_r
+    # K7 and K8 own their outputs (no atomics; K7's splits summed in order):
+    # two runs, equal bits
+    for name, n, d, v, dt, _ in (CE_CASES[0], next(c for c in CE_CASES if "N 333" in c[0])):
+        h, w, _, lbl, g = make(n, d, v, getattr(torch, dt))
+        lse = fused_ce_fwd(h, w, lbl)[2]
+        same = all(torch.equal(*(fn(h, w, lbl, lse, g) for _ in range(2)))
+                   for fn in (fused_ce_dh, fused_ce_dw))
+        log(f"check fused_ce_dh, fused_ce_dw {name}: two runs "
+            f"{'equal' if same else 'DIFFER'} bit for bit")
+        if not same:
+            raise AssertionError(f"fused CE backward is not bit-reproducible on {name}")
+        del h, w, lbl, g, lse
     torch.cuda.empty_cache()
     return errs
 
@@ -544,14 +621,16 @@ def _train(device, argv, steps, label):
             raise AssertionError(f"non-finite metrics at step {h['step']}: {h}")
     if launches != _want_launches(steps):
         raise AssertionError(f"{label}: launches {launches}, want {_want_launches(steps)}")
-    # bf16 K3 and K5 on the tensor cores, every launch; K4 on its FMA kernel;
-    # autograd's do read as it came, never copied
-    n_flash = LAYERS * ACCUM * steps
+    # bf16 K3, K5, K7 and K8 on the tensor cores, every launch; K4 on its FMA
+    # kernel; autograd's do read as it came, never copied
+    n_flash, n_ce = LAYERS * ACCUM * steps, ACCUM * steps
     want_designs = {"flash_fwd": {"mma": n_flash, "fma": 0},
                     "flash_dq": {"mma": 0, "fma": n_flash},
-                    "flash_dkv": {"mma": n_flash, "fma": 0}}
+                    "flash_dkv": {"mma": n_flash, "fma": 0},
+                    "fused_ce_dh": {"mma": n_ce, "fma": 0},
+                    "fused_ce_dw": {"mma": n_ce, "fma": 0}}
     if designs != want_designs or any(copies.values()):
-        raise AssertionError(f"{label}: flash launches by design {designs}, want "
+        raise AssertionError(f"{label}: launches by design {designs}, want "
                              f"{want_designs}; copies {copies}, want none")
     walls = [h["wall_s"] for h in hist]
     steady = [b - a for a, b in zip(walls[1:], walls[2:])]  # after two warm-up steps
@@ -562,7 +641,7 @@ def _train(device, argv, steps, label):
         f"{[round(s, 4) for s in steady]} s, mean {step_s * 1e3:.1f} ms/step, "
         f"{batch * seq / step_s:.0f} tokens/s, peak memory {peak / 2**30:.2f} GiB")
     log(f"{label}: launches {launches}")
-    log(f"{label}: flash launches by design {designs}; input copies {copies}")
+    log(f"{label}: launches by design {designs}; input copies {copies}")
     return trainer, launches
 
 
@@ -755,7 +834,9 @@ def time_flash(device, rate: float) -> dict:
 def time_fused_ce(device, rate: float) -> dict:
     """K6–K8 at each CE_TIMING shape (bf16), plain, kernel, kernel, plain,
     beside their bound and the dense head's two calls (``matmul`` then
-    ``cross_entropy``) forward and forward + backward.  Returns the seq-128
+    ``cross_entropy``) forward and forward + backward.  K7 and K8 run on the
+    tensor cores; their FMA design (what bf16 rows off a 16-byte boundary
+    take) is timed in the same turns, on h 2 bytes off.  Returns the seq-128
     (main path) numbers by kernel name."""
     import torch
     import torch.nn.functional as F
@@ -783,10 +864,15 @@ def time_fused_ce(device, rate: float) -> dict:
                   "fused_ce_dw": hw + 3 * rows + v * d * 2}
         mm = 2 * n * v * d
         flops = {"fused_ce_fwd": mm, "fused_ce_dh": 2 * mm, "fused_ce_dw": 2 * mm}
-        times = {name: {"plain": [], "cuda": []} for name in fns}
+        h_off = torch.cat([h.new_zeros(1), h.reshape(-1)])[1:].view(n, d)   # FMA design
+        fma = {"fused_ce_dh": lambda: fused_ce_dh(h_off, w, lbl, lse, g),
+               "fused_ce_dw": lambda: fused_ce_dw(h_off, w, lbl, lse, g)}
+        times = {name: {"plain": [], "cuda": [], "fma": []} for name in fns}
         for name, fn in fns.items():
             for plain in (True, False, False, True):
                 times[name]["plain" if plain else "cuda"].append(cuda_ms(lambda: fn(plain)))
+                if name in fma and plain:
+                    times[name]["fma"].append(cuda_ms(fma[name]))
         lbl64 = lbl.long()
         dense_fwd = cuda_ms(lambda: F.cross_entropy(torch.matmul(h, w.t()), lbl64,
                                                     reduction="none"))
@@ -800,8 +886,11 @@ def time_fused_ce(device, rate: float) -> dict:
             out[name] = dict(ms=t_k, plain_ms=t_p, bound_ms=max(t_bytes, t_ops) * 1e3,
                              bound_by="bytes" if t_bytes >= t_ops else "operations",
                              library_ms=dense_fwd if name == "fused_ce_fwd" else None)
+            if times[name]["fma"]:
+                out[name]["fma_ms"] = min(times[name]["fma"])
             log(f"time {name} {label} (n {n} d {d} v {v} bf16): kernel "
-                f"{times[name]['cuda']} ms, plain {times[name]['plain']} ms; bound "
+                f"{times[name]['cuda']} ms, plain {times[name]['plain']} ms, FMA design "
+                f"{times[name]['fma'] or 'n/a'} ms; bound "
                 f"{out[name]['bound_ms']:.4f} ms by {out[name]['bound_by']} "
                 f"({bytes_[name] / 1e6:.1f} MB, {flops[name] / 1e9:.2f} GFLOP); achieved "
                 f"{flops[name] / (t_k * 1e-3) / 1e12:.2f} TFLOP/s")
@@ -810,7 +899,7 @@ def time_fused_ce(device, rate: float) -> dict:
             f"(backward {dense_fb - dense_fwd:.4f} ms); K6 {out['fused_ce_fwd']['ms']:.4f} ms, "
             f"K7 + K8 {out['fused_ce_dh']['ms'] + out['fused_ce_dw']['ms']:.4f} ms")
         result[label] = out
-        del h, hg, lse, g
+        del h, h_off, hg, lse, g
     del w, wg
     torch.cuda.empty_cache()
     return result[CE_TIMING[0][0]]

@@ -3,8 +3,9 @@
 Each source under ``csrc/`` becomes one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), compiled for
 Hopper (``sm_90a``) into ``build/`` at the root of the checkout.  A library
-is named by a hash of its source and flags, so an edited source is rebuilt
-and an unchanged one is reused.  Libraries build at first use;
+is named by a hash of its source, the headers under ``csrc/`` (which the
+sources include) and the flags, so an edited source or header is rebuilt and
+an unchanged one is reused.  Libraries build at first use;
 :func:`build_all` starts one ``nvcc`` per source, all at once.
 """
 from __future__ import annotations
@@ -42,8 +43,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -2,8 +2,10 @@
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/fused_ce.py:
 //   fused_ce_fwd_kernel (+ fused_ce_fwd_combine_kernel) <- _fwd_kernel (K6, pallas_call at :218)
-//   fused_ce_dh_kernel  (+ fused_ce_dh_combine_kernel)  <- _dh_kernel  (K7, pallas_call at :246)
-//   fused_ce_dw_kernel                                  <- _dw_kernel  (K8, pallas_call at :262)
+//   fused_ce_dh_mma_kernel (bf16), fused_ce_dh_kernel (fp32)
+//                       (+ fused_ce_dh_combine_kernel)  <- _dh_kernel  (K7, pallas_call at :246)
+//   fused_ce_dw_mma_kernel (bf16), fused_ce_dw_kernel (fp32)
+//                                                       <- _dw_kernel  (K8, pallas_call at :262)
 //
 // What they compute, for gathered rows h (N, D), the vocab projection w
 // (V, D) in the embedding layout and labels in [0, V), with s = h w^T in
@@ -24,46 +26,93 @@
 // supervised rows, D 1024, V 30522, bf16) K6 does 2 N V D = 40 GFLOP and
 // K7 and K8 4 N V D = 80 GFLOP each, against 63 MB of w and 1.3 MB of h:
 // 0.04 and 0.08 ms at the 989 TFLOP/s of bf16 tensor cores, 0.02 ms at
-// 3.35 TB/s, so all three are bound by operations.  This first version
-// computes in fp32 FMA from shared-memory tiles (no tensor cores), so it runs
-// against the card's 67 TFLOP/s fp32 rate instead.
+// 3.35 TB/s, so all three are bound by operations.
 //
-// Design.  The TPU kernels walk a sequential vocab grid axis, carrying m, l,
-// the label logit, the argmax and the dh accumulator in VMEM.  On Hopper the
-// blocks run in parallel and one block per row tile would give 20 blocks on
-// 132 SMs, so the vocab is split across blocks instead:
+// Two designs of K7 and K8, chosen by the caller (fused_ce.py) and checked
+// here (not a fallback: a call names its design):
+//   mma (bf16 whose h and w can be copied in 16-byte pieces: 16-byte aligned
+//     bases, row strides and D multiples of 8 elements): the tensor-core
+//     kernels fused_ce_dh_mma_kernel and fused_ce_dw_mma_kernel below;
+//   fma (fp32, and bf16 that cannot be copied so): fp32 FMA kernels from
+//     shared-memory tiles, fused_ce_dh_kernel and fused_ce_dw_kernel.  The
+//     reference multiplies fp32 inputs in fp32; the tensor cores would make
+//     that TF32, another function.
+// K6 runs the FMA design in both dtypes (11-16 TFLOP/s; its tensor-core
+// design is later work).
+//
+// Vocab and ownership.  The TPU kernels walk a sequential vocab grid axis,
+// carrying m, l, the label logit, the argmax and the dh accumulator in VMEM.
+// On Hopper the blocks run in parallel and one block per row tile would give
+// 20 blocks on 132 SMs, so the vocab is split across blocks instead:
 //   K6: one block per (32-row tile, vocab split) loops over the split's
 //     128-column tiles and writes its partial (m, l, label logit, argmax) to a
 //     (splits, N) scratch; a second small kernel merges the splits in a fixed
 //     order (a strict > keeps the earlier split's column on a tie, as the
 //     lowest column wins within a split).
 //   K7: one block per (32-row tile, vocab split) owns a 32 x D fp32
-//     accumulator in shared memory and writes it to a (splits, N, D) scratch;
-//     a second kernel sums the splits in a fixed order and casts to h's type.
+//     accumulator and writes it to a (splits, N, D) scratch; a second kernel
+//     sums the splits in a fixed order and casts to h's type.  The row tile
+//     is fastest in blockIdx, so the row tiles of one split run together and
+//     their re-reads of the split's w tiles hit L2 (w is 62.5 MB in bf16,
+//     more than the 50 MB L2).
 //   K8: one block per 32-row vocab tile owns its 32 x D dw accumulator and
-//     loops over every 128-row tile of h, as the TPU kernel owns a (bv, D)
-//     tile.
-// No atomics: every run gives the same bits.  K7 and K8 share one body: an
-// "owner" tile of 32 rows (h rows for K7, w rows for K8) against "other"
-// tiles of 128 rows (w rows for K7, h rows for K8).  For each other tile the
-// 32 x 128 score tile is formed over D in chunks of 32 (both operands staged
-// in fp32 shared memory, rows padded by one float), turned into dlogits in
-// shared memory, and multiplied into the accumulator over D in chunks of
-// 128 (the other tile's 128 x 128 chunk staged in shared memory).  256
-// threads: warp ty owns owner rows ty + 8 i and lane tx other columns
-// tx + 32 j (i, j < 4), so each row's reductions are one warp's shuffles.
-// The accumulator takes 128 KB at D 1024, so K7 and K8 run one block per
-// SM; D is at most 1024.  The split count is planned per shape
-// (fused_ce_plan) from the kernel's blocks per SM, so that the grid fills
-// whole waves.  Tensor cores (wgmma), TMA loads and a pipeline of staged
-// chunks are left for later (loads issued into registers a chunk ahead
-// pushed K7 and K8 to 255 registers with spills and made K8 slower).
+//     loops over every row tile of h, as the TPU kernel owns a (bv, D) tile.
+// No atomics: every run gives the same bits.  The split count is planned per
+// shape (fused_ce_plan) from the blocks per SM of the kernel that will run,
+// so that the grid fills whole waves.  K7 and K8 share one body in each
+// design: an "owner" tile of 32 rows (h rows for K7, w rows for K8) against
+// "other" tiles (w rows for K7, h rows for K8).  For each other tile the
+// score tile s is formed once over all of D, turned into dlogits =
+// (exp(s - lse) - onehot) g, and multiplied into the accumulator over D in
+// chunks of 128 columns.  The accumulator takes 128 KB at D 1024, so one
+// block runs per SM; D is at most 1024.
+//
+// The tensor-core design (bf16).  8 warps; both products on mma.sync
+// m16n8k16 (bf16 in, fp32 accumulate) from ldmatrix fragments.  bf16 x bf16
+// products are exact in fp32, so s differs from the reference's fp32 product
+// only in the order of the sums.  dlogits are fp32 (the reference keeps them
+// so) and enter the second product as two bf16 terms t0 = bf16(x),
+// t1 = bf16(x - t0) (~16 mantissa bits), one mma per term: one bf16 term
+// (8 bits) misses the fp32-level agreement the tests hold the kernels to
+// (tests/test_torch_fused_ce.py emulates both).  The 32 owner rows stay in
+// shared memory for the whole block, and so does the current other tile of
+// 64 rows, all of D for both (bf16, rows padded by 16 bytes so that the 8
+// rows of an ldmatrix phase fall on distinct banks): 198 KB at D 1024.  So
+// the second product reads the other tile the score read, and each tile
+// crosses from L2 once.  The accumulator lives in registers, spread over the
+// 8 warps: warp w holds owner rows 16 (w % 2) .. + 15 and columns 32 (w / 2)
+// .. + 31 of every 128-column D chunk, 128 fp32 registers a thread.  Per
+// other tile: warp w forms the score of its owner rows against other rows
+// 16 (w / 2) .. + 15; the dlogits go to shared memory as the two bf16
+// terms; every warp takes the A fragments of its 16 rows over the tile's 64
+// columns into registers and adds, chunk by chunk of D, its share of
+// dlogits x other rows.  The other tile is staged by 16-byte cp.async
+// (ragged rows and columns zero-filled), two D chunks to a group: once every
+// warp is done with a pair of chunks in the second product, the next tile's
+// pair streams into its place, and the next score waits pair by pair, so the
+// loads overlap the rest of the tile's work.  Tried and not kept (PERF.md):
+// the accumulator in fp32 shared memory (a two-slot ring is all that then
+// fits: 1.64 ms for K7 at the main path's shape), a four-slot ring that
+// streams the other tile twice (1.03 ms), and a score split four ways over
+// D between warps (3% faster, but 255 registers with spills).
+//
+// The FMA design (fp32, and bf16 that cannot be staged in 16-byte pieces):
+// the same ownership, 256 threads: warp ty owns owner rows ty + 8 i and lane
+// tx other columns tx + 32 j (i, j < 4), so each row's reductions are one
+// warp's shuffles.  The score tile is formed over D in chunks of 32 (both
+// operands staged in fp32 shared memory, rows padded by one float), turned
+// into dlogits in shared memory and multiplied into the accumulator over D in
+// chunks of 128 (the other tile's 128 x 128 chunk staged in shared memory).
 //
 // Nothing is allocated here and nothing synchronises: the caller allocates
 // outputs and scratch and the kernels run on its stream.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -262,7 +311,7 @@ __global__ void __launch_bounds__(kThreads) fused_ce_fwd_combine_kernel(Args a) 
 }
 
 // ---------------------------------------------------------------------------
-// K7, K8: dh and dw
+// K7, K8: dh and dw, fp32 FMA (fp32, and bf16 the tensor cores cannot stage)
 // ---------------------------------------------------------------------------
 
 constexpr size_t grad_smem(int D) {
@@ -424,66 +473,340 @@ __global__ void __launch_bounds__(kThreads) fused_ce_dh_combine_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
+// K7, K8 on the tensor cores (bf16)
+// ---------------------------------------------------------------------------
+
+constexpr int kBT2 = 64;              // other rows of the resident other tile
+constexpr int kLDL = kBT2 + 8;        // row stride (bf16) of dlogits
+constexpr int kTerms = 2;             // bf16 terms of dlogits in the second product
+constexpr int kChunks = kMaxD / kDC;  // D chunks of the accumulator
+constexpr int kPairs = kChunks / 2;   // the other tile is refilled two D chunks at a time
+static_assert(kThreads / 32 == 8 && kBO == 32 && kBT2 == 64,
+              "warp w: owner rows 16 (w % 2) .., score columns 16 (w / 2) .., D columns "
+              "32 (w / 2) .. of each chunk");
+static_assert(kBT2 * (2 * kDC / 8) % kThreads == 0, "whole rounds of 16-byte copies");
+
+// Row stride (bf16) of the resident owner and other rows: D in whole chunks,
+// plus 8 so that the 8 rows of an ldmatrix phase fall on distinct banks.
+__host__ __device__ constexpr int res_ld(int D) { return (D + kDC - 1) / kDC * kDC + 8; }
+
+constexpr size_t mma_smem(int D) {
+  return sizeof(bf16) * ((size_t)(kBO + kBT2) * res_ld(D) + kTerms * kBO * kLDL);
+}
+static_assert(mma_smem(kMaxD) <= 232448, "the tensor-core kernels fit an SM's shared memory");
+
+// Wait until at most n (0 .. kPairs - 1) of this thread's newest groups are in flight.
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  static_assert(kPairs == 4, "one case per pair");
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    default: cp_async_wait<3>(); break;
+  }
+}
+
+// kOwnVocab false (K7): the block owns 32 rows of h and loops over the
+// vocab tiles of split blockIdx.y.  true (K8): it owns 32 rows of w and
+// loops over every 64-row tile of h.
+template <bool kOwnVocab>
+__device__ __forceinline__ void grad_mma_body(const Args& a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ld = res_ld(a.D), dr = ld - 8;
+  bf16* sOwn = reinterpret_cast<bf16*>(smem_raw);  // kBO x ld: the owner rows
+  bf16* sOth = sOwn + kBO * ld;                     // kBT2 x ld: the other tile
+  bf16* sDl = sOth + kBT2 * ld;                     // kTerms x kBO x kLDL: dlogits
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int mi = lane >> 3, mr = lane & 7;  // the ldmatrix matrix and row this lane addresses
+  const int mt = warp & 1, nq = warp >> 1;  // owner rows 16 mt ..
+  const int o0 = blockIdx.x * kBO, split = blockIdx.y;
+  const bf16* h = static_cast<const bf16*>(a.h);
+  const bf16* w = static_cast<const bf16*>(a.w);
+  const bf16* A = kOwnVocab ? w : h;
+  const bf16* B = kOwnVocab ? h : w;
+  const int64_t sa = kOwnVocab ? a.sw : a.sh, sb = kOwnVocab ? a.sh : a.sw;
+  const int na = kOwnVocab ? a.V : a.N, nb = kOwnVocab ? a.N : a.V;
+  const int n_tiles = (nb + kBT2 - 1) / kBT2;
+  // K7's split counts 128-column vocab tiles (as K6 and the combine do)
+  const int t_lo = kOwnVocab ? 0 : split * a.tiles_per_split * (kBT / kBT2);
+  const int t_hi = kOwnVocab ? n_tiles : min(n_tiles, t_lo + a.tiles_per_split * (kBT / kBT2));
+  const int nC = (a.D + kDC - 1) / kDC, nP = (nC + 1) / 2;
+
+  // D chunks 2p and 2p + 1 of other tile `tile` into sOth (ragged rows and
+  // columns zero-filled), as one group; past the last tile an empty group
+  auto refill = [&](int tile, int p) {
+    if (tile < t_hi) {
+      const int b0 = tile * kBT2;
+      constexpr int CH = 2 * kDC / 8;  // 16-byte pieces per row of a pair
+#pragma unroll
+      for (int i = 0; i < kBT2 * CH / kThreads; ++i) {
+        const int e = i * kThreads + threadIdx.x, r = e / CH, row = b0 + r;
+        const int col = 2 * p * kDC + (e % CH) * 8;
+        const bool in = row < nb && col < a.D;
+        if (col < dr) cp_async16(sOth + r * ld + col, B + (in ? row * sb + col : 0), in);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // the owner rows, all of D (zero-filled past D), with the first pair of
+  // the first other tile; then its other pairs, a group each
+  {
+    const int per_row = dr / 8;
+    for (int e = threadIdx.x; e < kBO * per_row; e += kThreads) {
+      const int r = e / per_row, c = (e % per_row) * 8, row = o0 + r;
+      const bool in = row < na && c < a.D;
+      cp_async16(sOwn + r * ld + c, A + (in ? row * sa + c : 0), in);
+    }
+  }
+  for (int p = 0; p < nP; ++p) refill(t_lo, p);
+
+  float ol[2], og[2];  // K7: the lse, g and label of this lane's owner rows 16 mt + g + 8 hh
+  int ob[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = o0 + 16 * mt + g + 8 * hh;
+    const bool ok = !kOwnVocab && row < a.N;
+    ol[hh] = ok ? a.lse[row] : 0.f;
+    og[hh] = ok ? a.g[row] : 0.f;
+    ob[hh] = ok ? a.lbl[row] : -1;
+  }
+  // this warp's share of the accumulator: rows 16 mt + g (+ 8), columns
+  // kDC c + 32 nq + 8 j + 2 t (+ 1) of each D chunk c
+  float acc[kChunks][4][4];
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][j][e] = 0.f;
+
+  for (int tile = t_lo; tile < t_hi; ++tile) {
+    const int b0 = tile * kBT2;
+    float rl[4], rg[4];  // K8: lse, g, label of other rows b0 + 16 nq + 8 j + 2 t + e
+    int rb[4];
+    if (kOwnVocab) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int n = b0 + 16 * nq + 8 * (k >> 1) + 2 * t + (k & 1);
+        const bool ok = n < a.N;
+        rl[k] = ok ? a.lse[n] : 0.f;
+        rg[k] = ok ? a.g[n] : 0.f;
+        rb[k] = ok ? a.lbl[n] : -1;
+      }
+    }
+    // s = owner rows . other rows: this warp's 16 x 16 share of the 32 x 64
+    // tile, pair by pair of D chunks as they land, in two partial sums (even
+    // and odd k16 steps) so that four independent mma chains interleave
+    float sc[2][4], sp[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = sp[j][e] = 0.f;
+    for (int c = 0; c < nC; ++c) {
+      if ((c & 1) == 0) {
+        cp_async_wait_upto(nP - 1 - c / 2);
+        __syncthreads();
+      }
+#pragma unroll
+      for (int kk = 0; kk < kDC / 16; kk += 2) {
+        uint32_t af[2][4], bfr[2][4];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          ldsm4(af[u], sOwn + (16 * mt + mr + 8 * (mi & 1)) * ld + kDC * c + 16 * (kk + u) +
+                           8 * (mi >> 1));
+          ldsm4(bfr[u], sOth + (16 * nq + mr + 8 * (mi >> 1)) * ld + kDC * c + 16 * (kk + u) +
+                            8 * (mi & 1));
+        }
+        mma_bf16(sc[0], af[0], bfr[0][0], bfr[0][1]);
+        mma_bf16(sc[1], af[0], bfr[0][2], bfr[0][3]);
+        mma_bf16(sp[0], af[1], bfr[1][0], bfr[1][1]);
+        mma_bf16(sp[1], af[1], bfr[1][2], bfr[1][3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] += sp[j][e];
+    // dlogits = (exp(s - lse) - onehot(label)) g, 0 past N or V, into sDl as
+    // kTerms bf16 terms
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = 16 * mt + g + 8 * hh, c = 16 * nq + 8 * j + 2 * t;
+        float x[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = kOwnVocab ? b0 + c + e : o0 + r;
+          const int v = kOwnVocab ? o0 + r : b0 + c + e;
+          const float lse = kOwnVocab ? rl[2 * j + e] : ol[hh];
+          const float gg = kOwnVocab ? rg[2 * j + e] : og[hh];
+          const int lab = kOwnVocab ? rb[2 * j + e] : ob[hh];
+          const bool ok = n < a.N && v < a.V;
+          x[e] = ok ? (expf(sc[j][2 * hh + e] - lse) - (lab == v ? 1.f : 0.f)) * gg : 0.f;
+        }
+        uint32_t tt[4 * kTerms];
+        split_pair<kTerms>(x[0], x[1], tt);
+#pragma unroll
+        for (int i = 0; i < kTerms; ++i)
+          *reinterpret_cast<uint32_t*>(sDl + (i * kBO + r) * kLDL + c) = tt[4 * i];
+      }
+    __syncthreads();  // sDl is written
+    uint32_t da[kTerms][kBT2 / 16][4];  // this warp's 16 rows of dlogits as A fragments
+#pragma unroll
+    for (int i = 0; i < kTerms; ++i)
+#pragma unroll
+      for (int kc = 0; kc < kBT2 / 16; ++kc)
+        ldsm4(da[i][kc],
+              sDl + (i * kBO + 16 * mt + mr + 8 * (mi & 1)) * kLDL + 16 * kc + 8 * (mi >> 1));
+    // acc += dlogits . other rows, chunk by chunk of D; once every warp is
+    // done with a pair, the next tile's pair streams into its place
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      if (c >= nC) break;
+      if (c >= 2 && (c & 1) == 0) {
+        __syncthreads();
+        refill(tile + 1, c / 2 - 1);
+      }
+#pragma unroll
+      for (int kc = 0; kc < kBT2 / 16; ++kc) {
+        uint32_t ob4[2][4];  // n-tiles 0, 1 and 2, 3 of this warp's 32 columns
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          ldsm4_t(ob4[u], sOth + (16 * kc + mr + 8 * (mi & 1)) * ld + kDC * c + 32 * nq +
+                              16 * u + 8 * (mi >> 1));
+#pragma unroll
+        for (int i = 0; i < kTerms; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            mma_bf16(acc[c][j], da[i][kc], ob4[j >> 1][2 * (j & 1)], ob4[j >> 1][2 * (j & 1) + 1]);
+      }
+    }
+    __syncthreads();
+    refill(tile + 1, nP - 1);
+  }
+  cp_async_wait_all();  // only empty groups are left
+
+  // the accumulator out: K8 to its dw rows in w's type, K7 to its split's partial
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = o0 + 16 * mt + g + 8 * hh, col = kDC * c + 32 * nq + 8 * j + 2 * t;
+        if (row >= na || col >= a.D) continue;  // D is a multiple of 8: col + 1 < D too
+        const float x0 = acc[c][j][2 * hh], x1 = acc[c][j][2 * hh + 1];
+        if (kOwnVocab)
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.out) + (int64_t)row * a.D +
+                                             col) = __floats2bfloat162_rn(x0, x1);
+        else
+          *reinterpret_cast<float2*>(a.part + ((int64_t)split * a.N + row) * a.D + col) =
+              make_float2(x0, x1);
+      }
+}
+
+__global__ void __launch_bounds__(kThreads, 1) fused_ce_dh_mma_kernel(Args a) {
+  grad_mma_body<false>(a);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) fused_ce_dw_mma_kernel(Args a) {
+  grad_mma_body<true>(a);
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
+
+enum Pass { kFwd, kDh, kDw };
+enum Design { kFma, kMma };  // the caller's design codes: 0 = FMA, 1 = tensor cores
+
+unsigned blocks_of(int64_t n, int per) { return (unsigned)((n + per - 1) / per); }
 
 // The dynamic shared memory a kernel may take is set once per kernel and
 // device (the attribute call costs host time on every launch otherwise):
 // `configured` holds one bit per device for this one kernel.
-template <typename Kernel>
-int launch_big(Kernel kernel, dim3 grid, size_t smem, const Args& a, cudaStream_t stream,
-               uint64_t& configured) {
+cudaError_t configure(void (*kernel)(Args), size_t max_smem, uint64_t& configured) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
   if (!(configured >> dev & 1)) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)grad_smem(kMaxD));
-    if (err != cudaSuccess) return (int)err;
+                               (int)max_smem);
+    if (err != cudaSuccess) return err;
     configured |= uint64_t{1} << dev;
   }
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  return cudaSuccess;
+}
+
+// The K7 (pass kDh) or K8 kernel of a design and dtype, the shared memory it
+// takes at width D and at most, and its configured bits: what launch_grad
+// launches and what plan sizes K7's split count from.
+struct GradKernel {
+  void (*fn)(Args);
+  size_t smem, max_smem;
+  uint64_t* configured;
+};
+
+template <typename T>
+GradKernel grad_kernel(Pass pass, Design design, int D) {
+  static uint64_t configured[4] = {0, 0, 0, 0};  // (dh, dw) x (fma, mma) of this T
+  uint64_t* bits = &configured[(pass == kDw ? 2 : 0) + (design == kMma ? 1 : 0)];
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (design == kMma)
+      return {pass == kDh ? &fused_ce_dh_mma_kernel : &fused_ce_dw_mma_kernel, mma_smem(D),
+              mma_smem(kMaxD), bits};
+  }
+  return {pass == kDh ? &fused_ce_dh_kernel<T> : &fused_ce_dw_kernel<T>, grad_smem(D),
+          grad_smem(kMaxD), bits};
+}
+
+template <typename T>
+int launch_fwd(const Args& a, cudaStream_t s) {
+  fused_ce_fwd_kernel<T><<<dim3(blocks_of(a.N, kBO), (unsigned)a.splits), kThreads, 0, s>>>(a);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  fused_ce_fwd_combine_kernel<<<blocks_of(a.N, kThreads), kThreads, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 
-unsigned blocks_of(int64_t n, int per) { return (unsigned)((n + per - 1) / per); }
-
-enum Pass { kFwd, kDh, kDw };
-
+// K7 (then its combine kernel) or K8 in a design.
 template <typename T>
-int launch_pass(Pass pass, const Args& a, cudaStream_t s) {
-  static uint64_t configured[2] = {0, 0};   // dh, dw of this T
-  const dim3 split_grid(blocks_of(a.N, kBO), (unsigned)a.splits);
-  cudaError_t err;
-  switch (pass) {
-    case kFwd:
-      fused_ce_fwd_kernel<T><<<split_grid, kThreads, 0, s>>>(a);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-      fused_ce_fwd_combine_kernel<<<blocks_of(a.N, kThreads), kThreads, 0, s>>>(a);
-      return (int)cudaGetLastError();
-    case kDh: {
-      const int e = launch_big(fused_ce_dh_kernel<T>, split_grid, grad_smem(a.D), a, s,
-                               configured[0]);
-      if (e != 0) return e;
-      const int64_t nd = (int64_t)a.N * a.D;
-      const unsigned nb = (unsigned)(blocks_of(nd, kThreads) < 8192 ? blocks_of(nd, kThreads) : 8192);
-      fused_ce_dh_combine_kernel<T><<<nb, kThreads, 0, s>>>(a);
-      return (int)cudaGetLastError();
-    }
-    default:
-      return launch_big(fused_ce_dw_kernel<T>, dim3(blocks_of(a.V, kBO)), grad_smem(a.D), a, s,
-                        configured[1]);
+int launch_grad(Pass pass, Design design, const Args& a, cudaStream_t s) {
+  const GradKernel k = grad_kernel<T>(pass, design, a.D);
+  cudaError_t err = configure(k.fn, k.max_smem, *k.configured);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid = pass == kDh ? dim3(blocks_of(a.N, kBO), (unsigned)a.splits)
+                                : dim3(blocks_of(a.V, kBO));
+  Args args = a;
+  void* params[] = {&args};
+  err = cudaLaunchKernel(reinterpret_cast<const void*>(k.fn), grid, dim3(kThreads), params,
+                         k.smem, s);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it: the caller gets it here
+    return (int)err;
   }
+  if (pass == kDw) return (int)cudaGetLastError();
+  const int64_t nd = (int64_t)a.N * a.D;
+  const unsigned nb = blocks_of(nd, kThreads) < 8192 ? blocks_of(nd, kThreads) : 8192;
+  fused_ce_dh_combine_kernel<T><<<nb, kThreads, 0, s>>>(a);
+  return (int)cudaGetLastError();
 }
 
-// Vocab splits for a (row tile, split) grid of K6 (kFwd) or K7 (kDh): the
-// count that minimises waves x the longest block's vocab tiles, with as many
-// blocks resident per SM as the kernel's registers and shared memory allow;
-// a tie keeps fewer splits (less scratch).
+// Vocab splits for a (row tile, split) grid of K6 (kFwd) or K7 (kDh) in a
+// design: the count that minimises waves x the longest block's time, with as
+// many blocks resident per SM as the registers and shared memory of the
+// kernel that will launch allow; a tie keeps fewer splits (less scratch).  A
+// block's time is its vocab tiles plus, in the tensor-core design, a fixed
+// cost worth kMmaBlockTiles tiles (the owner rows' load and the partial's
+// write and combine): without it the plan took 239 splits of one tile at the
+// main path's shape, and K7 ran 1.6 times slower than at 13 (PERF.md).
+constexpr int kMmaBlockTiles = 2;
+
 template <typename T>
-int plan(Pass pass, int N, int V, int D) {
+int plan(Pass pass, Design design, int N, int V, int D) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -492,12 +815,10 @@ int plan(Pass pass, int N, int V, int D) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_ce_fwd_kernel<T>,
                                                         kThreads, 0);
   } else {
-    err = cudaFuncSetAttribute(fused_ce_dh_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)grad_smem(kMaxD));
+    const GradKernel k = grad_kernel<T>(kDh, design, D);
+    err = configure(k.fn, k.max_smem, *k.configured);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_ce_dh_kernel<T>,
-                                                          kThreads, grad_smem(D));
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k.fn, kThreads, k.smem);
   }
   if (err != cudaSuccess) return -(int)err;
   const int64_t slots = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
@@ -508,7 +829,8 @@ int plan(Pass pass, int N, int V, int D) {
   for (int want = 1; want <= n_tiles && want <= 65535; ++want) {
     const int per = (n_tiles + want - 1) / want;
     if ((n_tiles + per - 1) / per != want) continue;   // each split non-empty
-    const int64_t cost = (row_tiles * want + slots - 1) / slots * per;
+    const int64_t cost =
+        (row_tiles * want + slots - 1) / slots * (per + (design == kMma ? kMmaBlockTiles : 0));
     if (cost < best_cost) {
       best_cost = cost;
       best = want;
@@ -534,17 +856,30 @@ Args make_args(const void* h, const void* w, const int* lbl, int64_t sh, int64_t
   return a;
 }
 
-int run(Pass pass, const Args& a, int dtype, void* stream) {
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// What the tensor-core kernels copy in 16-byte pieces: every bf16 row of h
+// and w, whole.
+bool mma_stageable(const Args& a) {
+  return aligned16(a.h) && aligned16(a.w) && a.sh % 8 == 0 && a.sw % 8 == 0 && a.D % 8 == 0;
+}
+
+bool design_ok(Pass pass, int design, int dtype) {
+  return design == kFma || (design == kMma && pass != kFwd && dtype == 1);
+}
+
+int run(Pass pass, int design, const Args& a, int dtype, void* stream) {
   const int n_tiles = (a.V + kBT - 1) / kBT;
   // every split holds at least one vocab tile, so each partial max is finite
   if (a.N < 1 || a.V < 1 || a.D < 1 || a.D > kMaxD || a.splits > n_tiles ||
       (int64_t)(a.splits - 1) * a.tiles_per_split >= n_tiles || a.splits > 65535 ||
-      a.sh < a.D || a.sw < a.D)
+      a.sh < a.D || a.sw < a.D || (dtype != 0 && dtype != 1) || !design_ok(pass, design, dtype))
     return (int)cudaErrorInvalidValue;
+  if (design == kMma && !mma_stageable(a)) return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_pass<float>(pass, a, s);
-  if (dtype == 1) return launch_pass<__nv_bfloat16>(pass, a, s);
-  return (int)cudaErrorInvalidValue;
+  const Design d = static_cast<Design>(design);
+  if (pass == kFwd) return dtype == 0 ? launch_fwd<float>(a, s) : launch_fwd<bf16>(a, s);
+  return dtype == 0 ? launch_grad<float>(pass, d, a, s) : launch_grad<bf16>(pass, d, a, s);
 }
 
 }  // namespace
@@ -552,22 +887,24 @@ int run(Pass pass, const Args& a, int dtype, void* stream) {
 extern "C" {
 
 // The vocab splits K6 (pass 0) or K7 (pass 1) takes for these sizes on the
-// current device (see plan); a negative CUDA error on failure.
-int fused_ce_plan(int pass, int dtype, int N, int V, int D) {
-  if (N < 1 || V < 1 || D < 1 || D > kMaxD || (pass != 0 && pass != 1))
+// current device in a design (see plan); a negative CUDA error on failure.
+int fused_ce_plan(int pass, int design, int dtype, int N, int V, int D) {
+  if (N < 1 || V < 1 || D < 1 || D > kMaxD || (pass != 0 && pass != 1) ||
+      (dtype != 0 && dtype != 1) || !design_ok(pass == 0 ? kFwd : kDh, design, dtype))
     return -(int)cudaErrorInvalidValue;
   const Pass p = pass == 0 ? kFwd : kDh;
-  if (dtype == 0) return plan<float>(p, N, V, D);
-  if (dtype == 1) return plan<__nv_bfloat16>(p, N, V, D);
-  return -(int)cudaErrorInvalidValue;
+  const Design d = static_cast<Design>(design);
+  return dtype == 0 ? plan<float>(p, d, N, V, D) : plan<bf16>(p, d, N, V, D);
 }
 
-// dtype codes: 0 = float32, 1 = bfloat16 (h, w, dh and dw share it).  h and
-// w have contiguous rows of D elements, sh and sw apart; labels are int32 in
+// dtype codes: 0 = float32, 1 = bfloat16 (h, w, dh and dw share it); design
+// codes (K7, K8): 0 = FMA, 1 = tensor cores (bf16 only).  h and w have
+// contiguous rows of D elements, sh and sw apart; labels are int32 in
 // [0, V); lse, g and every other float tensor are contiguous fp32.  part and
 // part_idx are scratch of (3, splits, N) floats and (splits, N) ints (K6) or
 // (splits, N, D) floats (K7).  Each returns cudaGetLastError() after its
-// launches (0 = launched).
+// launches (0 = launched), or cudaErrorMisalignedAddress (nothing launched)
+// for the tensor-core design on rows it cannot copy in 16-byte pieces.
 
 int fused_ce_fwd(const void* h, const void* w, const int* lbl, float* nll, float* correct,
                  float* lse, float* part, int* part_idx, int64_t sh, int64_t sw, int dtype,
@@ -578,28 +915,28 @@ int fused_ce_fwd(const void* h, const void* w, const int* lbl, float* nll, float
   a.lse_out = lse;
   a.part = part;
   a.part_idx = part_idx;
-  return run(kFwd, a, dtype, stream);
+  return run(kFwd, kFma, a, dtype, stream);
 }
 
 int fused_ce_dh(const void* h, const void* w, const int* lbl, const float* lse, const float* g,
-                void* dh, float* part, int64_t sh, int64_t sw, int dtype, int N, int V, int D,
-                int splits, void* stream) {
+                void* dh, float* part, int64_t sh, int64_t sw, int dtype, int design, int N,
+                int V, int D, int splits, void* stream) {
   Args a = make_args(h, w, lbl, sh, sw, N, V, D, splits);
   a.lse = lse;
   a.g = g;
   a.out = dh;
   a.part = part;
-  return run(kDh, a, dtype, stream);
+  return run(kDh, design, a, dtype, stream);
 }
 
 int fused_ce_dw(const void* h, const void* w, const int* lbl, const float* lse, const float* g,
-                void* dw, int64_t sh, int64_t sw, int dtype, int N, int V, int D,
+                void* dw, int64_t sh, int64_t sw, int dtype, int design, int N, int V, int D,
                 void* stream) {
   Args a = make_args(h, w, lbl, sh, sw, N, V, D, 1);
   a.lse = lse;
   a.g = g;
   a.out = dw;
-  return run(kDw, a, dtype, stream);
+  return run(kDw, design, a, dtype, stream);
 }
 
 }  // extern "C"

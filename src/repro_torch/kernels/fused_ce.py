@@ -14,12 +14,16 @@ bound and design):
   backward dw (K8, ``fused_ce_dw``): one CUDA block owns a tile of dw rows and
       sums every row of h into it.
 
-All statistics and products are fp32 whatever the inputs' type; dh comes
-back in h's type and dw in w's.  Each pass dispatches on where its tensors
-lie: on the CPU it runs the plain PyTorch version below (the chunked math of
-the JAX package's XLA backend, vocab chunks of ``block_v``); on a CUDA tensor
-it launches the kernel or raises.  There is no fallback from the kernel to
-the plain version.
+All statistics are fp32 whatever the inputs' type; dh comes back in h's type
+and dw in w's.  Each pass dispatches on where its tensors lie: on the CPU it
+runs the plain PyTorch version below (the chunked math of the JAX package's
+XLA backend, vocab chunks of ``block_v``); on a CUDA tensor it launches the
+kernel or raises.  There is no fallback from the kernel to the plain
+version.  On the card K7 and K8 have two designs, chosen by ``_check``'s
+rule: bf16 whose rows can be copied in 16-byte pieces runs on the tensor
+cores (``mma.sync``, the fp32 dlogits as two bf16 terms); fp32, and bf16 that
+cannot be copied so, on fp32 FMA kernels.  ``VARIANT_LAUNCHES`` counts which
+design ran.  K6 runs fp32 FMA in both dtypes.
 """
 from __future__ import annotations
 
@@ -29,15 +33,18 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.launches import LAUNCHES, register
+from repro_torch.kernels.launches import LAUNCHES, VARIANT_LAUNCHES, register
 
-register("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw")
+DESIGNS = ("mma", "fma")   # K7/K8: bf16 on the tensor cores (mma.sync); fp32 FMA
+register("fused_ce_fwd")
+register("fused_ce_dh", "fused_ce_dw", variants=DESIGNS)
 
 NEG_INF = -1e30
 _IDX_INF = torch.iinfo(torch.int32).max
 MAX_D = 1024   # the kernels' accumulator holds 32 rows of at most this width
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DESIGN_CODES = {"fma": 0, "mma": 1}
 _LIB: Optional[ctypes.CDLL] = None
 
 
@@ -57,9 +64,9 @@ def _lib() -> ctypes.CDLL:
         lib = load("fused_ce")
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.fused_ce_fwd.argtypes = [p] * 8 + [i64, i64, i, i, i, i, i, p]
-        lib.fused_ce_dh.argtypes = [p] * 7 + [i64, i64, i, i, i, i, i, p]
-        lib.fused_ce_dw.argtypes = [p] * 6 + [i64, i64, i, i, i, i, p]
-        lib.fused_ce_plan.argtypes = [i] * 5
+        lib.fused_ce_dh.argtypes = [p] * 7 + [i64, i64, i, i, i, i, i, i, p]
+        lib.fused_ce_dw.argtypes = [p] * 6 + [i64, i64, i, i, i, i, i, p]
+        lib.fused_ce_plan.argtypes = [i] * 6
         for fn in (lib.fused_ce_fwd, lib.fused_ce_dh, lib.fused_ce_dw, lib.fused_ce_plan):
             fn.restype = i
         _LIB = lib
@@ -136,8 +143,13 @@ def fused_ce_dw_plain(h, w, lbl, lse, g, block_v: int = 512) -> torch.Tensor:
 # kernel launches
 # ---------------------------------------------------------------------------
 
-def _check(h, w, lbl, **rows) -> None:
-    """Raise on what the kernels cannot take."""
+def _check(h, w, lbl, **rows) -> str:
+    """Raise on what the kernels cannot take; else the design K7 and K8 run.
+
+    The rule: "mma" (the tensor cores) for bf16 h and w whose rows the
+    kernels can copy in 16-byte pieces: 16-byte aligned base pointers, and
+    row strides and D that are multiples of 8 elements; "fma" (the fp32 FMA
+    kernels) for fp32, and for bf16 that breaks any of those."""
     if h.dim() != 2 or w.dim() != 2:
         raise ValueError("h and w must be 2-D: (N, D) and (V, D)")
     n, d = h.shape
@@ -160,6 +172,9 @@ def _check(h, w, lbl, **rows) -> None:
         want = torch.int32 if name == "labels" else torch.float32
         if x.device != h.device or x.dtype != want or x.shape != (n,) or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {want} ({n},) tensor on h's device")
+    stageable = d % 8 == 0 and all(
+        x.data_ptr() % 16 == 0 and _row_stride(x) % 8 == 0 for x in (h, w))
+    return DESIGNS[0] if h.dtype == torch.bfloat16 and stageable else DESIGNS[1]
 
 
 def _row_stride(x: torch.Tensor) -> int:
@@ -167,24 +182,26 @@ def _row_stride(x: torch.Tensor) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _splits(index: int, pass_: int, dtype: int, n: int, v: int, d: int) -> int:
-    """Vocab splits of K6 (``pass_`` 0) or K7 (1) on card ``index``, planned
-    by the library from the kernel's blocks per SM (once per shape)."""
+def _splits(index: int, pass_: int, design: int, dtype: int, n: int, v: int, d: int) -> int:
+    """Vocab splits of K6 (``pass_`` 0) or K7 (1) in a design on card
+    ``index``, planned by the library from the blocks per SM of the kernel
+    that will launch (once per shape)."""
     with torch.cuda.device(index):
-        splits = _lib().fused_ce_plan(pass_, dtype, n, v, d)
+        splits = _lib().fused_ce_plan(pass_, design, dtype, n, v, d)
     if splits < 1:
         raise RuntimeError(f"fused_ce_plan failed with CUDA error {-splits}")
     return splits
 
 
-def _plan(h, w, pass_: int) -> int:
-    return _splits(h.device.index, pass_, _DTYPE_CODES[h.dtype], h.shape[0], w.shape[0],
-                   h.shape[1])
+def _plan(h, w, pass_: int, design: str = "fma") -> int:
+    return _splits(h.device.index, pass_, _DESIGN_CODES[design], _DTYPE_CODES[h.dtype],
+                   h.shape[0], w.shape[0], h.shape[1])
 
 
-def _shape_args(h, w) -> list:
-    return [_row_stride(h), _row_stride(w), _DTYPE_CODES[h.dtype], h.shape[0], w.shape[0],
-            h.shape[1]]
+def _shape_args(h, w, design: Optional[str] = None) -> list:
+    codes = [] if design is None else [_DESIGN_CODES[design]]
+    return [_row_stride(h), _row_stride(w), _DTYPE_CODES[h.dtype], *codes, h.shape[0],
+            w.shape[0], h.shape[1]]
 
 
 def _stream(x: torch.Tensor) -> ctypes.c_void_p:
@@ -211,27 +228,34 @@ def _fwd_cuda(h, w, lbl):
     return nll, correct, lse
 
 
+def _count(name: str, design: str) -> None:
+    """One launch of ``name``, under the design it ran."""
+    LAUNCHES[name] += 1
+    VARIANT_LAUNCHES[name][design] += 1
+
+
 def _dh_cuda(h, w, lbl, lse, g):
-    _check(h, w, lbl, lse=lse, g=g)
+    design = _check(h, w, lbl, lse=lse, g=g)
     n, d, dev = h.shape[0], h.shape[1], h.device
-    splits = _plan(h, w, 1)
+    splits = _plan(h, w, 1, design)
     dh = torch.empty((n, d), dtype=h.dtype, device=dev)
     part = torch.empty((splits, n, d), dtype=torch.float32, device=dev)
     err = _lib().fused_ce_dh(h.data_ptr(), w.data_ptr(), lbl.data_ptr(), lse.data_ptr(),
                              g.data_ptr(), dh.data_ptr(), part.data_ptr(),
-                             *_shape_args(h, w), splits, _stream(h))
+                             *_shape_args(h, w, design), splits, _stream(h))
     _raise_on(err, "fused_ce_dh")
-    LAUNCHES["fused_ce_dh"] += 1
+    _count("fused_ce_dh", design)
     return dh
 
 
 def _dw_cuda(h, w, lbl, lse, g):
-    _check(h, w, lbl, lse=lse, g=g)
+    design = _check(h, w, lbl, lse=lse, g=g)
     dw = torch.empty(w.shape, dtype=w.dtype, device=w.device)
     err = _lib().fused_ce_dw(h.data_ptr(), w.data_ptr(), lbl.data_ptr(), lse.data_ptr(),
-                             g.data_ptr(), dw.data_ptr(), *_shape_args(h, w), _stream(h))
+                             g.data_ptr(), dw.data_ptr(), *_shape_args(h, w, design),
+                             _stream(h))
     _raise_on(err, "fused_ce_dw")
-    LAUNCHES["fused_ce_dw"] += 1
+    _count("fused_ce_dw", design)
     return dw
 
 

@@ -8,10 +8,11 @@ accum 2; ``--no-flash`` profiles the dense attention instead,
 ``--no-fused-ce`` the dense MLM head), runs two warm-up steps, then one step
 under ``torch.profiler`` and five timed with CUDA events, all on batches
 made beforehand (the host's batch generation is timed on its own).  Prints
-the step time, the device's idle share, and the device time by kernel,
-grouped: the LAMB kernels, the flash-attention kernels, the fused CE
-kernels, matrix products, and everything else; then each kernel of the
-port's three groups, and the 20 costliest kernels.
+the step time, the device's idle share, the peak device memory over the
+steps, and the device time by kernel, grouped: the LAMB kernels, the
+flash-attention kernels, the fused CE kernels, matrix products, and
+everything else; then each kernel of the port's three groups, and the 20
+costliest kernels.
 """
 from __future__ import annotations
 
@@ -31,6 +32,9 @@ DEFAULT_ARGV = [
     "--log-every", "1000",
 ]
 TIMED = 5
+# the caching allocator's calls into the driver (each cudaFree waits for the
+# device) and its retries after freeing cached blocks
+ALLOCATOR_STATS = ("num_device_alloc", "num_device_free", "num_alloc_retries")
 
 
 def _group(name: str) -> str:
@@ -50,6 +54,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     trainer, data, cfg = build(args)
     trainer.log = lambda msg: None
     trainer.init()  # weights and the CUDA context before anything is timed
+    torch.cuda.reset_peak_memory_stats()
     next(data)
     t0 = time.perf_counter()
     batches = [next(data) for _ in range(2 + 1 + TIMED)]
@@ -60,12 +65,14 @@ def main(argv: Optional[List[str]] = None) -> None:
         trainer.fit(iter(batches[2:3]), 1)
         torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    alloc0 = {k: torch.cuda.memory_stats().get(k, 0) for k in ALLOCATOR_STATS}
     t0 = time.perf_counter()
     start.record()
     trainer.fit(iter(batches[3:]), TIMED)
     end.record()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / TIMED
+    alloc = {k: (torch.cuda.memory_stats().get(k, 0) - alloc0[k]) / TIMED for k in ALLOCATOR_STATS}
     span_ms = start.elapsed_time(end) / TIMED
     # kernel-level events only: an operator's device time is its kernels'
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
@@ -79,6 +86,9 @@ def main(argv: Optional[List[str]] = None) -> None:
           f"device span {span_ms:.2f} ms/step (CUDA events)")
     print(f"profiled step: kernels busy {busy:.2f} ms in {sum(n for *_, n in rows)} "
           f"launches; device idle share of a timed step {1 - busy / span_ms:.2f}")
+    print(f"peak device memory over the steps: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; caching allocator per timed "
+          f"step: " + ", ".join(f"{k} {v:g}" for k, v in alloc.items()))
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {g:16s} {ms:9.2f} ms {100 * ms / max(busy, 1e-9):5.1f}%")
     for g in ("flash kernels", "fused CE kernels", "lamb kernels"):

@@ -307,3 +307,58 @@ def test_fused_ce_wrappers_reject_what_they_cannot_take(cuda):
         fused_ce_fwd(h, w, lbl.long())
     with pytest.raises(ValueError, match="g must"):
         fused_ce_dh(h, w, lbl, lse, g.cpu())
+
+
+# (n, d, v): bf16 K7 and K8 on the tensor cores: the main path's shape,
+# ragged rows, vocab and D (D a multiple of 8, so that the rows can be copied
+# in 16-byte pieces), one vocab tile, and two rows
+CE_MMA_CASES = [
+    (640, 1024, 30522),
+    (333, 1000, 5003),
+    (97, 80, 300),
+    (33, 1024, 65),
+    (2, 8, 3),
+]
+
+
+@pytest.mark.parametrize("n,d,v", CE_MMA_CASES)
+def test_fused_ce_tensor_core_backward_on_card(cuda, n, d, v):
+    """bf16 K7 and K8 launch the tensor-core design, agree with the plain
+    version on the same inputs (one bf16 ulp plus 1e-4 of the scale, as
+    _ce_close states), give exactly zero dh on rows with a zero cotangent,
+    and give equal bits when run twice."""
+    from repro_torch.kernels.fused_ce import fused_ce_dh, fused_ce_dw, fused_ce_fwd
+
+    h, w, lbl, g = _ce_inputs(n, d, v, torch.bfloat16, cuda, seed=2)
+    lse = fused_ce_fwd(h, w, lbl, plain=True)[2]
+    reset_launches()
+    runs = [(fused_ce_dh(h, w, lbl, lse, g), fused_ce_dw(h, w, lbl, lse, g)) for _ in range(2)]
+    torch.cuda.synchronize()
+    for name in ("fused_ce_dh", "fused_ce_dw"):
+        assert VARIANT_LAUNCHES[name] == {"mma": 2, "fma": 0}, VARIANT_LAUNCHES
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    dh, dw = runs[0]
+    assert dh.dtype == dw.dtype == torch.bfloat16
+    _ce_close(dh, fused_ce_dh(h, w, lbl, lse, g, plain=True), torch.bfloat16)
+    _ce_close(dw, fused_ce_dw(h, w, lbl, lse, g, plain=True), torch.bfloat16)
+    if bool((g == 0).any()):
+        assert float(dh[g == 0].abs().max()) == 0.0
+
+
+def test_fused_ce_unstageable_bf16_takes_the_fma_design(cuda):
+    """bf16 rows that cannot be copied in 16-byte pieces (h starting 2 bytes
+    past a 16-byte boundary) run the FMA kernels, are counted so, and agree
+    with the plain version."""
+    from repro_torch.kernels.fused_ce import fused_ce_dh, fused_ce_dw, fused_ce_fwd
+
+    h, w, lbl, g = _ce_inputs(97, 1024, 300, torch.bfloat16, cuda, seed=3)
+    off = torch.cat([h.new_zeros(1), h.reshape(-1)])[1:].view(h.shape)
+    assert off.data_ptr() % 16 != 0
+    lse = fused_ce_fwd(h, w, lbl, plain=True)[2]
+    reset_launches()
+    dh, dw = fused_ce_dh(off, w, lbl, lse, g), fused_ce_dw(off, w, lbl, lse, g)
+    torch.cuda.synchronize()
+    for name in ("fused_ce_dh", "fused_ce_dw"):
+        assert VARIANT_LAUNCHES[name] == {"mma": 0, "fma": 1}, VARIANT_LAUNCHES
+    _ce_close(dh, fused_ce_dh(h, w, lbl, lse, g, plain=True), torch.bfloat16)
+    _ce_close(dw, fused_ce_dw(h, w, lbl, lse, g, plain=True), torch.bfloat16)

@@ -245,6 +245,8 @@ def test_flash_runs_the_plain_version_on_the_cpu():
 
 MMA_KV_TILE = 64   # K3's kv tile: the online softmax rescales once per tile
 FWD_TERMS, DKV_TERMS = 3, 2   # bf16 terms of p in K3, of p and ds in K5
+# (the fused CE head's K7 and K8 take the dlogits as 2: DLOGIT_TERMS in
+# tests/test_torch_fused_ce.py)
 
 
 def _terms(x, n):

@@ -199,6 +199,100 @@ def test_fused_ce_runs_the_plain_version_on_the_cpu():
 
 
 # ---------------------------------------------------------------------------
+# the bf16 tensor-core kernels' arithmetic (K7, K8), emulated
+# ---------------------------------------------------------------------------
+
+DLOGIT_TERMS = 2   # bf16 terms of the fp32 dlogits in K7's and K8's second product
+
+
+def _terms(x, n):
+    """x as n bf16 terms t0 = bf16(x), t1 = bf16(x − t0), …: how the kernels
+    hand the dlogits (fp32 in their registers) to the bf16 tensor cores."""
+    out = []
+    for _ in range(n):
+        out.append(x.to(torch.bfloat16).to(torch.float32))
+        x = x - out[-1]
+    return out
+
+
+def _mma_grads(h, w, lbl, lse, g, terms):
+    """K7's and K8's arithmetic on bf16 h and w: s = h·wᵀ with exact products
+    and fp32 sums, dlogits = (exp(s − lse) − onehot)·g in fp32, then
+    dh = Σ t·w and dw = Σ tᵀ·h over the dlogits' bf16 terms t, one product
+    per term with fp32 sums.  Returns fp32 (dh, dw), before the kernels'
+    final rounding to bf16."""
+    hf, wf = h.to(torch.float32), w.to(torch.float32)
+    onehot = torch.nn.functional.one_hot(lbl.long(), w.shape[0]).to(torch.float32)
+    dlog = (torch.exp(hf @ wf.t() - lse[:, None]) - onehot) * g[:, None]
+    parts = _terms(dlog, terms)
+    return sum(t @ wf for t in parts), sum(t.t() @ hf for t in parts)
+
+
+def _mma_case(n, d, v, seed, terms):
+    """(emulated dh, dw; the JAX package's fp32 dh, dw; g) on bf16-valued
+    inputs with labels at 0 and V − 1 and zero cotangents on some rows."""
+    h, w, lbl, wts = _inputs(n, d, v, seed=seed)
+    lbl[0], lbl[1], lbl[-1] = 0, v - 1, v - 1
+    wts[3::5] = 0.0
+    (_, th), (_, tw) = _pair(h, jnp.bfloat16), _pair(w, jnp.bfloat16)
+    # the JAX package in fp32 on the same bf16 values: its backward before
+    # the final cast to the inputs' type
+    jh, jw = jnp.asarray(_f32(th)), jnp.asarray(_f32(tw))
+    jdh, jdw = jax.grad(lambda h, w: jnp.sum(_jax_ce("interpret", h, w, jnp.asarray(lbl))[0]
+                                             * wts), (0, 1))(jh, jw)
+    tl, tg = torch.from_numpy(lbl), torch.from_numpy(wts)
+    lse = fused_ce_module.fused_ce_fwd_plain(th, tw, tl)[2]
+    return _mma_grads(th, tw, tl, lse, tg, terms), (jdh, jdw), wts
+
+
+# CE_SHAPES plus a D that is not a multiple of 16 and ragged rows and vocab
+MMA_CE_SHAPES = CE_SHAPES + [(97, 80, 300)]
+
+
+@pytest.mark.parametrize("n,d,v", MMA_CE_SHAPES)
+def test_fused_ce_tensor_core_rounding_matches_jax(n, d, v):
+    """The bf16 K7 and K8 hand the fp32 dlogits to the tensor cores as
+    DLOGIT_TERMS bf16 terms; emulated, their fp32 dh and dw stay within the
+    JAX package's fp32 gradients at F32_GRAD (the JAX suite's fp32 gradient
+    tolerance), and a row with a zero cotangent gets exactly zero dh."""
+    (dh, dw), (jdh, jdw), wts = _mma_case(n, d, v, seed=n + d + v, terms=DLOGIT_TERMS)
+    np.testing.assert_allclose(_f32(dh), _f32(jdh), **F32_GRAD)
+    np.testing.assert_allclose(_f32(dw), _f32(jdw), **F32_GRAD)
+    assert float(np.abs(_f32(dh)[wts == 0]).max()) == 0.0
+
+
+def test_fused_ce_one_dlogit_term_misses_f32_grad():
+    """One bf16 term (8 bits of each dlogit) is not enough: the emulated
+    gradients then leave F32_GRAD, which the two terms of
+    test_fused_ce_tensor_core_rounding_matches_jax meet on the same case."""
+    n, d, v = CE_SHAPES[-1]
+    (dh, dw), (jdh, jdw), _ = _mma_case(n, d, v, seed=n + d + v, terms=1)
+    assert not (np.allclose(_f32(dh), _f32(jdh), **F32_GRAD)
+                and np.allclose(_f32(dw), _f32(jdw), **F32_GRAD))
+
+
+def test_fused_ce_design_rule_on_cpu_tensors():
+    """The rule by which K7 and K8 pick their design, on CPU tensors: bf16
+    whose rows can be copied in 16-byte pieces takes the tensor cores
+    ("mma"); fp32, bf16 starting 2 bytes past a 16-byte boundary, bf16 rows
+    8 bytes apart from a multiple of 16, and bf16 with D not a multiple of 8
+    take the FMA kernels."""
+    check = fused_ce_module._check
+    n, d, v = 8, 64, 40
+    lbl, row = torch.zeros(n, dtype=torch.int32), torch.zeros(n)
+    h, w = torch.zeros((n, d), dtype=torch.bfloat16), torch.zeros((v, d), dtype=torch.bfloat16)
+    assert check(h, w, lbl, lse=row, g=row) == "mma"
+    assert check(h.float(), w.float(), lbl, lse=row, g=row) == "fma"
+    off = torch.zeros(n * d + 1, dtype=torch.bfloat16)[1:].view(n, d)
+    wide_h = torch.zeros((n, d + 4), dtype=torch.bfloat16)[:, :d]
+    wide_w = torch.zeros((v, d + 4), dtype=torch.bfloat16)[:, :d]
+    assert check(off, w, lbl) == "fma"
+    assert check(wide_h, w, lbl) == "fma"
+    assert check(h, wide_w, lbl) == "fma"
+    assert check(h[:, :60].contiguous(), w[:, :60].contiguous(), lbl) == "fma"
+
+
+# ---------------------------------------------------------------------------
 # gather and the fused loss
 # ---------------------------------------------------------------------------
 
