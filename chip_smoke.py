@@ -15,15 +15,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
    K4 (``flash_dq``) and K5 (``flash_dkv``), forward and backward through
    the autograd boundary, against the plain version at the main path's
    shape, at seq 512 and under causal, window, ragged-length, GQA,
-   cross-length, model-layout and head-dim 16, 32 and 128 cases (bf16 K3
-   and K5 on the tensor cores, fp32 on the FMA kernels), and K5 run twice
-   for equal bits; the fused CE kernels K6
+   cross-length, model-layout and head-dim 16, 32 and 128 cases (bf16 K3,
+   K4 and K5 on the tensor cores, fp32 on the FMA kernels), and K4 and K5
+   run twice for equal bits; the fused CE kernels K6
    (``fused_ce_fwd``), K7 (``fused_ce_dh``) and K8 (``fused_ce_dw``), forward
    and backward through the autograd boundary, against the plain version at
    the main path's shape, at seq 512, with ragged rows, vocab and D, in the
    model's layout, in fp32, with zero cotangents and with all-zero rows
-   (ties) (bf16 K7 and K8 on the tensor cores, fp32 and bf16 rows off a
-   16-byte boundary on the FMA kernels), and K7 and K8 run twice for equal
+   (ties) (bf16 K6, K7 and K8 on the tensor cores, fp32 and bf16 rows off
+   a 16-byte boundary on the FMA kernels), and K7 and K8 run twice for equal
    bits;
 4. reference: two bert-smoke fp32 train steps with flash attention and the
    fused CE head on the card against the same steps on the CPU (the CPU path
@@ -33,15 +33,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
    fused LAMB, flash attention, fused CE head, 6 steps; finite losses, moved
    weights, every LAMB kernel launched 13 leaves × 6 steps times, every flash
    kernel 24 layers × 2 micro-batches × 6 steps times and every fused CE
-   kernel 2 micro-batches × 6 steps times, every K3, K5, K7 and K8 launch
-   on the tensor-core kernel and no copy of ``do``; then 3 steps at seq 512
+   kernel 2 micro-batches × 6 steps times, every K3–K8 launch on the
+   tensor-core kernel and no copy of ``do``; then 3 steps at seq 512
    (batch 32, accum 2) with their own counts;
 6. timing with CUDA events: K1 and K2 over one full BERT-large update, and
    K3–K8 at the main path's shape and at seq 512, each beside its plain
    version and its bound; ``scaled_dot_product_attention`` (beside K3–K5)
    and the dense head's ``matmul`` + ``cross_entropy`` pair (beside K6–K8)
-   are timed as yardsticks only (the port never calls them); bf16 K7 and K8
-   also in their FMA design.
+   are timed as yardsticks only (the port never calls them); bf16 K6, K7
+   and K8 also in their FMA design.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -94,7 +94,10 @@ KERNELS = {
                              "three bf16 terms; fp32: flash_fwd_kernel, FMA"),
     "flash_dq": dict(route="cuda",
                      source="src/repro_torch/kernels/csrc/flash_attention.cu",
-                     replaces="src/repro/kernels/flash_attention.py:213"),
+                     replaces="src/repro/kernels/flash_attention.py:213",
+                     design="bf16: flash_dq_mma_kernel, mma.sync m16n8k16 on the tensor "
+                            "cores, q/do in registers, k/v in a 2-stage cp.async ring, ds as "
+                            "bf16 hi+lo into dq += ds k; fp32: flash_dq_kernel, FMA"),
     "flash_dkv": dict(route="cuda",
                       source="src/repro_torch/kernels/csrc/flash_attention.cu",
                       replaces="src/repro/kernels/flash_attention.py:246",
@@ -103,7 +106,12 @@ KERNELS = {
                              "ring, p and ds as bf16 hi+lo, dk/dv in fp32 registers; fp32: "
                              "flash_dkv_kernel, FMA"),
     "fused_ce_fwd": dict(route="cuda", source="src/repro_torch/kernels/csrc/fused_ce.cu",
-                         replaces="src/repro/kernels/fused_ce.py:87"),
+                         replaces="src/repro/kernels/fused_ce.py:87",
+                         design="bf16: fused_ce_fwd_mma_kernel, mma.sync m16n8k16 on the "
+                                "tensor cores, 64 h rows resident over all of D, w in 64-column "
+                                "chunks through a 4-slot cp.async ring, online max/sum/argmax "
+                                "on the fragments, vocab split across blocks, + combine; fp32: "
+                                "fused_ce_fwd_kernel, FMA"),
     "fused_ce_dh": dict(route="cuda", source="src/repro_torch/kernels/csrc/fused_ce.cu",
                         replaces="src/repro/kernels/fused_ce.py:162",
                         design="bf16: fused_ce_dh_mma_kernel, mma.sync m16n8k16 on the tensor "
@@ -319,7 +327,7 @@ def check_flash(device) -> dict:
     import torch
 
     from repro_torch.kernels.flash_attention import FlashSpec, flash_attention, \
-        flash_attention_bwd, flash_attention_fwd, flash_dkv, row_dot
+        flash_attention_bwd, flash_attention_fwd, flash_dkv, flash_dq, row_dot
 
     errs = dict.fromkeys(FLASH, 0.0)
     gen = torch.Generator(device=device).manual_seed(2)
@@ -378,7 +386,8 @@ def check_flash(device) -> dict:
         errs["flash_dq"] = max(errs["flash_dq"], diffs[1])
         errs["flash_dkv"] = max(errs["flash_dkv"], diffs[2], diffs[3])
         del q, k, v, do, outs, same_inputs, o_k, o_ref
-    # K5 owns its dk/dv tile and sums in a fixed order: two runs, equal bits
+    # K4 and K5 own their dq and dk/dv tiles and sum in a fixed order: two
+    # runs, equal bits
     for name, b, h, hkv, s, t, d, causal, window, valid, dt, layout in (
             FLASH_CASES[0], next(c for c in FLASH_CASES if c[0] == "GQA 8/2 + valid")):
         dtype = getattr(torch, dt)
@@ -389,11 +398,13 @@ def check_flash(device) -> dict:
         spec = FlashSpec(d**-0.5, causal, window, valid is not None)
         o, lse = flash_attention_fwd(q, k, v, lim, spec)
         di = row_dot(o, do)
-        runs = [flash_dkv(q, k, v, lim, lse, di, do, spec) for _ in range(2)]
+        runs = [(flash_dq(q, k, v, lim, lse, di, do, spec),
+                 *flash_dkv(q, k, v, lim, lse, di, do, spec)) for _ in range(2)]
         same = all(torch.equal(x, y) for x, y in zip(*runs))
-        log(f"check flash_dkv {name}: two runs {'equal' if same else 'DIFFER'} bit for bit")
+        log(f"check flash_dq, flash_dkv {name}: two runs {'equal' if same else 'DIFFER'} "
+            f"bit for bit")
         if not same:
-            raise AssertionError(f"flash_dkv is not bit-reproducible on {name}")
+            raise AssertionError(f"flash_dq or flash_dkv is not bit-reproducible on {name}")
         del q, k, v, do, o, lse, di, runs
     torch.cuda.empty_cache()
     return errs
@@ -439,8 +450,8 @@ def check_fused_ce(device) -> dict:
     the tensor's largest magnitude, bf16 gradients round those fp32 values,
     so one bf16 ulp (2^-7 relative) apart at most: 1e-2 relative plus 1e-4
     of the largest.  Rows with a zero cotangent must get exactly zero dh.
-    Every case checks which design K7 and K8 ran: the tensor cores for bf16
-    they can stage, FMA otherwise.  Then K7 and K8 run twice on two cases
+    Every case checks which design K6, K7 and K8 ran: the tensor cores for
+    bf16 they can stage, FMA otherwise.  Then K7 and K8 run twice on two cases
     and must give equal bits.
     """
     import torch
@@ -478,7 +489,7 @@ def check_fused_ce(device) -> dict:
             reset_launches()
             nll, correct = fused_ce(hh, ww, lbl, plain=plain)
             outs[plain] = [nll.detach(), correct, *torch.autograd.grad(nll, (hh, ww), g)]
-        designs = {k: dict(VARIANT_LAUNCHES[k]) for k in ("fused_ce_dh", "fused_ce_dw")}
+        designs = {k: dict(VARIANT_LAUNCHES[k]) for k in FUSED_CE}
         want = "mma" if dtype == torch.bfloat16 and layout != "offset" else "fma"
         design_ok = all(c == {"mma": int(want == "mma"), "fma": int(want == "fma")}
                         for c in designs.values())
@@ -508,7 +519,7 @@ def check_fused_ce(device) -> dict:
         log(f"check fused CE {name:24s} n {n} d {d} v {v} {dt} {layout}: |dnll|,|dlse| "
             f"{e_fwd:.2e} correct flips {int(flips.sum())} of {n} (label wins on "
             f"{int(correct_r.sum())}) |ddh| {diffs[0]:.2e} |ddw| {diffs[1]:.2e} ties {ties_ok} "
-            f"zero-g rows {still_ok} K7/K8 designs {designs} (want {want}) "
+            f"zero-g rows {still_ok} K6-K8 designs {designs} (want {want}) "
             f"{'ok' if ok else 'MISMATCH'}")
         if not ok:
             raise AssertionError(f"fused CE kernels disagree with the plain version on {name}")
@@ -621,14 +632,11 @@ def _train(device, argv, steps, label):
             raise AssertionError(f"non-finite metrics at step {h['step']}: {h}")
     if launches != _want_launches(steps):
         raise AssertionError(f"{label}: launches {launches}, want {_want_launches(steps)}")
-    # bf16 K3, K5, K7 and K8 on the tensor cores, every launch; K4 on its FMA
-    # kernel; autograd's do read as it came, never copied
+    # bf16 K3–K8 on the tensor cores, every launch; autograd's do read as it
+    # came, never copied
     n_flash, n_ce = LAYERS * ACCUM * steps, ACCUM * steps
-    want_designs = {"flash_fwd": {"mma": n_flash, "fma": 0},
-                    "flash_dq": {"mma": 0, "fma": n_flash},
-                    "flash_dkv": {"mma": n_flash, "fma": 0},
-                    "fused_ce_dh": {"mma": n_ce, "fma": 0},
-                    "fused_ce_dw": {"mma": n_ce, "fma": 0}}
+    want_designs = {**{k: {"mma": n_flash, "fma": 0} for k in FLASH},
+                    **{k: {"mma": n_ce, "fma": 0} for k in FUSED_CE}}
     if designs != want_designs or any(copies.values()):
         raise AssertionError(f"{label}: launches by design {designs}, want "
                              f"{want_designs}; copies {copies}, want none")
@@ -834,7 +842,7 @@ def time_flash(device, rate: float) -> dict:
 def time_fused_ce(device, rate: float) -> dict:
     """K6–K8 at each CE_TIMING shape (bf16), plain, kernel, kernel, plain,
     beside their bound and the dense head's two calls (``matmul`` then
-    ``cross_entropy``) forward and forward + backward.  K7 and K8 run on the
+    ``cross_entropy``) forward and forward + backward.  K6–K8 run on the
     tensor cores; their FMA design (what bf16 rows off a 16-byte boundary
     take) is timed in the same turns, on h 2 bytes off.  Returns the seq-128
     (main path) numbers by kernel name."""
@@ -865,7 +873,8 @@ def time_fused_ce(device, rate: float) -> dict:
         mm = 2 * n * v * d
         flops = {"fused_ce_fwd": mm, "fused_ce_dh": 2 * mm, "fused_ce_dw": 2 * mm}
         h_off = torch.cat([h.new_zeros(1), h.reshape(-1)])[1:].view(n, d)   # FMA design
-        fma = {"fused_ce_dh": lambda: fused_ce_dh(h_off, w, lbl, lse, g),
+        fma = {"fused_ce_fwd": lambda: fused_ce_fwd(h_off, w, lbl),
+               "fused_ce_dh": lambda: fused_ce_dh(h_off, w, lbl, lse, g),
                "fused_ce_dw": lambda: fused_ce_dw(h_off, w, lbl, lse, g)}
         times = {name: {"plain": [], "cuda": [], "fma": []} for name in fns}
         for name, fn in fns.items():

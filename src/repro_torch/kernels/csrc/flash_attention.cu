@@ -3,7 +3,8 @@
 // Replaces the Pallas TPU kernels of src/repro/kernels/flash_attention.py:
 //   flash_fwd_mma_kernel (bf16), flash_fwd_kernel (fp32)
 //                     <- _fwd_kernel (K3, pallas_call at :313)
-//   flash_dq_kernel   <- _dq_kernel  (K4, pallas_call at :360)
+//   flash_dq_mma_kernel (bf16), flash_dq_kernel (fp32)
+//                     <- _dq_kernel  (K4, pallas_call at :360)
 //   flash_dkv_mma_kernel (bf16), flash_dkv_kernel (fp32)
 //                     <- _dkv_kernel (K5, pallas_call at :386)
 //
@@ -26,8 +27,8 @@
 //
 // Two designs, chosen by dtype in launch_pass (not a fallback: a call of one
 // dtype never reaches the other's kernels):
-//   bf16: K3 and K5 run on the tensor cores (flash_fwd_mma_kernel,
-//     flash_dkv_mma_kernel); K4 on the fp32 FMA kernel below.
+//   bf16: all three run on the tensor cores (flash_fwd_mma_kernel,
+//     flash_dq_mma_kernel, flash_dkv_mma_kernel).
 //   fp32: all three on fp32 FMA kernels.  The reference multiplies fp32
 //     inputs in fp32; the tensor cores would make that TF32, another
 //     function.
@@ -54,6 +55,11 @@
 //     coordinates, the same keep and kv_range as the FMA kernels), then
 //     o += p v on the tensor cores.  o leaves as bf16 through shared memory
 //     in 16-byte stores, lse as fp32.
+//   K4: K3's blocks, ring and ownership; the warp's q fragments stay in
+//     registers (at D <= 64), do in shared memory.  s = q k^T and dp = do v^T on the
+//     tensor cores, p = exp(scale s - lse) and ds = p (dp - di) in
+//     registers, then dq += ds k on the tensor cores; the block owns its dq
+//     tile (no atomics).
 //   K5: one block per (b*hkv, 64-row kv tile), looping over (q head of the
 //     group x q tile of 64 rows, 32 at D 128 for registers); it owns its
 //     dk/dv tile, so there are no atomics and every run gives the same bits.
@@ -65,8 +71,10 @@
 // p and ds enter the second products as sums of bf16 terms (t0 = bf16(x),
 // t1 = bf16(x - t0), ...), one mma per term: the reference keeps them in
 // fp32, and ds = p (dp - di) cancels, so one bf16 p or ds (8 bits) would
-// miss the fp32-level agreement the tests hold the kernels to.  K5 takes two
-// terms (~16 bits).  K3 takes three (all 24): o leaves as bf16, and its
+// miss the fp32-level agreement the tests hold the kernels to.  K4 and K5
+// take two terms (~16 bits; the CPU emulation of K4's dq with one term lands
+// 43-108 times past the fp32 tolerance, with two within 0.2 of it).  K3
+// takes three (all 24): o leaves as bf16, and its
 // rounding feeds di = rowsum(o do) and through the cancelling dp - di the dq
 // of rows that see few keys; with two terms o's fp32 value sits ~2^-18 off
 // the reference's, more of o's elements round to the other neighbouring
@@ -83,17 +91,17 @@
 // wrapper checks that and raises.  Against the bound: the tiles move as
 // bf16 (half of the FMA design's fp32 tiles), each input row is read once
 // per block and each output row written once; the blocks are short (two
-// tiles each at seq 128), so launch bounds size both kernels for 3 blocks
+// tiles each at seq 128), so launch bounds size the kernels for 3 blocks
 // per SM, whose loads overlap each other's products, and the work beside
 // the products is kept small: a tile with no masked entry (every tile of the
 // main path) skips the mask, and p = exp(scale s - m) is one fma into exp2f
 // (exp2(s scale log2 e - m log2 e)).  mma.sync rather than wgmma: at seq 128
-// both kernels are bound by bytes, where wgmma's rate buys nothing; wgmma,
+// the kernels are bound by bytes, where wgmma's rate buys nothing; wgmma,
 // TMA loads and warp specialisation are later work.
 //
-// The FMA design (fp32 inputs, and K4 in both dtypes): K3 and K4 take one
-// block of 256 threads per (b*h, 64-row q tile), K5 one per (b*hkv, 64-row
-// kv tile), with the same loops and ownership as above.  The threads form a
+// The FMA design (fp32 inputs): K3 and K4 take one block of 256 threads per
+// (b*h, 64-row q tile), K5 one per (b*hkv, 64-row kv tile), with the same
+// loops and ownership as above.  The threads form a
 // 16 x 16 grid; each owns 4 rows x 4 columns of the 64 x 64 score tile and
 // 4 rows x D/16 columns of its accumulators, in registers.  Row max and row
 // sum reduce over the 16 threads of a half warp with shuffles.  Tiles are
@@ -521,9 +529,10 @@ constexpr int kMmaThreads = 32 * kMmaWarps;
 static_assert(16 * kMmaWarps == kBQ && 16 * kMmaWarps == kBK,
               "a warp owns one m16 tile of the 64-row q (K3) or kv (K5) tile");
 
-// bf16 terms of p in K3's p v, and of p and ds in K5's products (see the
-// note at the top).
+// bf16 terms of p in K3's p v, of ds in K4's ds k, and of p and ds in K5's
+// products (see the note at the top).
 constexpr int kFwdTerms = 3;
+constexpr int kDqTerms = 2;
 constexpr int kDkvTerms = 2;
 
 // q rows of K5's streamed tile: 64, or 32 at D 128 to keep dk and dv in
@@ -655,6 +664,27 @@ __device__ __forceinline__ void dkv_probs(float (&sc)[NQ][4], float (&dp)[NQ][4]
   }
 }
 
+// K4's p = exp(scale s - lse) and ds = p (dp - di), left in s in place, on
+// this lane's q rows row0 and row0 + 8 (lse and di of each in registers) and
+// kv columns col0 + 8 j + {0, 1}.  MASKED applies keep() and the S tail
+// entry by entry.
+template <bool MASKED, int NS>
+__device__ __forceinline__ void dq_probs(float (&s)[NS][4], const float (&dp)[NS][4],
+                                         const float (&lse)[2], const float (&di)[2],
+                                         const Args& a, int row0, int col0, int kv_end) {
+  const float sl2 = a.scale * kLog2e;
+  const float lb[2] = {lse[0] * kLog2e, lse[1] * kLog2e};
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int hh = e >> 1, row = row0 + 8 * hh;
+      float p = exp2f(fmaf(s[j][e], sl2, -lb[hh]));
+      if (MASKED && !(row < a.S && keep(a, row, col0 + 8 * j + (e & 1), kv_end))) p = 0.f;
+      s[j][e] = p * (dp[j][e] - di[hh]);
+    }
+}
+
 // ---------------------------------------------------------------------------
 // K3 on the tensor cores (bf16)
 // ---------------------------------------------------------------------------
@@ -780,6 +810,140 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 3 : 2) flash_fwd_mma_ke
       if (row < a.S) a.lse_out[(int64_t)bh * a.S + row] = m[hh] + logf(lc[hh]);
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// K4 on the tensor cores (bf16)
+// ---------------------------------------------------------------------------
+
+// K3's shape: one block per (b*h, 64-row q tile), each warp 16 q rows, k and
+// v through the same two-stage ring.  do stays in shared memory and its A
+// fragments are read again for each kv tile (KD ldmatrix a tile against 4 KD
+// for k and v); q's stay in registers for the whole loop at D <= 64 and are
+// read like do's at D 128.  With both in registers ptxas spilled (32 bytes
+// at D 64 under the 168 registers of 3 blocks per SM, 44 at D 128 under
+// 255), and with q's alone at D 128 still 8.  3 blocks per SM at D <= 64, 2
+// at D 128.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 3 : 2) flash_dq_mma_kernel(Args a) {
+  constexpr int LD = D + 8, KD = D / 16, NS = kBK / 8, ND = D / 8;
+  constexpr bool kQInRegs = D <= 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // kBQ x LD, then dq on its way out
+  bf16* sO = sQ + kBQ * LD;                      // do, kBQ x LD, for the whole loop
+  bf16* sKV = sO + kBQ * LD;                     // 2 stages x (k, v), kBK x LD each
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int mi = lane >> 3, mr = lane & 7;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H, kvh = h / (a.H / a.Hkv);
+  const int q0 = blockIdx.y * kBQ;
+  const bf16* k = static_cast<const bf16*>(a.k) + b * a.sk.b + kvh * a.sk.h;
+  const bf16* v = static_cast<const bf16*>(a.v) + b * a.sv.b + kvh * a.sv.h;
+  const int kv_end = kv_end_of(a, b);
+  int lo, hi;
+  kv_range(a, q0, kv_end, lo, hi);
+  const int first = (lo / kBK) * kBK;
+  const int ntiles = hi > first ? (hi - first + kBK - 1) / kBK : 0;
+  auto stage_kv = [&](int it) {
+    bf16* sK = sKV + (it & 1) * 2 * kBK * LD;
+    stage_rows<D, kBK>(sK, k, a.sk.s, first + it * kBK, a.T);
+    stage_rows<D, kBK>(sK + kBK * LD, v, a.sv.s, first + it * kBK, a.T);
+  };
+
+  stage_rows<D, kBQ>(sQ, static_cast<const bf16*>(a.q) + b * a.sq.b + h * a.sq.h, a.sq.s, q0,
+                     a.S);
+  stage_rows<D, kBQ>(sO, static_cast<const bf16*>(a.dout) + b * a.sdo.b + h * a.sdo.h,
+                     a.sdo.s, q0, a.S);
+  if (ntiles > 0) stage_kv(0);
+  cp_async_commit();
+  // this lane's rows row0 and row0 + 8: lse and di once (rows past S: p and
+  // ds are masked to 0)
+  const int row0 = q0 + 16 * warp + g;
+  float lse[2], di[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    lse[hh] = row < a.S ? a.lse[(int64_t)bh * a.S + row] : 0.f;
+    di[hh] = row < a.S ? a.di[(int64_t)bh * a.S + row] : 0.f;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  // where this warp's 16 q and do rows' A fragments start; q's in registers
+  const int at_w = (16 * warp + mr + 8 * (mi & 1)) * LD + 8 * (mi >> 1);
+  uint32_t qf[kQInRegs ? KD : 1][4];
+#pragma unroll
+  for (int kk = 0; kQInRegs && kk < KD; ++kk) ldsm4(qf[kk], sQ + at_w + 16 * kk);
+
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) {  // the next tile streams in while this one is used
+      stage_kv(it + 1);
+      cp_async_commit();
+    }
+    const bf16* sK = sKV + (it & 1) * 2 * kBK * LD;
+    const bf16* sV = sK + kBK * LD;
+    const int kv0 = first + it * kBK;
+    // s = q k^T and dp = do v^T: this warp's 16 rows x the tile's 64 columns
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qa[4], of[4];
+      ldsm4(of, sO + at_w + 16 * kk);
+      if (kQInRegs) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) qa[r] = qf[kQInRegs ? kk : 0][r];
+      } else {
+        ldsm4(qa, sQ + at_w + 16 * kk);
+      }
+#pragma unroll
+      for (int j = 0; j < NS; j += 2) {
+        uint32_t kb[4], vb[4];
+        const int at = (8 * j + mr + 8 * (mi >> 1)) * LD + 16 * kk + 8 * (mi & 1);
+        ldsm4(kb, sK + at);
+        ldsm4(vb, sV + at);
+        mma_bf16(s[j], qa, kb[0], kb[1]);
+        mma_bf16(s[j + 1], qa, kb[2], kb[3]);
+        mma_bf16(dp[j], of, vb[0], vb[1]);
+        mma_bf16(dp[j + 1], of, vb[2], vb[3]);
+      }
+    }
+    // ds in place of s, on fragment coordinates
+    if (tile_full(a, q0, kBQ, kv0, kBK, kv_end, true))
+      dq_probs<false>(s, dp, lse, di, a, row0, kv0 + 2 * t, kv_end);
+    else
+      dq_probs<true>(s, dp, lse, di, a, row0, kv0 + 2 * t, kv_end);
+    // dq += ds k, ds as kDqTerms bf16 terms straight from the registers
+#pragma unroll
+    for (int kc = 0; kc < kBK / 16; ++kc) {
+      uint32_t da[kDqTerms][4];
+      a_from_acc(s, kc, da);
+#pragma unroll
+      for (int n = 0; n < ND; n += 2) {
+        uint32_t kb[4];
+        ldsm4_t(kb, sK + (16 * kc + mr + 8 * (mi & 1)) * LD + 8 * n + 8 * (mi >> 1));
+#pragma unroll
+        for (int i = 0; i < kDqTerms; ++i) {
+          mma_bf16(acc[n], da[i], kb[0], kb[1]);
+          mma_bf16(acc[n + 1], da[i], kb[2], kb[3]);
+        }
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();  // the next tile has landed; this one's readers are done
+  }
+
+  // dq = scale acc through this warp's own rows of sQ
+  const float scale2[2] = {a.scale, a.scale};
+  store_acc<D>(static_cast<bf16*>(a.dq) + b * a.sdq.b + h * a.sdq.h, a.sdq.s, q0 + 16 * warp,
+               a.S, sQ + 16 * warp * LD, acc, scale2, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -928,6 +1092,8 @@ constexpr size_t dkv_smem() {
 template <int D>
 constexpr size_t fwd_mma_smem() { return sizeof(bf16) * (kBQ + 4 * kBK) * (D + 8); }
 template <int D>
+constexpr size_t dq_mma_smem() { return sizeof(bf16) * (2 * kBQ + 4 * kBK) * (D + 8); }
+template <int D>
 constexpr size_t dkv_mma_smem() {
   return sizeof(bf16) * (2 * kBK + 4 * dkv_bq<D>()) * (D + 8) + sizeof(float) * 4 * dkv_bq<D>();
 }
@@ -953,27 +1119,29 @@ int launch(Kernel kernel, dim3 grid, int threads, size_t smem, const Args& a,
 
 enum Pass { kFwd, kDq, kDkv };
 
-// The dispatch on dtype: bf16 K3 and K5 take the tensor-core kernels; fp32
-// (all passes) and K4 (both dtypes) the FMA kernels.
-bool uses_tensor_cores(Pass pass, int dtype) { return dtype == 1 && pass != kDq; }
-
+// The dispatch on dtype: bf16 takes the tensor-core kernels, fp32 the FMA
+// kernels, every pass.
 template <typename T, int D>
 int launch_pass(Pass pass, const Args& a, cudaStream_t s) {
   static uint64_t configured[3] = {0, 0, 0};  // per pass of this (T, D)
   const dim3 q_grid((unsigned)(a.B * a.H), (unsigned)((a.S + kBQ - 1) / kBQ));
   const dim3 kv_grid((unsigned)(a.B * a.Hkv), (unsigned)((a.T + kBK - 1) / kBK));
-  if (pass == kDq)
-    return launch(flash_dq_kernel<T, D>, q_grid, kThreads, dq_smem<D>(), a, s, configured[kDq]);
   if constexpr (std::is_same<T, bf16>::value) {
     if (pass == kFwd)
       return launch(flash_fwd_mma_kernel<D>, q_grid, kMmaThreads, fwd_mma_smem<D>(), a, s,
                     configured[kFwd]);
+    if (pass == kDq)
+      return launch(flash_dq_mma_kernel<D>, q_grid, kMmaThreads, dq_mma_smem<D>(), a, s,
+                    configured[kDq]);
     return launch(flash_dkv_mma_kernel<D>, kv_grid, kMmaThreads, dkv_mma_smem<D>(), a, s,
                   configured[kDkv]);
   } else {
     if (pass == kFwd)
       return launch(flash_fwd_kernel<T, D>, q_grid, kThreads, fwd_smem<D>(), a, s,
                     configured[kFwd]);
+    if (pass == kDq)
+      return launch(flash_dq_kernel<T, D>, q_grid, kThreads, dq_smem<D>(), a, s,
+                    configured[kDq]);
     return launch(flash_dkv_kernel<T, D>, kv_grid, kThreads, dkv_smem<D>(), a, s,
                   configured[kDkv]);
   }
@@ -1016,15 +1184,16 @@ bool mma_aligned(Pass pass, const Args& a) {
   const bool in = aligned16(a.q) && aligned16(a.k) && aligned16(a.v) && rows16(a.sq) &&
                   rows16(a.sk) && rows16(a.sv);
   if (pass == kFwd) return in && aligned16(a.o) && rows16(a.so);
-  return in && aligned16(a.dout) && aligned16(a.dk) && aligned16(a.dv) && rows16(a.sdo) &&
-         rows16(a.sdk) && rows16(a.sdv);
+  const bool grad_in = in && aligned16(a.dout) && rows16(a.sdo);
+  if (pass == kDq) return grad_in && aligned16(a.dq) && rows16(a.sdq);
+  return grad_in && aligned16(a.dk) && aligned16(a.dv) && rows16(a.sdk) && rows16(a.sdv);
 }
 
 int run(Pass pass, const Args& a, int dtype, int D, void* stream) {
   if (a.B < 1 || a.H < 1 || a.Hkv < 1 || a.H % a.Hkv || a.S < 1 || a.T < 1 ||
       (int64_t)a.S > 65535LL * kBQ || (int64_t)a.T > 65535LL * kBK)
     return (int)cudaErrorInvalidValue;
-  if (uses_tensor_cores(pass, dtype) && !mma_aligned(pass, a))
+  if (dtype == 1 && !mma_aligned(pass, a))
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_d<float>(pass, a, D, s);
@@ -1040,13 +1209,7 @@ extern "C" {
 // share it).  strides: the (b, h, s) element strides of each 4-D tensor
 // argument, in argument order.  Each returns cudaGetLastError() after the
 // launch (0 = launched), or cudaErrorMisalignedAddress (nothing launched)
-// for a bf16 forward or dk/dv whose tensors are not 16-byte aligned.
-
-// 1 if a pass (0 = forward, 1 = dq, 2 = dk/dv) of a dtype runs on the tensor
-// cores, 0 if on the fp32 FMA kernels.
-int flash_uses_tensor_cores(int pass, int dtype) {
-  return pass >= kFwd && pass <= kDkv && uses_tensor_cores(static_cast<Pass>(pass), dtype);
-}
+// for a bf16 pass whose tensors are not 16-byte aligned.
 
 int flash_fwd(const void* q, const void* k, const void* v, const int* valid, void* o,
               float* lse, const int64_t* strides, int dtype, int B, int H, int Hkv, int S,

@@ -1,7 +1,8 @@
 // Fused chunked-vocab cross-entropy for Hopper (sm_90a): forward, dh, dw.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/fused_ce.py:
-//   fused_ce_fwd_kernel (+ fused_ce_fwd_combine_kernel) <- _fwd_kernel (K6, pallas_call at :218)
+//   fused_ce_fwd_mma_kernel (bf16), fused_ce_fwd_kernel (fp32)
+//                      (+ fused_ce_fwd_combine_kernel)  <- _fwd_kernel (K6, pallas_call at :218)
 //   fused_ce_dh_mma_kernel (bf16), fused_ce_dh_kernel (fp32)
 //                       (+ fused_ce_dh_combine_kernel)  <- _dh_kernel  (K7, pallas_call at :246)
 //   fused_ce_dw_mma_kernel (bf16), fused_ce_dw_kernel (fp32)
@@ -28,27 +29,30 @@
 // 0.04 and 0.08 ms at the 989 TFLOP/s of bf16 tensor cores, 0.02 ms at
 // 3.35 TB/s, so all three are bound by operations.
 //
-// Two designs of K7 and K8, chosen by the caller (fused_ce.py) and checked
-// here (not a fallback: a call names its design):
+// Two designs of each, chosen by the caller (fused_ce.py) and checked here
+// (not a fallback: a call names its design):
 //   mma (bf16 whose h and w can be copied in 16-byte pieces: 16-byte aligned
 //     bases, row strides and D multiples of 8 elements): the tensor-core
-//     kernels fused_ce_dh_mma_kernel and fused_ce_dw_mma_kernel below;
+//     kernels fused_ce_fwd_mma_kernel, fused_ce_dh_mma_kernel and
+//     fused_ce_dw_mma_kernel below;
 //   fma (fp32, and bf16 that cannot be copied so): fp32 FMA kernels from
-//     shared-memory tiles, fused_ce_dh_kernel and fused_ce_dw_kernel.  The
-//     reference multiplies fp32 inputs in fp32; the tensor cores would make
-//     that TF32, another function.
-// K6 runs the FMA design in both dtypes (11-16 TFLOP/s; its tensor-core
-// design is later work).
+//     shared-memory tiles, fused_ce_fwd_kernel, fused_ce_dh_kernel and
+//     fused_ce_dw_kernel.  The reference multiplies fp32 inputs in fp32; the
+//     tensor cores would make that TF32, another function.
 //
 // Vocab and ownership.  The TPU kernels walk a sequential vocab grid axis,
 // carrying m, l, the label logit, the argmax and the dh accumulator in VMEM.
 // On Hopper the blocks run in parallel and one block per row tile would give
 // 20 blocks on 132 SMs, so the vocab is split across blocks instead:
-//   K6: one block per (32-row tile, vocab split) loops over the split's
+//   K6: one block per (row tile, vocab split) loops over the split's
 //     128-column tiles and writes its partial (m, l, label logit, argmax) to a
 //     (splits, N) scratch; a second small kernel merges the splits in a fixed
 //     order (a strict > keeps the earlier split's column on a tie, as the
-//     lowest column wins within a split).
+//     lowest column wins within a split).  The row tile is 32 rows in the
+//     FMA design, 64 in the tensor-core design, whose h rows stay in shared
+//     memory: each row tile reads its split's w from L2 again (w is 62.5 MB
+//     in bf16), so 64 rows halve those reads against 32 (1.25 GB of L2 reads
+//     a call at the main path's N 640 with 32-row tiles).
 //   K7: one block per (32-row tile, vocab split) owns a 32 x D fp32
 //     accumulator and writes it to a (splits, N, D) scratch; a second kernel
 //     sums the splits in a fixed order and casts to h's type.  The row tile
@@ -95,6 +99,22 @@
 // fits: 1.64 ms for K7 at the main path's shape), a four-slot ring that
 // streams the other tile twice (1.03 ms), and a score split four ways over
 // D between warps (3% faster, but 255 registers with spills).
+//
+// K6 in the tensor-core design: 8 warps; the block's 64 h rows stay in
+// shared memory over all of D (bf16, rows padded by 16 bytes: 129 KB at D
+// 1024), and the w rows of each 128-column vocab tile stream through a
+// four-slot cp.async ring in chunks of 64 D columns (18 KB a slot), one
+// __syncthreads per chunk.  Warp w forms, on mma.sync from ldmatrix
+// fragments, the 32 x 32 score block of h rows 32 (w % 2) .. and columns
+// 32 (w / 2) ..; bf16 x bf16 products are exact in fp32, so s differs from
+// the reference only in the order of the sums, and no split into terms is
+// needed.  When a tile's scores are whole the warp updates, in fp32
+// registers on fragment coordinates, each of its rows' running max, its
+// share of the sum (the quad sums at the end), the argmax as (max, lowest
+// column; a strict > across tiles, whose columns rise) and, in the one lane
+// that holds the label's column, the label logit.  At the end the 4 warps
+// that share rows merge through shared memory by (larger max, then lower
+// column) and one thread per row writes the split's partial.
 //
 // The FMA design (fp32, and bf16 that cannot be staged in 16-byte pieces):
 // the same ownership, 256 threads: warp ty owns owner rows ty + 8 i and lane
@@ -308,6 +328,202 @@ __global__ void __launch_bounds__(kThreads) fused_ce_fwd_combine_kernel(Args a) 
   a.lse_out[n] = lse;
   a.nll[n] = lse - ll;
   a.correct[n] = best == lab ? 1.f : 0.f;
+}
+
+// ---------------------------------------------------------------------------
+// K6 on the tensor cores (bf16)
+// ---------------------------------------------------------------------------
+
+constexpr int kBO6 = 64;           // h rows of a block, resident over all of D
+constexpr int kDC6 = 64;           // D columns of one streamed w chunk
+constexpr int kStages6 = 4;        // w chunks in flight (the cp.async ring)
+constexpr int kLDW6 = kDC6 + 8;    // row stride (bf16) of a staged w chunk
+static_assert(kThreads / 32 == 8 && kBO6 == 2 * 32 && kBT == 4 * 32,
+              "warp w owns h rows 32 (w % 2) .. + 31 and vocab columns 32 (w / 2) .. + 31 of "
+              "each 128-column tile");
+static_assert(kBT * kDC6 / 8 % kThreads == 0, "whole rounds of 16-byte copies");
+
+// Row stride (bf16) of the resident h rows: D in whole chunks, plus 8 so that
+// the 8 rows of an ldmatrix phase fall on distinct banks.
+__host__ __device__ constexpr int fwd_ld(int D) { return (D + kDC6 - 1) / kDC6 * kDC6 + 8; }
+
+constexpr size_t fwd_mma_smem(int D) {
+  return sizeof(bf16) * ((size_t)kBO6 * fwd_ld(D) + kStages6 * kBT * kLDW6);
+}
+static_assert(fwd_mma_smem(kMaxD) + sizeof(float) * (3 * 4 + 1) * kBO6 <= 232448,
+              "the forward's tensor-core kernel (and its static merge arrays) fits an SM's "
+              "shared memory");
+
+// One block per (64-row tile of h, vocab split), the split counted in
+// 128-column vocab tiles as the combine counts it (see the note at the top).
+__global__ void __launch_bounds__(kThreads, 1) fused_ce_fwd_mma_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ float sM[4][kBO6], sL[4][kBO6], sLL[kBO6];
+  __shared__ int sB[4][kBO6];
+  const int ld = fwd_ld(a.D), dr = ld - 8;
+  bf16* sH = reinterpret_cast<bf16*>(smem_raw);  // kBO6 x ld: the h rows
+  bf16* sW = sH + kBO6 * ld;                      // kStages6 x kBT x kLDW6: the w ring
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int mi = lane >> 3, mr = lane & 7;
+  const int wm = warp & 1, wn = warp >> 1;
+  const int r0 = blockIdx.x * kBO6, split = blockIdx.y;
+  const bf16* h = static_cast<const bf16*>(a.h);
+  const bf16* w = static_cast<const bf16*>(a.w);
+  const int n_tiles = (a.V + kBT - 1) / kBT;
+  const int t_lo = split * a.tiles_per_split;
+  const int t_hi = min(n_tiles, t_lo + a.tiles_per_split);
+  const int nC = (a.D + kDC6 - 1) / kDC6, total = (t_hi - t_lo) * nC;
+
+  // w chunk i of the block's sequence (tile t_lo + i / nC, D chunk i % nC)
+  // into ring slot i % kStages6 (ragged rows and columns zero-filled), as one
+  // group; past the last an empty group
+  auto stage_w = [&](int i) {
+    if (i < total) {
+      const int c0 = (t_lo + i / nC) * kBT, d0 = (i % nC) * kDC6;
+      bf16* dst = sW + (i % kStages6) * kBT * kLDW6;
+      constexpr int CH = kDC6 / 8;
+#pragma unroll
+      for (int u = 0; u < kBT * CH / kThreads; ++u) {
+        const int e = u * kThreads + threadIdx.x, r = e / CH, col = d0 + (e % CH) * 8;
+        const bool in = c0 + r < a.V && col < a.D;
+        cp_async16(dst + r * kLDW6 + (e % CH) * 8, w + (in ? (c0 + r) * a.sw + col : 0), in);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // the h rows, all of D (zero-filled past N and D), with the first chunk
+  {
+    const int per_row = dr / 8;
+    for (int e = threadIdx.x; e < kBO6 * per_row; e += kThreads) {
+      const int r = e / per_row, c = (e % per_row) * 8, row = r0 + r;
+      const bool in = row < a.N && c < a.D;
+      cp_async16(sH + r * ld + c, h + (in ? row * a.sh + c : 0), in);
+    }
+  }
+  for (int i = 0; i < kStages6 - 1; ++i) stage_w(i);
+  if (threadIdx.x < kBO6) sLL[threadIdx.x] = kNegInf;
+
+  // this lane's rows 32 wm + 16 mt + g + 8 hh, k = 2 mt + hh
+  int lbl[4], best[4];
+  float m[4], l[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int row = r0 + 32 * wm + 16 * (k >> 1) + g + 8 * (k & 1);
+    lbl[k] = row < a.N ? a.lbl[row] : -1;
+    best[k] = 0x7fffffff;
+    m[k] = kNegInf;
+    l[k] = 0.f;
+  }
+  float sc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[mt][j][e] = 0.f;
+
+  for (int i = 0; i < total; ++i) {
+    cp_async_wait<kStages6 - 2>();  // chunk i (and the h rows) have landed
+    __syncthreads();                // and every warp is done with chunk i - 1's slot
+    stage_w(i + kStages6 - 1);
+    const int dc = i % nC;
+    const bf16* sWc = sW + (i % kStages6) * kBT * kLDW6;
+#pragma unroll
+    for (int kk = 0; kk < kDC6 / 16; ++kk) {
+      uint32_t af[2][4], bfr[2][4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        ldsm4(af[u], sH + (32 * wm + 16 * u + mr + 8 * (mi & 1)) * ld + kDC6 * dc + 16 * kk +
+                         8 * (mi >> 1));
+        ldsm4(bfr[u], sWc + (32 * wn + 16 * u + mr + 8 * (mi >> 1)) * kLDW6 + 16 * kk +
+                          8 * (mi & 1));
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_bf16(sc[mt][j], af[mt], bfr[j >> 1][2 * (j & 1)], bfr[j >> 1][2 * (j & 1) + 1]);
+    }
+    if (dc != nC - 1) continue;
+
+    // the tile's scores are whole: this lane's columns c0 + 32 wn + 8 j + 2 t
+    // + e, masked to -1e30 at or past V
+    const int c0 = (t_lo + i / nC) * kBT + 32 * wn + 2 * t;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int mt = k >> 1, hh = k & 1;
+      float mx = kNegInf;
+      int arg = 0x7fffffff;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = c0 + 8 * j + e;
+          float& x = sc[mt][j][2 * hh + e];
+          if (col >= a.V) x = kNegInf;
+          if (col == lbl[k]) sLL[32 * wm + 16 * mt + g + 8 * hh] = x;  // one lane, one tile
+          if (x > mx) {  // columns rise with (j, e): the lowest reaching the max
+            mx = x;
+            arg = col;
+          }
+        }
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {  // the quad of lanes that shares the row
+        const float om = __shfl_xor_sync(kFull, mx, o);
+        const int oa = __shfl_xor_sync(kFull, arg, o);
+        if (om > mx || (om == mx && oa < arg)) {
+          mx = om;
+          arg = oa;
+        }
+      }
+      const float m_new = fmaxf(m[k], mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          sum += c0 + 8 * j + e < a.V ? expf(sc[mt][j][2 * hh + e] - m_new) : 0.f;
+      l[k] = l[k] * expf(m[k] - m_new) + sum;  // this lane's share; the quad sums at the end
+      if (mx > m[k]) best[k] = arg;            // strict: an earlier tile keeps a tie
+      m[k] = m_new;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[mt][j][2 * hh] = sc[mt][j][2 * hh + 1] = 0.f;
+    }
+  }
+  cp_async_wait_all();  // only empty groups are left
+
+  // merge: the quad's shares of l, then the 4 column warps of each row in
+  // shared memory, then one thread per row writes the split's partial
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    l[k] += __shfl_xor_sync(kFull, l[k], 1);
+    l[k] += __shfl_xor_sync(kFull, l[k], 2);
+    if (t == 0) {
+      const int r = 32 * wm + 16 * (k >> 1) + g + 8 * (k & 1);
+      sM[wn][r] = m[k];
+      sL[wn][r] = l[k];
+      sB[wn][r] = best[k];
+    }
+  }
+  __syncthreads();
+  const int r = threadIdx.x, row = r0 + r;
+  if (r < kBO6 && row < a.N) {
+    float mb = sM[0][r];
+    int bb = sB[0][r];
+    for (int q = 1; q < 4; ++q)
+      if (sM[q][r] > mb || (sM[q][r] == mb && sB[q][r] < bb)) {
+        mb = sM[q][r];
+        bb = sB[q][r];
+      }
+    float lb = 0.f;
+    for (int q = 0; q < 4; ++q) lb += sL[q][r] * expf(sM[q][r] - mb);
+    const int64_t sn = (int64_t)a.splits * a.N, e = (int64_t)split * a.N + row;
+    a.part[e] = mb;
+    a.part[sn + e] = lb;
+    a.part[2 * sn + e] = sLL[r];
+    a.part_idx[e] = bb;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -741,6 +957,12 @@ cudaError_t configure(void (*kernel)(Args), size_t max_smem, uint64_t& configure
   return cudaSuccess;
 }
 
+// K6's tensor-core kernel, set up for its largest shared memory.
+cudaError_t configure_fwd_mma() {
+  static uint64_t configured = 0;
+  return configure(&fused_ce_fwd_mma_kernel, fwd_mma_smem(kMaxD), configured);
+}
+
 // The K7 (pass kDh) or K8 kernel of a design and dtype, the shared memory it
 // takes at width D and at most, and its configured bits: what launch_grad
 // launches and what plan sizes K7's split count from.
@@ -763,10 +985,21 @@ GradKernel grad_kernel(Pass pass, Design design, int D) {
           grad_smem(kMaxD), bits};
 }
 
+// K6 (then its combine kernel) in a design.
 template <typename T>
-int launch_fwd(const Args& a, cudaStream_t s) {
-  fused_ce_fwd_kernel<T><<<dim3(blocks_of(a.N, kBO), (unsigned)a.splits), kThreads, 0, s>>>(a);
-  const cudaError_t err = cudaGetLastError();
+int launch_fwd(Design design, const Args& a, cudaStream_t s) {
+  cudaError_t err = cudaSuccess;
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (design == kMma) {
+      err = configure_fwd_mma();
+      if (err != cudaSuccess) return (int)err;
+      fused_ce_fwd_mma_kernel<<<dim3(blocks_of(a.N, kBO6), (unsigned)a.splits), kThreads,
+                                fwd_mma_smem(a.D), s>>>(a);
+    }
+  }
+  if (design == kFma)
+    fused_ce_fwd_kernel<T><<<dim3(blocks_of(a.N, kBO), (unsigned)a.splits), kThreads, 0, s>>>(a);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   fused_ce_fwd_combine_kernel<<<blocks_of(a.N, kThreads), kThreads, 0, s>>>(a);
   return (int)cudaGetLastError();
@@ -811,7 +1044,14 @@ int plan(Pass pass, Design design, int N, int V, int D) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return -(int)err;
-  if (pass == kFwd) {
+  int rows = kBO;  // owner rows of a block
+  if (pass == kFwd && design == kMma) {
+    err = configure_fwd_mma();
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, &fused_ce_fwd_mma_kernel,
+                                                          kThreads, fwd_mma_smem(D));
+    rows = kBO6;
+  } else if (pass == kFwd) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_ce_fwd_kernel<T>,
                                                         kThreads, 0);
   } else {
@@ -822,7 +1062,7 @@ int plan(Pass pass, Design design, int N, int V, int D) {
   }
   if (err != cudaSuccess) return -(int)err;
   const int64_t slots = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
-  const int64_t row_tiles = (N + kBO - 1) / kBO;
+  const int64_t row_tiles = (N + rows - 1) / rows;
   const int n_tiles = (V + kBT - 1) / kBT;
   int best = 1;
   int64_t best_cost = INT64_MAX;
@@ -864,21 +1104,19 @@ bool mma_stageable(const Args& a) {
   return aligned16(a.h) && aligned16(a.w) && a.sh % 8 == 0 && a.sw % 8 == 0 && a.D % 8 == 0;
 }
 
-bool design_ok(Pass pass, int design, int dtype) {
-  return design == kFma || (design == kMma && pass != kFwd && dtype == 1);
-}
+bool design_ok(int design, int dtype) { return design == kFma || (design == kMma && dtype == 1); }
 
 int run(Pass pass, int design, const Args& a, int dtype, void* stream) {
   const int n_tiles = (a.V + kBT - 1) / kBT;
   // every split holds at least one vocab tile, so each partial max is finite
   if (a.N < 1 || a.V < 1 || a.D < 1 || a.D > kMaxD || a.splits > n_tiles ||
       (int64_t)(a.splits - 1) * a.tiles_per_split >= n_tiles || a.splits > 65535 ||
-      a.sh < a.D || a.sw < a.D || (dtype != 0 && dtype != 1) || !design_ok(pass, design, dtype))
+      a.sh < a.D || a.sw < a.D || (dtype != 0 && dtype != 1) || !design_ok(design, dtype))
     return (int)cudaErrorInvalidValue;
   if (design == kMma && !mma_stageable(a)) return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Design d = static_cast<Design>(design);
-  if (pass == kFwd) return dtype == 0 ? launch_fwd<float>(a, s) : launch_fwd<bf16>(a, s);
+  if (pass == kFwd) return dtype == 0 ? launch_fwd<float>(d, a, s) : launch_fwd<bf16>(d, a, s);
   return dtype == 0 ? launch_grad<float>(pass, d, a, s) : launch_grad<bf16>(pass, d, a, s);
 }
 
@@ -890,7 +1128,7 @@ extern "C" {
 // current device in a design (see plan); a negative CUDA error on failure.
 int fused_ce_plan(int pass, int design, int dtype, int N, int V, int D) {
   if (N < 1 || V < 1 || D < 1 || D > kMaxD || (pass != 0 && pass != 1) ||
-      (dtype != 0 && dtype != 1) || !design_ok(pass == 0 ? kFwd : kDh, design, dtype))
+      (dtype != 0 && dtype != 1) || !design_ok(design, dtype))
     return -(int)cudaErrorInvalidValue;
   const Pass p = pass == 0 ? kFwd : kDh;
   const Design d = static_cast<Design>(design);
@@ -898,7 +1136,7 @@ int fused_ce_plan(int pass, int design, int dtype, int N, int V, int D) {
 }
 
 // dtype codes: 0 = float32, 1 = bfloat16 (h, w, dh and dw share it); design
-// codes (K7, K8): 0 = FMA, 1 = tensor cores (bf16 only).  h and w have
+// codes: 0 = FMA, 1 = tensor cores (bf16 only).  h and w have
 // contiguous rows of D elements, sh and sw apart; labels are int32 in
 // [0, V); lse, g and every other float tensor are contiguous fp32.  part and
 // part_idx are scratch of (3, splits, N) floats and (splits, N) ints (K6) or
@@ -908,14 +1146,14 @@ int fused_ce_plan(int pass, int design, int dtype, int N, int V, int D) {
 
 int fused_ce_fwd(const void* h, const void* w, const int* lbl, float* nll, float* correct,
                  float* lse, float* part, int* part_idx, int64_t sh, int64_t sw, int dtype,
-                 int N, int V, int D, int splits, void* stream) {
+                 int design, int N, int V, int D, int splits, void* stream) {
   Args a = make_args(h, w, lbl, sh, sw, N, V, D, splits);
   a.nll = nll;
   a.correct = correct;
   a.lse_out = lse;
   a.part = part;
   a.part_idx = part_idx;
-  return run(kFwd, kFma, a, dtype, stream);
+  return run(kFwd, design, a, dtype, stream);
 }
 
 int fused_ce_dh(const void* h, const void* w, const int* lbl, const float* lse, const float* g,

@@ -20,8 +20,8 @@ q head h reads kv head h // (H/Hkv); k/v are never repeated).  Masks:
 Each pass dispatches on where its tensors lie: on the CPU it runs the plain
 PyTorch version below (the chunked online softmax of the JAX package's XLA
 backend); on a CUDA tensor it launches the kernel or raises.  There is no
-fallback from the kernel to the plain version.  On the card, bf16 K3 and K5
-run on the tensor cores and fp32 (and K4) on fp32 FMA kernels, by dtype
+fallback from the kernel to the plain version.  On the card, bf16 K3–K5
+run on the tensor cores and fp32 on fp32 FMA kernels, by dtype
 (``VARIANT_LAUNCHES`` counts which design ran).  The tensor-core kernels
 move bf16 rows in 16-byte pieces, so they need 16-byte aligned base pointers
 and (b, h, s) strides that are multiples of 8 elements; the wrappers raise
@@ -45,9 +45,7 @@ NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_PASS_CODES = {"flash_fwd": 0, "flash_dq": 1, "flash_dkv": 2}
 _LIB: Optional[ctypes.CDLL] = None
-_DESIGN: dict = {}   # (kernel, dtype) -> the design the library dispatches it to
 
 
 class FlashSpec(NamedTuple):
@@ -83,8 +81,7 @@ def _lib() -> ctypes.CDLL:
         lib.flash_fwd.argtypes = [p, p, p, p, p, p, p, i] + shape
         lib.flash_dq.argtypes = [p, p, p, p, p, p, p, p, p, i] + shape
         lib.flash_dkv.argtypes = [p, p, p, p, p, p, p, p, p, p, i] + shape
-        lib.flash_uses_tensor_cores.argtypes = [i, i]
-        for fn in (lib.flash_fwd, lib.flash_dq, lib.flash_dkv, lib.flash_uses_tensor_cores):
+        for fn in (lib.flash_fwd, lib.flash_dq, lib.flash_dkv):
             fn.restype = i
         _LIB = lib
     return _LIB
@@ -300,13 +297,10 @@ def _raise_on(err: int, what: str) -> None:
 
 
 def _count(name: str, dtype: torch.dtype) -> None:
-    """One launch of ``name``, under the design the library ran it on."""
-    design = _DESIGN.get((name, dtype))
-    if design is None:
-        tc = _lib().flash_uses_tensor_cores(_PASS_CODES[name], _DTYPE_CODES[dtype])
-        design = _DESIGN[(name, dtype)] = DESIGNS[0] if tc else DESIGNS[1]
+    """One launch of ``name``, under the design its dtype runs (the library
+    dispatches bf16 to the tensor cores, fp32 to the FMA kernels)."""
     LAUNCHES[name] += 1
-    VARIANT_LAUNCHES[name][design] += 1
+    VARIANT_LAUNCHES[name][DESIGNS[0] if dtype == torch.bfloat16 else DESIGNS[1]] += 1
 
 
 def _fwd_cuda(q, k, v, valid, spec: FlashSpec):
@@ -322,7 +316,7 @@ def _fwd_cuda(q, k, v, valid, spec: FlashSpec):
 
 
 def _dq_cuda(q, k, v, valid, lse, di, do, spec: FlashSpec):
-    _check(q, k, v, valid, spec, do=do, lse=lse, di=di)
+    _check(q, k, v, valid, spec, aligned=True, do=do, lse=lse, di=di)
     dq = torch.empty_like(q)
     err = _lib().flash_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                           lse.data_ptr(), di.data_ptr(), _ptr(valid), dq.data_ptr(),

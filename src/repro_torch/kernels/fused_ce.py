@@ -19,11 +19,11 @@ and dw in w's.  Each pass dispatches on where its tensors lie: on the CPU it
 runs the plain PyTorch version below (the chunked math of the JAX package's
 XLA backend, vocab chunks of ``block_v``); on a CUDA tensor it launches the
 kernel or raises.  There is no fallback from the kernel to the plain
-version.  On the card K7 and K8 have two designs, chosen by ``_check``'s
-rule: bf16 whose rows can be copied in 16-byte pieces runs on the tensor
-cores (``mma.sync``, the fp32 dlogits as two bf16 terms); fp32, and bf16 that
-cannot be copied so, on fp32 FMA kernels.  ``VARIANT_LAUNCHES`` counts which
-design ran.  K6 runs fp32 FMA in both dtypes.
+version.  On the card each kernel has two designs, chosen by ``_check``'s
+rule before the launch: bf16 whose rows can be copied in 16-byte pieces runs
+on the tensor cores (``mma.sync``; in K7 and K8 the fp32 dlogits as two bf16
+terms); fp32, and bf16 that cannot be copied so, on fp32 FMA kernels.
+``VARIANT_LAUNCHES`` counts which design ran.
 """
 from __future__ import annotations
 
@@ -35,9 +35,8 @@ import torch
 
 from repro_torch.kernels.launches import LAUNCHES, VARIANT_LAUNCHES, register
 
-DESIGNS = ("mma", "fma")   # K7/K8: bf16 on the tensor cores (mma.sync); fp32 FMA
-register("fused_ce_fwd")
-register("fused_ce_dh", "fused_ce_dw", variants=DESIGNS)
+DESIGNS = ("mma", "fma")   # bf16 on the tensor cores (mma.sync); fp32 FMA
+register("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw", variants=DESIGNS)
 
 NEG_INF = -1e30
 _IDX_INF = torch.iinfo(torch.int32).max
@@ -63,7 +62,7 @@ def _lib() -> ctypes.CDLL:
 
         lib = load("fused_ce")
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.fused_ce_fwd.argtypes = [p] * 8 + [i64, i64, i, i, i, i, i, p]
+        lib.fused_ce_fwd.argtypes = [p] * 8 + [i64, i64, i, i, i, i, i, i, p]
         lib.fused_ce_dh.argtypes = [p] * 7 + [i64, i64, i, i, i, i, i, i, p]
         lib.fused_ce_dw.argtypes = [p] * 6 + [i64, i64, i, i, i, i, i, p]
         lib.fused_ce_plan.argtypes = [i] * 6
@@ -144,7 +143,7 @@ def fused_ce_dw_plain(h, w, lbl, lse, g, block_v: int = 512) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _check(h, w, lbl, **rows) -> str:
-    """Raise on what the kernels cannot take; else the design K7 and K8 run.
+    """Raise on what the kernels cannot take; else the design K6–K8 run.
 
     The rule: "mma" (the tensor cores) for bf16 h and w whose rows the
     kernels can copy in 16-byte pieces: 16-byte aligned base pointers, and
@@ -193,15 +192,14 @@ def _splits(index: int, pass_: int, design: int, dtype: int, n: int, v: int, d: 
     return splits
 
 
-def _plan(h, w, pass_: int, design: str = "fma") -> int:
+def _plan(h, w, pass_: int, design: str) -> int:
     return _splits(h.device.index, pass_, _DESIGN_CODES[design], _DTYPE_CODES[h.dtype],
                    h.shape[0], w.shape[0], h.shape[1])
 
 
-def _shape_args(h, w, design: Optional[str] = None) -> list:
-    codes = [] if design is None else [_DESIGN_CODES[design]]
-    return [_row_stride(h), _row_stride(w), _DTYPE_CODES[h.dtype], *codes, h.shape[0],
-            w.shape[0], h.shape[1]]
+def _shape_args(h, w, design: str) -> list:
+    return [_row_stride(h), _row_stride(w), _DTYPE_CODES[h.dtype], _DESIGN_CODES[design],
+            h.shape[0], w.shape[0], h.shape[1]]
 
 
 def _stream(x: torch.Tensor) -> ctypes.c_void_p:
@@ -213,25 +211,26 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed with CUDA error {err}")
 
 
+def _count(name: str, design: str) -> None:
+    """One launch of ``name``, under the design it ran."""
+    LAUNCHES[name] += 1
+    VARIANT_LAUNCHES[name][design] += 1
+
+
 def _fwd_cuda(h, w, lbl):
-    _check(h, w, lbl)
+    design = _check(h, w, lbl)
     n, dev = h.shape[0], h.device
-    splits = _plan(h, w, 0)
+    splits = _plan(h, w, 0, design)
     nll, correct, lse = torch.empty((3, n), dtype=torch.float32, device=dev)
     part = torch.empty((3, splits, n), dtype=torch.float32, device=dev)
     part_idx = torch.empty((splits, n), dtype=torch.int32, device=dev)
     err = _lib().fused_ce_fwd(h.data_ptr(), w.data_ptr(), lbl.data_ptr(), nll.data_ptr(),
                               correct.data_ptr(), lse.data_ptr(), part.data_ptr(),
-                              part_idx.data_ptr(), *_shape_args(h, w), splits, _stream(h))
+                              part_idx.data_ptr(), *_shape_args(h, w, design), splits,
+                              _stream(h))
     _raise_on(err, "fused_ce_fwd")
-    LAUNCHES["fused_ce_fwd"] += 1
+    _count("fused_ce_fwd", design)
     return nll, correct, lse
-
-
-def _count(name: str, design: str) -> None:
-    """One launch of ``name``, under the design it ran."""
-    LAUNCHES[name] += 1
-    VARIANT_LAUNCHES[name][design] += 1
 
 
 def _dh_cuda(h, w, lbl, lse, g):

@@ -85,10 +85,11 @@ def _microbatch_grads(
     """Token-weighted sequential accumulation over ``n_micro`` slices.
 
     Returns fp32 grads equal to the full-batch token-mean gradient
-    ``Σ_i w_i g_i / Σ_i w_i``, ``w_i`` the slice's supervised-token count.
-    Metrics are averaged with the same weights, except
-    ``tokens/supervised``, which is summed.  ``params`` are the leaves the
-    gradient is taken against (the compute-dtype copy).
+    ``Σ_i w_i g_i / Σ_i w_i``, ``w_i`` the slice's supervised-token count
+    (uniform weights when the loss reports none).  Metrics are averaged with
+    the same weights, except ``tokens/supervised``, which is summed.
+    ``params`` are the leaves the gradient is taken against (the
+    compute-dtype copy).
     """
     for x in batch.values():
         if x.shape[0] % n_micro:
@@ -106,7 +107,10 @@ def _microbatch_grads(
         grads = torch.autograd.grad(loss, leaves)
         g = {k: t.to(torch.float32) for k, t in zip(keys, grads)}
         metrics = {k: t.detach() for k, t in metrics.items()}
-        return g, metrics, metrics[TOKEN_WEIGHT_KEY]
+        w = metrics.get(TOKEN_WEIGHT_KEY)
+        if w is None:
+            w = torch.ones((), dtype=torch.float32, device=loss.device)
+        return g, metrics, w
 
     g0, m0, w0 = one(0)
     if n_micro == 1:
@@ -124,7 +128,8 @@ def _microbatch_grads(
     for t in g_acc.values():
         t.mul_(inv)
     metrics = {k: t * inv for k, t in m_acc.items()}
-    metrics[TOKEN_WEIGHT_KEY] = w_acc
+    if TOKEN_WEIGHT_KEY in metrics:
+        metrics[TOKEN_WEIGHT_KEY] = w_acc   # total over the global batch, not mean
     return g_acc, metrics
 
 

@@ -10,7 +10,7 @@ import torch
 
 from repro_torch.kernels import LAUNCHES, VARIANT_LAUNCHES, lamb_update, reset_launches
 from repro_torch.kernels.flash_attention import FlashSpec, flash_attention, \
-    flash_attention_bwd, flash_attention_fwd, flash_dkv, row_dot
+    flash_attention_bwd, flash_attention_fwd, flash_dkv, flash_dq, row_dot
 
 pytestmark = pytest.mark.cuda
 
@@ -125,10 +125,10 @@ def test_flash_kernels_match_plain_on_card(cuda, b, h, hkv, s, t, d, causal, win
         torch.cuda.synchronize()
         launched = {n: LAUNCHES[n] for n in ("flash_fwd", "flash_dq", "flash_dkv")}
         assert set(launched.values()) == {0 if plain else 1}, launched
-        if not plain:   # bf16 K3 and K5 on the tensor cores; K4 and fp32 on FMA
+        if not plain:   # bf16 K3–K5 on the tensor cores; fp32 on FMA
             mma = {n: VARIANT_LAUNCHES[n]["mma"] for n in launched}
             bf16 = int(dtype == torch.bfloat16)
-            assert mma == {"flash_fwd": bf16, "flash_dq": 0, "flash_dkv": bf16}, mma
+            assert mma == dict.fromkeys(launched, bf16), mma
         assert [g.dtype for g in grads] == [dtype] * 3
         outs[plain] = (o, *grads)
     lim = None if valid is None else valid.clamp(1, t)
@@ -158,6 +158,24 @@ def test_flash_reads_model_layout_through_strides(cuda, dtype):
     ref = flash_attention(*qkv, causal=True)
     for a, r in zip((o, *grads), (ref, *torch.autograd.grad(ref, qkv, do))):
         torch.testing.assert_close(a, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,d", [(False, 64), (True, 128), (False, 16)])
+def test_flash_dq_is_deterministic(cuda, dtype, causal, d):
+    """K4 owns its dq tile and sums its kv tiles in a fixed order (no
+    atomics): two runs give the same bits."""
+    q, k, v, do, valid = _flash_inputs(2, 8, 2, 320, 320, d, True, dtype, cuda, seed=4)
+    spec = FlashSpec(d**-0.5, causal, 0, True)
+    lim = valid.clamp(1, 320)
+    o, lse = flash_attention_fwd(q, k, v, lim, spec)
+    di = row_dot(o, do)
+    reset_launches()
+    runs = [flash_dq(q, k, v, lim, lse, di, do, spec) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert VARIANT_LAUNCHES["flash_dq"]["mma" if dtype == torch.bfloat16 else "fma"] == 2
+    assert torch.equal(*runs)
+    _close(runs[0], flash_dq(q, k, v, lim, lse, di, do, spec, plain=True), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -201,6 +219,10 @@ def test_flash_wrapper_rejects_what_it_cannot_take(cuda):
     lse = torch.zeros((1, 2, 64), device=cuda)
     with pytest.raises(ValueError, match="16-byte"):
         flash_dkv(qb, kb, vb, valid, lse, lse, off, spec)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_dq(qb, kb, vb, valid, lse, lse, off, spec)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_dq(off, kb, vb, valid, lse, lse, qb, spec)
 
 
 # ---------------------------------------------------------------------------
@@ -322,6 +344,36 @@ CE_MMA_CASES = [
 
 
 @pytest.mark.parametrize("n,d,v", CE_MMA_CASES)
+def test_fused_ce_tensor_core_forward_on_card(cuda, n, d, v):
+    """bf16 K6 launches the tensor-core design and agrees with the plain
+    version on the same inputs: nll and lse to 1e-5 (bf16 x bf16 products
+    are exact in fp32; the sums run in another order), ``correct`` equal
+    except where the label's logit ties the maximum within that rounding,
+    zero rows (all logits 0) on column 0; two runs give equal bits."""
+    from repro_torch.kernels.fused_ce import fused_ce_fwd
+
+    h, w, lbl, _ = _ce_inputs(n, d, v, torch.bfloat16, cuda, seed=5)
+    logits = h.float() @ w.float().t()
+    lbl = torch.where(torch.arange(n, device=cuda) % 2 == 0, logits.argmax(1).to(torch.int32),
+                      lbl)
+    reset_launches()
+    runs = [fused_ce_fwd(h, w, lbl) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert VARIANT_LAUNCHES["fused_ce_fwd"] == {"mma": 2, "fma": 0}, VARIANT_LAUNCHES
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    nll, correct, lse = runs[0]
+    nll_r, correct_r, lse_r = fused_ce_fwd(h, w, lbl, plain=True)
+    torch.testing.assert_close(nll, nll_r, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, lse_r, rtol=1e-5, atol=1e-5)
+    flips = correct != correct_r
+    top = logits.amax(1)
+    gap = (top - logits.gather(1, lbl.long()[:, None])[:, 0]).abs()
+    assert bool((gap[flips] <= 1e-5 * (1 + top[flips].abs())).all())
+    zero = slice(0, n // 4)
+    assert torch.equal(correct[zero], (lbl[zero] == 0).float())
+
+
+@pytest.mark.parametrize("n,d,v", CE_MMA_CASES)
 def test_fused_ce_tensor_core_backward_on_card(cuda, n, d, v):
     """bf16 K7 and K8 launch the tensor-core design, agree with the plain
     version on the same inputs (one bf16 ulp plus 1e-4 of the scale, as
@@ -347,18 +399,21 @@ def test_fused_ce_tensor_core_backward_on_card(cuda, n, d, v):
 
 def test_fused_ce_unstageable_bf16_takes_the_fma_design(cuda):
     """bf16 rows that cannot be copied in 16-byte pieces (h starting 2 bytes
-    past a 16-byte boundary) run the FMA kernels, are counted so, and agree
-    with the plain version."""
+    past a 16-byte boundary) run the FMA kernels, K6 as K7 and K8, are
+    counted so, and agree with the plain version."""
     from repro_torch.kernels.fused_ce import fused_ce_dh, fused_ce_dw, fused_ce_fwd
 
     h, w, lbl, g = _ce_inputs(97, 1024, 300, torch.bfloat16, cuda, seed=3)
     off = torch.cat([h.new_zeros(1), h.reshape(-1)])[1:].view(h.shape)
     assert off.data_ptr() % 16 != 0
-    lse = fused_ce_fwd(h, w, lbl, plain=True)[2]
+    nll_r, _, lse = fused_ce_fwd(h, w, lbl, plain=True)
     reset_launches()
+    nll, _, lse_k = fused_ce_fwd(off, w, lbl)
     dh, dw = fused_ce_dh(off, w, lbl, lse, g), fused_ce_dw(off, w, lbl, lse, g)
     torch.cuda.synchronize()
-    for name in ("fused_ce_dh", "fused_ce_dw"):
+    for name in ("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw"):
         assert VARIANT_LAUNCHES[name] == {"mma": 0, "fma": 1}, VARIANT_LAUNCHES
+    torch.testing.assert_close(nll, nll_r, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse_k, lse, rtol=1e-5, atol=1e-5)
     _ce_close(dh, fused_ce_dh(h, w, lbl, lse, g, plain=True), torch.bfloat16)
     _ce_close(dw, fused_ce_dw(h, w, lbl, lse, g, plain=True), torch.bfloat16)

@@ -27,8 +27,8 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.core import warmup_poly_decay
 from repro_torch.data import batch_iterator
 from repro_torch.kernels import LAUNCHES, flash_sdpa, reset_launches
-from repro_torch.kernels.flash_attention import NEG_INF, FlashSpec, _chunk_mask, _check, \
-    flash_attention, flash_attention_fwd, flash_dq, row_dot
+from repro_torch.kernels.flash_attention import NEG_INF, FlashSpec, _check, _chunk_mask, \
+    _dkv_cuda, _dq_cuda, _fwd_cuda, flash_attention, flash_attention_fwd, flash_dq, row_dot
 from repro_torch.models import build_model
 from repro_torch.models.layers import attention
 from repro_torch.nn import params_from_jax, state_from_jax
@@ -240,11 +240,12 @@ def test_flash_runs_the_plain_version_on_the_cpu():
 
 
 # ---------------------------------------------------------------------------
-# the bf16 tensor-core kernels' arithmetic (K3, K5), emulated
+# the bf16 tensor-core kernels' arithmetic (K3, K4, K5), emulated
 # ---------------------------------------------------------------------------
 
 MMA_KV_TILE = 64   # K3's kv tile: the online softmax rescales once per tile
-FWD_TERMS, DKV_TERMS = 3, 2   # bf16 terms of p in K3, of p and ds in K5
+# bf16 terms of p in K3, of ds in K4 (kDqTerms), of p and ds in K5
+FWD_TERMS, DQ_TERMS, DKV_TERMS = 3, 2, 2
 # (the fused CE head's K7 and K8 take the dlogits as 2: DLOGIT_TERMS in
 # tests/test_torch_fused_ce.py)
 
@@ -291,23 +292,39 @@ def _mma_fwd(q, k, v, valid, spec: FlashSpec):
     return (acc / l[..., None]).reshape(b, h, s, d), (m + torch.log(l)).reshape(b, h, s)
 
 
+def _probs_ds(q, k, v, valid, lse, di, do, spec: FlashSpec):
+    """K4's and K5's p and ds in fp32 over the whole (S, T) tile, grouped
+    (b, hkv, group, s, t): s = q·kᵀ and dp = do·vᵀ with exact products and
+    fp32 sums, p = exp(scale·s − lse) under the mask, ds = p∘(dp − di)."""
+    b, h, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    f32 = torch.float32
+    qg, dog = (x.reshape(b, hkv, h // hkv, s, d).to(f32) for x in (q, do))
+    sij = torch.einsum("bngsd,bntd->bngst", qg, k.to(f32)) * spec.scale
+    p = torch.exp(sij - lse.reshape(b, hkv, h // hkv, s)[..., None])
+    ok = _chunk_mask(spec, s, 0, t, valid, t - s, q.device)
+    if ok is not None:
+        p = torch.where(ok, p, 0.0)
+    dp = torch.einsum("bngsd,bntd->bngst", dog, v.to(f32))
+    return qg, dog, p, p * (dp - di.reshape(b, hkv, h // hkv, s)[..., None])
+
+
+def _mma_dq(q, k, v, valid, lse, di, do, spec: FlashSpec, terms=DQ_TERMS):
+    """K4's arithmetic: p and ds as in K5, then dq = scale·Σ ds·k with ds as
+    ``terms`` bf16 terms, one product each with fp32 sums.  Returns fp32 dq
+    (the kernel rounds it to bf16)."""
+    ds = _probs_ds(q, k, v, valid, lse, di, do, spec)[3]
+    kf = k.to(torch.float32)
+    dq = sum(torch.einsum("bngst,bntd->bngsd", t, kf) for t in _terms(ds, terms))
+    return (spec.scale * dq).reshape(q.shape)
+
+
 def _mma_dkv(q, k, v, valid, lse, di, do, spec: FlashSpec):
     """K5's arithmetic: sᵀ = k·qᵀ and dpᵀ = v·doᵀ with exact products and
     fp32 sums, p and ds in fp32, then dv = Σ pᵀ·do and dk = scale·Σ dsᵀ·q
     with p and ds as two bf16 terms (hi + lo), summed over the GQA group and
     every q row.  Returns fp32 (dk, dv)."""
-    b, h, s, d = q.shape
-    hkv, t = k.shape[1], k.shape[2]
-    f32 = torch.float32
-    qg, dog = (x.reshape(b, hkv, h // hkv, s, d).to(f32) for x in (q, do))
-    kf, vf = k.to(f32), v.to(f32)
-    sij = torch.einsum("bngsd,bntd->bngst", qg, kf) * spec.scale
-    p = torch.exp(sij - lse.reshape(b, hkv, h // hkv, s)[..., None])
-    ok = _chunk_mask(spec, s, 0, t, valid, t - s, q.device)
-    if ok is not None:
-        p = torch.where(ok, p, 0.0)
-    dp = torch.einsum("bngsd,bntd->bngst", dog, vf)
-    ds = p * (dp - di.reshape(b, hkv, h // hkv, s)[..., None])
+    qg, dog, p, ds = _probs_ds(q, k, v, valid, lse, di, do, spec)
     dv = sum(torch.einsum("bngst,bngsd->bntd", t, dog) for t in _terms(p, DKV_TERMS))
     dk = sum(torch.einsum("bngst,bngsd->bntd", t, qg) for t in _terms(ds, DKV_TERMS))
     return spec.scale * dk, dv
@@ -318,15 +335,12 @@ def _mma_dkv(q, k, v, valid, lse, di, do, spec: FlashSpec):
 MMA_CASES = [(*c, 0) for c in FLASH_GRAD_CASES] + [(2, 2, 2, 256, 32, True, True, 64)]
 
 
-@pytest.mark.parametrize("b,h,hkv,s,d,causal,masked,window", MMA_CASES)
-@pytest.mark.parametrize("out", ["float32", "bfloat16"])
-def test_flash_tensor_core_rounding_matches_jax(b, h, hkv, s, d, causal, masked, window, out):
-    """The bf16 kernels' rounding against the JAX package on the same
-    bf16-valued inputs.  ``float32``: JAX computes in fp32 and the emulation
-    keeps fp32 o, dk and dv, held to F32: p and ds as sums of bf16 terms keep
-    fp32-level accuracy (a single bf16 p or ds, 8 bits, would not).
-    ``bfloat16``: JAX's bf16 path against the emulation's outputs rounded to
-    bf16, held to BF16.  Rows with no key give o = 0 exactly."""
+def _mma_case(b, h, hkv, s, d, causal, masked, window, out):
+    """One MMA_CASES case on bf16-valued inputs (the kernels' operands): the
+    JAX package's outputs in ``out`` (o, lse, dq, dk, dv), and what the
+    emulation needs: q, k, v, do as bf16 tensors, the clipped lengths, the
+    spec, and the (b, h, s, d) mask of live rows (do never reads a dead
+    one)."""
     rng = np.random.default_rng(90)
     valid = None
     if window:
@@ -338,9 +352,8 @@ def test_flash_tensor_core_rounding_matches_jax(b, h, hkv, s, d, causal, masked,
         live = np.arange(s)[None, :] <= valid[:, None] + window - 2
     lm = np.broadcast_to(live[:, None, :, None], (b, h, s, d)).astype(np.float32)
     arrays = [_np((b, h, s, d), 91), _np((b, hkv, s, d), 92), _np((b, hkv, s, d), 93),
-              _np((b, h, s, d), 94) * lm]   # do never reads a dead row, as above
+              _np((b, h, s, d), 94) * lm]
     jdt = jnp.float32 if out == "float32" else jnp.bfloat16
-    # bf16-valued inputs: the kernels' operands, given to JAX in jdt
     (jq, q), (jk, k), (jv, v), (jd, do) = (
         (jnp.asarray(a).astype(jnp.bfloat16).astype(jdt),
          torch.from_numpy(np.array(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32)))
@@ -348,21 +361,59 @@ def test_flash_tensor_core_rounding_matches_jax(b, h, hkv, s, d, causal, masked,
     jvalid = None if valid is None else jnp.asarray(valid)
     jo, vjp = jax.vjp(lambda q, k, v: jax_flash(q, k, v, jvalid, causal=causal, window=window,
                                                 backend="xla"), jq, jk, jv)
-    _, jdk, jdv = vjp(jd)
+    jdq, jdk, jdv = vjp(jd)
     _, jlse = _jax_fwd("xla", jq, jk, jv, jvalid, causal=causal, window=window)
-
     spec = FlashSpec(1.0 / d**0.5, causal, window, valid is not None)
     lim = None if valid is None else torch.clamp(torch.from_numpy(valid), 1, s)
+    return (jo, jlse, jdq, jdk, jdv), (q, k, v, do, lim, spec, lm)
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,causal,masked,window", MMA_CASES)
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+def test_flash_tensor_core_rounding_matches_jax(b, h, hkv, s, d, causal, masked, window, out):
+    """The bf16 kernels' rounding against the JAX package on the same
+    bf16-valued inputs.  ``float32``: JAX computes in fp32 and the emulation
+    keeps fp32 o, dq, dk and dv, held to F32: p and ds as sums of bf16 terms
+    keep fp32-level accuracy (a single bf16 p or ds, 8 bits, would not).
+    ``bfloat16``: JAX's bf16 path against the emulation's outputs rounded to
+    bf16, held to BF16.  Rows with no key give o = 0 and dq = 0 exactly."""
+    (jo, jlse, jdq, jdk, jdv), (q, k, v, do, lim, spec, lm) = _mma_case(
+        b, h, hkv, s, d, causal, masked, window, out)
     o, lse = _mma_fwd(q, k, v, lim, spec)
     if out == "bfloat16":
         o = o.to(torch.bfloat16)
-    dk, dv = _mma_dkv(q, k, v, lim, lse, row_dot(o, do), do, spec)
+    di = row_dot(o, do)
+    dq = _mma_dq(q, k, v, lim, lse, di, do, spec)
+    dk, dv = _mma_dkv(q, k, v, lim, lse, di, do, spec)
     tol = F32 if out == "float32" else BF16
     if out == "bfloat16":
-        dk, dv = dk.to(torch.bfloat16), dv.to(torch.bfloat16)
-    assert float(np.abs(_f32(o) * (1 - lm)).max()) == 0.0   # dead rows: o = 0
-    for name, a, r in (("o", o, jo), ("lse", lse, jlse), ("dk", dk, jdk), ("dv", dv, jdv)):
+        dq, dk, dv = (x.to(torch.bfloat16) for x in (dq, dk, dv))
+    for x in (o, dq):   # dead rows: o = 0 and dq = 0
+        assert float(np.abs(_f32(x) * (1 - lm)).max()) == 0.0
+    for name, a, r in (("o", o, jo), ("lse", lse, jlse), ("dq", dq, jdq), ("dk", dk, jdk),
+                       ("dv", dv, jdv)):
         _assert_close(a, r, tol, name)
+
+
+def _dq_term_distances(case, terms=(1, 2, 3)):
+    """For one MMA_CASES case: the emulated fp32 dq with each count of ds
+    terms, as its largest distance from the JAX package's fp32 dq in units
+    of the F32 bound (atol + rtol·|ref|): at most 1 passes."""
+    (_, _, jdq, _, _), (q, k, v, do, lim, spec, _) = _mma_case(*case, "float32")
+    o, lse = _mma_fwd(q, k, v, lim, spec)
+    di, ref = row_dot(o, do), _f32(jdq)
+    return {n: float((np.abs(_f32(_mma_dq(q, k, v, lim, lse, di, do, spec, terms=n)) - ref)
+                      / (F32 + F32 * np.abs(ref))).max()) for n in terms}
+
+
+@pytest.mark.parametrize("case", MMA_CASES)
+def test_flash_one_ds_term_misses_f32_in_dq(case):
+    """One bf16 term of ds (8 bits) is not enough for K4: the emulated fp32
+    dq then leaves F32 of the JAX package's fp32 dq on every case, which the
+    DQ_TERMS of test_flash_tensor_core_rounding_matches_jax meet (dq is the
+    ill-conditioned output: ds = p∘(dp − di) cancels)."""
+    dist = _dq_term_distances(case, terms=(1, DQ_TERMS))
+    assert dist[1] > 1.0 and dist[DQ_TERMS] <= 1.0, dist
 
 
 @pytest.mark.parametrize("seed", range(6))
@@ -391,13 +442,16 @@ def test_flash_alignment_check_on_cpu_tensors():
     """The check the wrappers run before a bf16 tensor-core launch, on CPU
     tensors: the model's transposed (B, S, H, D) view passes; a bf16 view
     whose row start is 2 bytes off, or whose rows are 8 bytes off 16, raises
-    (for q, k, v and do alike); fp32, which the FMA kernels take, does not."""
+    (for q, k, v and do alike); fp32, which the FMA kernels take, does not.
+    Each of the three passes' wrappers (K3, K4, K5) runs it before it
+    reaches the library, so all three raise on such a tensor."""
     spec = FlashSpec(0.125, False, 0, False)
     b, s, h, d = 2, 64, 4, 64
     model = torch.zeros((b, s, h, d), dtype=torch.bfloat16).transpose(1, 2)
     _check(model, model, model, None, spec, aligned=True, do=model)
     off = torch.zeros(model.numel() + 1, dtype=torch.bfloat16)[1:].view(b, h, s, d)
     wide = torch.zeros((b, h, s, d + 4), dtype=torch.bfloat16)[..., :d]
+    rows = torch.zeros((b, h, s))
     for bad in (off, wide):
         for i in range(3):
             args = [model, model, model]
@@ -406,7 +460,14 @@ def test_flash_alignment_check_on_cpu_tensors():
                 _check(*args, None, spec, aligned=True)
         with pytest.raises(ValueError, match="16-byte aligned"):
             _check(model, model, model, None, spec, aligned=True, do=bad)
-        _check(bad, bad, bad, None, spec)   # K4 (the FMA kernel) takes any row start
+        _check(bad, bad, bad, None, spec)   # without aligned: any row start
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            _fwd_cuda(bad, model, model, None, spec)
+        for wrapper in (_dq_cuda, _dkv_cuda):
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                wrapper(bad, model, model, None, rows, rows, model, spec)
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                wrapper(model, model, model, None, rows, rows, bad, spec)
     off32 = torch.zeros(model.numel() + 1)[1:].view(b, h, s, d)
     _check(off32, off32, off32, None, spec, aligned=True)
 

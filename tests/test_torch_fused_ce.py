@@ -271,12 +271,38 @@ def test_fused_ce_one_dlogit_term_misses_f32_grad():
                 and np.allclose(_f32(dw), _f32(jdw), **F32_GRAD))
 
 
-def test_fused_ce_design_rule_on_cpu_tensors():
-    """The rule by which K7 and K8 pick their design, on CPU tensors: bf16
-    whose rows can be copied in 16-byte pieces takes the tensor cores
+class _RecordingLib:
+    """Stands in for the kernel library on CPU tensors: records the design
+    code each entry point is handed (the argument after the dtype code) and
+    launches nothing."""
+
+    def __init__(self):
+        self.designs = {}
+
+    def fused_ce_plan(self, pass_, design, dtype, n, v, d):
+        self.designs[f"plan {pass_}"] = design
+        return 1
+
+    def fused_ce_fwd(self, *args):
+        self.designs["fused_ce_fwd"] = args[11]
+        return 0
+
+    def fused_ce_dh(self, *args):
+        self.designs["fused_ce_dh"] = args[10]
+        return 0
+
+    def fused_ce_dw(self, *args):
+        self.designs["fused_ce_dw"] = args[9]
+        return 0
+
+
+def test_fused_ce_design_rule_on_cpu_tensors(monkeypatch):
+    """The rule by which K6, K7 and K8 pick their design, on CPU tensors:
+    bf16 whose rows can be copied in 16-byte pieces takes the tensor cores
     ("mma"); fp32, bf16 starting 2 bytes past a 16-byte boundary, bf16 rows
     8 bytes apart from a multiple of 16, and bf16 with D not a multiple of 8
-    take the FMA kernels."""
+    take the FMA kernels.  Each wrapper (and K6's and K7's split plan) hands
+    the library the design the rule gives, decided before the launch."""
     check = fused_ce_module._check
     n, d, v = 8, 64, 40
     lbl, row = torch.zeros(n, dtype=torch.int32), torch.zeros(n)
@@ -290,6 +316,25 @@ def test_fused_ce_design_rule_on_cpu_tensors():
     assert check(wide_h, w, lbl) == "fma"
     assert check(h, wide_w, lbl) == "fma"
     assert check(h[:, :60].contiguous(), w[:, :60].contiguous(), lbl) == "fma"
+
+    lib = _RecordingLib()
+    monkeypatch.setattr(fused_ce_module, "_lib", lambda: lib)
+    monkeypatch.setattr(fused_ce_module, "_splits", lambda index, *a: lib.fused_ce_plan(*a))
+    monkeypatch.setattr(fused_ce_module, "_stream", lambda x: None)
+    codes = fused_ce_module._DESIGN_CODES
+    for hh, ww, want in ((h, w, "mma"), (h.float(), w.float(), "fma"), (off, w, "fma"),
+                         (wide_h, w, "fma"), (h, wide_w, "fma")):
+        reset_launches()
+        lib.designs.clear()
+        fused_ce_module._fwd_cuda(hh, ww, lbl)
+        fused_ce_module._dh_cuda(hh, ww, lbl, row, row)
+        fused_ce_module._dw_cuda(hh, ww, lbl, row, row)
+        assert set(lib.designs.values()) == {codes[want]}, (want, lib.designs)
+        assert len(lib.designs) == 5
+        for name in CE_KERNELS:
+            assert fused_ce_module.VARIANT_LAUNCHES[name] == {
+                "mma": int(want == "mma"), "fma": int(want == "fma")}
+    reset_launches()
 
 
 # ---------------------------------------------------------------------------

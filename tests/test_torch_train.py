@@ -12,6 +12,7 @@ from repro.configs.base import TrainConfig as JaxTrainConfig
 from repro.core import warmup_poly_decay as jax_warmup_poly_decay
 from repro.data import synthetic as jax_synthetic
 from repro.models import build_model as jax_build_model
+from repro.train.step import _microbatch_grads as jax_microbatch_grads
 from repro.train.step import make_loss_fn as jax_make_loss_fn
 from repro.train.step import make_train_step as jax_make_train_step
 from repro_torch.configs import bert_large
@@ -122,6 +123,49 @@ def test_bf16_gradients_match_jax_within_bf16_noise():
         scale = np.linalg.norm(ref)
         assert np.linalg.norm(port - ref) <= 1.1 * np.linalg.norm(g16[k] - ref) + 1e-6, k
         assert np.linalg.norm(port - g16[k]) <= 0.15 * scale + 1e-6, k
+
+
+def test_accumulation_without_token_count_matches_jax():
+    """A loss that reports no ``tokens/supervised`` averages its microbatches
+    uniformly, as the JAX package's ``_microbatch_grads`` does, and neither
+    package writes the key into the metrics.  A least-squares loss on the
+    same numpy weights and batch, accumulation 2, at the file's fp32 bounds."""
+    rng = np.random.default_rng(7)
+    w0 = rng.standard_normal((6, 3)).astype(np.float32)
+    b0 = rng.standard_normal((3,)).astype(np.float32)
+    x = rng.standard_normal((8, 6)).astype(np.float32)
+    y = rng.standard_normal((8, 3)).astype(np.float32)
+    x[4:] *= 3.0   # the two microbatches' losses and gradients differ
+
+    def jloss(p, b):
+        err = b["x"] @ p["w"] + p["b"] - b["y"]
+        lo = jnp.mean(err**2)
+        return lo, {"loss/total": lo, "loss/max": jnp.max(jnp.abs(err))}
+
+    def tloss(p, b):
+        err = b["x"] @ p["w"] + p["b"] - b["y"]
+        lo = torch.mean(err**2)
+        return lo, {"loss/total": lo, "loss/max": err.abs().max()}
+
+    jg, jm = jax_microbatch_grads(jloss, {"w": jnp.asarray(w0), "b": jnp.asarray(b0)},
+                                  {"x": jnp.asarray(x), "y": jnp.asarray(y)}, 2)
+    params = {"w": torch.from_numpy(w0).requires_grad_(),
+              "b": torch.from_numpy(b0).requires_grad_()}
+    g, m = _microbatch_grads(tloss, params,
+                             {"x": torch.from_numpy(x), "y": torch.from_numpy(y)}, 2)
+    assert set(m) == set(jm) == {"loss/total", "loss/max"}
+    for k in jm:
+        np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-4, err_msg=k)
+    for k in jg:
+        assert g[k].dtype == torch.float32
+        np.testing.assert_allclose(g[k].numpy(), np.asarray(jg[k]), rtol=1e-4, atol=1e-6,
+                                   err_msg=k)
+    # uniform weights: the plain mean of the two microbatches' gradients
+    halves = [_microbatch_grads(tloss, params, {"x": torch.from_numpy(x[i:i + 4]),
+                                                "y": torch.from_numpy(y[i:i + 4])}, 1)[0]
+              for i in (0, 4)]
+    for k in g:
+        torch.testing.assert_close(g[k], (halves[0][k] + halves[1][k]) / 2)
 
 
 def test_indivisible_accum_raises():
