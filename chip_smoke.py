@@ -11,7 +11,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    parallel); ptxas's registers and spills per kernel;
 3. kernels vs plain: the fused LAMB kernels K1 (``lamb_moments``) and K2
    (``lamb_apply``) against their plain PyTorch version on the same inputs,
-   at BERT-large leaf shapes; the flash-attention kernels K3 (``flash_fwd``),
+   at BERT-large leaf shapes, and with the non-finite guard's flag ``ok``:
+   0 (x, m and v bit-identical, Σ(x'−x)² 0, as in the plain version) and 1
+   (the bits of the call without a flag); the flash-attention kernels K3 (``flash_fwd``),
    K4 (``flash_dq``) and K5 (``flash_dkv``), forward and backward through
    the autograd boundary, against the plain version at the main path's
    shape, at seq 512 and under causal, window, ragged-length, GQA,
@@ -36,12 +38,21 @@ Phases, each of which raises (and so exits non-zero) on failure:
    kernel 2 micro-batches × 6 steps times, every K3–K8 launch on the
    tensor-core kernel and no copy of ``do``; then 3 steps at seq 512
    (batch 32, accum 2) with their own counts;
-6. timing with CUDA events: K1 and K2 over one full BERT-large update, and
-   K3–K8 at the main path's shape and at seq 512, each beside its plain
+6. timing with CUDA events: K1 and K2 over one full BERT-large update
+   (also with the guard's flag), and K3–K8 at the main path's shape and at seq 512, each beside its plain
    version and its bound; ``scaled_dot_product_attention`` (beside K3–K5)
    and the dense head's ``matmul`` + ``cross_entropy`` pair (beside K6–K8)
    are timed as yardsticks only (the port never calls them); bf16 K6, K7
-   and K8 also in their FMA design.
+   and K8 also in their FMA design;
+7. this slice's path at full width: the §4.1 two-stage run
+   (``--mixed-batch``: 4 steps at seq 128 and batch 64, then 2 at seq 512
+   and batch 16 on the same optimizer state) with the non-finite guard on,
+   its counters and launch counts; the guard on the card (a ``grad_nan``
+   step leaves params, moments and counters bit-identical, K1/K2 still
+   launched); and a 4.0 GB checkpoint: written async after 2 steps,
+   restored bit for bit by a fresh trainer with ``--resume``, continued to
+   4 steps bit-equal to an uninterrupted run, with the sync and async save
+   times.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -71,7 +82,22 @@ SEQ512_ARGV = [
     "--precision", "bf16", "--fused-lamb",
     "--steps", str(SEQ512_STEPS), "--log-every", "1",
 ]
+# phase 7: the §4.1 two-stage run (4 steps at seq 128, batch 64, then 2 at
+# seq 512, batch 16, re-warmed) with the guard on, and the 4-step runs of the
+# checkpoint check (a save after 2 steps, a resume to 4)
+STAGES_STEPS = 6
+STAGES_ARGV = [
+    "--arch", "bert-large", "--batch", "64", "--seq", "128", "--accum-steps", "2",
+    "--precision", "bf16", "--fused-lamb", "--mixed-batch", "--skip-nonfinite",
+    "--steps", str(STAGES_STEPS), "--log-every", "1",
+]
+RESUME_ARGV = [
+    "--arch", "bert-large", "--batch", "64", "--seq", "128", "--accum-steps", "2",
+    "--precision", "bf16", "--fused-lamb", "--steps", "4", "--log-every", "1",
+]
 LAYERS, LEAVES, ACCUM = 24, 13, 2
+# a full-width train state: 333,344,768 fp32 parameters × 3 (params, mu, nu)
+STATE_BYTES = 333_344_768 * 4 * 3
 
 # Device-memory rate of the card by name (NVIDIA data sheets), for the bound.
 MEMORY_RATE = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H100": 3.35e12, "H200": 4.8e12}
@@ -279,7 +305,7 @@ def check_kernels(device) -> dict:
         count = torch.tensor(5, dtype=torch.int32, device=device)
         lr = torch.tensor(1e-3, device=device)
         ref = lamb_update(x.clone(), g, m.clone(), v.clone(), count, lr, plain=True, **kw)
-        x0 = x.clone()
+        x0, m0, v0 = x.clone(), m.clone(), v.clone()
         out = lamb_update(x, g, m, v, count, lr, **kw)
         torch.cuda.synchronize()
         em = float((out.m - ref.m).abs().max())
@@ -303,9 +329,37 @@ def check_kernels(device) -> dict:
             raise AssertionError(f"kernel disagrees with the plain version on {name}")
         errs["lamb_moments"] = max(errs["lamb_moments"], em, ev)
         errs["lamb_apply"] = max(errs["lamb_apply"], ex)
-        del x, g, m, v, ref, out, x0, step
+        check_ok_flag(name, x0, g, m0, v0, count, lr, kw)
+        del x, g, m, v, ref, out, x0, m0, v0, step
     torch.cuda.empty_cache()
     return errs
+
+
+def check_ok_flag(name, x, g, m, v, count, lr, kw) -> None:
+    """K1/K2 with the guard's flag: ``ok`` 0 stores nothing (x, m, v equal to
+    the inputs bit for bit, Σ(x'−x)² exactly 0), as the plain version does;
+    ``ok`` 1 gives the bits of the call without a flag.  Raises otherwise."""
+    import torch
+
+    from repro_torch.kernels import lamb_update
+
+    def run(flag, plain=False):
+        ok = None if flag is None else torch.tensor(flag, dtype=torch.int32, device=x.device)
+        return lamb_update(x.clone(), g, m.clone(), v.clone(), count, lr, ok=ok,
+                           plain=plain, **kw)
+
+    skip, skip_plain = run(0), run(0, plain=True)
+    taken, bare = run(1), run(None)
+    torch.cuda.synchronize()
+    skip_ok = all(torch.equal(a, b) for out in (skip, skip_plain)
+                  for a, b in zip((out.x, out.m, out.v), (x, m, v))) \
+        and float(skip.delta_sq) == 0.0 == float(skip_plain.delta_sq)
+    taken_ok = all(torch.equal(a, b) for a, b in zip(
+        (taken.x, taken.m, taken.v, taken.delta_sq), (bare.x, bare.m, bare.v, bare.delta_sq)))
+    log(f"check {name:26s} ok=0: x, m, v unchanged and dsq 0 (kernel and plain) "
+        f"{skip_ok}; ok=1 equal to no flag bit for bit {taken_ok}")
+    if not (skip_ok and taken_ok):
+        raise AssertionError(f"K1/K2 do not honour the ok flag on {name}")
 
 
 def check_flash(device) -> dict:
@@ -641,13 +695,18 @@ def _train(device, argv, steps, label):
         raise AssertionError(f"{label}: launches by design {designs}, want "
                              f"{want_designs}; copies {copies}, want none")
     walls = [h["wall_s"] for h in hist]
-    steady = [b - a for a, b in zip(walls[1:], walls[2:])]  # after two warm-up steps
-    step_s = sum(steady) / len(steady)
-    batch, seq = (int(argv[argv.index(f) + 1]) for f in ("--batch", "--seq"))
     log(f"{label}: losses {[round(h['loss/total'], 4) for h in hist]}")
-    log(f"{label}: first step {walls[0]:.3f} s, steps 3-{steps} "
-        f"{[round(s, 4) for s in steady]} s, mean {step_s * 1e3:.1f} ms/step, "
-        f"{batch * seq / step_s:.0f} tokens/s, peak memory {peak / 2**30:.2f} GiB")
+    if "--mixed-batch" in argv:
+        log(f"{label}: stages {[h['stage'] for h in hist]}, step walls "
+            f"{[round(b - a, 4) for a, b in zip([0.0] + walls, walls)]} s (the first of "
+            f"each stage includes its warm-up), peak memory {peak / 2**30:.2f} GiB")
+    else:
+        steady = [b - a for a, b in zip(walls[1:], walls[2:])]  # after two warm-up steps
+        step_s = sum(steady) / len(steady)
+        batch, seq = (int(argv[argv.index(f) + 1]) for f in ("--batch", "--seq"))
+        log(f"{label}: first step {walls[0]:.3f} s, steps 3-{steps} "
+            f"{[round(s, 4) for s in steady]} s, mean {step_s * 1e3:.1f} ms/step, "
+            f"{batch * seq / step_s:.0f} tokens/s, peak memory {peak / 2**30:.2f} GiB")
     log(f"{label}: launches {launches}")
     log(f"{label}: launches by design {designs}; input copies {copies}")
     return trainer, launches
@@ -687,6 +746,154 @@ def run_main_path(device) -> dict:
     del trainer
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the two-stage recipe, the guard and checkpoints at full width
+# ---------------------------------------------------------------------------
+
+def _state_tensors(state) -> dict:
+    """Every tensor of a TrainState by its checkpoint path."""
+    from repro_torch.checkpoint import tree_leaves_with_paths
+
+    return dict(tree_leaves_with_paths(state))
+
+
+def run_two_stages(device):
+    """``--mixed-batch --skip-nonfinite`` on full-width BERT-large: every loss
+    finite, no step skipped, ``count`` carried over the switch (6),
+    ``sched_count`` restarted (2), ``step`` 6, and the launch counts of 6
+    steps (each stage with accum 2).  Returns the trainer."""
+    trainer, launches = _train(device, STAGES_ARGV, STAGES_STEPS, "two stages")
+    hist, state = trainer.history, trainer.state
+    o = state.opt_state
+    counters = tuple(int(t) for t in (o.count, o.sched_count, state.step, state.skipped))
+    skips = [h["nonfinite/skip"] for h in hist]
+    log(f"two stages: count, sched_count, step, skipped {counters}; nonfinite/skip {skips}; "
+        f"update norms {[round(h['update_norm'], 4) for h in hist]}")
+    if [h["stage"] for h in hist] != [0, 0, 0, 0, 1, 1] or counters != (6, 2, 6, 0) \
+            or any(skips) or [h["step"] for h in hist] != [1, 2, 3, 4, 5, 6]:
+        raise AssertionError("the two-stage run did not carry count, restart sched_count "
+                             "and take every step")
+    return trainer
+
+
+def check_guard(trainer, device) -> None:
+    """A ``grad_nan`` step at full width with the guard on: params, moments,
+    ``count``, ``sched_count`` and ``step`` bit-identical to before, ``skipped``
+    + 1, K1 and K2 still launched once per leaf; the next clean step moves
+    the weights."""
+    import torch
+
+    from repro_torch.data import DataPipeline
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.train import GUARD_KEY, FaultInjector, FaultSpec, make_train_step
+
+    _, step = make_train_step(trainer.model, trainer.tc, lambda t: torch.full(
+        (), 1e-3, device=t.device))
+    data = DataPipeline(trainer.model.cfg, 64, 128, device=device, seed=7)
+    poisoned = FaultInjector([FaultSpec("grad_nan", at=0)]).stamp(next(data), 0)
+    state = trainer.state
+    before = {k: v.clone() for k, v in _state_tensors(state).items()}
+    reset_launches()
+    state, m = step(state, poisoned)
+    torch.cuda.synchronize()
+    k12 = (LAUNCHES["lamb_moments"], LAUNCHES["lamb_apply"])
+    after = _state_tensors(state)
+    changed = [k for k, v in before.items() if k != "skipped" and not torch.equal(v, after[k])]
+    skipped = int(state.skipped) - int(before["skipped"])
+    log(f"guard: grad_nan step: nonfinite/skip {float(m[GUARD_KEY])}, update norm "
+        f"{float(m['update_norm'])}, leaves changed {changed}, skipped +{skipped}, "
+        f"K1/K2 launches {k12}")
+    if changed or skipped != 1 or k12 != (LEAVES, LEAVES) or float(m[GUARD_KEY]) != 1.0:
+        raise AssertionError("the skipped step was not a bit-exact no-op")
+    state, m = step(state, next(data))
+    torch.cuda.synchronize()
+    moved = sum(not torch.equal(v, state.params[k[len("params/"):]])
+                for k, v in before.items() if k.startswith("params/"))
+    log(f"guard: next clean step: nonfinite/skip {float(m[GUARD_KEY])}, loss "
+        f"{float(m['loss/total']):.4f}, update norm {float(m['update_norm']):.4f}, "
+        f"param leaves moved {moved} of {LEAVES}, step {int(state.step)}")
+    if float(m[GUARD_KEY]) != 0.0 or moved == 0 or int(state.step) != int(before["step"]) + 1:
+        raise AssertionError("the clean step after a skip did not move the weights")
+    del before, after
+
+
+def check_checkpoint_resume(device) -> None:
+    """4 uninterrupted steps; then 2 steps with an async checkpoint at step 2,
+    the checkpoint restored bit for bit, a sync save timed, and a fresh
+    trainer resumed to 4 steps: its losses and params equal to the
+    uninterrupted run's.  The checkpoints go to a directory under
+    ``build/``, removed in a ``finally``."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import latest_checkpoint, restore_checkpoint, save_checkpoint
+    from repro_torch.launch.train import build, parse_args
+
+    def run(extra, steps):
+        trainer, data, _ = build(parse_args(RESUME_ARGV + extra))
+        trainer.log = lambda msg: None
+        trainer.fit(data, steps)
+        torch.cuda.synchronize()
+        return trainer
+
+    ref = run([], 4)
+    ref_params = {k: v.cpu() for k, v in ref.state.params.items()}
+    ref_losses = [h["loss/total"] for h in ref.history]
+    del ref
+    torch.cuda.empty_cache()
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=ROOT / "build", prefix="ckpt_"))
+    try:
+        free = shutil.disk_usage(tmp).free
+        ckpt = ["--checkpoint-dir", str(tmp / "run"), "--checkpoint-every", "2",
+                "--async-checkpoint"]
+        first = run(ckpt, 2)
+        # two more saves of the same state: the second snapshot allocates the
+        # other host buffer, the third reuses the first (the steady cost)
+        ck = first.checkpointer
+        ck.save(2, first.state)
+        ck.save(2, first.state)
+        ck.wait()
+        path = latest_checkpoint(str(tmp / "run"))
+        nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+        saved = _state_tensors(first.state)
+        restored = _state_tensors(restore_checkpoint(path, first.state))
+        same = [k for k in saved if torch.equal(saved[k], restored[k])]
+        t0 = time.perf_counter()
+        save_checkpoint(str(tmp / "sync"), 2, first.state)
+        sync_s = time.perf_counter() - t0
+        shutil.rmtree(tmp / "sync")
+        log(f"checkpoint: {len(saved)} leaves, {nbytes} bytes on disk "
+            f"({nbytes / 1e9:.3f} GB; {free / 1e9:.1f} GB free before); sync save "
+            f"{sync_s:.3f} s ({nbytes / sync_s / 1e9:.2f} GB/s)")
+        for n, t in enumerate(ck.timings, 1):
+            log(f"checkpoint: async save {n}: snapshot {t['snapshot_s']:.4f} s on the step "
+                f"loop, blocked {t['blocked_s']:.4f} s on the previous write, device-to-host "
+                f"copies {t['copy_s']:.4f} s on the stream ({nbytes / max(t['copy_s'], 1e-9) / 1e9:.1f} "
+                f"GB/s), writer waited {t['copy_wait_s']:.4f} s for them, write "
+                f"{t['write_s']:.3f} s in the background")
+        log(f"checkpoint: restored leaves equal to the saved state bit for bit: "
+            f"{len(same)} of {len(saved)}")
+        if len(same) != len(saved) or nbytes < STATE_BYTES:
+            raise AssertionError("the restored state differs from the saved one")
+        del first, ck, saved, restored
+        torch.cuda.empty_cache()
+        resumed = run(ckpt + ["--resume"], 4)
+        losses = [h["loss/total"] for h in resumed.history]
+        diff = max(float((v.cpu() - ref_params[k]).abs().max())
+                   for k, v in resumed.state.params.items())
+        log(f"resume: steps {[h['step'] for h in resumed.history]}, losses {losses} against "
+            f"uninterrupted {ref_losses[2:]}; largest |param difference| {diff}")
+        if losses != ref_losses[2:] or diff != 0.0 or int(resumed.state.step) != 4:
+            raise AssertionError("the resumed run is not bit-equal to the uninterrupted one")
+        del resumed
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -739,25 +946,29 @@ def time_kernels(device, rate: float) -> dict:
         leaves.append((x, g, m, v, ratio, layers))
     c = bias_corrections(torch.tensor(5, device=device), 0.9, 0.999, device)
     n = sum(x.numel() for x, *_ in leaves)
+    taken = torch.tensor(1, dtype=torch.int32, device=device)   # the guard's flag
 
-    def moments(plain):
+    def moments(plain, ok=None):
         for x, g, m, v, _, layers in leaves:
-            lamb_moments(x, g, m, v, c, layers, plain=plain)
+            lamb_moments(x, g, m, v, c, layers, ok=ok, plain=plain)
 
-    def apply(plain):
+    def apply(plain, ok=None):
         for x, _, m, v, ratio, layers in leaves:
-            lamb_apply(x, m, v, c, ratio, layers, plain=plain)
+            lamb_apply(x, m, v, c, ratio, layers, ok=ok, plain=plain)
 
     # bytes each function must move: inputs read once, outputs written once
     fp32 = 4
     bytes_ = {"lamb_moments": n * fp32 * (4 + 2), "lamb_apply": n * fp32 * (3 + 1)}
     flops = {"lamb_moments": n * 16, "lamb_apply": n * 9}
     fns = {"lamb_moments": moments, "lamb_apply": apply}
-    # plain, kernel, kernel, plain: the two versions compared within one call
-    times = {name: {"plain": [], "cuda": []} for name in fns}
+    # plain, kernel, kernel with the guard's flag, the same twice more, plain:
+    # the versions compared within one call
+    times = {name: {"plain": [], "cuda": [], "ok": []} for name in fns}
     for name, fn in fns.items():
         for plain in (True, False, False, True):
             times[name]["plain" if plain else "cuda"].append(cuda_ms(lambda: fn(plain)))
+            if not plain:
+                times[name]["ok"].append(cuda_ms(lambda: fn(False, taken)))
     out = {}
     for name in fns:
         t_k = min(times[name]["cuda"])
@@ -766,8 +977,9 @@ def time_kernels(device, rate: float) -> dict:
         bound = max(t_bytes, t_ops) * 1e3
         out[name] = dict(ms=t_k, plain_ms=t_p, bound_ms=bound,
                          bound_by="bytes" if t_bytes >= t_ops else "operations",
-                         library_ms=None)
-        log(f"time {name}: kernel {times[name]['cuda']} ms, plain {times[name]['plain']} ms "
+                         library_ms=None, ok_ms=min(times[name]["ok"]))
+        log(f"time {name}: kernel {times[name]['cuda']} ms, with ok=1 {times[name]['ok']} ms, "
+            f"plain {times[name]['plain']} ms "
             f"over {n} elements in 13 leaves; bound {bound:.3f} ms "
             f"({bytes_[name] / 1e9:.2f} GB at {rate / 1e12:.2f} TB/s); "
             f"{bytes_[name] / (t_k * 1e-3) / 1e12:.2f} TB/s achieved")
@@ -942,6 +1154,11 @@ def main() -> None:
     errs = {**check_kernels(device), **check_flash(device), **check_fused_ce(device)}
     check_against_cpu(device)
     launches = run_main_path(device)
+    trainer = run_two_stages(device)
+    check_guard(trainer, device)
+    del trainer
+    torch.cuda.empty_cache()
+    check_checkpoint_resume(device)
     timing = {**time_kernels(device, rate), **time_flash(device, rate),
               **time_fused_ce(device, rate)}
 

@@ -33,6 +33,13 @@
 // place is safe.  Nothing is allocated here; c (the bias corrections
 // 1/(1-b1^t), 1/(1-b2^t)) and the per-layer ratios come by device pointer,
 // so the caller never waits on the host.
+//
+// The non-finite guard: ok (a device int, or null for "always") says whether
+// the step is taken.  With *ok == 0, K1 still forms m', v' and u and writes
+// its partial sums, but stores neither m nor v, and K2 stores no x and writes
+// zero partials (its loop is skipped), so a skipped step leaves parameters
+// and moments bit-identical with no copy of the state and no host sync.  The
+// flag costs one 4-byte load, the same word for every thread of a block.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -87,11 +94,12 @@ __device__ __forceinline__ void block_sum2(float& a, float& b) {
 template <typename TX, typename TG>
 __global__ void __launch_bounds__(kThreads) lamb_moments_kernel(
     const TX* x, const TG* g, float* m, float* v, const float* c,
-    float* xsq, float* usq, int64_t per_layer, float b1, float one_minus_b1,
-    float b2, float one_minus_b2, float eps, float wd) {
+    const int* ok, float* xsq, float* usq, int64_t per_layer, float b1,
+    float one_minus_b1, float b2, float one_minus_b2, float eps, float wd) {
   const int64_t base = (int64_t)blockIdx.y * per_layer;
   const int64_t start = (int64_t)blockIdx.x * kChunk + threadIdx.x;
   const float c1 = c[0], c2 = c[1];
+  const bool store = ok == nullptr || *ok != 0;
   float sx = 0.f, su = 0.f;
 #pragma unroll 4
   for (int k = 0; k < kItems; ++k) {
@@ -102,8 +110,10 @@ __global__ void __launch_bounds__(kThreads) lamb_moments_kernel(
       const float gi = load_f32(g, i);
       const float mi = b1 * m[i] + one_minus_b1 * gi;
       const float vi = b2 * v[i] + one_minus_b2 * gi * gi;
-      m[i] = mi;
-      v[i] = vi;
+      if (store) {
+        m[i] = mi;
+        v[i] = vi;
+      }
       const float u = (mi * c1) / (sqrtf(vi * c2) + eps) + wd * xi;
       sx += xi * xi;
       su += u * u;
@@ -120,7 +130,11 @@ __global__ void __launch_bounds__(kThreads) lamb_moments_kernel(
 template <typename TX>
 __global__ void __launch_bounds__(kThreads) lamb_apply_kernel(
     TX* x, const float* m, const float* v, const float* c, const float* ratio,
-    float* dsq, int64_t per_layer, float eps, float wd) {
+    const int* ok, float* dsq, int64_t per_layer, float eps, float wd) {
+  if (ok != nullptr && *ok == 0) {   // skipped step: x untouched, no update
+    if (threadIdx.x == 0) dsq[(int64_t)blockIdx.y * gridDim.x + blockIdx.x] = 0.f;
+    return;
+  }
   const int64_t base = (int64_t)blockIdx.y * per_layer;
   const int64_t start = (int64_t)blockIdx.x * kChunk + threadIdx.x;
   const float c1 = c[0], c2 = c[1];
@@ -145,12 +159,12 @@ __global__ void __launch_bounds__(kThreads) lamb_apply_kernel(
 
 template <typename TX, typename TG>
 void launch_moments(const void* x, const void* g, float* m, float* v,
-                    const float* c, float* xsq, float* usq, int64_t layers,
+                    const float* c, const int* ok, float* xsq, float* usq, int64_t layers,
                     int64_t per_layer, float b1, float omb1, float b2,
                     float omb2, float eps, float wd, cudaStream_t stream) {
   const dim3 grid((unsigned)((per_layer + kChunk - 1) / kChunk), (unsigned)layers);
   lamb_moments_kernel<TX, TG><<<grid, kThreads, 0, stream>>>(
-      static_cast<const TX*>(x), static_cast<const TG*>(g), m, v, c, xsq, usq,
+      static_cast<const TX*>(x), static_cast<const TG*>(g), m, v, c, ok, xsq, usq,
       per_layer, b1, omb1, b2, omb2, eps, wd);
 }
 
@@ -162,10 +176,11 @@ extern "C" {
 // sizes the (layers, ceil(P / chunk)) partial-sum buffers with it.
 int lamb_chunk_elems() { return kChunk; }
 
-// dtype codes: 0 = float32, 1 = bfloat16.  m, v are always float32.
+// dtype codes: 0 = float32, 1 = bfloat16.  m, v are always float32.  ok is
+// a device int (the step is taken unless it is 0) or null (always taken).
 // Returns cudaGetLastError() after the launch (0 = launched).
 int lamb_moments(const void* x, int x_dtype, const void* g, int g_dtype,
-                 float* m, float* v, const float* c, float* xsq, float* usq,
+                 float* m, float* v, const float* c, const int* ok, float* xsq, float* usq,
                  int64_t layers, int64_t per_layer, double b1, double b2,
                  double eps, double wd, void* stream) {
   if (layers < 1 || layers > 65535 || per_layer < 1) return (int)cudaErrorInvalidValue;
@@ -173,30 +188,30 @@ int lamb_moments(const void* x, int x_dtype, const void* g, int g_dtype,
   const float fb2 = (float)b2, omb2 = (float)(1.0 - b2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_dtype == 0 && g_dtype == 0)
-    launch_moments<float, float>(x, g, m, v, c, xsq, usq, layers, per_layer, fb1, omb1, fb2, omb2, (float)eps, (float)wd, s);
+    launch_moments<float, float>(x, g, m, v, c, ok, xsq, usq, layers, per_layer, fb1, omb1, fb2, omb2, (float)eps, (float)wd, s);
   else if (x_dtype == 1 && g_dtype == 0)
-    launch_moments<__nv_bfloat16, float>(x, g, m, v, c, xsq, usq, layers, per_layer, fb1, omb1, fb2, omb2, (float)eps, (float)wd, s);
+    launch_moments<__nv_bfloat16, float>(x, g, m, v, c, ok, xsq, usq, layers, per_layer, fb1, omb1, fb2, omb2, (float)eps, (float)wd, s);
   else if (x_dtype == 0 && g_dtype == 1)
-    launch_moments<float, __nv_bfloat16>(x, g, m, v, c, xsq, usq, layers, per_layer, fb1, omb1, fb2, omb2, (float)eps, (float)wd, s);
+    launch_moments<float, __nv_bfloat16>(x, g, m, v, c, ok, xsq, usq, layers, per_layer, fb1, omb1, fb2, omb2, (float)eps, (float)wd, s);
   else if (x_dtype == 1 && g_dtype == 1)
-    launch_moments<__nv_bfloat16, __nv_bfloat16>(x, g, m, v, c, xsq, usq, layers, per_layer, fb1, omb1, fb2, omb2, (float)eps, (float)wd, s);
+    launch_moments<__nv_bfloat16, __nv_bfloat16>(x, g, m, v, c, ok, xsq, usq, layers, per_layer, fb1, omb1, fb2, omb2, (float)eps, (float)wd, s);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
 int lamb_apply(void* x, int x_dtype, const float* m, const float* v,
-               const float* c, const float* ratio, float* dsq, int64_t layers,
+               const float* c, const float* ratio, const int* ok, float* dsq, int64_t layers,
                int64_t per_layer, double eps, double wd, void* stream) {
   if (layers < 1 || layers > 65535 || per_layer < 1) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((per_layer + kChunk - 1) / kChunk), (unsigned)layers);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_dtype == 0)
     lamb_apply_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<float*>(x), m, v, c, ratio, dsq, per_layer, (float)eps, (float)wd);
+        static_cast<float*>(x), m, v, c, ratio, ok, dsq, per_layer, (float)eps, (float)wd);
   else if (x_dtype == 1)
     lamb_apply_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<__nv_bfloat16*>(x), m, v, c, ratio, dsq, per_layer, (float)eps, (float)wd);
+        static_cast<__nv_bfloat16*>(x), m, v, c, ratio, ok, dsq, per_layer, (float)eps, (float)wd);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -3,11 +3,12 @@ layout (ports of the fused-LAMB and ``flash_sdpa`` parts of
 ``repro.kernels.ops``).
 
 The state and the order of a step are the JAX package's:
-clip by global norm → ``count += 1`` → ``lr_t = schedule(sched_count)``
-(the old ``sched_count``) → apply → ``sched_count += 1``.  Everything stays
+clip by global norm → ``count += ok`` → ``lr_t = schedule(sched_count)``
+(the old ``sched_count``) → apply → ``sched_count += ok``.  Everything stays
 on the device and updates in place: params, moments and both counters.
-The non-finite guard (``ok``) and the per-layer ratio aux (``with_aux``) are
-not ported yet (ROADMAP.md queue 1, items 5–6).
+``ok`` is the train step's non-finite guard (1 when there is none): the
+reference where-selects old against new after its apply, while here the
+flag reaches K1/K2 as a device int, so a skipped step stores nothing.
 """
 from __future__ import annotations
 
@@ -75,14 +76,22 @@ def fused_lamb_apply(
     trust_mask: Optional[Dict[str, bool]] = None,
     layer_axes: Optional[Dict[str, int]] = None,
     phi_bounds: Optional[Tuple[float, float]] = None,
-) -> torch.Tensor:
+    ok: Optional[torch.Tensor] = None,
+    with_aux: bool = False,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, Tensors]]:
     """One fused LAMB step over every leaf, in place on params, mu and nu.
 
     ``count`` is the 1-based step for bias correction and ``lr_t`` the
-    learning rate, both device scalars.  Returns Σ(x'−x)² over all leaves
-    (fp32 device scalar): the squared update norm, taken inside the kernels.
+    learning rate, both device scalars.  ``ok`` (a bool or int device
+    scalar, or None) is the non-finite guard: where it is false, no leaf is
+    written.  Returns Σ(x'−x)² over all leaves (fp32 device scalar): the
+    squared update norm, taken inside the kernels (0 on a skipped step).
+    With ``with_aux``, also ``{path: ratio}``: each leaf's applied trust
+    ratio before the lr fold ((layers,) for a stacked leaf, else a scalar).
     """
     total = torch.zeros((), dtype=torch.float32, device=count.device)
+    flag = None if ok is None else ok.to(torch.int32)
+    ratios: Tensors = {}
     for k, x in params.items():
         axis = 0 if (layer_axes or {}).get(k, -1) == 0 else None
         out = lamb_update(
@@ -92,9 +101,12 @@ def fused_lamb_apply(
             phi_hi=None if phi_bounds is None else phi_bounds[1],
             layer_axis=axis,
             apply_trust=bool((trust_mask or {}).get(k, True)),
+            ok=flag,
         )
         total = total + out.delta_sq
-    return total
+        if with_aux:
+            ratios[k] = out.ratio
+    return (total, ratios) if with_aux else total
 
 
 def make_fused_lamb_step(
@@ -109,30 +121,39 @@ def make_fused_lamb_step(
     layer_axes: Optional[Dict[str, int]] = None,
     phi_bounds: Optional[Tuple[float, float]] = None,
     grad_clip_norm: Optional[float] = None,
+    with_aux: bool = False,
 ):
-    """``step(params, grads, state) -> Σ(x'−x)²``, updating all three in place.
+    """``step(params, grads, state, ok=None) -> Σ(x'−x)²``, updating all three
+    in place (with ``with_aux``: ``(Σ(x'−x)², ratios)``, see
+    :func:`fused_lamb_apply`).
 
-    ``grads`` are clipped in place too.  The order of the JAX package's
+    ``grads`` are clipped in place too (a non-finite gradient clips to NaN,
+    harmlessly: a step with such gradients is skipped).  ``ok`` (bool or
+    int32 device scalar) is the train step's non-finite guard: when false
+    no leaf is written and *neither counter advances*.  The order of the JAX package's
     ``make_fused_lamb_step`` is kept exactly.
     """
 
-    def step(params: Tensors, grads: Tensors, state: FusedLambState) -> torch.Tensor:
+    def step(params: Tensors, grads: Tensors, state: FusedLambState,
+             ok: Optional[torch.Tensor] = None):
         if grad_clip_norm is not None:
             clip_tree_by_global_norm(grads, grad_clip_norm)
-        state.count.add_(1)
+        adv = 1 if ok is None else ok.to(state.count.dtype)
+        state.count.add_(adv)
         if callable(learning_rate):
             lr_t = learning_rate(state.sched_count)
         else:
             lr_t = torch.tensor(learning_rate, dtype=torch.float32,
                                 device=state.count.device)
-        delta_sq = fused_lamb_apply(
+        out = fused_lamb_apply(
             params, grads, state.mu, state.nu, state.count, lr_t,
             b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
             wd_mask=wd_mask, trust_mask=trust_mask, layer_axes=layer_axes,
-            phi_bounds=phi_bounds,
+            phi_bounds=phi_bounds, ok=None if ok is None else adv,
+            with_aux=with_aux,
         )
-        state.sched_count.add_(1)
-        return delta_sq
+        state.sched_count.add_(adv)
+        return out
 
     return step
 

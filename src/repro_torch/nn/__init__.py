@@ -1,4 +1,9 @@
-from repro_torch.nn.bridge import params_from_jax, state_from_jax
+from repro_torch.nn.bridge import (
+    params_from_jax,
+    state_from_jax,
+    train_state_from_jax,
+    train_state_to_numpy,
+)
 from repro_torch.nn.module import (
     LAYERS_AXIS,
     Param,
@@ -27,6 +32,8 @@ __all__ = [
     "stack",
     "state_from_jax",
     "torch_dtype",
+    "train_state_from_jax",
+    "train_state_to_numpy",
     "trust_ratio_mask",
     "weight_decay_mask",
 ]

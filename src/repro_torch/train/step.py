@@ -1,15 +1,15 @@
 """Train step: token-weighted accumulation, bf16 compute on fp32 masters,
-fused LAMB applied in place (port of the fused-direct path of
-``repro.train.step.make_train_step``).
+fused LAMB applied in place, and the non-finite guard (port of the
+fused-direct path of ``repro.train.step.make_train_step``).
 
 Only ``optimizer="lamb"`` with ``use_fused_lamb`` is ported; the unfused
-optimizers, the non-finite guard and the trust-ratio telemetry raise
-(ROADMAP.md queue 1, items 5–8).
+optimizers and the trust-ratio telemetry raise (ROADMAP.md queue 1, items
+5 and 8).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -18,11 +18,18 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.kernels import FusedLambState, fused_lamb_init, make_fused_lamb_step
 from repro_torch.models.api import Model
 from repro_torch.optim.base import global_norm
+from repro_torch.train.faults import apply_grad_faults, apply_loss_faults, split_faults
 from repro_torch.train.loss import check_fused_ce_supported, loss_for
 
 # Metric key carrying each microbatch's supervised-token count; drives the
 # token-weighted accumulation.
 TOKEN_WEIGHT_KEY = "tokens/supervised"
+
+# Metric key the non-finite guard reports under: 1.0 when the step was
+# skipped (state left as it was), 0.0 otherwise.  Only present with
+# ``tc.skip_nonfinite``.
+GUARD_KEY = "nonfinite/skip"
+
 LOSS_KEY = "loss/total"
 
 Metrics = Dict[str, torch.Tensor]
@@ -30,9 +37,44 @@ Metrics = Dict[str, torch.Tensor]
 
 @dataclasses.dataclass
 class TrainState:
+    """Params, optimizer state and two int32 device counters.
+
+    ``step`` counts the steps taken; ``skipped`` the non-finite guard's
+    skips, persisted with a checkpoint so a resume can fast-forward the
+    data by ``step + skipped`` batches (a skipped step consumed a batch
+    without advancing ``step``).  Both default to 0 on the params' device.
+    """
+
     params: nn.Params
     opt_state: FusedLambState
-    step: int = 0
+    step: Optional[torch.Tensor] = None
+    skipped: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        device = next(iter(self.params.values())).device
+        for name in ("step", "skipped"):
+            value = getattr(self, name)
+            if not isinstance(value, torch.Tensor):
+                setattr(self, name, torch.tensor(value or 0, dtype=torch.int32,
+                                                 device=device))
+
+
+def tree_all_finite(tree: Dict[str, torch.Tensor], *extra: Optional[torch.Tensor]
+                    ) -> torch.Tensor:
+    """Bool device scalar: every element of every leaf (and of ``extra``) is
+    finite.  Integer leaves are finite by definition.
+
+    One ``aminmax`` per floating leaf (reads it once and writes two values:
+    NaN propagates into both, ±inf shows in one), then one check over the
+    stacked extremes; no host sync.
+    """
+    leaves = [x for x in list(tree.values()) + [x for x in extra if x is not None]
+              if x.is_floating_point()]
+    if not leaves:
+        device = next(iter(tree.values())).device if tree else None
+        return torch.ones((), dtype=torch.bool, device=device)
+    ends = [v.to(torch.float32) for x in leaves for v in torch.aminmax(x.detach())]
+    return torch.isfinite(torch.stack(ends)).all()
 
 
 def check_train_config(tc: TrainConfig) -> None:
@@ -47,11 +89,10 @@ def check_train_config(tc: TrainConfig) -> None:
             "fused LAMB supports bias-corrected fp32 moments only; "
             "unset use_fused_lamb or bias_correction/moment_dtype"
         )
-    for flag, item in (("skip_nonfinite", 6), ("log_trust_ratios", 8),
-                       ("record_trust_ratios", 8)):
+    for flag in ("log_trust_ratios", "record_trust_ratios"):
         if getattr(tc, flag):
             raise NotImplementedError(
-                f"{flag} is not ported (ROADMAP.md queue 1, item {item})"
+                f"{flag} is not ported (ROADMAP.md queue 1, item 8)"
             )
 
 
@@ -140,7 +181,12 @@ def make_train_step(model: Model, tc: TrainConfig, schedule=None):
     ``step_fn`` consumes the global batch and slices it into
     ``tc.grad_accum_steps`` microbatches; the fp32 masters are cast to the
     compute dtype once per step, and the fused LAMB update then runs in
-    place on the masters and moments.
+    place on the masters and moments.  Fault channels (``fault/*`` leaves,
+    see :mod:`repro_torch.train.faults`) are popped before the loss and
+    applied to the accumulated gradients.  With ``tc.skip_nonfinite`` the
+    verdict of :func:`tree_all_finite` over every gradient and the loss goes
+    into the update as a device flag: a non-finite step writes no param,
+    moment or counter, ``skipped`` goes up by one and ``step`` does not.
     """
     check_train_config(tc)
     loss_fn = make_loss_fn(model)
@@ -154,11 +200,14 @@ def make_train_step(model: Model, tc: TrainConfig, schedule=None):
         grad_clip_norm=tc.grad_clip_norm,
     )
 
+    guard = tc.skip_nonfinite
+
     def init_fn(seed: int, device: torch.device) -> TrainState:
         params = model.init(seed, device)
-        return TrainState(params, fused_lamb_init(params), 0)
+        return TrainState(params, fused_lamb_init(params))
 
     def step_fn(state: TrainState, batch) -> Tuple[TrainState, Metrics]:
+        batch, faults = split_faults(batch)
         # the one cast of the masters per step; gradients are taken against
         # this copy and accumulate in fp32
         with torch.no_grad():
@@ -167,10 +216,19 @@ def make_train_step(model: Model, tc: TrainConfig, schedule=None):
         params = {k: v.detach().requires_grad_(True) for k, v in params.items()}
         grads, metrics = _microbatch_grads(loss_fn, params, batch, n_micro)
         del params
+        grads = apply_grad_faults(grads, faults)
+        metrics = apply_loss_faults(metrics, faults)
         metrics["grad_norm"] = global_norm(grads)
-        delta_sq = fused_step(state.params, grads, state.opt_state)
+        # the verdict before the update clips the gradients in place
+        adv = tree_all_finite(grads, metrics.get(LOSS_KEY)).to(torch.int32) if guard else None
+        delta_sq = fused_step(state.params, grads, state.opt_state, ok=adv)
         metrics["update_norm"] = torch.sqrt(delta_sq)
-        state.step += 1
+        if guard:
+            metrics[GUARD_KEY] = 1.0 - adv.to(torch.float32)
+            state.step.add_(adv)
+            state.skipped.add_(1 - adv)
+        else:
+            state.step.add_(1)
         return state, metrics
 
     return init_fn, step_fn

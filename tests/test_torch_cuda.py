@@ -61,6 +61,41 @@ def test_lamb_kernels_reject_what_they_cannot_take(cuda):
         lamb_update(x.t(), g.t(), m.t(), v.t(), 1, 0.1)
     with pytest.raises(TypeError):
         lamb_update(x.half(), g, m, v, 1, 0.1)
+    with pytest.raises(ValueError, match="ok"):
+        lamb_update(x, g, m, v, 1, 0.1, ok=torch.tensor(1, device=cuda))   # int64
+
+
+@pytest.mark.parametrize("shape,axis", [((1000,), None), ((3, 4099), 0)])
+@pytest.mark.parametrize("xdt,gdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16)])
+def test_lamb_kernels_ok_flag_on_card(cuda, shape, axis, xdt, gdt):
+    """K1/K2 with ``ok`` 0 store nothing (x, m, v bit-identical, Σ(x'−x)² 0),
+    as the plain version does; with ``ok`` 1 they give the bits of the call
+    without a flag.  Both launch once either way."""
+    x, g, m, v = _inputs(shape, xdt, gdt, cuda, seed=1)
+    kw = dict(layer_axis=axis, weight_decay=0.01)
+    step, lr = torch.tensor(3, device=cuda), torch.tensor(0.01, device=cuda)
+    for flag in (0, 1):
+        ok = torch.tensor(flag, dtype=torch.int32, device=cuda)
+        ins = [t.clone() for t in (x, m, v)]
+        reset_launches()
+        out = lamb_update(ins[0], g, ins[1], ins[2], step, lr, ok=ok, **kw)
+        torch.cuda.synchronize()
+        assert (LAUNCHES["lamb_moments"], LAUNCHES["lamb_apply"]) == (1, 1)
+        plain = [t.clone() for t in (x, m, v)]
+        ref = lamb_update(plain[0], g, plain[1], plain[2], step, lr, ok=ok, plain=True, **kw)
+        if flag == 0:
+            for a, b in zip((out.x, out.m, out.v), (x, m, v)):
+                assert torch.equal(a, b)
+            assert float(out.delta_sq) == 0.0 == float(ref.delta_sq)
+            for a, b in zip((ref.x, ref.m, ref.v), (x, m, v)):
+                assert torch.equal(a, b)
+        else:
+            bare = [t.clone() for t in (x, m, v)]
+            want = lamb_update(bare[0], g, bare[1], bare[2], step, lr, **kw)
+            for a, b in zip((out.x, out.m, out.v, out.delta_sq), (want.x, want.m, want.v,
+                                                                   want.delta_sq)):
+                assert torch.equal(a, b)
 
 
 # (b, h, hkv, s, t, d, causal, window, masked): the mask, GQA, cross-length,

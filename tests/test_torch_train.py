@@ -207,7 +207,7 @@ def test_launcher_flash_smoke_runs_to_done(capsys, monkeypatch):
 
 @pytest.mark.parametrize("extra", [
     ["--log-trust-ratios"], ["--optimizer", "adamw"], ["--mesh", "data=4"],
-    ["--checkpoint-dir", "ckpt"], ["--telemetry-dir", "runs"], ["--skip-nonfinite"],
+    ["--rollback-on-spike"], ["--telemetry-dir", "runs"], ["--optimizer", "lans"],
 ])
 def test_launcher_unported_options_raise(extra):
     argv = SMOKE + ["--device", "cpu"]
@@ -215,6 +215,28 @@ def test_launcher_unported_options_raise(extra):
         argv.remove("--fused-lamb")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         launch_train.main(argv + extra)
+
+
+def test_launcher_skip_nonfinite_runs_to_done(capsys):
+    trainer = launch_train.main(SMOKE + ["--skip-nonfinite", "--device", "cpu",
+                                         "--log-every", "1"])
+    out = capsys.readouterr().out
+    assert "done: step=2 " in out and "status=ok" in out
+    assert [(h["nonfinite/skip"], h["skipped_total"]) for h in trainer.history] == [(0.0, 0)] * 2
+
+
+def test_launcher_checkpoint_and_resume_run_to_done(tmp_path, capsys):
+    ckpt = ["--checkpoint-dir", str(tmp_path), "--checkpoint-every", "2", "--device", "cpu"]
+    launch_train.main(SMOKE + ckpt)
+    assert capsys.readouterr().out.count("done: step=2 ") == 1
+    argv = [a if a != "2" else "3" for a in SMOKE]   # --steps 3
+    trainer = launch_train.main(argv + ckpt + ["--resume", "--async-checkpoint",
+                                               "--log-every", "1"])
+    out = capsys.readouterr().out
+    assert "resumed step 2" in out and "done: step=3 " in out and "status=ok" in out
+    assert len(trainer.history) == 1 and int(trainer.state.step) == 3
+    with pytest.raises(SystemExit, match="--resume requires --checkpoint-dir"):
+        launch_train.main(SMOKE + ["--resume", "--device", "cpu"])
 
 
 def test_launcher_without_device_raises_when_there_is_no_card(monkeypatch):
