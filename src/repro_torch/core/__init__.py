@@ -1,3 +1,6 @@
+from repro_torch.core.lamb import lamb
+from repro_torch.core.lans import lans, normalize_grads, scale_by_lans
+from repro_torch.core.lars import lars
 from repro_torch.core.mixed_batch import (
     Stage,
     bert_mixed_batch_plan,
@@ -16,6 +19,19 @@ from repro_torch.core.schedules import (
     untuned_lamb_schedule,
     warmup_poly_decay,
 )
+from repro_torch.core.nlamb import nlamb, nnlamb
+from repro_torch.core.trust_ratio import (
+    summarize_trust_ratios,
+    trust_ratio_tree,
+    trust_records,
+)
+# after the submodule of the same name, so ``core.trust_ratio`` is the function
+from repro_torch.core.strategy import (
+    layerwise_adapt,
+    layerwise_adaptation,
+    phi_clip,
+    trust_ratio,
+)
 
 __all__ = [
     "Stage",
@@ -23,13 +39,27 @@ __all__ = [
     "bert_mixed_batch_plan",
     "constant",
     "goyal_step_schedule",
+    "lamb",
+    "lans",
+    "lars",
+    "layerwise_adapt",
+    "layerwise_adaptation",
     "linear_epoch_warmup_ratio",
     "linear_warmup",
     "make_stage",
+    "nlamb",
+    "nnlamb",
+    "normalize_grads",
+    "phi_clip",
     "piecewise_stage_schedule",
     "polynomial_decay",
+    "scale_by_lans",
     "scaled_plan",
     "sqrt_scaled_lr",
+    "summarize_trust_ratios",
+    "trust_ratio",
+    "trust_ratio_tree",
+    "trust_records",
     "untuned_lamb_schedule",
     "warmup_poly_decay",
 ]

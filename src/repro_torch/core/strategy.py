@@ -1,0 +1,111 @@
+"""The paper's §3 general layerwise adaptation strategy as a transform
+(port of ``repro.core.strategy``).
+
+Given a base optimizer's direction ``u_t``, each layer's update becomes
+
+    x_{t+1}^(i) = x_t^(i) - eta * phi(||x_t^(i)||) / ||u_t^(i)|| * u_t^(i)
+
+with ``phi(z) = clip(z, gamma_l, gamma_u)``: LARS (Algorithm 1) over
+momentum, LAMB (Algorithm 2) over Adam with weight decay.  As in the
+reference, the ratio is 1 where either norm is 0, ``trust_mask`` exempts
+leaves (norm scales and biases), and a stacked ``(layers, ...)`` leaf,
+marked by its axis in ``layer_axes``, gets one ratio per layer slice.
+Every norm is reduced in fp32.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.optim.base import EmptyState, GradientTransformation, Tensors, chain
+
+_ORDS = {"l2": 2, "l1": 1, "linf": math.inf}
+
+
+def layer_axis(layer_axes: Optional[Dict[str, Optional[int]]], path: str) -> int:
+    """The stacked-layers axis of leaf ``path``; -1 when it has none."""
+    axis = (layer_axes or {}).get(path)
+    return -1 if axis is None else axis
+
+
+def phi_clip(z: torch.Tensor, bounds: Optional[Tuple[float, float]]) -> torch.Tensor:
+    """phi(z) = min(max(z, gamma_l), gamma_u); identity when bounds is None."""
+    if bounds is None:
+        return z
+    return torch.clamp(z, bounds[0], bounds[1])
+
+
+def _slice_norm(x: torch.Tensor, layer_axis: Optional[int], ord: str = "l2") -> torch.Tensor:
+    """fp32 norm over every axis but the stacked-layers one (kept, so the
+    result broadcasts against ``x``); over all axes to a scalar when
+    ``layer_axis`` is None or negative.  App. F's l1 / l2 / linf."""
+    if layer_axis is None or layer_axis < 0:
+        return torch.linalg.vector_norm(x, _ORDS[ord], dtype=torch.float32)
+    dims = tuple(i for i in range(x.ndim) if i != layer_axis)
+    if not dims:   # a (layers,) leaf: the norm of one element
+        return x.to(torch.float32).abs()
+    return torch.linalg.vector_norm(x, _ORDS[ord], dim=dims, keepdim=True,
+                                    dtype=torch.float32)
+
+
+def trust_ratio(
+    param: torch.Tensor,
+    update: torch.Tensor,
+    *,
+    layer_axis: Optional[int] = None,
+    phi_bounds: Optional[Tuple[float, float]] = None,
+    eps: float = 0.0,
+    norm_ord: str = "l2",
+) -> torch.Tensor:
+    """phi(||x||)/(||u|| + eps), 1 where either norm is 0: a scalar, or one
+    ratio per layer slice (broadcastable) with ``layer_axis``."""
+    w_norm = phi_clip(_slice_norm(param, layer_axis, norm_ord), phi_bounds)
+    u_norm = _slice_norm(update, layer_axis, norm_ord)
+    safe = w_norm / (u_norm + eps)
+    return torch.where(w_norm > 0, torch.where(u_norm > 0, safe, 1.0), 1.0)
+
+
+def layerwise_adaptation(
+    *,
+    phi_bounds: Optional[Tuple[float, float]] = None,
+    trust_mask: Optional[Dict[str, bool]] = None,
+    layer_axes: Optional[Dict[str, Optional[int]]] = None,
+    eps: float = 0.0,
+    norm_ord: str = "l2",
+) -> GradientTransformation:
+    """Stateless transform: each masked-in leaf's update rescaled to norm
+    ``phi(||x||)`` per layer slice (multiply by −lr downstream for
+    Algorithm 2's step); a masked-out leaf passes through.  Needs params."""
+
+    def init(params):
+        return EmptyState()
+
+    def update(updates: Tensors, state, params: Optional[Tensors] = None):
+        if params is None:
+            raise ValueError("layerwise_adaptation requires params")
+        new = {}
+        for k, u in updates.items():
+            if trust_mask is not None and not trust_mask[k]:
+                new[k] = u
+                continue
+            r = trust_ratio(params[k], u, layer_axis=layer_axis(layer_axes, k),
+                            phi_bounds=phi_bounds, eps=eps, norm_ord=norm_ord)
+            new[k] = (r * u.to(torch.float32)).to(u.dtype)
+        return new, state
+
+    return GradientTransformation(init, update)
+
+
+def layerwise_adapt(
+    base: GradientTransformation,
+    *,
+    phi_bounds: Optional[Tuple[float, float]] = None,
+    trust_mask: Optional[Dict[str, bool]] = None,
+    layer_axes: Optional[Dict[str, Optional[int]]] = None,
+) -> GradientTransformation:
+    """The paper's general strategy around any base optimizer; the learning
+    rate goes after it (the wrapper normalizes whatever the base gives)."""
+    return chain(base, layerwise_adaptation(phi_bounds=phi_bounds, trust_mask=trust_mask,
+                                            layer_axes=layer_axes))

@@ -10,6 +10,7 @@ from repro_torch.kernels.launches import COPIES, LAUNCHES, VARIANT_LAUNCHES, res
 from repro_torch.kernels.ops import (
     FusedLambState,
     flash_sdpa,
+    fused_lamb,
     fused_lamb_apply,
     fused_lamb_init,
     make_fused_lamb_step,
@@ -22,6 +23,7 @@ __all__ = [
     "LambOut",
     "flash_sdpa",
     "fused_ce",
+    "fused_lamb",
     "fused_lamb_apply",
     "fused_lamb_init",
     "lamb_apply",

@@ -5,7 +5,9 @@
 Takes the flags of :mod:`repro_torch.launch.train` (default: the BERT-large
 bf16 fused-LAMB, flash-attention, fused-CE path with batch 64 × seq 128,
 accum 2; ``--no-flash`` profiles the dense attention instead,
-``--no-fused-ce`` the dense MLM head), runs two warm-up steps, then one step
+``--no-fused-ce`` the dense MLM head; ``--optimizer NAME`` the step with
+that optimizer's transform chain, and ``--optimizer lamb --fused-lamb``
+the fused path again), runs two warm-up steps, then one step
 under ``torch.profiler`` and five timed with CUDA events, all on batches
 made beforehand (the host's batch generation is timed on its own).  Prints
 the step time, the device's idle share, the peak device memory over the
@@ -50,7 +52,9 @@ def _group(name: str) -> str:
 
 
 def main(argv: Optional[List[str]] = None) -> None:
-    args = parse_args(DEFAULT_ARGV + list(sys.argv[1:] if argv is None else argv))
+    argv = list(sys.argv[1:] if argv is None else argv)
+    default = [a for a in DEFAULT_ARGV if a != "--fused-lamb" or "--optimizer" not in argv]
+    args = parse_args(default + argv)
     trainer, data, cfg = build(args)
     trainer.log = lambda msg: None
     trainer.init()  # weights and the CUDA context before anything is timed

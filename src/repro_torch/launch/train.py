@@ -3,23 +3,28 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch bert-large \
         --batch 64 --seq 128 --accum-steps 2 --precision bf16 \
         --fused-lamb --steps 6 [--device cpu] [--smoke] \
-        [--mixed-batch] [--skip-nonfinite] \
+        [--optimizer {lamb,lans,lars,nlamb,nnlamb,adam,adamw,adagrad,momentum}] \
+        [--log-trust-ratios] [--mixed-batch] [--skip-nonfinite] \
         [--checkpoint-dir DIR --checkpoint-every N [--async-checkpoint] [--resume]]
 
 LAMB pretraining of BERT-large (masked LM on synthetic data), the fused
 LAMB update, flash attention and the fused CE head running as CUDA kernels
 (``--no-flash`` takes the dense attention instead, ``--no-fused-ce`` the
-dense MLM head).  ``--mixed-batch`` runs the §4.1 two-stage recipe: 80% of
-the steps at ``--seq`` and ``--batch``, the rest at 4 × seq and batch / 4
-with a re-warmed learning rate on the same optimizer state.
+dense MLM head).  ``--optimizer`` picks the update rule (default ``lamb``):
+``--fused-lamb`` runs LAMB on the fused kernels, else every optimizer runs
+as a transform chain (``train/step.make_optimizer``).
+``--log-trust-ratios`` adds the trust ratios' min, max and mean over the
+layers to each step's history row.  ``--mixed-batch`` runs the §4.1
+two-stage recipe: 80% of the steps at ``--seq`` and ``--batch``, the rest
+at 4 × seq and batch / 4 with a re-warmed learning rate on the same
+optimizer state.
 ``--skip-nonfinite`` skips (and counts) a step whose gradients or loss are
 not finite.  It runs on ``cuda`` unless ``--device`` names another device,
 and raises when there is no card.
 
 The flags mirror ``repro.launch.train``.  Those whose code is not ported
-yet raise ``NotImplementedError`` naming their ROADMAP.md item: optimizers
-other than fused LAMB, meshes, telemetry, trust-ratio logging and the
-loss-spike rollback.
+yet raise ``NotImplementedError`` naming their ROADMAP.md item: meshes,
+telemetry and the loss-spike rollback.
 """
 from __future__ import annotations
 
@@ -39,7 +44,6 @@ from repro_torch.train import Trainer
 _UNPORTED = {
     "mesh": "queue 1, item 11",
     "telemetry_dir": "queue 1, item 8",
-    "log_trust_ratios": "queue 1, item 8",
     "rollback_on_spike": "queue 1, item 8",
 }
 
@@ -51,7 +55,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--seq", type=int, default=128)
-    ap.add_argument("--optimizer", default="lamb")
+    ap.add_argument("--optimizer", default="lamb",
+                    help="lamb | lans | lars | nlamb | nnlamb | adam | adamw | "
+                         "adagrad | momentum")
     ap.add_argument("--base-lr", type=float, default=2.5e-3)
     ap.add_argument("--base-batch", type=int, default=16)
     ap.add_argument("--warmup-ratio", type=float, default=1 / 40)
@@ -61,7 +67,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--precision", default="fp32", choices=["fp32", "bf16"],
                     help="compute dtype (bf16 keeps fp32 master params)")
     ap.add_argument("--fused-lamb", action="store_true",
-                    help="fused LAMB update (CUDA kernels on the card)")
+                    help="fused LAMB update (CUDA kernels on the card); LAMB only")
     ap.add_argument("--flash", dest="flash", action="store_true", default=None)
     ap.add_argument("--no-flash", dest="flash", action="store_false")
     ap.add_argument("--fused-ce", dest="fused_ce", action="store_true", default=None)
@@ -88,9 +94,20 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "--checkpoint-dir and continue from its step")
     for flag in ("--mesh", "--telemetry-dir"):
         ap.add_argument(flag, default="")
-    for flag in ("--log-trust-ratios", "--rollback-on-spike"):
-        ap.add_argument(flag, action="store_true")
+    ap.add_argument("--log-trust-ratios", action="store_true",
+                    help="the trust ratios' min, max and mean in each history row")
+    ap.add_argument("--rollback-on-spike", action="store_true")
     return ap.parse_args(argv)
+
+
+def lr_schedule(args: argparse.Namespace):
+    """``(lr, schedule)``: the base learning rate scaled by the square root
+    of ``--batch / --base-batch``, warmed up linearly over the warmup ratio
+    scaled the same way, then decayed linearly to 0 at ``--steps``."""
+    lr = core.sqrt_scaled_lr(args.base_lr, args.base_batch, args.batch)
+    warmup_ratio = core.linear_epoch_warmup_ratio(
+        args.warmup_ratio, args.base_batch, args.batch)
+    return lr, core.warmup_poly_decay(lr, args.steps, int(args.steps * warmup_ratio))
 
 
 def build(args: argparse.Namespace):
@@ -115,18 +132,17 @@ def build(args: argparse.Namespace):
     if args.fused_ce is not None:
         cfg = cfg.replace(use_fused_ce_head=args.fused_ce)
     model = build_model(cfg)
-    lr = core.sqrt_scaled_lr(args.base_lr, args.base_batch, args.batch)
-    warmup_ratio = core.linear_epoch_warmup_ratio(
-        args.warmup_ratio, args.base_batch, args.batch)
+    lr, schedule = lr_schedule(args)
     tc = TrainConfig(
         optimizer=args.optimizer, learning_rate=lr,
         weight_decay=args.weight_decay, total_steps=args.steps, seed=args.seed,
         accum_steps=args.accum_steps, precision=args.precision,
         use_fused_lamb=args.fused_lamb, skip_nonfinite=args.skip_nonfinite,
+        log_trust_ratios=args.log_trust_ratios,
     )
     trainer = Trainer(
         model, tc, device=device,
-        schedule=core.warmup_poly_decay(lr, args.steps, int(args.steps * warmup_ratio)),
+        schedule=schedule,
         checkpoint_dir=args.checkpoint_dir or None,
         checkpoint_every=args.checkpoint_every,
         async_checkpoint=args.async_checkpoint,
@@ -164,6 +180,7 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
           f"device={trainer.device}")
     print(f"global_batch={args.batch} microbatch={args.batch // args.accum_steps} "
           f"accum={args.accum_steps} precision={args.precision} "
+          f"optimizer={args.optimizer} "
           f"fused_lamb={args.fused_lamb} flash={cfg.use_flash_kernel} "
           f"fused_ce={cfg.use_fused_ce_head}")
     if args.mixed_batch:

@@ -1,12 +1,14 @@
 """Weight bridge to and from the JAX package: identity by path.
 
 The port keeps the JAX dotted paths, layouts and stacked leaves, so a JAX
-parameter tree (or fused-LAMB state) maps onto the port's flat dicts with no
-reshaping.  Inputs are array-likes (numpy arrays, or anything
-``np.asarray`` accepts); nothing here imports JAX.
+parameter tree (or optimizer state: fused LAMB's, or a transform chain's)
+maps onto the port's flat dicts with no reshaping.  Inputs are array-likes
+(numpy arrays, or anything ``np.asarray`` accepts); nothing here imports
+JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Union
 
 import numpy as np
@@ -31,22 +33,35 @@ def params_from_jax(
 
 
 def state_from_jax(state, device: Optional[Union[str, torch.device]] = "cpu"):
-    """A JAX ``FusedLambState`` (``count``, ``sched_count``, ``mu``, ``nu``)
-    → the port's :class:`~repro_torch.kernels.ops.FusedLambState`."""
+    """A JAX optimizer state → the port's: a ``FusedLambState``, or any
+    transform chain's tuple of ``EmptyState`` / ``TraceState`` /
+    ``ScaleByAdamState`` / ``ScaleByAdagradState`` / ``ScheduleState``
+    (matched by class name and field: nested param trees become flat
+    dicts, scalars int32 device tensors)."""
     from repro_torch.kernels.ops import FusedLambState
+    from repro_torch.optim import base
 
     dev = torch.device(device)
-    return FusedLambState(
-        count=_to_tensor(state.count, dev).to(torch.int32),
-        sched_count=_to_tensor(state.sched_count, dev).to(torch.int32),
-        mu=params_from_jax(state.mu, dev),
-        nu=params_from_jax(state.nu, dev),
-    )
+    classes = {c.__name__: c for c in (
+        FusedLambState, base.EmptyState, base.TraceState, base.ScaleByAdamState,
+        base.ScaleByAdagradState, base.ScheduleState)}
+    cls = classes.get(type(state).__name__)
+    if cls is None:
+        if isinstance(state, tuple):
+            return tuple(state_from_jax(s, dev) for s in state)
+        raise TypeError(f"no port state for {type(state).__name__}")
+
+    def leaf(v):
+        if isinstance(v, dict):
+            return params_from_jax(v, dev)
+        return _to_tensor(v, dev).to(torch.int32)
+
+    return cls(**{f.name: leaf(getattr(state, f.name)) for f in dataclasses.fields(cls)})
 
 
 def train_state_from_jax(state, device: Optional[Union[str, torch.device]] = "cpu"):
-    """A JAX fused-LAMB ``TrainState`` (params, opt state, ``step``,
-    ``skipped``) → the port's :class:`~repro_torch.train.step.TrainState`."""
+    """A JAX ``TrainState`` (params, opt state, ``step``, ``skipped``) → the
+    port's :class:`~repro_torch.train.step.TrainState`."""
     from repro_torch.train.step import TrainState
 
     dev = torch.device(device)
@@ -67,15 +82,9 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def train_state_to_numpy(state) -> Dict[str, np.ndarray]:
     """The port's ``TrainState`` as ``{path: array}`` under the reference's
-    leaf paths (``params/<path>``, ``opt_state/count``,
-    ``opt_state/sched_count``, ``opt_state/mu/<path>``,
-    ``opt_state/nu/<path>``, ``step``, ``skipped``), in its leaf order."""
-    o = state.opt_state
-    out = {f"params/{k}": _to_numpy(v) for k, v in state.params.items()}
-    out["opt_state/count"] = _to_numpy(o.count)
-    out["opt_state/sched_count"] = _to_numpy(o.sched_count)
-    out.update({f"opt_state/mu/{k}": _to_numpy(v) for k, v in o.mu.items()})
-    out.update({f"opt_state/nu/{k}": _to_numpy(v) for k, v in o.nu.items()})
-    out["step"] = _to_numpy(state.step)
-    out["skipped"] = _to_numpy(state.skipped)
-    return out
+    leaf paths and in its leaf order (``params/<path>``, ``opt_state/...``
+    as the reference names its optimizer state, e.g. ``opt_state/count`` or
+    ``opt_state/1/mu/<path>``, ``step``, ``skipped``)."""
+    from repro_torch.checkpoint.io import tree_leaves_with_paths
+
+    return {k: _to_numpy(v) for k, v in tree_leaves_with_paths(state)}

@@ -1,21 +1,27 @@
 """Train step: token-weighted accumulation, bf16 compute on fp32 masters,
-fused LAMB applied in place, and the non-finite guard (port of the
-fused-direct path of ``repro.train.step.make_train_step``).
+the optimizer update and the non-finite guard (port of
+``repro.train.step``).
 
-Only ``optimizer="lamb"`` with ``use_fused_lamb`` is ported; the unfused
-optimizers and the trust-ratio telemetry raise (ROADMAP.md queue 1, items
-5 and 8).
+Two paths, chosen as the reference chooses them.  LAMB with
+``tc.use_fused_lamb`` or ``cfg.use_fused_lamb_kernel`` runs fused-direct:
+K1/K2 update params and moments in place, and the guard's verdict reaches
+them as a device flag.  Every other optimizer (and unfused LAMB) runs the
+transform chain of :func:`make_optimizer`: ``opt.update`` then
+``optim.apply_updates``, with the guard a where-select of old against new
+over the params and the whole chain state.  ``tc.record_trust_ratios``
+(per-layer telemetry) raises (ROADMAP.md queue 1, item 8).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch import nn
+from repro_torch import core, nn, optim
+from repro_torch.checkpoint.io import tree_leaves_with_paths, tree_map_with_paths
 from repro_torch.configs.base import TrainConfig
-from repro_torch.kernels import FusedLambState, fused_lamb_init, make_fused_lamb_step
+from repro_torch.kernels import fused_lamb, fused_lamb_init, make_fused_lamb_step
 from repro_torch.models.api import Model
 from repro_torch.optim.base import global_norm
 from repro_torch.train.faults import apply_grad_faults, apply_loss_faults, split_faults
@@ -32,6 +38,9 @@ GUARD_KEY = "nonfinite/skip"
 
 LOSS_KEY = "loss/total"
 
+# The trust-ratio summary ``tc.log_trust_ratios`` adds to the metrics.
+TRUST_KEYS = ("trust_ratio/min", "trust_ratio/max", "trust_ratio/mean")
+
 Metrics = Dict[str, torch.Tensor]
 
 
@@ -39,14 +48,16 @@ Metrics = Dict[str, torch.Tensor]
 class TrainState:
     """Params, optimizer state and two int32 device counters.
 
-    ``step`` counts the steps taken; ``skipped`` the non-finite guard's
-    skips, persisted with a checkpoint so a resume can fast-forward the
-    data by ``step + skipped`` batches (a skipped step consumed a batch
-    without advancing ``step``).  Both default to 0 on the params' device.
+    ``opt_state`` is a ``FusedLambState`` on the fused-direct path, else the
+    transform chain's tuple of state dataclasses.  ``step`` counts the steps
+    taken; ``skipped`` the non-finite guard's skips, persisted with a
+    checkpoint so a resume can fast-forward the data by ``step + skipped``
+    batches (a skipped step consumed a batch without advancing ``step``).
+    Both default to 0 on the params' device.
     """
 
     params: nn.Params
-    opt_state: FusedLambState
+    opt_state: Any
     step: Optional[torch.Tensor] = None
     skipped: Optional[torch.Tensor] = None
 
@@ -77,23 +88,73 @@ def tree_all_finite(tree: Dict[str, torch.Tensor], *extra: Optional[torch.Tensor
     return torch.isfinite(torch.stack(ends)).all()
 
 
-def check_train_config(tc: TrainConfig) -> None:
-    """Raise for the options of ``TrainConfig`` the port does not have yet."""
-    if tc.optimizer != "lamb" or not tc.use_fused_lamb:
-        raise NotImplementedError(
-            f"optimizer {tc.optimizer!r} (use_fused_lamb={tc.use_fused_lamb}) is "
-            "not ported: only fused LAMB is (ROADMAP.md queue 1, items 5 and 8)"
-        )
+def _wants_fused(model: Model, tc: TrainConfig) -> bool:
+    return bool(tc.use_fused_lamb or model.cfg.use_fused_lamb_kernel)
+
+
+def _check_fused_supported(tc: TrainConfig) -> None:
     if not tc.bias_correction or tc.moment_dtype is not None:
         raise ValueError(
             "fused LAMB supports bias-corrected fp32 moments only; "
             "unset use_fused_lamb or bias_correction/moment_dtype"
         )
-    for flag in ("log_trust_ratios", "record_trust_ratios"):
-        if getattr(tc, flag):
-            raise NotImplementedError(
-                f"{flag} is not ported (ROADMAP.md queue 1, item 8)"
-            )
+
+
+def check_train_config(tc: TrainConfig) -> None:
+    """Raise for the options of ``TrainConfig`` the port does not have yet."""
+    if tc.record_trust_ratios:
+        raise NotImplementedError(
+            "record_trust_ratios (per-layer telemetry) is not ported "
+            "(ROADMAP.md queue 1, item 8)"
+        )
+
+
+def make_optimizer(model: Model, tc: TrainConfig, schedule=None
+                   ) -> optim.GradientTransformation:
+    """The configured optimizer with the model's layerwise metadata (weight
+    decay mask, trust mask, stacked-layer axes), name for name as the
+    reference builds it, quirks included: ``lars``, ``adam``, ``adamw``,
+    ``adagrad`` and ``momentum`` get no gradient clip; ``nlamb``/``nnlamb``
+    keep their own b1, b2 and eps; ``adam`` takes no weight decay;
+    ``momentum`` takes ``tc.b1``.  Returns deltas for ``optim.apply_updates``
+    from token-mean fp32 grads.
+    """
+    lr = schedule if schedule is not None else tc.learning_rate
+    wd_mask = model.wd_mask()
+    common = dict(wd_mask=wd_mask, trust_mask=model.trust_mask(),
+                  layer_axes=model.layer_axes(), phi_bounds=tc.phi_bounds)
+    name = tc.optimizer
+    if name == "lamb" and _wants_fused(model, tc):
+        _check_fused_supported(tc)
+        return fused_lamb(lr, tc.b1, tc.b2, tc.eps, tc.weight_decay,
+                          grad_clip_norm=tc.grad_clip_norm, **common)
+    if name == "lamb":
+        return core.lamb(lr, tc.b1, tc.b2, tc.eps, tc.weight_decay,
+                         bias_correction=tc.bias_correction,
+                         grad_clip_norm=tc.grad_clip_norm,
+                         moment_dtype=tc.moment_dtype, **common)
+    if name == "lans":
+        return core.lans(lr, tc.b1, tc.b2, tc.eps, tc.weight_decay,
+                         bias_correction=tc.bias_correction,
+                         grad_clip_norm=tc.grad_clip_norm,
+                         moment_dtype=tc.moment_dtype, **common)
+    if name == "nlamb":
+        return core.nlamb(lr, weight_decay=tc.weight_decay,
+                          grad_clip_norm=tc.grad_clip_norm, **common)
+    if name == "nnlamb":
+        return core.nnlamb(lr, weight_decay=tc.weight_decay,
+                           grad_clip_norm=tc.grad_clip_norm, **common)
+    if name == "lars":
+        return core.lars(lr, momentum=tc.b1, weight_decay=tc.weight_decay, **common)
+    if name == "adam":
+        return optim.adam(lr, tc.b1, tc.b2, tc.eps)
+    if name == "adamw":
+        return optim.adamw(lr, tc.b1, tc.b2, tc.eps, tc.weight_decay, wd_mask)
+    if name == "adagrad":
+        return optim.adagrad(lr)
+    if name == "momentum":
+        return optim.momentum(lr, tc.b1, tc.weight_decay, wd_mask)
+    raise ValueError(f"unknown optimizer {name!r}")
 
 
 def make_loss_fn(model: Model) -> Callable:
@@ -174,61 +235,119 @@ def _microbatch_grads(
     return g_acc, metrics
 
 
-def make_train_step(model: Model, tc: TrainConfig, schedule=None):
+def make_train_step(model: Model, tc: TrainConfig, schedule=None, *,
+                    optimizer: Optional[optim.GradientTransformation] = None):
     """Returns ``(init_fn(seed, device) -> TrainState,
     step_fn(state, batch) -> (state, metrics))``.
 
     ``step_fn`` consumes the global batch and slices it into
     ``tc.grad_accum_steps`` microbatches; the fp32 masters are cast to the
-    compute dtype once per step, and the fused LAMB update then runs in
-    place on the masters and moments.  Fault channels (``fault/*`` leaves,
-    see :mod:`repro_torch.train.faults`) are popped before the loss and
-    applied to the accumulated gradients.  With ``tc.skip_nonfinite`` the
-    verdict of :func:`tree_all_finite` over every gradient and the loss goes
-    into the update as a device flag: a non-finite step writes no param,
-    moment or counter, ``skipped`` goes up by one and ``step`` does not.
+    compute dtype once per step.  Fault channels (``fault/*`` leaves, see
+    :mod:`repro_torch.train.faults`) are popped before the loss and applied
+    to the accumulated gradients.  With ``tc.skip_nonfinite`` the verdict of
+    :func:`tree_all_finite` over every gradient and the loss decides the
+    step: a non-finite one leaves every param, moment and counter as it
+    was, ``skipped`` goes up by one and ``step`` does not.
+
+    LAMB with ``tc.use_fused_lamb`` or ``cfg.use_fused_lamb_kernel`` (and no
+    ``optimizer``) runs fused-direct: K1/K2 update the state in place (the
+    verdict reaches them as a device flag) and the same ``state`` comes
+    back.  Otherwise ``optimizer`` (default :func:`make_optimizer`) runs as
+    a transform chain and a new ``TrainState`` comes back, the guard
+    selecting old against new per leaf.  ``tc.log_trust_ratios`` adds the
+    ``trust_ratio/{min,max,mean}`` summary of phi(||x||)/||Δx|| on both.
     """
     check_train_config(tc)
     loss_fn = make_loss_fn(model)
     n_micro = tc.grad_accum_steps
     compute_dtype = tc.compute_dtype
-    fused_step = make_fused_lamb_step(
-        schedule if schedule is not None else tc.learning_rate,
-        tc.b1, tc.b2, tc.eps, tc.weight_decay,
-        wd_mask=model.wd_mask(), trust_mask=model.trust_mask(),
-        layer_axes=model.layer_axes(), phi_bounds=tc.phi_bounds,
-        grad_clip_norm=tc.grad_clip_norm,
-    )
-
     guard = tc.skip_nonfinite
+    layer_axes = model.layer_axes()
 
-    def init_fn(seed: int, device: torch.device) -> TrainState:
-        params = model.init(seed, device)
-        return TrainState(params, fused_lamb_init(params))
-
-    def step_fn(state: TrainState, batch) -> Tuple[TrainState, Metrics]:
+    def grads_and_metrics(params, batch):
         batch, faults = split_faults(batch)
         # the one cast of the masters per step; gradients are taken against
         # this copy and accumulate in fp32
         with torch.no_grad():
-            params = (state.params if compute_dtype is None
-                      else nn.cast_tree(state.params, compute_dtype))
-        params = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        grads, metrics = _microbatch_grads(loss_fn, params, batch, n_micro)
-        del params
+            cast = params if compute_dtype is None else nn.cast_tree(params, compute_dtype)
+        cast = {k: v.detach().requires_grad_(True) for k, v in cast.items()}
+        grads, metrics = _microbatch_grads(loss_fn, cast, batch, n_micro)
+        del cast
         grads = apply_grad_faults(grads, faults)
         metrics = apply_loss_faults(metrics, faults)
         metrics["grad_norm"] = global_norm(grads)
-        # the verdict before the update clips the gradients in place
-        adv = tree_all_finite(grads, metrics.get(LOSS_KEY)).to(torch.int32) if guard else None
-        delta_sq = fused_step(state.params, grads, state.opt_state, ok=adv)
-        metrics["update_norm"] = torch.sqrt(delta_sq)
-        if guard:
-            metrics[GUARD_KEY] = 1.0 - adv.to(torch.float32)
-            state.step.add_(adv)
-            state.skipped.add_(1 - adv)
-        else:
-            state.step.add_(1)
-        return state, metrics
+        # the verdict before the update (the fused path clips in place)
+        ok = tree_all_finite(grads, metrics.get(LOSS_KEY)) if guard else None
+        return grads, metrics, ok
+
+    def trust_diag(params, updates):
+        return core.summarize_trust_ratios(core.trust_ratio_tree(
+            params, updates, layer_axes=layer_axes, phi_bounds=tc.phi_bounds))
+
+    if optimizer is None and tc.optimizer == "lamb" and _wants_fused(model, tc):
+        _check_fused_supported(tc)
+        fused_step = make_fused_lamb_step(
+            schedule if schedule is not None else tc.learning_rate,
+            tc.b1, tc.b2, tc.eps, tc.weight_decay,
+            wd_mask=model.wd_mask(), trust_mask=model.trust_mask(),
+            layer_axes=layer_axes, phi_bounds=tc.phi_bounds,
+            grad_clip_norm=tc.grad_clip_norm,
+        )
+
+        def init_fn(seed: int, device: torch.device) -> TrainState:
+            params = model.init(seed, device)
+            return TrainState(params, fused_lamb_init(params))
+
+        def step_fn(state: TrainState, batch) -> Tuple[TrainState, Metrics]:
+            grads, metrics, ok = grads_and_metrics(state.params, batch)
+            adv = None if ok is None else ok.to(torch.int32)
+            # K1/K2 write the params in place: keep the old ones for the
+            # trust-ratio summary, and only then
+            old = ({k: v.clone() for k, v in state.params.items()}
+                   if tc.log_trust_ratios else None)
+            delta_sq = fused_step(state.params, grads, state.opt_state, ok=adv)
+            metrics["update_norm"] = torch.sqrt(delta_sq)
+            if old is not None:
+                metrics.update(trust_diag(old, {
+                    k: v.to(torch.float32) - old[k].to(torch.float32)
+                    for k, v in state.params.items()}))
+            if guard:
+                metrics[GUARD_KEY] = 1.0 - adv.to(torch.float32)
+                state.step.add_(adv)
+                state.skipped.add_(1 - adv)
+            else:
+                state.step.add_(1)
+            return state, metrics
+
+        return init_fn, step_fn
+
+    opt = optimizer if optimizer is not None else make_optimizer(model, tc, schedule)
+
+    def init_fn(seed: int, device: torch.device) -> TrainState:
+        params = model.init(seed, device)
+        return TrainState(params, opt.init(params))
+
+    def step_fn(state: TrainState, batch) -> Tuple[TrainState, Metrics]:
+        grads, metrics, ok = grads_and_metrics(state.params, batch)
+        updates, opt_state = opt.update(grads, state.opt_state, state.params)
+        del grads
+        params = optim.apply_updates(state.params, updates)
+        update_norm = global_norm(updates)
+        if ok is not None:
+            # a non-finite step passes the params and the whole chain state
+            # (schedule and moment counters included) through unchanged
+            params = {k: torch.where(ok, p, state.params[k]) for k, p in params.items()}
+            old = dict(tree_leaves_with_paths(state.opt_state))
+            opt_state = tree_map_with_paths(
+                lambda path, new: torch.where(ok, new, old[path]), opt_state)
+            update_norm = torch.where(ok, update_norm, 0.0)
+        metrics["update_norm"] = update_norm
+        if tc.log_trust_ratios:
+            metrics.update(trust_diag(state.params, updates))
+        if ok is None:
+            return TrainState(params, opt_state, state.step + 1, state.skipped), metrics
+        adv = ok.to(torch.int32)
+        metrics[GUARD_KEY] = 1.0 - adv.to(torch.float32)
+        return TrainState(params, opt_state, state.step + adv, state.skipped + (1 - adv)), metrics
 
     return init_fn, step_fn

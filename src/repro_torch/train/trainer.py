@@ -2,11 +2,11 @@
 non-finite guard's bookkeeping and mixed-batch stages (port of
 ``repro.train.trainer.Trainer``).
 
-Across a stage switch the optimizer moments and ``count`` carry over while
-``sched_count`` restarts at zero, so stage 2 re-warms up: the §4.1
-procedure.  Every checkpoint persists the full ``TrainState`` (params,
-moments, both optimizer counters, ``step`` and ``skipped``) in the JAX
-package's format; ``resume=True`` restores the latest complete one at
+Across a stage switch the optimizer moments and their counters carry over
+while the schedule's counter restarts at zero, so stage 2 re-warms up: the
+§4.1 procedure.  Every checkpoint persists the full ``TrainState`` (params,
+the optimizer state with its counters, ``step`` and ``skipped``) in the
+JAX package's format, for any optimizer; ``resume=True`` restores the latest complete one at
 ``fit`` start and fast-forwards the data, so the continuation is bit-exact
 against a run that was never interrupted.  ``async_checkpoint=True`` routes
 saves through :class:`~repro_torch.checkpoint.AsyncCheckpointer`.
@@ -33,7 +33,8 @@ from repro_torch.core.mixed_batch import Stage
 from repro_torch.data.pipeline import DataPipeline
 from repro_torch.kernels.ops import FusedLambState
 from repro_torch.models.api import Model
-from repro_torch.train.step import GUARD_KEY, TrainState, make_train_step
+from repro_torch.optim.base import ScheduleState
+from repro_torch.train.step import GUARD_KEY, TRUST_KEYS, TrainState, make_train_step
 
 # the per-step metrics the history keeps, fetched together at a log step
 HISTORY_KEYS = ("loss/total", "loss/ce", "accuracy", "tokens/supervised",
@@ -45,10 +46,18 @@ def _batch_examples(batch) -> int:
     return int(next(iter(batch.values())).shape[0])
 
 
-def _reset_schedule_counts(opt_state: FusedLambState) -> None:
-    """Zero ``sched_count`` in place (stage-2 re-warm-up); ``count`` and the
-    moments carry over."""
-    opt_state.sched_count.zero_()
+def _reset_schedule_counts(opt_state) -> None:
+    """Zero every schedule counter in place (stage-2 re-warm-up): each
+    ``ScheduleState.count`` of a transform chain, or the fused state's
+    ``sched_count``.  The moments and their counters (``count``, the
+    ``ScaleByAdamState`` counts) carry over."""
+    if isinstance(opt_state, FusedLambState):
+        opt_state.sched_count.zero_()
+    elif isinstance(opt_state, ScheduleState):
+        opt_state.count.zero_()
+    elif isinstance(opt_state, tuple):
+        for s in opt_state:
+            _reset_schedule_counts(s)
 
 
 class Trainer:
@@ -151,7 +160,8 @@ class Trainer:
         stack and one transfer (which also waits for the device, so
         ``wall_s`` counts finished work).  The counters ride as their bits
         (a view, no cast kernel) and are read back as int32."""
-        keys = HISTORY_KEYS + ((GUARD_KEY,) if self.tc.skip_nonfinite else ())
+        keys = (HISTORY_KEYS + ((GUARD_KEY,) if self.tc.skip_nonfinite else ())
+                + (TRUST_KEYS if self.tc.log_trust_ratios else ()))
         values = torch.stack([metrics[k].to(torch.float32) for k in keys]
                              + [self.state.step.view(torch.float32),
                                 self.state.skipped.view(torch.float32)]).cpu()
@@ -192,8 +202,8 @@ class Trainer:
     def fit_stages(self, stages: Sequence[Stage], *, data_seed: int = 0
                    ) -> List[Dict[str, float]]:
         """Mixed-batch training: one train step per stage (its own shapes
-        and schedule), moments and ``count`` carried, ``sched_count`` reset
-        between stages; stage ``si`` reads a fresh ``DataPipeline`` seeded
+        and schedule), moments and their counters carried, the schedule's
+        counter reset between stages; stage ``si`` reads a fresh ``DataPipeline`` seeded
         ``data_seed + si``.  History rows carry ``stage``; ``wall_s`` runs
         on one clock across the stages."""
         if self.state is None:

@@ -340,9 +340,9 @@ def test_async_resumes_latest_persisted_from_disk(tmp_path):
 # Trainer: full-state saves and resume
 # ---------------------------------------------------------------------------
 
-def _trainer(ckpt_dir=None, **kw):
-    tc = TrainConfig(optimizer="lamb", use_fused_lamb=True, learning_rate=1e-3,
-                     skip_nonfinite=True)
+def _trainer(ckpt_dir=None, optimizer="lamb", **kw):
+    tc = TrainConfig(optimizer=optimizer, use_fused_lamb=optimizer == "lamb",
+                     learning_rate=1e-3, skip_nonfinite=True)
     return Trainer(build_model(bert_large.smoke()), tc, device="cpu",
                    checkpoint_dir=ckpt_dir, log_every=1, log_fn=lambda s: None, **kw)
 
@@ -386,6 +386,22 @@ def test_trainer_resume_continues_bit_exact(tmp_path, use_async):
         assert a[k].tobytes() == b[k].tobytes(), k
 
 
+@pytest.mark.parametrize("optimizer", ["lans", "adagrad"])
+def test_trainer_resume_of_a_chain_state_continues_bit_exact(tmp_path, optimizer):
+    """An async save of a transform chain's state (a tuple of state
+    dataclasses) and a resume from it continue bit-exact."""
+    ref = _trainer(optimizer=optimizer)
+    ref.fit(_data(), 4)
+    _trainer(str(tmp_path), optimizer, checkpoint_every=2, async_checkpoint=True).fit(_data(), 2)
+    tr = _trainer(str(tmp_path), optimizer, checkpoint_every=2, resume=True)
+    tr.fit(_data(), 4)
+    assert isinstance(tr.state.opt_state, tuple) and int(tr.state.step) == 4
+    a, b = train_state_to_numpy(tr.state), train_state_to_numpy(ref.state)
+    assert list(a) == list(b)
+    for k in a:
+        assert a[k].tobytes() == b[k].tobytes(), k
+
+
 def test_trainer_resume_with_no_checkpoint_starts_fresh(tmp_path):
     tr = _trainer(str(tmp_path), checkpoint_every=0, resume=True)
     tr.fit(_data(), 2)
@@ -406,10 +422,11 @@ def test_trainer_resume_past_target_runs_nothing(tmp_path):
 OFF = dict(use_flash_kernel=False, use_fused_ce_head=False, activation_dtype="float32")
 
 
-def _pair():
-    """JAX's and the port's fused-LAMB train steps on bert-smoke, a batch,
-    and each package's initial state (the port's made by its own init)."""
-    kw = dict(optimizer="lamb", use_fused_lamb=True, learning_rate=0.01)
+def _pair(optimizer="lamb", use_fused_lamb=True):
+    """JAX's and the port's train steps on bert-smoke (fused LAMB by
+    default), a batch, and each package's initial state (the port's made
+    by its own init)."""
+    kw = dict(optimizer=optimizer, use_fused_lamb=use_fused_lamb, learning_rate=0.01)
     jinit, jstep = jax_make_train_step(jax_build_model(jax_bert.smoke().replace(**OFF)),
                                        JaxTrainConfig(**kw))
     init, step = make_train_step(build_model(bert_large.smoke().replace(**OFF)),
@@ -469,3 +486,36 @@ def test_bf16_leaves_cross_between_the_packages(tmp_path):
     jax_path = jax_save_checkpoint(str(tmp_path / "jax"), 1, {"w": jx})
     got = restore_checkpoint(jax_path, {"w": torch.zeros((3, 5), dtype=torch.bfloat16)})
     assert got["w"].dtype == torch.bfloat16 and _bits(got["w"]) == _bits(tx)
+
+
+def _manifest_paths(path):
+    with open(os.path.join(path, "manifest.json")) as f:
+        return [e["path"] for e in json.load(f)["leaves"]]
+
+
+@pytest.mark.parametrize("optimizer", ["lamb", "lars"])
+def test_chain_train_state_crosses_between_the_packages(tmp_path, optimizer):
+    """An unfused LAMB and a LARS train state (a tuple of state dataclasses)
+    saved by the port has the leaf paths of the same state saved by the JAX
+    package (``opt_state/1/mu/...``, ``opt_state/4/count``) and restores
+    there bit for bit; a JAX-written one restores in the port bit for bit;
+    and one step from each crossed state agrees across the packages."""
+    (jinit, jstep, jstate), (step, state), batch = _pair(optimizer, use_fused_lamb=False)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    jstate, _ = jstep(jstate, jb)
+    state, _ = step(state, {k: torch.from_numpy(v) for k, v in batch.items()})
+    port_path = save_checkpoint(str(tmp_path / "port"), 1, state)
+    jax_path = jax_save_checkpoint(str(tmp_path / "jax"), 1, jstate)
+    assert _manifest_paths(port_path) == _manifest_paths(jax_path) == list(
+        train_state_to_numpy(state))
+    assert any("/count" in p for p in _manifest_paths(port_path))
+    jrestored = jax_restore_checkpoint(port_path, jax.eval_shape(jinit, jax.random.key(0)))
+    restored = restore_checkpoint(jax_path, state)
+    crossed = train_state_to_numpy(train_state_from_jax(jrestored))
+    ref = train_state_to_numpy(train_state_from_jax(jstate))
+    for a, b in ((crossed, train_state_to_numpy(state)),
+                 (train_state_to_numpy(restored), ref)):
+        assert list(a) == list(b)
+        for k in b:
+            assert a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes(), k
+    _step_both(jstep, jstate, step, restored, batch)

@@ -452,3 +452,69 @@ def test_fused_ce_unstageable_bf16_takes_the_fma_design(cuda):
     torch.testing.assert_close(lse_k, lse, rtol=1e-5, atol=1e-5)
     _ce_close(dh, fused_ce_dh(h, w, lbl, lse, g, plain=True), torch.bfloat16)
     _ce_close(dw, fused_ce_dw(h, w, lbl, lse, g, plain=True), torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# the unfused optimizers on the card
+# ---------------------------------------------------------------------------
+
+def test_lamb_forms_agree_on_card(cuda):
+    """Fused-direct LAMB (K1/K2 in place), the ``core.lamb`` chain and the
+    ``fused_lamb`` transform (K1/K2 on copies) from one state and three sets
+    of gradients: params and moments within the reference's fused-against-
+    unfused bound (rtol 2e-4, atol 2e-5), K1/K2 launched once per leaf per
+    fused update."""
+    from repro_torch import core, optim
+    from repro_torch.kernels import fused_lamb, fused_lamb_init, make_fused_lamb_step
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    shapes = {"blocks/w": (4, 300, 7), "embed": (1000, 3), "blocks/scale": (4, 300)}
+    params = {k: torch.randn(s, generator=gen, device=cuda) for k, s in shapes.items()}
+    meta = dict(layer_axes={"blocks/w": 0, "embed": -1, "blocks/scale": 0},
+                wd_mask={"blocks/w": True, "embed": True, "blocks/scale": False},
+                trust_mask={"blocks/w": True, "embed": True, "blocks/scale": False})
+    kw = dict(grad_clip_norm=1.0, **meta)
+    chain, transform = core.lamb(0.01, **kw), fused_lamb(0.01, **kw)
+    direct = make_fused_lamb_step(0.01, **kw)
+    x_d = {k: v.clone() for k, v in params.items()}
+    s_d, s_c, s_t = fused_lamb_init(params), chain.init(params), transform.init(params)
+    x_c, x_t = params, params
+    reset_launches()
+    for _ in range(3):
+        g = {k: 50 * torch.randn(s, generator=gen, device=cuda) for k, s in shapes.items()}
+        direct(x_d, {k: v.clone() for k, v in g.items()}, s_d)
+        u, s_c = chain.update(g, s_c, x_c)
+        x_c = optim.apply_updates(x_c, u)
+        u, s_t = transform.update(g, s_t, x_t)
+        x_t = optim.apply_updates(x_t, u)
+    torch.cuda.synchronize()
+    assert LAUNCHES["lamb_moments"] == LAUNCHES["lamb_apply"] == 2 * 3 * len(shapes)
+    for other, mu, nu in ((x_c, s_c[1].mu, s_c[1].nu), (x_t, s_t.mu, s_t.nu)):
+        for k in shapes:
+            torch.testing.assert_close(other[k], x_d[k], rtol=2e-4, atol=2e-5)
+            torch.testing.assert_close(mu[k], s_d.mu[k], rtol=2e-4, atol=2e-5)
+            torch.testing.assert_close(nu[k], s_d.nu[k], rtol=2e-4, atol=2e-5)
+
+
+def test_unfused_guard_on_card(cuda):
+    """A poisoned LARS step on bert-smoke on the card with the guard on:
+    every state leaf bit for bit as before, ``skipped`` + 1."""
+    from repro_torch.checkpoint import tree_leaves_with_paths
+    from repro_torch.configs import bert_large
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import DataPipeline
+    from repro_torch.models import build_model
+    from repro_torch.train import FaultInjector, FaultSpec, make_train_step
+
+    cfg = bert_large.smoke()
+    init, step = make_train_step(build_model(cfg), TrainConfig(
+        optimizer="lars", learning_rate=0.01, skip_nonfinite=True))
+    data = DataPipeline(cfg, 8, 32, device=cuda, seed=0)
+    state, _ = step(init(0, cuda), next(data))
+    before = {p: v.clone() for p, v in tree_leaves_with_paths(state)}
+    state, m = step(state, FaultInjector([FaultSpec("grad_nan", at=0)]).stamp(next(data), 0))
+    after = dict(tree_leaves_with_paths(state))
+    assert float(m["nonfinite/skip"]) == 1.0 and int(state.skipped) == 1
+    for p, v in before.items():
+        if p != "skipped":
+            assert torch.equal(after[p], v), p

@@ -1,6 +1,7 @@
 """The slice end to end: bert-smoke train steps of the port against the JAX
-package's fused-LAMB train step (Pallas LAMB in interpret mode, flash and
-fused CE off), and the port's launcher."""
+package's (fused LAMB: Pallas LAMB in interpret mode; every other
+optimizer: its transform chain; flash and fused CE off), and the port's
+launcher."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +13,8 @@ from repro.configs.base import TrainConfig as JaxTrainConfig
 from repro.core import warmup_poly_decay as jax_warmup_poly_decay
 from repro.data import synthetic as jax_synthetic
 from repro.models import build_model as jax_build_model
+from repro.train import FaultInjector as JaxFaultInjector
+from repro.train import FaultSpec as JaxFaultSpec
 from repro.train.step import _microbatch_grads as jax_microbatch_grads
 from repro.train.step import make_loss_fn as jax_make_loss_fn
 from repro.train.step import make_train_step as jax_make_train_step
@@ -21,20 +24,26 @@ from repro_torch.core import warmup_poly_decay
 from repro_torch.kernels import flash_attention as flash_module
 from repro_torch.launch import train as launch_train
 from repro_torch.models import build_model
-from repro_torch.nn import flatten, params_from_jax, state_from_jax
-from repro_torch.train import TrainState, make_loss_fn, make_train_step
-from repro_torch.train.step import _microbatch_grads
+from repro_torch.nn import flatten, params_from_jax, state_from_jax, train_state_from_jax, \
+    train_state_to_numpy
+from repro_torch.train import GUARD_KEY, FaultInjector, FaultSpec, TrainState, \
+    make_loss_fn, make_train_step
+from repro_torch.train.step import TRUST_KEYS, _microbatch_grads
 
 OFF = dict(use_flash_kernel=False, use_fused_ce_head=False)
 SMOKE = ["--arch", "bert-large", "--smoke", "--batch", "4", "--seq", "16",
          "--fused-lamb", "--no-flash", "--no-fused-ce", "--steps", "2"]
+OPTIMIZERS = ["lamb", "lans", "lars", "nlamb", "nnlamb", "adam", "adamw", "adagrad",
+              "momentum"]
 
 
-def _run_both(accum: int, precision: str, activation_dtype: str, steps: int = 3):
+def _run_both(accum: int, precision: str, activation_dtype: str, steps: int = 3,
+              optimizer: str = "lamb", use_fused_lamb: bool = True,
+              resync: bool = False, **extra):
     jcfg = jax_bert.smoke().replace(activation_dtype=activation_dtype, **OFF)
     cfg = bert_large.smoke().replace(activation_dtype=activation_dtype, **OFF)
-    kw = dict(optimizer="lamb", use_fused_lamb=True, accum_steps=accum,
-              precision=precision, learning_rate=0.01)
+    kw = dict(optimizer=optimizer, use_fused_lamb=use_fused_lamb, accum_steps=accum,
+              precision=precision, learning_rate=0.01, **extra)
     jmodel = jax_build_model(jcfg)
     jinit, jstep = jax_make_train_step(
         jmodel, JaxTrainConfig(fused_backend="interpret", **kw),
@@ -48,10 +57,25 @@ def _run_both(accum: int, precision: str, activation_dtype: str, steps: int = 3)
     losses = []
     for _ in range(steps):
         batch = next(data)
+        if resync:   # each step from the JAX package's state
+            state = train_state_from_jax(jstate)
         jstate, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()})
         state, m = step(state, {k: torch.from_numpy(v) for k, v in batch.items()})
         losses.append({k: (float(m[k]), float(jm[k])) for k in jm})
     return state, jstate, losses
+
+
+def _assert_fp32_parity(state, jstate, losses):
+    """The fp32 bounds of ``test_train_steps_match_jax_fp32``."""
+    for m in losses:
+        for k in ("loss/total", "loss/ce", "update_norm", "tokens/supervised"):
+            np.testing.assert_allclose(*m[k], rtol=1e-4, err_msg=k)
+        np.testing.assert_allclose(*m["grad_norm"], rtol=1e-3)
+        np.testing.assert_allclose(*m["accuracy"], atol=1e-6)
+    for k, v in params_from_jax(jstate.params).items():
+        diff = (state.params[k] - v).abs()
+        assert float((diff > 1e-5).float().mean()) < 1e-3, k
+        assert float(diff.max()) < 1e-3, k
 
 
 @pytest.mark.parametrize("accum", [1, 2])
@@ -75,6 +99,144 @@ def test_train_steps_match_jax_fp32(accum):
         diff = (state.params[k] - v).abs()
         assert float((diff > 1e-5).float().mean()) < 1e-3, k
         assert float(diff.max()) < 1e-3, k
+
+
+@pytest.mark.parametrize("optimizer", OPTIMIZERS)
+def test_unfused_train_steps_match_jax(optimizer):
+    """Each ``tc.optimizer`` as a transform chain (LAMB without
+    ``use_fused_lamb``), fp32, accumulation 2, three steps on the same
+    batches, each taken by both packages from the JAX package's state (so
+    moments and counters are past 0), at the fp32 bounds below; the state
+    has the reference's leaf paths and its counters.
+
+    Each step starts from JAX's state because, over steps, the two
+    frameworks' fp32 gradients drift apart on saturated bert-smoke (see
+    ``test_train_steps_match_jax_fp32``), and the optimizers without a
+    clip or a trust ratio (Adam, Adagrad, momentum, and N-LAMB's and the
+    baselines' norm scales) move weights whose gradient is at that noise
+    by a full lr-sized step: from a shared state one step's weights agree
+    to 1e-5 in all but < 1e-4 of elements, over three chained steps up to
+    29% of a norm-scale leaf's elements are off by more.
+    """
+    state, jstate, losses = _run_both(2, "fp32", "float32", optimizer=optimizer,
+                                      use_fused_lamb=False, resync=True)
+    _assert_fp32_parity(state, jstate, losses)
+    got, want = train_state_to_numpy(state), train_state_to_numpy(train_state_from_jax(jstate))
+    assert list(got) == list(want)
+    counters = [k for k, v in want.items() if v.dtype == np.int32]
+    assert "step" in counters and len(counters) >= 3
+    for k in counters:
+        assert got[k] == want[k], k
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_log_trust_ratios_match_jax(fused):
+    """``log_trust_ratios``: the ``trust_ratio/{min,max,mean}`` summary of
+    phi(||x||)/||Δx|| on the fused-direct path and on the chain, equal to
+    the JAX package's at the fp32 bounds (the first step has lr 0: every
+    ratio is 1)."""
+    state, jstate, losses = _run_both(1, "fp32", "float32", use_fused_lamb=fused,
+                                      log_trust_ratios=True)
+    _assert_fp32_parity(state, jstate, losses)
+    for m in losses:
+        for k in TRUST_KEYS:
+            np.testing.assert_allclose(*m[k], rtol=1e-4, err_msg=k)
+    assert losses[0]["trust_ratio/min"][0] == losses[0]["trust_ratio/max"][0] == 1.0
+    assert losses[-1]["trust_ratio/max"][0] > 1.0
+
+
+def test_fused_direct_matches_unfused_lamb_in_the_port():
+    """Fused-direct LAMB (K1/K2's plain version here) and the ``core.lamb``
+    chain from the same weights, three guarded steps on the same batches:
+    every param and moment within the reference's own fused-against-unfused
+    bound (``tests/test_large_batch.py``: rtol 2e-4, atol 2e-5), the
+    counters equal."""
+    model = build_model(bert_large.smoke().replace(activation_dtype="float32", **OFF))
+    kw = dict(optimizer="lamb", accum_steps=2, learning_rate=0.01, skip_nonfinite=True)
+    sched = warmup_poly_decay(0.01, 10, 1)
+    init_f, step_f = make_train_step(model, TrainConfig(use_fused_lamb=True, **kw), sched)
+    init_u, step_u = make_train_step(model, TrainConfig(**kw), sched)
+    fused, chain = init_f(0, "cpu"), init_u(0, "cpu")
+    data = jax_synthetic.batch_iterator(model.cfg, 8, 32, seed=1)
+    for _ in range(3):
+        batch = {k: torch.from_numpy(v) for k, v in next(data).items()}
+        fused, mf = step_f(fused, batch)
+        chain, mu = step_u(chain, batch)
+        for k in ("loss/total", "update_norm", GUARD_KEY):
+            np.testing.assert_allclose(float(mf[k]), float(mu[k]), rtol=2e-4, err_msg=k)
+    adam, sched_state = chain.opt_state[1], chain.opt_state[-1]
+    assert int(fused.opt_state.count) == int(adam.count) == 3
+    assert int(fused.opt_state.sched_count) == int(sched_state.count) == 3
+    assert int(fused.step) == int(chain.step) == 3
+    for a, b in ((fused.params, chain.params), (fused.opt_state.mu, adam.mu),
+                 (fused.opt_state.nu, adam.nu)):
+        for k in a:
+            torch.testing.assert_close(a[k], b[k], rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("optimizer", ["lamb", "lars", "adagrad"])
+def test_unfused_guard_skips_bit_identical_like_jax(optimizer):
+    """A poisoned step on the chain with the guard on: every param and
+    every chain-state leaf (schedule and moment counters included) bit for
+    bit as before, ``step`` not advanced and ``skipped`` + 1, as the JAX
+    step does from the same state and batch."""
+    jcfg = jax_bert.smoke().replace(**OFF)
+    kw = dict(optimizer=optimizer, learning_rate=1e-3, skip_nonfinite=True)
+    jinit, jstep = jax_make_train_step(jax_build_model(jcfg), JaxTrainConfig(**kw))
+    jstep = jax.jit(jstep)
+    _, step = make_train_step(build_model(bert_large.smoke().replace(**OFF)), TrainConfig(**kw))
+    data = jax_synthetic.batch_iterator(jcfg, 8, 32, seed=0)
+    clean = next(data)
+    jstate, _ = jstep(jax.jit(jinit)(jax.random.key(0)),
+                      {k: jnp.asarray(v) for k, v in clean.items()})
+    state = train_state_from_jax(jstate)    # moments and counters past 0
+    before = {k: v.copy() for k, v in train_state_to_numpy(state).items()}
+    batch = next(data)
+    jb = JaxFaultInjector([JaxFaultSpec("grad_nan", at=0)]).stamp(dict(batch), 0)
+    jstate, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in jb.items()})
+    tb = FaultInjector([FaultSpec("grad_nan", at=0)]).stamp(
+        {k: torch.from_numpy(v) for k, v in batch.items()}, 0)
+    state, m = step(state, tb)
+    assert float(m[GUARD_KEY]) == float(jm[GUARD_KEY]) == 1.0
+    assert float(m["update_norm"]) == float(jm["update_norm"]) == 0.0
+    got, ref = train_state_to_numpy(state), train_state_to_numpy(train_state_from_jax(jstate))
+    assert list(got) == list(ref) == list(before)
+    for k in before:
+        if k != "skipped":
+            assert got[k].tobytes() == before[k].tobytes() == ref[k].tobytes(), k
+    assert int(state.step) == int(jstate.step) == 1
+    assert int(state.skipped) == int(jstate.skipped) == 1
+    assert any(k.endswith("/count") for k in before)   # a chain counter was held
+
+
+def test_fused_lamb_kernel_config_takes_the_fused_path():
+    """``cfg.use_fused_lamb_kernel`` alone selects fused-direct LAMB, as the
+    reference's ``_wants_fused`` does: the state is a ``FusedLambState`` and
+    the steps equal those under ``tc.use_fused_lamb`` bit for bit."""
+    cfg = bert_large.smoke().replace(**OFF)
+    batch = {k: torch.from_numpy(v) for k, v in next(
+        jax_synthetic.batch_iterator(cfg, 8, 16, seed=0)).items()}
+    states = []
+    for c, fused in ((cfg.replace(use_fused_lamb_kernel=True), False), (cfg, True)):
+        init, step = make_train_step(build_model(c), TrainConfig(
+            optimizer="lamb", use_fused_lamb=fused, learning_rate=0.01))
+        state, _ = step(init(0, "cpu"), batch)
+        states.append(train_state_to_numpy(state))
+    assert "opt_state/sched_count" in states[0]
+    assert list(states[0]) == list(states[1])
+    for k in states[0]:
+        assert states[0][k].tobytes() == states[1][k].tobytes(), k
+    with pytest.raises(ValueError, match="fused LAMB"):
+        make_train_step(build_model(cfg.replace(use_fused_lamb_kernel=True)),
+                        TrainConfig(optimizer="lamb", bias_correction=False))
+
+
+def test_record_trust_ratios_and_unknown_optimizer_raise():
+    model = build_model(bert_large.smoke().replace(**OFF))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 8"):
+        make_train_step(model, TrainConfig(record_trust_ratios=True))
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        make_train_step(model, TrainConfig(optimizer="rmsprop"))
 
 
 def test_train_steps_match_jax_bf16():
@@ -205,16 +367,34 @@ def test_launcher_flash_smoke_runs_to_done(capsys, monkeypatch):
     assert calls == {"fwd": 4, "bwd": 4}   # 2 layers x 2 steps
 
 
-@pytest.mark.parametrize("extra", [
-    ["--log-trust-ratios"], ["--optimizer", "adamw"], ["--mesh", "data=4"],
-    ["--rollback-on-spike"], ["--telemetry-dir", "runs"], ["--optimizer", "lans"],
-])
-def test_launcher_unported_options_raise(extra):
-    argv = SMOKE + ["--device", "cpu"]
+@pytest.mark.parametrize("extra", [["--optimizer", o] for o in OPTIMIZERS]
+                         + [["--log-trust-ratios"]])
+def test_launcher_optimizer_runs_to_done(extra, capsys):
+    """Every optimizer through the launcher (LAMB as the chain, without
+    ``--fused-lamb``), and ``--log-trust-ratios`` on the fused path, on the
+    CPU smoke to ``status=ok``."""
+    argv = SMOKE + ["--device", "cpu", "--log-every", "1"]
     if extra[0] == "--optimizer":
         argv.remove("--fused-lamb")
+    trainer = launch_train.main(argv + extra)
+    out = capsys.readouterr().out
+    assert "done: step=2 " in out and "status=ok" in out
+    assert len(trainer.history) == 2 and int(trainer.state.step) == 2
+    assert all(np.isfinite(h["loss/total"]) for h in trainer.history)
+    if extra[0] == "--optimizer":
+        assert f"optimizer={extra[1]} " in out
+        assert isinstance(trainer.state.opt_state, tuple)
+    else:
+        assert all(set(TRUST_KEYS) <= set(h) for h in trainer.history)
+
+
+@pytest.mark.parametrize("extra", [
+    ["--mesh", "data=4"], ["--rollback-on-spike"], ["--telemetry-dir", "runs"],
+    ["--log-trust-ratios", "--telemetry-dir", "runs"],
+])
+def test_launcher_unported_options_raise(extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        launch_train.main(argv + extra)
+        launch_train.main(SMOKE + ["--device", "cpu"] + extra)
 
 
 def test_launcher_skip_nonfinite_runs_to_done(capsys):
