@@ -66,7 +66,23 @@ Phases, each of which raises (and so exits non-zero) on failure:
    reference gives no clip); a ``grad_nan`` step bit-identical on unfused
    LAMB and on LARS, the two-stage run on LANS (schedule counter restarted,
    moment counter carried), and a LARS state saved, restored and resumed
-   bit-equal.
+   bit-equal;
+9. the rest of training at full width (after phase 8, before phase 6's
+   timings): (a) the main path with ``--telemetry-dir``, losses, update
+   norms and launch counts bit-identical to phase 5's, and with
+   ``--log-trust-ratios`` too: valid events, one ``trust_ratios`` event a
+   step with every leaf's per-layer ratios equal to K2's, a
+   ``RUN_REPORT.json`` naming the card; (b) a ``loss_spike`` rollback to an
+   async checkpoint, ending bit-equal to the run without the dropped
+   batches; (c) momentum diverging under ``--rollback-on-spike``: the
+   launcher exits 3 with status ``diverged``; (d) SIGTERM under
+   ``--preempt-grace``: saved at the stopped step and resumed bit-equal to
+   phase 7's uninterrupted run; (e) ``remat="full"``: bit-equal, K3 once
+   more per layer and micro-batch, a lower peak; then the main path's step
+   timed with nothing, telemetry, telemetry + trust records, the
+   supervisor armed and remat, in turns, three rounds.  Checkpoints go
+   under ``build/`` (at most two of 4.0 GB at once), removed as each check
+   ends.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -754,7 +770,8 @@ def _train(device, argv, steps, label):
     return trainer, launches
 
 
-def run_main_path(device) -> dict:
+def run_main_path(device) -> tuple:
+    """Phase 5; returns the main path's launch counts and history rows."""
     import torch
 
     trainer, launches = _train(device, MAIN_ARGV, MAIN_STEPS, "main path")
@@ -787,7 +804,7 @@ def run_main_path(device) -> dict:
     trainer, _ = _train(device, SEQ512_ARGV, SEQ512_STEPS, "seq 512")
     del trainer
     torch.cuda.empty_cache()
-    return launches
+    return launches, hist
 
 
 # ---------------------------------------------------------------------------
@@ -882,7 +899,8 @@ def check_checkpoint_resume(device, argv=None, label: str = "checkpoint",
     its losses and params equal to the uninterrupted run's bit for bit.
     ``argv``: the launcher's flags (default ``RESUME_ARGV``, fused LAMB).
     The checkpoints go to a directory under ``build/``, removed in a
-    ``finally``."""
+    ``finally``.  Returns the uninterrupted run's losses and params (on the
+    host)."""
     import shutil
     import tempfile
 
@@ -957,6 +975,7 @@ def check_checkpoint_resume(device, argv=None, label: str = "checkpoint",
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
+    return ref_losses, ref_params
 
 
 # ---------------------------------------------------------------------------
@@ -1123,6 +1142,378 @@ def check_unfused_guard_and_stages(device) -> None:
     # scales take unclipped steps, see PERF.md): save it after one
     lars = [a for a in RESUME_ARGV if a != "--fused-lamb"] + ["--optimizer", "lars"]
     check_checkpoint_resume(device, lars, "checkpoint, lars", timed=False, at=1)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the rest of training at full width
+# ---------------------------------------------------------------------------
+
+def _with_steps(argv: list, steps: int) -> list:
+    """``argv`` with its ``--steps`` value replaced."""
+    out = list(argv)
+    out[out.index("--steps") + 1] = str(steps)
+    return out
+
+
+def _trainer(argv: list, remat: str = "none", **kw):
+    """``(trainer, data, args)`` as the launcher builds them from ``argv``,
+    with the model config's ``remat`` and the Trainer keywords ``kw`` in
+    place of the launcher's."""
+    from repro_torch.launch.train import build, parse_args
+
+    args = parse_args(argv)
+    trainer, data, _ = build(args, remat=remat, **kw)
+    trainer.log = lambda msg: None
+    return trainer, data, args
+
+
+def _scratch(prefix: str) -> Path:
+    import tempfile
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    return Path(tempfile.mkdtemp(dir=ROOT / "build", prefix=prefix))
+
+
+def check_telemetry(device, main_hist, main_launches) -> None:
+    """(a) The main path with ``--telemetry-dir``: losses and update norms
+    bit-identical to phase 5's, launch counts equal; then with
+    ``--log-trust-ratios`` too: every event valid, one ``trust_ratios``
+    event per step with the 13 leaves (24 values a stacked leaf), the last
+    step's ratios equal to those K2's wrapper returned, and a
+    ``RUN_REPORT.json`` naming the card that compares equal to itself."""
+    import shutil
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.telemetry import RunReport, read_events
+
+    tmp = _scratch("telem_")
+    try:
+        trainer, launches = _train(device, MAIN_ARGV + ["--telemetry-dir", str(tmp / "a")],
+                                   MAIN_STEPS, "telemetry")
+        keys = ("loss/total", "update_norm")
+        same = all(_same_bits([h[k] for h in trainer.history], [h[k] for h in main_hist])
+                   for k in keys)
+        log(f"telemetry: losses and update norms bit-identical to phase 5: {same}; launch "
+            f"counts equal: {launches == main_launches}")
+        if not same or launches != main_launches:
+            raise AssertionError("telemetry changed the main path")
+        del trainer
+        torch.cuda.empty_cache()
+
+        seen = []   # every ratio K2's wrapper returned, in launch order
+        real = ops.lamb_update
+
+        def capture(*a, **kw):
+            out = real(*a, **kw)
+            seen.append(out.ratio.detach().clone())
+            return out
+
+        ops.lamb_update = capture
+        try:
+            trainer, _ = _train(device, MAIN_ARGV + ["--telemetry-dir", str(tmp / "b"),
+                                                     "--log-trust-ratios"],
+                                MAIN_STEPS, "telemetry + trust")
+        finally:
+            ops.lamb_update = real
+        events = read_events(tmp / "b" / "events.jsonl")   # validates every event
+        trust = [e for e in events if e["event"] == "trust_ratios"]
+        names = [k.replace("/", ".") for k in trainer.state.params]
+        axes = trainer.model.layer_axes()
+        widths = [LAYERS if axes[k] == 0 else 1 for k in trainer.state.params]
+        shapes_ok = all(list(e["layers"]) == names and [len(e["layers"][n]["per_layer"])
+                                                        for n in names] == widths
+                        for e in trust)
+        last = [trust[-1]["layers"][n]["per_layer"] for n in names]
+        equal_k2 = last == [r.reshape(-1).tolist() for r in seen[-LEAVES:]]
+        report = json.loads((tmp / "b" / "RUN_REPORT.json").read_text())
+        rep = RunReport(report)
+        gate = rep.compare(RunReport.load(tmp / "b" / "RUN_REPORT.json"),
+                           {"train.final.loss/total": 0.0, "train.steps": 0.0,
+                            "provenance.device_kind": 0.0, "trust_ratios.steps_recorded": 0.0})
+        kind = report["provenance"]["device_kind"]
+        log(f"telemetry + trust: {len(events)} events, all valid; types "
+            f"{report['events']['types']}; trust_ratios events {len(trust)}, leaves and "
+            f"widths as the params: {shapes_ok}; last step's ratios equal to K2's: "
+            f"{equal_k2}; report status {report.get('status')}, device_kind {kind!r}, "
+            f"compare against itself: {gate.ok}; span mean "
+            f"{report['spans']['step']['mean_s']:.4f} s")
+        log(f"telemetry + trust: per-leaf ratio range at step {trust[-1]['step']}: "
+            + ", ".join(f"{n} [{min(v):.3g}, {max(v):.3g}]" for n, v in zip(names, last)))
+        if len(trust) != MAIN_STEPS or not shapes_ok or not equal_k2 or not gate.ok \
+                or kind != torch.cuda.get_device_name(0) or report.get("status") != "ok":
+            raise AssertionError("the telemetry run's events or report are wrong")
+        del trainer
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def check_rollback(device) -> None:
+    """(b) 8 batches with a ``loss_spike`` at batch 5, async checkpoints
+    every 4, the supervisor armed after 3 losses: one ``rollback`` event to
+    the step-4 checkpoint, ``step == 8 - batches_dropped``, ``run_end`` ok,
+    and the params bit-equal to an uninterrupted run over the same stream
+    with batches [restored_i, resume_i) removed.  At most two checkpoints
+    (4.0 GB each) are on disk; removed at the end."""
+    import shutil
+
+    import torch
+
+    from repro_torch.data import DataPipeline
+    from repro_torch.kernels import reset_launches
+    from repro_torch.telemetry import EventLog
+    from repro_torch.train import FaultInjector, FaultSpec, SupervisorConfig
+
+    argv = _with_steps(MAIN_ARGV, 8)
+    inj = FaultInjector([FaultSpec("loss_spike", at=5, scale=100.0)])
+    tmp = _scratch("ckpt_rollback_")
+    events = EventLog.memory()
+    try:
+        trainer, _, args = _trainer(argv, checkpoint_dir=str(tmp), checkpoint_every=4,
+                                    async_checkpoint=True, telemetry=events,
+                                    supervisor=SupervisorConfig(spike_window=8, min_history=3))
+        cfg = trainer.model.cfg
+
+        def stream():
+            return DataPipeline(cfg, args.batch, args.seq, device=device, seed=args.seed)
+
+        def make_data():
+            return inj.wrap(stream())
+
+        reset_launches()
+        trainer.fit(make_data(), 8, data_factory=make_data)
+        torch.cuda.synchronize()
+        launches, _, _ = _counts()
+        on_disk = sorted(p.name for p in tmp.iterdir() if p.name.startswith("step_"))
+        rbs = [e for e in events.events if e["event"] == "rollback"]
+        end = events.events[-1]
+        log(f"rollback: events {[e['event'] for e in events.events]}; rollback "
+            f"{ {k: v for k, v in rbs[0].items() if k != 't'} if rbs else None}; "
+            f"step {int(trainer.state.step)}; run_end {end.get('status')}; checkpoints on "
+            f"disk {on_disk}; launches {launches}")
+        if len(rbs) != 1 or not rbs[0]["step"] < rbs[0]["from_step"] \
+                or int(trainer.state.step) != 8 - rbs[0]["batches_dropped"] \
+                or end["event"] != "run_end" or end["status"] != "ok" \
+                or launches != _want_launches(8):
+            raise AssertionError("the rollback run did not roll back once and finish")
+        restored_i = rbs[0]["step"]       # no step was skipped: batch ordinal = step
+        resume_i = restored_i + rbs[0]["batches_dropped"]
+        params = dict(trainer.state.params)
+        del trainer
+        torch.cuda.empty_cache()
+        ref, _, _ = _trainer(argv)
+        kept = (b for i, b in enumerate(stream()) if not restored_i <= i < resume_i)
+        ref.fit(kept, 8 - (resume_i - restored_i))
+        torch.cuda.synchronize()
+        differ = [k for k, v in params.items() if not _same_bits(v, ref.state.params[k])]
+        log(f"rollback: params against an uninterrupted run without batches "
+            f"[{restored_i}, {resume_i}) ({int(ref.state.step)} steps): leaves not "
+            f"bit-equal {differ}")
+        if differ:
+            raise AssertionError("the rolled-back run is not the run without the dropped "
+                                 "batches")
+        del ref, params
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def check_divergence(device) -> None:
+    """(c) Momentum (no clip, as in the reference) at full width with the
+    supervisor, a checkpoint every step and one rollback allowed: its
+    step-2 loss is not finite (phase 8), the last validated step is 0 and
+    no checkpoint is that old, so the launcher exits 3 and the report says
+    ``diverged``.  One 2.667 GB checkpoint at most; removed at the end."""
+    import shutil
+
+    import torch
+
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch import train as launch_train
+
+    tmp = _scratch("ckpt_diverge_")
+    argv = [a for a in RESUME_ARGV if a != "--fused-lamb"] + [
+        "--optimizer", "momentum", "--rollback-on-spike", "--max-rollbacks", "1",
+        "--checkpoint-dir", str(tmp / "ck"), "--checkpoint-every", "1",
+        "--telemetry-dir", str(tmp / "t")]
+    try:
+        reset_launches()
+        code = None
+        try:
+            launch_train.main(argv)
+        except SystemExit as e:   # the launcher's exit code is what is checked
+            code = e.code
+        torch.cuda.synchronize()
+        launches, _, _ = _counts()
+        report = json.loads((tmp / "t" / "RUN_REPORT.json").read_text())
+        log(f"divergence: launcher exit code {code}; report status {report.get('status')}, "
+            f"run_end {report.get('run_end')}; launches {launches}")
+        if code != 3 or report.get("status") != "diverged":
+            raise AssertionError("the diverging momentum run did not exit 3 as diverged")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+class _TermBefore:
+    """Sends SIGTERM to its own process before yielding batch ``n``."""
+
+    def __init__(self, inner, n: int):
+        self.inner, self.n, self.i = inner, n, 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        import os
+        import signal
+
+        if self.i == self.n:
+            os.kill(os.getpid(), signal.SIGTERM)
+        self.i += 1
+        return next(self.inner)
+
+
+def check_preemption(device, ref_losses, ref_params) -> None:
+    """(d) The 4-step run of phase 7 with async checkpoints and
+    ``--preempt-grace 30``, SIGTERM before batch 2: the ``preempt`` event
+    says saved, the latest checkpoint sits at the stopped step, and a
+    ``--resume`` run reaches step 4 bit-equal to phase 7's uninterrupted
+    run.  One 4.0 GB checkpoint; removed at the end."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import checkpoint_step, latest_checkpoint
+    from repro_torch.launch.train import build, parse_args
+    from repro_torch.telemetry import read_events
+
+    tmp = _scratch("ckpt_preempt_")
+    ckpt = ["--checkpoint-dir", str(tmp / "ck"), "--async-checkpoint"]
+    try:
+        trainer, data, _ = build(parse_args(RESUME_ARGV + ckpt + [
+            "--preempt-grace", "30", "--telemetry-dir", str(tmp / "t")]))
+        trainer.log = lambda msg: None
+        trainer.fit(_TermBefore(data, 2), 4)
+        stopped = int(trainer.state.step)
+        trainer.telemetry.close()
+        pe = [e for e in read_events(tmp / "t" / "events.jsonl") if e["event"] == "preempt"]
+        latest = checkpoint_step(latest_checkpoint(str(tmp / "ck")))
+        log(f"preemption: stopped at step {stopped}, status {trainer._status}; preempt "
+            f"event {pe[-1] if pe else None}; latest checkpoint step {latest}")
+        if len(pe) != 1 or not pe[0]["saved"] or latest != stopped or stopped >= 4 \
+                or trainer._status != "preempted":
+            raise AssertionError("the preempted run did not save its stopped step")
+        del trainer
+        torch.cuda.empty_cache()
+        resumed, data, _ = build(parse_args(RESUME_ARGV + ckpt + ["--resume"]))
+        resumed.log = lambda msg: None
+        resumed.fit(data, 4)
+        losses = [h["loss/total"] for h in resumed.history]
+        differ = [k for k, v in resumed.state.params.items()
+                  if not _same_bits(v.cpu(), ref_params[k])]
+        log(f"preemption: resumed steps {[h['step'] for h in resumed.history]}, losses "
+            f"{losses} against phase 7's uninterrupted {ref_losses[stopped:]}; param leaves "
+            f"not bit-equal {differ}")
+        if not _same_bits(losses, ref_losses[stopped:]) or differ \
+                or int(resumed.state.step) != 4:
+            raise AssertionError("the resumed run is not bit-equal to the uninterrupted one")
+        del resumed
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def check_remat(device) -> None:
+    """(e) 2 main-path steps with and without ``remat="full"``: losses and
+    params bit-equal, K3 launched once more per layer and micro-batch (the
+    recomputed forward) and K4/K5 as without, and a lower peak."""
+    import torch
+
+    from repro_torch.kernels import reset_launches
+
+    argv = _with_steps(MAIN_ARGV, 2)
+    runs = {}
+    for remat in ("none", "full"):
+        trainer, data, _ = _trainer(argv, remat=remat)
+        trainer.init()
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_launches()
+        trainer.fit(data, 2)
+        torch.cuda.synchronize()
+        launches, designs, copies = _counts()
+        runs[remat] = dict(losses=[h["loss/total"] for h in trainer.history],
+                           params={k: v.cpu() for k, v in trainer.state.params.items()},
+                           launches=launches, peak=torch.cuda.max_memory_allocated(device))
+        log(f"remat {remat}: losses {runs[remat]['losses']}, peak "
+            f"{runs[remat]['peak'] / 2**30:.2f} GiB, launches {launches}, by design "
+            f"{designs}, copies {copies}")
+        del trainer, data
+        torch.cuda.empty_cache()
+    plain, remat = runs["none"], runs["full"]
+    want = _want_launches(2)
+    want["flash_fwd"] *= 2
+    differ = [k for k, v in remat["params"].items() if not _same_bits(v, plain["params"][k])]
+    log(f"remat: losses bit-equal {_same_bits(remat['losses'], plain['losses'])}, param "
+        f"leaves not bit-equal {differ}; K3 launches {remat['launches']['flash_fwd']} "
+        f"(want {want['flash_fwd']}); peak {remat['peak'] / 2**30:.2f} against "
+        f"{plain['peak'] / 2**30:.2f} GiB without remat")
+    if not _same_bits(remat["losses"], plain["losses"]) or differ \
+            or remat["launches"] != want or plain["launches"] != _want_launches(2) \
+            or not remat["peak"] < min(plain["peak"], 12.01 * 2**30):
+        raise AssertionError("remat is not bit-equal, or its launches or peak are off")
+
+
+TIMING_VARIANTS = ("nothing", "telemetry", "telemetry + trust", "rollback-armed", "remat")
+
+
+def time_training_variants(device, rounds: int = 3) -> None:
+    """The main path's step with each of ``TIMING_VARIANTS`` in turns,
+    ``rounds`` rounds (``profile_step.measure``: two warm-up steps, one
+    profiled, five timed with CUDA events; ``--log-every 1000``, so one
+    logged step a ``fit``).  Rollback-armed saves no checkpoint inside the
+    window (``--checkpoint-every 1000``): the supervisor's transfer a step
+    is what it adds.  Prints each run and each variant's spread."""
+    import shutil
+
+    import torch
+
+    from repro_torch.launch.profile_step import DEFAULT_ARGV, measure
+
+    tmp = _scratch("timing_")
+    extra = {
+        "nothing": [], "remat": [],
+        "telemetry": ["--telemetry-dir", str(tmp / "t")],
+        "telemetry + trust": ["--telemetry-dir", str(tmp / "tt"), "--log-trust-ratios"],
+        "rollback-armed": ["--rollback-on-spike", "--checkpoint-dir", str(tmp / "ck"),
+                           "--checkpoint-every", "1000"],
+    }
+    got = {v: [] for v in TIMING_VARIANTS}
+    try:
+        for rnd in range(rounds):
+            order = TIMING_VARIANTS if rnd % 2 == 0 else TIMING_VARIANTS[::-1]
+            for v in order:
+                trainer, data, _ = _trainer(DEFAULT_ARGV + ["--steps", "8"] + extra[v],
+                                            remat="full" if v == "remat" else "none")
+                r = measure(trainer, data)
+                got[v].append(r)
+                log(f"timing round {rnd + 1} {v}: wall {r['wall_ms']:.2f} ms/step, CUDA-event "
+                    f"span {r['span_ms']:.2f} ms/step, busy {r['busy_ms']:.2f} ms in "
+                    f"{r['launches']} launches, idle share {r['idle']:.3f}, peak "
+                    f"{r['peak_gib']:.2f} GiB")
+                del trainer, data
+                torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for v in TIMING_VARIANTS:
+        rs = got[v]
+        spread = {k: [round(r[k], 2) for r in rs] for k in ("wall_ms", "span_ms", "busy_ms")}
+        log(f"timing {v}: wall {spread['wall_ms']} ms/step (median "
+            f"{sorted(spread['wall_ms'])[len(rs) // 2]}), span {spread['span_ms']}, busy "
+            f"{spread['busy_ms']}, launches {[r['launches'] for r in rs]}, peak "
+            f"{[round(r['peak_gib'], 2) for r in rs]} GiB")
 
 
 # ---------------------------------------------------------------------------
@@ -1382,17 +1773,24 @@ def main() -> None:
 
     errs = {**check_kernels(device), **check_flash(device), **check_fused_ce(device)}
     check_against_cpu(device)
-    launches = run_main_path(device)
+    launches, main_hist = run_main_path(device)
     trainer = run_two_stages(device)
     check_guard(trainer, device)
     del trainer
     torch.cuda.empty_cache()
-    check_checkpoint_resume(device)
+    ref_losses, ref_params = check_checkpoint_resume(device)
     check_lamb_forms(device)
     for opt in OPTIMIZERS:
         run_optimizer(device, opt)
     run_optimizer(device, "lamb", fused=True)
     check_unfused_guard_and_stages(device)
+    check_telemetry(device, main_hist, launches)
+    check_rollback(device)
+    check_divergence(device)
+    check_preemption(device, ref_losses, ref_params)
+    del ref_params
+    check_remat(device)
+    time_training_variants(device)
     timing = {**time_kernels(device, rate), **time_flash(device, rate),
               **time_fused_ce(device, rate)}
 

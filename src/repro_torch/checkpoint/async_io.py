@@ -27,7 +27,9 @@ the caller before waiting), ``blocked_s`` (its wait on the previous write),
 ``copy_s`` (the device-to-host copies' time on the stream, from CUDA events;
 0 for a state on the CPU), ``copy_wait_s`` (the writer's wait for the
 copies to land) and ``write_s`` (the writer's wall time, that wait
-included).
+included).  A wired :class:`~repro_torch.telemetry.EventLog` receives a
+``checkpoint`` event (``mode="async"``) with those timings per save, from
+the writer's thread.
 """
 from __future__ import annotations
 
@@ -44,6 +46,7 @@ from repro_torch.checkpoint.io import (
     tree_leaves_with_paths,
     write_checkpoint_dir,
 )
+from repro_torch.telemetry.events import EventLog
 
 HostLeaves = List[Tuple[str, Any]]
 
@@ -71,8 +74,9 @@ class AsyncCheckpointer:
     (re-raising its exception, if any).  At most one write is in flight.
     """
 
-    def __init__(self, directory: str):
+    def __init__(self, directory: str, *, telemetry: Optional[EventLog] = None):
         self.directory = directory
+        self.telemetry = telemetry if telemetry is not None else EventLog()
         self._executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="ckpt-write")
         self._future: Optional[Future] = None
         self._buffers: List[Optional[Dict[str, torch.Tensor]]] = [None, None]
@@ -136,9 +140,10 @@ class AsyncCheckpointer:
         copy_wait_s = time.perf_counter() - t0
         path = write_checkpoint_dir(self.directory, step, host)
         self._latest_persisted = step
-        self.timings.append(dict(step=step, snapshot_s=snapshot_s, blocked_s=blocked_s,
-                                 copy_s=copy_s, copy_wait_s=copy_wait_s,
-                                 write_s=time.perf_counter() - t0))
+        timing = dict(snapshot_s=snapshot_s, blocked_s=blocked_s, copy_s=copy_s,
+                      copy_wait_s=copy_wait_s, write_s=time.perf_counter() - t0)
+        self.timings.append(dict(step=step, **timing))
+        self.telemetry.emit("checkpoint", step=step, path=path, mode="async", **timing)
         return path
 
     def wait(self, timeout: Optional[float] = None) -> Optional[str]:

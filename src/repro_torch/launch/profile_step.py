@@ -51,13 +51,16 @@ def _group(name: str) -> str:
     return "other"
 
 
-def main(argv: Optional[List[str]] = None) -> None:
-    argv = list(sys.argv[1:] if argv is None else argv)
-    default = [a for a in DEFAULT_ARGV if a != "--fused-lamb" or "--optimizer" not in argv]
-    args = parse_args(default + argv)
-    trainer, data, cfg = build(args)
+def measure(trainer, data) -> dict:
+    """Two warm-up steps, one under ``torch.profiler``, then ``TIMED``
+    steps between CUDA events, all on batches of ``data`` made beforehand.
+    Returns the host's ms per batch, the timed steps' wall and device-span
+    ms per step, the profiled step's kernel rows ``(name, ms, count)``,
+    busy ms, launches and idle share, the peak device memory in GiB and the
+    caching allocator's calls per timed step."""
     trainer.log = lambda msg: None
-    trainer.init()  # weights and the CUDA context before anything is timed
+    if trainer.state is None:
+        trainer.init()  # weights and the CUDA context before anything is timed
     torch.cuda.reset_peak_memory_stats()
     next(data)
     t0 = time.perf_counter()
@@ -76,23 +79,34 @@ def main(argv: Optional[List[str]] = None) -> None:
     end.record()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / TIMED
-    alloc = {k: (torch.cuda.memory_stats().get(k, 0) - alloc0[k]) / TIMED for k in ALLOCATOR_STATS}
+    alloc = {k: (torch.cuda.memory_stats().get(k, 0) - alloc0[k]) / TIMED
+             for k in ALLOCATOR_STATS}
     span_ms = start.elapsed_time(end) / TIMED
     # kernel-level events only: an operator's device time is its kernels'
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(ms for _, ms, _ in rows)
+    return dict(data_ms=data_ms, wall_ms=wall_ms, span_ms=span_ms, rows=rows, busy_ms=busy,
+                launches=sum(n for *_, n in rows), idle=1 - busy / span_ms,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30, alloc=alloc)
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    default = [a for a in DEFAULT_ARGV if a != "--fused-lamb" or "--optimizer" not in argv]
+    trainer, data, _ = build(parse_args(default + argv))
+    r = measure(trainer, data)
+    rows, busy = r["rows"], r["busy_ms"]
     groups: dict = {}
     for key, ms, _ in rows:
         groups[_group(key)] = groups.get(_group(key), 0.0) + ms
-    print(f"host batch generation: {data_ms:.2f} ms per batch (outside the steps below)")
-    print(f"{TIMED} steps, batches already on the card: wall {wall_ms:.2f} ms/step, "
-          f"device span {span_ms:.2f} ms/step (CUDA events)")
-    print(f"profiled step: kernels busy {busy:.2f} ms in {sum(n for *_, n in rows)} "
-          f"launches; device idle share of a timed step {1 - busy / span_ms:.2f}")
-    print(f"peak device memory over the steps: "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; caching allocator per timed "
-          f"step: " + ", ".join(f"{k} {v:g}" for k, v in alloc.items()))
+    print(f"host batch generation: {r['data_ms']:.2f} ms per batch (outside the steps below)")
+    print(f"{TIMED} steps, batches already on the card: wall {r['wall_ms']:.2f} ms/step, "
+          f"device span {r['span_ms']:.2f} ms/step (CUDA events)")
+    print(f"profiled step: kernels busy {busy:.2f} ms in {r['launches']} "
+          f"launches; device idle share of a timed step {r['idle']:.2f}")
+    print(f"peak device memory over the steps: {r['peak_gib']:.2f} GiB; caching allocator "
+          f"per timed step: " + ", ".join(f"{k} {v:g}" for k, v in r["alloc"].items()))
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {g:16s} {ms:9.2f} ms {100 * ms / max(busy, 1e-9):5.1f}%")
     for g in ("flash kernels", "fused CE kernels", "lamb kernels"):

@@ -5,7 +5,9 @@
         --fused-lamb --steps 6 [--device cpu] [--smoke] \
         [--optimizer {lamb,lans,lars,nlamb,nnlamb,adam,adamw,adagrad,momentum}] \
         [--log-trust-ratios] [--mixed-batch] [--skip-nonfinite] \
-        [--checkpoint-dir DIR --checkpoint-every N [--async-checkpoint] [--resume]]
+        [--checkpoint-dir DIR --checkpoint-every N [--async-checkpoint] [--resume]] \
+        [--telemetry-dir DIR] [--rollback-on-spike --spike-window 32 \
+         --max-rollbacks 3] [--preempt-grace 30]
 
 LAMB pretraining of BERT-large (masked LM on synthetic data), the fused
 LAMB update, flash attention and the fused CE head running as CUDA kernels
@@ -19,16 +21,25 @@ two-stage recipe: 80% of the steps at ``--seq`` and ``--batch``, the rest
 at 4 × seq and batch / 4 with a re-warmed learning rate on the same
 optimizer state.
 ``--skip-nonfinite`` skips (and counts) a step whose gradients or loss are
-not finite.  It runs on ``cuda`` unless ``--device`` names another device,
-and raises when there is no card.
+not finite.  ``--telemetry-dir`` writes the structured event log
+(``events.jsonl``) and, from a ``finally``, ``RUN_REPORT.json``; with
+``--log-trust-ratios`` it also records every layer's trust ratio and norms
+at each logged step.  ``--rollback-on-spike`` arms the loss-spike watchdog:
+a trip restores the last validated checkpoint, and past
+``--max-rollbacks`` the run aborts with exit code 3.  ``--preempt-grace N``
+turns SIGTERM/SIGINT into a final checkpoint (drained within N seconds)
+and a clean ``status=preempted`` stop, resumable with ``--resume``.  It
+runs on ``cuda`` unless ``--device`` names another device, and raises when
+there is no card.
 
-The flags mirror ``repro.launch.train``.  Those whose code is not ported
-yet raise ``NotImplementedError`` naming their ROADMAP.md item: meshes,
-telemetry and the loss-spike rollback.
+The flags mirror ``repro.launch.train``; ``--mesh`` is not ported yet and
+raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
 import argparse
+import sys
+from pathlib import Path
 from typing import List, Optional
 
 from repro_torch import core
@@ -38,14 +49,11 @@ from repro_torch.core import make_stage
 from repro_torch.data import DataPipeline
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
-from repro_torch.train import Trainer
+from repro_torch.telemetry import EventLog, RunReport
+from repro_torch.train import DivergenceError, SupervisorConfig, Trainer
 
 # flag → ROADMAP.md item of the code it would need
-_UNPORTED = {
-    "mesh": "queue 1, item 11",
-    "telemetry_dir": "queue 1, item 8",
-    "rollback_on_spike": "queue 1, item 8",
-}
+_UNPORTED = {"mesh": "queue 1, item 11"}
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -92,11 +100,24 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--resume", action="store_true",
                     help="restore the latest complete checkpoint in "
                          "--checkpoint-dir and continue from its step")
-    for flag in ("--mesh", "--telemetry-dir"):
-        ap.add_argument(flag, default="")
+    ap.add_argument("--mesh", default="")
+    ap.add_argument("--telemetry-dir", default="",
+                    help="write the event log (events.jsonl) and RUN_REPORT.json here; "
+                         "off: a null sink, the step loop unchanged")
     ap.add_argument("--log-trust-ratios", action="store_true",
-                    help="the trust ratios' min, max and mean in each history row")
-    ap.add_argument("--rollback-on-spike", action="store_true")
+                    help="the trust ratios' min, max and mean in each history row; with "
+                         "--telemetry-dir also every layer's ratio and norms")
+    ap.add_argument("--rollback-on-spike", action="store_true",
+                    help="loss-spike watchdog: a trip restores the last validated "
+                         "checkpoint and skips the suspect batches (requires "
+                         "--checkpoint-dir and --checkpoint-every)")
+    ap.add_argument("--spike-window", type=int, default=32,
+                    help="trailing-loss window of the spike detector")
+    ap.add_argument("--max-rollbacks", type=int, default=3,
+                    help="rollbacks before the run aborts with exit code 3")
+    ap.add_argument("--preempt-grace", type=float, default=None,
+                    help="seconds: SIGTERM/SIGINT finishes the step, writes a final "
+                         "checkpoint within this window and stops with status=preempted")
     return ap.parse_args(argv)
 
 
@@ -110,8 +131,10 @@ def lr_schedule(args: argparse.Namespace):
     return lr, core.warmup_poly_decay(lr, args.steps, int(args.steps * warmup_ratio))
 
 
-def build(args: argparse.Namespace):
-    """(trainer, data, cfg) for parsed ``args``; raises for unported options."""
+def build(args: argparse.Namespace, *, remat: Optional[str] = None, **trainer_kw):
+    """(trainer, data, cfg) for parsed ``args``; raises for unported options.
+    ``remat`` replaces the model config's, and ``trainer_kw`` replace the
+    Trainer keywords taken from ``args``."""
     for name, item in _UNPORTED.items():
         if getattr(args, name):
             raise NotImplementedError(
@@ -125,30 +148,46 @@ def build(args: argparse.Namespace):
                          f"--accum-steps {args.accum_steps}")
     if args.resume and not args.checkpoint_dir:
         raise SystemExit("--resume requires --checkpoint-dir")
+    if args.rollback_on_spike and not (args.checkpoint_dir and args.checkpoint_every):
+        raise SystemExit("--rollback-on-spike requires --checkpoint-dir and "
+                         "--checkpoint-every (rollback needs a checkpoint to restore)")
+    if args.rollback_on_spike and args.mixed_batch:
+        raise SystemExit("--rollback-on-spike is not supported with --mixed-batch")
     device = resolve_device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.flash is not None:
         cfg = cfg.replace(use_flash_kernel=args.flash)
     if args.fused_ce is not None:
         cfg = cfg.replace(use_fused_ce_head=args.fused_ce)
+    if remat is not None:
+        cfg = cfg.replace(remat=remat)
     model = build_model(cfg)
     lr, schedule = lr_schedule(args)
+    telemetry = EventLog.to_dir(args.telemetry_dir) if args.telemetry_dir else EventLog()
     tc = TrainConfig(
         optimizer=args.optimizer, learning_rate=lr,
         weight_decay=args.weight_decay, total_steps=args.steps, seed=args.seed,
         accum_steps=args.accum_steps, precision=args.precision,
         use_fused_lamb=args.fused_lamb, skip_nonfinite=args.skip_nonfinite,
         log_trust_ratios=args.log_trust_ratios,
+        # the per-layer records cost a transfer a logged step: only worth it
+        # with an event log to receive them
+        record_trust_ratios=args.log_trust_ratios and telemetry.enabled,
     )
-    trainer = Trainer(
-        model, tc, device=device,
+    kw = dict(
         schedule=schedule,
         checkpoint_dir=args.checkpoint_dir or None,
         checkpoint_every=args.checkpoint_every,
         async_checkpoint=args.async_checkpoint,
         resume=args.resume,
         log_every=args.log_every,
+        telemetry=telemetry,
+        supervisor=(SupervisorConfig(spike_window=args.spike_window,
+                                     max_rollbacks=args.max_rollbacks)
+                    if args.rollback_on_spike else None),
+        preempt_grace=args.preempt_grace,
     )
+    trainer = Trainer(model, tc, device=device, **{**kw, **trainer_kw})
     data = DataPipeline(cfg, args.batch, args.seq, device=device, seed=args.seed)
     return trainer, data, cfg
 
@@ -183,15 +222,39 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
           f"optimizer={args.optimizer} "
           f"fused_lamb={args.fused_lamb} flash={cfg.use_flash_kernel} "
           f"fused_ce={cfg.use_fused_ce_head}")
-    if args.mixed_batch:
-        trainer.fit_stages(mixed_batch_stages(args), data_seed=args.seed)
-    else:
-        trainer.fit(data, args.steps)
+    stages = mixed_batch_stages(args) if args.mixed_batch else None
+    # the Trainer emits run_end (with its status) from a finally, so the
+    # report is written even when the run aborts: a diverged run's report is
+    # the diagnostic to read
+    exit_code = 0
+    try:
+        if stages:
+            trainer.fit_stages(stages, data_seed=args.seed)
+        else:
+            def make_data():
+                return DataPipeline(cfg, args.batch, args.seq, device=trainer.device,
+                                    seed=args.seed)
+
+            trainer.fit(data, args.steps, data_factory=make_data)
+    except DivergenceError as e:
+        print(f"DIVERGED: {e}", file=sys.stderr)
+        for k, v in e.diagnostics.items():
+            print(f"  {k}: {v}", file=sys.stderr)
+        exit_code = 3
+    finally:
+        telemetry = trainer.telemetry
+        if telemetry.enabled:
+            telemetry.close()
+            report_path = Path(args.telemetry_dir) / "RUN_REPORT.json"
+            RunReport.from_events(telemetry.path).write(report_path)
+            print(f"telemetry: {telemetry.path} report: {report_path}")
     final = trainer.history[-1] if trainer.history else {}
     loss = final.get("loss/total")
     print(f"done: step={final.get('step')} "
           f"loss={'n/a' if loss is None else f'{loss:.4f}'} "
-          f"acc={final.get('accuracy', 0.0):.4f} status=ok")
+          f"acc={final.get('accuracy', 0.0):.4f} status={trainer._status}")
+    if exit_code:
+        sys.exit(exit_code)
     return trainer
 
 

@@ -8,15 +8,22 @@ take) and a Python loop runs the blocks.  Indexing ``p[i]`` per layer
 instead would make every ``select`` backward allocate a zero tensor the size
 of the whole stack.
 
+``cfg.remat == "full"`` recomputes each block's forward in the backward
+(``torch.utils.checkpoint``, non-reentrant: the reference's
+``jax.checkpoint`` on the scanned block body), so only the blocks' inputs
+stay alive between the passes; the flash ``autograd.Function`` runs its
+forward (K3) again per layer in the backward and saves the same residuals.
+
 Only the dense family's train path is ported: MoE, MLA, dense prefixes,
-untied heads, MTP, modality frontends, remat and the KV caches raise
-(ROADMAP.md queue 1, items 9–10).
+untied heads, MTP, modality frontends and the KV caches raise (ROADMAP.md
+queue 1, items 9–10).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import nn
 from repro_torch.configs.base import ModelConfig
@@ -50,8 +57,6 @@ def _check_ported(cfg: ModelConfig) -> None:
     if cfg.frontend != "none":
         raise NotImplementedError(f"frontend {cfg.frontend!r} is not ported "
                                   "(ROADMAP.md queue 1, item 10)")
-    if cfg.remat != "none":
-        raise NotImplementedError("remat is not ported (ROADMAP.md queue 1, item 3)")
 
 
 def _block_defs(cfg: ModelConfig) -> dict:
@@ -115,7 +120,13 @@ def forward(
     stacked = {k: torch.unbind(v, 0) for k, v in _sub(params, "blocks").items()}
     for i in range(cfg.n_layers):
         bp = {k: v[i] for k, v in stacked.items()}
-        x = _one_block(bp, x, positions, cfg, valid_len=valid_len)
+        if cfg.remat == "full":
+            # the block draws no random numbers: no RNG state to stash
+            x = torch.utils.checkpoint.checkpoint(
+                _one_block, bp, x, positions, cfg, valid_len=valid_len,
+                use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _one_block(bp, x, positions, cfg, valid_len=valid_len)
 
     x = apply_norm(_sub(params, "final_norm"), x)
     if return_hidden:

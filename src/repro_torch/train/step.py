@@ -9,7 +9,8 @@ them as a device flag.  Every other optimizer (and unfused LAMB) runs the
 transform chain of :func:`make_optimizer`: ``opt.update`` then
 ``optim.apply_updates``, with the guard a where-select of old against new
 over the params and the whole chain state.  ``tc.record_trust_ratios``
-(per-layer telemetry) raises (ROADMAP.md queue 1, item 8).
+adds the per-layer records under ``telemetry.trust.PER_LAYER_KEY``: the
+ratios K2 applied on the fused path, phi(||x||)/||Δx|| on a chain.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.kernels import fused_lamb, fused_lamb_init, make_fused_lamb_step
 from repro_torch.models.api import Model
 from repro_torch.optim.base import global_norm
+from repro_torch.telemetry.trust import PER_LAYER_KEY
 from repro_torch.train.faults import apply_grad_faults, apply_loss_faults, split_faults
 from repro_torch.train.loss import check_fused_ce_supported, loss_for
 
@@ -97,15 +99,6 @@ def _check_fused_supported(tc: TrainConfig) -> None:
         raise ValueError(
             "fused LAMB supports bias-corrected fp32 moments only; "
             "unset use_fused_lamb or bias_correction/moment_dtype"
-        )
-
-
-def check_train_config(tc: TrainConfig) -> None:
-    """Raise for the options of ``TrainConfig`` the port does not have yet."""
-    if tc.record_trust_ratios:
-        raise NotImplementedError(
-            "record_trust_ratios (per-layer telemetry) is not ported "
-            "(ROADMAP.md queue 1, item 8)"
         )
 
 
@@ -255,9 +248,10 @@ def make_train_step(model: Model, tc: TrainConfig, schedule=None, *,
     back.  Otherwise ``optimizer`` (default :func:`make_optimizer`) runs as
     a transform chain and a new ``TrainState`` comes back, the guard
     selecting old against new per leaf.  ``tc.log_trust_ratios`` adds the
-    ``trust_ratio/{min,max,mean}`` summary of phi(||x||)/||Δx|| on both.
+    ``trust_ratio/{min,max,mean}`` summary of phi(||x||)/||Δx|| on both;
+    ``tc.record_trust_ratios`` the per-layer records (``PER_LAYER_KEY``),
+    left on the device.
     """
-    check_train_config(tc)
     loss_fn = make_loss_fn(model)
     n_micro = tc.grad_accum_steps
     compute_dtype = tc.compute_dtype
@@ -284,6 +278,14 @@ def make_train_step(model: Model, tc: TrainConfig, schedule=None, *,
         return core.summarize_trust_ratios(core.trust_ratio_tree(
             params, updates, layer_axes=layer_axes, phi_bounds=tc.phi_bounds))
 
+    # per-layer telemetry (off by default): the records stay on the device
+    # in the metrics until the Trainer's log step fetches them
+    record = tc.record_trust_ratios
+
+    def per_layer_records(params, updates, applied_ratio=None):
+        return core.trust_records(params, updates, layer_axes=layer_axes,
+                                  phi_bounds=tc.phi_bounds, trust_ratio=applied_ratio)
+
     if optimizer is None and tc.optimizer == "lamb" and _wants_fused(model, tc):
         _check_fused_supported(tc)
         fused_step = make_fused_lamb_step(
@@ -291,7 +293,7 @@ def make_train_step(model: Model, tc: TrainConfig, schedule=None, *,
             tc.b1, tc.b2, tc.eps, tc.weight_decay,
             wd_mask=model.wd_mask(), trust_mask=model.trust_mask(),
             layer_axes=layer_axes, phi_bounds=tc.phi_bounds,
-            grad_clip_norm=tc.grad_clip_norm,
+            grad_clip_norm=tc.grad_clip_norm, with_aux=record,
         )
 
         def init_fn(seed: int, device: torch.device) -> TrainState:
@@ -302,15 +304,19 @@ def make_train_step(model: Model, tc: TrainConfig, schedule=None, *,
             grads, metrics, ok = grads_and_metrics(state.params, batch)
             adv = None if ok is None else ok.to(torch.int32)
             # K1/K2 write the params in place: keep the old ones for the
-            # trust-ratio summary, and only then
+            # trust-ratio summary and records, and only then
             old = ({k: v.clone() for k, v in state.params.items()}
-                   if tc.log_trust_ratios else None)
-            delta_sq = fused_step(state.params, grads, state.opt_state, ok=adv)
+                   if tc.log_trust_ratios or record else None)
+            out = fused_step(state.params, grads, state.opt_state, ok=adv)
+            delta_sq, applied = out if record else (out, None)
             metrics["update_norm"] = torch.sqrt(delta_sq)
             if old is not None:
-                metrics.update(trust_diag(old, {
-                    k: v.to(torch.float32) - old[k].to(torch.float32)
-                    for k, v in state.params.items()}))
+                updates = {k: v.to(torch.float32) - old[k].to(torch.float32)
+                           for k, v in state.params.items()}
+                if tc.log_trust_ratios:
+                    metrics.update(trust_diag(old, updates))
+                if record:   # the ratios K2 applied (its aux output)
+                    metrics[PER_LAYER_KEY] = per_layer_records(old, updates, applied)
             if guard:
                 metrics[GUARD_KEY] = 1.0 - adv.to(torch.float32)
                 state.step.add_(adv)
@@ -344,6 +350,8 @@ def make_train_step(model: Model, tc: TrainConfig, schedule=None, *,
         metrics["update_norm"] = update_norm
         if tc.log_trust_ratios:
             metrics.update(trust_diag(state.params, updates))
+        if record:   # a chain's ratio is internal: the post-hoc one
+            metrics[PER_LAYER_KEY] = per_layer_records(state.params, updates)
         if ok is None:
             return TrainState(params, opt_state, state.step + 1, state.skipped), metrics
         adv = ok.to(torch.int32)

@@ -11,30 +11,48 @@ JAX package's format, for any optimizer; ``resume=True`` restores the latest com
 against a run that was never interrupted.  ``async_checkpoint=True`` routes
 saves through :class:`~repro_torch.checkpoint.AsyncCheckpointer`.
 
-Telemetry, the loss-spike supervisor and preemption are not ported yet
-(ROADMAP.md queue 1, item 8).
+Robustness, as in the reference: ``supervisor=`` arms the loss-spike
+watchdog (one host transfer a step), which on a trip restores the last
+validated checkpoint and fast-forwards the stream past the suspect batches
+(``fit(..., data_factory=)``), and raises :class:`DivergenceError` past its
+budget; ``preempt_grace=`` turns SIGTERM/SIGINT into a grace-window final
+checkpoint and a clean stop.  ``telemetry=`` (an
+:class:`~repro_torch.telemetry.EventLog`) receives the reference's events:
+``run_start`` with the provenance, ``step`` and ``span`` per logged
+interval (two syncs an interval), ``trust_ratios`` under
+``tc.record_trust_ratios``, ``checkpoint``, ``resume``, ``rollback``,
+``preempt``, ``stage_start`` and a ``run_end`` with its ``status``
+(``ok``/``failed``/``preempted``/``diverged``) from a ``finally``.  With the
+default null log the step loop adds no launch, sync or transfer.
 """
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
 from repro_torch.checkpoint import (
     AsyncCheckpointer,
     checkpoint_step,
+    discard_checkpoints_after,
     latest_checkpoint,
     restore_checkpoint,
     save_checkpoint,
+    tree_leaves_with_paths,
 )
+from repro_torch.checkpoint.io import tree_map_with_paths
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.mixed_batch import Stage
 from repro_torch.data.pipeline import DataPipeline
 from repro_torch.kernels.ops import FusedLambState
 from repro_torch.models.api import Model
 from repro_torch.optim.base import ScheduleState
-from repro_torch.train.step import GUARD_KEY, TRUST_KEYS, TrainState, make_train_step
+from repro_torch.telemetry import EventLog, SpanRecorder, TrustRecorder, run_provenance
+from repro_torch.telemetry.trust import PER_LAYER_KEY
+from repro_torch.train.preempt import PreemptionHandler
+from repro_torch.train.step import GUARD_KEY, LOSS_KEY, TRUST_KEYS, TrainState, make_train_step
+from repro_torch.train.supervisor import DivergenceError, SupervisorConfig, TrainingSupervisor
 
 # the per-step metrics the history keeps, fetched together at a log step
 HISTORY_KEYS = ("loss/total", "loss/ce", "accuracy", "tokens/supervised",
@@ -74,6 +92,9 @@ class Trainer:
         resume: bool = False,
         log_every: int = 10,
         log_fn: Callable[[str], None] = print,
+        telemetry: Optional[EventLog] = None,
+        supervisor: Optional[SupervisorConfig] = None,
+        preempt_grace: Optional[float] = None,
     ):
         self.model = model
         self.tc = train_cfg
@@ -84,8 +105,23 @@ class Trainer:
         self.resume = resume
         self._checkpointer: Optional[AsyncCheckpointer] = None
         self._last_saved_step: Optional[int] = None
+        # loss-spike watchdog: a fresh TrainingSupervisor per fit from this
+        # config (rollback counts must not leak across fits)
+        self.supervisor_cfg = supervisor
+        # not None: a SIGTERM/SIGINT handler around the fit loop; the value
+        # bounds (seconds) the final save's drain
+        self.preempt_grace = preempt_grace
+        self._skipped_seen = 0
+        self._status = "ok"
         self.log_every = log_every
         self.log = log_fn
+        # a null EventLog unless the caller wires a sink; everything below
+        # guards on .enabled, so the default path adds no sync or transfer
+        self.telemetry = telemetry if telemetry is not None else EventLog()
+        sink = self.telemetry if self.telemetry.enabled else None
+        self.spans = SpanRecorder(log=sink)
+        self.trust_recorder = TrustRecorder(log=sink)
+        self._run_started = False
         self.history: List[Dict[str, float]] = []
         self.examples_seen = 0
         self._init_fn, self._step_fn = make_train_step(model, train_cfg, schedule)
@@ -96,39 +132,90 @@ class Trainer:
         return self.state
 
     # ------------------------------------------------------------------
+    # telemetry
+    # ------------------------------------------------------------------
+    def _emit_run_start(self) -> None:
+        if self._run_started or not self.telemetry.enabled:
+            return
+        self._run_started = True
+        self.telemetry.emit(
+            "run_start",
+            provenance=run_provenance(device=self.device,
+                                      configs=(self.model.cfg, self.tc)),
+            arch=self.model.cfg.name, optimizer=self.tc.optimizer,
+        )
+
+    def _log_step(self, m: Dict[str, float], per_layer, step_s: float,
+                  n_steps: int) -> None:
+        """Emit the log-step telemetry: the step event and the trust records."""
+        scalars = {k: v for k, v in m.items()
+                   if k not in ("step", "examples_seen", "wall_s", "stage")}
+        ev = dict(step=m["step"], examples_seen=m["examples_seen"],
+                  wall_s=m["wall_s"], metrics=scalars)
+        if "stage" in m:
+            ev["stage"] = m["stage"]
+        if n_steps:
+            ev["step_time_s"] = step_s / n_steps
+        self.telemetry.emit("step", **ev)
+        if per_layer is not None:
+            self.trust_recorder.record(m["step"], per_layer)
+
+    def _emit_run_end(self, supervisor: Optional[TrainingSupervisor] = None) -> None:
+        if not self.telemetry.enabled:
+            return
+        fields: Dict[str, Any] = {"status": self._status}
+        if self.state is not None:
+            try:
+                fields["final_step"] = int(self.state.step)
+                fields["skipped_steps"] = int(self.state.skipped)
+            except RuntimeError:   # a failed CUDA launch fails every later read
+                pass
+        if self.history:
+            fields["final_loss"] = float(self.history[-1].get(LOSS_KEY, float("nan")))
+        if supervisor is not None:
+            fields["rollbacks"] = supervisor.rollbacks
+        self.telemetry.emit("run_end", **fields)
+
+    # ------------------------------------------------------------------
     # checkpointing + resume
     # ------------------------------------------------------------------
     @property
     def checkpointer(self) -> AsyncCheckpointer:
         """Lazy double-buffered async writer (made on the first async save)."""
         if self._checkpointer is None:
-            self._checkpointer = AsyncCheckpointer(self.checkpoint_dir)
+            self._checkpointer = AsyncCheckpointer(self.checkpoint_dir,
+                                                   telemetry=self.telemetry)
         return self._checkpointer
 
     def _save_checkpoint(self) -> None:
         """Persist the full TrainState.  A same-step re-save is dropped: with
-        the guard on, skipped steps can put two cadence points on one
-        ``state.step``; the state is the same and the write is not free."""
+        the guard on, skipped steps can put two cadence points (or cadence
+        and preemption) on one ``state.step``; the state is the same and the
+        write is not free."""
         step = int(self.state.step)
         if step == self._last_saved_step:
             return
         self._last_saved_step = step
         if self.async_checkpoint:
             self.checkpointer.save(step, self.state)
-        else:
-            save_checkpoint(self.checkpoint_dir, step, self.state)
+            return
+        t0 = time.perf_counter()
+        path = save_checkpoint(self.checkpoint_dir, step, self.state)
+        self.telemetry.emit("checkpoint", step=step, path=path, mode="sync",
+                            write_s=time.perf_counter() - t0)
 
-    def _drain_checkpoints(self) -> None:
+    def _drain_checkpoints(self, timeout: Optional[float] = None) -> None:
         """Block until the in-flight async write (if any) is durable, so a
-        returned ``fit`` implies every scheduled checkpoint is on disk."""
+        returned ``fit`` implies every scheduled checkpoint is on disk.
+        ``timeout`` bounds the wait (the preemption grace window)."""
         if self._checkpointer is not None:
-            self._checkpointer.wait()
+            self._checkpointer.wait(timeout)
 
     def restore(self, path: Optional[str] = None) -> Optional[int]:
         """Restore the full TrainState from ``path`` (default: the latest
         complete checkpoint in ``checkpoint_dir``) onto this trainer's
-        device.  Returns the restored step, or None when there is nothing to
-        restore."""
+        device: every leaf a new tensor read from disk.  Returns the
+        restored step, or None when there is nothing to restore."""
         if path is None:
             path = latest_checkpoint(self.checkpoint_dir) if self.checkpoint_dir else None
         if path is None:
@@ -136,6 +223,7 @@ class Trainer:
         target = self.state if self.state is not None else self.init()
         self.state = restore_checkpoint(path, target)
         step = checkpoint_step(path)
+        self.telemetry.emit("resume", step=step, path=path)
         self.log(f"resumed step {step} from {path}")
         return step
 
@@ -155,18 +243,40 @@ class Trainer:
         return start
 
     # ------------------------------------------------------------------
-    def _history_row(self, metrics, extra: Dict[str, float], t0: float) -> Dict[str, float]:
-        """One history row: the fp32 metrics and both int32 counters in one
-        stack and one transfer (which also waits for the device, so
-        ``wall_s`` counts finished work).  The counters ride as their bits
-        (a view, no cast kernel) and are read back as int32."""
+    def _fetch(self, scalars, vectors=()):
+        """One device-to-host transfer (which also waits for the device):
+        the fp32 ``scalars``, both int32 counters and the flattened
+        ``vectors``.  The counters ride as their bits (a view, no cast
+        kernel) and are read back as int32.  Returns ``(scalar values, step,
+        skipped, vector values)``, the last one flat tensor."""
+        n = len(scalars)
+        values = torch.stack([x.to(torch.float32) for x in scalars]
+                             + [self.state.step.view(torch.float32),
+                                self.state.skipped.view(torch.float32)])
+        if vectors:
+            values = torch.cat([values] + [x.to(torch.float32).reshape(-1) for x in vectors])
+        host = values.cpu()
+        step, skipped = host[n:n + 2].view(torch.int32).tolist()
+        return host[:n].tolist(), step, skipped, host[n + 2:]
+
+    def _history_row(self, metrics, extra: Dict[str, float], t0: float):
+        """One history row and the host copy of the per-layer records (None
+        without telemetry or records), in one transfer, so ``wall_s``
+        counts finished work."""
         keys = (HISTORY_KEYS + ((GUARD_KEY,) if self.tc.skip_nonfinite else ())
                 + (TRUST_KEYS if self.tc.log_trust_ratios else ()))
-        values = torch.stack([metrics[k].to(torch.float32) for k in keys]
-                             + [self.state.step.view(torch.float32),
-                                self.state.skipped.view(torch.float32)]).cpu()
-        m = dict(zip(keys, values[:-2].tolist()))
-        step, skipped = values[-2:].view(torch.int32).tolist()
+        records = metrics.get(PER_LAYER_KEY) if self.telemetry.enabled else None
+        leaves = tree_leaves_with_paths(records) if records is not None else []
+        values, step, skipped, flat = self._fetch([metrics[k] for k in keys],
+                                                  [x for _, x in leaves])
+        per_layer = None
+        if records is not None:
+            at, host = 0, {}
+            for path, x in leaves:
+                host[path] = flat[at:at + x.numel()].reshape(x.shape).numpy()
+                at += x.numel()
+            per_layer = tree_map_with_paths(lambda path, _: host[path], records)
+        m = dict(zip(keys, values))
         m["step"] = step
         if self.tc.skip_nonfinite:
             m["skipped_total"] = skipped
@@ -174,56 +284,233 @@ class Trainer:
         m["wall_s"] = time.perf_counter() - t0
         m.update(extra)
         self.history.append(m)
-        return m
+        return m, per_layer
 
-    def fit(self, data, steps: int) -> List[Dict[str, float]]:
+    def _observe(self, metrics):
+        """The supervisor's one host transfer a step: ``(loss, step,
+        skipped)``."""
+        loss = metrics.get(LOSS_KEY)
+        if loss is None:
+            loss = torch.full((), float("nan"), device=self.state.step.device)
+        (loss,), step, skipped, _ = self._fetch([loss])
+        return loss, step, skipped
+
+    # ------------------------------------------------------------------
+    def fit(self, data, steps: int, *,
+            data_factory: Optional[Callable[[], Any]] = None) -> List[Dict[str, float]]:
         """Run the step loop to ``steps`` batches (counting those a resume
-        skips).  Metrics stay on the device between log steps."""
+        skips).  Metrics stay on the device between log steps.
+
+        ``data_factory`` (a zero-arg callable rebuilding the deterministic
+        iterator ``data`` came from) enables the supervisor's rollback: on a
+        trip the Trainer restores the last validated checkpoint, rebuilds
+        the stream and fast-forwards *past* the suspect batches.  A
+        ``run_end`` event with the run's status is emitted from a
+        ``finally``, so a crashed run still closes its event log.
+        """
+        if data is None and data_factory is not None:
+            data = data_factory()
         start = self._maybe_resume(data, steps)
         if self.state is None:
             self.init()
+        self._emit_run_start()
+        supervisor = (TrainingSupervisor(self.supervisor_cfg)
+                      if self.supervisor_cfg is not None else None)
+        self._status = "ok"
+        try:
+            with PreemptionHandler(enabled=self.preempt_grace is not None) as preempt:
+                self._fit_loop(data, steps, start, supervisor, preempt, data_factory)
+            self._drain_checkpoints()
+        except BaseException as e:
+            self._status = "diverged" if isinstance(e, DivergenceError) else "failed"
+            raise
+        finally:
+            self._emit_run_end(supervisor)
+        return self.history
+
+    def _fit_loop(self, data, steps: int, start: int,
+                  supervisor: Optional[TrainingSupervisor],
+                  preempt: PreemptionHandler,
+                  data_factory: Optional[Callable[[], Any]]) -> None:
+        telem = self.telemetry.enabled
+        guard_on = self.tc.skip_nonfinite
         t0 = time.perf_counter()
+        since_log = 0
+        # the skip count seen so far feeds the supervisor and the
+        # nonfinite_step events only: no sync without either
+        watch = guard_on and (telem or supervisor is not None)
+        self._skipped_seen = int(self.state.skipped) if watch else 0
         # i is the batch ordinal, not state.step: a guard-skipped step
         # consumes a batch without advancing step
-        for i in range(start, steps):
+        i = start
+        while i < steps:
+            if telem and since_log == 0:
+                # span boundary: drain earlier work so the interval times
+                # only its own steps
+                self.spans.start("step", sync=self.state)
             batch = next(data)
             self.examples_seen += _batch_examples(batch)
             self.state, metrics = self._step_fn(self.state, batch)
+            since_log += 1
+            if supervisor is not None:
+                loss, step_now, skipped_now = self._observe(metrics)
+                delta = skipped_now - self._skipped_seen
+                self._skipped_seen = skipped_now
+                if delta > 0:
+                    self.telemetry.emit(
+                        "nonfinite_step", step=step_now, count=delta, total=skipped_now,
+                        consecutive=supervisor.consecutive_skips + 1)
+                    self.log(f"non-finite step skipped at batch {i} "
+                             f"(total skipped {skipped_now})")
+                reason = supervisor.observe(step_now, loss, skipped_now)
+                if reason is not None:
+                    i, data = self._rollback(reason, supervisor, i, step_now, data_factory)
+                    since_log = 0
+                    continue
             if (i + 1) % self.log_every == 0 or i == steps - 1:
-                m = self._history_row(metrics, {}, t0)
+                m, per_layer = self._history_row(metrics, {}, t0)
+                step_s = (self.spans.stop("step", sync=self.state, count=since_log)
+                          if telem else 0.0)
+                if guard_on and supervisor is None:
+                    skipped_now = m["skipped_total"]
+                    if skipped_now > self._skipped_seen:
+                        self.telemetry.emit(
+                            "nonfinite_step", step=m["step"],
+                            count=skipped_now - self._skipped_seen, total=skipped_now)
+                    self._skipped_seen = skipped_now
                 self.log(f"step {m['step']:6d} loss {m['loss/total']:.4f} "
                          f"acc {m['accuracy']:.4f}")
+                if telem:
+                    self._log_step(m, per_layer, step_s, since_log)
+                since_log = 0
             if (self.checkpoint_dir and self.checkpoint_every
                     and (i + 1) % self.checkpoint_every == 0):
                 self._save_checkpoint()
-        self._drain_checkpoints()
-        return self.history
+            i += 1
+            if preempt.triggered:
+                self._handle_preempt(preempt)
+                self._status = "preempted"
+                break
 
+    # ------------------------------------------------------------------
+    def _rollback(self, reason: str, supervisor: TrainingSupervisor, i: int,
+                  trip_step: int, data_factory: Optional[Callable[[], Any]]):
+        """Restore the last validated checkpoint and fast-forward the data
+        stream past the suspect window.  Returns ``(next_i, new_data)``.
+
+        Resuming the stream at ``i + 1``, not at the restored step, is the
+        re-poisoning guard: the batches between the restored checkpoint and
+        the trip are consumed untrained, so a deterministic fault at one
+        ordinal cannot hit the rolled-back run twice.  The restored state is
+        read from disk, every leaf a new tensor: the fused path updates
+        params in place, and nothing of the pre-trip state (or of the async
+        writer's host buffers) survives.
+        """
+        diag = supervisor.diagnostics(reason)
+        self.log(f"supervisor trip: {reason} at batch {i} "
+                 f"(step {trip_step}, last_good {supervisor.last_good})")
+        supervisor.note_rollback(reason)  # raises DivergenceError past budget
+        if not self.checkpoint_dir or data_factory is None:
+            raise DivergenceError(
+                f"diverged ({reason}): rollback needs checkpoint_dir and a "
+                "data_factory", diag)
+        self._drain_checkpoints()
+        bound = supervisor.last_good
+        path = (latest_checkpoint(self.checkpoint_dir, max_step=bound)
+                if bound >= 0 else None)
+        if path is None:
+            raise DivergenceError(
+                f"diverged ({reason}) before any validated checkpoint "
+                f"(last_good step {bound})", diag)
+        restored_step = self.restore(path)
+        removed = discard_checkpoints_after(self.checkpoint_dir, restored_step)
+        self._last_saved_step = restored_step
+        restored_skipped = int(self.state.skipped)
+        restored_i = restored_step + restored_skipped
+        resume_i = i + 1
+        data = data_factory()
+        for _ in range(resume_i):
+            next(data)  # consumed before the trip; examples_seen unchanged
+        self.telemetry.emit(
+            "rollback", step=restored_step, from_step=trip_step, reason=reason,
+            batches_dropped=resume_i - restored_i, rollbacks=supervisor.rollbacks,
+            discarded=len(removed))
+        supervisor.after_rollback(restored_skipped)
+        self._skipped_seen = restored_skipped
+        self.log(f"rollback {supervisor.rollbacks}: restored step {restored_step}, "
+                 f"dropped batches [{restored_i}, {resume_i}), resuming at batch {resume_i}")
+        return resume_i, data
+
+    def _handle_preempt(self, preempt: PreemptionHandler) -> None:
+        """Grace-window final save: persist the current full TrainState
+        through the existing checkpointer, bounded by ``preempt_grace``."""
+        step = int(self.state.step)
+        saved = False
+        if self.checkpoint_dir:
+            self._save_checkpoint()
+            if self.async_checkpoint:
+                self._drain_checkpoints(timeout=self.preempt_grace)
+                saved = (self._checkpointer is not None
+                         and self._checkpointer.latest_persisted_step() == step)
+            else:
+                saved = True
+        self.telemetry.emit("preempt", step=step, signal=preempt.signal_name, saved=saved,
+                            grace_s=float(self.preempt_grace or 0.0))
+        self.log(f"preempted ({preempt.signal_name}): step {step} saved={saved}; "
+                 "stopping cleanly")
+
+    # ------------------------------------------------------------------
     def fit_stages(self, stages: Sequence[Stage], *, data_seed: int = 0
                    ) -> List[Dict[str, float]]:
         """Mixed-batch training: one train step per stage (its own shapes
         and schedule), moments and their counters carried, the schedule's
         counter reset between stages; stage ``si`` reads a fresh ``DataPipeline`` seeded
         ``data_seed + si``.  History rows carry ``stage``; ``wall_s`` runs
-        on one clock across the stages."""
+        on one clock across the stages.  Emits ``stage_start`` per stage and
+        ``run_end`` from a ``finally``."""
         if self.state is None:
             self.init()
+        self._emit_run_start()
+        self._status = "ok"
+        try:
+            self._fit_stages(stages, data_seed)
+        except BaseException as e:
+            self._status = "diverged" if isinstance(e, DivergenceError) else "failed"
+            raise
+        finally:
+            self._emit_run_end()
+        return self.history
+
+    def _fit_stages(self, stages: Sequence[Stage], data_seed: int) -> None:
+        telem = self.telemetry.enabled
         t0 = time.perf_counter()
         for si, stage in enumerate(stages):
             self.log(f"== stage {si}: {stage.name} seq={stage.seq_len} "
                      f"batch={stage.batch_size} steps={stage.steps} "
                      f"lr={stage.learning_rate:.2e} warmup={stage.warmup_steps}")
+            self.telemetry.emit(
+                "stage_start", stage=si, name=stage.name, seq_len=stage.seq_len,
+                batch_size=stage.batch_size, steps=stage.steps,
+                learning_rate=stage.learning_rate, warmup_steps=stage.warmup_steps)
             _, step_fn = make_train_step(self.model, self.tc, stage.schedule)
             if si > 0:
                 _reset_schedule_counts(self.state.opt_state)
             data = DataPipeline(self.model.cfg, stage.batch_size, stage.seq_len,
                                 device=self.device, seed=data_seed + si)
+            since_log = 0
             for i in range(stage.steps):
+                if telem and since_log == 0:
+                    self.spans.start("step", sync=self.state)
                 batch = next(data)
                 self.examples_seen += _batch_examples(batch)
                 self.state, metrics = step_fn(self.state, batch)
+                since_log += 1
                 if (i + 1) % self.log_every == 0 or i == stage.steps - 1:
-                    m = self._history_row(metrics, {"stage": si}, t0)
+                    m, per_layer = self._history_row(metrics, {"stage": si}, t0)
+                    step_s = (self.spans.stop("step", sync=self.state, count=since_log)
+                              if telem else 0.0)
                     self.log(f"[{stage.name}] step {m['step']:5d} "
                              f"loss {m['loss/total']:.4f}")
-        return self.history
+                    if telem:
+                        self._log_step(m, per_layer, step_s, since_log)
+                    since_log = 0

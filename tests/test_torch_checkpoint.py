@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_cpu_thread  # noqa: F401
 from repro.checkpoint import restore_checkpoint as jax_restore_checkpoint
 from repro.checkpoint import save_checkpoint as jax_save_checkpoint
 from repro.configs import bert_large as jax_bert

@@ -518,3 +518,76 @@ def test_unfused_guard_on_card(cuda):
     for p, v in before.items():
         if p != "skipped":
             assert torch.equal(after[p], v), p
+
+
+def _smoke_trainer(cuda, **kw):
+    from repro_torch.configs import bert_large
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models import build_model
+    from repro_torch.train import Trainer
+
+    tc = TrainConfig(optimizer="lamb", use_fused_lamb=True, accum_steps=2, learning_rate=0.01,
+                     record_trust_ratios=kw.pop("record", False))
+    return Trainer(build_model(bert_large.smoke().replace(**kw.pop("cfg", {}))), tc,
+                   device=cuda, log_every=1, log_fn=lambda s: None, **kw)
+
+
+def test_telemetry_changes_no_launch_or_value_on_card(cuda):
+    """bert-smoke on the card, 3 steps with the null sink and with an event
+    log (spans, events, the per-layer records): the history bit-identical
+    and the kernels launched as often; the records are K2's applied ratios
+    (masked-out leaves: 1)."""
+    from repro_torch.data import DataPipeline
+    from repro_torch.telemetry import EventLog
+
+    runs = []
+    for log in (None, EventLog.memory()):
+        tr = _smoke_trainer(cuda, telemetry=log, record=log is not None)
+        reset_launches()
+        tr.fit(DataPipeline(tr.model.cfg, 8, 32, device=cuda, seed=0), 3)
+        torch.cuda.synchronize()
+        runs.append((tr, dict(LAUNCHES)))
+    (off, l_off), (on, l_on) = runs
+    assert l_off == l_on and l_on["lamb_apply"] == 3 * len(on.state.params)
+    for a, b in zip(off.history, on.history):
+        assert {k: v for k, v in a.items() if k != "wall_s"} == \
+            {k: v for k, v in b.items() if k != "wall_s"}
+    trust = [e for e in on.telemetry.events if e["event"] == "trust_ratios"]
+    assert len(trust) == 3
+    mask = on.model.trust_mask()
+    for k, on_ in mask.items():
+        r = trust[-1]["layers"][k.replace("/", ".")]["per_layer"]
+        assert all(math.isfinite(x) and x > 0 for x in r), k
+        if not on_:
+            assert r == [1.0] * len(r), k
+
+
+def test_remat_bit_equal_and_k3_recomputed_on_card(cuda):
+    """bert-smoke bf16 with flash and the fused CE head on the card, two
+    steps with and without ``remat="full"``: the params bit-equal, K3
+    launched once more per layer and micro-batch, K4/K5 as often."""
+    from repro_torch.data import DataPipeline
+
+    out = []
+    for remat in ("none", "full"):
+        tr = _smoke_trainer(cuda, cfg=dict(remat=remat))
+        reset_launches()
+        tr.fit(DataPipeline(tr.model.cfg, 8, 32, device=cuda, seed=0), 2)
+        torch.cuda.synchronize()
+        out.append((tr.state.params, dict(LAUNCHES)))
+    (p0, l0), (p1, l1) = out
+    layers = 2 * 2 * 2   # bert-smoke layers x micro-batches x steps
+    assert l0["flash_fwd"] == layers and l1["flash_fwd"] == 2 * layers
+    assert l0["flash_dq"] == l1["flash_dq"] == l0["flash_dkv"] == l1["flash_dkv"] == layers
+    for k in p0:
+        assert torch.equal(p0[k], p1[k]), k
+
+
+def test_span_syncs_the_card(cuda):
+    from repro_torch.telemetry import SpanRecorder
+
+    spans = SpanRecorder()
+    x = torch.randn((2048, 2048), device=cuda)
+    with spans.span("mm", sync={"x": x}) as sp:
+        sp.block_on({"y": x @ x})
+    assert spans.summary()["mm"]["total_s"] > 0

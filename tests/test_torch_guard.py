@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_cpu_thread  # noqa: F401
 from repro.configs import bert_large as jax_bert
 from repro.configs.base import TrainConfig as JaxTrainConfig
 from repro.core import warmup_poly_decay as jax_warmup_poly_decay
@@ -35,6 +36,7 @@ from repro_torch.nn import params_from_jax, state_from_jax, train_state_from_jax
 from repro_torch.train import GUARD_KEY, FaultInjector, FaultSpec, Trainer, \
     make_train_step, tree_all_finite
 from repro_torch.train.faults import FAULT_PREFIX, split_faults
+
 
 F32 = dict(rtol=1e-5, atol=1e-6)
 OFF = dict(use_flash_kernel=False, use_fused_ce_head=False)

@@ -59,9 +59,11 @@ def test_unported_archs_and_kernels_raise():
              next(jax_synthetic.batch_iterator(jax_bert.smoke(), 2, 16, seed=0)).items()}
     assert model.apply(model.init(0, "cpu"), batch, return_hidden=True).shape == (2, 16, 128)
     for field in (dict(norm_type="rmsnorm"), dict(gated_mlp=True), dict(act_fn="silu"),
-                  dict(n_experts=4), dict(tie_embeddings=False), dict(remat="full")):
+                  dict(n_experts=4), dict(tie_embeddings=False)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(bert_large.smoke().replace(**OFF, **field))
+    # remat is ported (tests/test_torch_remat.py)
+    assert build_model(bert_large.smoke().replace(**OFF, remat="full")).cfg.remat == "full"
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_cpu_thread  # noqa: F401
 from repro.configs import bert_large as jax_bert
 from repro.configs.base import TrainConfig as JaxTrainConfig
 from repro.core import warmup_poly_decay as jax_warmup_poly_decay
@@ -29,6 +30,7 @@ from repro_torch.nn import flatten, params_from_jax, state_from_jax, train_state
 from repro_torch.train import GUARD_KEY, FaultInjector, FaultSpec, TrainState, \
     make_loss_fn, make_train_step
 from repro_torch.train.step import TRUST_KEYS, _microbatch_grads
+
 
 OFF = dict(use_flash_kernel=False, use_fused_ce_head=False)
 SMOKE = ["--arch", "bert-large", "--smoke", "--batch", "4", "--seq", "16",
@@ -232,9 +234,17 @@ def test_fused_lamb_kernel_config_takes_the_fused_path():
 
 
 def test_record_trust_ratios_and_unknown_optimizer_raise():
+    """``record_trust_ratios`` is ported (it no longer raises: the records
+    land under ``PER_LAYER_KEY``, ``tests/test_torch_telemetry.py``); an
+    unknown optimizer still raises."""
+    from repro_torch.telemetry.trust import PER_LAYER_KEY
+
     model = build_model(bert_large.smoke().replace(**OFF))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 8"):
-        make_train_step(model, TrainConfig(record_trust_ratios=True))
+    init, step = make_train_step(model, TrainConfig(record_trust_ratios=True))
+    batch = {k: torch.from_numpy(v) for k, v in next(
+        jax_synthetic.batch_iterator(model.cfg, 4, 16, seed=0)).items()}
+    _, m = step(init(0, "cpu"), batch)
+    assert set(m[PER_LAYER_KEY]) == {"trust_ratio", "param_norm", "update_norm"}
     with pytest.raises(ValueError, match="unknown optimizer"):
         make_train_step(model, TrainConfig(optimizer="rmsprop"))
 
@@ -388,10 +398,7 @@ def test_launcher_optimizer_runs_to_done(extra, capsys):
         assert all(set(TRUST_KEYS) <= set(h) for h in trainer.history)
 
 
-@pytest.mark.parametrize("extra", [
-    ["--mesh", "data=4"], ["--rollback-on-spike"], ["--telemetry-dir", "runs"],
-    ["--log-trust-ratios", "--telemetry-dir", "runs"],
-])
+@pytest.mark.parametrize("extra", [["--mesh", "data=4"]])
 def test_launcher_unported_options_raise(extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         launch_train.main(SMOKE + ["--device", "cpu"] + extra)
