@@ -82,7 +82,26 @@ Phases, each of which raises (and so exits non-zero) on failure:
    timed with nothing, telemetry, telemetry + trust records, the
    supervisor armed and remat, in turns, three rounds.  Checkpoints go
    under ``build/`` (at most two of 4.0 GB at once), removed as each check
-   ends.
+   ends;
+10. serving smollm-360m at full width (32 layers, d 960, 15 heads over 5,
+   vocab 49152, bf16, random weights from seed 0; after phase 9, before
+   phase 6's timings): (a) 8 prompts of 128 tokens, 32 new tokens greedy,
+   through the static ``Engine`` and ``ContinuousEngine`` over 4 slots:
+   where two sequences part, the static run's top-2 margin is within
+   MARGIN_ULPS bf16 ulps; (b) the continuous run with flash attention on:
+   K3 launched 32 layers × prefills times, all on the tensor cores, no
+   other kernel; each of K3's prefill calls within a bf16 ulp of its plain
+   version on the same q, k, v; (c) temperature 0.8
+   and top-k 40 beside greedy rows: reproducible by seed, every draw in
+   its row's top-k, greedy rows as in (a); (d) the launcher with injected faults and
+   a stall SLO: one terminal state a request, valid events, a
+   ``RUN_REPORT.json`` naming the card; (e) ``python -m
+   repro_torch.launch.serve`` at 8 slots, 32 requests, as a subprocess; (f)
+   prefill (dense and K3) and decode-step times, wall, event span, busy
+   time, launches and idle share, one sync a decode step, an engine run's
+   tokens/s, TTFT and latency, peak memory and the pool's bytes, three
+   rounds in turns, and K3 alone at the serving shape beside its plain
+   version, its bound and SDPA's forward.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -144,6 +163,26 @@ TRUST_OPTIMIZERS = ("lamb", "nlamb", "nnlamb", "lars")
 FINITE_OPTIMIZERS = ("lamb", "lans", "nlamb", "nnlamb", "adam", "adamw", "adagrad")
 # the reference's fused-against-unfused bound (tests/test_large_batch.py)
 FORMS_TOL = dict(rtol=2e-4, atol=2e-5)
+
+# phase 10: serving smollm-360m at full width: 8 prompts of 128 tokens from
+# seed 0 (as launch/serve.py makes them), 32 new tokens each, 4 slots
+SERVE_ARCH, SERVE_LAYERS = "smollm-360m", 32
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, SERVE_SLOTS = 8, 128, 32, 4
+SERVE_MAX_LEN = SERVE_PROMPT + SERVE_NEW + 8   # as launch/serve.py sizes its cache
+# two greedy runs that part must do so where the top-2 logit margin is within
+# this many bf16 ulps of the top logit: the runs' matrix products have other M,
+# so cuBLAS may round them in another order
+MARGIN_ULPS = 8
+SERVE_FAULT_ARGV = [
+    "--arch", SERVE_ARCH, "--continuous", "--slots", "4", "--requests", "8",
+    "--prompt-len", "128", "--max-new", "32", "--stall-slo", "0.15",
+    "--inject-faults", "sample_nan@1,slot_corrupt@2:persist,decode_stall@3:stall=0.2",
+]
+SERVE_LAUNCH_REQUESTS = 32
+SERVE_LAUNCH_ARGV = [
+    "--arch", SERVE_ARCH, "--continuous", "--slots", "8", "--arrival-rate", "20",
+    "--requests", str(SERVE_LAUNCH_REQUESTS), "--prompt-len", "128", "--max-new", "64",
+]
 
 # Device-memory rate of the card by name (NVIDIA data sheets), for the bound.
 MEMORY_RATE = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H100": 3.35e12, "H200": 4.8e12}
@@ -237,6 +276,8 @@ FLASH_CASES = [
     ("D 32 causal", 4, 8, 8, 320, 320, 32, True, 0, None, "bfloat16", "bhsd"),
     ("D 128 fp32", 4, 8, 8, 384, 384, 128, True, 0, None, "float32", "bhsd"),
     ("D 128 bf16", 4, 8, 8, 384, 384, 128, False, 0, None, "bfloat16", "bhsd"),
+    ("serving prefill, GQA 15/5", 1, 15, 5, 128, 128, 64, True, 0, None, "bfloat16", "bshd"),
+    ("serving prefill, ragged S", 1, 15, 5, 100, 100, 64, True, 0, None, "bfloat16", "bshd"),
 ]
 # Flash timing shapes (b, h, s, d): what the main path gives the kernels.
 FLASH_TIMING = [("seq 128", 32, 16, 128, 64), ("seq 512", 16, 16, 512, 64)]
@@ -1517,6 +1558,454 @@ def time_training_variants(device, rounds: int = 3) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: serving smollm-360m at full width
+# ---------------------------------------------------------------------------
+
+def _serve_setup(device):
+    """smollm-360m at full width (bf16 activations, fp32 params from seed 0),
+    its twin with flash attention on (K3 on the prefill; the same params),
+    and the 8 prompts of 128 tokens ``launch/serve.py`` makes from seed 0."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(SERVE_ARCH)
+    model, fmodel = build_model(cfg), build_model(cfg.replace(use_flash_kernel=True))
+    params = model.init(0, device)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, min(cfg.vocab_size, 1024), size=SERVE_PROMPT).astype(np.int32)
+               for _ in range(SERVE_REQUESTS)]
+    log(f"serving: {cfg.name} {model.param_count() / 1e6:.1f}M params, {cfg.n_layers} layers, "
+        f"d {cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads}, head dim {cfg.head_dim}, "
+        f"vocab {cfg.vocab_size}, {cfg.activation_dtype} activations")
+    return model, fmodel, params, prompts
+
+
+def _top_ulp(x):
+    """A bf16 ulp of the magnitude of ``x`` (a float)."""
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 1e-30))) - 7)
+
+
+def _pool_prefill_logits(model, params, prompts, device):
+    """(requests, V) fp32 last-position logits of one batch-1 pool prefill per prompt."""
+    import torch
+
+    from repro_torch.serve import make_pool_prefill
+
+    prefill = make_pool_prefill(model, SERVE_MAX_LEN)
+    with torch.inference_mode():
+        return torch.cat([prefill(params, torch.from_numpy(p[None].copy()).to(device))[0]
+                          .float() for p in prompts])
+
+
+def check_serving_greedy(device, model, params, prompts):
+    """(a) The 8 requests through the static ``Engine`` (one batch of 8) and
+    through ``ContinuousEngine(n_slots=4)`` (admissions mid-decode), greedy.
+    cuBLAS may pick other kernels for other M, so tokens may part where
+    the static run's top-2 logit margin is within rounding: at the first
+    step where two sequences part, that margin must be at most MARGIN_ULPS
+    bf16 ulps of the top logit (the static run's logits from a replay of
+    its own tokens through the engine's two steps).  Returns the continuous
+    run's tokens."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import ContinuousEngine, Engine, Request, ServeRequest
+    from repro_torch.serve.engine import make_decode_step, make_prefill_step
+
+    b = len(prompts)
+    t0 = time.perf_counter()
+    static = Engine(model, params, max_len=SERVE_MAX_LEN).generate_batch(
+        [Request(p, max_new_tokens=SERVE_NEW) for p in prompts])
+    t_static = time.perf_counter() - t0
+    st = np.stack([r.out_tokens for r in static])
+    pre, dec = make_prefill_step(model), make_decode_step(model)
+    with torch.inference_mode():
+        cache = model.make_cache(b, SERVE_MAX_LEN, device)
+        last, cache = pre(params, {"tokens": torch.from_numpy(np.stack(prompts)).to(device)},
+                          cache)
+        rows = [last.float()]
+        for t in range(SERVE_NEW - 1):
+            pos = torch.full((b, 1), SERVE_PROMPT + t, dtype=torch.int32, device=device)
+            last, cache = dec(params, cache, torch.from_numpy(st[:, t:t + 1].copy()).to(device),
+                              pos)
+            rows.append(last.float())
+        logits = torch.stack(rows, 1)   # (b, new, V)
+        top2 = logits.topk(2, -1).values.cpu().numpy()
+        replay = logits.argmax(-1).cpu().numpy()
+        static_first = logits[:, 0]
+        del logits, cache
+    if not (replay == st).all():
+        raise AssertionError("the replay of the static run picks other tokens than the run")
+    t0 = time.perf_counter()
+    cont = ContinuousEngine(model, params, n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN).generate(
+        [ServeRequest(p, max_new_tokens=SERVE_NEW) for p in prompts])
+    t_cont = time.perf_counter() - t0
+    ct = np.stack([np.asarray(r.out_tokens) for r in cont])
+    first = _pool_prefill_logits(model, params, prompts, device)
+    d_first = (first - static_first).abs().amax(-1).cpu().numpy()
+    same = [bool((c == s).all()) for c, s in zip(ct, st)]
+    faults, parts = [], []
+    for i, ok in enumerate(same):
+        if ok:
+            continue
+        t = int(np.argmax(ct[i] != st[i]))
+        margin, tol = top2[i, t, 0] - top2[i, t, 1], MARGIN_ULPS * _top_ulp(top2[i, t, 0])
+        parts.append(f"request {i} at step {t}: static margin {margin:.4g} (tol {tol:.4g})")
+        if margin > tol:
+            faults.append(i)
+    margins = top2[:, :, 0] - top2[:, :, 1]
+    log(f"serving (a): static batch of {b} in {t_static:.2f} s, continuous over {SERVE_SLOTS} "
+        f"slots in {t_cont:.2f} s; identical token sequences {sum(same)} of {b}; first tokens "
+        f"agree {int((ct[:, 0] == st[:, 0]).sum())} of {b}; |first-token logits, batch 8 - "
+        f"batch 1 prefill| max {d_first.max():.4g} (top logits {top2[:, 0, 0].round(3).tolist()}); "
+        f"parted: {parts or 'none'}; static top-2 margins: min {margins.min():.4g}, "
+        f"{int((margins == 0).sum())} exact ties in {margins.size} steps")
+    if faults or any(len(r.out_tokens) != SERVE_NEW for r in cont) \
+            or any(r.status.value != "completed" for r in cont):
+        raise AssertionError(f"static and continuous greedy runs part at a clear margin: "
+                             f"requests {faults}")
+    return ct
+
+
+def check_serving_flash(device, model, fmodel, params, prompts, greedy_tokens) -> int:
+    """(b) The continuous run of (a) with flash attention on: K3 launches 32
+    layers x prefills times, all on ``flash_fwd_mma_kernel``, and no other
+    kernel of the port.  Then each prompt's batch-1 prefill with K3 once
+    more, each of its 32 K3 calls held against the plain version on the
+    same q, k, v (the model's own, in its layout) by ``check_flash``'s bf16
+    rule.  The last-position logits of a K3 prefill cannot be held to the
+    dense prefill's: the reference's fan-in init saturates attention (std
+    1/sqrt(heads) on ``wq``), and two bf16 roundings of the 32 layers part
+    by the logits' own size (as bf16 and fp32 do); the distances are logged.  Returns K3's
+    launches in the run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import reset_launches
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import attention
+    from repro_torch.serve import ContinuousEngine, ServeRequest
+
+    torch.cuda.synchronize()
+    reset_launches()
+    eng = ContinuousEngine(fmodel, params, n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN)
+    out = eng.generate([ServeRequest(p, max_new_tokens=SERVE_NEW) for p in prompts])
+    torch.cuda.synchronize()
+    launches, designs, copies = _counts()
+    prefills = sum(r.attempts for r in out)
+    want = {k: (SERVE_LAYERS * prefills if k == "flash_fwd" else 0) for k in launches}
+    ft = np.stack([np.asarray(r.out_tokens) for r in out])
+    log(f"serving (b): K3 on the prefill: {prefills} prefills, launches {launches}, by design "
+        f"{designs['flash_fwd']}, copies {copies}; tokens identical to (a)'s dense run "
+        f"{int(sum((f == g).all() for f, g in zip(ft, greedy_tokens)))} of {len(prompts)}")
+    if launches != want or designs["flash_fwd"] != {"mma": SERVE_LAYERS * prefills, "fma": 0} \
+            or any(copies.values()):
+        raise AssertionError(f"serving with flash: launches {launches}, want {want}")
+
+    real, errs = attention.flash_sdpa, []
+
+    def held(q, k, v, **kw):
+        o = real(q, k, v, **kw)
+        ref = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                              kw.get("kv_valid"), causal=kw["causal"], window=kw["window"],
+                              plain=True).transpose(1, 2).float()
+        atol = 1e-4 * max(1.0, float(ref.abs().max()))
+        errs.append((bool(torch.allclose(o.float(), ref, rtol=1e-2, atol=atol)),
+                     float((o.float() - ref).abs().max())))
+        return o
+
+    attention.flash_sdpa = held
+    try:
+        flash = _pool_prefill_logits(fmodel, params, prompts, device)
+    finally:
+        attention.flash_sdpa = real
+    dense = _pool_prefill_logits(model, params, prompts, device)
+    ref = _pool_prefill_logits(build_model(model.cfg.replace(activation_dtype="float32")),
+                               params, prompts, device)
+    log(f"serving (b): K3 in {len(errs)} prefill attention calls (32 layers x {len(prompts)} "
+        f"prompts) against its plain version on the same q, k, v: within rtol 1e-2 + 1e-4 of "
+        f"the scale {sum(ok for ok, _ in errs)} of {len(errs)}, |do| max "
+        f"{max(e for _, e in errs):.3g}; whole-model last-position logits, max over the "
+        f"vocab: |K3 - dense| {[round(x, 3) for x in (flash - dense).abs().amax(-1).tolist()]}, "
+        f"|dense - fp32| {[round(x, 3) for x in (dense - ref).abs().amax(-1).tolist()]}, "
+        f"top logit {[round(x, 3) for x in ref.amax(-1).tolist()]}")
+    if len(errs) != SERVE_LAYERS * len(prompts) or not all(ok for ok, _ in errs) \
+            or not bool(torch.isfinite(flash).all()):
+        raise AssertionError("K3 on the serving prefill disagrees with its plain version")
+    return launches["flash_fwd"]
+
+
+def check_serving_sampling(device, model, params, prompts, greedy_tokens) -> None:
+    """(c) Temperature 0.8 and top-k 40 on the odd requests, greedy on the
+    even, through ``ContinuousEngine(n_slots=4)``: seed 0 twice gives the
+    same tokens, seed 1 others; every token a sampled row draws lies in its
+    row's top-k of the logits it was drawn from (``sample_tokens`` wrapped
+    to record them); the greedy rows equal (a)'s tokens."""
+    import numpy as np
+    import torch
+
+    import repro_torch.serve.continuous as continuous
+    from repro_torch.serve import ContinuousEngine, ServeRequest
+
+    def run(seed):
+        reqs = [ServeRequest(p, max_new_tokens=SERVE_NEW, temperature=0.8 if i % 2 else 0.0,
+                             top_k=40 if i % 2 else 0) for i, p in enumerate(prompts)]
+        eng = ContinuousEngine(model, params, n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                               seed=seed)
+        return np.stack([np.asarray(r.out_tokens) for r in eng.generate(reqs)])
+
+    seen = []
+    real = continuous.sample_tokens
+
+    def record(gen, logits, temperature, top_k=None):
+        out = real(gen, logits, temperature, top_k)
+        seen.append((logits.float(), temperature.clone(), top_k.clone(), out.clone()))
+        return out
+
+    continuous.sample_tokens = record
+    try:
+        a = run(0)
+    finally:
+        continuous.sample_tokens = real
+    b, c = run(0), run(1)
+    outside = 0
+    draws = 0
+    for logits, temps, top_k, out in seen:
+        kth = torch.gather(logits.sort(-1, descending=True).values, -1,
+                           (top_k.clamp(min=1).long() - 1)[:, None])[:, 0]
+        picked = torch.gather(logits, -1, out.long()[:, None])[:, 0]
+        hot = temps > 0
+        outside += int((hot & (picked < kth)).sum())
+        outside += int((~hot & (out.long() != logits.argmax(-1))).sum())
+        draws += int(hot.sum())
+    greedy_same = bool((a[0::2] == greedy_tokens[0::2]).all())
+    log(f"serving (c): seed 0 twice identical {bool((a == b).all())}; seed 1 differs on "
+        f"{int((a != c).any(-1).sum())} of {len(prompts) // 2} sampled requests; {draws} "
+        f"sampled draws in {len(seen)} calls, outside the row's top-k or off argmax: "
+        f"{outside}; greedy rows equal (a)'s: {greedy_same}")
+    if not (a == b).all() or (a[1::2] == c[1::2]).all() or outside or not greedy_same \
+            or not (a[0::2] == c[0::2]).all():
+        raise AssertionError("sampling is not reproducible, in its top-k or greedy where asked")
+
+
+def check_serving_faults(device) -> None:
+    """(d) The launcher with ``--inject-faults`` and a stall SLO: each request
+    ends in exactly one terminal state (the nan retries and completes, the
+    persistent corruption exhausts its retries and fails), every event is
+    valid, and ``RUN_REPORT.json``'s serve section names the card."""
+    import shutil
+
+    import torch
+
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.telemetry import read_events
+
+    tmp = _scratch("serve_")
+    try:
+        out = launch_serve.main(SERVE_FAULT_ARGV + ["--telemetry-dir", str(tmp)])
+        events = read_events(tmp / "events.jsonl")   # validates every event
+        report = json.loads((tmp / "RUN_REPORT.json").read_text())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    serve = report["serve"]
+    card = torch.cuda.get_device_name(0)
+    counts = {s: sum(r.status.value == s for r in out)
+              for s in ("completed", "shed", "timed_out", "failed")}
+    log(f"serving (d): terminal states {counts}; report by_status {serve['by_status']}, "
+        f"lifecycle {serve.get('lifecycle')}, device {serve['stats'].get('device')!r}, "
+        f"provenance {report['provenance']['device_kind']!r}; {len(events)} events, all valid")
+    if sum(counts.values()) != len(out) or serve["by_status"] != counts \
+            or counts != {"completed": SERVE_REQUESTS - 1, "shed": 0, "timed_out": 0,
+                          "failed": 1} \
+            or serve["stats"].get("device") != card \
+            or report["provenance"]["device_kind"] != card:
+        raise AssertionError("the faulted serving run's terminal states or report are wrong")
+
+
+def check_serving_launcher() -> None:
+    """(e) ``python -m repro_torch.launch.serve`` as a user runs it, on the card."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *SERVE_LAUNCH_ARGV],
+                         cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    lines = out.stdout.strip().splitlines()
+    log(f"serving (e): launcher exit {out.returncode} in {time.perf_counter() - t0:.1f} s: "
+        + " | ".join(ln for ln in lines if ln.startswith(("arch=", "stats:", "done:"))))
+    want = f"done: submitted={SERVE_LAUNCH_REQUESTS} completed={SERVE_LAUNCH_REQUESTS} "
+    if out.returncode != 0 or not lines or not lines[-1].startswith(want):
+        raise AssertionError(f"the serve launcher failed: {out.stderr[-2000:]}")
+
+
+def _profile_calls(fn, n: int = 5) -> dict:
+    """Two warm-up calls, one under ``torch.profiler``, then ``n`` between
+    CUDA events: wall and event-span ms per call, the profiled call's busy
+    ms and launches, the idle share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(ms for ms, _ in rows)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    span = start.elapsed_time(end) / n
+    return dict(wall_ms=wall, span_ms=span, busy_ms=busy, launches=sum(c for _, c in rows),
+                idle=1 - busy / span)
+
+
+def time_serving(device, model, fmodel, params, prompts, rate: float, rounds: int = 3) -> dict:
+    """(f) In turns, ``rounds`` rounds: one 128-token prefill, dense and with
+    K3; one decode step over 8 full slots (the engine's step, its one sync
+    included), greedy; a continuous run of 16 requests over 8 slots with its
+    ``serving_stats``; then peak memory, the pool's bytes, the syncs a
+    decode step makes, and K3 alone at the serving prefill's shape beside
+    its plain version, its bound and ``scaled_dot_product_attention``'s
+    forward (a yardstick only).  Returns K3's serving numbers."""
+    import warnings
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import FlashSpec, flash_attention_fwd
+    from repro_torch.serve import (ContinuousEngine, KVPool, ServeRequest, make_pool_decode_step,
+                                   make_pool_prefill, serving_stats)
+
+    slots, max_len = 8, SERVE_PROMPT + 64 + 8
+    prompt = torch.from_numpy(prompts[0][None].copy()).to(device)
+    pre = {"dense": make_pool_prefill(model, max_len), "K3": make_pool_prefill(fmodel, max_len)}
+    step = make_pool_decode_step(model, greedy=True)
+    got = {k: [] for k in ("prefill dense", "prefill K3", "decode", "engine")}
+    with torch.inference_mode():
+        pool = KVPool(model, slots, max_len, device)
+        for slot in range(slots):
+            last, c1 = pre["dense"](params, torch.from_numpy(prompts[slot % len(prompts)][None]
+                                                               .copy()).to(device))
+            pool.insert(c1, pool.acquire(), SERVE_PROMPT)
+        state = {"toks": last.argmax(-1).to(torch.int32).repeat(slots),
+                 "pos": torch.full((slots,), SERVE_PROMPT, dtype=torch.int32, device=device)}
+        active = torch.ones(slots, dtype=torch.bool, device=device)
+        temps = torch.zeros(slots, device=device)
+        top_k = torch.zeros(slots, dtype=torch.int32, device=device)
+
+        def decode_step():
+            toks, state["pos"], _ = step(params, pool.cache, state["toks"], state["pos"], active,
+                                         temps, top_k, None)
+            state["toks"] = toks
+            toks.cpu()   # the engine's one sync a step
+
+        for rnd in range(rounds):
+            for name in ("dense", "K3"):
+                r = _profile_calls(lambda: pre[name](params, prompt))
+                got[f"prefill {name}"].append(r)
+            r = _profile_calls(decode_step)
+            got["decode"].append(r)
+            torch.cuda.reset_peak_memory_stats(device)
+            eng = ContinuousEngine(model, params, n_slots=slots, max_len=max_len)
+            reqs = [ServeRequest(prompts[i % len(prompts)], max_new_tokens=SERVE_NEW)
+                    for i in range(2 * slots)]
+            stats = serving_stats(eng.generate(reqs))
+            stats["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+            stats["pool_gb"] = eng.pool.nbytes / 1e9
+            got["engine"].append(stats)
+            del eng
+            for k in ("prefill dense", "prefill K3", "decode"):
+                r = got[k][-1]
+                log(f"serving timing round {rnd + 1} {k}: wall {r['wall_ms']:.3f} ms, event span "
+                    f"{r['span_ms']:.3f} ms, busy {r['busy_ms']:.3f} ms in {r['launches']} "
+                    f"launches, idle share {r['idle']:.3f}")
+            log(f"serving timing round {rnd + 1} engine (16 requests, 8 slots, 128 + 32 tokens): "
+                f"{stats['tokens_per_s']:.1f} tokens/s, TTFT p50 {stats['ttft_p50_s'] * 1e3:.1f} "
+                f"p99 {stats['ttft_p99_s'] * 1e3:.1f} ms, latency p50 "
+                f"{stats['latency_p50_s'] * 1e3:.1f} p99 {stats['latency_p99_s'] * 1e3:.1f} ms, "
+                f"peak {stats['peak_gib']:.3f} GiB, pool {stats['pool_gb']:.4f} GB")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                for _ in range(4):
+                    decode_step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        log(f"serving: synchronizing calls in 4 decode steps: {syncs}")
+        if syncs != 4:
+            raise AssertionError(f"a decode step makes {syncs / 4:g} syncs, not 1: "
+                                 f"{sorted({str(w.message)[:120] for w in caught})}")
+        del pool
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    h, hkv, s, d = 15, 5, SERVE_PROMPT, 64
+    q = torch.randn((1, h, s, d), generator=gen, device=device).to(torch.bfloat16)
+    k, v = (torch.randn((1, hkv, s, d), generator=gen, device=device).to(torch.bfloat16)
+            for _ in range(2))
+    spec = FlashSpec(d**-0.5, True, 0, False)
+    kr, vr = (x.repeat_interleave(h // hkv, 1) for x in (k, v))
+    times = {"plain": [], "cuda": []}
+    for plain in (True, False, False, True):
+        times["plain" if plain else "cuda"].append(
+            cuda_ms(lambda: flash_attention_fwd(q, k, v, None, spec, plain=plain)))
+    sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True))
+    pairs = s * (s + 1) // 2   # the causal (row, key) pairs this run computes
+    bytes_ = (2 * q.numel() + 2 * k.numel()) * 2 + h * s * 4
+    flops = 2 * 2 * h * pairs * d
+    t_bytes, t_ops = bytes_ / rate, flops / PEAK_OPS["bfloat16"]
+    out = dict(ms=min(times["cuda"]), plain_ms=min(times["plain"]),
+               bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=sdpa)
+    log(f"time flash_fwd serving prefill (b 1 h {h} hkv {hkv} s {s} d {d} causal bf16): kernel "
+        f"{times['cuda']} ms, plain {times['plain']} ms; bound {out['bound_ms']:.5f} ms by "
+        f"{out['bound_by']} ({bytes_ / 1e6:.3f} MB, {flops / 1e6:.1f} MFLOP): latency-bound; "
+        f"scaled_dot_product_attention forward (k, v repeated to {h} heads) {sdpa:.4f} ms")
+    for k_, rs in got.items():
+        keys = ("tokens_per_s", "ttft_p50_s", "latency_p50_s", "peak_gib") if k_ == "engine" \
+            else ("wall_ms", "span_ms", "busy_ms", "launches", "idle")
+        log(f"serving timing {k_}: " + ", ".join(
+            f"{key} {[round(float(r[key]), 4) for r in rs]}" for key in keys))
+    del q, k, v, kr, vr
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_serving(device, rate: float) -> dict:
+    """Phase 10; returns K3's serving launches and times for the kernels line."""
+    import torch
+
+    t0 = time.perf_counter()
+    model, fmodel, params, prompts = _serve_setup(device)
+    greedy = check_serving_greedy(device, model, params, prompts)
+    launches = check_serving_flash(device, model, fmodel, params, prompts, greedy)
+    check_serving_sampling(device, model, params, prompts, greedy)
+    check_serving_faults(device)
+    check_serving_launcher()
+    timing = time_serving(device, model, fmodel, params, prompts, rate)
+    del params
+    torch.cuda.empty_cache()
+    log(f"serving: phase 10 took {time.perf_counter() - t0:.1f} s")
+    return dict(launches=launches, **timing)
+
+
+# ---------------------------------------------------------------------------
 # phase 6: timing
 # ---------------------------------------------------------------------------
 
@@ -1791,11 +2280,16 @@ def main() -> None:
     del ref_params
     check_remat(device)
     time_training_variants(device)
+    serving = run_serving(device, rate)
     timing = {**time_kernels(device, rate), **time_flash(device, rate),
               **time_fused_ce(device, rate)}
 
     kernels = [dict(name=k, **KERNELS[k], launches=launches[k], max_abs_err=errs[k],
                     **timing[k]) for k in KERNELS]
+    # K3 on the serving path (phase 10): its launches there and its times at
+    # the serving prefill's shape
+    next(k for k in kernels if k["name"] == "flash_fwd")["serving"] = serving
+    log(card)   # again near the end, where a truncated log still shows it
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

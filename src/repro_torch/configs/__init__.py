@@ -1,14 +1,14 @@
 """Config registry of the port: ``get_config("bert-large")``.
 
-Only bert-large is ported; every other architecture of the JAX zoo raises
-(ROADMAP.md queue 1, item 10).
+Ported: bert-large (training) and smollm-360m (serving); every other
+architecture of the JAX zoo raises (ROADMAP.md queue 1, item 10).
 """
 from __future__ import annotations
 
-from repro_torch.configs import bert_large
+from repro_torch.configs import bert_large, smollm_360m
 from repro_torch.configs.base import ModelConfig, TrainConfig
 
-_ARCHS = {"bert-large": bert_large}
+_ARCHS = {"bert-large": bert_large, "smollm-360m": smollm_360m}
 
 
 def _module(name: str):

@@ -1,13 +1,14 @@
 """Model API over the ported families (port of ``repro.models.api``).
 
 ``build_model(cfg)`` returns a :class:`Model` with the parameter
-definitions, ``init``/``apply`` and the optimizer metadata (weight-decay
+definitions, ``init``/``apply``, the serving calls ``prefill``/``decode``
+over a ``make_cache`` cache, and the optimizer metadata (weight-decay
 mask, trust-ratio mask, stacked-layer axes), all keyed by the JAX paths.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
@@ -42,6 +43,28 @@ class Model:
         with ``return_hidden`` the final hidden states (B, S, D) for the fused
         CE head."""
         return transformer.forward(params, batch, self.cfg, return_hidden=return_hidden)
+
+    def prefill(self, params: nn.Params, batch, cache) -> Tuple[torch.Tensor, Any]:
+        """(B, S, V) logits of the prompt, and ``cache`` filled in place with
+        its S positions.  Weights are cast to the activation dtype where they
+        are used, as in the reference."""
+        logits = transformer.forward(params, batch, self.cfg, caches=cache, decode=False)
+        return logits, cache
+
+    def decode(self, params: nn.Params, batch, cache, positions: torch.Tensor
+               ) -> Tuple[torch.Tensor, Any]:
+        """(B, S, V) logits of ``batch["tokens"]`` at ``positions`` (B, S),
+        each layer's k/v written into ``cache`` at its index, in place."""
+        logits = transformer.forward(params, batch, self.cfg, caches=cache, decode=True,
+                                     positions=positions)
+        return logits, cache
+
+    def make_cache(self, batch: int, max_len: int, device) -> Dict[str, Any]:
+        """A zeroed cache for ``batch`` rows of ``max_len`` positions in the
+        activation dtype, on ``device``."""
+        return transformer.make_cache(self.cfg, batch, max_len,
+                                      dtype=nn.torch_dtype(self.cfg.activation_dtype),
+                                      device=torch.device(device))
 
     def param_count(self) -> int:
         return nn.param_count(self.defs)

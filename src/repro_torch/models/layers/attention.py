@@ -1,13 +1,19 @@
-"""Multi-head attention, train/encoder path (no KV cache).
+"""Multi-head attention: MHA / GQA / MQA, causal / bidirectional / sliding
+window, with a fixed-size KV cache for prefill and decode.
 
-Port of the train/encoder path of ``repro.models.layers.attention``:
-projections, RoPE, then flash attention (kernels K3–K5 through
-``kernels.ops.flash_sdpa``) when ``cfg.use_flash_kernel``, else ``_sdpa``
-under the additive ``_mask_bias``, and the output projection.  The
-decode/prefill cache branch is not ported yet (ROADMAP.md queue 1, item 9).
+Port of ``repro.models.layers.attention``: projections, RoPE, then flash
+attention (kernels K3–K5 through ``kernels.ops.flash_sdpa``) when
+``cfg.use_flash_kernel``, else ``_sdpa`` under the additive ``_mask_bias``,
+and the output projection.  With a cache, prefill attends as above and
+fills ``cache[:, :S]``; decode writes its k/v at ``index`` and runs the
+dense ``_sdpa`` over the whole cache under a length/window mask (never the
+flash kernel, as in the reference).
 
 Layouts follow the JAX package: q (B, S, H, Dh), k/v (B, T, Hkv, Dh),
-``wq`` (D, H, Dh), ``wo`` (H, Dh, D).
+``wq`` (D, H, Dh), ``wo`` (H, Dh, D); a cache is ``{"k", "v"}`` of
+(B, T, Hkv, Dh) in the activation dtype and an int32 ``index``.  The JAX
+package returns a new cache (its buffers donated); here every write lands
+in the cache's own tensors, index included.
 """
 from __future__ import annotations
 
@@ -74,12 +80,41 @@ def _sdpa(
     qg = q.reshape(b, s, n_kv_heads, g, dh).permute(0, 2, 3, 1, 4)  # b n g s d
     kt = k.permute(0, 2, 3, 1)[:, :, None]                           # b n 1 d t
     vt = v.permute(0, 2, 1, 3)[:, :, None]                           # b n 1 t d
-    scale = torch.tensor(math.sqrt(dh), dtype=torch.float32).to(q.dtype)
-    scores = (qg @ kt) / scale.to(q.device)
+    # a host scalar: a tensor copied to the card would block the host
+    scale = float(torch.tensor(math.sqrt(dh), dtype=torch.float32).to(q.dtype))
+    scores = (qg @ kt) / scale
     scores = scores.to(torch.float32) + bias[:, :, None]
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = probs @ vt                                                 # b n g s d
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh)
+
+
+def _write_decode(cache: Dict[str, torch.Tensor], k: torch.Tensor, v: torch.Tensor
+                  ) -> torch.Tensor:
+    """Write one decode step's k/v into ``cache`` in place; returns the
+    number of valid keys after it (scalar, or (B,) per slot).
+
+    A scalar ``index`` (the static engine: one length for the batch) writes
+    positions [idx, idx + S), its start clamped so they fit as
+    ``dynamic_update_slice`` clamps it; a (B,) ``index`` (the slot pool)
+    writes row b at idx[b].  Neither reads the index on the host."""
+    idx = cache["index"]
+    ck, cv = cache["k"], cache["v"]
+    s = k.shape[1]
+    if idx.ndim == 0:
+        start = torch.clamp(idx, 0, ck.shape[1] - s).long()
+        pos = start + torch.arange(s, device=idx.device)
+        ck.index_copy_(1, pos, k.to(ck.dtype))
+        cv.index_copy_(1, pos, v.to(cv.dtype))
+        valid = idx + s
+    else:
+        assert s == 1, "per-slot decode is single-token"
+        rows = torch.arange(k.shape[0], device=idx.device)
+        ck[rows, idx.long()] = k[:, 0].to(ck.dtype)
+        cv[rows, idx.long()] = v[:, 0].to(cv.dtype)
+        valid = idx + 1
+    idx.copy_(valid)
+    return valid
 
 
 def attention(
@@ -88,12 +123,20 @@ def attention(
     positions: torch.Tensor,
     cfg: ModelConfig,
     *,
+    cache: Optional[Dict[str, torch.Tensor]] = None,
+    decode: bool = False,
     valid_len: Optional[torch.Tensor] = None,  # (B,) per-example valid length
 ) -> torch.Tensor:
-    """Train/encoder attention block (projections + SDPA + output projection).
+    """Attention block (projections + SDPA + output projection).
 
-    ``valid_len`` masks keys at positions >= valid_len[b] (at least key 0
-    stays visible on both paths, as in the JAX package).
+    Modes, as in the reference:
+      train/encoder: cache=None, decode=False
+      prefill:       cache=a zeroed cache, decode=False → fills it in place
+      decode:        cache=filled, decode=True, x (B, S, D) at ``positions``
+
+    ``valid_len`` masks keys at positions >= valid_len[b] on the
+    train/prefill path (at least key 0 stays visible on both paths, as in
+    the JAX package); decode masks by the cache's index instead.
     """
     b, s, d = x.shape
     dtype = x.dtype
@@ -106,14 +149,35 @@ def attention(
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    if valid_len is not None:
-        valid_len = torch.clamp(valid_len.to(torch.int32), min=1)
-    if cfg.use_flash_kernel:
-        out = flash_sdpa(q, k, v, causal=cfg.causal, kv_valid=valid_len,
-                         window=cfg.sliding_window or 0)
+    if cache is not None and decode:
+        valid = _write_decode(cache, k, v)
+        kv_pos = torch.arange(cache["k"].shape[1], dtype=torch.int32, device=x.device)
+        bias = _mask_bias(positions, kv_pos, valid, causal=True, window=cfg.sliding_window)
+        out = _sdpa(q, cache["k"], cache["v"], bias, hkv)
     else:
-        kv_pos = torch.arange(s, dtype=torch.int32, device=x.device)
-        bias = _mask_bias(positions, kv_pos, valid_len, causal=cfg.causal,
-                          window=cfg.sliding_window)
-        out = _sdpa(q, k, v, bias, hkv)
+        if valid_len is not None:
+            valid_len = torch.clamp(valid_len.to(torch.int32), min=1)
+        if cfg.use_flash_kernel:
+            out = flash_sdpa(q, k, v, causal=cfg.causal, kv_valid=valid_len,
+                             window=cfg.sliding_window or 0)
+        else:
+            kv_pos = torch.arange(s, dtype=torch.int32, device=x.device)
+            bias = _mask_bias(positions, kv_pos, valid_len, causal=cfg.causal,
+                              window=cfg.sliding_window)
+            out = _sdpa(q, k, v, bias, hkv)
+        if cache is not None:  # prefill: fill cache[:, :s]
+            cache["k"][:, :s].copy_(k)
+            cache["v"][:, :s].copy_(v)
+            cache["index"].fill_(s)
     return out.reshape(b, s, h * dh) @ p["wo"].to(dtype).reshape(h * dh, d)
+
+
+def init_kv_cache(batch: int, max_len: int, cfg: ModelConfig, dtype=torch.bfloat16,
+                  device=None) -> Dict[str, torch.Tensor]:
+    """A zeroed cache: k/v (batch, max_len, Hkv, Dh) in ``dtype``, index 0."""
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "index": torch.zeros((), dtype=torch.int32, device=device),
+    }

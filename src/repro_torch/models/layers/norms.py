@@ -1,4 +1,4 @@
-"""LayerNorm (param defs + pure apply); RMSNorm is not ported."""
+"""Normalization layers: LayerNorm and RMSNorm (param defs + pure apply)."""
 from __future__ import annotations
 
 from typing import Dict
@@ -9,24 +9,27 @@ from repro_torch.nn.module import Param
 
 
 def norm_defs(d_model: int, norm_type: str) -> dict:
-    if norm_type != "layernorm":
-        raise NotImplementedError(
-            f"norm {norm_type!r} is not ported (ROADMAP.md queue 1, item 10)"
-        )
-    return {
-        "scale": Param((d_model,), ("embed",), init="ones",
-                       no_weight_decay=True, no_trust_ratio=True),
-        "bias": Param((d_model,), ("embed",), init="zeros",
-                      no_weight_decay=True, no_trust_ratio=True),
-    }
+    scale = Param((d_model,), ("embed",), init="ones",
+                  no_weight_decay=True, no_trust_ratio=True)
+    if norm_type == "layernorm":
+        bias = Param((d_model,), ("embed",), init="zeros",
+                     no_weight_decay=True, no_trust_ratio=True)
+        return {"scale": scale, "bias": bias}
+    return {"scale": scale}
 
 
-def apply_norm(p: Dict[str, torch.Tensor], x: torch.Tensor, eps: float = 1e-6
-               ) -> torch.Tensor:
-    """LayerNorm in fp32 with eps 1e-6 (not torch's 1e-5), cast back; the
-    reference's formula, term for term."""
+def apply_norm(p: Dict[str, torch.Tensor], x: torch.Tensor, norm_type: str,
+               eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm, or RMSNorm for any other ``norm_type`` as in the reference:
+    in fp32 with eps 1e-6 (not torch's 1e-5), cast back; the reference's
+    formulas, term for term."""
     x32 = x.to(torch.float32)
-    mu = x32.mean(-1, keepdim=True)
-    var = (x32 - mu).square().mean(-1, keepdim=True)
-    y = (x32 - mu) / torch.sqrt(var + eps) * p["scale"].to(torch.float32)
-    return (y + p["bias"].to(torch.float32)).to(x.dtype)
+    if norm_type == "layernorm":
+        mu = x32.mean(-1, keepdim=True)
+        var = (x32 - mu).square().mean(-1, keepdim=True)
+        y = (x32 - mu) / torch.sqrt(var + eps) * p["scale"].to(torch.float32)
+        y = y + p["bias"].to(torch.float32)
+    else:  # rmsnorm
+        ms = x32.square().mean(-1, keepdim=True)
+        y = x32 / torch.sqrt(ms + eps) * p["scale"].to(torch.float32)
+    return y.to(x.dtype)

@@ -1,4 +1,5 @@
-"""Dense transformer, train/encoder forward (port of ``repro.models.transformer``).
+"""Dense transformer: train/encoder forward, prefill and decode over a stacked
+KV cache (port of ``repro.models.transformer``).
 
 The JAX package ``lax.scan``s a block over stacked ``(layers, ...)`` leaves;
 here the stack is split once per forward with ``torch.unbind`` (whose
@@ -14,9 +15,14 @@ of the whole stack.
 stay alive between the passes; the flash ``autograd.Function`` runs its
 forward (K3) again per layer in the backward and saves the same residuals.
 
-Only the dense family's train path is ported: MoE, MLA, dense prefixes,
-untied heads, MTP, modality frontends and the KV caches raise (ROADMAP.md
-queue 1, items 9–10).
+Caches are the reference's ``_stacked_cache``: ``{"main": {"k", "v",
+"index"}}`` with (n_layers, B, T, Hkv, Dh) k/v and an (n_layers,) int32
+index ((n_layers, B) in the serving slot pool); layer i reads and writes
+its slice ``cache[i]`` in place.
+
+Only the dense family is ported: MoE, MLA, dense prefixes, untied heads,
+MTP, logit softcaps and modality frontends raise (ROADMAP.md queue 1,
+item 10).
 """
 from __future__ import annotations
 
@@ -27,7 +33,7 @@ import torch.utils.checkpoint
 
 from repro_torch import nn
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers.attention import attention, attention_defs
+from repro_torch.models.layers.attention import attention, attention_defs, init_kv_cache
 from repro_torch.models.layers.embeddings import embed, embed_defs, tied_unembed
 from repro_torch.models.layers.mlp import mlp, mlp_defs
 from repro_torch.models.layers.norms import apply_norm, norm_defs
@@ -90,11 +96,14 @@ def _one_block(
     positions: torch.Tensor,
     cfg: ModelConfig,
     *,
+    cache: Optional[Dict[str, torch.Tensor]] = None,
+    decode: bool = False,
     valid_len: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    h = apply_norm(_sub(bp, "ln1"), x)
-    x = x + attention(_sub(bp, "attn"), h, positions, cfg, valid_len=valid_len)
-    h = apply_norm(_sub(bp, "ln2"), x)
+    h = apply_norm(_sub(bp, "ln1"), x, cfg.norm_type)
+    x = x + attention(_sub(bp, "attn"), h, positions, cfg, cache=cache, decode=decode,
+                      valid_len=valid_len)
+    h = apply_norm(_sub(bp, "ln2"), x, cfg.norm_type)
     return x + mlp(_sub(bp, "mlp"), h, cfg)
 
 
@@ -103,32 +112,51 @@ def forward(
     batch: Dict[str, torch.Tensor],
     cfg: ModelConfig,
     *,
+    caches: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+    decode: bool = False,
+    positions: Optional[torch.Tensor] = None,
     return_hidden: bool = False,
 ) -> torch.Tensor:
     """(B, S, V) logits of the tied head.
 
-    ``return_hidden=True`` skips the vocab projection and returns the
-    post-final-norm hidden states (B, S, D) instead: the fused CE head's
-    path, which projects only the supervised positions (``train/loss.py``).
+    With ``caches`` (from :func:`make_cache`), prefill (``decode=False``)
+    fills them and decode writes each layer's k/v at its index, in place;
+    ``positions`` (B, S) default to 0..S-1, and ``valid_len`` is ignored on
+    decode as in the reference.  ``return_hidden=True`` skips the vocab
+    projection and returns the post-final-norm hidden states (B, S, D)
+    instead: the fused CE head's path, which projects only the supervised
+    positions (``train/loss.py``).
     """
     dtype = nn.torch_dtype(cfg.activation_dtype)
     x = embed(params["embed"], batch["tokens"], dtype)
     b, s = x.shape[:2]
-    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
-    valid_len = batch.get("valid_len")
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+    valid_len = None if decode else batch.get("valid_len")
+    main = None if caches is None else caches["main"]
 
     stacked = {k: torch.unbind(v, 0) for k, v in _sub(params, "blocks").items()}
     for i in range(cfg.n_layers):
         bp = {k: v[i] for k, v in stacked.items()}
-        if cfg.remat == "full":
+        cache = None if main is None else {k: v[i] for k, v in main.items()}
+        if cfg.remat == "full" and cache is None:
             # the block draws no random numbers: no RNG state to stash
             x = torch.utils.checkpoint.checkpoint(
                 _one_block, bp, x, positions, cfg, valid_len=valid_len,
                 use_reentrant=False, preserve_rng_state=False)
         else:
-            x = _one_block(bp, x, positions, cfg, valid_len=valid_len)
+            x = _one_block(bp, x, positions, cfg, cache=cache, decode=decode,
+                           valid_len=valid_len)
 
-    x = apply_norm(_sub(params, "final_norm"), x)
+    x = apply_norm(_sub(params, "final_norm"), x, cfg.norm_type)
     if return_hidden:
         return x
     return tied_unembed(x, params["embed"])
+
+
+def make_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=torch.bfloat16,
+               device=None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The zeroed stacked cache of every layer: ``{"main": {"k", "v", "index"}}``
+    with a leading (n_layers,) axis on each leaf."""
+    one = init_kv_cache(batch, max_len, cfg, dtype, device)
+    return {"main": {k: v.expand((cfg.n_layers,) + v.shape).clone() for k, v in one.items()}}

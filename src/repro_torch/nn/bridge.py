@@ -32,6 +32,15 @@ def params_from_jax(
     return {k: _to_tensor(v, dev) for k, v in flatten(tree).items()}
 
 
+def cache_from_jax(tree, device: Optional[Union[str, torch.device]] = "cpu"
+                   ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A JAX ``make_cache`` tree (``{"main": {"k", "v", "index"}}``, as
+    arrays) → the port's cache of the same nesting, layouts and dtypes."""
+    dev = torch.device(device)
+    return {seg: {k: _to_tensor(v, dev) for k, v in leaves.items()}
+            for seg, leaves in tree.items()}
+
+
 def state_from_jax(state, device: Optional[Union[str, torch.device]] = "cpu"):
     """A JAX optimizer state → the port's: a ``FusedLambState``, or any
     transform chain's tuple of ``EmptyState`` / ``TraceState`` /

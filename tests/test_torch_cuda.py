@@ -112,6 +112,8 @@ FLASH_CASES = [
     (2, 4, 4, 200, 200, 16, False, 0, False),    # D 16, ragged S = T
     (1, 4, 2, 77, 77, 32, True, 0, True),        # D 32, ragged, GQA, causal, kv_valid
     (2, 2, 2, 300, 300, 64, False, 0, True),     # ragged S = T at the main path's D
+    (1, 15, 5, 128, 128, 64, True, 0, False),    # serving prefill: smollm-360m, GQA 15/5
+    (1, 15, 5, 100, 100, 64, True, 0, False),    # the same at a ragged prompt length
 ]
 
 
@@ -178,11 +180,13 @@ def test_flash_kernels_match_plain_on_card(cuda, b, h, hkv, s, t, d, causal, win
     torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("b,h,hkv,s", [(2, 4, 2, 96), (1, 15, 5, 128), (1, 15, 5, 100)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_reads_model_layout_through_strides(cuda, dtype):
+def test_flash_reads_model_layout_through_strides(cuda, dtype, b, h, hkv, s):
     """(B, S, H, D) tensors go in as transposed views and come back in the
-    same layout: no copies, the same numbers as from contiguous inputs."""
-    q, k, v, do, _ = _flash_inputs(2, 4, 2, 96, 96, 64, False, dtype, cuda)
+    same layout: no copies, the same numbers as from contiguous inputs (also
+    at the serving prefill's shape: smollm-360m's 15 heads over 5)."""
+    q, k, v, do, _ = _flash_inputs(b, h, hkv, s, s, 64, False, dtype, cuda)
     views = [x.transpose(1, 2).contiguous().transpose(1, 2).requires_grad_()
              for x in (q, k, v)]
     o = flash_attention(*views, causal=True)

@@ -24,6 +24,11 @@ trainer = train.main(["--arch", "bert-large", "--smoke", "--batch", "4", "--seq"
                       "--fused-lamb", "--no-flash", "--steps", "1",
                       "--device", "cpu"])
 assert trainer.state.step == 1
+import repro_torch.serve
+from repro_torch.launch import serve
+out = serve.main(["--arch", "smollm-360m", "--smoke", "--requests", "2", "--prompt-len", "4",
+                  "--max-new", "2", "--continuous", "--device", "cpu"])
+assert [r.status.value for r in out] == ["completed"] * 2
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
 print("MODULES", len(names), "BAD", bad)

@@ -49,7 +49,7 @@ def test_configs_equal_jax_copies(make):
 
 def test_unported_archs_and_kernels_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("smollm-360m")
+        get_config("granite-20b")
     assert build_model(bert_large.smoke().replace(use_fused_ce_head=False)).cfg.use_flash_kernel
     # the fused CE head (K6–K8) is ported: bert-smoke builds with it on and
     # its forward returns the final hidden states for the head
@@ -58,8 +58,9 @@ def test_unported_archs_and_kernels_raise():
     batch = {k: torch.from_numpy(v) for k, v in
              next(jax_synthetic.batch_iterator(jax_bert.smoke(), 2, 16, seed=0)).items()}
     assert model.apply(model.init(0, "cpu"), batch, return_hidden=True).shape == (2, 16, 128)
-    for field in (dict(norm_type="rmsnorm"), dict(gated_mlp=True), dict(act_fn="silu"),
-                  dict(n_experts=4), dict(tie_embeddings=False)):
+    # RMSNorm, the gated MLP and SiLU are ported (tests/test_torch_serve.py)
+    for field in (dict(n_experts=4), dict(tie_embeddings=False), dict(use_mla=True),
+                  dict(act_fn="swish")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(bert_large.smoke().replace(**OFF, **field))
     # remat is ported (tests/test_torch_remat.py)
@@ -125,7 +126,7 @@ def test_layernorm_matches_jax():
     x = rng.standard_normal((2, 5, 32)) * 3 + 1
     p = {"scale": rng.standard_normal(32), "bias": rng.standard_normal(32)}
     ref = jax_norms.apply_norm({k: j(v) for k, v in p.items()}, j(x), "layernorm")
-    out = norms.apply_norm({k: t(v) for k, v in p.items()}, t(x))
+    out = norms.apply_norm({k: t(v) for k, v in p.items()}, t(x), "layernorm")
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **F32)
 
 
