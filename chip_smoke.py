@@ -17,12 +17,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
    K4 (``flash_dq``) and K5 (``flash_dkv``), forward and backward through
    the autograd boundary, against the plain version at the main path's
    shape, at seq 512 and under causal, window, ragged-length, GQA,
-   cross-length, model-layout and head-dim 16, 32 and 128 cases (bf16 K3,
-   K4 and K5 on the tensor cores, fp32 on the FMA kernels), and K4 and K5
-   run twice for equal bits; the fused CE kernels K6
+   cross-length, model-layout and head-dim 16, 32, 128 and 256 cases, and
+   at head dims 40 and 80, which ``flash_attention`` zero-pads to the
+   kernels' next (bf16 K3, K4 and K5 on the tensor cores, fp32 on the FMA
+   kernels), and K4 and K5 run twice for equal bits; the fused CE kernels K6
    (``fused_ce_fwd``), K7 (``fused_ce_dh``) and K8 (``fused_ce_dw``), forward
    and backward through the autograd boundary, against the plain version at
-   the main path's shape, at seq 512, with ragged rows, vocab and D, in the
+   the main path's shape, at seq 512, with ragged rows, vocab and D, at D
+   1280, 2048 and 2056 (past one 1024-column window), in the
    model's layout, in fp32, with zero cotangents and with all-zero rows
    (ties) (bf16 K6, K7 and K8 on the tensor cores, fp32 and bf16 rows off
    a 16-byte boundary on the FMA kernels), and K7 and K8 run twice for equal
@@ -101,7 +103,25 @@ Phases, each of which raises (and so exits non-zero) on failure:
    time, launches and idle share, one sync a decode step, an engine run's
    tokens/s, TTFT and latency, peak memory and the pool's bytes, three
    rounds in turns, and K3 alone at the serving shape beside its plain
-   version, its bound and SDPA's forward.
+   version, its bound and SDPA's forward;
+11. granite-moe-1b-a400m at full width (24 layers, d 1024, 16 heads over
+   8, 32 experts top-8, vocab 49155, bf16, random weights from seed 0;
+   after phase 10, before phase 6's timings): (a) ``repro_torch.launch.train``
+   at batch 16 × seq 512, accum 2, fused LAMB, flash and the fused CE head,
+   4 steps: finite losses, ``loss/moe_lb`` and ``moe/drop_fraction`` in
+   every row, moved weights, K1/K2 12 leaves × 4, K3–K5 24 × 2 × 4 and
+   K6–K8 2 × 4 launches, all bf16 K3–K8 on the tensor cores; (b) the 8
+   prompts of 128 tokens, 32 new greedy tokens, through the static
+   ``Engine`` and the ``ContinuousEngine`` over 4 slots with flash on: K3
+   24 × prefills launches and each call within a bf16 ulp of its plain
+   version, each prefill's drop fraction, sequences compared where both
+   engines' prefills dropped nothing, every prefill's last logits held to
+   the forward on the same tokens; (c) the step timed (two rounds: wall,
+   span, busy by group, launches, idle share, peak), the MoE layer's
+   dispatch, expert products and combine forward and backward at the
+   step's shape, a 128-token prefill with K3 and a decode step over 8
+   slots.  Phase 6 then also times K1–K8 at granite-moe's shapes, flash at
+   head dims 40, 64, 80, 128 and 256, and K6–K8 at D 1280 and 2048.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -178,6 +198,14 @@ SERVE_FAULT_ARGV = [
     "--prompt-len", "128", "--max-new", "32", "--stall-slo", "0.15",
     "--inject-faults", "sample_nan@1,slot_corrupt@2:persist,decode_stall@3:stall=0.2",
 ]
+# phase 11: granite-moe-1b-a400m at full width (24 layers, d 1024, 16 heads
+# over 8, 32 experts top-8, vocab 49155), trained and served
+MOE_ARCH, MOE_LAYERS, MOE_LEAVES, MOE_STEPS = "granite-moe-1b-a400m", 24, 12, 4
+MOE_ARGV = [
+    "--arch", MOE_ARCH, "--batch", "16", "--seq", "512", "--accum-steps", "2",
+    "--precision", "bf16", "--fused-lamb", "--flash", "--fused-ce",
+    "--steps", str(MOE_STEPS), "--log-every", "1",
+]
 SERVE_LAUNCH_REQUESTS = 32
 SERVE_LAUNCH_ARGV = [
     "--arch", SERVE_ARCH, "--continuous", "--slots", "8", "--arrival-rate", "20",
@@ -239,8 +267,9 @@ KERNELS = {
 FLASH = ("flash_fwd", "flash_dq", "flash_dkv")
 FUSED_CE = ("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw")
 
-# BERT-large leaf shapes for the kernel check: (name, shape, layer_axis, x
-# dtype, g dtype, weight decay and trust ratio on)
+# Leaf shapes for the kernel check: (name, shape, layer_axis, x dtype, g
+# dtype, weight decay and trust ratio on).  BERT-large's, then
+# granite-moe-1b-a400m's expert and router leaves (phase 11).
 CHECK_CASES = [
     ("blocks/mlp/wi", (24, 1024, 4096), 0, "float32", "float32", True),
     ("embed", (30522, 1024), None, "float32", "float32", True),
@@ -248,17 +277,21 @@ CHECK_CASES = [
     ("ragged", (3, 1_000_003), 0, "float32", "float32", True),
     ("blocks/attn/wq bf16", (24, 1024, 16, 64), 0, "bfloat16", "float32", True),
     ("blocks/attn/wo bf16 grads", (24, 16, 64, 1024), 0, "bfloat16", "bfloat16", True),
+    ("granite-moe blocks/moe/wi", (24, 32, 1024, 512), 0, "float32", "float32", True),
+    ("granite-moe blocks/moe/router", (24, 1024, 32), 0, "float32", "float32", True),
 ]
 
 
 # Flash-attention checks: (name, b, h, hkv, s, t, d, causal, window, kv_valid
 # or None, dtype, layout).  The first two are the shapes the main path gives
-# the kernels at seq 128 and 512.  Layout "bshd": q, k, v and do are the
+# the kernels at seq 128 and 512, the third granite-moe-1b-a400m's training
+# shape (phase 11).  Layout "bshd": q, k, v and do are the
 # model's (B, S, H, D) tensors seen as (B, H, S, D) views, as flash_sdpa
 # hands them over.
 FLASH_CASES = [
     ("main path", 32, 16, 16, 128, 128, 64, False, 0, None, "bfloat16", "bhsd"),
     ("seq 512", 16, 16, 16, 512, 512, 64, False, 0, None, "bfloat16", "bhsd"),
+    ("granite-moe training", 8, 16, 8, 512, 512, 64, True, 0, None, "bfloat16", "bshd"),
     ("causal", 4, 16, 16, 256, 256, 64, True, 0, None, "bfloat16", "bhsd"),
     ("window", 4, 8, 8, 512, 512, 64, True, 128, None, "float32", "bhsd"),
     ("valid + window, dead rows", 3, 4, 4, 300, 300, 64, True, 64, [40, 300, 177], "float32",
@@ -278,9 +311,23 @@ FLASH_CASES = [
     ("D 128 bf16", 4, 8, 8, 384, 384, 128, False, 0, None, "bfloat16", "bhsd"),
     ("serving prefill, GQA 15/5", 1, 15, 5, 128, 128, 64, True, 0, None, "bfloat16", "bshd"),
     ("serving prefill, ragged S", 1, 15, 5, 100, 100, 64, True, 0, None, "bfloat16", "bshd"),
+    # head dims outside the kernels' own run zero-padded (smollm-smoke's 40,
+    # hubert-xlarge's 80); paligemma-3b's 256 on the D 256 kernels
+    ("D 40 causal GQA", 2, 6, 2, 200, 200, 40, True, 0, None, "bfloat16", "bshd"),
+    ("D 40 bidirectional", 2, 4, 4, 128, 128, 40, False, 0, [128, 77], "bfloat16", "bhsd"),
+    ("D 80 bidirectional", 4, 16, 16, 256, 256, 80, False, 0, None, "bfloat16", "bshd"),
+    ("D 80 causal GQA fp32", 2, 8, 2, 160, 160, 80, True, 0, None, "float32", "bhsd"),
+    ("D 256 causal MQA", 2, 8, 1, 300, 300, 256, True, 0, None, "bfloat16", "bshd"),
+    ("D 256 bidirectional", 2, 4, 4, 256, 256, 256, False, 0, [256, 100], "bfloat16", "bhsd"),
+    ("D 256 causal fp32", 1, 4, 2, 200, 200, 256, True, 0, None, "float32", "bhsd"),
 ]
-# Flash timing shapes (b, h, s, d): what the main path gives the kernels.
-FLASH_TIMING = [("seq 128", 32, 16, 128, 64), ("seq 512", 16, 16, 512, 64)]
+# Flash timing shapes (b, h, hkv, s, d, causal): what the main path gives
+# the kernels; then granite-moe-1b-a400m's training shape (phase 11).
+FLASH_TIMING = [("seq 128", 32, 16, 16, 128, 64, False), ("seq 512", 16, 16, 16, 512, 64, False)]
+MOE_FLASH_TIMING = [("granite-moe seq 512", 8, 16, 8, 512, 64, True)]
+# Head dims of the padded path and D 256, at one shape (b 8, h 16, s 512,
+# bidirectional): flash_attention forward and forward + backward, padding in.
+WIDTH_DIMS = (40, 64, 80, 128, 256)
 
 # Fused CE checks: (name, n, d, v, dtype, layout).  The first two are the
 # shapes the main path gives the kernels: 32 sequences × 20 gathered positions
@@ -288,11 +335,15 @@ FLASH_TIMING = [("seq 128", 32, 16, 128, 64), ("seq 512", 16, 16, 512, 64)]
 # Layout "dense": h a contiguous (n, d) tensor; "model": h the rows
 # gather_supervised takes from a (32, 128, d) hidden state, as the model's
 # loss hands them over, against w cast from an fp32 embedding as the step
-# casts its masters; "offset": h starts 2 bytes past a 16-byte boundary, so
-# bf16 K7 and K8 take the FMA design.
+# casts its masters; "lm": the rows of an (n / 512, 512, d) hidden state with
+# every position supervised, as lm_loss hands granite-moe-1b-a400m's over
+# (phase 11: 8 sequences of 512 against the tied (49155, 1024) embedding, a
+# ragged vocab); "offset": h starts 2 bytes past a 16-byte boundary, so bf16
+# K7 and K8 take the FMA design.
 CE_CASES = [
     ("main path", 640, 1024, 30522, "bfloat16", "dense"),
     ("seq 512", 1232, 1024, 30522, "bfloat16", "dense"),
+    ("granite-moe training", 4096, 1024, 49155, "bfloat16", "lm"),
     ("ragged rows and vocab", 97, 1024, 300, "bfloat16", "dense"),
     ("fp32", 640, 1024, 30522, "float32", "dense"),
     ("ragged fp32, D 80", 97, 80, 300, "float32", "dense"),
@@ -300,10 +351,20 @@ CE_CASES = [
     ("bf16 D 1000, N 333", 333, 1000, 5003, "bfloat16", "dense"),
     ("model layout", 640, 1024, 30522, "bfloat16", "model"),
     ("bf16 rows off 16 bytes", 97, 1024, 300, "bfloat16", "offset"),
+    # D past one 1024-column window: hubert-xlarge's 1280, paligemma-3b's
+    # 2048 (a vocab tile past 5003), and a ragged last window
+    ("D 1280", 640, 1280, 5003, "bfloat16", "dense"),
+    ("D 2048", 640, 2048, 30522, "bfloat16", "dense"),
+    ("D 2048 fp32", 97, 2048, 3001, "float32", "dense"),
+    ("D 2056 off 16 bytes", 97, 2056, 300, "bfloat16", "offset"),
+    ("ragged D 2056", 97, 2056, 300, "bfloat16", "dense"),
 ]
-# Fused CE timing shapes (n rows; D 1024, V 30522, bf16).
-CE_TIMING = [("seq 128", 640), ("seq 512", 1232)]
-CE_D, CE_V = 1024, 30522
+# Fused CE timing shapes (n rows, D, V; bf16): the main path's, then
+# granite-moe-1b-a400m's (8 sequences of 512, every position supervised),
+# then D past one 1024-column window at the main path's n and V.
+CE_TIMING = [("seq 128", 640, 1024, 30522), ("seq 512", 1232, 1024, 30522)]
+MOE_CE_TIMING = [("granite-moe", 4096, 1024, 49155)]
+WIDE_CE_TIMING = [("D 1280", 640, 1280, 30522), ("D 2048", 640, 2048, 30522)]
 
 
 def log(msg: str) -> None:
@@ -467,8 +528,10 @@ def check_flash(device) -> dict:
     """
     import torch
 
+    import torch.nn.functional as F
+
     from repro_torch.kernels.flash_attention import FlashSpec, flash_attention, \
-        flash_attention_bwd, flash_attention_fwd, flash_dkv, flash_dq, row_dot
+        flash_attention_bwd, flash_attention_fwd, flash_dkv, flash_dq, kernel_head_dim, row_dot
 
     errs = dict.fromkeys(FLASH, 0.0)
     gen = torch.Generator(device=device).manual_seed(2)
@@ -492,9 +555,17 @@ def check_flash(device) -> dict:
             outs[plain] = [o.detach(), *torch.autograd.grad(o, qkv, do)]
         lim = None if valid is None else kv_valid.clamp(1, t)
         spec = FlashSpec(d**-0.5, causal, window, valid is not None)
-        (o_k, lse), (o_ref, lse_ref) = (flash_attention_fwd(q, k, v, lim, spec, plain=p)
-                                        for p in (False, True))
-        same_inputs = [o_ref, *flash_attention_bwd(q, k, v, lim, o_k, lse, do, spec, plain=True)]
+        # a head dim outside the kernels' own: the kernels' call is the
+        # padded one (flash_attention pads), held to the plain version on the
+        # same padded inputs, sliced back
+        dp = kernel_head_dim(d)
+        pad = (lambda x: F.pad(x, (0, dp - d))) if dp != d else (lambda x: x)
+        (o_k, lse), (o_ref, lse_ref) = (flash_attention_fwd(pad(q), pad(k), pad(v), lim, spec,
+                                                            plain=p) for p in (False, True))
+        same_inputs = [x[..., :d] for x in (o_ref, *flash_attention_bwd(
+            pad(q), pad(k), pad(v), lim, o_k, lse, pad(do), spec, plain=True))]
+        if dp != d and not torch.equal(outs[False][0], o_k[..., :d]):
+            raise AssertionError(f"flash at head dim {d}: the padded call's o differs")
         torch.cuda.synchronize()
         rtol = 1e-2 if dt == "bfloat16" else 1e-4
         ok = bool(torch.allclose(lse, lse_ref, rtol=1e-5, atol=1e-5))
@@ -565,7 +636,10 @@ def ce_operand(x, layout: str):
     if layout == "offset":
         leaf = x.clone().requires_grad_()
         return torch.cat([x.new_zeros(1), leaf.reshape(-1)])[1:].view(n, d)
-    b, s = 32, 128                  # layout "model": n = 32 sequences × n / 32 rows
+    if layout == "lm":              # n / 512 sequences of 512, every row supervised
+        b, s = n // 512, 512
+    else:                           # layout "model": n = 32 sequences × n / 32 rows
+        b, s = 32, 128
     p = n // b
     pos = torch.stack([torch.randperm(s, device=x.device)[:p].sort().values for _ in range(b)])
     leaf = torch.zeros((b, s, d), dtype=x.dtype, device=x.device)
@@ -737,22 +811,25 @@ def check_against_cpu(device) -> None:
 # phase 5: the main path
 # ---------------------------------------------------------------------------
 
-def _want_launches(steps: int, fused_lamb: bool = True) -> dict:
-    want = dict.fromkeys(("lamb_moments", "lamb_apply"), LEAVES * steps if fused_lamb else 0)
-    want.update(dict.fromkeys(FLASH, LAYERS * ACCUM * steps))
+def _want_launches(steps: int, fused_lamb: bool = True, leaves: int = LEAVES,
+                   layers: int = LAYERS) -> dict:
+    want = dict.fromkeys(("lamb_moments", "lamb_apply"), leaves * steps if fused_lamb else 0)
+    want.update(dict.fromkeys(FLASH, layers * ACCUM * steps))
     want.update(dict.fromkeys(FUSED_CE, ACCUM * steps))
     return want
 
 
-def _check_launches(label, steps, fused_lamb, launches, designs, copies) -> None:
-    """Launch counts of ``steps`` full-width steps: K1/K2 13 leaves × steps
-    (0 on a transform chain), K3–K5 24 layers × 2 micro-batches × steps and
-    K6–K8 2 × steps, every K3–K8 launch on the tensor-core kernel, and
-    autograd's ``do`` read as it came, never copied."""
-    if launches != _want_launches(steps, fused_lamb):
-        raise AssertionError(f"{label}: launches {launches}, "
-                             f"want {_want_launches(steps, fused_lamb)}")
-    n_flash, n_ce = LAYERS * ACCUM * steps, ACCUM * steps
+def _check_launches(label, steps, fused_lamb, launches, designs, copies, leaves: int = LEAVES,
+                    layers: int = LAYERS) -> None:
+    """Launch counts of ``steps`` full-width steps: K1/K2 ``leaves`` (BERT's
+    13) × steps (0 on a transform chain), K3–K5 ``layers`` (24) × 2
+    micro-batches × steps and K6–K8 2 × steps, every K3–K8 launch on the
+    tensor-core kernel, and autograd's ``do`` read as it came, never
+    copied."""
+    want = _want_launches(steps, fused_lamb, leaves, layers)
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, want {want}")
+    n_flash, n_ce = layers * ACCUM * steps, ACCUM * steps
     want_designs = {**{k: {"mma": n_flash, "fma": 0} for k in FLASH},
                     **{k: {"mma": n_ce, "fma": 0} for k in FUSED_CE}}
     if designs != want_designs or any(copies.values()):
@@ -2006,6 +2083,331 @@ def run_serving(device, rate: float) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: granite-moe-1b-a400m at full width
+# ---------------------------------------------------------------------------
+
+def run_moe_training(device) -> dict:
+    """(a) ``repro_torch.launch.train`` on granite-moe-1b-a400m: finite
+    losses, the MoE metrics in every history row, weights that moved as the
+    kernels reported, and K1–K8 launched exactly as worked out beforehand,
+    every bf16 K3–K8 launch on the tensor cores.  Returns the launches."""
+    import torch
+
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch import train as launch_train
+
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer = launch_train.main(MOE_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, designs, copies = _counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    hist, cfg = trainer.history, trainer.model.cfg
+    log(f"moe training: {cfg.name} {trainer.model.param_count() / 1e9:.3f}B params, "
+        f"{cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads}, "
+        f"{cfg.n_experts} experts top-{cfg.n_experts_per_tok}, vocab {cfg.vocab_size}; "
+        f"{len(hist)} steps in {wall:.1f} s, peak memory {peak / 2**30:.2f} GiB")
+    keys = ("loss/total", "loss/ce", "loss/moe_lb", "moe/drop_fraction", "grad_norm",
+            "update_norm")
+    for h in hist:
+        log("moe training step " + str(h["step"]) + ": " + ", ".join(
+            f"{k} {h[k]:.5g}" for k in keys if k in h))
+    if len(hist) != MOE_STEPS or len(trainer.state.params) != MOE_LEAVES \
+            or not (cfg.use_flash_kernel and cfg.use_fused_ce_head and cfg.n_experts):
+        raise AssertionError(f"{len(hist)} logged steps, {len(trainer.state.params)} leaves, "
+                             f"flash {cfg.use_flash_kernel}, fused CE {cfg.use_fused_ce_head}")
+    for h in hist:
+        if any(k not in h or not math.isfinite(h[k]) for k in keys):
+            raise AssertionError(f"moe training: missing or non-finite metrics: {h}")
+    init = trainer.model.init(trainer.tc.seed, device)
+    trust = trainer.model.trust_mask()
+    moved_sq, still = 0.0, []
+    for k, p in trainer.state.params.items():
+        d = float((p - init[k]).float().square().sum())
+        moved_sq += d
+        if d == 0.0:
+            still.append(k)
+    del init
+    travelled = sum(h["update_norm"] for h in hist)
+    log(f"moe training: |x4 - x0| {math.sqrt(moved_sq):.4f} against the update norms' sum "
+        f"{travelled:.4f}; leaves that did not move: {still}; launches {launches}; by design "
+        f"{designs}; copies {copies}")
+    if [k for k in still if trust[k]] or not 0.0 < math.sqrt(moved_sq) <= travelled * 1.0001:
+        raise AssertionError("moe training: the parameters did not move as the kernels reported")
+    _check_launches("moe training", MOE_STEPS, True, launches, designs, copies,
+                    leaves=MOE_LEAVES, layers=MOE_LAYERS)
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_moe_serving(device) -> dict:
+    """(b) The 8 prompts of 128 tokens, 32 new greedy tokens, through the
+    static ``Engine`` one request at a time and through the
+    ``ContinuousEngine`` over 4 slots, with flash attention on: K3 launched
+    24 layers x prefills times and no other kernel, each K3 call within a
+    bf16 ulp of its plain version on the same q, k, v (``check_flash``'s
+    rule), each prefill's drop fraction logged.  MoE capacity depends on the
+    tokens a call routes, so the static engine takes one request per call:
+    both engines then route T = 128 at each prefill, and at decode (T = 1 and
+    T = 4) the capacity max(int(cf·T·k/E), k) = 8 holds every expert's at
+    most T assignments, so nothing drops there.  The two runs must give the
+    same sequences up to phase 10's parting rule: where they part, the static
+    run's own top-2 margin at that step (recorded from its logits) is at most
+    MARGIN_ULPS bf16 ulps of its top logit.  Returns K3's launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import reset_launches
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import build_model, transformer
+    from repro_torch.models.layers import attention
+    from repro_torch.serve import ContinuousEngine, Engine, Request, ServeRequest
+
+    cfg = get_config(MOE_ARCH).replace(use_flash_kernel=True)
+    model = build_model(cfg)
+    params = model.init(0, device)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, min(cfg.vocab_size, 1024), size=SERVE_PROMPT).astype(np.int32)
+               for _ in range(SERVE_REQUESTS)]
+    real_fwd, real_sdpa = transformer.forward, attention.flash_sdpa
+    prefills, held, steps = [], [], []
+
+    def recorded(params_, batch, cfg_, *, caches=None, decode=False, positions=None,
+                 return_hidden=False):
+        logits, aux = real_fwd(params_, batch, cfg_, caches=caches, decode=decode,
+                               positions=positions, return_hidden=return_hidden)
+        if caches is not None and not decode:
+            prefills.append((batch["tokens"][0].cpu().numpy().tobytes(),
+                             float(aux["moe_drop_fraction"])))
+        if caches is not None:
+            steps.append(logits[:, -1].float().topk(2, -1))
+        return logits, aux
+
+    def checked(q, k, v, **kw):
+        o = real_sdpa(q, k, v, **kw)
+        ref = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                              kw.get("kv_valid"), causal=kw["causal"], window=kw["window"],
+                              plain=True).transpose(1, 2).float()
+        atol = 1e-4 * max(1.0, float(ref.abs().max()))
+        held.append((bool(torch.allclose(o.float(), ref, rtol=1e-2, atol=atol)),
+                     float((o.float() - ref).abs().max())))
+        return o
+
+    torch.cuda.synchronize()
+    reset_launches()
+    transformer.forward, attention.flash_sdpa = recorded, checked
+    static, top2, top1 = [], [], []
+    try:
+        t0 = time.perf_counter()
+        eng = Engine(model, params, max_len=SERVE_MAX_LEN)
+        for p in prompts:
+            steps.clear()
+            static.append(eng.generate_batch([Request(p, max_new_tokens=SERVE_NEW)])[0])
+            top2.append(torch.cat([r.values for r in steps[:SERVE_NEW]]).cpu().numpy())
+            top1.append(torch.cat([r.indices[:, 0] for r in steps[:SERVE_NEW]]).cpu().numpy())
+        t_static = time.perf_counter() - t0
+        n_static = len(prefills)
+        t0 = time.perf_counter()
+        cont = ContinuousEngine(model, params, n_slots=SERVE_SLOTS,
+                                max_len=SERVE_MAX_LEN).generate(
+            [ServeRequest(p, max_new_tokens=SERVE_NEW) for p in prompts])
+        t_cont = time.perf_counter() - t0
+    finally:
+        transformer.forward, attention.flash_sdpa = real_fwd, real_sdpa
+    torch.cuda.synchronize()
+    launches, designs, copies = _counts()
+    n_pre = len(prompts) + sum(r.attempts for r in cont)
+    want = {k: (MOE_LAYERS * n_pre if k == "flash_fwd" else 0) for k in launches}
+    st = np.stack([r.out_tokens for r in static])
+    ct = np.stack([np.asarray(r.out_tokens) for r in cont])
+    top2 = np.stack(top2)                        # (requests, new, 2)
+    margins = top2[..., 0] - top2[..., 1]
+    # the recorded logits are the ones the static run picked from (a tie may
+    # pick either)
+    replay_ok = bool(((np.stack(top1) == st) | (margins == 0)).all())
+    drop_static = [d for _, d in prefills[:n_static]]
+    drop_cont = dict(prefills[n_static:])
+    parts, faults = [], []
+    for i in range(len(prompts)):
+        if (ct[i] == st[i]).all():
+            continue
+        t = int(np.argmax(ct[i] != st[i]))
+        tol = MARGIN_ULPS * _top_ulp(top2[i, t, 0])
+        parts.append(f"request {i} at step {t}: static margin {margins[i, t]:.4g} (tol {tol:.4g})")
+        if margins[i, t] > tol:
+            faults.append(i)
+    log(f"moe serving: static one request at a time in {t_static:.2f} s, continuous over "
+        f"{SERVE_SLOTS} slots in {t_cont:.2f} s; {len(prefills)} prefills, drop fractions "
+        f"static {[round(x, 5) for x in drop_static]}, continuous "
+        f"{[round(drop_cont.get(p.tobytes(), -1.0), 5) for p in prompts]}; identical token "
+        f"sequences {sum(bool((c == x).all()) for c, x in zip(ct, st))} of {len(prompts)}; "
+        f"parted: {parts or 'none'}; static top-2 margins: min {margins.min():.4g}, "
+        f"{int((margins == 0).sum())} exact ties in {margins.size} steps; recorded logits "
+        f"give the static tokens {replay_ok}")
+    log(f"moe serving: K3 launches {launches} (want {want}), by design {designs['flash_fwd']}, "
+        f"copies {copies}; K3 calls held to the plain version {sum(ok for ok, _ in held)} of "
+        f"{len(held)}, |do| max {max((e for _, e in held), default=0.0):.3g}")
+    if launches != want or designs["flash_fwd"] != {"mma": MOE_LAYERS * n_pre, "fma": 0} \
+            or any(copies.values()):
+        raise AssertionError(f"moe serving: launches {launches}, want {want}")
+    if len(held) != MOE_LAYERS * n_pre or not all(ok for ok, _ in held):
+        raise AssertionError("moe serving: K3 on the prefill disagrees with its plain version")
+    if len(prefills) != n_pre or n_static != len(prompts) or not replay_ok or faults \
+            or top2.shape[1] != SERVE_NEW or not np.isfinite(top2).all() \
+            or any(len(r.out_tokens) != SERVE_NEW for r in cont) \
+            or any(r.status.value != "completed" for r in cont):
+        raise AssertionError(f"moe serving: static and continuous greedy runs part at a clear "
+                             f"margin: requests {faults}")
+    del params
+    torch.cuda.empty_cache()
+    return dict(launches=launches["flash_fwd"], prefills=n_pre,
+                drops=dict(static=drop_static, continuous=list(drop_cont.values())))
+
+
+def time_moe(device) -> dict:
+    """(c) The training step (``profile_step.measure``: wall, CUDA-event span,
+    busy, launches, idle share, peak; busy by group), three rounds; the MoE
+    layer's three steps forward and backward at the step's per-layer shape
+    (dispatch, expert products, combine) with CUDA events, times the 48
+    layer passes of a step; one decode step over 8 full slots and a
+    128-token prefill with K3."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.profile_step import _group, measure
+    from repro_torch.models.layers import moe
+    from repro_torch.serve import KVPool, make_pool_decode_step, make_pool_prefill
+
+    out = {}
+    steps = []
+    for rnd in range(2):
+        trainer, data, _ = _trainer(_with_steps(MOE_ARGV, 8) + ["--log-every", "1000"])
+        r = measure(trainer, data)
+        groups = {}
+        for key, ms, _ in r["rows"]:
+            groups[_group(key)] = groups.get(_group(key), 0.0) + ms
+        r["groups"] = groups
+        steps.append(r)
+        log(f"moe timing round {rnd + 1} step: wall {r['wall_ms']:.2f} ms, span "
+            f"{r['span_ms']:.2f} ms, busy {r['busy_ms']:.2f} ms in {r['launches']} launches, "
+            f"idle share {r['idle']:.3f}, peak {r['peak_gib']:.2f} GiB; busy by group "
+            + ", ".join(f"{g} {ms:.2f}" for g, ms in sorted(groups.items(), key=lambda x: -x[1])))
+        if rnd == 0:
+            cfg = trainer.model.cfg
+            p = {k[len("blocks/moe/"):]: v[0].to(torch.bfloat16).detach()
+                 for k, v in trainer.state.params.items() if k.startswith("blocks/moe/")}
+        del trainer, data
+        torch.cuda.empty_cache()
+    out["step"] = {k: [s[k] for s in steps] for k in ("wall_ms", "span_ms", "busy_ms",
+                                                      "launches", "idle", "peak_gib")}
+    out["step"]["groups"] = steps[-1]["groups"]
+
+    # the MoE layer's steps at the step's per-layer shape: 8 sequences of 512
+    gen = torch.Generator(device=device).manual_seed(11)
+    t = 8 * 512
+    xf = torch.randn((t, cfg.d_model), generator=gen, device=device).to(torch.bfloat16)
+    pg = {k: v.clone().requires_grad_() for k, v in p.items()}
+    xg = xf.clone().requires_grad_()
+    buf, dest, gates, keep, _ = moe.dispatch(pg, xg, cfg)
+    y = moe.experts(pg, buf.detach().requires_grad_(), cfg)
+    dbuf, dy = torch.randn_like(buf), torch.randn_like(y)
+    dout = torch.randn((t, cfg.d_model), generator=gen, device=device).to(torch.bfloat16)
+
+    def disp(grad):
+        b_, _, g_, _, _ = moe.dispatch(pg, xg, cfg)
+        if grad:
+            torch.autograd.grad((b_, g_), (xg, pg["router"]), (dbuf, torch.ones_like(g_)))
+
+    def expt(grad):
+        bb = buf.detach().requires_grad_(grad)
+        y_ = moe.experts(pg, bb, cfg)
+        if grad:
+            torch.autograd.grad(y_, (bb, pg["wi"], pg["wg"], pg["wo"]), dy)
+
+    def comb(grad):
+        yy, gg = y.detach().requires_grad_(grad), gates.detach().requires_grad_(grad)
+        o_ = moe.combine(yy, dest, gg, cfg.n_experts_per_tok)
+        if grad:
+            torch.autograd.grad(o_, (yy, gg), dout)
+
+    parts = {}
+    for name, fn in (("dispatch", disp), ("experts", expt), ("combine", comb)):
+        fwd = cuda_ms(lambda: fn(False))
+        both = cuda_ms(lambda: fn(True))
+        parts[name] = dict(fwd_ms=fwd, fwd_bwd_ms=both)
+    c = moe.capacity(t, cfg)
+    flops = 3 * 2 * cfg.n_experts * c * cfg.d_model * cfg.moe_d_ff * 3   # fwd + 2x bwd
+    per_layer = sum(v["fwd_bwd_ms"] for v in parts.values())
+    busy = float(np.median([s["busy_ms"] for s in steps]))
+    log(f"moe timing layer (T {t}, E {cfg.n_experts}, C {c}, keep {float(keep.float().mean()):.4f}): "
+        + ", ".join(f"{k} fwd {v['fwd_ms']:.3f} ms, fwd+bwd {v['fwd_bwd_ms']:.3f} ms"
+                    for k, v in parts.items())
+        + f"; a layer's fwd+bwd {per_layer:.3f} ms x {MOE_LAYERS * ACCUM} = "
+        f"{per_layer * MOE_LAYERS * ACCUM:.1f} ms of the step's {busy:.1f} ms busy "
+        f"({100 * per_layer * MOE_LAYERS * ACCUM / busy:.1f}%); expert products "
+        f"{flops / (parts['experts']['fwd_bwd_ms'] * 1e-3) / 1e12:.1f} TFLOP/s")
+    out["moe_layer"] = dict(parts=parts, capacity=c, layer_fwd_bwd_ms=per_layer,
+                            step_share=per_layer * MOE_LAYERS * ACCUM / busy)
+    del pg, xg, buf, y, dbuf, dy, dout, xf
+
+    # serving: a 128-token prefill with K3, a decode step over 8 full slots
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    smodel = build_model(get_config(MOE_ARCH).replace(use_flash_kernel=True))
+    params = smodel.init(0, device)
+    slots, max_len = 8, SERVE_PROMPT + 64 + 8
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(0, 1024, (1, SERVE_PROMPT)).astype(np.int32)).to(device)
+    pre = make_pool_prefill(smodel, max_len)
+    step = make_pool_decode_step(smodel, greedy=True)
+    with torch.inference_mode():
+        pool = KVPool(smodel, slots, max_len, device)
+        for _ in range(slots):
+            last, c1 = pre(params, prompt)
+            pool.insert(c1, pool.acquire(), SERVE_PROMPT)
+        state = {"toks": last.argmax(-1).to(torch.int32).repeat(slots),
+                 "pos": torch.full((slots,), SERVE_PROMPT, dtype=torch.int32, device=device)}
+        active = torch.ones(slots, dtype=torch.bool, device=device)
+        temps = torch.zeros(slots, device=device)
+        top_k = torch.zeros(slots, dtype=torch.int32, device=device)
+
+        def decode_step():
+            toks, state["pos"], _ = step(params, pool.cache, state["toks"], state["pos"], active,
+                                         temps, top_k, None)
+            state["toks"] = toks
+            toks.cpu()
+
+        torch.cuda.reset_peak_memory_stats(device)
+        out["prefill"] = _profile_calls(lambda: pre(params, prompt))
+        out["decode"] = _profile_calls(decode_step)
+        out["serve_peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+        for k in ("prefill", "decode"):
+            r = out[k]
+            log(f"moe timing {k}: wall {r['wall_ms']:.3f} ms, event span {r['span_ms']:.3f} ms, "
+                f"busy {r['busy_ms']:.3f} ms in {r['launches']} launches, idle share "
+                f"{r['idle']:.3f}")
+        del pool
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_moe(device) -> dict:
+    """Phase 11; returns the training launches, K3's serving launches and the timings."""
+    t0 = time.perf_counter()
+    launches = run_moe_training(device)
+    serving = run_moe_serving(device)
+    timing = time_moe(device)
+    log(f"moe: phase 11 took {time.perf_counter() - t0:.1f} s")
+    return dict(launches=launches, serving=serving, timing=timing)
+
+
+# ---------------------------------------------------------------------------
 # phase 6: timing
 # ---------------------------------------------------------------------------
 
@@ -2031,7 +2433,9 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def time_kernels(device, rate: float) -> dict:
+def time_kernels(device, rate: float, arch: str = "bert-large") -> dict:
+    """K1 and K2 over one full update of ``arch``'s leaves, plain, kernel
+    (and with the guard's flag), kernel, plain, beside their bound."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2040,7 +2444,7 @@ def time_kernels(device, rate: float) -> dict:
     from repro_torch.models import build_model
     from repro_torch.nn import flatten
 
-    model = build_model(get_config("bert-large").replace(
+    model = build_model(get_config(arch).replace(
         use_flash_kernel=False, use_fused_ce_head=False))
     axes = model.layer_axes()
     gen = torch.Generator(device=device).manual_seed(1)
@@ -2087,21 +2491,24 @@ def time_kernels(device, rate: float) -> dict:
         out[name] = dict(ms=t_k, plain_ms=t_p, bound_ms=bound,
                          bound_by="bytes" if t_bytes >= t_ops else "operations",
                          library_ms=None, ok_ms=min(times[name]["ok"]))
-        log(f"time {name}: kernel {times[name]['cuda']} ms, with ok=1 {times[name]['ok']} ms, "
-            f"plain {times[name]['plain']} ms "
-            f"over {n} elements in 13 leaves; bound {bound:.3f} ms "
+        log(f"time {name} {arch}: kernel {times[name]['cuda']} ms, with ok=1 "
+            f"{times[name]['ok']} ms, plain {times[name]['plain']} ms "
+            f"over {n} elements in {len(leaves)} leaves; bound {bound:.3f} ms "
             f"({bytes_[name] / 1e9:.2f} GB at {rate / 1e12:.2f} TB/s); "
             f"{bytes_[name] / (t_k * 1e-3) / 1e12:.2f} TB/s achieved")
     log("time library: none; no single PyTorch call computes a LAMB update")
-    log(f"time full update (K1 + K2): kernel {out['lamb_moments']['ms'] + out['lamb_apply']['ms']:.3f}"
+    del leaves
+    torch.cuda.empty_cache()
+    log(f"time full update {arch} (K1 + K2): kernel {out['lamb_moments']['ms'] + out['lamb_apply']['ms']:.3f}"
         f" ms, plain {out['lamb_moments']['plain_ms'] + out['lamb_apply']['plain_ms']:.3f} ms")
     return out
 
 
-def time_flash(device, rate: float) -> dict:
-    """K3–K5 at each FLASH_TIMING shape (bf16, no mask), plain, kernel,
-    kernel, plain, beside their bound and ``scaled_dot_product_attention``.
-    Returns the seq-128 (main path) numbers by kernel name."""
+def time_flash(device, rate: float, shapes=FLASH_TIMING) -> dict:
+    """K3–K5 at each of ``shapes`` (bf16, causal or no mask), plain, kernel,
+    kernel, plain, beside their bound and ``scaled_dot_product_attention``
+    (k and v repeated to every q head).  Returns the first shape's numbers
+    by kernel name."""
     import torch
     import torch.nn.functional as F
 
@@ -2110,11 +2517,14 @@ def time_flash(device, rate: float) -> dict:
 
     gen = torch.Generator(device=device).manual_seed(3)
     result = {}
-    for label, b, h, s, d in FLASH_TIMING:
-        q, k, v, do = (torch.randn((b, h, s, d), generator=gen, device=device)
-                       .to(torch.bfloat16) for _ in range(4))
+    for label, b, h, hkv, s, d, causal in shapes:
+        q, do = (torch.randn((b, h, s, d), generator=gen, device=device).to(torch.bfloat16)
+                 for _ in range(2))
+        k, v = (torch.randn((b, hkv, s, d), generator=gen, device=device).to(torch.bfloat16)
+                for _ in range(2))
+        kr, vr = (x.repeat_interleave(h // hkv, 1) for x in (k, v))
         valid = None   # the main path's batches carry no lengths
-        spec = FlashSpec(d**-0.5, False, 0, False)
+        spec = FlashSpec(d**-0.5, causal, 0, False)
         o, lse = flash_attention_fwd(q, k, v, valid, spec, plain=True)
         di = row_dot(o, do)
         fns = {
@@ -2123,20 +2533,23 @@ def time_flash(device, rate: float) -> dict:
             "flash_dkv": lambda plain: flash_dkv(q, k, v, valid, lse, di, do, spec,
                                                  plain=plain),
         }
-        # bytes each must move (bf16 tensors of n elements, fp32 rows of lse
-        # and di) and the operations of its (S x T x D) products
-        n, rows, mm = b * h * s * d, b * h * s, 2 * b * h * s * s * d
-        bytes_ = {"flash_fwd": 4 * n * 2 + rows * 4, "flash_dq": 5 * n * 2 + 2 * rows * 4,
-                  "flash_dkv": 6 * n * 2 + 2 * rows * 4}
+        # bytes each must move (bf16 q-side tensors of nq elements and
+        # kv-side of nk, fp32 rows of lse and di) and the operations of its
+        # (S x T x D) products over the (row, key) pairs the mask keeps
+        nq, nk, rows = b * h * s * d, b * hkv * s * d, b * h * s
+        mm = 2 * b * h * (s * (s + 1) // 2 if causal else s * s) * d
+        bytes_ = {"flash_fwd": (2 * nq + 2 * nk) * 2 + rows * 4,
+                  "flash_dq": (3 * nq + 2 * nk) * 2 + 2 * rows * 4,
+                  "flash_dkv": (2 * nq + 4 * nk) * 2 + 2 * rows * 4}
         flops = {"flash_fwd": 2 * mm, "flash_dq": 3 * mm, "flash_dkv": 4 * mm}
         times = {name: {"plain": [], "cuda": []} for name in fns}
         for name, fn in fns.items():
             for plain in (True, False, False, True):
                 times[name]["plain" if plain else "cuda"].append(cuda_ms(lambda: fn(plain)))
-        sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=causal))
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, kr, vr))
         sdpa_fb = cuda_ms(lambda: torch.autograd.grad(
-            F.scaled_dot_product_attention(qg, kg, vg), (qg, kg, vg), do))
+            F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal), (qg, kg, vg), do))
         out = {}
         for name in fns:
             t_k, t_p = min(times[name]["cuda"]), min(times[name]["plain"])
@@ -2144,7 +2557,7 @@ def time_flash(device, rate: float) -> dict:
             out[name] = dict(ms=t_k, plain_ms=t_p, bound_ms=max(t_bytes, t_ops) * 1e3,
                              bound_by="bytes" if t_bytes >= t_ops else "operations",
                              library_ms=sdpa_fwd if name == "flash_fwd" else None)
-            log(f"time {name} {label} (b {b} h {h} s {s} d {d} bf16): kernel "
+            log(f"time {name} {label} (b {b} h {h} hkv {hkv} s {s} d {d} causal {causal} bf16): kernel "
                 f"{times[name]['cuda']} ms, plain {times[name]['plain']} ms; bound "
                 f"{out[name]['bound_ms']:.4f} ms by {out[name]['bound_by']} "
                 f"({bytes_[name] / 1e6:.1f} MB, {flops[name] / 1e9:.2f} GFLOP); achieved "
@@ -2155,28 +2568,73 @@ def time_flash(device, rate: float) -> dict:
             f"K3 {out['flash_fwd']['ms']:.4f} ms, K4 + K5 "
             f"{out['flash_dq']['ms'] + out['flash_dkv']['ms']:.4f} ms")
         result[label] = out
-        del q, k, v, do, qg, kg, vg, o, lse, di
+        del q, k, v, kr, vr, do, qg, kg, vg, o, lse, di
     torch.cuda.empty_cache()
-    return result[FLASH_TIMING[0][0]]
+    return result[shapes[0][0]]
 
 
-def time_fused_ce(device, rate: float) -> dict:
-    """K6–K8 at each CE_TIMING shape (bf16), plain, kernel, kernel, plain,
+def time_flash_widths(device, rate: float) -> dict:
+    """``flash_attention`` (the padded path at a head dim outside the
+    kernels' own) forward and forward + backward at WIDTH_DIMS, b 8, h 16,
+    s 512, bidirectional, bf16, beside the forward's plain version, its
+    bound at the real head dim, and ``scaled_dot_product_attention``'s
+    forward + backward as a yardstick.  Returns the times by head dim."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    gen = torch.Generator(device=device).manual_seed(9)
+    b, h, s = 8, 16, 512
+    out = {}
+    for d in WIDTH_DIMS:
+        q, k, v, do = (torch.randn((b, h, s, d), generator=gen, device=device)
+                       .to(torch.bfloat16) for _ in range(4))
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        with torch.no_grad():
+            fwd = cuda_ms(lambda: flash_attention(q, k, v, causal=False))
+            plain = cuda_ms(lambda: flash_attention(q, k, v, causal=False, plain=True))
+        both = cuda_ms(lambda: torch.autograd.grad(flash_attention(qg, kg, vg, causal=False),
+                                                   (qg, kg, vg), do))
+        sdpa = cuda_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(qg, kg, vg),
+                                                   (qg, kg, vg), do))
+        # the forward's bound at the real head dim: q, k, v read and o written
+        # in bf16, lse in fp32; 2 (S x T x D) products
+        t_bytes = (4 * q.numel() * 2 + b * h * s * 4) / rate
+        t_ops = 2 * 2 * b * h * s * s * d / PEAK_OPS["bfloat16"]
+        out[d] = dict(fwd_ms=fwd, fwd_bwd_ms=both, plain_fwd_ms=plain,
+                      bound_ms=max(t_bytes, t_ops) * 1e3,
+                      bound_by="bytes" if t_bytes >= t_ops else "operations",
+                      sdpa_fwd_bwd_ms=sdpa)
+        del q, k, v, do, qg, kg, vg
+    base = out[64]
+    for d, r in out.items():
+        log(f"time flash width D {d} (b {b} h {h} s {s} bidirectional bf16, padded to the "
+            f"kernels' next head dim): forward {r['fwd_ms']:.4f} ms "
+            f"({r['fwd_ms'] / base['fwd_ms']:.2f}x D 64), forward + backward "
+            f"{r['fwd_bwd_ms']:.4f} ms ({r['fwd_bwd_ms'] / base['fwd_bwd_ms']:.2f}x D 64); "
+            f"forward's plain version {r['plain_fwd_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+            f"by {r['bound_by']}; SDPA forward + backward {r['sdpa_fwd_bwd_ms']:.4f} ms")
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_fused_ce(device, rate: float, shapes=CE_TIMING) -> dict:
+    """K6–K8 at each of ``shapes`` (bf16), plain, kernel, kernel, plain,
     beside their bound and the dense head's two calls (``matmul`` then
     ``cross_entropy``) forward and forward + backward.  K6–K8 run on the
     tensor cores; their FMA design (what bf16 rows off a 16-byte boundary
-    take) is timed in the same turns, on h 2 bytes off.  Returns the seq-128
-    (main path) numbers by kernel name."""
+    take) is timed in the same turns, on h 2 bytes off.  Returns the first
+    shape's numbers by kernel name."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.fused_ce import fused_ce_dh, fused_ce_dw, fused_ce_fwd
 
     gen = torch.Generator(device=device).manual_seed(5)
-    d, v = CE_D, CE_V
-    w = (0.05 * torch.randn((v, d), generator=gen, device=device)).to(torch.bfloat16)
     result = {}
-    for label, n in CE_TIMING:
+    for label, n, d, v in shapes:
+        w = (0.05 * torch.randn((v, d), generator=gen, device=device)).to(torch.bfloat16)
         h = torch.randn((n, d), generator=gen, device=device).to(torch.bfloat16)
         lbl = torch.randint(0, v, (n,), generator=gen, device=device, dtype=torch.int32)
         g = torch.full((n,), 1.0 / n, device=device)
@@ -2229,10 +2687,9 @@ def time_fused_ce(device, rate: float) -> dict:
             f"(backward {dense_fb - dense_fwd:.4f} ms); K6 {out['fused_ce_fwd']['ms']:.4f} ms, "
             f"K7 + K8 {out['fused_ce_dh']['ms'] + out['fused_ce_dw']['ms']:.4f} ms")
         result[label] = out
-        del h, h_off, hg, lse, g
-    del w, wg
+        del h, h_off, hg, lse, g, w, wg
     torch.cuda.empty_cache()
-    return result[CE_TIMING[0][0]]
+    return result[shapes[0][0]]
 
 
 def main() -> None:
@@ -2281,14 +2738,26 @@ def main() -> None:
     check_remat(device)
     time_training_variants(device)
     serving = run_serving(device, rate)
+    moe = run_moe(device)
     timing = {**time_kernels(device, rate), **time_flash(device, rate),
               **time_fused_ce(device, rate)}
+    moe_timing = {**time_kernels(device, rate, MOE_ARCH),
+                  **time_flash(device, rate, MOE_FLASH_TIMING),
+                  **time_fused_ce(device, rate, MOE_CE_TIMING)}
+    widths = time_flash_widths(device, rate)
+    wide = {sh[0]: time_fused_ce(device, rate, [sh]) for sh in WIDE_CE_TIMING}
 
     kernels = [dict(name=k, **KERNELS[k], launches=launches[k], max_abs_err=errs[k],
-                    **timing[k]) for k in KERNELS]
-    # K3 on the serving path (phase 10): its launches there and its times at
-    # the serving prefill's shape
-    next(k for k in kernels if k["name"] == "flash_fwd")["serving"] = serving
+                    **timing[k], granite_moe=dict(launches=moe["launches"][k], **moe_timing[k]))
+               for k in KERNELS]
+    by_name = {k["name"]: k for k in kernels}
+    # K3 on the serving paths (phases 10 and 11): its launches there and its
+    # times at the serving prefill's shape; at the padded head dims
+    by_name["flash_fwd"]["serving"] = serving
+    by_name["flash_fwd"]["granite_moe"]["serving_launches"] = moe["serving"]["launches"]
+    by_name["flash_fwd"]["head_dims"] = widths
+    for k in FUSED_CE:   # at D past one 1024-column window
+        by_name[k]["wide_d"] = {label: w[k] for label, w in wide.items()}
     log(card)   # again near the end, where a truncated log still shows it
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

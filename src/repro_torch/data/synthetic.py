@@ -1,7 +1,8 @@
 """Deterministic synthetic data (numpy port of ``repro.data.synthetic``).
 
-A Zipfian-marginal Markov chain over tokens, and BERT-style masked-LM batches
-built from it.  Same seed, same arrays as the JAX package's, byte for byte:
+A Zipfian-marginal Markov chain over tokens, the causal-LM and BERT-style
+masked-LM batches built from it, and the vision and audio stubs' batches
+(random patch or frame embeddings).  Same seed, same arrays as the JAX package's, byte for byte:
 both are numpy.
 """
 from __future__ import annotations
@@ -63,6 +64,45 @@ def lm_batch(
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:].copy()}
 
 
+def vlm_batch(
+    source: SyntheticLM,
+    rng: np.random.Generator,
+    batch: int,
+    seq: int,
+    n_prefix: int,
+    d_model: int,
+) -> Dict[str, np.ndarray]:
+    """Vision stub: random patch embeddings + text; labels IGNORE on the prefix."""
+    s_text = seq - n_prefix
+    toks = source.tokens(rng, batch, s_text + 1)
+    labels = np.full((batch, seq), IGNORE, np.int32)
+    labels[:, n_prefix:] = toks[:, 1:]
+    return {
+        "tokens": toks[:, :-1],
+        "image_embeds": rng.standard_normal((batch, n_prefix, d_model)).astype(np.float32),
+        "labels": labels,
+    }
+
+
+def audio_batch(
+    rng: np.random.Generator,
+    batch: int,
+    seq: int,
+    d_model: int,
+    vocab: int,
+    mask_ratio: float,
+) -> Dict[str, np.ndarray]:
+    """HuBERT stub: frame embeddings, cluster-id targets (the argmax of a
+    fixed random projection of each frame, so masked prediction is
+    learnable) and a Bernoulli span mask with frame 0 always masked."""
+    emb = rng.standard_normal((batch, seq, d_model)).astype(np.float32)
+    proj = np.random.default_rng(1234).standard_normal((d_model, vocab)).astype(np.float32)
+    labels = np.argmax(emb @ proj, axis=-1).astype(np.int32)
+    mask = rng.random((batch, seq)) < mask_ratio
+    mask[:, 0] = True
+    return {"frame_embeds": emb, "mask": mask, "labels": labels}
+
+
 def mlm_batch(
     source: SyntheticLM,
     rng: np.random.Generator,
@@ -105,11 +145,12 @@ def make_batch(
     seq: int,
     source: Optional[SyntheticLM] = None,
 ) -> Dict[str, np.ndarray]:
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"frontend {cfg.frontend!r} is not ported (ROADMAP.md queue 1, item 10)"
-        )
+    if cfg.frontend == "audio_stub":
+        return audio_batch(rng, batch, seq, cfg.d_model, cfg.vocab_size,
+                           max(cfg.mask_ratio, 0.08))
     src = source or SyntheticLM(cfg.vocab_size)
+    if cfg.frontend == "vision_stub":
+        return vlm_batch(src, rng, batch, seq, cfg.n_prefix_tokens, cfg.d_model)
     if cfg.is_encoder:
         return mlm_batch(src, rng, batch, seq, max(cfg.mask_ratio, 0.15),
                          max_predictions=cfg.mlm_buffer_size(seq))

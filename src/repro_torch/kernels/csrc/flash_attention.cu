@@ -109,6 +109,17 @@
 // padded by one float so that column reads do not conflict on banks.  p and
 // ds stay fp32, as the TPU kernel keeps them.
 //
+// Head dims 16, 32, 64, 128 and 256 are built; the wrapper zero-pads any
+// other head dim up to the next of them.  At D 256 the tensor-core kernels
+// keep 64-row tiles but split the output columns over two blocks (grid z,
+// mma_out): each block forms the scores over all of D and accumulates 128
+// columns of o, dq, or dk and dv, so that the fp32 accumulators stay within
+// the registers of D 128 (K3 also reads q's fragments from shared memory
+// there, as K4 does above D 64); the scores are formed twice, so K3 does
+// 1.5 times the products of one block over all D, and K4 and K5 too.  The
+// FMA kernels take 32-row tiles at D 256 (fma_rows): 64-row fp32 tiles of
+// q, k, v and do would outgrow shared memory.
+//
 // Layouts: every 4-D tensor is read through its (b, h, s) element strides
 // with a contiguous last dim, so a (B, S, H, D) model tensor is taken as a
 // (B, H, S, D) view without a copy.  lse and di are contiguous fp32
@@ -125,11 +136,15 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBQ = 64;            // q rows of a tile
-constexpr int kBK = 64;            // kv rows of a tile
-constexpr int kLDP = kBK + 1;      // row stride of a 64 x 64 score tile in smem
+constexpr int kBQ = 64;            // q rows of a tensor-core tile
+constexpr int kBK = 64;            // kv rows of a tensor-core tile
 constexpr float kNegInf = -1e30f;
-static_assert(kBQ == kBK, "score tiles are square: p and p^T share kLDP");
+
+// Rows of the FMA kernels' square score tile a thread owns in each
+// dimension: the 16 x 16 threads cover 16 R x 16 R; R = 2 (32-row tiles) at
+// D 256, where 64-row fp32 tiles of q, k, v and do outgrow shared memory.
+template <int D>
+__host__ __device__ constexpr int fma_rows() { return D <= 128 ? 4 : 2; }
 
 struct Strides {
   int64_t b, h, s;
@@ -191,9 +206,10 @@ __device__ __forceinline__ bool keep(const Args& a, int row, int col, int kv_end
          (!a.window || col > row + off - a.window);
 }
 
-// kv range [lo, hi) that holds any unmasked entry for q rows [q0, q0 + kBQ).
-__device__ __forceinline__ void kv_range(const Args& a, int q0, int kv_end, int& lo, int& hi) {
-  const int off = a.T - a.S, q_last = min(q0 + kBQ, a.S) - 1;
+// kv range [lo, hi) that holds any unmasked entry for q rows [q0, q0 + bq).
+__device__ __forceinline__ void kv_range(const Args& a, int q0, int bq, int kv_end, int& lo,
+                                         int& hi) {
+  const int off = a.T - a.S, q_last = min(q0 + bq, a.S) - 1;
   hi = a.causal ? min(kv_end, q_last + off + 1) : kv_end;
   lo = a.window ? max(0, q0 + off - a.window + 1) : 0;
 }
@@ -204,56 +220,56 @@ __device__ __forceinline__ void kv_range(const Args& a, int q0, int kv_end, int&
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
-  constexpr int LDD = D + 1, NJ = D / 16;
+  constexpr int R = fma_rows<D>(), BT = 16 * R, LDP = BT + 1, LDD = D + 1, NJ = D / 16;
   extern __shared__ float smem[];
   float* sQ = smem;
-  float* sK = sQ + kBQ * LDD;
-  float* sV = sK + kBK * LDD;
-  float* sP = sV + kBK * LDD;
+  float* sK = sQ + BT * LDD;
+  float* sV = sK + BT * LDD;
+  float* sP = sV + BT * LDD;
   const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H, kvh = h / (a.H / a.Hkv);
-  const int q0 = blockIdx.y * kBQ;
+  const int q0 = blockIdx.y * BT;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const T* q = static_cast<const T*>(a.q) + b * a.sq.b + h * a.sq.h;
   const T* k = static_cast<const T*>(a.k) + b * a.sk.b + kvh * a.sk.h;
   const T* v = static_cast<const T*>(a.v) + b * a.sv.b + kvh * a.sv.h;
   const int kv_end = kv_end_of(a, b);
-  load_tile<T, D, kBQ>(sQ, q, a.sq.s, q0, a.S);
+  load_tile<T, D, BT>(sQ, q, a.sq.s, q0, a.S);
 
-  float m[4], l[4], acc[4][NJ];
+  float m[R], l[R], acc[R][NJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
   }
   int lo, hi;
-  kv_range(a, q0, kv_end, lo, hi);
-  for (int kv0 = (lo / kBK) * kBK; kv0 < hi; kv0 += kBK) {
+  kv_range(a, q0, BT, kv_end, lo, hi);
+  for (int kv0 = (lo / BT) * BT; kv0 < hi; kv0 += BT) {
     __syncthreads();  // the last tile's readers are done with sK, sV, sP
-    load_tile<T, D, kBK>(sK, k, a.sk.s, kv0, a.T);
-    load_tile<T, D, kBK>(sV, v, a.sv.s, kv0, a.T);
+    load_tile<T, D, BT>(sK, k, a.sk.s, kv0, a.T);
+    load_tile<T, D, BT>(sV, v, a.sv.s, kv0, a.T);
     __syncthreads();
-    float s[4][4] = {};
+    float s[R][R] = {};
 #pragma unroll 16
     for (int d = 0; d < D; ++d) {
-      float qa[4], kb[4];
+      float qa[R], kb[R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = sQ[(ty + 16 * i) * LDD + d];
+      for (int i = 0; i < R; ++i) qa[i] = sQ[(ty + 16 * i) * LDD + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kb[j] = sK[(tx + 16 * j) * LDD + d];
+      for (int j = 0; j < R; ++j) kb[j] = sK[(tx + 16 * j) * LDD + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
+        for (int j = 0; j < R; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < R; ++i) {
       const int row = q0 + ty + 16 * i;
-      bool ok[4];
+      bool ok[R];
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         ok[j] = keep(a, row, kv0 + tx + 16 * j, kv_end);
         s[i][j] = ok[j] ? s[i][j] * a.scale : kNegInf;
         mx = fmaxf(mx, s[i][j]);
@@ -262,9 +278,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
       const float alpha = expf(m[i] - m_new);
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        sP[(ty + 16 * i) * kLDP + tx + 16 * j] = p;
+        sP[(ty + 16 * i) * LDP + tx + 16 * j] = p;
         sum += p;
       }
       l[i] = alpha * l[i] + sum16(sum);
@@ -274,14 +290,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
     }
     __syncthreads();
 #pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      float pa[4], vb[NJ];
+    for (int kk = 0; kk < BT; ++kk) {
+      float pa[R], vb[NJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pa[i] = sP[(ty + 16 * i) * kLDP + kk];
+      for (int i = 0; i < R; ++i) pa[i] = sP[(ty + 16 * i) * LDP + kk];
 #pragma unroll
       for (int j = 0; j < NJ; ++j) vb[j] = sV[kk * LDD + tx + 16 * j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(pa[i], vb[j], acc[i][j]);
     }
@@ -289,7 +305,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
 
   T* o = static_cast<T*>(a.o) + b * a.so.b + h * a.so.h;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= a.S) continue;
     const float lc = fmaxf(l[i], 1e-30f);
@@ -305,27 +321,27 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
-  constexpr int LDD = D + 1, NJ = D / 16;
+  constexpr int R = fma_rows<D>(), BT = 16 * R, LDP = BT + 1, LDD = D + 1, NJ = D / 16;
   extern __shared__ float smem[];
   float* sQ = smem;
-  float* sO = sQ + kBQ * LDD;   // do
-  float* sK = sO + kBQ * LDD;
-  float* sV = sK + kBK * LDD;
-  float* sS = sV + kBK * LDD;   // ds
+  float* sO = sQ + BT * LDD;   // do
+  float* sK = sO + BT * LDD;
+  float* sV = sK + BT * LDD;
+  float* sS = sV + BT * LDD;   // ds
   const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H, kvh = h / (a.H / a.Hkv);
-  const int q0 = blockIdx.y * kBQ;
+  const int q0 = blockIdx.y * BT;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const T* q = static_cast<const T*>(a.q) + b * a.sq.b + h * a.sq.h;
   const T* dout = static_cast<const T*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
   const T* k = static_cast<const T*>(a.k) + b * a.sk.b + kvh * a.sk.h;
   const T* v = static_cast<const T*>(a.v) + b * a.sv.b + kvh * a.sv.h;
   const int kv_end = kv_end_of(a, b);
-  load_tile<T, D, kBQ>(sQ, q, a.sq.s, q0, a.S);
-  load_tile<T, D, kBQ>(sO, dout, a.sdo.s, q0, a.S);
+  load_tile<T, D, BT>(sQ, q, a.sq.s, q0, a.S);
+  load_tile<T, D, BT>(sO, dout, a.sdo.s, q0, a.S);
 
-  float lse[4], di[4], acc[4][NJ];
+  float lse[R], di[R], acc[R][NJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int row = q0 + ty + 16 * i;
     lse[i] = row < a.S ? a.lse[(int64_t)bh * a.S + row] : 0.f;
     di[i] = row < a.S ? a.di[(int64_t)bh * a.S + row] : 0.f;
@@ -333,54 +349,54 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
   }
   int lo, hi;
-  kv_range(a, q0, kv_end, lo, hi);
-  for (int kv0 = (lo / kBK) * kBK; kv0 < hi; kv0 += kBK) {
+  kv_range(a, q0, BT, kv_end, lo, hi);
+  for (int kv0 = (lo / BT) * BT; kv0 < hi; kv0 += BT) {
     __syncthreads();
-    load_tile<T, D, kBK>(sK, k, a.sk.s, kv0, a.T);
-    load_tile<T, D, kBK>(sV, v, a.sv.s, kv0, a.T);
+    load_tile<T, D, BT>(sK, k, a.sk.s, kv0, a.T);
+    load_tile<T, D, BT>(sV, v, a.sv.s, kv0, a.T);
     __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
+    float s[R][R] = {}, dp[R][R] = {};
 #pragma unroll 8
     for (int d = 0; d < D; ++d) {
-      float qa[4], oa[4], kb[4], vb[4];
+      float qa[R], oa[R], kb[R], vb[R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < R; ++i) {
         qa[i] = sQ[(ty + 16 * i) * LDD + d];
         oa[i] = sO[(ty + 16 * i) * LDD + d];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         kb[j] = sK[(tx + 16 * j) * LDD + d];
         vb[j] = sV[(tx + 16 * j) * LDD + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < R; ++j) {
           s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
           dp[i][j] = fmaf(oa[i], vb[j], dp[i][j]);
         }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < R; ++i) {
       const int row = q0 + ty + 16 * i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         const bool ok = row < a.S && keep(a, row, kv0 + tx + 16 * j, kv_end);
         const float p = ok ? expf(s[i][j] * a.scale - lse[i]) : 0.f;
-        sS[(ty + 16 * i) * kLDP + tx + 16 * j] = p * (dp[i][j] - di[i]);
+        sS[(ty + 16 * i) * LDP + tx + 16 * j] = p * (dp[i][j] - di[i]);
       }
     }
     __syncthreads();
 #pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      float da[4], kb[NJ];
+    for (int kk = 0; kk < BT; ++kk) {
+      float da[R], kb[NJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) da[i] = sS[(ty + 16 * i) * kLDP + kk];
+      for (int i = 0; i < R; ++i) da[i] = sS[(ty + 16 * i) * LDP + kk];
 #pragma unroll
       for (int j = 0; j < NJ; ++j) kb[j] = sK[kk * LDD + tx + 16 * j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(da[i], kb[j], acc[i][j]);
     }
@@ -388,7 +404,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
 
   T* dq = static_cast<T*>(a.dq) + b * a.sdq.b + h * a.sdq.h;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= a.S) continue;
 #pragma unroll
@@ -402,33 +418,33 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
-  constexpr int LDD = D + 1, NJ = D / 16;
+  constexpr int R = fma_rows<D>(), BT = 16 * R, LDP = BT + 1, LDD = D + 1, NJ = D / 16;
   extern __shared__ float smem[];
   float* sK = smem;
-  float* sV = sK + kBK * LDD;
-  float* sQ = sV + kBK * LDD;
-  float* sO = sQ + kBQ * LDD;   // do
-  float* sP = sO + kBQ * LDD;   // p^T: kv rows x q cols
-  float* sS = sP + kBK * kLDP;  // ds^T
-  float* sL = sS + kBK * kLDP;  // lse of the q tile's rows
-  float* sD = sL + kBQ;         // di of the q tile's rows
+  float* sV = sK + BT * LDD;
+  float* sQ = sV + BT * LDD;
+  float* sO = sQ + BT * LDD;   // do
+  float* sP = sO + BT * LDD;   // p^T: kv rows x q cols
+  float* sS = sP + BT * LDP;   // ds^T
+  float* sL = sS + BT * LDP;   // lse of the q tile's rows
+  float* sD = sL + BT;         // di of the q tile's rows
   const int n = blockIdx.x, b = n / a.Hkv, kvh = n % a.Hkv, group = a.H / a.Hkv;
-  const int k0 = blockIdx.y * kBK;
+  const int k0 = blockIdx.y * BT;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const T* k = static_cast<const T*>(a.k) + b * a.sk.b + kvh * a.sk.h;
   const T* v = static_cast<const T*>(a.v) + b * a.sv.b + kvh * a.sv.h;
   const int kv_end = kv_end_of(a, b), off = a.T - a.S;
-  load_tile<T, D, kBK>(sK, k, a.sk.s, k0, a.T);
-  load_tile<T, D, kBK>(sV, v, a.sv.s, k0, a.T);
+  load_tile<T, D, BT>(sK, k, a.sk.s, k0, a.T);
+  load_tile<T, D, BT>(sV, v, a.sv.s, k0, a.T);
 
-  float dk[4][NJ], dv[4][NJ];
+  float dk[R][NJ], dv[R][NJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) dk[i][j] = dv[i][j] = 0.f;
 
   // q rows [qlo, qhi) that see any unmasked key of this tile
-  const int k1 = min(k0 + kBK, kv_end);
+  const int k1 = min(k0 + BT, kv_end);
   const int qlo = a.causal ? max(0, k0 - off) : 0;
   const int qhi = a.window ? min(a.S, k1 - 1 - off + a.window) : a.S;
   for (int hg = 0; k0 < kv_end && hg < group; ++hg) {
@@ -436,59 +452,59 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
     const int64_t bh = (int64_t)b * a.H + h;
     const T* q = static_cast<const T*>(a.q) + b * a.sq.b + h * a.sq.h;
     const T* dout = static_cast<const T*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
-    for (int q0 = (qlo / kBQ) * kBQ; q0 < qhi; q0 += kBQ) {
+    for (int q0 = (qlo / BT) * BT; q0 < qhi; q0 += BT) {
       __syncthreads();  // the last tile's readers are done with sQ, sO, sP, sS
-      load_tile<T, D, kBQ>(sQ, q, a.sq.s, q0, a.S);
-      load_tile<T, D, kBQ>(sO, dout, a.sdo.s, q0, a.S);
-      for (int r = threadIdx.x; r < kBQ; r += kThreads) {
+      load_tile<T, D, BT>(sQ, q, a.sq.s, q0, a.S);
+      load_tile<T, D, BT>(sO, dout, a.sdo.s, q0, a.S);
+      for (int r = threadIdx.x; r < BT; r += kThreads) {
         const int row = q0 + r;
         sL[r] = row < a.S ? a.lse[bh * a.S + row] : 0.f;
         sD[r] = row < a.S ? a.di[bh * a.S + row] : 0.f;
       }
       __syncthreads();
       // transposed scores: this thread's kv rows ty + 16 i, q cols tx + 16 j
-      float s[4][4] = {}, dp[4][4] = {};
+      float s[R][R] = {}, dp[R][R] = {};
 #pragma unroll 8
       for (int d = 0; d < D; ++d) {
-        float ka[4], va[4], qb[4], ob[4];
+        float ka[R], va[R], qb[R], ob[R];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < R; ++i) {
           ka[i] = sK[(ty + 16 * i) * LDD + d];
           va[i] = sV[(ty + 16 * i) * LDD + d];
         }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < R; ++j) {
           qb[j] = sQ[(tx + 16 * j) * LDD + d];
           ob[j] = sO[(tx + 16 * j) * LDD + d];
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < R; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
+          for (int j = 0; j < R; ++j) {
             s[i][j] = fmaf(ka[i], qb[j], s[i][j]);
             dp[i][j] = fmaf(va[i], ob[j], dp[i][j]);
           }
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < R; ++i) {
         const int col = k0 + ty + 16 * i;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < R; ++j) {
           const int r = tx + 16 * j, row = q0 + r;
           const bool ok = row < a.S && keep(a, row, col, kv_end);
           const float p = ok ? expf(s[i][j] * a.scale - sL[r]) : 0.f;
-          sP[(ty + 16 * i) * kLDP + r] = p;
-          sS[(ty + 16 * i) * kLDP + r] = p * (dp[i][j] - sD[r]);
+          sP[(ty + 16 * i) * LDP + r] = p;
+          sS[(ty + 16 * i) * LDP + r] = p * (dp[i][j] - sD[r]);
         }
       }
       __syncthreads();
 #pragma unroll 4
-      for (int r = 0; r < kBQ; ++r) {
-        float pa[4], da[4], ob[NJ], qb[NJ];
+      for (int r = 0; r < BT; ++r) {
+        float pa[R], da[R], ob[NJ], qb[NJ];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pa[i] = sP[(ty + 16 * i) * kLDP + r];
-          da[i] = sS[(ty + 16 * i) * kLDP + r];
+        for (int i = 0; i < R; ++i) {
+          pa[i] = sP[(ty + 16 * i) * LDP + r];
+          da[i] = sS[(ty + 16 * i) * LDP + r];
         }
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
@@ -496,7 +512,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
           qb[j] = sQ[r * LDD + tx + 16 * j];
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < R; ++i)
 #pragma unroll
           for (int j = 0; j < NJ; ++j) {
             dv[i][j] = fmaf(pa[i], ob[j], dv[i][j]);
@@ -509,7 +525,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
   T* dkp = static_cast<T*>(a.dk) + b * a.sdk.b + kvh * a.sdk.h;
   T* dvp = static_cast<T*>(a.dv) + b * a.sdv.b + kvh * a.sdv.h;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int row = k0 + ty + 16 * i;
     if (row >= a.T) continue;
 #pragma unroll
@@ -535,10 +551,18 @@ constexpr int kFwdTerms = 3;
 constexpr int kDqTerms = 2;
 constexpr int kDkvTerms = 2;
 
-// q rows of K5's streamed tile: 64, or 32 at D 128 to keep dk and dv in
+// q rows of K5's streamed tile: 64, or 32 at D >= 128 to keep dk and dv in
 // registers without spilling.
 template <int D>
 __host__ __device__ constexpr int dkv_bq() { return D <= 64 ? 64 : 32; }
+
+// Output columns (of o, dq, or dk and dv) one tensor-core block owns: all of
+// D up to 128; at D 256 two blocks (grid z) own 128 each and each forms the
+// scores over all of D again, so that no block holds more than 128 columns
+// of fp32 accumulators (K5's dk and dv alone would take 256 registers a
+// thread at D 256).
+template <int D>
+__host__ __device__ constexpr int mma_out() { return D <= 128 ? D : 128; }
 
 // Rows [r0, r0 + R) of a (n, D) bf16 slab with row stride ss into a shared
 // tile of row stride D + 8, 16 bytes per cp.async; rows at or past n are
@@ -555,21 +579,21 @@ __device__ __forceinline__ void stage_rows(bf16* sm, const bf16* base, int64_t s
   }
 }
 
-// A warp's fp32 accumulator tiles c (16 rows x D, C layout) times f as bf16
-// into its 16 shared rows sm (row stride D + 8), then those rows to rows
-// [r0, r0 + 16) of a (n, D) bf16 slab with row stride ss, 16 bytes per
+// A warp's fp32 accumulator tiles c (16 rows x W, C layout) times f as bf16
+// into its 16 shared rows sm (row stride LDS >= W), then those rows to rows
+// [r0, r0 + 16) of a (n, W) bf16 slab with row stride ss, 16 bytes per
 // store; rows at or past n are dropped.
-template <int D>
+template <int W, int LDS>
 __device__ __forceinline__ void store_acc(bf16* dst, int64_t ss, int r0, int n, bf16* sm,
-                                          const float (&c)[D / 8][4], const float (&f)[2],
+                                          const float (&c)[W / 8][4], const float (&f)[2],
                                           int lane) {
-  constexpr int CH = D / 8;
+  constexpr int CH = W / 8;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int j = 0; j < CH; ++j)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh)
-      *reinterpret_cast<__nv_bfloat162*>(sm + (g + 8 * hh) * (D + 8) + 8 * j + 2 * t) =
+      *reinterpret_cast<__nv_bfloat162*>(sm + (g + 8 * hh) * LDS + 8 * j + 2 * t) =
           __floats2bfloat162_rn(c[j][2 * hh] * f[hh], c[j][2 * hh + 1] * f[hh]);
   __syncwarp();
 #pragma unroll
@@ -577,7 +601,7 @@ __device__ __forceinline__ void store_acc(bf16* dst, int64_t ss, int r0, int n, 
     const int e = i * 32 + lane, r = e / CH, col = (e % CH) * 8;
     if (r0 + r < n)
       *reinterpret_cast<uint4*>(dst + (r0 + r) * ss + col) =
-          *reinterpret_cast<const uint4*>(sm + r * (D + 8) + col);
+          *reinterpret_cast<const uint4*>(sm + r * LDS + col);
   }
 }
 
@@ -690,24 +714,27 @@ __device__ __forceinline__ void dq_probs(float (&s)[NS][4], const float (&dp)[NS
 // ---------------------------------------------------------------------------
 
 // Blocks per SM the register budget is sized for (launch bounds): 3 at
-// D <= 64 (<= 168 registers) for K3 and K5, 2 and 1 at D 128.  K3 at 4
+// D <= 64 (<= 168 registers) for K3 and K5, 2 and 1 at D >= 128.  K3 at 4
 // blocks (<= 128 registers) spilled and was no faster; K5 at 2 was slower.
+// q's fragments stay in registers up to D 128; at D 256 (64 registers of
+// them) they are read from shared memory for each kv tile, as K4 reads them.
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 3 : 2) flash_fwd_mma_kernel(Args a) {
-  constexpr int LD = D + 8, KD = D / 16, NS = kBK / 8, ND = D / 8;
+  constexpr int LD = D + 8, KD = D / 16, NS = kBK / 8, DO = mma_out<D>(), NO = DO / 8;
+  constexpr bool kQInRegs = D <= 128;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // kBQ x LD, then o on its way out
   bf16* sKV = sQ + kBQ * LD;                     // 2 stages x (k, v), kBK x LD each
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int mi = lane >> 3, mr = lane & 7;  // the ldmatrix matrix and row this lane addresses
   const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H, kvh = h / (a.H / a.Hkv);
-  const int q0 = blockIdx.y * kBQ;
+  const int q0 = blockIdx.y * kBQ, dz = blockIdx.z * DO;  // dz: this block's o columns
   const bf16* q = static_cast<const bf16*>(a.q) + b * a.sq.b + h * a.sq.h;
   const bf16* k = static_cast<const bf16*>(a.k) + b * a.sk.b + kvh * a.sk.h;
   const bf16* v = static_cast<const bf16*>(a.v) + b * a.sv.b + kvh * a.sv.h;
   const int kv_end = kv_end_of(a, b);
   int lo, hi;
-  kv_range(a, q0, kv_end, lo, hi);
+  kv_range(a, q0, kBQ, kv_end, lo, hi);
   const int first = (lo / kBK) * kBK;
   const int ntiles = hi > first ? (hi - first + kBK - 1) / kBK : 0;
   auto stage_kv = [&](int it) {
@@ -721,14 +748,16 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 3 : 2) flash_fwd_mma_ke
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
-  uint32_t qf[KD][4];  // this warp's 16 q rows as A fragments, for the whole loop
+  // where this warp's 16 q rows' A fragments start; in registers for the
+  // whole loop up to D 128
+  const int at_q = (16 * warp + mr + 8 * (mi & 1)) * LD + 8 * (mi >> 1);
+  uint32_t qf[kQInRegs ? KD : 1][4];
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk)
-    ldsm4(qf[kk], sQ + (16 * warp + mr + 8 * (mi & 1)) * LD + 16 * kk + 8 * (mi >> 1));
+  for (int kk = 0; kQInRegs && kk < KD; ++kk) ldsm4(qf[kk], sQ + at_q + 16 * kk);
 
-  float acc[ND][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[NO][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int n = 0; n < ND; ++n)
+  for (int n = 0; n < NO; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
@@ -746,14 +775,22 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 3 : 2) flash_fwd_mma_ke
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk)
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qa[4];
+      if (kQInRegs) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) qa[r] = qf[kQInRegs ? kk : 0][r];
+      } else {
+        ldsm4(qa, sQ + at_q + 16 * kk);
+      }
 #pragma unroll
       for (int j = 0; j < NS; j += 2) {
         uint32_t kb[4];
         ldsm4(kb, sK + (8 * j + mr + 8 * (mi >> 1)) * LD + 16 * kk + 8 * (mi & 1));
-        mma_bf16(s[j], qf[kk], kb[0], kb[1]);
-        mma_bf16(s[j + 1], qf[kk], kb[2], kb[3]);
+        mma_bf16(s[j], qa, kb[0], kb[1]);
+        mma_bf16(s[j + 1], qa, kb[2], kb[3]);
       }
+    }
 
     // online softmax on the fragments: this lane's rows g and g + 8 of the
     // warp's 16, columns 8 j + 2 t + {0, 1}; a row's 4 lanes form a quad
@@ -764,7 +801,7 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 3 : 2) flash_fwd_mma_ke
     else
       softmax_tile<true>(s, m, l, alpha, a, row0, kv0 + 2 * t, kv_end);
 #pragma unroll
-    for (int n = 0; n < ND; ++n) {
+    for (int n = 0; n < NO; ++n) {
       acc[n][0] *= alpha[0];
       acc[n][1] *= alpha[0];
       acc[n][2] *= alpha[1];
@@ -777,9 +814,9 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 3 : 2) flash_fwd_mma_ke
       uint32_t pa[kFwdTerms][4];
       a_from_acc(s, kc, pa);
 #pragma unroll
-      for (int n = 0; n < ND; n += 2) {
+      for (int n = 0; n < NO; n += 2) {
         uint32_t vb[4];
-        ldsm4_t(vb, sV + (16 * kc + mr + 8 * (mi & 1)) * LD + 8 * n + 8 * (mi >> 1));
+        ldsm4_t(vb, sV + (16 * kc + mr + 8 * (mi & 1)) * LD + dz + 8 * n + 8 * (mi >> 1));
 #pragma unroll
         for (int i = 0; i < kFwdTerms; ++i) {
           mma_bf16(acc[n], pa[i], vb[0], vb[1]);
@@ -800,10 +837,11 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 3 : 2) flash_fwd_mma_ke
     lc[hh] = fmaxf(x, 1e-30f);
     inv[hh] = 1.f / lc[hh];
   }
-  // o through this warp's own rows of sQ: its q fragments are in registers
-  store_acc<D>(static_cast<bf16*>(a.o) + b * a.so.b + h * a.so.h, a.so.s, q0 + 16 * warp, a.S,
-               sQ + 16 * warp * LD, acc, inv, lane);
-  if (t == 0) {
+  // o through this warp's own rows of sQ, which only this warp reads; the
+  // lse once, from the block that owns o's first columns
+  store_acc<DO, LD>(static_cast<bf16*>(a.o) + b * a.so.b + h * a.so.h + dz, a.so.s,
+                    q0 + 16 * warp, a.S, sQ + 16 * warp * LD, acc, inv, lane);
+  if (t == 0 && blockIdx.z == 0) {
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int row = q0 + 16 * warp + g + 8 * hh;
@@ -826,7 +864,7 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 3 : 2) flash_fwd_mma_ke
 // at D 128.
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 3 : 2) flash_dq_mma_kernel(Args a) {
-  constexpr int LD = D + 8, KD = D / 16, NS = kBK / 8, ND = D / 8;
+  constexpr int LD = D + 8, KD = D / 16, NS = kBK / 8, DO = mma_out<D>(), NO = DO / 8;
   constexpr bool kQInRegs = D <= 64;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // kBQ x LD, then dq on its way out
@@ -835,12 +873,12 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 3 : 2) flash_dq_mma_ker
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int mi = lane >> 3, mr = lane & 7;
   const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H, kvh = h / (a.H / a.Hkv);
-  const int q0 = blockIdx.y * kBQ;
+  const int q0 = blockIdx.y * kBQ, dz = blockIdx.z * DO;  // dz: this block's dq columns
   const bf16* k = static_cast<const bf16*>(a.k) + b * a.sk.b + kvh * a.sk.h;
   const bf16* v = static_cast<const bf16*>(a.v) + b * a.sv.b + kvh * a.sv.h;
   const int kv_end = kv_end_of(a, b);
   int lo, hi;
-  kv_range(a, q0, kv_end, lo, hi);
+  kv_range(a, q0, kBQ, kv_end, lo, hi);
   const int first = (lo / kBK) * kBK;
   const int ntiles = hi > first ? (hi - first + kBK - 1) / kBK : 0;
   auto stage_kv = [&](int it) {
@@ -873,9 +911,9 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 3 : 2) flash_dq_mma_ker
 #pragma unroll
   for (int kk = 0; kQInRegs && kk < KD; ++kk) ldsm4(qf[kk], sQ + at_w + 16 * kk);
 
-  float acc[ND][4];
+  float acc[NO][4];
 #pragma unroll
-  for (int n = 0; n < ND; ++n)
+  for (int n = 0; n < NO; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
@@ -926,9 +964,9 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 3 : 2) flash_dq_mma_ker
       uint32_t da[kDqTerms][4];
       a_from_acc(s, kc, da);
 #pragma unroll
-      for (int n = 0; n < ND; n += 2) {
+      for (int n = 0; n < NO; n += 2) {
         uint32_t kb[4];
-        ldsm4_t(kb, sK + (16 * kc + mr + 8 * (mi & 1)) * LD + 8 * n + 8 * (mi >> 1));
+        ldsm4_t(kb, sK + (16 * kc + mr + 8 * (mi & 1)) * LD + dz + 8 * n + 8 * (mi >> 1));
 #pragma unroll
         for (int i = 0; i < kDqTerms; ++i) {
           mma_bf16(acc[n], da[i], kb[0], kb[1]);
@@ -942,8 +980,8 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 3 : 2) flash_dq_mma_ker
 
   // dq = scale acc through this warp's own rows of sQ
   const float scale2[2] = {a.scale, a.scale};
-  store_acc<D>(static_cast<bf16*>(a.dq) + b * a.sdq.b + h * a.sdq.h, a.sdq.s, q0 + 16 * warp,
-               a.S, sQ + 16 * warp * LD, acc, scale2, lane);
+  store_acc<DO, LD>(static_cast<bf16*>(a.dq) + b * a.sdq.b + h * a.sdq.h + dz, a.sdq.s,
+                    q0 + 16 * warp, a.S, sQ + 16 * warp * LD, acc, scale2, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -952,7 +990,8 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 3 : 2) flash_dq_mma_ker
 
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 3 : 1) flash_dkv_mma_kernel(Args a) {
-  constexpr int LD = D + 8, BQ = dkv_bq<D>(), KD = D / 16, NQ = BQ / 8, ND = D / 8;
+  constexpr int LD = D + 8, BQ = dkv_bq<D>(), KD = D / 16, NQ = BQ / 8, DO = mma_out<D>(),
+                NO = DO / 8;
   constexpr int TILE = BQ * LD;  // one streamed q or do tile
   static_assert(2 * BQ <= kMmaThreads, "one thread per lse or di entry");
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -963,7 +1002,7 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 3 : 1) flash_dkv_mma_ke
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int mi = lane >> 3, mr = lane & 7;
   const int n = blockIdx.x, b = n / a.Hkv, kvh = n % a.Hkv, group = a.H / a.Hkv;
-  const int k0 = blockIdx.y * kBK;
+  const int k0 = blockIdx.y * kBK, dz = blockIdx.z * DO;  // dz: this block's dk/dv columns
   const int kv_end = kv_end_of(a, b), off = a.T - a.S;
   // q rows [qlo, qhi) that see any unmasked key of this tile
   const int k1 = min(k0 + kBK, kv_end);
@@ -995,9 +1034,9 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 3 : 1) flash_dkv_mma_ke
   cp_async_wait_all();
   __syncthreads();
 
-  float dk[ND][4], dv[ND][4];
+  float dk[NO][4], dv[NO][4];
 #pragma unroll
-  for (int j = 0; j < ND; ++j)
+  for (int j = 0; j < NO; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
   const bf16* sKw = sK + (16 * warp + mr + 8 * (mi & 1)) * LD + 8 * (mi >> 1);
@@ -1051,9 +1090,9 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 3 : 1) flash_dkv_mma_ke
       a_from_acc(sc, kc, pa);
       a_from_acc(dp, kc, da);
 #pragma unroll
-      for (int j = 0; j < ND; j += 2) {
+      for (int j = 0; j < NO; j += 2) {
         uint32_t ob[4], qb[4];
-        const int at = (16 * kc + mr + 8 * (mi & 1)) * LD + 8 * j + 8 * (mi >> 1);
+        const int at = (16 * kc + mr + 8 * (mi & 1)) * LD + dz + 8 * j + 8 * (mi >> 1);
         ldsm4_t(ob, sO + at);
         ldsm4_t(qb, sQ + at);
 #pragma unroll
@@ -1071,10 +1110,10 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 3 : 1) flash_dkv_mma_ke
 
   // dk and dv through this warp's own rows of sK and sV
   const float scale2[2] = {a.scale, a.scale}, one2[2] = {1.f, 1.f};
-  store_acc<D>(static_cast<bf16*>(a.dk) + b * a.sdk.b + kvh * a.sdk.h, a.sdk.s, k0 + 16 * warp,
-               a.T, sK + 16 * warp * LD, dk, scale2, lane);
-  store_acc<D>(static_cast<bf16*>(a.dv) + b * a.sdv.b + kvh * a.sdv.h, a.sdv.s, k0 + 16 * warp,
-               a.T, sV + 16 * warp * LD, dv, one2, lane);
+  store_acc<DO, LD>(static_cast<bf16*>(a.dk) + b * a.sdk.b + kvh * a.sdk.h + dz, a.sdk.s,
+                    k0 + 16 * warp, a.T, sK + 16 * warp * LD, dk, scale2, lane);
+  store_acc<DO, LD>(static_cast<bf16*>(a.dv) + b * a.sdv.b + kvh * a.sdv.h + dz, a.sdv.s,
+                    k0 + 16 * warp, a.T, sV + 16 * warp * LD, dv, one2, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -1082,12 +1121,19 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 3 : 1) flash_dkv_mma_ke
 // ---------------------------------------------------------------------------
 
 template <int D>
-constexpr size_t fwd_smem() { return sizeof(float) * ((kBQ + 2 * kBK) * (D + 1) + kBQ * kLDP); }
+constexpr size_t fwd_smem() {
+  constexpr int BT = 16 * fma_rows<D>();
+  return sizeof(float) * (3 * BT * (D + 1) + BT * (BT + 1));
+}
 template <int D>
-constexpr size_t dq_smem() { return sizeof(float) * (2 * (kBQ + kBK) * (D + 1) + kBQ * kLDP); }
+constexpr size_t dq_smem() {
+  constexpr int BT = 16 * fma_rows<D>();
+  return sizeof(float) * (4 * BT * (D + 1) + BT * (BT + 1));
+}
 template <int D>
 constexpr size_t dkv_smem() {
-  return sizeof(float) * (2 * (kBQ + kBK) * (D + 1) + 2 * kBK * kLDP + 2 * kBQ);
+  constexpr int BT = 16 * fma_rows<D>();
+  return sizeof(float) * (4 * BT * (D + 1) + 2 * BT * (BT + 1) + 2 * BT);
 }
 template <int D>
 constexpr size_t fwd_mma_smem() { return sizeof(bf16) * (kBQ + 4 * kBK) * (D + 8); }
@@ -1097,6 +1143,11 @@ template <int D>
 constexpr size_t dkv_mma_smem() {
   return sizeof(bf16) * (2 * kBK + 4 * dkv_bq<D>()) * (D + 8) + sizeof(float) * 4 * dkv_bq<D>();
 }
+static_assert(fwd_smem<256>() <= 232448 && dq_smem<256>() <= 232448 &&
+                  dkv_smem<256>() <= 232448 && fwd_mma_smem<256>() <= 232448 &&
+                  dq_mma_smem<256>() <= 232448 && dkv_mma_smem<256>() <= 232448 &&
+                  dkv_smem<128>() <= 232448,
+              "every kernel fits an SM's shared memory at its largest head dim");
 
 // The dynamic shared memory a kernel may take is set once per kernel and
 // device (the attribute call costs host time on every launch otherwise):
@@ -1120,13 +1171,19 @@ int launch(Kernel kernel, dim3 grid, int threads, size_t smem, const Args& a,
 enum Pass { kFwd, kDq, kDkv };
 
 // The dispatch on dtype: bf16 takes the tensor-core kernels, fp32 the FMA
-// kernels, every pass.
+// kernels, every pass.  The grid: (b*h or b*hkv, q or kv tiles of the
+// design's rows, D / the output columns a block owns).
 template <typename T, int D>
 int launch_pass(Pass pass, const Args& a, cudaStream_t s) {
   static uint64_t configured[3] = {0, 0, 0};  // per pass of this (T, D)
-  const dim3 q_grid((unsigned)(a.B * a.H), (unsigned)((a.S + kBQ - 1) / kBQ));
-  const dim3 kv_grid((unsigned)(a.B * a.Hkv), (unsigned)((a.T + kBK - 1) / kBK));
-  if constexpr (std::is_same<T, bf16>::value) {
+  constexpr bool kMma = std::is_same<T, bf16>::value;
+  constexpr int rows = kMma ? kBQ : 16 * fma_rows<D>(), z = kMma ? D / mma_out<D>() : 1;
+  static_assert(kBQ == kBK, "q and kv tiles of one design have the same rows");
+  const int64_t tiles = ((pass == kDkv ? a.T : a.S) + rows - 1) / rows;
+  if (tiles > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 q_grid((unsigned)(a.B * a.H), (unsigned)tiles, z);
+  const dim3 kv_grid((unsigned)(a.B * a.Hkv), (unsigned)tiles, z);
+  if constexpr (kMma) {
     if (pass == kFwd)
       return launch(flash_fwd_mma_kernel<D>, q_grid, kMmaThreads, fwd_mma_smem<D>(), a, s,
                     configured[kFwd]);
@@ -1154,6 +1211,7 @@ int launch_d(Pass pass, const Args& a, int D, cudaStream_t s) {
     case 32: return launch_pass<T, 32>(pass, a, s);
     case 64: return launch_pass<T, 64>(pass, a, s);
     case 128: return launch_pass<T, 128>(pass, a, s);
+    case 256: return launch_pass<T, 256>(pass, a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1190,8 +1248,7 @@ bool mma_aligned(Pass pass, const Args& a) {
 }
 
 int run(Pass pass, const Args& a, int dtype, int D, void* stream) {
-  if (a.B < 1 || a.H < 1 || a.Hkv < 1 || a.H % a.Hkv || a.S < 1 || a.T < 1 ||
-      (int64_t)a.S > 65535LL * kBQ || (int64_t)a.T > 65535LL * kBK)
+  if (a.B < 1 || a.H < 1 || a.Hkv < 1 || a.H % a.Hkv || a.S < 1 || a.T < 1)
     return (int)cudaErrorInvalidValue;
   if (dtype == 1 && !mma_aligned(pass, a))
     return (int)cudaErrorMisalignedAddress;

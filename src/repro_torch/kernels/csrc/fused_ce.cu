@@ -69,7 +69,16 @@
 // score tile s is formed once over all of D, turned into dlogits =
 // (exp(s - lse) - onehot) g, and multiplied into the accumulator over D in
 // chunks of 128 columns.  The accumulator takes 128 KB at D 1024, so one
-// block runs per SM; D is at most 1024.
+// block runs per SM.
+//
+// Any D: a block holds at most one D window of kDW = 1024 columns.  K7 and
+// K8 get a grid axis over the windows (blockIdx.z): each block owns its
+// rows' gradient in one window and forms the scores over all of D, window
+// by window, so at D > 1024 the scores (and their loads) are repeated once
+// per window; the FMA design's accumulator is one window wide.  K6's
+// tensor-core kernel keeps its h rows resident over one window and loads
+// each window again at its first chunk of every vocab tile; its FMA kernel
+// streams D in any case.  Up to D 1024 every kernel runs as before.
 //
 // The tensor-core design (bf16).  8 warps; both products on mma.sync
 // m16n8k16 (bf16 in, fp32 accumulate) from ldmatrix fragments.  bf16 x bf16
@@ -142,7 +151,7 @@ constexpr int kBT = 128;           // other rows of a tile (vocab columns in K6/
 constexpr int kKC = 32;            // depth of one chunk of the score product
 constexpr int kLDK = kKC + 1;      // row stride of a staged score operand
 constexpr int kDC = 128;           // width of one D chunk of the gradient product
-constexpr int kMaxD = 1024;
+constexpr int kDW = 1024;          // width of one D window (what a block holds at once)
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 static_assert(kThreads / 32 * 4 == kBO && kBT == 4 * 32,
@@ -347,21 +356,25 @@ static_assert(kBT * kDC6 / 8 % kThreads == 0, "whole rounds of 16-byte copies");
 // the 8 rows of an ldmatrix phase fall on distinct banks.
 __host__ __device__ constexpr int fwd_ld(int D) { return (D + kDC6 - 1) / kDC6 * kDC6 + 8; }
 
+constexpr int kWC6 = kDW / kDC6;  // w chunks of one D window
 constexpr size_t fwd_mma_smem(int D) {
-  return sizeof(bf16) * ((size_t)kBO6 * fwd_ld(D) + kStages6 * kBT * kLDW6);
+  return sizeof(bf16) * ((size_t)kBO6 * fwd_ld(D < kDW ? D : kDW) + kStages6 * kBT * kLDW6);
 }
-static_assert(fwd_mma_smem(kMaxD) + sizeof(float) * (3 * 4 + 1) * kBO6 <= 232448,
+static_assert(fwd_mma_smem(kDW) + sizeof(float) * (3 * 4 + 1) * kBO6 <= 232448,
               "the forward's tensor-core kernel (and its static merge arrays) fits an SM's "
               "shared memory");
 
 // One block per (64-row tile of h, vocab split), the split counted in
 // 128-column vocab tiles as the combine counts it (see the note at the top).
+// The h rows stay resident over one D window (all of D up to kDW); past it
+// each window is loaded again at its first chunk of every vocab tile.
 __global__ void __launch_bounds__(kThreads, 1) fused_ce_fwd_mma_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ float sM[4][kBO6], sL[4][kBO6], sLL[kBO6];
   __shared__ int sB[4][kBO6];
-  const int ld = fwd_ld(a.D), dr = ld - 8;
-  bf16* sH = reinterpret_cast<bf16*>(smem_raw);  // kBO6 x ld: the h rows
+  const int ld = fwd_ld(min(a.D, kDW)), dr = ld - 8;
+  const bool windows = a.D > kDW;
+  bf16* sH = reinterpret_cast<bf16*>(smem_raw);  // kBO6 x ld: the h rows of a window
   bf16* sW = sH + kBO6 * ld;                      // kStages6 x kBT x kLDW6: the w ring
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int mi = lane >> 3, mr = lane & 7;
@@ -392,7 +405,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_ce_fwd_mma_kernel(Args a) {
     cp_async_commit();
   };
 
-  // the h rows, all of D (zero-filled past N and D), with the first chunk
+  // the h rows of the first window (zero-filled past N and D), with the first chunk
   {
     const int per_row = dr / 8;
     for (int e = threadIdx.x; e < kBO6 * per_row; e += kThreads) {
@@ -426,16 +439,29 @@ __global__ void __launch_bounds__(kThreads, 1) fused_ce_fwd_mma_kernel(Args a) {
   for (int i = 0; i < total; ++i) {
     cp_async_wait<kStages6 - 2>();  // chunk i (and the h rows) have landed
     __syncthreads();                // and every warp is done with chunk i - 1's slot
-    stage_w(i + kStages6 - 1);
     const int dc = i % nC;
+    if (windows && i > 0 && dc % kWC6 == 0) {
+      // the h rows of the window chunk dc starts, by plain 16-byte loads
+      // (outside the ring's cp.async groups), once every warp is done with
+      // the last window (the __syncthreads above)
+      const int w0 = dc * kDC6, per_row = dr / 8;
+      for (int e = threadIdx.x; e < kBO6 * per_row; e += kThreads) {
+        const int r = e / per_row, c = (e % per_row) * 8, row = r0 + r;
+        const bool in = row < a.N && w0 + c < a.D;
+        *reinterpret_cast<uint4*>(sH + r * ld + c) =
+            in ? *reinterpret_cast<const uint4*>(h + row * a.sh + w0 + c) : make_uint4(0, 0, 0, 0);
+      }
+      __syncthreads();
+    }
+    stage_w(i + kStages6 - 1);
     const bf16* sWc = sW + (i % kStages6) * kBT * kLDW6;
 #pragma unroll
     for (int kk = 0; kk < kDC6 / 16; ++kk) {
       uint32_t af[2][4], bfr[2][4];
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
-        ldsm4(af[u], sH + (32 * wm + 16 * u + mr + 8 * (mi & 1)) * ld + kDC6 * dc + 16 * kk +
-                         8 * (mi >> 1));
+        ldsm4(af[u], sH + (32 * wm + 16 * u + mr + 8 * (mi & 1)) * ld + kDC6 * (dc % kWC6) +
+                         16 * kk + 8 * (mi >> 1));
         ldsm4(bfr[u], sWc + (32 * wn + 16 * u + mr + 8 * (mi >> 1)) * kLDW6 + 16 * kk +
                           8 * (mi & 1));
       }
@@ -530,18 +556,22 @@ __global__ void __launch_bounds__(kThreads, 1) fused_ce_fwd_mma_kernel(Args a) {
 // K7, K8: dh and dw, fp32 FMA (fp32, and bf16 the tensor cores cannot stage)
 // ---------------------------------------------------------------------------
 
+// At width D a block holds the accumulator of one D window: min(D, kDW).
 constexpr size_t grad_smem(int D) {
-  return sizeof(float) * ((size_t)kBO * D + kBO * kBT + kBT * kDC + 3 * kBT);
+  return sizeof(float) * ((size_t)kBO * (D < kDW ? D : kDW) + kBO * kBT + kBT * kDC + 3 * kBT);
 }
 
 // kOwnVocab false (K7): the block owns 32 rows of h and loops over the
 // vocab tiles of split blockIdx.y.  true (K8): it owns 32 rows of w and
-// loops over every 128-row tile of h.
+// loops over every 128-row tile of h.  Either way it owns the D window
+// blockIdx.z of its rows' gradient (columns [z0, z0 + kDW)); the scores are
+// formed over all of D in every window's block.
 template <typename T, bool kOwnVocab>
 __device__ __forceinline__ void grad_body(const Args& a) {
   extern __shared__ float smem[];
-  float* sAcc = smem;                     // kBO x D accumulator
-  float* sL = sAcc + kBO * a.D;           // kBO x kBT dlogits
+  const int z0 = blockIdx.z * kDW, z1 = min(a.D, z0 + kDW), Dw = min(a.D, kDW);
+  float* sAcc = smem;                     // kBO x Dw accumulator of columns [z0, z1)
+  float* sL = sAcc + kBO * Dw;            // kBO x kBT dlogits
   float* sBuf = sL + kBO * kBT;           // kBT x kDC chunk of the other tile
   float* sA = sBuf;                       // score operands, aliasing sBuf
   float* sB = sBuf + kBO * kLDK;
@@ -571,13 +601,13 @@ __device__ __forceinline__ void grad_body(const Args& a) {
     o_lbl[i] = ok ? a.lbl[row] : -1;
   }
   // each thread reads and writes only its own accumulator entries
-  for (int c0 = 0; c0 < a.D; c0 += kDC)
+  for (int c0 = 0; c0 < Dw; c0 += kDC)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = c0 + tx + 32 * j;
-        if (col < a.D) sAcc[(ty + 8 * i) * a.D + col] = 0.f;
+        if (col < Dw) sAcc[(ty + 8 * i) * Dw + col] = 0.f;
       }
 
   for (int t = t_lo; t < t_hi; ++t) {
@@ -610,7 +640,7 @@ __device__ __forceinline__ void grad_body(const Args& a) {
         sL[(ty + 8 * i) * kBT + c] = ok ? (p - (lab == v ? 1.f : 0.f)) * g : 0.f;
       }
     }
-    for (int c0 = 0; c0 < a.D; c0 += kDC) {
+    for (int c0 = z0; c0 < z1; c0 += kDC) {
       __syncthreads();   // sL is written; the last readers of sBuf are done
       for (int e = threadIdx.x; e < kBT * kDC; e += kThreads) {
         const int r = e / kDC, c = e % kDC, row = b0 + r, col = c0 + c;
@@ -623,7 +653,7 @@ __device__ __forceinline__ void grad_body(const Args& a) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int col = c0 + tx + 32 * j;
-          acc[i][j] = col < a.D ? sAcc[(ty + 8 * i) * a.D + col] : 0.f;
+          acc[i][j] = col < z1 ? sAcc[(ty + 8 * i) * Dw + col - z0] : 0.f;
         }
 #pragma unroll 8
       for (int k = 0; k < kBT; ++k) {
@@ -642,7 +672,7 @@ __device__ __forceinline__ void grad_body(const Args& a) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int col = c0 + tx + 32 * j;
-          if (col < a.D) sAcc[(ty + 8 * i) * a.D + col] = acc[i][j];
+          if (col < z1) sAcc[(ty + 8 * i) * Dw + col - z0] = acc[i][j];
         }
     }
   }
@@ -651,12 +681,12 @@ __device__ __forceinline__ void grad_body(const Args& a) {
   for (int i = 0; i < 4; ++i) {
     const int row = o0 + ty + 8 * i;
     if (row >= na) continue;
-    for (int c0 = 0; c0 < a.D; c0 += kDC)
+    for (int c0 = z0; c0 < z1; c0 += kDC)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = c0 + tx + 32 * j;
-        if (col >= a.D) continue;
-        const float x = sAcc[(ty + 8 * i) * a.D + col];
+        if (col >= z1) continue;
+        const float x = sAcc[(ty + 8 * i) * Dw + col - z0];
         if (kOwnVocab)
           st(static_cast<T*>(a.out) + (int64_t)row * a.D + col, x);
         else
@@ -695,7 +725,7 @@ __global__ void __launch_bounds__(kThreads) fused_ce_dh_combine_kernel(Args a) {
 constexpr int kBT2 = 64;              // other rows of the resident other tile
 constexpr int kLDL = kBT2 + 8;        // row stride (bf16) of dlogits
 constexpr int kTerms = 2;             // bf16 terms of dlogits in the second product
-constexpr int kChunks = kMaxD / kDC;  // D chunks of the accumulator
+constexpr int kChunks = kDW / kDC;    // D chunks of the accumulator (one window)
 constexpr int kPairs = kChunks / 2;   // the other tile is refilled two D chunks at a time
 static_assert(kThreads / 32 == 8 && kBO == 32 && kBT2 == 64,
               "warp w: owner rows 16 (w % 2) .., score columns 16 (w / 2) .., D columns "
@@ -707,9 +737,9 @@ static_assert(kBT2 * (2 * kDC / 8) % kThreads == 0, "whole rounds of 16-byte cop
 __host__ __device__ constexpr int res_ld(int D) { return (D + kDC - 1) / kDC * kDC + 8; }
 
 constexpr size_t mma_smem(int D) {
-  return sizeof(bf16) * ((size_t)(kBO + kBT2) * res_ld(D) + kTerms * kBO * kLDL);
+  return sizeof(bf16) * ((size_t)(kBO + kBT2) * res_ld(D < kDW ? D : kDW) + kTerms * kBO * kLDL);
 }
-static_assert(mma_smem(kMaxD) <= 232448, "the tensor-core kernels fit an SM's shared memory");
+static_assert(mma_smem(kDW) <= 232448, "the tensor-core kernels fit an SM's shared memory");
 
 // Wait until at most n (0 .. kPairs - 1) of this thread's newest groups are in flight.
 __device__ __forceinline__ void cp_async_wait_upto(int n) {
@@ -724,11 +754,19 @@ __device__ __forceinline__ void cp_async_wait_upto(int n) {
 
 // kOwnVocab false (K7): the block owns 32 rows of h and loops over the
 // vocab tiles of split blockIdx.y.  true (K8): it owns 32 rows of w and
-// loops over every 64-row tile of h.
+// loops over every 64-row tile of h.  Either way it owns the D window
+// blockIdx.z of its rows' gradient.  Up to D kDW (one window) the owner rows
+// and the other tile stay resident over all of D and the next tile streams
+// in pair by pair behind the product.  Past it, for each other tile, every
+// window of the owner rows and the other tile is loaded in turn (the
+// block's own window last, so that the product finds it in place) and the
+// score summed over them; no load overlaps a product there.
 template <bool kOwnVocab>
 __device__ __forceinline__ void grad_mma_body(const Args& a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ld = res_ld(a.D), dr = ld - 8;
+  const int ld = res_ld(min(a.D, kDW)), dr = ld - 8;
+  const int nW = (a.D + kDW - 1) / kDW, zw = blockIdx.z, z0 = zw * kDW;
+  const int nCz = (min(a.D - z0, kDW) + kDC - 1) / kDC;  // D chunks of the block's window
   bf16* sOwn = reinterpret_cast<bf16*>(smem_raw);  // kBO x ld: the owner rows
   bf16* sOth = sOwn + kBO * ld;                     // kBT2 x ld: the other tile
   bf16* sDl = sOth + kBT2 * ld;                     // kTerms x kBO x kLDL: dlogits
@@ -746,7 +784,7 @@ __device__ __forceinline__ void grad_mma_body(const Args& a) {
   // K7's split counts 128-column vocab tiles (as K6 and the combine do)
   const int t_lo = kOwnVocab ? 0 : split * a.tiles_per_split * (kBT / kBT2);
   const int t_hi = kOwnVocab ? n_tiles : min(n_tiles, t_lo + a.tiles_per_split * (kBT / kBT2));
-  const int nC = (a.D + kDC - 1) / kDC, nP = (nC + 1) / 2;
+  const int nC = (a.D + kDC - 1) / kDC, nP = (nC + 1) / 2;  // one window: nW == 1
 
   // D chunks 2p and 2p + 1 of other tile `tile` into sOth (ragged rows and
   // columns zero-filled), as one group; past the last tile an empty group
@@ -765,17 +803,22 @@ __device__ __forceinline__ void grad_mma_body(const Args& a) {
     cp_async_commit();
   };
 
-  // the owner rows, all of D (zero-filled past D), with the first pair of
-  // the first other tile; then its other pairs, a group each
-  {
-    const int per_row = dr / 8;
-    for (int e = threadIdx.x; e < kBO * per_row; e += kThreads) {
-      const int r = e / per_row, c = (e % per_row) * 8, row = o0 + r;
-      const bool in = row < na && c < a.D;
-      cp_async16(sOwn + r * ld + c, A + (in ? row * sa + c : 0), in);
+  // D window w of n rows from r0 of X (row stride sx) into sm (ragged rows
+  // and columns zero-filled), by cp.async; the caller commits and waits
+  auto stage_window = [&](bf16* sm, const bf16* X, int64_t sx, int r0, int nr, int n, int w) {
+    const int w0 = w * kDW, per_row = (min(a.D - w0, kDW) + kDC - 1) / kDC * (kDC / 8);
+    for (int e = threadIdx.x; e < nr * per_row; e += kThreads) {
+      const int r = e / per_row, c = (e % per_row) * 8, row = r0 + r;
+      const bool in = row < n && w0 + c < a.D;
+      cp_async16(sm + r * ld + c, X + (in ? row * sx + w0 + c : 0), in);
     }
+  };
+  if (nW == 1) {
+    // the owner rows, all of D (zero-filled past D), with the first pair of
+    // the first other tile; then its other pairs, a group each
+    stage_window(sOwn, A, sa, o0, kBO, na, 0);
+    for (int p = 0; p < nP; ++p) refill(t_lo, p);
   }
-  for (int p = 0; p < nP; ++p) refill(t_lo, p);
 
   float ol[2], og[2];  // K7: the lse, g and label of this lane's owner rows 16 mt + g + 8 hh
   int ob[2];
@@ -819,11 +862,8 @@ __device__ __forceinline__ void grad_mma_body(const Args& a) {
     for (int j = 0; j < 2; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[j][e] = sp[j][e] = 0.f;
-    for (int c = 0; c < nC; ++c) {
-      if ((c & 1) == 0) {
-        cp_async_wait_upto(nP - 1 - c / 2);
-        __syncthreads();
-      }
+    // chunk c of the resident window into sc and sp
+    auto score_chunk = [&](int c) {
 #pragma unroll
       for (int kk = 0; kk < kDC / 16; kk += 2) {
         uint32_t af[2][4], bfr[2][4];
@@ -838,6 +878,27 @@ __device__ __forceinline__ void grad_mma_body(const Args& a) {
         mma_bf16(sc[1], af[0], bfr[0][2], bfr[0][3]);
         mma_bf16(sp[0], af[1], bfr[1][0], bfr[1][1]);
         mma_bf16(sp[1], af[1], bfr[1][2], bfr[1][3]);
+      }
+    };
+    if (nW == 1) {
+      for (int c = 0; c < nC; ++c) {
+        if ((c & 1) == 0) {
+          cp_async_wait_upto(nP - 1 - c / 2);
+          __syncthreads();
+        }
+        score_chunk(c);
+      }
+    } else {
+      for (int i = 1; i <= nW; ++i) {
+        const int w = (zw + i) % nW;  // the block's own window last
+        __syncthreads();              // every warp is done with the last window's rows
+        stage_window(sOwn, A, sa, o0, kBO, na, w);
+        stage_window(sOth, B, sb, b0, kBT2, nb, w);
+        cp_async_commit();
+        cp_async_wait_all();
+        __syncthreads();
+        const int nCw = (min(a.D - w * kDW, kDW) + kDC - 1) / kDC;
+        for (int c = 0; c < nCw; ++c) score_chunk(c);
       }
     }
 #pragma unroll
@@ -880,8 +941,8 @@ __device__ __forceinline__ void grad_mma_body(const Args& a) {
     // done with a pair, the next tile's pair streams into its place
 #pragma unroll
     for (int c = 0; c < kChunks; ++c) {
-      if (c >= nC) break;
-      if (c >= 2 && (c & 1) == 0) {
+      if (c >= nCz) break;
+      if (nW == 1 && c >= 2 && (c & 1) == 0) {
         __syncthreads();
         refill(tile + 1, c / 2 - 1);
       }
@@ -899,8 +960,10 @@ __device__ __forceinline__ void grad_mma_body(const Args& a) {
             mma_bf16(acc[c][j], da[i][kc], ob4[j >> 1][2 * (j & 1)], ob4[j >> 1][2 * (j & 1) + 1]);
       }
     }
-    __syncthreads();
-    refill(tile + 1, nP - 1);
+    if (nW == 1) {
+      __syncthreads();
+      refill(tile + 1, nP - 1);
+    }
   }
   cp_async_wait_all();  // only empty groups are left
 
@@ -911,7 +974,7 @@ __device__ __forceinline__ void grad_mma_body(const Args& a) {
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
-        const int row = o0 + 16 * mt + g + 8 * hh, col = kDC * c + 32 * nq + 8 * j + 2 * t;
+        const int row = o0 + 16 * mt + g + 8 * hh, col = z0 + kDC * c + 32 * nq + 8 * j + 2 * t;
         if (row >= na || col >= a.D) continue;  // D is a multiple of 8: col + 1 < D too
         const float x0 = acc[c][j][2 * hh], x1 = acc[c][j][2 * hh + 1];
         if (kOwnVocab)
@@ -960,7 +1023,7 @@ cudaError_t configure(void (*kernel)(Args), size_t max_smem, uint64_t& configure
 // K6's tensor-core kernel, set up for its largest shared memory.
 cudaError_t configure_fwd_mma() {
   static uint64_t configured = 0;
-  return configure(&fused_ce_fwd_mma_kernel, fwd_mma_smem(kMaxD), configured);
+  return configure(&fused_ce_fwd_mma_kernel, fwd_mma_smem(kDW), configured);
 }
 
 // The K7 (pass kDh) or K8 kernel of a design and dtype, the shared memory it
@@ -979,10 +1042,10 @@ GradKernel grad_kernel(Pass pass, Design design, int D) {
   if constexpr (std::is_same<T, bf16>::value) {
     if (design == kMma)
       return {pass == kDh ? &fused_ce_dh_mma_kernel : &fused_ce_dw_mma_kernel, mma_smem(D),
-              mma_smem(kMaxD), bits};
+              mma_smem(kDW), bits};
   }
   return {pass == kDh ? &fused_ce_dh_kernel<T> : &fused_ce_dw_kernel<T>, grad_smem(D),
-          grad_smem(kMaxD), bits};
+          grad_smem(kDW), bits};
 }
 
 // K6 (then its combine kernel) in a design.
@@ -1011,8 +1074,9 @@ int launch_grad(Pass pass, Design design, const Args& a, cudaStream_t s) {
   const GradKernel k = grad_kernel<T>(pass, design, a.D);
   cudaError_t err = configure(k.fn, k.max_smem, *k.configured);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid = pass == kDh ? dim3(blocks_of(a.N, kBO), (unsigned)a.splits)
-                                : dim3(blocks_of(a.V, kBO));
+  const unsigned windows = blocks_of(a.D, kDW);  // grid z: the D windows
+  const dim3 grid = pass == kDh ? dim3(blocks_of(a.N, kBO), (unsigned)a.splits, windows)
+                                : dim3(blocks_of(a.V, kBO), 1, windows);
   Args args = a;
   void* params[] = {&args};
   err = cudaLaunchKernel(reinterpret_cast<const void*>(k.fn), grid, dim3(kThreads), params,
@@ -1062,7 +1126,8 @@ int plan(Pass pass, Design design, int N, int V, int D) {
   }
   if (err != cudaSuccess) return -(int)err;
   const int64_t slots = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
-  const int64_t row_tiles = (N + rows - 1) / rows;
+  // K7's blocks: (row tile, D window) pairs of each split
+  const int64_t row_tiles = (N + rows - 1) / rows * (pass == kDh ? (D + kDW - 1) / kDW : 1);
   const int n_tiles = (V + kBT - 1) / kBT;
   int best = 1;
   int64_t best_cost = INT64_MAX;
@@ -1109,7 +1174,7 @@ bool design_ok(int design, int dtype) { return design == kFma || (design == kMma
 int run(Pass pass, int design, const Args& a, int dtype, void* stream) {
   const int n_tiles = (a.V + kBT - 1) / kBT;
   // every split holds at least one vocab tile, so each partial max is finite
-  if (a.N < 1 || a.V < 1 || a.D < 1 || a.D > kMaxD || a.splits > n_tiles ||
+  if (a.N < 1 || a.V < 1 || a.D < 1 || a.splits > n_tiles ||
       (int64_t)(a.splits - 1) * a.tiles_per_split >= n_tiles || a.splits > 65535 ||
       a.sh < a.D || a.sw < a.D || (dtype != 0 && dtype != 1) || !design_ok(design, dtype))
     return (int)cudaErrorInvalidValue;
@@ -1127,7 +1192,7 @@ extern "C" {
 // The vocab splits K6 (pass 0) or K7 (pass 1) takes for these sizes on the
 // current device in a design (see plan); a negative CUDA error on failure.
 int fused_ce_plan(int pass, int design, int dtype, int N, int V, int D) {
-  if (N < 1 || V < 1 || D < 1 || D > kMaxD || (pass != 0 && pass != 1) ||
+  if (N < 1 || V < 1 || D < 1 || (pass != 0 && pass != 1) ||
       (dtype != 0 && dtype != 1) || !design_ok(design, dtype))
     return -(int)cudaErrorInvalidValue;
   const Pass p = pass == 0 ? kFwd : kDh;

@@ -25,7 +25,12 @@ run on the tensor cores and fp32 on fp32 FMA kernels, by dtype
 (``VARIANT_LAUNCHES`` counts which design ran).  The tensor-core kernels
 move bf16 rows in 16-byte pieces, so they need 16-byte aligned base pointers
 and (b, h, s) strides that are multiples of 8 elements; the wrappers raise
-on anything else.
+on anything else.  The kernels are built for the head dims of
+``HEAD_DIMS``; :func:`flash_attention` runs any other head dim up to 256 on
+the card by zero-padding q, k and v to the next one
+(:func:`padded_flash_attention`: zero columns add nothing to q·k, and o,
+dq, dk and dv are sliced back), with the softmax scale of the real head
+dim.
 """
 from __future__ import annotations
 
@@ -42,7 +47,7 @@ register("flash_fwd", "flash_dq", "flash_dkv", variants=DESIGNS)
 register_copies("flash_do")
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernels' head dims; others are zero-padded
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _LIB: Optional[ctypes.CDLL] = None
@@ -242,7 +247,8 @@ def _check(q, k, v, valid, spec: FlashSpec, *, aligned: bool = False, **more) ->
     if hkv < 1 or h % hkv:
         raise ValueError(f"n_heads {h} not a multiple of kv heads {hkv}")
     if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} is not one of {HEAD_DIMS}")
+        raise ValueError(f"head dim {d} is not one of the kernels' {HEAD_DIMS} "
+                         "(flash_attention pads others up to 256)")
     if min(b, h, s, t) < 1 or max(b * h, s, t) >= 2**31:
         raise ValueError(f"sizes out of range: q {tuple(q.shape)}, k {tuple(k.shape)}")
     for name, x in (("q", q), ("k", k), ("v", v), *more.items()):
@@ -404,6 +410,30 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+def kernel_head_dim(d: int) -> int:
+    """The head dim of the kernels that run head dim ``d``: the smallest of
+    ``HEAD_DIMS`` at least ``d``.  Raises past the largest."""
+    for dk in HEAD_DIMS:
+        if d <= dk:
+            return dk
+    raise ValueError(f"head dim {d} is past the flash kernels' largest, {HEAD_DIMS[-1]}")
+
+
+def padded_flash_attention(q, k, v, valid, spec: FlashSpec, plain: bool = False
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(o, lse)`` of :class:`FlashAttention` with q, k and v zero-padded
+    from head dim D to :func:`kernel_head_dim` (D) and o sliced back to D;
+    autograd slices dq, dk and dv back the same way.  ``spec.scale`` is the
+    caller's (1/√D of the real D); lse is the unpadded call's, since zero
+    columns add nothing to q·k.  A head dim of the kernels passes through."""
+    d = q.shape[-1]
+    dk = kernel_head_dim(d)
+    if dk != d:
+        q, k, v = (torch.nn.functional.pad(x, (0, dk - d)) for x in (q, k, v))
+    o, lse = FlashAttention.apply(q, k, v, valid, spec, plain)
+    return (o if dk == d else o[..., :d]), lse
+
+
 def flash_attention(
     q: torch.Tensor,  # (B, H, S, D)
     k: torch.Tensor,  # (B, Hkv, T, D), Hkv dividing H
@@ -420,9 +450,11 @@ def flash_attention(
     Keys at positions ``>= kv_valid[b]`` are masked for every query row of
     example ``b`` (lengths clipped to [1, T]; None masks nothing and passes
     the kernels no lengths at all); ``scale`` defaults to 1/√D.
-    Any S and T: the kernels mask their own ragged tails.  ``plain=True``
-    runs the plain version on any device, the reference a kernel run is held
-    to on the card.
+    Any S and T: the kernels mask their own ragged tails.  Any head dim up
+    to 256: on the card one outside ``HEAD_DIMS`` runs padded
+    (:func:`padded_flash_attention`); the plain version takes it as it is.
+    ``plain=True`` runs the plain version on any device, the reference a
+    kernel run is held to on the card.
     """
     h, d = q.shape[1], q.shape[3]
     hkv, t = k.shape[1], k.shape[2]
@@ -434,5 +466,7 @@ def flash_attention(
         valid = torch.clamp(kv_valid.to(device=q.device, dtype=torch.int32), 1, t).contiguous()
     spec = FlashSpec(scale=float(scale), causal=bool(causal), window=int(window),
                      use_valid=valid is not None)
+    if _backend(q.device, plain) == "cuda":
+        return padded_flash_attention(q, k, v, valid, spec)[0]
     o, _ = FlashAttention.apply(q, k, v, valid, spec, plain)
     return o

@@ -1,7 +1,7 @@
 """Model API over the ported families (port of ``repro.models.api``).
 
 ``build_model(cfg)`` returns a :class:`Model` with the parameter
-definitions, ``init``/``apply``, the serving calls ``prefill``/``decode``
+definitions, ``init``/``apply`` (``(logits, aux)``, as the reference's), the serving calls ``prefill``/``decode``
 over a ``make_cache`` cache, and the optimizer metadata (weight-decay
 mask, trust-ratio mask, stacked-layer axes), all keyed by the JAX paths.
 """
@@ -32,31 +32,38 @@ class Model:
     def trust_mask(self) -> Dict[str, bool]:
         return nn.trust_ratio_mask(self.defs)
 
+    def unreachable(self) -> frozenset:
+        """Leaves the loss does not reach (zero gradient in the train step)."""
+        return transformer.unreachable_leaves(self.cfg)
+
     def layer_axes(self) -> Dict[str, int]:
         axes = nn.layer_axis_tree(self.defs)
         if self.cfg.lamb_granularity == "leaf":
             return {k: -1 for k in axes}
         return axes
 
-    def apply(self, params: nn.Params, batch, *, return_hidden: bool = False) -> torch.Tensor:
-        """Train/encoder forward: (B, S, V) logits in the activation dtype, or
-        with ``return_hidden`` the final hidden states (B, S, D) for the fused
-        CE head."""
+    def apply(self, params: nn.Params, batch, *, return_hidden: bool = False
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Train/encoder forward: ``(logits, aux)``, the (B, S, V) logits in
+        the activation dtype (with ``return_hidden`` the final hidden states
+        (B, S, D) for the fused CE head) and the MoE aux losses averaged over
+        the layers (empty for a dense model)."""
         return transformer.forward(params, batch, self.cfg, return_hidden=return_hidden)
 
     def prefill(self, params: nn.Params, batch, cache) -> Tuple[torch.Tensor, Any]:
         """(B, S, V) logits of the prompt, and ``cache`` filled in place with
-        its S positions.  Weights are cast to the activation dtype where they
+        its S positions (the aux losses are dropped, as in the reference).
+        Weights are cast to the activation dtype where they
         are used, as in the reference."""
-        logits = transformer.forward(params, batch, self.cfg, caches=cache, decode=False)
+        logits, _ = transformer.forward(params, batch, self.cfg, caches=cache, decode=False)
         return logits, cache
 
     def decode(self, params: nn.Params, batch, cache, positions: torch.Tensor
                ) -> Tuple[torch.Tensor, Any]:
         """(B, S, V) logits of ``batch["tokens"]`` at ``positions`` (B, S),
         each layer's k/v written into ``cache`` at its index, in place."""
-        logits = transformer.forward(params, batch, self.cfg, caches=cache, decode=True,
-                                     positions=positions)
+        logits, _ = transformer.forward(params, batch, self.cfg, caches=cache, decode=True,
+                                        positions=positions)
         return logits, cache
 
     def make_cache(self, batch: int, max_len: int, device) -> Dict[str, Any]:

@@ -1,11 +1,14 @@
 """Multi-head attention: MHA / GQA / MQA, causal / bidirectional / sliding
 window, with a fixed-size KV cache for prefill and decode.
 
-Port of ``repro.models.layers.attention``: projections, RoPE, then flash
-attention (kernels K3–K5 through ``kernels.ops.flash_sdpa``) when
-``cfg.use_flash_kernel``, else ``_sdpa`` under the additive ``_mask_bias``,
-and the output projection.  With a cache, prefill attends as above and
-fills ``cache[:, :S]``; decode writes its k/v at ``index`` and runs the
+Port of ``repro.models.layers.attention``: projections (plus the qkv
+biases where ``cfg.use_qkv_bias``), RoPE, then flash attention (kernels
+K3–K5 through ``kernels.ops.flash_sdpa``) when ``cfg.use_flash_kernel``,
+else ``_sdpa`` under the additive ``_mask_bias``, and the output
+projection.  A ``cfg.logit_softcap`` is applied in ``_sdpa`` only: the
+flash kernels take raw scores, so a config that sets both is refused when
+its model is built (``transformer._check_ported``).  With a cache, prefill
+attends as above and fills ``cache[:, :S]``; decode writes its k/v at ``index`` and runs the
 dense ``_sdpa`` over the whole cache under a length/window mask (never the
 flash kernel, as in the reference).
 
@@ -31,15 +34,19 @@ NEG_INF = -1e9
 
 
 def attention_defs(cfg: ModelConfig) -> dict:
-    if cfg.use_qkv_bias:
-        raise NotImplementedError("qkv bias is not ported (ROADMAP.md queue 1, item 10)")
     d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return {
+    defs = {
         "wq": Param((d, h, dh), ("embed", "heads", "head_dim")),
         "wk": Param((d, hkv, dh), ("embed", "kv_heads", "head_dim")),
         "wv": Param((d, hkv, dh), ("embed", "kv_heads", "head_dim")),
         "wo": Param((h, dh, d), ("heads", "head_dim", "embed")),
     }
+    if cfg.use_qkv_bias:
+        bias = dict(init="zeros", no_weight_decay=True, no_trust_ratio=True)
+        defs["bq"] = Param((h, dh), ("heads", "head_dim"), **bias)
+        defs["bk"] = Param((hkv, dh), ("kv_heads", "head_dim"), **bias)
+        defs["bv"] = Param((hkv, dh), ("kv_heads", "head_dim"), **bias)
+    return defs
 
 
 def _mask_bias(
@@ -72,9 +79,11 @@ def _sdpa(
     v: torch.Tensor,  # (B, T, Hkv, Dh)
     bias: torch.Tensor,  # (B, 1, S, T)
     n_kv_heads: int,
+    softcap: Optional[float] = None,
 ) -> torch.Tensor:
     """Dense attention: scores in q's dtype scaled by 1/sqrt(Dh) (taken in
-    q's dtype), fp32 softmax over the biased scores, probs cast back."""
+    q's dtype), in fp32 capped to ``softcap · tanh(s / softcap)`` where
+    given, fp32 softmax over the biased scores, probs cast back."""
     b, s, h, dh = q.shape
     g = h // n_kv_heads
     qg = q.reshape(b, s, n_kv_heads, g, dh).permute(0, 2, 3, 1, 4)  # b n g s d
@@ -83,7 +92,10 @@ def _sdpa(
     # a host scalar: a tensor copied to the card would block the host
     scale = float(torch.tensor(math.sqrt(dh), dtype=torch.float32).to(q.dtype))
     scores = (qg @ kt) / scale
-    scores = scores.to(torch.float32) + bias[:, :, None]
+    scores = scores.to(torch.float32)
+    if softcap is not None:
+        scores = softcap * torch.tanh(scores / softcap)
+    scores = scores + bias[:, :, None]
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = probs @ vt                                                 # b n g s d
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh)
@@ -146,6 +158,10 @@ def attention(
         return (x @ w.to(dtype).reshape(d, heads * dh)).view(b, s, heads, dh)
 
     q, k, v = proj(p["wq"], h), proj(p["wk"], hkv), proj(p["wv"], hkv)
+    if cfg.use_qkv_bias:
+        q = q + p["bq"].to(dtype)
+        k = k + p["bk"].to(dtype)
+        v = v + p["bv"].to(dtype)
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -153,7 +169,7 @@ def attention(
         valid = _write_decode(cache, k, v)
         kv_pos = torch.arange(cache["k"].shape[1], dtype=torch.int32, device=x.device)
         bias = _mask_bias(positions, kv_pos, valid, causal=True, window=cfg.sliding_window)
-        out = _sdpa(q, cache["k"], cache["v"], bias, hkv)
+        out = _sdpa(q, cache["k"], cache["v"], bias, hkv, cfg.logit_softcap)
     else:
         if valid_len is not None:
             valid_len = torch.clamp(valid_len.to(torch.int32), min=1)
@@ -164,7 +180,7 @@ def attention(
             kv_pos = torch.arange(s, dtype=torch.int32, device=x.device)
             bias = _mask_bias(positions, kv_pos, valid_len, causal=cfg.causal,
                               window=cfg.sliding_window)
-            out = _sdpa(q, k, v, bias, hkv)
+            out = _sdpa(q, k, v, bias, hkv, cfg.logit_softcap)
         if cache is not None:  # prefill: fill cache[:, :s]
             cache["k"][:, :s].copy_(k)
             cache["v"][:, :s].copy_(v)

@@ -1,4 +1,5 @@
-"""Token embeddings, the tied output head and rotary position embeddings."""
+"""Token embeddings, output heads (tied and untied) and rotary position
+embeddings."""
 from __future__ import annotations
 
 from typing import Optional
@@ -13,8 +14,17 @@ def embed_defs(vocab_size: int, d_model: int) -> Param:
     return Param((vocab_size, d_model), ("vocab", "embed"), init="embed", scale=0.02)
 
 
+def unembed_defs(d_model: int, vocab_size: int) -> Param:
+    return Param((d_model, vocab_size), ("embed", "vocab"), init="fan_in")
+
+
 def embed(table: torch.Tensor, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return F.embedding(tokens.long(), table.to(dtype))
+
+
+def unembed(x: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsd,dv->bsv")`` against the (D, V) untied head."""
+    return x @ proj.to(x.dtype)
 
 
 def tied_unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

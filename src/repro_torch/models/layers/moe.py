@@ -1,0 +1,128 @@
+"""Mixture-of-Experts layer: top-k routing with static capacity (port of
+``repro.models.layers.moe``).
+
+Routing is the reference's: a softmax router in fp32, top-k, gates
+renormalised over the selected experts, the Switch-style load-balance
+auxiliary loss and, with ``cfg.router_z_coef``, the router z-loss; an
+optional shared expert every token passes through.
+
+Dispatch is the reference's scatter/gather: each (token, slot) assignment,
+in token-major then slot order, is ranked within its expert by the
+exclusive cumsum of the one-hot assignments, and kept if its rank is below
+the capacity C, so the same pairs are dropped past capacity.  JAX's
+``buf.at[dest].set(mode="drop")`` and ``.get(mode="fill")`` become an index
+write into an ``(E·C + 1, d)`` buffer whose last row is a sink for the
+dropped assignments, sliced off before the experts run, and a gather from
+the experts' output with a zero row appended in the sink's place.  Nothing
+here reads a device value on the host.  The expert products are batched
+``torch.bmm`` over the ``(E, C, d)`` buffer (no kernel of the repo covers
+MoE; the JAX package leaves them to XLA's einsums).  The layer is three
+steps, :func:`dispatch`, :func:`experts` and :func:`combine`, each a
+function of its own so that each can be timed on its own.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers.mlp import _ACTS, mlp, mlp_defs
+from repro_torch.nn.module import Param
+
+
+def moe_defs(cfg: ModelConfig) -> dict:
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    defs = {
+        "router": Param((d, e), ("embed", "experts"), init="fan_in"),
+        "wi": Param((e, d, f), ("experts", "embed", "expert_ff")),
+        "wg": Param((e, d, f), ("experts", "embed", "expert_ff")),
+        "wo": Param((e, f, d), ("experts", "expert_ff", "embed")),
+    }
+    if cfg.n_shared_experts:
+        defs["shared"] = mlp_defs(d, cfg.n_shared_experts * f, True, cfg.act_fn)
+    return defs
+
+
+def capacity(n_tokens: int, cfg: ModelConfig) -> int:
+    """Static per-expert capacity: int(cf · T · k / E), at least k."""
+    c = int(cfg.capacity_factor * n_tokens * cfg.n_experts_per_tok / cfg.n_experts)
+    return max(c, cfg.n_experts_per_tok)
+
+
+def route(logits: torch.Tensor, cfg: ModelConfig
+          ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+    """Top-k gates (T, k), expert ids (T, k) and the aux losses, from fp32
+    router logits (T, E)."""
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = torch.topk(probs, cfg.n_experts_per_tok, dim=-1)
+    gates = gates / gates.sum(-1, keepdim=True)
+
+    # Switch-Transformer load-balance loss: E · <f_e · p_e>
+    e = cfg.n_experts
+    me = probs.mean(0)                                        # (E,) mean router prob
+    fe = F.one_hot(idx[:, 0], e).to(torch.float32).mean(0)    # top-1 fraction
+    aux = {"moe_lb_loss": e * (fe * me).sum(), "moe_max_prob": me.max()}
+    if cfg.router_z_coef:
+        aux["moe_z_loss"] = (torch.logsumexp(logits, dim=-1) ** 2).mean()
+    return gates, idx, aux
+
+
+def dispatch(p: Dict[str, torch.Tensor], xf: torch.Tensor, cfg: ModelConfig):
+    """Route the tokens xf (T, d) and scatter each kept (token, slot) into
+    its expert's rows: ``(buf (E, C, d), dest (T·k,), gates (T, k), keep
+    (T·k,), aux)``; ``dest`` is E·C (the sink) for a dropped assignment."""
+    t, d = xf.shape
+    k, e = cfg.n_experts_per_tok, cfg.n_experts
+    c = capacity(t, cfg)
+    logits = xf.to(torch.float32) @ p["router"].to(torch.float32)
+    gates, idx, aux = route(logits, cfg)
+
+    # rank of each (token, slot) within its expert, in flat assignment order:
+    # the exclusive running count of its expert's hits, scanned along the
+    # last dim of the (E, T·k) hits (a scan down the T·k rows of a (T·k, E)
+    # one-hot runs one thread per expert on the card, milliseconds a layer)
+    flat_e = idx.reshape(-1)                                       # (T·k,)
+    hits = (torch.arange(e, device=xf.device)[:, None] == flat_e[None, :]).to(torch.int32)
+    pos = (torch.cumsum(hits, 1, dtype=torch.int32) - hits).gather(0, flat_e[None, :])[0]
+    keep = pos < c
+    dest = torch.where(keep, flat_e * c + pos, e * c)              # the sink row: dropped
+
+    token_id = torch.arange(t, device=xf.device).repeat_interleave(k)
+    buf = xf.new_zeros((e * c + 1, d)).index_put((dest,), xf[token_id])
+    return buf[: e * c].view(e, c, d), dest, gates, keep, aux
+
+
+def experts(p: Dict[str, torch.Tensor], buf: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The gated expert MLPs over their (E, C, d) rows: ``(E·C, d)``."""
+    e, c, d = buf.shape
+    act = _ACTS[cfg.act_fn]
+    hi = torch.bmm(buf, p["wi"].to(buf.dtype))
+    hg = torch.bmm(buf, p["wg"].to(buf.dtype))
+    return torch.bmm(act(hg) * hi, p["wo"].to(buf.dtype)).reshape(e * c, d)
+
+
+def combine(y: torch.Tensor, dest: torch.Tensor, gates: torch.Tensor, k: int) -> torch.Tensor:
+    """Each slot's expert output gathered back (the sink reads a zero row),
+    weighted by its gate and summed over the k slots: ``(T, d)``."""
+    d = y.shape[1]
+    yk = torch.cat([y, y.new_zeros((1, d))])[dest]
+    return (yk * gates.reshape(-1, 1).to(y.dtype)).reshape(-1, k, d).sum(1)
+
+
+def moe(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig
+        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x (B, S, d) → (B, S, d) and the aux dict (``moe_lb_loss``,
+    ``moe_max_prob``, ``moe_drop_fraction``, ``moe_z_loss`` when set)."""
+    b, s, d = x.shape
+    xf = x.reshape(b * s, d)
+    buf, dest, gates, keep, aux = dispatch(p, xf, cfg)
+    out = combine(experts(p, buf, cfg), dest, gates, cfg.n_experts_per_tok)
+    aux["moe_drop_fraction"] = 1.0 - keep.to(torch.float32).mean()
+
+    if "shared/wi" in p:
+        shared = {n[len("shared/"):]: v for n, v in p.items() if n.startswith("shared/")}
+        out = out + mlp(shared, xf[:, None, :], cfg).reshape(b * s, d)
+
+    return out.reshape(b, s, d).to(x.dtype), aux

@@ -1,5 +1,6 @@
-"""Dense transformer: train/encoder forward, prefill and decode over a stacked
-KV cache (port of ``repro.models.transformer``).
+"""Unified transformer: dense / GQA / MQA / MoE, with the vision and audio
+stub frontends; train/encoder forward, prefill and decode over a stacked KV
+cache (port of ``repro.models.transformer``).
 
 The JAX package ``lax.scan``s a block over stacked ``(layers, ...)`` leaves;
 here the stack is split once per forward with ``torch.unbind`` (whose
@@ -20,13 +21,20 @@ Caches are the reference's ``_stacked_cache``: ``{"main": {"k", "v",
 index ((n_layers, B) in the serving slot pool); layer i reads and writes
 its slice ``cache[i]`` in place.
 
-Only the dense family is ported: MoE, MLA, dense prefixes, untied heads,
-MTP, logit softcaps and modality frontends raise (ROADMAP.md queue 1,
-item 10).
+A block's MLP is the MoE layer when ``cfg.n_experts`` (every block: the
+reference has no dense interleave outside DeepSeek's prefix); each MoE block
+returns its aux losses and :func:`forward` averages every entry over the
+layers, as the reference's ``jnp.mean`` over the scanned stack.  The head is
+the tied embedding or an untied ``unembed`` (D, V), with the final logits
+soft-capped where ``cfg.logit_softcap``.  The ``audio_stub`` frontend takes
+``frame_embeds`` (frames under ``mask`` replaced by the learned
+``mask_embed``), the ``vision_stub`` one prepends ``image_embeds`` to the
+token embeddings.  Still unported, and raising (ROADMAP.md queue 1, item
+10): MLA, a dense prefix, MTP, and the ``hybrid`` and ``ssm`` families.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -34,21 +42,31 @@ import torch.utils.checkpoint
 from repro_torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers.attention import attention, attention_defs, init_kv_cache
-from repro_torch.models.layers.embeddings import embed, embed_defs, tied_unembed
+from repro_torch.models.layers.embeddings import (
+    embed,
+    embed_defs,
+    tied_unembed,
+    unembed,
+    unembed_defs,
+)
 from repro_torch.models.layers.mlp import mlp, mlp_defs
+from repro_torch.models.layers.moe import moe, moe_defs
 from repro_torch.models.layers.norms import apply_norm, norm_defs
 
 _UNPORTED = {
-    "n_experts": "MoE",
     "use_mla": "MLA",
     "n_dense_layers": "dense prefix blocks",
     "use_mtp": "MTP",
-    "logit_softcap": "logit softcap",
 }
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.use_flash_kernel and cfg.logit_softcap is not None:
+        raise ValueError(
+            "use_flash_kernel cannot apply logit_softcap (the flash kernels "
+            "take raw scores); disable one of the two"
+        )
+    if cfg.family in ("hybrid", "ssm"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported (ROADMAP.md queue 1, item 10)"
         )
@@ -57,31 +75,43 @@ def _check_ported(cfg: ModelConfig) -> None:
             raise NotImplementedError(
                 f"{what} is not ported (ROADMAP.md queue 1, item 10)"
             )
-    if not cfg.tie_embeddings:
-        raise NotImplementedError("untied output heads are not ported "
-                                  "(ROADMAP.md queue 1, item 10)")
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"frontend {cfg.frontend!r} is not ported "
-                                  "(ROADMAP.md queue 1, item 10)")
 
 
-def _block_defs(cfg: ModelConfig) -> dict:
+def _block_defs(cfg: ModelConfig, *, is_moe: bool) -> dict:
     d = cfg.d_model
-    return {
+    block = {
         "ln1": norm_defs(d, cfg.norm_type),
         "ln2": norm_defs(d, cfg.norm_type),
         "attn": attention_defs(cfg),
-        "mlp": mlp_defs(d, cfg.d_ff, cfg.gated_mlp, cfg.act_fn),
     }
+    if is_moe:
+        block["moe"] = moe_defs(cfg)
+    else:
+        block["mlp"] = mlp_defs(d, cfg.d_ff, cfg.gated_mlp, cfg.act_fn)
+    return block
 
 
 def transformer_defs(cfg: ModelConfig) -> dict:
     _check_ported(cfg)
-    return {
+    defs: Dict[str, Any] = {
         "embed": embed_defs(cfg.vocab_size, cfg.d_model),
-        "blocks": nn.stack(_block_defs(cfg), cfg.n_layers),
+        "blocks": nn.stack(_block_defs(cfg, is_moe=cfg.n_experts > 0), cfg.n_layers),
         "final_norm": norm_defs(cfg.d_model, cfg.norm_type),
     }
+    if not cfg.tie_embeddings:
+        defs["unembed"] = unembed_defs(cfg.d_model, cfg.vocab_size)
+    if cfg.frontend == "audio_stub" and cfg.mask_ratio > 0:
+        defs["mask_embed"] = nn.Param((cfg.d_model,), ("embed",), init="normal", scale=0.02)
+    return defs
+
+
+def unreachable_leaves(cfg: ModelConfig) -> frozenset:
+    """The leaves no loss reaches: the token embedding of an ``audio_stub``
+    model with an untied head (its inputs are frame embeddings).  The train
+    step gives them a zero gradient, as ``jax.grad`` does."""
+    if cfg.frontend == "audio_stub" and not cfg.tie_embeddings:
+        return frozenset({"embed"})
+    return frozenset()
 
 
 def _sub(params: Dict[str, Any], prefix: str) -> Dict[str, Any]:
@@ -99,12 +129,30 @@ def _one_block(
     cache: Optional[Dict[str, torch.Tensor]] = None,
     decode: bool = False,
     valid_len: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     h = apply_norm(_sub(bp, "ln1"), x, cfg.norm_type)
     x = x + attention(_sub(bp, "attn"), h, positions, cfg, cache=cache, decode=decode,
                       valid_len=valid_len)
     h = apply_norm(_sub(bp, "ln2"), x, cfg.norm_type)
-    return x + mlp(_sub(bp, "mlp"), h, cfg)
+    if "moe/router" in bp:
+        ff_out, aux = moe(_sub(bp, "moe"), h, cfg)
+        return x + ff_out, aux
+    return x + mlp(_sub(bp, "mlp"), h, cfg), {}
+
+
+def _embed_inputs(params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
+                  cfg: ModelConfig, dtype: torch.dtype) -> torch.Tensor:
+    """Token or prefix-embedding entry, per modality frontend."""
+    if cfg.frontend == "audio_stub":
+        x = batch["frame_embeds"].to(dtype)
+        if cfg.mask_ratio > 0 and "mask" in batch:
+            x = torch.where(batch["mask"][..., None], params["mask_embed"].to(dtype), x)
+        return x
+    x = embed(params["embed"], batch["tokens"], dtype)
+    if cfg.frontend == "vision_stub" and "image_embeds" in batch:
+        # decode steps carry no image prefix (it already lives in the cache)
+        x = torch.cat([batch["image_embeds"].to(dtype), x], dim=1)
+    return x
 
 
 def forward(
@@ -116,8 +164,9 @@ def forward(
     decode: bool = False,
     positions: Optional[torch.Tensor] = None,
     return_hidden: bool = False,
-) -> torch.Tensor:
-    """(B, S, V) logits of the tied head.
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``(logits, aux)``: (B, S, V) logits of the output head and the MoE
+    aux losses averaged over the layers (empty for a dense model).
 
     With ``caches`` (from :func:`make_cache`), prefill (``decode=False``)
     fills them and decode writes each layer's k/v at its index, in place;
@@ -128,7 +177,7 @@ def forward(
     positions (``train/loss.py``).
     """
     dtype = nn.torch_dtype(cfg.activation_dtype)
-    x = embed(params["embed"], batch["tokens"], dtype)
+    x = _embed_inputs(params, batch, cfg, dtype)
     b, s = x.shape[:2]
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
@@ -136,22 +185,31 @@ def forward(
     main = None if caches is None else caches["main"]
 
     stacked = {k: torch.unbind(v, 0) for k, v in _sub(params, "blocks").items()}
+    auxs = []
     for i in range(cfg.n_layers):
         bp = {k: v[i] for k, v in stacked.items()}
         cache = None if main is None else {k: v[i] for k, v in main.items()}
         if cfg.remat == "full" and cache is None:
             # the block draws no random numbers: no RNG state to stash
-            x = torch.utils.checkpoint.checkpoint(
+            x, aux = torch.utils.checkpoint.checkpoint(
                 _one_block, bp, x, positions, cfg, valid_len=valid_len,
                 use_reentrant=False, preserve_rng_state=False)
         else:
-            x = _one_block(bp, x, positions, cfg, cache=cache, decode=decode,
-                           valid_len=valid_len)
+            x, aux = _one_block(bp, x, positions, cfg, cache=cache, decode=decode,
+                                valid_len=valid_len)
+        auxs.append(aux)
+    aux = {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
 
     x = apply_norm(_sub(params, "final_norm"), x, cfg.norm_type)
     if return_hidden:
-        return x
-    return tied_unembed(x, params["embed"])
+        return x, aux
+    if cfg.tie_embeddings:
+        logits = tied_unembed(x, params["embed"])
+    else:
+        logits = unembed(x, params["unembed"])
+    if cfg.logit_softcap:
+        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    return logits, aux
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=torch.bfloat16,

@@ -1,4 +1,5 @@
-"""Masked-LM / causal-LM loss (port of ``repro.train.loss``).
+"""Causal-LM / masked-LM loss with the MoE aux terms, and the masked-
+prediction loss of the audio stub (port of ``repro.train.loss``).
 
 Two head paths share the loss:
 
@@ -122,8 +123,12 @@ def _gathered_cross_entropy(hidden, labels, w, p: int) -> Tuple[torch.Tensor, to
 
 def head_weights(params, cfg: ModelConfig) -> torch.Tensor:
     """The vocab projection in (V, D) embedding layout for the fused head:
-    the tied embedding (untied heads are not ported; the model refuses them)."""
-    return params["embed"]
+    the tied embedding, or the untied (D, V) ``unembed`` transposed into
+    a contiguous copy (the kernels read w by rows; the reference's ``.T``
+    is a copy under XLA too)."""
+    if cfg.tie_embeddings:
+        return params["embed"]
+    return params["unembed"].t().contiguous()
 
 
 def check_fused_ce_supported(cfg: ModelConfig) -> None:
@@ -173,12 +178,15 @@ def supervised_token_count(labels: torch.Tensor) -> torch.Tensor:
 def lm_loss(
     logits: Optional[torch.Tensor],
     batch: Dict[str, torch.Tensor],
+    aux: Dict[str, torch.Tensor],
     cfg: ModelConfig,
     *,
     params=None,
     hidden: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """CE over ``batch["labels"]`` (aligned with the model's positions).
+    """Next-token CE over ``batch["labels"]`` (aligned with the model's
+    positions) plus the MoE aux losses: ``router_aux_coef · moe_lb_loss``
+    and, where the model reports it, ``router_z_coef · moe_z_loss``.
 
     With ``hidden`` given (fused head), the CE runs gather + chunked-vocab CE
     on the final hidden states against ``params``' vocab projection instead
@@ -186,18 +194,46 @@ def lm_loss(
     """
     labels = batch["labels"]
     ce, acc = _masked_ce(logits, hidden, labels, cfg, params)
-    metrics = {
-        "loss/ce": ce,
-        "accuracy": acc,
-        "loss/total": ce,
+    total = ce
+    metrics = {"loss/ce": ce, "accuracy": acc}
+    if "moe_lb_loss" in aux:
+        lb = aux["moe_lb_loss"]
+        total = total + cfg.router_aux_coef * lb
+        metrics["loss/moe_lb"] = lb
+        metrics["moe/drop_fraction"] = aux.get("moe_drop_fraction",
+                                               torch.zeros((), device=ce.device))
+    if "moe_z_loss" in aux:
+        total = total + cfg.router_z_coef * aux["moe_z_loss"]
+        metrics["loss/moe_z"] = aux["moe_z_loss"]
+    metrics["loss/total"] = total
+    metrics["tokens/supervised"] = supervised_token_count(labels)
+    return total, metrics
+
+
+def masked_prediction_loss(
+    logits: Optional[torch.Tensor],
+    batch: Dict[str, torch.Tensor],
+    aux: Dict[str, torch.Tensor],
+    cfg: ModelConfig,
+    *,
+    params=None,
+    hidden: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """HuBERT-style: CE on the masked frames only (targets: cluster ids).
+
+    The fused path (``hidden``) needs ``cfg.mlm_max_predictions`` sized for
+    the masking distribution: the span masks are Bernoulli, so a row's count
+    is not bounded by ``ceil(mask_ratio · S)``.
+    """
+    labels = torch.where(batch["mask"], batch["labels"], IGNORE)
+    ce, acc = _masked_ce(logits, hidden, labels, cfg, params)
+    return ce, {
+        "loss/ce": ce, "accuracy": acc, "loss/total": ce,
         "tokens/supervised": supervised_token_count(labels),
     }
-    return ce, metrics
 
 
 def loss_for(cfg: ModelConfig):
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            "the masked-prediction loss is not ported (ROADMAP.md queue 1, item 10)"
-        )
+    if cfg.frontend == "audio_stub":
+        return masked_prediction_loss
     return lm_loss

@@ -157,7 +157,8 @@ def make_loss_fn(model: Model) -> Callable:
     instead of (B, S, V) logits and the loss runs the fused MLM head (gather
     the supervised positions, then chunked-vocab CE, kernels K6–K8), so the
     logits tensor never exists.  Its vocab projection is ``params``' own: in
-    a train step, the compute-dtype copy the forward ran on.
+    a train step, the compute-dtype copy the forward ran on.  The model's
+    aux (the MoE losses) reaches the loss on both paths.
     """
     cfg = model.cfg
     if cfg.use_fused_ce_head:
@@ -166,16 +167,17 @@ def make_loss_fn(model: Model) -> Callable:
 
     def loss_fn(params, batch):
         if cfg.use_fused_ce_head:
-            hidden = model.apply(params, batch, return_hidden=True)
-            return loss_impl(None, batch, cfg, params=params, hidden=hidden)
-        logits = model.apply(params, batch)
-        return loss_impl(logits, batch, cfg)
+            hidden, aux = model.apply(params, batch, return_hidden=True)
+            return loss_impl(None, batch, aux, cfg, params=params, hidden=hidden)
+        logits, aux = model.apply(params, batch)
+        return loss_impl(logits, batch, aux, cfg, params=params)
 
     return loss_fn
 
 
 def _microbatch_grads(
-    loss_fn: Callable, params: nn.Params, batch: Dict[str, torch.Tensor], n_micro: int
+    loss_fn: Callable, params: nn.Params, batch: Dict[str, torch.Tensor], n_micro: int,
+    unreachable: frozenset = frozenset(),
 ) -> Tuple[nn.Params, Metrics]:
     """Token-weighted sequential accumulation over ``n_micro`` slices.
 
@@ -184,7 +186,8 @@ def _microbatch_grads(
     (uniform weights when the loss reports none).  Metrics are averaged with
     the same weights, except ``tokens/supervised``, which is summed.
     ``params`` are the leaves the gradient is taken against (the
-    compute-dtype copy).
+    compute-dtype copy); the ``unreachable`` ones, which the model declares
+    the loss does not reach, get a zero gradient, as under ``jax.grad``.
     """
     for x in batch.values():
         if x.shape[0] % n_micro:
@@ -192,15 +195,20 @@ def _microbatch_grads(
                 f"global batch {x.shape[0]} is not divisible by "
                 f"accum_steps {n_micro}; remainder examples would be dropped"
             )
-    keys = list(params)
+    keys = [k for k in params if k not in unreachable]
     leaves: List[torch.Tensor] = [params[k] for k in keys]
 
     def one(i):
         mb = {k: x.narrow(0, i * (x.shape[0] // n_micro), x.shape[0] // n_micro)
               for k, x in batch.items()}
         loss, metrics = loss_fn(params, mb)
+        # an untied head's gradient comes back transposed from the fused CE
+        # head and is laid out again
         grads = torch.autograd.grad(loss, leaves)
-        g = {k: t.to(torch.float32) for k, t in zip(keys, grads)}
+        g = {k: t.to(torch.float32).contiguous() for k, t in zip(keys, grads)}
+        g.update({k: torch.zeros(params[k].shape, dtype=torch.float32,
+                                 device=params[k].device) for k in unreachable})
+        g = {k: g[k] for k in params}
         metrics = {k: t.detach() for k, t in metrics.items()}
         w = metrics.get(TOKEN_WEIGHT_KEY)
         if w is None:
@@ -257,6 +265,7 @@ def make_train_step(model: Model, tc: TrainConfig, schedule=None, *,
     compute_dtype = tc.compute_dtype
     guard = tc.skip_nonfinite
     layer_axes = model.layer_axes()
+    unreachable = model.unreachable()
 
     def grads_and_metrics(params, batch):
         batch, faults = split_faults(batch)
@@ -265,7 +274,7 @@ def make_train_step(model: Model, tc: TrainConfig, schedule=None, *,
         with torch.no_grad():
             cast = params if compute_dtype is None else nn.cast_tree(params, compute_dtype)
         cast = {k: v.detach().requires_grad_(True) for k, v in cast.items()}
-        grads, metrics = _microbatch_grads(loss_fn, cast, batch, n_micro)
+        grads, metrics = _microbatch_grads(loss_fn, cast, batch, n_micro, unreachable)
         del cast
         grads = apply_grad_faults(grads, faults)
         metrics = apply_loss_faults(metrics, faults)

@@ -54,9 +54,11 @@ from repro_torch.train.preempt import PreemptionHandler
 from repro_torch.train.step import GUARD_KEY, LOSS_KEY, TRUST_KEYS, TrainState, make_train_step
 from repro_torch.train.supervisor import DivergenceError, SupervisorConfig, TrainingSupervisor
 
-# the per-step metrics the history keeps, fetched together at a log step
+# the per-step metrics the history keeps, fetched together at a log step,
+# and the MoE loss's, kept where the loss reports them
 HISTORY_KEYS = ("loss/total", "loss/ce", "accuracy", "tokens/supervised",
                 "grad_norm", "update_norm")
+MOE_KEYS = ("loss/moe_lb", "moe/drop_fraction", "loss/moe_z")
 
 
 def _batch_examples(batch) -> int:
@@ -263,7 +265,8 @@ class Trainer:
         """One history row and the host copy of the per-layer records (None
         without telemetry or records), in one transfer, so ``wall_s``
         counts finished work."""
-        keys = (HISTORY_KEYS + ((GUARD_KEY,) if self.tc.skip_nonfinite else ())
+        keys = (HISTORY_KEYS + tuple(k for k in MOE_KEYS if k in metrics)
+                + ((GUARD_KEY,) if self.tc.skip_nonfinite else ())
                 + (TRUST_KEYS if self.tc.log_trust_ratios else ()))
         records = metrics.get(PER_LAYER_KEY) if self.telemetry.enabled else None
         leaves = tree_leaves_with_paths(records) if records is not None else []
@@ -379,7 +382,8 @@ class Trainer:
                             count=skipped_now - self._skipped_seen, total=skipped_now)
                     self._skipped_seen = skipped_now
                 self.log(f"step {m['step']:6d} loss {m['loss/total']:.4f} "
-                         f"acc {m['accuracy']:.4f}")
+                         f"acc {m['accuracy']:.4f}"
+                         + "".join(f" {k} {m[k]:.4f}" for k in MOE_KEYS if k in m))
                 if telem:
                     self._log_step(m, per_layer, step_s, since_log)
                 since_log = 0

@@ -180,6 +180,54 @@ def test_flash_kernels_match_plain_on_card(cuda, b, h, hkv, s, t, d, causal, win
     torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-5)
 
 
+# (b, h, hkv, s, d, causal): head dims outside the kernels' own (zero-padded
+# to 64 and 128 by the wrapper) and D 256, causal and bidirectional, GQA
+FLASH_WIDTH_CASES = [
+    (2, 4, 2, 200, 40, True),
+    (2, 4, 4, 128, 40, False),
+    (2, 4, 2, 160, 80, True),
+    (1, 4, 4, 128, 80, False),
+    (1, 8, 1, 256, 256, True),
+    (2, 4, 2, 128, 256, False),
+]
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,causal", FLASH_WIDTH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_any_head_dim_matches_plain_on_card(cuda, b, h, hkv, s, d, causal, dtype):
+    """``flash_attention`` at head dim 40, 80 and 256 launches K3–K5 once
+    each (bf16 on the tensor cores) and gives o, dq, dk and dv held to the
+    plain version as ``_close`` holds them: the forward on the same (padded)
+    q, k, v, the backward on the kernel's residuals; o is the padded
+    kernel call's, sliced."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel_head_dim
+
+    q, k, v, do, _ = _flash_inputs(b, h, hkv, s, s, d, False, dtype, cuda, seed=6)
+    qkv = [x.clone().requires_grad_() for x in (q, k, v)]
+    reset_launches()
+    o = flash_attention(*qkv, causal=causal)
+    grads = torch.autograd.grad(o, qkv, do)
+    torch.cuda.synchronize()
+    launched = {n: LAUNCHES[n] for n in ("flash_fwd", "flash_dq", "flash_dkv")}
+    assert set(launched.values()) == {1}, launched
+    assert {n: VARIANT_LAUNCHES[n]["mma"] for n in launched} == dict.fromkeys(
+        launched, int(dtype == torch.bfloat16))
+    assert o.shape == q.shape and [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+    pad = lambda x: F.pad(x, (0, kernel_head_dim(d) - d))   # noqa: E731
+    spec = FlashSpec(d**-0.5, causal, 0, False)
+    o_k, lse = flash_attention_fwd(pad(q), pad(k), pad(v), None, spec)
+    o_r, lse_r = flash_attention_fwd(pad(q), pad(k), pad(v), None, spec, plain=True)
+    assert torch.equal(o, o_k[..., :d])
+    refs = (o_r, *flash_attention_bwd(pad(q), pad(k), pad(v), None, o_k, lse, pad(do), spec,
+                                      plain=True))
+    for a, ref in zip((o, *grads), refs):
+        assert torch.isfinite(a).all()
+        _close(a, ref[..., :d], dtype)
+    torch.testing.assert_close(lse, lse_r, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("b,h,hkv,s", [(2, 4, 2, 96), (1, 15, 5, 128), (1, 15, 5, 100)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_reads_model_layout_through_strides(cuda, dtype, b, h, hkv, s):
@@ -276,6 +324,12 @@ CE_CASES = [
     (33, 128, 1000, torch.bfloat16),
     (256, 1024, 4099, torch.float32),
     (50, 48, 777, torch.float32),
+    # D past one 1024-column window: hubert-xlarge's 1280, paligemma-3b's
+    # 2048, and a ragged last window
+    (97, 1280, 3001, torch.bfloat16),
+    (200, 2048, 5003, torch.bfloat16),
+    (97, 2048, 3001, torch.float32),
+    (64, 2056, 300, torch.bfloat16),
 ]
 
 
@@ -355,8 +409,8 @@ def test_fused_ce_wrappers_reject_what_they_cannot_take(cuda):
 
     h, w, lbl, g = _ce_inputs(16, 64, 100, torch.float32, cuda)
     lse = fused_ce_fwd(h, w, lbl)[2]
-    with pytest.raises(ValueError, match="at most"):
-        fused_ce_fwd(torch.zeros((4, 1040), device=cuda), torch.zeros((8, 1040), device=cuda),
+    with pytest.raises(ValueError, match="out of range"):
+        fused_ce_fwd(torch.zeros((4, 0), device=cuda), torch.zeros((8, 0), device=cuda),
                      lbl[:4])
     with pytest.raises(TypeError, match="differs"):
         fused_ce_fwd(h, w.bfloat16(), lbl)

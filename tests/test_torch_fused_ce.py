@@ -465,7 +465,7 @@ def test_fused_ce_unsupported_configs_raise():
         loss.check_fused_ce_supported(audio)
     loss.check_fused_ce_supported(audio.replace(mlm_max_predictions=32))
     with pytest.raises(ValueError, match="needs params"):
-        loss.lm_loss(None, {"labels": torch.zeros((1, 4), dtype=torch.int32)}, cfg,
+        loss.lm_loss(None, {"labels": torch.zeros((1, 4), dtype=torch.int32)}, {}, cfg,
                      hidden=torch.zeros((1, 4, 128)))
 
 

@@ -48,8 +48,9 @@ def test_configs_equal_jax_copies(make):
 
 
 def test_unported_archs_and_kernels_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("granite-20b")
+    for arch in ("deepseek-v3-671b", "jamba-1.5-large-398b", "xlstm-350m"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_config(arch)
     assert build_model(bert_large.smoke().replace(use_fused_ce_head=False)).cfg.use_flash_kernel
     # the fused CE head (K6–K8) is ported: bert-smoke builds with it on and
     # its forward returns the final hidden states for the head
@@ -57,12 +58,22 @@ def test_unported_archs_and_kernels_raise():
     assert model.cfg.use_fused_ce_head
     batch = {k: torch.from_numpy(v) for k, v in
              next(jax_synthetic.batch_iterator(jax_bert.smoke(), 2, 16, seed=0)).items()}
-    assert model.apply(model.init(0, "cpu"), batch, return_hidden=True).shape == (2, 16, 128)
-    # RMSNorm, the gated MLP and SiLU are ported (tests/test_torch_serve.py)
-    for field in (dict(n_experts=4), dict(tie_embeddings=False), dict(use_mla=True),
-                  dict(act_fn="swish")):
+    hidden, aux = model.apply(model.init(0, "cpu"), batch, return_hidden=True)
+    assert hidden.shape == (2, 16, 128) and aux == {}
+    # RMSNorm, the gated MLP and SiLU are ported (tests/test_torch_serve.py);
+    # deepseek-v3's MLA, dense prefix and MTP and the hybrid and recurrent
+    # families are not
+    for field in (dict(use_mla=True), dict(n_dense_layers=1), dict(use_mtp=True),
+                  dict(family="hybrid"), dict(family="ssm"), dict(act_fn="swish")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(bert_large.smoke().replace(**OFF, **field))
+    # granite-20b, the MoE layer, untied heads and the two frontends build
+    # (tests/test_torch_zoo.py holds each to the JAX package)
+    assert get_config("granite-20b").use_qkv_bias
+    for field in (dict(n_experts=4, n_experts_per_tok=2, moe_d_ff=64),
+                  dict(tie_embeddings=False), dict(frontend="vision_stub", n_prefix_tokens=4),
+                  dict(frontend="audio_stub")):
+        build_model(bert_large.smoke().replace(**OFF, **field))
     # remat is ported (tests/test_torch_remat.py)
     assert build_model(bert_large.smoke().replace(**OFF, remat="full")).cfg.remat == "full"
 
@@ -190,8 +201,8 @@ def _forward_pair(activation_dtype):
     batch = next(jax_synthetic.batch_iterator(jcfg, 4, 32, seed=5))
     batch["valid_len"] = np.array([32, 20, 9, 32], np.int32)
     ref, _ = jmodel.apply(jparams, {k: jnp.asarray(v) for k, v in batch.items()})
-    out = model.apply(params_from_jax(jparams),
-                      {k: torch.from_numpy(v) for k, v in batch.items()})
+    out, _ = model.apply(params_from_jax(jparams),
+                         {k: torch.from_numpy(v) for k, v in batch.items()})
     return out, np.asarray(jnp.asarray(ref, jnp.float32))
 
 

@@ -205,7 +205,7 @@ def test_cached_decode_equals_full_forward(dtype):
     _, _, model, params = _pair(activation_dtype=dtype)
     toks = torch.from_numpy(np.stack(_prompts(2, s=12, seed=4)))
     with torch.inference_mode():
-        full = model.apply(params, {"tokens": toks})
+        full, _ = model.apply(params, {"tokens": toks})
         cache = model.make_cache(2, 16, "cpu")
         out, _ = model.prefill(params, {"tokens": toks[:, :8]}, cache)
         steps = [out[:, -1]]
