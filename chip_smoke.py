@@ -17,10 +17,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
    K4 (``flash_dq``) and K5 (``flash_dkv``), forward and backward through
    the autograd boundary, against the plain version at the main path's
    shape, at seq 512 and under causal, window, ragged-length, GQA,
-   cross-length, model-layout and head-dim 16, 32, 128 and 256 cases, and
-   at head dims 40 and 80, which ``flash_attention`` zero-pads to the
-   kernels' next (bf16 K3, K4 and K5 on the tensor cores, fp32 on the FMA
-   kernels), and K4 and K5 run twice for equal bits; the fused CE kernels K6
+   cross-length, model-layout and head-dim 16, 32, 128 and 256 cases, at
+   head dims 40 and 80, which ``flash_attention`` zero-pads to the
+   kernels' next, and past 256 at 320, 512 and 576 on the wide kernels
+   (320 and 576 padded to 384 and 640; causal and bidirectional, GQA,
+   ragged lengths, a window) (bf16 K3, K4 and K5 on the tensor cores, fp32
+   on the FMA kernels), and K4 and K5 run twice for equal bits; the fused CE kernels K6
    (``fused_ce_fwd``), K7 (``fused_ce_dh``) and K8 (``fused_ce_dw``), forward
    and backward through the autograd boundary, against the plain version at
    the main path's shape, at seq 512, with ragged rows, vocab and D, at D
@@ -82,7 +84,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
    phase 7's uninterrupted run; (e) ``remat="full"``: bit-equal, K3 once
    more per layer and micro-batch, a lower peak; then the main path's step
    timed with nothing, telemetry, telemetry + trust records, the
-   supervisor armed and remat, in turns, three rounds.  Checkpoints go
+   supervisor armed and remat, in turns, two rounds.  Checkpoints go
    under ``build/`` (at most two of 4.0 GB at once), removed as each check
    ends;
 10. serving smollm-360m at full width (32 layers, d 960, 15 heads over 5,
@@ -101,7 +103,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
    repro_torch.launch.serve`` at 8 slots, 32 requests, as a subprocess; (f)
    prefill (dense and K3) and decode-step times, wall, event span, busy
    time, launches and idle share, one sync a decode step, an engine run's
-   tokens/s, TTFT and latency, peak memory and the pool's bytes, three
+   tokens/s, TTFT and latency, peak memory and the pool's bytes, two
    rounds in turns, and K3 alone at the serving shape beside its plain
    version, its bound and SDPA's forward;
 11. granite-moe-1b-a400m at full width (24 layers, d 1024, 16 heads over
@@ -120,8 +122,31 @@ Phases, each of which raises (and so exits non-zero) on failure:
    span, busy by group, launches, idle share, peak), the MoE layer's
    dispatch, expert products and combine forward and backward at the
    step's shape, a 128-token prefill with K3 and a decode step over 8
-   slots.  Phase 6 then also times K1–K8 at granite-moe's shapes, flash at
-   head dims 40, 64, 80, 128 and 256, and K6–K8 at D 1280 and 2048.
+   slots;
+12. the recurrent families (after phase 11, before phase 6's timings): (a)
+   ``repro_torch.launch.train`` on xlstm-350m at full width (24 layers, d
+   1024, 4 heads, up-projection 2048, vocab 50304, bf16, random weights from
+   seed 0) at batch 16 × seq 256 (cut from 512 for the sLSTM's per-step
+   launches; the width is not cut), accum 2, fused LAMB, 3 steps: finite
+   losses, moved weights, K1/K2 32 leaves × 3 launches and no other kernel;
+   then a step profiled (busy, launches) and two timed (wall, span, idle
+   share) with the peak memory; (b) xlstm-350m served: the 8 prompts of
+   128 tokens, 32 new greedy tokens, through the static ``Engine`` (a
+   request a call) and the ``ContinuousEngine`` over 4 slots (phase 10's
+   parting rule), every
+   prefill's last logits held to the forward on the same tokens, no kernel
+   launched; a prefill and a decode step over 8 slots timed, the pool's
+   bytes; (c) jamba-smoke with ``--flash``: 3 training steps with K1/K2
+   and K3–K5 at the counts of its one attention layer, then served through
+   both engines (the static one a request a call) with K3 on every prefill,
+   each call within a bf16 ulp of its plain version; (d) Jamba's Mamba
+   layer alone at full width (d 8192, d_inner 16384, d_state 16, d_conv 4,
+   dt rank 512) on B 1 × S 256: the parallel scan, the chunked scan (64)
+   and token-by-token decode agree (fp32; parallel and chunked also in
+   bf16), and the bf16 layer is timed.  Phase 6 then also times K1–K8 at
+   granite-moe's shapes, flash at head dims 40, 64, 80, 128 and 256, K3–K5
+   at 320, 512 and 576 beside SDPA and their bound, K6–K8 at D 1280 and
+   2048, and K1/K2 over xlstm-350m's 32 leaves.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -206,6 +231,27 @@ MOE_ARGV = [
     "--precision", "bf16", "--fused-lamb", "--flash", "--fused-ce",
     "--steps", str(MOE_STEPS), "--log-every", "1",
 ]
+# phase 12: the recurrent families.  (a)-(b) xlstm-350m at full width (24
+# layers, d 1024, 4 heads, up-projection 2048, vocab 50304): trained at batch
+# 16 x seq 256, accum 2, fused LAMB (no attention, no fused head: K1/K2
+# only), and served; (c) jamba-smoke with flash, trained and served; (d)
+# Jamba's full-width Mamba layer alone, on B 1 x S 256.  The sequence is cut
+# from 512 to 256 (the width is not): the sLSTM's time loop makes ~1 M
+# launches a step at seq 512, ~16-20 s of host dispatch a step on the card,
+# and six such steps would take the phase past three minutes
+XLSTM_ARCH, XLSTM_LEAVES, XLSTM_STEPS, XLSTM_BATCH, XLSTM_SEQ = "xlstm-350m", 32, 3, 16, 256
+XLSTM_ARGV = [
+    "--arch", XLSTM_ARCH, "--batch", str(XLSTM_BATCH), "--seq", str(XLSTM_SEQ),
+    "--accum-steps", "2", "--precision", "bf16", "--fused-lamb",
+    "--steps", str(XLSTM_STEPS), "--log-every", "1",
+]
+JAMBA_STEPS = 3
+JAMBA_ARGV = [
+    "--arch", "jamba-1.5-large-398b", "--smoke", "--batch", "8", "--seq", "64",
+    "--accum-steps", "2", "--precision", "bf16", "--fused-lamb", "--flash",
+    "--steps", str(JAMBA_STEPS), "--log-every", "1",
+]
+MAMBA_SEQ, MAMBA_CHUNK = 256, 64
 SERVE_LAUNCH_REQUESTS = 32
 SERVE_LAUNCH_ARGV = [
     "--arch", SERVE_ARCH, "--continuous", "--slots", "8", "--arrival-rate", "20",
@@ -320,11 +366,29 @@ FLASH_CASES = [
     ("D 256 causal MQA", 2, 8, 1, 300, 300, 256, True, 0, None, "bfloat16", "bshd"),
     ("D 256 bidirectional", 2, 4, 4, 256, 256, 256, False, 0, [256, 100], "bfloat16", "bhsd"),
     ("D 256 causal fp32", 1, 4, 2, 200, 200, 256, True, 0, None, "float32", "bhsd"),
+    # past 256, the wide kernels: 320 (zero-padded to 384), 512, 576 (padded
+    # to 640), causal and bidirectional, GQA, ragged lengths, a window
+    ("D 320 causal GQA", 2, 8, 2, 300, 300, 320, True, 0, None, "bfloat16", "bshd"),
+    ("D 320 bidirectional valid", 2, 4, 4, 256, 256, 320, False, 0, [256, 100], "bfloat16",
+     "bhsd"),
+    ("D 320 valid + window, dead rows", 2, 4, 4, 300, 300, 320, True, 64, [40, 300],
+     "bfloat16", "bhsd"),
+    ("D 512 causal", 2, 8, 8, 256, 256, 512, True, 0, None, "bfloat16", "bhsd"),
+    ("D 512 bidirectional", 2, 4, 4, 200, 200, 512, False, 0, None, "bfloat16", "bshd"),
+    ("D 576 causal MQA", 1, 8, 1, 300, 300, 576, True, 0, None, "bfloat16", "bshd"),
+    ("D 576 bidirectional valid", 2, 4, 2, 128, 128, 576, False, 0, [128, 77], "bfloat16",
+     "bhsd"),
+    ("D 512 causal fp32", 1, 4, 2, 200, 200, 512, True, 0, None, "float32", "bhsd"),
+    ("D 576 bidirectional fp32", 2, 4, 4, 160, 160, 576, False, 0, [160, 33], "float32",
+     "bhsd"),
 ]
 # Flash timing shapes (b, h, hkv, s, d, causal): what the main path gives
 # the kernels; then granite-moe-1b-a400m's training shape (phase 11).
 FLASH_TIMING = [("seq 128", 32, 16, 16, 128, 64, False), ("seq 512", 16, 16, 16, 512, 64, False)]
 MOE_FLASH_TIMING = [("granite-moe seq 512", 8, 16, 8, 512, 64, True)]
+# head dims past 256 (the wide kernels; 320 and 576 zero-padded to 384 and
+# 640), at the padded-path timing's shape
+WIDE_FLASH_TIMING = [(f"D {d}", 8, 16, 16, 512, d, False) for d in (320, 512, 576)]
 # Head dims of the padded path and D 256, at one shape (b 8, h 16, s 512,
 # bidirectional): flash_attention forward and forward + backward, padding in.
 WIDTH_DIMS = (40, 64, 80, 128, 256)
@@ -1587,7 +1651,7 @@ def check_remat(device) -> None:
 TIMING_VARIANTS = ("nothing", "telemetry", "telemetry + trust", "rollback-armed", "remat")
 
 
-def time_training_variants(device, rounds: int = 3) -> None:
+def time_training_variants(device, rounds: int = 2) -> None:
     """The main path's step with each of ``TIMING_VARIANTS`` in turns,
     ``rounds`` rounds (``profile_step.measure``: two warm-up steps, one
     profiled, five timed with CUDA events; ``--log-every 1000``, so one
@@ -1949,7 +2013,7 @@ def _profile_calls(fn, n: int = 5) -> dict:
                 idle=1 - busy / span)
 
 
-def time_serving(device, model, fmodel, params, prompts, rate: float, rounds: int = 3) -> dict:
+def time_serving(device, model, fmodel, params, prompts, rate: float, rounds: int = 2) -> dict:
     """(f) In turns, ``rounds`` rounds: one 128-token prefill, dense and with
     K3; one decode step over 8 full slots (the engine's step, its one sync
     included), greedy; a continuous run of 16 requests over 8 slots with its
@@ -2270,7 +2334,7 @@ def run_moe_serving(device) -> dict:
 
 def time_moe(device) -> dict:
     """(c) The training step (``profile_step.measure``: wall, CUDA-event span,
-    busy, launches, idle share, peak; busy by group), three rounds; the MoE
+    busy, launches, idle share, peak; busy by group), two rounds; the MoE
     layer's three steps forward and backward at the step's per-layer shape
     (dispatch, expert products, combine) with CUDA events, times the 48
     layer passes of a step; one decode step over 8 full slots and a
@@ -2408,6 +2472,510 @@ def run_moe(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the recurrent families, xLSTM and Jamba
+# ---------------------------------------------------------------------------
+
+def run_xlstm_training(device) -> dict:
+    """(a) ``repro_torch.launch.train`` on xlstm-350m at full width: finite
+    losses, weights that moved as the kernels reported, K1/K2 launched
+    32 leaves x 3 steps times and no other kernel; then one more step under
+    ``torch.profiler`` (device activity only: busy and launches) and two
+    between CUDA events (wall and span).  Returns the launches and timings."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import DataPipeline
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch import train as launch_train
+
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer = launch_train.main(XLSTM_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, designs, copies = _counts()
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    hist, cfg = trainer.history, trainer.model.cfg
+    log(f"xlstm training: {cfg.name} {trainer.model.param_count()} params in "
+        f"{len(trainer.state.params)} leaves, {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads, up-projection {int(cfg.xlstm_proj_factor * cfg.d_model)}, "
+        f"vocab {cfg.vocab_size}; batch {XLSTM_BATCH} x seq {XLSTM_SEQ}, accum {ACCUM}; "
+        f"{len(hist)} steps in {wall:.1f} s, step walls "
+        f"{[round(b - a, 3) for a, b in zip([0.0] + [h['wall_s'] for h in hist], [h['wall_s'] for h in hist])]} s, "
+        f"peak memory {peak:.2f} GiB")
+    keys = ("loss/total", "grad_norm", "update_norm")
+    for h in hist:
+        log("xlstm training step " + str(h["step"]) + ": " + ", ".join(
+            f"{k} {h[k]:.5g}" for k in keys))
+    if len(hist) != XLSTM_STEPS or len(trainer.state.params) != XLSTM_LEAVES \
+            or cfg.use_flash_kernel or cfg.use_fused_ce_head:
+        raise AssertionError(f"xlstm training: {len(hist)} steps, "
+                             f"{len(trainer.state.params)} leaves")
+    if any(not math.isfinite(h[k]) for h in hist for k in keys):
+        raise AssertionError(f"xlstm training: non-finite metrics {hist}")
+    init = trainer.model.init(trainer.tc.seed, device)
+    trust = trainer.model.trust_mask()
+    moved_sq, still = 0.0, []
+    for k, p in trainer.state.params.items():
+        d = float((p - init[k]).float().square().sum())
+        moved_sq += d
+        if d == 0.0:
+            still.append(k)
+    del init
+    travelled = sum(h["update_norm"] for h in hist)
+    want = {k: (XLSTM_LEAVES * XLSTM_STEPS if k in ("lamb_moments", "lamb_apply") else 0)
+            for k in launches}
+    log(f"xlstm training: |x3 - x0| {math.sqrt(moved_sq):.4f} against the update norms' sum "
+        f"{travelled:.4f}; leaves that did not move: {still}; launches {launches} (want "
+        f"{want}); copies {copies}")
+    if [k for k in still if trust[k]] or not 0.0 < math.sqrt(moved_sq) <= travelled * 1.0001:
+        raise AssertionError("xlstm training: the parameters did not move as the kernels "
+                             "reported")
+    if launches != want or any(copies.values()):
+        raise AssertionError(f"xlstm training: launches {launches}, want {want}")
+
+    # the step on the card: one profiled, two timed, batches made beforehand
+    trainer.log = lambda msg: None
+    data = DataPipeline(cfg, XLSTM_BATCH, XLSTM_SEQ, device=device, seed=1)
+    batches = [next(data) for _ in range(3)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer.fit(iter(batches[:1]), 1)
+        torch.cuda.synchronize()
+    t_prof = time.perf_counter() - t0
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    t_agg = time.perf_counter() - t0 - t_prof
+    del prof
+    busy, n_launch = sum(ms for _, ms, _ in rows), sum(n for *_, n in rows)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    trainer.fit(iter(batches[1:]), 2)
+    end.record()
+    torch.cuda.synchronize()
+    step_wall = (time.perf_counter() - t0) * 1e3 / 2
+    span = start.elapsed_time(end) / 2
+    groups: dict = {}
+    for key, ms, _ in rows:
+        g = "lamb kernels" if "lamb_" in key else (
+            "matrix products" if any(s in key for s in ("gemm", "Gemm", "sm90_xmma", "cutlass",
+                                                        "nvjet")) else "other")
+        groups[g] = groups.get(g, 0.0) + ms
+    timing = dict(wall_ms=step_wall, span_ms=span, busy_ms=busy, launches=n_launch,
+                  idle=1 - busy / span, peak_gib=peak, groups=groups)
+    log(f"xlstm timing step: wall {step_wall:.1f} ms, span {span:.1f} ms, busy {busy:.2f} ms "
+        f"in {n_launch} launches, idle share {timing['idle']:.3f}, peak {peak:.2f} GiB "
+        f"(the profiled step took {t_prof:.1f} s, its aggregation {t_agg:.1f} s); busy by "
+        f"group "
+        + ", ".join(f"{g} {ms:.2f}" for g, ms in sorted(groups.items(), key=lambda x: -x[1]))
+        + "; costliest kernels: " + "; ".join(
+            f"{key[:60]} {ms:.2f} ms {n}x" for key, ms, n in sorted(rows, key=lambda r: -r[1])[:6]))
+    del trainer, data, batches
+    torch.cuda.empty_cache()
+    return dict(launches=launches, timing=timing)
+
+
+def _serve_recurrent(device, model, params, prompts, module, label: str, attn_layers: int,
+                     parting_rule: bool = True) -> dict:
+    """The prompts, SERVE_NEW new greedy tokens each, through the static
+    ``Engine`` (one request a call: both engines prefill at the same M, and
+    MoE capacity sees the same tokens) and ``ContinuousEngine``
+    over SERVE_SLOTS slots, the family's ``forward`` recorded: every
+    prefill's last logits held to ``Model.apply`` on the same tokens (one
+    bf16 ulp), phase 10's parting rule between the two runs, and, with
+    ``attn_layers``, K3 launched attn_layers x prefills times and each call
+    within a bf16 ulp of its plain version.  No other kernel may launch.
+    Without ``parting_rule`` (a model that amplifies rounding past any
+    margin: see run_xlstm_serving) the partings are logged, the first
+    tokens must agree (both engines prefill a request alone) and a
+    ``ContinuousEngine`` over one slot, whose decode runs the static run's
+    arithmetic, must give the static run's tokens of the first two requests
+    exactly."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import reset_launches
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.layers import attention
+    from repro_torch.serve import ContinuousEngine, Engine, Request, ServeRequest
+
+    real_fwd, real_sdpa = module.forward, attention.flash_sdpa
+    prefills, held, steps = [], [], []
+
+    def recorded(params_, batch, cfg_, **kw):
+        logits, aux = real_fwd(params_, batch, cfg_, **kw)
+        if kw.get("caches") is not None:
+            if not kw.get("decode"):
+                prefills.append((batch["tokens"].clone(), logits[:, -1].float()))
+            steps.append(logits[:, -1].float().topk(2, -1))
+        return logits, aux
+
+    def checked(q, k, v, **kw):
+        o = real_sdpa(q, k, v, **kw)
+        ref = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                              kw.get("kv_valid"), causal=kw["causal"], window=kw["window"],
+                              plain=True).transpose(1, 2).float()
+        atol = 1e-4 * max(1.0, float(ref.abs().max()))
+        held.append(bool(torch.allclose(o.float(), ref, rtol=1e-2, atol=atol)))
+        return o
+
+    torch.cuda.synchronize()
+    reset_launches()
+    module.forward, attention.flash_sdpa = recorded, checked
+    try:
+        eng = Engine(model, params, max_len=SERVE_MAX_LEN)
+        t0 = time.perf_counter()
+        static, top2 = [], []
+        for p in prompts:
+            steps.clear()
+            static.append(eng.generate_batch([Request(p, max_new_tokens=SERVE_NEW)])[0])
+            top2.append(torch.cat([r.values for r in steps[:SERVE_NEW]]).cpu().numpy())
+        top2 = np.stack(top2)
+        torch.cuda.synchronize()
+        t_static = time.perf_counter() - t0
+        n_static = len(prefills)
+        steps.clear()
+        t0 = time.perf_counter()
+        cont = ContinuousEngine(model, params, n_slots=SERVE_SLOTS,
+                                max_len=SERVE_MAX_LEN).generate(
+            [ServeRequest(p, max_new_tokens=SERVE_NEW) for p in prompts])
+        torch.cuda.synchronize()
+        t_cont = time.perf_counter() - t0
+        one_slot = None if parting_rule else ContinuousEngine(
+            model, params, n_slots=1, max_len=SERVE_MAX_LEN).generate(
+            [ServeRequest(p, max_new_tokens=SERVE_NEW) for p in prompts[:2]])
+    finally:
+        module.forward, attention.flash_sdpa = real_fwd, real_sdpa
+    launches, designs, copies = _counts()
+    n_pre = len(prefills)
+    want = {k: (attn_layers * n_pre if k == "flash_fwd" else 0) for k in launches}
+    one_ok = one_slot is None or all(
+        np.array_equal(np.asarray(r.out_tokens), x.out_tokens) for r, x in zip(one_slot, static))
+    # each prefill's last logits against the forward on the same tokens
+    same_bits, worst, far = 0, 0.0, 0
+    with torch.inference_mode():
+        for toks, last in prefills:
+            ref = model.apply(params, {"tokens": toks})[0][:, -1].float()
+            worst = max(worst, float((last - ref).abs().max()))
+            same_bits += bool(torch.equal(last, ref))
+            far += not bool(torch.allclose(last, ref, rtol=1e-2,
+                                           atol=1e-4 * max(1.0, float(ref.abs().max()))))
+    st = np.stack([r.out_tokens for r in static])
+    ct = np.stack([np.asarray(r.out_tokens) for r in cont])
+    margins = top2[..., 0] - top2[..., 1]
+    parts, faults = [], []
+    for i in range(len(prompts)):
+        if (ct[i] == st[i]).all():
+            continue
+        t = int(np.argmax(ct[i] != st[i]))
+        tol = MARGIN_ULPS * _top_ulp(top2[i, t, 0])
+        parts.append(f"request {i} at step {t}: static margin {margins[i, t]:.4g} (tol {tol:.4g})")
+        if margins[i, t] > tol if parting_rule else t == 0:
+            faults.append(i)
+    n_tok = len(prompts) * SERVE_NEW
+    log(f"{label} serving: static one request a call in "
+        f"{t_static:.2f} s ({n_tok / t_static:.1f} tokens/s), continuous over {SERVE_SLOTS} "
+        f"slots in {t_cont:.2f} s ({n_tok / t_cont:.1f} tokens/s); identical token sequences "
+        f"{sum(bool((c == x).all()) for c, x in zip(ct, st))} of {len(prompts)}; parted: "
+        f"{parts or 'none'}{'' if parting_rule else ' (logged, not held)'}; static top-2 "
+        f"margins: min {margins.min():.4g}; {n_pre} prefills' last logits against the forward "
+        f"on the same tokens: bit-equal {same_bits}, past a bf16 ulp {far}, |d| max "
+        f"{worst:.3g}" + ("" if one_slot is None else
+                          f"; continuous over 1 slot gives the static tokens of the first "
+                          f"{len(one_slot)} requests exactly: {one_ok}"))
+    log(f"{label} serving: launches {launches} (want {want}), by design "
+        f"{designs['flash_fwd']}, copies {copies}; K3 calls held to the plain version "
+        f"{sum(held)} of {len(held)}")
+    if launches != want or any(copies.values()) or (
+            attn_layers and designs["flash_fwd"] != {"mma": attn_layers * n_pre, "fma": 0}):
+        raise AssertionError(f"{label} serving: launches {launches}, want {want}")
+    if len(held) != attn_layers * n_pre or not all(held):
+        raise AssertionError(f"{label} serving: K3 on the prefill disagrees with its plain "
+                             f"version")
+    if far or faults or not one_ok or not np.isfinite(top2).all() \
+            or top2.shape[1] != SERVE_NEW or any(len(r.out_tokens) != SERVE_NEW for r in cont) \
+            or any(r.status.value != "completed" for r in cont):
+        raise AssertionError(f"{label} serving: prefill logits past a bf16 ulp of the forward "
+                             f"({far}), runs parting at a clear margin or at the first token "
+                             f"(requests {faults}), or the one-slot run's tokens differ "
+                             f"({not one_ok})")
+    return dict(launches=launches, prefills=n_pre, static_tokens_per_s=n_tok / t_static,
+                continuous_tokens_per_s=n_tok / t_cont)
+
+
+def _time_decode(device, model, params, prompt_len: int) -> dict:
+    """A 128-token pool prefill and a greedy decode step over 8 slots filled
+    with its cache (``_profile_calls``), the pool's bytes and the peak
+    memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import KVPool, make_pool_decode_step, make_pool_prefill
+
+    slots, max_len = 8, prompt_len + 64 + 8
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(0, 1024, (1, prompt_len)).astype(np.int32)).to(device)
+    pre = make_pool_prefill(model, max_len)
+    step = make_pool_decode_step(model, greedy=True)
+    out = {}
+    with torch.inference_mode():
+        pool = KVPool(model, slots, max_len, device)
+        last, c1 = pre(params, prompt)
+        for _ in range(slots):
+            pool.insert(c1, pool.acquire(), prompt_len)
+        state = {"toks": last.argmax(-1).to(torch.int32).repeat(slots),
+                 "pos": torch.full((slots,), prompt_len, dtype=torch.int32, device=device)}
+        active = torch.ones(slots, dtype=torch.bool, device=device)
+        temps = torch.zeros(slots, device=device)
+        top_k = torch.zeros(slots, dtype=torch.int32, device=device)
+
+        def decode_step():
+            toks, state["pos"], _ = step(params, pool.cache, state["toks"], state["pos"], active,
+                                         temps, top_k, None)
+            state["toks"] = toks
+            toks.cpu()
+
+        torch.cuda.reset_peak_memory_stats(device)
+        out["prefill"] = _profile_calls(lambda: pre(params, prompt), n=2)
+        out["decode"] = _profile_calls(decode_step)
+        out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+        out["pool_gb"] = pool.nbytes / 1e9
+        del pool
+    return out
+
+
+def check_rows_independent(device, model, params, prompts) -> None:
+    """A decode step over SERVE_SLOTS prefilled slots run twice from the same
+    state, the other slots' tokens and states changed (rolled) the second
+    time: slot 0's logits and new state must be bit-equal (nothing in the
+    step mixes rows)."""
+    import torch
+
+    from repro_torch.serve import KVPool, make_pool_prefill
+
+    pre = make_pool_prefill(model, SERVE_MAX_LEN)
+    with torch.inference_mode():
+        pool = KVPool(model, SERVE_SLOTS, SERVE_MAX_LEN, device)
+        for p in prompts[:SERVE_SLOTS]:
+            pool.insert(pre(params, torch.from_numpy(p[None].copy()).to(device))[1],
+                        pool.acquire(), SERVE_PROMPT)
+        snap = {s: {k: v.clone() for k, v in leaves.items()} for s, leaves in pool.cache.items()}
+        pos = torch.full((SERVE_SLOTS, 1), SERVE_PROMPT, dtype=torch.int32, device=device)
+        toks = torch.arange(SERVE_SLOTS, dtype=torch.int32, device=device)[:, None] + 7
+        rows = []
+        for other in (False, True):
+            for s, leaves in pool.cache.items():
+                for k, v in leaves.items():
+                    v.copy_(snap[s][k])
+                    if other:
+                        v[:, 1:].copy_(snap[s][k][:, 1:].roll(1, 1))
+            t = torch.cat([toks[:1], toks[1:].roll(1, 0) * 3]) if other else toks
+            logits, cache = model.decode(params, {"tokens": t}, pool.cache, pos)
+            rows.append((logits[0].clone(), {(s, k): v[:, 0].clone() for s, leaves in
+                                              cache.items() for k, v in leaves.items()}))
+        torch.cuda.synchronize()
+    same = torch.equal(rows[0][0], rows[1][0]) and all(
+        torch.equal(v, rows[1][1][key]) for key, v in rows[0][1].items())
+    log(f"xlstm serving: a decode step over {SERVE_SLOTS} slots, the other slots' tokens and "
+        f"states changed: slot 0's logits and state bit-equal {same}")
+    if not same:
+        raise AssertionError("xlstm serving: a decode step mixes its rows")
+    del pool, snap, rows
+
+
+def run_xlstm_serving(device) -> dict:
+    """(b) xlstm-350m served at full width from seed-0 weights: the 8 prompts
+    of 128 tokens, 32 new greedy tokens, through both engines (no kernel of
+    the port runs), then a decode step's rows checked independent of each
+    other, and a prefill and a decode step over 8 slots timed.
+
+    Random-init xlstm-350m amplifies rounding within one forward: the
+    reference's init takes the fan-in of wq/wk/wv and the sLSTM's w_g from
+    their heads axis (std 1/2), so the mLSTM's scores and the sLSTM's gate
+    pre-activations are tens to hundreds, and their normalisers sum them
+    with cancellation.  On an H100 80GB HBM3 (700 W), one decode step from
+    the same state at batch 1 and batch 4 gave logits 0.013 apart in fp32
+    (0.08 in bf16), ~1 (~2.5) after 30 steps, so the static
+    (batch-1) and 4-slot runs part within a few steps even in fp32, past
+    any margin of rounding.  So the static engine takes a request a call
+    (both engines prefill at the same M: first tokens must agree), the
+    4-slot run's partings are logged, and a one-slot continuous run, whose
+    decode is the static run's arithmetic, must give its tokens exactly;
+    the decode step's rows must not depend on each other (bit-equal)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, xlstm_model
+
+    model = build_model(get_config(XLSTM_ARCH))
+    params = model.init(0, device)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, min(model.cfg.vocab_size, 1024), size=SERVE_PROMPT)
+               .astype(np.int32) for _ in range(SERVE_REQUESTS)]
+    out = _serve_recurrent(device, model, params, prompts, xlstm_model, "xlstm", 0,
+                           parting_rule=False)
+    check_rows_independent(device, model, params, prompts)
+    out["timing"] = t = _time_decode(device, model, params, SERVE_PROMPT)
+    for k in ("prefill", "decode"):
+        r = t[k]
+        log(f"xlstm timing {k}: wall {r['wall_ms']:.3f} ms, event span {r['span_ms']:.3f} ms, "
+            f"busy {r['busy_ms']:.3f} ms in {r['launches']} launches, idle share "
+            f"{r['idle']:.3f}")
+    log(f"xlstm timing: the pool of 8 slots holds {t['pool_gb']:.4f} GB of state (O(1) in "
+        f"length), peak {t['peak_gib']:.2f} GiB; decode {8 / (t['decode']['wall_ms'] * 1e-3):.1f} "
+        f"tokens/s over 8 slots")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_jamba_smoke(device) -> dict:
+    """(c) jamba-smoke with flash on: ``repro_torch.launch.train`` 3 steps
+    (K1/K2 its leaves x 3, K3–K5 its one attention layer x 2 micro-batches x
+    3, all on the tensor cores; finite losses with the MoE terms), then the
+    8 prompts through both engines (the static one a request a call, as
+    phase 11, and the capacity factor raised so that no call drops) with K3
+    on every prefill."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import build_model, hybrid
+
+    reset_launches()
+    trainer = launch_train.main(JAMBA_ARGV)
+    torch.cuda.synchronize()
+    launches, designs, copies = _counts()
+    hist, model = trainer.history, trainer.model
+    cfg = model.cfg
+    attn = cfg.n_layers // cfg.attn_period
+    leaves = len(trainer.state.params)
+    want = _want_launches(JAMBA_STEPS, leaves=leaves, layers=attn)
+    want.update(dict.fromkeys(FUSED_CE, 0))
+    log(f"jamba-smoke training: {cfg.name}, {cfg.n_layers} layers in {attn} period(s) of "
+        f"{cfg.attn_period}, {leaves} leaves, flash {cfg.use_flash_kernel}; losses "
+        f"{[round(h['loss/total'], 4) for h in hist]}, moe_lb "
+        f"{[round(h.get('loss/moe_lb', float('nan')), 4) for h in hist]}; launches {launches} "
+        f"(want {want}); by design {designs}; copies {copies}")
+    if len(hist) != JAMBA_STEPS or not cfg.use_flash_kernel \
+            or any(not math.isfinite(h["loss/total"]) or "loss/moe_lb" not in h for h in hist):
+        raise AssertionError(f"jamba-smoke training: {hist}")
+    if launches != want or any(copies.values()) or any(
+            designs[k] != {"mma": attn * ACCUM * JAMBA_STEPS, "fma": 0} for k in FLASH):
+        raise AssertionError(f"jamba-smoke training: launches {launches}, want {want}")
+    params = trainer.state.params
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=SERVE_PROMPT).astype(np.int32)
+               for _ in range(SERVE_REQUESTS)]
+    # 4 experts top-2: at capacity factor 1.25 a decode step over 4 slots
+    # (8 assignments, capacity 2) may drop what a batch-1 step keeps, so
+    # the served model raises it until no call drops (as the CPU tests do)
+    smodel = build_model(cfg.replace(capacity_factor=8.0))
+    serving = _serve_recurrent(device, smodel, params, prompts, hybrid, "jamba-smoke", attn)
+    del trainer, params
+    torch.cuda.empty_cache()
+    return dict(launches=launches, serving=serving)
+
+
+def check_mamba_full_width(device) -> dict:
+    """(d) Jamba's Mamba layer alone at full width (d 8192, d_inner 16384,
+    d_state 16, d_conv 4, dt rank 512; weights from seed 0) on B 1 x S 256:
+    the parallel scan, the chunked scan (chunk 64) and token-by-token decode
+    from the zero state, outputs and final ssm/conv state held to each
+    other, in fp32 (1e-4 of each tensor's scale: the scans' fp32 sums in
+    another order) and, parallel against chunked, in bf16 (one bf16 ulp:
+    the same bf16 operands, fp32 scans in another order); then the bf16
+    layer's forward timed (parallel and chunked) with its peak memory."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import mamba
+    from repro_torch.nn import init_params
+
+    cfg = get_config("jamba-1.5-large-398b")
+    di = cfg.mamba_expand * cfg.d_model
+    p = init_params(mamba.mamba_defs(cfg), 0, torch.device(device))
+    n = sum(v.numel() for v in p.values())
+    gen = torch.Generator(device=device).manual_seed(12)
+    x32 = torch.randn((1, MAMBA_SEQ, cfg.d_model), generator=gen, device=device)
+    out = {}
+    with torch.inference_mode():
+        res = {}
+        for dt in (torch.float32, torch.bfloat16):
+            x = x32.to(dt)
+            for name, chunk in (("parallel", None), ("chunked", MAMBA_CHUNK)):
+                st0 = mamba.init_mamba_state(1, cfg, dt, device)
+                res[(dt, name)] = mamba.mamba(p, x, cfg, state=st0, chunk=chunk)
+            if dt == torch.float32:
+                st, ys = mamba.init_mamba_state(1, cfg, dt, device), []
+                for t in range(MAMBA_SEQ):
+                    y, st = mamba.mamba(p, x[:, t:t + 1], cfg, state=st, decode=True)
+                    ys.append(y)
+                res[(dt, "decode")] = (torch.cat(ys, 1), st)
+        torch.cuda.synchronize()
+
+        def far(a, b, rtol):
+            a, b = a.float(), b.float()
+            return float(((a - b).abs() - rtol * b.abs()).max() / max(1e-30, float(b.abs().max())))
+
+        ref_y, ref_st = res[(torch.float32, "parallel")]
+        checks = {}
+        for name in ("chunked", "decode"):
+            y, st = res[(torch.float32, name)]
+            checks[f"fp32 {name}"] = max(far(y, ref_y, 1e-4), far(st["ssm"], ref_st["ssm"], 1e-4),
+                                         far(st["conv"], ref_st["conv"], 0.0))
+        (yb, sb), (yc, sc) = res[(torch.bfloat16, "parallel")], res[(torch.bfloat16, "chunked")]
+        checks["bf16 chunked"] = max(far(yc, yb, 1e-2), far(sc["ssm"], sb["ssm"], 1e-4),
+                                     far(sc["conv"], sb["conv"], 0.0))
+        ok = {k: v <= (1e-2 if k.startswith("bf16") else 1e-4) for k, v in checks.items()}
+        log(f"mamba full width: d {cfg.d_model}, d_inner {di}, d_state {cfg.mamba_d_state}, "
+            f"d_conv {cfg.mamba_d_conv}, dt rank {mamba.dt_rank(cfg)}, {n} params; B 1 x S "
+            f"{MAMBA_SEQ}; largest excess over the tolerance, in units of each tensor's scale "
+            f"(<= 1e-4 fp32, 1e-2 bf16): {checks} {ok}; |y| max {float(ref_y.abs().max()):.4g}, "
+            f"|h| max {float(ref_st['ssm'].abs().max()):.4g}")
+        if not all(ok.values()) or not all(bool(torch.isfinite(r[0]).all()) for r in res.values()):
+            raise AssertionError(f"mamba full width: the three scans disagree: {checks}")
+        del res, ref_y, ref_st, yb, sb, yc, sc
+        x = x32.to(torch.bfloat16)
+        for name, chunk in (("parallel", None), ("chunked", MAMBA_CHUNK)):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device)
+            ms = cuda_ms(lambda: mamba.mamba(p, x, cfg, chunk=chunk), reps=5)
+            out[name] = dict(ms=ms, peak_gib=(torch.cuda.max_memory_allocated(device) - base)
+                             / 2**30)
+        st = mamba.init_mamba_state(1, cfg, torch.bfloat16, device)
+        out["decode_step"] = dict(ms=cuda_ms(lambda: mamba.mamba(p, x[:, :1], cfg, state=st,
+                                                                 decode=True), reps=20))
+    log(f"mamba full width timing (bf16 activations, fp32 weights cast at use): "
+        + ", ".join(f"{k} {v['ms']:.3f} ms" + (f" (peak {v['peak_gib']:.2f} GiB over the "
+                                                 f"weights)" if "peak_gib" in v else "")
+                    for k, v in out.items()))
+    out["checks"] = checks
+    del p, x32, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_recurrent(device) -> dict:
+    """Phase 12; returns each part's launches and timings."""
+    t0, out, took = time.perf_counter(), {}, {}
+    for key, fn in (("xlstm_training", run_xlstm_training), ("xlstm_serving", run_xlstm_serving),
+                    ("jamba_smoke", run_jamba_smoke), ("mamba", check_mamba_full_width)):
+        t1 = time.perf_counter()
+        out[key] = fn(device)
+        took[key] = round(time.perf_counter() - t1, 1)
+    log(f"recurrent: phase 12 took {time.perf_counter() - t0:.1f} s: {took}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 6: timing
 # ---------------------------------------------------------------------------
 
@@ -2504,16 +3072,18 @@ def time_kernels(device, rate: float, arch: str = "bert-large") -> dict:
     return out
 
 
-def time_flash(device, rate: float, shapes=FLASH_TIMING) -> dict:
+def time_flash(device, rate: float, shapes=FLASH_TIMING, every: bool = False) -> dict:
     """K3–K5 at each of ``shapes`` (bf16, causal or no mask), plain, kernel,
     kernel, plain, beside their bound and ``scaled_dot_product_attention``
-    (k and v repeated to every q head).  Returns the first shape's numbers
-    by kernel name."""
+    (k and v repeated to every q head).  A head dim outside the kernels'
+    own runs on inputs zero-padded to ``kernel_head_dim`` (the bound and
+    SDPA at the real one).  Returns the first shape's numbers by kernel
+    name, or with ``every`` each shape's by label."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import FlashSpec, flash_attention_fwd, \
-        flash_dkv, flash_dq, row_dot
+        flash_dkv, flash_dq, kernel_head_dim, row_dot
 
     gen = torch.Generator(device=device).manual_seed(3)
     result = {}
@@ -2525,6 +3095,9 @@ def time_flash(device, rate: float, shapes=FLASH_TIMING) -> dict:
         kr, vr = (x.repeat_interleave(h // hkv, 1) for x in (k, v))
         valid = None   # the main path's batches carry no lengths
         spec = FlashSpec(d**-0.5, causal, 0, False)
+        dp = kernel_head_dim(d)
+        if dp != d:   # the kernels' call, as flash_attention pads it
+            q, k, v, do = (F.pad(x, (0, dp - d)) for x in (q, k, v, do))
         o, lse = flash_attention_fwd(q, k, v, valid, spec, plain=True)
         di = row_dot(o, do)
         fns = {
@@ -2535,7 +3108,8 @@ def time_flash(device, rate: float, shapes=FLASH_TIMING) -> dict:
         }
         # bytes each must move (bf16 q-side tensors of nq elements and
         # kv-side of nk, fp32 rows of lse and di) and the operations of its
-        # (S x T x D) products over the (row, key) pairs the mask keeps
+        # (S x T x D) products over the (row, key) pairs the mask keeps, at
+        # the real head dim
         nq, nk, rows = b * h * s * d, b * hkv * s * d, b * h * s
         mm = 2 * b * h * (s * (s + 1) // 2 if causal else s * s) * d
         bytes_ = {"flash_fwd": (2 * nq + 2 * nk) * 2 + rows * 4,
@@ -2546,10 +3120,12 @@ def time_flash(device, rate: float, shapes=FLASH_TIMING) -> dict:
         for name, fn in fns.items():
             for plain in (True, False, False, True):
                 times[name]["plain" if plain else "cuda"].append(cuda_ms(lambda: fn(plain)))
-        sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=causal))
-        qg, kg, vg = (x.detach().requires_grad_() for x in (q, kr, vr))
+        q_d, do_d = q[..., :d], do[..., :d]
+        sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q_d, kr, vr,
+                                                                  is_causal=causal))
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q_d, kr, vr))
         sdpa_fb = cuda_ms(lambda: torch.autograd.grad(
-            F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal), (qg, kg, vg), do))
+            F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal), (qg, kg, vg), do_d))
         out = {}
         for name in fns:
             t_k, t_p = min(times[name]["cuda"]), min(times[name]["plain"])
@@ -2557,7 +3133,8 @@ def time_flash(device, rate: float, shapes=FLASH_TIMING) -> dict:
             out[name] = dict(ms=t_k, plain_ms=t_p, bound_ms=max(t_bytes, t_ops) * 1e3,
                              bound_by="bytes" if t_bytes >= t_ops else "operations",
                              library_ms=sdpa_fwd if name == "flash_fwd" else None)
-            log(f"time {name} {label} (b {b} h {h} hkv {hkv} s {s} d {d} causal {causal} bf16): kernel "
+            log(f"time {name} {label} (b {b} h {h} hkv {hkv} s {s} d {d} (kernels' {dp}) "
+                f"causal {causal} bf16): kernel "
                 f"{times[name]['cuda']} ms, plain {times[name]['plain']} ms; bound "
                 f"{out[name]['bound_ms']:.4f} ms by {out[name]['bound_by']} "
                 f"({bytes_[name] / 1e6:.1f} MB, {flops[name] / 1e9:.2f} GFLOP); achieved "
@@ -2568,9 +3145,9 @@ def time_flash(device, rate: float, shapes=FLASH_TIMING) -> dict:
             f"K3 {out['flash_fwd']['ms']:.4f} ms, K4 + K5 "
             f"{out['flash_dq']['ms'] + out['flash_dkv']['ms']:.4f} ms")
         result[label] = out
-        del q, k, v, kr, vr, do, qg, kg, vg, o, lse, di
+        del q, k, v, kr, vr, do, qg, kg, vg, o, lse, di, q_d, do_d
     torch.cuda.empty_cache()
-    return result[shapes[0][0]]
+    return result if every else result[shapes[0][0]]
 
 
 def time_flash_widths(device, rate: float) -> dict:
@@ -2739,12 +3316,15 @@ def main() -> None:
     time_training_variants(device)
     serving = run_serving(device, rate)
     moe = run_moe(device)
+    recurrent = run_recurrent(device)
     timing = {**time_kernels(device, rate), **time_flash(device, rate),
               **time_fused_ce(device, rate)}
     moe_timing = {**time_kernels(device, rate, MOE_ARCH),
                   **time_flash(device, rate, MOE_FLASH_TIMING),
                   **time_fused_ce(device, rate, MOE_CE_TIMING)}
     widths = time_flash_widths(device, rate)
+    wide_flash = time_flash(device, rate, WIDE_FLASH_TIMING, every=True)
+    xlstm_timing = time_kernels(device, rate, XLSTM_ARCH)
     wide = {sh[0]: time_fused_ce(device, rate, [sh]) for sh in WIDE_CE_TIMING}
 
     kernels = [dict(name=k, **KERNELS[k], launches=launches[k], max_abs_err=errs[k],
@@ -2758,6 +3338,18 @@ def main() -> None:
     by_name["flash_fwd"]["head_dims"] = widths
     for k in FUSED_CE:   # at D past one 1024-column window
         by_name[k]["wide_d"] = {label: w[k] for label, w in wide.items()}
+    # phase 12: K1/K2 on xlstm-350m's path (launches and times at its leaves),
+    # every kernel's launches in jamba-smoke's training and K3's on its
+    # prefills, and K3–K5 at head dims past 256
+    for k in ("lamb_moments", "lamb_apply"):
+        by_name[k]["xlstm"] = dict(launches=recurrent["xlstm_training"]["launches"][k],
+                                   **xlstm_timing[k])
+    for k in KERNELS:
+        by_name[k]["jamba_smoke"] = dict(launches=recurrent["jamba_smoke"]["launches"][k])
+    by_name["flash_fwd"]["jamba_smoke"]["serving_launches"] = \
+        recurrent["jamba_smoke"]["serving"]["launches"]["flash_fwd"]
+    for k in FLASH:
+        by_name[k]["wide_head_dims"] = {label: w[k] for label, w in wide_flash.items()}
     log(card)   # again near the end, where a truncated log still shows it
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 """Config registry of the port: ``get_config("granite-moe-1b-a400m")``.
 
-Ported: bert-large, smollm-360m, and the transformer zoo's command-r-35b,
+Ported: bert-large, smollm-360m, the transformer zoo's command-r-35b,
 mistral-nemo-12b, granite-20b, paligemma-3b, hubert-xlarge and
-granite-moe-1b-a400m.  deepseek-v3-671b, jamba-1.5-large-398b and
-xlstm-350m raise (ROADMAP.md queue 1, item 10).
+granite-moe-1b-a400m, and the recurrent families' jamba-1.5-large-398b
+(hybrid) and xlstm-350m (ssm).  deepseek-v3-671b raises (ROADMAP.md queue 1,
+item 10).
 """
 from __future__ import annotations
 
@@ -13,13 +14,17 @@ from repro_torch.configs import (
     granite_20b,
     granite_moe_1b_a400m,
     hubert_xlarge,
+    jamba_1_5_large_398b,
     mistral_nemo_12b,
     paligemma_3b,
     smollm_360m,
+    xlstm_350m,
 )
 from repro_torch.configs.base import ModelConfig, TrainConfig
 
 _ARCHS = {
+    "xlstm-350m": xlstm_350m,
+    "jamba-1.5-large-398b": jamba_1_5_large_398b,
     "granite-moe-1b-a400m": granite_moe_1b_a400m,
     "paligemma-3b": paligemma_3b,
     "granite-20b": granite_20b,

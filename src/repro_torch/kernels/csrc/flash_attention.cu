@@ -1,11 +1,12 @@
 // Differentiable flash attention for Hopper (sm_90a): forward, dq, dk/dv.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/flash_attention.py:
-//   flash_fwd_mma_kernel (bf16), flash_fwd_kernel (fp32)
+//   flash_fwd_mma_kernel (bf16), flash_fwd_kernel (fp32), and past head dim
+//   256 flash_fwd_wide_mma_kernel, flash_fwd_wide_kernel
 //                     <- _fwd_kernel (K3, pallas_call at :313)
-//   flash_dq_mma_kernel (bf16), flash_dq_kernel (fp32)
+//   flash_dq_mma_kernel (bf16), flash_dq_kernel (fp32), flash_dq_wide_*
 //                     <- _dq_kernel  (K4, pallas_call at :360)
-//   flash_dkv_mma_kernel (bf16), flash_dkv_kernel (fp32)
+//   flash_dkv_mma_kernel (bf16), flash_dkv_kernel (fp32), flash_dkv_wide_*
 //                     <- _dkv_kernel (K5, pallas_call at :386)
 //
 // What they compute, for q (B, H, S, D) and k, v (B, Hkv, T, D), q head h
@@ -109,8 +110,9 @@
 // padded by one float so that column reads do not conflict on banks.  p and
 // ds stay fp32, as the TPU kernel keeps them.
 //
-// Head dims 16, 32, 64, 128 and 256 are built; the wrapper zero-pads any
-// other head dim up to the next of them.  At D 256 the tensor-core kernels
+// Head dims 16, 32, 64, 128 and 256 are built, and past 256 the wide
+// kernels (below) take any multiple of 128; the wrapper zero-pads any other
+// head dim up to the next of them.  At D 256 the tensor-core kernels
 // keep 64-row tiles but split the output columns over two blocks (grid z,
 // mma_out): each block forms the scores over all of D and accumulates 128
 // columns of o, dq, or dk and dv, so that the fp32 accumulators stay within
@@ -164,7 +166,7 @@ struct Args {
   void* dk;
   void* dv;
   Strides sq, sk, sv, sdo, so, sdq, sdk, sdv;
-  int B, H, Hkv, S, T;
+  int B, H, Hkv, S, T, D;
   float scale;
   int causal, window, use_valid;
 };
@@ -1117,6 +1119,727 @@ __global__ void __launch_bounds__(kMmaThreads, D <= 64 ? 3 : 1) flash_dkv_mma_ke
 }
 
 // ---------------------------------------------------------------------------
+// Head dims past 256: the wide kernels
+// ---------------------------------------------------------------------------
+//
+// Past D 256 full-D tiles no longer fit shared memory (K3's 64-row q tile and
+// two stages of k and v would take 332 KB at D 512).  So the wide kernels take
+// any D that is a multiple of kWide, at run time (the wrapper zero-pads other
+// head dims up to the next multiple): a block owns kWide output columns (grid
+// z = D / kWide, as at D 256) and forms the scores over all of D in kWide-wide
+// slices of q and k (and of do and v for dp), each slice staged in shared
+// memory in its turn; the block's own kWide columns of v (K3), k (K4), or q
+// and do (K5) are staged once a tile for the second products.  The shared
+// memory a block takes is the same at every D.  The price is in bytes: each
+// slice of q (K3, K4) or of k and v (K5) is read again for every tile of the
+// other side, and every z block forms the scores over all of D, so the
+// scores cost D / kWide times the products of one block.  The bf16 kernels
+// keep the tensor-core design above (64-row tiles, 4 warps of 16 rows,
+// ldmatrix and mma.sync, p and ds as bf16 terms from the registers) and run
+// the slices through a two-stage cp.async ring; the fp32 kernels keep the
+// FMA design (64-row tiles) and load each slice in turn.
+
+constexpr int kWide = 128;  // slice width, and output columns of a wide block
+
+// K3, bf16: one block per (b*h, 64-row q tile, kWide o columns).  Unit u of
+// the ring is slice u % nsl of kv tile u / nsl: q's and k's slice; the first
+// slice of a tile also brings v's columns [dz, dz + kWide), used after the
+// last.
+__global__ void __launch_bounds__(kMmaThreads, 2) flash_fwd_wide_mma_kernel(Args a) {
+  constexpr int W = kWide, LD = W + 8, KD = W / 16, NS = kBK / 8, NO = W / 8, TILE = kBK * LD;
+  static_assert(kBQ == kBK, "q and kv slices share one tile size");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sRing = reinterpret_cast<bf16*>(smem_raw);  // 2 stages x (q slice, k slice)
+  bf16* sVz = sRing + 4 * TILE;                      // 2 stages x v's columns of this block
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int mi = lane >> 3, mr = lane & 7;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H, kvh = h / (a.H / a.Hkv);
+  const int q0 = blockIdx.y * kBQ, dz = blockIdx.z * W, nsl = a.D / W;
+  const bf16* q = static_cast<const bf16*>(a.q) + b * a.sq.b + h * a.sq.h;
+  const bf16* k = static_cast<const bf16*>(a.k) + b * a.sk.b + kvh * a.sk.h;
+  const bf16* v = static_cast<const bf16*>(a.v) + b * a.sv.b + kvh * a.sv.h;
+  const int kv_end = kv_end_of(a, b);
+  int lo, hi;
+  kv_range(a, q0, kBQ, kv_end, lo, hi);
+  const int first = (lo / kBK) * kBK;
+  const int ntiles = hi > first ? (hi - first + kBK - 1) / kBK : 0, units = ntiles * nsl;
+  auto stage = [&](int u) {
+    const int it = u / nsl, sl = u % nsl, kv0 = first + it * kBK;
+    bf16* sQ = sRing + (u & 1) * 2 * TILE;
+    stage_rows<W, kBQ>(sQ, q + sl * W, a.sq.s, q0, a.S);
+    stage_rows<W, kBK>(sQ + TILE, k + sl * W, a.sk.s, kv0, a.T);
+    if (sl == 0) stage_rows<W, kBK>(sVz + (it & 1) * TILE, v + dz, a.sv.s, kv0, a.T);
+  };
+
+  if (units > 0) stage(0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  const int at_q = (16 * warp + mr + 8 * (mi & 1)) * LD + 8 * (mi >> 1);
+  const int row0 = q0 + 16 * warp + g;
+  float acc[NO][4], s[NS][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int u = 0; u < units; ++u) {
+    if (u + 1 < units) {  // the next slice streams in while this one is used
+      stage(u + 1);
+      cp_async_commit();
+    }
+    const int it = u / nsl, sl = u % nsl, kv0 = first + it * kBK;
+    const bf16* sQ = sRing + (u & 1) * 2 * TILE;
+    const bf16* sK = sQ + TILE;
+    if (sl == 0) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qa[4];
+      ldsm4(qa, sQ + at_q + 16 * kk);
+#pragma unroll
+      for (int j = 0; j < NS; j += 2) {
+        uint32_t kb[4];
+        ldsm4(kb, sK + (8 * j + mr + 8 * (mi >> 1)) * LD + 16 * kk + 8 * (mi & 1));
+        mma_bf16(s[j], qa, kb[0], kb[1]);
+        mma_bf16(s[j + 1], qa, kb[2], kb[3]);
+      }
+    }
+    if (sl == nsl - 1) {  // the scores are whole: softmax, then o += p v
+      float alpha[2];
+      if (tile_full(a, q0, kBQ, kv0, kBK, kv_end, false))
+        softmax_tile<false>(s, m, l, alpha, a, row0, kv0 + 2 * t, kv_end);
+      else
+        softmax_tile<true>(s, m, l, alpha, a, row0, kv0 + 2 * t, kv_end);
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        acc[n][0] *= alpha[0];
+        acc[n][1] *= alpha[0];
+        acc[n][2] *= alpha[1];
+        acc[n][3] *= alpha[1];
+      }
+      const bf16* sV = sVz + (it & 1) * TILE;
+#pragma unroll
+      for (int kc = 0; kc < kBK / 16; ++kc) {
+        uint32_t pa[kFwdTerms][4];
+        a_from_acc(s, kc, pa);
+#pragma unroll
+        for (int n = 0; n < NO; n += 2) {
+          uint32_t vb[4];
+          ldsm4_t(vb, sV + (16 * kc + mr + 8 * (mi & 1)) * LD + 8 * n + 8 * (mi >> 1));
+#pragma unroll
+          for (int i = 0; i < kFwdTerms; ++i) {
+            mma_bf16(acc[n], pa[i], vb[0], vb[1]);
+            mma_bf16(acc[n + 1], pa[i], vb[2], vb[3]);
+          }
+        }
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();  // the next slice has landed; this one's readers are done
+  }
+
+  float lc[2], inv[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float x = l[hh];
+    x += __shfl_xor_sync(0xffffffffu, x, 1);
+    x += __shfl_xor_sync(0xffffffffu, x, 2);
+    lc[hh] = fmaxf(x, 1e-30f);
+    inv[hh] = 1.f / lc[hh];
+  }
+  // o through this warp's own rows of the first q slice buffer; the lse once
+  store_acc<W, LD>(static_cast<bf16*>(a.o) + b * a.so.b + h * a.so.h + dz, a.so.s,
+                   q0 + 16 * warp, a.S, sRing + 16 * warp * LD, acc, inv, lane);
+  if (t == 0 && blockIdx.z == 0) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = row0 + 8 * hh;
+      if (row < a.S) a.lse_out[(int64_t)bh * a.S + row] = m[hh] + logf(lc[hh]);
+    }
+  }
+}
+
+// K4, bf16: one block per (b*h, 64-row q tile, kWide dq columns).  Unit u is
+// slice u % nsl of q, do, k and v for kv tile u / nsl; the first slice of a
+// tile also brings k's columns [dz, dz + kWide) for dq += ds k.
+__global__ void __launch_bounds__(kMmaThreads, 1) flash_dq_wide_mma_kernel(Args a) {
+  constexpr int W = kWide, LD = W + 8, KD = W / 16, NS = kBK / 8, NO = W / 8, TILE = kBK * LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sRing = reinterpret_cast<bf16*>(smem_raw);  // 2 stages x (q, do, k, v slices)
+  bf16* sKz = sRing + 8 * TILE;                      // 2 stages x k's columns of this block
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int mi = lane >> 3, mr = lane & 7;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H, kvh = h / (a.H / a.Hkv);
+  const int q0 = blockIdx.y * kBQ, dz = blockIdx.z * W, nsl = a.D / W;
+  const bf16* q = static_cast<const bf16*>(a.q) + b * a.sq.b + h * a.sq.h;
+  const bf16* dout = static_cast<const bf16*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
+  const bf16* k = static_cast<const bf16*>(a.k) + b * a.sk.b + kvh * a.sk.h;
+  const bf16* v = static_cast<const bf16*>(a.v) + b * a.sv.b + kvh * a.sv.h;
+  const int kv_end = kv_end_of(a, b);
+  int lo, hi;
+  kv_range(a, q0, kBQ, kv_end, lo, hi);
+  const int first = (lo / kBK) * kBK;
+  const int ntiles = hi > first ? (hi - first + kBK - 1) / kBK : 0, units = ntiles * nsl;
+  auto stage = [&](int u) {
+    const int it = u / nsl, sl = u % nsl, kv0 = first + it * kBK;
+    bf16* st = sRing + (u & 1) * 4 * TILE;
+    stage_rows<W, kBQ>(st, q + sl * W, a.sq.s, q0, a.S);
+    stage_rows<W, kBQ>(st + TILE, dout + sl * W, a.sdo.s, q0, a.S);
+    stage_rows<W, kBK>(st + 2 * TILE, k + sl * W, a.sk.s, kv0, a.T);
+    stage_rows<W, kBK>(st + 3 * TILE, v + sl * W, a.sv.s, kv0, a.T);
+    if (sl == 0) stage_rows<W, kBK>(sKz + (it & 1) * TILE, k + dz, a.sk.s, kv0, a.T);
+  };
+
+  if (units > 0) stage(0);
+  cp_async_commit();
+  const int row0 = q0 + 16 * warp + g;
+  float lse[2], di[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    lse[hh] = row < a.S ? a.lse[(int64_t)bh * a.S + row] : 0.f;
+    di[hh] = row < a.S ? a.di[(int64_t)bh * a.S + row] : 0.f;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  const int at_w = (16 * warp + mr + 8 * (mi & 1)) * LD + 8 * (mi >> 1);
+  float acc[NO][4], s[NS][4], dp[NS][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int u = 0; u < units; ++u) {
+    if (u + 1 < units) {
+      stage(u + 1);
+      cp_async_commit();
+    }
+    const int it = u / nsl, sl = u % nsl, kv0 = first + it * kBK;
+    const bf16* sQ = sRing + (u & 1) * 4 * TILE;
+    const bf16* sO = sQ + TILE;
+    const bf16* sK = sQ + 2 * TILE;
+    const bf16* sV = sQ + 3 * TILE;
+    if (sl == 0) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qa[4], of[4];
+      ldsm4(qa, sQ + at_w + 16 * kk);
+      ldsm4(of, sO + at_w + 16 * kk);
+#pragma unroll
+      for (int j = 0; j < NS; j += 2) {
+        uint32_t kb[4], vb[4];
+        const int at = (8 * j + mr + 8 * (mi >> 1)) * LD + 16 * kk + 8 * (mi & 1);
+        ldsm4(kb, sK + at);
+        ldsm4(vb, sV + at);
+        mma_bf16(s[j], qa, kb[0], kb[1]);
+        mma_bf16(s[j + 1], qa, kb[2], kb[3]);
+        mma_bf16(dp[j], of, vb[0], vb[1]);
+        mma_bf16(dp[j + 1], of, vb[2], vb[3]);
+      }
+    }
+    if (sl == nsl - 1) {  // s and dp are whole: ds, then dq += ds k
+      if (tile_full(a, q0, kBQ, kv0, kBK, kv_end, true))
+        dq_probs<false>(s, dp, lse, di, a, row0, kv0 + 2 * t, kv_end);
+      else
+        dq_probs<true>(s, dp, lse, di, a, row0, kv0 + 2 * t, kv_end);
+      const bf16* sKzi = sKz + (it & 1) * TILE;
+#pragma unroll
+      for (int kc = 0; kc < kBK / 16; ++kc) {
+        uint32_t da[kDqTerms][4];
+        a_from_acc(s, kc, da);
+#pragma unroll
+        for (int n = 0; n < NO; n += 2) {
+          uint32_t kb[4];
+          ldsm4_t(kb, sKzi + (16 * kc + mr + 8 * (mi & 1)) * LD + 8 * n + 8 * (mi >> 1));
+#pragma unroll
+          for (int i = 0; i < kDqTerms; ++i) {
+            mma_bf16(acc[n], da[i], kb[0], kb[1]);
+            mma_bf16(acc[n + 1], da[i], kb[2], kb[3]);
+          }
+        }
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  }
+
+  const float scale2[2] = {a.scale, a.scale};
+  store_acc<W, LD>(static_cast<bf16*>(a.dq) + b * a.sdq.b + h * a.sdq.h + dz, a.sdq.s,
+                   q0 + 16 * warp, a.S, sRing + 16 * warp * LD, acc, scale2, lane);
+}
+
+// K5, bf16: one block per (b*hkv, 64-row kv tile, kWide dk/dv columns),
+// looping over (q head of the group x 32-row q tile), head-major.  Unit u is
+// slice u % nsl of k, v, q and do for q tile u / nsl; the first slice of a q
+// tile also brings q's and do's columns [dz, dz + kWide) and the tile's lse
+// and di.
+__global__ void __launch_bounds__(kMmaThreads, 1) flash_dkv_wide_mma_kernel(Args a) {
+  constexpr int W = kWide, LD = W + 8, BQ = 32, KD = W / 16, NQ = BQ / 8, NO = W / 8;
+  constexpr int TK = kBK * LD, TQ = BQ * LD, STAGE = 2 * TK + 2 * TQ;
+  static_assert(2 * BQ <= kMmaThreads, "one thread per lse or di entry");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sRing = reinterpret_cast<bf16*>(smem_raw);  // 2 stages x (k, v, q, do slices)
+  bf16* sQz = sRing + 2 * STAGE;                     // 2 stages x (q, do columns of this block)
+  float* sLD = reinterpret_cast<float*>(sQz + 4 * TQ);  // 2 stages x (lse, di)
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int mi = lane >> 3, mr = lane & 7;
+  const int n = blockIdx.x, b = n / a.Hkv, kvh = n % a.Hkv, group = a.H / a.Hkv;
+  const int k0 = blockIdx.y * kBK, dz = blockIdx.z * W, nsl = a.D / W;
+  const bf16* k = static_cast<const bf16*>(a.k) + b * a.sk.b + kvh * a.sk.h;
+  const bf16* v = static_cast<const bf16*>(a.v) + b * a.sv.b + kvh * a.sv.h;
+  const int kv_end = kv_end_of(a, b), off = a.T - a.S;
+  // q rows [qlo, qhi) that see any unmasked key of this tile
+  const int k1 = min(k0 + kBK, kv_end);
+  const int qlo = a.causal ? max(0, k0 - off) : 0;
+  const int qhi = a.window ? min(a.S, k1 - 1 - off + a.window) : a.S;
+  const int qfirst = (qlo / BQ) * BQ;
+  const int nq = (k0 < kv_end && qhi > qfirst) ? (qhi - qfirst + BQ - 1) / BQ : 0;
+  const int total = group * nq, units = total * nsl;
+  auto stage = [&](int u) {
+    const int it = u / nsl, sl = u % nsl;
+    const int hq = kvh * group + it / nq, q0 = qfirst + (it % nq) * BQ;
+    const bf16* q = static_cast<const bf16*>(a.q) + b * a.sq.b + hq * a.sq.h;
+    const bf16* dout = static_cast<const bf16*>(a.dout) + b * a.sdo.b + hq * a.sdo.h;
+    bf16* st = sRing + (u & 1) * STAGE;
+    stage_rows<W, kBK>(st, k + sl * W, a.sk.s, k0, a.T);
+    stage_rows<W, kBK>(st + TK, v + sl * W, a.sv.s, k0, a.T);
+    stage_rows<W, BQ>(st + 2 * TK, q + sl * W, a.sq.s, q0, a.S);
+    stage_rows<W, BQ>(st + 2 * TK + TQ, dout + sl * W, a.sdo.s, q0, a.S);
+    if (sl == 0) {
+      bf16* sz = sQz + (it & 1) * 2 * TQ;
+      stage_rows<W, BQ>(sz, q + dz, a.sq.s, q0, a.S);
+      stage_rows<W, BQ>(sz + TQ, dout + dz, a.sdo.s, q0, a.S);
+      if (threadIdx.x < 2 * BQ) {
+        const int row = q0 + threadIdx.x % BQ;
+        const float* src = (threadIdx.x < BQ ? a.lse : a.di) + ((int64_t)b * a.H + hq) * a.S;
+        cp_async4(sLD + (it & 1) * 2 * BQ + threadIdx.x, src + (row < a.S ? row : 0),
+                  row < a.S);
+      }
+    }
+  };
+
+  if (units > 0) stage(0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  float dk[NO][4], dv[NO][4], sc[NQ][4], dp[NQ][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+  const int at_w = (16 * warp + mr + 8 * (mi & 1)) * LD + 8 * (mi >> 1);
+  const int col0 = k0 + 16 * warp + g;  // this lane's kv rows: col0 and col0 + 8
+
+  for (int u = 0; u < units; ++u) {
+    if (u + 1 < units) {
+      stage(u + 1);
+      cp_async_commit();
+    }
+    const int it = u / nsl, sl = u % nsl, q0 = qfirst + (it % nq) * BQ;
+    const bf16* sK = sRing + (u & 1) * STAGE;
+    const bf16* sV = sK + TK;
+    const bf16* sQ = sK + 2 * TK;
+    const bf16* sO = sQ + TQ;
+    if (sl == 0) {
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+    }
+    // s^T = k q^T and dp^T = v do^T over this slice
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t ka[4], va[4];
+      ldsm4(ka, sK + at_w + 16 * kk);
+      ldsm4(va, sV + at_w + 16 * kk);
+#pragma unroll
+      for (int j = 0; j < NQ; j += 2) {
+        uint32_t qb[4], ob[4];
+        const int at = (8 * j + mr + 8 * (mi >> 1)) * LD + 16 * kk + 8 * (mi & 1);
+        ldsm4(qb, sQ + at);
+        ldsm4(ob, sO + at);
+        mma_bf16(sc[j], ka, qb[0], qb[1]);
+        mma_bf16(sc[j + 1], ka, qb[2], qb[3]);
+        mma_bf16(dp[j], va, ob[0], ob[1]);
+        mma_bf16(dp[j + 1], va, ob[2], ob[3]);
+      }
+    }
+    if (sl == nsl - 1) {  // whole: p^T and ds^T, then dv += p^T do and dk += ds^T q
+      const float* sL = sLD + (it & 1) * 2 * BQ;
+      if (tile_full(a, q0, BQ, k0, kBK, kv_end, true))
+        dkv_probs<false>(sc, dp, sL, sL + BQ, a, q0, col0, kv_end, t);
+      else
+        dkv_probs<true>(sc, dp, sL, sL + BQ, a, q0, col0, kv_end, t);
+      const bf16* sQzi = sQz + (it & 1) * 2 * TQ;
+      const bf16* sOz = sQzi + TQ;
+#pragma unroll
+      for (int kc = 0; kc < BQ / 16; ++kc) {
+        uint32_t pa[kDkvTerms][4], da[kDkvTerms][4];
+        a_from_acc(sc, kc, pa);
+        a_from_acc(dp, kc, da);
+#pragma unroll
+        for (int j = 0; j < NO; j += 2) {
+          uint32_t ob[4], qb[4];
+          const int at = (16 * kc + mr + 8 * (mi & 1)) * LD + 8 * j + 8 * (mi >> 1);
+          ldsm4_t(ob, sOz + at);
+          ldsm4_t(qb, sQzi + at);
+#pragma unroll
+          for (int i = 0; i < kDkvTerms; ++i) {
+            mma_bf16(dv[j], pa[i], ob[0], ob[1]);
+            mma_bf16(dv[j + 1], pa[i], ob[2], ob[3]);
+            mma_bf16(dk[j], da[i], qb[0], qb[1]);
+            mma_bf16(dk[j + 1], da[i], qb[2], qb[3]);
+          }
+        }
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  }
+
+  // dk and dv through this warp's own rows of the first stage's k and v slices
+  const float scale2[2] = {a.scale, a.scale}, one2[2] = {1.f, 1.f};
+  store_acc<W, LD>(static_cast<bf16*>(a.dk) + b * a.sdk.b + kvh * a.sdk.h + dz, a.sdk.s,
+                   k0 + 16 * warp, a.T, sRing + 16 * warp * LD, dk, scale2, lane);
+  store_acc<W, LD>(static_cast<bf16*>(a.dv) + b * a.sdv.b + kvh * a.sdv.h + dz, a.sdv.s,
+                   k0 + 16 * warp, a.T, sRing + TK + 16 * warp * LD, dv, one2, lane);
+}
+
+// The FMA design past D 256 (fp32): the kernels above on 64-row fp32 tiles
+// (the 16 x 16 threads own 4 x 4 scores and 4 rows x 8 of the block's kWide
+// columns each), the slices loaded in turn with no ring.
+constexpr int kWideR = 4;
+
+__global__ void __launch_bounds__(kThreads) flash_fwd_wide_kernel(Args a) {
+  constexpr int W = kWide, R = kWideR, BT = 16 * R, LDP = BT + 1, LDD = W + 1, NJ = W / 16;
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sK = sQ + BT * LDD;
+  float* sV = sK + BT * LDD;
+  float* sP = sV + BT * LDD;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H, kvh = h / (a.H / a.Hkv);
+  const int q0 = blockIdx.y * BT, dz = blockIdx.z * W, nsl = a.D / W;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const float* q = static_cast<const float*>(a.q) + b * a.sq.b + h * a.sq.h;
+  const float* k = static_cast<const float*>(a.k) + b * a.sk.b + kvh * a.sk.h;
+  const float* v = static_cast<const float*>(a.v) + b * a.sv.b + kvh * a.sv.h;
+  const int kv_end = kv_end_of(a, b);
+
+  float m[R], l[R], acc[R][NJ];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+  }
+  int lo, hi;
+  kv_range(a, q0, BT, kv_end, lo, hi);
+  for (int kv0 = (lo / BT) * BT; kv0 < hi; kv0 += BT) {
+    float s[R][R] = {};
+    for (int sl = 0; sl < nsl; ++sl) {
+      __syncthreads();  // the last readers of sQ, sK (and of sV, sP) are done
+      load_tile<float, W, BT>(sQ, q + sl * W, a.sq.s, q0, a.S);
+      load_tile<float, W, BT>(sK, k + sl * W, a.sk.s, kv0, a.T);
+      if (sl == 0) load_tile<float, W, BT>(sV, v + dz, a.sv.s, kv0, a.T);
+      __syncthreads();
+#pragma unroll 16
+      for (int d = 0; d < W; ++d) {
+        float qa[R], kb[R];
+#pragma unroll
+        for (int i = 0; i < R; ++i) qa[i] = sQ[(ty + 16 * i) * LDD + d];
+#pragma unroll
+        for (int j = 0; j < R; ++j) kb[j] = sK[(tx + 16 * j) * LDD + d];
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int j = 0; j < R; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int row = q0 + ty + 16 * i;
+      bool ok[R];
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        ok[j] = keep(a, row, kv0 + tx + 16 * j, kv_end);
+        s[i][j] = ok[j] ? s[i][j] * a.scale : kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], max16(mx));
+      const float alpha = expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
+        sP[(ty + 16 * i) * LDP + tx + 16 * j] = p;
+        sum += p;
+      }
+      l[i] = alpha * l[i] + sum16(sum);
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < BT; ++kk) {
+      float pa[R], vb[NJ];
+#pragma unroll
+      for (int i = 0; i < R; ++i) pa[i] = sP[(ty + 16 * i) * LDP + kk];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) vb[j] = sV[kk * LDD + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(pa[i], vb[j], acc[i][j]);
+    }
+  }
+
+  float* o = static_cast<float*>(a.o) + b * a.so.b + h * a.so.h + dz;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= a.S) continue;
+    const float lc = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) o[row * a.so.s + tx + 16 * j] = acc[i][j] / lc;
+    if (tx == 0 && blockIdx.z == 0) a.lse_out[(int64_t)bh * a.S + row] = m[i] + logf(lc);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) flash_dq_wide_kernel(Args a) {
+  constexpr int W = kWide, R = kWideR, BT = 16 * R, LDP = BT + 1, LDD = W + 1, NJ = W / 16;
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sO = sQ + BT * LDD;   // do
+  float* sK = sO + BT * LDD;   // k's slice, then k's columns of this block
+  float* sV = sK + BT * LDD;
+  float* sS = sV + BT * LDD;   // ds
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H, kvh = h / (a.H / a.Hkv);
+  const int q0 = blockIdx.y * BT, dz = blockIdx.z * W, nsl = a.D / W;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const float* q = static_cast<const float*>(a.q) + b * a.sq.b + h * a.sq.h;
+  const float* dout = static_cast<const float*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
+  const float* k = static_cast<const float*>(a.k) + b * a.sk.b + kvh * a.sk.h;
+  const float* v = static_cast<const float*>(a.v) + b * a.sv.b + kvh * a.sv.h;
+  const int kv_end = kv_end_of(a, b);
+
+  float lse[R], di[R], acc[R][NJ];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = q0 + ty + 16 * i;
+    lse[i] = row < a.S ? a.lse[(int64_t)bh * a.S + row] : 0.f;
+    di[i] = row < a.S ? a.di[(int64_t)bh * a.S + row] : 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+  }
+  int lo, hi;
+  kv_range(a, q0, BT, kv_end, lo, hi);
+  for (int kv0 = (lo / BT) * BT; kv0 < hi; kv0 += BT) {
+    float s[R][R] = {}, dp[R][R] = {};
+    for (int sl = 0; sl < nsl; ++sl) {
+      __syncthreads();
+      load_tile<float, W, BT>(sQ, q + sl * W, a.sq.s, q0, a.S);
+      load_tile<float, W, BT>(sO, dout + sl * W, a.sdo.s, q0, a.S);
+      load_tile<float, W, BT>(sK, k + sl * W, a.sk.s, kv0, a.T);
+      load_tile<float, W, BT>(sV, v + sl * W, a.sv.s, kv0, a.T);
+      __syncthreads();
+#pragma unroll 8
+      for (int d = 0; d < W; ++d) {
+        float qa[R], oa[R], kb[R], vb[R];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          qa[i] = sQ[(ty + 16 * i) * LDD + d];
+          oa[i] = sO[(ty + 16 * i) * LDD + d];
+        }
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          kb[j] = sK[(tx + 16 * j) * LDD + d];
+          vb[j] = sV[(tx + 16 * j) * LDD + d];
+        }
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int j = 0; j < R; ++j) {
+            s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
+            dp[i][j] = fmaf(oa[i], vb[j], dp[i][j]);
+          }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int row = q0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const bool ok = row < a.S && keep(a, row, kv0 + tx + 16 * j, kv_end);
+        const float p = ok ? expf(s[i][j] * a.scale - lse[i]) : 0.f;
+        sS[(ty + 16 * i) * LDP + tx + 16 * j] = p * (dp[i][j] - di[i]);
+      }
+    }
+    __syncthreads();  // every reader of k's last slice is done
+    load_tile<float, W, BT>(sK, k + dz, a.sk.s, kv0, a.T);
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < BT; ++kk) {
+      float da[R], kb[NJ];
+#pragma unroll
+      for (int i = 0; i < R; ++i) da[i] = sS[(ty + 16 * i) * LDP + kk];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) kb[j] = sK[kk * LDD + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(da[i], kb[j], acc[i][j]);
+    }
+  }
+
+  float* dq = static_cast<float*>(a.dq) + b * a.sdq.b + h * a.sdq.h + dz;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= a.S) continue;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) dq[row * a.sdq.s + tx + 16 * j] = a.scale * acc[i][j];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) flash_dkv_wide_kernel(Args a) {
+  constexpr int W = kWide, R = kWideR, BT = 16 * R, LDP = BT + 1, LDD = W + 1, NJ = W / 16;
+  extern __shared__ float smem[];
+  float* sK = smem;
+  float* sV = sK + BT * LDD;
+  float* sQ = sV + BT * LDD;   // q's slice, then q's columns of this block
+  float* sO = sQ + BT * LDD;   // do's slice, then do's columns of this block
+  float* sP = sO + BT * LDD;   // p^T: kv rows x q cols
+  float* sS = sP + BT * LDP;   // ds^T
+  float* sL = sS + BT * LDP;   // lse of the q tile's rows
+  float* sD = sL + BT;         // di of the q tile's rows
+  const int n = blockIdx.x, b = n / a.Hkv, kvh = n % a.Hkv, group = a.H / a.Hkv;
+  const int k0 = blockIdx.y * BT, dz = blockIdx.z * W, nsl = a.D / W;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const float* k = static_cast<const float*>(a.k) + b * a.sk.b + kvh * a.sk.h;
+  const float* v = static_cast<const float*>(a.v) + b * a.sv.b + kvh * a.sv.h;
+  const int kv_end = kv_end_of(a, b), off = a.T - a.S;
+
+  float dk[R][NJ], dv[R][NJ];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) dk[i][j] = dv[i][j] = 0.f;
+
+  const int k1 = min(k0 + BT, kv_end);
+  const int qlo = a.causal ? max(0, k0 - off) : 0;
+  const int qhi = a.window ? min(a.S, k1 - 1 - off + a.window) : a.S;
+  for (int hg = 0; k0 < kv_end && hg < group; ++hg) {
+    const int h = kvh * group + hg;
+    const int64_t bh = (int64_t)b * a.H + h;
+    const float* q = static_cast<const float*>(a.q) + b * a.sq.b + h * a.sq.h;
+    const float* dout = static_cast<const float*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
+    for (int q0 = (qlo / BT) * BT; q0 < qhi; q0 += BT) {
+      float s[R][R] = {}, dp[R][R] = {};
+      for (int sl = 0; sl < nsl; ++sl) {
+        __syncthreads();  // the last readers of the tiles are done
+        load_tile<float, W, BT>(sK, k + sl * W, a.sk.s, k0, a.T);
+        load_tile<float, W, BT>(sV, v + sl * W, a.sv.s, k0, a.T);
+        load_tile<float, W, BT>(sQ, q + sl * W, a.sq.s, q0, a.S);
+        load_tile<float, W, BT>(sO, dout + sl * W, a.sdo.s, q0, a.S);
+        if (sl == 0) {
+          for (int r = threadIdx.x; r < BT; r += kThreads) {
+            const int row = q0 + r;
+            sL[r] = row < a.S ? a.lse[bh * a.S + row] : 0.f;
+            sD[r] = row < a.S ? a.di[bh * a.S + row] : 0.f;
+          }
+        }
+        __syncthreads();
+#pragma unroll 8
+        for (int d = 0; d < W; ++d) {
+          float ka[R], va[R], qb[R], ob[R];
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+            ka[i] = sK[(ty + 16 * i) * LDD + d];
+            va[i] = sV[(ty + 16 * i) * LDD + d];
+          }
+#pragma unroll
+          for (int j = 0; j < R; ++j) {
+            qb[j] = sQ[(tx + 16 * j) * LDD + d];
+            ob[j] = sO[(tx + 16 * j) * LDD + d];
+          }
+#pragma unroll
+          for (int i = 0; i < R; ++i)
+#pragma unroll
+            for (int j = 0; j < R; ++j) {
+              s[i][j] = fmaf(ka[i], qb[j], s[i][j]);
+              dp[i][j] = fmaf(va[i], ob[j], dp[i][j]);
+            }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int col = k0 + ty + 16 * i;
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          const int r = tx + 16 * j, row = q0 + r;
+          const bool ok = row < a.S && keep(a, row, col, kv_end);
+          const float p = ok ? expf(s[i][j] * a.scale - sL[r]) : 0.f;
+          sP[(ty + 16 * i) * LDP + r] = p;
+          sS[(ty + 16 * i) * LDP + r] = p * (dp[i][j] - sD[r]);
+        }
+      }
+      __syncthreads();  // every reader of q's and do's last slices is done
+      load_tile<float, W, BT>(sQ, q + dz, a.sq.s, q0, a.S);
+      load_tile<float, W, BT>(sO, dout + dz, a.sdo.s, q0, a.S);
+      __syncthreads();
+#pragma unroll 4
+      for (int r = 0; r < BT; ++r) {
+        float pa[R], da[R], ob[NJ], qb[NJ];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          pa[i] = sP[(ty + 16 * i) * LDP + r];
+          da[i] = sS[(ty + 16 * i) * LDP + r];
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          ob[j] = sO[r * LDD + tx + 16 * j];
+          qb[j] = sQ[r * LDD + tx + 16 * j];
+        }
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            dv[i][j] = fmaf(pa[i], ob[j], dv[i][j]);
+            dk[i][j] = fmaf(da[i], qb[j], dk[i][j]);
+          }
+      }
+    }
+  }
+
+  float* dkp = static_cast<float*>(a.dk) + b * a.sdk.b + kvh * a.sdk.h + dz;
+  float* dvp = static_cast<float*>(a.dv) + b * a.sdv.b + kvh * a.sdv.h + dz;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = k0 + ty + 16 * i;
+    if (row >= a.T) continue;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      dkp[row * a.sdk.s + tx + 16 * j] = a.scale * dk[i][j];
+      dvp[row * a.sdv.s + tx + 16 * j] = dv[i][j];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -1148,6 +1871,23 @@ static_assert(fwd_smem<256>() <= 232448 && dq_smem<256>() <= 232448 &&
                   dq_mma_smem<256>() <= 232448 && dkv_mma_smem<256>() <= 232448 &&
                   dkv_smem<128>() <= 232448,
               "every kernel fits an SM's shared memory at its largest head dim");
+// The wide kernels' shared memory, the same at every D.
+constexpr size_t kWideLd = kWide + 8, kWideFmaLd = kWide + 1, kWideFmaRows = 16 * kWideR;
+constexpr size_t kFwdWideMmaSmem = sizeof(bf16) * 6 * kBK * kWideLd;
+constexpr size_t kDqWideMmaSmem = sizeof(bf16) * 10 * kBK * kWideLd;
+constexpr size_t kDkvWideMmaSmem =
+    sizeof(bf16) * (4 * kBK + 8 * 32) * kWideLd + sizeof(float) * 4 * 32;
+constexpr size_t kFwdWideSmem =
+    sizeof(float) * (3 * kWideFmaRows * kWideFmaLd + kWideFmaRows * (kWideFmaRows + 1));
+constexpr size_t kDqWideSmem =
+    sizeof(float) * (4 * kWideFmaRows * kWideFmaLd + kWideFmaRows * (kWideFmaRows + 1));
+constexpr size_t kDkvWideSmem = sizeof(float) * (4 * kWideFmaRows * kWideFmaLd +
+                                                 2 * kWideFmaRows * (kWideFmaRows + 1) +
+                                                 2 * kWideFmaRows);
+static_assert(kFwdWideMmaSmem <= 232448 && kDqWideMmaSmem <= 232448 &&
+                  kDkvWideMmaSmem <= 232448 && kFwdWideSmem <= 232448 &&
+                  kDqWideSmem <= 232448 && kDkvWideSmem <= 232448,
+              "every wide kernel fits an SM's shared memory");
 
 // The dynamic shared memory a kernel may take is set once per kernel and
 // device (the attribute call costs host time on every launch otherwise):
@@ -1204,6 +1944,37 @@ int launch_pass(Pass pass, const Args& a, cudaStream_t s) {
   }
 }
 
+// Past D 256: the wide kernels, D / kWide blocks along grid z.
+template <typename T>
+int launch_wide(Pass pass, const Args& a, cudaStream_t s) {
+  static uint64_t configured[3] = {0, 0, 0};  // per pass of this T
+  constexpr bool kMma = std::is_same<T, bf16>::value;
+  constexpr int rows = kMma ? kBQ : (int)kWideFmaRows;
+  static_assert(kBQ == kBK, "q and kv tiles of one design have the same rows");
+  const int64_t tiles = ((pass == kDkv ? a.T : a.S) + rows - 1) / rows, z = a.D / kWide;
+  if (tiles > 65535 || z > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 q_grid((unsigned)(a.B * a.H), (unsigned)tiles, (unsigned)z);
+  const dim3 kv_grid((unsigned)(a.B * a.Hkv), (unsigned)tiles, (unsigned)z);
+  if constexpr (kMma) {
+    if (pass == kFwd)
+      return launch(flash_fwd_wide_mma_kernel, q_grid, kMmaThreads, kFwdWideMmaSmem, a, s,
+                    configured[kFwd]);
+    if (pass == kDq)
+      return launch(flash_dq_wide_mma_kernel, q_grid, kMmaThreads, kDqWideMmaSmem, a, s,
+                    configured[kDq]);
+    return launch(flash_dkv_wide_mma_kernel, kv_grid, kMmaThreads, kDkvWideMmaSmem, a, s,
+                  configured[kDkv]);
+  } else {
+    if (pass == kFwd)
+      return launch(flash_fwd_wide_kernel, q_grid, kThreads, kFwdWideSmem, a, s,
+                    configured[kFwd]);
+    if (pass == kDq)
+      return launch(flash_dq_wide_kernel, q_grid, kThreads, kDqWideSmem, a, s, configured[kDq]);
+    return launch(flash_dkv_wide_kernel, kv_grid, kThreads, kDkvWideSmem, a, s,
+                  configured[kDkv]);
+  }
+}
+
 template <typename T>
 int launch_d(Pass pass, const Args& a, int D, cudaStream_t s) {
   switch (D) {
@@ -1212,7 +1983,9 @@ int launch_d(Pass pass, const Args& a, int D, cudaStream_t s) {
     case 64: return launch_pass<T, 64>(pass, a, s);
     case 128: return launch_pass<T, 128>(pass, a, s);
     case 256: return launch_pass<T, 256>(pass, a, s);
-    default: return (int)cudaErrorInvalidValue;
+    default:
+      if (D > 256 && D % kWide == 0) return launch_wide<T>(pass, a, s);
+      return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -1247,7 +2020,8 @@ bool mma_aligned(Pass pass, const Args& a) {
   return grad_in && aligned16(a.dk) && aligned16(a.dv) && rows16(a.sdk) && rows16(a.sdv);
 }
 
-int run(Pass pass, const Args& a, int dtype, int D, void* stream) {
+int run(Pass pass, Args a, int dtype, int D, void* stream) {
+  a.D = D;
   if (a.B < 1 || a.H < 1 || a.Hkv < 1 || a.H % a.Hkv || a.S < 1 || a.T < 1)
     return (int)cudaErrorInvalidValue;
   if (dtype == 1 && !mma_aligned(pass, a))

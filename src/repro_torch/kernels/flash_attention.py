@@ -26,9 +26,10 @@ run on the tensor cores and fp32 on fp32 FMA kernels, by dtype
 move bf16 rows in 16-byte pieces, so they need 16-byte aligned base pointers
 and (b, h, s) strides that are multiples of 8 elements; the wrappers raise
 on anything else.  The kernels are built for the head dims of
-``HEAD_DIMS``; :func:`flash_attention` runs any other head dim up to 256 on
-the card by zero-padding q, k and v to the next one
-(:func:`padded_flash_attention`: zero columns add nothing to q·k, and o,
+``HEAD_DIMS``, and past 256 the wide kernels take any multiple of ``WIDE``
+(the scores formed over D in ``WIDE``-column slices); :func:`flash_attention`
+runs any other head dim on the card by zero-padding q, k and v to the next
+one (:func:`padded_flash_attention`: zero columns add nothing to q·k, and o,
 dq, dk and dv are sliced back), with the softmax scale of the real head
 dim.
 """
@@ -48,6 +49,7 @@ register_copies("flash_do")
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernels' head dims; others are zero-padded
+WIDE = 128   # past 256, the wide kernels take any multiple of WIDE
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _LIB: Optional[ctypes.CDLL] = None
@@ -246,9 +248,9 @@ def _check(q, k, v, valid, spec: FlashSpec, *, aligned: bool = False, **more) ->
                          f"q {tuple(q.shape)}")
     if hkv < 1 or h % hkv:
         raise ValueError(f"n_heads {h} not a multiple of kv heads {hkv}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} is not one of the kernels' {HEAD_DIMS} "
-                         "(flash_attention pads others up to 256)")
+    if d not in HEAD_DIMS and not (d > HEAD_DIMS[-1] and d % WIDE == 0):
+        raise ValueError(f"head dim {d} is not one of the kernels' {HEAD_DIMS} nor a "
+                         f"multiple of {WIDE} past them (flash_attention pads others)")
     if min(b, h, s, t) < 1 or max(b * h, s, t) >= 2**31:
         raise ValueError(f"sizes out of range: q {tuple(q.shape)}, k {tuple(k.shape)}")
     for name, x in (("q", q), ("k", k), ("v", v), *more.items()):
@@ -412,11 +414,12 @@ class FlashAttention(torch.autograd.Function):
 
 def kernel_head_dim(d: int) -> int:
     """The head dim of the kernels that run head dim ``d``: the smallest of
-    ``HEAD_DIMS`` at least ``d``.  Raises past the largest."""
+    ``HEAD_DIMS`` at least ``d``, and past the largest the next multiple of
+    ``WIDE`` (the wide kernels')."""
     for dk in HEAD_DIMS:
         if d <= dk:
             return dk
-    raise ValueError(f"head dim {d} is past the flash kernels' largest, {HEAD_DIMS[-1]}")
+    return -(-d // WIDE) * WIDE
 
 
 def padded_flash_attention(q, k, v, valid, spec: FlashSpec, plain: bool = False
@@ -450,9 +453,10 @@ def flash_attention(
     Keys at positions ``>= kv_valid[b]`` are masked for every query row of
     example ``b`` (lengths clipped to [1, T]; None masks nothing and passes
     the kernels no lengths at all); ``scale`` defaults to 1/√D.
-    Any S and T: the kernels mask their own ragged tails.  Any head dim up
-    to 256: on the card one outside ``HEAD_DIMS`` runs padded
-    (:func:`padded_flash_attention`); the plain version takes it as it is.
+    Any S and T: the kernels mask their own ragged tails.  Any head dim: on
+    the card one outside ``HEAD_DIMS`` (and, past 256, not a multiple of
+    ``WIDE``) runs padded (:func:`padded_flash_attention`); the plain version
+    takes it as it is.
     ``plain=True`` runs the plain version on any device, the reference a
     kernel run is held to on the card.
     """

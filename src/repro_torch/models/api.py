@@ -1,9 +1,12 @@
 """Model API over the ported families (port of ``repro.models.api``).
 
 ``build_model(cfg)`` returns a :class:`Model` with the parameter
-definitions, ``init``/``apply`` (``(logits, aux)``, as the reference's), the serving calls ``prefill``/``decode``
-over a ``make_cache`` cache, and the optimizer metadata (weight-decay
-mask, trust-ratio mask, stacked-layer axes), all keyed by the JAX paths.
+definitions, ``init``/``apply`` (``(logits, aux)``, as the reference's), the
+serving calls ``prefill``/``decode`` over a ``make_cache`` cache, and the
+optimizer metadata (weight-decay mask, trust-ratio mask, stacked-layer
+axes), all keyed by the JAX paths.  It dispatches on ``cfg.family`` as the
+reference does: ``hybrid`` to ``models/hybrid.py`` (Jamba), ``ssm`` to
+``models/xlstm_model.py``, every other family to ``models/transformer.py``.
 """
 from __future__ import annotations
 
@@ -14,7 +17,16 @@ import torch
 
 from repro_torch import nn
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, transformer, xlstm_model
+
+
+def _family(cfg: ModelConfig):
+    """The module of ``cfg``'s family, with its ``forward`` and ``make_cache``."""
+    if cfg.family == "hybrid":
+        return hybrid
+    if cfg.family == "ssm":
+        return xlstm_model
+    return transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,32 +58,41 @@ class Model:
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Train/encoder forward: ``(logits, aux)``, the (B, S, V) logits in
         the activation dtype (with ``return_hidden`` the final hidden states
-        (B, S, D) for the fused CE head) and the MoE aux losses averaged over
-        the layers (empty for a dense model)."""
-        return transformer.forward(params, batch, self.cfg, return_hidden=return_hidden)
+        (B, S, D) for the fused CE head: transformer families only, as in
+        the reference) and the MoE aux losses averaged over the layers (empty
+        for a dense model)."""
+        if return_hidden:
+            if _family(self.cfg) is not transformer:
+                raise ValueError(f"return_hidden is not supported for family "
+                                 f"{self.cfg.family!r} (transformer families only)")
+            return transformer.forward(params, batch, self.cfg, return_hidden=True)
+        return _family(self.cfg).forward(params, batch, self.cfg)
 
     def prefill(self, params: nn.Params, batch, cache) -> Tuple[torch.Tensor, Any]:
         """(B, S, V) logits of the prompt, and ``cache`` filled in place with
         its S positions (the aux losses are dropped, as in the reference).
         Weights are cast to the activation dtype where they
         are used, as in the reference."""
-        logits, _ = transformer.forward(params, batch, self.cfg, caches=cache, decode=False)
+        logits, _ = _family(self.cfg).forward(params, batch, self.cfg, caches=cache,
+                                              decode=False)
         return logits, cache
 
     def decode(self, params: nn.Params, batch, cache, positions: torch.Tensor
                ) -> Tuple[torch.Tensor, Any]:
         """(B, S, V) logits of ``batch["tokens"]`` at ``positions`` (B, S),
-        each layer's k/v written into ``cache`` at its index, in place."""
-        logits, _ = transformer.forward(params, batch, self.cfg, caches=cache, decode=True,
-                                        positions=positions)
+        each layer's k/v written into ``cache`` at its index (a recurrent
+        layer's state overwritten), in place."""
+        logits, _ = _family(self.cfg).forward(params, batch, self.cfg, caches=cache,
+                                              decode=True, positions=positions)
         return logits, cache
 
     def make_cache(self, batch: int, max_len: int, device) -> Dict[str, Any]:
         """A zeroed cache for ``batch`` rows of ``max_len`` positions in the
-        activation dtype, on ``device``."""
-        return transformer.make_cache(self.cfg, batch, max_len,
-                                      dtype=nn.torch_dtype(self.cfg.activation_dtype),
-                                      device=torch.device(device))
+        activation dtype, on ``device`` (recurrent state: O(1) in
+        ``max_len``, fp32 where the reference keeps it so)."""
+        return _family(self.cfg).make_cache(self.cfg, batch, max_len,
+                                            dtype=nn.torch_dtype(self.cfg.activation_dtype),
+                                            device=torch.device(device))
 
     def param_count(self) -> int:
         return nn.param_count(self.defs)
@@ -79,4 +100,8 @@ class Model:
 
 def build_model(cfg: ModelConfig) -> Model:
     """The model of ``cfg``; raises for what the port does not have yet."""
+    if cfg.family == "hybrid":
+        return Model(cfg, hybrid.hybrid_defs(cfg))
+    if cfg.family == "ssm":
+        return Model(cfg, xlstm_model.xlstm_defs(cfg))
     return Model(cfg, transformer.transformer_defs(cfg))

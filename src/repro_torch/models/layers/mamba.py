@@ -1,0 +1,158 @@
+"""Mamba (S6) selective state-space layer, used by Jamba's hybrid blocks
+(port of ``repro.models.layers.mamba``).
+
+Training/prefill runs the diagonal recurrence h_t = a_t·h_{t−1} + bx_t as a
+parallel scan over time; decode keeps O(1) recurrent state: the ssm state
+(B, Di, N) in fp32 and the causal conv's ring buffer (B, d_conv − 1, Di).
+The reference's ``jax.lax.associative_scan`` becomes a log-depth
+Hillis–Steele scan over axis 1 in plain PyTorch (``_scan``): the same
+combine, (a1, b1)∘(a2, b2) = (a1·a2, a2·b1 + b2), over another tree, so the
+fp32 sums round in another order.  ``chunk`` bounds the (B, S, Di, N)
+intermediates as the reference's does: the scan runs chunk by chunk,
+carrying the state across, and S must be a multiple of ``chunk`` (the
+reference's reshape refuses anything else).  No TPU kernel of the reference
+covers this layer.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.nn.module import Param
+
+State = Dict[str, torch.Tensor]
+
+
+def dt_rank(cfg: ModelConfig) -> int:
+    return cfg.mamba_dt_rank or math.ceil(cfg.d_model / 16)
+
+
+def mamba_defs(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    di = cfg.mamba_expand * d
+    n = cfg.mamba_d_state
+    r = dt_rank(cfg)
+    norm = dict(no_weight_decay=True, no_trust_ratio=True)
+    return {
+        "in_proj": Param((d, 2 * di), ("embed", "inner")),
+        "conv_w": Param((cfg.mamba_d_conv, di), ("conv", "inner"), init="fan_in"),
+        "conv_b": Param((di,), ("inner",), init="zeros", **norm),
+        "x_proj": Param((di, r + 2 * n), ("inner", "state")),
+        "dt_proj": Param((r, di), ("state", "inner")),
+        "dt_bias": Param((di,), ("inner",), init="uniform_scalar", scale=0.1, **norm),
+        # A stored as log(-A) for stability; shape (d_inner, n)
+        "A_log": Param((di, n), ("inner", "state"), init="uniform_scalar", scale=1.0,
+                       no_weight_decay=True),
+        "D": Param((di,), ("inner",), init="ones", **norm),
+        "out_proj": Param((di, d), ("inner", "embed")),
+    }
+
+
+def _scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Inclusive scan of h_t = a_t·h_{t−1} + b_t over axis 1 from h = 0:
+    log2(S) rounds, round k combining each position with the one 2^k
+    before it."""
+    step, s = 1, a.shape[1]
+    while step < s:
+        a_hi, b_hi = a[:, step:], b[:, step:]
+        b = torch.cat([b[:, :step], a_hi * b[:, :-step] + b_hi], 1)
+        if 2 * step < s:   # the last round's products of a are not used
+            a = torch.cat([a[:, :step], a[:, :-step] * a_hi], 1)
+        step *= 2
+    return b
+
+
+def _ssm_scan(
+    a: torch.Tensor,    # (B, S, Di, N) decay terms exp(dt·A)
+    bx: torch.Tensor,   # (B, S, Di, N) input terms dt·B·x
+    h0: Optional[torch.Tensor] = None,   # (B, Di, N)
+    chunk: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """h_t = a_t·h_{t−1} + bx_t from h0 (zero when None): (all h, final h)."""
+    if h0 is not None:
+        bx = torch.cat([bx[:, :1] + a[:, :1] * h0[:, None], bx[:, 1:]], 1)
+    s = a.shape[1]
+    if chunk is None or chunk >= s:
+        h = _scan(a, bx)
+        return h, h[:, -1]
+    if s % chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of mamba chunk {chunk}")
+    # chunked: carry the final state across fixed-size chunks (memory bound by
+    # chunk instead of S)
+    carry = torch.zeros_like(a[:, 0])
+    hs = []
+    for c0 in range(0, s, chunk):
+        ac, bc = a[:, c0:c0 + chunk], bx[:, c0:c0 + chunk]
+        bc = torch.cat([bc[:, :1] + ac[:, :1] * carry[:, None], bc[:, 1:]], 1)
+        h = _scan(ac, bc)
+        carry = h[:, -1]
+        hs.append(h)
+    return torch.cat(hs, 1), carry
+
+
+def mamba(
+    p: Dict[str, torch.Tensor],
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    state: Optional[State] = None,
+    decode: bool = False,
+    chunk: Optional[int] = None,
+) -> Tuple[torch.Tensor, Optional[State]]:
+    """x (B, S, d) → (out (B, S, d), new state or None).  State:
+    ``{"ssm": (B, Di, N) fp32, "conv": (B, d_conv − 1, Di)}``; decode (with a
+    state) takes one token."""
+    dtype = x.dtype
+    di = cfg.mamba_expand * cfg.d_model
+    n, r, dc = cfg.mamba_d_state, dt_rank(cfg), cfg.mamba_d_conv
+    b, s, _ = x.shape
+
+    xi, z = (x @ p["in_proj"].to(dtype)).chunk(2, dim=-1)
+    conv_w = p["conv_w"].to(dtype)
+
+    # depthwise causal conv over time (einsums over the window, as the
+    # reference's: one rounding of the d_conv-term sum)
+    if decode and state is not None:
+        hist = torch.cat([state["conv"].to(dtype), xi], 1)          # (B, dc-1+s, Di)
+        new_conv = hist[:, -(dc - 1):]
+        conv = torch.einsum("bcd,cd->bd", hist[:, -dc:], conv_w)[:, None]
+    else:
+        hist = torch.cat([xi.new_zeros((b, dc - 1, di)), xi], 1)
+        idx = torch.arange(s, device=x.device)[:, None] + torch.arange(dc, device=x.device)
+        conv = torch.einsum("bscd,cd->bsd", hist[:, idx], conv_w)
+        new_conv = hist[:, -(dc - 1):] if state is not None else None
+    conv = F.silu(conv + p["conv_b"].to(dtype))
+
+    # data-dependent dt, B, C
+    dt_in, b_in, c_in = (conv @ p["x_proj"].to(dtype)).split([r, n, n], dim=-1)
+    dt = F.softplus(dt_in @ p["dt_proj"].to(dtype) + p["dt_bias"].to(dtype)).to(torch.float32)
+
+    a_mat = -torch.exp(p["A_log"].to(torch.float32))                  # (Di, N)
+    a = torch.exp(dt[..., None] * a_mat)                               # (B, S, Di, N)
+    bx = (dt * conv.to(torch.float32))[..., None] * b_in.to(torch.float32)[:, :, None, :]
+
+    if decode and state is not None:
+        h = a[:, 0] * state["ssm"] + bx[:, 0]                          # (B, Di, N)
+        new_state = {"ssm": h, "conv": new_conv.to(state["conv"].dtype)}
+        y = (h @ c_in[:, 0].to(torch.float32)[..., None])[..., 0][:, None]
+    else:
+        hs, h_final = _ssm_scan(a, bx, None if state is None else state["ssm"], chunk)
+        y = (hs @ c_in.to(torch.float32)[..., None])[..., 0]           # einsum bsdn,bsn->bsd
+        new_state = (None if state is None
+                     else {"ssm": h_final, "conv": new_conv.to(state["conv"].dtype)})
+
+    y = (y + conv.to(torch.float32) * p["D"].to(torch.float32)).to(dtype)
+    y = y * F.silu(z)
+    return y @ p["out_proj"].to(dtype), new_state
+
+
+def init_mamba_state(batch: int, cfg: ModelConfig, dtype=torch.bfloat16, device=None) -> State:
+    di = cfg.mamba_expand * cfg.d_model
+    return {
+        "ssm": torch.zeros((batch, di, cfg.mamba_d_state), dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cfg.mamba_d_conv - 1, di), dtype=dtype, device=device),
+    }

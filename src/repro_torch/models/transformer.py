@@ -30,7 +30,8 @@ soft-capped where ``cfg.logit_softcap``.  The ``audio_stub`` frontend takes
 ``frame_embeds`` (frames under ``mask`` replaced by the learned
 ``mask_embed``), the ``vision_stub`` one prepends ``image_embeds`` to the
 token embeddings.  Still unported, and raising (ROADMAP.md queue 1, item
-10): MLA, a dense prefix, MTP, and the ``hybrid`` and ``ssm`` families.
+10): MLA, a dense prefix and MTP.  The ``hybrid`` and ``ssm`` families are
+``models/hybrid.py`` and ``models/xlstm_model.py``.
 """
 from __future__ import annotations
 
@@ -60,16 +61,18 @@ _UNPORTED = {
 }
 
 
-def _check_ported(cfg: ModelConfig) -> None:
+def check_flash_softcap(cfg: ModelConfig) -> None:
+    """Refuse flash attention with a logit softcap (the kernels take raw
+    scores; the reference warns and takes dense attention instead)."""
     if cfg.use_flash_kernel and cfg.logit_softcap is not None:
         raise ValueError(
             "use_flash_kernel cannot apply logit_softcap (the flash kernels "
             "take raw scores); disable one of the two"
         )
-    if cfg.family in ("hybrid", "ssm"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported (ROADMAP.md queue 1, item 10)"
-        )
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    check_flash_softcap(cfg)
     for field, what in _UNPORTED.items():
         if getattr(cfg, field):
             raise NotImplementedError(
@@ -114,12 +117,6 @@ def unreachable_leaves(cfg: ModelConfig) -> frozenset:
     return frozenset()
 
 
-def _sub(params: Dict[str, Any], prefix: str) -> Dict[str, Any]:
-    """``{"ln1/scale": ...}`` view of the ``prefix/``-paths of a flat dict."""
-    n = len(prefix) + 1
-    return {k[n:]: v for k, v in params.items() if k.startswith(prefix + "/")}
-
-
 def _one_block(
     bp: Dict[str, torch.Tensor],
     x: torch.Tensor,
@@ -130,14 +127,14 @@ def _one_block(
     decode: bool = False,
     valid_len: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    h = apply_norm(_sub(bp, "ln1"), x, cfg.norm_type)
-    x = x + attention(_sub(bp, "attn"), h, positions, cfg, cache=cache, decode=decode,
+    h = apply_norm(nn.subtree(bp, "ln1"), x, cfg.norm_type)
+    x = x + attention(nn.subtree(bp, "attn"), h, positions, cfg, cache=cache, decode=decode,
                       valid_len=valid_len)
-    h = apply_norm(_sub(bp, "ln2"), x, cfg.norm_type)
+    h = apply_norm(nn.subtree(bp, "ln2"), x, cfg.norm_type)
     if "moe/router" in bp:
-        ff_out, aux = moe(_sub(bp, "moe"), h, cfg)
+        ff_out, aux = moe(nn.subtree(bp, "moe"), h, cfg)
         return x + ff_out, aux
-    return x + mlp(_sub(bp, "mlp"), h, cfg), {}
+    return x + mlp(nn.subtree(bp, "mlp"), h, cfg), {}
 
 
 def _embed_inputs(params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
@@ -184,7 +181,7 @@ def forward(
     valid_len = None if decode else batch.get("valid_len")
     main = None if caches is None else caches["main"]
 
-    stacked = {k: torch.unbind(v, 0) for k, v in _sub(params, "blocks").items()}
+    stacked = {k: torch.unbind(v, 0) for k, v in nn.subtree(params, "blocks").items()}
     auxs = []
     for i in range(cfg.n_layers):
         bp = {k: v[i] for k, v in stacked.items()}
@@ -200,7 +197,7 @@ def forward(
         auxs.append(aux)
     aux = {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
 
-    x = apply_norm(_sub(params, "final_norm"), x, cfg.norm_type)
+    x = apply_norm(nn.subtree(params, "final_norm"), x, cfg.norm_type)
     if return_hidden:
         return x, aux
     if cfg.tie_embeddings:

@@ -33,7 +33,7 @@ class Param:
 
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]
-    init: str = "fan_in"  # fan_in | normal | zeros | ones | embed
+    init: str = "fan_in"  # fan_in | normal | zeros | ones | embed | uniform_scalar
     dtype: str = "float32"
     scale: float = 1.0
     no_weight_decay: bool = False
@@ -54,6 +54,12 @@ def flatten(tree, prefix: str = "") -> Dict[str, Any]:
     for k in sorted(tree):
         out.update(flatten(tree[k], f"{prefix}/{k}" if prefix else str(k)))
     return out
+
+
+def subtree(params: Dict[str, Any], prefix: str) -> Dict[str, Any]:
+    """``{"ln1/scale": ...}`` view of the ``prefix/``-paths of a flat dict."""
+    n = len(prefix) + 1
+    return {k[n:]: v for k, v in params.items() if k.startswith(prefix + "/")}
 
 
 def _map_params(fn: Callable[[str, Param], Any], defs) -> Dict[str, Any]:
@@ -80,9 +86,9 @@ def _path_seed(seed: int, path: str) -> int:
 def _initialize(p: Param, gen: torch.Generator, device: torch.device) -> torch.Tensor:
     """The init laws of ``repro.nn.module._initialize`` on a torch Generator.
 
-    Same distributions as JAX, not the same bits: normal × scale, and a
-    ±2σ truncated normal scaled by 1/sqrt(fan_in) with the fan-in taken
-    from the second-to-last non-layer dim.
+    Same distributions as JAX, not the same bits: normal × scale, a ±2σ
+    truncated normal scaled by 1/sqrt(fan_in) with the fan-in taken from the
+    second-to-last non-layer dim, and U(1e-3, 1) × scale.
     """
     shape = tuple(p.shape)
     dtype = torch_dtype(p.dtype)
@@ -93,6 +99,11 @@ def _initialize(p: Param, gen: torch.Generator, device: torch.device) -> torch.T
     if p.init in ("embed", "normal"):
         x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
         return (p.scale * x).to(dtype)
+    if p.init == "uniform_scalar":
+        # SSM dt / A params: U(1e-3, 1) x scale, as the reference draws them
+        u = 1e-3 + (1.0 - 1e-3) * torch.rand(shape, generator=gen, device=device,
+                                              dtype=torch.float32)
+        return (p.scale * u).to(dtype)
     if p.init == "fan_in":
         dims = [d for d, a in zip(shape, p.axes) if a != LAYERS_AXIS]
         fan_in = dims[-2] if len(dims) >= 2 else dims[-1]
@@ -100,7 +111,7 @@ def _initialize(p: Param, gen: torch.Generator, device: torch.device) -> torch.T
         x = torch.empty(shape, device=device, dtype=torch.float32)
         torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
         return (std * x).to(dtype)
-    raise NotImplementedError(f"init {p.init!r} is not ported (ROADMAP.md queue 1, item 10)")
+    raise ValueError(f"unknown init {p.init!r}")
 
 
 def init_params(defs, seed: int, device: torch.device) -> Params:

@@ -11,6 +11,11 @@ axis.  Two representation rules, as in the reference:
   attention decode path accepts this vector form and scatters each row at
   its own position.
 
+Recurrent state (the xLSTM cells', Mamba's ssm state and conv ring) has no
+``index``: evict and reset-inactive leave such segments alone, an idle slot
+steps its state on token 0, and the next ``insert`` overwrites it, as in
+the reference.
+
 Every device op (insert, evict, reset-inactive) writes the pool's tensors
 in place with a host-side slot id, so swapping requests between decode
 steps allocates nothing and reads nothing back.  The free-list and a host
@@ -55,7 +60,8 @@ def reset_inactive(cache: Cache, active: torch.Tensor) -> Cache:
     position past position 0 while idling.
     """
     for leaves in cache.values():
-        leaves["index"].mul_(active[None, :])
+        if "index" in leaves:
+            leaves["index"].mul_(active[None, :])
     return cache
 
 
@@ -124,7 +130,8 @@ class KVPool:
         if self.lengths[slot] == 0 and slot in self._free:
             return
         for leaves in self.cache.values():
-            leaves["index"][:, slot].zero_()
+            if "index" in leaves:
+                leaves["index"][:, slot].zero_()
         self.lengths[slot] = 0
         self._free.append(slot)
 

@@ -189,14 +189,19 @@ FLASH_WIDTH_CASES = [
     (1, 4, 4, 128, 80, False),
     (1, 8, 1, 256, 256, True),
     (2, 4, 2, 128, 256, False),
+    # past 256: the wide kernels, at 320 (zero-padded to 384), 512 and 576
+    # (padded to 640)
+    (1, 4, 2, 130, 320, True),
+    (1, 2, 2, 128, 512, False),
+    (1, 4, 1, 96, 576, True),
 ]
 
 
 @pytest.mark.parametrize("b,h,hkv,s,d,causal", FLASH_WIDTH_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_any_head_dim_matches_plain_on_card(cuda, b, h, hkv, s, d, causal, dtype):
-    """``flash_attention`` at head dim 40, 80 and 256 launches K3–K5 once
-    each (bf16 on the tensor cores) and gives o, dq, dk and dv held to the
+    """``flash_attention`` at head dim 40, 80, 256, 320, 512 and 576
+    launches K3–K5 once each (bf16 on the tensor cores) and gives o, dq, dk and dv held to the
     plain version as ``_close`` holds them: the forward on the same (padded)
     q, k, v, the backward on the kernel's residuals; o is the padded
     kernel call's, sliced."""

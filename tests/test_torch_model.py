@@ -48,9 +48,11 @@ def test_configs_equal_jax_copies(make):
 
 
 def test_unported_archs_and_kernels_raise():
-    for arch in ("deepseek-v3-671b", "jamba-1.5-large-398b", "xlstm-350m"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config(arch)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_config("deepseek-v3-671b")
+    # the recurrent families are ported (tests/test_torch_recurrent.py)
+    for arch in ("jamba-1.5-large-398b", "xlstm-350m"):
+        assert build_model(get_config(arch)).cfg.name == arch
     assert build_model(bert_large.smoke().replace(use_fused_ce_head=False)).cfg.use_flash_kernel
     # the fused CE head (K6–K8) is ported: bert-smoke builds with it on and
     # its forward returns the final hidden states for the head
@@ -61,12 +63,14 @@ def test_unported_archs_and_kernels_raise():
     hidden, aux = model.apply(model.init(0, "cpu"), batch, return_hidden=True)
     assert hidden.shape == (2, 16, 128) and aux == {}
     # RMSNorm, the gated MLP and SiLU are ported (tests/test_torch_serve.py);
-    # deepseek-v3's MLA, dense prefix and MTP and the hybrid and recurrent
-    # families are not
+    # deepseek-v3's MLA, dense prefix and MTP are not
     for field in (dict(use_mla=True), dict(n_dense_layers=1), dict(use_mtp=True),
-                  dict(family="hybrid"), dict(family="ssm"), dict(act_fn="swish")):
+                  dict(act_fn="swish")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(bert_large.smoke().replace(**OFF, **field))
+    # the hybrid (one period of two sub-layers) and recurrent families build
+    for field in (dict(family="hybrid", attn_period=2), dict(family="ssm")):
+        assert build_model(bert_large.smoke().replace(**OFF, **field)).param_count() > 0
     # granite-20b, the MoE layer, untied heads and the two frontends build
     # (tests/test_torch_zoo.py holds each to the JAX package)
     assert get_config("granite-20b").use_qkv_bias
