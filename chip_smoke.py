@@ -146,7 +146,29 @@ Phases, each of which raises (and so exits non-zero) on failure:
    bf16), and the bf16 layer is timed.  Phase 6 then also times K1–K8 at
    granite-moe's shapes, flash at head dims 40, 64, 80, 128 and 256, K3–K5
    at 320, 512 and 576 beside SDPA and their bound, K6–K8 at D 1280 and
-   2048, and K1/K2 over xlstm-350m's 32 leaves.
+   2048, and K1/K2 over xlstm-350m's 32 leaves;
+13. deepseek-v3 (after phase 12, before phase 6's timings): (a)
+   deepseek-smoke with MTP (one dense block, two MoE blocks with MLA, 48
+   leaves) trained 3 steps at batch 8 × seq 64, accum 2, bf16, fused LAMB
+   and the fused CE head: finite losses with ``loss/mtp``, moved weights
+   (``mtp/*`` and ``dense_blocks/*`` among them), K1/K2 48 × 3 and K6–K8
+   2 × 3 launches on the tensor cores, no K3–K5 (the MLA has no flash
+   path); the absorbed MLA's first-step loss from the same weights within a
+   bf16 ulp of the naive one's; (b) deepseek-v3 at the published widths cut
+   to one dense and one 256-expert MoE block (13.94 B params, bf16, from
+   seed 0; init time and peak memory): 4 prompts of 64 tokens, 16 new
+   greedy tokens, through the static ``Engine`` (a request a call) and the
+   ``ContinuousEngine`` over 4 slots, naive and absorbed: prefill logits
+   held to the forward, naive against absorbed per layer and by phase 10's
+   parting rule, a one-slot run equal to the static run; a prefill and a
+   decode step over 8 slots timed beside the decode's weight-read bound,
+   the cache's bytes a token, peak memory; (c) its dense block at B 2 × S
+   512 forward and backward, naive against absorbed (fp32 and bf16), and
+   ``lm_loss`` with the fused head and MTP at D 7168 / V 129280 (K6–K8 once
+   each over 7 D windows) held to the dense CE path and timed.  Phase 3
+   also holds K1/K2 at deepseek-smoke's leaves and K6–K8 at its
+   micro-batch and at D 7168 / V 129280 to their plain versions; phase 6
+   times K6–K8 at D 7168 / V 129280.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -252,6 +274,31 @@ JAMBA_ARGV = [
     "--steps", str(JAMBA_STEPS), "--log-every", "1",
 ]
 MAMBA_SEQ, MAMBA_CHUNK = 256, 64
+# phase 13: deepseek-v3.  (a) deepseek-smoke with MTP (3 layers, the first
+# dense; d 128, 4 experts top-2, vocab 512; 48 leaves) trained with fused
+# LAMB and the fused CE head at batch 8 x seq 64, accum 2; (b) the published
+# widths (d 7168, 128 heads, q_lora 1536, kv_lora 512, rope 64, v 128, dense
+# d_ff 18432, 256 experts top-8 of 2048 and a shared one, vocab 129280,
+# untied) cut to one dense and one MoE block, bf16 weights, served; (c) its
+# dense block at B 2 x S 512 and its loss head with MTP at D 7168, V 129280
+DS_ARCH, DS_LEAVES, DS_STEPS = "deepseek-v3-671b", 48, 3
+DS_ARGV = [
+    "--arch", DS_ARCH, "--smoke", "--batch", "8", "--seq", "64", "--accum-steps", "2",
+    "--precision", "bf16", "--fused-lamb", "--fused-ce",
+    "--steps", str(DS_STEPS), "--log-every", "1",
+]
+DS_REQUESTS, DS_PROMPT, DS_NEW = 4, 64, 16
+DS_PIECE_B, DS_PIECE_S = 2, 512
+# the zoo's bf16 tolerance (tests/test_torch_serve.py): a few bf16 ulps of
+# the tensor's scale, for bf16 paths that round in other places
+BF16_TOL = 3e-2
+# naive against absorbed MLA in bf16, in units of each tensor's scale: the
+# reference casts the scores to fp32 only after the bf16 products, at |s| up
+# to ~100 before the 1/sqrt(192) scale, and the two paths round them at other
+# places (the absorbed one as s_nope + s_rope); on one full-width MLA layer
+# (S 64, on the CPU) each bf16 path lies 1.1-2.4% of the scale from the fp32
+# result, outputs and gradients, and the two paths as far from each other
+MLA_BF16_TOL = 5e-2
 SERVE_LAUNCH_REQUESTS = 32
 SERVE_LAUNCH_ARGV = [
     "--arch", SERVE_ARCH, "--continuous", "--slots", "8", "--arrival-rate", "20",
@@ -315,7 +362,8 @@ FUSED_CE = ("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw")
 
 # Leaf shapes for the kernel check: (name, shape, layer_axis, x dtype, g
 # dtype, weight decay and trust ratio on).  BERT-large's, then
-# granite-moe-1b-a400m's expert and router leaves (phase 11).
+# granite-moe-1b-a400m's expert and router leaves (phase 11), then two of
+# deepseek-smoke's (phase 13).
 CHECK_CASES = [
     ("blocks/mlp/wi", (24, 1024, 4096), 0, "float32", "float32", True),
     ("embed", (30522, 1024), None, "float32", "float32", True),
@@ -325,6 +373,8 @@ CHECK_CASES = [
     ("blocks/attn/wo bf16 grads", (24, 16, 64, 1024), 0, "bfloat16", "bfloat16", True),
     ("granite-moe blocks/moe/wi", (24, 32, 1024, 512), 0, "float32", "float32", True),
     ("granite-moe blocks/moe/router", (24, 1024, 32), 0, "float32", "float32", True),
+    ("deepseek-smoke blocks/moe/wi", (2, 4, 128, 64), 0, "float32", "float32", True),
+    ("deepseek-smoke mtp/proj", (256, 128), None, "float32", "float32", True),
 ]
 
 
@@ -422,6 +472,10 @@ CE_CASES = [
     ("D 2048 fp32", 97, 2048, 3001, "float32", "dense"),
     ("D 2056 off 16 bytes", 97, 2056, 300, "bfloat16", "offset"),
     ("ragged D 2056", 97, 2056, 300, "bfloat16", "dense"),
+    # phase 13: deepseek-smoke's micro-batch (4 x 64 rows, D 128, V 512) and
+    # deepseek-v3's full-width head (2 x 512 rows, D 7168 in 7 windows)
+    ("deepseek-smoke training", 256, 128, 512, "bfloat16", "dense"),
+    ("deepseek-v3 head, D 7168", 1024, 7168, 129280, "bfloat16", "dense"),
 ]
 # Fused CE timing shapes (n rows, D, V; bf16): the main path's, then
 # granite-moe-1b-a400m's (8 sequences of 512, every position supervised),
@@ -429,6 +483,7 @@ CE_CASES = [
 CE_TIMING = [("seq 128", 640, 1024, 30522), ("seq 512", 1232, 1024, 30522)]
 MOE_CE_TIMING = [("granite-moe", 4096, 1024, 49155)]
 WIDE_CE_TIMING = [("D 1280", 640, 1280, 30522), ("D 2048", 640, 2048, 30522)]
+DS_CE_TIMING = [("deepseek-v3 D 7168", 1024, 7168, 129280)]
 
 
 def log(msg: str) -> None:
@@ -723,7 +778,8 @@ def check_fused_ce(device) -> dict:
     random elsewhere, a cotangent that is 0 on every third row.  Both sides
     compute in fp32 from the same inputs in another order (the kernel's sums
     against cuBLAS; in the tensor-core design the dlogits enter the second
-    product as two bf16 terms, ~16 bits), so nll and lse agree to 1e-5;
+    product as two bf16 terms, ~16 bits), so nll and lse agree to 1e-5
+    (both are also logged against the sums in fp64);
     ``correct`` is equal except where the label's logit ties the maximum
     within fp32 rounding; fp32 gradients agree to 1e-4 relative plus 1e-5 of
     the tensor's largest magnitude, bf16 gradients round those fp32 values,
@@ -773,34 +829,44 @@ def check_fused_ce(device) -> dict:
         design_ok = all(c == {"mma": int(want == "mma"), "fma": int(want == "fma")}
                         for c in designs.values())
         lse, lse_ref = (fused_ce_fwd(h, w, lbl, plain=p)[2] for p in (False, True))
+        # both fp32 sides against the sums in fp64, for the record
+        lse64 = torch.logsumexp(h.double() @ w.double().t(), 1)
+        e64 = [float((x.double() - lse64).abs().max()) for x in (lse, lse_ref)]
+        del lse64
         torch.cuda.synchronize()
         (nll, correct, dh, dw), (nll_r, correct_r, dh_r, dw_r) = outs[False], outs[True]
-        ok = bool(torch.allclose(nll, nll_r, rtol=1e-5, atol=1e-5)
-                  and torch.allclose(lse, lse_ref, rtol=1e-5, atol=1e-5))
+        fails = []
+        if not (torch.allclose(nll, nll_r, rtol=1e-5, atol=1e-5)
+                and torch.allclose(lse, lse_ref, rtol=1e-5, atol=1e-5)):
+            fails.append("nll/lse")
         flips = correct != correct_r
         if bool(flips.any()):
             top = logits.amax(1)
             gap = (top - logits.gather(1, lbl.long()[:, None])[:, 0]).abs()
-            ok = ok and bool((gap[flips] <= 1e-5 * (1 + top[flips].abs())).all())
+            if not bool((gap[flips] <= 1e-5 * (1 + top[flips].abs())).all()):
+                fails.append("correct")
         bf16 = dtype == torch.bfloat16
         diffs = []
-        for a, r in ((dh, dh_r), (dw, dw_r)):
+        for label, a, r in (("dh", dh, dh_r), ("dw", dw, dw_r)):
             a, r = a.float(), r.float()
             scale = max(float(r.abs().max()), 1e-30)
-            ok = ok and bool(torch.isfinite(a).all()) and bool(torch.allclose(
-                a, r, rtol=1e-2 if bf16 else 1e-4, atol=(1e-4 if bf16 else 1e-5) * scale))
+            if not (bool(torch.isfinite(a).all()) and bool(torch.allclose(
+                    a, r, rtol=1e-2 if bf16 else 1e-4, atol=(1e-4 if bf16 else 1e-5) * scale))):
+                fails.append(label)
             diffs.append(float((a - r).abs().max()))
         zero = rows < n // 4
         ties_ok = torch.equal(correct[zero], (lbl[zero] == 0).float())
         still_ok = float(dh[g == 0].abs().max()) == 0.0
-        ok = ok and ties_ok and still_ok and design_ok
+        fails += [k for k, good in (("ties", ties_ok), ("zero-g rows", still_ok),
+                                    ("designs", design_ok)) if not good]
         e_fwd = max(float((nll - nll_r).abs().max()), float((lse - lse_ref).abs().max()))
         log(f"check fused CE {name:24s} n {n} d {d} v {v} {dt} {layout}: |dnll|,|dlse| "
-            f"{e_fwd:.2e} correct flips {int(flips.sum())} of {n} (label wins on "
-            f"{int(correct_r.sum())}) |ddh| {diffs[0]:.2e} |ddw| {diffs[1]:.2e} ties {ties_ok} "
-            f"zero-g rows {still_ok} K6-K8 designs {designs} (want {want}) "
-            f"{'ok' if ok else 'MISMATCH'}")
-        if not ok:
+            f"{e_fwd:.2e} (|lse - lse in fp64| kernel {e64[0]:.2e}, plain {e64[1]:.2e}) "
+            f"correct flips {int(flips.sum())} of {n} (label "
+            f"wins on {int(correct_r.sum())}) |ddh| {diffs[0]:.2e} |ddw| {diffs[1]:.2e} ties "
+            f"{ties_ok} zero-g rows {still_ok} K6-K8 designs {designs} (want {want}) "
+            f"{'ok' if not fails else 'MISMATCH in ' + ', '.join(fails)}")
+        if fails:
             raise AssertionError(f"fused CE kernels disagree with the plain version on {name}")
         errs["fused_ce_fwd"] = max(errs["fused_ce_fwd"], e_fwd)
         errs["fused_ce_dh"] = max(errs["fused_ce_dh"], diffs[0])
@@ -2579,22 +2645,25 @@ def run_xlstm_training(device) -> dict:
     return dict(launches=launches, timing=timing)
 
 
-def _serve_recurrent(device, model, params, prompts, module, label: str, attn_layers: int,
-                     parting_rule: bool = True) -> dict:
-    """The prompts, SERVE_NEW new greedy tokens each, through the static
+def _serve_engines(device, model, params, prompts, module, label: str, attn_layers: int,
+                   parting_rule: bool = True, new: int = SERVE_NEW, check_one_slot: bool = False,
+                   logit_tol: tuple = (1e-2, 1e-4)) -> dict:
+    """The prompts, ``new`` greedy tokens each, through the static
     ``Engine`` (one request a call: both engines prefill at the same M, and
     MoE capacity sees the same tokens) and ``ContinuousEngine``
     over SERVE_SLOTS slots, the family's ``forward`` recorded: every
-    prefill's last logits held to ``Model.apply`` on the same tokens (one
-    bf16 ulp), phase 10's parting rule between the two runs, and, with
-    ``attn_layers``, K3 launched attn_layers x prefills times and each call
+    prefill's last logits held to ``Model.apply`` on the same tokens
+    (``logit_tol``: relative, and absolute in units of the logits' scale
+    max(1, max|ref|); by default one bf16 ulp), phase 10's parting rule
+    between the two runs, and, with ``attn_layers``, K3 launched attn_layers x prefills times and each call
     within a bf16 ulp of its plain version.  No other kernel may launch.
     Without ``parting_rule`` (a model that amplifies rounding past any
-    margin: see run_xlstm_serving) the partings are logged, the first
-    tokens must agree (both engines prefill a request alone) and a
-    ``ContinuousEngine`` over one slot, whose decode runs the static run's
-    arithmetic, must give the static run's tokens of the first two requests
-    exactly."""
+    margin: see run_xlstm_serving) the partings are logged and the first
+    tokens must agree (both engines prefill a request alone).  Then, or with
+    ``check_one_slot``, a ``ContinuousEngine`` over one slot, whose decode
+    runs the static run's arithmetic, must give the static run's tokens of the first
+    two requests exactly.  Returns the launches, prefills, tokens/s, and the
+    static run's tokens and top-2 logits at each step."""
     import numpy as np
     import torch
 
@@ -2627,27 +2696,27 @@ def _serve_recurrent(device, model, params, prompts, module, label: str, attn_la
     reset_launches()
     module.forward, attention.flash_sdpa = recorded, checked
     try:
-        eng = Engine(model, params, max_len=SERVE_MAX_LEN)
+        max_len = len(prompts[0]) + new + 8   # as launch/serve.py sizes its cache
+        eng = Engine(model, params, max_len=max_len)
         t0 = time.perf_counter()
         static, top2 = [], []
         for p in prompts:
             steps.clear()
-            static.append(eng.generate_batch([Request(p, max_new_tokens=SERVE_NEW)])[0])
-            top2.append(torch.cat([r.values for r in steps[:SERVE_NEW]]).cpu().numpy())
+            static.append(eng.generate_batch([Request(p, max_new_tokens=new)])[0])
+            top2.append(torch.cat([r.values for r in steps[:new]]).cpu().numpy())
         top2 = np.stack(top2)
         torch.cuda.synchronize()
         t_static = time.perf_counter() - t0
         n_static = len(prefills)
         steps.clear()
         t0 = time.perf_counter()
-        cont = ContinuousEngine(model, params, n_slots=SERVE_SLOTS,
-                                max_len=SERVE_MAX_LEN).generate(
-            [ServeRequest(p, max_new_tokens=SERVE_NEW) for p in prompts])
+        cont = ContinuousEngine(model, params, n_slots=SERVE_SLOTS, max_len=max_len).generate(
+            [ServeRequest(p, max_new_tokens=new) for p in prompts])
         torch.cuda.synchronize()
         t_cont = time.perf_counter() - t0
-        one_slot = None if parting_rule else ContinuousEngine(
-            model, params, n_slots=1, max_len=SERVE_MAX_LEN).generate(
-            [ServeRequest(p, max_new_tokens=SERVE_NEW) for p in prompts[:2]])
+        one_slot = None if parting_rule and not check_one_slot else ContinuousEngine(
+            model, params, n_slots=1, max_len=max_len).generate(
+            [ServeRequest(p, max_new_tokens=new) for p in prompts[:2]])
     finally:
         module.forward, attention.flash_sdpa = real_fwd, real_sdpa
     launches, designs, copies = _counts()
@@ -2662,8 +2731,8 @@ def _serve_recurrent(device, model, params, prompts, module, label: str, attn_la
             ref = model.apply(params, {"tokens": toks})[0][:, -1].float()
             worst = max(worst, float((last - ref).abs().max()))
             same_bits += bool(torch.equal(last, ref))
-            far += not bool(torch.allclose(last, ref, rtol=1e-2,
-                                           atol=1e-4 * max(1.0, float(ref.abs().max()))))
+            far += not bool(torch.allclose(last, ref, rtol=logit_tol[0], atol=logit_tol[1]
+                                           * max(1.0, float(ref.abs().max()))))
     st = np.stack([r.out_tokens for r in static])
     ct = np.stack([np.asarray(r.out_tokens) for r in cont])
     margins = top2[..., 0] - top2[..., 1]
@@ -2676,14 +2745,14 @@ def _serve_recurrent(device, model, params, prompts, module, label: str, attn_la
         parts.append(f"request {i} at step {t}: static margin {margins[i, t]:.4g} (tol {tol:.4g})")
         if margins[i, t] > tol if parting_rule else t == 0:
             faults.append(i)
-    n_tok = len(prompts) * SERVE_NEW
+    n_tok = len(prompts) * new
     log(f"{label} serving: static one request a call in "
         f"{t_static:.2f} s ({n_tok / t_static:.1f} tokens/s), continuous over {SERVE_SLOTS} "
         f"slots in {t_cont:.2f} s ({n_tok / t_cont:.1f} tokens/s); identical token sequences "
         f"{sum(bool((c == x).all()) for c, x in zip(ct, st))} of {len(prompts)}; parted: "
         f"{parts or 'none'}{'' if parting_rule else ' (logged, not held)'}; static top-2 "
         f"margins: min {margins.min():.4g}; {n_pre} prefills' last logits against the forward "
-        f"on the same tokens: bit-equal {same_bits}, past a bf16 ulp {far}, |d| max "
+        f"on the same tokens: bit-equal {same_bits}, past rtol/atol {logit_tol} {far}, |d| max "
         f"{worst:.3g}" + ("" if one_slot is None else
                           f"; continuous over 1 slot gives the static tokens of the first "
                           f"{len(one_slot)} requests exactly: {one_ok}"))
@@ -2697,20 +2766,20 @@ def _serve_recurrent(device, model, params, prompts, module, label: str, attn_la
         raise AssertionError(f"{label} serving: K3 on the prefill disagrees with its plain "
                              f"version")
     if far or faults or not one_ok or not np.isfinite(top2).all() \
-            or top2.shape[1] != SERVE_NEW or any(len(r.out_tokens) != SERVE_NEW for r in cont) \
+            or top2.shape[1] != new or any(len(r.out_tokens) != new for r in cont) \
             or any(r.status.value != "completed" for r in cont):
-        raise AssertionError(f"{label} serving: prefill logits past a bf16 ulp of the forward "
-                             f"({far}), runs parting at a clear margin or at the first token "
+        raise AssertionError(f"{label} serving: prefill logits past {logit_tol} of the "
+                             f"forward ({far}), runs parting at a clear margin or at the first token "
                              f"(requests {faults}), or the one-slot run's tokens differ "
                              f"({not one_ok})")
     return dict(launches=launches, prefills=n_pre, static_tokens_per_s=n_tok / t_static,
-                continuous_tokens_per_s=n_tok / t_cont)
+                continuous_tokens_per_s=n_tok / t_cont, tokens=st, top2=top2)
 
 
 def _time_decode(device, model, params, prompt_len: int) -> dict:
-    """A 128-token pool prefill and a greedy decode step over 8 slots filled
-    with its cache (``_profile_calls``), the pool's bytes and the peak
-    memory."""
+    """A ``prompt_len``-token pool prefill and a greedy decode step over 8
+    slots filled with its cache (``_profile_calls``), the pool's bytes and
+    the peak memory."""
     import numpy as np
     import torch
 
@@ -2718,7 +2787,8 @@ def _time_decode(device, model, params, prompt_len: int) -> dict:
 
     slots, max_len = 8, prompt_len + 64 + 8
     rng = np.random.default_rng(0)
-    prompt = torch.from_numpy(rng.integers(0, 1024, (1, prompt_len)).astype(np.int32)).to(device)
+    vocab = min(model.cfg.vocab_size, 1024)
+    prompt = torch.from_numpy(rng.integers(0, vocab, (1, prompt_len)).astype(np.int32)).to(device)
     pre = make_pool_prefill(model, max_len)
     step = make_pool_decode_step(model, greedy=True)
     out = {}
@@ -2817,7 +2887,7 @@ def run_xlstm_serving(device) -> dict:
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, min(model.cfg.vocab_size, 1024), size=SERVE_PROMPT)
                .astype(np.int32) for _ in range(SERVE_REQUESTS)]
-    out = _serve_recurrent(device, model, params, prompts, xlstm_model, "xlstm", 0,
+    out = _serve_engines(device, model, params, prompts, xlstm_model, "xlstm", 0,
                            parting_rule=False)
     check_rows_independent(device, model, params, prompts)
     out["timing"] = t = _time_decode(device, model, params, SERVE_PROMPT)
@@ -2877,7 +2947,7 @@ def run_jamba_smoke(device) -> dict:
     # (8 assignments, capacity 2) may drop what a batch-1 step keeps, so
     # the served model raises it until no call drops (as the CPU tests do)
     smodel = build_model(cfg.replace(capacity_factor=8.0))
-    serving = _serve_recurrent(device, smodel, params, prompts, hybrid, "jamba-smoke", attn)
+    serving = _serve_engines(device, smodel, params, prompts, hybrid, "jamba-smoke", attn)
     del trainer, params
     torch.cuda.empty_cache()
     return dict(launches=launches, serving=serving)
@@ -2972,6 +3042,397 @@ def run_recurrent(device) -> dict:
         out[key] = fn(device)
         took[key] = round(time.perf_counter() - t1, 1)
     log(f"recurrent: phase 12 took {time.perf_counter() - t0:.1f} s: {took}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: deepseek-v3 (MLA, the dense prefix, MTP)
+# ---------------------------------------------------------------------------
+
+def _deepseek_trainer(device, **cfg_kw):
+    """``(trainer, data)`` of DS_ARGV as the launcher builds them, on
+    deepseek-smoke with MTP on (the launcher has no flag for it, as the
+    reference's has none) and the config fields ``cfg_kw``."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import DataPipeline
+    from repro_torch.launch.train import lr_schedule, parse_args
+    from repro_torch.models import build_model
+    from repro_torch.train import Trainer
+
+    args = parse_args(DS_ARGV)
+    cfg = smoke_config(DS_ARCH).replace(use_mtp=True, use_fused_ce_head=args.fused_ce, **cfg_kw)
+    lr, schedule = lr_schedule(args)
+    tc = TrainConfig(optimizer=args.optimizer, learning_rate=lr, weight_decay=args.weight_decay,
+                     total_steps=args.steps, seed=args.seed, accum_steps=args.accum_steps,
+                     precision=args.precision, use_fused_lamb=args.fused_lamb)
+    trainer = Trainer(build_model(cfg), tc, device=device, schedule=schedule, log_every=1,
+                      log_fn=lambda msg: None)
+    return trainer, DataPipeline(cfg, args.batch, args.seq, device=device, seed=args.seed)
+
+
+def run_deepseek_training(device) -> dict:
+    """(a) deepseek-smoke with MTP, DS_STEPS steps on the card: finite
+    losses with ``loss/mtp`` and the MoE terms in every row, weights that
+    moved as the kernels reported (every ``mtp/*`` and ``dense_blocks/*``
+    leaf under the trust ratio among them), K1/K2 launched 48 leaves x 3
+    steps times, K6–K8 once a micro-batch (the main CE; the MTP head's CE
+    is dense), all on the tensor cores, and no K3–K5 (the MLA has no flash
+    path).  Then the absorbed MLA from the same weights and batches: its
+    first step's loss within one bf16 ulp (2^-7 relative) of the naive
+    run's.  Returns the launches."""
+    import torch
+
+    from repro_torch.kernels import reset_launches
+
+    trainer, data = _deepseek_trainer(device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer.fit(data, DS_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, designs, copies = _counts()
+    hist, model = trainer.history, trainer.model
+    cfg = model.cfg
+    keys = ("loss/total", "loss/ce", "loss/mtp", "loss/moe_lb", "moe/drop_fraction",
+            "grad_norm", "update_norm")
+    log(f"deepseek-smoke training: {cfg.n_layers} layers ({cfg.n_dense_layers} dense), d "
+        f"{cfg.d_model}, {cfg.n_experts} experts top-{cfg.n_experts_per_tok}, MTP "
+        f"{cfg.use_mtp}, fused CE {cfg.use_fused_ce_head}; {len(trainer.state.params)} leaves, "
+        f"{model.param_count()} params; {len(hist)} steps in {wall:.2f} s, peak "
+        f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+    for h in hist:
+        log("deepseek-smoke step " + str(h["step"]) + ": " + ", ".join(
+            f"{k} {h[k]:.5g}" for k in keys if k in h))
+    if len(hist) != DS_STEPS or len(trainer.state.params) != DS_LEAVES \
+            or any(k not in h or not math.isfinite(h[k]) for h in hist for k in keys):
+        raise AssertionError(f"deepseek-smoke training: {len(hist)} steps, "
+                             f"{len(trainer.state.params)} leaves, history {hist}")
+    init = model.init(trainer.tc.seed, device)
+    trust = model.trust_mask()
+    moved_sq, still = 0.0, []
+    for k, p in trainer.state.params.items():
+        d = float((p - init[k]).float().square().sum())
+        moved_sq += d
+        if d == 0.0:
+            still.append(k)
+    del init
+    travelled = sum(h["update_norm"] for h in hist)
+    prefix = [k for k in trainer.state.params if k.startswith(("mtp/", "dense_blocks/"))]
+    want = {k: 0 for k in launches}
+    want.update(dict.fromkeys(("lamb_moments", "lamb_apply"), DS_LEAVES * DS_STEPS))
+    want.update(dict.fromkeys(FUSED_CE, ACCUM * DS_STEPS))
+    log(f"deepseek-smoke training: |x3 - x0| {math.sqrt(moved_sq):.4f} against the update "
+        f"norms' sum {travelled:.4f}; {len(prefix)} mtp/ and dense_blocks/ leaves, of which "
+        f"did not move: {[k for k in still if k in prefix]}; leaves that did not move: "
+        f"{still}; launches {launches} (want {want}); by design "
+        f"{ {k: designs[k] for k in FUSED_CE} }; copies {copies}")
+    if [k for k in still if trust[k]] or not 0.0 < math.sqrt(moved_sq) <= travelled * 1.0001:
+        raise AssertionError("deepseek-smoke training: the parameters did not move as the "
+                             "kernels reported")
+    if launches != want or any(copies.values()) \
+            or any(designs[k] != {"mma": ACCUM * DS_STEPS, "fma": 0} for k in FUSED_CE):
+        raise AssertionError(f"deepseek-smoke training: launches {launches}, want {want}")
+    del trainer, data
+    atrainer, adata = _deepseek_trainer(device, mla_absorb=True)
+    atrainer.fit(adata, 1)
+    naive, absorbed = hist[0]["loss/total"], atrainer.history[0]["loss/total"]
+    tol = 2.0 ** -7 * abs(naive)
+    log(f"deepseek-smoke training: the absorbed MLA's first-step loss {absorbed:.6f} against "
+        f"the naive {naive:.6f}: |d| {abs(absorbed - naive):.3g} (tol {tol:.3g}, one bf16 ulp)")
+    if not abs(absorbed - naive) <= tol:
+        raise AssertionError("deepseek-smoke training: absorbed and naive MLA losses part")
+    del atrainer, adata
+    torch.cuda.empty_cache()
+    return dict(launches=launches, losses=[h["loss/total"] for h in hist])
+
+
+def _deepseek_full(device):
+    """deepseek-v3 at the published widths cut to one dense and one MoE
+    block, bf16 weights from seed 0: ``(model, params, init)`` with the
+    init's seconds and peak memory over what was allocated before."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(DS_ARCH).replace(n_layers=2, n_dense_layers=1, param_dtype="bfloat16")
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    t0 = time.perf_counter()
+    params = model.init(0, device)
+    torch.cuda.synchronize()
+    init = dict(seconds=time.perf_counter() - t0,
+                peak_gib=(torch.cuda.max_memory_allocated(device) - base) / 2**30,
+                tree_gb=sum(v.numel() * v.element_size() for v in params.values()) / 1e9)
+    big = max(params, key=lambda k: params[k].numel())
+    log(f"deepseek-v3 full width: {model.param_count()} params ({cfg.n_layers} layers, "
+        f"{cfg.n_dense_layers} dense; d {cfg.d_model}, {cfg.n_heads} heads, q_lora "
+        f"{cfg.q_lora_rank}, kv_lora {cfg.kv_lora_rank}, rope {cfg.qk_rope_dim}, nope "
+        f"{cfg.qk_nope_dim}, v {cfg.v_head_dim}, dense d_ff {cfg.d_ff}, {cfg.n_experts} experts "
+        f"top-{cfg.n_experts_per_tok} of {cfg.moe_d_ff} + {cfg.n_shared_experts} shared, vocab "
+        f"{cfg.vocab_size}, untied {not cfg.tie_embeddings}) in bf16: init {init['seconds']:.2f} "
+        f"s, {init['tree_gb']:.2f} GB of weights, peak {init['peak_gib']:.2f} GiB (the largest "
+        f"leaf {big} {tuple(params[big].shape)}: {params[big].numel() * 4 / 1e9:.2f} GB in "
+        f"fp32)")
+    return model, params, init
+
+
+def check_mla_paths_per_layer(device, model, params, prompts) -> float:
+    """The prompts as one static batch with every MLA call (prefill and each
+    decode step, both layers) run a second time on the other path (naive /
+    absorbed) from the same input and a copy of its cache: each layer's
+    outputs within MLA_BF16_TOL of its scale.  Returns the largest distance."""
+    import torch
+
+    from repro_torch.models import transformer
+    from repro_torch.serve import Engine, Request
+
+    real, dists = transformer.mla_attention, []
+
+    def both(p, x, positions, cfg, *, cache=None, decode=False, valid_len=None):
+        copy = None if cache is None else {k: v.clone() for k, v in cache.items()}
+        y = real(p, x, positions, cfg, cache=cache, decode=decode, valid_len=valid_len)
+        y2 = real(p, x, positions, cfg.replace(mla_absorb=not cfg.mla_absorb), cache=copy,
+                  decode=decode, valid_len=valid_len)
+        dists.append(float((y.float() - y2.float()).abs().max())
+                     / max(1.0, float(y.float().abs().max())))
+        return y
+
+    transformer.mla_attention = both
+    try:
+        Engine(model, params, max_len=DS_PROMPT + DS_NEW + 8).generate_batch(
+            [Request(p, max_new_tokens=DS_NEW) for p in prompts])
+    finally:
+        transformer.mla_attention = real
+    torch.cuda.synchronize()
+    worst = max(dists)
+    log(f"deepseek-v3 serving: naive against absorbed per layer over {len(dists)} MLA calls "
+        f"(a prefill of {len(prompts)} and {DS_NEW} decode steps, 2 layers): largest |d| "
+        f"{worst:.3g} of the output's scale (tol {MLA_BF16_TOL})")
+    if len(dists) != 2 * (DS_NEW + 1) or worst > MLA_BF16_TOL:
+        raise AssertionError("deepseek-v3 serving: the absorbed MLA parts from the naive one")
+    return worst
+
+
+def run_deepseek_serving(device, model, params, init) -> dict:
+    """(b) The full-width model served: DS_REQUESTS prompts of DS_PROMPT
+    tokens, DS_NEW greedy tokens each, through the static ``Engine`` (a
+    request a call, as phase 11 serves MoE) and the ``ContinuousEngine``
+    over 4 slots, naive and absorbed, no kernel of the port launched (the
+    MLA has no flash path; serving has no fused head): every prefill's last
+    logits held to the forward on the same tokens (BF16_TOL: the forward
+    attends over S keys, the prefill over the cache's T), phase 10's parting
+    rule between the engines and between naive and absorbed, a one-slot
+    continuous run equal to the static run; naive against absorbed per layer
+    (``check_mla_paths_per_layer``); then a prefill and a decode step over 8
+    slots timed for each path, beside the decode's bound: every weight it
+    reads (all but the embedding table's rows) over the memory rate."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import build_model, transformer
+
+    cfg = model.cfg
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, min(cfg.vocab_size, 1024), size=DS_PROMPT).astype(np.int32)
+               for _ in range(DS_REQUESTS)]
+    per_layer = check_mla_paths_per_layer(device, model, params, prompts)
+    out = dict(init=init, per_layer=per_layer)
+    models = {"naive": model, "absorbed": build_model(cfg.replace(mla_absorb=True))}
+    for name, m in models.items():
+        out[name] = _serve_engines(device, m, params, prompts, transformer,
+                                   f"deepseek-v3 {name}", 0, new=DS_NEW, check_one_slot=True,
+                                   logit_tol=(BF16_TOL, BF16_TOL))
+    (st, top2), at = (out["naive"][k] for k in ("tokens", "top2")), out["absorbed"]["tokens"]
+    margins = top2[..., 0] - top2[..., 1]
+    parts, faults = [], []
+    for i in range(len(prompts)):
+        if (at[i] == st[i]).all():
+            continue
+        t = int(np.argmax(at[i] != st[i]))
+        tol = MARGIN_ULPS * _top_ulp(top2[i, t, 0])
+        parts.append(f"request {i} at step {t}: naive margin {margins[i, t]:.4g} (tol {tol:.4g})")
+        if margins[i, t] > tol:
+            faults.append(i)
+    log(f"deepseek-v3 serving: naive against absorbed static runs: identical sequences "
+        f"{sum(bool((a == x).all()) for a, x in zip(at, st))} of {len(prompts)}; parted: "
+        f"{parts or 'none'}")
+    if faults:
+        raise AssertionError(f"deepseek-v3 serving: naive and absorbed part at a clear margin: "
+                             f"requests {faults}")
+    one = model.make_cache(1, 1, device)
+    per_token = sum(v.numel() * v.element_size() for seg in one.values()
+                    for k, v in seg.items() if k != "index")
+    read = sum(v.numel() * v.element_size() for k, v in params.items() if k != "embed")
+    bound_ms = read / memory_rate(torch.cuda.get_device_name(0)) * 1e3
+    out["cache_bytes_per_token"], out["decode_bound_ms"] = per_token, bound_ms
+    for name, m in models.items():
+        out[name]["timing"] = t = _time_decode(device, m, params, DS_PROMPT)
+        for k in ("prefill", "decode"):
+            r = t[k]
+            log(f"deepseek-v3 {name} timing {k}: wall {r['wall_ms']:.3f} ms, event span "
+                f"{r['span_ms']:.3f} ms, busy {r['busy_ms']:.3f} ms in {r['launches']} launches, "
+                f"idle share {r['idle']:.3f}")
+        log(f"deepseek-v3 {name} timing: decode {8 / (t['decode']['wall_ms'] * 1e-3):.1f} "
+            f"tokens/s over 8 slots; the decode step's bound {bound_ms:.3f} ms ({read / 1e9:.2f} "
+            f"GB of weights read), its span {t['decode']['span_ms'] / bound_ms:.2f}x it; the "
+            f"cache {per_token} bytes a token ({t['pool_gb']:.4f} GB for 8 slots of "
+            f"{DS_PROMPT + 72}); peak {t['peak_gib']:.2f} GiB")
+    for name in models:
+        out[name].pop("top2")
+        out[name]["tokens"] = out[name]["tokens"].tolist()
+    return out
+
+
+def _rel(a, ref) -> float:
+    """max |a - ref| over max |ref|: the distance in units of the scale."""
+    a, ref = a.detach().float(), ref.detach().float()
+    return float((a - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+
+
+def check_deepseek_pieces(device, model, params) -> dict:
+    """(c) The full-width training pieces alone.  1. The dense prefix block
+    (MLA + the 18432-wide MLP) at B DS_PIECE_B x S DS_PIECE_S forward and
+    backward, naive and absorbed: output and every gradient (x's and each
+    weight's) within 2e-4 of each tensor's scale in fp32 (the JAX suite's
+    absorbed-against-naive bound) and MLA_BF16_TOL in bf16.  2. ``lm_loss`` with
+    the fused head and MTP (a full-width MTP block drawn from seed 1) on bf16
+    hidden states of (DS_PIECE_B, DS_PIECE_S, 7168) against the untied
+    (7168, 129280) head, every position supervised (N 1024): K6, K7 and K8
+    launched once each, on the tensor cores, over ``d_windows(7168)`` D
+    windows; the loss within one bf16 ulp (2^-7 relative) of the dense
+    ``cross_entropy`` path's on the same inputs (that path rounds its logits
+    to bf16), d_hidden and d_unembed within BF16_TOL of their scale; both
+    paths' forward + backward timed."""
+    import torch
+
+    from repro_torch import nn
+    from repro_torch.kernels import reset_launches
+    from repro_torch.kernels.fused_ce import d_windows
+    from repro_torch.models import build_model, transformer
+    from repro_torch.models.layers.embeddings import unembed
+    from repro_torch.train.loss import lm_loss
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = model.cfg
+    b, s, d = DS_PIECE_B, DS_PIECE_S, cfg.d_model
+    gen = torch.Generator(device=device).manual_seed(13)
+    out = {}
+
+    # 1. the dense prefix block
+    bp0 = {k[len("dense_blocks/"):]: v[0] for k, v in params.items()
+           if k.startswith("dense_blocks/")}
+    x0 = torch.randn((b, s, d), generator=gen, device=device)
+    dy = torch.randn((b, s, d), generator=gen, device=device)
+    positions = torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
+
+    def block(dt, absorb):
+        c = cfg.replace(mla_absorb=absorb)
+        bp = {k: v.to(dt).detach().requires_grad_() for k, v in bp0.items()}
+        x = x0.to(dt).requires_grad_()
+        y, _ = transformer._one_block(bp, x, positions, c)
+        return y, dict(zip(["x", *bp], torch.autograd.grad(y, [x, *bp.values()], dy.to(dt))))
+
+    dists = {}
+    for dt, tol in ((torch.float32, 2e-4), (torch.bfloat16, MLA_BF16_TOL)):
+        (yn, gn), (ya, ga) = block(dt, False), block(dt, True)
+        dist = {"y": _rel(ya, yn), **{k: _rel(ga[k], gn[k]) for k in gn}}
+        finite = all(bool(torch.isfinite(t).all()) for t in (yn, ya, *gn.values(), *ga.values()))
+        worst = max(dist, key=dist.get)
+        log(f"deepseek-v3 dense block (B {b} x S {s}, {dt}): absorbed against naive, largest "
+            f"distance {dist[worst]:.3g} of the scale at {worst} (tol {tol}); y "
+            f"{dist['y']:.3g}, dx {dist['x']:.3g}, d wk_b {dist['attn/wk_b']:.3g}, d wv_b "
+            f"{dist['attn/wv_b']:.3g}; finite {finite}")
+        if dist[worst] > tol or not finite:
+            raise AssertionError(f"deepseek-v3 dense block: absorbed and naive part in {dt}")
+        dists[str(dt)] = dist
+        del yn, gn, ya, ga
+    out["block"] = dict(dists=dists, ms={
+        name: cuda_ms(lambda: block(torch.bfloat16, absorb), reps=3)
+        for name, absorb in (("naive", False), ("absorbed", True))})
+    log(f"deepseek-v3 dense block bf16 forward + backward: naive {out['block']['ms']['naive']:.2f}"
+        f" ms, absorbed {out['block']['ms']['absorbed']:.2f} ms")
+    del bp0, x0, dy
+
+    # 2. the loss head with MTP: the fused head (K6–K8) against the dense CE
+    mcfg = cfg.replace(use_mtp=True, use_fused_ce_head=True)
+    mtp = nn.init_params({"mtp": build_model(mcfg).defs["mtp"]}, 1, device, "bfloat16")
+    lp = {"embed": params["embed"], "unembed": params["unembed"], **mtp}
+    v = cfg.vocab_size
+    tokens = torch.randint(0, v, (b, s), generator=gen, device=device, dtype=torch.int32)
+    labels = torch.randint(0, v, (b, s), generator=gen, device=device, dtype=torch.int32)
+    batch = {"tokens": tokens, "labels": labels}
+    h0 = torch.randn((b, s, d), generator=gen, device=device).to(torch.bfloat16)
+
+    def head(fused):
+        p = {k: t.detach().requires_grad_(k == "unembed") for k, t in lp.items()}
+        h = h0.clone().requires_grad_()
+        aux = {"mtp_hidden": h}
+        if fused:
+            total, m = lm_loss(None, batch, aux, mcfg, params=p, hidden=h)
+        else:
+            total, m = lm_loss(unembed(h, p["unembed"]), batch, aux,
+                               mcfg.replace(use_fused_ce_head=False), params=p)
+        dh, dw = torch.autograd.grad(total, (h, p["unembed"]))
+        return total.detach(), {k: t.detach() for k, t in m.items()}, dh, dw
+
+    torch.cuda.synchronize()
+    reset_launches()
+    lf, mf, dhf, dwf = head(True)
+    torch.cuda.synchronize()
+    launches, designs, _ = _counts()
+    ld, md, dhd, dwd = head(False)
+    n = labels.numel()   # every position supervised
+    windows = d_windows(d)
+    rel_loss = abs(float(lf) - float(ld)) / abs(float(ld))
+    dist = dict(d_hidden=_rel(dhf, dhd), d_unembed=_rel(dwf, dwd))
+    want = {k: int(k in FUSED_CE) for k in launches}
+    log(f"deepseek-v3 loss head (N {n}, D {d} in {windows} D windows, V {v}, untied, MTP): "
+        f"fused {float(lf):.6f} (ce {float(mf['loss/ce']):.6f}, mtp {float(mf['loss/mtp']):.6f}) "
+        f"against dense {float(ld):.6f} (ce {float(md['loss/ce']):.6f}): relative {rel_loss:.3g} "
+        f"(tol {2.0 ** -7:.3g}); d_hidden {dist['d_hidden']:.3g}, d_unembed "
+        f"{dist['d_unembed']:.3g} of their scale (tol {BF16_TOL}); launches {launches} (want "
+        f"{want}), by design { {k: designs[k] for k in FUSED_CE} }")
+    if launches != want or any(designs[k] != {"mma": 1, "fma": 0} for k in FUSED_CE) \
+            or not rel_loss <= 2.0 ** -7 or max(dist.values()) > BF16_TOL \
+            or not all(bool(torch.isfinite(t).all()) for t in (dhf, dwf)):
+        raise AssertionError("deepseek-v3 loss head: the fused head parts from the dense path "
+                             "or launched other than K6-K8 once each")
+    del dhf, dwf, dhd, dwd
+    out["head"] = dict(n=n, windows=windows, rel_loss=rel_loss, dists=dist, launches=launches,
+                       ms={name: cuda_ms(lambda: head(fused), reps=3)
+                           for name, fused in (("fused", True), ("dense", False))})
+    log(f"deepseek-v3 loss head forward + backward (lm_loss with MTP): fused "
+        f"{out['head']['ms']['fused']:.2f} ms, dense {out['head']['ms']['dense']:.2f} ms")
+    del lp, mtp, h0
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_deepseek(device) -> dict:
+    """Phase 13; returns each part's launches and timings."""
+    import torch
+
+    t0, out, took = time.perf_counter(), {}, {}
+    t1 = time.perf_counter()
+    out["training"] = run_deepseek_training(device)
+    took["training"] = round(time.perf_counter() - t1, 1)
+    t1 = time.perf_counter()
+    model, params, init = _deepseek_full(device)
+    out["serving"] = run_deepseek_serving(device, model, params, init)
+    took["serving"] = round(time.perf_counter() - t1, 1)
+    t1 = time.perf_counter()
+    out["pieces"] = check_deepseek_pieces(device, model, params)
+    took["pieces"] = round(time.perf_counter() - t1, 1)
+    del params
+    torch.cuda.empty_cache()
+    log(f"deepseek: phase 13 took {time.perf_counter() - t0:.1f} s: {took}")
     return out
 
 
@@ -3196,13 +3657,13 @@ def time_flash_widths(device, rate: float) -> dict:
     return out
 
 
-def time_fused_ce(device, rate: float, shapes=CE_TIMING) -> dict:
+def time_fused_ce(device, rate: float, shapes=CE_TIMING, fma: bool = True) -> dict:
     """K6–K8 at each of ``shapes`` (bf16), plain, kernel, kernel, plain,
     beside their bound and the dense head's two calls (``matmul`` then
     ``cross_entropy``) forward and forward + backward.  K6–K8 run on the
-    tensor cores; their FMA design (what bf16 rows off a 16-byte boundary
-    take) is timed in the same turns, on h 2 bytes off.  Returns the first
-    shape's numbers by kernel name."""
+    tensor cores; with ``fma``, their FMA design (what bf16 rows off a
+    16-byte boundary take) is timed in the same turns, on h 2 bytes off.
+    Returns the first shape's numbers by kernel name."""
     import torch
     import torch.nn.functional as F
 
@@ -3229,15 +3690,15 @@ def time_fused_ce(device, rate: float, shapes=CE_TIMING) -> dict:
         mm = 2 * n * v * d
         flops = {"fused_ce_fwd": mm, "fused_ce_dh": 2 * mm, "fused_ce_dw": 2 * mm}
         h_off = torch.cat([h.new_zeros(1), h.reshape(-1)])[1:].view(n, d)   # FMA design
-        fma = {"fused_ce_fwd": lambda: fused_ce_fwd(h_off, w, lbl),
-               "fused_ce_dh": lambda: fused_ce_dh(h_off, w, lbl, lse, g),
-               "fused_ce_dw": lambda: fused_ce_dw(h_off, w, lbl, lse, g)}
+        fma_fns = {"fused_ce_fwd": lambda: fused_ce_fwd(h_off, w, lbl),
+                   "fused_ce_dh": lambda: fused_ce_dh(h_off, w, lbl, lse, g),
+                   "fused_ce_dw": lambda: fused_ce_dw(h_off, w, lbl, lse, g)}
         times = {name: {"plain": [], "cuda": [], "fma": []} for name in fns}
         for name, fn in fns.items():
             for plain in (True, False, False, True):
                 times[name]["plain" if plain else "cuda"].append(cuda_ms(lambda: fn(plain)))
-                if name in fma and plain:
-                    times[name]["fma"].append(cuda_ms(fma[name]))
+                if fma and plain:
+                    times[name]["fma"].append(cuda_ms(fma_fns[name]))
         lbl64 = lbl.long()
         dense_fwd = cuda_ms(lambda: F.cross_entropy(torch.matmul(h, w.t()), lbl64,
                                                     reduction="none"))
@@ -3317,6 +3778,7 @@ def main() -> None:
     serving = run_serving(device, rate)
     moe = run_moe(device)
     recurrent = run_recurrent(device)
+    deepseek = run_deepseek(device)
     timing = {**time_kernels(device, rate), **time_flash(device, rate),
               **time_fused_ce(device, rate)}
     moe_timing = {**time_kernels(device, rate, MOE_ARCH),
@@ -3326,6 +3788,9 @@ def main() -> None:
     wide_flash = time_flash(device, rate, WIDE_FLASH_TIMING, every=True)
     xlstm_timing = time_kernels(device, rate, XLSTM_ARCH)
     wide = {sh[0]: time_fused_ce(device, rate, [sh]) for sh in WIDE_CE_TIMING}
+    # the FMA design is not timed there: at D 7168 it re-forms the scores in
+    # each of 7 windows on FMA (seconds a call), and no path takes it there
+    ds_ce = time_fused_ce(device, rate, DS_CE_TIMING, fma=False)
 
     kernels = [dict(name=k, **KERNELS[k], launches=launches[k], max_abs_err=errs[k],
                     **timing[k], granite_moe=dict(launches=moe["launches"][k], **moe_timing[k]))
@@ -3350,6 +3815,14 @@ def main() -> None:
         recurrent["jamba_smoke"]["serving"]["launches"]["flash_fwd"]
     for k in FLASH:
         by_name[k]["wide_head_dims"] = {label: w[k] for label, w in wide_flash.items()}
+    # phase 13: every kernel's launches in deepseek-smoke's training (K1/K2
+    # and K6–K8 run there), and K6–K8 on deepseek-v3's full-width head: its
+    # launches in (c) and its times at D 7168
+    for k in KERNELS:
+        by_name[k]["deepseek_smoke"] = dict(launches=deepseek["training"]["launches"][k])
+    for k in FUSED_CE:
+        by_name[k]["deepseek_d7168"] = dict(
+            launches=deepseek["pieces"]["head"]["launches"][k], **ds_ce[k])
     log(card)   # again near the end, where a truncated log still shows it
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

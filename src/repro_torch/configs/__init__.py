@@ -1,16 +1,18 @@
 """Config registry of the port: ``get_config("granite-moe-1b-a400m")``.
 
-Ported: bert-large, smollm-360m, the transformer zoo's command-r-35b,
-mistral-nemo-12b, granite-20b, paligemma-3b, hubert-xlarge and
-granite-moe-1b-a400m, and the recurrent families' jamba-1.5-large-398b
-(hybrid) and xlstm-350m (ssm).  deepseek-v3-671b raises (ROADMAP.md queue 1,
-item 10).
+Every arch of the JAX package's registry: bert-large, smollm-360m, the
+transformer zoo's command-r-35b, mistral-nemo-12b, granite-20b,
+paligemma-3b, hubert-xlarge, granite-moe-1b-a400m and deepseek-v3-671b
+(MLA, a dense prefix, MTP), and the recurrent families'
+jamba-1.5-large-398b (hybrid) and xlstm-350m (ssm).  Any other name raises
+``KeyError``, as in the reference.
 """
 from __future__ import annotations
 
 from repro_torch.configs import (
     bert_large,
     command_r_35b,
+    deepseek_v3_671b,
     granite_20b,
     granite_moe_1b_a400m,
     hubert_xlarge,
@@ -23,6 +25,7 @@ from repro_torch.configs import (
 from repro_torch.configs.base import ModelConfig, TrainConfig
 
 _ARCHS = {
+    "deepseek-v3-671b": deepseek_v3_671b,
     "xlstm-350m": xlstm_350m,
     "jamba-1.5-large-398b": jamba_1_5_large_398b,
     "granite-moe-1b-a400m": granite_moe_1b_a400m,
@@ -38,10 +41,7 @@ _ARCHS = {
 
 def _module(name: str):
     if name not in _ARCHS:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported to PyTorch yet (ROADMAP.md queue 1, "
-            f"item 10); ported: {sorted(_ARCHS)}"
-        )
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_ARCHS)}")
     return _ARCHS[name]
 
 

@@ -2,10 +2,9 @@
 
 A field-for-field copy of ``repro.configs.base`` (the JAX package's), kept
 here so the PyTorch port imports nothing of the JAX package.  One
-``ModelConfig`` describes any architecture of the zoo; the port runs the
-transformer families (dense, MoE, vision and audio stubs), the hybrid and
-the recurrent (``ssm``) family, and raises on MLA, dense prefixes and MTP
-(see ``models/transformer.py``).
+``ModelConfig`` describes any architecture of the zoo; the port runs every
+one: the transformer families (dense, MoE, MLA with a dense prefix and MTP,
+vision and audio stubs), the hybrid and the recurrent (``ssm``) family.
 """
 from __future__ import annotations
 

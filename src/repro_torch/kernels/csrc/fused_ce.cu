@@ -428,13 +428,17 @@ __global__ void __launch_bounds__(kThreads, 1) fused_ce_fwd_mma_kernel(Args a) {
     m[k] = kNegInf;
     l[k] = 0.f;
   }
-  float sc[2][4][4];
+  // sc: one w chunk's products (4 mma k-steps); acc: the tile's scores, the
+  // chunks summed with round-to-nearest adds.  mma.sync's fp32 accumulation
+  // rounds each k-step's sum toward zero, so one chain over all of D would
+  // lose ~D/16 ulps of the score (~2e-4 of an lse at D 7168)
+  float sc[2][4][4], acc[2][4][4];
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sc[mt][j][e] = 0.f;
+      for (int e = 0; e < 4; ++e) sc[mt][j][e] = acc[mt][j][e] = 0.f;
 
   for (int i = 0; i < total; ++i) {
     cp_async_wait<kStages6 - 2>();  // chunk i (and the h rows) have landed
@@ -471,6 +475,15 @@ __global__ void __launch_bounds__(kThreads, 1) fused_ce_fwd_mma_kernel(Args a) {
         for (int j = 0; j < 4; ++j)
           mma_bf16(sc[mt][j], af[mt], bfr[j >> 1][2 * (j & 1)], bfr[j >> 1][2 * (j & 1) + 1]);
     }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[mt][j][e] += sc[mt][j][e];
+          sc[mt][j][e] = 0.f;
+        }
     if (dc != nC - 1) continue;
 
     // the tile's scores are whole: this lane's columns c0 + 32 wn + 8 j + 2 t
@@ -486,7 +499,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_ce_fwd_mma_kernel(Args a) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = c0 + 8 * j + e;
-          float& x = sc[mt][j][2 * hh + e];
+          float& x = acc[mt][j][2 * hh + e];
           if (col >= a.V) x = kNegInf;
           if (col == lbl[k]) sLL[32 * wm + 16 * mt + g + 8 * hh] = x;  // one lane, one tile
           if (x > mx) {  // columns rise with (j, e): the lowest reaching the max
@@ -509,12 +522,12 @@ __global__ void __launch_bounds__(kThreads, 1) fused_ce_fwd_mma_kernel(Args a) {
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e)
-          sum += c0 + 8 * j + e < a.V ? expf(sc[mt][j][2 * hh + e] - m_new) : 0.f;
+          sum += c0 + 8 * j + e < a.V ? expf(acc[mt][j][2 * hh + e] - m_new) : 0.f;
       l[k] = l[k] * expf(m[k] - m_new) + sum;  // this lane's share; the quad sums at the end
       if (mx > m[k]) best[k] = arg;            // strict: an earlier tile keeps a tie
       m[k] = m_new;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[mt][j][2 * hh] = sc[mt][j][2 * hh + 1] = 0.f;
+      for (int j = 0; j < 4; ++j) acc[mt][j][2 * hh] = acc[mt][j][2 * hh + 1] = 0.f;
     }
   }
   cp_async_wait_all();  // only empty groups are left

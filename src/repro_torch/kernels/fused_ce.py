@@ -39,6 +39,8 @@ DESIGNS = ("mma", "fma")   # bf16 on the tensor cores (mma.sync); fp32 FMA
 register("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw", variants=DESIGNS)
 
 NEG_INF = -1e30
+# csrc/fused_ce.cu's kDW: the D columns one block holds at once
+D_WINDOW = 1024
 _IDX_INF = torch.iinfo(torch.int32).max
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -172,6 +174,13 @@ def _check(h, w, lbl, **rows) -> str:
     stageable = d % 8 == 0 and all(
         x.data_ptr() % 16 == 0 and _row_stride(x) % 8 == 0 for x in (h, w))
     return DESIGNS[0] if h.dtype == torch.bfloat16 and stageable else DESIGNS[1]
+
+
+def d_windows(d: int) -> int:
+    """The D windows K7 and K8 run at width ``d`` (their grids' z extent:
+    each window's block forms the scores over all of D; K6's tensor-core
+    kernel loads its h rows once per window): 7 at deepseek-v3's 7168."""
+    return -(-d // D_WINDOW)
 
 
 def _row_stride(x: torch.Tensor) -> int:

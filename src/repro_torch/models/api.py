@@ -35,8 +35,7 @@ class Model:
     defs: Any
 
     def init(self, seed: int, device: torch.device) -> nn.Params:
-        params = nn.init_params(self.defs, seed, torch.device(device))
-        return nn.cast_tree(params, self.cfg.param_dtype)
+        return nn.init_params(self.defs, seed, torch.device(device), self.cfg.param_dtype)
 
     def wd_mask(self) -> Dict[str, bool]:
         return nn.weight_decay_mask(self.defs)

@@ -7,7 +7,7 @@ K3–K5 through ``kernels.ops.flash_sdpa``) when ``cfg.use_flash_kernel``,
 else ``_sdpa`` under the additive ``_mask_bias``, and the output
 projection.  A ``cfg.logit_softcap`` is applied in ``_sdpa`` only: the
 flash kernels take raw scores, so a config that sets both is refused when
-its model is built (``transformer._check_ported``).  With a cache, prefill
+its model is built (``transformer.check_flash_softcap``).  With a cache, prefill
 attends as above and fills ``cache[:, :S]``; decode writes its k/v at ``index`` and runs the
 dense ``_sdpa`` over the whole cache under a length/window mask (never the
 flash kernel, as in the reference).
@@ -101,9 +101,10 @@ def _sdpa(
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh)
 
 
-def _write_decode(cache: Dict[str, torch.Tensor], k: torch.Tensor, v: torch.Tensor
-                  ) -> torch.Tensor:
-    """Write one decode step's k/v into ``cache`` in place; returns the
+def write_decode(cache: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]
+                 ) -> torch.Tensor:
+    """Write one decode step's (B, S, ...) leaves ``new`` (k/v, or the MLA's
+    latents) into the same-named leaves of ``cache`` in place; returns the
     number of valid keys after it (scalar, or (B,) per slot).
 
     A scalar ``index`` (the static engine: one length for the batch) writes
@@ -111,19 +112,19 @@ def _write_decode(cache: Dict[str, torch.Tensor], k: torch.Tensor, v: torch.Tens
     ``dynamic_update_slice`` clamps it; a (B,) ``index`` (the slot pool)
     writes row b at idx[b].  Neither reads the index on the host."""
     idx = cache["index"]
-    ck, cv = cache["k"], cache["v"]
-    s = k.shape[1]
+    s = next(iter(new.values())).shape[1]
+    t = cache[next(iter(new))].shape[1]
     if idx.ndim == 0:
-        start = torch.clamp(idx, 0, ck.shape[1] - s).long()
+        start = torch.clamp(idx, 0, t - s).long()
         pos = start + torch.arange(s, device=idx.device)
-        ck.index_copy_(1, pos, k.to(ck.dtype))
-        cv.index_copy_(1, pos, v.to(cv.dtype))
+        for name, x in new.items():
+            cache[name].index_copy_(1, pos, x.to(cache[name].dtype))
         valid = idx + s
     else:
         assert s == 1, "per-slot decode is single-token"
-        rows = torch.arange(k.shape[0], device=idx.device)
-        ck[rows, idx.long()] = k[:, 0].to(ck.dtype)
-        cv[rows, idx.long()] = v[:, 0].to(cv.dtype)
+        rows = torch.arange(idx.shape[0], device=idx.device)
+        for name, x in new.items():
+            cache[name][rows, idx.long()] = x[:, 0].to(cache[name].dtype)
         valid = idx + 1
     idx.copy_(valid)
     return valid
@@ -166,7 +167,7 @@ def attention(
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     if cache is not None and decode:
-        valid = _write_decode(cache, k, v)
+        valid = write_decode(cache, {"k": k, "v": v})
         kv_pos = torch.arange(cache["k"].shape[1], dtype=torch.int32, device=x.device)
         bias = _mask_bias(positions, kv_pos, valid, causal=True, window=cfg.sliding_window)
         out = _sdpa(q, cache["k"], cache["v"], bias, hkv, cfg.logit_softcap)

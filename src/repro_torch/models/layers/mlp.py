@@ -19,9 +19,8 @@ _ACTS = {
 
 def mlp_defs(d_model: int, d_ff: int, gated: bool, act_fn: str) -> dict:
     if act_fn not in _ACTS:
-        raise NotImplementedError(
-            f"MLP act_fn={act_fn!r} is not ported (ROADMAP.md queue 1, item 10)"
-        )
+        # the reference refuses it too (a KeyError in its activation table)
+        raise ValueError(f"unknown MLP act_fn {act_fn!r}; accepted: {sorted(_ACTS)}")
     defs = {
         "wi": Param((d_model, d_ff), ("embed", "ff")),
         "wo": Param((d_ff, d_model), ("ff", "embed")),

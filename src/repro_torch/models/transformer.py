@@ -1,6 +1,6 @@
-"""Unified transformer: dense / GQA / MQA / MoE, with the vision and audio
-stub frontends; train/encoder forward, prefill and decode over a stacked KV
-cache (port of ``repro.models.transformer``).
+"""Unified transformer: dense / GQA / MQA / MLA / MoE, with the vision and
+audio stub frontends; train/encoder forward, prefill and decode over a
+stacked KV cache (port of ``repro.models.transformer``).
 
 The JAX package ``lax.scan``s a block over stacked ``(layers, ...)`` leaves;
 here the stack is split once per forward with ``torch.unbind`` (whose
@@ -8,7 +8,13 @@ backward is a single ``stack``, so the gradient of each stacked leaf comes
 back as one contiguous ``(layers, ...)`` tensor — the view the LAMB kernels
 take) and a Python loop runs the blocks.  Indexing ``p[i]`` per layer
 instead would make every ``select`` backward allocate a zero tensor the size
-of the whole stack.
+of the whole stack.  ``scan_layers`` has no effect: there is one path.
+
+Two stacked segments, as in the reference: ``dense_blocks`` (DeepSeek's
+``n_dense_layers`` leading dense blocks) run first, then ``blocks`` (the
+other ``n_layers - n_dense_layers``, MoE when ``cfg.n_experts``).  Each
+segment averages its blocks' aux losses over its own layers, and a key that
+both report is averaged pairwise (only MoE blocks report any).
 
 ``cfg.remat == "full"`` recomputes each block's forward in the backward
 (``torch.utils.checkpoint``, non-reentrant: the reference's
@@ -16,22 +22,22 @@ of the whole stack.
 stay alive between the passes; the flash ``autograd.Function`` runs its
 forward (K3) again per layer in the backward and saves the same residuals.
 
-Caches are the reference's ``_stacked_cache``: ``{"main": {"k", "v",
-"index"}}`` with (n_layers, B, T, Hkv, Dh) k/v and an (n_layers,) int32
-index ((n_layers, B) in the serving slot pool); layer i reads and writes
-its slice ``cache[i]`` in place.
+Caches are the reference's ``_stacked_cache``, a segment each: ``{"main":
+..., "dense": ...}`` with ``{"k", "v", "index"}`` leaves ((layers, B, T, Hkv,
+Dh) k/v) or, with ``cfg.use_mla``, ``{"c_kv", "k_rope", "index"}``, and an
+(layers,) int32 index ((layers, B) in the serving slot pool); layer i
+reads and writes its slice ``cache[i]`` in place.
 
-A block's MLP is the MoE layer when ``cfg.n_experts`` (every block: the
-reference has no dense interleave outside DeepSeek's prefix); each MoE block
-returns its aux losses and :func:`forward` averages every entry over the
-layers, as the reference's ``jnp.mean`` over the scanned stack.  The head is
-the tied embedding or an untied ``unembed`` (D, V), with the final logits
-soft-capped where ``cfg.logit_softcap``.  The ``audio_stub`` frontend takes
-``frame_embeds`` (frames under ``mask`` replaced by the learned
-``mask_embed``), the ``vision_stub`` one prepends ``image_embeds`` to the
-token embeddings.  Still unported, and raising (ROADMAP.md queue 1, item
-10): MLA, a dense prefix and MTP.  The ``hybrid`` and ``ssm`` families are
-``models/hybrid.py`` and ``models/xlstm_model.py``.
+Attention is ``layers/attention.py`` or, with ``cfg.use_mla``,
+``layers/mla.py``.  The head is the tied embedding or an untied ``unembed``
+(D, V), with the final logits soft-capped where ``cfg.logit_softcap``.
+With ``cfg.use_mtp`` the forward also returns the post-final-norm hidden
+states as ``aux["mtp_hidden"]`` (not on decode), which the loss feeds to
+:func:`mtp_logits`.  The ``audio_stub`` frontend takes ``frame_embeds``
+(frames under ``mask`` replaced by the learned ``mask_embed``), the
+``vision_stub`` one prepends ``image_embeds`` to the token embeddings.  The
+``hybrid`` and ``ssm`` families are ``models/hybrid.py`` and
+``models/xlstm_model.py``.
 """
 from __future__ import annotations
 
@@ -50,15 +56,10 @@ from repro_torch.models.layers.embeddings import (
     unembed,
     unembed_defs,
 )
+from repro_torch.models.layers.mla import init_mla_cache, mla_attention, mla_defs
 from repro_torch.models.layers.mlp import mlp, mlp_defs
 from repro_torch.models.layers.moe import moe, moe_defs
 from repro_torch.models.layers.norms import apply_norm, norm_defs
-
-_UNPORTED = {
-    "use_mla": "MLA",
-    "n_dense_layers": "dense prefix blocks",
-    "use_mtp": "MTP",
-}
 
 
 def check_flash_softcap(cfg: ModelConfig) -> None:
@@ -71,21 +72,12 @@ def check_flash_softcap(cfg: ModelConfig) -> None:
         )
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    check_flash_softcap(cfg)
-    for field, what in _UNPORTED.items():
-        if getattr(cfg, field):
-            raise NotImplementedError(
-                f"{what} is not ported (ROADMAP.md queue 1, item 10)"
-            )
-
-
 def _block_defs(cfg: ModelConfig, *, is_moe: bool) -> dict:
     d = cfg.d_model
     block = {
         "ln1": norm_defs(d, cfg.norm_type),
         "ln2": norm_defs(d, cfg.norm_type),
-        "attn": attention_defs(cfg),
+        "attn": mla_defs(cfg) if cfg.use_mla else attention_defs(cfg),
     }
     if is_moe:
         block["moe"] = moe_defs(cfg)
@@ -94,17 +86,29 @@ def _block_defs(cfg: ModelConfig, *, is_moe: bool) -> dict:
     return block
 
 
+def _n_main(cfg: ModelConfig) -> int:
+    return cfg.n_layers - cfg.n_dense_layers
+
+
 def transformer_defs(cfg: ModelConfig) -> dict:
-    _check_ported(cfg)
+    check_flash_softcap(cfg)
     defs: Dict[str, Any] = {
         "embed": embed_defs(cfg.vocab_size, cfg.d_model),
-        "blocks": nn.stack(_block_defs(cfg, is_moe=cfg.n_experts > 0), cfg.n_layers),
+        "blocks": nn.stack(_block_defs(cfg, is_moe=cfg.n_experts > 0), _n_main(cfg)),
         "final_norm": norm_defs(cfg.d_model, cfg.norm_type),
     }
+    if cfg.n_dense_layers:
+        defs["dense_blocks"] = nn.stack(_block_defs(cfg, is_moe=False), cfg.n_dense_layers)
     if not cfg.tie_embeddings:
         defs["unembed"] = unembed_defs(cfg.d_model, cfg.vocab_size)
     if cfg.frontend == "audio_stub" and cfg.mask_ratio > 0:
         defs["mask_embed"] = nn.Param((cfg.d_model,), ("embed",), init="normal", scale=0.02)
+    if cfg.use_mtp:
+        defs["mtp"] = {
+            "proj": nn.Param((2 * cfg.d_model, cfg.d_model), ("inner", "embed")),
+            "block": _block_defs(cfg, is_moe=False),
+            "norm": norm_defs(cfg.d_model, cfg.norm_type),
+        }
     return defs
 
 
@@ -128,13 +132,43 @@ def _one_block(
     valid_len: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     h = apply_norm(nn.subtree(bp, "ln1"), x, cfg.norm_type)
-    x = x + attention(nn.subtree(bp, "attn"), h, positions, cfg, cache=cache, decode=decode,
-                      valid_len=valid_len)
+    attend = mla_attention if cfg.use_mla else attention
+    x = x + attend(nn.subtree(bp, "attn"), h, positions, cfg, cache=cache, decode=decode,
+                   valid_len=valid_len)
     h = apply_norm(nn.subtree(bp, "ln2"), x, cfg.norm_type)
     if "moe/router" in bp:
         ff_out, aux = moe(nn.subtree(bp, "moe"), h, cfg)
         return x + ff_out, aux
     return x + mlp(nn.subtree(bp, "mlp"), h, cfg), {}
+
+
+def _segment(
+    stacked: Dict[str, torch.Tensor],
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    cfg: ModelConfig,
+    caches: Optional[Dict[str, torch.Tensor]],
+    decode: bool,
+    valid_len: Optional[torch.Tensor],
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Run a homogeneous stack of blocks (stacked ``(layers, ...)`` leaves)
+    over x, each layer on its slice of ``caches``; returns x and each aux
+    entry averaged over the stack's layers (empty when no block has any)."""
+    layers = {k: torch.unbind(v, 0) for k, v in stacked.items()}
+    auxs = []
+    for i in range(next(iter(stacked.values())).shape[0]):
+        bp = {k: v[i] for k, v in layers.items()}
+        cache = None if caches is None else {k: v[i] for k, v in caches.items()}
+        if cfg.remat == "full" and cache is None:
+            # the block draws no random numbers: no RNG state to stash
+            x, aux = torch.utils.checkpoint.checkpoint(
+                _one_block, bp, x, positions, cfg, valid_len=valid_len,
+                use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, aux = _one_block(bp, x, positions, cfg, cache=cache, decode=decode,
+                                valid_len=valid_len)
+        auxs.append(aux)
+    return x, {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
 
 
 def _embed_inputs(params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
@@ -179,25 +213,18 @@ def forward(
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
     valid_len = None if decode else batch.get("valid_len")
-    main = None if caches is None else caches["main"]
-
-    stacked = {k: torch.unbind(v, 0) for k, v in nn.subtree(params, "blocks").items()}
-    auxs = []
-    for i in range(cfg.n_layers):
-        bp = {k: v[i] for k, v in stacked.items()}
-        cache = None if main is None else {k: v[i] for k, v in main.items()}
-        if cfg.remat == "full" and cache is None:
-            # the block draws no random numbers: no RNG state to stash
-            x, aux = torch.utils.checkpoint.checkpoint(
-                _one_block, bp, x, positions, cfg, valid_len=valid_len,
-                use_reentrant=False, preserve_rng_state=False)
-        else:
-            x, aux = _one_block(bp, x, positions, cfg, cache=cache, decode=decode,
-                                valid_len=valid_len)
-        auxs.append(aux)
-    aux = {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
+    aux: Dict[str, torch.Tensor] = {}
+    if cfg.n_dense_layers:
+        x, aux = _segment(nn.subtree(params, "dense_blocks"), x, positions, cfg,
+                          None if caches is None else caches["dense"], decode, valid_len)
+    x, a = _segment(nn.subtree(params, "blocks"), x, positions, cfg,
+                    None if caches is None else caches["main"], decode, valid_len)
+    # a key both segments report is averaged pairwise, as in the reference
+    aux.update({k: (aux[k] + v) / 2 if k in aux else v for k, v in a.items()})
 
     x = apply_norm(nn.subtree(params, "final_norm"), x, cfg.norm_type)
+    if cfg.use_mtp and not decode:
+        aux["mtp_hidden"] = x   # the MTP head's input, read by the loss
     if return_hidden:
         return x, aux
     if cfg.tie_embeddings:
@@ -209,9 +236,39 @@ def forward(
     return logits, aux
 
 
+def mtp_logits(params: Dict[str, torch.Tensor], hidden: torch.Tensor,
+               batch: Dict[str, torch.Tensor], cfg: ModelConfig) -> torch.Tensor:
+    """DeepSeek-V3's single-depth MTP head: predict token t+2 from
+    [h_t ; emb(t+1)] through one extra block (no cache, no window), its
+    norm and the model's head.  The last position takes the first token's
+    embedding, as ``jnp.roll`` wraps."""
+    dtype = hidden.dtype
+    mp = nn.subtree(params, "mtp")
+    nxt = torch.roll(embed(params["embed"], batch["tokens"], dtype), -1, dims=1)
+    h = torch.cat([hidden, nxt], dim=-1) @ mp["proj"].to(dtype)
+    b, s = h.shape[:2]
+    positions = torch.arange(s, dtype=torch.int32, device=h.device)[None].expand(b, s)
+    # window None, as the reference passes it
+    h, _ = _one_block(nn.subtree(mp, "block"), h, positions, cfg.replace(sliding_window=None))
+    h = apply_norm(nn.subtree(mp, "norm"), h, cfg.norm_type)
+    if cfg.tie_embeddings:
+        return tied_unembed(h, params["embed"])
+    return unembed(h, params["unembed"])
+
+
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=torch.bfloat16,
                device=None) -> Dict[str, Dict[str, torch.Tensor]]:
-    """The zeroed stacked cache of every layer: ``{"main": {"k", "v", "index"}}``
-    with a leading (n_layers,) axis on each leaf."""
-    one = init_kv_cache(batch, max_len, cfg, dtype, device)
-    return {"main": {k: v.expand((cfg.n_layers,) + v.shape).clone() for k, v in one.items()}}
+    """The zeroed stacked cache of every layer, a segment each: ``{"main":
+    ..., "dense": ...}`` (``dense`` only with a dense prefix), each leaf
+    with a leading (layers,) axis: ``{"k", "v", "index"}``, or the MLA's
+    ``{"c_kv", "k_rope", "index"}``."""
+    init = init_mla_cache if cfg.use_mla else init_kv_cache
+    one = init(batch, max_len, cfg, dtype, device)
+
+    def stacked(n):
+        return {k: v.expand((n,) + v.shape).clone() for k, v in one.items()}
+
+    caches = {"main": stacked(_n_main(cfg))}
+    if cfg.n_dense_layers:
+        caches["dense"] = stacked(cfg.n_dense_layers)
+    return caches

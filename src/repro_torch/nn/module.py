@@ -98,29 +98,38 @@ def _initialize(p: Param, gen: torch.Generator, device: torch.device) -> torch.T
         return torch.ones(shape, dtype=dtype, device=device)
     if p.init in ("embed", "normal"):
         x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-        return (p.scale * x).to(dtype)
+        return x.mul_(p.scale).to(dtype)
     if p.init == "uniform_scalar":
         # SSM dt / A params: U(1e-3, 1) x scale, as the reference draws them
         u = 1e-3 + (1.0 - 1e-3) * torch.rand(shape, generator=gen, device=device,
                                               dtype=torch.float32)
-        return (p.scale * u).to(dtype)
+        return u.mul_(p.scale).to(dtype)
     if p.init == "fan_in":
         dims = [d for d, a in zip(shape, p.axes) if a != LAYERS_AXIS]
         fan_in = dims[-2] if len(dims) >= 2 else dims[-1]
         std = p.scale / max(fan_in, 1) ** 0.5
         x = torch.empty(shape, device=device, dtype=torch.float32)
         torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
-        return (std * x).to(dtype)
+        # in place: the largest leaves (deepseek-v3's experts, 15 GB in fp32)
+        # leave no room for a second fp32 copy beside the model
+        return x.mul_(std).to(dtype)
     raise ValueError(f"unknown init {p.init!r}")
 
 
-def init_params(defs, seed: int, device: torch.device) -> Params:
-    """Materialize a definition tree into a flat dict of tensors on ``device``."""
+def init_params(defs, seed: int, device: torch.device, dtype=None) -> Params:
+    """Materialize a definition tree into a flat dict of tensors on ``device``.
+
+    With ``dtype``, each floating leaf is cast to it as soon as it is drawn,
+    before the next leaf is: the values are those of :func:`cast_tree` over
+    the fp32 tree, and the peak is the cast tree plus one fp32 leaf.
+    """
+    dt = None if dtype is None else torch_dtype(dtype)
 
     def make(path: str, p: Param) -> torch.Tensor:
         gen = torch.Generator(device=device)
         gen.manual_seed(_path_seed(seed, path))
-        return _initialize(p, gen, device)
+        x = _initialize(p, gen, device)
+        return x if dt is None or not x.is_floating_point() else x.to(dt)
 
     return _map_params(make, defs)
 

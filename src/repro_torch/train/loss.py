@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.fused_ce import fused_ce
+from repro_torch.models.transformer import mtp_logits
 
 IGNORE = -1  # label value for unsupervised positions
 
@@ -186,13 +187,18 @@ def lm_loss(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token CE over ``batch["labels"]`` (aligned with the model's
     positions) plus the MoE aux losses: ``router_aux_coef · moe_lb_loss``
-    and, where the model reports it, ``router_z_coef · moe_z_loss``.
+    and, where the model reports it, ``router_z_coef · moe_z_loss``; with
+    ``cfg.use_mtp`` (the model's ``aux["mtp_hidden"]`` and ``params`` given)
+    also ``mtp_loss_coef`` times the MTP head's CE against the labels
+    shifted one further, the last position unsupervised.
 
-    With ``hidden`` given (fused head), the CE runs gather + chunked-vocab CE
-    on the final hidden states against ``params``' vocab projection instead
-    of dense logits.
+    With ``hidden`` given (fused head), the main CE runs gather +
+    chunked-vocab CE on the final hidden states against ``params``' vocab
+    projection instead of dense logits; the MTP head keeps its own dense CE
+    either way, as in the reference.
     """
     labels = batch["labels"]
+    mtp_hidden = aux.get("mtp_hidden")
     ce, acc = _masked_ce(logits, hidden, labels, cfg, params)
     total = ce
     metrics = {"loss/ce": ce, "accuracy": acc}
@@ -205,6 +211,12 @@ def lm_loss(
     if "moe_z_loss" in aux:
         total = total + cfg.router_z_coef * aux["moe_z_loss"]
         metrics["loss/moe_z"] = aux["moe_z_loss"]
+    if cfg.use_mtp and mtp_hidden is not None and params is not None:
+        mlogits = mtp_logits(params, mtp_hidden, batch, cfg)
+        mtp_labels = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1], IGNORE)], dim=1)
+        mtp_ce, _ = cross_entropy(mlogits, mtp_labels)
+        total = total + cfg.mtp_loss_coef * mtp_ce
+        metrics["loss/mtp"] = mtp_ce
     metrics["loss/total"] = total
     metrics["tokens/supervised"] = supervised_token_count(labels)
     return total, metrics

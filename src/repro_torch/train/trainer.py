@@ -55,10 +55,10 @@ from repro_torch.train.step import GUARD_KEY, LOSS_KEY, TRUST_KEYS, TrainState, 
 from repro_torch.train.supervisor import DivergenceError, SupervisorConfig, TrainingSupervisor
 
 # the per-step metrics the history keeps, fetched together at a log step,
-# and the MoE loss's, kept where the loss reports them
+# and the extra loss terms' (MoE, MTP), kept where the loss reports them
 HISTORY_KEYS = ("loss/total", "loss/ce", "accuracy", "tokens/supervised",
                 "grad_norm", "update_norm")
-MOE_KEYS = ("loss/moe_lb", "moe/drop_fraction", "loss/moe_z")
+TERM_KEYS = ("loss/moe_lb", "moe/drop_fraction", "loss/moe_z", "loss/mtp")
 
 
 def _batch_examples(batch) -> int:
@@ -265,7 +265,7 @@ class Trainer:
         """One history row and the host copy of the per-layer records (None
         without telemetry or records), in one transfer, so ``wall_s``
         counts finished work."""
-        keys = (HISTORY_KEYS + tuple(k for k in MOE_KEYS if k in metrics)
+        keys = (HISTORY_KEYS + tuple(k for k in TERM_KEYS if k in metrics)
                 + ((GUARD_KEY,) if self.tc.skip_nonfinite else ())
                 + (TRUST_KEYS if self.tc.log_trust_ratios else ()))
         records = metrics.get(PER_LAYER_KEY) if self.telemetry.enabled else None
@@ -383,7 +383,7 @@ class Trainer:
                     self._skipped_seen = skipped_now
                 self.log(f"step {m['step']:6d} loss {m['loss/total']:.4f} "
                          f"acc {m['accuracy']:.4f}"
-                         + "".join(f" {k} {m[k]:.4f}" for k in MOE_KEYS if k in m))
+                         + "".join(f" {k} {m[k]:.4f}" for k in TERM_KEYS if k in m))
                 if telem:
                     self._log_step(m, per_layer, step_s, since_log)
                 since_log = 0

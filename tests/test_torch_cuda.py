@@ -335,6 +335,8 @@ CE_CASES = [
     (200, 2048, 5003, torch.bfloat16),
     (97, 2048, 3001, torch.float32),
     (64, 2056, 300, torch.bfloat16),
+    # deepseek-v3's full-width head: D 7168 (7 windows), V 129280
+    (256, 7168, 129280, torch.bfloat16),
 ]
 
 

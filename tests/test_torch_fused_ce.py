@@ -7,6 +7,7 @@ steps with the fused head on.  Tolerances are the JAX suite's
 (``tests/test_fused_ce.py``): 1e-5 on fp32 outputs, 1e-4 relative / 1e-5
 absolute on fp32 gradients, 2e-2 on bf16 ones."""
 import importlib
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -340,6 +341,15 @@ def test_fused_ce_design_rule_on_cpu_tensors(monkeypatch):
 # ---------------------------------------------------------------------------
 # gather and the fused loss
 # ---------------------------------------------------------------------------
+
+def test_d_windows_match_the_kernels_constant():
+    """The D-window count K7 and K8 launch over: the CUDA source's window
+    width, and 7 windows at deepseek-v3's D 7168 (the full-width loss head)."""
+    src = Path(fused_ce_module.__file__).parent / "csrc" / "fused_ce.cu"
+    assert f"constexpr int kDW = {fused_ce_module.D_WINDOW};" in src.read_text()
+    assert [fused_ce_module.d_windows(d) for d in (80, 1024, 1025, 2048, 2056, 7168)] == [
+        1, 1, 2, 2, 3, 7]
+
 
 def test_gather_supervised_packs_like_jax():
     labels = np.array([

@@ -48,8 +48,11 @@ def test_configs_equal_jax_copies(make):
 
 
 def test_unported_archs_and_kernels_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("deepseek-v3-671b")
+    # every arch of the reference is registered (deepseek-v3:
+    # tests/test_torch_deepseek.py); another name raises, as in the reference
+    assert build_model(get_config("deepseek-v3-671b")).cfg.use_mla
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("no-such-arch")
     # the recurrent families are ported (tests/test_torch_recurrent.py)
     for arch in ("jamba-1.5-large-398b", "xlstm-350m"):
         assert build_model(get_config(arch)).cfg.name == arch
@@ -62,12 +65,13 @@ def test_unported_archs_and_kernels_raise():
              next(jax_synthetic.batch_iterator(jax_bert.smoke(), 2, 16, seed=0)).items()}
     hidden, aux = model.apply(model.init(0, "cpu"), batch, return_hidden=True)
     assert hidden.shape == (2, 16, 128) and aux == {}
-    # RMSNorm, the gated MLP and SiLU are ported (tests/test_torch_serve.py);
-    # deepseek-v3's MLA, dense prefix and MTP are not
-    for field in (dict(use_mla=True), dict(n_dense_layers=1), dict(use_mtp=True),
-                  dict(act_fn="swish")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(bert_large.smoke().replace(**OFF, **field))
+    # RMSNorm, the gated MLP and SiLU are ported (tests/test_torch_serve.py),
+    # and deepseek-v3's MLA, dense prefix and MTP; an activation the
+    # reference lacks is refused, as the reference refuses it
+    for field in (dict(use_mla=True), dict(n_dense_layers=1), dict(use_mtp=True)):
+        assert build_model(bert_large.smoke().replace(**OFF, **field)).param_count() > 0
+    with pytest.raises(ValueError, match="accepted: .*'silu'"):
+        build_model(bert_large.smoke().replace(**OFF, act_fn="swish"))
     # the hybrid (one period of two sub-layers) and recurrent families build
     for field in (dict(family="hybrid", attn_period=2), dict(family="ssm")):
         assert build_model(bert_large.smoke().replace(**OFF, **field)).param_count() > 0
