@@ -169,6 +169,23 @@ Phases, each of which raises (and so exits non-zero) on failure:
    also holds K1/K2 at deepseek-smoke's leaves and K6–K8 at its
    micro-batch and at D 7168 / V 129280 to their plain versions; phase 6
    times K6–K8 at D 7168 / V 129280.
+14. data-parallel FSDP (after phase 13, before phase 6's timings): (a) the
+   main path's BERT-large (batch 64 × seq 128, accum 2, bf16, fused LAMB,
+   flash, fused CE) through ``repro_torch.launch.train`` with ``--mesh
+   data=1,model=1``: the sharded Trainer on a real NCCL group of one rank,
+   3 steps, against the same 3 steps without a mesh from the same seed:
+   K1–K8 launch counts as phase 5's; losses, grad norms and params
+   bit-equal (at one rank the sharded step keeps the order of operations);
+   both steps' wall, device span and busy time, launches and peak memory;
+   (b) the shard contract of K1/K2: each of BERT-large's 13
+   leaves split along its ``data=4`` spec into 4 contiguous slices, K1's
+   per-layer partials summed over the slices against K1 on the whole leaf
+   (1e-5 relative) and K2 with the shared ratio writing each slice
+   bit-equal to the whole leaf's K2; (c) ``per_device_state_bytes`` of
+   BERT-large's params, μ and ν at ``data=4/8/16`` (meta tensors), at least
+   N/2 times smaller than whole.  Phase 6 also times K1/K2 over a ``data=4``
+   slice of every leaf; the ``kernels`` line gives that entry the launches
+   of its own timing.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -1427,14 +1444,18 @@ def check_telemetry(device, main_hist, main_launches) -> None:
     bit-identical to phase 5's, launch counts equal; then with
     ``--log-trust-ratios`` too: every event valid, one ``trust_ratios``
     event per step with the 13 leaves (24 values a stacked leaf), the last
-    step's ratios equal to those K2's wrapper returned, and a
+    step's ratios equal to those the fused step handed K2, and a
     ``RUN_REPORT.json`` naming the card that compares equal to itself."""
+    import importlib
     import shutil
 
     import torch
 
-    from repro_torch.kernels import ops
     from repro_torch.telemetry import RunReport, read_events
+
+    # the module whose trust_ratio the fused step's composition calls (the
+    # package's ``lamb_update`` name is the function)
+    lamb_mod = importlib.import_module("repro_torch.kernels.lamb_update")
 
     tmp = _scratch("telem_")
     try:
@@ -1450,21 +1471,21 @@ def check_telemetry(device, main_hist, main_launches) -> None:
         del trainer
         torch.cuda.empty_cache()
 
-        seen = []   # every ratio K2's wrapper returned, in launch order
-        real = ops.lamb_update
+        seen = []   # every ratio the fused step handed K2, leaf by leaf
+        real = lamb_mod.trust_ratio
 
         def capture(*a, **kw):
             out = real(*a, **kw)
-            seen.append(out.ratio.detach().clone())
+            seen.append(out.detach().clone())
             return out
 
-        ops.lamb_update = capture
+        lamb_mod.trust_ratio = capture
         try:
             trainer, _ = _train(device, MAIN_ARGV + ["--telemetry-dir", str(tmp / "b"),
                                                      "--log-trust-ratios"],
                                 MAIN_STEPS, "telemetry + trust")
         finally:
-            ops.lamb_update = real
+            lamb_mod.trust_ratio = real
         events = read_events(tmp / "b" / "events.jsonl")   # validates every event
         trust = [e for e in events if e["event"] == "trust_ratios"]
         names = [k.replace("/", ".") for k in trainer.state.params]
@@ -3437,6 +3458,195 @@ def run_deepseek(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: data-parallel FSDP
+# ---------------------------------------------------------------------------
+
+FSDP_STEPS = 3
+FSDP_ARGV = _with_steps(MAIN_ARGV, FSDP_STEPS)
+FSDP_MESH = ["--mesh", "data=1,model=1"]
+FSDP_SHARDS = 4
+
+
+def run_fsdp_main_path(device) -> dict:
+    """(a) The main path through the sharded Trainer on a data=1 mesh (a
+    real NCCL group of one rank) against the same steps without a mesh:
+    launch counts, then losses, grad norms and params bit-equal (at one
+    rank the sharded step keeps the unsharded order of operations), then
+    both steps timed.  Returns the sharded run's launches and the timings."""
+    import torch
+
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch import profile_step
+    from repro_torch.launch import train as launch_train
+
+    runs = {}
+    for label, argv in (("unsharded", FSDP_ARGV), ("data=1 mesh", FSDP_ARGV + FSDP_MESH)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_launches()
+        trainer = launch_train.main(argv)
+        torch.cuda.synchronize()
+        launches, designs, copies = _counts()
+        _check_launches(f"fsdp {label}", FSDP_STEPS, True, launches, designs, copies)
+        hist = trainer.history
+        if len(hist) != FSDP_STEPS or not all(math.isfinite(h["loss/total"]) for h in hist):
+            raise AssertionError(f"fsdp {label}: history {hist}")
+        params = {k: v.float().cpu() for k, v in trainer.gather_state().params.items()}
+        walls = [h["wall_s"] for h in hist]
+        runs[label] = dict(losses=[h["loss/total"] for h in hist],
+                           grad_norms=[h["grad_norm"] for h in hist], params=params,
+                           launches=launches, mesh=trainer.mesh,
+                           peak_gib=torch.cuda.max_memory_allocated(device) / 2**30,
+                           step_walls=[b - a for a, b in zip([0.0] + walls, walls)])
+        del trainer
+        torch.cuda.empty_cache()
+    a, b = runs["unsharded"], runs["data=1 mesh"]
+    if b["mesh"] is None or b["mesh"].shape != {"data": 1, "model": 1}:
+        raise AssertionError(f"fsdp: the --mesh run had mesh {b['mesh']}")
+    import torch.distributed as dist
+
+    backend = dist.get_backend()
+    rel = max(abs(x - y) / abs(y) for x, y in zip(b["losses"], a["losses"]))
+    pdiff = max(float((b["params"][k] - a["params"][k]).abs().max()) for k in a["params"])
+    same = b["losses"] == a["losses"] and b["grad_norms"] == a["grad_norms"]
+    log(f"fsdp (a): process group {backend}, world {dist.get_world_size()}; losses "
+        f"unsharded {a['losses']}, data=1 mesh {b['losses']} (max rel {rel:.2e}); grad "
+        f"norms {a['grad_norms']} / {b['grad_norms']}; losses and grad norms bit-equal: "
+        f"{same}; params max |diff| {pdiff:.3e}; launches {b['launches']}")
+    if backend != "nccl" or not same or pdiff != 0.0:
+        raise AssertionError(f"fsdp (a): backend {backend}, losses and grad norms "
+                             f"bit-equal {same}, params max |diff| {pdiff}")
+    del a["params"], b["params"]
+    timed, rows = {}, {}
+    for label, argv in (("unsharded", FSDP_ARGV), ("data=1 mesh", FSDP_ARGV + FSDP_MESH)):
+        trainer, data, _ = launch_train.build(launch_train.parse_args(argv))
+        r = profile_step.measure(trainer, data)
+        timed[label] = {k: r[k] for k in ("wall_ms", "span_ms", "busy_ms", "launches",
+                                          "idle", "peak_gib")}
+        rows[label] = {key: (ms, n) for key, ms, n in r["rows"]}
+        log(f"fsdp (a) {label}: step walls {[round(w, 4) for w in runs[label]['step_walls']]} "
+            f"s (first with warm-up), peak {runs[label]['peak_gib']:.2f} GiB; timed: wall "
+            f"{r['wall_ms']:.2f} ms/step, device span {r['span_ms']:.2f} ms, busy "
+            f"{r['busy_ms']:.2f} ms in {r['launches']} launches, idle {r['idle']:.3f}, peak "
+            f"{r['peak_gib']:.2f} GiB")
+        del trainer, data
+        torch.cuda.empty_cache()
+    u, m = timed["unsharded"], timed["data=1 mesh"]
+    log(f"fsdp (a): the mesh's cost a step: wall {m['wall_ms'] - u['wall_ms']:+.2f} ms, busy "
+        f"{m['busy_ms'] - u['busy_ms']:+.2f} ms, launches {m['launches'] - u['launches']:+d}")
+    # where the busy time moved: the kernels whose time differs most
+    ru, rm = rows["unsharded"], rows["data=1 mesh"]
+    moved = sorted(set(ru) | set(rm),
+                   key=lambda k: -abs(rm.get(k, (0.0, 0))[0] - ru.get(k, (0.0, 0))[0]))
+    for key in moved[:10]:
+        (ua, un), (ma, mn) = ru.get(key, (0.0, 0)), rm.get(key, (0.0, 0))
+        log(f"fsdp (a) kernel {ma - ua:+8.3f} ms ({ua:.3f} ms {un}x -> {ma:.3f} ms {mn}x) "
+            f"{key[:110]}")
+    return dict(launches=b["launches"], timed=timed)
+
+
+def check_shard_contract(device) -> None:
+    """(b) K1/K2 on the data=4 slices of BERT-large's 13 leaves against the
+    whole leaf: the slices' per-layer partials summed within 1e-5 relative
+    of the whole leaf's, m' and v' and (with the whole leaf's ratio) x' bit-
+    equal to its slices."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import lamb_apply, lamb_moments
+    from repro_torch.kernels.lamb_update import bias_corrections, trust_ratio
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import build_model
+    from repro_torch.nn import flatten
+    from repro_torch.sharding import shard_dim, specs_for
+    from repro_torch.sharding.collectives import shard_leaf
+
+    model = build_model(get_config("bert-large"))
+    mesh = Mesh({"data": FSDP_SHARDS, "model": 1})
+    specs, axes = specs_for(model.defs, mesh), model.layer_axes()
+    gen = torch.Generator(device=device).manual_seed(2)
+    c = bias_corrections(torch.tensor(5, device=device), 0.9, 0.999, device)
+    lr = torch.tensor(1e-3, device=device)
+    worst = {"partials": 0.0, "split": 0}
+    for k, p in flatten(model.defs).items():
+        dim = shard_dim(specs[k], mesh)
+        layers = p.shape[0] if axes[k] == 0 else 1
+        x = 0.05 * torch.randn(p.shape, generator=gen, device=device)
+        g = 1e-3 * torch.randn(p.shape, generator=gen, device=device)
+        m = 1e-4 * torch.randn(p.shape, generator=gen, device=device)
+        v = 1e-8 * torch.rand(p.shape, generator=gen, device=device)
+        parts = [tuple(shard_leaf(t, dim, FSDP_SHARDS, i) for t in (x, g, m, v))
+                 for i in range(FSDP_SHARDS)]
+        xsq, usq = lamb_moments(x, g, m, v, c, layers)
+        sums = [lamb_moments(*t, c, layers) for t in parts]
+        sx, su = (torch.stack([s[j] for s in sums]).sum(0) for j in (0, 1))
+        rel = max(float(((sx - xsq).abs() / xsq).max()), float(((su - usq).abs() / usq).max()))
+        ratio = trust_ratio(xsq, usq) * lr
+        lamb_apply(x, m, v, c, ratio, layers)
+        for t in parts:
+            lamb_apply(t[0], t[2], t[3], c, ratio, layers)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(shard_leaf(whole, dim, FSDP_SHARDS, i), part)
+                    for i, t in enumerate(parts) for whole, part in zip((x, m, v),
+                                                                        (t[0], t[2], t[3])))
+        log(f"fsdp (b) {k:22s} {str(tuple(p.shape)):22s} split dim {dim}: partials rel "
+            f"{rel:.2e}, x' m' v' slices bit-equal {equal}")
+        if rel > 1e-5 or not equal:
+            raise AssertionError(f"fsdp (b): {k} breaks the shard contract")
+        worst["partials"] = max(worst["partials"], rel)
+        worst["split"] += dim is not None
+        del x, g, m, v, parts
+    torch.cuda.empty_cache()
+    log(f"fsdp (b): {worst['split']} of 13 leaves split; worst partials rel "
+        f"{worst['partials']:.2e}")
+
+
+def check_fsdp_memory() -> dict:
+    """(c) Per-rank bytes of BERT-large's params, μ and ν at data=4/8/16,
+    from meta tensors cut to rank 0's slices; at least N/2 times smaller
+    than the whole state."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import build_model
+    from repro_torch.nn import flatten
+    from repro_torch.sharding import per_device_state_bytes, shard_dim, specs_for
+    from repro_torch.sharding.collectives import shard_leaf
+
+    model = build_model(get_config("bert-large"))
+    whole = {k: torch.empty(p.shape, device="meta") for k, p in flatten(model.defs).items()}
+    base = 3 * per_device_state_bytes(whole)
+    out = {}
+    for n in (4, 8, 16):
+        mesh = Mesh({"data": n, "model": 1})
+        specs = specs_for(model.defs, mesh)
+        rank0 = {k: shard_leaf(x, shard_dim(specs[k], mesh), n, 0) for k, x in whole.items()}
+        per = 3 * per_device_state_bytes(rank0)
+        out[n] = base / per
+        log(f"fsdp (c) data={n}: params + mu + nu {per / 2**30:.3f} GiB a rank against "
+            f"{base / 2**30:.3f} GiB whole: {out[n]:.3f}x (at least {n / 2:g}x)")
+        if out[n] < n / 2:
+            raise AssertionError(f"fsdp (c): data={n} saves only {out[n]:.2f}x")
+    return out
+
+
+def run_fsdp(device) -> dict:
+    """Phase 14; returns (a)'s launches and timings and (c)'s ratios."""
+    from repro_torch.launch.mesh import shutdown_distributed
+
+    t0 = time.perf_counter()
+    try:
+        out = run_fsdp_main_path(device)
+    finally:
+        shutdown_distributed()
+    check_shard_contract(device)
+    out["memory"] = check_fsdp_memory()
+    log(f"fsdp: phase 14 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 6: timing
 # ---------------------------------------------------------------------------
 
@@ -3462,26 +3672,36 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def time_kernels(device, rate: float, arch: str = "bert-large") -> dict:
+def time_kernels(device, rate: float, arch: str = "bert-large", shards: int = 1) -> dict:
     """K1 and K2 over one full update of ``arch``'s leaves, plain, kernel
-    (and with the guard's flag), kernel, plain, beside their bound."""
+    (and with the guard's flag), kernel, plain, beside their bound.  With
+    ``shards`` N > 1: over the slices one rank of a ``data=N`` mesh holds
+    (phase 14)."""
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import lamb_apply, lamb_moments
+    from repro_torch.kernels import LAUNCHES, lamb_apply, lamb_moments
     from repro_torch.kernels.lamb_update import bias_corrections
+    from repro_torch.launch.mesh import Mesh
     from repro_torch.models import build_model
     from repro_torch.nn import flatten
+    from repro_torch.sharding import shard_dim, specs_for
 
     model = build_model(get_config(arch).replace(
         use_flash_kernel=False, use_fused_ce_head=False))
     axes = model.layer_axes()
+    mesh = Mesh({"data": shards, "model": 1})
+    specs = specs_for(model.defs, mesh)
     gen = torch.Generator(device=device).manual_seed(1)
     leaves = []
     for k, p in flatten(model.defs).items():
         layers = p.shape[0] if axes[k] == 0 else 1
-        x = 0.05 * torch.randn(p.shape, generator=gen, device=device)
-        g = 1e-3 * torch.randn(p.shape, generator=gen, device=device)
+        shape = list(p.shape)
+        dim = shard_dim(specs[k], mesh) if shards > 1 else None
+        if dim is not None:
+            shape[dim] //= shards
+        x = 0.05 * torch.randn(shape, generator=gen, device=device)
+        g = 1e-3 * torch.randn(shape, generator=gen, device=device)
         m = torch.zeros_like(x)
         v = torch.zeros_like(x)
         ratio = torch.full((layers,), 1e-3, device=device)
@@ -3506,11 +3726,14 @@ def time_kernels(device, rate: float, arch: str = "bert-large") -> dict:
     # plain, kernel, kernel with the guard's flag, the same twice more, plain:
     # the versions compared within one call
     times = {name: {"plain": [], "cuda": [], "ok": []} for name in fns}
+    timed = {}   # the kernel's launches in its own timing
     for name, fn in fns.items():
+        before = LAUNCHES[name]
         for plain in (True, False, False, True):
             times[name]["plain" if plain else "cuda"].append(cuda_ms(lambda: fn(plain)))
             if not plain:
                 times[name]["ok"].append(cuda_ms(lambda: fn(False, taken)))
+        timed[name] = LAUNCHES[name] - before
     out = {}
     for name in fns:
         t_k = min(times[name]["cuda"])
@@ -3519,8 +3742,10 @@ def time_kernels(device, rate: float, arch: str = "bert-large") -> dict:
         bound = max(t_bytes, t_ops) * 1e3
         out[name] = dict(ms=t_k, plain_ms=t_p, bound_ms=bound,
                          bound_by="bytes" if t_bytes >= t_ops else "operations",
-                         library_ms=None, ok_ms=min(times[name]["ok"]))
-        log(f"time {name} {arch}: kernel {times[name]['cuda']} ms, with ok=1 "
+                         library_ms=None, ok_ms=min(times[name]["ok"]),
+                         timed_launches=timed[name])
+        where = arch if shards == 1 else f"{arch} data={shards} slice"
+        log(f"time {name} {where}: kernel {times[name]['cuda']} ms, with ok=1 "
             f"{times[name]['ok']} ms, plain {times[name]['plain']} ms "
             f"over {n} elements in {len(leaves)} leaves; bound {bound:.3f} ms "
             f"({bytes_[name] / 1e9:.2f} GB at {rate / 1e12:.2f} TB/s); "
@@ -3528,7 +3753,7 @@ def time_kernels(device, rate: float, arch: str = "bert-large") -> dict:
     log("time library: none; no single PyTorch call computes a LAMB update")
     del leaves
     torch.cuda.empty_cache()
-    log(f"time full update {arch} (K1 + K2): kernel {out['lamb_moments']['ms'] + out['lamb_apply']['ms']:.3f}"
+    log(f"time full update {arch} shards={shards} (K1 + K2): kernel {out['lamb_moments']['ms'] + out['lamb_apply']['ms']:.3f}"
         f" ms, plain {out['lamb_moments']['plain_ms'] + out['lamb_apply']['plain_ms']:.3f} ms")
     return out
 
@@ -3779,6 +4004,7 @@ def main() -> None:
     moe = run_moe(device)
     recurrent = run_recurrent(device)
     deepseek = run_deepseek(device)
+    fsdp = run_fsdp(device)
     timing = {**time_kernels(device, rate), **time_flash(device, rate),
               **time_fused_ce(device, rate)}
     moe_timing = {**time_kernels(device, rate, MOE_ARCH),
@@ -3787,6 +4013,7 @@ def main() -> None:
     widths = time_flash_widths(device, rate)
     wide_flash = time_flash(device, rate, WIDE_FLASH_TIMING, every=True)
     xlstm_timing = time_kernels(device, rate, XLSTM_ARCH)
+    shard_timing = time_kernels(device, rate, "bert-large", shards=FSDP_SHARDS)
     wide = {sh[0]: time_fused_ce(device, rate, [sh]) for sh in WIDE_CE_TIMING}
     # the FMA design is not timed there: at D 7168 it re-forms the scores in
     # each of 7 windows on FMA (seconds a call), and no path takes it there
@@ -3823,6 +4050,14 @@ def main() -> None:
     for k in FUSED_CE:
         by_name[k]["deepseek_d7168"] = dict(
             launches=deepseek["pieces"]["head"]["launches"][k], **ds_ce[k])
+    # phase 14: every kernel's launches in the main path through the sharded
+    # Trainer on a data=1 mesh, and K1/K2's times over a data=4 rank's
+    # slices with the launches of that timing (no data=4 path runs here)
+    for k in KERNELS:
+        by_name[k]["fsdp_data1_mesh"] = dict(launches=fsdp["launches"][k])
+    for k in ("lamb_moments", "lamb_apply"):
+        by_name[k]["bert_large_data4_slice"] = dict(
+            launches=shard_timing[k].pop("timed_launches"), **shard_timing[k])
     log(card)   # again near the end, where a truncated log still shows it
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -275,14 +275,19 @@ def discard_checkpoints_after(directory: str, step: int) -> List[str]:
     return removed
 
 
-def restore_checkpoint(path: str, target: Any, *, cast: bool = False) -> Any:
+def restore_checkpoint(path: str, target: Any, *, cast: bool = False,
+                       shard: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None
+                       ) -> Any:
     """Restore into the structure of ``target``.
 
     Each leaf of ``target`` (a tensor, or anything with ``shape`` and
     ``dtype``) names the path, shape and dtype to read.  Tensor leaves come
     back as new tensors on that leaf's device, other leaves as host numpy
-    arrays (bf16 always as a tensor).  Shape mismatches raise; dtype
-    mismatches raise unless ``cast=True``.
+    arrays (bf16 always as a tensor).  With ``shard``, each tensor leaf is
+    read whole and ``shard(path, leaf)`` keeps what this process holds (a
+    data-parallel rank's slice: the mesh layout lives in the target, never
+    in the file).  Shape mismatches raise; dtype mismatches raise unless
+    ``cast=True``.
     """
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -293,6 +298,9 @@ def restore_checkpoint(path: str, target: Any, *, cast: bool = False) -> Any:
             raise KeyError(f"checkpoint missing leaf {p!r}")
         entry = by_path[p]
         arr = _load_leaf(np.load(os.path.join(path, entry["file"])), entry["dtype"])
+        if shard is not None and isinstance(tgt, torch.Tensor):
+            arr = shard(p, arr if isinstance(arr, torch.Tensor)
+                        else torch.from_numpy(_contiguous(arr)))
         tgt_shape = tuple(tgt.shape)
         if tuple(arr.shape) != tgt_shape:
             raise ValueError(f"{p}: shape {tuple(arr.shape)} != target {tgt_shape}")

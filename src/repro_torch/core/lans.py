@@ -31,8 +31,8 @@ from repro_torch.optim.base import (
 )
 
 
-def _normalize(g32: torch.Tensor, axis: int, norm_ord: str) -> torch.Tensor:
-    n = _slice_norm(g32, axis, norm_ord)
+def _normalize(g32: torch.Tensor, axis: int, norm_ord: str, path: str) -> torch.Tensor:
+    n = _slice_norm(g32, axis, norm_ord, path)
     return torch.where(n > 0, g32 / torch.where(n > 0, n, 1.0), g32)
 
 
@@ -44,7 +44,7 @@ def normalize_grads(
 ) -> Tensors:
     """g~ = g / ||g|| per layer block (per slice on stacked leaves), fp32;
     an all-zero block passes through unchanged."""
-    return {k: _normalize(g.to(torch.float32), layer_axis(layer_axes, k), norm_ord)
+    return {k: _normalize(g.to(torch.float32), layer_axis(layer_axes, k), norm_ord, k)
             for k, g in grads.items()}
 
 
@@ -80,7 +80,7 @@ def scale_by_lans(
         for k, g in updates.items():
             axis = layer_axis(layer_axes, k)
             x = params[k]
-            g_tilde = _normalize(g.to(torch.float32), axis, norm_ord)
+            g_tilde = _normalize(g.to(torch.float32), axis, norm_ord, k)
             m_new = b1 * state.mu[k].to(torch.float32) + (1 - b1) * g_tilde
             v_new = b2 * state.nu[k].to(torch.float32) + (1 - b2) * g_tilde * g_tilde
             denom = torch.sqrt(v_new / c2) + eps
@@ -89,7 +89,7 @@ def scale_by_lans(
             d_m = (m_new / c1) / denom + wd     # momentum direction
             d_g = g_tilde / denom + wd          # current-gradient direction
             if trust_mask is None or trust_mask[k]:
-                kw = dict(layer_axis=axis, phi_bounds=phi_bounds, norm_ord=norm_ord)
+                kw = dict(layer_axis=axis, phi_bounds=phi_bounds, norm_ord=norm_ord, path=k)
                 r_m, r_g = trust_ratio(x, d_m, **kw), trust_ratio(x, d_g, **kw)
             else:
                 r_m = r_g = 1.0

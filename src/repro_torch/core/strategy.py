@@ -20,6 +20,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.optim.base import EmptyState, GradientTransformation, Tensors, chain
+from repro_torch.sharding.collectives import all_reduce, group_size
+from repro_torch.sharding.context import reduce_group
 
 _ORDS = {"l2": 2, "l1": 1, "linf": math.inf}
 
@@ -37,17 +39,34 @@ def phi_clip(z: torch.Tensor, bounds: Optional[Tuple[float, float]]) -> torch.Te
     return torch.clamp(z, bounds[0], bounds[1])
 
 
-def _slice_norm(x: torch.Tensor, layer_axis: Optional[int], ord: str = "l2") -> torch.Tensor:
+def _slice_norm(x: torch.Tensor, layer_axis: Optional[int], ord: str = "l2",
+                path: Optional[str] = None) -> torch.Tensor:
     """fp32 norm over every axis but the stacked-layers one (kept, so the
     result broadcasts against ``x``); over all axes to a scalar when
-    ``layer_axis`` is None or negative.  App. F's l1 / l2 / linf."""
+    ``layer_axis`` is None or negative.  App. F's l1 / l2 / linf.
+
+    ``path`` names the parameter ``x`` belongs to: where the ambient
+    sharding context splits it over data-parallel ranks, ``x`` is this
+    rank's slice and the partial Σ|x|ᵖ (max for linf) is all-reduced over
+    them, so the norm is the whole leaf's, as GSPMD keeps it.  The stacked
+    axis never splits, so per-layer partials reduce as they are.
+    """
     if layer_axis is None or layer_axis < 0:
-        return torch.linalg.vector_norm(x, _ORDS[ord], dtype=torch.float32)
-    dims = tuple(i for i in range(x.ndim) if i != layer_axis)
-    if not dims:   # a (layers,) leaf: the norm of one element
-        return x.to(torch.float32).abs()
-    return torch.linalg.vector_norm(x, _ORDS[ord], dim=dims, keepdim=True,
+        dims = None
+    else:
+        dims = tuple(i for i in range(x.ndim) if i != layer_axis)
+        if not dims:   # a (layers,) leaf: the norm of one element
+            return x.to(torch.float32).abs()
+    norm = torch.linalg.vector_norm(x, _ORDS[ord], dim=dims, keepdim=dims is not None,
                                     dtype=torch.float32)
+    group = reduce_group(path)
+    if group is None or group_size(group) == 1:
+        return norm
+    if ord == "linf":
+        return all_reduce(norm, "max", group)
+    if ord == "l1":
+        return all_reduce(norm, "sum", group)
+    return torch.sqrt(all_reduce(norm.square(), "sum", group))
 
 
 def trust_ratio(
@@ -58,11 +77,14 @@ def trust_ratio(
     phi_bounds: Optional[Tuple[float, float]] = None,
     eps: float = 0.0,
     norm_ord: str = "l2",
+    path: Optional[str] = None,
 ) -> torch.Tensor:
     """phi(||x||)/(||u|| + eps), 1 where either norm is 0: a scalar, or one
-    ratio per layer slice (broadcastable) with ``layer_axis``."""
-    w_norm = phi_clip(_slice_norm(param, layer_axis, norm_ord), phi_bounds)
-    u_norm = _slice_norm(update, layer_axis, norm_ord)
+    ratio per layer slice (broadcastable) with ``layer_axis``.  ``path``
+    names the parameter, for norms over a sharded leaf (see
+    :func:`_slice_norm`)."""
+    w_norm = phi_clip(_slice_norm(param, layer_axis, norm_ord, path), phi_bounds)
+    u_norm = _slice_norm(update, layer_axis, norm_ord, path)
     safe = w_norm / (u_norm + eps)
     return torch.where(w_norm > 0, torch.where(u_norm > 0, safe, 1.0), 1.0)
 
@@ -91,7 +113,7 @@ def layerwise_adaptation(
                 new[k] = u
                 continue
             r = trust_ratio(params[k], u, layer_axis=layer_axis(layer_axes, k),
-                            phi_bounds=phi_bounds, eps=eps, norm_ord=norm_ord)
+                            phi_bounds=phi_bounds, eps=eps, norm_ord=norm_ord, path=k)
             new[k] = (r * u.to(torch.float32)).to(u.dtype)
         return new, state
 

@@ -20,7 +20,7 @@ def trust_ratio_tree(
     """Per-leaf phi(||x||)/||u|| (one per layer slice on a stacked leaf),
     squeezed to vectors; 1 where either norm is 0."""
     return {k: torch.squeeze(trust_ratio(p, updates[k], layer_axis=layer_axis(layer_axes, k),
-                                         phi_bounds=phi_bounds))
+                                         phi_bounds=phi_bounds, path=k))
             for k, p in params.items()}
 
 
@@ -41,7 +41,7 @@ def trust_records(
                                        phi_bounds=phi_bounds)
 
     def norm(tree):
-        return {k: torch.squeeze(_slice_norm(x, layer_axis(layer_axes, k)))
+        return {k: torch.squeeze(_slice_norm(x, layer_axis(layer_axes, k), path=k))
                 for k, x in tree.items()}
 
     return {

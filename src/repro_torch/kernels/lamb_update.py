@@ -22,7 +22,7 @@ There is no fallback from the kernel to the plain version.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -248,6 +248,70 @@ def trust_ratio(xsq, usq, *, phi_lo=None, phi_hi=None, apply_trust=True):
 
 
 @torch.no_grad()
+def lamb_update_leaves(
+    params: Dict[str, torch.Tensor],
+    grads: Dict[str, torch.Tensor],
+    mu: Dict[str, torch.Tensor],
+    nu: Dict[str, torch.Tensor],
+    c: torch.Tensor,
+    lr: torch.Tensor,
+    *,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-6,
+    weight_decay: float = 0.01,
+    wd_mask: Optional[Dict[str, bool]] = None,
+    trust_mask: Optional[Dict[str, bool]] = None,
+    layer_axes: Optional[Dict[str, int]] = None,
+    phi_bounds: Optional[Tuple[Optional[float], Optional[float]]] = None,
+    ok: Optional[torch.Tensor] = None,
+    plain: bool = False,
+    split: Sequence[str] = (),
+    reduce_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """The two passes over a dict of leaves, in place on params, mu and nu.
+
+    ``c`` is the ``[c1, c2]`` bias-correction pair and ``lr`` the fp32
+    learning rate, both on the leaves' device.  Pass A runs on every leaf,
+    then pass B.  The ``split`` leaves are one rank's slices: their
+    per-layer (Σx², Σu²) partials are packed into one buffer that
+    ``reduce_sum`` sums over the ranks in one call before the trust ratios,
+    and their Σ(x'−x)² the same way after pass B, so every ratio and sum is
+    the whole leaf's.  Returns ``({path: ratio}, {path: Σ(x'−x)²})``: the
+    applied trust ratio before the lr fold ((layers,) for a stacked leaf,
+    else a scalar) and the fp32 squared update norm of each leaf.
+    """
+    lo, hi = (None, None) if phi_bounds is None else phi_bounds
+    leaves = {}
+    for k, x in params.items():
+        stacked = (layer_axes or {}).get(k, -1) == 0
+        layers = x.shape[0] if stacked else 1
+        wd = weight_decay if (wd_mask or {}).get(k, True) else 0.0
+        sums = lamb_moments(x, grads[k], mu[k], nu[k], c, layers, b1=b1, b2=b2,
+                            eps=eps, weight_decay=wd, ok=ok, plain=plain)
+        leaves[k] = (stacked, layers, wd, sums)
+    if split:   # one collective for every split leaf's per-layer partials
+        packed = reduce_sum(torch.cat([t for k in split for t in leaves[k][3]]))
+        at = 0
+        for k in split:
+            stacked, layers, wd, _ = leaves[k]
+            leaves[k] = (stacked, layers, wd,
+                         (packed[at:at + layers], packed[at + layers:at + 2 * layers]))
+            at += 2 * layers
+    ratios, dsq = {}, {}
+    for k, x in params.items():
+        stacked, layers, wd, (xsq, usq) = leaves[k]
+        ratio = trust_ratio(xsq, usq, phi_lo=lo, phi_hi=hi,
+                            apply_trust=bool((trust_mask or {}).get(k, True)))
+        dsq[k] = lamb_apply(x, mu[k], nu[k], c, ratio * lr, layers, eps=eps,
+                            weight_decay=wd, ok=ok, plain=plain).sum()
+        ratios[k] = ratio if stacked else ratio[0]
+    if split:
+        dsq.update(zip(split, reduce_sum(torch.stack([dsq[k] for k in split])).unbind()))
+    return ratios, dsq
+
+
+@torch.no_grad()
 def lamb_update(
     x: torch.Tensor,
     g: torch.Tensor,
@@ -267,7 +331,8 @@ def lamb_update(
     ok: Optional[torch.Tensor] = None,
     plain: bool = False,
 ) -> LambOut:
-    """One fused LAMB step on one tensor, in place on x, m and v.
+    """One fused LAMB step on one tensor, in place on x, m and v: the
+    one-leaf call of :func:`lamb_update_leaves`.
 
     ``step`` is the 1-based iteration and ``lr_t`` the learning rate (either
     may be a device tensor: nothing here waits on the host).  ``layer_axis``
@@ -279,14 +344,11 @@ def lamb_update(
     """
     if layer_axis not in (None, -1, 0):
         raise ValueError("lamb_update supports layer_axis in {None, 0}")
-    stacked = layer_axis == 0
-    layers = x.shape[0] if stacked else 1
     c = bias_corrections(step, b1, b2, x.device)
-    xsq, usq = lamb_moments(x, g, m, v, c, layers, b1=b1, b2=b2, eps=eps,
-                            weight_decay=weight_decay, ok=ok, plain=plain)
-    ratio = trust_ratio(xsq, usq, phi_lo=phi_lo, phi_hi=phi_hi,
-                        apply_trust=apply_trust)
     lr = torch.as_tensor(lr_t, dtype=torch.float32, device=x.device)
-    dsq = lamb_apply(x, m, v, c, ratio * lr, layers, eps=eps,
-                     weight_decay=weight_decay, ok=ok, plain=plain)
-    return LambOut(x, m, v, ratio if stacked else ratio[0], dsq.sum())
+    ratios, dsq = lamb_update_leaves(
+        {"x": x}, {"x": g}, {"x": m}, {"x": v}, c, lr, b1=b1, b2=b2, eps=eps,
+        weight_decay=weight_decay, trust_mask={"x": apply_trust},
+        layer_axes={"x": 0 if layer_axis == 0 else -1}, phi_bounds=(phi_lo, phi_hi),
+        ok=ok, plain=plain)
+    return LambOut(x, m, v, ratios["x"], dsq["x"])

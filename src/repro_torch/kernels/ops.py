@@ -20,8 +20,14 @@ from typing import Callable, Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.lamb_update import lamb_update, resolve_fused_backend
+from repro_torch.kernels.lamb_update import (
+    bias_corrections,
+    lamb_update_leaves,
+    resolve_fused_backend,
+)
 from repro_torch.optim.base import GradientTransformation, clip_tree_by_global_norm
+from repro_torch.sharding.collectives import all_reduce
+from repro_torch.sharding.context import current
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -91,24 +97,29 @@ def fused_lamb_apply(
     squared update norm, taken inside the kernels (0 on a skipped step).
     With ``with_aux``, also ``{path: ratio}``: each leaf's applied trust
     ratio before the lr fold ((layers,) for a stacked leaf, else a scalar).
+
+    Pass A (K1) runs on every leaf, then pass B (K2).  Under an ambient
+    sharding context the leaves it splits over the data-parallel ranks are
+    this rank's slices: K1's per-layer (Σx², Σu²) partials of all of them
+    are packed into one buffer and all-reduced in **one** collective before
+    the trust ratios, so K2 applies the whole leaf's ratio to the slice;
+    their Σ(x'−x)² are all-reduced the same way.  The kernels stay on the
+    path: this is the reference's function, where GSPMD keeps the plain
+    pass's sums global.
     """
-    total = torch.zeros((), dtype=torch.float32, device=count.device)
-    flag = None if ok is None else ok.to(torch.int32)
-    ratios: Tensors = {}
-    for k, x in params.items():
-        axis = 0 if (layer_axes or {}).get(k, -1) == 0 else None
-        out = lamb_update(
-            x, grads[k], mu[k], nu[k], count, lr_t, b1=b1, b2=b2, eps=eps,
-            weight_decay=weight_decay if (wd_mask or {}).get(k, True) else 0.0,
-            phi_lo=None if phi_bounds is None else phi_bounds[0],
-            phi_hi=None if phi_bounds is None else phi_bounds[1],
-            layer_axis=axis,
-            apply_trust=bool((trust_mask or {}).get(k, True)),
-            ok=flag,
-        )
-        total = total + out.delta_sq
-        if with_aux:
-            ratios[k] = out.ratio
+    device = count.device
+    ctx = current()
+    split = [k for k in params if ctx is not None and ctx.reduce_group(k) is not None]
+    ratios, dsq = lamb_update_leaves(
+        params, grads, mu, nu, bias_corrections(count, b1, b2, device),
+        torch.as_tensor(lr_t, dtype=torch.float32, device=device), b1=b1, b2=b2, eps=eps,
+        weight_decay=weight_decay, wd_mask=wd_mask, trust_mask=trust_mask,
+        layer_axes=layer_axes, phi_bounds=phi_bounds,
+        ok=None if ok is None else ok.to(torch.int32), split=split,
+        reduce_sum=lambda t: all_reduce(t, "sum", ctx.dp_group))
+    total = torch.zeros((), dtype=torch.float32, device=device)
+    for k in params:
+        total = total + dsq[k]
     return (total, ratios) if with_aux else total
 
 

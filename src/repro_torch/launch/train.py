@@ -32,12 +32,29 @@ and a clean ``status=preempted`` stop, resumable with ``--resume``.  It
 runs on ``cuda`` unless ``--device`` names another device, and raises when
 there is no card.
 
-The flags mirror ``repro.launch.train``; ``--mesh`` is not ported yet and
-raises ``NotImplementedError`` naming its ROADMAP.md item.
+``--mesh data=N,model=1`` trains FSDP over N data-parallel ranks, one
+process per device, started by ``torch.distributed.run``:
+
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.train --arch bert-large --smoke --fused-lamb \
+        --steps 3 --device cpu --mesh data=2,model=1
+
+(NCCL on ``cuda:LOCAL_RANK``, or gloo with ``--device cpu``).  Params and
+optimizer moments are split over the ranks, each rank trains on its rows of
+the global batch, and only rank 0 prints and writes.  Under
+``torch.distributed.run`` without ``--mesh``, the ranks form
+``data=WORLD/--model-parallel, model=--model-parallel``, as the
+reference's host mesh.  These raise ``NotImplementedError`` naming their
+ROADMAP.md item: a ``model`` axis of more than one rank, an MoE arch over
+more than one data-parallel rank, and ``--rollback-on-spike`` or
+``--preempt-grace`` over more than one.
+
+The flags mirror ``repro.launch.train``.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from pathlib import Path
 from typing import List, Optional
@@ -48,12 +65,18 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.core import make_stage
 from repro_torch.data import DataPipeline
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import (
+    Mesh,
+    init_distributed,
+    make_host_mesh,
+    parse_mesh_spec,
+    shutdown_distributed,
+)
 from repro_torch.models import build_model
+from repro_torch.sharding import dp_size
 from repro_torch.telemetry import EventLog, RunReport
 from repro_torch.train import DivergenceError, SupervisorConfig, Trainer
-
-# flag → ROADMAP.md item of the code it would need
-_UNPORTED = {"mesh": "queue 1, item 11"}
+from repro_torch.train.trainer import check_mesh_supported
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -100,7 +123,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--resume", action="store_true",
                     help="restore the latest complete checkpoint in "
                          "--checkpoint-dir and continue from its step")
-    ap.add_argument("--mesh", default="")
+    ap.add_argument("--mesh", default="",
+                    help="mesh axes, e.g. data=8,model=1 (one rank per device, under "
+                         "torch.distributed.run); params + LAMB moments are "
+                         "FSDP-sharded over data")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="legacy spelling: model-axis size of the host mesh "
+                         "(ignored when --mesh is given; above 1 it raises until the "
+                         "model axis is ported, ROADMAP.md queue 1, item 11 (b))")
     ap.add_argument("--telemetry-dir", default="",
                     help="write the event log (events.jsonl) and RUN_REPORT.json here; "
                          "off: a null sink, the step loop unchanged")
@@ -131,16 +161,21 @@ def lr_schedule(args: argparse.Namespace):
     return lr, core.warmup_poly_decay(lr, args.steps, int(args.steps * warmup_ratio))
 
 
+def _mesh_plan(args: argparse.Namespace) -> Optional[Mesh]:
+    """The mesh ``args`` ask for, names and sizes only (None: one process)."""
+    if args.mesh:
+        return Mesh(parse_mesh_spec(args.mesh))
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.model_parallel > 1 or world > 1:
+        return make_host_mesh(args.model_parallel, world_size=world)
+    return None
+
+
 def build(args: argparse.Namespace, *, remat: Optional[str] = None, **trainer_kw):
     """(trainer, data, cfg) for parsed ``args``; raises for unported options.
     ``remat`` replaces the model config's, and ``trainer_kw`` replace the
-    Trainer keywords taken from ``args``."""
-    for name, item in _UNPORTED.items():
-        if getattr(args, name):
-            raise NotImplementedError(
-                f"--{name.replace('_', '-')} is not ported to PyTorch yet "
-                f"(ROADMAP.md {item})"
-            )
+    Trainer keywords taken from ``args``.  With a mesh this joins the run's
+    process group (:func:`~repro_torch.launch.mesh.init_distributed`)."""
     if args.accum_steps < 1:
         raise SystemExit(f"--accum-steps must be >= 1, got {args.accum_steps}")
     if args.batch % args.accum_steps:
@@ -161,9 +196,18 @@ def build(args: argparse.Namespace, *, remat: Optional[str] = None, **trainer_kw
         cfg = cfg.replace(use_fused_ce_head=args.fused_ce)
     if remat is not None:
         cfg = cfg.replace(remat=remat)
+    mesh = _mesh_plan(args)
+    if mesh is not None:
+        # what a mesh does not run raises before any process group is made
+        check_mesh_supported(cfg, mesh, supervisor=args.rollback_on_spike,
+                             preempt=args.preempt_grace is not None)
+        mesh, device = init_distributed(device, args.mesh,
+                                        model_parallel=args.model_parallel)
     model = build_model(cfg)
     lr, schedule = lr_schedule(args)
-    telemetry = EventLog.to_dir(args.telemetry_dir) if args.telemetry_dir else EventLog()
+    writer = mesh is None or mesh.rank == 0
+    telemetry = (EventLog.to_dir(args.telemetry_dir) if args.telemetry_dir and writer
+                 else EventLog())
     tc = TrainConfig(
         optimizer=args.optimizer, learning_rate=lr,
         weight_decay=args.weight_decay, total_steps=args.steps, seed=args.seed,
@@ -186,17 +230,20 @@ def build(args: argparse.Namespace, *, remat: Optional[str] = None, **trainer_kw
                                      max_rollbacks=args.max_rollbacks)
                     if args.rollback_on_spike else None),
         preempt_grace=args.preempt_grace,
+        mesh=mesh,
     )
     trainer = Trainer(model, tc, device=device, **{**kw, **trainer_kw})
-    data = DataPipeline(cfg, args.batch, args.seq, device=device, seed=args.seed)
+    data = DataPipeline(cfg, args.batch, args.seq, device=device, seed=args.seed,
+                        mesh=mesh)
     return trainer, data, cfg
 
 
-def mixed_batch_stages(args: argparse.Namespace) -> list:
+def mixed_batch_stages(args: argparse.Namespace, dp: int = 1) -> list:
     """The reference launcher's two stages: ``--seq`` and ``--batch`` for
     ``int(0.8 · steps)`` steps, then 4 × seq at batch / 4, re-warmed, for
     the rest.  Every stage batch must divide into ``--accum-steps``
-    microbatches, else stage 2 would fail after stage 1 trained."""
+    microbatches and over the ``dp`` data-parallel ranks, else stage 2
+    would fail after stage 1 trained."""
     n1 = int(args.steps * 0.8)
     kw = dict(base_lr=args.base_lr, base_batch=args.base_batch,
               base_warmup_ratio=args.warmup_ratio)
@@ -209,20 +256,28 @@ def mixed_batch_stages(args: argparse.Namespace) -> list:
         if st.batch_size % args.accum_steps:
             raise SystemExit(f"stage {st.name!r} batch {st.batch_size} is not "
                              f"divisible by --accum-steps {args.accum_steps}")
+        if st.batch_size % dp:
+            raise SystemExit(f"stage {st.name!r} batch {st.batch_size} is not "
+                             f"divisible by the mesh's data-parallel size {dp}")
     return stages
 
 
 def main(argv: Optional[List[str]] = None) -> Trainer:
     args = parse_args(argv)
     trainer, data, cfg = build(args)
-    print(f"arch={cfg.name} params={trainer.model.param_count()/1e6:.1f}M "
-          f"device={trainer.device}")
-    print(f"global_batch={args.batch} microbatch={args.batch // args.accum_steps} "
-          f"accum={args.accum_steps} precision={args.precision} "
-          f"optimizer={args.optimizer} "
-          f"fused_lamb={args.fused_lamb} flash={cfg.use_flash_kernel} "
-          f"fused_ce={cfg.use_fused_ce_head}")
-    stages = mixed_batch_stages(args) if args.mixed_batch else None
+    mesh = trainer.mesh
+    say = print if trainer.is_writer else (lambda *a, **k: None)
+    say(f"arch={cfg.name} params={trainer.model.param_count()/1e6:.1f}M "
+        f"device={trainer.device}")
+    say(f"global_batch={args.batch} microbatch={args.batch // args.accum_steps} "
+        f"accum={args.accum_steps} precision={args.precision} "
+        f"optimizer={args.optimizer} "
+        f"fused_lamb={args.fused_lamb} flash={cfg.use_flash_kernel} "
+        f"fused_ce={cfg.use_fused_ce_head}")
+    if mesh is not None:
+        say(f"mesh={mesh.shape} devices={mesh.size}")
+    stages = (mixed_batch_stages(args, 1 if mesh is None else dp_size(mesh))
+              if args.mixed_batch else None)
     # the Trainer emits run_end (with its status) from a finally, so the
     # report is written even when the run aborts: a diverged run's report is
     # the diagnostic to read
@@ -233,7 +288,7 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
         else:
             def make_data():
                 return DataPipeline(cfg, args.batch, args.seq, device=trainer.device,
-                                    seed=args.seed)
+                                    seed=args.seed, mesh=mesh)
 
             trainer.fit(data, args.steps, data_factory=make_data)
     except DivergenceError as e:
@@ -250,13 +305,16 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
             print(f"telemetry: {telemetry.path} report: {report_path}")
     final = trainer.history[-1] if trainer.history else {}
     loss = final.get("loss/total")
-    print(f"done: step={final.get('step')} "
-          f"loss={'n/a' if loss is None else f'{loss:.4f}'} "
-          f"acc={final.get('accuracy', 0.0):.4f} status={trainer._status}")
+    say(f"done: step={final.get('step')} "
+        f"loss={'n/a' if loss is None else f'{loss:.4f}'} "
+        f"acc={final.get('accuracy', 0.0):.4f} status={trainer._status}")
     if exit_code:
         sys.exit(exit_code)
     return trainer
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        shutdown_distributed()

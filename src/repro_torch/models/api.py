@@ -34,8 +34,11 @@ class Model:
     cfg: ModelConfig
     defs: Any
 
-    def init(self, seed: int, device: torch.device) -> nn.Params:
-        return nn.init_params(self.defs, seed, torch.device(device), self.cfg.param_dtype)
+    def init(self, seed: int, device: torch.device, keep=None) -> nn.Params:
+        """The parameters drawn from ``seed`` (``keep``: see
+        :func:`~repro_torch.nn.init_params`)."""
+        return nn.init_params(self.defs, seed, torch.device(device), self.cfg.param_dtype,
+                              keep=keep)
 
     def wd_mask(self) -> Dict[str, bool]:
         return nn.weight_decay_mask(self.defs)

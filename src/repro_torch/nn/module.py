@@ -116,12 +116,17 @@ def _initialize(p: Param, gen: torch.Generator, device: torch.device) -> torch.T
     raise ValueError(f"unknown init {p.init!r}")
 
 
-def init_params(defs, seed: int, device: torch.device, dtype=None) -> Params:
+def init_params(defs, seed: int, device: torch.device, dtype=None,
+                keep: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None
+                ) -> Params:
     """Materialize a definition tree into a flat dict of tensors on ``device``.
 
     With ``dtype``, each floating leaf is cast to it as soon as it is drawn,
     before the next leaf is: the values are those of :func:`cast_tree` over
-    the fp32 tree, and the peak is the cast tree plus one fp32 leaf.
+    the fp32 tree, and the peak is the cast tree plus one fp32 leaf.  With
+    ``keep``, ``keep(path, leaf)`` replaces each leaf as soon as it is drawn
+    (a data-parallel rank keeps its slice): the values are the whole
+    tree's, and the peak is what is kept plus one whole leaf.
     """
     dt = None if dtype is None else torch_dtype(dtype)
 
@@ -129,7 +134,8 @@ def init_params(defs, seed: int, device: torch.device, dtype=None) -> Params:
         gen = torch.Generator(device=device)
         gen.manual_seed(_path_seed(seed, path))
         x = _initialize(p, gen, device)
-        return x if dt is None or not x.is_floating_point() else x.to(dt)
+        x = x if dt is None or not x.is_floating_point() else x.to(dt)
+        return x if keep is None else keep(path, x)
 
     return _map_params(make, defs)
 

@@ -25,6 +25,9 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.sharding.collectives import all_reduce
+from repro_torch.sharding.context import current
+
 Tensors = Dict[str, torch.Tensor]
 PyTree = Any
 Schedule = Callable[[torch.Tensor], torch.Tensor]
@@ -236,9 +239,24 @@ def add_decayed_weights(weight_decay: float, mask: Optional[Dict[str, bool]] = N
 
 
 def global_norm(tree: Tensors) -> torch.Tensor:
-    """L2 norm over every leaf, reduced in fp32."""
-    sq = [torch.linalg.vector_norm(x, dtype=torch.float32).square() for x in tree.values()]
-    return torch.sqrt(torch.stack(sq).sum())
+    """L2 norm over every leaf, reduced in fp32.
+
+    Under an ambient sharding context the leaves it splits over the
+    data-parallel ranks are this rank's slices: their per-leaf Σx² are
+    all-reduced in one collective before the sum, so the norm is the whole
+    tree's on every rank (and, over one rank, the same bits as without a
+    context).
+    """
+    sq = torch.stack([torch.linalg.vector_norm(x, dtype=torch.float32).square()
+                      for x in tree.values()])
+    ctx = current()
+    split = [i for i, k in enumerate(tree) if ctx is not None
+             and ctx.reduce_group(k) is not None]
+    if split:
+        idx = torch.tensor(split, device=sq.device)
+        sq = sq.index_copy(0, idx, all_reduce(sq.index_select(0, idx), "sum",
+                                              ctx.dp_group))
+    return torch.sqrt(sq.sum())
 
 
 def _clip_factor(tree: Tensors, max_norm: float) -> torch.Tensor:

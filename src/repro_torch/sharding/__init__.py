@@ -1,0 +1,44 @@
+"""Data-parallel FSDP over a mesh's ``data`` axis (port of
+``repro.sharding``): specs, the ambient context, placement and the
+collectives GSPMD inserts in the reference."""
+from repro_torch.sharding.axes import (
+    batch_axes,
+    default_act_rules,
+    default_param_rules,
+    dp_size,
+    resolve_spec,
+    specs_for,
+)
+from repro_torch.sharding.context import ShardCtx, current, shard_act, shard_dim, use_sharding
+from repro_torch.sharding.placement import (
+    BATCH_AXES,
+    batch_rows,
+    gather_tree,
+    leaf_dims,
+    opt_state_shardings,
+    per_device_state_bytes,
+    shard_tree,
+    train_state_shardings,
+)
+
+__all__ = [
+    "BATCH_AXES",
+    "ShardCtx",
+    "batch_axes",
+    "batch_rows",
+    "current",
+    "default_act_rules",
+    "default_param_rules",
+    "dp_size",
+    "gather_tree",
+    "leaf_dims",
+    "opt_state_shardings",
+    "per_device_state_bytes",
+    "resolve_spec",
+    "shard_act",
+    "shard_dim",
+    "shard_tree",
+    "specs_for",
+    "train_state_shardings",
+    "use_sharding",
+]

@@ -1,0 +1,158 @@
+"""The collectives of data-parallel FSDP, which GSPMD inserts by itself in
+the reference and the port calls by hand.
+
+A leaf split over the data-parallel ranks (its spec names the batch axes on
+one dimension ``dim``; :func:`~repro_torch.sharding.context.shard_dim`)
+lives on each rank as one contiguous slice of ``dim``: rank ``i`` of ``N``
+holds rows ``[i·n, (i+1)·n)``, ``n = size/N``.
+
+* :func:`shard_leaf` keeps the rank's slice of a whole leaf (no traffic);
+* :func:`gather_leaf` rebuilds the whole leaf on every rank
+  (``all_gather_into_tensor``);
+* :func:`scatter_grad` sums every rank's whole gradient and leaves each
+  rank its slice (``reduce_scatter_tensor``); a leaf that is not split
+  is all-reduced whole instead;
+* :func:`all_reduce` sums, maxes or mins over a group.
+
+Each has a plain single-process version (``*_plain``) that takes every
+rank's operand at once: what the tests hold the collectives to.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import torch
+
+OPS = ("sum", "max", "min")
+
+
+def _dist():
+    import torch.distributed as dist
+
+    return dist
+
+
+def _op(op: str):
+    dist = _dist()
+    if op not in OPS:
+        raise ValueError(f"unknown reduction {op!r}; one of {OPS}")
+    return {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+            "min": dist.ReduceOp.MIN}[op]
+
+
+def _collective(name: str, older: str):
+    """``torch.distributed``'s ``name``, or its older spelling ``older``
+    where that release lacks it."""
+    dist = _dist()
+    return getattr(dist, name, None) or getattr(dist, older)
+
+
+def group_size(group) -> int:
+    return _dist().get_world_size(group)
+
+
+def shard_leaf(x: torch.Tensor, dim: Optional[int], parts: int, index: int) -> torch.Tensor:
+    """Rank ``index`` of ``parts``'s contiguous slice of ``x`` along ``dim``
+    (a new tensor, so the whole leaf can be freed); ``dim`` None: ``x``."""
+    if dim is None:
+        return x
+    size = x.shape[dim]
+    if size % parts:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split into {parts}")
+    n = size // parts
+    return x.narrow(dim, index * n, n).clone(memory_format=torch.contiguous_format)
+
+
+def _blocks(shape, dim: int) -> int:
+    """Rows of the ``(rows, rest)`` view of a leaf split along ``dim``:
+    the product of the dims before it.  Each rank's slice is one contiguous
+    run of every row, so a slice is contiguous as ``(rows, rest / N)``."""
+    a = 1
+    for d in shape[:dim]:
+        a *= d
+    return a
+
+
+def gather_leaf(x: torch.Tensor, dim: Optional[int], group) -> torch.Tensor:
+    """The whole leaf, contiguous, from each rank's slice along ``dim``.
+
+    The slices are stacked rank after rank (``all_gather_into_tensor``
+    moves them as they lie), then one copy interleaves them row by row, the
+    ``(ranks, rows, rest)`` stack read as ``(rows, ranks, rest)``; over one
+    rank, or split along dim 0, that is a view and nothing is copied.
+    """
+    if dim is None:
+        return x
+    n = group_size(group)
+    flat = x.reshape(-1)
+    # a gather moves bits and does no arithmetic: 16-bit floats travel as
+    # bytes, which every backend carries (gloo has no bf16)
+    bits = flat.view(torch.uint8) if flat.element_size() == 2 else flat
+    out = torch.empty(n * bits.numel(), dtype=bits.dtype, device=x.device)
+    _collective("all_gather_single", "all_gather_into_tensor")(out, bits, group=group)
+    whole = list(x.shape)
+    whole[dim] *= n
+    rows = _blocks(x.shape, dim)
+    return out.view(x.dtype).view(n, rows, -1).transpose(0, 1).reshape(whole)
+
+
+def scatter_grad(g: torch.Tensor, dim: Optional[int], group) -> torch.Tensor:
+    """Σ over the ranks of their whole gradients ``g``; each rank keeps its
+    slice along ``dim`` (``dim`` None: the whole sum, all-reduced).  The
+    slices are laid rank after rank for ``reduce_scatter_tensor`` by one
+    copy, none over one rank or along dim 0; the result is the rank's slice
+    as it lies."""
+    if dim is None:
+        out = g.contiguous()
+        _dist().all_reduce(out, op=_op("sum"), group=group)
+        return out
+    n = group_size(group)
+    rows = _blocks(g.shape, dim)
+    src = g.reshape(rows, n, -1).transpose(0, 1).contiguous()
+    part = list(g.shape)
+    part[dim] //= n
+    out = torch.empty(part, dtype=g.dtype, device=g.device)
+    _collective("reduce_scatter_single", "reduce_scatter_tensor")(
+        out.view(-1), src.view(-1), op=_op("sum"), group=group)
+    return out
+
+
+def all_reduce(x: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
+    """``x`` reduced over ``group`` by ``op`` (sum, max or min), in place
+    where ``x`` is contiguous; returns the result.  ``group`` None: ``x``."""
+    if group is None:
+        return x
+    out = x if x.is_contiguous() else x.contiguous()
+    _dist().all_reduce(out, op=_op(op), group=group)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# plain versions: every rank's operand at once, in one process
+# ---------------------------------------------------------------------------
+
+def gather_leaf_plain(shards: Sequence[torch.Tensor], dim: Optional[int]) -> torch.Tensor:
+    """Rank order's slices concatenated along ``dim``."""
+    if dim is None:
+        return shards[0]
+    return torch.cat(list(shards), dim=dim)
+
+
+def scatter_grad_plain(grads: Sequence[torch.Tensor], dim: Optional[int]
+                       ) -> List[torch.Tensor]:
+    """Each rank's share of the sum of ``grads``, in rank order."""
+    total = torch.stack(list(grads)).sum(0)
+    n = len(grads)
+    return [shard_leaf(total, dim, n, i) for i in range(n)]
+
+
+def all_reduce_plain(xs: Sequence[torch.Tensor], op: str = "sum") -> torch.Tensor:
+    """The reduction of every rank's ``x`` by ``op``."""
+    stacked = torch.stack(list(xs))
+    if op == "sum":
+        return stacked.sum(0)
+    if op == "max":
+        return stacked.amax(0)
+    if op == "min":
+        return stacked.amin(0)
+    raise ValueError(f"unknown reduction {op!r}; one of {OPS}")

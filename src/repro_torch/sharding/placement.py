@@ -1,0 +1,132 @@
+"""Concrete placement: specs for whole train states, the rank's rows of a
+batch, and per-rank state bytes (port of ``repro.sharding.placement``).
+
+Conventions, as in the reference:
+
+  * optimizer moment trees (``mu``/``nu``/``momentum``/``accum``) mirror
+    their parameter's spec leaf for leaf (FSDP shards the whole optimizer,
+    the O(N) win for LAMB's two extra moment buffers);
+  * scalar state (schedule counts, the step counters) is replicated;
+  * batches split their leading (batch) dimension over the data axes, each
+    rank one contiguous block of rows.
+
+States are the port's trees (flat parameter dicts inside dataclasses);
+specs come back as ``{path: spec}`` under the checkpoint's leaf paths
+(``params/<p>``, ``opt_state/mu/<p>``, ``opt_state/1/count``, ``step``).
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional, Tuple
+
+import torch
+
+from repro_torch.checkpoint.io import tree_leaves_with_paths, tree_map_with_paths
+from repro_torch.sharding.axes import Spec, batch_axes, dp_size, specs_for
+from repro_torch.sharding.collectives import all_reduce, gather_leaf, shard_leaf
+from repro_torch.sharding.context import shard_dim
+
+# Logical axes of every named model input, keyed by batch-dict field.
+BATCH_AXES: Dict[str, Tuple[Optional[str], ...]] = {
+    "tokens": ("batch", "seq"),
+    "labels": ("batch", "seq"),
+    "mask": ("batch", "seq"),
+    "frame_embeds": ("batch", "seq", None),
+    "image_embeds": ("batch", None, None),
+}
+
+
+def batch_rows(n: int, mesh) -> Tuple[int, int]:
+    """``(first row, rows)`` of this rank's block of an ``n``-row global
+    batch (the counterpart of the reference's ``batch_sharding``); raises
+    ``ValueError`` when ``n`` does not divide over the data-parallel ranks."""
+    dp = dp_size(mesh)
+    if n % dp:
+        raise ValueError(
+            f"global batch {n} is not divisible by the mesh's data-parallel "
+            f"size {dp} (axes {batch_axes(mesh)}); examples would be dropped")
+    rows = n // dp
+    return mesh.index(batch_axes(mesh)) * rows, rows
+
+
+def opt_state_shardings(opt_state, param_specs: Mapping[str, Spec], mesh=None
+                        ) -> Dict[str, Spec]:
+    """Specs of every optimizer-state leaf, by path suffix.
+
+    Moment trees reuse their parameter's spec; scalars (schedule counts)
+    replicate.  The suffix match is component-boundary aware:
+    ``mu/mask_embed`` must not hit the ``embed`` parameter.
+    """
+    by_path = list(param_specs.items())
+
+    def match(path: str, leaf) -> Spec:
+        if getattr(leaf, "ndim", 0) == 0:
+            return ()
+        for ppath, spec in by_path:
+            if path == ppath or path.endswith("/" + ppath):
+                return spec
+        return ()
+
+    return {p: match(p, leaf) for p, leaf in tree_leaves_with_paths(opt_state)}
+
+
+def train_state_shardings(defs, state, mesh, rules: Optional[Mapping] = None
+                          ) -> Dict[str, Spec]:
+    """Specs of every leaf of a ``TrainState`` (params, opt_state, the
+    counters), under the checkpoint's paths.  Works for any optimizer state
+    layout (fused ``FusedLambState`` or a transform chain): moment leaves
+    match their parameters by path suffix, not by structure."""
+    pspecs = specs_for(defs, mesh, rules)
+    out: Dict[str, Spec] = {}
+    for path, _ in tree_leaves_with_paths(state):
+        head, _, rest = path.partition("/")
+        if head == "params":
+            out[path] = pspecs[rest]
+    out.update({f"opt_state/{p}": s
+                for p, s in opt_state_shardings(state.opt_state, pspecs, mesh).items()})
+    for path, _ in tree_leaves_with_paths(state):
+        out.setdefault(path, ())
+    return out
+
+
+def leaf_dims(specs: Mapping[str, Spec], mesh) -> Dict[str, Optional[int]]:
+    """``{path: dim}``: the dimension each leaf splits over the
+    data-parallel ranks (None: whole on every rank)."""
+    return {p: shard_dim(s, mesh) for p, s in specs.items()}
+
+
+def shard_tree(tree, dims: Mapping[str, Optional[int]], mesh):
+    """A whole tree cut to this rank's slices (no traffic)."""
+    parts, index = dp_size(mesh), mesh.index(batch_axes(mesh))
+    return tree_map_with_paths(
+        lambda p, x: shard_leaf(x, dims.get(p), parts, index)
+        if isinstance(x, torch.Tensor) else x, tree)
+
+
+def gather_tree(tree, dims: Mapping[str, Optional[int]], mesh):
+    """The whole tree on every rank, gathered leaf by leaf."""
+    group = mesh.group(batch_axes(mesh))
+    return tree_map_with_paths(
+        lambda p, x: gather_leaf(x, dims.get(p), group)
+        if isinstance(x, torch.Tensor) else x, tree)
+
+
+def per_device_state_bytes(tree, mesh=None) -> int:
+    """Resident bytes of a tree's tensors on this rank, and with a concrete
+    ``mesh`` the largest over its ranks (the FSDP win: the reference's
+    suite asks at least 4× at ``data=8``).  Meta tensors count their size,
+    so a layout is measured without allocating it; other leaves count 0."""
+    total = sum(x.numel() * x.element_size() for _, x in tree_leaves_with_paths(tree)
+                if isinstance(x, torch.Tensor))
+    if mesh is None or mesh.abstract or mesh.size == 1:
+        return int(total)
+    t = torch.tensor([total], dtype=torch.int64,
+                     device=_group_device(mesh))
+    return int(all_reduce(t, "max", mesh.group(mesh.axis_names)).item())
+
+
+def _group_device(mesh) -> torch.device:
+    import torch.distributed as dist
+
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")

@@ -220,7 +220,7 @@ def config_hash(*configs) -> str:
     return hashlib.sha256("|".join(blobs).encode()).hexdigest()[:16]
 
 
-def run_provenance(*, timestamp: Optional[float] = None, device=None,
+def run_provenance(*, timestamp: Optional[float] = None, device=None, mesh=None,
                    configs: tuple = ()) -> Dict[str, Any]:
     """The provenance block every run/report carries (MLPerf-style).
 
@@ -228,9 +228,11 @@ def run_provenance(*, timestamp: Optional[float] = None, device=None,
     ``device`` is the run's torch device (default: ``cuda`` when a card is
     present, else ``cpu``) and names ``backend``, ``device_kind`` (the
     card's name) and ``device_count``; ``configs`` are hashed, not
-    embedded, so reports stay diffable.  The keys the JAX package's
-    provenance shares with this one (``git_sha``, ``config_hash``,
-    ``device_kind``, ...) keep its names.
+    embedded, so reports stay diffable; ``mesh`` (a
+    :class:`~repro_torch.launch.mesh.Mesh` or None) is recorded as
+    ``{axis: size}``.  The keys the JAX package's provenance shares with
+    this one (``git_sha``, ``config_hash``, ``device_kind``, ``mesh``, ...)
+    keep its names.
     """
     import torch  # deferred: the schema and the log need no torch
 
@@ -248,6 +250,8 @@ def run_provenance(*, timestamp: Optional[float] = None, device=None,
         "device_kind": torch.cuda.get_device_name(device) if on_card else "cpu",
         "device_count": torch.cuda.device_count() if on_card else 1,
     }
+    if mesh is not None:
+        prov["mesh"] = {str(k): int(v) for k, v in mesh.shape.items()}
     if configs:
         prov["config_hash"] = config_hash(*configs)
     return prov

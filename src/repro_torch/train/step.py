@@ -25,6 +25,8 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.kernels import fused_lamb, fused_lamb_init, make_fused_lamb_step
 from repro_torch.models.api import Model
 from repro_torch.optim.base import global_norm
+from repro_torch.sharding import ShardCtx, batch_axes, dp_size, specs_for, use_sharding
+from repro_torch.sharding.collectives import all_reduce, gather_leaf, scatter_grad, shard_leaf
 from repro_torch.telemetry.trust import PER_LAYER_KEY
 from repro_torch.train.faults import apply_grad_faults, apply_loss_faults, split_faults
 from repro_torch.train.loss import check_fused_ce_supported, loss_for
@@ -175,19 +177,17 @@ def make_loss_fn(model: Model) -> Callable:
     return loss_fn
 
 
-def _microbatch_grads(
+def _weighted_sums(
     loss_fn: Callable, params: nn.Params, batch: Dict[str, torch.Tensor], n_micro: int,
-    unreachable: frozenset = frozenset(),
-) -> Tuple[nn.Params, Metrics]:
-    """Token-weighted sequential accumulation over ``n_micro`` slices.
-
-    Returns fp32 grads equal to the full-batch token-mean gradient
-    ``Σ_i w_i g_i / Σ_i w_i``, ``w_i`` the slice's supervised-token count
-    (uniform weights when the loss reports none).  Metrics are averaged with
-    the same weights, except ``tokens/supervised``, which is summed.
-    ``params`` are the leaves the gradient is taken against (the
-    compute-dtype copy); the ``unreachable`` ones, which the model declares
-    the loss does not reach, get a zero gradient, as under ``jax.grad``.
+    unreachable: frozenset = frozenset(), *, weighted: bool = True,
+) -> Tuple[nn.Params, Metrics, torch.Tensor]:
+    """``(Σ_i w_i g_i, Σ_i w_i m_i, Σ_i w_i)`` over ``n_micro`` slices of
+    ``batch``, ``w_i`` the slice's supervised-token count (1 when the loss
+    reports none), the gradients in fp32.  With one slice and not
+    ``weighted``, ``(g, m, w)`` unscaled.  ``params`` are the leaves the
+    gradient is taken against (the compute-dtype copy); the ``unreachable``
+    ones, which the model declares the loss does not reach, get a zero
+    gradient, as under ``jax.grad``.
     """
     for x in batch.values():
         if x.shape[0] % n_micro:
@@ -216,8 +216,8 @@ def _microbatch_grads(
         return g, metrics, w
 
     g0, m0, w0 = one(0)
-    if n_micro == 1:
-        return g0, m0
+    if n_micro == 1 and not weighted:
+        return g0, m0, w0
     g_acc = {k: w0 * t for k, t in g0.items()}
     m_acc = {k: w0 * t for k, t in m0.items()}
     w_acc = w0
@@ -227,6 +227,24 @@ def _microbatch_grads(
             g_acc[k].add_(w * g[k])
         m_acc = {k: m_acc[k] + w * m[k] for k in m_acc}
         w_acc = w_acc + w
+    return g_acc, m_acc, w_acc
+
+
+def _microbatch_grads(
+    loss_fn: Callable, params: nn.Params, batch: Dict[str, torch.Tensor], n_micro: int,
+    unreachable: frozenset = frozenset(),
+) -> Tuple[nn.Params, Metrics]:
+    """Token-weighted sequential accumulation over ``n_micro`` slices.
+
+    Returns fp32 grads equal to the full-batch token-mean gradient
+    ``Σ_i w_i g_i / Σ_i w_i`` (see :func:`_weighted_sums`).  Metrics are
+    averaged with the same weights, except ``tokens/supervised``, which is
+    summed.
+    """
+    g_acc, m_acc, w_acc = _weighted_sums(loss_fn, params, batch, n_micro, unreachable,
+                                         weighted=False)
+    if n_micro == 1:
+        return g_acc, m_acc
     inv = 1.0 / w_acc
     for t in g_acc.values():
         t.mul_(inv)
@@ -236,8 +254,50 @@ def _microbatch_grads(
     return g_acc, metrics
 
 
+def _sharded_grads(
+    loss_fn: Callable, shards: nn.Params, batch: Dict[str, torch.Tensor], n_micro: int,
+    unreachable: frozenset, compute_dtype, dims: Dict[str, Optional[int]], group,
+) -> Tuple[nn.Params, Metrics]:
+    """:func:`_microbatch_grads` over the data-parallel ranks, FSDP-style.
+
+    ``shards`` are this rank's slices of the fp32 masters and ``batch`` its
+    rows.  The compute copy is cast on the slice and then gathered whole;
+    the rank's ``Σ_i w_i g_i`` is reduce-scattered back to its slice (a leaf
+    that is not split: all-reduced) and divided by the global token weight,
+    all-reduced from the ranks' ``tokens/supervised``.  Metrics get the same
+    weighting in one all-reduce; ``tokens/supervised`` is the global sum.
+    The ranks × micro-batches are one token-weighted accumulation, so the
+    result is the global batch's token-mean gradient.
+    """
+    with torch.no_grad():
+        full = {k: gather_leaf(v if compute_dtype is None or not v.is_floating_point()
+                               else v.to(nn.torch_dtype(compute_dtype)), dims[k], group)
+                for k, v in shards.items()}
+    full = {k: v.detach().requires_grad_(True) for k, v in full.items()}
+    g_sum, m_sum, w = _weighted_sums(loss_fn, full, batch, n_micro, unreachable)
+    del full
+    with torch.no_grad():
+        grads = {}
+        for k in list(g_sum):
+            g = g_sum.pop(k)
+            grads[k] = (torch.zeros(shards[k].shape, dtype=torch.float32,
+                                    device=g.device)
+                        if k in unreachable else scatter_grad(g, dims[k], group))
+        keys = list(m_sum)
+        packed = all_reduce(torch.stack([w] + [m_sum[k].to(torch.float32) for k in keys]),
+                            "sum", group)
+        inv = 1.0 / packed[0]
+        for t in grads.values():
+            t.mul_(inv)
+        metrics = {k: packed[i + 1] * inv for i, k in enumerate(keys)}
+        if TOKEN_WEIGHT_KEY in metrics:
+            metrics[TOKEN_WEIGHT_KEY] = packed[0]
+    return grads, metrics
+
+
 def make_train_step(model: Model, tc: TrainConfig, schedule=None, *,
-                    optimizer: Optional[optim.GradientTransformation] = None):
+                    optimizer: Optional[optim.GradientTransformation] = None,
+                    mesh=None):
     """Returns ``(init_fn(seed, device) -> TrainState,
     step_fn(state, batch) -> (state, metrics))``.
 
@@ -259,6 +319,15 @@ def make_train_step(model: Model, tc: TrainConfig, schedule=None, *,
     ``trust_ratio/{min,max,mean}`` summary of phi(||x||)/||Δx|| on both;
     ``tc.record_trust_ratios`` the per-layer records (``PER_LAYER_KEY``),
     left on the device.
+
+    With a concrete ``mesh`` (:func:`~repro_torch.launch.mesh.init_distributed`)
+    the step is FSDP over its data-parallel ranks: ``init_fn`` keeps this
+    rank's slice of every leaf the param specs split (and the moments
+    mirror them), ``step_fn`` takes the rank's rows of the global batch
+    (:func:`_sharded_grads`), the guard's verdict is all-reduced with MIN so
+    every rank skips together, and the optimizer runs on the slices under
+    the ambient :class:`~repro_torch.sharding.ShardCtx`, which keeps every
+    norm and trust ratio the whole leaf's.  Metrics are global.
     """
     loss_fn = make_loss_fn(model)
     n_micro = tc.grad_accum_steps
@@ -266,22 +335,48 @@ def make_train_step(model: Model, tc: TrainConfig, schedule=None, *,
     guard = tc.skip_nonfinite
     layer_axes = model.layer_axes()
     unreachable = model.unreachable()
+    ctx = None
+    if mesh is not None:
+        ctx = ShardCtx(mesh, param_specs=specs_for(model.defs, mesh))
+        dims = {k: ctx.shard_dim(k) for k in ctx.param_specs}
+        group = ctx.dp_group
+        parts, index = dp_size(mesh), mesh.index(batch_axes(mesh))
+
+    def draw(seed: int, device: torch.device) -> nn.Params:
+        if ctx is None:
+            return model.init(seed, device)
+        return model.init(seed, device,
+                          keep=lambda path, x: shard_leaf(x, dims[path], parts, index))
 
     def grads_and_metrics(params, batch):
         batch, faults = split_faults(batch)
-        # the one cast of the masters per step; gradients are taken against
-        # this copy and accumulate in fp32
-        with torch.no_grad():
-            cast = params if compute_dtype is None else nn.cast_tree(params, compute_dtype)
-        cast = {k: v.detach().requires_grad_(True) for k, v in cast.items()}
-        grads, metrics = _microbatch_grads(loss_fn, cast, batch, n_micro, unreachable)
-        del cast
+        if ctx is None:
+            # the one cast of the masters per step; gradients are taken
+            # against this copy and accumulate in fp32
+            with torch.no_grad():
+                cast = params if compute_dtype is None else nn.cast_tree(params, compute_dtype)
+            cast = {k: v.detach().requires_grad_(True) for k, v in cast.items()}
+            grads, metrics = _microbatch_grads(loss_fn, cast, batch, n_micro, unreachable)
+            del cast
+        else:
+            grads, metrics = _sharded_grads(loss_fn, params, batch, n_micro, unreachable,
+                                            compute_dtype, dims, group)
         grads = apply_grad_faults(grads, faults)
         metrics = apply_loss_faults(metrics, faults)
         metrics["grad_norm"] = global_norm(grads)
         # the verdict before the update (the fused path clips in place)
         ok = tree_all_finite(grads, metrics.get(LOSS_KEY)) if guard else None
+        if ok is not None and ctx is not None:   # every rank skips together
+            ok = all_reduce(ok.to(torch.int32), "min", group) != 0
         return grads, metrics, ok
+
+    def sharded(step_fn):
+        """``step_fn`` under the mesh's ambient context (none without a mesh)."""
+        def step(state, batch):
+            with use_sharding(ctx):
+                return step_fn(state, batch)
+
+        return step
 
     def trust_diag(params, updates):
         return core.summarize_trust_ratios(core.trust_ratio_tree(
@@ -306,7 +401,7 @@ def make_train_step(model: Model, tc: TrainConfig, schedule=None, *,
         )
 
         def init_fn(seed: int, device: torch.device) -> TrainState:
-            params = model.init(seed, device)
+            params = draw(seed, device)
             return TrainState(params, fused_lamb_init(params))
 
         def step_fn(state: TrainState, batch) -> Tuple[TrainState, Metrics]:
@@ -334,12 +429,12 @@ def make_train_step(model: Model, tc: TrainConfig, schedule=None, *,
                 state.step.add_(1)
             return state, metrics
 
-        return init_fn, step_fn
+        return init_fn, sharded(step_fn)
 
     opt = optimizer if optimizer is not None else make_optimizer(model, tc, schedule)
 
     def init_fn(seed: int, device: torch.device) -> TrainState:
-        params = model.init(seed, device)
+        params = draw(seed, device)
         return TrainState(params, opt.init(params))
 
     def step_fn(state: TrainState, batch) -> Tuple[TrainState, Metrics]:
@@ -367,4 +462,4 @@ def make_train_step(model: Model, tc: TrainConfig, schedule=None, *,
         metrics[GUARD_KEY] = 1.0 - adv.to(torch.float32)
         return TrainState(params, opt_state, state.step + adv, state.skipped + (1 - adv)), metrics
 
-    return init_fn, step_fn
+    return init_fn, sharded(step_fn)

@@ -24,6 +24,16 @@ interval (two syncs an interval), ``trust_ratios`` under
 ``preempt``, ``stage_start`` and a ``run_end`` with its ``status``
 (``ok``/``failed``/``preempted``/``diverged``) from a ``finally``.  With the
 default null log the step loop adds no launch, sync or transfer.
+
+``mesh=`` (a concrete mesh from
+:func:`~repro_torch.launch.mesh.init_distributed`) makes the run FSDP over
+the mesh's data-parallel ranks, as the reference's ``Trainer(mesh=)``:
+``init`` draws every leaf from the seed as a single process does and keeps
+this rank's slice, ``fit`` takes this rank's rows of each global batch (as
+``DataPipeline(mesh=)`` yields them; :meth:`Trainer._place_batch` cuts a
+global batch), the history, step log and telemetry hold global values, and
+only rank 0 logs and writes.  A checkpoint gathers each leaf and rank 0
+writes the single-process format, so a run restores on any mesh shape.
 """
 from __future__ import annotations
 
@@ -48,6 +58,16 @@ from repro_torch.data.pipeline import DataPipeline
 from repro_torch.kernels.ops import FusedLambState
 from repro_torch.models.api import Model
 from repro_torch.optim.base import ScheduleState
+from repro_torch.sharding import (
+    batch_axes,
+    batch_rows,
+    dp_size,
+    gather_tree,
+    leaf_dims,
+    shard_tree,
+    train_state_shardings,
+)
+from repro_torch.sharding.collectives import gather_leaf, shard_leaf
 from repro_torch.telemetry import EventLog, SpanRecorder, TrustRecorder, run_provenance
 from repro_torch.telemetry.trust import PER_LAYER_KEY
 from repro_torch.train.preempt import PreemptionHandler
@@ -62,8 +82,31 @@ TERM_KEYS = ("loss/moe_lb", "moe/drop_fraction", "loss/moe_z", "loss/mtp")
 
 
 def _batch_examples(batch) -> int:
-    """Examples in one step's global batch: the leading dim of any leaf."""
+    """Examples in one step's batch: the leading dim of any leaf."""
     return int(next(iter(batch.values())).shape[0])
+
+
+def check_mesh_supported(cfg, mesh, *, supervisor: bool = False,
+                         preempt: bool = False) -> None:
+    """Raise ``NotImplementedError`` naming its ROADMAP.md item for what a
+    data-parallel mesh does not run yet: a ``model`` axis of more than one
+    rank, an MoE model over more than one data-parallel rank (the
+    reference's expert capacity and load-balance loss count the global
+    tokens, which a rank-local route cannot reproduce), and the loss-spike
+    rollback or preemption over more than one."""
+    model_axes = {a: n for a, n in mesh.shape.items() if a not in ("pod", "data")}
+    if any(n > 1 for n in model_axes.values()):
+        raise NotImplementedError(
+            f"mesh axes {model_axes}: tensor and expert parallelism over a model "
+            "axis are not ported (ROADMAP.md queue 1, item 11 (b))")
+    if dp_size(mesh) > 1 and cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name} routes to experts: an MoE model over data-parallel ranks is "
+            "not ported (ROADMAP.md queue 1, item 11 (b))")
+    if dp_size(mesh) > 1 and (supervisor or preempt):
+        raise NotImplementedError(
+            "rollback on a loss spike and preemption over data-parallel ranks are "
+            "not ported (ROADMAP.md queue 1, item 11 (c))")
 
 
 def _reset_schedule_counts(opt_state) -> None:
@@ -97,10 +140,22 @@ class Trainer:
         telemetry: Optional[EventLog] = None,
         supervisor: Optional[SupervisorConfig] = None,
         preempt_grace: Optional[float] = None,
+        mesh=None,
     ):
         self.model = model
         self.tc = train_cfg
         self.device = torch.device(device)
+        self.mesh = mesh
+        self._dp = 1
+        if mesh is not None:
+            if mesh.abstract:
+                raise ValueError("Trainer(mesh=) needs a concrete mesh (init_distributed)")
+            check_mesh_supported(model.cfg, mesh, supervisor=supervisor is not None,
+                                 preempt=preempt_grace is not None)
+            self._dp = dp_size(mesh)
+            if mesh.rank != 0:   # only rank 0 logs and writes
+                log_fn, telemetry = (lambda s: None), None
+        self._state_dims: Optional[Dict[str, Optional[int]]] = None
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = checkpoint_every
         self.async_checkpoint = async_checkpoint
@@ -126,12 +181,59 @@ class Trainer:
         self._run_started = False
         self.history: List[Dict[str, float]] = []
         self.examples_seen = 0
-        self._init_fn, self._step_fn = make_train_step(model, train_cfg, schedule)
+        self._init_fn, self._step_fn = make_train_step(model, train_cfg, schedule, mesh=mesh)
         self.state: Optional[TrainState] = None
 
     def init(self, seed: Optional[int] = None) -> TrainState:
         self.state = self._init_fn(self.tc.seed if seed is None else seed, self.device)
         return self.state
+
+    # ------------------------------------------------------------------
+    # the data-parallel split
+    # ------------------------------------------------------------------
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes checkpoints and logs (rank 0)."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _examples(self, batch) -> int:
+        """Examples of the global batch a step consumes (on a mesh the
+        rank holds ``1/dp`` of its rows)."""
+        return _batch_examples(batch) * self._dp
+
+    def _place_batch(self, batch) -> Dict[str, torch.Tensor]:
+        """This rank's rows of a global batch (numpy arrays or tensors), on
+        the device; raises ``ValueError`` when the batch does not divide
+        over the data-parallel ranks.  Without a mesh: the whole batch."""
+        n = _batch_examples(batch)
+        start, rows = (0, n) if self.mesh is None else batch_rows(n, self.mesh)
+        return {k: torch.as_tensor(v[start:start + rows]).to(self.device)
+                for k, v in batch.items()}
+
+    def state_dims(self) -> Dict[str, Optional[int]]:
+        """``{path: dim}`` over the state's leaves: the dimension a leaf is
+        split along over the data-parallel ranks (None: whole)."""
+        if self._state_dims is None:
+            target = self.state if self.state is not None else self.init()
+            self._state_dims = leaf_dims(
+                train_state_shardings(self.model.defs, target, self.mesh), self.mesh)
+        return self._state_dims
+
+    def gather_state(self) -> TrainState:
+        """The whole state on every rank (this rank's own without a mesh)."""
+        if self.mesh is None:
+            return self.state
+        return gather_tree(self.state, self.state_dims(), self.mesh)
+
+    def place_state(self, state: TrainState) -> TrainState:
+        """Install a whole state (as a single process holds it), keeping
+        this rank's slice of every leaf."""
+        if self.mesh is not None:
+            if self.state is None:
+                self.init()
+            state = shard_tree(state, self.state_dims(), self.mesh)
+        self.state = state
+        return state
 
     # ------------------------------------------------------------------
     # telemetry
@@ -142,7 +244,7 @@ class Trainer:
         self._run_started = True
         self.telemetry.emit(
             "run_start",
-            provenance=run_provenance(device=self.device,
+            provenance=run_provenance(device=self.device, mesh=self.mesh,
                                       configs=(self.model.cfg, self.tc)),
             arch=self.model.cfg.name, optimizer=self.tc.optimizer,
         )
@@ -198,11 +300,23 @@ class Trainer:
         if step == self._last_saved_step:
             return
         self._last_saved_step = step
+        tree = self.state
+        if self.mesh is not None:
+            # every rank gathers each leaf in turn; rank 0 keeps a host copy
+            dims, group = self.state_dims(), self.mesh.group(batch_axes(self.mesh))
+            host = {}
+            for path, x in tree_leaves_with_paths(self.state):
+                whole = gather_leaf(x, dims.get(path), group)
+                if self.is_writer:
+                    host[path] = whole.cpu()
+            if not self.is_writer:
+                return
+            tree = tree_map_with_paths(lambda p, _: host[p], self.state)
         if self.async_checkpoint:
-            self.checkpointer.save(step, self.state)
+            self.checkpointer.save(step, tree)
             return
         t0 = time.perf_counter()
-        path = save_checkpoint(self.checkpoint_dir, step, self.state)
+        path = save_checkpoint(self.checkpoint_dir, step, tree)
         self.telemetry.emit("checkpoint", step=step, path=path, mode="sync",
                             write_s=time.perf_counter() - t0)
 
@@ -223,7 +337,11 @@ class Trainer:
         if path is None:
             return None
         target = self.state if self.state is not None else self.init()
-        self.state = restore_checkpoint(path, target)
+        shard = None
+        if self.mesh is not None:   # each rank reads every leaf and keeps its slice
+            dims, index = self.state_dims(), self.mesh.index(batch_axes(self.mesh))
+            shard = lambda p, x: shard_leaf(x, dims.get(p), self._dp, index)  # noqa: E731
+        self.state = restore_checkpoint(path, target, shard=shard)
         step = checkpoint_step(path)
         self.telemetry.emit("resume", step=step, path=path)
         self.log(f"resumed step {step} from {path}")
@@ -241,7 +359,7 @@ class Trainer:
         self._last_saved_step = step
         start = min(step + int(self.state.skipped), steps)
         for _ in range(start):
-            self.examples_seen += _batch_examples(next(data))
+            self.examples_seen += self._examples(next(data))
         return start
 
     # ------------------------------------------------------------------
@@ -352,7 +470,7 @@ class Trainer:
                 # only its own steps
                 self.spans.start("step", sync=self.state)
             batch = next(data)
-            self.examples_seen += _batch_examples(batch)
+            self.examples_seen += self._examples(batch)
             self.state, metrics = self._step_fn(self.state, batch)
             since_log += 1
             if supervisor is not None:
@@ -496,17 +614,19 @@ class Trainer:
                 "stage_start", stage=si, name=stage.name, seq_len=stage.seq_len,
                 batch_size=stage.batch_size, steps=stage.steps,
                 learning_rate=stage.learning_rate, warmup_steps=stage.warmup_steps)
-            _, step_fn = make_train_step(self.model, self.tc, stage.schedule)
+            _, step_fn = make_train_step(self.model, self.tc, stage.schedule, mesh=self.mesh)
             if si > 0:
                 _reset_schedule_counts(self.state.opt_state)
+            # on a mesh each stage's batch must split over the ranks (the
+            # pipeline raises before the stage trains)
             data = DataPipeline(self.model.cfg, stage.batch_size, stage.seq_len,
-                                device=self.device, seed=data_seed + si)
+                                device=self.device, seed=data_seed + si, mesh=self.mesh)
             since_log = 0
             for i in range(stage.steps):
                 if telem and since_log == 0:
                     self.spans.start("step", sync=self.state)
                 batch = next(data)
-                self.examples_seen += _batch_examples(batch)
+                self.examples_seen += self._examples(batch)
                 self.state, metrics = step_fn(self.state, batch)
                 since_log += 1
                 if (i + 1) % self.log_every == 0 or i == stage.steps - 1:

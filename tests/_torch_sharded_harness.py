@@ -1,0 +1,481 @@
+"""Data-parallel FSDP training of the port over gloo (run as a subprocess).
+
+    PYTHONPATH=src python tests/_torch_sharded_harness.py --world 4 --out DIR \
+        [--init DIR] [--restore DIR] [scenario ...]
+
+Starts ``--world`` processes of this file, ranks of one gloo group on
+``localhost``, each on one CPU thread; each builds the mesh
+``data=<world>,model=1`` with ``init_distributed`` and runs the scenarios.
+Rank 0 also runs each scenario's single-process reference (the port's
+Trainer without a mesh) and writes ``DIR/report.json``, plus the sharded
+runs' final parameters as ``DIR/<scenario>_<variant>.npz`` for the test to
+hold against the JAX package.  ``--init DIR`` reads each config's initial
+parameters from ``DIR/<config name>.npz`` (the test writes the JAX
+package's there; without it the port's seed init).  Scenarios:
+
+  collectives  every collective against its plain version, on real ranks
+  equiv        sharded ≡ single process (unfused / fused / accum2+bf16 LAMB
+               on TINY): params, losses, global norms and every layer's
+               applied trust ratio
+  lans         LANS sharded ≡ single process (fp32 and accum2+bf16)
+  mlm_flash    bert-smoke MLM through flash attention, fused LAMB and the
+               fused CE head (and the dense head)
+  stages       the two-stage recipe on the mesh ≡ single process
+  memory       per-rank param + moment bytes, FSDP against whole
+  guards       non-divisible batches raise with "divisible"
+  nan_skip     a grad-NaN batch on one rank is skipped on every rank;
+               params and moments bit-equal to a clean run that omits it
+  checkpoint   without ``--restore``: save at step 2 on this mesh and run on
+               to step 3 (written under ``DIR/ckpt``); with ``--restore
+               DIR``: restore that save on this mesh and in one process,
+               bit-equal, and take step 3 on each
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import socket
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint import latest_checkpoint, restore_checkpoint
+from repro_torch.checkpoint.io import tree_leaves_with_paths, tree_map_with_paths
+from repro_torch.configs import smoke_config
+from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.core import make_stage
+from repro_torch.data import DataPipeline
+from repro_torch.launch.mesh import init_distributed, shutdown_distributed
+from repro_torch.models import build_model
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding import per_device_state_bytes
+from repro_torch.telemetry import EventLog
+from repro_torch.train import FaultInjector, FaultSpec, Trainer, TrainState
+from repro_torch.train.step import make_train_step
+
+TINY = ModelConfig(
+    name="tiny-sharded", family="dense", n_layers=2, d_model=64, n_heads=4,
+    n_kv_heads=2, d_ff=128, vocab_size=256, tie_embeddings=True,
+)
+BATCH, SEQ, STEPS = 16, 32, 3
+
+
+def variants():
+    """``{scenario: {variant: (config, TrainConfig)}}`` of the equivalence runs."""
+    lamb = dict(optimizer="lamb", learning_rate=1e-3)
+    bert = smoke_config("bert-large")
+    return {
+        "equiv": {
+            "unfused": (TINY, TrainConfig(**lamb)),
+            "fused": (TINY, TrainConfig(**lamb, use_fused_lamb=True)),
+            "accum2_bf16": (TINY, TrainConfig(**lamb, accum_steps=2, precision="bf16")),
+        },
+        "lans": {
+            "fp32": (TINY, TrainConfig(optimizer="lans", learning_rate=1e-3)),
+            "accum2_bf16": (TINY, TrainConfig(optimizer="lans", learning_rate=1e-3,
+                                              accum_steps=2, precision="bf16")),
+        },
+        "mlm_flash": {
+            "fused_ce": (bert, TrainConfig(**lamb, use_fused_lamb=True)),
+            "dense_head": (bert.replace(use_fused_ce_head=False),
+                           TrainConfig(**lamb, use_fused_lamb=True)),
+        },
+    }
+
+
+CKPT_TC = TrainConfig(optimizer="lamb", learning_rate=1e-3, use_fused_lamb=True)
+
+
+class Ctx:
+    def __init__(self, mesh, out: str, init: str):
+        self.mesh, self.out, self.init = mesh, out, init
+        self.rank0 = mesh.rank == 0
+
+
+def _quiet(model, tc, mesh=None, **kw):
+    return Trainer(model, tc, device="cpu", mesh=mesh, log_every=1,
+                   log_fn=lambda s: None, **kw)
+
+
+def initial_state(cfg, tc, init: str) -> TrainState:
+    """The whole initial state: the port's seed init, with the parameters
+    replaced by ``init/<cfg.name>.npz`` where the test wrote one."""
+    model = build_model(cfg)
+    init_fn, _ = make_train_step(model, tc)
+    state = init_fn(tc.seed, torch.device("cpu"))
+    path = os.path.join(init, f"{cfg.name}.npz") if init else ""
+    if path and os.path.exists(path):
+        with np.load(path) as f:
+            for k, v in state.params.items():
+                v.copy_(torch.from_numpy(f[k]).to(v.dtype))
+    return state
+
+
+def _clone(state: TrainState) -> TrainState:
+    return tree_map_with_paths(
+        lambda _, x: x.clone() if isinstance(x, torch.Tensor) else x, state)
+
+
+def maxdiff(a, b) -> float:
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+
+def _losses(tr):
+    return [h["loss/total"] for h in tr.history]
+
+
+NORM_KEYS = ("grad_norm", "update_norm", "trust_ratio/min", "trust_ratio/max",
+             "trust_ratio/mean")
+
+
+def _single(model, tc, state, cfg) -> Trainer:
+    tr = _quiet(model, tc, telemetry=EventLog.memory())
+    tr.state = _clone(state)
+    tr.fit(DataPipeline(cfg, BATCH, SEQ, device="cpu", seed=0), STEPS)
+    return tr
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / abs(b) if b else abs(a)
+
+
+def _records(tr) -> list:
+    """Every logged step's per-layer records, flattened: the applied trust
+    ratio, the param norm and the update norm of each layer of each leaf."""
+    out = []
+    for e in tr.telemetry.events:
+        if e["event"] == "trust_ratios":
+            for name in sorted(e["layers"]):
+                entry = e["layers"][name]
+                for key in ("per_layer", "param_norm", "update_norm"):
+                    out += [(e["step"], name, key, i, x) for i, x in enumerate(entry[key])]
+    return out
+
+
+def _diffs(tr, whole, ref) -> dict:
+    """The run against a reference: params, losses, each step's global
+    norms and trust-ratio summary (``NORM_KEYS``), and every layer's
+    applied trust ratio and norms, the last two as relative differences."""
+    rows = list(zip(tr.history, ref.history))
+    mine, theirs = _records(tr), _records(ref)
+    assert [r[:4] for r in mine] == [r[:4] for r in theirs] and mine, (len(mine), len(theirs))
+    return {"param_maxdiff": maxdiff(whole.params, ref.state.params),
+            "loss_diff": max(abs(a - b) for a, b in zip(_losses(tr), _losses(ref))),
+            "norm_reldiff": {k: max(_rel(a[k], b[k]) for a, b in rows) for k in NORM_KEYS},
+            "record_reldiff": max(_rel(a[4], b[4]) for a, b in zip(mine, theirs)),
+            "record_worst": max(zip(mine, theirs), key=lambda ab: _rel(ab[0][4], ab[1][4]))[0],
+            "records": len(mine),
+            "losses": _losses(ref)}
+
+
+def _equiv(c: Ctx, scenario: str, variant: str, cfg, tc) -> dict:
+    """The sharded run against two single-process runs from the same state:
+    ``same_blocks`` takes ``accum_steps × world`` micro-batches, so its
+    micro-batches are the ranks' (the same rows, hence the same bf16
+    gradients) and only the order of the fp32 batch reductions differs;
+    ``same_config`` takes the run's own ``accum_steps``, whose micro-batches
+    span the ranks' rows and round their bf16 gradients over other sums.
+    Both record the global norms, the trust-ratio summary and the per-layer
+    records (rank 0 alone writes the sharded run's)."""
+    # every step's norms and every layer's applied trust ratio are compared
+    tc = dataclasses.replace(tc, log_trust_ratios=True, record_trust_ratios=True)
+    model = build_model(cfg)
+    state = initial_state(cfg, tc, c.init)
+    refs = {}
+    if c.rank0:
+        refs["same_blocks"] = _single(
+            model, dataclasses.replace(tc, accum_steps=tc.accum_steps * c.mesh.size),
+            state, cfg)
+        refs["same_config"] = _single(model, tc, state, cfg)
+    tr = _quiet(model, tc, c.mesh, telemetry=EventLog.memory())
+    tr.place_state(state)
+    tr.fit(DataPipeline(cfg, BATCH, SEQ, device="cpu", seed=0, mesh=c.mesh), STEPS)
+    whole = tr.gather_state()
+    if not c.rank0:
+        return {}
+    np.savez(os.path.join(c.out, f"{scenario}_{variant}.npz"),
+             **{k: v.float().numpy() for k, v in whole.params.items()})
+    out = {name: _diffs(tr, whole, ref) for name, ref in refs.items()}
+    out.update(losses=_losses(tr), steps=int(tr.state.step))
+    return out
+
+
+def scenario_equiv(c: Ctx, name: str = "equiv") -> dict:
+    return {v: _equiv(c, name, v, cfg, tc) for v, (cfg, tc) in variants()[name].items()}
+
+
+def scenario_lans(c: Ctx) -> dict:
+    return scenario_equiv(c, "lans")
+
+
+def scenario_mlm_flash(c: Ctx) -> dict:
+    return scenario_equiv(c, "mlm_flash")
+
+
+def scenario_collectives(c: Ctx) -> dict:
+    """Each collective on this rank's operand against its plain version over
+    every rank's (all ranks draw every rank's operands from one seed)."""
+    mesh = c.mesh
+    n, r = mesh.size, mesh.rank
+    group = mesh.group(("data",))
+    gen = torch.Generator().manual_seed(0)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        whole = torch.randn(4 * n, 2 * n, 3, generator=gen).to(dtype)
+        for dim in (0, 1):
+            shards = [C.shard_leaf(whole, dim, n, i) for i in range(n)]
+            got = C.gather_leaf(shards[r], dim, group)
+            out[f"gather_{dtype}_{dim}"] = bool(
+                torch.equal(got, C.gather_leaf_plain(shards, dim)) and torch.equal(got, whole))
+    for dim in (None, 0, 1, 2):
+        grads = [torch.randn(2 * n, 3 * n, n, generator=gen) for _ in range(n)]
+        got = C.scatter_grad(grads[r].clone(), dim, group)
+        want = (C.scatter_grad_plain(grads, dim)[r] if dim is not None
+                else torch.stack(grads).sum(0))
+        out[f"scatter_{dim}"] = float((got - want).abs().max())
+    for op in C.OPS:
+        for dtype in (torch.float32, torch.int32):
+            scale = 100 if dtype == torch.int32 else 1
+            xs = [(torch.randn(5, generator=gen) * scale).to(dtype) for _ in range(n)]
+            got = C.all_reduce(xs[r].clone(), op, group)
+            out[f"all_reduce_{op}_{dtype}"] = float(
+                (got.double() - C.all_reduce_plain(xs, op).double()).abs().max())
+    return out if c.rank0 else {}
+
+
+def scenario_stages(c: Ctx) -> dict:
+    tc = CKPT_TC
+    stages = [
+        make_stage("s1", SEQ, 16, 2, base_lr=1e-3, base_batch=16, base_warmup_ratio=0.25),
+        make_stage("s2", SEQ * 2, 8, 2, base_lr=1e-3, base_batch=16, base_warmup_ratio=0.25),
+    ]
+    model = build_model(TINY)
+    tr = _quiet(model, tc, c.mesh)
+    tr.fit_stages(stages)
+    whole = tr.gather_state()
+    if not c.rank0:
+        return {}
+    single = _quiet(model, tc)
+    single.fit_stages(stages)
+    return {
+        "final_step": int(tr.state.step),
+        "stages": [h["stage"] for h in tr.history],
+        "finite": bool(np.isfinite(tr.history[-1]["loss/total"])),
+        "param_maxdiff": maxdiff(whole.params, single.state.params),
+        "loss_diff": max(abs(a - b) for a, b in zip(_losses(tr), _losses(single))),
+    }
+
+
+def scenario_memory(c: Ctx) -> dict:
+    """Per-rank state bytes after a step; the run's telemetry, given to
+    every rank, is written by rank 0 alone and records the mesh."""
+    cfg = smoke_config("bert-large")
+    tc = CKPT_TC
+    model = build_model(cfg)
+    log = EventLog.memory()
+    tr = _quiet(model, tc, c.mesh, telemetry=log)
+    tr.fit(DataPipeline(cfg, BATCH, SEQ, device="cpu", seed=0, mesh=c.mesh), 1)
+    events = C.all_reduce(torch.tensor([len(log.events)]), "sum", c.mesh.group(("data",)))
+    fsdp = (per_device_state_bytes(tr.state.params, c.mesh)
+            + per_device_state_bytes(tr.state.opt_state, c.mesh))
+    whole = tr.gather_state()
+    base = per_device_state_bytes(whole.params) + per_device_state_bytes(whole.opt_state)
+    if not c.rank0:
+        return {}
+    start = next(e for e in log.events if e["event"] == "run_start")
+    return {"fsdp_per_rank_state_bytes": fsdp, "single_state_bytes": base,
+            "state_ratio": base / max(fsdp, 1), "events_all_ranks": int(events),
+            "events_rank0": len(log.events), "run_start_mesh": start["provenance"]["mesh"]}
+
+
+def scenario_guards(c: Ctx) -> dict:
+    n = c.mesh.size + 1   # rows that do not split over the ranks
+    out = {}
+    try:
+        DataPipeline(TINY, n, SEQ, device="cpu", mesh=c.mesh)
+        out["pipeline_raises"] = False
+    except ValueError as e:
+        out["pipeline_raises"], out["pipeline_msg"] = True, str(e)
+    tr = _quiet(build_model(TINY), TrainConfig(optimizer="lamb"), c.mesh)
+    tr.init()
+    try:
+        tr._place_batch({"tokens": np.zeros((n, SEQ), np.int32)})
+        out["trainer_raises"] = False
+    except ValueError as e:
+        out["trainer_raises"], out["trainer_msg"] = True, str(e)
+    rows = tr._place_batch({"tokens": np.arange(c.mesh.size * 2)[:, None]})["tokens"]
+    out["rows_ok"] = rows[:, 0].tolist() == [2 * c.mesh.rank, 2 * c.mesh.rank + 1]
+    flags = C.all_reduce(torch.tensor([int(all(v for k, v in out.items()
+                                               if not k.endswith("_msg")))]),
+                         "min", c.mesh.group(("data",)))
+    out["every_rank"] = bool(flags.item())
+    return out if c.rank0 else {}
+
+
+def _drop_ordinal(data, drop: int):
+    for i, batch in enumerate(data):
+        if i != drop:
+            yield batch
+
+
+def scenario_nan_skip(c: Ctx, steps: int = 6, poison_at: int = 2) -> dict:
+    """The last rank alone gets a NaN gradient at batch ``poison_at``: only
+    the all-reduced verdict makes the other ranks skip it too."""
+    tc = TrainConfig(optimizer="lamb", learning_rate=1e-3, use_fused_lamb=True,
+                     skip_nonfinite=True)
+    model = build_model(TINY)
+    data = DataPipeline(TINY, BATCH, SEQ, device="cpu", seed=0, mesh=c.mesh)
+    if c.mesh.rank == c.mesh.size - 1:
+        data = FaultInjector([FaultSpec("grad_nan", at=poison_at)]).wrap(data)
+    tr = _quiet(model, tc, c.mesh)
+    tr.fit(data, steps)
+    clean = _quiet(model, tc, c.mesh)
+    clean.fit(_drop_ordinal(DataPipeline(TINY, BATCH, SEQ, device="cpu", seed=0,
+                                         mesh=c.mesh), poison_at), steps - 1)
+    group = c.mesh.group(("data",))
+    skipped = [C.all_reduce(tr.state.skipped.clone(), op, group) for op in ("min", "max")]
+    a, b = tr.gather_state(), clean.gather_state()
+    if not c.rank0:
+        return {}
+    return {
+        "skipped": int(tr.state.skipped),
+        "skipped_every_rank": [int(x) for x in skipped],
+        "final_step": int(tr.state.step),
+        "param_maxdiff": maxdiff(a.params, b.params),
+        "moment_maxdiff": max(maxdiff(a.opt_state.mu, b.opt_state.mu),
+                              maxdiff(a.opt_state.nu, b.opt_state.nu)),
+        "steps_match": int(tr.state.step) == int(clean.state.step),
+    }
+
+
+def _ckpt_run(mesh, ckpt: str, *, accum: int = 1, **kw) -> Trainer:
+    tc = dataclasses.replace(CKPT_TC, accum_steps=accum)
+    tr = _quiet(build_model(TINY), tc, mesh, checkpoint_dir=ckpt,
+                checkpoint_every=2, **kw)
+    tr.fit(DataPipeline(TINY, BATCH, SEQ, device="cpu", seed=0, mesh=mesh), STEPS)
+    return tr
+
+
+def scenario_checkpoint(c: Ctx, restore: str = "") -> dict:
+    if not restore:   # the uninterrupted run at data=4, saving at step 2
+        ckpt = os.path.join(c.out, "ckpt")
+        tr = _ckpt_run(c.mesh, ckpt)
+        whole = tr.gather_state()
+        if not c.rank0:
+            return {}
+        np.savez(os.path.join(c.out, "checkpoint_step3.npz"),
+                 **{k: v.numpy() for k, v in whole.params.items()})
+        return {"saved": latest_checkpoint(ckpt), "losses": _losses(tr)}
+    ckpt = os.path.join(restore, "ckpt")
+    path = latest_checkpoint(ckpt)
+    model = build_model(TINY)
+    # what the save holds, read whole in this process
+    init_fn, _ = make_train_step(model, CKPT_TC)
+    saved = restore_checkpoint(path, init_fn(0, torch.device("cpu")))
+    tr = _quiet(model, CKPT_TC, c.mesh)
+    tr.restore(path)
+    restored = tr.gather_state()
+    # the resumed runs take the saving run's micro-batches (its 4 ranks'
+    # rows), so only the order of the fp32 batch reductions differs
+    saved_world = 4
+    resumed = _ckpt_run(c.mesh, ckpt, accum=saved_world // c.mesh.size, resume=True)
+    after = resumed.gather_state()
+    if not c.rank0:
+        return {}
+    with np.load(os.path.join(restore, "checkpoint_step3.npz")) as f:
+        ref = {k: torch.from_numpy(f[k]) for k in f.files}
+    one = _quiet(model, CKPT_TC)
+    one.restore(path)
+    one_resumed = _ckpt_run(None, ckpt, accum=saved_world, resume=True)
+
+    def bit_equal(a: TrainState, b: TrainState) -> bool:
+        return all(torch.equal(x, y) for (_, x), (_, y) in
+                   zip(tree_leaves_with_paths(a), tree_leaves_with_paths(b)))
+
+    return {
+        "path_step": int(path.rsplit("_", 1)[-1]),
+        "mesh_restore_bitequal": bit_equal(restored, saved),
+        "single_restore_bitequal": bit_equal(one.state, saved),
+        "mesh_step3_maxdiff": maxdiff(after.params, ref),
+        "single_step3_maxdiff": maxdiff(one_resumed.state.params, ref),
+        "mesh_losses": _losses(resumed),
+        "single_losses": _losses(one_resumed),
+        "final_steps": [int(resumed.state.step), int(one_resumed.state.step)],
+    }
+
+
+SCENARIOS = {
+    "collectives": scenario_collectives,
+    "equiv": scenario_equiv,
+    "lans": scenario_lans,
+    "mlm_flash": scenario_mlm_flash,
+    "stages": scenario_stages,
+    "memory": scenario_memory,
+    "guards": scenario_guards,
+    "nan_skip": scenario_nan_skip,
+    "checkpoint": scenario_checkpoint,
+}
+
+
+def rank_main(args) -> None:
+    torch.set_num_threads(1)
+    mesh, _ = init_distributed("cpu", f"data={args.world},model=1")
+    c = Ctx(mesh, args.out, args.init)
+    report = {"world": mesh.size}
+    try:
+        for name in args.scenarios or list(SCENARIOS):
+            kw = {"restore": args.restore} if name == "checkpoint" else {}
+            report[name] = SCENARIOS[name](c, **kw)
+        if c.rank0:
+            with open(os.path.join(args.out, "report.json"), "w") as f:
+                json.dump(report, f)
+    finally:
+        shutdown_distributed()
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--world", type=int, required=True)
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--init", default="")
+    ap.add_argument("--restore", default="")
+    ap.add_argument("--rank", type=int, default=None)
+    ap.add_argument("scenarios", nargs="*")
+    args = ap.parse_args(argv)
+    if args.rank is not None:
+        rank_main(args)
+        return 0
+    os.makedirs(args.out, exist_ok=True)
+    env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
+               WORLD_SIZE=str(args.world), OMP_NUM_THREADS="1")
+    own = list(sys.argv[1:] if argv is None else argv)
+    procs, logs = [], []
+    for r in range(args.world):
+        # rank 0's errors reach the caller; the others' go to a file each
+        log = open(os.path.join(args.out, f"rank{r}.err"), "w") if r else None
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), *own, "--rank", str(r)],
+            env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), stderr=log))
+    rcs = [p.wait() for p in procs]
+    for r, log in enumerate(logs):
+        if log is not None:
+            log.close()
+            if rcs[r]:
+                with open(log.name) as f:
+                    print(f"rank {r} failed:\n{f.read()[-3000:]}", file=sys.stderr)
+    return max(abs(rc) for rc in rcs)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

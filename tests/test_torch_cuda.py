@@ -55,6 +55,36 @@ def test_lamb_kernels_match_plain_on_card(cuda, shape, axis, xdt, gdt):
     torch.testing.assert_close(out.x.float(), ref.x.float(), **tol)
 
 
+@pytest.mark.parametrize("shape,axis,dim", [((2, 128, 4, 64), 0, 1), ((2, 4, 64, 128), 0, 3),
+                                            ((512, 128), None, 1), ((128,), None, 0)])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+def test_lamb_kernels_shard_contract_on_card(cuda, shape, axis, dim, xdt):
+    """K1/K2 on a data=4 rank's contiguous slices of a leaf (split along
+    ``dim``): the slices' per-layer (Σx², Σu²) sum to the whole leaf's
+    within 1e-5 relative, and K2 with the whole leaf's ratio writes each
+    slice's x', m', v' bit-equal to the whole leaf's."""
+    from repro_torch.kernels import lamb_apply, lamb_moments
+    from repro_torch.kernels.lamb_update import bias_corrections, trust_ratio
+    from repro_torch.sharding.collectives import shard_leaf
+
+    x, g, m, v = _inputs(shape, xdt, torch.float32, cuda)
+    layers = shape[0] if axis == 0 else 1
+    c = bias_corrections(torch.tensor(3, device=cuda), 0.9, 0.999, cuda)
+    parts = [[shard_leaf(t, dim, 4, i) for t in (x, g, m, v)] for i in range(4)]
+    xsq, usq = lamb_moments(x, g, m, v, c, layers)
+    sums = [lamb_moments(*t, c, layers) for t in parts]
+    for j, whole in enumerate((xsq, usq)):
+        torch.testing.assert_close(torch.stack([s[j] for s in sums]).sum(0), whole,
+                                   rtol=1e-5, atol=0)
+    ratio = 0.01 * trust_ratio(xsq, usq)
+    lamb_apply(x, m, v, c, ratio, layers)
+    for t in parts:
+        lamb_apply(t[0], t[2], t[3], c, ratio, layers)
+    for i, t in enumerate(parts):
+        for whole, part in zip((x, m, v), (t[0], t[2], t[3])):
+            assert torch.equal(shard_leaf(whole, dim, 4, i), part)
+
+
 def test_lamb_kernels_reject_what_they_cannot_take(cuda):
     x, g, m, v = _inputs((4, 8), torch.float32, torch.float32, cuda)
     with pytest.raises(ValueError, match="contiguous"):

@@ -1,0 +1,274 @@
+"""The port's sharding plan against the JAX package's, in process: specs of
+every arch's leaves on the reference's meshes, the mesh-spec parser's
+errors, moment placement by path suffix, the collectives against their
+plain versions (a gloo group of one), and what a mesh still refuses."""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from _torch_threads import one_cpu_thread  # noqa: F401
+from repro.configs import get_config as jax_get_config
+from repro.configs import smoke_config as jax_smoke_config
+from repro.configs.base import TrainConfig as JaxTrainConfig
+from repro.launch.mesh import abstract_mesh as jax_abstract_mesh
+from repro.models import build_model as jax_build_model
+from repro.sharding import default_act_rules as jax_act_rules
+from repro.sharding import default_param_rules as jax_param_rules
+from repro.sharding import opt_state_shardings as jax_opt_state_shardings
+from repro.sharding import resolve_spec as jax_resolve_spec
+from repro.sharding import specs_for as jax_specs_for
+from repro.train.step import make_train_step as jax_make_train_step
+from repro_torch.configs import get_config, smoke_config
+from repro_torch.configs.base import TrainConfig
+from repro_torch.configs import _ARCHS
+from repro_torch.launch import train as launch_train
+from repro_torch.launch.mesh import (
+    Mesh,
+    abstract_mesh,
+    make_host_mesh,
+    make_mesh_from_spec,
+    parse_mesh_spec,
+)
+from repro_torch.models import build_model
+from repro_torch.sharding import (
+    ShardCtx,
+    batch_axes,
+    batch_rows,
+    default_act_rules,
+    default_param_rules,
+    dp_size,
+    opt_state_shardings,
+    per_device_state_bytes,
+    resolve_spec,
+    shard_act,
+    shard_dim,
+    specs_for,
+    use_sharding,
+)
+from repro_torch.sharding import collectives as C
+from repro_torch.train.step import make_train_step
+
+MESHES = ["data=16,model=16", "pod=2,data=16,model=16", "data=8,model=1", "data=4,model=2"]
+
+
+def _meshes(spec):
+    axes = parse_mesh_spec(spec)
+    return (abstract_mesh(tuple(axes.values()), tuple(axes)),
+            jax_abstract_mesh(tuple(axes.values()), tuple(axes)))
+
+
+def _flat_specs(tree, prefix=""):
+    """A JAX spec tree (nested dicts of PartitionSpecs) as ``{path: tuple}``."""
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_flat_specs(tree[k], f"{prefix}/{k}" if prefix else k))
+        return out
+    return {prefix: tuple(tree)}
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("arch", sorted(_ARCHS))
+def test_specs_for_matches_jax(arch, mesh):
+    """Every leaf of every arch's full-width defs gets the reference's spec
+    (FSDP over data, TP over model, the drop-trailing-axes fallback)."""
+    port, ref = _meshes(mesh)
+    got = specs_for(build_model(get_config(arch)).defs, port)
+    want = _flat_specs(jax_specs_for(jax_build_model(jax_get_config(arch)).defs, ref))
+    assert got == want
+
+
+@pytest.mark.parametrize("case", [
+    ((960, 2560), ("embed", "ff")),
+    ((6144, 1, 128), ("embed", "kv_heads", "head_dim")),   # MQA: kv 1 drops model
+    ((960, 15, 64), ("embed", "heads", "head_dim")),       # 15 heads drop model
+    ((8192, 22528), ("embed", "ff")),
+    ((24, 1024, 16, 64), ("layers", "embed", "heads", "head_dim")),
+    ((7, 5), ("embed", "ff")),                              # nothing divides
+    ((0, 16), ("embed", "ff")),                             # empty dim replicates
+])
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("kind", ["param", "act"])
+def test_resolve_spec_matches_jax(case, mesh, kind):
+    port, ref = _meshes(mesh)
+    multi = "pod" in port.shape
+    rules, jrules = ((default_param_rules(multi), jax_param_rules(multi)) if kind == "param"
+                     else (default_act_rules(multi), jax_act_rules(multi)))
+    shape, axes = case
+    if kind == "act":
+        axes = tuple({"embed": "batch", "layers": "seq"}.get(a, a) for a in axes)
+    assert resolve_spec(shape, axes, rules, port) == tuple(
+        jax_resolve_spec(shape, axes, jrules, ref))
+
+
+def test_resolve_spec_never_reuses_a_mesh_axis():
+    rules = {"a": ("data",), "b": ("data", "model")}
+    port, ref = _meshes("data=16,model=16")
+    got = resolve_spec((32, 32), ("a", "b"), rules, port)
+    assert got == tuple(jax_resolve_spec((32, 32), ("a", "b"), rules, ref)) == ("data", "model")
+
+
+def test_parse_mesh_spec():
+    assert parse_mesh_spec("data=4,model=2") == {"data": 4, "model": 2}
+    assert list(parse_mesh_spec("pod=2, data=8, model=4")) == ["pod", "data", "model"]
+
+
+@pytest.mark.parametrize("bad", ["data", "data=x", "data=0", "data=2,data=4", "=4"])
+def test_parse_mesh_spec_raises_as_jax(bad):
+    from repro.launch.mesh import parse_mesh_spec as jax_parse
+
+    with pytest.raises(ValueError) as want:
+        jax_parse(bad)
+    with pytest.raises(ValueError) as got:
+        parse_mesh_spec(bad)
+    assert str(got.value) == str(want.value)
+
+
+def test_mesh_from_spec_needs_the_ranks():
+    with pytest.raises(ValueError, match="devices"):
+        make_mesh_from_spec("data=64,model=64")
+    assert make_mesh_from_spec("data=4,model=2", world_size=8).shape == {"data": 4, "model": 2}
+
+
+def test_make_host_mesh():
+    with pytest.raises(ValueError, match="divisor of"):
+        make_host_mesh(3)   # one process: 1 % 3 != 0
+    assert make_host_mesh(2, world_size=8).shape == {"data": 4, "model": 2}
+
+
+def test_mesh_coordinates_are_row_major():
+    mesh = Mesh({"pod": 2, "data": 3, "model": 2}, rank=9)
+    assert mesh.coords() == {"pod": 1, "data": 1, "model": 1}
+    assert mesh.index(("pod", "data")) == 4 and mesh.extent(("pod", "data")) == 6
+    assert batch_axes(mesh) == ("pod", "data") and dp_size(mesh) == 6
+    assert mesh.abstract
+
+
+@pytest.mark.parametrize("n,mesh", [(16, "data=4,model=1"), (12, "pod=2,data=3,model=1")])
+def test_batch_rows_split_the_global_batch(n, mesh):
+    sizes = parse_mesh_spec(mesh)
+    world = int(np.prod(list(sizes.values())))
+    rows = [batch_rows(n, Mesh(sizes, rank=r)) for r in range(world)]
+    assert [start for start, _ in rows] == list(range(0, n, n // world))
+    with pytest.raises(ValueError, match="divisible"):
+        batch_rows(n + 1, Mesh(sizes))
+
+
+@pytest.mark.parametrize("spec,want", [
+    ((None, "data"), 1), (("data",), 0), ((None, "data", "model"), 1),
+    ((), None), ((None, None, "model"), None),
+])
+def test_shard_dim_on_a_data_only_mesh(spec, want):
+    assert shard_dim(spec, Mesh({"data": 4, "model": 1})) == want
+
+
+def test_shard_dim_refuses_the_model_axis():
+    with pytest.raises(NotImplementedError, match="item 11 \\(b\\)"):
+        shard_dim(("data", "model"), Mesh({"data": 2, "model": 2}))
+
+
+@pytest.mark.parametrize("optimizer,fused", [("lamb", True), ("lamb", False),
+                                              ("lans", False), ("lars", False)])
+@pytest.mark.parametrize("arch", ["bert-large", "hubert-xlarge"])
+def test_moment_placement_matches_jax_by_path_suffix(arch, optimizer, fused):
+    """Moments mirror their parameter's spec by component-aware path suffix
+    (hubert's ``mu/mask_embed`` must not take ``embed``'s), scalars
+    replicate: the same spec for every optimizer-state leaf as the JAX
+    package gives."""
+    port, ref = _meshes("data=4,model=2")
+    kw = dict(optimizer=optimizer, use_fused_lamb=fused)
+    model = build_model(smoke_config(arch))
+    state = make_train_step(model, TrainConfig(**kw))[0](0, torch.device("cpu"))
+    got = opt_state_shardings(state.opt_state, specs_for(model.defs, port), port)
+
+    jmodel = jax_build_model(jax_smoke_config(arch))
+    jinit, _ = jax_make_train_step(jmodel, JaxTrainConfig(**kw))
+    jabs = jax.eval_shape(jinit, jax.random.key(0))
+    real = jax.make_mesh((1, 1), ("data", "model"))
+    want_tree = jax_opt_state_shardings(jabs.opt_state, jax_specs_for(jmodel.defs, ref), real)
+    from repro.common.pytree import tree_leaves_with_paths as jax_leaves
+
+    want = {p: tuple(getattr(s, "spec", s)) for p, s in jax_leaves(want_tree)}
+    assert got == want
+    assert any(v for v in got.values())
+
+
+def test_per_device_state_bytes_counts_meta_tensors():
+    x = torch.empty((1024, 8), device="meta")
+    assert per_device_state_bytes({"a": x, "b": x.to(torch.bfloat16), "n": 3}) == 1024 * 8 * 6
+
+
+def test_shard_act_is_the_identity_on_a_data_mesh():
+    x = torch.randn(4, 8, 16)
+    with use_sharding(ShardCtx(Mesh({"data": 4, "model": 1}))):
+        assert shard_act(x, ("batch", "seq", "embed")) is x
+    with use_sharding(ShardCtx(Mesh({"data": 2, "model": 2}))):
+        with pytest.raises(NotImplementedError, match="item 11 \\(b\\)"):
+            shard_act(x, ("batch", "seq", "ff"))
+    assert shard_act(x, ("batch", "seq", "ff")) is x
+
+
+# ---------------------------------------------------------------------------
+# collectives: plain versions, and the real ones on a gloo group of one
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dim", [0, 1, 2])
+@pytest.mark.parametrize("parts", [2, 4])
+def test_plain_gather_undoes_the_shard(dim, parts):
+    x = torch.randn(8, 4, 12)
+    shards = [C.shard_leaf(x, dim, parts, i) for i in range(parts)]
+    assert all(s.is_contiguous() for s in shards)
+    assert torch.equal(C.gather_leaf_plain(shards, dim), x)
+    grads = [torch.randn(8, 4, 12) for _ in range(parts)]
+    total = torch.stack(grads).sum(0)
+    assert torch.equal(C.gather_leaf_plain(C.scatter_grad_plain(grads, dim), dim), total)
+
+
+@pytest.fixture
+def group_of_one():
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+def test_collectives_over_one_rank_equal_their_plain_version(group_of_one):
+    x = torch.randn(6, 4, 3)
+    for dim in (None, 0, 1, 2):
+        for t in (x, x.to(torch.bfloat16)):
+            assert torch.equal(C.gather_leaf(t, dim, group_of_one), C.gather_leaf_plain([t], dim))
+        assert torch.equal(C.scatter_grad(x.clone(), dim, group_of_one),
+                           C.scatter_grad_plain([x], dim)[0] if dim is not None else x)
+    for op in C.OPS:
+        assert torch.equal(C.all_reduce(x.clone(), op, group_of_one), C.all_reduce_plain([x], op))
+
+
+# ---------------------------------------------------------------------------
+# what a mesh still refuses: NotImplementedError naming its ROADMAP.md item
+# ---------------------------------------------------------------------------
+
+SMOKE = ["--smoke", "--batch", "4", "--seq", "16", "--steps", "2", "--device", "cpu"]
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--arch", "bert-large", "--mesh", "data=2,model=2"], "item 11 (b)"),
+    (["--arch", "bert-large", "--mesh", "data=1,model=2"], "item 11 (b)"),
+    (["--arch", "granite-moe-1b-a400m", "--mesh", "data=2,model=1"], "item 11 (b)"),
+    (["--arch", "bert-large", "--mesh", "data=2,model=1", "--rollback-on-spike",
+      "--checkpoint-dir", "unused", "--checkpoint-every", "1"], "item 11 (c)"),
+    (["--arch", "bert-large", "--mesh", "data=2,model=1", "--preempt-grace", "5"],
+     "item 11 (c)"),
+])
+def test_launcher_refuses_what_a_mesh_does_not_run(argv, item):
+    with pytest.raises(NotImplementedError, match=item.replace("(", "\\(").replace(")", "\\)")):
+        launch_train.main(argv + SMOKE)
+
+
+def test_launcher_mesh_needs_the_ranks():
+    with pytest.raises(ValueError, match="needs 2 devices but only 1"):
+        launch_train.main(["--arch", "bert-large", "--mesh", "data=2,model=1"] + SMOKE)
