@@ -186,6 +186,29 @@ Phases, each of which raises (and so exits non-zero) on failure:
    N/2 times smaller than whole.  Phase 6 also times K1/K2 over a ``data=4``
    slice of every leaf; the ``kernels`` line gives that entry the launches
    of its own timing.
+15. tensor parallelism (after phase 14, before phase 6's timings; the card
+   is one H100, so a step over M ``model`` ranks runs only on gloo, in the
+   CPU tests): (a) K6–K8's vocab-slice contract at BERT-large's head (N
+   640, D 1024, V 30522) over model=2 (15,261 rows a slice) and
+   smollm-360m's (N 1024, D 960, V 49152) over model=4: each slice on the
+   tensor-core design; K6 on each slice with its vocab offset and
+   statistics, merged by ``combine_vocab_slices`` (the function the head
+   uses, here with the plain reductions over the slices), against the
+   whole-vocab K6 within 1e-5 and ``correct`` equal on every row without
+   a tied maximum; the slices' K7 partials summed in fp32 within 2 bf16
+   ulps of the whole dh; the K8 slices against the whole dw's rows within
+   phase 3's bound; (b) K1/K2 on each ``data=2,model=2`` rank's blocks of
+   BERT-large's 13 leaves, the partials counted by the world rule
+   (``ShardCtx.counts``) and summed within 1e-6 relative of the whole
+   leaf's, K2's blocks bit-equal; (c) the main path with ``--mesh
+   data=1,model=1`` (one NCCL rank: every tensor-parallel operator is the
+   identity) bit-equal to phase 14's unsharded run with its launch counts;
+   (d) one rank's tensor-parallel products at BERT-large's MLP over model=2
+   (``wi`` column-parallel, ``wo`` row-parallel, 4096 tokens), forward and
+   backward, within one bf16 ulp of the fp32 product.  Phase 6 also times
+   K6–K8 on one slice of each (a) case beside the whole vocab's kernel,
+   K1/K2 over a ``data=2,model=2`` rank's blocks, and (d)'s products beside
+   the plain bf16 product and an fp32 GEMM of upcast operands.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -3516,7 +3539,9 @@ def run_fsdp_main_path(device) -> dict:
     if backend != "nccl" or not same or pdiff != 0.0:
         raise AssertionError(f"fsdp (a): backend {backend}, losses and grad norms "
                              f"bit-equal {same}, params max |diff| {pdiff}")
-    del a["params"], b["params"]
+    # the unsharded run is phase 15 (c)'s reference too
+    reference = {k: a[k] for k in ("losses", "grad_norms", "params", "launches")}
+    del b["params"]
     timed, rows = {}, {}
     for label, argv in (("unsharded", FSDP_ARGV), ("data=1 mesh", FSDP_ARGV + FSDP_MESH)):
         trainer, data, _ = launch_train.build(launch_train.parse_args(argv))
@@ -3542,7 +3567,7 @@ def run_fsdp_main_path(device) -> dict:
         (ua, un), (ma, mn) = ru.get(key, (0.0, 0)), rm.get(key, (0.0, 0))
         log(f"fsdp (a) kernel {ma - ua:+8.3f} ms ({ua:.3f} ms {un}x -> {ma:.3f} ms {mn}x) "
             f"{key[:110]}")
-    return dict(launches=b["launches"], timed=timed)
+    return dict(launches=b["launches"], timed=timed, reference=reference)
 
 
 def check_shard_contract(device) -> None:
@@ -3558,7 +3583,7 @@ def check_shard_contract(device) -> None:
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import build_model
     from repro_torch.nn import flatten
-    from repro_torch.sharding import shard_dim, specs_for
+    from repro_torch.sharding import leaf_layout, specs_for
     from repro_torch.sharding.collectives import shard_leaf
 
     model = build_model(get_config("bert-large"))
@@ -3569,7 +3594,7 @@ def check_shard_contract(device) -> None:
     lr = torch.tensor(1e-3, device=device)
     worst = {"partials": 0.0, "split": 0}
     for k, p in flatten(model.defs).items():
-        dim = shard_dim(specs[k], mesh)
+        dim = leaf_layout(specs[k], mesh).data
         layers = p.shape[0] if axes[k] == 0 else 1
         x = 0.05 * torch.randn(p.shape, generator=gen, device=device)
         g = 1e-3 * torch.randn(p.shape, generator=gen, device=device)
@@ -3611,7 +3636,7 @@ def check_fsdp_memory() -> dict:
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import build_model
     from repro_torch.nn import flatten
-    from repro_torch.sharding import per_device_state_bytes, shard_dim, specs_for
+    from repro_torch.sharding import leaf_layout, per_device_state_bytes, specs_for
     from repro_torch.sharding.collectives import shard_leaf
 
     model = build_model(get_config("bert-large"))
@@ -3621,7 +3646,8 @@ def check_fsdp_memory() -> dict:
     for n in (4, 8, 16):
         mesh = Mesh({"data": n, "model": 1})
         specs = specs_for(model.defs, mesh)
-        rank0 = {k: shard_leaf(x, shard_dim(specs[k], mesh), n, 0) for k, x in whole.items()}
+        rank0 = {k: shard_leaf(x, leaf_layout(specs[k], mesh).data, n, 0)
+                 for k, x in whole.items()}
         per = 3 * per_device_state_bytes(rank0)
         out[n] = base / per
         log(f"fsdp (c) data={n}: params + mu + nu {per / 2**30:.3f} GiB a rank against "
@@ -3644,6 +3670,399 @@ def run_fsdp(device) -> dict:
     out["memory"] = check_fsdp_memory()
     log(f"fsdp: phase 14 took {time.perf_counter() - t0:.1f} s")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: tensor parallelism over a model axis
+# ---------------------------------------------------------------------------
+
+TP_MESH = {"data": 2, "model": 2}
+# (label, rows N, D, V, slices M, layout): BERT-large's tied head at the main
+# path's seq 128 (32 x 20 gathered rows) over model=2, 15261 rows a slice;
+# smollm-360m's tied head, 8 sequences of 128 with every position supervised,
+# over model=4, 12288 rows a slice
+TP_CE_CASES = [("bert-large model=2", 640, 1024, 30522, 2),
+               ("smollm-360m model=4", 1024, 960, 49152, 4)]
+
+
+def _vocab_slice_inputs(device, n, d, v, seed):
+    """bf16 rows with std 1 and a vocab projection with std 0.05, labels on
+    the argmax on every fourth row (so ``correct`` is exercised) and random
+    elsewhere, an fp32 cotangent; and the fp32 logits."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    h = torch.randn((n, d), generator=gen, device=device).to(torch.bfloat16)
+    w = (0.05 * torch.randn((v, d), generator=gen, device=device)).to(torch.bfloat16)
+    logits = h.float() @ w.float().t()
+    lbl = torch.randint(0, v, (n,), generator=gen, device=device, dtype=torch.int32)
+    rows = torch.arange(n, device=device)
+    lbl = torch.where(rows % 4 == 0, logits.argmax(1).to(torch.int32), lbl)
+    g = torch.rand((n,), generator=gen, device=device)
+    return h, w, lbl, g, logits
+
+
+def vocab_slice_parts(h, w, lbl, g, m):
+    """K6–K8 over ``m`` vocab slices as the vocab-parallel head runs them:
+    K6 on each slice with its offset, merged by ``combine_vocab_slices``
+    (over the slices with the plain reductions: one card), K7's partials
+    summed in fp32 and rounded once, K8's rows concatenated."""
+    import torch
+
+    from repro_torch.kernels.fused_ce import (
+        combine_vocab_slices,
+        fused_ce_dh,
+        fused_ce_dw,
+        fused_ce_fwd,
+    )
+    from repro_torch.sharding.collectives import all_reduce_plain, reduce_from_model_plain
+
+    vs = w.shape[0] // m
+    parts = [w[r * vs:(r + 1) * vs] for r in range(m)]
+    stats = [fused_ce_fwd(h, p, lbl, v0=r * vs, stats=True) for r, p in enumerate(parts)]
+    lse, ll, idx = combine_vocab_slices(
+        *(torch.stack([st[i] for st in stats]) for i in (2, 3, 4, 5)),
+        lambda op, x: all_reduce_plain(x.unbind(0), op))
+    dh_parts = [fused_ce_dh(h, p, (lbl - r * vs).contiguous(), lse, g)
+                for r, p in enumerate(parts)]
+    dw = torch.cat([fused_ce_dw(h, p, (lbl - r * vs).contiguous(), lse, g)
+                    for r, p in enumerate(parts)])
+    return dict(nll=lse - ll, lse=lse, correct=(idx == lbl).float(),
+                dh=reduce_from_model_plain(dh_parts), dh_parts=dh_parts, dw=dw)
+
+
+def check_vocab_slices(device) -> dict:
+    """(a) K6–K8's vocab-slice contract at TP_CE_CASES: each slice on the
+    tensor-core design; the merged K6 against the whole-vocab K6 within
+    phase 3's K6 tolerance (1e-5), ``correct`` equal on every row whose
+    label does not tie the maximum; the summed K7 partials within 2 bf16
+    ulps of the whole dh (ulps of the largest of the element's whole value
+    and its partials' magnitudes summed: the partials round at their own
+    size); the K8 slices against the whole dw's rows within phase 3's bf16
+    bound.  Returns each case's launches by kernel."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, VARIANT_LAUNCHES, reset_launches
+    from repro_torch.kernels.fused_ce import fused_ce_dh, fused_ce_dw, fused_ce_fwd
+
+    out = {}
+    for i, (label, n, d, v, m) in enumerate(TP_CE_CASES):
+        h, w, lbl, g, logits = _vocab_slice_inputs(device, n, d, v, 15 + i)
+        nll_w, correct_w, lse_w = fused_ce_fwd(h, w, lbl)
+        dh_w = fused_ce_dh(h, w, lbl, lse_w, g)
+        dw_w = fused_ce_dw(h, w, lbl, lse_w, g)
+        torch.cuda.synchronize()
+        reset_launches()
+        got = vocab_slice_parts(h, w, lbl, g, m)
+        torch.cuda.synchronize()
+        launches = {k: LAUNCHES[k] for k in FUSED_CE}
+        designs = {k: dict(VARIANT_LAUNCHES[k]) for k in FUSED_CE}
+        fails = []
+        if designs != {k: {"mma": m, "fma": 0} for k in FUSED_CE}:
+            fails.append("designs")
+        e_fwd = max(float((got["nll"] - nll_w).abs().max()),
+                    float((got["lse"] - lse_w).abs().max()))
+        if not (torch.allclose(got["nll"], nll_w, rtol=1e-5, atol=1e-5)
+                and torch.allclose(got["lse"], lse_w, rtol=1e-5, atol=1e-5)):
+            fails.append("nll/lse")
+        # a row whose two largest logits tie within fp32 rounding may take
+        # either column as its argmax; every other row must agree
+        top2 = logits.topk(2, dim=1).values
+        tie = (top2[:, 0] - top2[:, 1]) <= 1e-5 * (1 + top2[:, 0].abs())
+        flips = (got["correct"] != correct_w) & ~tie
+        if bool(flips.any()):
+            fails.append("correct")
+        scale = torch.maximum(dh_w.float().abs(),
+                              torch.stack([p.float().abs() for p in got["dh_parts"]]).sum(0))
+        ulps = float(((got["dh"].float() - dh_w.float()).abs() / bf16_ulp(scale)).max())
+        if ulps > 2.0 or not bool(torch.isfinite(got["dh"]).all()):
+            fails.append("dh")
+        dw_scale = max(float(dw_w.float().abs().max()), 1e-30)
+        e_dw = float((got["dw"].float() - dw_w.float()).abs().max())
+        if not torch.allclose(got["dw"].float(), dw_w.float(), rtol=1e-2, atol=1e-4 * dw_scale):
+            fails.append("dw")
+        log(f"tp (a) {label}: n {n} d {d} v {v} over {m} slices of {v // m}: |dnll|,|dlse| "
+            f"{e_fwd:.2e}, correct on {int(got['correct'].sum())} rows (whole vocab "
+            f"{int(correct_w.sum())}; {int(tie.sum())} rows with a tied maximum, "
+            f"{int(((got['correct'] != correct_w) & tie).sum())} of them parted), summed dh "
+            f"{ulps:.2f} bf16 ulps from the whole, |ddw| {e_dw:.2e} (scale {dw_scale:.2e}); "
+            f"launches {launches}, designs {designs} "
+            f"{'ok' if not fails else 'MISMATCH in ' + ', '.join(fails)}")
+        if fails:
+            raise AssertionError(f"tp (a): vocab slices disagree with the whole vocab on {label}")
+        out[label] = launches
+        del h, w, logits, got, dh_w, dw_w
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_tp_blocks(device) -> None:
+    """(b) K1/K2 on the data=2,model=2 blocks of BERT-large's 13 leaves: each
+    rank's per-layer partials, zero where the world rule leaves the rank
+    out (``ShardCtx.counts``), summed over the 4 ranks within 1e-6 relative
+    of K1 on the whole leaf; with the whole leaf's ratio, K2 writes each
+    block bit-equal to the whole leaf's."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import lamb_apply, lamb_moments
+    from repro_torch.kernels.lamb_update import bias_corrections, trust_ratio
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import build_model
+    from repro_torch.nn import flatten
+    from repro_torch.sharding import ShardCtx, specs_for
+    from repro_torch.sharding.collectives import shard_block
+
+    model = build_model(get_config("bert-large"))
+    world = TP_MESH["data"] * TP_MESH["model"]
+    ranks = [ShardCtx(Mesh(TP_MESH, rank=r), param_specs=specs_for(model.defs, Mesh(TP_MESH)))
+             for r in range(world)]
+    axes = model.layer_axes()
+    gen = torch.Generator(device=device).manual_seed(6)
+    c = bias_corrections(torch.tensor(5, device=device), 0.9, 0.999, device)
+    lr = torch.tensor(1e-3, device=device)
+    worst, split = 0.0, {"data": 0, "model": 0, "both": 0}
+    for k, p in flatten(model.defs).items():
+        lay = ranks[0].layout(k)
+        layers = p.shape[0] if axes[k] == 0 else 1
+        x = 0.05 * torch.randn(p.shape, generator=gen, device=device)
+        g = 1e-3 * torch.randn(p.shape, generator=gen, device=device)
+        m = 1e-4 * torch.randn(p.shape, generator=gen, device=device)
+        v = 1e-8 * torch.rand(p.shape, generator=gen, device=device)
+        blocks = [tuple(shard_block(t, lay, ctx.mesh) for t in (x, g, m, v)) for ctx in ranks]
+        xsq, usq = lamb_moments(x, g, m, v, c, layers)
+        sums = [lamb_moments(*t, c, layers) for t in blocks]
+        sx, su = (torch.stack([s[j] if ctx.counts(k) else torch.zeros_like(s[j])
+                               for s, ctx in zip(sums, ranks)]).sum(0) for j in (0, 1))
+        rel = max(float(((sx - xsq).abs() / xsq).max()), float(((su - usq).abs() / usq).max()))
+        ratio = trust_ratio(xsq, usq) * lr
+        lamb_apply(x, m, v, c, ratio, layers)
+        for t in blocks:
+            lamb_apply(t[0], t[2], t[3], c, ratio, layers)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(shard_block(whole, lay, ctx.mesh), part)
+                    for ctx, t in zip(ranks, blocks)
+                    for whole, part in zip((x, m, v), (t[0], t[2], t[3])))
+        counted = [r for r, ctx in enumerate(ranks) if ctx.counts(k)]
+        log(f"tp (b) {k:22s} {str(tuple(p.shape)):22s} data dim {lay.data} model dim "
+            f"{lay.model}, counted on ranks {counted}: partials rel {rel:.2e}, x' m' v' "
+            f"blocks bit-equal {equal}")
+        if rel > 1e-6 or not equal:
+            raise AssertionError(f"tp (b): {k} breaks the block contract")
+        worst = max(worst, rel)
+        if lay.data is not None and lay.model is not None:
+            split["both"] += 1
+        elif lay.split:
+            split["data" if lay.data is not None else "model"] += 1
+        del x, g, m, v, blocks
+    torch.cuda.empty_cache()
+    log(f"tp (b): of 13 leaves split over data and model {split['both']}, data alone "
+        f"{split['data']}, model alone {split['model']}; worst partials rel {worst:.2e}")
+
+
+# (label, rows, in, out, product): BERT-large's MLP over model=2 at the main
+# path's micro-batch (32 x 128 tokens): wi column-parallel (1024 -> 4096/2),
+# wo row-parallel (4096/2 -> 1024)
+TP_PRODUCTS = [("wi column-parallel", 4096, 1024, 2048, "column"),
+               ("wo row-parallel", 4096, 2048, 1024, "row")]
+
+
+def _tp_product_inputs(device, n, k, o, seed):
+    """A bf16 input, weight (std k^-1/2) and output cotangent; the input and
+    weight want gradients."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((n, k), generator=gen, device=device).to(torch.bfloat16)
+    w = (k ** -0.5 * torch.randn((k, o), generator=gen, device=device)).to(torch.bfloat16)
+    dy = torch.randn((n, o), generator=gen, device=device).to(torch.bfloat16)
+    return x.requires_grad_(), w.requires_grad_(), dy
+
+
+def _one_rank(kind):
+    """One ``model`` rank's column_matmul or row_matmul at TP_MESH's model
+    size, without the sum over the ranks (one card: no traffic)."""
+    from repro_torch.models.layers.tensor_parallel import column_matmul, row_matmul
+    from repro_torch.sharding.context import ModelAxis
+
+    tp = ModelAxis(None, 0, TP_MESH["model"])
+    fn = column_matmul if kind == "column" else row_matmul
+    return lambda x, w: fn(x, w, tp)
+
+
+def check_tp_products(device) -> None:
+    """(d) One rank's tensor-parallel products at TP_PRODUCTS, forward and
+    backward through autograd: the output, the input gradient and the
+    weight gradient, each bf16 and within one bf16 ulp (plus 1e-6 of the
+    sum of the terms' magnitudes, for the order of the fp32 sums) of the
+    fp32 product of the bf16 operands.  Where the ranks split the
+    contraction (the row product's output, the column product's input
+    gradient) this runs the fp32-output GEMM."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # the fp32 references
+    for i, (label, n, k, o, kind) in enumerate(TP_PRODUCTS):
+        x, w, dy = _tp_product_inputs(device, n, k, o, 40 + i)
+        y = _one_rank(kind)(x, w)
+        dx, dw = torch.autograd.grad(y, (x, w), dy)
+        xf, wf, dyf = x.detach().float(), w.detach().float(), dy.float()
+        ulps = {}
+        for name, got, want, mag in (("y", y, xf @ wf, xf.abs() @ wf.abs()),
+                                     ("dx", dx, dyf @ wf.t(), dyf.abs() @ wf.abs().t()),
+                                     ("dw", dw, xf.t() @ dyf, xf.abs().t() @ dyf.abs())):
+            if got.dtype != torch.bfloat16:
+                raise AssertionError(f"tp (d): {label} {name} came back {got.dtype}")
+            err = (got.detach().float() - want).abs()
+            ulps[name] = float((err / (bf16_ulp(want) + 1e-6 * mag)).max())
+        log(f"tp (d) {label}: n {n}, {k} -> {o}: bf16 ulps from the fp32 product "
+            + ", ".join(f"{k_} {v:.2f}" for k_, v in ulps.items()))
+        if max(ulps.values()) > 1.0:
+            raise AssertionError(f"tp (d): {label} leaves the fp32 product by more than "
+                                 "one bf16 ulp")
+        del x, w, dy, y, dx, dw, xf, wf, dyf
+    torch.cuda.empty_cache()
+
+
+def time_tp_products(device, rate: float) -> dict:
+    """Forward + backward of one rank's TP_PRODUCTS: the port's
+    (``tp``: fp32 partials where the ranks split the contraction), the
+    plain bf16 product one device runs (``bf16``), and the product formed
+    as an fp32 GEMM of upcast operands (``fp32_upcast``, the design the
+    port's replaced), in the order tp, bf16, upcast, upcast, bf16, tp;
+    beside the bound of the three bf16 GEMMs.  Returns ``{label: ms}``."""
+    import torch
+
+    out = {}
+    for i, (label, n, k, o, kind) in enumerate(TP_PRODUCTS):
+        x, w, dy = _tp_product_inputs(device, n, k, o, 40 + i)
+        fns = {"tp": _one_rank(kind), "bf16": lambda a, b: a @ b,
+               "fp32_upcast": lambda a, b: (a.float() @ b.float()).to(a.dtype)}
+        times = {name: [] for name in fns}
+        for name in ("tp", "bf16", "fp32_upcast", "fp32_upcast", "bf16", "tp"):
+            fn = fns[name]
+            times[name].append(cuda_ms(lambda: torch.autograd.grad(fn(x, w), (x, w), dy)))
+        t_bytes = 6 * (n * k + k * o + n * o) * 2 / rate
+        t_ops = 3 * 2 * n * k * o / PEAK_OPS["bfloat16"]
+        entry = {name: min(t) for name, t in times.items()}
+        entry.update(bound_ms=max(t_bytes, t_ops) * 1e3,
+                     bound_by="bytes" if t_bytes >= t_ops else "operations")
+        out[label] = entry
+        log(f"time tp product {label} (n {n}, {k} -> {o}, bf16, forward + backward): "
+            + ", ".join(f"{name} {t} ms" for name, t in times.items())
+            + f"; bound {entry['bound_ms']:.4f} ms by {entry['bound_by']}")
+        del x, w, dy
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_tp_main_path(device, reference: dict) -> dict:
+    """(c) The main path through the Trainer on a data=1,model=1 mesh (a real
+    NCCL group of one rank): every tensor-parallel operator is the identity
+    (no model axis of more than one rank), so launch counts equal phase
+    14's unsharded run and losses, grad norms and params are bit-equal to
+    it.  Returns the launches."""
+    import torch
+
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import shutdown_distributed
+    from repro_torch.sharding import ShardCtx
+
+    torch.cuda.synchronize()
+    reset_launches()
+    try:
+        trainer = launch_train.main(FSDP_ARGV + ["--mesh", "data=1,model=1"])
+        torch.cuda.synchronize()
+        launches, designs, copies = _counts()
+        _check_launches("tp data=1,model=1", FSDP_STEPS, True, launches, designs, copies)
+        hist = trainer.history
+        params = {k: v.float().cpu() for k, v in trainer.gather_state().params.items()}
+        axis = ShardCtx(trainer.mesh).model_axis
+    finally:
+        shutdown_distributed()
+    losses = [h["loss/total"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    pdiff = max(float((params[k] - reference["params"][k]).abs().max()) for k in params)
+    same = losses == reference["losses"] and norms == reference["grad_norms"]
+    log(f"tp (c): mesh {trainer.mesh.shape}, model axis {axis}; losses {losses} (phase 14 "
+        f"unsharded {reference['losses']}), grad norms {norms}; bit-equal {same}; params "
+        f"max |diff| {pdiff:.3e}; launches {launches} (phase 14 unsharded "
+        f"{reference['launches']})")
+    if (axis is not None or not same or pdiff != 0.0 or launches != reference["launches"]):
+        raise AssertionError("tp (c): the data=1,model=1 main path left phase 14's bits or "
+                             "launch counts")
+    del trainer, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_tp(device, fsdp: dict) -> dict:
+    """Phase 15; returns (a)'s launches per case and (c)'s."""
+    t0 = time.perf_counter()
+    out = {"slices": check_vocab_slices(device)}
+    check_tp_blocks(device)
+    check_tp_products(device)
+    out["launches"] = run_tp_main_path(device, fsdp.pop("reference"))
+    log(f"tp: phase 15 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def time_vocab_slices(device, rate: float) -> dict:
+    """K6–K8 on one vocab slice of each of TP_CE_CASES (bf16, the tensor-core
+    design), plain, kernel, kernel, plain, beside the whole vocab's kernel,
+    the slice's bound and the dense head's matmul + cross_entropy on the
+    slice (a yardstick only).  Returns ``{kernel: {case: numbers}}``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.fused_ce import fused_ce_dh, fused_ce_dw, fused_ce_fwd
+
+    result = {k: {} for k in FUSED_CE}
+    for i, (label, n, d, v, m) in enumerate(TP_CE_CASES):
+        h, w, lbl, g, logits = _vocab_slice_inputs(device, n, d, v, 15 + i)
+        del logits
+        vs = v // m
+        ws, local = w[:vs], lbl.clamp(max=vs - 1)   # rank 0's slice
+        lse = fused_ce_fwd(h, w, lbl)[2]
+        fns = {
+            "fused_ce_fwd": lambda plain, ww, v0: fused_ce_fwd(h, ww, lbl, plain=plain, v0=v0,
+                                                               stats=True),
+            "fused_ce_dh": lambda plain, ww, v0: fused_ce_dh(h, ww, lbl - v0, lse, g,
+                                                             plain=plain),
+            "fused_ce_dw": lambda plain, ww, v0: fused_ce_dw(h, ww, lbl - v0, lse, g,
+                                                             plain=plain),
+        }
+        hw, rows = (n * d + vs * d) * 2, n * 4
+        bytes_ = {"fused_ce_fwd": hw + 7 * rows, "fused_ce_dh": hw + 3 * rows + n * d * 2,
+                  "fused_ce_dw": hw + 3 * rows + vs * d * 2}
+        mm = 2 * n * vs * d
+        flops = {"fused_ce_fwd": mm, "fused_ce_dh": 2 * mm, "fused_ce_dw": 2 * mm}
+        dense = cuda_ms(lambda: F.cross_entropy(torch.matmul(h, ws.t()), local.long(),
+                                                reduction="none"))
+        for name, fn in fns.items():
+            before = LAUNCHES[name]
+            times = {"plain": [], "cuda": [], "whole": []}
+            for plain in (True, False, False, True):
+                times["plain" if plain else "cuda"].append(cuda_ms(lambda: fn(plain, ws, 0)))
+                if not plain:
+                    times["whole"].append(cuda_ms(lambda: fn(False, w, 0)))
+            timed = LAUNCHES[name] - before
+            t_bytes, t_ops = bytes_[name] / rate, flops[name] / PEAK_OPS["bfloat16"]
+            entry = dict(ms=min(times["cuda"]), plain_ms=min(times["plain"]),
+                         bound_ms=max(t_bytes, t_ops) * 1e3,
+                         bound_by="bytes" if t_bytes >= t_ops else "operations",
+                         library_ms=dense if name == "fused_ce_fwd" else None,
+                         whole_vocab_ms=min(times["whole"]), timed_launches=timed)
+            result[name][label] = entry
+            log(f"time {name} {label} slice (n {n} d {d} v {vs} of {v}, bf16): kernel "
+                f"{times['cuda']} ms, whole vocab {times['whole']} ms, plain "
+                f"{times['plain']} ms; bound {entry['bound_ms']:.4f} ms by "
+                f"{entry['bound_by']}; {flops[name] / (entry['ms'] * 1e-3) / 1e12:.2f} TFLOP/s")
+        log(f"time library {label} slice: matmul + cross_entropy {dense:.4f} ms")
+        del h, w, ws, lbl, local, g, lse
+    torch.cuda.empty_cache()
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -3672,11 +4091,12 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def time_kernels(device, rate: float, arch: str = "bert-large", shards: int = 1) -> dict:
+def time_kernels(device, rate: float, arch: str = "bert-large", shards: int = 1,
+                 model_ranks: int = 1) -> dict:
     """K1 and K2 over one full update of ``arch``'s leaves, plain, kernel
     (and with the guard's flag), kernel, plain, beside their bound.  With
-    ``shards`` N > 1: over the slices one rank of a ``data=N`` mesh holds
-    (phase 14)."""
+    ``shards`` N > 1 or ``model_ranks`` M > 1: over the blocks one rank of a
+    ``data=N,model=M`` mesh holds (phases 14 and 15)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -3685,21 +4105,23 @@ def time_kernels(device, rate: float, arch: str = "bert-large", shards: int = 1)
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import build_model
     from repro_torch.nn import flatten
-    from repro_torch.sharding import shard_dim, specs_for
+    from repro_torch.sharding import leaf_layout, specs_for
 
     model = build_model(get_config(arch).replace(
         use_flash_kernel=False, use_fused_ce_head=False))
     axes = model.layer_axes()
-    mesh = Mesh({"data": shards, "model": 1})
+    mesh = Mesh({"data": shards, "model": model_ranks})
     specs = specs_for(model.defs, mesh)
     gen = torch.Generator(device=device).manual_seed(1)
     leaves = []
     for k, p in flatten(model.defs).items():
         layers = p.shape[0] if axes[k] == 0 else 1
         shape = list(p.shape)
-        dim = shard_dim(specs[k], mesh) if shards > 1 else None
-        if dim is not None:
-            shape[dim] //= shards
+        if shards > 1 or model_ranks > 1:
+            lay = leaf_layout(specs[k], mesh)
+            for dim, n_split in ((lay.data, shards), (lay.model, model_ranks)):
+                if dim is not None:
+                    shape[dim] //= n_split
         x = 0.05 * torch.randn(shape, generator=gen, device=device)
         g = 1e-3 * torch.randn(shape, generator=gen, device=device)
         m = torch.zeros_like(x)
@@ -3744,7 +4166,8 @@ def time_kernels(device, rate: float, arch: str = "bert-large", shards: int = 1)
                          bound_by="bytes" if t_bytes >= t_ops else "operations",
                          library_ms=None, ok_ms=min(times[name]["ok"]),
                          timed_launches=timed[name])
-        where = arch if shards == 1 else f"{arch} data={shards} slice"
+        where = (arch if shards == model_ranks == 1
+                 else f"{arch} data={shards},model={model_ranks} block")
         log(f"time {name} {where}: kernel {times[name]['cuda']} ms, with ok=1 "
             f"{times[name]['ok']} ms, plain {times[name]['plain']} ms "
             f"over {n} elements in {len(leaves)} leaves; bound {bound:.3f} ms "
@@ -3753,7 +4176,7 @@ def time_kernels(device, rate: float, arch: str = "bert-large", shards: int = 1)
     log("time library: none; no single PyTorch call computes a LAMB update")
     del leaves
     torch.cuda.empty_cache()
-    log(f"time full update {arch} shards={shards} (K1 + K2): kernel {out['lamb_moments']['ms'] + out['lamb_apply']['ms']:.3f}"
+    log(f"time full update {arch} data={shards},model={model_ranks} (K1 + K2): kernel {out['lamb_moments']['ms'] + out['lamb_apply']['ms']:.3f}"
         f" ms, plain {out['lamb_moments']['plain_ms'] + out['lamb_apply']['plain_ms']:.3f} ms")
     return out
 
@@ -4005,6 +4428,7 @@ def main() -> None:
     recurrent = run_recurrent(device)
     deepseek = run_deepseek(device)
     fsdp = run_fsdp(device)
+    tp = run_tp(device, fsdp)
     timing = {**time_kernels(device, rate), **time_flash(device, rate),
               **time_fused_ce(device, rate)}
     moe_timing = {**time_kernels(device, rate, MOE_ARCH),
@@ -4014,6 +4438,10 @@ def main() -> None:
     wide_flash = time_flash(device, rate, WIDE_FLASH_TIMING, every=True)
     xlstm_timing = time_kernels(device, rate, XLSTM_ARCH)
     shard_timing = time_kernels(device, rate, "bert-large", shards=FSDP_SHARDS)
+    block_timing = time_kernels(device, rate, "bert-large", shards=TP_MESH["data"],
+                                model_ranks=TP_MESH["model"])
+    slice_timing = time_vocab_slices(device, rate)
+    time_tp_products(device, rate)
     wide = {sh[0]: time_fused_ce(device, rate, [sh]) for sh in WIDE_CE_TIMING}
     # the FMA design is not timed there: at D 7168 it re-forms the scores in
     # each of 7 windows on FMA (seconds a call), and no path takes it there
@@ -4058,6 +4486,20 @@ def main() -> None:
     for k in ("lamb_moments", "lamb_apply"):
         by_name[k]["bert_large_data4_slice"] = dict(
             launches=shard_timing[k].pop("timed_launches"), **shard_timing[k])
+    # phase 15: every kernel's launches in the main path on a data=1,model=1
+    # mesh; K6–K8 on one vocab slice of each (a) case (the launches of the
+    # slice contract check and of the timing) and K1/K2 over a
+    # data=2,model=2 rank's blocks (the launches of their timing)
+    for k in KERNELS:
+        by_name[k]["tp_data1_model1_mesh"] = dict(launches=tp["launches"][k])
+    for k in FUSED_CE:
+        by_name[k]["vocab_slice"] = {
+            label: dict(launches=tp["slices"][label][k],
+                        timed_launches=slice_timing[k][label].pop("timed_launches"),
+                        **slice_timing[k][label]) for label in slice_timing[k]}
+    for k in ("lamb_moments", "lamb_apply"):
+        by_name[k]["bert_large_data2_model2_block"] = dict(
+            launches=block_timing[k].pop("timed_launches"), **block_timing[k])
     log(card)   # again near the end, where a truncated log still shows it
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.optim.base import EmptyState, GradientTransformation, Tensors, chain
 from repro_torch.sharding.collectives import all_reduce, group_size
-from repro_torch.sharding.context import reduce_group
+from repro_torch.sharding.context import current
 
 _ORDS = {"l2": 2, "l1": 1, "linf": math.inf}
 
@@ -46,10 +46,11 @@ def _slice_norm(x: torch.Tensor, layer_axis: Optional[int], ord: str = "l2",
     ``layer_axis`` is None or negative.  App. F's l1 / l2 / linf.
 
     ``path`` names the parameter ``x`` belongs to: where the ambient
-    sharding context splits it over data-parallel ranks, ``x`` is this
-    rank's slice and the partial Σ|x|ᵖ (max for linf) is all-reduced over
-    them, so the norm is the whole leaf's, as GSPMD keeps it.  The stacked
-    axis never splits, so per-layer partials reduce as they are.
+    sharding context splits it, ``x`` is this rank's block and the partial
+    Σ|x|ᵖ (max for linf) is all-reduced over the world, counted on the
+    ranks :meth:`~repro_torch.sharding.ShardCtx.counts` names and zero on
+    the others, so the norm is the whole leaf's, as GSPMD keeps it.  The
+    stacked axis never splits, so per-layer partials reduce as they are.
     """
     if layer_axis is None or layer_axis < 0:
         dims = None
@@ -59,9 +60,12 @@ def _slice_norm(x: torch.Tensor, layer_axis: Optional[int], ord: str = "l2",
             return x.to(torch.float32).abs()
     norm = torch.linalg.vector_norm(x, _ORDS[ord], dim=dims, keepdim=dims is not None,
                                     dtype=torch.float32)
-    group = reduce_group(path)
-    if group is None or group_size(group) == 1:
+    ctx = current()
+    if ctx is None or not ctx.split(path) or group_size(ctx.world_group) == 1:
         return norm
+    group = ctx.world_group
+    if not ctx.counts(path):
+        norm = torch.zeros_like(norm)
     if ord == "linf":
         return all_reduce(norm, "max", group)
     if ord == "l1":

@@ -20,6 +20,17 @@
 //   K8: dw_tile = sum over rows of ((p - onehot(label)) g)^T h.
 // Columns at or past V are masked here (no padded copy of w): their logit is
 // the finite -1e30, never -inf, their p is 0 and they never win the argmax.
+//
+// A vocab slice (tensor parallelism over a model axis): w holds the V rows
+// from global row v0.  K6 takes v0 and compares each label against v0 + its
+// local column, so a label outside [v0, v0 + V) is no hit: its label logit
+// stays -1e30 (the tile and split arithmetic below only ever reads a split
+// that holds no such column, or a masked one) and it is never correct.  On
+// request K6 also writes each row's label logit, max logit and first argmax
+// as a global index (v0 + column), which the caller merges over the slices.
+// K7 and K8 take labels already shifted by v0: they compare a label only
+// against columns in [0, V), so one outside it is no hit and is never used
+// as an address.
 // Rows at or past N read as 0 and are never written.  A row whose cotangent
 // is 0 contributes exactly 0 to dh and dw.
 //
@@ -167,11 +178,15 @@ struct Args {
   float* nll;
   float* correct;
   float* lse_out;
+  float* ll_out;    // K6, optional (null: not written): label logit, row max,
+  float* max_out;   // first argmax as a global index
+  int* idx_out;
   float* part;      // K6: (3, splits, N) m, l, label logit; K7: (splits, N, D)
   int* part_idx;    // K6: (splits, N) argmax column
   void* out;        // K7: dh (N, D); K8: dw (V, D); contiguous
   int64_t sh, sw;   // row strides of h and w, in elements
   int N, V, D, splits, tiles_per_split;
+  int v0;           // K6: the global vocab row of w's first row
 };
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
@@ -244,7 +259,7 @@ __global__ void __launch_bounds__(kThreads) fused_ce_fwd_kernel(Args a) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = r0 + ty + 8 * i;
-    lbl[i] = row < a.N ? a.lbl[row] : -1;
+    lbl[i] = row < a.N ? a.lbl[row] - a.v0 : -1;
     best[i] = 0;
     m[i] = kNegInf;
     l[i] = 0.f;
@@ -330,13 +345,16 @@ __global__ void __launch_bounds__(kThreads) fused_ce_fwd_combine_kernel(Args a) 
     const int64_t e = (int64_t)s * a.N + n;
     l += a.part[sn + e] * expf(a.part[e] - m);
   }
-  const int lab = a.lbl[n];
+  const int lab = a.lbl[n] - a.v0;   // local; outside [0, V): no hit
   const int ls = min(max(lab / kBT / a.tiles_per_split, 0), a.splits - 1);
   const float ll = a.part[2 * sn + (int64_t)ls * a.N + n];
   const float lse = m + logf(fmaxf(l, 1e-30f));
   a.lse_out[n] = lse;
   a.nll[n] = lse - ll;
   a.correct[n] = best == lab ? 1.f : 0.f;
+  if (a.ll_out) a.ll_out[n] = ll;
+  if (a.max_out) a.max_out[n] = m;
+  if (a.idx_out) a.idx_out[n] = best + a.v0;
 }
 
 // ---------------------------------------------------------------------------
@@ -423,7 +441,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_ce_fwd_mma_kernel(Args a) {
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const int row = r0 + 32 * wm + 16 * (k >> 1) + g + 8 * (k & 1);
-    lbl[k] = row < a.N ? a.lbl[row] : -1;
+    lbl[k] = row < a.N ? a.lbl[row] - a.v0 : -1;
     best[k] = 0x7fffffff;
     m[k] = kNegInf;
     l[k] = 0.f;
@@ -1215,22 +1233,30 @@ int fused_ce_plan(int pass, int design, int dtype, int N, int V, int D) {
 
 // dtype codes: 0 = float32, 1 = bfloat16 (h, w, dh and dw share it); design
 // codes: 0 = FMA, 1 = tensor cores (bf16 only).  h and w have
-// contiguous rows of D elements, sh and sw apart; labels are int32 in
-// [0, V); lse, g and every other float tensor are contiguous fp32.  part and
-// part_idx are scratch of (3, splits, N) floats and (splits, N) ints (K6) or
-// (splits, N, D) floats (K7).  Each returns cudaGetLastError() after its
-// launches (0 = launched), or cudaErrorMisalignedAddress (nothing launched)
-// for the tensor-core design on rows it cannot copy in 16-byte pieces.
+// contiguous rows of D elements, sh and sw apart; labels are int32 (K6:
+// global, against w's rows from v0; K7, K8: local, a label outside [0, V)
+// no hit); lse, g and every other float tensor are contiguous fp32.  part
+// and part_idx are scratch of (3, splits, N) floats and (splits, N) ints
+// (K6) or (splits, N, D) floats (K7).  K6's ll, row_max and row_idx are
+// optional (N,) outputs (null: not written).  Each returns
+// cudaGetLastError() after its launches (0 = launched), or
+// cudaErrorMisalignedAddress (nothing launched) for the tensor-core design
+// on rows it cannot copy in 16-byte pieces.
 
 int fused_ce_fwd(const void* h, const void* w, const int* lbl, float* nll, float* correct,
-                 float* lse, float* part, int* part_idx, int64_t sh, int64_t sw, int dtype,
-                 int design, int N, int V, int D, int splits, void* stream) {
+                 float* lse, float* part, int* part_idx, float* ll, float* row_max,
+                 int* row_idx, int64_t sh, int64_t sw, int dtype, int design, int N, int V,
+                 int D, int splits, int v0, void* stream) {
   Args a = make_args(h, w, lbl, sh, sw, N, V, D, splits);
   a.nll = nll;
   a.correct = correct;
   a.lse_out = lse;
   a.part = part;
   a.part_idx = part_idx;
+  a.ll_out = ll;
+  a.max_out = row_max;
+  a.idx_out = row_idx;
+  a.v0 = v0;
   return run(kFwd, design, a, dtype, stream);
 }
 

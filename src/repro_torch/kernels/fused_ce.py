@@ -24,6 +24,16 @@ rule before the launch: bf16 whose rows can be copied in 16-byte pieces runs
 on the tensor cores (``mma.sync``; in K7 and K8 the fp32 dlogits as two bf16
 terms); fp32, and bf16 that cannot be copied so, on fp32 FMA kernels.
 ``VARIANT_LAUNCHES`` counts which design ran.
+
+Over a ``model`` axis that splits the vocab (``fused_ce(..., model=)``),
+each rank holds V/M rows of ``w`` from row ``v0``: K6 runs on the slice with
+its labels compared against ``v0 +`` the local column and also returns each
+row's label logit, max and first global argmax, which
+:func:`combine_vocab_slices` merges over the ranks (a log-sum-exp of the
+slices' lse, the owner's label logit, the lowest index reaching the global
+max); K7's dh on the slice is a partial summed over ``model``, and K8's dw
+is the slice's own rows.  K7 and K8 take the labels shifted by ``v0``: a
+label outside ``[0, V/M)`` is no hit.
 """
 from __future__ import annotations
 
@@ -34,6 +44,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.launches import LAUNCHES, VARIANT_LAUNCHES, register
+from repro_torch.sharding.collectives import all_reduce, copy_to_model
 
 DESIGNS = ("mma", "fma")   # bf16 on the tensor cores (mma.sync); fp32 FMA
 register("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw", variants=DESIGNS)
@@ -63,7 +74,7 @@ def _lib() -> ctypes.CDLL:
 
         lib = load("fused_ce")
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.fused_ce_fwd.argtypes = [p] * 8 + [i64, i64, i, i, i, i, i, i, p]
+        lib.fused_ce_fwd.argtypes = [p] * 11 + [i64, i64, i, i, i, i, i, i, i, p]
         lib.fused_ce_dh.argtypes = [p] * 7 + [i64, i64, i, i, i, i, i, i, p]
         lib.fused_ce_dw.argtypes = [p] * 6 + [i64, i64, i, i, i, i, i, p]
         lib.fused_ce_plan.argtypes = [i] * 6
@@ -77,11 +88,14 @@ def _lib() -> ctypes.CDLL:
 # plain versions (the CPU path, and the reference the kernels are held to)
 # ---------------------------------------------------------------------------
 
-def fused_ce_fwd_plain(h, w, lbl, block_v: int = 512
-                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def fused_ce_fwd_plain(h, w, lbl, block_v: int = 512, *, v0: int = 0, stats: bool = False
+                       ) -> Tuple[torch.Tensor, ...]:
     """(nll, correct, lse) in fp32 by the online log-sum-exp over vocab
     chunks of ``block_v`` (port of ``_xla_fwd``).  ``lbl`` is int32 in
-    [0, V); ``correct`` takes the first maximum, as ``jnp.argmax`` does."""
+    [v0, v0 + V) (outside it: no hit, and the label logit stays -1e30);
+    ``correct`` takes the first maximum, as ``jnp.argmax`` does.  With
+    ``stats``, also each row's label logit, max logit and its first column
+    plus ``v0`` (what :func:`combine_vocab_slices` merges)."""
     n, v = h.shape[0], w.shape[0]
     f32, dev = torch.float32, h.device
     hf = h.to(f32)
@@ -97,7 +111,7 @@ def fused_ce_fwd_plain(h, w, lbl, block_v: int = 512
         m_new = torch.maximum(m, m_cur)
         l = torch.exp(m - m_new) * l + torch.exp(s - m_new[:, None]).sum(1)
         m = m_new
-        hit = cols[None, :] == lbl[:, None]
+        hit = cols[None, :] + v0 == lbl[:, None]
         ll = torch.where(hit.any(1), torch.where(hit, s, 0.0).sum(1), ll)
         # lowest column reaching the chunk's max; a strict > across chunks
         # keeps the earlier chunk's winner
@@ -105,7 +119,8 @@ def fused_ce_fwd_plain(h, w, lbl, block_v: int = 512
         bidx = torch.where(m_cur > bmax, cand, bidx)
         bmax = torch.maximum(bmax, m_cur)
     lse = m + torch.log(torch.clamp(l, min=1e-30))
-    return lse - ll, (bidx == lbl).to(f32), lse
+    out = (lse - ll, (bidx + v0 == lbl).to(f32), lse)
+    return out + (ll, m, bidx + v0) if stats else out
 
 
 def _grads_plain(h, w, lbl, lse, g, block_v: int, *, want_dh: bool, want_dw: bool):
@@ -224,20 +239,24 @@ def _count(name: str, design: str) -> None:
     VARIANT_LAUNCHES[name][design] += 1
 
 
-def _fwd_cuda(h, w, lbl):
+def _fwd_cuda(h, w, lbl, v0: int = 0, stats: bool = False):
     design = _check(h, w, lbl)
     n, dev = h.shape[0], h.device
     splits = _plan(h, w, 0, design)
-    nll, correct, lse = torch.empty((3, n), dtype=torch.float32, device=dev)
+    rows = torch.empty((5 if stats else 3, n), dtype=torch.float32, device=dev)
+    nll, correct, lse = rows[0], rows[1], rows[2]
+    ll, row_max = (rows[3], rows[4]) if stats else (None, None)
+    row_idx = torch.empty((n,), dtype=torch.int32, device=dev) if stats else None
     part = torch.empty((3, splits, n), dtype=torch.float32, device=dev)
     part_idx = torch.empty((splits, n), dtype=torch.int32, device=dev)
+    extra = [0 if x is None else x.data_ptr() for x in (ll, row_max, row_idx)]
     err = _lib().fused_ce_fwd(h.data_ptr(), w.data_ptr(), lbl.data_ptr(), nll.data_ptr(),
                               correct.data_ptr(), lse.data_ptr(), part.data_ptr(),
-                              part_idx.data_ptr(), *_shape_args(h, w, design), splits,
-                              _stream(h))
+                              part_idx.data_ptr(), *extra, *_shape_args(h, w, design),
+                              splits, v0, _stream(h))
     _raise_on(err, "fused_ce_fwd")
     _count("fused_ce_fwd", design)
-    return nll, correct, lse
+    return (nll, correct, lse, ll, row_max, row_idx) if stats else (nll, correct, lse)
 
 
 def _dh_cuda(h, w, lbl, lse, g):
@@ -265,12 +284,15 @@ def _dw_cuda(h, w, lbl, lse, g):
     return dw
 
 
-def fused_ce_fwd(h, w, lbl, *, block_v: int = 512, plain: bool = False):
+def fused_ce_fwd(h, w, lbl, *, block_v: int = 512, plain: bool = False, v0: int = 0,
+                 stats: bool = False):
     """(nll, correct, lse): kernel K6 on a CUDA tensor, the plain version on
-    a CPU one (or anywhere with ``plain=True``)."""
+    a CPU one (or anywhere with ``plain=True``).  ``w`` holds the vocab
+    rows from ``v0`` on (labels are compared against ``v0 +`` the column);
+    ``stats`` adds each row's label logit, max and first global argmax."""
     if _backend(h.device, plain) == "cuda":
-        return _fwd_cuda(h, w, lbl)
-    return fused_ce_fwd_plain(h, w, lbl, block_v)
+        return _fwd_cuda(h, w, lbl, v0, stats)
+    return fused_ce_fwd_plain(h, w, lbl, block_v, v0=v0, stats=stats)
 
 
 def fused_ce_dh(h, w, lbl, lse, g, *, block_v: int = 512, plain: bool = False):
@@ -301,15 +323,50 @@ def fused_ce_bwd(h, w, lbl, lse, g, *, want_dh: bool = True, want_dw: bool = Tru
 # autograd boundary and public entry
 # ---------------------------------------------------------------------------
 
+def combine_vocab_slices(lse, ll, row_max, row_idx, reduce):
+    """The whole vocabulary's ``(lse, label logit, argmax)`` of each row
+    from its slices' K6 statistics (``fused_ce_fwd(..., stats=True)``).
+
+    ``reduce(op, x)`` reduces ``x`` over the slices by ``op`` (sum, max or
+    min): an all-reduce over ``model`` on one rank's (k, N) operand, or
+    :func:`~repro_torch.sharding.collectives.all_reduce_plain` over a
+    leading slice axis.  ``lse = M + log Σ_r exp(lse_r − M)`` with ``M`` the
+    largest ``lse_r``; the label logit is the owning slice's (the others
+    hold -1e30); the argmax is the lowest global index among the slices
+    whose max is the global max, as ``jnp.argmax`` keeps the first.  Three
+    reductions: max, sum, min."""
+    top, ll_all, best = reduce("max", torch.stack([lse, ll, row_max], -2)).unbind(-2)
+    lse_all = top + torch.log(reduce("sum", torch.exp(lse - top)))
+    idx = reduce("min", torch.where(row_max == best, row_idx, _IDX_INF))
+    return lse_all, ll_all, idx
+
+
 class FusedCE(torch.autograd.Function):
-    """``(nll, correct) = apply(h, w, lbl, block_v, plain)``; saves the
-    residuals of the JAX package's ``_fused_ce_fwd``: h, w, lbl, lse.
+    """``(nll, correct) = apply(h, w, lbl, model, block_v, plain)``; saves
+    the residuals of the JAX package's ``_fused_ce_fwd``: h, w, lbl, lse.
     ``correct`` is piecewise constant and ``lbl`` integral: neither gets a
-    gradient."""
+    gradient.
+
+    ``model`` (a :class:`~repro_torch.sharding.context.ModelAxis`, or
+    None) splits the vocab: ``w`` is this rank's rows from ``v0 = index ·
+    V/M`` and ``lbl`` global.  K6 then runs on the slice and
+    :func:`combine_vocab_slices` merges the slices over ``model``; the
+    labels are saved shifted by ``v0`` with the global lse, so K7 gives this
+    rank's dh partial (the caller sums it over ``model``: ``h`` comes
+    through ``copy_to_model``) and K8 the dw of its rows."""
 
     @staticmethod
-    def forward(ctx, h, w, lbl, block_v: int, plain: bool):
-        nll, correct, lse = fused_ce_fwd(h, w, lbl, block_v=block_v, plain=plain)
+    def forward(ctx, h, w, lbl, model, block_v: int, plain: bool):
+        if model is None:
+            nll, correct, lse = fused_ce_fwd(h, w, lbl, block_v=block_v, plain=plain)
+        else:
+            v0 = model.index * w.shape[0]
+            _, _, lse, ll, row_max, row_idx = fused_ce_fwd(h, w, lbl, block_v=block_v,
+                                                           plain=plain, v0=v0, stats=True)
+            lse, ll, idx = combine_vocab_slices(
+                lse, ll, row_max, row_idx, lambda op, x: all_reduce(x, op, model.group))
+            nll, correct = lse - ll, (idx == lbl).to(torch.float32)
+            lbl = (lbl - v0).contiguous()
         ctx.save_for_backward(h, w, lbl, lse)
         ctx.block_v, ctx.plain = block_v, plain
         ctx.mark_non_differentiable(correct)
@@ -322,7 +379,7 @@ class FusedCE(torch.autograd.Function):
         dh, dw = fused_ce_bwd(h, w, lbl, lse, g, want_dh=ctx.needs_input_grad[0],
                               want_dw=ctx.needs_input_grad[1], block_v=ctx.block_v,
                               plain=ctx.plain)
-        return dh, dw, None, None, None
+        return dh, dw, None, None, None, None
 
 
 def fused_ce(
@@ -332,6 +389,7 @@ def fused_ce(
     *,
     block_v: int = 512,
     plain: bool = False,
+    model=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row ``(nll, correct)`` without materialising the (N, V) logits
     (port of ``repro.kernels.fused_ce.fused_ce``).
@@ -344,7 +402,10 @@ def fused_ce(
     tiles of their own).  ``h`` and ``w`` of different float types are both
     taken in the wider one (exact: the products are fp32 either way).
     ``plain=True`` runs the plain version on any device, the reference a
-    kernel run is held to on the card.
+    kernel run is held to on the card.  ``model`` (a
+    :class:`~repro_torch.sharding.context.ModelAxis`) makes ``w`` this
+    rank's slice of a vocab of ``V · model.size`` rows (:class:`FusedCE`);
+    the labels are clipped into that.
     """
     if h.dim() != 2 or w.dim() != 2:
         raise ValueError("h and w must be 2-D: (N, D) and (V, D)")
@@ -357,5 +418,8 @@ def fused_ce(
     if h.dtype != w.dtype:
         wide = torch.promote_types(h.dtype, w.dtype)
         h, w = h.to(wide), w.to(wide)
-    lbl = torch.clamp(labels.to(device=h.device, dtype=torch.int32), 0, v - 1).contiguous()
-    return FusedCE.apply(h, w, lbl, min(block_v, v), plain)
+    whole = v if model is None else v * model.size
+    lbl = torch.clamp(labels.to(device=h.device, dtype=torch.int32), 0, whole - 1).contiguous()
+    if model is not None:
+        h = copy_to_model(h, model.group)
+    return FusedCE.apply(h, w, lbl, model, min(block_v, v), plain)

@@ -22,7 +22,7 @@ There is no fallback from the kernel to the plain version.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Callable, Collection, Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -267,6 +267,7 @@ def lamb_update_leaves(
     ok: Optional[torch.Tensor] = None,
     plain: bool = False,
     split: Sequence[str] = (),
+    uncounted: Collection[str] = frozenset(),
     reduce_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """The two passes over a dict of leaves, in place on params, mu and nu.
@@ -277,7 +278,8 @@ def lamb_update_leaves(
     per-layer (Σx², Σu²) partials are packed into one buffer that
     ``reduce_sum`` sums over the ranks in one call before the trust ratios,
     and their Σ(x'−x)² the same way after pass B, so every ratio and sum is
-    the whole leaf's.  Returns ``({path: ratio}, {path: Σ(x'−x)²})``: the
+    the whole leaf's; this rank adds zeros for the ``uncounted`` ones (a
+    block another rank holds too, and counts).  Returns ``({path: ratio}, {path: Σ(x'−x)²})``: the
     applied trust ratio before the lr fold ((layers,) for a stacked leaf,
     else a scalar) and the fp32 squared update norm of each leaf.
     """
@@ -291,7 +293,8 @@ def lamb_update_leaves(
                             eps=eps, weight_decay=wd, ok=ok, plain=plain)
         leaves[k] = (stacked, layers, wd, sums)
     if split:   # one collective for every split leaf's per-layer partials
-        packed = reduce_sum(torch.cat([t for k in split for t in leaves[k][3]]))
+        packed = reduce_sum(torch.cat([torch.zeros_like(t) if k in uncounted else t
+                                       for k in split for t in leaves[k][3]]))
         at = 0
         for k in split:
             stacked, layers, wd, _ = leaves[k]
@@ -307,7 +310,8 @@ def lamb_update_leaves(
                             weight_decay=wd, ok=ok, plain=plain).sum()
         ratios[k] = ratio if stacked else ratio[0]
     if split:
-        dsq.update(zip(split, reduce_sum(torch.stack([dsq[k] for k in split])).unbind()))
+        dsq.update(zip(split, reduce_sum(torch.stack(
+            [torch.zeros_like(dsq[k]) if k in uncounted else dsq[k] for k in split])).unbind()))
     return ratios, dsq
 
 

@@ -99,24 +99,26 @@ def fused_lamb_apply(
     ratio before the lr fold ((layers,) for a stacked leaf, else a scalar).
 
     Pass A (K1) runs on every leaf, then pass B (K2).  Under an ambient
-    sharding context the leaves it splits over the data-parallel ranks are
-    this rank's slices: K1's per-layer (Σx², Σu²) partials of all of them
-    are packed into one buffer and all-reduced in **one** collective before
-    the trust ratios, so K2 applies the whole leaf's ratio to the slice;
-    their Σ(x'−x)² are all-reduced the same way.  The kernels stay on the
-    path: this is the reference's function, where GSPMD keeps the plain
-    pass's sums global.
+    sharding context the leaves it splits are this rank's blocks: K1's
+    per-layer (Σx², Σu²) partials of all of them are packed into one buffer
+    and all-reduced over the world in **one** collective before the trust
+    ratios, each counted once (zero on the ranks
+    :meth:`~repro_torch.sharding.ShardCtx.counts` leaves out), so K2
+    applies the whole leaf's ratio to the block; their Σ(x'−x)² are
+    all-reduced the same way.  The kernels stay on the path: this is the
+    reference's function, where GSPMD keeps the plain pass's sums global.
     """
     device = count.device
     ctx = current()
-    split = [k for k in params if ctx is not None and ctx.reduce_group(k) is not None]
+    split = [k for k in params if ctx is not None and ctx.split(k)]
     ratios, dsq = lamb_update_leaves(
         params, grads, mu, nu, bias_corrections(count, b1, b2, device),
         torch.as_tensor(lr_t, dtype=torch.float32, device=device), b1=b1, b2=b2, eps=eps,
         weight_decay=weight_decay, wd_mask=wd_mask, trust_mask=trust_mask,
         layer_axes=layer_axes, phi_bounds=phi_bounds,
         ok=None if ok is None else ok.to(torch.int32), split=split,
-        reduce_sum=lambda t: all_reduce(t, "sum", ctx.dp_group))
+        uncounted=frozenset(k for k in split if not ctx.counts(k)),
+        reduce_sum=lambda t: all_reduce(t, "sum", ctx.world_group))
     total = torch.zeros((), dtype=torch.float32, device=device)
     for k in params:
         total = total + dsq[k]

@@ -32,22 +32,27 @@ and a clean ``status=preempted`` stop, resumable with ``--resume``.  It
 runs on ``cuda`` unless ``--device`` names another device, and raises when
 there is no card.
 
-``--mesh data=N,model=1`` trains FSDP over N data-parallel ranks, one
-process per device, started by ``torch.distributed.run``:
+``--mesh data=N,model=M`` trains over N·M ranks, one process per device,
+started by ``torch.distributed.run``: FSDP over the N data-parallel ranks
+and Megatron-style tensor parallelism over the M ``model`` ranks (heads,
+kv heads, ff and vocab split; the dense transformers):
 
-    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
         -m repro_torch.launch.train --arch bert-large --smoke --fused-lamb \
-        --steps 3 --device cpu --mesh data=2,model=1
+        --steps 3 --device cpu --mesh data=2,model=2
 
 (NCCL on ``cuda:LOCAL_RANK``, or gloo with ``--device cpu``).  Params and
-optimizer moments are split over the ranks, each rank trains on its rows of
-the global batch, and only rank 0 prints and writes.  Under
-``torch.distributed.run`` without ``--mesh``, the ranks form
+optimizer moments are split into blocks over the ranks, each data-parallel
+rank trains on its rows of the global batch (the ``model`` ranks of one
+data coordinate on the same rows), and only rank 0 prints and writes.
+Under ``torch.distributed.run`` without ``--mesh``, the ranks form
 ``data=WORLD/--model-parallel, model=--model-parallel``, as the
 reference's host mesh.  These raise ``NotImplementedError`` naming their
-ROADMAP.md item: a ``model`` axis of more than one rank, an MoE arch over
-more than one data-parallel rank, and ``--rollback-on-spike`` or
-``--preempt-grace`` over more than one.
+ROADMAP.md item: over a ``model`` axis of more than one rank an MoE,
+xLSTM/Mamba or MLA arch, or heads that split while the kv heads stay
+whole; an MoE arch over more than one data-parallel rank (item 11 (b2));
+``--rollback-on-spike`` or ``--preempt-grace`` over more than one (item
+11 (c)).
 
 The flags mirror ``repro.launch.train``.
 """
@@ -124,13 +129,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="restore the latest complete checkpoint in "
                          "--checkpoint-dir and continue from its step")
     ap.add_argument("--mesh", default="",
-                    help="mesh axes, e.g. data=8,model=1 (one rank per device, under "
+                    help="mesh axes, e.g. data=4,model=2 (one rank per device, under "
                          "torch.distributed.run); params + LAMB moments are "
-                         "FSDP-sharded over data")
+                         "FSDP-sharded over data, heads/ff/vocab split over model")
     ap.add_argument("--model-parallel", type=int, default=1,
                     help="legacy spelling: model-axis size of the host mesh "
-                         "(ignored when --mesh is given; above 1 it raises until the "
-                         "model axis is ported, ROADMAP.md queue 1, item 11 (b))")
+                         "(ignored when --mesh is given)")
     ap.add_argument("--telemetry-dir", default="",
                     help="write the event log (events.jsonl) and RUN_REPORT.json here; "
                          "off: a null sink, the step loop unchanged")

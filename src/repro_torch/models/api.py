@@ -7,6 +7,9 @@ optimizer metadata (weight-decay mask, trust-ratio mask, stacked-layer
 axes), all keyed by the JAX paths.  It dispatches on ``cfg.family`` as the
 reference does: ``hybrid`` to ``models/hybrid.py`` (Jamba), ``ssm`` to
 ``models/xlstm_model.py``, every other family to ``models/transformer.py``.
+Under a ``model`` axis of more than one rank (the ambient sharding
+context) only the dense transformers run: :func:`check_model_axis` names
+what raises.
 """
 from __future__ import annotations
 
@@ -18,10 +21,38 @@ import torch
 from repro_torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import hybrid, transformer, xlstm_model
+from repro_torch.sharding.context import UNPORTED, model_parallel
+
+
+def check_model_axis(cfg: ModelConfig, model: int) -> None:
+    """Raise ``NotImplementedError`` naming ROADMAP.md item 11 (b2) for what
+    a ``model`` axis of ``model`` ranks does not run: MoE (expert
+    parallelism), the xLSTM/Mamba ``inner`` axis, MLA, and heads that split
+    while the kv heads stay whole (the specs split a dimension only when the
+    axis size divides it)."""
+    if model == 1:
+        return
+    if cfg.n_experts:
+        raise NotImplementedError(f"{cfg.name} routes to experts: expert parallelism "
+                                  f"over 'model' is not ported ({UNPORTED})")
+    if cfg.family in ("hybrid", "ssm"):
+        raise NotImplementedError(f"{cfg.name} ({cfg.family}): the xLSTM/Mamba 'inner' "
+                                  f"axis over 'model' is not ported ({UNPORTED})")
+    if cfg.use_mla:
+        raise NotImplementedError(f"{cfg.name}: MLA over 'model' is not ported "
+                                  f"({UNPORTED})")
+    if cfg.n_heads % model == 0 and cfg.n_kv_heads % model:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.n_heads} heads split over model={model} while its "
+            f"{cfg.n_kv_heads} kv heads stay whole is not ported ({UNPORTED})")
 
 
 def _family(cfg: ModelConfig):
-    """The module of ``cfg``'s family, with its ``forward`` and ``make_cache``."""
+    """The module of ``cfg``'s family, with its ``forward`` and
+    ``make_cache``; raises for what the ambient ``model`` axis cannot run."""
+    tp = model_parallel()
+    if tp is not None:
+        check_model_axis(cfg, tp.size)
     if cfg.family == "hybrid":
         return hybrid
     if cfg.family == "ssm":

@@ -17,6 +17,13 @@ Layouts follow the JAX package: q (B, S, H, Dh), k/v (B, T, Hkv, Dh),
 (B, T, Hkv, Dh) in the activation dtype and an int32 ``index``.  The JAX
 package returns a new cache (its buffers donated); here every write lands
 in the cache's own tensors, index included.
+
+Over a ``model`` axis of M ranks (the ambient sharding context) whose specs
+split the heads, this rank's ``wq``/``wk``/``wv`` (and biases) hold H/M and
+Hkv/M heads: q, k and v are column-parallel products on them, attention
+(flash or dense) runs on the local heads, and ``wo`` is a row-parallel
+product summed over ``model`` (``layers/tensor_parallel.py``).  Heads
+split while kv heads stay whole, and a cache on such a mesh, raise.
 """
 from __future__ import annotations
 
@@ -28,7 +35,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import flash_sdpa
 from repro_torch.models.layers.embeddings import apply_rope
+from repro_torch.models.layers.tensor_parallel import column_matmul, row_matmul, split_axis
 from repro_torch.nn.module import Param
+from repro_torch.sharding.context import UNPORTED, model_parallel
 
 NEG_INF = -1e9
 
@@ -153,10 +162,20 @@ def attention(
     """
     b, s, d = x.shape
     dtype = x.dtype
-    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dh = cfg.head_dim
+    # this rank's heads: all of them, or H/M and Hkv/M over a model axis
+    h, hkv = p["wq"].shape[1], p["wk"].shape[1]
+    tp = split_axis(h, cfg.n_heads, model_parallel())
+    if tp is not None and hkv == cfg.n_kv_heads:
+        raise NotImplementedError(
+            f"{cfg.n_heads} heads split over model={tp.size} while the {hkv} kv heads "
+            f"stay whole is not ported ({UNPORTED})")
+    if tp is not None and cache is not None:
+        raise NotImplementedError("serving on a mesh (a KV cache of split heads) is not "
+                                  "ported (ROADMAP.md queue 1, item 11 (e))")
 
     def proj(w, heads):
-        return (x @ w.to(dtype).reshape(d, heads * dh)).view(b, s, heads, dh)
+        return column_matmul(x, w.to(dtype).reshape(d, heads * dh), tp).view(b, s, heads, dh)
 
     q, k, v = proj(p["wq"], h), proj(p["wk"], hkv), proj(p["wv"], hkv)
     if cfg.use_qkv_bias:
@@ -186,7 +205,7 @@ def attention(
             cache["k"][:, :s].copy_(k)
             cache["v"][:, :s].copy_(v)
             cache["index"].fill_(s)
-    return out.reshape(b, s, h * dh) @ p["wo"].to(dtype).reshape(h * dh, d)
+    return row_matmul(out.reshape(b, s, h * dh), p["wo"].to(dtype).reshape(h * dh, d), tp)
 
 
 def init_kv_cache(batch: int, max_len: int, cfg: ModelConfig, dtype=torch.bfloat16,

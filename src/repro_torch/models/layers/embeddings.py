@@ -1,5 +1,10 @@
 """Token embeddings, output heads (tied and untied) and rotary position
-embeddings."""
+embeddings.
+
+Over a ``model`` axis whose specs split ``vocab``, this rank's table holds
+V/M rows: the lookup reads zero for a token outside them and sums over
+``model``, and the heads are column-parallel over the vocab, giving this
+rank's (B, S, V/M) slice of the logits (``train/loss.py`` reduces them)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -7,7 +12,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.layers.tensor_parallel import column_matmul, split_axis
 from repro_torch.nn.module import Param
+from repro_torch.sharding.collectives import reduce_from_model
+from repro_torch.sharding.context import model_parallel
 
 
 def embed_defs(vocab_size: int, d_model: int) -> Param:
@@ -18,18 +26,36 @@ def unembed_defs(d_model: int, vocab_size: int) -> Param:
     return Param((d_model, vocab_size), ("embed", "vocab"), init="fan_in")
 
 
-def embed(table: torch.Tensor, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    return F.embedding(tokens.long(), table.to(dtype))
+def embed(table: torch.Tensor, tokens: torch.Tensor, dtype: torch.dtype,
+          vocab: Optional[int] = None) -> torch.Tensor:
+    """The rows of ``table`` at ``tokens``.  ``vocab`` is the whole
+    vocabulary: a table of fewer rows is this rank's slice over ``model``,
+    where a token outside it reads zero and the ranks' lookups are summed
+    (exactly: one rank holds each row), and each rank's gradient lands on
+    its own rows."""
+    tp = split_axis(table.shape[0], vocab or table.shape[0], model_parallel())
+    if tp is None:
+        return F.embedding(tokens.long(), table.to(dtype))
+    rows = table.shape[0]
+    local = tokens.long() - tp.index * rows
+    mine = (local >= 0) & (local < rows)
+    x = F.embedding(torch.where(mine, local, 0), table.to(dtype))
+    return reduce_from_model(torch.where(mine[..., None], x, 0), tp.group)
 
 
-def unembed(x: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
-    """``einsum("bsd,dv->bsv")`` against the (D, V) untied head."""
-    return x @ proj.to(x.dtype)
+def unembed(x: torch.Tensor, proj: torch.Tensor, vocab: Optional[int] = None) -> torch.Tensor:
+    """``einsum("bsd,dv->bsv")`` against the (D, V) untied head (this
+    rank's vocab columns when ``proj`` holds fewer than ``vocab``)."""
+    tp = split_axis(proj.shape[1], vocab or proj.shape[1], model_parallel())
+    return column_matmul(x, proj.to(x.dtype), tp)
 
 
-def tied_unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """``einsum("bsd,vd->bsv")`` against the (V, D) embedding table."""
-    return x @ table.to(x.dtype).t()
+def tied_unembed(x: torch.Tensor, table: torch.Tensor,
+                 vocab: Optional[int] = None) -> torch.Tensor:
+    """``einsum("bsd,vd->bsv")`` against the (V, D) embedding table (this
+    rank's vocab rows when ``table`` holds fewer than ``vocab``)."""
+    tp = split_axis(table.shape[0], vocab or table.shape[0], model_parallel())
+    return column_matmul(x, table.to(x.dtype).t(), tp)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:

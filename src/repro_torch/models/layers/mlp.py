@@ -1,4 +1,7 @@
-"""Feed-forward blocks: gated (SwiGLU/GeGLU) and vanilla."""
+"""Feed-forward blocks: gated (SwiGLU/GeGLU) and vanilla.
+
+Over a ``model`` axis whose specs split ``ff``, ``wi``/``wg`` are
+column-parallel and ``wo`` row-parallel (``layers/tensor_parallel.py``)."""
 from __future__ import annotations
 
 from typing import Dict
@@ -7,7 +10,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers.tensor_parallel import column_matmul, row_matmul, split_axis
 from repro_torch.nn.module import Param
+from repro_torch.sharding.context import model_parallel
 
 # jax.nn.gelu defaults to the tanh approximation
 _ACTS = {
@@ -35,9 +40,10 @@ def mlp(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig) -> torch.
     gate being ``wg`` as in the reference."""
     dtype = x.dtype
     act = _ACTS[cfg.act_fn]
-    h = x @ p["wi"].to(dtype)
+    tp = split_axis(p["wi"].shape[1], cfg.d_ff, model_parallel())
+    h = column_matmul(x, p["wi"].to(dtype), tp)
     if "wg" in p:
-        h = act(x @ p["wg"].to(dtype)) * h
+        h = act(column_matmul(x, p["wg"].to(dtype), tp)) * h
     else:
         h = act(h)
-    return h @ p["wo"].to(dtype)
+    return row_matmul(h, p["wo"].to(dtype), tp)

@@ -1,0 +1,109 @@
+"""Megatron-style products over the ambient ``model`` axis.
+
+A layer whose weight the mesh splits over ``model`` computes on this rank's
+heads, ff columns or vocab rows (the step gathers each leaf over the
+data-parallel ranks only).  A column-parallel product (``wq``, ``wk``,
+``wv``, ``wi``, ``wg``, the vocab head) takes the whole input and gives this
+rank's columns; its input's gradient is a partial over the rank's columns,
+summed over ``model``.  A row-parallel product (``wo``) takes this rank's
+columns and gives a partial of the whole output, summed over ``model``.
+
+Every product runs in the operands' own dtype, as on one device.  Where
+the ranks split a contraction (the row-parallel forward, the
+column-parallel input gradient), each rank keeps its partial as the fp32
+accumulator, unrounded (:func:`_mm32`: on the card one tensor-core GEMM of
+the 16-bit operands with an fp32 output), the partials are summed in fp32
+and the sum is rounded once, as one device rounds its accumulator once.
+Only the order of the fp32 sums then differs from one device.  The other
+products split nothing and are the plain ones.  With ``tp`` None (no mesh,
+or one ``model`` rank) both are the plain product.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.sharding.collectives import all_reduce
+from repro_torch.sharding.context import ModelAxis
+
+
+def _mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of 2-D operands as its fp32 accumulator.  A 16-bit pair on
+    the card runs as one GEMM with an fp32 output; elsewhere it is the fp32
+    product of the exact upcasts (the same products, summed in fp32)."""
+    if a.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(-1, x.shape[-1])
+
+
+class _Column(torch.autograd.Function):
+    """``x @ w``; backward ``dx = Σ_model g @ wᵀ`` from fp32 partials."""
+
+    @staticmethod
+    def forward(ctx, x, w, group):
+        ctx.save_for_backward(x, w)
+        ctx.group = group
+        return x @ w
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = all_reduce(_mm32(_rows(g), w.t()), "sum", ctx.group)
+            dx = dx.to(x.dtype).view(x.shape)
+        if ctx.needs_input_grad[1]:
+            dw = _rows(x).t() @ _rows(g)
+        return dx, dw, None
+
+
+class _Row(torch.autograd.Function):
+    """``Σ_model h @ w`` from fp32 partials; backward the plain product's."""
+
+    @staticmethod
+    def forward(ctx, h, w, group):
+        ctx.save_for_backward(h, w)
+        y = all_reduce(_mm32(_rows(h), w), "sum", group).to(h.dtype)
+        return y.view(*h.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        dh = (g @ w.t()) if ctx.needs_input_grad[0] else None
+        dw = _rows(h).t() @ _rows(g) if ctx.needs_input_grad[1] else None
+        return dh, dw, None
+
+
+def column_matmul(x: torch.Tensor, w: torch.Tensor, tp: Optional[ModelAxis]) -> torch.Tensor:
+    """``x @ w`` for this rank's columns of ``w`` (2-D); ``x`` is whole on
+    every ``model`` rank and its gradient's partials are summed over them."""
+    if tp is None:
+        return x @ w
+    return _Column.apply(x, w, tp.group)
+
+
+def row_matmul(h: torch.Tensor, w: torch.Tensor, tp: Optional[ModelAxis]) -> torch.Tensor:
+    """``h @ w`` summed over the ``model`` ranks, each holding its columns
+    of ``h`` and rows of ``w`` (2-D)."""
+    if tp is None:
+        return h @ w
+    return _Row.apply(h, w, tp.group)
+
+
+def split_axis(local: int, whole: int, tp: Optional[ModelAxis]) -> Optional[ModelAxis]:
+    """``tp`` when a dimension of ``whole`` is split over it (this rank
+    holds ``local`` of it), else None: a dimension the specs keep whole
+    (not divisible by the ``model`` size) runs replicated on every rank."""
+    if tp is None or local == whole:
+        return None
+    if local * tp.size != whole:
+        raise ValueError(f"a dimension of {whole} holds {local} on one of {tp.size} "
+                         "model ranks")
+    return tp

@@ -179,7 +179,7 @@ def _embed_inputs(params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor
         if cfg.mask_ratio > 0 and "mask" in batch:
             x = torch.where(batch["mask"][..., None], params["mask_embed"].to(dtype), x)
         return x
-    x = embed(params["embed"], batch["tokens"], dtype)
+    x = embed(params["embed"], batch["tokens"], dtype, cfg.vocab_size)
     if cfg.frontend == "vision_stub" and "image_embeds" in batch:
         # decode steps carry no image prefix (it already lives in the cache)
         x = torch.cat([batch["image_embeds"].to(dtype), x], dim=1)
@@ -228,9 +228,9 @@ def forward(
     if return_hidden:
         return x, aux
     if cfg.tie_embeddings:
-        logits = tied_unembed(x, params["embed"])
+        logits = tied_unembed(x, params["embed"], cfg.vocab_size)
     else:
-        logits = unembed(x, params["unembed"])
+        logits = unembed(x, params["unembed"], cfg.vocab_size)
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits, aux

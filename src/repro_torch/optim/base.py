@@ -241,21 +241,23 @@ def add_decayed_weights(weight_decay: float, mask: Optional[Dict[str, bool]] = N
 def global_norm(tree: Tensors) -> torch.Tensor:
     """L2 norm over every leaf, reduced in fp32.
 
-    Under an ambient sharding context the leaves it splits over the
-    data-parallel ranks are this rank's slices: their per-leaf Σx² are
-    all-reduced in one collective before the sum, so the norm is the whole
-    tree's on every rank (and, over one rank, the same bits as without a
-    context).
+    Under an ambient sharding context the leaves it splits are this rank's
+    blocks: their per-leaf Σx² are all-reduced over the world in one
+    collective before the sum, each counted on the ranks
+    :meth:`~repro_torch.sharding.ShardCtx.counts` names and zero on the
+    others, so the norm is the whole tree's on every rank (and, over one
+    rank, the same bits as without a context).
     """
-    sq = torch.stack([torch.linalg.vector_norm(x, dtype=torch.float32).square()
-                      for x in tree.values()])
+    keys = list(tree)
+    sq = [torch.linalg.vector_norm(x, dtype=torch.float32).square() for x in tree.values()]
     ctx = current()
-    split = [i for i, k in enumerate(tree) if ctx is not None
-             and ctx.reduce_group(k) is not None]
+    split = [i for i, k in enumerate(keys) if ctx is not None and ctx.split(k)]
     if split:
-        idx = torch.tensor(split, device=sq.device)
-        sq = sq.index_copy(0, idx, all_reduce(sq.index_select(0, idx), "sum",
-                                              ctx.dp_group))
+        part = torch.stack([sq[i] if ctx.counts(keys[i]) else torch.zeros_like(sq[i])
+                            for i in split])
+        for i, t in zip(split, all_reduce(part, "sum", ctx.world_group).unbind()):
+            sq[i] = t
+    sq = torch.stack(sq)
     return torch.sqrt(sq.sum())
 
 

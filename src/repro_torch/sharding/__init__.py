@@ -1,6 +1,6 @@
-"""Data-parallel FSDP over a mesh's ``data`` axis (port of
-``repro.sharding``): specs, the ambient context, placement and the
-collectives GSPMD inserts in the reference."""
+"""FSDP over a mesh's ``data`` axis and tensor parallelism over its
+``model`` axis (port of ``repro.sharding``): specs, the ambient context,
+placement and the collectives GSPMD inserts in the reference."""
 from repro_torch.sharding.axes import (
     batch_axes,
     default_act_rules,
@@ -9,7 +9,15 @@ from repro_torch.sharding.axes import (
     resolve_spec,
     specs_for,
 )
-from repro_torch.sharding.context import ShardCtx, current, shard_act, shard_dim, use_sharding
+from repro_torch.sharding.context import (
+    Layout,
+    ShardCtx,
+    current,
+    leaf_layout,
+    model_parallel,
+    shard_act,
+    use_sharding,
+)
 from repro_torch.sharding.placement import (
     BATCH_AXES,
     batch_rows,
@@ -23,6 +31,7 @@ from repro_torch.sharding.placement import (
 
 __all__ = [
     "BATCH_AXES",
+    "Layout",
     "ShardCtx",
     "batch_axes",
     "batch_rows",
@@ -32,11 +41,12 @@ __all__ = [
     "dp_size",
     "gather_tree",
     "leaf_dims",
+    "leaf_layout",
+    "model_parallel",
     "opt_state_shardings",
     "per_device_state_bytes",
     "resolve_spec",
     "shard_act",
-    "shard_dim",
     "shard_tree",
     "specs_for",
     "train_state_shardings",

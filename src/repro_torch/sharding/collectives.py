@@ -1,18 +1,29 @@
-"""The collectives of data-parallel FSDP, which GSPMD inserts by itself in
-the reference and the port calls by hand.
+"""The collectives of FSDP and tensor parallelism, which GSPMD inserts by
+itself in the reference and the port calls by hand.
 
-A leaf split over the data-parallel ranks (its spec names the batch axes on
-one dimension ``dim``; :func:`~repro_torch.sharding.context.shard_dim`)
-lives on each rank as one contiguous slice of ``dim``: rank ``i`` of ``N``
-holds rows ``[i·n, (i+1)·n)``, ``n = size/N``.
+A leaf split over a group of ``N`` ranks along dimension ``dim`` lives on
+each rank as one contiguous slice of ``dim``: rank ``i`` holds rows
+``[i·n, (i+1)·n)``, ``n = size/N``.  A leaf may be split along two
+dimensions, ``embed`` over the data-parallel ranks and a head, ff or vocab
+dimension over ``model`` (its :class:`~repro_torch.sharding.context.Layout`):
+each rank then holds one block.
 
-* :func:`shard_leaf` keeps the rank's slice of a whole leaf (no traffic);
-* :func:`gather_leaf` rebuilds the whole leaf on every rank
-  (``all_gather_into_tensor``);
+* :func:`shard_leaf` keeps the rank's slice of a whole leaf (no traffic),
+  :func:`shard_block` its block;
+* :func:`gather_leaf` rebuilds the whole leaf along one dimension on every
+  rank of a group (``all_gather_into_tensor``), :func:`gather_block` along
+  both;
 * :func:`scatter_grad` sums every rank's whole gradient and leaves each
   rank its slice (``reduce_scatter_tensor``); a leaf that is not split
   is all-reduced whole instead;
-* :func:`all_reduce` sums, maxes or mins over a group.
+* :func:`all_reduce` sums, maxes or mins over a group; :func:`sum_over`
+  sums into a new tensor;
+* :func:`copy_to_model` and :func:`reduce_from_model` are Megatron's two
+  operators at the edges of a tensor-parallel region: the identity forward
+  with a sum over ``model`` backward (the input of a column-parallel
+  product), and the sum forward with the identity backward (the output of
+  a row-parallel one).  16-bit operands are summed in fp32 and rounded
+  once.
 
 Each has a plain single-process version (``*_plain``) that takes every
 rank's operand at once: what the tests hold the collectives to.
@@ -127,6 +138,73 @@ def all_reduce(x: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
     return out
 
 
+def shard_block(x: torch.Tensor, layout, mesh) -> torch.Tensor:
+    """This rank's block of a whole leaf with ``layout`` on ``mesh`` (its
+    slice along ``layout.data`` by its data-parallel index, then along
+    ``layout.model`` by its ``model`` coordinate); no traffic."""
+    from repro_torch.sharding.axes import batch_axes, dp_size
+
+    x = shard_leaf(x, layout.data, dp_size(mesh), mesh.index(batch_axes(mesh)))
+    if layout.model is not None:
+        x = shard_leaf(x, layout.model, mesh.shape["model"], mesh.coords()["model"])
+    return x
+
+
+def gather_block(x: torch.Tensor, layout, mesh) -> torch.Tensor:
+    """The whole leaf on every rank from this rank's block: gathered along
+    ``layout.data`` over the data-parallel group, then along
+    ``layout.model`` over ``model``."""
+    from repro_torch.sharding.axes import batch_axes
+
+    x = gather_leaf(x, layout.data, mesh.group(batch_axes(mesh)))
+    if layout.model is not None:
+        x = gather_leaf(x, layout.model, mesh.group(("model",)))
+    return x
+
+
+def sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group`` in a new tensor of ``x``'s dtype;
+    16-bit floats are summed in fp32 and rounded once (gloo carries no
+    bf16)."""
+    if x.element_size() == 2 and x.is_floating_point():
+        return all_reduce(x.to(torch.float32), "sum", group).to(x.dtype)
+    return all_reduce(x.clone(memory_format=torch.contiguous_format), "sum", group)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return sum_over(g, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return sum_over(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` unchanged; its gradient summed over ``group`` (the ``model``
+    ranks, each of which holds the gradient's partial from its heads, ff
+    columns or vocab rows).  ``group`` None: ``x``."""
+    return x if group is None else _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group`` (each ``model`` rank's partial product);
+    its gradient passes to every rank unchanged.  ``group`` None: ``x``."""
+    return x if group is None else _ReduceFromModel.apply(x, group)
+
+
 # ---------------------------------------------------------------------------
 # plain versions: every rank's operand at once, in one process
 # ---------------------------------------------------------------------------
@@ -144,6 +222,21 @@ def scatter_grad_plain(grads: Sequence[torch.Tensor], dim: Optional[int]
     total = torch.stack(list(grads)).sum(0)
     n = len(grads)
     return [shard_leaf(total, dim, n, i) for i in range(n)]
+
+
+def copy_to_model_plain(x: torch.Tensor, n: int) -> List[torch.Tensor]:
+    """Every one of ``n`` ranks' operand: ``x`` itself, so that autograd
+    sums their gradients into ``x``'s, as :func:`copy_to_model` does."""
+    return [x] * n
+
+
+def reduce_from_model_plain(xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The sum of every rank's partial (in fp32 for 16-bit floats, rounded
+    once); autograd gives each partial the sum's gradient unchanged."""
+    stacked = torch.stack(list(xs))
+    if stacked.element_size() == 2 and stacked.is_floating_point():
+        return stacked.to(torch.float32).sum(0).to(stacked.dtype)
+    return stacked.sum(0)
 
 
 def all_reduce_plain(xs: Sequence[torch.Tensor], op: str = "sum") -> torch.Tensor:

@@ -2,36 +2,70 @@
 
 A train step built on a mesh installs a :class:`ShardCtx` with
 :func:`use_sharding`.  :func:`shard_act` is the reference's activation
-annotation; on a data-only mesh activations are rank-local (each rank holds
-its rows) and it is the identity, so no model code calls it yet: the model
-axis (ROADMAP.md queue 1, item 11 (b)) is where it starts to act.
+annotation, the identity here: over the data-parallel axes each rank
+already holds its own rows, and a layer split over ``model`` takes its
+slice through :func:`model_parallel`.
 
 Beyond the reference, the context carries the parameters' specs: where
 GSPMD keeps every reduction over a sharded array global by itself, the port
-asks the context which leaves are split over the data-parallel ranks
-(:meth:`ShardCtx.reduce_group`), and the norms of ``core.strategy`` and
-``optim.base`` all-reduce their partial sums over that group.  Without a
-context (single-process runs and unit tests) nothing changes.
+asks the context how each leaf is laid out (:meth:`ShardCtx.layout`: the
+dimension the data-parallel axes split, and the one ``model`` splits), and
+the norms of ``core.strategy``, ``optim.base`` and ``kernels.ops`` sum the
+partials of every split leaf over the whole world in one collective, each
+counted once (:meth:`ShardCtx.counts`).  The model's layers ask it for the
+``model`` axis (:func:`model_parallel`).  Without a context (single-process
+runs and unit tests) nothing changes.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict, Mapping, Optional, Sequence
+from typing import Dict, Mapping, NamedTuple, Optional, Sequence
 
 from repro_torch.sharding.axes import Spec, batch_axes, default_act_rules, mesh_sizes
 
 _state = threading.local()
 
+# what a mesh still does not run (ROADMAP.md queue 1): the message's label
+UNPORTED = "ROADMAP.md queue 1, item 11 (b2)"
 
-def shard_dim(spec: Spec, mesh) -> Optional[int]:
-    """The dimension a spec splits over the data-parallel ranks, or None
-    when the leaf is whole on every rank.  Model-axis entries of size 1 do
-    not split; a split over ``model`` (> 1), or over only part of the
-    data-parallel axes, is not ported and raises."""
+
+class Layout(NamedTuple):
+    """How a leaf lies over the mesh: the dimension the data-parallel axes
+    split (FSDP, ``embed``) and the one ``model`` splits (tensor
+    parallelism: ``heads``, ``kv_heads``, ``ff``, ``vocab``); None where
+    the leaf is whole along that axis."""
+
+    data: Optional[int] = None
+    model: Optional[int] = None
+
+    @property
+    def split(self) -> bool:
+        return self.data is not None or self.model is not None
+
+
+WHOLE = Layout()
+
+
+class ModelAxis(NamedTuple):
+    """The ``model`` axis of the ambient mesh: its process group, this
+    rank's index along it and its size (> 1)."""
+
+    group: object
+    index: int
+    size: int
+
+
+def leaf_layout(spec: Spec, mesh) -> Layout:
+    """The :class:`Layout` of a leaf with ``spec`` on ``mesh``.
+
+    Data-parallel axes split a dimension even at size 1 (the slice is then
+    the whole leaf); a ``model`` entry splits only at more than one rank.
+    A dimension split over both, or over only part of the data-parallel
+    axes, is not ported and raises."""
     sizes = mesh_sizes(mesh)
     dp = batch_axes(mesh)
-    dim = None
+    data = model = None
     for i, entry in enumerate(spec):
         if entry is None:
             continue
@@ -39,12 +73,15 @@ def shard_dim(spec: Spec, mesh) -> Optional[int]:
         split = tuple(a for a in axes if sizes[a] > 1 or a in dp)
         if not split:
             continue
-        if split != dp:
+        if split == dp:
+            data = i
+        elif split == ("model",):
+            model = i
+        else:
             raise NotImplementedError(
-                f"spec {spec} splits over {split}: only the data-parallel axes "
-                f"{dp} are ported (the model axis is ROADMAP.md queue 1, item 11 (b))")
-        dim = i
-    return dim
+                f"spec {spec} splits dimension {i} over {split}: a dimension splits "
+                f"over the data-parallel axes {dp} or over 'model' alone ({UNPORTED})")
+    return Layout(data, model)
 
 
 class ShardCtx:
@@ -52,7 +89,8 @@ class ShardCtx:
     parameters' specs (``{path: spec}``, optional).
 
     Install with :func:`use_sharding`; the norms see it through
-    :meth:`reduce_group`, :func:`shard_act` through ``act_rules``.
+    :meth:`split` and :meth:`counts`, the layers through
+    :func:`model_parallel`, :func:`shard_act` through ``act_rules``.
     """
 
     def __init__(self, mesh, act_rules: Optional[Mapping] = None,
@@ -62,23 +100,47 @@ class ShardCtx:
             act_rules if act_rules is not None
             else default_act_rules(multi_pod="pod" in mesh_sizes(mesh)))
         self.param_specs: Dict[str, Spec] = dict(param_specs or {})
-        self._dims = {k: shard_dim(s, mesh) for k, s in self.param_specs.items()}
+        self._layouts = {k: leaf_layout(s, mesh) for k, s in self.param_specs.items()}
 
-    def shard_dim(self, path: Optional[str]) -> Optional[int]:
-        """The split dimension of parameter ``path`` (None: whole)."""
-        return None if path is None else self._dims.get(path)
+    def layout(self, path: Optional[str]) -> Layout:
+        """The layout of parameter ``path`` (whole when unknown)."""
+        return WHOLE if path is None else self._layouts.get(path, WHOLE)
 
     @property
     def dp_group(self):
-        """The process group over the data-parallel axes."""
+        """The process group over the data-parallel axes: the ranks that
+        share this rank's ``model`` coordinate."""
         return self.mesh.group(batch_axes(self.mesh))
 
-    def reduce_group(self, path: Optional[str]):
-        """The group a reduction over leaf ``path`` must be all-reduced over
-        (the data-parallel one when the leaf is split), else None."""
-        if self.shard_dim(path) is None or self.mesh.abstract:
+    @property
+    def world_group(self):
+        """The process group over every rank of the mesh."""
+        return self.mesh.group(self.mesh.axis_names)
+
+    @property
+    def model_axis(self) -> Optional[ModelAxis]:
+        """The ``model`` axis when the mesh is concrete and it has more
+        than one rank, else None."""
+        n = mesh_sizes(self.mesh).get("model", 1)
+        if n == 1 or self.mesh.abstract:
             return None
-        return self.dp_group
+        return ModelAxis(self.mesh.group(("model",)), self.mesh.coords()["model"], n)
+
+    def split(self, path: Optional[str]) -> bool:
+        """Whether a reduction over leaf ``path`` must be summed over the
+        ranks: the leaf is split along some axis of a concrete mesh."""
+        return not self.mesh.abstract and self.layout(path).split
+
+    def counts(self, path: Optional[str]) -> bool:
+        """Whether this rank's partial of leaf ``path`` counts in a sum
+        over the world: only on the ranks whose coordinate is 0 along every
+        axis the leaf is not split over, so each block is counted once (a
+        layer-norm scale, split over ``data`` alone, on model rank 0; ``bq``,
+        split over ``model`` alone, on data rank 0)."""
+        lay = self.layout(path)
+        if lay.data is None and self.mesh.index(batch_axes(self.mesh)) != 0:
+            return False
+        return lay.model is not None or self.mesh.coords().get("model", 0) == 0
 
 
 def current() -> Optional[ShardCtx]:
@@ -86,10 +148,11 @@ def current() -> Optional[ShardCtx]:
     return getattr(_state, "ctx", None)
 
 
-def reduce_group(path: Optional[str]):
-    """:meth:`ShardCtx.reduce_group` of the ambient context (None without one)."""
+def model_parallel() -> Optional[ModelAxis]:
+    """The ambient context's ``model`` axis (None without one, or at one
+    rank: every tensor-parallel operator is then the identity)."""
     ctx = current()
-    return None if ctx is None else ctx.reduce_group(path)
+    return None if ctx is None else ctx.model_axis
 
 
 @contextlib.contextmanager
@@ -108,13 +171,11 @@ def use_sharding(ctx: Optional[ShardCtx]):
 
 
 def shard_act(x, axes: Sequence[Optional[str]]):
-    """Annotate activation ``x`` with logical axis names.
-
-    The identity: with no ambient context (single-process runs), and on a
-    data-only mesh, where each rank holds its own rows whole.  A context
-    whose activation rules would split ``x`` over a ``model`` axis of more
-    than one rank raises (tensor parallelism is not ported).
-    """
+    """Annotate activation ``x`` with logical axis names: the identity, as
+    the reference's ``with_sharding_constraint`` leaves the logical array
+    whole.  With an ambient context ``axes`` must name every dimension of
+    ``x`` and resolve through the context's activation rules.  A layer that
+    splits its work over ``model`` asks :func:`model_parallel` instead."""
     ctx = current()
     if ctx is None:
         return x
@@ -122,12 +183,5 @@ def shard_act(x, axes: Sequence[Optional[str]]):
         raise ValueError(f"rank mismatch: {tuple(x.shape)} vs logical axes {axes}")
     from repro_torch.sharding.axes import resolve_spec
 
-    sizes = mesh_sizes(ctx.mesh)
-    dp = set(batch_axes(ctx.mesh))
-    for entry in resolve_spec(x.shape, axes, ctx.act_rules, ctx.mesh):
-        names = () if entry is None else ((entry,) if isinstance(entry, str) else entry)
-        if any(sizes[a] > 1 and a not in dp for a in names):
-            raise NotImplementedError(
-                "activations split over the model axis are not ported "
-                "(ROADMAP.md queue 1, item 11 (b))")
+    resolve_spec(x.shape, axes, ctx.act_rules, ctx.mesh)
     return x

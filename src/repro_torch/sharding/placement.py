@@ -22,8 +22,8 @@ import torch
 
 from repro_torch.checkpoint.io import tree_leaves_with_paths, tree_map_with_paths
 from repro_torch.sharding.axes import Spec, batch_axes, dp_size, specs_for
-from repro_torch.sharding.collectives import all_reduce, gather_leaf, shard_leaf
-from repro_torch.sharding.context import shard_dim
+from repro_torch.sharding.collectives import all_reduce, gather_block, shard_block
+from repro_torch.sharding.context import Layout, leaf_layout
 
 # Logical axes of every named model input, keyed by batch-dict field.
 BATCH_AXES: Dict[str, Tuple[Optional[str], ...]] = {
@@ -88,25 +88,25 @@ def train_state_shardings(defs, state, mesh, rules: Optional[Mapping] = None
     return out
 
 
-def leaf_dims(specs: Mapping[str, Spec], mesh) -> Dict[str, Optional[int]]:
-    """``{path: dim}``: the dimension each leaf splits over the
-    data-parallel ranks (None: whole on every rank)."""
-    return {p: shard_dim(s, mesh) for p, s in specs.items()}
+def leaf_dims(specs: Mapping[str, Spec], mesh) -> Dict[str, Layout]:
+    """``{path: layout}``: the dimensions each leaf splits over the
+    data-parallel ranks and over ``model`` (see
+    :func:`~repro_torch.sharding.context.leaf_layout`)."""
+    return {p: leaf_layout(s, mesh) for p, s in specs.items()}
 
 
-def shard_tree(tree, dims: Mapping[str, Optional[int]], mesh):
-    """A whole tree cut to this rank's slices (no traffic)."""
-    parts, index = dp_size(mesh), mesh.index(batch_axes(mesh))
+def shard_tree(tree, layouts: Mapping[str, Layout], mesh):
+    """A whole tree cut to this rank's blocks (no traffic; on an abstract
+    mesh, rank 0's)."""
     return tree_map_with_paths(
-        lambda p, x: shard_leaf(x, dims.get(p), parts, index)
+        lambda p, x: shard_block(x, layouts.get(p, Layout()), mesh)
         if isinstance(x, torch.Tensor) else x, tree)
 
 
-def gather_tree(tree, dims: Mapping[str, Optional[int]], mesh):
-    """The whole tree on every rank, gathered leaf by leaf."""
-    group = mesh.group(batch_axes(mesh))
+def gather_tree(tree, layouts: Mapping[str, Layout], mesh):
+    """The whole tree on every rank, gathered leaf by leaf over both axes."""
     return tree_map_with_paths(
-        lambda p, x: gather_leaf(x, dims.get(p), group)
+        lambda p, x: gather_block(x, layouts.get(p, Layout()), mesh)
         if isinstance(x, torch.Tensor) else x, tree)
 
 

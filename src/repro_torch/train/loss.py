@@ -10,6 +10,13 @@ Two head paths share the loss:
     positions into a fixed-size ``(B, P, D)`` buffer before the vocab
     projection, and ``kernels.fused_ce`` (K6–K8) streams vocab chunks through
     projection + online log-sum-exp, so the logits never exist.
+
+Over a ``model`` axis that splits the vocab (the ambient sharding context),
+each rank holds a V/M slice: the dense head's logits are the rank's
+columns and :func:`vocab_parallel_cross_entropy` reduces them over
+``model``; the fused head runs K6–K8 on the rank's rows of the vocab
+projection (``fused_ce(..., model=)``).  The ``model`` ranks hold the same
+rows, and every one of them the same loss and metrics.
 """
 from __future__ import annotations
 
@@ -19,7 +26,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.fused_ce import fused_ce
+from repro_torch.models.layers.tensor_parallel import split_axis
 from repro_torch.models.transformer import mtp_logits
+from repro_torch.sharding.collectives import all_reduce, reduce_from_model
+from repro_torch.sharding.context import ModelAxis, model_parallel
 
 IGNORE = -1  # label value for unsupervised positions
 
@@ -39,6 +49,41 @@ def cross_entropy(
     denom = torch.clamp(mask.sum(), min=1.0)
     loss = -(ll * mask).sum() / denom
     acc = ((torch.argmax(logits, -1) == safe).to(torch.float32) * mask).sum() / denom
+    return loss, acc
+
+
+def vocab_parallel_cross_entropy(
+    logits: torch.Tensor, labels: torch.Tensor, tp: ModelAxis
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`cross_entropy` of the whole vocabulary from this rank's
+    (..., V/M) slice of the logits, columns ``[v0, v0 + V/M)``.
+
+    In fp32: the row max all-reduced with MAX (a constant shift, so it
+    takes no gradient), the sum of exponentials and the label logit (from
+    the rank that holds it, zero elsewhere) summed over ``model``, whose
+    gradient reaches each rank's slice unchanged; log p = logit − max −
+    log Σ.  The accuracy's argmax is taken on the logits' own dtype: the
+    lowest global index among the ranks whose max is the global one, as
+    ``jnp.argmax`` picks the first."""
+    mask = (labels >= 0).to(torch.float32)
+    safe = torch.clamp(labels, min=0).long()
+    v = logits.shape[-1]
+    v0 = tp.index * v
+    x = logits.to(torch.float32)
+    top = all_reduce(x.detach().amax(-1), "max", tp.group)
+    total = reduce_from_model(torch.exp(x - top[..., None]).sum(-1), tp.group)
+    local = safe - v0
+    mine = (local >= 0) & (local < v)
+    picked = torch.gather(x, -1, torch.where(mine, local, 0)[..., None])[..., 0]
+    ll = reduce_from_model(torch.where(mine, picked, 0.0), tp.group) - top - torch.log(total)
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = -(ll * mask).sum() / denom
+    best, arg = logits.detach().max(-1)
+    best = best.to(torch.float32)
+    peak = all_reduce(best.clone(), "max", tp.group)
+    idx = all_reduce(torch.where(best == peak, arg + v0, torch.iinfo(torch.int64).max),
+                     "min", tp.group)
+    acc = ((idx == safe).to(torch.float32) * mask).sum() / denom
     return loss, acc
 
 
@@ -82,8 +127,10 @@ def fused_cross_entropy(
     w: torch.Tensor,       # (V, D) vocab projection (embedding layout)
     *,
     max_positions: int,
+    model: Optional[ModelAxis] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fused-head (loss, accuracy): gather → chunked-vocab CE, no logits.
+    """Fused-head (loss, accuracy): gather → chunked-vocab CE, no logits;
+    ``model``: ``w`` is this rank's vocab slice over that axis.
 
     Semantics match :func:`cross_entropy` on the same labels (token mean
     over ``labels >= 0``; zero supervision gives loss 0, accuracy 0 and zero
@@ -104,14 +151,16 @@ def fused_cross_entropy(
                 f"ModelConfig.mlm_max_predictions (or cap masking in the "
                 f"data pipeline) — refusing to silently truncate"
             )
-    return _gathered_cross_entropy(hidden, labels, w, p)
+    return _gathered_cross_entropy(hidden, labels, w, p, model)
 
 
-def _gathered_cross_entropy(hidden, labels, w, p: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def _gathered_cross_entropy(hidden, labels, w, p: int, model: Optional[ModelAxis] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`fused_cross_entropy` after its eager check: NaN on overflow."""
     b, _, d = hidden.shape
     hidden_sel, labels_sel, valid, count = gather_supervised(hidden, labels, p)
-    nll, correct = fused_ce(hidden_sel.reshape(b * p, d), w, labels_sel.reshape(b * p))
+    nll, correct = fused_ce(hidden_sel.reshape(b * p, d), w, labels_sel.reshape(b * p),
+                            model=model)
     wrow = valid.reshape(b * p).to(torch.float32)
     denom = torch.clamp(wrow.sum(), min=1.0)
     loss = (nll * wrow).sum() / denom
@@ -160,14 +209,19 @@ def _masked_ce(
     cfg: ModelConfig,
     params,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dense or fused CE over ``labels >= 0``: one switch for the loss."""
+    """Dense or fused CE over ``labels >= 0``: one switch for the loss,
+    vocab-parallel where the ambient ``model`` axis splits the vocab."""
     if hidden is None:
+        tp = split_axis(logits.shape[-1], cfg.vocab_size, model_parallel())
+        if tp is not None:
+            return vocab_parallel_cross_entropy(logits, labels, tp)
         return cross_entropy(logits, labels)
     if params is None:
         raise ValueError("the fused CE head needs params (vocab projection)")
+    w = head_weights(params, cfg)
     return fused_cross_entropy(
-        hidden, labels, head_weights(params, cfg),
-        max_positions=mlm_buffer_size(cfg, labels.shape[-1]),
+        hidden, labels, w, max_positions=mlm_buffer_size(cfg, labels.shape[-1]),
+        model=split_axis(w.shape[0], cfg.vocab_size, model_parallel()),
     )
 
 

@@ -25,8 +25,8 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.kernels import fused_lamb, fused_lamb_init, make_fused_lamb_step
 from repro_torch.models.api import Model
 from repro_torch.optim.base import global_norm
-from repro_torch.sharding import ShardCtx, batch_axes, dp_size, specs_for, use_sharding
-from repro_torch.sharding.collectives import all_reduce, gather_leaf, scatter_grad, shard_leaf
+from repro_torch.sharding import ShardCtx, specs_for, use_sharding
+from repro_torch.sharding.collectives import all_reduce, gather_leaf, scatter_grad, shard_block
 from repro_torch.telemetry.trust import PER_LAYER_KEY
 from repro_torch.train.faults import apply_grad_faults, apply_loss_faults, split_faults
 from repro_torch.train.loss import check_fused_ce_supported, loss_for
@@ -260,14 +260,21 @@ def _sharded_grads(
 ) -> Tuple[nn.Params, Metrics]:
     """:func:`_microbatch_grads` over the data-parallel ranks, FSDP-style.
 
-    ``shards`` are this rank's slices of the fp32 masters and ``batch`` its
-    rows.  The compute copy is cast on the slice and then gathered whole;
-    the rank's ``Σ_i w_i g_i`` is reduce-scattered back to its slice (a leaf
-    that is not split: all-reduced) and divided by the global token weight,
-    all-reduced from the ranks' ``tokens/supervised``.  Metrics get the same
-    weighting in one all-reduce; ``tokens/supervised`` is the global sum.
-    The ranks × micro-batches are one token-weighted accumulation, so the
-    result is the global batch's token-mean gradient.
+    ``shards`` are this rank's blocks of the fp32 masters and ``batch`` its
+    rows; ``dims`` gives each leaf's data-parallel dimension and ``group``
+    is the data-parallel group of this rank's ``model`` coordinate.  The
+    compute copy is cast on the block and then gathered along ``dims`` over
+    ``group`` only: a leaf split over ``model`` stays this rank's heads, ff
+    columns or vocab rows, which the model's tensor-parallel layers compute
+    on.  The rank's ``Σ_i w_i g_i`` is reduce-scattered back to its block
+    over the same group (a leaf not split over it: all-reduced) and divided
+    by the global token weight, all-reduced from the ranks'
+    ``tokens/supervised``.  Metrics get the same weighting in one
+    all-reduce; ``tokens/supervised`` is the global sum.  The ``model``
+    ranks of one data coordinate hold the same rows and the same loss, so
+    the sums over ``group`` are the global batch's.  The ranks ×
+    micro-batches are one token-weighted accumulation, so the result is the
+    global batch's token-mean gradient.
     """
     with torch.no_grad():
         full = {k: gather_leaf(v if compute_dtype is None or not v.is_floating_point()
@@ -321,13 +328,15 @@ def make_train_step(model: Model, tc: TrainConfig, schedule=None, *,
     left on the device.
 
     With a concrete ``mesh`` (:func:`~repro_torch.launch.mesh.init_distributed`)
-    the step is FSDP over its data-parallel ranks: ``init_fn`` keeps this
-    rank's slice of every leaf the param specs split (and the moments
-    mirror them), ``step_fn`` takes the rank's rows of the global batch
-    (:func:`_sharded_grads`), the guard's verdict is all-reduced with MIN so
-    every rank skips together, and the optimizer runs on the slices under
-    the ambient :class:`~repro_torch.sharding.ShardCtx`, which keeps every
-    norm and trust ratio the whole leaf's.  Metrics are global.
+    the step is FSDP over its data-parallel ranks and tensor-parallel over
+    its ``model`` ranks: ``init_fn`` keeps this rank's block of every leaf
+    the param specs split (and the moments mirror them), ``step_fn`` takes
+    the rank's rows of the global batch (:func:`_sharded_grads`; the
+    model's layers split heads, ff and vocab over ``model``), the guard's
+    verdict is all-reduced over the world with MIN so every rank skips
+    together, and the optimizer runs on the blocks under the ambient
+    :class:`~repro_torch.sharding.ShardCtx`, which keeps every norm and
+    trust ratio the whole leaf's.  Metrics are global.
     """
     loss_fn = make_loss_fn(model)
     n_micro = tc.grad_accum_steps
@@ -338,15 +347,14 @@ def make_train_step(model: Model, tc: TrainConfig, schedule=None, *,
     ctx = None
     if mesh is not None:
         ctx = ShardCtx(mesh, param_specs=specs_for(model.defs, mesh))
-        dims = {k: ctx.shard_dim(k) for k in ctx.param_specs}
+        dims = {k: ctx.layout(k).data for k in ctx.param_specs}
         group = ctx.dp_group
-        parts, index = dp_size(mesh), mesh.index(batch_axes(mesh))
 
     def draw(seed: int, device: torch.device) -> nn.Params:
         if ctx is None:
             return model.init(seed, device)
         return model.init(seed, device,
-                          keep=lambda path, x: shard_leaf(x, dims[path], parts, index))
+                          keep=lambda path, x: shard_block(x, ctx.layout(path), mesh))
 
     def grads_and_metrics(params, batch):
         batch, faults = split_faults(batch)
@@ -367,7 +375,7 @@ def make_train_step(model: Model, tc: TrainConfig, schedule=None, *,
         # the verdict before the update (the fused path clips in place)
         ok = tree_all_finite(grads, metrics.get(LOSS_KEY)) if guard else None
         if ok is not None and ctx is not None:   # every rank skips together
-            ok = all_reduce(ok.to(torch.int32), "min", group) != 0
+            ok = all_reduce(ok.to(torch.int32), "min", ctx.world_group) != 0
         return grads, metrics, ok
 
     def sharded(step_fn):

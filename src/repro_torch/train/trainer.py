@@ -27,13 +27,15 @@ default null log the step loop adds no launch, sync or transfer.
 
 ``mesh=`` (a concrete mesh from
 :func:`~repro_torch.launch.mesh.init_distributed`) makes the run FSDP over
-the mesh's data-parallel ranks, as the reference's ``Trainer(mesh=)``:
-``init`` draws every leaf from the seed as a single process does and keeps
-this rank's slice, ``fit`` takes this rank's rows of each global batch (as
-``DataPipeline(mesh=)`` yields them; :meth:`Trainer._place_batch` cuts a
-global batch), the history, step log and telemetry hold global values, and
-only rank 0 logs and writes.  A checkpoint gathers each leaf and rank 0
-writes the single-process format, so a run restores on any mesh shape.
+the mesh's data-parallel ranks and tensor-parallel over its ``model``
+ranks, as the reference's ``Trainer(mesh=)``: ``init`` draws every leaf
+from the seed as a single process does and keeps this rank's block, ``fit``
+takes this rank's rows of each global batch (as ``DataPipeline(mesh=)``
+yields them, the same rows to the ``model`` ranks of one data coordinate;
+:meth:`Trainer._place_batch` cuts a global batch), the history, step log
+and telemetry hold global values, and only rank 0 logs and writes.  A
+checkpoint gathers each leaf over both axes and rank 0 writes the
+single-process format, so a run restores on any mesh shape.
 """
 from __future__ import annotations
 
@@ -56,10 +58,10 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.core.mixed_batch import Stage
 from repro_torch.data.pipeline import DataPipeline
 from repro_torch.kernels.ops import FusedLambState
-from repro_torch.models.api import Model
+from repro_torch.models.api import Model, check_model_axis
 from repro_torch.optim.base import ScheduleState
 from repro_torch.sharding import (
-    batch_axes,
+    Layout,
     batch_rows,
     dp_size,
     gather_tree,
@@ -67,7 +69,8 @@ from repro_torch.sharding import (
     shard_tree,
     train_state_shardings,
 )
-from repro_torch.sharding.collectives import gather_leaf, shard_leaf
+from repro_torch.sharding.collectives import gather_block, shard_block
+from repro_torch.sharding.context import UNPORTED
 from repro_torch.telemetry import EventLog, SpanRecorder, TrustRecorder, run_provenance
 from repro_torch.telemetry.trust import PER_LAYER_KEY
 from repro_torch.train.preempt import PreemptionHandler
@@ -89,20 +92,23 @@ def _batch_examples(batch) -> int:
 def check_mesh_supported(cfg, mesh, *, supervisor: bool = False,
                          preempt: bool = False) -> None:
     """Raise ``NotImplementedError`` naming its ROADMAP.md item for what a
-    data-parallel mesh does not run yet: a ``model`` axis of more than one
-    rank, an MoE model over more than one data-parallel rank (the
+    mesh does not run yet.  Item 11 (b2): over a ``model`` axis of more than
+    one rank, an MoE model (expert parallelism), the xLSTM/Mamba ``inner``
+    axis, MLA, and attention whose heads split while its kv heads stay
+    whole; an MoE model over more than one data-parallel rank (the
     reference's expert capacity and load-balance loss count the global
-    tokens, which a rank-local route cannot reproduce), and the loss-spike
-    rollback or preemption over more than one."""
-    model_axes = {a: n for a, n in mesh.shape.items() if a not in ("pod", "data")}
-    if any(n > 1 for n in model_axes.values()):
-        raise NotImplementedError(
-            f"mesh axes {model_axes}: tensor and expert parallelism over a model "
-            "axis are not ported (ROADMAP.md queue 1, item 11 (b))")
+    tokens, which a rank-local route cannot reproduce).  Item 11 (c): the
+    loss-spike rollback or preemption over more than one data-parallel
+    rank."""
+    other = {a: n for a, n in mesh.shape.items() if a not in ("pod", "data", "model")}
+    if any(n > 1 for n in other.values()):
+        raise NotImplementedError(f"mesh axes {other}: only 'pod', 'data' and 'model' "
+                                  f"are ported ({UNPORTED})")
+    check_model_axis(cfg, mesh.shape.get("model", 1))
     if dp_size(mesh) > 1 and cfg.n_experts:
         raise NotImplementedError(
             f"{cfg.name} routes to experts: an MoE model over data-parallel ranks is "
-            "not ported (ROADMAP.md queue 1, item 11 (b))")
+            f"not ported ({UNPORTED})")
     if dp_size(mesh) > 1 and (supervisor or preempt):
         raise NotImplementedError(
             "rollback on a loss spike and preemption over data-parallel ranks are "
@@ -155,7 +161,7 @@ class Trainer:
             self._dp = dp_size(mesh)
             if mesh.rank != 0:   # only rank 0 logs and writes
                 log_fn, telemetry = (lambda s: None), None
-        self._state_dims: Optional[Dict[str, Optional[int]]] = None
+        self._state_dims: Optional[Dict[str, Layout]] = None
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = checkpoint_every
         self.async_checkpoint = async_checkpoint
@@ -210,9 +216,9 @@ class Trainer:
         return {k: torch.as_tensor(v[start:start + rows]).to(self.device)
                 for k, v in batch.items()}
 
-    def state_dims(self) -> Dict[str, Optional[int]]:
-        """``{path: dim}`` over the state's leaves: the dimension a leaf is
-        split along over the data-parallel ranks (None: whole)."""
+    def state_dims(self) -> Dict[str, Layout]:
+        """``{path: layout}`` over the state's leaves: the dimensions a leaf
+        is split along over the data-parallel ranks and over ``model``."""
         if self._state_dims is None:
             target = self.state if self.state is not None else self.init()
             self._state_dims = leaf_dims(
@@ -303,10 +309,9 @@ class Trainer:
         tree = self.state
         if self.mesh is not None:
             # every rank gathers each leaf in turn; rank 0 keeps a host copy
-            dims, group = self.state_dims(), self.mesh.group(batch_axes(self.mesh))
-            host = {}
+            dims, host = self.state_dims(), {}
             for path, x in tree_leaves_with_paths(self.state):
-                whole = gather_leaf(x, dims.get(path), group)
+                whole = gather_block(x, dims.get(path, Layout()), self.mesh)
                 if self.is_writer:
                     host[path] = whole.cpu()
             if not self.is_writer:
@@ -338,9 +343,9 @@ class Trainer:
             return None
         target = self.state if self.state is not None else self.init()
         shard = None
-        if self.mesh is not None:   # each rank reads every leaf and keeps its slice
-            dims, index = self.state_dims(), self.mesh.index(batch_axes(self.mesh))
-            shard = lambda p, x: shard_leaf(x, dims.get(p), self._dp, index)  # noqa: E731
+        if self.mesh is not None:   # each rank reads every leaf and keeps its block
+            dims, mesh = self.state_dims(), self.mesh
+            shard = lambda p, x: shard_block(x, dims.get(p, Layout()), mesh)  # noqa: E731
         self.state = restore_checkpoint(path, target, shard=shard)
         step = checkpoint_step(path)
         self.telemetry.emit("resume", step=step, path=path)

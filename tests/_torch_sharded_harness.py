@@ -1,11 +1,13 @@
-"""Data-parallel FSDP training of the port over gloo (run as a subprocess).
+"""FSDP and tensor-parallel training of the port over gloo (run as a
+subprocess).
 
     PYTHONPATH=src python tests/_torch_sharded_harness.py --world 4 --out DIR \
-        [--init DIR] [--restore DIR] [scenario ...]
+        [--mesh data=2,model=2] [--init DIR] [--restore DIR] [scenario ...]
 
 Starts ``--world`` processes of this file, ranks of one gloo group on
-``localhost``, each on one CPU thread; each builds the mesh
-``data=<world>,model=1`` with ``init_distributed`` and runs the scenarios.
+``localhost``, each on one CPU thread; each builds the mesh ``--mesh``
+(default ``data=<world>,model=1``) with ``init_distributed`` and runs the
+scenarios.
 Rank 0 also runs each scenario's single-process reference (the port's
 Trainer without a mesh) and writes ``DIR/report.json``, plus the sharded
 runs' final parameters as ``DIR/<scenario>_<variant>.npz`` for the test to
@@ -27,8 +29,23 @@ package's there; without it the port's seed init).  Scenarios:
                params and moments bit-equal to a clean run that omits it
   checkpoint   without ``--restore``: save at step 2 on this mesh and run on
                to step 3 (written under ``DIR/ckpt``); with ``--restore
-               DIR``: restore that save on this mesh and in one process,
-               bit-equal, and take step 3 on each
+               DIR``: restore that save on this mesh (``--restore-mesh``:
+               on that one instead) and in one process, bit-equal, and
+               take step 3 on each
+
+Tensor parallelism (a ``model`` axis of more than one rank):
+
+  tp_collectives  copy_to_model / reduce_from_model (forward and backward)
+               and the two-axis block gather against their plain versions
+  tp_equiv     the dense runs over the mesh ≡ single process: equiv fused
+               and accum2+bf16, LANS fp32, bert-smoke's MLM with the fused
+               CE head and the dense head; each also with fp32 activations
+               (``*_f32``), where only the order of fp32 sums differs
+  tp_planted   ``equiv_fused_f32`` with the norms' all-reduce cut to the
+               data-parallel group (the model axis dropped), and two bf16
+               runs with the column products' input-gradient sum dropped: the trust
+               ratios, and the first step's grad norm, must move past the
+               bound
 """
 from __future__ import annotations
 
@@ -51,8 +68,8 @@ from repro_torch.core import make_stage
 from repro_torch.data import DataPipeline
 from repro_torch.launch.mesh import init_distributed, shutdown_distributed
 from repro_torch.models import build_model
+from repro_torch.sharding import ShardCtx, dp_size, leaf_dims, per_device_state_bytes, specs_for
 from repro_torch.sharding import collectives as C
-from repro_torch.sharding import per_device_state_bytes
 from repro_torch.telemetry import EventLog
 from repro_torch.train import FaultInjector, FaultSpec, Trainer, TrainState
 from repro_torch.train.step import make_train_step
@@ -87,6 +104,18 @@ def variants():
     }
 
 
+def tp_variants():
+    """``{variant: (config, TrainConfig)}`` of the tensor-parallel runs: the
+    JAX suite's TP runs, and each again with fp32 activations (``_f32``)."""
+    v = variants()
+    runs = {"equiv_fused": v["equiv"]["fused"], "equiv_accum2_bf16": v["equiv"]["accum2_bf16"],
+            "lans_fp32": v["lans"]["fp32"], "mlm_fused_ce": v["mlm_flash"]["fused_ce"],
+            "mlm_dense_head": v["mlm_flash"]["dense_head"]}
+    runs.update({f"{k}_f32": (cfg.replace(activation_dtype="float32"), tc)
+                 for k, (cfg, tc) in list(runs.items())})
+    return runs
+
+
 CKPT_TC = TrainConfig(optimizer="lamb", learning_rate=1e-3, use_fused_lamb=True)
 
 
@@ -94,6 +123,8 @@ class Ctx:
     def __init__(self, mesh, out: str, init: str):
         self.mesh, self.out, self.init = mesh, out, init
         self.rank0 = mesh.rank == 0
+        self.dp = dp_size(mesh)
+        self.world = mesh.group(mesh.axis_names)
 
 
 def _quiet(model, tc, mesh=None, **kw):
@@ -159,11 +190,20 @@ def _records(tr) -> list:
 def _diffs(tr, whole, ref) -> dict:
     """The run against a reference: params, losses, each step's global
     norms and trust-ratio summary (``NORM_KEYS``), and every layer's
-    applied trust ratio and norms, the last two as relative differences."""
+    applied trust ratio and norms, the last two as relative differences;
+    ``step1``: the first step's loss, grad norm and per-layer records alone,
+    before LAMB's later steps magnify a rounding."""
     rows = list(zip(tr.history, ref.history))
     mine, theirs = _records(tr), _records(ref)
     assert [r[:4] for r in mine] == [r[:4] for r in theirs] and mine, (len(mine), len(theirs))
-    return {"param_maxdiff": maxdiff(whole.params, ref.state.params),
+    worst = max(whole.params, key=lambda k: maxdiff({k: whole.params[k]}, {k: ref.state.params[k]}))
+    first = mine[0][0]
+    return {"step1": {"loss": abs(rows[0][0]["loss/total"] - rows[0][1]["loss/total"]),
+                      "grad_norm": _rel(rows[0][0]["grad_norm"], rows[0][1]["grad_norm"]),
+                      "records": max(_rel(a[4], b[4]) for a, b in zip(mine, theirs)
+                                     if a[0] == first)},
+            "param_maxdiff": maxdiff(whole.params, ref.state.params),
+            "param_worst": worst,
             "loss_diff": max(abs(a - b) for a, b in zip(_losses(tr), _losses(ref))),
             "norm_reldiff": {k: max(_rel(a[k], b[k]) for a, b in rows) for k in NORM_KEYS},
             "record_reldiff": max(_rel(a[4], b[4]) for a, b in zip(mine, theirs)),
@@ -180,7 +220,9 @@ def _equiv(c: Ctx, scenario: str, variant: str, cfg, tc) -> dict:
     ``same_config`` takes the run's own ``accum_steps``, whose micro-batches
     span the ranks' rows and round their bf16 gradients over other sums.
     Both record the global norms, the trust-ratio summary and the per-layer
-    records (rank 0 alone writes the sharded run's)."""
+    records (rank 0 alone writes the sharded run's).  The ``model`` ranks of
+    one data coordinate take the same rows, so the micro-batches are the
+    data-parallel ranks'; with one such rank the two references are one."""
     # every step's norms and every layer's applied trust ratio are compared
     tc = dataclasses.replace(tc, log_trust_ratios=True, record_trust_ratios=True)
     model = build_model(cfg)
@@ -188,9 +230,9 @@ def _equiv(c: Ctx, scenario: str, variant: str, cfg, tc) -> dict:
     refs = {}
     if c.rank0:
         refs["same_blocks"] = _single(
-            model, dataclasses.replace(tc, accum_steps=tc.accum_steps * c.mesh.size),
-            state, cfg)
-        refs["same_config"] = _single(model, tc, state, cfg)
+            model, dataclasses.replace(tc, accum_steps=tc.accum_steps * c.dp), state, cfg)
+        refs["same_config"] = (refs["same_blocks"] if c.dp == 1
+                               else _single(model, tc, state, cfg))
     tr = _quiet(model, tc, c.mesh, telemetry=EventLog.memory())
     tr.place_state(state)
     tr.fit(DataPipeline(cfg, BATCH, SEQ, device="cpu", seed=0, mesh=c.mesh), STEPS)
@@ -336,8 +378,7 @@ def scenario_nan_skip(c: Ctx, steps: int = 6, poison_at: int = 2) -> dict:
     clean = _quiet(model, tc, c.mesh)
     clean.fit(_drop_ordinal(DataPipeline(TINY, BATCH, SEQ, device="cpu", seed=0,
                                          mesh=c.mesh), poison_at), steps - 1)
-    group = c.mesh.group(("data",))
-    skipped = [C.all_reduce(tr.state.skipped.clone(), op, group) for op in ("min", "max")]
+    skipped = [C.all_reduce(tr.state.skipped.clone(), op, c.world) for op in ("min", "max")]
     a, b = tr.gather_state(), clean.gather_state()
     if not c.rank0:
         return {}
@@ -360,8 +401,8 @@ def _ckpt_run(mesh, ckpt: str, *, accum: int = 1, **kw) -> Trainer:
     return tr
 
 
-def scenario_checkpoint(c: Ctx, restore: str = "") -> dict:
-    if not restore:   # the uninterrupted run at data=4, saving at step 2
+def scenario_checkpoint(c: Ctx, restore: str = "", restore_mesh: str = "") -> dict:
+    if not restore:   # the uninterrupted run on this mesh, saving at step 2
         ckpt = os.path.join(c.out, "ckpt")
         tr = _ckpt_run(c.mesh, ckpt)
         whole = tr.gather_state()
@@ -369,7 +410,12 @@ def scenario_checkpoint(c: Ctx, restore: str = "") -> dict:
             return {}
         np.savez(os.path.join(c.out, "checkpoint_step3.npz"),
                  **{k: v.numpy() for k, v in whole.params.items()})
-        return {"saved": latest_checkpoint(ckpt), "losses": _losses(tr)}
+        with open(os.path.join(c.out, "checkpoint_dp.json"), "w") as f:
+            json.dump({"dp": c.dp, "mesh": c.mesh.shape}, f)
+        return {"saved": latest_checkpoint(ckpt), "losses": _losses(tr),
+                "mesh": c.mesh.shape}
+    if restore_mesh:   # the same ranks as another mesh
+        c = Ctx(init_distributed("cpu", restore_mesh)[0], c.out, c.init)
     ckpt = os.path.join(restore, "ckpt")
     path = latest_checkpoint(ckpt)
     model = build_model(TINY)
@@ -379,10 +425,12 @@ def scenario_checkpoint(c: Ctx, restore: str = "") -> dict:
     tr = _quiet(model, CKPT_TC, c.mesh)
     tr.restore(path)
     restored = tr.gather_state()
-    # the resumed runs take the saving run's micro-batches (its 4 ranks'
-    # rows), so only the order of the fp32 batch reductions differs
-    saved_world = 4
-    resumed = _ckpt_run(c.mesh, ckpt, accum=saved_world // c.mesh.size, resume=True)
+    # the resumed runs take the saving run's micro-batches (its
+    # data-parallel ranks' rows), so only the order of the fp32 batch
+    # reductions differs
+    with open(os.path.join(restore, "checkpoint_dp.json")) as f:
+        saved_world = json.load(f)["dp"]
+    resumed = _ckpt_run(c.mesh, ckpt, accum=saved_world // c.dp, resume=True)
     after = resumed.gather_state()
     if not c.rank0:
         return {}
@@ -405,7 +453,77 @@ def scenario_checkpoint(c: Ctx, restore: str = "") -> dict:
         "mesh_losses": _losses(resumed),
         "single_losses": _losses(one_resumed),
         "final_steps": [int(resumed.state.step), int(one_resumed.state.step)],
+        "mesh": c.mesh.shape,
     }
+
+
+def scenario_tp_collectives(c: Ctx) -> dict:
+    """The ``model`` axis's operators on real ranks against their plain
+    versions over every rank's operands (all ranks draw them from one
+    seed): copy_to_model and reduce_from_model forward and backward in fp32
+    and bf16, and a block of a leaf split over both axes gathered whole."""
+    mesh = c.mesh
+    m, r = mesh.shape["model"], mesh.coords()["model"]
+    group = mesh.group(("model",))
+    gen = torch.Generator().manual_seed(0)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(3, 8, generator=gen).to(dtype)
+        scales = [torch.randn(3, 8, generator=gen).to(dtype) for _ in range(m)]
+        mine = x.clone().requires_grad_()
+        (C.copy_to_model(mine, group) * scales[r]).sum().backward()
+        plain = x.clone().requires_grad_()
+        sum((y * s).sum() for y, s in zip(C.copy_to_model_plain(plain, m), scales)).backward()
+        out[f"copy_fwd_{dtype}"] = bool(torch.equal(C.copy_to_model(x, group), x))
+        out[f"copy_bwd_{dtype}"] = float((mine.grad.float() - plain.grad.float()).abs().max())
+        parts = [torch.randn(3, 8, generator=gen).to(dtype) for _ in range(m)]
+        dy = torch.randn(3, 8, generator=gen).to(dtype)
+        mine = parts[r].clone().requires_grad_()
+        got = C.reduce_from_model(mine, group)
+        got.backward(dy)
+        plain = [p.clone().requires_grad_() for p in parts]
+        want = C.reduce_from_model_plain(plain)
+        want.backward(dy)
+        out[f"reduce_fwd_{dtype}"] = float((got - want).detach().float().abs().max())
+        out[f"reduce_bwd_{dtype}"] = bool(torch.equal(mine.grad, plain[r].grad))
+    model = build_model(TINY)
+    layouts = leaf_dims(specs_for(model.defs, mesh), mesh)
+    whole = model.init(0, torch.device("cpu"))
+    out["gather_block"] = all(
+        torch.equal(C.gather_block(C.shard_block(v, layouts[k], mesh), layouts[k], mesh), v)
+        for k, v in whole.items())
+    out["split_both"] = sum(lay.data is not None and lay.model is not None
+                            for lay in layouts.values())
+    return out if c.rank0 else {}
+
+
+def scenario_tp_equiv(c: Ctx) -> dict:
+    return {v: _equiv(c, "tp", v, cfg, tc) for v, (cfg, tc) in tp_variants().items()}
+
+
+def scenario_tp_planted(c: Ctx) -> dict:
+    """Two dropped model-axis reductions.  ``norms``: ``equiv_fused_f32``
+    with every norm's all-reduce over the data-parallel group alone, so the
+    model ranks' partials never meet.  ``copy``: the bf16 runs
+    ``equiv_fused`` and ``mlm_dense_head`` with the column-parallel
+    products' input-gradient sum dropped, so each rank keeps its partial."""
+    from unittest import mock
+
+    from repro_torch.models.layers import tensor_parallel as tp
+
+    runs = tp_variants()
+    with mock.patch.object(ShardCtx, "world_group", ShardCtx.dp_group):
+        out = {"norms": _equiv(c, "tp_planted", "equiv_fused_f32", *runs["equiv_fused_f32"])}
+    column = tp._Column.backward
+
+    def partial_only(ctx, g):
+        with mock.patch.object(tp, "all_reduce", lambda x, op, group: x):
+            return column(ctx, g)
+
+    with mock.patch.object(tp._Column, "backward", staticmethod(partial_only)):
+        out["copy"] = {v: _equiv(c, "tp_planted", v, *runs[v])
+                       for v in ("equiv_fused", "mlm_dense_head")}
+    return out
 
 
 SCENARIOS = {
@@ -418,17 +536,21 @@ SCENARIOS = {
     "guards": scenario_guards,
     "nan_skip": scenario_nan_skip,
     "checkpoint": scenario_checkpoint,
+    "tp_collectives": scenario_tp_collectives,
+    "tp_equiv": scenario_tp_equiv,
+    "tp_planted": scenario_tp_planted,
 }
 
 
 def rank_main(args) -> None:
     torch.set_num_threads(1)
-    mesh, _ = init_distributed("cpu", f"data={args.world},model=1")
+    mesh, _ = init_distributed("cpu", args.mesh or f"data={args.world},model=1")
     c = Ctx(mesh, args.out, args.init)
-    report = {"world": mesh.size}
+    report = {"world": mesh.size, "mesh": mesh.shape}
     try:
-        for name in args.scenarios or list(SCENARIOS):
-            kw = {"restore": args.restore} if name == "checkpoint" else {}
+        for name in args.scenarios or [s for s in SCENARIOS if not s.startswith("tp_")]:
+            kw = ({"restore": args.restore, "restore_mesh": args.restore_mesh}
+                  if name == "checkpoint" else {})
             report[name] = SCENARIOS[name](c, **kw)
         if c.rank0:
             with open(os.path.join(args.out, "report.json"), "w") as f:
@@ -449,6 +571,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", required=True)
     ap.add_argument("--init", default="")
     ap.add_argument("--restore", default="")
+    ap.add_argument("--mesh", default="")
+    ap.add_argument("--restore-mesh", default="")
     ap.add_argument("--rank", type=int, default=None)
     ap.add_argument("scenarios", nargs="*")
     args = ap.parse_args(argv)

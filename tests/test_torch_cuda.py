@@ -429,6 +429,26 @@ def test_fused_ce_kernels_match_plain_on_card(cuda, n, d, v, dtype):
     torch.testing.assert_close(lse, lse_r, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_ce_vocab_slice_matches_plain_on_card(cuda, dtype):
+    """K6 on a vocab slice from row v0 with its statistics, and K7/K8 with
+    labels shifted by v0 (outside the slice: no hit), against the plain
+    version on the same slice."""
+    from repro_torch.kernels.fused_ce import fused_ce_dh, fused_ce_dw, fused_ce_fwd
+
+    h, w, lbl, g = _ce_inputs(200, 256, 3000, dtype, cuda, seed=2)
+    v0, ws = 1000, w[1000:2000]
+    got, want = (fused_ce_fwd(h, ws, lbl, v0=v0, stats=True, plain=p) for p in (False, True))
+    for a, b in zip(got[2:5], want[2:5]):   # lse, label logit, row max
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got[5], want[5]) and torch.equal(got[1], want[1])
+    mine = (lbl >= v0) & (lbl < v0 + 1000)
+    assert bool((got[3][~mine] == -1e30).all()) and bool(mine.any())
+    local = (lbl - v0).contiguous()
+    for fn in (fused_ce_dh, fused_ce_dw):
+        _ce_close(fn(h, ws, local, want[2], g), fn(h, ws, local, want[2], g, plain=True), dtype)
+
+
 def test_fused_ce_kernels_are_deterministic(cuda):
     from repro_torch.kernels.fused_ce import fused_ce
 

@@ -284,8 +284,8 @@ class _RecordingLib:
         self.designs[f"plan {pass_}"] = design
         return 1
 
-    def fused_ce_fwd(self, *args):
-        self.designs["fused_ce_fwd"] = args[11]
+    def fused_ce_fwd(self, *args):   # 11 pointers (the last three optional), sh, sw, dtype
+        self.designs["fused_ce_fwd"] = args[14]
         return 0
 
     def fused_ce_dh(self, *args):

@@ -86,13 +86,13 @@ def _jax_cfg(cfg):
     return cfg
 
 
-def _jax_trainers(init_dir):
-    """The JAX package's single-device Trainer for each run, initialised:
-    each config's initial parameters are written to
+def _jax_trainers(init_dir, runs=RUNS):
+    """The JAX package's single-device Trainer for each of ``runs``,
+    initialised: each config's initial parameters are written to
     ``init_dir/<config name>.npz``, where the harness starts every port run
     from, and every run of that config starts from them too."""
     trainers, first = {}, {}
-    for key, (cfg, kw) in RUNS.items():
+    for key, (cfg, kw) in runs.items():
         cfg = _jax_cfg(cfg)
         tr = JaxTrainer(jax_build_model(cfg), JaxTrainConfig(**kw), log_every=1,
                         log_fn=lambda s: None)
@@ -280,18 +280,25 @@ def _losses(out: str):
             if line.startswith("step ")]
 
 
-def test_launcher_under_torchrun_matches_single_process(tmp_path):
-    """``--mesh data=2,model=1`` under ``torch.distributed.run`` trains
-    bert-smoke through fused LAMB, flash and the fused CE head; its printed
-    losses equal a single process's on the same micro-batches (rank 0
-    alone prints)."""
+@pytest.mark.parametrize("mesh", ["data=2,model=1", "data=1,model=2"])
+def test_launcher_under_torchrun_matches_single_process(tmp_path, mesh):
+    """``--mesh`` under ``torch.distributed.run`` trains bert-smoke through
+    fused LAMB, flash and the fused CE head; its printed losses equal a
+    single process's on the same micro-batches (rank 0 alone prints).
+    Over ``model=2`` the heads, ff and vocab split: the first step's loss
+    within a printed unit, the later ones within the JAX suite's sharded
+    bound, as bert-smoke's bf16 activations round the products whose
+    contraction the ranks split in other places
+    (tests/test_torch_tensor_parallel_train.py)."""
+    sizes = dict(item.split("=") for item in mesh.split(","))
+    dp = int(sizes["data"])
     common = ["-m", "repro_torch.launch.train", "--arch", "bert-large", "--smoke",
               "--fused-lamb", "--steps", "3", "--batch", "8", "--seq", "16",
               "--device", "cpu", "--log-every", "1"]
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), OMP_NUM_THREADS="1")
     run = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node", "2", *common, "--mesh", "data=2,model=1"]
-    single = [sys.executable, *common, "--accum-steps", "2"]
+           "--nproc-per-node", "2", *common, "--mesh", mesh]
+    single = [sys.executable, *common, "--accum-steps", str(dp)]
     procs = [subprocess.Popen(cmd, cwd=str(tmp_path), env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True) for cmd in (run, single)]
     outs = []
@@ -303,7 +310,9 @@ def test_launcher_under_torchrun_matches_single_process(tmp_path):
         assert p.returncode == 0, err[-4000:]
         outs.append(out)
     sharded, one = outs
-    assert "mesh={'data': 2, 'model': 1} devices=2" in sharded
+    assert f"mesh={{'data': {dp}, 'model': {2 // dp}}} devices=2" in sharded
     assert "flash=True fused_ce=True" in sharded and sharded.count("done: step=3 ") == 1
     assert len(_losses(sharded)) == 3
-    np.testing.assert_allclose(_losses(sharded), _losses(one), atol=PRINT_TOL)
+    np.testing.assert_allclose(_losses(sharded)[:1], _losses(one)[:1], atol=PRINT_TOL)
+    np.testing.assert_allclose(_losses(sharded), _losses(one),
+                               atol=PRINT_TOL if dp == 2 else JAX_LOSS_TOL)

@@ -40,9 +40,9 @@ from repro_torch.sharding import (
     dp_size,
     opt_state_shardings,
     per_device_state_bytes,
+    leaf_layout,
     resolve_spec,
     shard_act,
-    shard_dim,
     specs_for,
     use_sharding,
 )
@@ -160,12 +160,17 @@ def test_batch_rows_split_the_global_batch(n, mesh):
     ((), None), ((None, None, "model"), None),
 ])
 def test_shard_dim_on_a_data_only_mesh(spec, want):
-    assert shard_dim(spec, Mesh({"data": 4, "model": 1})) == want
+    """The data-parallel dimension of a leaf's layout; ``model`` of size 1
+    splits nothing."""
+    assert leaf_layout(spec, Mesh({"data": 4, "model": 1})) == (want, None)
 
 
 def test_shard_dim_refuses_the_model_axis():
-    with pytest.raises(NotImplementedError, match="item 11 \\(b\\)"):
-        shard_dim(("data", "model"), Mesh({"data": 2, "model": 2}))
+    """``model`` splits its own dimension; one dimension split over both
+    axes at once is still not ported."""
+    assert leaf_layout((None, "data", "model"), Mesh({"data": 2, "model": 2})) == (1, 2)
+    with pytest.raises(NotImplementedError, match="item 11 \\(b2\\)"):
+        leaf_layout((("data", "model"),), Mesh({"data": 2, "model": 2}))
 
 
 @pytest.mark.parametrize("optimizer,fused", [("lamb", True), ("lamb", False),
@@ -200,12 +205,17 @@ def test_per_device_state_bytes_counts_meta_tensors():
 
 
 def test_shard_act_is_the_identity_on_a_data_mesh():
+    """An annotation, as the reference's: the identity over data and over
+    model=2 alike (a layer takes its slice through ``model_parallel``); a
+    name list that misses a dimension raises."""
     x = torch.randn(4, 8, 16)
     with use_sharding(ShardCtx(Mesh({"data": 4, "model": 1}))):
         assert shard_act(x, ("batch", "seq", "embed")) is x
-    with use_sharding(ShardCtx(Mesh({"data": 2, "model": 2}))):
-        with pytest.raises(NotImplementedError, match="item 11 \\(b\\)"):
-            shard_act(x, ("batch", "seq", "ff"))
+    with use_sharding(ShardCtx(Mesh({"data": 2, "model": 2}, rank=3))):
+        assert shard_act(x, ("batch", "seq", "ff")) is x
+        assert shard_act(x, ("batch", "experts", "embed")) is x
+        with pytest.raises(ValueError, match="rank mismatch"):
+            shard_act(x, ("batch", "ff"))
     assert shard_act(x, ("batch", "seq", "ff")) is x
 
 
@@ -256,9 +266,13 @@ SMOKE = ["--smoke", "--batch", "4", "--seq", "16", "--steps", "2", "--device", "
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--arch", "bert-large", "--mesh", "data=2,model=2"], "item 11 (b)"),
-    (["--arch", "bert-large", "--mesh", "data=1,model=2"], "item 11 (b)"),
-    (["--arch", "granite-moe-1b-a400m", "--mesh", "data=2,model=1"], "item 11 (b)"),
+    (["--arch", "granite-moe-1b-a400m", "--mesh", "data=1,model=2"], "item 11 (b2)"),
+    (["--arch", "xlstm-350m", "--mesh", "data=1,model=2"], "item 11 (b2)"),
+    (["--arch", "granite-moe-1b-a400m", "--mesh", "data=2,model=1"], "item 11 (b2)"),
+    (["--arch", "deepseek-v3-671b", "--mesh", "data=1,model=2"], "item 11 (b2)"),
+    (["--arch", "jamba-1.5-large-398b", "--mesh", "data=1,model=2"], "item 11 (b2)"),
+    # smollm-smoke: 3 heads split over model=3, its one kv head stays whole
+    (["--arch", "smollm-360m", "--mesh", "data=1,model=3"], "item 11 (b2)"),
     (["--arch", "bert-large", "--mesh", "data=2,model=1", "--rollback-on-spike",
       "--checkpoint-dir", "unused", "--checkpoint-every", "1"], "item 11 (c)"),
     (["--arch", "bert-large", "--mesh", "data=2,model=1", "--preempt-grace", "5"],

@@ -398,7 +398,7 @@ def test_launcher_optimizer_runs_to_done(extra, capsys):
         assert all(set(TRUST_KEYS) <= set(h) for h in trainer.history)
 
 
-@pytest.mark.parametrize("extra", [["--mesh", "data=2,model=2"]])
+@pytest.mark.parametrize("extra", [["--arch", "deepseek-v3-671b", "--mesh", "data=1,model=2"]])
 def test_launcher_unported_options_raise(extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         launch_train.main(SMOKE + ["--device", "cpu"] + extra)
