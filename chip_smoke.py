@@ -209,6 +209,29 @@ Phases, each of which raises (and so exits non-zero) on failure:
    K6–K8 on one slice of each (a) case beside the whole vocab's kernel,
    K1/K2 over a ``data=2,model=2`` rank's blocks, and (d)'s products beside
    the plain bf16 product and an fp32 GEMM of upcast operands.
+16. rollback and preemption over a mesh, GQA on a rank's q heads, MoE data
+   blocks (after phase 15, before phase 6's timings; one NCCL rank and its
+   gloo host group): (a) phase 9's loss-spike rollback and SIGTERM grace
+   save through the launcher with ``--mesh data=1,model=1``: the same
+   ``rollback`` and ``preempt`` fields, final params bit-equal to phase
+   9's, the resume bit-equal to phase 7's uninterrupted run; the agreed
+   flag (a host all-reduce a step) alone under the profiler: its host µs
+   and no device kernel or copy, and the step's wall, busy and launches
+   with ``--preempt-grace`` against without; (b)
+   smollm-360m's attention (15 heads over 5 kv heads, D 64) at B 8 x S 512
+   through K3–K5, whole and as each model=3 rank's q heads against their
+   global kv heads: o and dq within a bf16 ulp, the ranks' dk/dv partials
+   summed in fp32 within 2 ulps; and through the port's ``attention()``
+   (d 960, RoPE, flash) under each rank's ``ShardCtx`` on a data=1,model=3
+   mesh whose model group is the one-rank NCCL world: the ranks' outputs
+   and x/wk/wv gradients summed, and their wq/wo gradients side by side,
+   each within 3x the whole bf16 call's distance from an fp32 run, K3–K5
+   once a rank; (c) granite-moe-1b-a400m's MoE layer (T
+   4096, E 32, top-8, capacity factor 1.0: some experts overflow) whole
+   and as four data blocks with the global capacity and the blocks'
+   offsets: outputs bit-equal,
+   the drop fraction equal, the load-balance loss within 2e-6.  Phase 6
+   also times one rank's K3–K5 beside the whole heads' call.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -479,6 +502,9 @@ MOE_FLASH_TIMING = [("granite-moe seq 512", 8, 16, 8, 512, 64, True)]
 # head dims past 256 (the wide kernels; 320 and 576 zero-padded to 384 and
 # 640), at the padded-path timing's shape
 WIDE_FLASH_TIMING = [(f"D {d}", 8, 16, 16, 512, d, False) for d in (320, 512, 576)]
+# phase 16 (b): one model=3 rank's q heads of smollm-360m (5 of 15) against
+# their kv heads made whole for them, beside the whole heads' GQA call
+GQA_FLASH_TIMING = [("rank", 8, 5, 5, 512, 64, True), ("whole", 8, 15, 5, 512, 64, True)]
 # Head dims of the padded path and D 256, at one shape (b 8, h 16, s 512,
 # bidirectional): flash_attention forward and forward + backward, padding in.
 WIDTH_DIMS = (40, 64, 80, 128, 256)
@@ -1542,15 +1568,14 @@ def check_telemetry(device, main_hist, main_launches) -> None:
     torch.cuda.empty_cache()
 
 
-def check_rollback(device) -> None:
-    """(b) 8 batches with a ``loss_spike`` at batch 5, async checkpoints
-    every 4, the supervisor armed after 3 losses: one ``rollback`` event to
-    the step-4 checkpoint, ``step == 8 - batches_dropped``, ``run_end`` ok,
-    and the params bit-equal to an uninterrupted run over the same stream
-    with batches [restored_i, resume_i) removed.  At most two checkpoints
-    (4.0 GB each) are on disk; removed at the end."""
-    import shutil
+ROLLBACK_FIELDS = ("reason", "step", "from_step", "batches_dropped", "rollbacks", "discarded")
 
+
+def _rollback_run(device, argv: list, tmp) -> tuple:
+    """8 batches of ``argv`` with a ``loss_spike`` at batch 5, async
+    checkpoints every 4 under ``tmp``, the supervisor armed after 3 losses,
+    the counts set to 0 just before ``fit``.  Returns ``(trainer, stream,
+    events, launches, checkpoints on disk)``."""
     import torch
 
     from repro_torch.data import DataPipeline
@@ -1558,30 +1583,48 @@ def check_rollback(device) -> None:
     from repro_torch.telemetry import EventLog
     from repro_torch.train import FaultInjector, FaultSpec, SupervisorConfig
 
-    argv = _with_steps(MAIN_ARGV, 8)
     inj = FaultInjector([FaultSpec("loss_spike", at=5, scale=100.0)])
-    tmp = _scratch("ckpt_rollback_")
     events = EventLog.memory()
+    trainer, _, args = _trainer(argv, checkpoint_dir=str(tmp), checkpoint_every=4,
+                                async_checkpoint=True, telemetry=events,
+                                supervisor=SupervisorConfig(spike_window=8, min_history=3))
+    cfg = trainer.model.cfg
+
+    def stream():
+        return DataPipeline(cfg, args.batch, args.seq, device=device, seed=args.seed,
+                            rows=trainer.batch_rows)
+
+    def make_data():
+        return inj.wrap(stream())
+
+    reset_launches()
+    trainer.fit(make_data(), 8, data_factory=make_data)
+    torch.cuda.synchronize()
+    launches, _, _ = _counts()
+    on_disk = sorted(p.name for p in tmp.iterdir() if p.name.startswith("step_"))
+    return trainer, stream, events.events, launches, on_disk
+
+
+def check_rollback(device) -> dict:
+    """(b) 8 batches with a ``loss_spike`` at batch 5, async checkpoints
+    every 4, the supervisor armed after 3 losses: one ``rollback`` event to
+    the step-4 checkpoint, ``step == 8 - batches_dropped``, ``run_end`` ok,
+    and the params bit-equal to an uninterrupted run over the same stream
+    with batches [restored_i, resume_i) removed.  At most two checkpoints
+    (4.0 GB each) are on disk; removed at the end.  Returns the rollback
+    event's fields and the final params (host copies): phase 16's
+    reference."""
+    import shutil
+
+    import torch
+
+    argv = _with_steps(MAIN_ARGV, 8)
+    tmp = _scratch("ckpt_rollback_")
     try:
-        trainer, _, args = _trainer(argv, checkpoint_dir=str(tmp), checkpoint_every=4,
-                                    async_checkpoint=True, telemetry=events,
-                                    supervisor=SupervisorConfig(spike_window=8, min_history=3))
-        cfg = trainer.model.cfg
-
-        def stream():
-            return DataPipeline(cfg, args.batch, args.seq, device=device, seed=args.seed)
-
-        def make_data():
-            return inj.wrap(stream())
-
-        reset_launches()
-        trainer.fit(make_data(), 8, data_factory=make_data)
-        torch.cuda.synchronize()
-        launches, _, _ = _counts()
-        on_disk = sorted(p.name for p in tmp.iterdir() if p.name.startswith("step_"))
-        rbs = [e for e in events.events if e["event"] == "rollback"]
-        end = events.events[-1]
-        log(f"rollback: events {[e['event'] for e in events.events]}; rollback "
+        trainer, stream, events, launches, on_disk = _rollback_run(device, argv, tmp)
+        rbs = [e for e in events if e["event"] == "rollback"]
+        end = events[-1]
+        log(f"rollback: events {[e['event'] for e in events]}; rollback "
             f"{ {k: v for k, v in rbs[0].items() if k != 't'} if rbs else None}; "
             f"step {int(trainer.state.step)}; run_end {end.get('status')}; checkpoints on "
             f"disk {on_disk}; launches {launches}")
@@ -1593,6 +1636,9 @@ def check_rollback(device) -> None:
         restored_i = rbs[0]["step"]       # no step was skipped: batch ordinal = step
         resume_i = restored_i + rbs[0]["batches_dropped"]
         params = dict(trainer.state.params)
+        out = dict(fields={k: rbs[0].get(k) for k in ROLLBACK_FIELDS},
+                   step=int(trainer.state.step), status=end["status"],
+                   params={k: v.cpu() for k, v in params.items()})
         del trainer
         torch.cuda.empty_cache()
         ref, _, _ = _trainer(argv)
@@ -1610,6 +1656,7 @@ def check_rollback(device) -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
+    return out
 
 
 def check_divergence(device) -> None:
@@ -1668,12 +1715,18 @@ class _TermBefore:
         return next(self.inner)
 
 
-def check_preemption(device, ref_losses, ref_params) -> None:
+PREEMPT_FIELDS = ("step", "signal", "saved", "grace_s")
+
+
+def check_preemption(device, ref_losses, ref_params, mesh: tuple = (),
+                     label: str = "preemption") -> dict:
     """(d) The 4-step run of phase 7 with async checkpoints and
     ``--preempt-grace 30``, SIGTERM before batch 2: the ``preempt`` event
     says saved, the latest checkpoint sits at the stopped step, and a
     ``--resume`` run reaches step 4 bit-equal to phase 7's uninterrupted
-    run.  One 4.0 GB checkpoint; removed at the end."""
+    run.  One 4.0 GB checkpoint; removed at the end.  ``mesh``: the
+    launcher's ``--mesh`` flags for both runs (phase 16).  Returns the
+    ``preempt`` event's fields and the stopped step."""
     import shutil
 
     import torch
@@ -1683,7 +1736,7 @@ def check_preemption(device, ref_losses, ref_params) -> None:
     from repro_torch.telemetry import read_events
 
     tmp = _scratch("ckpt_preempt_")
-    ckpt = ["--checkpoint-dir", str(tmp / "ck"), "--async-checkpoint"]
+    ckpt = ["--checkpoint-dir", str(tmp / "ck"), "--async-checkpoint", *mesh]
     try:
         trainer, data, _ = build(parse_args(RESUME_ARGV + ckpt + [
             "--preempt-grace", "30", "--telemetry-dir", str(tmp / "t")]))
@@ -1693,29 +1746,32 @@ def check_preemption(device, ref_losses, ref_params) -> None:
         trainer.telemetry.close()
         pe = [e for e in read_events(tmp / "t" / "events.jsonl") if e["event"] == "preempt"]
         latest = checkpoint_step(latest_checkpoint(str(tmp / "ck")))
-        log(f"preemption: stopped at step {stopped}, status {trainer._status}; preempt "
+        log(f"{label}: stopped at step {stopped}, status {trainer._status}; preempt "
             f"event {pe[-1] if pe else None}; latest checkpoint step {latest}")
         if len(pe) != 1 or not pe[0]["saved"] or latest != stopped or stopped >= 4 \
                 or trainer._status != "preempted":
-            raise AssertionError("the preempted run did not save its stopped step")
+            raise AssertionError(f"{label}: the preempted run did not save its stopped step")
+        out = dict(fields={k: pe[0].get(k) for k in PREEMPT_FIELDS}, stopped=stopped)
         del trainer
         torch.cuda.empty_cache()
         resumed, data, _ = build(parse_args(RESUME_ARGV + ckpt + ["--resume"]))
         resumed.log = lambda msg: None
         resumed.fit(data, 4)
         losses = [h["loss/total"] for h in resumed.history]
-        differ = [k for k, v in resumed.state.params.items()
+        differ = [k for k, v in resumed.gather_state().params.items()
                   if not _same_bits(v.cpu(), ref_params[k])]
-        log(f"preemption: resumed steps {[h['step'] for h in resumed.history]}, losses "
+        log(f"{label}: resumed steps {[h['step'] for h in resumed.history]}, losses "
             f"{losses} against phase 7's uninterrupted {ref_losses[stopped:]}; param leaves "
             f"not bit-equal {differ}")
         if not _same_bits(losses, ref_losses[stopped:]) or differ \
                 or int(resumed.state.step) != 4:
-            raise AssertionError("the resumed run is not bit-equal to the uninterrupted one")
+            raise AssertionError(f"{label}: the resumed run is not bit-equal to the "
+                                 "uninterrupted one")
         del resumed
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
+    return out
 
 
 def check_remat(device) -> None:
@@ -2092,12 +2148,26 @@ def check_serving_launcher() -> None:
         raise AssertionError(f"the serve launcher failed: {out.stderr[-2000:]}")
 
 
+def _device_rows(prof) -> list:
+    """``(name, ms, count)`` of the device kernels and copies of a finished
+    ``torch.profiler`` trace, summed by name from the trace's raw events
+    (``key_averages`` spends minutes on the ~0.5 M events of an xlstm
+    step)."""
+    from torch.autograd import DeviceType
+
+    rows: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            ms, n = rows.get(e.name(), (0.0, 0))
+            rows[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    return [(key, ms, n) for key, (ms, n) in rows.items()]
+
+
 def _profile_calls(fn, n: int = 5) -> dict:
     """Two warm-up calls, one under ``torch.profiler``, then ``n`` between
     CUDA events: wall and event-span ms per call, the profiled call's busy
     ms and launches, the idle share."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2106,8 +2176,7 @@ def _profile_calls(fn, n: int = 5) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = [(e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows = [(ms, count) for _, ms, count in _device_rows(prof)]
     busy = sum(ms for ms, _ in rows)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -2592,7 +2661,6 @@ def run_xlstm_training(device) -> dict:
     ``torch.profiler`` (device activity only: busy and launches) and two
     between CUDA events (wall and span).  Returns the launches and timings."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data import DataPipeline
@@ -2656,8 +2724,7 @@ def run_xlstm_training(device) -> dict:
         trainer.fit(iter(batches[:1]), 1)
         torch.cuda.synchronize()
     t_prof = time.perf_counter() - t0
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows = _device_rows(prof)
     t_agg = time.perf_counter() - t0 - t_prof
     del prof
     busy, n_launch = sum(ms for _, ms, _ in rows), sum(n for *_, n in rows)
@@ -4066,6 +4133,377 @@ def time_vocab_slices(device, rate: float) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 16: rollback and preemption over a mesh, GQA on a rank's q heads,
+# MoE data blocks
+# ---------------------------------------------------------------------------
+
+ROBUST_MESH = ("--mesh", "data=1,model=1")
+GQA_B, GQA_S, GQA_H, GQA_HKV, GQA_D, GQA_RANKS = 8, 512, 15, 5, 64, 3   # smollm-360m, model=3
+# the ranks' attention() against the whole call: each tensor within this
+# many times the whole bf16 call's distance from the fp32 run
+GQA_MODULE_FACTOR = 3.0
+MOE_BLOCKS, MOE_BLOCK_CF = 4, 1.0   # data blocks; a capacity factor that drops some tokens
+
+
+def check_mesh_rollback(device, reference: dict) -> dict:
+    """(a) Phase 9's loss-spike rollback through the launcher's Trainer on
+    a data=1,model=1 mesh (an NCCL group of one rank, and the host group
+    the verdict is broadcast over): the same ``rollback`` event fields, the
+    same final step and status, the final params bit-equal to phase 9's.
+    Returns the run's launches."""
+    import shutil
+
+    import torch
+
+    tmp = _scratch("ckpt_mesh_rollback_")
+    try:
+        trainer, _, events, launches, on_disk = _rollback_run(
+            device, _with_steps(MAIN_ARGV, 8) + list(ROBUST_MESH), tmp)
+        rbs = [e for e in events if e["event"] == "rollback"]
+        fields = {k: rbs[0].get(k) for k in ROLLBACK_FIELDS} if len(rbs) == 1 else None
+        step, status = int(trainer.state.step), events[-1].get("status")
+        differ = [k for k, v in trainer.gather_state().params.items()
+                  if not _same_bits(v.cpu(), reference["params"][k])]
+        log(f"mesh robustness (a) rollback: mesh {trainer.mesh.shape}, host group "
+            f"{trainer.mesh.host_group is not None}; rollback {fields} (phase 9 "
+            f"{reference['fields']}); step {step} status {status} (phase 9 "
+            f"{reference['step']} {reference['status']}); checkpoints on disk {on_disk}; "
+            f"param leaves not bit-equal to phase 9's {differ}; launches {launches}")
+        if fields != reference["fields"] or step != reference["step"] \
+                or status != reference["status"] or differ or launches != _want_launches(8):
+            raise AssertionError("mesh robustness (a): the rollback over the mesh left phase "
+                                 "9's")
+        del trainer
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def time_agreed_flag(device, calls: int = 200) -> dict:
+    """(a) The agreed flag alone: ``calls`` readings of
+    ``PreemptionHandler.agreed`` over the mesh's host group (one gloo
+    all-reduce each) under ``torch.profiler``: host µs a reading and the
+    device kernels and copies it makes, which must be none.  Then the main
+    path's step on the data=1,model=1 mesh without and with
+    ``--preempt-grace 30``, in turns on one Trainer
+    (``profile_step.measure``; ``preempt_grace`` unset for the run
+    without): wall, busy and launches a step, logged.  A profiled step's
+    launches drift by one or two between runs of one Trainer, so the
+    flag's own trace is what is held to zero."""
+    import torch
+    import torch.distributed
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.profile_step import DEFAULT_ARGV, measure
+    from repro_torch.train.preempt import PreemptionHandler
+
+    trainer, data, _ = _trainer(DEFAULT_ARGV + ["--steps", "8", "--preempt-grace", "30",
+                                                *ROBUST_MESH])
+    host, flag = trainer.mesh.host_group, PreemptionHandler(enabled=False)
+    flag.agreed(host)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            flag.agreed(host)
+        us = (time.perf_counter() - t0) * 1e6 / calls
+        torch.cuda.synchronize()
+    on_device = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    log(f"mesh robustness (a) agreed flag: {calls} readings over the host group "
+        f"({torch.distributed.get_backend(host)}), {us:.1f} us each on the host, {on_device} "
+        "device kernels and copies")
+    got = {"without": None, "--preempt-grace": None}
+    for v in got:
+        trainer.preempt_grace = 30.0 if v == "--preempt-grace" else None
+        r = measure(trainer, data)
+        got[v] = {k: r[k] for k in ("wall_ms", "span_ms", "busy_ms", "launches", "idle")}
+        log(f"mesh robustness (a) timing {v}: wall {r['wall_ms']:.2f} ms/step, span "
+            f"{r['span_ms']:.2f} ms, busy {r['busy_ms']:.2f} ms in {r['launches']} launches, "
+            f"idle {r['idle']:.3f}")
+    del trainer, data
+    torch.cuda.empty_cache()
+    if on_device:
+        raise AssertionError(f"mesh robustness (a): the agreed flag made {on_device} device "
+                             "kernels or copies")
+    return dict(flag_us=us, flag_device_events=on_device, **got)
+
+
+def check_gqa_rank_heads(device) -> dict:
+    """(b) smollm-360m's attention (15 heads, 5 kv heads, D 64, causal) at
+    B 8 x S 512 through K3–K5 (``flash_sdpa``, bf16), whole and as each of
+    the three model=3 ranks' q heads against their global kv heads
+    (``tensor_parallel.kv_head_index``: rank 0's heads read kv heads
+    0,0,0,1,1): each rank's o and dq within a bf16 ulp of the whole run's
+    slice, and the three ranks' dk/dv partials (each q head's, added into
+    its kv head in fp32, as ``kv_heads_for_rank``'s backward does) summed
+    in fp32 and rounded once, within 2 bf16 ulps of the whole run's (ulps
+    of the largest of the element's whole value and its partials'
+    magnitudes summed, as phase 15's K7 partials).  Returns the ranks'
+    K3–K5 launches."""
+    import torch
+
+    from repro_torch.kernels import reset_launches
+    from repro_torch.kernels.ops import flash_sdpa
+    from repro_torch.models.layers.tensor_parallel import kv_head_index
+    from repro_torch.sharding.context import ModelAxis
+
+    gen = torch.Generator(device=device).manual_seed(16)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+
+    q, do = randn(GQA_B, GQA_S, GQA_H, GQA_D), randn(GQA_B, GQA_S, GQA_H, GQA_D)
+    k, v = randn(GQA_B, GQA_S, GQA_HKV, GQA_D), randn(GQA_B, GQA_S, GQA_HKV, GQA_D)
+    qw, kw, vw = (x.clone().requires_grad_() for x in (q, k, v))
+    o = flash_sdpa(qw, kw, vw, causal=True)
+    dq, dk, dv = torch.autograd.grad(o, (qw, kw, vw), do)
+    h = GQA_H // GQA_RANKS
+    acc = {n: torch.zeros(k.shape, dtype=torch.float32, device=device)
+           for n in ("dk", "dv", "|dk|", "|dv|")}
+    worst = {"o": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
+
+    def ulps(a, b, scale=None):
+        scale = torch.maximum(a.float().abs(), b.float().abs()) if scale is None else scale
+        return float(((a.float() - b.float()).abs() / bf16_ulp(scale)).max())
+
+    heads = []
+    reset_launches()
+    for r in range(GQA_RANKS):
+        idx = kv_head_index(h, GQA_H, GQA_HKV, ModelAxis(None, r, GQA_RANKS), device=device)
+        heads.append(idx.tolist())
+        cut = slice(r * h, (r + 1) * h)
+        qr = q[:, :, cut].clone().requires_grad_()
+        kr, vr = (x.index_select(2, idx).requires_grad_() for x in (k, v))
+        orr = flash_sdpa(qr, kr, vr, causal=True)
+        dqr, dkr, dvr = torch.autograd.grad(orr, (qr, kr, vr), do[:, :, cut])
+        for n, part in (("dk", dkr), ("dv", dvr)):
+            acc[n].index_add_(2, idx, part.float())
+            acc[f"|{n}|"].index_add_(2, idx, part.float().abs())
+        worst["o"] = max(worst["o"], ulps(orr.detach(), o[:, :, cut].detach()))
+        worst["dq"] = max(worst["dq"], ulps(dqr, dq[:, :, cut]))
+    torch.cuda.synchronize()
+    launches, _, _ = _counts()
+    # ulps of the largest of the element's whole value and its partials'
+    # magnitudes summed: each q head's partial rounds at its own size
+    for n, whole in (("dk", dk), ("dv", dv)):
+        worst[n] = ulps(acc[n].to(torch.bfloat16), whole,
+                        torch.maximum(whole.float().abs(), acc[f"|{n}|"]))
+    log(f"mesh robustness (b) GQA: B {GQA_B} S {GQA_S} H {GQA_H} Hkv {GQA_HKV} D {GQA_D} over "
+        f"model={GQA_RANKS}: the ranks' kv heads {heads}; worst bf16 ulps against the whole "
+        f"run: {worst}; the ranks' launches {launches}")
+    if worst["o"] > 1 or worst["dq"] > 1 or worst["dk"] > 2 or worst["dv"] > 2 \
+            or any(launches[x] != GQA_RANKS for x in FLASH):
+        raise AssertionError(f"mesh robustness (b): a rank's q heads left the whole run: "
+                             f"{worst}, launches {launches}")
+    del q, k, v, do, qw, kw, vw, o, dq, dk, dv, acc
+    torch.cuda.empty_cache()
+    return {x: launches[x] for x in FLASH}
+
+
+def check_gqa_attention_ranks(device) -> dict:
+    """(b) the port's own path for a rank's q heads: ``attention()`` of
+    smollm-360m (d 960, 15 heads over 5 kv heads, D 64, RoPE, causal,
+    flash) at B 8 x S 512 in bf16, whole and under each of the three
+    model=3 ranks' ``ShardCtx``: a ``data=1,model=3`` mesh whose model
+    group is this process's one-rank NCCL world, so that each rank's sums
+    over ``model`` keep its own partial (``kv_heads_for_rank`` selects the
+    global kv heads on the card, and its backward adds each q head's rows
+    into its kv head in fp32).  The ranks' outputs and their ``x``, ``wk``
+    and ``wv`` gradients, summed in fp32, and their ``wq``/``wo``
+    gradients laid side by side, each no farther (max |diff|) from an fp32
+    run of the same function (the plain attention on the same bf16 values
+    upcast) than ``GQA_MODULE_FACTOR`` times the whole bf16 call is.  Each
+    rank launches K3–K5 once.  Runs while phase 16 (a)'s process group is
+    up; returns the ranks' launches."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.layers.attention import attention, attention_defs
+    from repro_torch.sharding import ShardCtx, use_sharding
+
+    cfg = get_config("smollm-360m").replace(use_flash_kernel=True)
+    h, d = cfg.n_heads, cfg.d_model
+    if (h, cfg.n_kv_heads, cfg.head_dim) != (GQA_H, GQA_HKV, GQA_D):
+        raise AssertionError(f"mesh robustness (b): smollm-360m's heads are not {GQA_H} "
+                             f"over {GQA_HKV} of {GQA_D}")
+    group = dist.group.WORLD
+    if dist.get_backend(group) != "nccl" or dist.get_world_size() != 1:
+        raise AssertionError("mesh robustness (b): needs phase 16 (a)'s one-rank NCCL world")
+    gen = torch.Generator(device=device).manual_seed(162)
+
+    def randn(shape, scale):
+        return (torch.randn(shape, generator=gen, device=device) * scale).to(torch.bfloat16)
+
+    params = {name: randn(p.shape, 0.02 if name.startswith("b") else
+                          (h * cfg.head_dim if name == "wo" else d) ** -0.5)
+              for name, p in attention_defs(cfg).items()}
+    x, dy = randn((GQA_B, GQA_S, d), 1.0), randn((GQA_B, GQA_S, d), 1.0)
+    pos = torch.arange(GQA_S, device=device)[None].expand(GQA_B, GQA_S)
+    names = sorted(params)
+
+    def run(p, xx, c, ctx=None):
+        leaves = {k: v.clone().requires_grad_() for k, v in p.items()}
+        xin = xx.clone().requires_grad_()
+        with use_sharding(ctx):
+            out = attention(leaves, xin, pos, c)
+        grads = torch.autograd.grad(out, [xin] + [leaves[k] for k in names], dy.to(out.dtype))
+        return {"out": out.detach().float(), "x": grads[0].float(),
+                **{k: g.float() for k, g in zip(names, grads[1:])}}
+
+    ref = run({k: v.float() for k, v in params.items()}, x.float(),
+              cfg.replace(use_flash_kernel=False))
+    whole = run(params, x, cfg)
+    per = h // GQA_RANKS
+    split = {k: torch.zeros_like(v) for k, v in whole.items()}
+    reset_launches()
+    for r in range(GQA_RANKS):
+        cut = slice(r * per, (r + 1) * per)
+        mine = {k: v[:, cut] if k == "wq" else v[cut] if k in ("wo", "bq") else v
+                for k, v in params.items()}
+        mesh = Mesh({"data": 1, "model": GQA_RANKS}, rank=r, groups={("model",): group})
+        for k, g in run(mine, x, cfg, ShardCtx(mesh)).items():
+            if k == "wq":
+                split[k][:, cut] = g
+            elif k in ("wo", "bq"):
+                split[k][cut] = g
+            else:
+                split[k] += g
+    torch.cuda.synchronize()
+    launches, _, _ = _counts()
+    gaps = {k: (float((split[k] - ref[k]).abs().max()), float((whole[k] - ref[k]).abs().max()))
+             for k in whole}
+    log(f"mesh robustness (b) GQA attention(): B {GQA_B} S {GQA_S} d {d} over "
+        f"model={GQA_RANKS} ranks of one NCCL rank; max |diff| from the fp32 run, the "
+        f"ranks' sum against the whole call: "
+        + ", ".join(f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in gaps.items())
+        + f"; the ranks' launches {launches}")
+    far = {k: v for k, v in gaps.items() if not v[0] <= GQA_MODULE_FACTOR * v[1]}
+    if far or any(launches[k] != GQA_RANKS for k in FLASH):
+        raise AssertionError(f"mesh robustness (b): the ranks' attention() left the whole "
+                             f"call: {far}, launches {launches}")
+    del params, x, dy, ref, whole, split
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in FLASH}
+
+
+def check_moe_data_blocks(device) -> dict:
+    """(c) granite-moe-1b-a400m's MoE layer at phase 11's shape (B 8 x S
+    512: T 4096 tokens, E 32, top-8, d 1024, expert ff 512; bf16) with
+    capacity factor 1.0 (some experts overflow), whole and as four data
+    blocks of 1024 rows: each block routes its rows, takes the whole
+    layer's capacity and its offsets (the exclusive prefix of the blocks'
+    per-expert counts, by the plain gather), places its kept assignments
+    (``moe.place``) and runs the experts and the combine.  The four outputs concatenated bit-equal to
+    the whole layer's; the drop fraction from the summed kept counts equal
+    to the whole's, the load-balance loss from the summed router sums
+    within fp32 rounding (2e-6 relative: the sums add in another order).
+    Times one block's dispatch beside the whole's."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import moe
+    from repro_torch.sharding import collectives as C
+
+    cfg = get_config(MOE_ARCH).replace(capacity_factor=MOE_BLOCK_CF)
+    d, e, f, k = cfg.d_model, cfg.n_experts, cfg.moe_d_ff, cfg.n_experts_per_tok
+    gen = torch.Generator(device=device).manual_seed(17)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=device) * scale).to(torch.bfloat16)
+
+    p = {"router": randn(d, e, scale=d ** -0.5), "wi": randn(e, d, f, scale=d ** -0.5),
+         "wg": randn(e, d, f, scale=d ** -0.5), "wo": randn(e, f, d, scale=f ** -0.5)}
+    t = 8 * 512
+    x = randn(t, d)
+    with torch.no_grad():
+        buf, dest, gates, keep, aux = moe.dispatch(p, x, cfg)
+        whole = moe.combine(moe.experts(p, buf, cfg), dest, gates, k)
+        drop = moe.drop_fraction(keep)
+        c = moe.capacity(t, cfg)
+        rows = t // MOE_BLOCKS
+        blocks = []
+        for r in range(MOE_BLOCKS):
+            xr = x[r * rows:(r + 1) * rows]
+            logits = xr.to(torch.float32) @ p["router"].to(torch.float32)
+            gates_r, idx_r, _ = moe.route(logits, cfg)
+            hits = moe.expert_hits(idx_r, e)
+            blocks.append(dict(x=xr, gates=gates_r, idx=idx_r, hits=hits,
+                               counts=hits.sum(1, dtype=torch.int32),
+                               probs=torch.softmax(logits, -1).sum(0),
+                               top1=F.one_hot(idx_r[:, 0], e).to(torch.float32).sum(0)))
+        every = C.gather_leaf_plain([b["counts"][None] for b in blocks], 0)   # (blocks, E)
+        outs, kept = [], []
+        for r, b in enumerate(blocks):
+            offsets = every[:r].sum(0, dtype=torch.int32)
+            buf_r, dest_r, keep_r = moe.place(b["x"], b["idx"], b["hits"], c, offsets)
+            outs.append(moe.combine(moe.experts(p, buf_r, cfg), dest_r, b["gates"], k))
+            kept.append(keep_r.to(torch.float32).sum())
+        me = C.all_reduce_plain([b["probs"] for b in blocks]) / t
+        fe = C.all_reduce_plain([b["top1"] for b in blocks]) / t
+        lb = e * (fe * me).sum()
+        drop_blocks = 1.0 - C.all_reduce_plain(kept) / (t * k)
+        same = torch.equal(torch.cat(outs), whole)
+        lb_rel = float((lb - aux["moe_lb_loss"]).abs() / aux["moe_lb_loss"])
+        drops = (float(drop), float(drop_blocks))
+        log(f"mesh robustness (c) MoE: T {t} in {MOE_BLOCKS} blocks, E {e}, top-{k}, C {c}; "
+            f"outputs bit-equal {same}; drop fraction whole {drops[0]} blocks {drops[1]}; lb "
+            f"whole {float(aux['moe_lb_loss']):.8f} blocks {float(lb):.8f} (rel {lb_rel:.2e}); "
+            f"block offsets of expert 0 {every[:, 0].cumsum(0).tolist()}")
+        if not same or drops[0] != drops[1] or not drops[0] > 0 or lb_rel > 2e-6:
+            raise AssertionError("mesh robustness (c): the data blocks left the whole layer")
+
+        b0 = blocks[MOE_BLOCKS - 1]
+        last = every[:MOE_BLOCKS - 1].sum(0, dtype=torch.int32)
+
+        def block_dispatch():
+            logits = b0["x"].to(torch.float32) @ p["router"].to(torch.float32)
+            _, idx_r, _ = moe.route(logits, cfg)
+            moe.place(b0["x"], idx_r, moe.expert_hits(idx_r, e), c, last)
+
+        times = {"block": cuda_ms(block_dispatch),
+                 "whole": cuda_ms(lambda: moe.dispatch(p, x, cfg))}
+    log(f"mesh robustness (c) MoE dispatch: one block of {rows} rows {times['block']:.4f} ms, "
+        f"the whole {t} rows {times['whole']:.4f} ms")
+    del p, x, buf, whole, outs, blocks
+    torch.cuda.empty_cache()
+    return dict(times=times, drop=drops[0], capacity=c)
+
+
+def run_mesh_robustness(device, rollback_ref: dict, preempt_ref: dict, ref_losses,
+                        ref_params) -> dict:
+    """Phase 16; returns (a)'s rollback launches and timing, (b)'s launches
+    and (c)'s times."""
+    from repro_torch.launch.mesh import shutdown_distributed
+
+    t0 = time.perf_counter()
+    out = {}
+    try:
+        out["launches"] = check_mesh_rollback(device, rollback_ref)
+        got = check_preemption(device, ref_losses, ref_params, mesh=ROBUST_MESH,
+                               label="mesh robustness (a) preemption")
+        log(f"mesh robustness (a) preemption: preempt event {got['fields']} (phase 9 "
+            f"{preempt_ref['fields']}), stopped at step {got['stopped']} (phase 9 "
+            f"{preempt_ref['stopped']})")
+        if got != preempt_ref:
+            raise AssertionError("mesh robustness (a): the preemption over the mesh left "
+                                 "phase 9's")
+        out["agreed_flag"] = time_agreed_flag(device)
+        out["gqa_launches"] = check_gqa_attention_ranks(device)
+    finally:
+        shutdown_distributed()
+    out["gqa_contract_launches"] = check_gqa_rank_heads(device)
+    out["moe"] = check_moe_data_blocks(device)
+    log(f"mesh robustness: phase 16 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 6: timing
 # ---------------------------------------------------------------------------
 
@@ -4417,10 +4855,9 @@ def main() -> None:
     run_optimizer(device, "lamb", fused=True)
     check_unfused_guard_and_stages(device)
     check_telemetry(device, main_hist, launches)
-    check_rollback(device)
+    rollback_ref = check_rollback(device)
     check_divergence(device)
-    check_preemption(device, ref_losses, ref_params)
-    del ref_params
+    preempt_ref = check_preemption(device, ref_losses, ref_params)
     check_remat(device)
     time_training_variants(device)
     serving = run_serving(device, rate)
@@ -4429,6 +4866,8 @@ def main() -> None:
     deepseek = run_deepseek(device)
     fsdp = run_fsdp(device)
     tp = run_tp(device, fsdp)
+    robust = run_mesh_robustness(device, rollback_ref, preempt_ref, ref_losses, ref_params)
+    del ref_params, rollback_ref
     timing = {**time_kernels(device, rate), **time_flash(device, rate),
               **time_fused_ce(device, rate)}
     moe_timing = {**time_kernels(device, rate, MOE_ARCH),
@@ -4441,6 +4880,7 @@ def main() -> None:
     block_timing = time_kernels(device, rate, "bert-large", shards=TP_MESH["data"],
                                 model_ranks=TP_MESH["model"])
     slice_timing = time_vocab_slices(device, rate)
+    gqa_timing = time_flash(device, rate, GQA_FLASH_TIMING, every=True)
     time_tp_products(device, rate)
     wide = {sh[0]: time_fused_ce(device, rate, [sh]) for sh in WIDE_CE_TIMING}
     # the FMA design is not timed there: at D 7168 it re-forms the scores in
@@ -4500,6 +4940,17 @@ def main() -> None:
     for k in ("lamb_moments", "lamb_apply"):
         by_name[k]["bert_large_data2_model2_block"] = dict(
             launches=block_timing[k].pop("timed_launches"), **block_timing[k])
+    # phase 16: every kernel's launches in the loss-spike rollback on a
+    # data=1,model=1 mesh, and K3–K5's on the model=3 ranks' q heads (the
+    # launches of the ranks' attention() calls, and of the kernel contract
+    # check) with their times there beside the whole heads' call
+    for k in KERNELS:
+        by_name[k]["mesh_rollback"] = dict(launches=robust["launches"][k])
+    for k in FLASH:
+        by_name[k]["gqa_rank_heads"] = dict(launches=robust["gqa_launches"][k],
+                                            contract_launches=robust["gqa_contract_launches"][k],
+                                            **gqa_timing["rank"][k],
+                                            whole_heads_ms=gqa_timing["whole"][k]["ms"])
     log(card)   # again near the end, where a truncated log still shows it
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 from repro_torch.checkpoint.async_io import AsyncCheckpointer
 from repro_torch.checkpoint.io import (
+    checkpoint_path,
     checkpoint_step,
     discard_checkpoints_after,
     gc_tmp_dirs,
@@ -12,6 +13,7 @@ from repro_torch.checkpoint.io import (
 
 __all__ = [
     "AsyncCheckpointer",
+    "checkpoint_path",
     "checkpoint_step",
     "discard_checkpoints_after",
     "gc_tmp_dirs",

@@ -173,7 +173,7 @@ def write_checkpoint_dir(directory: str, step: int, leaves: List[Tuple[str, Leaf
     """
     os.makedirs(directory, exist_ok=True)
     gc_tmp_dirs(directory)
-    final = os.path.join(directory, f"step_{step:08d}")
+    final = checkpoint_path(directory, step)
     tmp = tempfile.mkdtemp(dir=directory, prefix=".tmp_ckpt_")
     try:
         manifest: Dict[str, Any] = {"step": step, "leaves": []}
@@ -196,6 +196,11 @@ def write_checkpoint_dir(directory: str, step: int, leaves: List[Tuple[str, Leaf
         raise
     _write_latest(directory, os.path.basename(final))
     return final
+
+
+def checkpoint_path(directory: str, step: int) -> str:
+    """The path of step ``step``'s checkpoint under ``directory``."""
+    return os.path.join(directory, f"step_{step:08d}")
 
 
 def save_checkpoint(directory: str, step: int, tree: Any) -> str:

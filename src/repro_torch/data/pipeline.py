@@ -1,22 +1,22 @@
 """Data pipeline: synthetic batches moved to the run's device (port of
 ``repro.data.pipeline.DataPipeline``).
 
-With a ``mesh``, each rank draws the **global** batch (``host_index=0``,
-``host_count=1``, the stream of a single process) and keeps its block of
-rows, so a data-parallel run trains on exactly the batches a single
-process would: the reference's mesh run is one process that splits the
-global batch the same way.  Only the rank's rows reach the device.
+With ``rows`` (a data-parallel run: the Trainer's ``batch_rows``), each
+rank draws the **global** batch (``host_index=0``, ``host_count=1``, the
+stream of a single process) and keeps the rows ``rows(batch)`` names, so a
+data-parallel run trains on exactly the batches a single process would:
+the reference's mesh run is one process that splits the global batch the
+same way.  Only the rank's rows reach the device.
 """
 from __future__ import annotations
 
 import collections
-from typing import Dict, Iterator
+from typing import Callable, Dict, Iterator, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.synthetic import batch_iterator
-from repro_torch.sharding.placement import batch_rows
 
 
 class DataPipeline:
@@ -29,19 +29,17 @@ class DataPipeline:
         device: torch.device,
         seed: int = 0,
         prefetch: int = 2,
-        mesh=None,
+        rows: Optional[Callable[[int], object]] = None,
     ):
-        self.rows = slice(None)
-        if mesh is not None:   # raises when the batch does not divide
-            start, n = batch_rows(batch, mesh)
-            self.rows = slice(start, start + n)
+        # raises when the batch does not divide over the ranks
+        self.rows = slice(None) if rows is None else rows(batch)
+        self.rows_of = rows
         self.cfg = cfg
         self.batch = batch
         self.seq = seq
         self.seed = seed
         self.device = torch.device(device)
         self.prefetch = prefetch
-        self.mesh = mesh
         self._it = batch_iterator(cfg, batch, seq, seed=seed)
         self._buf: collections.deque = collections.deque()
 
@@ -63,5 +61,5 @@ class DataPipeline:
         """New pipeline for a mixed-batch stage (fresh shapes, same source)."""
         return DataPipeline(
             self.cfg, batch, seq, device=self.device, seed=self.seed,
-            prefetch=self.prefetch, mesh=self.mesh,
+            prefetch=self.prefetch, rows=self.rows_of,
         )

@@ -28,7 +28,9 @@ class Mesh:
     ``shape`` maps each axis name to its size, in mesh order.  ``groups``
     maps an axis name, or a tuple of axis names, to the process group of the
     ranks that share this rank's coordinates on every other axis; ``None``
-    makes the mesh abstract.
+    makes the mesh abstract.  ``host_group`` (concrete meshes) spans every
+    rank over gloo: control flags and small integers on CPU tensors, never
+    a device tensor.
     """
 
     def __init__(self, shape: Mapping[str, int], *, rank: int = 0,
@@ -36,6 +38,7 @@ class Mesh:
         self.shape: Dict[str, int] = {str(k): int(v) for k, v in shape.items()}
         self.rank = int(rank)
         self.groups = groups
+        self.host_group = None
         n = self.size
         if not 0 <= self.rank < n:
             raise ValueError(f"rank {rank} is outside a mesh of {n} ranks")
@@ -211,7 +214,9 @@ def init_distributed(device, spec: str = "", *, model_parallel: int = 1
     ``model_parallel`` over every rank); it must use every rank of the run
     and raises ``ValueError`` when it needs more.  Returns the concrete mesh
     (one process group per axis, and one over the data-parallel axes) and
-    this rank's device.
+    this rank's device.  Beside the device world it makes one host group
+    over every rank (gloo, CPU tensors; over gloo ranks the world itself),
+    through which the ranks agree on flags without a device launch.
     """
     import torch.distributed as dist
 
@@ -251,6 +256,7 @@ def init_distributed(device, spec: str = "", *, model_parallel: int = 1
     mesh = Mesh(mesh.shape, rank=dist.get_rank())
     axes_list = [(a,) for a in mesh.axis_names] + [batch_axes(mesh), mesh.axis_names]
     mesh.groups = _axis_groups(mesh, [a for a in axes_list if a])
+    mesh.host_group = dist.group.WORLD if backend == "gloo" else dist.new_group(backend="gloo")
     return mesh, dev
 
 

@@ -43,16 +43,24 @@ kv heads, ff and vocab split; the dense transformers):
 
 (NCCL on ``cuda:LOCAL_RANK``, or gloo with ``--device cpu``).  Params and
 optimizer moments are split into blocks over the ranks, each data-parallel
-rank trains on its rows of the global batch (the ``model`` ranks of one
-data coordinate on the same rows), and only rank 0 prints and writes.
-Under ``torch.distributed.run`` without ``--mesh``, the ranks form
-``data=WORLD/--model-parallel, model=--model-parallel``, as the
-reference's host mesh.  These raise ``NotImplementedError`` naming their
-ROADMAP.md item: over a ``model`` axis of more than one rank an MoE,
-xLSTM/Mamba or MLA arch, or heads that split while the kv heads stay
-whole; an MoE arch over more than one data-parallel rank (item 11 (b2));
-``--rollback-on-spike`` or ``--preempt-grace`` over more than one (item
-11 (c)).
+rank trains on its block of each micro-batch of the global batch (the
+``model`` ranks of one data coordinate on the same rows), and only rank 0
+prints and writes.  Under ``torch.distributed.run`` without ``--mesh``, the
+ranks form ``data=WORLD/--model-parallel, model=--model-parallel``, as the
+reference's host mesh.  An MoE arch runs over data-parallel ranks with the
+reference's global capacity and load-balance loss; heads split over
+``model`` while the kv heads stay whole attend against the whole kv heads.
+``--rollback-on-spike`` and ``--preempt-grace`` run over the mesh with one
+verdict, one flag and one writer, and every rank exits with the same code
+(0 when preempted, 3 when diverged):
+
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.train --arch bert-large --smoke --fused-lamb \
+        --steps 10 --device cpu --mesh data=2,model=1 --rollback-on-spike \
+        --checkpoint-dir /tmp/ck --checkpoint-every 2 --preempt-grace 30
+
+Over a ``model`` axis of more than one rank an MoE, xLSTM/Mamba or MLA arch
+raises ``NotImplementedError`` naming its ROADMAP.md item (11 (b2).3–5).
 
 The flags mirror ``repro.launch.train``.
 """
@@ -203,8 +211,7 @@ def build(args: argparse.Namespace, *, remat: Optional[str] = None, **trainer_kw
     mesh = _mesh_plan(args)
     if mesh is not None:
         # what a mesh does not run raises before any process group is made
-        check_mesh_supported(cfg, mesh, supervisor=args.rollback_on_spike,
-                             preempt=args.preempt_grace is not None)
+        check_mesh_supported(cfg, mesh)
         mesh, device = init_distributed(device, args.mesh,
                                         model_parallel=args.model_parallel)
     model = build_model(cfg)
@@ -238,7 +245,7 @@ def build(args: argparse.Namespace, *, remat: Optional[str] = None, **trainer_kw
     )
     trainer = Trainer(model, tc, device=device, **{**kw, **trainer_kw})
     data = DataPipeline(cfg, args.batch, args.seq, device=device, seed=args.seed,
-                        mesh=mesh)
+                        rows=trainer.batch_rows)
     return trainer, data, cfg
 
 
@@ -292,7 +299,7 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
         else:
             def make_data():
                 return DataPipeline(cfg, args.batch, args.seq, device=trainer.device,
-                                    seed=args.seed, mesh=mesh)
+                                    seed=args.seed, rows=trainer.batch_rows)
 
             trainer.fit(data, args.steps, data_factory=make_data)
     except DivergenceError as e:

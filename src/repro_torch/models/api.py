@@ -21,30 +21,26 @@ import torch
 from repro_torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import hybrid, transformer, xlstm_model
-from repro_torch.sharding.context import UNPORTED, model_parallel
+from repro_torch.sharding.context import model_parallel, unported
 
 
 def check_model_axis(cfg: ModelConfig, model: int) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP.md item 11 (b2) for what
-    a ``model`` axis of ``model`` ranks does not run: MoE (expert
-    parallelism), the xLSTM/Mamba ``inner`` axis, MLA, and heads that split
-    while the kv heads stay whole (the specs split a dimension only when the
-    axis size divides it)."""
+    """Raise ``NotImplementedError`` naming its ROADMAP.md item for what a
+    ``model`` axis of ``model`` ranks does not run: the xLSTM/Mamba
+    ``inner`` axis (item 11 (b2).4), MLA ((b2).5) and MoE (expert
+    parallelism, (b2).3).  Heads that split while the kv heads stay whole run:
+    each rank attends with its q heads against the whole kv heads."""
     if model == 1:
         return
-    if cfg.n_experts:
-        raise NotImplementedError(f"{cfg.name} routes to experts: expert parallelism "
-                                  f"over 'model' is not ported ({UNPORTED})")
     if cfg.family in ("hybrid", "ssm"):
         raise NotImplementedError(f"{cfg.name} ({cfg.family}): the xLSTM/Mamba 'inner' "
-                                  f"axis over 'model' is not ported ({UNPORTED})")
+                                  f"axis over 'model' is not ported ({unported(4)})")
     if cfg.use_mla:
         raise NotImplementedError(f"{cfg.name}: MLA over 'model' is not ported "
-                                  f"({UNPORTED})")
-    if cfg.n_heads % model == 0 and cfg.n_kv_heads % model:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.n_heads} heads split over model={model} while its "
-            f"{cfg.n_kv_heads} kv heads stay whole is not ported ({UNPORTED})")
+                                  f"({unported(5)})")
+    if cfg.n_experts:
+        raise NotImplementedError(f"{cfg.name} routes to experts: expert parallelism "
+                                  f"over 'model' is not ported ({unported(3)})")
 
 
 def _family(cfg: ModelConfig):

@@ -22,8 +22,12 @@ Over a ``model`` axis of M ranks (the ambient sharding context) whose specs
 split the heads, this rank's ``wq``/``wk``/``wv`` (and biases) hold H/M and
 Hkv/M heads: q, k and v are column-parallel products on them, attention
 (flash or dense) runs on the local heads, and ``wo`` is a row-parallel
-product summed over ``model`` (``layers/tensor_parallel.py``).  Heads
-split while kv heads stay whole, and a cache on such a mesh, raise.
+product summed over ``model`` (``layers/tensor_parallel.py``).  Where the
+heads split and the kv heads stay whole (GQA whose kv heads ``model`` does
+not divide), k and v are whole on every rank and each rank attends with
+its q heads against their global kv heads as MHA
+(``tensor_parallel.kv_heads_for_rank``), the kv gradient summed over
+``model``.  A cache on such a mesh raises.
 """
 from __future__ import annotations
 
@@ -35,9 +39,15 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import flash_sdpa
 from repro_torch.models.layers.embeddings import apply_rope
-from repro_torch.models.layers.tensor_parallel import column_matmul, row_matmul, split_axis
+from repro_torch.models.layers.tensor_parallel import (
+    column_matmul,
+    kv_head_index,
+    kv_heads_for_rank,
+    row_matmul,
+    split_axis,
+)
 from repro_torch.nn.module import Param
-from repro_torch.sharding.context import UNPORTED, model_parallel
+from repro_torch.sharding.context import model_parallel
 
 NEG_INF = -1e9
 
@@ -163,21 +173,19 @@ def attention(
     b, s, d = x.shape
     dtype = x.dtype
     dh = cfg.head_dim
-    # this rank's heads: all of them, or H/M and Hkv/M over a model axis
+    # this rank's heads: all of them, or H/M over a model axis, and Hkv/M
+    # kv heads where M divides them (else all of them)
     h, hkv = p["wq"].shape[1], p["wk"].shape[1]
     tp = split_axis(h, cfg.n_heads, model_parallel())
-    if tp is not None and hkv == cfg.n_kv_heads:
-        raise NotImplementedError(
-            f"{cfg.n_heads} heads split over model={tp.size} while the {hkv} kv heads "
-            f"stay whole is not ported ({UNPORTED})")
+    kv_tp = split_axis(hkv, cfg.n_kv_heads, tp)
     if tp is not None and cache is not None:
         raise NotImplementedError("serving on a mesh (a KV cache of split heads) is not "
                                   "ported (ROADMAP.md queue 1, item 11 (e))")
 
-    def proj(w, heads):
-        return column_matmul(x, w.to(dtype).reshape(d, heads * dh), tp).view(b, s, heads, dh)
+    def proj(w, heads, axis):
+        return column_matmul(x, w.to(dtype).reshape(d, heads * dh), axis).view(b, s, heads, dh)
 
-    q, k, v = proj(p["wq"], h), proj(p["wk"], hkv), proj(p["wv"], hkv)
+    q, k, v = proj(p["wq"], h, tp), proj(p["wk"], hkv, kv_tp), proj(p["wv"], hkv, kv_tp)
     if cfg.use_qkv_bias:
         q = q + p["bq"].to(dtype)
         k = k + p["bk"].to(dtype)
@@ -185,6 +193,10 @@ def attention(
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    if tp is not None and kv_tp is None:   # whole kv heads: this rank's q heads' rows
+        idx = kv_head_index(h, cfg.n_heads, cfg.n_kv_heads, tp, device=x.device)
+        k, v = kv_heads_for_rank(k, idx, tp), kv_heads_for_rank(v, idx, tp)
+        hkv = h
     if cache is not None and decode:
         valid = write_decode(cache, {"k": k, "v": v})
         kv_pos = torch.arange(cache["k"].shape[1], dtype=torch.int32, device=x.device)

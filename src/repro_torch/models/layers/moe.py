@@ -19,10 +19,24 @@ here reads a device value on the host.  The expert products are batched
 MoE; the JAX package leaves them to XLA's einsums).  The layer is three
 steps, :func:`dispatch`, :func:`experts` and :func:`combine`, each a
 function of its own so that each can be timed on its own.
+
+Over data-parallel ranks (the ambient context's :func:`data_parallel`),
+each rank routes its own rows of the micro-batch, and the rows of rank r
+are the r-th block of the reference's micro-batch, so rank order is the
+global token order.  Every count the reference takes over the micro-batch
+stays global: the capacity takes the global token count, an assignment's
+position within its expert is its rank-local rank plus the exclusive
+prefix over the ranks before it of their per-expert counts (one
+all-gather of each rank's (E,) counts), and the load-balance loss, the
+largest mean router probability, the drop fraction and the z-loss are
+means over the global tokens (:func:`sum_across`, whose backward sums
+every rank's share, so each rank's router gets the global term's
+derivative at the micro-batch's whole weight).  A rank's buffer holds its
+own kept assignments at the rows the whole layer gives them.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +44,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers.mlp import _ACTS, mlp, mlp_defs
 from repro_torch.nn.module import Param
+from repro_torch.sharding.collectives import gather_leaf, sum_across
+from repro_torch.sharding.context import ModelAxis, data_parallel
 
 
 def moe_defs(cfg: ModelConfig) -> dict:
@@ -51,47 +67,111 @@ def capacity(n_tokens: int, cfg: ModelConfig) -> int:
     return max(c, cfg.n_experts_per_tok)
 
 
-def route(logits: torch.Tensor, cfg: ModelConfig
+def global_tokens(t: int, dp: Optional[ModelAxis]) -> int:
+    """Tokens of the whole micro-batch, from this rank's ``t`` (every
+    data-parallel rank holds as many)."""
+    return t if dp is None else t * dp.size
+
+
+def global_sum(x: torch.Tensor, dp: Optional[ModelAxis]) -> torch.Tensor:
+    """``x`` summed over the data-parallel ranks, differentiable on each
+    (``x`` itself without them)."""
+    return x if dp is None else sum_across(x, dp.group)
+
+
+def rank_offsets(counts: torch.Tensor, dp: Optional[ModelAxis]) -> torch.Tensor:
+    """The exclusive prefix over the data-parallel ranks of their (E,)
+    per-expert counts: how many assignments to each expert the ranks
+    before this one hold (zeros without ranks)."""
+    if dp is None:
+        return torch.zeros_like(counts)
+    every = gather_leaf(counts[None], 0, dp.group)           # (ranks, E)
+    return every[:dp.index].sum(0, dtype=counts.dtype)
+
+
+def route(logits: torch.Tensor, cfg: ModelConfig, dp: Optional[ModelAxis] = None
           ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """Top-k gates (T, k), expert ids (T, k) and the aux losses, from fp32
-    router logits (T, E)."""
+    router logits (T, E); over data-parallel ranks ``dp`` the means are the
+    whole micro-batch's."""
     probs = torch.softmax(logits, dim=-1)
     gates, idx = torch.topk(probs, cfg.n_experts_per_tok, dim=-1)
     gates = gates / gates.sum(-1, keepdim=True)
 
     # Switch-Transformer load-balance loss: E · <f_e · p_e>
     e = cfg.n_experts
-    me = probs.mean(0)                                        # (E,) mean router prob
-    fe = F.one_hot(idx[:, 0], e).to(torch.float32).mean(0)    # top-1 fraction
+    top1 = F.one_hot(idx[:, 0], e).to(torch.float32)
+    if dp is None:
+        me = probs.mean(0)                                    # (E,) mean router prob
+        fe = top1.mean(0)                                     # top-1 fraction
+    else:
+        n = global_tokens(logits.shape[0], dp)
+        me = global_sum(probs.sum(0), dp) / n
+        fe = global_sum(top1.sum(0), dp) / n
     aux = {"moe_lb_loss": e * (fe * me).sum(), "moe_max_prob": me.max()}
     if cfg.router_z_coef:
-        aux["moe_z_loss"] = (torch.logsumexp(logits, dim=-1) ** 2).mean()
+        z = torch.logsumexp(logits, dim=-1) ** 2
+        aux["moe_z_loss"] = (z.mean() if dp is None else
+                             global_sum(z.sum(), dp) / global_tokens(z.shape[0], dp))
     return gates, idx, aux
 
 
-def dispatch(p: Dict[str, torch.Tensor], xf: torch.Tensor, cfg: ModelConfig):
-    """Route the tokens xf (T, d) and scatter each kept (token, slot) into
-    its expert's rows: ``(buf (E, C, d), dest (T·k,), gates (T, k), keep
-    (T·k,), aux)``; ``dest`` is E·C (the sink) for a dropped assignment."""
-    t, d = xf.shape
-    k, e = cfg.n_experts_per_tok, cfg.n_experts
-    c = capacity(t, cfg)
-    logits = xf.to(torch.float32) @ p["router"].to(torch.float32)
-    gates, idx, aux = route(logits, cfg)
+def expert_hits(idx: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """(E, T·k) int32: whether each (token, slot) assignment, in flat
+    token-major order, routes to each expert."""
+    flat_e = idx.reshape(-1)
+    return (torch.arange(n_experts, device=idx.device)[:, None]
+            == flat_e[None, :]).to(torch.int32)
 
-    # rank of each (token, slot) within its expert, in flat assignment order:
-    # the exclusive running count of its expert's hits, scanned along the
-    # last dim of the (E, T·k) hits (a scan down the T·k rows of a (T·k, E)
-    # one-hot runs one thread per expert on the card, milliseconds a layer)
-    flat_e = idx.reshape(-1)                                       # (T·k,)
-    hits = (torch.arange(e, device=xf.device)[:, None] == flat_e[None, :]).to(torch.int32)
-    pos = (torch.cumsum(hits, 1, dtype=torch.int32) - hits).gather(0, flat_e[None, :])[0]
+
+def place(xf: torch.Tensor, idx: torch.Tensor, hits: torch.Tensor, c: int,
+          offsets: Optional[torch.Tensor] = None):
+    """Scatter each (token, slot) kept under capacity ``c`` into its
+    expert's rows: ``(buf (E, C, d), dest (T·k,), keep (T·k,))``.  An
+    assignment's position within its expert is the exclusive running count
+    of its expert's ``hits`` plus ``offsets`` (E,), the assignments the
+    blocks of rows before this one route there (none without)."""
+    t, d = xf.shape
+    e, k = hits.shape[0], idx.shape[1]
+    # scanned along the last dim of the (E, T·k) hits (a scan down the T·k
+    # rows of a (T·k, E) one-hot runs one thread per expert on the card,
+    # milliseconds a layer)
+    flat_e = idx.reshape(-1)
+    scan = torch.cumsum(hits, 1, dtype=torch.int32)
+    if offsets is not None:
+        scan = scan + offsets[:, None]
+    pos = (scan - hits).gather(0, flat_e[None, :])[0]
     keep = pos < c
     dest = torch.where(keep, flat_e * c + pos, e * c)              # the sink row: dropped
 
     token_id = torch.arange(t, device=xf.device).repeat_interleave(k)
     buf = xf.new_zeros((e * c + 1, d)).index_put((dest,), xf[token_id])
-    return buf[: e * c].view(e, c, d), dest, gates, keep, aux
+    return buf[: e * c].view(e, c, d), dest, keep
+
+
+def dispatch(p: Dict[str, torch.Tensor], xf: torch.Tensor, cfg: ModelConfig,
+             dp: Optional[ModelAxis] = None):
+    """Route the tokens xf (T, d) and scatter each kept (token, slot) into
+    its expert's rows: ``(buf (E, C, d), dest (T·k,), gates (T, k), keep
+    (T·k,), aux)``; ``dest`` is E·C (the sink) for a dropped assignment.
+    Over data-parallel ranks ``dp``, C and each assignment's position are
+    the whole micro-batch's, and the buffer holds this rank's rows at the
+    whole layer's rows."""
+    c = capacity(global_tokens(xf.shape[0], dp), cfg)
+    logits = xf.to(torch.float32) @ p["router"].to(torch.float32)
+    gates, idx, aux = route(logits, cfg, dp)
+    hits = expert_hits(idx, cfg.n_experts)
+    offsets = None if dp is None else rank_offsets(hits.sum(1, dtype=torch.int32), dp)
+    buf, dest, keep = place(xf, idx, hits, c, offsets)
+    return buf, dest, gates, keep, aux
+
+
+def drop_fraction(keep: torch.Tensor, dp: Optional[ModelAxis] = None) -> torch.Tensor:
+    """The share of the micro-batch's assignments dropped past capacity."""
+    if dp is None:
+        return 1.0 - keep.to(torch.float32).mean()
+    kept = global_sum(keep.to(torch.float32).sum(), dp)
+    return 1.0 - kept / (keep.numel() * dp.size)
 
 
 def experts(p: Dict[str, torch.Tensor], buf: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -117,9 +197,10 @@ def moe(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig
     ``moe_max_prob``, ``moe_drop_fraction``, ``moe_z_loss`` when set)."""
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
-    buf, dest, gates, keep, aux = dispatch(p, xf, cfg)
+    dp = data_parallel()
+    buf, dest, gates, keep, aux = dispatch(p, xf, cfg, dp)
     out = combine(experts(p, buf, cfg), dest, gates, cfg.n_experts_per_tok)
-    aux["moe_drop_fraction"] = 1.0 - keep.to(torch.float32).mean()
+    aux["moe_drop_fraction"] = drop_fraction(keep, dp)
 
     if "shared/wi" in p:
         shared = {n[len("shared/"):]: v for n, v in p.items() if n.startswith("shared/")}

@@ -97,6 +97,45 @@ def row_matmul(h: torch.Tensor, w: torch.Tensor, tp: Optional[ModelAxis]) -> tor
     return _Row.apply(h, w, tp.group)
 
 
+class _KvHeads(torch.autograd.Function):
+    """The whole kv heads' rows for this rank's q heads; backward adds each
+    q head's rows into its kv head in fp32, sums the ranks' partials over
+    ``model`` and rounds once."""
+
+    @staticmethod
+    def forward(ctx, k, idx, group):
+        ctx.save_for_backward(idx)
+        ctx.group, ctx.shape, ctx.dtype = group, k.shape, k.dtype
+        return k.index_select(2, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        acc = torch.zeros(ctx.shape, dtype=torch.float32, device=g.device)
+        acc.index_add_(2, idx, g.to(torch.float32))
+        return all_reduce(acc, "sum", ctx.group).to(ctx.dtype), None, None
+
+
+def kv_head_index(heads: int, n_heads: int, n_kv_heads: int, tp: ModelAxis,
+                  device=None) -> torch.Tensor:
+    """The global kv head of each of this rank's ``heads`` q heads: q head
+    ``h0 + j`` (``h0`` the rank's first) reads kv head
+    ``(h0 + j)·Hkv // H``, as on one device.  Made on ``device`` (no host
+    copy)."""
+    q = torch.arange(heads, device=device) + tp.index * heads
+    return q * n_kv_heads // n_heads
+
+
+def kv_heads_for_rank(k: torch.Tensor, idx: torch.Tensor, tp: ModelAxis) -> torch.Tensor:
+    """``k`` (B, T, Hkv, Dh), whole on every ``model`` rank, as the rows of
+    this rank's q heads (B, T, h, Dh): attention then runs as MHA on the
+    rank's heads.  Each rank back-propagates only its own q heads' share,
+    so the kv heads' gradient is summed over ``model`` (in fp32, rounded
+    once); everything upstream of ``k`` (the projection, its weight and
+    bias, and ``x``) then sees the whole gradient on every rank."""
+    return _KvHeads.apply(k, idx, tp.group)
+
+
 def split_axis(local: int, whole: int, tp: Optional[ModelAxis]) -> Optional[ModelAxis]:
     """``tp`` when a dimension of ``whole`` is split over it (this rank
     holds ``local`` of it), else None: a dimension the specs keep whole

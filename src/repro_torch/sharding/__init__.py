@@ -25,6 +25,7 @@ from repro_torch.sharding.placement import (
     leaf_dims,
     opt_state_shardings,
     per_device_state_bytes,
+    rank_rows,
     shard_tree,
     train_state_shardings,
 )
@@ -45,6 +46,7 @@ __all__ = [
     "model_parallel",
     "opt_state_shardings",
     "per_device_state_bytes",
+    "rank_rows",
     "resolve_spec",
     "shard_act",
     "shard_tree",

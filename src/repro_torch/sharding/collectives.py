@@ -23,7 +23,14 @@ each rank then holds one block.
   with a sum over ``model`` backward (the input of a column-parallel
   product), and the sum forward with the identity backward (the output of
   a row-parallel one).  16-bit operands are summed in fp32 and rounded
-  once.
+  once;
+* :func:`sum_across` sums over a group with the sum's adjoint, a sum, as
+  its backward: a global quantity every rank computes from its own rows
+  (the MoE router's global means) whose gradient reaches every rank's rows;
+* :func:`agree_any`, :func:`broadcast_int` and :func:`barrier` carry
+  control flags and small integers over the mesh's host group (gloo, CPU
+  tensors): no device launch and no device synchronisation.  They are
+  never a route for device tensors.
 
 Each has a plain single-process version (``*_plain``) that takes every
 rank's operand at once: what the tests hold the collectives to.
@@ -205,6 +212,62 @@ def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else _ReduceFromModel.apply(x, group)
 
 
+class _SumAcross(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x.clone(memory_format=torch.contiguous_format), "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.clone(memory_format=torch.contiguous_format), "sum",
+                          ctx.group), None
+
+
+def sum_across(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group``, differentiable on every rank:
+    the gradient each rank receives is the sum of every rank's gradient of
+    the result, so a loss that each rank weights by its own share reaches
+    each rank's operand at the whole weight.  ``group`` None: ``x``."""
+    return x if group is None else _SumAcross.apply(x, group)
+
+
+# ---------------------------------------------------------------------------
+# host-side control: flags and small integers over the host group
+# ---------------------------------------------------------------------------
+
+def _host_int(x: int) -> torch.Tensor:
+    return torch.tensor([int(x)], dtype=torch.int64)
+
+
+def agree_any(flag: int, group) -> int:
+    """The MAX of ``flag`` over ``group`` (a CPU all-reduce): nonzero on
+    every rank once any rank's is, and the largest value itself (a signal
+    number, say).  ``group`` None: ``flag``."""
+    if group is None:
+        return int(flag)
+    t = _host_int(flag)
+    _dist().all_reduce(t, op=_op("max"), group=group)
+    return int(t.item())
+
+
+def broadcast_int(x: int, group, src: int = 0) -> int:
+    """Rank ``src``'s ``x`` on every rank of ``group`` (``src`` is a rank
+    of the run's world).  ``group`` None: ``x``."""
+    if group is None:
+        return int(x)
+    t = _host_int(x)
+    _dist().broadcast(t, src=src, group=group)
+    return int(t.item())
+
+
+def barrier(group) -> None:
+    """Wait until every rank of ``group`` has arrived.  ``group`` None:
+    return at once."""
+    if group is not None:
+        _dist().barrier(group=group)
+
+
 # ---------------------------------------------------------------------------
 # plain versions: every rank's operand at once, in one process
 # ---------------------------------------------------------------------------
@@ -249,3 +312,24 @@ def all_reduce_plain(xs: Sequence[torch.Tensor], op: str = "sum") -> torch.Tenso
     if op == "min":
         return stacked.amin(0)
     raise ValueError(f"unknown reduction {op!r}; one of {OPS}")
+
+
+def sum_across_plain(xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The sum of every rank's operand; autograd gives each operand the
+    sum's gradient, which every rank's share of a loss of the sum adds to."""
+    return torch.stack(list(xs)).sum(0)
+
+
+def agree_any_plain(flags: Sequence[int]) -> List[int]:
+    """Every rank's agreed flag: the largest of ``flags``."""
+    return [max(int(f) for f in flags)] * len(flags)
+
+
+def broadcast_int_plain(xs: Sequence[int], src: int = 0) -> List[int]:
+    """Every rank's copy of rank ``src``'s value."""
+    return [int(xs[src])] * len(xs)
+
+
+def barrier_plain(arrived: Sequence[bool]) -> bool:
+    """Whether a barrier over ranks that ``arrived`` would return: all did."""
+    return all(arrived)

@@ -13,7 +13,8 @@ dimension the data-parallel axes split, and the one ``model`` splits), and
 the norms of ``core.strategy``, ``optim.base`` and ``kernels.ops`` sum the
 partials of every split leaf over the whole world in one collective, each
 counted once (:meth:`ShardCtx.counts`).  The model's layers ask it for the
-``model`` axis (:func:`model_parallel`).  Without a context (single-process
+``model`` axis (:func:`model_parallel`), and the MoE router for the
+data-parallel axes (:func:`data_parallel`).  Without a context (single-process
 runs and unit tests) nothing changes.
 """
 from __future__ import annotations
@@ -26,8 +27,15 @@ from repro_torch.sharding.axes import Spec, batch_axes, default_act_rules, mesh_
 
 _state = threading.local()
 
-# what a mesh still does not run (ROADMAP.md queue 1): the message's label
+# what a mesh still does not run (ROADMAP.md queue 1): the message's label,
+# and each sub-item's (3: expert parallelism, 4: the xLSTM/Mamba ``inner``
+# axis, 5: MLA over ``model``)
 UNPORTED = "ROADMAP.md queue 1, item 11 (b2)"
+
+
+def unported(sub: int) -> str:
+    """The label of item 11 (b2)'s sub-item ``sub``."""
+    return f"{UNPORTED}.{sub}"
 
 
 class Layout(NamedTuple):
@@ -48,8 +56,9 @@ WHOLE = Layout()
 
 
 class ModelAxis(NamedTuple):
-    """The ``model`` axis of the ambient mesh: its process group, this
-    rank's index along it and its size (> 1)."""
+    """The ``model`` axis of the ambient mesh (or its data-parallel axes,
+    :func:`data_parallel`): its process group, this rank's index along it
+    and its size (> 1)."""
 
     group: object
     index: int
@@ -126,6 +135,16 @@ class ShardCtx:
             return None
         return ModelAxis(self.mesh.group(("model",)), self.mesh.coords()["model"], n)
 
+    @property
+    def data_axis(self) -> Optional[ModelAxis]:
+        """The data-parallel axes when the mesh is concrete and they hold
+        more than one rank, else None."""
+        axes = batch_axes(self.mesh)
+        n = self.mesh.extent(axes)
+        if n == 1 or self.mesh.abstract:
+            return None
+        return ModelAxis(self.dp_group, self.mesh.index(axes), n)
+
     def split(self, path: Optional[str]) -> bool:
         """Whether a reduction over leaf ``path`` must be summed over the
         ranks: the leaf is split along some axis of a concrete mesh."""
@@ -153,6 +172,14 @@ def model_parallel() -> Optional[ModelAxis]:
     rank: every tensor-parallel operator is then the identity)."""
     ctx = current()
     return None if ctx is None else ctx.model_axis
+
+
+def data_parallel() -> Optional[ModelAxis]:
+    """The ambient context's data-parallel axes (None without one, or at
+    one rank): what a layer that counts the global batch's tokens (the MoE
+    router) reduces over."""
+    ctx = current()
+    return None if ctx is None else ctx.data_axis
 
 
 @contextlib.contextmanager

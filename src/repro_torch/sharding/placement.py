@@ -7,8 +7,11 @@ Conventions, as in the reference:
     their parameter's spec leaf for leaf (FSDP shards the whole optimizer,
     the O(N) win for LAMB's two extra moment buffers);
   * scalar state (schedule counts, the step counters) is replicated;
-  * batches split their leading (batch) dimension over the data axes, each
-    rank one contiguous block of rows.
+  * batches split their leading (batch) dimension over the data axes: each
+    micro-batch of the step's accumulation is one contiguous run of the
+    global batch's rows, and each rank holds one contiguous block of each
+    (:func:`rank_rows`), as GSPMD shards each of the reference's
+    micro-batches.
 
 States are the port's trees (flat parameter dicts inside dataclasses);
 specs come back as ``{path: spec}`` under the checkpoint's leaf paths
@@ -18,6 +21,7 @@ from __future__ import annotations
 
 from typing import Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint.io import tree_leaves_with_paths, tree_map_with_paths
@@ -46,6 +50,22 @@ def batch_rows(n: int, mesh) -> Tuple[int, int]:
             f"size {dp} (axes {batch_axes(mesh)}); examples would be dropped")
     rows = n // dp
     return mesh.index(batch_axes(mesh)) * rows, rows
+
+
+def rank_rows(n: int, mesh, accum_steps: int = 1) -> np.ndarray:
+    """The row indices of this rank's share of an ``n``-row global batch
+    that the step cuts into ``accum_steps`` micro-batches: the rank's block
+    of each micro-batch in turn, so that its i-th micro-batch holds global
+    rows ``[i·n/a + r·n/(a·dp), …)``, rank r's block of the reference's
+    i-th micro-batch.  Raises ``ValueError`` when ``n`` does not divide
+    into the micro-batches and over the data-parallel ranks."""
+    if n % accum_steps:
+        raise ValueError(f"global batch {n} is not divisible by accum_steps "
+                         f"{accum_steps}; remainder examples would be dropped")
+    micro = n // accum_steps
+    start, rows = batch_rows(micro, mesh)
+    return np.concatenate([np.arange(i * micro + start, i * micro + start + rows)
+                           for i in range(accum_steps)])
 
 
 def opt_state_shardings(opt_state, param_specs: Mapping[str, Spec], mesh=None

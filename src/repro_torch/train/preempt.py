@@ -12,6 +12,11 @@ with the grace-window timeout.  A second delivery of the same
 signal stops absorbing and raises ``KeyboardInterrupt`` — the escape hatch
 when the grace save itself hangs.
 
+Over a mesh each process has its own handler, and the Trainer reads the
+agreed flag instead (:meth:`PreemptionHandler.agreed`): the MAX over the
+world of every rank's signal number, so every rank stops on the same batch
+when any rank has seen the signal.
+
 Handlers can only be installed from the main thread; elsewhere (e.g. a
 Trainer driven from a worker thread) the context manager degrades to a
 never-triggered no-op rather than failing.
@@ -20,6 +25,8 @@ from __future__ import annotations
 
 import signal
 from typing import Dict, Optional, Tuple
+
+from repro_torch.sharding.collectives import agree_any
 
 
 class PreemptionHandler:
@@ -31,6 +38,7 @@ class PreemptionHandler:
         self.signals = tuple(signals)
         self.triggered = False
         self.signum: Optional[int] = None
+        self._agreed: Optional[int] = None   # another rank's signal, agreed
         self._old: Dict[int, object] = {}
 
     def _on_signal(self, signum, frame) -> None:
@@ -42,9 +50,20 @@ class PreemptionHandler:
         self.triggered = True
         self.signum = signum
 
+    def agreed(self, group) -> bool:
+        """Whether any rank of ``group`` has seen a signal: the MAX of the
+        ranks' signal numbers over the host group (one CPU all-reduce).  A
+        rank that has not seen it takes the signal's name from the others
+        (this rank's own handler stays as it was)."""
+        got = agree_any(self.signum or 0, group)
+        if got and self.signum is None:
+            self._agreed = got
+        return bool(got)
+
     @property
     def signal_name(self) -> str:
-        return signal.Signals(self.signum).name if self.signum else "none"
+        num = self.signum or self._agreed
+        return signal.Signals(num).name if num else "none"
 
     def __enter__(self) -> "PreemptionHandler":
         if not self.enabled:

@@ -179,7 +179,7 @@ def make_loss_fn(model: Model) -> Callable:
 
 def _weighted_sums(
     loss_fn: Callable, params: nn.Params, batch: Dict[str, torch.Tensor], n_micro: int,
-    unreachable: frozenset = frozenset(), *, weighted: bool = True,
+    unreachable: frozenset = frozenset(), *, weighted: bool = True, seeded: bool = False,
 ) -> Tuple[nn.Params, Metrics, torch.Tensor]:
     """``(Σ_i w_i g_i, Σ_i w_i m_i, Σ_i w_i)`` over ``n_micro`` slices of
     ``batch``, ``w_i`` the slice's supervised-token count (1 when the loss
@@ -187,7 +187,13 @@ def _weighted_sums(
     ``weighted``, ``(g, m, w)`` unscaled.  ``params`` are the leaves the
     gradient is taken against (the compute-dtype copy); the ``unreachable``
     ones, which the model declares the loss does not reach, get a zero
-    gradient, as under ``jax.grad``.
+    gradient, as under ``jax.grad``.  ``seeded`` starts each backward pass
+    at ``w_i`` instead of scaling its gradients after it: a loss term that
+    every data-parallel rank computes over the whole micro-batch (the MoE
+    router's) then reaches each rank's rows at the ranks' summed weight
+    through the backward of its sum over them, whatever each rank's own
+    count.  Unseeded is the reference's order, whose bf16 roundings every
+    other run keeps.
     """
     for x in batch.values():
         if x.shape[0] % n_micro:
@@ -202,29 +208,32 @@ def _weighted_sums(
         mb = {k: x.narrow(0, i * (x.shape[0] // n_micro), x.shape[0] // n_micro)
               for k, x in batch.items()}
         loss, metrics = loss_fn(params, mb)
-        # an untied head's gradient comes back transposed from the fused CE
-        # head and is laid out again
-        grads = torch.autograd.grad(loss, leaves)
-        g = {k: t.to(torch.float32).contiguous() for k, t in zip(keys, grads)}
-        g.update({k: torch.zeros(params[k].shape, dtype=torch.float32,
-                                 device=params[k].device) for k in unreachable})
-        g = {k: g[k] for k in params}
         metrics = {k: t.detach() for k, t in metrics.items()}
         w = metrics.get(TOKEN_WEIGHT_KEY)
         if w is None:
             w = torch.ones((), dtype=torch.float32, device=loss.device)
+        # an untied head's gradient comes back transposed from the fused CE
+        # head and is laid out again
+        grads = torch.autograd.grad(loss, leaves, grad_outputs=w if seeded else None)
+        g = {k: t.to(torch.float32).contiguous() for k, t in zip(keys, grads)}
+        g.update({k: torch.zeros(params[k].shape, dtype=torch.float32,
+                                 device=params[k].device) for k in unreachable})
+        g = {k: g[k] for k in params}
         return g, metrics, w
 
     g0, m0, w0 = one(0)
     if n_micro == 1 and not weighted:
         return g0, m0, w0
-    g_acc = {k: w0 * t for k, t in g0.items()}
+    g_acc = g0 if seeded else {k: w0 * t for k, t in g0.items()}
     m_acc = {k: w0 * t for k, t in m0.items()}
     w_acc = w0
     for i in range(1, n_micro):
         g, m, w = one(i)
         for k in keys:
-            g_acc[k].add_(w * g[k])
+            if seeded:
+                g_acc[k].add_(g[k])
+            else:
+                g_acc[k].add_(w * g[k])
         m_acc = {k: m_acc[k] + w * m[k] for k in m_acc}
         w_acc = w_acc + w
     return g_acc, m_acc, w_acc
@@ -257,6 +266,7 @@ def _microbatch_grads(
 def _sharded_grads(
     loss_fn: Callable, shards: nn.Params, batch: Dict[str, torch.Tensor], n_micro: int,
     unreachable: frozenset, compute_dtype, dims: Dict[str, Optional[int]], group,
+    seeded: bool = False,
 ) -> Tuple[nn.Params, Metrics]:
     """:func:`_microbatch_grads` over the data-parallel ranks, FSDP-style.
 
@@ -274,14 +284,19 @@ def _sharded_grads(
     ranks of one data coordinate hold the same rows and the same loss, so
     the sums over ``group`` are the global batch's.  The ranks ×
     micro-batches are one token-weighted accumulation, so the result is the
-    global batch's token-mean gradient.
+    global batch's token-mean gradient.  ``seeded`` (an MoE model over more
+    than one data-parallel rank) starts each backward pass at the rank's
+    weight (:func:`_weighted_sums`), so the router's global loss terms
+    reach every rank's rows at the micro-batch's whole weight, counted once
+    in the reduce-scatter.
     """
     with torch.no_grad():
         full = {k: gather_leaf(v if compute_dtype is None or not v.is_floating_point()
                                else v.to(nn.torch_dtype(compute_dtype)), dims[k], group)
                 for k, v in shards.items()}
     full = {k: v.detach().requires_grad_(True) for k, v in full.items()}
-    g_sum, m_sum, w = _weighted_sums(loss_fn, full, batch, n_micro, unreachable)
+    g_sum, m_sum, w = _weighted_sums(loss_fn, full, batch, n_micro, unreachable,
+                                     seeded=seeded)
     del full
     with torch.no_grad():
         grads = {}
@@ -349,6 +364,10 @@ def make_train_step(model: Model, tc: TrainConfig, schedule=None, *,
         ctx = ShardCtx(mesh, param_specs=specs_for(model.defs, mesh))
         dims = {k: ctx.layout(k).data for k in ctx.param_specs}
         group = ctx.dp_group
+        # the router's global terms over more than one data rank need the
+        # seeded order (:func:`_weighted_sums`); every other run keeps the
+        # reference's, and with it the single process's bf16 roundings
+        seeded = bool(model.cfg.n_experts) and ctx.data_axis is not None
 
     def draw(seed: int, device: torch.device) -> nn.Params:
         if ctx is None:
@@ -368,7 +387,7 @@ def make_train_step(model: Model, tc: TrainConfig, schedule=None, *,
             del cast
         else:
             grads, metrics = _sharded_grads(loss_fn, params, batch, n_micro, unreachable,
-                                            compute_dtype, dims, group)
+                                            compute_dtype, dims, group, seeded)
         grads = apply_grad_faults(grads, faults)
         metrics = apply_loss_faults(metrics, faults)
         metrics["grad_norm"] = global_norm(grads)

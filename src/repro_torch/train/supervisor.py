@@ -41,6 +41,11 @@ from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
 
+# every reason TrainingSupervisor.observe can return (a mesh broadcasts its
+# index)
+TRIP_REASONS = ("nonfinite_budget", "nonfinite_loss", "loss_spike")
+
+
 class DivergenceError(RuntimeError):
     """Training diverged beyond what rollback can repair (clean abort)."""
 

@@ -30,12 +30,22 @@ default null log the step loop adds no launch, sync or transfer.
 the mesh's data-parallel ranks and tensor-parallel over its ``model``
 ranks, as the reference's ``Trainer(mesh=)``: ``init`` draws every leaf
 from the seed as a single process does and keeps this rank's block, ``fit``
-takes this rank's rows of each global batch (as ``DataPipeline(mesh=)``
-yields them, the same rows to the ``model`` ranks of one data coordinate;
-:meth:`Trainer._place_batch` cuts a global batch), the history, step log
+takes this rank's rows of each global batch (:meth:`Trainer.batch_rows`,
+which ``DataPipeline(rows=)`` takes: the same rows to the ``model`` ranks
+of one data coordinate), the history, step log
 and telemetry hold global values, and only rank 0 logs and writes.  A
 checkpoint gathers each leaf over both axes and rank 0 writes the
 single-process format, so a run restores on any mesh shape.
+
+The supervisor and preemption run over the mesh as over one process, with
+one verdict, one flag and one writer, agreed over the mesh's host group
+(gloo, CPU tensors: no device launch or synchronisation): the supervisor's
+trip reason is rank 0's, broadcast; the SIGTERM flag is the MAX over the
+world, read once a step, so every rank stops on the same batch and enters
+the grace save's gathers together; a rollback restores the step rank 0
+picks (after draining its writer) on every rank, and only rank 0 removes
+later checkpoints and re-points LATEST; a resume restores the step rank 0
+picks.  Every rank raises :class:`DivergenceError` together.
 """
 from __future__ import annotations
 
@@ -46,6 +56,7 @@ import torch
 
 from repro_torch.checkpoint import (
     AsyncCheckpointer,
+    checkpoint_path,
     checkpoint_step,
     discard_checkpoints_after,
     latest_checkpoint,
@@ -62,20 +73,30 @@ from repro_torch.models.api import Model, check_model_axis
 from repro_torch.optim.base import ScheduleState
 from repro_torch.sharding import (
     Layout,
-    batch_rows,
     dp_size,
     gather_tree,
     leaf_dims,
+    rank_rows,
     shard_tree,
     train_state_shardings,
 )
-from repro_torch.sharding.collectives import gather_block, shard_block
+from repro_torch.sharding.collectives import (
+    barrier,
+    broadcast_int,
+    gather_block,
+    shard_block,
+)
 from repro_torch.sharding.context import UNPORTED
 from repro_torch.telemetry import EventLog, SpanRecorder, TrustRecorder, run_provenance
 from repro_torch.telemetry.trust import PER_LAYER_KEY
 from repro_torch.train.preempt import PreemptionHandler
 from repro_torch.train.step import GUARD_KEY, LOSS_KEY, TRUST_KEYS, TrainState, make_train_step
-from repro_torch.train.supervisor import DivergenceError, SupervisorConfig, TrainingSupervisor
+from repro_torch.train.supervisor import (
+    TRIP_REASONS,
+    DivergenceError,
+    SupervisorConfig,
+    TrainingSupervisor,
+)
 
 # the per-step metrics the history keeps, fetched together at a log step,
 # and the extra loss terms' (MoE, MTP), kept where the loss reports them
@@ -89,30 +110,20 @@ def _batch_examples(batch) -> int:
     return int(next(iter(batch.values())).shape[0])
 
 
-def check_mesh_supported(cfg, mesh, *, supervisor: bool = False,
-                         preempt: bool = False) -> None:
+def check_mesh_supported(cfg, mesh) -> None:
     """Raise ``NotImplementedError`` naming its ROADMAP.md item for what a
-    mesh does not run yet.  Item 11 (b2): over a ``model`` axis of more than
-    one rank, an MoE model (expert parallelism), the xLSTM/Mamba ``inner``
-    axis, MLA, and attention whose heads split while its kv heads stay
-    whole; an MoE model over more than one data-parallel rank (the
-    reference's expert capacity and load-balance loss count the global
-    tokens, which a rank-local route cannot reproduce).  Item 11 (c): the
-    loss-spike rollback or preemption over more than one data-parallel
-    rank."""
+    mesh does not run yet: mesh axes besides ``pod``, ``data`` and
+    ``model`` (item 11 (b2)) and what :func:`check_model_axis` refuses over
+    ``model``."""
     other = {a: n for a, n in mesh.shape.items() if a not in ("pod", "data", "model")}
     if any(n > 1 for n in other.values()):
         raise NotImplementedError(f"mesh axes {other}: only 'pod', 'data' and 'model' "
                                   f"are ported ({UNPORTED})")
     check_model_axis(cfg, mesh.shape.get("model", 1))
-    if dp_size(mesh) > 1 and cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name} routes to experts: an MoE model over data-parallel ranks is "
-            f"not ported ({UNPORTED})")
-    if dp_size(mesh) > 1 and (supervisor or preempt):
-        raise NotImplementedError(
-            "rollback on a loss spike and preemption over data-parallel ranks are "
-            "not ported (ROADMAP.md queue 1, item 11 (c))")
+
+
+# the rank-0 verdicts a rollback broadcasts when it cannot restore
+_PAST_BUDGET, _NO_SETUP, _NO_CHECKPOINT = -1, -2, -3
 
 
 def _reset_schedule_counts(opt_state) -> None:
@@ -153,11 +164,16 @@ class Trainer:
         self.device = torch.device(device)
         self.mesh = mesh
         self._dp = 1
+        # flags and small integers agreed over the ranks (None: one process)
+        self._host = None if mesh is None else mesh.host_group
         if mesh is not None:
             if mesh.abstract:
                 raise ValueError("Trainer(mesh=) needs a concrete mesh (init_distributed)")
-            check_mesh_supported(model.cfg, mesh, supervisor=supervisor is not None,
-                                 preempt=preempt_grace is not None)
+            if mesh.size > 1 and mesh.host_group is None:
+                raise ValueError("Trainer(mesh=) over more than one rank needs the mesh's "
+                                 "host group (init_distributed), over which the ranks "
+                                 "agree on one verdict, one flag and one writer")
+            check_mesh_supported(model.cfg, mesh)
             self._dp = dp_size(mesh)
             if mesh.rank != 0:   # only rank 0 logs and writes
                 log_fn, telemetry = (lambda s: None), None
@@ -207,14 +223,23 @@ class Trainer:
         rank holds ``1/dp`` of its rows)."""
         return _batch_examples(batch) * self._dp
 
+    def batch_rows(self, n: int):
+        """The rows this rank keeps of an ``n``-row global batch: its block
+        of each of the step's ``tc.grad_accum_steps`` micro-batches
+        (``sharding.rank_rows``), so that its i-th micro-batch is its block
+        of the reference's i-th; every row without a mesh.  Raises
+        ``ValueError`` when the batch does not divide over the
+        micro-batches and the data-parallel ranks.  ``DataPipeline(rows=)``
+        takes it."""
+        if self.mesh is None:
+            return slice(None)
+        return rank_rows(n, self.mesh, self.tc.grad_accum_steps)
+
     def _place_batch(self, batch) -> Dict[str, torch.Tensor]:
         """This rank's rows of a global batch (numpy arrays or tensors), on
-        the device; raises ``ValueError`` when the batch does not divide
-        over the data-parallel ranks.  Without a mesh: the whole batch."""
-        n = _batch_examples(batch)
-        start, rows = (0, n) if self.mesh is None else batch_rows(n, self.mesh)
-        return {k: torch.as_tensor(v[start:start + rows]).to(self.device)
-                for k, v in batch.items()}
+        the device (:meth:`batch_rows`)."""
+        rows = self.batch_rows(_batch_examples(batch))
+        return {k: torch.as_tensor(v)[rows].to(self.device) for k, v in batch.items()}
 
     def state_dims(self) -> Dict[str, Layout]:
         """``{path: layout}`` over the state's leaves: the dimensions a leaf
@@ -355,10 +380,21 @@ class Trainer:
     def _maybe_resume(self, data, steps: int) -> int:
         """With ``resume=True``, restore the latest checkpoint and return the
         batch ordinal to continue from (0 when none exists), fast-forwarding
-        ``data`` past the ``step + skipped`` batches already consumed."""
+        ``data`` past the ``step + skipped`` batches already consumed.  On a
+        mesh rank 0 picks the checkpoint and every rank restores its step,
+        so no rank lists a directory that rank 0's writer is changing."""
         if not self.resume:
             return 0
-        step = self.restore()
+        if self.mesh is None:
+            step = self.restore()
+        else:
+            found = -1
+            if self.is_writer and self.checkpoint_dir:
+                path = latest_checkpoint(self.checkpoint_dir)
+                found = -1 if path is None else checkpoint_step(path)
+            found = broadcast_int(found, self._host)
+            step = (None if found < 0 else
+                    self.restore(checkpoint_path(self.checkpoint_dir, found)))
         if step is None:
             return 0
         self._last_saved_step = step
@@ -488,7 +524,8 @@ class Trainer:
                         consecutive=supervisor.consecutive_skips + 1)
                     self.log(f"non-finite step skipped at batch {i} "
                              f"(total skipped {skipped_now})")
-                reason = supervisor.observe(step_now, loss, skipped_now)
+                reason = self._agreed_reason(
+                    supervisor.observe(step_now, loss, skipped_now))
                 if reason is not None:
                     i, data = self._rollback(reason, supervisor, i, step_now, data_factory)
                     since_log = 0
@@ -514,12 +551,29 @@ class Trainer:
                     and (i + 1) % self.checkpoint_every == 0):
                 self._save_checkpoint()
             i += 1
-            if preempt.triggered:
+            if self._stop_requested(preempt):
                 self._handle_preempt(preempt)
                 self._status = "preempted"
                 break
 
     # ------------------------------------------------------------------
+    def _agreed_reason(self, reason: Optional[str]) -> Optional[str]:
+        """The supervisor's trip reason, rank 0's on every rank of a mesh
+        (one broadcast over the host group a step)."""
+        if self._host is None:
+            return reason
+        code = broadcast_int(0 if reason is None else TRIP_REASONS.index(reason) + 1,
+                             self._host)
+        return TRIP_REASONS[code - 1] if code else None
+
+    def _stop_requested(self, preempt: PreemptionHandler) -> bool:
+        """Whether the run stops for a signal: this process's flag, or on a
+        mesh with ``preempt_grace`` the MAX over every rank's (one host
+        all-reduce a step), so every rank stops on the same batch."""
+        if self._host is None or self.preempt_grace is None:
+            return preempt.triggered
+        return preempt.agreed(self._host)
+
     def _rollback(self, reason: str, supervisor: TrainingSupervisor, i: int,
                   trip_step: int, data_factory: Optional[Callable[[], Any]]):
         """Restore the last validated checkpoint and fast-forward the data
@@ -532,25 +586,54 @@ class Trainer:
         read from disk, every leaf a new tensor: the fused path updates
         params in place, and nothing of the pre-trip state (or of the async
         writer's host buffers) survives.
+
+        On a mesh the verdict is rank 0's: it drains its writer (a
+        checkpoint at or below ``last_good`` may still be in flight), all
+        ranks meet at a barrier, it picks the checkpoint and broadcasts its
+        step (or why there is none, and every rank raises), every rank
+        restores that step's block, and rank 0 alone removes the later
+        checkpoints and re-points LATEST before a barrier.
         """
         diag = supervisor.diagnostics(reason)
         self.log(f"supervisor trip: {reason} at batch {i} "
                  f"(step {trip_step}, last_good {supervisor.last_good})")
-        supervisor.note_rollback(reason)  # raises DivergenceError past budget
-        if not self.checkpoint_dir or data_factory is None:
+        failure: Optional[DivergenceError] = None
+        try:
+            supervisor.note_rollback(reason)  # raises DivergenceError past budget
+        except DivergenceError as e:
+            failure = e
+        verdict = _NO_CHECKPOINT
+        if self.is_writer:
+            if failure is not None:
+                verdict = _PAST_BUDGET
+            elif not self.checkpoint_dir or data_factory is None:
+                verdict = _NO_SETUP
+            else:
+                self._drain_checkpoints()
+        barrier(self._host)
+        bound = supervisor.last_good
+        if self.is_writer and verdict == _NO_CHECKPOINT:
+            path = (latest_checkpoint(self.checkpoint_dir, max_step=bound)
+                    if bound >= 0 else None)
+            if path is not None:
+                verdict = checkpoint_step(path)
+        verdict = broadcast_int(verdict, self._host)
+        if verdict == _PAST_BUDGET:
+            raise failure or DivergenceError(
+                f"diverged: {reason} persisted through "
+                f"{supervisor.cfg.max_rollbacks} rollback(s)", diag)
+        if verdict == _NO_SETUP:
             raise DivergenceError(
                 f"diverged ({reason}): rollback needs checkpoint_dir and a "
                 "data_factory", diag)
-        self._drain_checkpoints()
-        bound = supervisor.last_good
-        path = (latest_checkpoint(self.checkpoint_dir, max_step=bound)
-                if bound >= 0 else None)
-        if path is None:
+        if verdict == _NO_CHECKPOINT:
             raise DivergenceError(
                 f"diverged ({reason}) before any validated checkpoint "
                 f"(last_good step {bound})", diag)
-        restored_step = self.restore(path)
-        removed = discard_checkpoints_after(self.checkpoint_dir, restored_step)
+        restored_step = self.restore(checkpoint_path(self.checkpoint_dir, verdict))
+        removed = (discard_checkpoints_after(self.checkpoint_dir, restored_step)
+                   if self.is_writer else [])
+        barrier(self._host)   # LATEST re-pointed before any rank's next save
         self._last_saved_step = restored_step
         restored_skipped = int(self.state.skipped)
         restored_i = restored_step + restored_skipped
@@ -570,17 +653,23 @@ class Trainer:
 
     def _handle_preempt(self, preempt: PreemptionHandler) -> None:
         """Grace-window final save: persist the current full TrainState
-        through the existing checkpointer, bounded by ``preempt_grace``."""
+        through the existing checkpointer, bounded by ``preempt_grace``.  On
+        a mesh every rank enters the save's gathers together and rank 0
+        writes (and, async, drains within the window before a barrier);
+        ``saved`` is rank 0's, broadcast."""
         step = int(self.state.step)
         saved = False
         if self.checkpoint_dir:
             self._save_checkpoint()
             if self.async_checkpoint:
-                self._drain_checkpoints(timeout=self.preempt_grace)
-                saved = (self._checkpointer is not None
-                         and self._checkpointer.latest_persisted_step() == step)
+                if self.is_writer:
+                    self._drain_checkpoints(timeout=self.preempt_grace)
+                    saved = (self._checkpointer is not None
+                             and self._checkpointer.latest_persisted_step() == step)
+                barrier(self._host)
             else:
                 saved = True
+        saved = bool(broadcast_int(int(saved), self._host))
         self.telemetry.emit("preempt", step=step, signal=preempt.signal_name, saved=saved,
                             grace_s=float(self.preempt_grace or 0.0))
         self.log(f"preempted ({preempt.signal_name}): step {step} saved={saved}; "
@@ -625,7 +714,8 @@ class Trainer:
             # on a mesh each stage's batch must split over the ranks (the
             # pipeline raises before the stage trains)
             data = DataPipeline(self.model.cfg, stage.batch_size, stage.seq_len,
-                                device=self.device, seed=data_seed + si, mesh=self.mesh)
+                                device=self.device, seed=data_seed + si,
+                                rows=self.batch_rows)
             since_log = 0
             for i in range(stage.steps):
                 if telem and since_log == 0:

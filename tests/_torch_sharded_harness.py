@@ -46,6 +46,37 @@ Tensor parallelism (a ``model`` axis of more than one rank):
                runs with the column products' input-gradient sum dropped: the trust
                ratios, and the first step's grad norm, must move past the
                bound
+
+Robustness over the mesh (one verdict, one flag, one writer):
+
+  host_collectives  agree_any, broadcast_int, barrier and sum_across on
+               real ranks against their plain versions
+  spike_rollback  an injected loss spike trips the supervisor on every
+               rank; the rollback's events, final step and params against
+               the single process (rank 0 runs it)
+
+``--victim`` runs one training world instead (TINY, fused LAMB, async
+checkpoints unless ``--sync-checkpoint``; each rank writes
+``--json PATH.rank<r>``, rank 0 with the history): ``--kill-after-batches
+N`` / ``--kill-at-save SAVE:LEAF`` SIGKILL rank 0 (the parent then kills
+the other ranks: no rank waits for gloo's timeout), ``--term-at R:N,...``
+sends rank R SIGTERM when it pulls batch N, ``--timeout`` kills a world
+that does not finish (exit 124).
+
+The model axis's GQA and MoE over data ranks:
+
+  gqa          smollm-smoke (3 heads, 1 kv head) and a straddling GQA
+               config (6 heads, 2 kv heads) at data=1,model=3: fp32 and
+               bf16 runs against the single process, and fp32 with the kv
+               gradient's sum over ``model`` dropped (planted)
+  moe_data     granite-moe-smoke with a capacity that drops tokens, at
+               data=2 with accum 1 and 2, deepseek-smoke and jamba-smoke
+               at accum 2, and granite at accum 2 with half of one rank's
+               labels IGNORE (unequal supervised counts), against the
+               single process; and with a rank-local capacity, rank-local
+               offsets, a rank-local load-balance loss, or the backward
+               scaled by each rank's count after it rather than seeded
+               with it (planted)
 """
 from __future__ import annotations
 
@@ -53,9 +84,11 @@ import argparse
 import dataclasses
 import json
 import os
+import signal
 import socket
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -66,12 +99,13 @@ from repro_torch.configs import smoke_config
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core import make_stage
 from repro_torch.data import DataPipeline
+from repro_torch.data.synthetic import IGNORE
 from repro_torch.launch.mesh import init_distributed, shutdown_distributed
 from repro_torch.models import build_model
 from repro_torch.sharding import ShardCtx, dp_size, leaf_dims, per_device_state_bytes, specs_for
 from repro_torch.sharding import collectives as C
 from repro_torch.telemetry import EventLog
-from repro_torch.train import FaultInjector, FaultSpec, Trainer, TrainState
+from repro_torch.train import FaultInjector, FaultSpec, SupervisorConfig, Trainer, TrainState
 from repro_torch.train.step import make_train_step
 
 TINY = ModelConfig(
@@ -235,7 +269,7 @@ def _equiv(c: Ctx, scenario: str, variant: str, cfg, tc) -> dict:
                                else _single(model, tc, state, cfg))
     tr = _quiet(model, tc, c.mesh, telemetry=EventLog.memory())
     tr.place_state(state)
-    tr.fit(DataPipeline(cfg, BATCH, SEQ, device="cpu", seed=0, mesh=c.mesh), STEPS)
+    tr.fit(DataPipeline(cfg, BATCH, SEQ, device="cpu", seed=0, rows=tr.batch_rows), STEPS)
     whole = tr.gather_state()
     if not c.rank0:
         return {}
@@ -320,7 +354,7 @@ def scenario_memory(c: Ctx) -> dict:
     model = build_model(cfg)
     log = EventLog.memory()
     tr = _quiet(model, tc, c.mesh, telemetry=log)
-    tr.fit(DataPipeline(cfg, BATCH, SEQ, device="cpu", seed=0, mesh=c.mesh), 1)
+    tr.fit(DataPipeline(cfg, BATCH, SEQ, device="cpu", seed=0, rows=tr.batch_rows), 1)
     events = C.all_reduce(torch.tensor([len(log.events)]), "sum", c.mesh.group(("data",)))
     fsdp = (per_device_state_bytes(tr.state.params, c.mesh)
             + per_device_state_bytes(tr.state.opt_state, c.mesh))
@@ -337,13 +371,13 @@ def scenario_memory(c: Ctx) -> dict:
 def scenario_guards(c: Ctx) -> dict:
     n = c.mesh.size + 1   # rows that do not split over the ranks
     out = {}
+    tr = _quiet(build_model(TINY), TrainConfig(optimizer="lamb"), c.mesh)
+    tr.init()
     try:
-        DataPipeline(TINY, n, SEQ, device="cpu", mesh=c.mesh)
+        DataPipeline(TINY, n, SEQ, device="cpu", rows=tr.batch_rows)
         out["pipeline_raises"] = False
     except ValueError as e:
         out["pipeline_raises"], out["pipeline_msg"] = True, str(e)
-    tr = _quiet(build_model(TINY), TrainConfig(optimizer="lamb"), c.mesh)
-    tr.init()
     try:
         tr._place_batch({"tokens": np.zeros((n, SEQ), np.int32)})
         out["trainer_raises"] = False
@@ -370,14 +404,14 @@ def scenario_nan_skip(c: Ctx, steps: int = 6, poison_at: int = 2) -> dict:
     tc = TrainConfig(optimizer="lamb", learning_rate=1e-3, use_fused_lamb=True,
                      skip_nonfinite=True)
     model = build_model(TINY)
-    data = DataPipeline(TINY, BATCH, SEQ, device="cpu", seed=0, mesh=c.mesh)
+    tr = _quiet(model, tc, c.mesh)
+    data = DataPipeline(TINY, BATCH, SEQ, device="cpu", seed=0, rows=tr.batch_rows)
     if c.mesh.rank == c.mesh.size - 1:
         data = FaultInjector([FaultSpec("grad_nan", at=poison_at)]).wrap(data)
-    tr = _quiet(model, tc, c.mesh)
     tr.fit(data, steps)
     clean = _quiet(model, tc, c.mesh)
     clean.fit(_drop_ordinal(DataPipeline(TINY, BATCH, SEQ, device="cpu", seed=0,
-                                         mesh=c.mesh), poison_at), steps - 1)
+                                         rows=clean.batch_rows), poison_at), steps - 1)
     skipped = [C.all_reduce(tr.state.skipped.clone(), op, c.world) for op in ("min", "max")]
     a, b = tr.gather_state(), clean.gather_state()
     if not c.rank0:
@@ -397,7 +431,7 @@ def _ckpt_run(mesh, ckpt: str, *, accum: int = 1, **kw) -> Trainer:
     tc = dataclasses.replace(CKPT_TC, accum_steps=accum)
     tr = _quiet(build_model(TINY), tc, mesh, checkpoint_dir=ckpt,
                 checkpoint_every=2, **kw)
-    tr.fit(DataPipeline(TINY, BATCH, SEQ, device="cpu", seed=0, mesh=mesh), STEPS)
+    tr.fit(DataPipeline(TINY, BATCH, SEQ, device="cpu", seed=0, rows=tr.batch_rows), STEPS)
     return tr
 
 
@@ -526,6 +560,262 @@ def scenario_tp_planted(c: Ctx) -> dict:
     return out
 
 
+def scenario_host_collectives(c: Ctx) -> dict:
+    """The host group's helpers and ``sum_across`` on real ranks against
+    their plain versions over every rank's operands (one seed on all)."""
+    mesh, host = c.mesh, c.mesh.host_group
+    n, r = mesh.size, mesh.rank
+    flags = [0] * n
+    flags[n - 1] = 15
+    out = {"agree_any_one": C.agree_any(flags[r], host) == C.agree_any_plain(flags)[r],
+           "agree_any_none": C.agree_any(0, host) == C.agree_any_plain([0] * n)[r]}
+    xs = [7 * i + 3 for i in range(n)]
+    out["broadcast_int"] = C.broadcast_int(xs[r], host) == C.broadcast_int_plain(xs)[r]
+    C.barrier(host)
+    out["barrier"] = C.barrier_plain([True] * n)
+    gen = torch.Generator().manual_seed(0)
+    parts = [torch.randn(6, generator=gen) for _ in range(n)]
+    dy = torch.randn(6, generator=gen)
+    mine = parts[r].clone().requires_grad_()
+    got = C.sum_across(mine, c.world)
+    (got * dy).sum().backward()
+    plain = [p.clone().requires_grad_() for p in parts]
+    # every rank's share of the loss: each rank's copy of the sum, weighted
+    sum((C.sum_across_plain(plain) * dy).sum() for _ in range(n)).backward()
+    out["sum_across_fwd"] = float((got - C.sum_across_plain(parts)).detach().abs().max())
+    out["sum_across_bwd"] = float((mine.grad - plain[r].grad).abs().max())
+    ok = C.agree_any(0 if all(v is True or (not isinstance(v, bool) and v < 1e-5)
+                              for v in out.values()) else 1, host)
+    out["every_rank"] = ok == 0
+    return out if c.rank0 else {}
+
+
+SPIKE_TC = TrainConfig(optimizer="lamb", learning_rate=1e-3, use_fused_lamb=True)
+
+
+def spike_run(mesh, ckpt: str, steps: int = 10, every: int = 2, spike_at: int = 5,
+              accum: int = 1, init: str = "") -> Trainer:
+    """The reference's ``spike_rollback`` on the port: TINY with a x100 loss
+    spike injected at batch ``spike_at``, checkpoints every ``every``
+    batches, the supervisor on (window 8, 3 losses of history)."""
+    tc = dataclasses.replace(SPIKE_TC, accum_steps=accum)
+    model = build_model(TINY)
+    inj = FaultInjector([FaultSpec("loss_spike", at=spike_at, scale=100.0)])
+
+    def make_data():
+        return inj.wrap(DataPipeline(TINY, BATCH, SEQ, device="cpu", seed=0,
+                                     rows=tr.batch_rows))
+
+    tr = _quiet(model, tc, mesh, checkpoint_dir=ckpt, checkpoint_every=every,
+                supervisor=SupervisorConfig(spike_window=8, min_history=3),
+                telemetry=EventLog.memory())
+    tr.place_state(initial_state(TINY, tc, init))
+    tr.fit(make_data(), steps, data_factory=make_data)
+    return tr
+
+
+def _events(tr, kind: str, keys) -> list:
+    return [{k: e.get(k) for k in keys} for e in tr.telemetry.events if e["event"] == kind]
+
+
+ROLLBACK_KEYS = ("reason", "step", "from_step", "batches_dropped", "rollbacks")
+RUN_END_KEYS = ("status", "final_step", "rollbacks")
+
+
+def scenario_spike_rollback(c: Ctx) -> dict:
+    """The rollback on the mesh and in one process (rank 0; ``accum_steps``
+    = the data-parallel size, so its micro-batches are the ranks'): the
+    trip on every rank (the final steps all-reduced), only rank 0 writing
+    (its directory, and the other ranks' events), the events, the final
+    step and status, and the params."""
+    from unittest import mock
+
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.train import trainer as trainer_mod
+
+    ckpt = os.path.join(c.out, "spike_ckpt")
+    calls = {"latest": 0, "discard": 0}
+
+    def counted(name, fn):
+        def call(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return call
+
+    with mock.patch.object(ckpt_io, "_write_latest", counted("latest", ckpt_io._write_latest)), \
+            mock.patch.object(trainer_mod, "discard_checkpoints_after",
+                              counted("discard", trainer_mod.discard_checkpoints_after)):
+        tr = spike_run(c.mesh, ckpt, init=c.init)
+    # every rank's counts: which ranks wrote LATEST and discarded
+    mine = torch.zeros(2, c.mesh.size, dtype=torch.int64)
+    mine[:, c.mesh.rank] = torch.tensor([calls["latest"], calls["discard"]])
+    by_rank = C.all_reduce(mine, "sum", c.world).tolist()
+    whole = tr.gather_state()
+    steps = [int(C.all_reduce(tr.state.step.clone(), op, c.world)) for op in ("min", "max")]
+    others = int(C.all_reduce(torch.tensor([0 if c.rank0 else len(tr.telemetry.events)]),
+                              "sum", c.world))
+    if not c.rank0:
+        return {}
+    one = spike_run(None, os.path.join(c.out, "spike_ckpt_single"), accum=c.dp, init=c.init)
+    np.savez(os.path.join(c.out, "spike_rollback.npz"),
+             **{k: v.numpy() for k, v in whole.params.items()})
+    return {
+        "rollback": _events(tr, "rollback", ROLLBACK_KEYS),
+        "run_end": _events(tr, "run_end", RUN_END_KEYS),
+        "single_rollback": _events(one, "rollback", ROLLBACK_KEYS),
+        "single_run_end": _events(one, "run_end", RUN_END_KEYS),
+        "final_steps": steps,
+        "losses": _losses(tr),
+        "single_losses": _losses(one),
+        "param_maxdiff": maxdiff(whole.params, one.state.params),
+        "events_other_ranks": others,
+        "latest_writes_by_rank": by_rank[0],
+        "discards_by_rank": by_rank[1],
+        "checkpoints": sorted(n for n in os.listdir(ckpt) if n.startswith("step_")),
+        "latest": open(os.path.join(ckpt, "LATEST")).read().strip(),
+    }
+
+
+# ---------------------------------------------------------------------------
+# the model axis's GQA, MoE over data ranks
+# ---------------------------------------------------------------------------
+
+GQA_STRADDLE = ModelConfig(
+    name="gqa-straddle", family="dense", n_layers=2, d_model=96, n_heads=6,
+    n_kv_heads=2, head_dim=16, d_ff=192, vocab_size=384, tie_embeddings=True,
+    use_flash_kernel=True,
+)
+
+
+def gqa_variants():
+    """``{variant: (config, TrainConfig)}``: smollm-smoke (MQA: 3 heads, one
+    kv head, dense attention) and the straddling config (flash), fused
+    LAMB, in fp32 activations and in bf16."""
+    tc = TrainConfig(optimizer="lamb", learning_rate=1e-3, use_fused_lamb=True)
+    bf16 = dataclasses.replace(tc, precision="bf16")
+    out = {}
+    for name, cfg in (("smollm", smoke_config("smollm-360m")), ("straddle", GQA_STRADDLE)):
+        out[f"{name}_f32"] = (cfg.replace(activation_dtype="float32"), tc)
+        out[f"{name}_bf16"] = (cfg, bf16)
+    return out
+
+
+def scenario_gqa(c: Ctx) -> dict:
+    """Each run against the single process; the fp32 runs again with the
+    kv heads' gradient left as each rank's partial (the sum over ``model``
+    dropped), which must fail the bound."""
+    from unittest import mock
+
+    from repro_torch.models.layers import tensor_parallel as tp
+
+    out = {v: _equiv(c, "gqa", v, cfg, tc) for v, (cfg, tc) in gqa_variants().items()}
+
+    def partial_only(ctx, g):
+        with mock.patch.object(tp, "all_reduce", lambda x, op, group: x):
+            return kv_backward(ctx, g)
+
+    kv_backward = tp._KvHeads.backward
+    with mock.patch.object(tp._KvHeads, "backward", staticmethod(partial_only)):
+        out["planted"] = {v: _equiv(c, "gqa_planted", v, *gqa_variants()[v])
+                          for v in ("smollm_f32", "straddle_f32")}
+    return out
+
+
+def moe_config(arch: str = "granite-moe-1b-a400m"):
+    """``arch``'s smoke config in fp32 activations with a capacity that
+    drops tokens, and the router z-loss on."""
+    return smoke_config(arch).replace(
+        activation_dtype="float32", capacity_factor=0.5, router_z_coef=1e-3)
+
+
+MOE_KEYS = ("loss/total", "loss/moe_lb", "moe/drop_fraction", "loss/moe_z")
+# the other MoE families over data ranks: deepseek (MLA, a dense prefix,
+# MTP) and jamba (Mamba and attention layers, MoE every other layer)
+MOE_FAMILIES = {"deepseek": "deepseek-v3-671b", "jamba": "jamba-1.5-large-398b"}
+
+
+def masked_batches(batches, blocks: int, accum: int):
+    """Each global batch with half the labels of the last of the
+    ``blocks`` data blocks of each of its ``accum`` micro-batches set
+    IGNORE: that rank's supervised count is half each other rank's."""
+    micro = BATCH // accum
+    last = [j for j in range(BATCH) if (j % micro) // (micro // blocks) == blocks - 1]
+    for b in batches:
+        labels = b["labels"].clone()
+        labels[last, SEQ // 2:] = IGNORE
+        yield dict(b, labels=labels)
+
+
+def _moe_run(c: Ctx, accum: int, mesh, arch: str, masked: bool) -> Trainer:
+    cfg = moe_config(arch)
+    tc = TrainConfig(optimizer="lamb", learning_rate=1e-3, use_fused_lamb=True,
+                     accum_steps=accum)
+    model = build_model(cfg)
+    tr = _quiet(model, tc, mesh)
+    tr.place_state(initial_state(cfg, tc, c.init))
+    if masked:   # the same global batches in both runs, then this rank's rows
+        data = map(tr._place_batch, masked_batches(
+            DataPipeline(cfg, BATCH, SEQ, device="cpu", seed=0), c.dp, accum))
+    else:
+        data = DataPipeline(cfg, BATCH, SEQ, device="cpu", seed=0, rows=tr.batch_rows)
+    tr.fit(data, STEPS)
+    return tr
+
+
+def _moe_entry(c: Ctx, accum: int, tag: str, arch: str = "granite-moe-1b-a400m",
+               masked: bool = False) -> dict:
+    tr = _moe_run(c, accum, c.mesh, arch, masked)
+    whole = tr.gather_state()
+    if not c.rank0:
+        return {}
+    np.savez(os.path.join(c.out, f"moe_{tag}.npz"),
+             **{k: v.numpy() for k, v in whole.params.items()})
+    one = _moe_run(c, accum, None, arch, masked)
+    rows = list(zip(tr.history, one.history))
+    return {"metrics": {k: [h[k] for h in tr.history] for k in MOE_KEYS},
+            "single": {k: [h[k] for h in one.history] for k in MOE_KEYS},
+            "supervised": [h["tokens/supervised"] for h in tr.history],
+            "metric_diff": {k: max(abs(a[k] - b[k]) for a, b in rows) for k in MOE_KEYS},
+            "param_maxdiff": maxdiff(whole.params, one.state.params)}
+
+
+def _post_scaled(grad):
+    """``torch.autograd.grad`` that scales the gradients by a scalar seed
+    after the backward pass instead of starting it there."""
+    def call(outputs, inputs, grad_outputs=None, **kw):
+        if grad_outputs is None or grad_outputs.dim():
+            return grad(outputs, inputs, grad_outputs=grad_outputs, **kw)
+        return tuple(grad_outputs * g for g in grad(outputs, inputs, **kw))
+    return call
+
+
+def scenario_moe_data(c: Ctx) -> dict:
+    """granite-moe at accum 1 and 2, deepseek and jamba at accum 2, and
+    granite at accum 2 with unequal supervised counts over the ranks; then
+    accum 2 under each plant."""
+    from unittest import mock
+
+    from repro_torch.models.layers import moe
+
+    out = {f"accum{a}": _moe_entry(c, a, f"accum{a}") for a in (1, 2)}
+    out.update({name: _moe_entry(c, 2, name, arch) for name, arch in MOE_FAMILIES.items()})
+    out["masked"] = _moe_entry(c, 2, "masked", masked=True)
+    plants = {
+        "local_capacity": (moe, "global_tokens", lambda t, dp: t),
+        "local_offsets": (moe, "rank_offsets", lambda counts, dp: torch.zeros_like(counts)),
+        "local_lb": (moe, "global_sum", lambda x, dp: x * (1 if dp is None else dp.size)),
+    }
+    out["planted"] = {}
+    for name, (mod, attr, fn) in plants.items():
+        with mock.patch.object(mod, attr, fn):
+            out["planted"][name] = _moe_entry(c, 2, f"planted_{name}")
+    # each rank's backward at weight 1, scaled by its own count after: the
+    # router's global terms then reach the ranks at 2·w_r, not Σ_r w_r
+    with mock.patch.object(torch.autograd, "grad", _post_scaled(torch.autograd.grad)):
+        out["planted"]["post_scaled"] = _moe_entry(c, 2, "planted_post_scaled", masked=True)
+    return out if c.rank0 else {}
+
+
 SCENARIOS = {
     "collectives": scenario_collectives,
     "equiv": scenario_equiv,
@@ -539,7 +829,106 @@ SCENARIOS = {
     "tp_collectives": scenario_tp_collectives,
     "tp_equiv": scenario_tp_equiv,
     "tp_planted": scenario_tp_planted,
+    "host_collectives": scenario_host_collectives,
+    "spike_rollback": scenario_spike_rollback,
+    "gqa": scenario_gqa,
+    "moe_data": scenario_moe_data,
 }
+# run only when named
+NAMED_ONLY = ("tp_", "host_collectives", "spike_rollback", "gqa", "moe_data")
+
+
+# ---------------------------------------------------------------------------
+# victim worlds: a training run killed, preempted or resumed
+# ---------------------------------------------------------------------------
+
+def _kill_after_batches(data, n: int):
+    """Serve ``n`` batches, then SIGKILL this process on the next request."""
+    served = 0
+    while True:
+        if served >= n:
+            os.kill(os.getpid(), signal.SIGKILL)
+        served += 1
+        yield next(data)
+
+
+def _term_after_batches(data, n: int):
+    """Send this process SIGTERM once, when batch ``n`` is requested, and
+    keep serving: the graceful preemption."""
+    served = 0
+    while True:
+        if served == n:
+            os.kill(os.getpid(), signal.SIGTERM)
+        served += 1
+        yield next(data)
+
+
+def _arm_mid_save_kill(save_idx: int, leaf_idx: int) -> None:
+    """SIGKILL during this process's ``save_idx``-th checkpoint write, once
+    ``leaf_idx`` leaves are on disk (before the rename publishes it)."""
+    from repro_torch.checkpoint import io as ckpt_io
+
+    seen = {"saves": 0}
+
+    def hook(i, _tmp):
+        if i == 0:
+            seen["saves"] += 1
+        if seen["saves"] == save_idx and i == leaf_idx:
+            os.kill(os.getpid(), signal.SIGKILL)
+
+    ckpt_io.after_leaf_write = hook
+
+
+def victim_main(args) -> None:
+    torch.set_num_threads(1)
+    mesh, _ = init_distributed("cpu", args.mesh)
+    try:
+        r = mesh.rank
+        if r == 0 and args.kill_at_save:
+            _arm_mid_save_kill(*(int(x) for x in args.kill_at_save.split(":")))
+        tr = Trainer(build_model(TINY), CKPT_TC, device="cpu", mesh=mesh,
+                     checkpoint_dir=args.ckpt_dir or None, checkpoint_every=args.every,
+                     async_checkpoint=not args.sync_checkpoint, resume=args.resume,
+                     preempt_grace=args.preempt_grace, log_every=1, log_fn=lambda s: None)
+        data = DataPipeline(TINY, BATCH, SEQ, device="cpu", seed=0, rows=tr.batch_rows)
+        if r == 0 and args.kill_after_batches is not None:
+            data = _kill_after_batches(data, args.kill_after_batches)
+        term = dict(tuple(int(x) for x in item.split(":"))
+                    for item in args.term_at.split(",") if item)
+        if r in term:
+            data = _term_after_batches(data, term[r])
+        tr.fit(data, args.steps)
+        blob = {"rank": r, "final_step": int(tr.state.step), "status": tr._status,
+                "skipped": int(tr.state.skipped), "examples_seen": tr.examples_seen}
+        if r == 0:
+            blob["history"] = tr.history
+        if args.json:
+            with open(f"{args.json}.rank{r}", "w") as f:
+                json.dump(blob, f)
+    finally:
+        shutdown_distributed()
+
+
+def _wait_world(procs, timeout: float, expect_kill: bool) -> int:
+    """Wait for a victim world: every rank (exit code the worst one's), or
+    with ``expect_kill`` rank 0's SIGKILL, after which the other ranks are
+    killed (0 when rank 0 died of SIGKILL).  Past ``timeout`` every rank is
+    killed and the world exits 124."""
+    deadline = time.monotonic() + timeout
+    watch = procs[:1] if expect_kill else procs
+    while any(p.poll() is None for p in watch):
+        if time.monotonic() > deadline:
+            for p in procs:
+                p.kill()
+                p.wait()
+            return 124
+        time.sleep(0.05)
+    if expect_kill:
+        for p in procs[1:]:
+            p.kill()
+            p.wait()
+        return 0 if procs[0].returncode == -signal.SIGKILL else 1
+    return max(abs(p.returncode) for p in procs)
 
 
 def rank_main(args) -> None:
@@ -548,7 +937,7 @@ def rank_main(args) -> None:
     c = Ctx(mesh, args.out, args.init)
     report = {"world": mesh.size, "mesh": mesh.shape}
     try:
-        for name in args.scenarios or [s for s in SCENARIOS if not s.startswith("tp_")]:
+        for name in args.scenarios or [s for s in SCENARIOS if not s.startswith(NAMED_ONLY)]:
             kw = ({"restore": args.restore, "restore_mesh": args.restore_mesh}
                   if name == "checkpoint" else {})
             report[name] = SCENARIOS[name](c, **kw)
@@ -574,32 +963,59 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", default="")
     ap.add_argument("--restore-mesh", default="")
     ap.add_argument("--rank", type=int, default=None)
+    ap.add_argument("--victim", action="store_true")
+    ap.add_argument("--json", default="")
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--every", type=int, default=2)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--sync-checkpoint", action="store_true")
+    ap.add_argument("--kill-after-batches", type=int, default=None)
+    ap.add_argument("--kill-at-save", default="", metavar="SAVE:LEAF")
+    ap.add_argument("--term-at", default="", metavar="RANK:BATCH,...")
+    ap.add_argument("--preempt-grace", type=float, default=None)
+    ap.add_argument("--timeout", type=float, default=600.0)
     ap.add_argument("scenarios", nargs="*")
     args = ap.parse_args(argv)
     if args.rank is not None:
-        rank_main(args)
+        victim_main(args) if args.victim else rank_main(args)
         return 0
-    os.makedirs(args.out, exist_ok=True)
-    env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
-               WORLD_SIZE=str(args.world), OMP_NUM_THREADS="1")
+    expect_kill = args.victim and bool(args.kill_after_batches is not None
+                                       or args.kill_at_save)
     own = list(sys.argv[1:] if argv is None else argv)
+    return run_world(own, args.world, args.out, args.timeout, expect_kill)
+
+
+def run_world(argv, world: int, out: str, timeout: float = 600.0,
+              expect_kill: bool = False, rank0_log: bool = False) -> int:
+    """Start ``world`` ranks of this file with ``argv`` (the harness's
+    flags, ``--world`` and ``--out`` included) on one gloo group and wait
+    for them (:func:`_wait_world`); returns the world's exit code.  Each
+    rank but 0 writes its errors to ``out/rank<r>.err``, rank 0 to the
+    caller's stderr or, with ``rank0_log``, to ``out/rank0.err``."""
+    os.makedirs(out, exist_ok=True)
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+    env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
+               WORLD_SIZE=str(world), OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(p for p in (src, os.environ.get("PYTHONPATH"))
+                                          if p))
     procs, logs = [], []
-    for r in range(args.world):
+    for r in range(world):
         # rank 0's errors reach the caller; the others' go to a file each
-        log = open(os.path.join(args.out, f"rank{r}.err"), "w") if r else None
+        log = (open(os.path.join(out, f"rank{r}.err"), "w") if r or rank0_log else None)
         logs.append(log)
         procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), *own, "--rank", str(r)],
+            [sys.executable, os.path.abspath(__file__), *map(str, argv), "--rank", str(r)],
             env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), stderr=log))
-    rcs = [p.wait() for p in procs]
+    rc = _wait_world(procs, timeout, expect_kill)
+    rcs = [p.returncode for p in procs]
     for r, log in enumerate(logs):
         if log is not None:
             log.close()
-            if rcs[r]:
+            if rcs[r] and not expect_kill and not rank0_log:
                 with open(log.name) as f:
                     print(f"rank {r} failed:\n{f.read()[-3000:]}", file=sys.stderr)
-    return max(abs(rc) for rc in rcs)
-
+    return rc
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -1,7 +1,12 @@
 """The port's sharding plan against the JAX package's, in process: specs of
 every arch's leaves on the reference's meshes, the mesh-spec parser's
 errors, moment placement by path suffix, the collectives against their
-plain versions (a gloo group of one), and what a mesh still refuses."""
+plain versions (a gloo group of one), what a mesh still refuses, and what
+it now runs under gloo ranks."""
+import os
+import subprocess
+import sys
+
 import jax
 import numpy as np
 import pytest
@@ -262,25 +267,76 @@ def test_collectives_over_one_rank_equal_their_plain_version(group_of_one):
 # what a mesh still refuses: NotImplementedError naming its ROADMAP.md item
 # ---------------------------------------------------------------------------
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMOKE = ["--smoke", "--batch", "4", "--seq", "16", "--steps", "2", "--device", "cpu"]
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--arch", "granite-moe-1b-a400m", "--mesh", "data=1,model=2"], "item 11 (b2)"),
-    (["--arch", "xlstm-350m", "--mesh", "data=1,model=2"], "item 11 (b2)"),
-    (["--arch", "granite-moe-1b-a400m", "--mesh", "data=2,model=1"], "item 11 (b2)"),
-    (["--arch", "deepseek-v3-671b", "--mesh", "data=1,model=2"], "item 11 (b2)"),
-    (["--arch", "jamba-1.5-large-398b", "--mesh", "data=1,model=2"], "item 11 (b2)"),
-    # smollm-smoke: 3 heads split over model=3, its one kv head stays whole
-    (["--arch", "smollm-360m", "--mesh", "data=1,model=3"], "item 11 (b2)"),
-    (["--arch", "bert-large", "--mesh", "data=2,model=1", "--rollback-on-spike",
-      "--checkpoint-dir", "unused", "--checkpoint-every", "1"], "item 11 (c)"),
-    (["--arch", "bert-large", "--mesh", "data=2,model=1", "--preempt-grace", "5"],
-     "item 11 (c)"),
+    (["--arch", "granite-moe-1b-a400m", "--mesh", "data=1,model=2"], "item 11 (b2).3"),
+    (["--arch", "xlstm-350m", "--mesh", "data=1,model=2"], "item 11 (b2).4"),
+    (["--arch", "granite-moe-1b-a400m", "--mesh", "data=2,model=2"], "item 11 (b2).3"),
+    (["--arch", "deepseek-v3-671b", "--mesh", "data=1,model=2"], "item 11 (b2).5"),
+    (["--arch", "jamba-1.5-large-398b", "--mesh", "data=1,model=2"], "item 11 (b2).4"),
 ])
 def test_launcher_refuses_what_a_mesh_does_not_run(argv, item):
     with pytest.raises(NotImplementedError, match=item.replace("(", "\\(").replace(")", "\\)")):
         launch_train.main(argv + SMOKE)
+
+
+# what the launcher refused before: each now runs under gloo ranks
+MESH_RUNS = {
+    # smollm-smoke: 3 heads split over model=3, its one kv head stays whole
+    "smollm-model3": (["--arch", "smollm-360m", "--mesh", "data=1,model=3"], 3),
+    "granite-moe-data2": (["--arch", "granite-moe-1b-a400m", "--mesh", "data=2,model=1",
+                           "--accum-steps", "2"], 2),
+    "bert-rollback-data2": (["--arch", "bert-large", "--mesh", "data=2,model=1",
+                             "--rollback-on-spike", "--checkpoint-dir", "ck",
+                             "--checkpoint-every", "1"], 2),
+    "bert-preempt-data2": (["--arch", "bert-large", "--mesh", "data=2,model=1",
+                            "--preempt-grace", "5", "--checkpoint-dir", "ck",
+                            "--checkpoint-every", "1"], 2),
+}
+
+
+def _printed_losses(out: str):
+    return [float(line.split()[3]) for line in out.splitlines() if line.startswith("step ")]
+
+
+@pytest.mark.parametrize("case", list(MESH_RUNS))
+def test_launcher_runs_what_a_mesh_now_runs(tmp_path, case):
+    """Under ``torch.distributed.run`` on 2-3 gloo ranks, with a single
+    process of the same flags beside it: every rank exits 0, rank 0 alone
+    prints, the first step's loss (same weights, same rows) within a
+    printed unit of the single process's and the second within the JAX
+    suite's sharded bound 1e-2 (bf16 activations round the ranks' products
+    in other places)."""
+    argv, world = MESH_RUNS[case]
+    i = argv.index("--mesh")
+    common = ["-m", "repro_torch.launch.train", *SMOKE, "--log-every", "1"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), OMP_NUM_THREADS="1")
+    run = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(world), *common, *argv]
+    single = [sys.executable, *common, *argv[:i], *argv[i + 2:]]
+    outs = []
+    for cmd, where in ((run, "mesh"), (single, "one")):
+        (tmp_path / where).mkdir()
+        outs.append(subprocess.Popen(cmd, cwd=str(tmp_path / where), env=env,
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                     text=True))
+    printed = []
+    for p in outs:
+        try:
+            out, err = p.communicate(timeout=240)
+        finally:
+            p.kill()
+        assert p.returncode == 0, err[-4000:]
+        printed.append(out)
+    sharded, one = printed
+    assert sharded.count("done: step=2 ") == 1 and "status=ok" in sharded, sharded
+    losses, want = _printed_losses(sharded), _printed_losses(one)
+    assert len(losses) == len(want) == 2, (sharded, one)
+    np.testing.assert_allclose(losses[:1], want[:1], atol=1.5e-4)
+    np.testing.assert_allclose(losses, want, atol=1e-2)
 
 
 def test_launcher_mesh_needs_the_ranks():

@@ -110,11 +110,9 @@ def test_rank_layouts_match_jax_specs(arch, mesh):
             assert all(torch.equal(p, parts[0]) for p in parts) or mdim is not None, k
         got = C.gather_leaf_plain(rows, data) if data is not None else rows[0]
         assert torch.equal(got, x), k
-    if port_cfg.n_heads % n_model == 0 and port_cfg.n_kv_heads % n_model:
-        with pytest.raises(NotImplementedError, match="item 11 \\(b2\\)"):
-            check_model_axis(port_cfg, n_model)
-    else:
-        check_model_axis(port_cfg, n_model)
+    # heads split while the kv heads stay whole run too (against the whole
+    # kv heads): nothing of a dense config refuses
+    check_model_axis(port_cfg, n_model)
 
 
 def _slices(h, w, lbl, m, block_v=64):
@@ -306,24 +304,50 @@ def _fake_tp_ctx(cfg, rank=0):
 
 
 def test_attention_refuses_split_heads_with_whole_kv_heads_and_a_cache():
-    """Heads split over model=2 while a single kv head stays whole raises
-    (item 11 (b2)); so does a KV cache of split heads (serving on a mesh,
-    item 11 (e))."""
-    cfg = ModelConfig(**dict(TINY, n_kv_heads=1))
+    """Heads split over model=2 while a single kv head stays whole run:
+    each rank's q heads attend against the whole kv head, and the two
+    ranks' partial outputs (a group of one process sums nothing) add up
+    to the whole attention, as do their partial kv gradients.  A KV cache
+    of split heads still raises (serving on a mesh, item 11 (e))."""
+    import torch.distributed as dist
+
+    cfg = ModelConfig(**dict(TINY, n_kv_heads=1, activation_dtype="float32"))
     full = {k[len("blocks/attn/"):]: v[0] for k, v in
             build_model(cfg).init(0, torch.device("cpu")).items() if k.startswith("blocks/attn/")}
-    half = {k: v[:, :2] if k == "wq" else (v[:2] if k == "wo" else v) for k, v in full.items()}
     x = torch.randn(2, 4, 64)
     pos = torch.arange(4)[None].expand(2, 4)
-    with use_sharding(_fake_tp_ctx(cfg)):
-        with pytest.raises(NotImplementedError, match="item 11 \\(b2\\)"):
-            attention(half, x, pos, cfg)
-    cfg2 = ModelConfig(**TINY)
-    two = {"wq": full["wq"][:, :2], "wk": full["wk"][:, :1].expand(64, 1, 16),
-           "wv": full["wv"][:, :1].expand(64, 1, 16), "wo": full["wo"][:2]}
-    with use_sharding(_fake_tp_ctx(cfg2)):
-        with pytest.raises(NotImplementedError, match="item 11 \\(e\\)"):
-            attention(two, x, pos, cfg2, cache=init_kv_cache(2, 8, cfg2))
+    dy = torch.randn(2, 4, 64)
+    whole = {k: v.clone().requires_grad_() for k, v in full.items()}
+    want = attention(whole, x, pos, cfg)
+    (want * dy).sum().backward()
+    assert not dist.is_initialized()
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        outs, kv_grads = [], []
+        for r in range(2):
+            half = {k: (v[:, 2 * r:2 * r + 2] if k == "wq" else
+                        v[2 * r:2 * r + 2] if k == "wo" else v).clone().requires_grad_()
+                    for k, v in full.items()}
+            mesh = Mesh({"data": 1, "model": 2}, rank=r, groups={("model",): dist.group.WORLD})
+            with use_sharding(ShardCtx(mesh, param_specs=specs_for(build_model(cfg).defs,
+                                                                    mesh))):
+                out = attention(half, x, pos, cfg)
+                (out * dy).sum().backward()
+            outs.append(out.detach())
+            kv_grads.append((half["wk"].grad, half["wv"].grad))
+        cfg2 = ModelConfig(**TINY)
+        two = {"wq": full["wq"][:, :2], "wk": full["wk"][:, :1].expand(64, 1, 16),
+               "wv": full["wv"][:, :1].expand(64, 1, 16), "wo": full["wo"][:2]}
+        with use_sharding(_fake_tp_ctx(cfg2)):
+            with pytest.raises(NotImplementedError, match="item 11 \\(e\\)"):
+                attention(two, x, pos, cfg2, cache=init_kv_cache(2, 8, cfg2))
+    finally:
+        dist.destroy_process_group()
+    torch.testing.assert_close(outs[0] + outs[1], want.detach(), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(kv_grads[0][0] + kv_grads[1][0], whole["wk"].grad,
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(kv_grads[0][1] + kv_grads[1][1], whole["wv"].grad,
+                               rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "xlstm-350m",
