@@ -232,6 +232,26 @@ Phases, each of which raises (and so exits non-zero) on failure:
    offsets: outputs bit-equal,
    the drop fraction equal, the load-balance loss within 2e-6.  Phase 6
    also times one rank's K3–K5 beside the whole heads' call.
+17. expert parallelism, the xLSTM/Mamba ``inner`` axis and MLA heads over
+   ``model`` (after phase 16, before phase 6's timings; one card, so a
+   step over M ranks runs only on gloo, in the CPU tests): each layer at
+   full width in bf16 as M model ranks, each rank the port's own layer on
+   its blocks on a thread of ``collectives.run_plain_ranks`` (the
+   cross-rank sums and gathers are the plain collectives over the ranks'
+   tensors on the card), one backward over the joined graph; every
+   output and gradient (the ranks' sums, a split leaf's blocks side by
+   side) within 3x the whole bf16 call's distance from an fp32 run: (a)
+   granite-moe-1b-a400m's MoE layer (T 4096, E 32, top-8, capacity factor
+   1.0) as four ranks' 8 experts, every rank's drop fraction equal to the
+   whole layer's and its load-balance loss within 1e-6, and one rank's
+   dispatch, experts and combine timed beside the whole layer's; (b)
+   K1/K2 on each model=4 rank's blocks of granite-moe-1b's 12 leaves as
+   phase 15 (b); (c) deepseek-v3's attention (d 7168, 128 heads, q_lora
+   1536, kv_lora 512) at B 2 x S 512, naive and absorbed, as eight ranks'
+   16 heads; (d) xlstm-350m's mLSTM and sLSTM blocks at B 4 x S 256 as two
+   ranks and Jamba's Mamba layer (d 8192, d_inner 16384) at B 1 x S 256 as
+   four.  Phase 6 also times K1/K2 over a model=4 rank's blocks of
+   granite-moe-1b's leaves.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -3863,10 +3883,12 @@ def check_vocab_slices(device) -> dict:
     return out
 
 
-def check_tp_blocks(device) -> None:
-    """(b) K1/K2 on the data=2,model=2 blocks of BERT-large's 13 leaves: each
+def check_tp_blocks(device, arch: str = "bert-large", mesh=None, label: str = "tp (b)"
+                    ) -> None:
+    """(b) K1/K2 on the blocks of ``arch``'s leaves over ``mesh`` (BERT-large's
+    13 over data=2,model=2; phase 17 granite-moe-1b's 12 over model=4): each
     rank's per-layer partials, zero where the world rule leaves the rank
-    out (``ShardCtx.counts``), summed over the 4 ranks within 1e-6 relative
+    out (``ShardCtx.counts``), summed over the ranks within 1e-6 relative
     of K1 on the whole leaf; with the whole leaf's ratio, K2 writes each
     block bit-equal to the whole leaf's."""
     import torch
@@ -3880,9 +3902,11 @@ def check_tp_blocks(device) -> None:
     from repro_torch.sharding import ShardCtx, specs_for
     from repro_torch.sharding.collectives import shard_block
 
-    model = build_model(get_config("bert-large"))
-    world = TP_MESH["data"] * TP_MESH["model"]
-    ranks = [ShardCtx(Mesh(TP_MESH, rank=r), param_specs=specs_for(model.defs, Mesh(TP_MESH)))
+    mesh = mesh or TP_MESH
+    model = build_model(get_config(arch).replace(use_flash_kernel=False,
+                                                 use_fused_ce_head=False))
+    world = mesh["data"] * mesh["model"]
+    ranks = [ShardCtx(Mesh(mesh, rank=r), param_specs=specs_for(model.defs, Mesh(mesh)))
              for r in range(world)]
     axes = model.layer_axes()
     gen = torch.Generator(device=device).manual_seed(6)
@@ -3911,11 +3935,11 @@ def check_tp_blocks(device) -> None:
                     for ctx, t in zip(ranks, blocks)
                     for whole, part in zip((x, m, v), (t[0], t[2], t[3])))
         counted = [r for r, ctx in enumerate(ranks) if ctx.counts(k)]
-        log(f"tp (b) {k:22s} {str(tuple(p.shape)):22s} data dim {lay.data} model dim "
+        log(f"{label} {k:22s} {str(tuple(p.shape)):22s} data dim {lay.data} model dim "
             f"{lay.model}, counted on ranks {counted}: partials rel {rel:.2e}, x' m' v' "
             f"blocks bit-equal {equal}")
         if rel > 1e-6 or not equal:
-            raise AssertionError(f"tp (b): {k} breaks the block contract")
+            raise AssertionError(f"{label}: {k} breaks the block contract")
         worst = max(worst, rel)
         if lay.data is not None and lay.model is not None:
             split["both"] += 1
@@ -3923,8 +3947,9 @@ def check_tp_blocks(device) -> None:
             split["data" if lay.data is not None else "model"] += 1
         del x, g, m, v, blocks
     torch.cuda.empty_cache()
-    log(f"tp (b): of 13 leaves split over data and model {split['both']}, data alone "
-        f"{split['data']}, model alone {split['model']}; worst partials rel {worst:.2e}")
+    log(f"{label}: of {len(flatten(model.defs))} leaves of {arch} over {mesh}, split over "
+        f"data and model {split['both']}, data alone {split['data']}, model alone "
+        f"{split['model']}; worst partials rel {worst:.2e}")
 
 
 # (label, rows, in, out, product): BERT-large's MLP over model=2 at the main
@@ -4504,6 +4529,248 @@ def run_mesh_robustness(device, rollback_ref: dict, preempt_ref: dict, ref_losse
 
 
 # ---------------------------------------------------------------------------
+# phase 17: expert parallelism, the inner axis and MLA heads over model
+# ---------------------------------------------------------------------------
+
+EP_MESH = {"data": 1, "model": 4}    # granite-moe-1b-a400m's 32 experts, 8 a rank
+EP_T, EP_CF = 8 * 512, 1.0           # phase 11's micro-batch; some experts overflow
+MLA_RANKS, MLA_B, MLA_S = 8, 2, 512  # deepseek-v3's 128 heads, 16 a rank
+XLSTM_RANKS, XLSTM_B, XLSTM_S = 2, 4, 256
+MAMBA_RANKS, MAMBA_B, MAMBA_S = 4, 1, 256
+
+
+def _layer_weights(defs, device, seed: int) -> dict:
+    """bf16 weights of a layer: the port's init from ``seed``, every
+    all-zero matrix (the gate weights) drawn at its fan-in's scale so that
+    the layer uses it."""
+    import torch
+
+    from repro_torch.nn import init_params
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    for k, v in init_params(defs, seed, device).items():
+        if v.dim() > 1 and not v.any():
+            v = torch.randn(v.shape, generator=gen, device=device) * v.shape[0] ** -0.5
+        out[k] = v.to(torch.bfloat16)
+    return out
+
+
+def _over_ranks(device, label: str, defs, call, cfg, m: int, x, dy, seed: int):
+    """``call(p, x, cfg) -> (out, aux)`` of a layer three ways: an fp32 run
+    (the bf16 weights and input upcast), the whole bf16 call, and its ``m``
+    model ranks' shares, each rank the port's own layer on its blocks on a
+    thread of ``run_plain_ranks`` (the cross-rank sums and gathers are the
+    plain collectives over the ranks' tensors on the card; one backward
+    over the joined graph).  The loss is ``Σ out·dy`` plus the MoE's
+    load-balance term once.  Returns ``{tensor: (ranks' max |diff| from the
+    fp32 run, whole's)}`` over the output, x's gradient and every leaf's
+    (a split leaf's ranks' blocks side by side), the ranks' and the whole's
+    aux, and the ranks' forward wall seconds."""
+    import torch
+
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.sharding import ShardCtx, leaf_layout, specs_for, use_sharding
+    from repro_torch.sharding import collectives as C
+
+    weights = _layer_weights(defs, device, seed)
+    sizes = {"data": 1, "model": m}
+    specs = specs_for(defs, Mesh(sizes))
+    dims = {k: leaf_layout(sp, Mesh(sizes)).model for k, sp in specs.items()}
+
+    def loss(out, aux):
+        return (out.float() * dy).sum() + aux.get("moe_lb_loss", 0.0)
+
+    def run(p, xx, c):
+        leaves = {k: v.clone().requires_grad_() for k, v in p.items()}
+        xin = xx.clone().requires_grad_()
+        out, aux = call(leaves, xin, c)
+        names = sorted(leaves)
+        grads = torch.autograd.grad(loss(out, aux), [xin] + [leaves[k] for k in names])
+        return ({"out": out.detach().float(), "x": grads[0].float(),
+                 **{k: g.float() for k, g in zip(names, grads[1:])}}, aux)
+
+    ref, _ = run({k: v.float() for k, v in weights.items()}, x.float(),
+                 cfg.replace(activation_dtype="float32"))
+    whole, whole_aux = run(weights, x, cfg)
+
+    shared = {k: v.clone().requires_grad_() for k, v in weights.items() if dims[k] is None}
+    blocks = [{k: shared[k] if dims[k] is None
+               else C.shard_leaf(v, dims[k], m, r).requires_grad_()
+               for k, v in weights.items()} for r in range(m)]
+    xin = x.clone().requires_grad_()
+
+    def rank(group):
+        torch.cuda.set_device(x.device)   # a new thread has no current context
+        mesh = Mesh(sizes, rank=group.index, groups={("model",): group})
+        with use_sharding(ShardCtx(mesh, param_specs=specs)):
+            return call(blocks[group.index], xin, cfg)
+
+    t0 = time.perf_counter()
+    got = C.run_plain_ranks(rank, m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out, aux = got[0]   # every rank's output is the whole: summed or replicated
+    names = sorted(weights)
+    wanted = [xin] + [t for k in names
+                      for t in ([shared[k]] if dims[k] is None else [b[k] for b in blocks])]
+    grads = list(torch.autograd.grad(loss(out, aux), wanted))
+    split = {"out": out.detach().float(), "x": grads.pop(0).float()}
+    for k in names:   # a split leaf's ranks' blocks side by side
+        parts = [grads.pop(0) for _ in range(1 if dims[k] is None else m)]
+        split[k] = C.gather_leaf_plain(parts, dims[k]).float()
+    gaps = {k: (float((split[k] - ref[k]).abs().max()), float((whole[k] - ref[k]).abs().max()))
+            for k in whole}
+    log(f"model axis {label}: over model={m} ranks (plain collectives), max "
+        f"|diff| from the fp32 run, the ranks' against the whole bf16 call: "
+        + ", ".join(f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in gaps.items())
+        + f"; the ranks' forward {wall:.2f} s wall")
+    far = {k: v for k, v in gaps.items() if not v[0] <= GQA_MODULE_FACTOR * v[1]}
+    if far:
+        raise AssertionError(f"model axis {label}: the ranks left the whole call: {far}")
+    del ref, whole, split, blocks, shared, weights, grads
+    torch.cuda.empty_cache()
+    return [a for _, a in got], whole_aux, wall
+
+
+def check_expert_parallel(device) -> dict:
+    """(a) granite-moe-1b-a400m's MoE layer (T 4096 = B 8 x S 512, E 32,
+    top-8, d 1024, expert ff 512, capacity factor 1.0: some experts
+    overflow; bf16) as each of four model ranks' 8 experts: the summed
+    outputs, x and router gradients and each rank's wi/wg/wo gradients
+    within 3x the whole bf16 call's distance from an fp32 run; every rank's
+    drop fraction equal to the whole layer's and its load-balance loss
+    within 1e-6.  Then one rank's dispatch (routing the gathered logits and
+    placing its experts' rows), experts and combine (an fp32 partial)
+    timed beside the whole layer's."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import moe
+    from repro_torch.sharding.context import ModelAxis
+
+    cfg = get_config(MOE_ARCH).replace(capacity_factor=EP_CF)
+    m, k = EP_MESH["model"], cfg.n_experts_per_tok
+    gen = torch.Generator(device=device).manual_seed(171)
+    x = torch.randn((8, EP_T // 8, cfg.d_model), generator=gen, device=device).to(torch.bfloat16)
+    dy = torch.randn(x.shape, generator=gen, device=device)
+    auxs, whole_aux, wall = _over_ranks(device, "(a) expert parallel", moe.moe_defs(cfg),
+                                        moe.moe, cfg, m, x, dy, 171)
+    drops = [float(a["moe_drop_fraction"].detach()) for a in auxs]
+    lbs = [float(a["moe_lb_loss"].detach()) for a in auxs]
+    want_drop = float(whole_aux["moe_drop_fraction"].detach())
+    want_lb = float(whole_aux["moe_lb_loss"].detach())
+    lb_rel = max(abs(v - want_lb) / want_lb for v in lbs)
+    log(f"model axis (a): T {EP_T}, E {cfg.n_experts} over {m} ranks, top-{k}, C "
+        f"{moe.capacity(EP_T, cfg)}; drop fraction whole {want_drop} ranks {drops}; lb whole "
+        f"{want_lb:.8f} ranks {lbs} (rel {lb_rel:.2e})")
+    if any(v != want_drop for v in drops) or not want_drop > 0 or lb_rel > 1e-6:
+        raise AssertionError("model axis (a): the ranks' routing left the whole layer's")
+
+    # one rank's stages beside the whole layer's, bf16, no gradients
+    p = _layer_weights(moe.moe_defs(cfg), device, 172)
+    el = cfg.n_experts // m
+    tp = ModelAxis(None, m - 1, m)
+    mine = {n: (v[:, (m - 1) * el:] if n == "router" else v[(m - 1) * el:])
+            for n, v in p.items()}
+    xf = x.reshape(EP_T, cfg.d_model)
+    with torch.no_grad():
+        logits = xf.to(torch.float32) @ p["router"].to(torch.float32)
+        c = moe.capacity(EP_T, cfg)
+
+        def rank_dispatch():
+            gates, idx, _ = moe.route(logits, cfg)
+            return moe.place(xf, idx, moe.expert_hits(idx, cfg.n_experts), c, None, tp), gates
+
+        (buf_r, dest_r, _), gates = rank_dispatch()
+        buf, dest, _, _, _ = moe.dispatch(p, xf, cfg)
+        y_r, y = moe.experts(mine, buf_r, cfg), moe.experts(p, buf, cfg)
+        times = {
+            "dispatch": (cuda_ms(rank_dispatch), cuda_ms(lambda: moe.dispatch(p, xf, cfg))),
+            "experts": (cuda_ms(lambda: moe.experts(mine, buf_r, cfg)),
+                        cuda_ms(lambda: moe.experts(p, buf, cfg))),
+            "combine": (cuda_ms(lambda: moe.combine(y_r, dest_r, gates, k, torch.float32)),
+                        cuda_ms(lambda: moe.combine(y, dest, gates, k))),
+        }
+    log(f"model axis (a) timed, one rank's ({el} experts) against the whole layer's "
+        f"({cfg.n_experts}), ms: " + ", ".join(f"{n} {a:.4f} / {b:.4f}" for n, (a, b) in times.items()))
+    del p, mine, x, dy, buf, buf_r, y, y_r, logits
+    torch.cuda.empty_cache()
+    return dict(times=times, drop=want_drop, wall=wall)
+
+
+def check_mla_heads(device) -> dict:
+    """(c) deepseek-v3's full-width attention (d 7168, 128 heads, q_lora
+    1536, kv_lora 512, nope 128 + rope 64, v 128) at B 2 x S 512, naive and
+    absorbed, bf16, as each of eight model ranks' 16 heads: the summed
+    outputs and x gradients and every leaf's gradient (the latent
+    projections' summed, the heads' side by side) within 3x the whole bf16
+    call's distance from an fp32 run."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import mla
+
+    base = get_config("deepseek-v3-671b")
+    gen = torch.Generator(device=device).manual_seed(173)
+    x = torch.randn((MLA_B, MLA_S, base.d_model), generator=gen, device=device
+                    ).to(torch.bfloat16)
+    dy = torch.randn(x.shape, generator=gen, device=device)
+    pos = torch.arange(MLA_S, device=device)[None].expand(MLA_B, MLA_S)
+    walls = {}
+    for name, absorb in (("naive", False), ("absorbed", True)):
+        cfg = base.replace(mla_absorb=absorb)
+        _, _, walls[name] = _over_ranks(
+            device, f"(c) MLA {name}", mla.mla_defs(cfg),
+            lambda p, xx, c: (mla.mla_attention(p, xx, pos, c), {}), cfg, MLA_RANKS, x, dy, 173)
+    return walls
+
+
+def check_inner_axis(device) -> dict:
+    """(d) xlstm-350m's mLSTM and sLSTM blocks (d 1024, 4 heads, up-projection
+    2048) at B 4 x S 256 as two model ranks (the mLSTM on each rank's 1024
+    ``inner`` columns and 2 heads, the sLSTM on its 2 heads), and Jamba's
+    full-width Mamba layer (d 8192, d_inner 16384, d_state 16, dt rank 512)
+    at B 1 x S 256 as four ranks (4096 of d_inner each), bf16: the same
+    rule as (a)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import mamba, xlstm
+
+    walls = {}
+    gen = torch.Generator(device=device).manual_seed(174)
+    xcfg = get_config(XLSTM_ARCH)
+    x = torch.randn((XLSTM_B, XLSTM_S, xcfg.d_model), generator=gen, device=device
+                    ).to(torch.bfloat16)
+    dy = torch.randn(x.shape, generator=gen, device=device)
+    for name, defs, fn in (("mLSTM", xlstm.mlstm_defs, xlstm.mlstm_block),
+                           ("sLSTM", xlstm.slstm_defs, xlstm.slstm_block)):
+        _, _, walls[name] = _over_ranks(
+            device, f"(d) xlstm-350m {name}", defs(xcfg),
+            lambda p, xx, c, fn=fn: (fn(p, xx, c)[0], {}), xcfg, XLSTM_RANKS, x, dy, 174)
+    jcfg = get_config("jamba-1.5-large-398b")
+    x = torch.randn((MAMBA_B, MAMBA_S, jcfg.d_model), generator=gen, device=device
+                    ).to(torch.bfloat16)
+    dy = torch.randn(x.shape, generator=gen, device=device)
+    _, _, walls["Mamba"] = _over_ranks(
+        device, "(d) Jamba Mamba", mamba.mamba_defs(jcfg),
+        lambda p, xx, c: (mamba.mamba(p, xx, c)[0], {}), jcfg, MAMBA_RANKS, x, dy, 175)
+    return walls
+
+
+def run_model_axis(device) -> dict:
+    """Phase 17; returns (a)'s times and every part's ranks' wall seconds."""
+    t0 = time.perf_counter()
+    out = {"ep": check_expert_parallel(device)}
+    check_tp_blocks(device, MOE_ARCH, EP_MESH, "model axis (b)")
+    out["mla"] = check_mla_heads(device)
+    out["inner"] = check_inner_axis(device)
+    log(f"model axis: phase 17 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 6: timing
 # ---------------------------------------------------------------------------
 
@@ -4868,6 +5135,7 @@ def main() -> None:
     tp = run_tp(device, fsdp)
     robust = run_mesh_robustness(device, rollback_ref, preempt_ref, ref_losses, ref_params)
     del ref_params, rollback_ref
+    run_model_axis(device)
     timing = {**time_kernels(device, rate), **time_flash(device, rate),
               **time_fused_ce(device, rate)}
     moe_timing = {**time_kernels(device, rate, MOE_ARCH),
@@ -4879,6 +5147,8 @@ def main() -> None:
     shard_timing = time_kernels(device, rate, "bert-large", shards=FSDP_SHARDS)
     block_timing = time_kernels(device, rate, "bert-large", shards=TP_MESH["data"],
                                 model_ranks=TP_MESH["model"])
+    expert_timing = time_kernels(device, rate, MOE_ARCH, shards=EP_MESH["data"],
+                                 model_ranks=EP_MESH["model"])
     slice_timing = time_vocab_slices(device, rate)
     gqa_timing = time_flash(device, rate, GQA_FLASH_TIMING, every=True)
     time_tp_products(device, rate)
@@ -4951,6 +5221,12 @@ def main() -> None:
                                             contract_launches=robust["gqa_contract_launches"][k],
                                             **gqa_timing["rank"][k],
                                             whole_heads_ms=gqa_timing["whole"][k]["ms"])
+    # phase 17: K1/K2 over a model=4 rank's blocks of granite-moe-1b's 12
+    # leaves, its 8 experts among them (the launches of their timing; no
+    # model > 1 path runs on one card)
+    for k in ("lamb_moments", "lamb_apply"):
+        by_name[k]["granite_moe_model4_block"] = dict(
+            launches=expert_timing[k].pop("timed_launches"), **expert_timing[k])
     log(card)   # again near the end, where a truncated log still shows it
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

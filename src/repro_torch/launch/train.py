@@ -59,8 +59,14 @@ verdict, one flag and one writer, and every rank exits with the same code
         --steps 10 --device cpu --mesh data=2,model=1 --rollback-on-spike \
         --checkpoint-dir /tmp/ck --checkpoint-every 2 --preempt-grace 30
 
-Over a ``model`` axis of more than one rank an MoE, xLSTM/Mamba or MLA arch
-raises ``NotImplementedError`` naming its ROADMAP.md item (11 (b2).3–5).
+Every arch trains over ``data × model``: over ``model`` an MoE arch splits
+its experts (expert parallelism, tokens replicated over ``model``), the
+xLSTM and Mamba layers their ``inner`` width and heads, and MLA its heads,
+each held to the single process:
+
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.train --arch jamba-1.5-large-398b --smoke \
+        --steps 3 --device cpu --mesh data=1,model=2
 
 The flags mirror ``repro.launch.train``.
 """
@@ -211,7 +217,7 @@ def build(args: argparse.Namespace, *, remat: Optional[str] = None, **trainer_kw
     mesh = _mesh_plan(args)
     if mesh is not None:
         # what a mesh does not run raises before any process group is made
-        check_mesh_supported(cfg, mesh)
+        check_mesh_supported(mesh)
         mesh, device = init_distributed(device, args.mesh,
                                         model_parallel=args.model_parallel)
     model = build_model(cfg)

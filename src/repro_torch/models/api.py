@@ -7,9 +7,9 @@ optimizer metadata (weight-decay mask, trust-ratio mask, stacked-layer
 axes), all keyed by the JAX paths.  It dispatches on ``cfg.family`` as the
 reference does: ``hybrid`` to ``models/hybrid.py`` (Jamba), ``ssm`` to
 ``models/xlstm_model.py``, every other family to ``models/transformer.py``.
-Under a ``model`` axis of more than one rank (the ambient sharding
-context) only the dense transformers run: :func:`check_model_axis` names
-what raises.
+Under a ``model`` axis of more than one rank (the ambient sharding context)
+every family trains, each layer on this rank's heads, ff columns, experts,
+``inner`` slice or vocab rows; serving on such a mesh raises.
 """
 from __future__ import annotations
 
@@ -21,34 +21,11 @@ import torch
 from repro_torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import hybrid, transformer, xlstm_model
-from repro_torch.sharding.context import model_parallel, unported
-
-
-def check_model_axis(cfg: ModelConfig, model: int) -> None:
-    """Raise ``NotImplementedError`` naming its ROADMAP.md item for what a
-    ``model`` axis of ``model`` ranks does not run: the xLSTM/Mamba
-    ``inner`` axis (item 11 (b2).4), MLA ((b2).5) and MoE (expert
-    parallelism, (b2).3).  Heads that split while the kv heads stay whole run:
-    each rank attends with its q heads against the whole kv heads."""
-    if model == 1:
-        return
-    if cfg.family in ("hybrid", "ssm"):
-        raise NotImplementedError(f"{cfg.name} ({cfg.family}): the xLSTM/Mamba 'inner' "
-                                  f"axis over 'model' is not ported ({unported(4)})")
-    if cfg.use_mla:
-        raise NotImplementedError(f"{cfg.name}: MLA over 'model' is not ported "
-                                  f"({unported(5)})")
-    if cfg.n_experts:
-        raise NotImplementedError(f"{cfg.name} routes to experts: expert parallelism "
-                                  f"over 'model' is not ported ({unported(3)})")
 
 
 def _family(cfg: ModelConfig):
     """The module of ``cfg``'s family, with its ``forward`` and
-    ``make_cache``; raises for what the ambient ``model`` axis cannot run."""
-    tp = model_parallel()
-    if tp is not None:
-        check_model_axis(cfg, tp.size)
+    ``make_cache``."""
     if cfg.family == "hybrid":
         return hybrid
     if cfg.family == "ssm":

@@ -17,6 +17,10 @@ The cache mixes the two: the attention sub-layer's ``{"k", "v", "index"}``
 (written in place by ``attention``) and each Mamba sub-layer's ``{"ssm",
 "conv"}`` state (overwritten in place with the state after the call), every
 leaf stacked ``(n_groups, B, ...)``.
+
+Over a ``model`` axis each sub-layer splits as its module says (Mamba's
+``inner``, the attention's heads, the MoE's experts, the MLP's ff) and the
+embedding and head their vocab rows (``cfg.vocab_size`` is the whole).
 """
 from __future__ import annotations
 
@@ -115,7 +119,7 @@ def forward(
     Mamba scans run in chunks of ``cfg.mamba_chunk`` where it is set."""
     chunk = cfg.mamba_chunk
     dtype = nn.torch_dtype(cfg.activation_dtype)
-    x = embed(params["embed"], batch["tokens"], dtype)
+    x = embed(params["embed"], batch["tokens"], dtype, cfg.vocab_size)
     b, s = x.shape[:2]
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
@@ -135,7 +139,7 @@ def forward(
         auxs.append(aux)
     aux = {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
     x = apply_norm(nn.subtree(params, "final_norm"), x, cfg.norm_type)
-    return unembed(x, params["unembed"]), aux
+    return unembed(x, params["unembed"], cfg.vocab_size), aux
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=torch.bfloat16,

@@ -12,6 +12,20 @@ intermediates as the reference's does: the scan runs chunk by chunk,
 carrying the state across, and S must be a multiple of ``chunk`` (the
 reference's reshape refuses anything else).  No TPU kernel of the reference
 covers this layer.
+
+Over a ``model`` axis of M ranks whose specs split ``inner`` (d_inner),
+each rank computes on its d_inner/M slice: ``in_proj``'s stored block (the
+spec splits its 2·d_inner columns contiguously, so at M=2 rank 0 holds all
+of x's columns and rank 1 all of z's) is gathered over ``model`` and the
+rank takes its slice of x's and of z's columns
+(``tensor_parallel.paired_columns``), a column-parallel product.  The
+conv, ``dt_proj``'s columns, ``dt_bias``, ``A_log``, ``D`` and the scan
+are elementwise over d_inner and so local; ``x_proj`` contracts d_inner:
+its partials are summed over ``model`` in fp32 and rounded once before the
+split into dt, B and C, whose gradients (from the rank's slice only) are
+summed over ``model``; ``out_proj`` is row-parallel.  Where d_inner is no
+multiple of M the layer runs whole on every rank.  State on such a mesh
+(prefill and decode) raises (serving on a mesh).
 """
 from __future__ import annotations
 
@@ -22,7 +36,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers.tensor_parallel import (
+    column_matmul,
+    paired_columns,
+    row_matmul,
+    split_axis,
+)
 from repro_torch.nn.module import Param
+from repro_torch.sharding.collectives import copy_to_model
+from repro_torch.sharding.context import model_parallel
 
 State = Dict[str, torch.Tensor]
 
@@ -107,11 +129,19 @@ def mamba(
     ``{"ssm": (B, Di, N) fp32, "conv": (B, d_conv − 1, Di)}``; decode (with a
     state) takes one token."""
     dtype = x.dtype
-    di = cfg.mamba_expand * cfg.d_model
+    whole = cfg.mamba_expand * cfg.d_model
     n, r, dc = cfg.mamba_d_state, dt_rank(cfg), cfg.mamba_d_conv
     b, s, _ = x.shape
+    # this rank's d_inner: all of it, or d_inner/M over a model axis
+    di = p["D"].shape[0]
+    axis = model_parallel()
+    tp = split_axis(di, whole, axis)
+    if axis is not None and state is not None:
+        raise NotImplementedError("serving on a mesh (Mamba state over 'model') is not "
+                                  "ported (ROADMAP.md queue 1, item 11 (e))")
 
-    xi, z = (x @ p["in_proj"].to(dtype)).chunk(2, dim=-1)
+    w_in = paired_columns(p["in_proj"], whole, axis)
+    xi, z = column_matmul(x, w_in.to(dtype), tp).chunk(2, dim=-1)
     conv_w = p["conv_w"].to(dtype)
 
     # depthwise causal conv over time (einsums over the window, as the
@@ -128,7 +158,10 @@ def mamba(
     conv = F.silu(conv + p["conv_b"].to(dtype))
 
     # data-dependent dt, B, C
-    dt_in, b_in, c_in = (conv @ p["x_proj"].to(dtype)).split([r, n, n], dim=-1)
+    xdb = row_matmul(conv, p["x_proj"].to(dtype), tp)
+    if tp is not None:   # the rank's d_inner slice's share of their gradients
+        xdb = copy_to_model(xdb, tp.group)
+    dt_in, b_in, c_in = xdb.split([r, n, n], dim=-1)
     dt = F.softplus(dt_in @ p["dt_proj"].to(dtype) + p["dt_bias"].to(dtype)).to(torch.float32)
 
     a_mat = -torch.exp(p["A_log"].to(torch.float32))                  # (Di, N)
@@ -147,7 +180,7 @@ def mamba(
 
     y = (y + conv.to(torch.float32) * p["D"].to(torch.float32)).to(dtype)
     y = y * F.silu(z)
-    return y @ p["out_proj"].to(dtype), new_state
+    return row_matmul(y, p["out_proj"].to(dtype), tp), new_state
 
 
 def init_mamba_state(batch: int, cfg: ModelConfig, dtype=torch.bfloat16, device=None) -> State:

@@ -26,6 +26,17 @@ and both attend over the whole cache under a length mask, as the reference
 does.  Layouts are the reference's: ``wq_b`` (q_lora, H, nope + rope),
 ``wkv_a`` (D, kv_lora + rope), ``wk_b``/``wv_b`` (kv_lora, H, ·), ``wo``
 (H, v_head, D).
+
+Over a ``model`` axis of M ranks whose specs split the heads, this rank's
+``wq_b``, ``wk_b``, ``wv_b`` and ``wo`` hold H/M heads; ``wq_a``,
+``q_norm``, ``wkv_a`` and ``kv_norm`` are whole (their ``embed`` dimension
+splits over ``data`` only), so ``cq``, ``c_kv`` and ``k_rope`` are the same
+on every rank.  ``wq_b`` is column-parallel, every score and the absorbed
+products are per head and so local, and ``wo`` is row-parallel
+(``layers/tensor_parallel.py``).  The latents feed only the rank's heads,
+so their gradients are partial: ``cq``'s is summed by the column-parallel
+product, ``c_kv``'s and ``k_rope``'s over ``model`` before they reach
+``wkv_a`` and ``x``.  A cache on such a mesh raises (serving on a mesh).
 """
 from __future__ import annotations
 
@@ -36,7 +47,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers.attention import _mask_bias, write_decode
 from repro_torch.models.layers.embeddings import apply_rope
+from repro_torch.models.layers.tensor_parallel import column_matmul, row_matmul, split_axis
 from repro_torch.nn.module import Param
+from repro_torch.sharding.collectives import copy_to_model
+from repro_torch.sharding.context import ModelAxis, model_parallel
 
 
 def mla_defs(cfg: ModelConfig) -> dict:
@@ -64,19 +78,24 @@ def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tenso
 
 
 def _latents(p: Dict[str, torch.Tensor], x: torch.Tensor, positions: torch.Tensor,
-             cfg: ModelConfig):
+             cfg: ModelConfig, tp: Optional[ModelAxis] = None):
     """Shared projections → ``(q_nope (B,S,H,dn), q_rope (B,S,H,dr), c_kv
-    (B,S,kr), k_rope (B,S,dr))``, the rope parts rotated."""
+    (B,S,kr), k_rope (B,S,dr))``, the rope parts rotated; over the ``model``
+    ranks ``tp`` the rank's heads of q, and latents whose gradients are
+    summed over ``model``."""
     dtype = x.dtype
     b, s, _ = x.shape
-    h, dn, dr, kr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.kv_lora_rank
+    h, dn, dr, kr = p["wq_b"].shape[1], cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.kv_lora_rank
     qr = cfg.q_lora_rank
     cq = _rms(x @ p["wq_a"].to(dtype), p["q_norm"])
-    q = (cq @ p["wq_b"].to(dtype).reshape(qr, h * (dn + dr))).view(b, s, h, dn + dr)
+    q = column_matmul(cq, p["wq_b"].to(dtype).reshape(qr, h * (dn + dr)), tp
+                      ).view(b, s, h, dn + dr)
     q_nope, q_rope = q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
     kv = x @ p["wkv_a"].to(dtype)
     c_kv = _rms(kv[..., :kr], p["kv_norm"])
     k_rope = apply_rope(kv[..., kr:][:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    if tp is not None:
+        c_kv, k_rope = copy_to_model(c_kv, tp.group), copy_to_model(k_rope, tp.group)
     return q_nope, q_rope, c_kv, k_rope
 
 
@@ -106,12 +125,17 @@ def mla_attention(
     if valid_len is not None:
         # same clamp as attention.py: fully-padded examples keep key 0
         valid_len = torch.clamp(valid_len.to(torch.int32), min=1)
-    h, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    # this rank's heads: all of them, or H/M over a model axis
+    h, dn, dr, dv = p["wq_b"].shape[1], cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     kr = cfg.kv_lora_rank
+    tp = split_axis(h, cfg.n_heads, model_parallel())
+    if tp is not None and cache is not None:
+        raise NotImplementedError("serving on a mesh (the MLA's latent cache over split "
+                                  "heads) is not ported (ROADMAP.md queue 1, item 11 (e))")
     # a host scalar: 1/sqrt(dn + dr) taken in fp32, as the reference's
     scale = float(1.0 / torch.sqrt(torch.tensor(float(dn + dr), dtype=torch.float32)))
 
-    q_nope, q_rope, c_kv, k_rope = _latents(p, x, positions, cfg)
+    q_nope, q_rope, c_kv, k_rope = _latents(p, x, positions, cfg, tp)
 
     if cache is not None:
         if decode:
@@ -151,7 +175,7 @@ def mla_attention(
         probs = torch.softmax(scores + bias, dim=-1).to(dtype)
         out = (probs @ v.transpose(1, 2)).transpose(1, 2)                   # b s h v
 
-    return out.reshape(b, s, h * dv) @ p["wo"].to(dtype).reshape(h * dv, d)
+    return row_matmul(out.reshape(b, s, h * dv), p["wo"].to(dtype).reshape(h * dv, d), tp)
 
 
 def init_mla_cache(batch: int, max_len: int, cfg: ModelConfig, dtype=torch.bfloat16,

@@ -4,7 +4,7 @@ Over a ``model`` axis whose specs split ``ff``, ``wi``/``wg`` are
 column-parallel and ``wo`` row-parallel (``layers/tensor_parallel.py``)."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -35,12 +35,14 @@ def mlp_defs(d_model: int, d_ff: int, gated: bool, act_fn: str) -> dict:
     return defs
 
 
-def mlp(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
+        d_ff: Optional[int] = None) -> torch.Tensor:
     """``act(x @ wi) @ wo``; gated: ``(act(x @ wg) * (x @ wi)) @ wo``, the
-    gate being ``wg`` as in the reference."""
+    gate being ``wg`` as in the reference.  ``d_ff`` is the whole width
+    (``cfg.d_ff`` by default; the MoE's shared expert has its own)."""
     dtype = x.dtype
     act = _ACTS[cfg.act_fn]
-    tp = split_axis(p["wi"].shape[1], cfg.d_ff, model_parallel())
+    tp = split_axis(p["wi"].shape[1], d_ff or cfg.d_ff, model_parallel())
     h = column_matmul(x, p["wi"].to(dtype), tp)
     if "wg" in p:
         h = act(column_matmul(x, p["wg"].to(dtype), tp)) * h

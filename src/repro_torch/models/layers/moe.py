@@ -33,6 +33,25 @@ means over the global tokens (:func:`sum_across`, whose backward sums
 every rank's share, so each rank's router gets the global term's
 derivative at the micro-batch's whole weight).  A rank's buffer holds its
 own kept assignments at the rows the whole layer gives them.
+
+Over a ``model`` axis whose specs split the experts (expert parallelism,
+the expert group being the ``model`` group), each rank holds E/M experts:
+its columns of the router and its ``wi``/``wg``/``wo``.  Tokens are not
+split over ``model`` (every model rank of a data coordinate holds the same
+rows), so no all-to-all moves them.  Each rank forms its columns of the
+fp32 router logits (a column-parallel product), gathers them into the whole
+(T, E) (:func:`gather_from_model`: the backward keeps the rank's columns of
+the gradient, which the replicated routing gives every rank whole), routes
+as on one device (the capacity, positions and global means as above),
+keeps only the assignments to its own experts in an (E/M·C + 1, d) buffer
+at the rows the whole layer gives them, runs its experts and combines its
+own slots in fp32; the partial outputs are summed over ``model`` in fp32
+and rounded once.  The gates and the tokens feed only the rank's own
+experts, so their gradients are partial and are summed over ``model``
+(:func:`copy_to_model`) before they re-enter the routing.  The shared
+expert is the tensor-parallel MLP.  Where E is no multiple of M the specs
+keep the experts whole and every rank runs the whole layer, as the
+reference's layout does.
 """
 from __future__ import annotations
 
@@ -43,9 +62,16 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers.mlp import _ACTS, mlp, mlp_defs
+from repro_torch.models.layers.tensor_parallel import column_matmul, split_axis
 from repro_torch.nn.module import Param
-from repro_torch.sharding.collectives import gather_leaf, sum_across
-from repro_torch.sharding.context import ModelAxis, data_parallel
+from repro_torch.sharding.collectives import (
+    copy_to_model,
+    gather_from_model,
+    gather_leaf,
+    reduce_from_model,
+    sum_across,
+)
+from repro_torch.sharding.context import ModelAxis, data_parallel, model_parallel
 
 
 def moe_defs(cfg: ModelConfig) -> dict:
@@ -125,12 +151,15 @@ def expert_hits(idx: torch.Tensor, n_experts: int) -> torch.Tensor:
 
 
 def place(xf: torch.Tensor, idx: torch.Tensor, hits: torch.Tensor, c: int,
-          offsets: Optional[torch.Tensor] = None):
+          offsets: Optional[torch.Tensor] = None, tp: Optional[ModelAxis] = None):
     """Scatter each (token, slot) kept under capacity ``c`` into its
     expert's rows: ``(buf (E, C, d), dest (T·k,), keep (T·k,))``.  An
     assignment's position within its expert is the exclusive running count
     of its expert's ``hits`` plus ``offsets`` (E,), the assignments the
-    blocks of rows before this one route there (none without)."""
+    blocks of rows before this one route there (none without).  Over the
+    ``model`` ranks ``tp`` the buffer holds this rank's E/M experts only,
+    ``dest`` indexes it (E/M·C, the sink, for an assignment to another
+    rank's expert) and ``keep`` stays the whole layer's."""
     t, d = xf.shape
     e, k = hits.shape[0], idx.shape[1]
     # scanned along the last dim of the (E, T·k) hits (a scan down the T·k
@@ -142,7 +171,12 @@ def place(xf: torch.Tensor, idx: torch.Tensor, hits: torch.Tensor, c: int,
         scan = scan + offsets[:, None]
     pos = (scan - hits).gather(0, flat_e[None, :])[0]
     keep = pos < c
-    dest = torch.where(keep, flat_e * c + pos, e * c)              # the sink row: dropped
+    mine = keep
+    if tp is not None:   # this rank's experts [e0, e0 + E/M), indexed from e0
+        e //= tp.size
+        flat_e = flat_e - tp.index * e
+        mine = keep & (flat_e >= 0) & (flat_e < e)
+    dest = torch.where(mine, flat_e * c + pos, e * c)              # the sink row: dropped
 
     token_id = torch.arange(t, device=xf.device).repeat_interleave(k)
     buf = xf.new_zeros((e * c + 1, d)).index_put((dest,), xf[token_id])
@@ -150,19 +184,25 @@ def place(xf: torch.Tensor, idx: torch.Tensor, hits: torch.Tensor, c: int,
 
 
 def dispatch(p: Dict[str, torch.Tensor], xf: torch.Tensor, cfg: ModelConfig,
-             dp: Optional[ModelAxis] = None):
+             dp: Optional[ModelAxis] = None, tp: Optional[ModelAxis] = None):
     """Route the tokens xf (T, d) and scatter each kept (token, slot) into
     its expert's rows: ``(buf (E, C, d), dest (T·k,), gates (T, k), keep
     (T·k,), aux)``; ``dest`` is E·C (the sink) for a dropped assignment.
     Over data-parallel ranks ``dp``, C and each assignment's position are
     the whole micro-batch's, and the buffer holds this rank's rows at the
-    whole layer's rows."""
+    whole layer's rows.  Over the ``model`` ranks ``tp`` the router is this
+    rank's columns, the logits are gathered whole, and the buffer holds
+    this rank's experts (:func:`place`)."""
     c = capacity(global_tokens(xf.shape[0], dp), cfg)
-    logits = xf.to(torch.float32) @ p["router"].to(torch.float32)
+    logits = column_matmul(xf.to(torch.float32), p["router"].to(torch.float32), tp)
+    if tp is not None:
+        logits = gather_from_model(logits, -1, tp.group)
     gates, idx, aux = route(logits, cfg, dp)
     hits = expert_hits(idx, cfg.n_experts)
     offsets = None if dp is None else rank_offsets(hits.sum(1, dtype=torch.int32), dp)
-    buf, dest, keep = place(xf, idx, hits, c, offsets)
+    if tp is not None:   # the rank's experts' share of the gradients, summed over model
+        xf, gates = copy_to_model(xf, tp.group), copy_to_model(gates, tp.group)
+    buf, dest, keep = place(xf, idx, hits, c, offsets, tp)
     return buf, dest, gates, keep, aux
 
 
@@ -183,12 +223,14 @@ def experts(p: Dict[str, torch.Tensor], buf: torch.Tensor, cfg: ModelConfig) -> 
     return torch.bmm(act(hg) * hi, p["wo"].to(buf.dtype)).reshape(e * c, d)
 
 
-def combine(y: torch.Tensor, dest: torch.Tensor, gates: torch.Tensor, k: int) -> torch.Tensor:
+def combine(y: torch.Tensor, dest: torch.Tensor, gates: torch.Tensor, k: int,
+            dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Each slot's expert output gathered back (the sink reads a zero row),
-    weighted by its gate and summed over the k slots: ``(T, d)``."""
+    weighted by its gate and summed over the k slots: ``(T, d)``, the sum
+    in ``dtype`` (y's by default; fp32 for one rank's partial)."""
     d = y.shape[1]
     yk = torch.cat([y, y.new_zeros((1, d))])[dest]
-    return (yk * gates.reshape(-1, 1).to(y.dtype)).reshape(-1, k, d).sum(1)
+    return (yk * gates.reshape(-1, 1).to(y.dtype)).reshape(-1, k, d).sum(1, dtype=dtype)
 
 
 def moe(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig
@@ -198,12 +240,19 @@ def moe(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
     dp = data_parallel()
-    buf, dest, gates, keep, aux = dispatch(p, xf, cfg, dp)
-    out = combine(experts(p, buf, cfg), dest, gates, cfg.n_experts_per_tok)
+    tp = split_axis(p["wi"].shape[0], cfg.n_experts, model_parallel())
+    buf, dest, gates, keep, aux = dispatch(p, xf, cfg, dp, tp)
+    y = experts(p, buf, cfg)
+    if tp is None:
+        out = combine(y, dest, gates, cfg.n_experts_per_tok)
+    else:   # the ranks' fp32 partials summed, rounded once
+        out = reduce_from_model(combine(y, dest, gates, cfg.n_experts_per_tok,
+                                        torch.float32), tp.group).to(y.dtype)
     aux["moe_drop_fraction"] = drop_fraction(keep, dp)
 
     if "shared/wi" in p:
         shared = {n[len("shared/"):]: v for n, v in p.items() if n.startswith("shared/")}
-        out = out + mlp(shared, xf[:, None, :], cfg).reshape(b * s, d)
+        out = out + mlp(shared, xf[:, None, :], cfg,
+                        cfg.n_shared_experts * cfg.moe_d_ff).reshape(b * s, d)
 
     return out.reshape(b, s, d).to(x.dtype), aux

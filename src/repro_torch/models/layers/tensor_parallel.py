@@ -16,7 +16,15 @@ the 16-bit operands with an fp32 output), the partials are summed in fp32
 and the sum is rounded once, as one device rounds its accumulator once.
 Only the order of the fp32 sums then differs from one device.  The other
 products split nothing and are the plain ones.  With ``tp`` None (no mesh,
-or one ``model`` rank) both are the plain product.
+or one ``model`` rank) both are the plain product.  On the ranks of
+``collectives.run_plain_ranks`` each is its differentiable plain version
+(the row-parallel sum of fp32 partials, rounded once, by the plain
+collective), so that autograd takes the gradients across the ranks.
+
+A leaf whose ``(…, 2·half)`` columns a layer splits into two inputs (Mamba's
+``in_proj``, the mLSTM's ``up_proj``: ``x`` and the gate ``z``) is stored
+as the spec splits the ``2·half`` columns, contiguously over ``model``; the
+rank computes on its slice of each half (:func:`paired_columns`).
 """
 from __future__ import annotations
 
@@ -24,7 +32,14 @@ from typing import Optional
 
 import torch
 
-from repro_torch.sharding.collectives import all_reduce
+from repro_torch.sharding.collectives import (
+    all_reduce,
+    gather_leaf,
+    is_plain,
+    reduce_from_model_plain,
+    scatter_grad,
+    shard_leaf,
+)
 from repro_torch.sharding.context import ModelAxis
 
 
@@ -84,7 +99,7 @@ class _Row(torch.autograd.Function):
 def column_matmul(x: torch.Tensor, w: torch.Tensor, tp: Optional[ModelAxis]) -> torch.Tensor:
     """``x @ w`` for this rank's columns of ``w`` (2-D); ``x`` is whole on
     every ``model`` rank and its gradient's partials are summed over them."""
-    if tp is None:
+    if tp is None or is_plain(tp.group):
         return x @ w
     return _Column.apply(x, w, tp.group)
 
@@ -94,6 +109,9 @@ def row_matmul(h: torch.Tensor, w: torch.Tensor, tp: Optional[ModelAxis]) -> tor
     of ``h`` and rows of ``w`` (2-D)."""
     if tp is None:
         return h @ w
+    if is_plain(tp.group):
+        parts = tp.group.exchange(h.to(torch.float32) @ w.to(torch.float32))
+        return reduce_from_model_plain(parts).to(h.dtype)
     return _Row.apply(h, w, tp.group)
 
 
@@ -133,6 +151,8 @@ def kv_heads_for_rank(k: torch.Tensor, idx: torch.Tensor, tp: ModelAxis) -> torc
     so the kv heads' gradient is summed over ``model`` (in fp32, rounded
     once); everything upstream of ``k`` (the projection, its weight and
     bias, and ``x``) then sees the whole gradient on every rank."""
+    if is_plain(tp.group):
+        return k.index_select(2, idx)
     return _KvHeads.apply(k, idx, tp.group)
 
 
@@ -146,3 +166,53 @@ def split_axis(local: int, whole: int, tp: Optional[ModelAxis]) -> Optional[Mode
         raise ValueError(f"a dimension of {whole} holds {local} on one of {tp.size} "
                          "model ranks")
     return tp
+
+
+class _PairedColumns(torch.autograd.Function):
+    """The whole leaf gathered over ``model``, then this rank's columns of
+    each half (``split``) or all of them; backward: the columns' gradient
+    placed in a whole-shaped zero leaf and reduce-scattered over ``model``
+    (each column from one rank: the sum is exact), or, on a layer every
+    rank runs whole (its gradient whole on every rank), the rank's own
+    block of it."""
+
+    @staticmethod
+    def forward(ctx, w, half, split, tp):
+        ctx.half, ctx.split, ctx.tp = half, split, tp
+        whole = gather_leaf(w, w.dim() - 1, tp.group)
+        return _pair_slice(whole, half, tp) if split else whole
+
+    @staticmethod
+    def backward(ctx, g):
+        tp, dim = ctx.tp, g.dim() - 1
+        if not ctx.split:
+            return shard_leaf(g, dim, tp.size, tp.index), None, None, None
+        # summed in fp32 (every backend carries it), exact: one rank a column
+        n = ctx.half // tp.size
+        whole = g.new_zeros(*g.shape[:-1], 2 * ctx.half, dtype=torch.float32)
+        whole[..., tp.index * n:(tp.index + 1) * n] = g[..., :n]
+        whole[..., ctx.half + tp.index * n:ctx.half + (tp.index + 1) * n] = g[..., n:]
+        return scatter_grad(whole, dim, tp.group).to(g.dtype), None, None, None
+
+
+def _pair_slice(whole: torch.Tensor, half: int, tp: ModelAxis) -> torch.Tensor:
+    n = half // tp.size
+    lo = tp.index * n
+    return torch.cat([whole[..., lo:lo + n], whole[..., half + lo:half + lo + n]], -1)
+
+
+def paired_columns(w: torch.Tensor, half: int, tp: Optional[ModelAxis]) -> torch.Tensor:
+    """The columns of a ``(…, 2·half)`` leaf that this rank computes on,
+    from its stored block ``w``: ``[its slice of the first half | its slice
+    of the second half]`` where ``half`` splits over ``tp``, else (the
+    layer runs whole on every rank) all ``2·half`` of them.  A leaf the
+    spec keeps whole is ``w`` itself; a split one is gathered over
+    ``model`` first (at ``model=2`` rank 0 stores the whole first half and
+    rank 1 the second)."""
+    if tp is None or w.shape[-1] == 2 * half:
+        return w
+    split = half % tp.size == 0
+    if is_plain(tp.group):
+        whole = gather_leaf(w, w.dim() - 1, tp.group)
+        return _pair_slice(whole, half, tp) if split else whole
+    return _PairedColumns.apply(w, half, split, tp)

@@ -18,6 +18,29 @@ by path; casts sit where the reference's do (weights cast to the
 activation dtype where used; the mLSTM score product in that dtype, then
 fp32).  The functions return ``(out, new_state)``; the caller writes a
 cache's state in place.
+
+Over a ``model`` axis of M ranks (the ambient sharding context):
+
+* mLSTM, where ``inner`` (the up-projection's width) splits: the rank
+  computes on its up/M columns.  ``up_proj``'s stored block is gathered
+  over ``model`` and the rank takes its slice of x's and of z's columns
+  (``tensor_parallel.paired_columns``).  ``wq``/``wk``/``wv`` and the gate
+  weights split ``inner`` (it takes ``model`` before ``heads``), so q, k, v
+  and the gate pre-activations are row-parallel sums over ``model``, whole
+  on every rank, their gradients summed over ``model``; the rank runs the
+  cell for its H/M heads (``b_igate``/``b_fgate`` split by heads), whose
+  ``h`` columns are its ``inner`` slice, or, where M does not divide H,
+  every head, keeping its ``inner`` columns of ``h``.  The RMS over the
+  whole up-projection sums the squares over ``model``; ``out_norm`` is the
+  rank's slice and ``down_proj`` row-parallel.
+* sLSTM, where the heads split: ``w_{i,f,z,o}`` are column-parallel by
+  heads and ``r_*``/``b_*`` the rank's heads, so the time loop runs the
+  rank's heads only; their ``h`` is gathered over ``model`` into the
+  concatenated heads, whose norm (``out_norm`` is whole) every rank takes
+  as on one device, and the block's FF is the tensor-parallel MLP.
+
+Where M divides neither, the block runs whole on every rank.  State on such
+a mesh (prefill and decode) raises (serving on a mesh).
 """
 from __future__ import annotations
 
@@ -28,11 +51,22 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers.tensor_parallel import (
+    column_matmul,
+    paired_columns,
+    row_matmul,
+    split_axis,
+)
 from repro_torch.nn.module import Param
+from repro_torch.sharding.collectives import copy_to_model, gather_from_model, sum_across
+from repro_torch.sharding.context import model_parallel
 
 NEG_INF = -1e9
 
 State = Dict[str, torch.Tensor]
+
+SERVING_ON_A_MESH = ("serving on a mesh (xLSTM state over 'model') is not ported "
+                     "(ROADMAP.md queue 1, item 11 (e))")
 
 
 def _rms(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -116,16 +150,37 @@ def mlstm_block(
     a state (a prefill) the prompt rolled through the recurrence from it."""
     dtype = x.dtype
     hh = cfg.n_heads
-    xi, z = (x @ p["up_proj"].to(dtype)).chunk(2, dim=-1)
+    whole = int(cfg.xlstm_proj_factor * cfg.d_model)
+    dh = whole // hh
+    # this rank's up-projection columns and heads: all of them, or up/M
+    # and H/M (where M divides them) over a model axis
+    axis = model_parallel()
+    tp = split_axis(p["out_norm"].shape[0], whole, axis)
+    h_tp = split_axis(p["b_igate"].shape[0], hh, axis)
+    if axis is not None and state is not None:
+        raise NotImplementedError(SERVING_ON_A_MESH)
+    w_up = paired_columns(p["up_proj"], whole, axis)
+    xi, z = column_matmul(x, w_up.to(dtype), tp).chunk(2, dim=-1)
     b, s, up = xi.shape
-    dh = up // hh
+
+    def summed(w):
+        """``xi @ w`` for w (up, …), whole on every rank (einsum bsu,u…)."""
+        y = row_matmul(xi, w.to(dtype).reshape(up, -1), tp)
+        return y if tp is None else copy_to_model(y, tp.group)
 
     def heads(w):  # einsum bsu,uhd->bhsd
-        return (xi @ w.to(dtype).reshape(up, hh * dh)).view(b, s, hh, dh).transpose(1, 2)
+        return summed(w).view(b, s, hh, dh).transpose(1, 2)
 
     q, k, v = heads(p["wq"]), heads(p["wk"]), heads(p["wv"])
-    i_pre = (xi @ p["w_igate"].to(dtype)).transpose(1, 2) + p["b_igate"].to(dtype)[None, :, None]
-    f_pre = (xi @ p["w_fgate"].to(dtype)).transpose(1, 2) + p["b_fgate"].to(dtype)[None, :, None]
+    i_pre, f_pre = summed(p["w_igate"]).transpose(1, 2), summed(p["w_fgate"]).transpose(1, 2)
+    b_i, b_f = p["b_igate"].to(dtype), p["b_fgate"].to(dtype)
+    if h_tp is not None:   # the cell on this rank's heads
+        cut = slice(h_tp.index * b_i.shape[0], (h_tp.index + 1) * b_i.shape[0])
+        q, k, v, i_pre, f_pre = q[:, cut], k[:, cut], v[:, cut], i_pre[:, cut], f_pre[:, cut]
+    elif tp is not None:   # every head on every rank: the biases' gradients are partial
+        b_i, b_f = copy_to_model(b_i, tp.group), copy_to_model(b_f, tp.group)
+    i_pre = i_pre + b_i[None, :, None]
+    f_pre = f_pre + b_f[None, :, None]
 
     new_state = None
     if decode and state is not None:
@@ -140,9 +195,17 @@ def mlstm_block(
                 new_state, _ = mlstm_recurrent_step(new_state, q[:, :, t], k[:, :, t],
                                                     v[:, :, t], i_pre[:, :, t], f_pre[:, :, t])
 
-    h = _rms(h.transpose(1, 2).reshape(b, s, up), p["out_norm"])
+    h = h.transpose(1, 2).reshape(b, s, -1)
+    if tp is None:
+        h = _rms(h, p["out_norm"])
+    else:   # this rank's inner columns, normed over the whole up-projection
+        if h_tp is None:
+            h = h[..., tp.index * up:(tp.index + 1) * up]
+        h32 = h.to(torch.float32)
+        ss = sum_across(h32.square().sum(-1, keepdim=True), tp.group)
+        h = (h32 / torch.sqrt(ss / whole + 1e-6)).to(dtype) * p["out_norm"].to(dtype)
     h = h * F.silu(z)
-    return h @ p["down_proj"].to(dtype), new_state
+    return row_matmul(h, p["down_proj"].to(dtype), tp), new_state
 
 
 def init_mlstm_state(batch: int, cfg: ModelConfig, device=None) -> State:
@@ -194,11 +257,17 @@ def slstm_block(
     del decode
     dtype = x.dtype
     b, s, d = x.shape
-    hh = cfg.n_heads
-    dh = d // hh
+    dh = d // cfg.n_heads
+    # this rank's heads: all of them, or H/M over a model axis
+    hh = p["b_i"].shape[0]
+    axis = model_parallel()
+    tp = split_axis(hh, cfg.n_heads, axis)
+    if axis is not None and state is not None:
+        raise NotImplementedError(SERVING_ON_A_MESH)
     # the gates' input pre-activations (4, B, S, H, Dh), one product each,
     # in fp32 once for all steps
-    pre = torch.stack([(x @ p[f"w_{g}"].to(dtype).reshape(d, d)).view(b, s, hh, dh)
+    pre = torch.stack([column_matmul(x, p[f"w_{g}"].to(dtype).reshape(d, hh * dh), tp
+                                     ).view(b, s, hh, dh)
                        for g in GATES]).to(torch.float32)
     # the four gates' recurrent products as one batched product a step:
     # gate g's h_prev @ r_g per head, the same sums as the reference's four
@@ -206,7 +275,7 @@ def slstm_block(
     # (gate, head), so only h_prev (not r) is broadcast
     r = torch.stack([p[f"r_{g}"].to(torch.float32) for g in GATES])        # (4, H, Dh, Dh)
     bias = torch.stack([p[f"b_{g}"].to(torch.float32) for g in GATES])[:, None]  # (4,1,H,Dh)
-    st = state if state is not None else init_slstm_state(b, cfg, x.device)
+    st = state if state is not None else init_slstm_state(b, cfg, x.device, hh)
     c, n, m, h_prev = st["c"], st["n"], st["m"], st["h"]
     one = torch.ones((), device=x.device)   # max(n, 1): torch.maximum splits ties as JAX's
     hs = []
@@ -224,14 +293,20 @@ def slstm_block(
         hs.append(h_prev)
     new_state = {"c": c, "n": n, "m": m, "h": h_prev}
 
-    y = _rms(torch.stack(hs, 1).reshape(b, s, d).to(dtype), p["out_norm"])
-    # small gated FF (block-internal)
-    ff = F.gelu(y @ p["ff/wi"].to(dtype), approximate="tanh")
-    return ff @ p["ff/wo"].to(dtype), new_state
+    y = torch.stack(hs, 1).reshape(b, s, hh * dh).to(dtype)
+    if tp is not None:   # every rank's heads, concatenated
+        y = gather_from_model(y, -1, tp.group)
+    y = _rms(y, p["out_norm"])
+    # small gated FF (block-internal), tensor-parallel over ff
+    ff_tp = split_axis(p["ff/wi"].shape[1], int(cfg.xlstm_proj_factor * d), axis)
+    ff = F.gelu(column_matmul(y, p["ff/wi"].to(dtype), ff_tp), approximate="tanh")
+    return row_matmul(ff, p["ff/wo"].to(dtype), ff_tp), new_state
 
 
-def init_slstm_state(batch: int, cfg: ModelConfig, device=None) -> State:
-    h, dh = cfg.n_heads, cfg.d_model // cfg.n_heads
+def init_slstm_state(batch: int, cfg: ModelConfig, device=None,
+                     heads: Optional[int] = None) -> State:
+    """The zero state (m at -1e9) of ``heads`` heads (all by default)."""
+    h, dh = heads or cfg.n_heads, cfg.d_model // cfg.n_heads
 
     def z():
         return torch.zeros((batch, h, dh), dtype=torch.float32, device=device)

@@ -60,6 +60,9 @@ from repro_torch.models.layers.mla import init_mla_cache, mla_attention, mla_def
 from repro_torch.models.layers.mlp import mlp, mlp_defs
 from repro_torch.models.layers.moe import moe, moe_defs
 from repro_torch.models.layers.norms import apply_norm, norm_defs
+from repro_torch.models.layers.tensor_parallel import row_matmul, split_axis
+from repro_torch.sharding.collectives import copy_to_model
+from repro_torch.sharding.context import model_parallel
 
 
 def check_flash_softcap(cfg: ModelConfig) -> None:
@@ -241,19 +244,28 @@ def mtp_logits(params: Dict[str, torch.Tensor], hidden: torch.Tensor,
     """DeepSeek-V3's single-depth MTP head: predict token t+2 from
     [h_t ; emb(t+1)] through one extra block (no cache, no window), its
     norm and the model's head.  The last position takes the first token's
-    embedding, as ``jnp.roll`` wraps."""
+    embedding, as ``jnp.roll`` wraps.  Over a ``model`` axis the logits are
+    this rank's vocab columns, as the main head's."""
     dtype = hidden.dtype
     mp = nn.subtree(params, "mtp")
-    nxt = torch.roll(embed(params["embed"], batch["tokens"], dtype), -1, dims=1)
-    h = torch.cat([hidden, nxt], dim=-1) @ mp["proj"].to(dtype)
+    nxt = torch.roll(embed(params["embed"], batch["tokens"], dtype, cfg.vocab_size), -1, dims=1)
+    joined = torch.cat([hidden, nxt], dim=-1)
+    # ``proj`` (2·D, D) splits its rows over model: a row-parallel product
+    # of the rank's columns of the joined input, whose gradient (the rank's
+    # columns only) is summed over model
+    rows = mp["proj"].shape[0]
+    tp = split_axis(rows, joined.shape[-1], model_parallel())
+    if tp is not None:
+        joined = copy_to_model(joined, tp.group)[..., tp.index * rows:(tp.index + 1) * rows]
+    h = row_matmul(joined, mp["proj"].to(dtype), tp)
     b, s = h.shape[:2]
     positions = torch.arange(s, dtype=torch.int32, device=h.device)[None].expand(b, s)
     # window None, as the reference passes it
     h, _ = _one_block(nn.subtree(mp, "block"), h, positions, cfg.replace(sliding_window=None))
     h = apply_norm(nn.subtree(mp, "norm"), h, cfg.norm_type)
     if cfg.tie_embeddings:
-        return tied_unembed(h, params["embed"])
-    return unembed(h, params["unembed"])
+        return tied_unembed(h, params["embed"], cfg.vocab_size)
+    return unembed(h, params["unembed"], cfg.vocab_size)
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=torch.bfloat16,

@@ -15,6 +15,9 @@ length (``make_cache`` ignores ``max_len``), ``{"sub0": {"c", "n", "m"},
 "sub1": {"c", "n", "m", "h"}}`` with each leaf stacked ``(n_pairs, B, ...)``
 in fp32, and no ``index`` leaf.  A prefill or decode step writes each
 pair's new state into its slice of the cache, in place.
+
+Over a ``model`` axis the cells split as ``layers/xlstm.py`` says and the
+tied embedding its vocab rows (``cfg.vocab_size`` is the whole).
 """
 from __future__ import annotations
 
@@ -90,7 +93,7 @@ def forward(
     cache.  ``positions`` is unused: the model has no position encoding."""
     del positions
     dtype = nn.torch_dtype(cfg.activation_dtype)
-    x = embed(params["embed"], batch["tokens"], dtype)
+    x = embed(params["embed"], batch["tokens"], dtype, cfg.vocab_size)
     stacked = {k: torch.unbind(v, 0) for k, v in nn.subtree(params, "pairs").items()}
     for i in range(cfg.n_layers // 2):
         pp = {k: v[i] for k, v in stacked.items()}
@@ -104,7 +107,7 @@ def forward(
         else:
             x = _pair(pp, x, cfg, cache, decode)
     x = apply_norm(nn.subtree(params, "final_norm"), x, cfg.norm_type)
-    return tied_unembed(x, params["embed"]), {}
+    return tied_unembed(x, params["embed"], cfg.vocab_size), {}
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=torch.bfloat16,

@@ -27,6 +27,10 @@ each rank then holds one block.
 * :func:`sum_across` sums over a group with the sum's adjoint, a sum, as
   its backward: a global quantity every rank computes from its own rows
   (the MoE router's global means) whose gradient reaches every rank's rows;
+* :func:`gather_from_model` gathers an activation's slices over ``model``
+  with the gather's adjoint, each rank's own slice of the gradient, as its
+  backward: the input of work every rank repeats on the whole (the MoE
+  router's logits, the sLSTM's heads before its norm);
 * :func:`agree_any`, :func:`broadcast_int` and :func:`barrier` carry
   control flags and small integers over the mesh's host group (gloo, CPU
   tensors): no device launch and no device synchronisation.  They are
@@ -34,10 +38,22 @@ each rank then holds one block.
 
 Each has a plain single-process version (``*_plain``) that takes every
 rank's operand at once: what the tests hold the collectives to.
+
+:func:`run_plain_ranks` runs ``M`` ranks of one process as threads whose
+group is a :class:`PlainGroup`: each collective meets the other ranks at a
+barrier and returns its plain version over every rank's operand, built from
+differentiable ops.  A layer then runs its own code on each rank's block
+with the cross-rank sums and gathers done by the plain collectives, and one
+backward pass over the joined graph gives every rank's gradients: the
+exact gradients of the joined forward, with each replicated output counted
+once by the caller.  The adjoints the real collectives apply by hand (a sum
+over ``model`` in a backward) are autograd's own sums there, so a
+backward's collective is the identity on a :class:`PlainGroup`.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import threading
+from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -65,8 +81,45 @@ def _collective(name: str, older: str):
     return getattr(dist, name, None) or getattr(dist, older)
 
 
+class PlainRanks:
+    """``size`` ranks of one process, a thread each, that meet at a barrier
+    to swap operands (:func:`run_plain_ranks`)."""
+
+    def __init__(self, size: int, timeout: float):
+        self.size = size
+        self.barrier = threading.Barrier(size, timeout=timeout)
+        self.slots: list = [None] * size
+
+
+class PlainGroup(NamedTuple):
+    """Rank ``index``'s handle on :class:`PlainRanks`: the ``group`` the
+    collectives take in place of a process group."""
+
+    ranks: PlainRanks
+    index: int
+
+    @property
+    def size(self) -> int:
+        return self.ranks.size
+
+    def exchange(self, x) -> list:
+        """Every rank's ``x``, in rank order (each rank's own tensor)."""
+        r = self.ranks
+        r.slots[self.index] = x
+        r.barrier.wait()
+        out = list(r.slots)
+        r.barrier.wait()   # every rank has read before the next swap writes
+        return out
+
+
+def is_plain(group) -> bool:
+    """Whether ``group`` is a :class:`PlainGroup` (a rank of
+    :func:`run_plain_ranks`)."""
+    return isinstance(group, PlainGroup)
+
+
 def group_size(group) -> int:
-    return _dist().get_world_size(group)
+    return group.size if is_plain(group) else _dist().get_world_size(group)
 
 
 def shard_leaf(x: torch.Tensor, dim: Optional[int], parts: int, index: int) -> torch.Tensor:
@@ -101,6 +154,8 @@ def gather_leaf(x: torch.Tensor, dim: Optional[int], group) -> torch.Tensor:
     """
     if dim is None:
         return x
+    if is_plain(group):
+        return gather_leaf_plain(group.exchange(x), dim)
     n = group_size(group)
     flat = x.reshape(-1)
     # a gather moves bits and does no arithmetic: 16-bit floats travel as
@@ -140,6 +195,8 @@ def all_reduce(x: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
     where ``x`` is contiguous; returns the result.  ``group`` None: ``x``."""
     if group is None:
         return x
+    if is_plain(group):
+        return all_reduce_plain(group.exchange(x), op)
     out = x if x.is_contiguous() else x.contiguous()
     _dist().all_reduce(out, op=_op(op), group=group)
     return out
@@ -202,14 +259,19 @@ class _ReduceFromModel(torch.autograd.Function):
 def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` unchanged; its gradient summed over ``group`` (the ``model``
     ranks, each of which holds the gradient's partial from its heads, ff
-    columns or vocab rows).  ``group`` None: ``x``."""
-    return x if group is None else _CopyToModel.apply(x, group)
+    columns or vocab rows).  ``group`` None, or a :class:`PlainGroup`
+    (whose ranks' uses of ``x`` autograd sums): ``x``."""
+    return x if group is None or is_plain(group) else _CopyToModel.apply(x, group)
 
 
 def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` summed over ``group`` (each ``model`` rank's partial product);
     its gradient passes to every rank unchanged.  ``group`` None: ``x``."""
-    return x if group is None else _ReduceFromModel.apply(x, group)
+    if group is None:
+        return x
+    if is_plain(group):
+        return reduce_from_model_plain(group.exchange(x))
+    return _ReduceFromModel.apply(x, group)
 
 
 class _SumAcross(torch.autograd.Function):
@@ -229,7 +291,36 @@ def sum_across(x: torch.Tensor, group) -> torch.Tensor:
     the gradient each rank receives is the sum of every rank's gradient of
     the result, so a loss that each rank weights by its own share reaches
     each rank's operand at the whole weight.  ``group`` None: ``x``."""
-    return x if group is None else _SumAcross.apply(x, group)
+    if group is None:
+        return x
+    if is_plain(group):
+        return sum_across_plain(group.exchange(x))
+    return _SumAcross.apply(x, group)
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.index, ctx.n = dim, _dist().get_rank(group), group_size(group)
+        return gather_leaf(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return shard_leaf(g, ctx.dim, ctx.n, ctx.index), None, None
+
+
+def gather_from_model(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every ``model`` rank's slice of ``x`` along ``dim``, concatenated in
+    rank order, on every rank; the gradient is this rank's slice of the
+    result's, unsummed: the whole that every rank computes from the gathered
+    tensor gives every rank the whole gradient, so a sum would count it once
+    a rank.  ``group`` None: ``x``."""
+    if group is None:
+        return x
+    dim = dim % x.dim()
+    if is_plain(group):
+        return gather_leaf(x, dim, group)
+    return _GatherFromModel.apply(x, dim, group)
 
 
 # ---------------------------------------------------------------------------
@@ -333,3 +424,37 @@ def broadcast_int_plain(xs: Sequence[int], src: int = 0) -> List[int]:
 def barrier_plain(arrived: Sequence[bool]) -> bool:
     """Whether a barrier over ranks that ``arrived`` would return: all did."""
     return all(arrived)
+
+
+def run_plain_ranks(fn: Callable[[PlainGroup], object], size: int,
+                    timeout: float = 600.0) -> list:
+    """``[fn(group) for each of size ranks]``, each call on a thread of its
+    own with its :class:`PlainGroup`, in rank order.  A rank that raises
+    breaks the barrier so that no other waits; the first error (not a
+    broken barrier) is raised.  Only the forward belongs on the threads:
+    the caller runs one backward pass over the joined graph (on the card,
+    autograd runs every graph's device work on one thread, where ranks
+    meeting at a barrier would wait for each other forever)."""
+    ranks = PlainRanks(size, timeout)
+    out: list = [None] * size
+    errors: list = []
+
+    def one(r: int) -> None:
+        try:
+            out[r] = fn(PlainGroup(ranks, r))
+        except BaseException as e:   # noqa: BLE001 — re-raised below
+            errors.append(e)
+            ranks.barrier.abort()
+
+    threads = [threading.Thread(target=one, args=(r,), daemon=True) for r in range(size)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout)
+    if any(t.is_alive() for t in threads):
+        ranks.barrier.abort()
+        raise TimeoutError(f"plain ranks still running after {timeout} s")
+    if errors:
+        raise next((e for e in errors if not isinstance(e, threading.BrokenBarrierError)),
+                   errors[0])
+    return out

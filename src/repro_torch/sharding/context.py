@@ -27,22 +27,17 @@ from repro_torch.sharding.axes import Spec, batch_axes, default_act_rules, mesh_
 
 _state = threading.local()
 
-# what a mesh still does not run (ROADMAP.md queue 1): the message's label,
-# and each sub-item's (3: expert parallelism, 4: the xLSTM/Mamba ``inner``
-# axis, 5: MLA over ``model``)
+# what a mesh still does not run (ROADMAP.md queue 1): mesh axes besides
+# pod, data and model, and a dimension split over both data and model
 UNPORTED = "ROADMAP.md queue 1, item 11 (b2)"
-
-
-def unported(sub: int) -> str:
-    """The label of item 11 (b2)'s sub-item ``sub``."""
-    return f"{UNPORTED}.{sub}"
 
 
 class Layout(NamedTuple):
     """How a leaf lies over the mesh: the dimension the data-parallel axes
-    split (FSDP, ``embed``) and the one ``model`` splits (tensor
-    parallelism: ``heads``, ``kv_heads``, ``ff``, ``vocab``); None where
-    the leaf is whole along that axis."""
+    split (FSDP, ``embed``) and the one ``model`` splits (tensor and
+    expert parallelism: ``heads``, ``kv_heads``, ``ff``, ``vocab``,
+    ``experts``, ``inner``); None where the leaf is whole along that
+    axis."""
 
     data: Optional[int] = None
     model: Optional[int] = None

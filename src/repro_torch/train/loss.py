@@ -268,7 +268,7 @@ def lm_loss(
     if cfg.use_mtp and mtp_hidden is not None and params is not None:
         mlogits = mtp_logits(params, mtp_hidden, batch, cfg)
         mtp_labels = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1], IGNORE)], dim=1)
-        mtp_ce, _ = cross_entropy(mlogits, mtp_labels)
+        mtp_ce, _ = _masked_ce(mlogits, None, mtp_labels, cfg, None)
         total = total + cfg.mtp_loss_coef * mtp_ce
         metrics["loss/mtp"] = mtp_ce
     metrics["loss/total"] = total

@@ -69,7 +69,7 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.core.mixed_batch import Stage
 from repro_torch.data.pipeline import DataPipeline
 from repro_torch.kernels.ops import FusedLambState
-from repro_torch.models.api import Model, check_model_axis
+from repro_torch.models.api import Model
 from repro_torch.optim.base import ScheduleState
 from repro_torch.sharding import (
     Layout,
@@ -110,16 +110,14 @@ def _batch_examples(batch) -> int:
     return int(next(iter(batch.values())).shape[0])
 
 
-def check_mesh_supported(cfg, mesh) -> None:
+def check_mesh_supported(mesh) -> None:
     """Raise ``NotImplementedError`` naming its ROADMAP.md item for what a
     mesh does not run yet: mesh axes besides ``pod``, ``data`` and
-    ``model`` (item 11 (b2)) and what :func:`check_model_axis` refuses over
-    ``model``."""
+    ``model`` (item 11 (b2)).  Every arch trains over ``data × model``."""
     other = {a: n for a, n in mesh.shape.items() if a not in ("pod", "data", "model")}
     if any(n > 1 for n in other.values()):
         raise NotImplementedError(f"mesh axes {other}: only 'pod', 'data' and 'model' "
                                   f"are ported ({UNPORTED})")
-    check_model_axis(cfg, mesh.shape.get("model", 1))
 
 
 # the rank-0 verdicts a rollback broadcasts when it cannot restore
@@ -173,7 +171,7 @@ class Trainer:
                 raise ValueError("Trainer(mesh=) over more than one rank needs the mesh's "
                                  "host group (init_distributed), over which the ranks "
                                  "agree on one verdict, one flag and one writer")
-            check_mesh_supported(model.cfg, mesh)
+            check_mesh_supported(mesh)
             self._dp = dp_size(mesh)
             if mesh.rank != 0:   # only rank 0 logs and writes
                 log_fn, telemetry = (lambda s: None), None

@@ -77,10 +77,26 @@ The model axis's GQA and MoE over data ranks:
                offsets, a rank-local load-balance loss, or the backward
                scaled by each rank's count after it rather than seeded
                with it (planted)
+
+The rest of the model axis (each run against the single process; the
+plants must fail the bounds):
+
+  ep           granite-moe-smoke's experts split over model (a capacity that
+               drops tokens, the z-loss): fp32 at accum 1 and 2 and bf16 at
+               accum 2 (over two data ranks fp32 accum 2 alone, with
+               jamba-smoke and deepseek-smoke with MTP); planted:
+               the gates' and tokens' gradients left partial, the logits
+               gather's backward summing
+  recurrent_mla  xlstm-smoke (fp32 and bf16), and at one data rank
+               jamba-smoke and deepseek-smoke with MTP (naive and absorbed)
+               in fp32; planted: the mLSTM's RMS without its sum over
+               model, a rank computing on its stored up-projection block
+               (xlstm, jamba), the MLA latents' gradients left partial
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -107,6 +123,7 @@ from repro_torch.sharding import collectives as C
 from repro_torch.telemetry import EventLog
 from repro_torch.train import FaultInjector, FaultSpec, SupervisorConfig, Trainer, TrainState
 from repro_torch.train.step import make_train_step
+from repro_torch.train.trainer import TERM_KEYS
 
 TINY = ModelConfig(
     name="tiny-sharded", family="dense", n_layers=2, d_model=64, n_heads=4,
@@ -159,6 +176,10 @@ class Ctx:
         self.rank0 = mesh.rank == 0
         self.dp = dp_size(mesh)
         self.world = mesh.group(mesh.axis_names)
+        # rank 0's single-process references by (config, TrainConfig,
+        # blocks): a planted run takes its clean twin's (no plant reaches
+        # a single process, which has no model axis)
+        self.refs: dict = {}
 
 
 def _quiet(model, tc, mesh=None, **kw):
@@ -221,6 +242,14 @@ def _records(tr) -> list:
     return out
 
 
+def _by_leaf(mine, theirs) -> dict:
+    """The largest relative difference of each leaf's records."""
+    out: dict = {}
+    for a, b in zip(mine, theirs):
+        out[a[1]] = max(out.get(a[1], 0.0), _rel(a[4], b[4]))
+    return out
+
+
 def _diffs(tr, whole, ref) -> dict:
     """The run against a reference: params, losses, each step's global
     norms and trust-ratio summary (``NORM_KEYS``), and every layer's
@@ -232,7 +261,10 @@ def _diffs(tr, whole, ref) -> dict:
     assert [r[:4] for r in mine] == [r[:4] for r in theirs] and mine, (len(mine), len(theirs))
     worst = max(whole.params, key=lambda k: maxdiff({k: whole.params[k]}, {k: ref.state.params[k]}))
     first = mine[0][0]
-    return {"step1": {"loss": abs(rows[0][0]["loss/total"] - rows[0][1]["loss/total"]),
+    terms = [k for k in TERM_KEYS if k in rows[0][1]]
+    return {"metric_diff": {k: max(abs(a[k] - b[k]) for a, b in rows) for k in terms},
+            "metrics": {k: [a[k] for a, _ in rows] for k in terms},
+            "step1": {"loss": abs(rows[0][0]["loss/total"] - rows[0][1]["loss/total"]),
                       "grad_norm": _rel(rows[0][0]["grad_norm"], rows[0][1]["grad_norm"]),
                       "records": max(_rel(a[4], b[4]) for a, b in zip(mine, theirs)
                                      if a[0] == first)},
@@ -241,12 +273,15 @@ def _diffs(tr, whole, ref) -> dict:
             "loss_diff": max(abs(a - b) for a, b in zip(_losses(tr), _losses(ref))),
             "norm_reldiff": {k: max(_rel(a[k], b[k]) for a, b in rows) for k in NORM_KEYS},
             "record_reldiff": max(_rel(a[4], b[4]) for a, b in zip(mine, theirs)),
+            "record_reldiff_by_leaf": _by_leaf(mine, theirs),
+            "step1_by_leaf": _by_leaf(*zip(*[(a, b) for a, b in zip(mine, theirs)
+                                             if a[0] == first])),
             "record_worst": max(zip(mine, theirs), key=lambda ab: _rel(ab[0][4], ab[1][4]))[0],
             "records": len(mine),
             "losses": _losses(ref)}
 
 
-def _equiv(c: Ctx, scenario: str, variant: str, cfg, tc) -> dict:
+def _equiv(c: Ctx, scenario: str, variant: str, cfg, tc, blocks: bool = True) -> dict:
     """The sharded run against two single-process runs from the same state:
     ``same_blocks`` takes ``accum_steps × world`` micro-batches, so its
     micro-batches are the ranks' (the same rows, hence the same bf16
@@ -256,17 +291,21 @@ def _equiv(c: Ctx, scenario: str, variant: str, cfg, tc) -> dict:
     Both record the global norms, the trust-ratio summary and the per-layer
     records (rank 0 alone writes the sharded run's).  The ``model`` ranks of
     one data coordinate take the same rows, so the micro-batches are the
-    data-parallel ranks'; with one such rank the two references are one."""
+    data-parallel ranks'; with one such rank the two references are one.
+    Without ``blocks`` only ``same_config`` runs: an MoE's capacity and
+    routing are the micro-batch's, so other micro-batches route otherwise."""
     # every step's norms and every layer's applied trust ratio are compared
     tc = dataclasses.replace(tc, log_trust_ratios=True, record_trust_ratios=True)
     model = build_model(cfg)
     state = initial_state(cfg, tc, c.init)
-    refs = {}
-    if c.rank0:
-        refs["same_blocks"] = _single(
-            model, dataclasses.replace(tc, accum_steps=tc.accum_steps * c.dp), state, cfg)
-        refs["same_config"] = (refs["same_blocks"] if c.dp == 1
+    refs = c.refs.get((cfg, tc, blocks), {})
+    if c.rank0 and not refs:
+        if blocks:
+            refs["same_blocks"] = _single(
+                model, dataclasses.replace(tc, accum_steps=tc.accum_steps * c.dp), state, cfg)
+        refs["same_config"] = (refs["same_blocks"] if blocks and c.dp == 1
                                else _single(model, tc, state, cfg))
+        c.refs[(cfg, tc, blocks)] = refs
     tr = _quiet(model, tc, c.mesh, telemetry=EventLog.memory())
     tr.place_state(state)
     tr.fit(DataPipeline(cfg, BATCH, SEQ, device="cpu", seed=0, rows=tr.batch_rows), STEPS)
@@ -816,6 +855,123 @@ def scenario_moe_data(c: Ctx) -> dict:
     return out if c.rank0 else {}
 
 
+# ---------------------------------------------------------------------------
+# the rest of the model axis: expert parallelism, the inner axis, MLA heads
+# ---------------------------------------------------------------------------
+
+FUSED_LAMB = TrainConfig(optimizer="lamb", learning_rate=1e-3, use_fused_lamb=True)
+
+
+def ep_variants(dp: int):
+    """``{variant: (config, TrainConfig)}``: granite-moe-smoke with a capacity
+    that drops tokens and the z-loss (:func:`moe_config`), fused LAMB, in
+    fp32 activations at accum 1 and 2, and in bf16 at accum 2; over more
+    than one data rank accum 2 in fp32 alone (bf16 rows that the ranks
+    split round over other sums, and the micro-batch routes as a whole),
+    with jamba-smoke (Mamba's ``inner``, GQA heads) and deepseek-smoke with
+    MTP (MLA heads) under the same config changes beside it."""
+    tc = FUSED_LAMB
+    if dp > 1:   # and the MoE archs of the recurrent and MLA families
+        accum2 = dataclasses.replace(tc, accum_steps=2)
+        return {"accum2_f32": (moe_config(), accum2),
+                "jamba_f32": (moe_config("jamba-1.5-large-398b"), accum2),
+                "deepseek_naive_f32": (moe_config("deepseek-v3-671b").replace(use_mtp=True),
+                                       accum2)}
+    out = {f"accum{a}_f32": (moe_config(), dataclasses.replace(tc, accum_steps=a))
+           for a in (1, 2)}
+    out["accum2_bf16"] = (moe_config().replace(activation_dtype="bfloat16"),
+                          dataclasses.replace(tc, accum_steps=2, precision="bf16"))
+    return out
+
+
+class _SummingGather(torch.autograd.Function):
+    """``gather_from_model`` with a backward that sums the ranks' whole
+    gradients before taking the rank's slice (a plant)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return C.gather_leaf(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return C.scatter_grad(g.contiguous(), ctx.dim, ctx.group), None, None
+
+
+def _planted(c: Ctx, scenario: str, variant, cfg, tc, patches, blocks=True) -> dict:
+    from unittest import mock
+
+    with contextlib.ExitStack() as stack:
+        for mod, attr, fn in patches:
+            stack.enter_context(mock.patch.object(mod, attr, fn))
+        return _equiv(c, scenario, variant, cfg, tc, blocks)
+
+
+def scenario_ep(c: Ctx) -> dict:
+    """Expert parallelism: each variant against the single process on its
+    own micro-batches; then ``accum2_f32`` with the gates' and the tokens'
+    gradients left partial (``copy_to_model`` dropped) and with the logits
+    gather's backward summing the ranks' whole gradients (the router's
+    terms counted once a rank)."""
+    from repro_torch.models.layers import moe
+
+    runs = ep_variants(c.dp)
+    out = {v: _equiv(c, "ep", v, cfg, tc, blocks=False) for v, (cfg, tc) in runs.items()}
+    plants = {
+        "unsummed_grads": [(moe, "copy_to_model", lambda x, group: x)],
+        "summing_gather": [(moe, "gather_from_model",
+                            lambda x, dim, group: _SummingGather.apply(x, dim % x.dim(), group))],
+    }
+    if c.dp == 1:
+        out["planted"] = {name: _planted(c, f"ep_planted_{name}", "accum2_f32",
+                                         *runs["accum2_f32"], patches, blocks=False)
+                          for name, patches in plants.items()}
+    return out if c.rank0 else {}
+
+
+def recurrent_mla_variants(dp: int):
+    """``{variant: (config, TrainConfig)}``: xlstm-smoke (fp32 and bf16
+    activations), and at one data rank jamba-smoke (Mamba's ``inner``, GQA
+    4/2 heads and expert parallelism together) and deepseek-smoke with MTP,
+    naive and absorbed, in fp32 activations (the MoE ones with a capacity
+    that drops tokens and the z-loss), fused LAMB at accum 2."""
+    tc = dataclasses.replace(FUSED_LAMB, accum_steps=2)
+    f32 = dict(activation_dtype="float32")
+    out = {"xlstm_f32": (smoke_config("xlstm-350m").replace(**f32), tc),
+           "xlstm_bf16": (smoke_config("xlstm-350m"), dataclasses.replace(tc, precision="bf16"))}
+    if dp == 1:
+        out["jamba_f32"] = (moe_config("jamba-1.5-large-398b"), tc)
+        for name, absorb in (("naive", False), ("absorbed", True)):
+            out[f"deepseek_{name}_f32"] = (moe_config("deepseek-v3-671b").replace(
+                use_mtp=True, mla_absorb=absorb), tc)
+    return out
+
+
+def scenario_recurrent_mla(c: Ctx) -> dict:
+    """The xLSTM/Mamba ``inner`` axis and MLA heads: each variant against
+    the single process; then, at one data rank, the mLSTM's RMS with its
+    sum of squares over ``model`` dropped, the xLSTM and jamba ranks
+    computing on their stored up-projection block as if it were their
+    slices of x and z, and deepseek's MLA with the latents' gradients left
+    partial (planted)."""
+    from repro_torch.models.layers import mamba, mla, xlstm
+
+    runs = recurrent_mla_variants(c.dp)
+    out = {v: _equiv(c, "recurrent_mla", v, cfg, tc) for v, (cfg, tc) in runs.items()}
+    if c.dp == 1:
+        stored = lambda w, half, tp: w   # noqa: E731
+        plants = {
+            "rms_local": ("xlstm_f32", [(xlstm, "sum_across", lambda x, group: x)]),
+            "stored_block": ("xlstm_f32", [(xlstm, "paired_columns", stored)]),
+            "stored_block_mamba": ("jamba_f32", [(mamba, "paired_columns", stored)]),
+            "mla_unsummed": ("deepseek_naive_f32", [(mla, "copy_to_model", lambda x, group: x)]),
+        }
+        out["planted"] = {name: _planted(c, f"recurrent_mla_planted_{name}", v, *runs[v],
+                                         patches)
+                          for name, (v, patches) in plants.items()}
+    return out if c.rank0 else {}
+
+
 SCENARIOS = {
     "collectives": scenario_collectives,
     "equiv": scenario_equiv,
@@ -833,9 +989,12 @@ SCENARIOS = {
     "spike_rollback": scenario_spike_rollback,
     "gqa": scenario_gqa,
     "moe_data": scenario_moe_data,
+    "ep": scenario_ep,
+    "recurrent_mla": scenario_recurrent_mla,
 }
 # run only when named
-NAMED_ONLY = ("tp_", "host_collectives", "spike_rollback", "gqa", "moe_data")
+NAMED_ONLY = ("tp_", "host_collectives", "spike_rollback", "gqa", "moe_data", "ep",
+              "recurrent_mla")
 
 
 # ---------------------------------------------------------------------------

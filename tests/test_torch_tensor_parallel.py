@@ -29,7 +29,6 @@ from repro_torch.kernels.fused_ce import (
 )
 from repro_torch.launch.mesh import Mesh, parse_mesh_spec
 from repro_torch.models import build_model
-from repro_torch.models.api import check_model_axis
 from repro_torch.models.layers.attention import attention, init_kv_cache
 from repro_torch.models.layers.tensor_parallel import column_matmul, row_matmul
 from repro_torch.nn import flatten
@@ -53,7 +52,15 @@ CONFIGS = {
     "tiny": (lambda: ModelConfig(**TINY), lambda: JaxModelConfig(**TINY)),
     "smollm-smoke": (lambda: smoke_config("smollm-360m"),
                      lambda: jax_smoke_config("smollm-360m")),
+    # expert parallelism, the xLSTM/Mamba inner axis and MLA heads
+    **{name: (lambda a=arch: smoke_config(a), lambda a=arch: jax_smoke_config(a))
+       for name, arch in (("granite-moe-smoke", "granite-moe-1b-a400m"),
+                          ("xlstm-smoke", "xlstm-350m"),
+                          ("jamba-smoke", "jamba-1.5-large-398b"),
+                          ("deepseek-smoke", "deepseek-v3-671b"))},
 }
+MODEL_AXIS_ARCHS = ["granite-moe-1b-a400m", "xlstm-350m", "jamba-1.5-large-398b",
+                    "deepseek-v3-671b"]
 F32 = dict(rtol=1e-5, atol=1e-5)        # tests/test_torch_fused_ce.py's bounds
 F32_GRAD = dict(rtol=1e-4, atol=1e-5)
 IDX_INF = torch.iinfo(torch.int32).max
@@ -110,9 +117,6 @@ def test_rank_layouts_match_jax_specs(arch, mesh):
             assert all(torch.equal(p, parts[0]) for p in parts) or mdim is not None, k
         got = C.gather_leaf_plain(rows, data) if data is not None else rows[0]
         assert torch.equal(got, x), k
-    # heads split while the kv heads stay whole run too (against the whole
-    # kv heads): nothing of a dense config refuses
-    check_model_axis(port_cfg, n_model)
 
 
 def _slices(h, w, lbl, m, block_v=64):
@@ -276,13 +280,32 @@ def test_bert_large_per_rank_state_bytes(mesh):
     tensors cut to its block: what the JAX specs give (each dimension over
     the product of the mesh axes it names), and at least N/2 times smaller
     than whole over N ranks."""
+    per, whole, sizes = _rank0_state_bytes("bert-large", mesh)
+    world = sizes["data"] * sizes["model"]
+    assert 3 * per_device_state_bytes(whole) / per >= world / 2
+
+
+@pytest.mark.parametrize("mesh", ["data=1,model=2", "data=2,model=2", "data=2,model=4"])
+@pytest.mark.parametrize("arch", MODEL_AXIS_ARCHS)
+def test_model_axis_per_rank_state_bytes(arch, mesh):
+    """Params + μ + ν of rank 0 of each arch's full-width config, whose
+    experts, ``inner`` width or MLA heads split over ``model``: what the JAX
+    specs give, and at least N/2 times smaller than whole over N ranks."""
+    per, whole, sizes = _rank0_state_bytes(arch, mesh)
+    assert 3 * per_device_state_bytes(whole) / per >= sizes["data"] * sizes["model"] / 2
+
+
+def _rank0_state_bytes(arch, mesh):
+    """Rank 0's params + μ + ν bytes from meta tensors cut to its block,
+    checked against what the JAX specs give (each dimension over the
+    product of the mesh axes it names): ``(bytes, whole leaves, sizes)``."""
     sizes = parse_mesh_spec(mesh)
-    model = build_model(get_config("bert-large"))
+    model = build_model(get_config(arch))
     port_mesh = Mesh(sizes)
     whole = {k: torch.empty(p.shape, device="meta") for k, p in flatten(model.defs).items()}
     rank0 = shard_tree(whole, leaf_dims(specs_for(model.defs, port_mesh), port_mesh), port_mesh)
     per = 3 * per_device_state_bytes(rank0)
-    jspecs = _flat_specs(jax_specs_for(jax_build_model(jax_get_config("bert-large")).defs,
+    jspecs = _flat_specs(jax_specs_for(jax_build_model(jax_get_config(arch)).defs,
                                        jax_abstract_mesh(tuple(sizes.values()), tuple(sizes))))
     want = 0
     for k, x in whole.items():
@@ -292,14 +315,15 @@ def test_bert_large_per_rank_state_bytes(mesh):
                 n //= sizes[a]
         want += 3 * 4 * n
     assert per == want
-    world = sizes["data"] * sizes["model"]
-    assert 3 * per_device_state_bytes(whole) / per >= world / 2
+    return per, whole, sizes
 
 
-def _fake_tp_ctx(cfg, rank=0):
-    """A context whose ``model`` axis has two ranks and a stand-in group:
-    enough for what raises before any collective runs."""
-    mesh = Mesh({"data": 1, "model": 2}, rank=rank, groups={("model",): object()})
+def _fake_tp_ctx(cfg, rank=0, group=None):
+    """A context whose ``model`` axis has two ranks and ``group``: a plain
+    group of ``collectives.run_plain_ranks``, or a stand-in, enough for what
+    raises before any collective runs."""
+    mesh = Mesh({"data": 1, "model": 2}, rank=rank,
+                groups={("model",): object() if group is None else group})
     return ShardCtx(mesh, param_specs=specs_for(build_model(cfg).defs, mesh))
 
 
@@ -350,15 +374,35 @@ def test_attention_refuses_split_heads_with_whole_kv_heads_and_a_cache():
                                rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "xlstm-350m",
-                                  "jamba-1.5-large-398b", "deepseek-v3-671b"])
-def test_model_axis_refuses_what_is_not_ported(arch):
-    """MoE, the xLSTM/Mamba inner axis and MLA over model=2 raise naming
-    item 11 (b2), at the model's own entry as at the launcher's check."""
-    cfg = smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="item 11 \\(b2\\)"):
-        check_model_axis(cfg, 2)
+@pytest.mark.parametrize("arch", MODEL_AXIS_ARCHS)
+def test_model_apply_over_plain_model_ranks_matches_whole(arch):
+    """MoE (expert parallelism), the xLSTM/Mamba ``inner`` axis and MLA
+    (with MTP) over model=2, which the launcher refused before: the
+    model's own ``apply`` on each rank's blocks under ``_fake_tp_ctx``,
+    the two ranks a thread each over a plain group
+    (``collectives.run_plain_ranks``), gives the whole model's logits (its
+    vocab columns side by side) and aux losses, fp32 activations, within
+    the fp32 sums' order (1e-4 of the logits' scale, measured 5.4e-6)."""
+    cfg = smoke_config(arch).replace(activation_dtype="float32",
+                                     use_mtp=arch.startswith("deepseek"))
     model = build_model(cfg)
-    with use_sharding(_fake_tp_ctx(cfg)):
-        with pytest.raises(NotImplementedError, match="item 11 \\(b2\\)"):
-            model.apply({}, {})
+    whole = model.init(0, torch.device("cpu"))
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 16),
+                                     generator=torch.Generator().manual_seed(0))}
+    want, aux = model.apply(whole, batch)
+    layouts = leaf_dims(specs_for(model.defs, Mesh({"data": 1, "model": 2})),
+                        Mesh({"data": 1, "model": 2}))
+
+    def rank(group):
+        block = {k: C.shard_leaf(v, layouts[k][1], 2, group.index) for k, v in whole.items()}
+        with use_sharding(_fake_tp_ctx(cfg, group.index, group)):
+            return model.apply(block, batch)
+
+    got = C.run_plain_ranks(rank, 2)
+    logits = torch.cat([out for out, _ in got], -1)
+    torch.testing.assert_close(logits, want, rtol=0, atol=1e-4 * float(want.abs().max()))
+    for k, v in aux.items():   # the MoE losses, and MTP's hidden states
+        tol = dict(rtol=1e-5, atol=1e-6) if v.dim() == 0 else dict(
+            rtol=0, atol=1e-4 * float(v.abs().max()))
+        for _, rank_aux in got:
+            torch.testing.assert_close(rank_aux[k], v, **tol)

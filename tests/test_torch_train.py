@@ -398,7 +398,11 @@ def test_launcher_optimizer_runs_to_done(extra, capsys):
         assert all(set(TRUST_KEYS) <= set(h) for h in trainer.history)
 
 
-@pytest.mark.parametrize("extra", [["--arch", "deepseek-v3-671b", "--mesh", "data=1,model=2"]])
+# deepseek-v3 over model=2 runs since expert parallelism and MLA heads
+# (tests/test_torch_sharding.py's MESH_RUNS); a mesh axis besides pod, data
+# and model still raises, before any process group is made
+@pytest.mark.parametrize("extra", [["--arch", "deepseek-v3-671b", "--mesh",
+                                    "data=1,model=1,pipe=2"]])
 def test_launcher_unported_options_raise(extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         launch_train.main(SMOKE + ["--device", "cpu"] + extra)
