@@ -252,6 +252,21 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ranks and Jamba's Mamba layer (d 8192, d_inner 16384) at B 1 x S 256 as
    four.  Phase 6 also times K1/K2 over a model=4 rank's blocks of
    granite-moe-1b's leaves.
+18. the dry-run and the roofline (after phase 17, before phase 6's
+   timings): the fused CE meta route's vocab-split plan against the
+   library's on this card (K6 and K7, both designs, five shapes); (a) the
+   main path's step (BERT-large, batch 64 x seq 128, accum 2, bf16, fused
+   LAMB, flash, the fused CE head) traced by ``launch/dryrun.py`` on meta
+   tensors over an abstract data=1 mesh (nothing allocated on the card),
+   then run on the card over a data=1 mesh of one NCCL rank (the same
+   path): the traced argument bytes equal to the real state's and batch's
+   exactly, every kernel's traced launches equal to one real step's (K1/K2
+   13, K3-K5 48, K6-K8 2), the traced peak within 10% of
+   ``max_memory_allocated`` over one step, and the profiled busy time at
+   least the roofline's max(compute, memory) term; printed: the roofline
+   share of busy and 6·N·D over busy and over wall at 989 TFLOP/s; (b)
+   two production records run whole and timed on the host: smollm-360m x
+   decode_32k and x train_4k on the 256-rank mesh.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -388,11 +403,9 @@ SERVE_LAUNCH_ARGV = [
     "--requests", str(SERVE_LAUNCH_REQUESTS), "--prompt-len", "128", "--max-new", "64",
 ]
 
-# Device-memory rate of the card by name (NVIDIA data sheets), for the bound.
-MEMORY_RATE = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H100": 3.35e12, "H200": 4.8e12}
-# Peak operation rates of an H100 SXM (data sheet, dense): bf16 on the tensor
-# cores, fp32 outside them.
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+# Every bound below is ``launch/roofline.bound`` of a kernel's
+# ``kernels/cost.py`` count: the card's memory rate by name and the peak
+# operation rates live in ``launch/roofline.py``.
 
 KERNELS = {
     "lamb_moments": dict(route="cuda",
@@ -587,10 +600,18 @@ def card_line() -> str:
 
 
 def memory_rate(name: str) -> float:
-    for key, rate in MEMORY_RATE.items():
-        if key in name:
-            return rate
-    raise RuntimeError(f"no memory rate on record for {name!r}")
+    from repro_torch.launch.roofline import memory_rate as rate
+
+    return rate(name)
+
+
+def bound_of(work, rate: float) -> dict:
+    """``bound_ms`` and ``bound_by`` of a ``kernels.cost.Work`` on a card of
+    memory rate ``rate`` (``launch/roofline.bound``)."""
+    from repro_torch.launch.roofline import bound
+
+    t, by = bound(work, rate)
+    return dict(bound_ms=t * 1e3, bound_by=by)
 
 
 def ptxas_lines(log_text: str) -> list:
@@ -2226,6 +2247,7 @@ def time_serving(device, model, fmodel, params, prompts, rate: float, rounds: in
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import cost
     from repro_torch.kernels.flash_attention import FlashSpec, flash_attention_fwd
     from repro_torch.serve import (ContinuousEngine, KVPool, ServeRequest, make_pool_decode_step,
                                    make_pool_prefill, serving_stats)
@@ -2306,16 +2328,14 @@ def time_serving(device, model, fmodel, params, prompts, rate: float, rounds: in
         times["plain" if plain else "cuda"].append(
             cuda_ms(lambda: flash_attention_fwd(q, k, v, None, spec, plain=plain)))
     sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True))
-    pairs = s * (s + 1) // 2   # the causal (row, key) pairs this run computes
-    bytes_ = (2 * q.numel() + 2 * k.numel()) * 2 + h * s * 4
-    flops = 2 * 2 * h * pairs * d
-    t_bytes, t_ops = bytes_ / rate, flops / PEAK_OPS["bfloat16"]
-    out = dict(ms=min(times["cuda"]), plain_ms=min(times["plain"]),
-               bound_ms=max(t_bytes, t_ops) * 1e3,
-               bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=sdpa)
+    # the causal (row, key) pairs this run computes
+    work = cost.flash_fwd(1, h, hkv, s, s, d, torch.bfloat16, causal=True)
+    out = dict(ms=min(times["cuda"]), plain_ms=min(times["plain"]), **bound_of(work, rate),
+               library_ms=sdpa)
     log(f"time flash_fwd serving prefill (b 1 h {h} hkv {hkv} s {s} d {d} causal bf16): kernel "
         f"{times['cuda']} ms, plain {times['plain']} ms; bound {out['bound_ms']:.5f} ms by "
-        f"{out['bound_by']} ({bytes_ / 1e6:.3f} MB, {flops / 1e6:.1f} MFLOP): latency-bound; "
+        f"{out['bound_by']} ({work.bytes / 1e6:.3f} MB, {work.operations / 1e6:.1f} MFLOP): "
+        f"latency-bound; "
         f"scaled_dot_product_attention forward (k, v repeated to {h} heads) {sdpa:.4f} ms")
     for k_, rs in got.items():
         keys = ("tokens_per_s", "ttft_p50_s", "latency_p50_s", "peak_gib") if k_ == "engine" \
@@ -4024,6 +4044,7 @@ def time_tp_products(device, rate: float) -> dict:
     beside the bound of the three bf16 GEMMs.  Returns ``{label: ms}``."""
     import torch
 
+    from repro_torch.kernels import cost
     out = {}
     for i, (label, n, k, o, kind) in enumerate(TP_PRODUCTS):
         x, w, dy = _tp_product_inputs(device, n, k, o, 40 + i)
@@ -4033,11 +4054,9 @@ def time_tp_products(device, rate: float) -> dict:
         for name in ("tp", "bf16", "fp32_upcast", "fp32_upcast", "bf16", "tp"):
             fn = fns[name]
             times[name].append(cuda_ms(lambda: torch.autograd.grad(fn(x, w), (x, w), dy)))
-        t_bytes = 6 * (n * k + k * o + n * o) * 2 / rate
-        t_ops = 3 * 2 * n * k * o / PEAK_OPS["bfloat16"]
+        work = cost.Work(6 * (n * k + k * o + n * o) * 2, 3 * 2 * n * k * o, "bfloat16")
         entry = {name: min(t) for name, t in times.items()}
-        entry.update(bound_ms=max(t_bytes, t_ops) * 1e3,
-                     bound_by="bytes" if t_bytes >= t_ops else "operations")
+        entry.update(bound_of(work, rate))
         out[label] = entry
         log(f"time tp product {label} (n {n}, {k} -> {o}, bf16, forward + backward): "
             + ", ".join(f"{name} {t} ms" for name, t in times.items())
@@ -4107,7 +4126,7 @@ def time_vocab_slices(device, rate: float) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels import LAUNCHES, cost
     from repro_torch.kernels.fused_ce import fused_ce_dh, fused_ce_dw, fused_ce_fwd
 
     result = {k: {} for k in FUSED_CE}
@@ -4125,11 +4144,9 @@ def time_vocab_slices(device, rate: float) -> dict:
             "fused_ce_dw": lambda plain, ww, v0: fused_ce_dw(h, ww, lbl - v0, lse, g,
                                                              plain=plain),
         }
-        hw, rows = (n * d + vs * d) * 2, n * 4
-        bytes_ = {"fused_ce_fwd": hw + 7 * rows, "fused_ce_dh": hw + 3 * rows + n * d * 2,
-                  "fused_ce_dw": hw + 3 * rows + vs * d * 2}
-        mm = 2 * n * vs * d
-        flops = {"fused_ce_fwd": mm, "fused_ce_dh": 2 * mm, "fused_ce_dw": 2 * mm}
+        works = {"fused_ce_fwd": cost.fused_ce_fwd(n, d, vs, torch.bfloat16, stats=True),
+                 "fused_ce_dh": cost.fused_ce_dh(n, d, vs, torch.bfloat16),
+                 "fused_ce_dw": cost.fused_ce_dw(n, d, vs, torch.bfloat16)}
         dense = cuda_ms(lambda: F.cross_entropy(torch.matmul(h, ws.t()), local.long(),
                                                 reduction="none"))
         for name, fn in fns.items():
@@ -4140,17 +4157,16 @@ def time_vocab_slices(device, rate: float) -> dict:
                 if not plain:
                     times["whole"].append(cuda_ms(lambda: fn(False, w, 0)))
             timed = LAUNCHES[name] - before
-            t_bytes, t_ops = bytes_[name] / rate, flops[name] / PEAK_OPS["bfloat16"]
             entry = dict(ms=min(times["cuda"]), plain_ms=min(times["plain"]),
-                         bound_ms=max(t_bytes, t_ops) * 1e3,
-                         bound_by="bytes" if t_bytes >= t_ops else "operations",
+                         **bound_of(works[name], rate),
                          library_ms=dense if name == "fused_ce_fwd" else None,
                          whole_vocab_ms=min(times["whole"]), timed_launches=timed)
             result[name][label] = entry
             log(f"time {name} {label} slice (n {n} d {d} v {vs} of {v}, bf16): kernel "
                 f"{times['cuda']} ms, whole vocab {times['whole']} ms, plain "
                 f"{times['plain']} ms; bound {entry['bound_ms']:.4f} ms by "
-                f"{entry['bound_by']}; {flops[name] / (entry['ms'] * 1e-3) / 1e12:.2f} TFLOP/s")
+                f"{entry['bound_by']}; "
+                f"{works[name].operations / (entry['ms'] * 1e-3) / 1e12:.2f} TFLOP/s")
         log(f"time library {label} slice: matmul + cross_entropy {dense:.4f} ms")
         del h, w, ws, lbl, local, g, lse
     torch.cuda.empty_cache()
@@ -4771,6 +4787,193 @@ def run_model_axis(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 18: the dry-run and the roofline
+# ---------------------------------------------------------------------------
+
+# (a) phase 5's step (BERT-large, batch 64 x seq 128, accum 2, bf16, fused
+# LAMB, flash, the fused CE head), traced on meta tensors over an abstract
+# data=1 mesh and then run on the card; (b) two production records
+DRY_BATCH, DRY_SEQ = 64, 128
+DRY_TC = dict(accum_steps=2, precision="bf16", use_fused_lamb=True)
+DRY_LAUNCHES = {"lamb_moments": LEAVES, "lamb_apply": LEAVES,
+                **{k: LAYERS * ACCUM for k in FLASH}, **{k: ACCUM for k in FUSED_CE}}
+DRY_PEAK_TOL = 0.10
+DRY_RECORDS = [("smollm-360m", "decode_32k"), ("smollm-360m", "train_4k")]
+# K6's and K7's vocab-split plans held to the library's: (n, d, v)
+DRY_PLAN_SHAPES = [(640, 1024, 30522), (1232, 1024, 30522), (4096, 1024, 49155),
+                   (1024, 7168, 129280), (97, 80, 300)]
+
+
+def _tensor_bytes(tree) -> int:
+    import torch
+
+    from repro_torch.checkpoint.io import tree_leaves_with_paths
+
+    return sum(x.numel() * x.element_size() for _, x in tree_leaves_with_paths(tree)
+               if isinstance(x, torch.Tensor))
+
+
+def check_split_plans(device) -> None:
+    """The meta route's vocab-split plan (``fused_ce.plan_splits``, from
+    the H100 figures) against the library's on this card, for K6 and K7 in
+    both designs, and K1's chunk (``lamb_update.CHUNK_ELEMS``) against the
+    library's: the scratch the dry-run allocates is the kernels'."""
+    import torch
+
+    from repro_torch.kernels.fused_ce import DESIGNS, _DESIGN_CODES, _DTYPE_CODES, _splits, \
+        plan_splits
+    from repro_torch.kernels.lamb_update import CHUNK_ELEMS
+    from repro_torch.kernels.lamb_update import _lib as lamb_lib
+
+    chunk = lamb_lib().lamb_chunk_elems()
+    if chunk != CHUNK_ELEMS:
+        raise AssertionError(f"the meta route's LAMB chunk {CHUNK_ELEMS} differs from the "
+                             f"library's {chunk}")
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    bad = []
+    for pass_ in (0, 1):
+        for design in DESIGNS:
+            for dtype in ((torch.bfloat16,) if design == "mma" else (torch.bfloat16,
+                                                                     torch.float32)):
+                for n, d, v in DRY_PLAN_SHAPES:
+                    lib = _splits(device.index or 0, pass_, _DESIGN_CODES[design],
+                                  _DTYPE_CODES[dtype], n, v, d)
+                    ours = plan_splits(pass_, design, n, v, d, sms)
+                    if lib != ours:
+                        bad.append((pass_, design, str(dtype), n, d, v, lib, ours))
+    log(f"dry-run: vocab-split plans against the library's: {len(bad)} differ {bad}")
+    if bad:
+        raise AssertionError(f"the meta route's split plan differs from the library's: {bad}")
+
+
+def run_dryrun_phase(device) -> dict:
+    """Phase 18: (a) the main path's step traced by the dry-run on an
+    abstract data=1 mesh and then run on the card over a data=1 mesh of one
+    NCCL rank (the same path): argument bytes equal to the real state's and
+    batch's, each kernel's launches equal to one real step's, the peak
+    within DRY_PEAK_TOL of ``max_memory_allocated``, the profiled busy time
+    at least the roofline's larger term; (b) the DRY_RECORDS run whole and
+    timed."""
+    from repro_torch.launch.mesh import shutdown_distributed
+
+    t_phase = time.perf_counter()
+    check_split_plans(device)
+    try:
+        out = check_dryrun_main_path(device)
+    finally:
+        shutdown_distributed()
+    out["records"] = check_dryrun_records()
+    log(f"dry-run: phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def check_dryrun_main_path(device) -> dict:
+    """Phase 18 (a)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape, TrainConfig
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import abstract_mesh, init_distributed
+    from repro_torch.launch.roofline import PEAK_FLOPS, model_flops
+    from repro_torch.models.api import build_model
+    from repro_torch.train.step import make_train_step
+
+    model = build_model(get_config("bert-large"))
+    shape = InputShape("main path", DRY_SEQ, DRY_BATCH, "train")
+    allocated = torch.cuda.memory_allocated()
+    rec = dryrun.trace(model, shape, abstract_mesh((1,), ("data",)), tc_kw=DRY_TC)
+    if torch.cuda.memory_allocated() != allocated:
+        raise AssertionError("the dry-run allocated on the card")
+    mem, rl = rec["memory"], rec["roofline"]
+    log(f"dry-run (a): traced in {rec['trace_s']:.2f} s: memory {json.dumps(mem)}, cost "
+        f"{json.dumps(rec['cost'])}, kernels {json.dumps(rec['kernels'])}, collectives "
+        f"{json.dumps(rec['collectives'])}; compute {rl['compute_s'] * 1e3:.3f} ms, memory "
+        f"{rl['memory_s'] * 1e3:.3f} ms, collective {rl['collective_s'] * 1e3:.4f} ms")
+
+    tc = TrainConfig(optimizer="lamb", learning_rate=1e-3, **DRY_TC)
+    mesh, dev = init_distributed(device, "data=1")
+    init_fn, step_fn = make_train_step(model, tc, mesh=mesh)
+    state = init_fn(0, dev)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in
+             make_batch(model.cfg, np.random.default_rng(0), DRY_BATCH, DRY_SEQ).items()}
+    real_args = _tensor_bytes(state) + _tensor_bytes(batch)
+    log(f"dry-run (a): argument bytes {mem['argument_size_in_bytes']}, the real state and "
+        f"batch {real_args}")
+    if mem["argument_size_in_bytes"] != real_args:
+        raise AssertionError("the dry-run's argument bytes differ from the real state's "
+                             "and batch's")
+    reset_launches()
+    state, metrics = step_fn(state, batch)
+    torch.cuda.synchronize()
+    launches = {k: LAUNCHES[k] for k in KERNELS}
+    traced = {k: rec["kernels"].get(k, {}).get("launches", 0) for k in KERNELS}
+    log(f"dry-run (a): launches of one real step {launches}, traced {traced}")
+    if launches != traced or launches != DRY_LAUNCHES:
+        raise AssertionError(f"launches: real {launches}, traced {traced}, want {DRY_LAUNCHES}")
+    del metrics
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, metrics = step_fn(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    off = mem["peak_memory_in_bytes"] / peak - 1
+    log(f"dry-run (a): peak {mem['peak_memory_in_bytes'] / 2**30:.3f} GiB traced, "
+        f"max_memory_allocated over one step {peak / 2**30:.3f} GiB ({off:+.2%})")
+    if abs(off) > DRY_PEAK_TOL:
+        raise AssertionError(f"the traced peak is {off:+.1%} off the card's")
+    del metrics
+
+    def step():
+        nonlocal state
+        state, metrics = step_fn(state, batch)
+        return metrics
+
+    t = _profile_calls(step, n=5)
+    busy, wall = t["busy_ms"] * 1e-3, t["wall_ms"] * 1e-3
+    bound = max(rl["compute_s"], rl["memory_s"])
+    mf = model_flops("train", model.active_param_count(), DRY_BATCH * DRY_SEQ)
+    out = dict(trace_s=rec["trace_s"], memory=mem, cost=rec["cost"], kernels=rec["kernels"],
+               real_peak=peak, peak_off=off, busy_ms=t["busy_ms"], wall_ms=t["wall_ms"],
+               span_ms=t["span_ms"], launches=t["launches"], bound_ms=bound * 1e3,
+               roofline_share=bound / busy, model_flops=mf,
+               mfu_busy=mf / (busy * PEAK_FLOPS), mfu_wall=mf / (wall * PEAK_FLOPS))
+    log(f"dry-run (a): busy {t['busy_ms']:.3f} ms in {t['launches']} launches, wall "
+        f"{t['wall_ms']:.3f} ms, span {t['span_ms']:.3f} ms; roofline max(compute, memory) "
+        f"{bound * 1e3:.3f} ms, share of busy {bound / busy:.4f}; model flops {mf:.4e}: "
+        f"{out['mfu_busy']:.4f} of peak over busy, {out['mfu_wall']:.4f} over wall")
+    if busy < bound:
+        raise AssertionError(f"busy {busy * 1e3:.3f} ms below the roofline's {bound * 1e3:.3f}")
+    del state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_dryrun_records() -> dict:
+    """Phase 18 (b): each of DRY_RECORDS run whole (meta, on the host),
+    timed; ``{record: seconds}``."""
+    from repro_torch.launch import dryrun
+
+    out = {}
+    for arch, shape_name in DRY_RECORDS:
+        t0 = time.perf_counter()
+        r = dryrun.run_dryrun(arch, shape_name)
+        wall_s = time.perf_counter() - t0
+        log(f"dry-run (b) {arch} x {shape_name} x {r['mesh']} in {wall_s:.2f} s: "
+            + json.dumps(r))
+        rl = r.get("roofline", {})
+        if r["status"] != "ok" or r["devices"] != 256 or not rl.get("memory_s", 0) > 0 \
+                or not r["cost"]["flops"] > 0:
+            raise AssertionError(f"dry-run (b): {arch} x {shape_name}: {r.get('status')}")
+        out[f"{arch} x {shape_name}"] = dict(wall_s=wall_s, trace_s=r["trace_s"])
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 6: timing
 # ---------------------------------------------------------------------------
 
@@ -4805,7 +5008,7 @@ def time_kernels(device, rate: float, arch: str = "bert-large", shards: int = 1,
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import LAUNCHES, lamb_apply, lamb_moments
+    from repro_torch.kernels import LAUNCHES, cost, lamb_apply, lamb_moments
     from repro_torch.kernels.lamb_update import bias_corrections
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import build_model
@@ -4845,10 +5048,11 @@ def time_kernels(device, rate: float, arch: str = "bert-large", shards: int = 1,
         for x, _, m, v, ratio, layers in leaves:
             lamb_apply(x, m, v, c, ratio, layers, ok=ok, plain=plain)
 
-    # bytes each function must move: inputs read once, outputs written once
-    fp32 = 4
-    bytes_ = {"lamb_moments": n * fp32 * (4 + 2), "lamb_apply": n * fp32 * (3 + 1)}
-    flops = {"lamb_moments": n * 16, "lamb_apply": n * 9}
+    # what each function must move and compute over every leaf
+    works = {"lamb_moments": cost.total(cost.lamb_moments(x.numel(), layers)
+                                        for x, *_, layers in leaves),
+             "lamb_apply": cost.total(cost.lamb_apply(x.numel(), layers)
+                                      for x, *_, layers in leaves)}
     fns = {"lamb_moments": moments, "lamb_apply": apply}
     # plain, kernel, kernel with the guard's flag, the same twice more, plain:
     # the versions compared within one call
@@ -4865,10 +5069,9 @@ def time_kernels(device, rate: float, arch: str = "bert-large", shards: int = 1,
     for name in fns:
         t_k = min(times[name]["cuda"])
         t_p = min(times[name]["plain"])
-        t_bytes, t_ops = bytes_[name] / rate, flops[name] / PEAK_OPS["float32"]
-        bound = max(t_bytes, t_ops) * 1e3
-        out[name] = dict(ms=t_k, plain_ms=t_p, bound_ms=bound,
-                         bound_by="bytes" if t_bytes >= t_ops else "operations",
+        b = bound_of(works[name], rate)
+        bound = b["bound_ms"]
+        out[name] = dict(ms=t_k, plain_ms=t_p, **b,
                          library_ms=None, ok_ms=min(times[name]["ok"]),
                          timed_launches=timed[name])
         where = (arch if shards == model_ranks == 1
@@ -4876,8 +5079,8 @@ def time_kernels(device, rate: float, arch: str = "bert-large", shards: int = 1,
         log(f"time {name} {where}: kernel {times[name]['cuda']} ms, with ok=1 "
             f"{times[name]['ok']} ms, plain {times[name]['plain']} ms "
             f"over {n} elements in {len(leaves)} leaves; bound {bound:.3f} ms "
-            f"({bytes_[name] / 1e9:.2f} GB at {rate / 1e12:.2f} TB/s); "
-            f"{bytes_[name] / (t_k * 1e-3) / 1e12:.2f} TB/s achieved")
+            f"({works[name].bytes / 1e9:.2f} GB at {rate / 1e12:.2f} TB/s); "
+            f"{works[name].bytes / (t_k * 1e-3) / 1e12:.2f} TB/s achieved")
     log("time library: none; no single PyTorch call computes a LAMB update")
     del leaves
     torch.cuda.empty_cache()
@@ -4896,6 +5099,7 @@ def time_flash(device, rate: float, shapes=FLASH_TIMING, every: bool = False) ->
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import cost
     from repro_torch.kernels.flash_attention import FlashSpec, flash_attention_fwd, \
         flash_dkv, flash_dq, kernel_head_dim, row_dot
 
@@ -4920,16 +5124,10 @@ def time_flash(device, rate: float, shapes=FLASH_TIMING, every: bool = False) ->
             "flash_dkv": lambda plain: flash_dkv(q, k, v, valid, lse, di, do, spec,
                                                  plain=plain),
         }
-        # bytes each must move (bf16 q-side tensors of nq elements and
-        # kv-side of nk, fp32 rows of lse and di) and the operations of its
-        # (S x T x D) products over the (row, key) pairs the mask keeps, at
-        # the real head dim
-        nq, nk, rows = b * h * s * d, b * hkv * s * d, b * h * s
-        mm = 2 * b * h * (s * (s + 1) // 2 if causal else s * s) * d
-        bytes_ = {"flash_fwd": (2 * nq + 2 * nk) * 2 + rows * 4,
-                  "flash_dq": (3 * nq + 2 * nk) * 2 + 2 * rows * 4,
-                  "flash_dkv": (2 * nq + 4 * nk) * 2 + 2 * rows * 4}
-        flops = {"flash_fwd": 2 * mm, "flash_dq": 3 * mm, "flash_dkv": 4 * mm}
+        # what each must move and compute over the (row, key) pairs the mask
+        # keeps, at the real head dim
+        works = {name: getattr(cost, name)(b, h, hkv, s, s, d, torch.bfloat16, causal)
+                 for name in FLASH}
         times = {name: {"plain": [], "cuda": []} for name in fns}
         for name, fn in fns.items():
             for plain in (True, False, False, True):
@@ -4943,17 +5141,16 @@ def time_flash(device, rate: float, shapes=FLASH_TIMING, every: bool = False) ->
         out = {}
         for name in fns:
             t_k, t_p = min(times[name]["cuda"]), min(times[name]["plain"])
-            t_bytes, t_ops = bytes_[name] / rate, flops[name] / PEAK_OPS["bfloat16"]
-            out[name] = dict(ms=t_k, plain_ms=t_p, bound_ms=max(t_bytes, t_ops) * 1e3,
-                             bound_by="bytes" if t_bytes >= t_ops else "operations",
+            w = works[name]
+            out[name] = dict(ms=t_k, plain_ms=t_p, **bound_of(w, rate),
                              library_ms=sdpa_fwd if name == "flash_fwd" else None)
             log(f"time {name} {label} (b {b} h {h} hkv {hkv} s {s} d {d} (kernels' {dp}) "
                 f"causal {causal} bf16): kernel "
                 f"{times[name]['cuda']} ms, plain {times[name]['plain']} ms; bound "
                 f"{out[name]['bound_ms']:.4f} ms by {out[name]['bound_by']} "
-                f"({bytes_[name] / 1e6:.1f} MB, {flops[name] / 1e9:.2f} GFLOP); achieved "
-                f"{flops[name] / (t_k * 1e-3) / 1e12:.2f} TFLOP/s, "
-                f"{bytes_[name] / (t_k * 1e-3) / 1e12:.3f} TB/s")
+                f"({w.bytes / 1e6:.1f} MB, {w.operations / 1e9:.2f} GFLOP); achieved "
+                f"{w.operations / (t_k * 1e-3) / 1e12:.2f} TFLOP/s, "
+                f"{w.bytes / (t_k * 1e-3) / 1e12:.3f} TB/s")
         log(f"time library {label}: scaled_dot_product_attention forward {sdpa_fwd:.4f} ms, "
             f"forward + backward {sdpa_fb:.4f} ms (backward {sdpa_fb - sdpa_fwd:.4f} ms); "
             f"K3 {out['flash_fwd']['ms']:.4f} ms, K4 + K5 "
@@ -4973,6 +5170,7 @@ def time_flash_widths(device, rate: float) -> dict:
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import cost
     from repro_torch.kernels.flash_attention import flash_attention
 
     gen = torch.Generator(device=device).manual_seed(9)
@@ -4989,13 +5187,9 @@ def time_flash_widths(device, rate: float) -> dict:
                                                    (qg, kg, vg), do))
         sdpa = cuda_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(qg, kg, vg),
                                                    (qg, kg, vg), do))
-        # the forward's bound at the real head dim: q, k, v read and o written
-        # in bf16, lse in fp32; 2 (S x T x D) products
-        t_bytes = (4 * q.numel() * 2 + b * h * s * 4) / rate
-        t_ops = 2 * 2 * b * h * s * s * d / PEAK_OPS["bfloat16"]
+        # the forward's bound at the real head dim
         out[d] = dict(fwd_ms=fwd, fwd_bwd_ms=both, plain_fwd_ms=plain,
-                      bound_ms=max(t_bytes, t_ops) * 1e3,
-                      bound_by="bytes" if t_bytes >= t_ops else "operations",
+                      **bound_of(cost.flash_fwd(b, h, h, s, s, d, torch.bfloat16), rate),
                       sdpa_fwd_bwd_ms=sdpa)
         del q, k, v, do, qg, kg, vg
     base = out[64]
@@ -5020,6 +5214,7 @@ def time_fused_ce(device, rate: float, shapes=CE_TIMING, fma: bool = True) -> di
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import cost
     from repro_torch.kernels.fused_ce import fused_ce_dh, fused_ce_dw, fused_ce_fwd
 
     gen = torch.Generator(device=device).manual_seed(5)
@@ -5035,13 +5230,8 @@ def time_fused_ce(device, rate: float, shapes=CE_TIMING, fma: bool = True) -> di
             "fused_ce_dh": lambda plain: fused_ce_dh(h, w, lbl, lse, g, plain=plain),
             "fused_ce_dw": lambda plain: fused_ce_dw(h, w, lbl, lse, g, plain=plain),
         }
-        # bytes each must move (bf16 h, w, dh, dw; int32 labels; fp32 per-row
-        # values) and the operations of its (N x V x D) products
-        hw, rows = (n * d + v * d) * 2, n * 4
-        bytes_ = {"fused_ce_fwd": hw + 4 * rows, "fused_ce_dh": hw + 3 * rows + n * d * 2,
-                  "fused_ce_dw": hw + 3 * rows + v * d * 2}
-        mm = 2 * n * v * d
-        flops = {"fused_ce_fwd": mm, "fused_ce_dh": 2 * mm, "fused_ce_dw": 2 * mm}
+        # what each must move and compute
+        works = {name: getattr(cost, name)(n, d, v, torch.bfloat16) for name in FUSED_CE}
         h_off = torch.cat([h.new_zeros(1), h.reshape(-1)])[1:].view(n, d)   # FMA design
         fma_fns = {"fused_ce_fwd": lambda: fused_ce_fwd(h_off, w, lbl),
                    "fused_ce_dh": lambda: fused_ce_dh(h_off, w, lbl, lse, g),
@@ -5061,9 +5251,7 @@ def time_fused_ce(device, rate: float, shapes=CE_TIMING, fma: bool = True) -> di
         out = {}
         for name in fns:
             t_k, t_p = min(times[name]["cuda"]), min(times[name]["plain"])
-            t_bytes, t_ops = bytes_[name] / rate, flops[name] / PEAK_OPS["bfloat16"]
-            out[name] = dict(ms=t_k, plain_ms=t_p, bound_ms=max(t_bytes, t_ops) * 1e3,
-                             bound_by="bytes" if t_bytes >= t_ops else "operations",
+            out[name] = dict(ms=t_k, plain_ms=t_p, **bound_of(works[name], rate),
                              library_ms=dense_fwd if name == "fused_ce_fwd" else None)
             if times[name]["fma"]:
                 out[name]["fma_ms"] = min(times[name]["fma"])
@@ -5071,8 +5259,8 @@ def time_fused_ce(device, rate: float, shapes=CE_TIMING, fma: bool = True) -> di
                 f"{times[name]['cuda']} ms, plain {times[name]['plain']} ms, FMA design "
                 f"{times[name]['fma'] or 'n/a'} ms; bound "
                 f"{out[name]['bound_ms']:.4f} ms by {out[name]['bound_by']} "
-                f"({bytes_[name] / 1e6:.1f} MB, {flops[name] / 1e9:.2f} GFLOP); achieved "
-                f"{flops[name] / (t_k * 1e-3) / 1e12:.2f} TFLOP/s")
+                f"({works[name].bytes / 1e6:.1f} MB, {works[name].operations / 1e9:.2f} "
+                f"GFLOP); achieved {works[name].operations / (t_k * 1e-3) / 1e12:.2f} TFLOP/s")
         log(f"time library {label}: dense head matmul + cross_entropy (two calls, bf16 "
             f"logits) forward {dense_fwd:.4f} ms, forward + backward {dense_fb:.4f} ms "
             f"(backward {dense_fb - dense_fwd:.4f} ms); K6 {out['fused_ce_fwd']['ms']:.4f} ms, "
@@ -5136,6 +5324,7 @@ def main() -> None:
     robust = run_mesh_robustness(device, rollback_ref, preempt_ref, ref_losses, ref_params)
     del ref_params, rollback_ref
     run_model_axis(device)
+    run_dryrun_phase(device)
     timing = {**time_kernels(device, rate), **time_flash(device, rate),
               **time_fused_ce(device, rate)}
     moe_timing = {**time_kernels(device, rate, MOE_ARCH),

@@ -5,7 +5,9 @@ transformer zoo's command-r-35b, mistral-nemo-12b, granite-20b,
 paligemma-3b, hubert-xlarge, granite-moe-1b-a400m and deepseek-v3-671b
 (MLA, a dense prefix, MTP), and the recurrent families'
 jamba-1.5-large-398b (hybrid) and xlstm-350m (ssm).  Any other name raises
-``KeyError``, as in the reference.
+``KeyError``, as in the reference.  The (architecture × input shape) plan
+the dry-run walks (:func:`plan`, :func:`full_plan`) is the reference's,
+notes word for word.
 """
 from __future__ import annotations
 
@@ -22,7 +24,10 @@ from repro_torch.configs import (
     smollm_360m,
     xlstm_350m,
 )
-from repro_torch.configs.base import ModelConfig, TrainConfig
+from typing import Dict, List, Optional, Tuple
+
+from repro_torch.configs.base import InputShape, ModelConfig, TrainConfig
+from repro_torch.configs.shapes import SHAPES, get_shape
 
 _ARCHS = {
     "deepseek-v3-671b": deepseek_v3_671b,
@@ -39,6 +44,14 @@ _ARCHS = {
 }
 
 
+# the reference's dry-run archs, in its order: every arch but bert-large
+ARCHS: List[str] = [
+    "granite-moe-1b-a400m", "paligemma-3b", "granite-20b", "jamba-1.5-large-398b",
+    "hubert-xlarge", "mistral-nemo-12b", "deepseek-v3-671b", "command-r-35b",
+    "xlstm-350m", "smollm-360m",
+]
+
+
 def _module(name: str):
     if name not in _ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_ARCHS)}")
@@ -53,4 +66,55 @@ def smoke_config(name: str) -> ModelConfig:
     return _module(name).smoke()
 
 
-__all__ = ["ModelConfig", "TrainConfig", "get_config", "smoke_config"]
+# ---------------------------------------------------------------------------
+# (arch × shape) plan
+# ---------------------------------------------------------------------------
+
+SWA_WINDOW_500K = 4096  # sliding-window variant used by dense archs on long_500k
+
+
+def plan(cfg: ModelConfig, shape: InputShape) -> Tuple[Optional[ModelConfig], str]:
+    """Returns (possibly-modified config, note).  config=None ⇒ skipped.
+
+    Skips, as in the reference:
+      * encoder-only archs have no decode step → decode shapes skipped;
+      * full-attention archs run long_500k only via the sliding-window
+        variant (cfg.sliding_window := 4096).
+    """
+    if shape.kind == "decode" and cfg.is_encoder:
+        return None, "skip: encoder-only (no decode step)"
+    if shape.name == "long_500k":
+        sub_quadratic = cfg.family in ("ssm", "hybrid") or cfg.use_mla
+        if not sub_quadratic and cfg.sliding_window is None:
+            return (
+                cfg.replace(sliding_window=SWA_WINDOW_500K),
+                f"variant: sliding_window={SWA_WINDOW_500K} (full attention is "
+                "not sub-quadratic; SWA variant per DESIGN.md)",
+            )
+    if shape.kind == "prefill" and cfg.is_encoder:
+        return cfg, "encoder forward (no cache) stands in for prefill"
+    return cfg, "ok"
+
+
+def full_plan() -> Dict[Tuple[str, str], Tuple[Optional[ModelConfig], str]]:
+    """:func:`plan` of every arch of :data:`ARCHS` at every shape."""
+    out = {}
+    for arch in ARCHS:
+        for sname, shape in SHAPES.items():
+            out[(arch, sname)] = plan(get_config(arch), shape)
+    return out
+
+
+__all__ = [
+    "ARCHS",
+    "InputShape",
+    "ModelConfig",
+    "SHAPES",
+    "SWA_WINDOW_500K",
+    "TrainConfig",
+    "full_plan",
+    "get_config",
+    "get_shape",
+    "plan",
+    "smoke_config",
+]

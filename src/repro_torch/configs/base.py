@@ -129,6 +129,14 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     optimizer: str = "lamb"        # lamb | lans | lars | nlamb | nnlamb | adam | adamw | adagrad | momentum
     learning_rate: float = 1e-3

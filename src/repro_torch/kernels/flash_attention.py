@@ -19,10 +19,12 @@ q head h reads kv head h // (H/Hkv); k/v are never repeated).  Masks:
 
 Each pass dispatches on where its tensors lie: on the CPU it runs the plain
 PyTorch version below (the chunked online softmax of the JAX package's XLA
-backend); on a CUDA tensor it launches the kernel or raises.  There is no
-fallback from the kernel to the plain version.  On the card, bf16 K3–K5
-run on the tensor cores and fp32 on fp32 FMA kernels, by dtype
-(``VARIANT_LAUNCHES`` counts which design ran).  The tensor-core kernels
+backend); on a CUDA tensor it launches the kernel or raises; on a meta
+tensor (the dry-run) it allocates what the kernel's call allocates, launches
+nothing and adds the kernel's ``kernels/cost.py`` count to the dry-run's.
+There is no fallback from the kernel to the plain version or the meta
+route.  On the card, bf16 K3–K5 run on the tensor cores and fp32 on fp32
+FMA kernels, by dtype (``VARIANT_LAUNCHES`` counts which design ran).  The tensor-core kernels
 move bf16 rows in 16-byte pieces, so they need 16-byte aligned base pointers
 and (b, h, s) strides that are multiples of 8 elements; the wrappers raise
 on anything else.  The kernels are built for the head dims of
@@ -40,6 +42,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import cost
 from repro_torch.kernels.launches import COPIES, LAUNCHES, VARIANT_LAUNCHES, register, \
     register_copies
 
@@ -72,8 +75,8 @@ class FlashSpec(NamedTuple):
 def _backend(device: torch.device, plain: bool) -> str:
     if plain or device.type == "cpu":
         return "plain"
-    if device.type == "cuda":
-        return "cuda"
+    if device.type in ("cuda", "meta"):
+        return device.type
     raise ValueError(f"flash attention has no backend for device {device}")
 
 
@@ -230,10 +233,18 @@ def flash_attention_bwd_plain(q, k, v, valid, o, lse, do, spec: FlashSpec
 # kernel launches
 # ---------------------------------------------------------------------------
 
+def aligned16(x: torch.Tensor) -> bool:
+    """``x``'s first element on a 16-byte boundary; on the meta device, as
+    the caching allocator's 512-byte aligned storage would place it."""
+    if x.device.type == "meta":
+        return x.storage_offset() * x.element_size() % 16 == 0
+    return x.data_ptr() % 16 == 0
+
+
 def _rows_aligned(x: torch.Tensor) -> bool:
     """A 16-byte aligned base pointer and (b, h, s) strides of whole 16 bytes."""
     n = 16 // x.element_size()
-    return x.data_ptr() % 16 == 0 and all(st % n == 0 for st in x.stride()[:3])
+    return aligned16(x) and all(st % n == 0 for st in x.stride()[:3])
 
 
 def _check(q, k, v, valid, spec: FlashSpec, *, aligned: bool = False, **more) -> None:
@@ -347,36 +358,76 @@ def _dkv_cuda(q, k, v, valid, lse, di, do, spec: FlashSpec):
     return dk, dv
 
 
+# ---------------------------------------------------------------------------
+# meta routes: what each launch allocates, and its count (the dry-run)
+# ---------------------------------------------------------------------------
+
+def _work(fn, q, k, valid, spec: FlashSpec):
+    b, h, s, d = q.shape
+    return fn(b, h, k.shape[1], s, k.shape[2], d, q.dtype, spec.causal, spec.window,
+              lengths=valid is not None)
+
+
+def _fwd_meta(q, k, v, valid, spec: FlashSpec):
+    _check(q, k, v, valid, spec, aligned=True)
+    o = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    cost.record("flash_fwd", _work(cost.flash_fwd, q, k, valid, spec))
+    return o, lse
+
+
+def _dq_meta(q, k, v, valid, lse, di, do, spec: FlashSpec):
+    _check(q, k, v, valid, spec, aligned=True, do=do, lse=lse, di=di)
+    cost.record("flash_dq", _work(cost.flash_dq, q, k, valid, spec))
+    return torch.empty_like(q)
+
+
+def _dkv_meta(q, k, v, valid, lse, di, do, spec: FlashSpec):
+    _check(q, k, v, valid, spec, aligned=True, do=do, lse=lse, di=di)
+    cost.record("flash_dkv", _work(cost.flash_dkv, q, k, valid, spec))
+    return torch.empty_like(k), torch.empty_like(v)
+
+
+_ROUTES = {"cuda": (_fwd_cuda, _dq_cuda, _dkv_cuda), "meta": (_fwd_meta, _dq_meta, _dkv_meta)}
+
+
 def flash_attention_fwd(q, k, v, valid, spec: FlashSpec, *, plain: bool = False):
     """(o, lse): kernel K3 on a CUDA tensor, the plain version on a CPU one
-    (or anywhere with ``plain=True``)."""
-    if _backend(q.device, plain) == "cuda":
-        return _fwd_cuda(q, k, v, valid, spec)
-    return flash_attention_fwd_plain(q, k, v, valid, spec)
+    (or anywhere with ``plain=True``), the meta route on a meta one."""
+    backend = _backend(q.device, plain)
+    if backend == "plain":
+        return flash_attention_fwd_plain(q, k, v, valid, spec)
+    return _ROUTES[backend][0](q, k, v, valid, spec)
 
 
 def flash_dq(q, k, v, valid, lse, di, do, spec: FlashSpec, *, plain: bool = False):
-    """dq: kernel K4 on a CUDA tensor, else the plain version."""
-    if _backend(q.device, plain) == "cuda":
-        return _dq_cuda(q, k, v, valid, lse, di, do, spec)
-    return flash_dq_plain(q, k, v, valid, lse, di, do, spec)
+    """dq: kernel K4 on a CUDA tensor, else the plain version (or the meta
+    route)."""
+    backend = _backend(q.device, plain)
+    if backend == "plain":
+        return flash_dq_plain(q, k, v, valid, lse, di, do, spec)
+    return _ROUTES[backend][1](q, k, v, valid, lse, di, do, spec)
 
 
 def flash_dkv(q, k, v, valid, lse, di, do, spec: FlashSpec, *, plain: bool = False):
-    """(dk, dv): kernel K5 on a CUDA tensor, else the plain version."""
-    if _backend(q.device, plain) == "cuda":
-        return _dkv_cuda(q, k, v, valid, lse, di, do, spec)
-    return flash_dkv_plain(q, k, v, valid, lse, di, do, spec)
+    """(dk, dv): kernel K5 on a CUDA tensor, else the plain version (or the
+    meta route)."""
+    backend = _backend(q.device, plain)
+    if backend == "plain":
+        return flash_dkv_plain(q, k, v, valid, lse, di, do, spec)
+    return _ROUTES[backend][2](q, k, v, valid, lse, di, do, spec)
 
 
 def flash_attention_bwd(q, k, v, valid, o, lse, do, spec: FlashSpec, *, plain: bool = False):
     """(dq, dk, dv): di = rowsum(o∘do) by torch, then K4 and K5 on CUDA
-    tensors, else the plain version in one pass."""
-    if _backend(q.device, plain) == "plain":
+    tensors (or their meta routes), else the plain version in one pass."""
+    backend = _backend(q.device, plain)
+    if backend == "plain":
         return flash_attention_bwd_plain(q, k, v, valid, o, lse, do, spec)
+    _, dq_fn, dkv_fn = _ROUTES[backend]
     di = row_dot(o, do)
-    return (_dq_cuda(q, k, v, valid, lse, di, do, spec),
-            *_dkv_cuda(q, k, v, valid, lse, di, do, spec))
+    return (dq_fn(q, k, v, valid, lse, di, do, spec),
+            *dkv_fn(q, k, v, valid, lse, di, do, spec))
 
 
 # ---------------------------------------------------------------------------
@@ -403,8 +454,8 @@ class FlashAttention(torch.autograd.Function):
         # last dim; for the tensor-core kernels, rows not in whole 16 bytes):
         # then do alone is made contiguous, and COPIES counts it.  The main
         # path's do is the (B, S, H, D) gradient, which needs no copy.
-        if do.stride(-1) != 1 or (not ctx.plain and do.is_cuda and do.dtype == torch.bfloat16
-                                  and not _rows_aligned(do)):
+        if do.stride(-1) != 1 or (not ctx.plain and do.device.type in ("cuda", "meta")
+                                  and do.dtype == torch.bfloat16 and not _rows_aligned(do)):
             do = torch.empty_like(do, memory_format=torch.contiguous_format).copy_(do)
             COPIES["flash_do"] += 1
         dq, dk, dv = flash_attention_bwd(q, k, v, valid, o, lse, do, ctx.spec,
@@ -470,7 +521,7 @@ def flash_attention(
         valid = torch.clamp(kv_valid.to(device=q.device, dtype=torch.int32), 1, t).contiguous()
     spec = FlashSpec(scale=float(scale), causal=bool(causal), window=int(window),
                      use_valid=valid is not None)
-    if _backend(q.device, plain) == "cuda":
+    if _backend(q.device, plain) != "plain":   # the kernels' head dims
         return padded_flash_attention(q, k, v, valid, spec)[0]
     o, _ = FlashAttention.apply(q, k, v, valid, spec, plain)
     return o

@@ -18,11 +18,17 @@ All statistics are fp32 whatever the inputs' type; dh comes back in h's type
 and dw in w's.  Each pass dispatches on where its tensors lie: on the CPU it
 runs the plain PyTorch version below (the chunked math of the JAX package's
 XLA backend, vocab chunks of ``block_v``); on a CUDA tensor it launches the
-kernel or raises.  There is no fallback from the kernel to the plain
-version.  On the card each kernel has two designs, chosen by ``_check``'s
-rule before the launch: bf16 whose rows can be copied in 16-byte pieces runs
-on the tensor cores (``mma.sync``; in K7 and K8 the fp32 dlogits as two bf16
-terms); fp32, and bf16 that cannot be copied so, on fp32 FMA kernels.
+kernel or raises; on a meta tensor (the dry-run) it allocates what the
+kernel's call allocates, its scratch planned for an H100 SXM
+(:func:`plan_splits`, from constants that mirror ``csrc/fused_ce.cu``: any
+change to the kernels' registers, tiles or launch bounds must update them,
+or ``chip_smoke.py``'s plan check fails), launches nothing and adds the kernel's
+``kernels/cost.py`` count to the dry-run's.  There is no fallback from the
+kernel to the plain version or the meta route.  On the card each kernel has
+two designs, chosen by ``_check``'s rule before the launch: bf16 whose rows
+can be copied in 16-byte pieces runs on the tensor cores (``mma.sync``; in
+K7 and K8 the fp32 dlogits as two bf16 terms); fp32, and bf16 that cannot be
+copied so, on fp32 FMA kernels.
 ``VARIANT_LAUNCHES`` counts which design ran.
 
 Over a ``model`` axis that splits the vocab (``fused_ce(..., model=)``),
@@ -43,6 +49,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import cost
+from repro_torch.kernels.flash_attention import aligned16
 from repro_torch.kernels.launches import LAUNCHES, VARIANT_LAUNCHES, register
 from repro_torch.sharding.collectives import all_reduce, copy_to_model
 
@@ -50,8 +58,23 @@ DESIGNS = ("mma", "fma")   # bf16 on the tensor cores (mma.sync); fp32 FMA
 register("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw", variants=DESIGNS)
 
 NEG_INF = -1e30
-# csrc/fused_ce.cu's kDW: the D columns one block holds at once
-D_WINDOW = 1024
+# csrc/fused_ce.cu's plan (its `plan`) redone for the meta route on an H100
+# SXM.  Each constant mirrors a symbol of csrc/fused_ce.cu; a change there to
+# a kernel's registers, tiles, shared memory or launch bounds must be made
+# here too, or chip_smoke.py's check of this plan against the library's
+# (phase 18, `check_split_plans`) fails on the card.  No CPU test sees it.
+D_WINDOW = 1024          # kDW: the D columns one block holds at once
+H100_SMS = 132           # cudaDevAttrMultiProcessorCount of an H100 SXM
+_TILE = 128              # kBT: vocab columns of a tile
+_MMA_BLOCK_TILES = 2     # kMmaBlockTiles: a tensor-core block's fixed cost
+# owner rows of a block: kBO6 for fused_ce_fwd_mma_kernel, else kBO
+_OWNER_ROWS = {(0, "mma"): 64, (0, "fma"): 32, (1, "mma"): 32, (1, "fma"): 32}
+# what cudaOccupancyMaxActiveBlocksPerMultiprocessor gives in `plan` for
+# (pass, design): fused_ce_fwd_mma_kernel (__launch_bounds__(kThreads, 1),
+# fwd_mma_smem), fused_ce_fwd_kernel (kThreads, static shared memory), and
+# grad_kernel's dh kernels (mma_smem / the FMA kernel's smem), by ptxas's
+# registers and shared memory
+BLOCKS_PER_SM = {(0, "mma"): 1, (0, "fma"): 4, (1, "mma"): 1, (1, "fma"): 1}
 _IDX_INF = torch.iinfo(torch.int32).max
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -62,8 +85,8 @@ _LIB: Optional[ctypes.CDLL] = None
 def _backend(device: torch.device, plain: bool) -> str:
     if plain or device.type == "cpu":
         return "plain"
-    if device.type == "cuda":
-        return "cuda"
+    if device.type in ("cuda", "meta"):
+        return device.type
     raise ValueError(f"fused CE has no backend for device {device}")
 
 
@@ -186,8 +209,7 @@ def _check(h, w, lbl, **rows) -> str:
         want = torch.int32 if name == "labels" else torch.float32
         if x.device != h.device or x.dtype != want or x.shape != (n,) or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {want} ({n},) tensor on h's device")
-    stageable = d % 8 == 0 and all(
-        x.data_ptr() % 16 == 0 and _row_stride(x) % 8 == 0 for x in (h, w))
+    stageable = d % 8 == 0 and all(aligned16(x) and _row_stride(x) % 8 == 0 for x in (h, w))
     return DESIGNS[0] if h.dtype == torch.bfloat16 and stageable else DESIGNS[1]
 
 
@@ -212,6 +234,29 @@ def _splits(index: int, pass_: int, design: int, dtype: int, n: int, v: int, d: 
     if splits < 1:
         raise RuntimeError(f"fused_ce_plan failed with CUDA error {-splits}")
     return splits
+
+
+def plan_splits(pass_: int, design: str, n: int, v: int, d: int,
+                sms: int = H100_SMS) -> int:
+    """The vocab splits the library plans for K6 (``pass_`` 0) or K7 (1)
+    in ``design`` at these sizes (``csrc/fused_ce.cu``'s ``plan``), on a
+    card of ``sms`` SMs holding :data:`BLOCKS_PER_SM` of the kernel: the
+    count that minimises waves × the longest block's tiles, each split
+    non-empty, a tie keeping fewer."""
+    slots = sms * BLOCKS_PER_SM[(pass_, design)]
+    rows = _OWNER_ROWS[(pass_, design)]
+    row_tiles = -(-n // rows) * (d_windows(d) if pass_ == 1 else 1)
+    n_tiles = -(-v // _TILE)
+    best, best_cost = 1, None
+    for want in range(1, min(n_tiles, 65535) + 1):
+        per = -(-n_tiles // want)
+        if -(-n_tiles // per) != want:
+            continue
+        c = -(-(row_tiles * want) // slots) * (per + (_MMA_BLOCK_TILES if design == "mma"
+                                                      else 0))
+        if best_cost is None or c < best_cost:
+            best, best_cost = want, c
+    return best
 
 
 def _plan(h, w, pass_: int, design: str) -> int:
@@ -284,39 +329,84 @@ def _dw_cuda(h, w, lbl, lse, g):
     return dw
 
 
+# ---------------------------------------------------------------------------
+# meta routes: what each launch allocates, and its count (the dry-run)
+# ---------------------------------------------------------------------------
+
+def _fwd_meta(h, w, lbl, v0: int = 0, stats: bool = False):
+    design = _check(h, w, lbl)
+    (n, d), v, dev = h.shape, w.shape[0], h.device
+    splits = plan_splits(0, design, n, v, d)
+    rows = torch.empty((5 if stats else 3, n), dtype=torch.float32, device=dev)
+    row_idx = torch.empty((n,), dtype=torch.int32, device=dev) if stats else None
+    torch.empty((3, splits, n), dtype=torch.float32, device=dev)   # the scratch
+    torch.empty((splits, n), dtype=torch.int32, device=dev)
+    cost.record("fused_ce_fwd", cost.fused_ce_fwd(n, d, v, h.dtype, stats))
+    if stats:
+        return rows[0], rows[1], rows[2], rows[3], rows[4], row_idx
+    return rows[0], rows[1], rows[2]
+
+
+def _dh_meta(h, w, lbl, lse, g):
+    design = _check(h, w, lbl, lse=lse, g=g)
+    (n, d), v = h.shape, w.shape[0]
+    dh = torch.empty((n, d), dtype=h.dtype, device=h.device)
+    torch.empty((plan_splits(1, design, n, v, d), n, d), dtype=torch.float32,
+                device=h.device)   # the scratch
+    cost.record("fused_ce_dh", cost.fused_ce_dh(n, d, v, h.dtype))
+    return dh
+
+
+def _dw_meta(h, w, lbl, lse, g):
+    _check(h, w, lbl, lse=lse, g=g)
+    cost.record("fused_ce_dw", cost.fused_ce_dw(h.shape[0], h.shape[1], w.shape[0], h.dtype))
+    return torch.empty(w.shape, dtype=w.dtype, device=w.device)
+
+
+_ROUTES = {"cuda": (_fwd_cuda, _dh_cuda, _dw_cuda), "meta": (_fwd_meta, _dh_meta, _dw_meta)}
+
+
 def fused_ce_fwd(h, w, lbl, *, block_v: int = 512, plain: bool = False, v0: int = 0,
                  stats: bool = False):
     """(nll, correct, lse): kernel K6 on a CUDA tensor, the plain version on
     a CPU one (or anywhere with ``plain=True``).  ``w`` holds the vocab
     rows from ``v0`` on (labels are compared against ``v0 +`` the column);
     ``stats`` adds each row's label logit, max and first global argmax."""
-    if _backend(h.device, plain) == "cuda":
-        return _fwd_cuda(h, w, lbl, v0, stats)
-    return fused_ce_fwd_plain(h, w, lbl, block_v, v0=v0, stats=stats)
+    backend = _backend(h.device, plain)
+    if backend == "plain":
+        return fused_ce_fwd_plain(h, w, lbl, block_v, v0=v0, stats=stats)
+    return _ROUTES[backend][0](h, w, lbl, v0, stats)
 
 
 def fused_ce_dh(h, w, lbl, lse, g, *, block_v: int = 512, plain: bool = False):
-    """dh: kernel K7 on a CUDA tensor, else the plain version."""
-    if _backend(h.device, plain) == "cuda":
-        return _dh_cuda(h, w, lbl, lse, g)
-    return fused_ce_dh_plain(h, w, lbl, lse, g, block_v)
+    """dh: kernel K7 on a CUDA tensor, else the plain version (or the meta
+    route)."""
+    backend = _backend(h.device, plain)
+    if backend == "plain":
+        return fused_ce_dh_plain(h, w, lbl, lse, g, block_v)
+    return _ROUTES[backend][1](h, w, lbl, lse, g)
 
 
 def fused_ce_dw(h, w, lbl, lse, g, *, block_v: int = 512, plain: bool = False):
-    """dw: kernel K8 on a CUDA tensor, else the plain version."""
-    if _backend(h.device, plain) == "cuda":
-        return _dw_cuda(h, w, lbl, lse, g)
-    return fused_ce_dw_plain(h, w, lbl, lse, g, block_v)
+    """dw: kernel K8 on a CUDA tensor, else the plain version (or the meta
+    route)."""
+    backend = _backend(h.device, plain)
+    if backend == "plain":
+        return fused_ce_dw_plain(h, w, lbl, lse, g, block_v)
+    return _ROUTES[backend][2](h, w, lbl, lse, g)
 
 
 def fused_ce_bwd(h, w, lbl, lse, g, *, want_dh: bool = True, want_dw: bool = True,
                  block_v: int = 512, plain: bool = False):
-    """(dh, dw), None where not wanted: K7 and K8 on CUDA tensors, else the
-    plain version in one pass over the vocab chunks."""
-    if _backend(h.device, plain) == "plain":
+    """(dh, dw), None where not wanted: K7 and K8 on CUDA tensors (or their
+    meta routes), else the plain version in one pass over the vocab
+    chunks."""
+    backend = _backend(h.device, plain)
+    if backend == "plain":
         return _grads_plain(h, w, lbl, lse, g, block_v, want_dh=want_dh, want_dw=want_dw)
-    return (_dh_cuda(h, w, lbl, lse, g) if want_dh else None,
-            _dw_cuda(h, w, lbl, lse, g) if want_dw else None)
+    _, dh_fn, dw_fn = _ROUTES[backend]
+    return (dh_fn(h, w, lbl, lse, g) if want_dh else None,
+            dw_fn(h, w, lbl, lse, g) if want_dw else None)
 
 
 # ---------------------------------------------------------------------------

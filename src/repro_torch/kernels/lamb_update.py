@@ -16,8 +16,11 @@ parameter (Σ(x'−x)² is 0), so the skipped step leaves x, m and v
 bit-identical without a copy and without waiting on the host.
 
 Each pass dispatches on where its tensors lie: on the CPU it runs the plain
-PyTorch version below; on a CUDA tensor it launches the kernel or raises.
-There is no fallback from the kernel to the plain version.
+PyTorch version below; on a CUDA tensor it launches the kernel or raises;
+on a meta tensor (the dry-run) it allocates what the kernel's call
+allocates (the per-block partial sums), launches nothing and adds the
+kernel's ``kernels/cost.py`` count to the dry-run's.  There is no fallback
+from the kernel to the plain version or the meta route.
 """
 from __future__ import annotations
 
@@ -26,20 +29,26 @@ from typing import Callable, Collection, Dict, NamedTuple, Optional, Sequence, T
 
 import torch
 
+from repro_torch.kernels import cost
 from repro_torch.kernels.launches import LAUNCHES, register
 
 register("lamb_moments", "lamb_apply")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# csrc/lamb_update.cu's kChunk (kThreads × kItems): the elements of a layer
+# one block sums, for the meta route's partials; a change there must be made
+# here too (chip_smoke.py's check_split_plans holds the two equal on the card)
+CHUNK_ELEMS = 4096
 _LIB: Optional[ctypes.CDLL] = None
 
 
 def resolve_fused_backend(device: torch.device) -> str:
-    """``"plain"`` for CPU tensors, ``"cuda"`` for CUDA tensors; else raise."""
+    """``"plain"`` for CPU tensors, ``"cuda"`` for CUDA tensors, ``"meta"``
+    for meta tensors (the dry-run's route); else raise."""
     if device.type == "cpu":
         return "plain"
-    if device.type == "cuda":
-        return "cuda"
+    if device.type in ("cuda", "meta"):
+        return device.type
     raise ValueError(f"fused LAMB has no backend for device {device}")
 
 
@@ -127,7 +136,7 @@ def _check(x, g, m, v, layers):
 
 
 def _partials(layers: int, per_layer: int, device) -> torch.Tensor:
-    chunk = _lib().lamb_chunk_elems()
+    chunk = CHUNK_ELEMS if device.type == "meta" else _lib().lamb_chunk_elems()
     nblocks = -(-per_layer // chunk)
     return torch.empty((layers, nblocks), dtype=torch.float32, device=device)
 
@@ -173,9 +182,27 @@ def _apply_cuda(x, m, v, c, ratio, layers, *, eps, weight_decay, ok=None):
     return dsq.sum(1)
 
 
+def _moments_meta(x, g, m, v, c, layers, *, b1, b2, eps, weight_decay, ok=None):
+    xsq = _partials(layers, x.numel() // layers, x.device)
+    usq = torch.empty_like(xsq)
+    cost.record("lamb_moments", cost.lamb_moments(x.numel(), layers, x.dtype, g.dtype,
+                                                  ok is not None))
+    return xsq.sum(1), usq.sum(1)
+
+
+def _apply_meta(x, m, v, c, ratio, layers, *, eps, weight_decay, ok=None):
+    dsq = _partials(layers, x.numel() // layers, x.device)
+    cost.record("lamb_apply", cost.lamb_apply(x.numel(), layers, x.dtype, ok is not None))
+    return dsq.sum(1)
+
+
 # ---------------------------------------------------------------------------
 # the two passes, and the whole update
 # ---------------------------------------------------------------------------
+
+_MOMENTS = {"plain": lamb_moments_plain, "cuda": _moments_cuda, "meta": _moments_meta}
+_APPLY = {"plain": lamb_apply_plain, "cuda": _apply_cuda, "meta": _apply_meta}
+
 
 def _check_ok(ok, x) -> None:
     if ok is None:
@@ -194,13 +221,12 @@ def lamb_moments(x, g, m, v, c, layers: int, *, b1: float = 0.9, b2: float = 0.9
 
     ``c`` is the fp32 ``[c1, c2]`` bias-correction pair on x's device; with
     ``ok`` (int32 device scalar) 0, m and v are left as they were.  Runs the
-    kernel on a CUDA tensor and the plain version on a CPU tensor (or
-    anywhere with ``plain=True``).
+    kernel on a CUDA tensor, the plain version on a CPU tensor (or anywhere
+    with ``plain=True``), the meta route on a meta one.
     """
     _check(x, g, m, v, layers)
     _check_ok(ok, x)
-    cuda = not plain and resolve_fused_backend(x.device) == "cuda"
-    fn = _moments_cuda if cuda else lamb_moments_plain
+    fn = _MOMENTS["plain" if plain else resolve_fused_backend(x.device)]
     return fn(x, g, m, v, c.to(torch.float32).contiguous(), layers, b1=b1, b2=b2,
               eps=eps, weight_decay=weight_decay, ok=ok)
 
@@ -219,8 +245,7 @@ def lamb_apply(x, m, v, c, ratio, layers: int, *, eps: float = 1e-6,
     _check_ok(ok, x)
     if ratio.shape != (layers,):
         raise ValueError(f"ratio has shape {tuple(ratio.shape)}, want ({layers},)")
-    cuda = not plain and resolve_fused_backend(x.device) == "cuda"
-    fn = _apply_cuda if cuda else lamb_apply_plain
+    fn = _APPLY["plain" if plain else resolve_fused_backend(x.device)]
     return fn(x, m, v, c.to(torch.float32).contiguous(),
               ratio.to(torch.float32).contiguous(), layers, eps=eps,
               weight_decay=weight_decay, ok=ok)

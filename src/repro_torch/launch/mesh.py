@@ -11,6 +11,12 @@ groups it is abstract: names and sizes only, enough for ``resolve_spec`` /
 One rank drives one device: ``cuda:LOCAL_RANK`` over NCCL, or the CPU over
 gloo when the caller asked for ``--device cpu``.  Nothing falls back from one
 backend to the other.
+
+:func:`make_production_mesh` is the reference's paper-scale mesh
+(``data=16,model=16``, or ``pod=2,data=16,model=16``), abstract;
+:func:`counting_mesh` gives a mesh rank 0's groups of
+:class:`~repro_torch.sharding.collectives.CountingGroup`, which count what
+a step would move and call nothing (the dry-run's mesh).
 """
 from __future__ import annotations
 
@@ -105,6 +111,29 @@ def abstract_mesh(shape: Sequence[int], names: Sequence[str]) -> Mesh:
     if len(shape) != len(names):
         raise ValueError(f"{len(shape)} sizes for {len(names)} axis names")
     return Mesh(dict(zip(names, shape)))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The paper-scale mesh, abstract: ``data=16,model=16`` (256 ranks),
+    or ``pod=2,data=16,model=16`` (512) with ``multi_pod``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return abstract_mesh(shape, axes)
+
+
+def counting_mesh(mesh: Mesh, tally) -> Mesh:
+    """Rank 0 of ``mesh`` with the groups a run would make
+    (:func:`init_distributed`'s: one per axis, one over the data-parallel
+    axes, one over every axis), each a ``CountingGroup`` that adds what
+    its collectives move to ``tally``.  No process group is made."""
+    from repro_torch.sharding.axes import batch_axes
+    from repro_torch.sharding.collectives import CountingGroup
+
+    out = Mesh(mesh.shape)
+    axes_list = [(a,) for a in out.axis_names] + [batch_axes(out), out.axis_names]
+    out.groups = {axes: CountingGroup(axes, out.extent(axes), tally)
+                  for axes in axes_list if axes}
+    return out
 
 
 def parse_mesh_spec(spec: str) -> Dict[str, int]:

@@ -19,7 +19,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch import nn
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.models import hybrid, transformer, xlstm_model
 
 
@@ -43,6 +43,11 @@ class Model:
         :func:`~repro_torch.nn.init_params`)."""
         return nn.init_params(self.defs, seed, torch.device(device), self.cfg.param_dtype,
                               keep=keep)
+
+    def abstract_params(self) -> nn.Params:
+        """Meta tensors of every leaf, floating leaves in ``param_dtype``:
+        the parameters :meth:`init` would draw, with no storage."""
+        return self.init(0, "meta")
 
     def wd_mask(self) -> Dict[str, bool]:
         return nn.weight_decay_mask(self.defs)
@@ -100,8 +105,28 @@ class Model:
                                             dtype=nn.torch_dtype(self.cfg.activation_dtype),
                                             device=torch.device(device))
 
+    def input_specs(self, shape: InputShape, device="meta") -> Dict[str, torch.Tensor]:
+        return input_specs(self.cfg, shape, device)
+
     def param_count(self) -> int:
         return nn.param_count(self.defs)
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: shared + top-k experts + non-MoE):
+        the routed-expert leaves (axes holding ``experts``) count k/E."""
+        cfg = self.cfg
+        total = nn.param_count(self.defs)
+        if cfg.n_experts == 0:
+            return total
+        routed = 0
+        for p in nn.flatten(self.defs).values():
+            if "experts" in p.axes:
+                n = 1
+                for d in p.shape:
+                    n *= d
+                routed += n
+        active_frac = cfg.n_experts_per_tok / cfg.n_experts
+        return int(total - routed + routed * active_frac)
 
 
 def build_model(cfg: ModelConfig) -> Model:
@@ -111,3 +136,41 @@ def build_model(cfg: ModelConfig) -> Model:
     if cfg.family == "ssm":
         return Model(cfg, xlstm_model.xlstm_defs(cfg))
     return Model(cfg, transformer.transformer_defs(cfg))
+
+
+# ---------------------------------------------------------------------------
+# dry-run inputs
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ModelConfig, shape: InputShape, device="meta") -> Dict[str, torch.Tensor]:
+    """Empty stand-ins (meta tensors by default) for every model input of
+    ``shape``, as the reference's ``input_specs``:
+
+    train:   {tokens, labels} (+ modality stubs)
+    prefill: {tokens} (+ stubs)
+    decode:  {tokens: (B, 1)}; the cache is supplied separately.
+    """
+    b, s = shape.global_batch, shape.seq_len
+    d = cfg.d_model
+    act = nn.torch_dtype(cfg.activation_dtype)
+
+    def spec(dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device=device)
+
+    if cfg.frontend == "audio_stub":
+        specs = {"frame_embeds": spec((b, s, d), act), "mask": spec((b, s), torch.bool)}
+        if shape.kind == "train":
+            specs["labels"] = spec((b, s))
+        return specs
+    if shape.kind == "decode":
+        return {"tokens": spec((b, 1))}
+    if cfg.frontend == "vision_stub":
+        n_img = cfg.n_prefix_tokens
+        specs = {"tokens": spec((b, s - n_img)), "image_embeds": spec((b, n_img, d), act)}
+        if shape.kind == "train":
+            specs["labels"] = spec((b, s))
+        return specs
+    specs = {"tokens": spec((b, s))}
+    if shape.kind == "train":
+        specs["labels"] = spec((b, s))
+    return specs

@@ -47,7 +47,7 @@ from repro_torch.models.layers.tensor_parallel import (
     split_axis,
 )
 from repro_torch.nn.module import Param
-from repro_torch.sharding.context import model_parallel
+from repro_torch.sharding.context import SEQ_SPLIT_CACHE, cache_seq_split, model_parallel
 
 NEG_INF = -1e9
 
@@ -181,6 +181,8 @@ def attention(
     if tp is not None and cache is not None:
         raise NotImplementedError("serving on a mesh (a KV cache of split heads) is not "
                                   "ported (ROADMAP.md queue 1, item 11 (e))")
+    if cache is not None and cache_seq_split():
+        raise NotImplementedError(SEQ_SPLIT_CACHE)
 
     def proj(w, heads, axis):
         return column_matmul(x, w.to(dtype).reshape(d, heads * dh), axis).view(b, s, heads, dh)

@@ -50,7 +50,7 @@ from repro_torch.models.layers.embeddings import apply_rope
 from repro_torch.models.layers.tensor_parallel import column_matmul, row_matmul, split_axis
 from repro_torch.nn.module import Param
 from repro_torch.sharding.collectives import copy_to_model
-from repro_torch.sharding.context import ModelAxis, model_parallel
+from repro_torch.sharding.context import SEQ_SPLIT_CACHE, ModelAxis, cache_seq_split, model_parallel
 
 
 def mla_defs(cfg: ModelConfig) -> dict:
@@ -132,6 +132,8 @@ def mla_attention(
     if tp is not None and cache is not None:
         raise NotImplementedError("serving on a mesh (the MLA's latent cache over split "
                                   "heads) is not ported (ROADMAP.md queue 1, item 11 (e))")
+    if cache is not None and cache_seq_split():
+        raise NotImplementedError(SEQ_SPLIT_CACHE)
     # a host scalar: 1/sqrt(dn + dr) taken in fp32, as the reference's
     scale = float(1.0 / torch.sqrt(torch.tensor(float(dn + dr), dtype=torch.float32)))
 

@@ -110,8 +110,9 @@ def row_matmul(h: torch.Tensor, w: torch.Tensor, tp: Optional[ModelAxis]) -> tor
     if tp is None:
         return h @ w
     if is_plain(tp.group):
-        parts = tp.group.exchange(h.to(torch.float32) @ w.to(torch.float32))
-        return reduce_from_model_plain(parts).to(h.dtype)
+        part = h.to(torch.float32) @ w.to(torch.float32)
+        tp.group.record("all-reduce", part)
+        return reduce_from_model_plain(tp.group.exchange(part)).to(h.dtype)
     return _Row.apply(h, w, tp.group)
 
 

@@ -126,18 +126,35 @@ def init_params(defs, seed: int, device: torch.device, dtype=None,
     the fp32 tree, and the peak is the cast tree plus one fp32 leaf.  With
     ``keep``, ``keep(path, leaf)`` replaces each leaf as soon as it is drawn
     (a data-parallel rank keeps its slice): the values are the whole
-    tree's, and the peak is what is kept plus one whole leaf.
+    tree's, and the peak is what is kept plus one whole leaf.  On the meta
+    device nothing is drawn: each leaf is :func:`abstract_params`' (the
+    dry-run's parameters).
     """
     dt = None if dtype is None else torch_dtype(dtype)
+    abstract = torch.device(device).type == "meta"
 
     def make(path: str, p: Param) -> torch.Tensor:
-        gen = torch.Generator(device=device)
-        gen.manual_seed(_path_seed(seed, path))
-        x = _initialize(p, gen, device)
+        if abstract:
+            x = _abstract(p)
+        else:
+            gen = torch.Generator(device=device)
+            gen.manual_seed(_path_seed(seed, path))
+            x = _initialize(p, gen, device)
         x = x if dt is None or not x.is_floating_point() else x.to(dt)
         return x if keep is None else keep(path, x)
 
     return _map_params(make, defs)
+
+
+def _abstract(p: Param) -> torch.Tensor:
+    return torch.empty(tuple(p.shape), dtype=torch_dtype(p.dtype), device="meta")
+
+
+def abstract_params(defs) -> Params:
+    """Meta tensors of every leaf's shape and dtype: a dry-run's parameters,
+    with no storage on any device and no draw (a generator cannot live on
+    the meta device)."""
+    return _map_params(lambda _, p: _abstract(p), defs)
 
 
 def layer_axis_tree(defs) -> Dict[str, int]:

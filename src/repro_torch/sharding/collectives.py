@@ -39,6 +39,14 @@ each rank then holds one block.
 Each has a plain single-process version (``*_plain``) that takes every
 rank's operand at once: what the tests hold the collectives to.
 
+A :class:`CountingGroup` stands for a group of a mesh that is not there
+(the dry-run's, ``launch/dryrun.py``): every collective on it allocates
+rank 0's result as the real one does (on the meta device, nothing) and
+adds its operand bytes, by kind and by the mesh axes the group spans, to a
+:class:`CollectiveTally`, under the reference's rule for what each kind
+moves (:func:`operand_bytes`).  Nothing calls ``torch.distributed``; the
+host-side flags raise on such a group.
+
 :func:`run_plain_ranks` runs ``M`` ranks of one process as threads whose
 group is a :class:`PlainGroup`: each collective meets the other ranks at a
 barrier and returns its plain version over every rank's operand, built from
@@ -53,7 +61,7 @@ backward's collective is the identity on a :class:`PlainGroup`.
 from __future__ import annotations
 
 import threading
-from typing import Callable, List, NamedTuple, Optional, Sequence
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -83,12 +91,15 @@ def _collective(name: str, older: str):
 
 class PlainRanks:
     """``size`` ranks of one process, a thread each, that meet at a barrier
-    to swap operands (:func:`run_plain_ranks`)."""
+    to swap operands (:func:`run_plain_ranks`); with a ``tally``, rank 0's
+    collectives count into it through ``counter``, a :class:`CountingGroup`
+    over ``model``."""
 
-    def __init__(self, size: int, timeout: float):
+    def __init__(self, size: int, timeout: float, tally=None):
         self.size = size
         self.barrier = threading.Barrier(size, timeout=timeout)
         self.slots: list = [None] * size
+        self.counter = None if tally is None else CountingGroup(("model",), size, tally)
 
 
 class PlainGroup(NamedTuple):
@@ -102,6 +113,12 @@ class PlainGroup(NamedTuple):
     def size(self) -> int:
         return self.ranks.size
 
+    def record(self, kind: str, result: torch.Tensor) -> None:
+        """Count rank 0's collective of ``kind`` with ``result`` (see
+        :class:`PlainRanks`)."""
+        if self.index == 0 and self.ranks.counter is not None:
+            self.ranks.counter.record(kind, result)
+
     def exchange(self, x) -> list:
         """Every rank's ``x``, in rank order (each rank's own tensor)."""
         r = self.ranks
@@ -112,14 +129,78 @@ class PlainGroup(NamedTuple):
         return out
 
 
+# the collective kinds the reference's roofline counts (its HLO op names)
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute")
+
+
+def operand_bytes(kind: str, result_bytes: int, group: int) -> int:
+    """The operand bytes of one collective of ``kind`` over ``group`` ranks
+    whose result holds ``result_bytes``: the reference's rule
+    (``repro.launch.roofline.collective_bytes``): an all-gather's operand
+    is its result over the group, a reduce-scatter's its result times the
+    group, the others' their result."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown collective {kind!r}; one of {KINDS}")
+    if kind == "all-gather":
+        return result_bytes // group
+    if kind == "reduce-scatter":
+        return result_bytes * group
+    return result_bytes
+
+
+class CollectiveTally:
+    """Operand bytes of the collectives a dry-run's step made: by kind
+    (``by_kind``), their number (``count``), and by the mesh axes each
+    group spans (``by_axis``: ``"pod,data"`` → ``{"bytes", "count"}``)."""
+
+    def __init__(self):
+        self.by_kind = dict.fromkeys(KINDS, 0)
+        self.count = 0
+        self.by_axis: dict = {}
+
+    def add(self, kind: str, nbytes: int, axes: Sequence[str]) -> None:
+        self.by_kind[kind] += int(nbytes)
+        self.count += 1
+        entry = self.by_axis.setdefault(",".join(axes), {"bytes": 0, "count": 0})
+        entry["bytes"] += int(nbytes)
+        entry["count"] += 1
+
+
+class CountingGroup(NamedTuple):
+    """A group of ``size`` ranks over the mesh ``axes`` that no process
+    forms: its collectives count into ``tally`` (rank 0's view)."""
+
+    axes: Tuple[str, ...]
+    size: int
+    tally: CollectiveTally
+
+    def record(self, kind: str, result: torch.Tensor) -> None:
+        self.tally.add(kind, operand_bytes(kind, result.numel() * result.element_size(),
+                                           self.size), self.axes)
+
+
 def is_plain(group) -> bool:
     """Whether ``group`` is a :class:`PlainGroup` (a rank of
     :func:`run_plain_ranks`)."""
     return isinstance(group, PlainGroup)
 
 
+def is_counting(group) -> bool:
+    """Whether ``group`` is a :class:`CountingGroup` (a dry-run's)."""
+    return isinstance(group, CountingGroup)
+
+
 def group_size(group) -> int:
-    return group.size if is_plain(group) else _dist().get_world_size(group)
+    if is_plain(group) or is_counting(group):
+        return group.size
+    return _dist().get_world_size(group)
+
+
+def group_rank(group) -> int:
+    """This rank's index in ``group`` (0 on a dry-run's)."""
+    if is_plain(group):
+        return group.index
+    return 0 if is_counting(group) else _dist().get_rank(group)
 
 
 def shard_leaf(x: torch.Tensor, dim: Optional[int], parts: int, index: int) -> torch.Tensor:
@@ -155,14 +236,19 @@ def gather_leaf(x: torch.Tensor, dim: Optional[int], group) -> torch.Tensor:
     if dim is None:
         return x
     if is_plain(group):
-        return gather_leaf_plain(group.exchange(x), dim)
+        out = gather_leaf_plain(group.exchange(x), dim)
+        group.record("all-gather", out)
+        return out
     n = group_size(group)
     flat = x.reshape(-1)
     # a gather moves bits and does no arithmetic: 16-bit floats travel as
     # bytes, which every backend carries (gloo has no bf16)
     bits = flat.view(torch.uint8) if flat.element_size() == 2 else flat
     out = torch.empty(n * bits.numel(), dtype=bits.dtype, device=x.device)
-    _collective("all_gather_single", "all_gather_into_tensor")(out, bits, group=group)
+    if is_counting(group):
+        group.record("all-gather", out)
+    else:
+        _collective("all_gather_single", "all_gather_into_tensor")(out, bits, group=group)
     whole = list(x.shape)
     whole[dim] *= n
     rows = _blocks(x.shape, dim)
@@ -176,17 +262,18 @@ def scatter_grad(g: torch.Tensor, dim: Optional[int], group) -> torch.Tensor:
     copy, none over one rank or along dim 0; the result is the rank's slice
     as it lies."""
     if dim is None:
-        out = g.contiguous()
-        _dist().all_reduce(out, op=_op("sum"), group=group)
-        return out
+        return all_reduce(g, "sum", group)
     n = group_size(group)
     rows = _blocks(g.shape, dim)
     src = g.reshape(rows, n, -1).transpose(0, 1).contiguous()
     part = list(g.shape)
     part[dim] //= n
     out = torch.empty(part, dtype=g.dtype, device=g.device)
-    _collective("reduce_scatter_single", "reduce_scatter_tensor")(
-        out.view(-1), src.view(-1), op=_op("sum"), group=group)
+    if is_counting(group):
+        group.record("reduce-scatter", out)
+    else:
+        _collective("reduce_scatter_single", "reduce_scatter_tensor")(
+            out.view(-1), src.view(-1), op=_op("sum"), group=group)
     return out
 
 
@@ -196,9 +283,15 @@ def all_reduce(x: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
     if group is None:
         return x
     if is_plain(group):
+        group.record("all-reduce", x)
         return all_reduce_plain(group.exchange(x), op)
     out = x if x.is_contiguous() else x.contiguous()
-    _dist().all_reduce(out, op=_op(op), group=group)
+    if is_counting(group):
+        if op not in OPS:
+            raise ValueError(f"unknown reduction {op!r}; one of {OPS}")
+        group.record("all-reduce", out)
+    else:
+        _dist().all_reduce(out, op=_op(op), group=group)
     return out
 
 
@@ -269,7 +362,10 @@ def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
     its gradient passes to every rank unchanged.  ``group`` None: ``x``."""
     if group is None:
         return x
-    if is_plain(group):
+    if is_plain(group):   # counted as sum_over moves it: 16-bit floats in fp32
+        wide = x.element_size() == 2 and x.is_floating_point()
+        group.record("all-reduce", torch.empty(x.shape, dtype=torch.float32, device="meta")
+                     if wide else x)
         return reduce_from_model_plain(group.exchange(x))
     return _ReduceFromModel.apply(x, group)
 
@@ -294,6 +390,7 @@ def sum_across(x: torch.Tensor, group) -> torch.Tensor:
     if group is None:
         return x
     if is_plain(group):
+        group.record("all-reduce", x)
         return sum_across_plain(group.exchange(x))
     return _SumAcross.apply(x, group)
 
@@ -301,7 +398,7 @@ def sum_across(x: torch.Tensor, group) -> torch.Tensor:
 class _GatherFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group):
-        ctx.dim, ctx.index, ctx.n = dim, _dist().get_rank(group), group_size(group)
+        ctx.dim, ctx.index, ctx.n = dim, group_rank(group), group_size(group)
         return gather_leaf(x, dim, group)
 
     @staticmethod
@@ -331,6 +428,13 @@ def _host_int(x: int) -> torch.Tensor:
     return torch.tensor([int(x)], dtype=torch.int64)
 
 
+def _host_group(group):
+    if is_counting(group):
+        raise ValueError("a dry-run's counting group has no host side: the flags are "
+                         "not on a step's path")
+    return group
+
+
 def agree_any(flag: int, group) -> int:
     """The MAX of ``flag`` over ``group`` (a CPU all-reduce): nonzero on
     every rank once any rank's is, and the largest value itself (a signal
@@ -338,7 +442,7 @@ def agree_any(flag: int, group) -> int:
     if group is None:
         return int(flag)
     t = _host_int(flag)
-    _dist().all_reduce(t, op=_op("max"), group=group)
+    _dist().all_reduce(t, op=_op("max"), group=_host_group(group))
     return int(t.item())
 
 
@@ -348,7 +452,7 @@ def broadcast_int(x: int, group, src: int = 0) -> int:
     if group is None:
         return int(x)
     t = _host_int(x)
-    _dist().broadcast(t, src=src, group=group)
+    _dist().broadcast(t, src=src, group=_host_group(group))
     return int(t.item())
 
 
@@ -356,7 +460,7 @@ def barrier(group) -> None:
     """Wait until every rank of ``group`` has arrived.  ``group`` None:
     return at once."""
     if group is not None:
-        _dist().barrier(group=group)
+        _dist().barrier(group=_host_group(group))
 
 
 # ---------------------------------------------------------------------------
@@ -427,15 +531,16 @@ def barrier_plain(arrived: Sequence[bool]) -> bool:
 
 
 def run_plain_ranks(fn: Callable[[PlainGroup], object], size: int,
-                    timeout: float = 600.0) -> list:
+                    timeout: float = 600.0, tally: Optional[CollectiveTally] = None) -> list:
     """``[fn(group) for each of size ranks]``, each call on a thread of its
     own with its :class:`PlainGroup`, in rank order.  A rank that raises
     breaks the barrier so that no other waits; the first error (not a
     broken barrier) is raised.  Only the forward belongs on the threads:
     the caller runs one backward pass over the joined graph (on the card,
     autograd runs every graph's device work on one thread, where ranks
-    meeting at a barrier would wait for each other forever)."""
-    ranks = PlainRanks(size, timeout)
+    meeting at a barrier would wait for each other forever).  With
+    ``tally``, rank 0's collectives count into it (:class:`PlainRanks`)."""
+    ranks = PlainRanks(size, timeout, tally)
     out: list = [None] * size
     errors: list = []
 

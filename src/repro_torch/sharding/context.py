@@ -30,6 +30,10 @@ _state = threading.local()
 # what a mesh still does not run (ROADMAP.md queue 1): mesh axes besides
 # pod, data and model, and a dimension split over both data and model
 UNPORTED = "ROADMAP.md queue 1, item 11 (b2)"
+# what serving on a mesh does not run yet: a cache whose sequence is split
+# over the data-parallel ranks (long-context decode at batch 1)
+SEQ_SPLIT_CACHE = ("serving on a mesh (a cache split along its sequence over the "
+                   "data-parallel ranks) is not ported (ROADMAP.md queue 1, item 11 (e))")
 
 
 class Layout(NamedTuple):
@@ -90,7 +94,9 @@ def leaf_layout(spec: Spec, mesh) -> Layout:
 
 class ShardCtx:
     """A mesh, the activation rule set annotations resolve against, and the
-    parameters' specs (``{path: spec}``, optional).
+    parameters' specs (``{path: spec}``, optional).  ``cache_seq_split``:
+    the serving cache's sequence is split over the data-parallel axes
+    (``placement.cache_seq_split``), which no layer serves yet.
 
     Install with :func:`use_sharding`; the norms see it through
     :meth:`split` and :meth:`counts`, the layers through
@@ -98,8 +104,10 @@ class ShardCtx:
     """
 
     def __init__(self, mesh, act_rules: Optional[Mapping] = None,
-                 param_specs: Optional[Mapping[str, Spec]] = None):
+                 param_specs: Optional[Mapping[str, Spec]] = None, *,
+                 cache_seq_split: bool = False):
         self.mesh = mesh
+        self.cache_seq_split = bool(cache_seq_split)
         self.act_rules = dict(
             act_rules if act_rules is not None
             else default_act_rules(multi_pod="pod" in mesh_sizes(mesh)))
@@ -175,6 +183,13 @@ def data_parallel() -> Optional[ModelAxis]:
     router) reduces over."""
     ctx = current()
     return None if ctx is None else ctx.data_axis
+
+
+def cache_seq_split() -> bool:
+    """Whether the ambient context splits the serving cache's sequence over
+    the data-parallel ranks (False without one)."""
+    ctx = current()
+    return ctx is not None and ctx.cache_seq_split
 
 
 @contextlib.contextmanager

@@ -11,7 +11,10 @@ Conventions, as in the reference:
     micro-batch of the step's accumulation is one contiguous run of the
     global batch's rows, and each rank holds one contiguous block of each
     (:func:`rank_rows`), as GSPMD shards each of the reference's
-    micro-batches.
+    micro-batches;
+  * a batch's fields and a cache's leaves resolve their logical axes
+    through the activation rules (:func:`batch_shardings`,
+    :func:`cache_shardings`: the dry-run's placement).
 
 States are the port's trees (flat parameter dicts inside dataclasses);
 specs come back as ``{path: spec}`` under the checkpoint's leaf paths
@@ -25,7 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.io import tree_leaves_with_paths, tree_map_with_paths
-from repro_torch.sharding.axes import Spec, batch_axes, dp_size, specs_for
+from repro_torch.sharding.axes import Spec, batch_axes, dp_size, resolve_spec, specs_for
 from repro_torch.sharding.collectives import all_reduce, gather_block, shard_block
 from repro_torch.sharding.context import Layout, leaf_layout
 
@@ -37,6 +40,58 @@ BATCH_AXES: Dict[str, Tuple[Optional[str], ...]] = {
     "frame_embeds": ("batch", "seq", None),
     "image_embeds": ("batch", None, None),
 }
+
+
+def batch_shardings(batch: Mapping[str, torch.Tensor], mesh, rules) -> Dict[str, Spec]:
+    """``{field: spec}`` of a model input dict: each field's logical axes
+    (:data:`BATCH_AXES`) resolved through the activation rules ``rules``,
+    so a rule override can split ``seq`` too."""
+    return {k: resolve_spec(v.shape, BATCH_AXES[k], rules, mesh) for k, v in batch.items()}
+
+
+def _cache_leaf_axes(path: str, ndim: int) -> Tuple[Optional[str], ...]:
+    """Logical axes of a KV / SSM cache leaf, keyed by its trailing name
+    (every leaf leads with its stacked layers or groups)."""
+    name = path.rsplit("/", 1)[-1]
+    lead = (None,)
+    table = {
+        "k": lead + ("batch", "cache_seq", "kv_heads", None),
+        "v": lead + ("batch", "cache_seq", "kv_heads", None),
+        "c_kv": lead + ("batch", "cache_seq", None),
+        "k_rope": lead + ("batch", "cache_seq", None),
+        "index": lead,
+        "ssm": lead + ("batch", "inner", None),
+        "conv": lead + ("batch", None, "inner"),
+        "c": lead + ("batch", "heads", None, None),
+        "n": lead + ("batch", "heads", None),
+        "m": lead + ("batch", "heads"),
+        "h": lead + ("batch", "heads", None),
+    }
+    axes = table.get(name)
+    if axes is None or len(axes) != ndim:
+        return tuple([None] * ndim)
+    return axes
+
+
+def cache_shardings(cache, mesh, rules) -> Dict[str, Spec]:
+    """``{path: spec}`` of every leaf of a ``make_cache`` tree (the
+    reference's NamedSharding tree): each leaf's logical axes
+    (:func:`_cache_leaf_axes`) resolved through the activation rules.
+    :func:`leaf_dims` gives their layouts."""
+    return {p: resolve_spec(x.shape, _cache_leaf_axes(p, x.dim()), rules, mesh)
+            for p, x in tree_leaves_with_paths(cache)}
+
+
+def cache_seq_split(cache, specs: Mapping[str, Spec]) -> bool:
+    """Whether ``specs`` split any leaf of ``cache`` along its
+    ``cache_seq`` dimension (long-context decode at batch 1)."""
+    for p, x in tree_leaves_with_paths(cache):
+        axes = _cache_leaf_axes(p, x.dim())
+        if "cache_seq" in axes:
+            i = axes.index("cache_seq")
+            if i < len(specs[p]) and specs[p][i] is not None:
+                return True
+    return False
 
 
 def batch_rows(n: int, mesh) -> Tuple[int, int]:

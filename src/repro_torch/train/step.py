@@ -319,7 +319,7 @@ def _sharded_grads(
 
 def make_train_step(model: Model, tc: TrainConfig, schedule=None, *,
                     optimizer: Optional[optim.GradientTransformation] = None,
-                    mesh=None):
+                    mesh=None, param_rules=None):
     """Returns ``(init_fn(seed, device) -> TrainState,
     step_fn(state, batch) -> (state, metrics))``.
 
@@ -351,7 +351,10 @@ def make_train_step(model: Model, tc: TrainConfig, schedule=None, *,
     verdict is all-reduced over the world with MIN so every rank skips
     together, and the optimizer runs on the blocks under the ambient
     :class:`~repro_torch.sharding.ShardCtx`, which keeps every norm and
-    trust ratio the whole leaf's.  Metrics are global.
+    trust ratio the whole leaf's.  Metrics are global.  ``param_rules``
+    (default ``sharding.default_param_rules``) decide the param specs.
+    ``init_fn(seed, "meta")`` makes a state of meta tensors with nothing
+    drawn (the dry-run's, ``launch/dryrun.py``).
     """
     loss_fn = make_loss_fn(model)
     n_micro = tc.grad_accum_steps
@@ -361,7 +364,7 @@ def make_train_step(model: Model, tc: TrainConfig, schedule=None, *,
     unreachable = model.unreachable()
     ctx = None
     if mesh is not None:
-        ctx = ShardCtx(mesh, param_specs=specs_for(model.defs, mesh))
+        ctx = ShardCtx(mesh, param_specs=specs_for(model.defs, mesh, param_rules))
         dims = {k: ctx.layout(k).data for k in ctx.param_specs}
         group = ctx.dp_group
         # the router's global terms over more than one data rank need the
