@@ -267,6 +267,35 @@ Phases, each of which raises (and so exits non-zero) on failure:
    share of busy and 6·N·D over busy and over wall at 989 TFLOP/s; (b)
    two production records run whole and timed on the host: smollm-360m x
    decode_32k and x train_4k on the 256-rank mesh.
+19. serving on a mesh (after phase 18, before phase 6's timings; the card
+   is one H100, so the ranks are threads of ``collectives.run_plain_ranks``,
+   as in phase 17; bf16, random weights from seed 0, flash on): (a)
+   granite-moe-1b-a400m at full width served by ``Engine(shard_ctx=)`` as
+   four ``model`` ranks (each its parameter blocks and a cache of 2 of the 8
+   kv heads), 8 prompts of 128 tokens, 16 greedy tokens, against the
+   whole-model Engine: the first decode step's gathered logits within 3x
+   the whole bf16 call's distance from an fp32 run; each rank's cache a
+   quarter of the whole's; K3 launched 24 layers x 4 ranks times on the
+   prefill, all on the tensor-core kernel, each call held against its plain
+   version; the bf16 tokens logged by phase 10's parting rule (the
+   randomly initialised model carries a rounding difference to the size of
+   its logits over its depth, fp32 too: the log shows the fp32 ranks' free
+   run and the whole model perturbed by 2^-24 parting alike); and in fp32
+   at full depth every rank's block fed the whole run's input, with the
+   whole run's MoE top-k sets, each block's output within 1e-4 of the
+   whole block's update, the logits likewise (for (b) at the prompt's
+   first 8,000 tokens in an 8,192-position cache); (b) smollm-360m at batch 1: a
+   32,000-token prompt into a 32,768-position cache split over four
+   ``data`` ranks (8,192 positions each), 16 greedy tokens, by (a)'s rules,
+   K3 32 x 4 times; the dry-run's
+   ``smollm-360m x long_500k`` record ``ok``, its k and v 1/16 of the whole
+   cache's; (c) deepseek-v3's MLA (8 ranks of 16 heads, naive and
+   absorbed, B 2, prefill 512), xlstm-350m's mLSTM and sLSTM (2 ranks, B
+   4, prefill 256) and Jamba's Mamba layer (4 ranks, ``inner`` rule, B 1,
+   prefill 256), each then 8 decode steps, every output and final state
+   within 3x the whole bf16 call's distance from fp32; (d) K3 on one
+   model=4 rank's heads at (a)'s prefill shape (B 8, 4 of 16 q heads, 2 of 8
+   kv, S 128, causal) timed beside its plain version, its bound and SDPA.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -4974,6 +5003,638 @@ def check_dryrun_records() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 19: serving on a mesh
+# ---------------------------------------------------------------------------
+
+# (a) granite-moe-1b-a400m's 16 heads over 8 kv heads as four model ranks (2
+# kv heads a rank's cache); (b) smollm-360m at batch 1 with its cache's
+# sequence over four data ranks; (c) the layers with state as model ranks
+MESH_SERVE_RANKS = 4
+MESH_SERVE_PROMPT, MESH_SERVE_NEW = 128, 16
+MESH_SERVE_MAX_LEN = MESH_SERVE_PROMPT + MESH_SERVE_NEW + 8
+LONG_ARCH, LONG_RANKS, LONG_PROMPT, LONG_MAX_LEN, LONG_NEW = "smollm-360m", 4, 32000, 32768, 16
+# (b)'s fp32 check: the prompt's first 8,000 tokens in an 8,192-position
+# cache (2,048 a rank, the prompt in every rank's block); fp32 attention over
+# the whole 32,000 costs five fp32 prefills on one card, some 20 s
+LONG_LOCAL = (8000, 8192)
+STATE_STEPS = 8
+MESH_FACTOR = 3.0   # a rank's distance from fp32 against the whole bf16 call's
+# fp32 at full depth, each block fed the whole run's input: a block's output
+# within LOCAL_TOL of the size of the whole block's update (sums in another
+# order), and where the ranks' own top-k set of a token differs from the
+# whole run's (the whole run's set is kept), the whole run's gap between its
+# k-th and (k+1)-th router probability within FLIP_GAP (a tie at rounding)
+LOCAL_TOL, FLIP_GAP = 1e-4, 1e-5
+LOCAL_STEPS = 4     # the decode steps of that check
+K3_RANK_TIMING = [("serving model=4 rank", 8, 4, 2, 128, 64, True)]
+
+
+def _rank_engines(device, model, params, sizes, axis, fn, rules=None, max_len=None,
+                  probe=None):
+    """``fn(engine)`` for each rank of the mesh ``sizes``, a thread each of
+    ``run_plain_ranks`` whose group is the mesh's ``axis``: each rank's
+    ``Engine(shard_ctx=)`` holds its parameter blocks and its cache block;
+    ``probe`` (a :class:`_BlockProbe`) is told which rank each thread runs.
+    Returns every rank's result and the ranks' wall seconds."""
+    import torch
+
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.serve import Engine
+    from repro_torch.sharding import ShardCtx
+    from repro_torch.sharding import collectives as C
+
+    def rank(group):
+        torch.cuda.set_device(device.index or 0)   # a new thread has no current context
+        if probe is not None:
+            probe.enter(group.index)
+        mesh = Mesh(sizes, rank=group.index, groups={(axis,): group})
+        ctx = ShardCtx(mesh).with_rules(**(rules or {}))
+        return fn(Engine(model, params, max_len=max_len, shard_ctx=ctx))
+
+    t0 = time.perf_counter()
+    out = C.run_plain_ranks(rank, sizes[axis])
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _parted(label, top2, whole_tokens, tokens) -> list:
+    """Where a sequence parts from the whole run's, the whole run's top-2
+    margin at that step against phase 10's rule (MARGIN_ULPS bf16 ulps of
+    the top logit).  Returns the requests that part at a larger margin
+    (logged with every parting)."""
+    faults, parts = [], []
+    for i in range(len(tokens)):
+        if (tokens[i] == whole_tokens[i]).all():
+            continue
+        t = int((tokens[i] != whole_tokens[i]).argmax())
+        limit = MARGIN_ULPS * _top_ulp(top2[i, t, 0])
+        margin = top2[i, t, 0] - top2[i, t, 1]
+        parts.append(f"request {i} at step {t}: margin {margin:.4g} (tol {limit:.4g})")
+        if margin > limit:
+            faults.append(i)
+    log(f"serve mesh {label}: identical token sequences "
+        f"{sum((a == b).all() for a, b in zip(tokens, whole_tokens))} of {len(tokens)}; "
+        f"parted: {parts or 'none'}")
+    return faults
+
+
+def _whole_run(model, params, toks, reqs, max_len, new):
+    """The whole model's greedy tokens, the top-2 logits of each step and
+    the first decode step's logits (a replay of its own tokens), the wall
+    seconds of the run and its cache bytes."""
+    import numpy as np
+
+    from repro_torch.serve import Engine
+
+    whole = Engine(model, params, max_len=max_len)
+    t0 = time.perf_counter()
+    st = np.stack([r.out_tokens for r in whole.generate_batch(reqs())])
+    wall = time.perf_counter() - t0
+    rep = whole.replay(toks, st[:, :new - 1])
+    return st, rep.topk(2, -1).values.cpu().numpy(), rep[:, 1], wall, whole.cache_bytes
+
+
+class _BlockProbe:
+    """Each transformer block's input and output, and each MoE layer's top-k
+    set, of a whole-model run, and the ranks' blocks held to them.
+
+    Installed over ``transformer._one_block`` and ``moe.route`` (the module
+    globals the layers call).  ``mode`` "record": the whole run (the calling
+    thread, no :meth:`enter`) keeps every block call's input and output, and
+    every route call's expert ids and the gap between the k-th and (k+1)-th
+    router probability.  "force": each rank's n-th block call takes the whole
+    run's n-th input, its output is held to the whole's n-th output relative
+    to the size of the whole block's update, and its n-th route call keeps the
+    whole run's expert set, the gates from its own logits (a token whose own
+    set differs logs the whole run's gap).  "free": rank 0's block outputs
+    against the whole's relative to the whole's, and each route call's tokens
+    whose set differs (nothing forced).  "perturb": a whole run again with the
+    embeddings scaled by 1 ± 2^-24 (a rounding-size change) and the whole
+    run's expert sets, its block outputs against the first's.  Readings stay
+    on the device until :meth:`read`."""
+
+    def __init__(self, mode="record"):
+        import threading
+
+        self.mode, self.local = mode, threading.local()
+        self.w_in, self.w_out, self.w_idx, self.w_gap = [], [], [], []
+        self.errs, self.flips = {}, {}
+
+    def enter(self, rank):
+        self.local.rank, self.local.nb, self.local.nr = rank, 0, 0
+        self.errs[rank], self.flips[rank] = [], []
+
+    def read(self):
+        """``{rank: (block errors, differing sets by route call, the whole
+        run's gaps there)}``."""
+        return {r: ([float(e) for e in self.errs[r]],
+                    [int(d.sum()) for d, _ in self.flips[r]],
+                    [g for d, gap in self.flips[r] for g in gap[d].tolist()])
+                for r in self.errs}
+
+    def _next(self, counter):
+        n = getattr(self.local, counter, 0)
+        setattr(self.local, counter, n + 1)
+        return n
+
+    def block(self, real):
+        def probed(bp, x, positions, cfg, **kw):
+            rank = getattr(self.local, "rank", None)
+            n = self._next("nb")
+            if self.mode == "record":
+                out, aux = real(bp, x, positions, cfg, **kw)
+                self.w_in.append(x.float())
+                self.w_out.append(out.float())
+                return out, aux
+            if self.mode == "force":
+                if x.shape != self.w_in[n].shape:
+                    raise AssertionError(f"block call {n}: rank {rank}'s input "
+                                         f"{tuple(x.shape)}, the whole's "
+                                         f"{tuple(self.w_in[n].shape)}")
+                x = self.w_in[n].to(x.dtype)
+            out, aux = real(bp, x, positions, cfg, **kw)
+            want = self.w_out[n]
+            scale = (want - self.w_in[n]) if self.mode == "force" else want
+            if rank in (None, 0) or self.mode == "force":
+                self.errs[rank].append((out.float() - want).abs().max() / scale.abs().max())
+            return out, aux
+        return probed
+
+    def route(self, real):
+        import torch
+
+        def probed(logits, cfg, dp=None):
+            gates, idx, aux = real(logits, cfg, dp)
+            rank = getattr(self.local, "rank", None)
+            n = self._next("nr")
+            probs = torch.softmax(logits, -1)
+            if self.mode == "record":
+                top = torch.topk(probs, cfg.n_experts_per_tok + 1, -1).values
+                self.w_idx.append(idx)
+                self.w_gap.append(top[:, -2] - top[:, -1])
+                return gates, idx, aux
+            want = self.w_idx[n]
+            differ = (idx.sort(-1).values != want.sort(-1).values).any(-1)
+            self.flips[rank].append((differ, self.w_gap[n]))
+            if self.mode == "free":
+                return gates, idx, aux
+            g = probs.gather(1, want)
+            return g / g.sum(-1, keepdim=True), want, aux
+        return probed
+
+    def embed(self, real):
+        import torch
+
+        def probed(params, batch, cfg, dtype):
+            x = real(params, batch, cfg, dtype)
+            sign = torch.arange(x.numel(), device=x.device).view(x.shape) % 2 * 2 - 1
+            return x * (1 + sign.to(x.dtype) * 2.0 ** -24)
+        return probed
+
+    def installed(self):
+        import contextlib
+
+        from repro_torch.models import transformer
+        from repro_torch.models.layers import moe
+
+        @contextlib.contextmanager
+        def patch():
+            saved = transformer._one_block, moe.route, transformer._embed_inputs
+            transformer._one_block = self.block(saved[0])
+            moe.route = self.route(saved[1])
+            if self.mode == "perturb":
+                transformer._embed_inputs = self.embed(saved[2])
+            try:
+                yield self
+            finally:
+                transformer._one_block, moe.route, transformer._embed_inputs = saved
+        return patch()
+
+    def moved(self, mode):
+        """A probe of ``mode`` over this one's whole-run record."""
+        other = _BlockProbe(mode)
+        other.w_in, other.w_out, other.w_idx, other.w_gap = \
+            self.w_in, self.w_out, self.w_idx, self.w_gap
+        return other
+
+
+def _mesh_against_whole(label, device, model, params, prompts, sizes, axis, rules=None,
+                        max_len=None, new=MESH_SERVE_NEW, held=None, diagnose=False,
+                        local_len=None):
+    """One mesh's greedy run against the whole model's.
+
+    bf16 (the path the K3 launches count, ``held`` wrapping each K3 call
+    there if given): the first decode step's gathered logits (the whole
+    run's first token teacher-forced) within MESH_FACTOR times the whole
+    bf16 call's distance from fp32; its tokens are logged by phase 10's
+    rule.  fp32 at full depth, every block fed the whole run's input
+    (:class:`_BlockProbe` "force", the prefill and LOCAL_STEPS decode steps
+    teacher-forced with the whole bf16 run's tokens): every block call of
+    every rank within LOCAL_TOL, every kept top-k set a tie within
+    FLIP_GAP, the gathered logits of each step within LOCAL_TOL of their
+    size, and where a step's argmax differs from the whole's the whole's
+    top-2 margin within LOCAL_TOL of its top logit (``local_len`` (prompt
+    positions, max_len), if given, cuts the prompts and the cache of that
+    check).  With ``diagnose``, the
+    fp32 ranks' free prefill and the whole one perturbed at rounding size
+    (:class:`_BlockProbe` "free" and "perturb") are logged: how far a
+    rounding difference grows over the depth.  Every rank's tokens equal.
+    Returns the launches, the ranks' and the whole cache bytes, the
+    distances and the wall seconds."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import reset_launches
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import attention
+    from repro_torch.serve import Engine, Request
+
+    toks = np.stack(prompts)
+    reqs = lambda: [Request(p, max_new_tokens=new) for p in prompts]   # noqa: E731
+
+    def ranks(m, fn, probe=None):
+        return _rank_engines(device, m, params, sizes, axis, fn, rules, max_len, probe)
+
+    def tokens_of(e):
+        return np.stack([r.out_tokens for r in e.generate_batch(reqs())]), e.cache_bytes
+
+    # bf16, full depth
+    st, top2, whole_first, t_whole, whole_bytes = _whole_run(model, params, toks, reqs,
+                                                             max_len, new)
+    torch.cuda.synchronize()
+    reset_launches()
+    real = attention.flash_sdpa
+    if held is not None:
+        attention.flash_sdpa = held
+    try:
+        got, wall = ranks(model, tokens_of)
+    finally:
+        attention.flash_sdpa = real
+    launches, designs, _ = _counts()
+    if any(not (g[0] == got[0][0]).all() for g in got):
+        raise AssertionError(f"serve mesh {label}: the ranks' tokens differ")
+    mt = got[0][0]
+    parted = _parted(f"{label} bf16, by phase 10's rule (logged)", top2, st, mt)
+    mesh_first = ranks(model, lambda e: e.replay(toks, st[:, :1])[:, 1])[0][0]
+    torch.cuda.empty_cache()
+
+    # fp32, full depth, each block on the whole run's input (the whole run's
+    # first decode step also the bf16 rule's fp32 reference at the same
+    # prompts)
+    f32 = build_model(model.cfg.replace(activation_dtype="float32"))
+    forced = st[:, :LOCAL_STEPS]
+    if local_len is not None:
+        ref_first = Engine(f32, params, max_len=max_len).replay(toks, st[:, :1])[:, 1]
+        toks, max_len = toks[:, :local_len[0]], local_len[1]
+    rec = _BlockProbe()
+    with torch.no_grad(), rec.installed():
+        w_logits = Engine(f32, params, max_len=max_len).replay(toks, forced)
+    if local_len is None:
+        ref_first = w_logits[:, 1]
+    d_mesh = float((mesh_first - ref_first).abs().max())
+    d_whole = float((whole_first - ref_first).abs().max())
+    del mesh_first, whole_first, ref_first
+    force = rec.moved("force")
+    t0 = time.perf_counter()
+    with force.installed():
+        f_logits = ranks(f32, lambda e: e.replay(toks, forced), force)[0]
+    readings = force.read()
+    t_force = time.perf_counter() - t0
+    size = w_logits.abs().amax(-1)
+    top = w_logits.topk(2, -1).values
+    step_err, faults = [], []
+    for r, lg in enumerate(f_logits):
+        step_err.append(float(((lg - w_logits).abs().amax(-1) / size).max()))
+        moved = lg.argmax(-1) != w_logits.argmax(-1)
+        margin = (top[..., 0] - top[..., 1]) / size
+        if moved.any() and float(margin[moved].max()) > LOCAL_TOL:
+            faults.append(f"rank {r}: an argmax moved at margin {float(margin[moved].max()):.3g}")
+    block_err = max(max(e) for e, _, _ in readings.values())
+    gaps = [g for _, _, v in readings.values() for g in v]
+    n_flips = sum(sum(f) for _, f, _ in readings.values())
+    depth = len(readings[0][0]) // (forced.shape[1] + 1)
+    per_layer = [max(e[i] for e, _, _ in readings.values()) for i in range(len(readings[0][0]))]
+    log(f"serve mesh {label} fp32 at full depth, each block fed the whole run's input "
+        f"({len(per_layer)} block calls a rank, {len(prompts)} rows, a prompt of "
+        f"{toks.shape[1]} in a cache of {max_len}, the prefill and "
+        f"{forced.shape[1]} decode steps; {t_force:.2f} s): a block's output against the "
+        f"whole's, over the whole block's update, max {block_err:.3g} (tol {LOCAL_TOL}); "
+        f"the prefill's by layer {[float(f'{e:.3g}') for e in per_layer[:depth]]}, the "
+        f"decode steps' max {max(per_layer[depth:]):.3g}; "
+        f"the gathered logits of each step max {max(step_err):.3g} of "
+        f"their size; top-k sets of a token that differed from the whole run's {n_flips}, "
+        f"the whole run's k-th to (k+1)-th gap there max "
+        f"{max(gaps) if gaps else None} (tol {FLIP_GAP}); {faults or 'no argmax moved'}")
+    if block_err > LOCAL_TOL or max(step_err) > LOCAL_TOL or faults \
+            or (gaps and max(gaps) > FLIP_GAP):
+        raise AssertionError(f"serve mesh {label}: fp32 blocks on the whole run's inputs left "
+                             f"it: block {block_err}, logits {max(step_err)}, flips at gaps "
+                             f"{sorted(gaps)[-4:]}, {faults}")
+    del f_logits
+    torch.cuda.empty_cache()
+
+    diag = None
+    if diagnose:   # the prefill alone
+        none = forced[:, :0]
+        free = rec.moved("free")
+        with free.installed():
+            fr_logits = ranks(f32, lambda e: e.replay(toks, none), free)[0][0]
+        pert = rec.moved("perturb")
+        pert.enter(None)
+        with torch.no_grad(), pert.installed():
+            p_logits = Engine(f32, params, max_len=max_len).replay(toks, none)
+        w_logits, size = w_logits[:, :1], size[:, :1]
+        fr, pe = free.read()[0], pert.read()[None]
+
+        diag = dict(
+            free_prefill=[round(e, 7) for e in fr[0]], free_flips=fr[1],
+            free_logits=float(((fr_logits - w_logits).abs().amax(-1) / size).max()),
+            perturbed_prefill=[round(e, 7) for e in pe[0]],
+            perturbed_logits=float(((p_logits - w_logits).abs().amax(-1) / size).max()))
+        log(f"serve mesh {label} fp32 at full depth, free (rank 0's block outputs against "
+            f"the whole's, over their size, and its tokens whose top-k set differs, by "
+            f"prefill layer): {diag['free_prefill']}, flips {diag['free_flips']}, last "
+            f"logits {diag['free_logits']:.3g} of their size; the whole model with its embeddings "
+            f"scaled by 1 +- 2^-24 and the whole run's top-k sets: "
+            f"{diag['perturbed_prefill']}, logits {diag['perturbed_logits']:.3g}")
+        del fr_logits, p_logits
+    del rec, force, w_logits
+    torch.cuda.empty_cache()
+
+    log(f"serve mesh {label}: whole bf16 run {t_whole:.2f} s, the ranks' run {wall:.2f} s; "
+        f"first decode step's gathered bf16 logits, max |diff| from fp32: the ranks' "
+        f"{d_mesh:.4g}, the whole bf16 call's {d_whole:.4g} (top logit {float(top2[:, 1, 0].max()):.4g}); "
+        f"bf16 sequences parting at a margin past phase 10's rule {len(parted)} of "
+        f"{len(prompts)}; cache bytes a rank {[g[1] for g in got]}, whole {whole_bytes}; K3 "
+        f"launches in the bf16 ranks' run {launches['flash_fwd']} {designs['flash_fwd']}")
+    if not d_mesh <= MESH_FACTOR * d_whole:
+        raise AssertionError(f"serve mesh {label}: the mesh left the whole run: logits "
+                             f"{d_mesh} against {d_whole}")
+    return dict(launches=launches, designs=designs, rank_cache_bytes=[g[1] for g in got],
+                whole_cache_bytes=whole_bytes, wall_s=wall, whole_s=t_whole, d_mesh=d_mesh,
+                d_whole=d_whole, bf16_parted=len(parted), block_err=block_err,
+                logits_err=max(step_err), kept_flips=n_flips, diagnosis=diag,
+                bf16_identical=int(sum((a == b).all() for a, b in zip(mt, st))))
+
+
+def check_mesh_model_ranks(device) -> dict:
+    """(a) granite-moe-1b-a400m at full width (bf16, flash, fp32 params from
+    seed 0) served by ``Engine(shard_ctx=)`` as four model ranks: 8 prompts
+    of 128 tokens, 16 greedy tokens, against the whole-model Engine by
+    :func:`_mesh_against_whole`; each rank's cache a quarter of the
+    whole's (2 of the 8 kv heads); K3 launched 24 layers x 4 ranks times on
+    the prefill, all on the tensor-core kernel, and each call held against
+    its plain version on the same q, k and v by ``check_flash``'s bf16 rule
+    (``check_serving_flash``'s)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import attention
+
+    cfg = get_config(MOE_ARCH).replace(use_flash_kernel=True)
+    model = build_model(cfg)
+    params = model.init(0, device)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, min(cfg.vocab_size, 1024), size=MESH_SERVE_PROMPT)
+               .astype(np.int32) for _ in range(SERVE_REQUESTS)]
+    real, errs = attention.flash_sdpa, []
+
+    def held(q, k, v, **kw):
+        o = real(q, k, v, **kw)
+        ref = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                              kw.get("kv_valid"), causal=kw["causal"], window=kw["window"],
+                              plain=True).transpose(1, 2).float()
+        atol = 1e-4 * max(1.0, float(ref.abs().max()))
+        errs.append((bool(torch.allclose(o.float(), ref, rtol=1e-2, atol=atol)),
+                     float((o.float() - ref).abs().max()), q.shape[2], k.shape[2]))
+        return o
+
+    m = MESH_SERVE_RANKS
+    out = _mesh_against_whole("(a) granite-moe-1b model=4", device, model, params, prompts,
+                              {"data": 1, "model": m}, "model", max_len=MESH_SERVE_MAX_LEN,
+                              held=held, diagnose=True)
+    idx = 4 * cfg.n_layers   # the (layers,) int32 index, whole on every rank
+    want = {k: (MOE_LAYERS * m if k == "flash_fwd" else 0) for k in out["launches"]}
+    heads = sorted({(e[2], e[3]) for e in errs})
+    log(f"serve mesh (a): K3 in {len(errs)} rank calls (q heads, kv heads) {heads}, each "
+        f"against its plain version: within rtol 1e-2 + 1e-4 of the scale "
+        f"{sum(e[0] for e in errs)} of {len(errs)}, |o| diff max "
+        f"{max(e[1] for e in errs):.3g}")
+    if out["launches"] != want or out["designs"]["flash_fwd"] != {"mma": MOE_LAYERS * m, "fma": 0} \
+            or len(errs) != MOE_LAYERS * m or not all(e[0] for e in errs) \
+            or heads != [(cfg.n_heads // m, cfg.n_kv_heads // m)] \
+            or any(m * (b - idx) != out["whole_cache_bytes"] - idx
+                   for b in out["rank_cache_bytes"]):
+        raise AssertionError(f"serve mesh (a): launches {out['launches']}, want {want}; "
+                             f"cache bytes {out['rank_cache_bytes']}")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_mesh_long_context(device) -> dict:
+    """(b) smollm-360m at full width (bf16, flash) at batch 1: a 32,000-token
+    prompt into a 32,768-position cache whose sequence is split over four
+    data ranks (``cache_seq=("data",)``: 8,192 positions each, the prompt in
+    every rank's block), then 16 greedy tokens, against the one-device
+    Engine by :func:`_mesh_against_whole` (its fp32 block check at
+    LONG_LOCAL); K3 once a layer a rank on the prefill.  Then the dry-run's
+    ``smollm-360m x long_500k`` record on the
+    256-rank mesh: ``ok``, its cache argument 1/16 of the whole cache."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint.io import tree_leaves_with_paths
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import counting_mesh, make_production_mesh
+    from repro_torch.models import build_model
+    from repro_torch.sharding import collectives as C
+
+    cfg = get_config(LONG_ARCH).replace(use_flash_kernel=True)
+    model = build_model(cfg)
+    params = model.init(0, device)
+    prompt = np.random.default_rng(19).integers(0, min(cfg.vocab_size, 1024), size=LONG_PROMPT
+                                                ).astype(np.int32)
+    out = _mesh_against_whole("(b) smollm-360m batch 1, cache_seq over data=4", device, model,
+                              params, [prompt], {"data": LONG_RANKS, "model": 1}, "data",
+                              rules={"cache_seq": ("data",)}, max_len=LONG_MAX_LEN,
+                              new=LONG_NEW, local_len=LONG_LOCAL)
+    idx = 4 * cfg.n_layers
+    want = {k: (cfg.n_layers * LONG_RANKS if k == "flash_fwd" else 0) for k in out["launches"]}
+    if out["launches"] != want or any(LONG_RANKS * (b - idx) != out["whole_cache_bytes"] - idx
+                                      for b in out["rank_cache_bytes"]):
+        raise AssertionError(f"serve mesh (b): launches {out['launches']}, want {want}; "
+                             f"cache bytes {out['rank_cache_bytes']}")
+    del params
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    rec = dryrun.run_dryrun(LONG_ARCH, "long_500k")
+    shape = SHAPES["long_500k"]
+    mesh = counting_mesh(make_production_mesh(), C.CollectiveTally())
+    rules, _ = dryrun.dryrun_rules(mesh)
+    _, args, _ = dryrun.call_for(model, shape, mesh, rules)
+    whole = model.make_cache(shape.global_batch, shape.seq_len, "meta")
+
+    def nbytes(tree, name):
+        return sum(x.numel() * x.element_size() for p, x in tree_leaves_with_paths(tree)
+                   if p.endswith(name))
+
+    ratio = {n: nbytes(whole, n) / nbytes(args[1], n) for n in ("/k", "/v")}
+    log(f"serve mesh (b) dry-run {LONG_ARCH} x long_500k x {rec['mesh']}: {rec['status']}, "
+        f"{rec.get('devices')} ranks, argument bytes {rec['memory']['argument_size_in_bytes']}, "
+        f"the whole cache's k and v over rank 0's {ratio}, in {time.perf_counter() - t0:.2f} s")
+    if rec["status"] != "ok" or ratio != {"/k": 16.0, "/v": 16.0}:
+        raise AssertionError(f"serve mesh (b): the long_500k record: {rec['status']}, {ratio}")
+    out["dry_ratio"] = ratio
+    return out
+
+
+def _state_over_ranks(device, label, defs, serve, cfg, m, rules, fresh, xs, seed):
+    """``serve(p, cfg, cache, xs) -> (outputs, final cache)`` (a prefill, then
+    one decode step a further input) three ways: an fp32 run (the bf16
+    weights and inputs upcast), the whole bf16 call, and its ``m`` model
+    ranks, each the port's layer on its parameter blocks and its block of
+    ``fresh(cfg, device)`` (the cache's specs under ``rules``) on a thread
+    of ``run_plain_ranks``.  Every output and final cache leaf (the ranks'
+    blocks side by side) within MESH_FACTOR times the whole call's distance
+    from the fp32 run; returns the ranks' wall seconds."""
+    import torch
+
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.sharding import ShardCtx, cache_block, cache_shardings, leaf_dims, \
+        leaf_layout, specs_for, use_sharding
+    from repro_torch.sharding import collectives as C
+
+    weights = _layer_weights(defs, device, seed)
+    f32 = cfg.replace(activation_dtype="float32")
+    with torch.no_grad():
+        ref = serve({k: v.float() for k, v in weights.items()}, f32, fresh(f32, device),
+                    [x.float() for x in xs])
+        whole = serve(weights, cfg, fresh(cfg, device), xs)
+    sizes = {"data": 1, "model": m}
+    specs = specs_for(defs, Mesh(sizes))
+    dims = {k: leaf_layout(sp, Mesh(sizes)).model for k, sp in specs.items()}
+    stacked = {k: v[None] for k, v in fresh(cfg, "meta").items()}
+    lays = leaf_dims(cache_shardings(stacked, Mesh(sizes), rules), Mesh(sizes))
+
+    def rank(group):
+        torch.cuda.set_device(device.index or 0)
+        mesh = Mesh(sizes, rank=group.index, groups={("model",): group})
+        block = {k: C.shard_leaf(v, dims[k], m, group.index) for k, v in weights.items()}
+        cache = {k: v[0] for k, v in cache_block(stacked, mesh, rules, device).items()}
+        with torch.no_grad(), use_sharding(ShardCtx(mesh, rules, specs)):
+            return serve(block, cfg, cache, xs)
+
+    t0 = time.perf_counter()
+    got = C.run_plain_ranks(rank, m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gaps = {}
+    for i, (a, w, r) in enumerate(zip(got[0][0], whole[0], ref[0])):
+        gaps[f"out{i}"] = (float((a.float() - r).abs().max()), float((w.float() - r).abs().max()))
+    for k, r in ref[1].items():
+        a = C.gather_leaf_plain([g[1][k][None] for g in got], lays[k].model)[0]
+        gaps[k] = (float((a.float() - r.float()).abs().max()),
+                   float((whole[1][k].float() - r.float()).abs().max()))
+    log(f"serve mesh (c) {label}: over model={m} ranks, max |diff| from the fp32 run, the "
+        f"ranks' / the whole bf16 call's: "
+        + ", ".join(f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in gaps.items())
+        + f"; the ranks' {len(xs)} calls {wall:.2f} s wall")
+    far = {k: v for k, v in gaps.items() if not v[0] <= MESH_FACTOR * v[1]}
+    if far:
+        raise AssertionError(f"serve mesh (c) {label}: the ranks left the whole call: {far}")
+    del ref, whole, got, weights
+    torch.cuda.empty_cache()
+    return wall
+
+
+def check_mesh_state_layers(device) -> dict:
+    """(c) The layers with state at full width (bf16) as model ranks, a
+    prefill then STATE_STEPS decode steps: deepseek-v3's MLA (d 7168, 128
+    heads, kv_lora 512) as eight ranks of 16 heads, naive and absorbed, B 2,
+    prefill 512 (the latent cache whole on every rank); xlstm-350m's mLSTM
+    and sLSTM blocks as two ranks (2 heads each), B 4, prefill 256; Jamba's
+    Mamba layer (d 8192, d_inner 16384) as four ranks under the dry-run's
+    ``inner`` rule (a rank's 4096 of d_inner in its state), B 1, prefill
+    256."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import mamba, mla, xlstm
+    from repro_torch.sharding import default_act_rules
+
+    gen = torch.Generator(device=device).manual_seed(191)
+    rules = default_act_rules()
+
+    def inputs(b, s, d):
+        return [torch.randn((b, n, d), generator=gen, device=device).to(torch.bfloat16)
+                for n in [s] + [1] * STATE_STEPS]
+
+    def recurrent(fn):
+        def serve(p, c, cache, xs):
+            outs = []
+            for i, x in enumerate(xs):
+                y, cache = fn(p, x, c, state=cache, decode=i > 0)
+                outs.append(y)
+            return outs, cache
+        return serve
+
+    def mla_serve(p, c, cache, xs):
+        outs, start = [], 0
+        for i, x in enumerate(xs):
+            b, s = x.shape[:2]
+            pos = torch.arange(start, start + s, device=x.device)[None].expand(b, s)
+            outs.append(mla.mla_attention(p, x, pos, c, cache=cache, decode=i > 0))
+            start += s
+        return outs, cache
+
+    def dtype_of(c):
+        return torch.float32 if c.activation_dtype == "float32" else torch.bfloat16
+
+    walls = {}
+    base = get_config("deepseek-v3-671b")
+    xs = inputs(MLA_B, MLA_S, base.d_model)
+    for name, absorb in (("naive", False), ("absorbed", True)):
+        cfg = base.replace(mla_absorb=absorb)
+        walls[f"MLA {name}"] = _state_over_ranks(
+            device, f"deepseek-v3 MLA {name}", mla.mla_defs(cfg), mla_serve, cfg, MLA_RANKS,
+            rules, lambda c, d: mla.init_mla_cache(MLA_B, MLA_S + STATE_STEPS, c, dtype_of(c), d),
+            xs, 192)
+    xcfg = get_config(XLSTM_ARCH)
+    xs = inputs(XLSTM_B, XLSTM_S, xcfg.d_model)
+    walls["mLSTM"] = _state_over_ranks(
+        device, "xlstm-350m mLSTM", xlstm.mlstm_defs(xcfg), recurrent(xlstm.mlstm_block), xcfg,
+        XLSTM_RANKS, rules, lambda c, d: xlstm.init_mlstm_state(XLSTM_B, c, d), xs, 193)
+    walls["sLSTM"] = _state_over_ranks(
+        device, "xlstm-350m sLSTM", xlstm.slstm_defs(xcfg), recurrent(xlstm.slstm_block), xcfg,
+        XLSTM_RANKS, rules, lambda c, d: xlstm.init_slstm_state(XLSTM_B, c, d), xs, 194)
+    jcfg = get_config("jamba-1.5-large-398b")
+    xs = inputs(MAMBA_B, MAMBA_S, jcfg.d_model)
+    walls["Mamba"] = _state_over_ranks(
+        device, "Jamba Mamba", mamba.mamba_defs(jcfg), recurrent(mamba.mamba), jcfg,
+        MAMBA_RANKS, dict(rules, inner=("model",)),
+        lambda c, d: mamba.init_mamba_state(MAMBA_B, c, dtype_of(c), d), xs, 195)
+    return walls
+
+
+def run_serve_mesh(device, rate: float) -> dict:
+    """Phase 19; returns (a)'s and (b)'s numbers, (c)'s walls and (d)'s K3
+    times on a model=4 rank's heads at (a)'s prefill shape."""
+    t0 = time.perf_counter()
+    out = {"model": check_mesh_model_ranks(device)}
+    out["long"] = check_mesh_long_context(device)
+    out["state"] = check_mesh_state_layers(device)
+    out["k3"] = time_flash(device, rate, K3_RANK_TIMING, every=True)[K3_RANK_TIMING[0][0]]
+    log(f"serve mesh: phase 19 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 6: timing
 # ---------------------------------------------------------------------------
 
@@ -5325,6 +5986,7 @@ def main() -> None:
     del ref_params, rollback_ref
     run_model_axis(device)
     run_dryrun_phase(device)
+    serve_mesh = run_serve_mesh(device, rate)
     timing = {**time_kernels(device, rate), **time_flash(device, rate),
               **time_fused_ce(device, rate)}
     moe_timing = {**time_kernels(device, rate, MOE_ARCH),
@@ -5416,6 +6078,13 @@ def main() -> None:
     for k in ("lamb_moments", "lamb_apply"):
         by_name[k]["granite_moe_model4_block"] = dict(
             launches=expert_timing[k].pop("timed_launches"), **expert_timing[k])
+    # phase 19: K3's launches on the model=4 ranks' prefill of (a) and the
+    # data=4 ranks' batch-1 prefill of (b), and its times on one model=4
+    # rank's heads at (a)'s prefill shape
+    by_name["flash_fwd"]["serving_model4_rank"] = dict(
+        launches=serve_mesh["model"]["launches"]["flash_fwd"],
+        long_context_launches=serve_mesh["long"]["launches"]["flash_fwd"],
+        **serve_mesh["k3"]["flash_fwd"])
     log(card)   # again near the end, where a truncated log still shows it
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -43,8 +43,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import cost
-from repro_torch.kernels.launches import COPIES, LAUNCHES, VARIANT_LAUNCHES, register, \
-    register_copies
+from repro_torch.kernels.launches import count_copy, count_launch, register, register_copies
 
 DESIGNS = ("mma", "fma")   # bf16 on the tensor cores (mma.sync); fp32 FMA
 register("flash_fwd", "flash_dq", "flash_dkv", variants=DESIGNS)
@@ -318,8 +317,7 @@ def _raise_on(err: int, what: str) -> None:
 def _count(name: str, dtype: torch.dtype) -> None:
     """One launch of ``name``, under the design its dtype runs (the library
     dispatches bf16 to the tensor cores, fp32 to the FMA kernels)."""
-    LAUNCHES[name] += 1
-    VARIANT_LAUNCHES[name][DESIGNS[0] if dtype == torch.bfloat16 else DESIGNS[1]] += 1
+    count_launch(name, DESIGNS[0] if dtype == torch.bfloat16 else DESIGNS[1])
 
 
 def _fwd_cuda(q, k, v, valid, spec: FlashSpec):
@@ -457,7 +455,7 @@ class FlashAttention(torch.autograd.Function):
         if do.stride(-1) != 1 or (not ctx.plain and do.device.type in ("cuda", "meta")
                                   and do.dtype == torch.bfloat16 and not _rows_aligned(do)):
             do = torch.empty_like(do, memory_format=torch.contiguous_format).copy_(do)
-            COPIES["flash_do"] += 1
+            count_copy("flash_do")
         dq, dk, dv = flash_attention_bwd(q, k, v, valid, o, lse, do, ctx.spec,
                                          plain=ctx.plain)
         return dq, dk, dv, None, None, None

@@ -51,7 +51,7 @@ import torch
 
 from repro_torch.kernels import cost
 from repro_torch.kernels.flash_attention import aligned16
-from repro_torch.kernels.launches import LAUNCHES, VARIANT_LAUNCHES, register
+from repro_torch.kernels.launches import count_launch, register
 from repro_torch.sharding.collectives import all_reduce, copy_to_model
 
 DESIGNS = ("mma", "fma")   # bf16 on the tensor cores (mma.sync); fp32 FMA
@@ -280,8 +280,7 @@ def _raise_on(err: int, what: str) -> None:
 
 def _count(name: str, design: str) -> None:
     """One launch of ``name``, under the design it ran."""
-    LAUNCHES[name] += 1
-    VARIANT_LAUNCHES[name][design] += 1
+    count_launch(name, design)
 
 
 def _fwd_cuda(h, w, lbl, v0: int = 0, stats: bool = False):

@@ -30,7 +30,7 @@ from typing import Callable, Collection, Dict, NamedTuple, Optional, Sequence, T
 import torch
 
 from repro_torch.kernels import cost
-from repro_torch.kernels.launches import LAUNCHES, register
+from repro_torch.kernels.launches import count_launch, register
 
 register("lamb_moments", "lamb_apply")
 
@@ -165,7 +165,7 @@ def _moments_cuda(x, g, m, v, c, layers, *, b1, b2, eps, weight_decay, ok=None):
         layers, per_layer, b1, b2, eps, weight_decay, _stream(x.device),
     )
     _raise_on(err, "lamb_moments")
-    LAUNCHES["lamb_moments"] += 1
+    count_launch("lamb_moments")
     return xsq.sum(1), usq.sum(1)
 
 
@@ -178,7 +178,7 @@ def _apply_cuda(x, m, v, c, ratio, layers, *, eps, weight_decay, ok=None):
         eps, weight_decay, _stream(x.device),
     )
     _raise_on(err, "lamb_apply")
-    LAUNCHES["lamb_apply"] += 1
+    count_launch("lamb_apply")
     return dsq.sum(1)
 
 

@@ -29,12 +29,12 @@ under four counters:
 
 Nothing is allocated on any device, no process group is made, and nothing
 of JAX runs.  ``launch/roofline.py`` turns the counts into the H100's
-compute, memory and collective terms.  A prefill or decode whose cache no
-layer serves on a mesh yet (heads split over ``model``, a cache's sequence
-split over the data-parallel ranks) reaches the layer's
-``NotImplementedError``, whose message names ROADMAP.md queue 1, item
-11 (e): its record is ``unported`` with the message as its note.  Any other
-error fails the record.
+compute, memory and collective terms.  A prefill or decode runs as one
+rank of the static ``Engine`` on the mesh does (``serve/engine.serving_ctx``):
+its rows of the batch, its block of the cache (its kv heads, its ``inner``
+slice, its block of positions under the ``cache_seq`` rule) and its
+parameter blocks gathered over the data-parallel ranks.  Any error fails
+the record.
 """
 from __future__ import annotations
 
@@ -56,12 +56,11 @@ from repro_torch.kernels import cost as kernel_cost
 from repro_torch.launch.mesh import counting_mesh, make_production_mesh
 from repro_torch.launch.roofline import PEAK_OPS, analyze, model_flops
 from repro_torch.models.api import build_model
-from repro_torch.serve.engine import make_decode_step, make_prefill_step
+from repro_torch.serve.engine import make_decode_step, make_prefill_step, serving_ctx
 from repro_torch.sharding import (
     ShardCtx,
     batch_shardings,
-    cache_seq_split,
-    cache_shardings,
+    cache_block,
     default_act_rules,
     default_param_rules,
     leaf_dims,
@@ -72,11 +71,6 @@ from repro_torch.sharding import (
 from repro_torch.sharding.collectives import CollectiveTally, gather_leaf
 from repro_torch.train.step import make_train_step
 
-# what the layers' refusals of a cache they cannot serve on a mesh yet say
-# (``sharding.context.SEQ_SPLIT_CACHE`` and the layers' own): only these make
-# a record ``unported``; any other ``NotImplementedError`` (an aten op with no
-# meta kernel, say) fails the record
-UNPORTED = "item 11 (e)"
 # the CUDA caching allocator's block: every allocation is rounded up to it
 BLOCK = 512
 # ops that only allocate: no bytes accessed
@@ -241,19 +235,18 @@ def build_train(model, shape: InputShape, mesh, rules, optimizer: str,
     return step_fn, (state, batch), ShardCtx(mesh, rules)
 
 
-def _serving(fn, model, mesh, rules, param_rules, cache=None):
+def _serving(fn, model, mesh, rules, param_rules, batch: int, cache=None):
     """``fn(params, ...)`` on rank 0's parameter blocks: each leaf gathered
-    over the data-parallel ranks first (FSDP, as the train step gathers its
-    compute copy), without autograd; the context splits what ``model``
-    splits, and knows whether ``cache``'s sequence is split."""
+    over the data-parallel ranks first (FSDP, as the Engine gathers them),
+    without autograd, under the context the Engine's call of ``batch`` rows
+    over ``cache`` (whole, meta) runs under; with rank 0's block of
+    ``cache``."""
     specs = specs_for(model.defs, mesh, param_rules)
     layouts = leaf_dims(specs, mesh)
-    seq_split = False
+    ctx = ShardCtx(mesh, rules, specs)
     if cache is not None:
-        cspecs = cache_shardings(cache, mesh, rules)
-        seq_split = cache_seq_split(cache, cspecs)
-        cache = shard_tree(cache, leaf_dims(cspecs, mesh), mesh)
-    ctx = ShardCtx(mesh, rules, specs, cache_seq_split=seq_split)
+        ctx = serving_ctx(ctx, specs, cache, batch)
+        cache = cache_block(cache, mesh, rules, "meta")
 
     def run(params, *rest):
         with torch.no_grad():
@@ -266,7 +259,7 @@ def _serving(fn, model, mesh, rules, param_rules, cache=None):
 def build_prefill(model, shape: InputShape, mesh, rules, param_rules=None):
     cache = model.make_cache(shape.global_batch, shape.seq_len, "meta")
     fn, params, cache, ctx = _serving(make_prefill_step(model), model, mesh, rules,
-                                      param_rules, cache)
+                                      param_rules, shape.global_batch, cache)
     batch = _rank_inputs(model.input_specs(shape), mesh, rules)
     return fn, (params, batch, cache), ctx
 
@@ -274,7 +267,7 @@ def build_prefill(model, shape: InputShape, mesh, rules, param_rules=None):
 def build_decode(model, shape: InputShape, mesh, rules, param_rules=None):
     cache = model.make_cache(shape.global_batch, shape.seq_len, "meta")
     fn, params, cache, ctx = _serving(make_decode_step(model), model, mesh, rules,
-                                      param_rules, cache)
+                                      param_rules, shape.global_batch, cache)
     inputs = {"tokens": torch.empty((shape.global_batch, 1), dtype=torch.int32,
                                     device="meta")}
     tok = _rank_inputs(inputs, mesh, rules)["tokens"]
@@ -288,7 +281,8 @@ def build_encoder_forward(model, shape: InputShape, mesh, rules, param_rules=Non
         logits, _ = model.apply(params, batch)
         return logits[:, -1]
 
-    fn, params, _, ctx = _serving(forward, model, mesh, rules, param_rules)
+    fn, params, _, ctx = _serving(forward, model, mesh, rules, param_rules,
+                                  shape.global_batch)
     return fn, (params, _rank_inputs(model.input_specs(shape), mesh, rules)), ctx
 
 
@@ -401,14 +395,8 @@ def run_dryrun(
     rules, param_rules = dryrun_rules(mesh, act_rule_sets, param_rule_sets)
     tc_kw = {"moment_dtype": moment_dtype} if moment_dtype else {}
     model = build_model(cfg)
-    try:
-        counts = trace(model, shape, mesh, optimizer=optimizer, rules=rules,
-                       param_rules=param_rules, tc_kw=tc_kw)
-    except NotImplementedError as e:
-        if UNPORTED not in str(e):
-            raise
-        record.update(status="unported", note=str(e))
-        return record
+    counts = trace(model, shape, mesh, optimizer=optimizer, rules=rules,
+                   param_rules=param_rules, tc_kw=tc_kw)
     record.update(
         status="ok",
         devices=mesh.size,

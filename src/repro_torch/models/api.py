@@ -8,8 +8,8 @@ axes), all keyed by the JAX paths.  It dispatches on ``cfg.family`` as the
 reference does: ``hybrid`` to ``models/hybrid.py`` (Jamba), ``ssm`` to
 ``models/xlstm_model.py``, every other family to ``models/transformer.py``.
 Under a ``model`` axis of more than one rank (the ambient sharding context)
-every family trains, each layer on this rank's heads, ff columns, experts,
-``inner`` slice or vocab rows; serving on such a mesh raises.
+every family trains and serves, each layer on this rank's heads, ff
+columns, experts, ``inner`` slice or vocab rows.
 """
 from __future__ import annotations
 
@@ -100,7 +100,9 @@ class Model:
     def make_cache(self, batch: int, max_len: int, device) -> Dict[str, Any]:
         """A zeroed cache for ``batch`` rows of ``max_len`` positions in the
         activation dtype, on ``device`` (recurrent state: O(1) in
-        ``max_len``, fp32 where the reference keeps it so)."""
+        ``max_len``, fp32 where the reference keeps it so).  A rank of a
+        mesh cuts its block from a meta one
+        (``sharding.placement.cache_block``)."""
         return _family(self.cfg).make_cache(self.cfg, batch, max_len,
                                             dtype=nn.torch_dtype(self.cfg.activation_dtype),
                                             device=torch.device(device))

@@ -27,7 +27,24 @@ heads split and the kv heads stay whole (GQA whose kv heads ``model`` does
 not divide), k and v are whole on every rank and each rank attends with
 its q heads against their global kv heads as MHA
 (``tensor_parallel.kv_heads_for_rank``), the kv gradient summed over
-``model``.  A cache on such a mesh raises.
+``model``.
+
+Serving on such a mesh: the rank's cache holds the kv heads its specs give
+it, Hkv/M where they split and all Hkv where they stay whole.  Prefill
+writes the cache before k and v are expanded to the rank's q-head rows;
+decode reads the cache's kv heads for the rank's q heads (the heads'
+global kv heads, ``_rank_kv``: a view where they come in equal groups).
+Where the cache's sequence is split over the data-parallel ranks (the
+reference's ``cache_seq`` rule; long-context decode at batch 1, every rank
+holding every row) rank r of N holds positions [r·T/N, (r+1)·T/N): prefill
+computes k and v for the whole prompt and attends over it whole (K3 with
+flash), each rank copying the positions that fall in its block; a decode
+step's k/v are written by the rank that owns ``index`` alone, each rank
+scores its own positions under the absolute-position mask and keeps its
+row max, sum and unnormalised output in fp32 (``softmax_partial``), and
+the data group combines them (``combine_partials``: the max all-reduced, the
+rescaled sums and outputs all-reduced).  A block with no valid key adds
+e^(−1e9) = 0, as the reference's −1e9 bias does.
 """
 from __future__ import annotations
 
@@ -47,7 +64,8 @@ from repro_torch.models.layers.tensor_parallel import (
     split_axis,
 )
 from repro_torch.nn.module import Param
-from repro_torch.sharding.context import SEQ_SPLIT_CACHE, cache_seq_split, model_parallel
+from repro_torch.sharding.collectives import all_reduce
+from repro_torch.sharding.context import ModelAxis, cache_seq_axis, model_parallel
 
 NEG_INF = -1e9
 
@@ -103,6 +121,14 @@ def _sdpa(
     """Dense attention: scores in q's dtype scaled by 1/sqrt(Dh) (taken in
     q's dtype), in fp32 capped to ``softcap · tanh(s / softcap)`` where
     given, fp32 softmax over the biased scores, probs cast back."""
+    scores, vt = _scores(q, k, v, bias, n_kv_heads, softcap)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return _heads_out(probs @ vt, q.shape)                           # b n g s d
+
+
+def _scores(q, k, v, bias, n_kv_heads, softcap):
+    """``_sdpa``'s fp32 biased scores (B, Hkv, G, S, T) and v as (B, Hkv,
+    1, T, Dh)."""
     b, s, h, dh = q.shape
     g = h // n_kv_heads
     qg = q.reshape(b, s, n_kv_heads, g, dh).permute(0, 2, 3, 1, 4)  # b n g s d
@@ -114,14 +140,52 @@ def _sdpa(
     scores = scores.to(torch.float32)
     if softcap is not None:
         scores = softcap * torch.tanh(scores / softcap)
-    scores = scores + bias[:, :, None]
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = probs @ vt                                                 # b n g s d
-    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh)
+    return scores + bias[:, :, None], vt
 
 
-def write_decode(cache: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]
-                 ) -> torch.Tensor:
+def _heads_out(out: torch.Tensor, shape) -> torch.Tensor:
+    """(B, Hkv, G, S, Dh) → (B, S, H, Dh)."""
+    return out.permute(0, 3, 1, 2, 4).reshape(shape)
+
+
+def softmax_partial(scores: torch.Tensor, values: torch.Tensor):
+    """The softmax of fp32 ``scores`` over one block of the keys (the last
+    dim), unnormalised: ``(m, l, o)``, the row max, the sum of
+    ``exp(s − m)`` and its weighted sum of ``values``, in fp32."""
+    m = scores.amax(-1, keepdim=True)
+    p = torch.exp(scores - m)
+    return m, p.sum(-1, keepdim=True), p @ values.to(torch.float32)
+
+
+def combine_partials(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+                     seq: ModelAxis) -> torch.Tensor:
+    """Softmax-weighted outputs from each rank's block of the keys: with
+    ``M`` the all-reduced max of the ranks' ``m``, ``Σ e^(m−M)·o / Σ
+    e^(m−M)·l`` summed over ``seq``'s group, in fp32 (the decode-side twin
+    of the vocab-parallel head's cross-rank logsumexp)."""
+    top = all_reduce(m.clone(), "max", seq.group)
+    w = torch.exp(m - top)
+    return all_reduce(o * w, "sum", seq.group) / all_reduce(l * w, "sum", seq.group)
+
+
+def write_prefill(cache: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
+                  seq: Optional[ModelAxis] = None) -> None:
+    """Write a prefill's (B, S, ...) leaves ``new`` at positions [0, S) of
+    the same-named leaves of ``cache`` in place and set its index to S.
+    With ``seq``, the cache holds this rank's block of positions: only the
+    prompt's positions inside it are copied."""
+    s = next(iter(new.values())).shape[1]
+    t = cache[next(iter(new))].shape[1]
+    start = 0 if seq is None else seq.index * t
+    lo, hi = max(start, 0), min(start + t, s)
+    if lo < hi:
+        for name, x in new.items():
+            cache[name][:, lo - start:hi - start].copy_(x[:, lo:hi])
+    cache["index"].fill_(s)
+
+
+def write_decode(cache: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
+                 seq: Optional[ModelAxis] = None) -> torch.Tensor:
     """Write one decode step's (B, S, ...) leaves ``new`` (k/v, or the MLA's
     latents) into the same-named leaves of ``cache`` in place; returns the
     number of valid keys after it (scalar, or (B,) per slot).
@@ -129,11 +193,25 @@ def write_decode(cache: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]
     A scalar ``index`` (the static engine: one length for the batch) writes
     positions [idx, idx + S), its start clamped so they fit as
     ``dynamic_update_slice`` clamps it; a (B,) ``index`` (the slot pool)
-    writes row b at idx[b].  Neither reads the index on the host."""
+    writes row b at idx[b].  Neither reads the index on the host.  With
+    ``seq`` (a scalar index, one token) the cache holds this rank's block
+    of positions and only the rank whose block holds ``index`` writes: the
+    others write their block's row back unchanged."""
     idx = cache["index"]
     s = next(iter(new.values())).shape[1]
     t = cache[next(iter(new))].shape[1]
-    if idx.ndim == 0:
+    if seq is not None:
+        if idx.ndim or s != 1:
+            raise ValueError("a cache split along its sequence takes one-token steps "
+                             "at one index for the batch")
+        local = torch.clamp(idx, 0, t * seq.size - 1).long() - seq.index * t
+        mine = (local >= 0) & (local < t)
+        pos = torch.clamp(local, 0, t - 1).reshape(1)
+        for name, x in new.items():
+            old = cache[name].index_select(1, pos)
+            cache[name].index_copy_(1, pos, torch.where(mine, x.to(old.dtype), old))
+        valid = idx + s
+    elif idx.ndim == 0:
         start = torch.clamp(idx, 0, t - s).long()
         pos = start + torch.arange(s, device=idx.device)
         for name, x in new.items():
@@ -178,11 +256,11 @@ def attention(
     h, hkv = p["wq"].shape[1], p["wk"].shape[1]
     tp = split_axis(h, cfg.n_heads, model_parallel())
     kv_tp = split_axis(hkv, cfg.n_kv_heads, tp)
-    if tp is not None and cache is not None:
-        raise NotImplementedError("serving on a mesh (a KV cache of split heads) is not "
-                                  "ported (ROADMAP.md queue 1, item 11 (e))")
-    if cache is not None and cache_seq_split():
-        raise NotImplementedError(SEQ_SPLIT_CACHE)
+    seq = None if cache is None else cache_seq_axis()
+    if cache is not None and cache["k"].shape[2] != hkv:
+        raise ValueError(f"the cache holds {cache['k'].shape[2]} kv heads where this rank "
+                         f"computes {hkv}: the cache's specs split the kv heads as the "
+                         "parameters' do")
 
     def proj(w, heads, axis):
         return column_matmul(x, w.to(dtype).reshape(d, heads * dh), axis).view(b, s, heads, dh)
@@ -195,16 +273,29 @@ def attention(
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    if tp is not None and kv_tp is None:   # whole kv heads: this rank's q heads' rows
-        idx = kv_head_index(h, cfg.n_heads, cfg.n_kv_heads, tp, device=x.device)
-        k, v = kv_heads_for_rank(k, idx, tp), kv_heads_for_rank(v, idx, tp)
-        hkv = h
+    whole_kv = tp is not None and kv_tp is None
     if cache is not None and decode:
-        valid = write_decode(cache, {"k": k, "v": v})
-        kv_pos = torch.arange(cache["k"].shape[1], dtype=torch.int32, device=x.device)
+        valid = write_decode(cache, {"k": k, "v": v}, seq)
+        ck, cv, n_kv = cache["k"], cache["v"], hkv
+        if whole_kv:   # the whole kv heads' cache: this rank's q heads' kv heads
+            ck, cv, n_kv = _rank_kv(ck, cv, h, cfg, tp)
+        t = ck.shape[1]
+        first = 0 if seq is None else seq.index * t
+        kv_pos = torch.arange(first, first + t, dtype=torch.int32, device=x.device)
         bias = _mask_bias(positions, kv_pos, valid, causal=True, window=cfg.sliding_window)
-        out = _sdpa(q, cache["k"], cache["v"], bias, hkv, cfg.logit_softcap)
+        if seq is None:
+            out = _sdpa(q, ck, cv, bias, n_kv, cfg.logit_softcap)
+        else:
+            scores, vt = _scores(q, ck, cv, bias, n_kv, cfg.logit_softcap)
+            out = _heads_out(combine_partials(*softmax_partial(scores, vt), seq).to(dtype),
+                             q.shape)
     else:
+        if cache is not None:  # prefill: cache[:, :s] (this rank's block of it)
+            write_prefill(cache, {"k": k, "v": v}, seq)
+        if whole_kv:   # whole kv heads: this rank's q heads' rows
+            idx = kv_head_index(h, cfg.n_heads, cfg.n_kv_heads, tp, device=x.device)
+            k, v = kv_heads_for_rank(k, idx, tp), kv_heads_for_rank(v, idx, tp)
+            hkv = h
         if valid_len is not None:
             valid_len = torch.clamp(valid_len.to(torch.int32), min=1)
         if cfg.use_flash_kernel:
@@ -215,11 +306,23 @@ def attention(
             bias = _mask_bias(positions, kv_pos, valid_len, causal=cfg.causal,
                               window=cfg.sliding_window)
             out = _sdpa(q, k, v, bias, hkv, cfg.logit_softcap)
-        if cache is not None:  # prefill: fill cache[:, :s]
-            cache["k"][:, :s].copy_(k)
-            cache["v"][:, :s].copy_(v)
-            cache["index"].fill_(s)
     return row_matmul(out.reshape(b, s, h * dh), p["wo"].to(dtype).reshape(h * dh, d), tp)
+
+
+def _rank_kv(ck: torch.Tensor, cv: torch.Tensor, h: int, cfg: ModelConfig, tp: ModelAxis):
+    """The cache's kv heads for this rank's ``h`` q heads, against a cache
+    of all Hkv heads: ``(k, v, n_kv)`` for ``_sdpa``, whose grouping of the
+    rank's q heads must be theirs on one device (q head ``j`` of the rank
+    reads kv head ``(h0 + j)·Hkv // H``, ``kv_head_index``).  Where the
+    rank's heads take ``n`` consecutive kv heads in groups of ``h/n``, the
+    cache's slice of those (a view); else each q head's own rows."""
+    first = tp.index * h
+    heads = [(first + j) * cfg.n_kv_heads // cfg.n_heads for j in range(h)]
+    n = heads[-1] - heads[0] + 1
+    if h % n == 0 and heads == [heads[0] + j // (h // n) for j in range(h)]:
+        return ck.narrow(2, heads[0], n), cv.narrow(2, heads[0], n), n
+    idx = torch.tensor(heads, device=ck.device)
+    return ck.index_select(2, idx), cv.index_select(2, idx), h
 
 
 def init_kv_cache(batch: int, max_len: int, cfg: ModelConfig, dtype=torch.bfloat16,

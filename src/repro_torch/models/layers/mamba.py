@@ -24,8 +24,15 @@ are elementwise over d_inner and so local; ``x_proj`` contracts d_inner:
 its partials are summed over ``model`` in fp32 and rounded once before the
 split into dt, B and C, whose gradients (from the rank's slice only) are
 summed over ``model``; ``out_proj`` is row-parallel.  Where d_inner is no
-multiple of M the layer runs whole on every rank.  State on such a mesh
-(prefill and decode) raises (serving on a mesh).
+multiple of M the layer runs whole on every rank.
+
+State on such a mesh (serving): where the cache's specs split ``inner``
+(the dry-run's rule ``inner=("model",)``) the rank's ``ssm`` (B, Di/M, N)
+and ``conv`` (B, d_conv − 1, Di/M) are its slice, and the conv and scan
+are local.  Where they do not (the reference's default activation rules
+have no ``inner`` rule) the state is whole on every rank: the rank steps
+its slice of it and gathers the new state over ``model``, so that every
+rank holds the whole logical state, as the reference's array is.
 """
 from __future__ import annotations
 
@@ -43,7 +50,7 @@ from repro_torch.models.layers.tensor_parallel import (
     split_axis,
 )
 from repro_torch.nn.module import Param
-from repro_torch.sharding.collectives import copy_to_model
+from repro_torch.sharding.collectives import copy_to_model, gather_leaf
 from repro_torch.sharding.context import model_parallel
 
 State = Dict[str, torch.Tensor]
@@ -136,9 +143,10 @@ def mamba(
     di = p["D"].shape[0]
     axis = model_parallel()
     tp = split_axis(di, whole, axis)
-    if axis is not None and state is not None:
-        raise NotImplementedError("serving on a mesh (Mamba state over 'model') is not "
-                                  "ported (ROADMAP.md queue 1, item 11 (e))")
+    gathered = tp is not None and state is not None and state["ssm"].shape[1] == whole
+    if gathered:   # a whole state: this rank's slice of it
+        lo = tp.index * di
+        state = {"ssm": state["ssm"][:, lo:lo + di], "conv": state["conv"][..., lo:lo + di]}
 
     w_in = paired_columns(p["in_proj"], whole, axis)
     xi, z = column_matmul(x, w_in.to(dtype), tp).chunk(2, dim=-1)
@@ -180,6 +188,9 @@ def mamba(
 
     y = (y + conv.to(torch.float32) * p["D"].to(torch.float32)).to(dtype)
     y = y * F.silu(z)
+    if gathered:   # every rank's slice of the new state, whole on every rank
+        new_state = {"ssm": gather_leaf(new_state["ssm"].contiguous(), 1, tp.group),
+                     "conv": gather_leaf(new_state["conv"].contiguous(), 2, tp.group)}
     return row_matmul(y, p["out_proj"].to(dtype), tp), new_state
 
 

@@ -36,7 +36,18 @@ products are per head and so local, and ``wo`` is row-parallel
 (``layers/tensor_parallel.py``).  The latents feed only the rank's heads,
 so their gradients are partial: ``cq``'s is summed by the column-parallel
 product, ``c_kv``'s and ``k_rope``'s over ``model`` before they reach
-``wkv_a`` and ``x``.  A cache on such a mesh raises (serving on a mesh).
+``wkv_a`` and ``x``.
+
+Serving on such a mesh: ``c_kv`` and ``k_rope`` have no heads axis, so the
+latent cache is whole on every ``model`` rank (each writes the same
+latents) and each rank attends with its H/M heads, naive or absorbed.
+Where the cache's sequence is split over the data-parallel ranks (batch 1),
+rank r holds its block of positions as ``attention.py`` says: prefill
+attends over the prompt's own latents and copies its block's positions;
+decode writes at ``index`` on the owning rank, scores its block and
+combines the ranks' unnormalised outputs in fp32
+(``attention.combine_partials``), in the absorbed form the latent-space
+outputs, before the up-projection ``wv_b``.
 """
 from __future__ import annotations
 
@@ -45,12 +56,18 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers.attention import _mask_bias, write_decode
+from repro_torch.models.layers.attention import (
+    _mask_bias,
+    combine_partials,
+    softmax_partial,
+    write_decode,
+    write_prefill,
+)
 from repro_torch.models.layers.embeddings import apply_rope
 from repro_torch.models.layers.tensor_parallel import column_matmul, row_matmul, split_axis
 from repro_torch.nn.module import Param
 from repro_torch.sharding.collectives import copy_to_model
-from repro_torch.sharding.context import SEQ_SPLIT_CACHE, ModelAxis, cache_seq_split, model_parallel
+from repro_torch.sharding.context import ModelAxis, cache_seq_axis, model_parallel
 
 
 def mla_defs(cfg: ModelConfig) -> dict:
@@ -99,10 +116,12 @@ def _latents(p: Dict[str, torch.Tensor], x: torch.Tensor, positions: torch.Tenso
     return q_nope, q_rope, c_kv, k_rope
 
 
-def _mask(positions: torch.Tensor, t: int, valid: Optional[torch.Tensor]) -> torch.Tensor:
-    """(B, 1, S, T) fp32 bias: 0 where key <= query position and key <
-    ``valid`` (scalar or (B,)), -1e9 elsewhere."""
-    kv_pos = torch.arange(t, dtype=torch.int32, device=positions.device)
+def _mask(positions: torch.Tensor, t: int, valid: Optional[torch.Tensor],
+          first: int = 0) -> torch.Tensor:
+    """(B, 1, S, T) fp32 bias over keys at positions ``first + [0, T)``: 0
+    where key <= query position and key < ``valid`` (scalar or (B,)),
+    -1e9 elsewhere."""
+    kv_pos = torch.arange(first, first + t, dtype=torch.int32, device=positions.device)
     return _mask_bias(positions, kv_pos, valid, causal=True, window=None)
 
 
@@ -129,28 +148,31 @@ def mla_attention(
     h, dn, dr, dv = p["wq_b"].shape[1], cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     kr = cfg.kv_lora_rank
     tp = split_axis(h, cfg.n_heads, model_parallel())
-    if tp is not None and cache is not None:
-        raise NotImplementedError("serving on a mesh (the MLA's latent cache over split "
-                                  "heads) is not ported (ROADMAP.md queue 1, item 11 (e))")
-    if cache is not None and cache_seq_split():
-        raise NotImplementedError(SEQ_SPLIT_CACHE)
+    seq = None if cache is None else cache_seq_axis()
     # a host scalar: 1/sqrt(dn + dr) taken in fp32, as the reference's
     scale = float(1.0 / torch.sqrt(torch.tensor(float(dn + dr), dtype=torch.float32)))
 
     q_nope, q_rope, c_kv, k_rope = _latents(p, x, positions, cfg, tp)
 
-    if cache is not None:
+    first = 0
+    if cache is not None and seq is not None and not decode:
+        # prefill over a split cache: this rank's block of the prompt's
+        # latents, attention over all of them
+        write_prefill(cache, {"c_kv": c_kv, "k_rope": k_rope}, seq)
+        kv_src, kr_src = c_kv, k_rope
+        bias = _mask(positions, s, valid_len)
+        seq = None
+    elif cache is not None:
         if decode:
-            valid = write_decode(cache, {"c_kv": c_kv, "k_rope": k_rope})
+            valid = write_decode(cache, {"c_kv": c_kv, "k_rope": k_rope}, seq)
         else:   # prefill: positions [0, S)
-            cache["c_kv"][:, :s].copy_(c_kv)
-            cache["k_rope"][:, :s].copy_(k_rope)
-            cache["index"].fill_(s)
+            write_prefill(cache, {"c_kv": c_kv, "k_rope": k_rope})
             valid = torch.full((), s, dtype=torch.int32, device=x.device)
         kv_src, kr_src = cache["c_kv"].to(dtype), cache["k_rope"].to(dtype)
         if valid_len is not None:   # ragged prefill: an example may end before S
             valid = torch.minimum(valid, valid_len)
-        bias = _mask(positions, kv_src.shape[1], valid)
+        first = 0 if seq is None else seq.index * kv_src.shape[1]
+        bias = _mask(positions, kv_src.shape[1], valid, first)
     else:
         kv_src, kr_src = c_kv, k_rope
         bias = _mask(positions, s, valid_len)
@@ -164,9 +186,13 @@ def mla_attention(
         s_rope = (q_rope.transpose(1, 2).reshape(b, h * s, dr)
                   @ kr_src.transpose(1, 2)).view(b, h, s, t)
         scores = (s_nope + s_rope).to(torch.float32) * scale + bias
-        probs = torch.softmax(scores, dim=-1).to(dtype)
-        o_lat = (probs.reshape(b, h * s, t) @ kv_src).view(b, h, s, kr).transpose(1, 2)
-        out = torch.einsum("bshr,rhv->bshv", o_lat, p["wv_b"].to(dtype))
+        if seq is None:
+            probs = torch.softmax(scores, dim=-1).to(dtype)
+            o_lat = (probs.reshape(b, h * s, t) @ kv_src).view(b, h, s, kr)
+        else:   # the ranks' latent-space outputs combined before W_uv
+            o = combine_partials(*softmax_partial(scores.reshape(b, h * s, t), kv_src), seq)
+            o_lat = o.to(dtype).view(b, h, s, kr)
+        out = torch.einsum("bshr,rhv->bshv", o_lat.transpose(1, 2), p["wv_b"].to(dtype))
     else:
         # per-head K/V from the latent, the rope key broadcast over the heads
         k_nope = (kv_src @ p["wk_b"].to(dtype).reshape(kr, h * dn)).view(b, t, h, dn)
@@ -174,8 +200,12 @@ def mla_attention(
         k = torch.cat([k_nope, kr_src[:, :, None, :].expand(b, t, h, dr)], dim=-1)
         q = torch.cat([q_nope, q_rope], dim=-1)
         scores = (q.transpose(1, 2) @ k.permute(0, 2, 3, 1)).to(torch.float32) * scale
-        probs = torch.softmax(scores + bias, dim=-1).to(dtype)
-        out = (probs @ v.transpose(1, 2)).transpose(1, 2)                   # b s h v
+        if seq is None:
+            probs = torch.softmax(scores + bias, dim=-1).to(dtype)
+            out = (probs @ v.transpose(1, 2)).transpose(1, 2)               # b s h v
+        else:
+            o = combine_partials(*softmax_partial(scores + bias, v.transpose(1, 2)), seq)
+            out = o.to(dtype).transpose(1, 2)
 
     return row_matmul(out.reshape(b, s, h * dv), p["wo"].to(dtype).reshape(h * dv, d), tp)
 

@@ -39,8 +39,15 @@ Over a ``model`` axis of M ranks (the ambient sharding context):
   concatenated heads, whose norm (``out_norm`` is whole) every rank takes
   as on one device, and the block's FF is the tensor-parallel MLP.
 
-Where M divides neither, the block runs whole on every rank.  State on such
-a mesh (prefill and decode) raises (serving on a mesh).
+Where M divides neither, the block runs whole on every rank.
+
+State on such a mesh (serving) follows the cells: the mLSTM's ``c``, ``n``
+and ``m`` are the rank's heads' where the heads split and whole where
+every rank runs every head (each rank then computes the same state), and
+the sLSTM's ``c``, ``n``, ``m`` and ``h`` are the rank's heads'; the cache's
+specs split the ``heads`` dimension as the parameters' do.  A prefill with
+state rolls the prompt through the recurrence to build it, as on one
+device.
 """
 from __future__ import annotations
 
@@ -64,9 +71,6 @@ from repro_torch.sharding.context import model_parallel
 NEG_INF = -1e9
 
 State = Dict[str, torch.Tensor]
-
-SERVING_ON_A_MESH = ("serving on a mesh (xLSTM state over 'model') is not ported "
-                     "(ROADMAP.md queue 1, item 11 (e))")
 
 
 def _rms(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -157,8 +161,6 @@ def mlstm_block(
     axis = model_parallel()
     tp = split_axis(p["out_norm"].shape[0], whole, axis)
     h_tp = split_axis(p["b_igate"].shape[0], hh, axis)
-    if axis is not None and state is not None:
-        raise NotImplementedError(SERVING_ON_A_MESH)
     w_up = paired_columns(p["up_proj"], whole, axis)
     xi, z = column_matmul(x, w_up.to(dtype), tp).chunk(2, dim=-1)
     b, s, up = xi.shape
@@ -262,8 +264,6 @@ def slstm_block(
     hh = p["b_i"].shape[0]
     axis = model_parallel()
     tp = split_axis(hh, cfg.n_heads, axis)
-    if axis is not None and state is not None:
-        raise NotImplementedError(SERVING_ON_A_MESH)
     # the gates' input pre-activations (4, B, S, H, Dh), one product each,
     # in fp32 once for all steps
     pre = torch.stack([column_matmul(x, p[f"w_{g}"].to(dtype).reshape(d, hh * dh), tp

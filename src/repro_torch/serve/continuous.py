@@ -69,6 +69,7 @@ from repro_torch.serve.scheduler import (
     RequestStatus,
     ServeRequest,
 )
+from repro_torch.sharding.context import ShardCtx
 from repro_torch.telemetry import EventLog
 
 TokenCallback = Callable[[ServeRequest, int], None]
@@ -136,6 +137,12 @@ class ContinuousEngine:
     Use ``submit`` + ``generate`` (or just ``generate(requests)``).
     Invariant: the decode step shape is pinned to (n_slots, 1) for the
     engine's lifetime, on the device ``params`` live on.
+
+    ``shard_ctx`` is the reference's parameter: a context over a mesh of
+    one rank serves as without one; a mesh of more than one rank raises
+    ``NotImplementedError`` (the slot pool on a mesh, whose scheduler's
+    admissions, deadlines and timeouts must be decided once and shared by
+    every rank, is ROADMAP.md queue 1, item 11 (f)).
     """
 
     def __init__(
@@ -155,7 +162,14 @@ class ContinuousEngine:
         stall_slo_s: Optional[float] = None,
         degrade_max_new_tokens: int = 8,
         degrade_recovery_steps: int = 16,
+        shard_ctx: Optional[ShardCtx] = None,
     ):
+        if shard_ctx is not None and shard_ctx.mesh.size > 1:
+            raise NotImplementedError(
+                "ContinuousEngine on a mesh of more than one rank (the slot pool and the "
+                "scheduler's decisions shared over the ranks) is not ported (ROADMAP.md "
+                "queue 1, item 11 (f)); the static Engine serves on a mesh")
+        self.shard_ctx = shard_ctx
         self.model = model
         self.params = params
         self.n_slots = n_slots

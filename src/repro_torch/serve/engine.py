@@ -5,6 +5,20 @@ of ``repro.serve.engine``).
 calls; the :class:`Engine` adds a minimal batched greedy/temperature
 generation loop over them, on the device its params live on.  The cache is
 written in place (the reference donates its buffers to ``jit``).
+
+With a ``shard_ctx`` (a :class:`~repro_torch.sharding.ShardCtx` over a
+concrete mesh, one engine a rank) the Engine serves on the mesh as the
+reference's GSPMD does: the rank holds its parameter blocks (each call
+gathers them over the data-parallel ranks, FSDP), its rows of the batch
+(its block where the activation rules split ``batch``, every row where
+they do not: ``placement.serving_rows``) and its block of the cache
+(``placement.cache_block`` of a meta ``Model.make_cache``: heads,
+``inner`` slice and, under the ``cache_seq`` rule, its block of
+positions; :func:`serving_ctx` says which).  The last position's logits, the rank's vocab columns and
+rows, are gathered over ``model`` and over the data-parallel ranks into
+the batch's whole (B, V), from which every rank samples with the same
+seeded generator: every rank returns every request's tokens, those one
+device gives.
 """
 from __future__ import annotations
 
@@ -15,8 +29,19 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.io import tree_leaves_with_paths
 from repro_torch.models.api import Model
 from repro_torch.serve.sampling import sample_tokens
+from repro_torch.sharding.axes import batch_axes, specs_for
+from repro_torch.sharding.collectives import gather_leaf, shard_block
+from repro_torch.sharding.context import ShardCtx, use_sharding
+from repro_torch.sharding.placement import (
+    cache_block,
+    cache_seq_split,
+    cache_shardings,
+    leaf_dims,
+    serving_rows,
+)
 
 
 def make_prefill_step(model: Model):
@@ -64,9 +89,24 @@ def params_device(params) -> torch.device:
     return next(iter(params.values())).device
 
 
+def serving_ctx(ctx: ShardCtx, param_specs, cache, batch: int) -> ShardCtx:
+    """The context a prefill or decode of ``batch`` rows over ``cache`` (the
+    whole ``make_cache`` tree, meta tensors enough) runs under on ``ctx``'s
+    mesh and rules: the parameters' ``param_specs``, ``rows_split`` where
+    the rules split the batch's rows over the data-parallel ranks, and
+    ``cache_seq_split`` where the cache's specs split its sequence."""
+    mesh, rules = ctx.mesh, ctx.act_rules
+    split = serving_rows(batch, mesh, rules)[2]
+    seq = cache_seq_split(cache, cache_shardings(cache, mesh, rules))
+    return ShardCtx(mesh, rules, param_specs, cache_seq_split=seq, rows_split=split)
+
+
 class Engine:
     """Static-batch generation engine (greedy / temperature sampling) on the
-    device of ``params``."""
+    device of ``params``; with ``shard_ctx``, one rank's engine over its
+    mesh (see the module docstring).  ``params`` are then the whole tree or
+    this rank's blocks of it (under ``shard_ctx.param_specs``, by default
+    the reference's parameter rules); the Engine keeps the blocks."""
 
     def __init__(
         self,
@@ -74,19 +114,87 @@ class Engine:
         params,
         *,
         max_len: int = 512,
+        shard_ctx: Optional[ShardCtx] = None,
         seed: int = 0,
     ):
         self.model = model
-        self.params = params
         self.max_len = max_len
+        self.shard_ctx = shard_ctx
         self.device = params_device(params)
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         self._prefill = make_prefill_step(model)
         self._decode = make_decode_step(model)
+        if shard_ctx is not None:
+            mesh = shard_ctx.mesh
+            self._specs = dict(shard_ctx.param_specs) or specs_for(model.defs, mesh)
+            self._layouts = leaf_dims(self._specs, mesh)
+            whole = model.abstract_params()
+            params = {k: self._block(k, v, whole[k]) for k, v in params.items()}
+        self.params = params
+        self.cache_bytes = 0   # this rank's cache, set by each batch
+
+    def _block(self, path: str, x: torch.Tensor, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's block of leaf ``path`` from ``x``, the whole leaf (of
+        ``whole``'s shape) or already the block."""
+        lay, mesh = self._layouts[path], self.shard_ctx.mesh
+        mine = shard_block(whole, lay, mesh).shape
+        if x.shape == mine:
+            return x
+        if x.shape == whole.shape:
+            return shard_block(x, lay, mesh)
+        raise ValueError(f"parameter {path} of shape {tuple(x.shape)} is neither the whole "
+                         f"{tuple(whole.shape)} nor this rank's block {tuple(mine)}")
+
+    def _call_params(self):
+        """The parameters a call computes with: each block gathered over the
+        data-parallel ranks (FSDP), its ``model`` split kept."""
+        mesh = self.shard_ctx.mesh
+        if mesh.extent(batch_axes(mesh)) == 1:
+            return self.params
+        group = self.shard_ctx.dp_group
+        return {k: gather_leaf(v, self._layouts[k].data, group) for k, v in self.params.items()}
+
+    def _gather(self, last: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
+        """(rows, V or V/M) last-position logits → the batch's (B, V)."""
+        if last.shape[-1] != self.model.cfg.vocab_size:
+            last = gather_leaf(last.contiguous(), 1, ctx.model_axis.group)
+        if ctx.data_axis is not None:
+            last = gather_leaf(last.contiguous(), 0, ctx.data_axis.group)
+        return last
 
     def _sample(self, logits, temperatures: torch.Tensor):
         """Per-row sampling: each request keeps its own temperature."""
         return sample_tokens(self.gen, logits, temperatures)
+
+    def _run(self, toks: np.ndarray, steps: int, choose) -> None:
+        """Prefill the (B, S) prompts ``toks``, then decode ``steps`` tokens:
+        ``choose(t, logits)`` takes the batch's (B, V) logits after step
+        ``t`` (0: the prefill) and returns the (B,) tokens fed next."""
+        b, s = toks.shape
+        if s + steps > self.max_len:
+            raise ValueError(f"batch needs {s + steps} cache positions but "
+                             f"max_len is {self.max_len}")
+        ctx, params, start, rows = None, self.params, 0, b
+        if self.shard_ctx is None:
+            cache = self.model.make_cache(b, self.max_len, self.device)
+        else:
+            meta = self.model.make_cache(b, self.max_len, "meta")
+            ctx = serving_ctx(self.shard_ctx, self._specs, meta, b)
+            start, rows, _ = serving_rows(b, ctx.mesh, ctx.act_rules)
+            cache = cache_block(meta, ctx.mesh, ctx.act_rules, self.device)
+        with use_sharding(ctx):
+            if ctx is not None:
+                params = self._call_params()
+            tokens = torch.from_numpy(toks[start:start + rows]).to(self.device)
+            last, cache = self._prefill(params, {"tokens": tokens}, cache)
+            tok = choose(0, last if ctx is None else self._gather(last, ctx))
+            for t in range(steps):
+                positions = torch.full((rows, 1), s + t, dtype=torch.int32, device=self.device)
+                mine = tok[start:start + rows, None].to(torch.int32)
+                last, cache = self._decode(params, cache, mine, positions)
+                tok = choose(t + 1, last if ctx is None else self._gather(last, ctx))
+        self.cache_bytes = sum(x.numel() * x.element_size()
+                               for _, x in tree_leaves_with_paths(cache))
 
     @torch.inference_mode()
     def generate_batch(self, requests: List[Request]) -> List[Request]:
@@ -99,7 +207,9 @@ class Engine:
         in lock-step — a short request waits on the longest one (the
         limitation ContinuousEngine removes).  Raises ValueError when the
         batch's decode would write past ``max_len`` (prompt length plus the
-        largest budget), which the reference's clamped writes hide.
+        largest budget), which the reference's clamped writes hide, and on
+        a mesh when the rules split the batch's rows over only some of its
+        data-parallel axes.
         """
         t0 = time.perf_counter()
         b = len(requests)
@@ -108,36 +218,41 @@ class Engine:
         for i, r in enumerate(requests):
             toks[i, : len(r.prompt)] = r.prompt  # left-aligned, zero-padded
         max_new = max(r.max_new_tokens for r in requests)
-        if s + max_new > self.max_len:
-            raise ValueError(f"batch needs {s + max_new} cache positions but "
-                             f"max_len is {self.max_len}")
         temps = torch.tensor([r.temperature for r in requests], dtype=torch.float32,
                              device=self.device)
         # all-greedy (the default): skip sampling and leave the generator untouched
         greedy = max(r.temperature for r in requests) <= 0.0
-        sample = (
-            (lambda logits: torch.argmax(logits, dim=-1)) if greedy
-            else (lambda logits: self._sample(logits, temps))
-        )
-
-        cache = self.model.make_cache(b, self.max_len, self.device)
-        tokens = torch.from_numpy(toks).to(self.device)
-        last, cache = self._prefill(self.params, {"tokens": tokens}, cache)
         out = np.zeros((b, max_new), np.int32)
-        tok = sample(last)
-        for t in range(max_new):
-            out[:, t] = tok.cpu().numpy()
-            positions = torch.full((b, 1), s + t, dtype=torch.int32, device=self.device)
-            last, cache = self._decode(
-                self.params, cache, tok[:, None].to(torch.int32), positions
-            )
-            tok = sample(last)
 
+        def choose(t, logits):
+            tok = (torch.argmax(logits, dim=-1) if greedy
+                   else self._sample(logits, temps))
+            if t < max_new:
+                out[:, t] = tok.cpu().numpy()
+            return tok
+
+        self._run(toks, max_new, choose)
         dt = time.perf_counter() - t0
         for i, r in enumerate(requests):
             r.out_tokens = out[i, : r.max_new_tokens]
             r.latency_s = dt
         return requests
+
+    @torch.inference_mode()
+    def replay(self, prompts: np.ndarray, forced: np.ndarray) -> torch.Tensor:
+        """Teacher-forced logits: the (B, S) ``prompts`` prefilled, then one
+        decode step for each column of the (B, n) ``forced`` tokens; returns
+        the batch's (B, n + 1, V) last-position logits in fp32 (on a mesh
+        gathered whole, as the Engine samples from them)."""
+        rows = []
+        forced = torch.from_numpy(np.asarray(forced, np.int32)).to(self.device)
+
+        def choose(t, logits):
+            rows.append(logits.float())
+            return forced[:, t] if t < forced.shape[1] else None
+
+        self._run(np.asarray(prompts, np.int32), forced.shape[1], choose)
+        return torch.stack(rows, 1)
 
     def throughput_stats(self, requests: List[Request]) -> Dict[str, float]:
         """Aggregate a completed batch: request/token counts, wall time,

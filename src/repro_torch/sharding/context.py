@@ -30,10 +30,6 @@ _state = threading.local()
 # what a mesh still does not run (ROADMAP.md queue 1): mesh axes besides
 # pod, data and model, and a dimension split over both data and model
 UNPORTED = "ROADMAP.md queue 1, item 11 (b2)"
-# what serving on a mesh does not run yet: a cache whose sequence is split
-# over the data-parallel ranks (long-context decode at batch 1)
-SEQ_SPLIT_CACHE = ("serving on a mesh (a cache split along its sequence over the "
-                   "data-parallel ranks) is not ported (ROADMAP.md queue 1, item 11 (e))")
 
 
 class Layout(NamedTuple):
@@ -94,9 +90,16 @@ def leaf_layout(spec: Spec, mesh) -> Layout:
 
 class ShardCtx:
     """A mesh, the activation rule set annotations resolve against, and the
-    parameters' specs (``{path: spec}``, optional).  ``cache_seq_split``:
-    the serving cache's sequence is split over the data-parallel axes
-    (``placement.cache_seq_split``), which no layer serves yet.
+    parameters' specs (``{path: spec}``, optional).  Two flags describe a
+    serving call's batch and cache (``serve/engine.serving_ctx`` sets
+    them from the specs): ``cache_seq_split``, the cache's sequence is
+    split over the data-parallel axes (``placement.cache_seq_split``:
+    each rank holds one block of positions, :func:`cache_seq_axis`), and
+    ``rows_split``, each data-parallel rank holds its own block of the
+    batch's rows (a training step's batch, a serving batch the ranks
+    divide); where it is False every rank holds every row (a serving batch
+    of one) and :func:`data_parallel` is None, so that a layer counting
+    the global batch (the MoE router) counts its rows once.
 
     Install with :func:`use_sharding`; the norms see it through
     :meth:`split` and :meth:`counts`, the layers through
@@ -105,14 +108,24 @@ class ShardCtx:
 
     def __init__(self, mesh, act_rules: Optional[Mapping] = None,
                  param_specs: Optional[Mapping[str, Spec]] = None, *,
-                 cache_seq_split: bool = False):
+                 cache_seq_split: bool = False, rows_split: bool = True):
         self.mesh = mesh
         self.cache_seq_split = bool(cache_seq_split)
+        self.rows_split = bool(rows_split)
         self.act_rules = dict(
             act_rules if act_rules is not None
             else default_act_rules(multi_pod="pod" in mesh_sizes(mesh)))
         self.param_specs: Dict[str, Spec] = dict(param_specs or {})
         self._layouts = {k: leaf_layout(s, mesh) for k, s in self.param_specs.items()}
+
+    def with_rules(self, **overrides) -> "ShardCtx":
+        """A new context with the given activation rules replaced (e.g.
+        ``cache_seq=("data",)`` for long-context decode at batch 1), as the
+        reference's; the specs and flags are kept."""
+        rules = dict(self.act_rules)
+        rules.update(overrides)
+        return ShardCtx(self.mesh, rules, self.param_specs,
+                        cache_seq_split=self.cache_seq_split, rows_split=self.rows_split)
 
     def layout(self, path: Optional[str]) -> Layout:
         """The layout of parameter ``path`` (whole when unknown)."""
@@ -138,15 +151,26 @@ class ShardCtx:
             return None
         return ModelAxis(self.mesh.group(("model",)), self.mesh.coords()["model"], n)
 
-    @property
-    def data_axis(self) -> Optional[ModelAxis]:
-        """The data-parallel axes when the mesh is concrete and they hold
-        more than one rank, else None."""
+    def _dp_axis(self) -> Optional[ModelAxis]:
         axes = batch_axes(self.mesh)
         n = self.mesh.extent(axes)
         if n == 1 or self.mesh.abstract:
             return None
         return ModelAxis(self.dp_group, self.mesh.index(axes), n)
+
+    @property
+    def data_axis(self) -> Optional[ModelAxis]:
+        """The data-parallel axes when the mesh is concrete, they hold more
+        than one rank and each holds its own rows (``rows_split``), else
+        None."""
+        return self._dp_axis() if self.rows_split else None
+
+    @property
+    def seq_axis(self) -> Optional[ModelAxis]:
+        """The data-parallel axes over which the serving cache's sequence
+        is split (``cache_seq_split``), when the mesh is concrete and they
+        hold more than one rank, else None."""
+        return self._dp_axis() if self.cache_seq_split else None
 
     def split(self, path: Optional[str]) -> bool:
         """Whether a reduction over leaf ``path`` must be summed over the
@@ -178,18 +202,19 @@ def model_parallel() -> Optional[ModelAxis]:
 
 
 def data_parallel() -> Optional[ModelAxis]:
-    """The ambient context's data-parallel axes (None without one, or at
-    one rank): what a layer that counts the global batch's tokens (the MoE
-    router) reduces over."""
+    """The ambient context's data-parallel axes (None without one, at one
+    rank, or where every rank holds every row): what a layer that counts
+    the global batch's tokens (the MoE router) reduces over."""
     ctx = current()
     return None if ctx is None else ctx.data_axis
 
 
-def cache_seq_split() -> bool:
-    """Whether the ambient context splits the serving cache's sequence over
-    the data-parallel ranks (False without one)."""
+def cache_seq_axis() -> Optional[ModelAxis]:
+    """The data-parallel axes the ambient context splits the serving
+    cache's sequence over (None without one, or at one rank): rank ``i``
+    of ``n`` holds positions ``[i·T/n, (i+1)·T/n)``."""
     ctx = current()
-    return ctx is not None and ctx.cache_seq_split
+    return None if ctx is None else ctx.seq_axis
 
 
 @contextlib.contextmanager

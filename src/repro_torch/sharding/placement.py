@@ -14,7 +14,11 @@ Conventions, as in the reference:
     micro-batches;
   * a batch's fields and a cache's leaves resolve their logical axes
     through the activation rules (:func:`batch_shardings`,
-    :func:`cache_shardings`: the dry-run's placement).
+    :func:`cache_shardings`: the dry-run's placement); a serving batch's
+    rows split over the data-parallel ranks where the rules split them and
+    are every rank's where they do not (:func:`serving_rows`, GSPMD's
+    replication of a batch of one), and a rank's cache is the block its
+    specs give it, allocated at the block's shapes (:func:`cache_block`).
 
 States are the port's trees (flat parameter dicts inside dataclasses);
 specs come back as ``{path: spec}`` under the checkpoint's leaf paths
@@ -51,9 +55,15 @@ def batch_shardings(batch: Mapping[str, torch.Tensor], mesh, rules) -> Dict[str,
 
 def _cache_leaf_axes(path: str, ndim: int) -> Tuple[Optional[str], ...]:
     """Logical axes of a KV / SSM cache leaf, keyed by its trailing name
-    (every leaf leads with its stacked layers or groups)."""
+    (every leaf leads with its stacked layers or groups).  The reference's
+    table keys the cells' ``c`` and ``m`` by the mLSTM's shapes, so its
+    sLSTM ``c`` and ``m`` (B, H, Dh) fall back to replicated; the port
+    splits every cell leaf (B, H, …) by its heads, as its cell runs on the
+    rank's heads."""
     name = path.rsplit("/", 1)[-1]
     lead = (None,)
+    if name in ("c", "n", "m", "h") and ndim >= 3:
+        return lead + ("batch", "heads") + (None,) * (ndim - 3)
     table = {
         "k": lead + ("batch", "cache_seq", "kv_heads", None),
         "v": lead + ("batch", "cache_seq", "kv_heads", None),
@@ -62,10 +72,6 @@ def _cache_leaf_axes(path: str, ndim: int) -> Tuple[Optional[str], ...]:
         "index": lead,
         "ssm": lead + ("batch", "inner", None),
         "conv": lead + ("batch", None, "inner"),
-        "c": lead + ("batch", "heads", None, None),
-        "n": lead + ("batch", "heads", None),
-        "m": lead + ("batch", "heads"),
-        "h": lead + ("batch", "heads", None),
     }
     axes = table.get(name)
     if axes is None or len(axes) != ndim:
@@ -80,6 +86,50 @@ def cache_shardings(cache, mesh, rules) -> Dict[str, Spec]:
     :func:`leaf_dims` gives their layouts."""
     return {p: resolve_spec(x.shape, _cache_leaf_axes(p, x.dim()), rules, mesh)
             for p, x in tree_leaves_with_paths(cache)}
+
+
+# the value every element of a fresh cache leaf holds, by its trailing name:
+# the xLSTM cells' stabiliser ``m`` starts at the reference's -1e9, every
+# other leaf (k/v, latents, SSM and cell state, the index) at 0
+CACHE_FILL: Dict[str, float] = {"m": -1e9}
+
+
+def cache_block(cache, mesh, rules, device):
+    """This rank's block of ``cache`` (a whole ``make_cache`` tree, meta
+    tensors enough) under :func:`cache_shardings`: on the meta device its
+    block's shapes, else a fresh cache allocated at them on ``device``
+    (each leaf filled as :data:`CACHE_FILL` says).  The whole cache is
+    never allocated."""
+    layouts = leaf_dims(cache_shardings(cache, mesh, rules), mesh)
+    device = torch.device(device)
+
+    def block(path, x):
+        shape = shard_block(x.to("meta"), layouts[path], mesh).shape
+        if device.type == "meta":
+            return torch.empty(shape, dtype=x.dtype, device=device)
+        fill = CACHE_FILL.get(path.rsplit("/", 1)[-1], 0)
+        return torch.full(shape, fill, dtype=x.dtype, device=device)
+
+    return tree_map_with_paths(block, cache)
+
+
+def serving_rows(n: int, mesh, rules) -> Tuple[int, int, bool]:
+    """``(first row, rows, split)`` of this rank's share of an ``n``-row
+    serving batch: its block where the activation rules split ``batch``
+    over every data-parallel axis (``split`` True), every row where they
+    split it over none (a batch the ranks do not divide, as GSPMD
+    replicates it).  A batch the rules split over only some of those axes
+    raises ``ValueError``."""
+    spec = resolve_spec((n, 1), BATCH_AXES["tokens"], rules, mesh)
+    entry = spec[0] if spec else None
+    axes = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+    if not axes:
+        return 0, n, False
+    if axes != batch_axes(mesh):
+        raise ValueError(f"a batch of {n} rows splits over {axes} but not over every "
+                         f"data-parallel axis {batch_axes(mesh)}")
+    start, rows = batch_rows(n, mesh)
+    return start, rows, True
 
 
 def cache_seq_split(cache, specs: Mapping[str, Spec]) -> bool:

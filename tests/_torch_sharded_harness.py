@@ -972,6 +972,102 @@ def scenario_recurrent_mla(c: Ctx) -> dict:
     return out if c.rank0 else {}
 
 
+SERVE_ARCHS = ("smollm-360m", "granite-moe-1b-a400m", "deepseek-v3-671b",
+               "jamba-1.5-large-398b", "xlstm-350m")
+SERVE_SEQ_SPLIT = ("smollm-360m", "jamba-1.5-large-398b")   # batch 1, cache_seq over data
+SERVE_LENS, SERVE_NEW, SERVE_MAX_LEN = (8, 5, 8, 6), 6, 16
+SERVE_B1_LEN = 7   # at max_len 16 over data=2: the decode crosses into rank 1's block
+
+
+def serve_config(arch: str) -> ModelConfig:
+    return smoke_config(arch).replace(activation_dtype="float32")
+
+
+def serve_prompts(cfg, lens=SERVE_LENS, seed: int = 0) -> list:
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32) for n in lens]
+
+
+def _serve_params(model, init: str):
+    """The port's seed-0 parameters, replaced by ``init/<name>.npz`` (the
+    JAX package's) where the test wrote one."""
+    params = model.init(0, torch.device("cpu"))
+    path = os.path.join(init, f"{model.cfg.name}.npz") if init else ""
+    if path and os.path.exists(path):
+        with np.load(path) as f:
+            for k, v in params.items():
+                v.copy_(torch.from_numpy(f[k]).to(v.dtype))
+    return params
+
+
+def _tokens(engine, prompts, temperature: float = 0.0) -> list:
+    from repro_torch.serve import Request
+
+    out = engine.generate_batch([Request(p, max_new_tokens=SERVE_NEW, temperature=temperature)
+                                 for p in prompts])
+    return [r.out_tokens.tolist() for r in out]
+
+
+def scenario_serve(c: Ctx) -> dict:
+    """The static ``Engine(shard_ctx=)`` over this mesh for each of
+    :data:`SERVE_ARCHS` (fp32 activations): greedy tokens of four ragged
+    prompts, the prefill's and first decode step's gathered logits (the
+    greedy tokens teacher-forced), a seeded temperature run, and, over two
+    data ranks, :data:`SERVE_SEQ_SPLIT` at batch 1 under the dry-run's rules
+    (the cache's sequence over data, Mamba's state over ``inner``).  Every
+    rank checks that its cache is its block's bytes and its tokens are rank
+    0's; rank 0 runs the single-process Engine beside it and reports
+    both."""
+    from repro_torch.launch.dryrun import dryrun_rules
+    from repro_torch.serve import Engine
+    from repro_torch.sharding import cache_block
+
+    out = {}
+    for arch in SERVE_ARCHS:
+        cfg = serve_config(arch)
+        model = build_model(cfg)
+        params = _serve_params(model, c.init)
+        prompts = serve_prompts(cfg)
+        runs = {"greedy": (ShardCtx(c.mesh), prompts, 0.0),
+                "temperature": (ShardCtx(c.mesh), prompts, 0.8)}
+        if arch in SERVE_SEQ_SPLIT and c.dp == 2:
+            rules, _ = dryrun_rules(c.mesh)
+            runs["batch1_seq_split"] = (ShardCtx(c.mesh, rules),
+                                        serve_prompts(cfg, (SERVE_B1_LEN,), seed=1), 0.0)
+        entry = {}
+        for name, (ctx, ps, temp) in runs.items():
+            eng = Engine(model, params, max_len=SERVE_MAX_LEN, shard_ctx=ctx, seed=3)
+            mesh_tokens = _tokens(eng, ps, temp)
+            meta = model.make_cache(len(ps), SERVE_MAX_LEN, "meta")
+            block = sum(x.numel() * x.element_size() for _, x in tree_leaves_with_paths(
+                cache_block(meta, c.mesh, ctx.act_rules, "meta")))
+            if eng.cache_bytes != block:
+                raise AssertionError(f"{arch} {name}: rank {c.mesh.rank} holds "
+                                     f"{eng.cache_bytes} cache bytes, its block {block}")
+            every = [None] * c.mesh.size
+            torch.distributed.all_gather_object(every, mesh_tokens)
+            if any(t != mesh_tokens for t in every):
+                raise AssertionError(f"{arch} {name}: the ranks' tokens differ: {every}")
+            row = {"mesh": mesh_tokens, "cache_bytes": block,
+                   "whole_cache_bytes": sum(x.numel() * x.element_size()
+                                            for _, x in tree_leaves_with_paths(meta))}
+            if name == "greedy":
+                forced = np.asarray([t[:1] for t in mesh_tokens], np.int32)
+                width = max(len(p) for p in ps)
+                padded = np.stack([np.pad(p, (0, width - len(p))) for p in ps])
+                logits = eng.replay(padded, forced)
+            if c.rank0:
+                single = Engine(model, params, max_len=SERVE_MAX_LEN, seed=3)
+                row["single"] = _tokens(single, ps, temp)
+                if name == "greedy":
+                    want = single.replay(padded, forced)
+                    row["logits_rel"] = float((logits - want).abs().max()
+                                              / max(1.0, float(want.abs().max())))
+            entry[name] = row
+        out[arch] = entry
+    return out if c.rank0 else {}
+
+
 SCENARIOS = {
     "collectives": scenario_collectives,
     "equiv": scenario_equiv,
@@ -991,10 +1087,11 @@ SCENARIOS = {
     "moe_data": scenario_moe_data,
     "ep": scenario_ep,
     "recurrent_mla": scenario_recurrent_mla,
+    "serve": scenario_serve,
 }
 # run only when named
 NAMED_ONLY = ("tp_", "host_collectives", "spike_rollback", "gqa", "moe_data", "ep",
-              "recurrent_mla")
+              "recurrent_mla", "serve")
 
 
 # ---------------------------------------------------------------------------

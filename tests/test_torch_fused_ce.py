@@ -29,7 +29,7 @@ from repro.train.step import make_train_step as jax_make_train_step
 from repro_torch.configs import bert_large
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core import warmup_poly_decay
-from repro_torch.kernels import LAUNCHES, fused_ce, reset_launches
+from repro_torch.kernels import LAUNCHES, VARIANT_LAUNCHES, fused_ce, reset_launches
 from repro_torch.launch import train as launch_train
 from repro_torch.models import build_model
 from repro_torch.nn import flatten, params_from_jax, state_from_jax
@@ -333,7 +333,7 @@ def test_fused_ce_design_rule_on_cpu_tensors(monkeypatch):
         assert set(lib.designs.values()) == {codes[want]}, (want, lib.designs)
         assert len(lib.designs) == 5
         for name in CE_KERNELS:
-            assert fused_ce_module.VARIANT_LAUNCHES[name] == {
+            assert VARIANT_LAUNCHES[name] == {
                 "mma": int(want == "mma"), "fma": int(want == "fma")}
     reset_launches()
 

@@ -27,8 +27,8 @@ four ranks (the specs keep the experts whole, and every rank runs the
 whole layer), an mLSTM of three heads over two ranks (every rank runs
 every head and keeps its ``inner`` columns of h), and a Mamba whose
 2·d_inner splits over four ranks while d_inner does not (every rank runs
-the whole layer on the gathered ``in_proj``).  With state, each layer
-over a ``model`` axis raises naming serving on a mesh (item 11 (e)).
+the whole layer on the gathered ``in_proj``).  With state (serving), each
+layer over a ``model`` axis runs and equals the whole layer.
 """
 import sys
 
@@ -231,37 +231,71 @@ def test_split_cases_split():
     assert dims("slstm")["w_i"] == 1 and dims("slstm")["out_norm"] is None
 
 
-def _stand_in_ctx(defs):
-    mesh = Mesh({"data": 1, "model": 2}, groups={("model",): object()})
-    return ShardCtx(mesh, param_specs=specs_for(defs, mesh))
-
-
 @pytest.mark.parametrize("layer", ["mla", "mamba", "mlstm", "slstm"])
 def test_layers_with_state_on_a_mesh_raise(layer):
-    """Prefill and decode with state over ``model`` are serving on a mesh
-    (ROADMAP.md item 11 (e)): each layer raises before any collective."""
-    cfg = {"mla": smoke_config("deepseek-v3-671b"), "mamba": smoke_config("jamba-1.5-large-398b"),
-           "mlstm": smoke_config("xlstm-350m"), "slstm": smoke_config("xlstm-350m")}[layer]
-    defs = {"mla": mla.mla_defs, "mamba": mamba.mamba_defs, "mlstm": xlstm.mlstm_defs,
-            "slstm": xlstm.slstm_defs}[layer](cfg)
-    mesh = Mesh({"data": 1, "model": 2})
-    specs = specs_for(defs, mesh)
-    block = {k: C.shard_leaf(torch.zeros(p.shape), leaf_layout(specs[k], mesh).model, 2, 0)
-             for k, p in flatten(defs).items()}
-    x = torch.zeros(1, 1, cfg.d_model, dtype=torch.bfloat16)
-    with use_sharding(_stand_in_ctx(defs)):
-        with pytest.raises(NotImplementedError, match="item 11 \\(e\\)"):
+    """Prefill and decode with state over ``model`` were serving on a mesh
+    (ROADMAP.md item 11 (e)), which each layer refused; they no longer
+    raise.  Each layer over two plain ranks, with the state the rank's
+    block of the cache (the MLA's latents whole, Mamba's state whole under
+    the default rules, the cells' by heads), prefills 8 positions and
+    decodes one step, and its outputs and final state equal the whole
+    layer's within ``RANKS_TOL`` (the mLSTM's ``MLSTM_RANKS_TOL``), fp32
+    (tests/test_torch_serve_mesh_layers.py holds every case to JAX)."""
+    from repro_torch.sharding import cache_block, cache_shardings, default_act_rules, leaf_dims
+
+    arch = {"mla": "deepseek-v3-671b", "mamba": "jamba-1.5-large-398b"}.get(layer, "xlstm-350m")
+    jcfg, cfg = _pair(arch, **F32)
+    jdefs, defs = {"mla": (jax_mla.mla_defs, mla.mla_defs),
+                   "mamba": (jax_mamba.mamba_defs, mamba.mamba_defs),
+                   "mlstm": (jax_xlstm.mlstm_defs, xlstm.mlstm_defs),
+                   "slstm": (jax_xlstm.slstm_defs, xlstm.slstm_defs)}[layer]
+    defs = defs(cfg)
+    fresh = {"mla": lambda: mla.init_mla_cache(1, 12, cfg, torch.float32),
+             "mamba": lambda: mamba.init_mamba_state(1, cfg, torch.float32),
+             "mlstm": lambda: xlstm.init_mlstm_state(1, cfg),
+             "slstm": lambda: xlstm.init_slstm_state(1, cfg)}[layer]
+    _, params = _params(jdefs(jcfg))
+    rng = np.random.default_rng(2)
+    xs = [torch.from_numpy(rng.standard_normal((1, n, cfg.d_model)).astype(np.float32))
+          for n in (8, 1)]
+    pos = [torch.arange(8)[None], torch.full((1, 1), 8)]
+
+    def serve(p, state):
+        outs = []
+        for i, (x, ps) in enumerate(zip(xs, pos)):
             if layer == "mla":
-                mla.mla_attention(block, x, torch.zeros(1, 1, dtype=torch.int32), cfg,
-                                  cache=mla.init_mla_cache(1, 4, cfg), decode=True)
-            elif layer == "mamba":
-                mamba.mamba(block, x, cfg, state=mamba.init_mamba_state(1, cfg), decode=True)
-            elif layer == "mlstm":
-                xlstm.mlstm_block(block, x, cfg, state=xlstm.init_mlstm_state(1, cfg),
-                                  decode=True)
-            else:
-                xlstm.slstm_block(block, x, cfg, state=xlstm.init_slstm_state(1, cfg),
-                                  decode=True)
+                outs.append(mla.mla_attention(p, x, ps, cfg, cache=state, decode=i > 0))
+                continue
+            fn = {"mamba": mamba.mamba, "mlstm": xlstm.mlstm_block,
+                  "slstm": xlstm.slstm_block}[layer]
+            out, state = fn(p, x, cfg, state=state, decode=i > 0)
+            outs.append(out)
+        return outs, state
+
+    with torch.no_grad():
+        want, want_state = serve(params, fresh())
+    sizes = {"data": 1, "model": 2}
+    specs = specs_for(defs, Mesh(sizes))
+    rules = default_act_rules()
+    stacked = {k: v[None] for k, v in fresh().items()}
+    lays = leaf_dims(cache_shardings(stacked, Mesh(sizes), rules), Mesh(sizes))
+
+    def rank(group):
+        mesh = Mesh(sizes, rank=group.index, groups={("model",): group})
+        block = {k: C.shard_leaf(v, leaf_layout(specs[k], mesh).model, 2, group.index)
+                 for k, v in params.items()}
+        state = {k: v[0] for k, v in cache_block(stacked, mesh, rules, "cpu").items()}
+        with torch.no_grad(), use_sharding(ShardCtx(mesh, rules, specs)):
+            return serve(block, state)
+
+    got = C.run_plain_ranks(rank, 2)
+    tol = MLSTM_RANKS_TOL if layer == "mlstm" else RANKS_TOL
+    for a, w in zip(got[0][0], want):
+        _close(a.numpy(), w.numpy(), tol, f"{layer}: output")
+    for k, w in want_state.items():
+        dim = lays[k].model
+        a = C.gather_leaf_plain([g[1][k][None] for g in got], dim)[0]
+        _close(a.numpy(), w.numpy(), tol, f"{layer}: state {k}")
 
 
 def test_plain_ranks_swap_every_operand():

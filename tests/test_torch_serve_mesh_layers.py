@@ -1,0 +1,392 @@
+"""Serving on a mesh, layer by layer, in one process: each layer that holds a
+cache or state, as M ranks' shares, runs a prefill and four decode steps,
+held to the whole port layer and to the JAX layer on the same numpy
+weights.
+
+The ranks are threads of ``collectives.run_plain_ranks`` (as in
+``tests/test_torch_model_axis_layers.py``): each runs the port's own layer
+on its parameter blocks and on its block of the cache, the block that
+``placement.cache_block`` cuts under the context's activation rules, under
+a ``ShardCtx`` whose group is a plain group, so that every cross-rank sum,
+gather, max and combine is its plain version over the ranks' tensors.
+
+Over ``model``: attention with its kv heads split, with one kv head whole
+on every rank and with twelve heads over three kv heads (a rank's q heads
+straddle their kv heads unevenly); MLA naive and absorbed (the latent cache
+whole on every rank); Mamba with the dry-run's ``inner`` rule (the rank's
+slice of the state) and without it (the reference's default rules: the
+state whole, each rank's new slice gathered); the mLSTM (also three heads
+over two ranks, every rank running every head) and the sLSTM.  Over the
+data-parallel ranks at batch 1 with the cache's sequence split (the
+reference's ``cache_seq`` rule): attention and MLA at data=2 and data=4
+with a 16-position cache, a 6-position prompt (at data=4 it ends inside
+rank 1's block) and decode steps at positions 6–9 that cross a block
+boundary, and attention under a sliding window of 4 (at data=4 rank 0's
+block then holds no valid key).
+
+Everything is fp32.  The ranks' outputs and their final cache or state
+(the blocks laid whole) against the whole port layer within ``RANKS_TOL``
+1e-5 of the tensor's scale (the fp32 sums add in other orders), the
+mLSTM's within ``MLSTM_RANKS_TOL`` 3e-4 (its exponential gates magnify
+the order of the row-parallel q, k, v and gate sums: measured 1.4e-5 of
+the scale), and both against the JAX layer within ``JAX_TOL`` 3e-4 (the
+bounds of ``tests/test_torch_model_axis_layers.py``).  Budget: 90 s on one worker.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_threads import one_cpu_thread  # noqa: F401
+from repro.configs import smoke_config as jax_smoke_config
+from repro.configs.base import ModelConfig as JaxModelConfig
+from repro.models.layers import attention as jax_attention
+from repro.models.layers import mamba as jax_mamba
+from repro.models.layers import mla as jax_mla
+from repro.models.layers import xlstm as jax_xlstm
+from repro_torch.checkpoint.io import tree_leaves_with_paths
+from repro_torch.configs import smoke_config
+from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import Mesh
+from repro_torch.models.layers import attention, mamba, mla, xlstm
+from repro_torch.nn import init_params
+from repro_torch.sharding import (
+    ShardCtx,
+    cache_block,
+    cache_shardings,
+    default_act_rules,
+    leaf_dims,
+    leaf_layout,
+    specs_for,
+    use_sharding,
+)
+from repro_torch.sharding import collectives as C
+
+RANKS_TOL = 1e-5   # the ranks against the whole port layer, of the scale
+MLSTM_RANKS_TOL = 3e-4   # the mLSTM's: see the module docstring
+JAX_TOL = 3e-4     # either against the JAX layer
+B, S, T, STEPS = 2, 6, 16, 4
+F32 = dict(activation_dtype="float32")
+ATTN = dict(family="dense", n_layers=2, vocab_size=64, d_ff=64, **F32)
+
+
+def _own(**kw):
+    return JaxModelConfig(**kw), ModelConfig(**kw)
+
+
+def _pair(arch, **kw):
+    return jax_smoke_config(arch).replace(**kw), smoke_config(arch).replace(**kw)
+
+
+LAYERS = {
+    "attention": (jax_attention.attention_defs, attention.attention_defs),
+    "mla": (jax_mla.mla_defs, mla.mla_defs),
+    "mamba": (jax_mamba.mamba_defs, mamba.mamba_defs),
+    "mlstm": (jax_xlstm.mlstm_defs, xlstm.mlstm_defs),
+    "slstm": (jax_xlstm.slstm_defs, xlstm.slstm_defs),
+}   # (JAX defs, port defs): the port's draw the weights, by path
+
+# name: (layer, (JAX config, port config), mesh axis, ranks, activation rule
+# overrides, batch)
+CASES = {
+    "attn_kv_split": ("attention", _own(name="kv-split", d_model=64, n_heads=4, n_kv_heads=2,
+                                       **ATTN), "model", 2, {}, B),
+    "attn_kv_whole": ("attention", _own(name="kv-whole", d_model=64, n_heads=4, n_kv_heads=1,
+                                        **ATTN), "model", 2, {}, B),
+    "attn_kv_whole_uneven": ("attention", _own(name="kv-uneven", d_model=96, n_heads=12,
+                                               n_kv_heads=3, **ATTN), "model", 2, {}, B),
+    "mla_naive": ("mla", _pair("deepseek-v3-671b", **F32), "model", 2, {}, B),
+    "mla_absorbed": ("mla", _pair("deepseek-v3-671b", mla_absorb=True, **F32), "model", 4,
+                     {}, B),
+    "mamba_inner_rule": ("mamba", _pair("jamba-1.5-large-398b", **F32), "model", 2,
+                         {"inner": ("model",)}, B),
+    "mamba_whole_state": ("mamba", _pair("jamba-1.5-large-398b", **F32), "model", 2, {}, B),
+    "mlstm": ("mlstm", _pair("xlstm-350m", **F32), "model", 2, {}, B),
+    "mlstm_h3_over_2": ("mlstm", _own(name="xlstm-h3", family="ssm", n_layers=2, d_model=96,
+                                      n_heads=3, n_kv_heads=3, d_ff=0, vocab_size=64,
+                                      slstm_ratio=2, xlstm_proj_factor=2.0, use_rope=False,
+                                      norm_type="layernorm", **F32), "model", 2, {}, B),
+    "slstm": ("slstm", _pair("xlstm-350m", **F32), "model", 2, {}, B),
+    "attn_seq_data2": ("attention", _pair("smollm-360m", **F32), "data", 2,
+                       {"cache_seq": ("data",)}, 1),
+    "attn_seq_data4": ("attention", _pair("smollm-360m", **F32), "data", 4,
+                       {"cache_seq": ("data",)}, 1),
+    "attn_seq_window": ("attention", _pair("smollm-360m", sliding_window=4, **F32), "data", 4,
+                        {"cache_seq": ("data",)}, 1),
+    "mla_seq_data2": ("mla", _pair("deepseek-v3-671b", **F32), "data", 2,
+                      {"cache_seq": ("data",)}, 1),
+    "mla_seq_data4_absorbed": ("mla", _pair("deepseek-v3-671b", mla_absorb=True, **F32),
+                               "data", 4, {"cache_seq": ("data",)}, 1),
+}
+
+
+def _params(defs, seed=0):
+    """The port's init of the layer, every all-zero leaf drawn at random so
+    that it is used: (the JAX layer's nested tree, the port's flat dict)."""
+    rng = np.random.default_rng(seed)
+    flat = {k: v.numpy() if v.any() else (rng.standard_normal(v.shape) * 0.1).astype(np.float32)
+            for k, v in init_params(defs, seed, torch.device("cpu")).items()}
+    tree: dict = {}
+    for path, a in flat.items():
+        *heads, leaf = path.split("/")
+        node = tree
+        for h in heads:
+            node = node.setdefault(h, {})
+        node[leaf] = jnp.asarray(a)
+    return tree, {k: torch.from_numpy(a) for k, a in flat.items()}
+
+
+def _port_cache(layer, b, cfg):
+    """The layer's fresh cache with a stacked-layer axis of one, as a
+    model's ``make_cache`` leaves have (the placement keys on it)."""
+    one = {"attention": lambda: attention.init_kv_cache(b, T, cfg, torch.float32),
+           "mla": lambda: mla.init_mla_cache(b, T, cfg, torch.float32),
+           "mamba": lambda: mamba.init_mamba_state(b, cfg, torch.float32),
+           "mlstm": lambda: xlstm.init_mlstm_state(b, cfg),
+           "slstm": lambda: xlstm.init_slstm_state(b, cfg)}[layer]()
+    return {k: v[None] for k, v in one.items()}
+
+
+def _jax_cache(layer, b, cfg):
+    return {"attention": lambda: jax_attention.init_kv_cache(b, T, cfg, jnp.float32),
+            "mla": lambda: jax_mla.init_mla_cache(b, T, cfg, jnp.float32),
+            "mamba": lambda: jax_mamba.init_mamba_state(b, cfg, jnp.float32),
+            "mlstm": lambda: jax_xlstm.init_mlstm_state(b, cfg),
+            "slstm": lambda: jax_xlstm.init_slstm_state(b, cfg)}[layer]()
+
+
+def _port_step(layer, p, x, pos, cfg, cache, decode):
+    """One call of the port's layer: (out, the cache after it)."""
+    if layer in ("attention", "mla"):
+        fn = attention.attention if layer == "attention" else mla.mla_attention
+        return fn(p, x, pos, cfg, cache=cache, decode=decode), cache
+    fn = {"mamba": mamba.mamba, "mlstm": xlstm.mlstm_block, "slstm": xlstm.slstm_block}[layer]
+    out, new = fn(p, x, cfg, state=cache, decode=decode)
+    return out, new
+
+
+def _jax_step(layer, cfg, decode):
+    """The JAX layer's call, jitted: (p, x, positions, cache) → (out, cache)."""
+    if layer in ("attention", "mla"):
+        fn = jax_attention.attention if layer == "attention" else jax_mla.mla_attention
+        return jax.jit(lambda p, x, pos, cache: fn(p, x, pos, cfg, cache=cache, decode=decode))
+    fn = {"mamba": jax_mamba.mamba, "mlstm": jax_xlstm.mlstm_block,
+          "slstm": jax_xlstm.slstm_block}[layer]
+    return jax.jit(lambda p, x, pos, cache: fn(p, x, cfg, state=cache, decode=decode))
+
+
+def _inputs(b, d):
+    rng = np.random.default_rng(1)
+    xs = [rng.standard_normal((b, S, d)).astype(np.float32)]
+    xs += [rng.standard_normal((b, 1, d)).astype(np.float32) for _ in range(STEPS)]
+    pos = [np.broadcast_to(np.arange(S, dtype=np.int32), (b, S))]
+    pos += [np.full((b, 1), S + t, np.int32) for t in range(STEPS)]
+    return xs, pos
+
+
+def _serve_port(layer, p, cfg, cache, xs, pos):
+    """Prefill then the decode steps: (each call's output, the last cache)."""
+    outs = []
+    for i, (x, ps) in enumerate(zip(xs, pos)):
+        out, cache = _port_step(layer, p, torch.from_numpy(x), torch.from_numpy(ps.copy()),
+                                cfg, cache, decode=i > 0)
+        outs.append(out)
+    return outs, cache
+
+
+def _ranks(layer, case, defs, params, cfg, b, xs, pos):
+    """Each rank's layer on its blocks over a plain group: the ranks'
+    outputs (rank 0's, every rank's equal) and their final cache, each
+    leaf's blocks laid whole."""
+    _, _, axis, m, overrides, _ = CASES[case]
+    sizes = {"data": m if axis == "data" else 1, "model": m if axis == "model" else 1}
+    rules = dict(default_act_rules(), **overrides)
+    specs = specs_for(defs, Mesh(sizes))
+    dims = {k: leaf_layout(s, Mesh(sizes)).model for k, s in specs.items()}
+    whole_cache = _port_cache(layer, b, cfg)
+    lays = leaf_dims(cache_shardings(whole_cache, Mesh(sizes), rules), Mesh(sizes))
+
+    def rank(group):
+        mesh = Mesh(sizes, rank=group.index, groups={(axis,): group})
+        block = {k: C.shard_leaf(v, dims[k], m, group.index) for k, v in params.items()}
+        cache = cache_block(whole_cache, mesh, rules, "cpu")
+        ctx = ShardCtx(mesh, rules, specs, cache_seq_split=axis == "data",
+                       rows_split=axis != "data")
+        with torch.no_grad(), use_sharding(ctx):
+            outs, cache = _serve_port(layer, block, cfg, {k: v[0] for k, v in cache.items()},
+                                      xs, pos)
+        return outs, cache
+
+    got = C.run_plain_ranks(rank, m)
+    for outs, _ in got[1:]:
+        for a, w in zip(outs, got[0][0]):
+            torch.testing.assert_close(a, w, rtol=0, atol=0)
+    final = {}
+    for k, _ in tree_leaves_with_paths(whole_cache):
+        lay = lays[k]
+        dim = lay.data if axis == "data" else lay.model
+        final[k] = C.gather_leaf_plain([g[1][k][None] for g in got],
+                                       None if dim is None else dim).numpy()[0]
+    return [o.numpy() for o in got[0][0]], final
+
+
+def _close(a, ref, tol, msg):
+    np.testing.assert_allclose(a, ref, rtol=0, atol=tol * max(1.0, float(np.abs(ref).max())),
+                               err_msg=msg)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_layer_serves_over_ranks_as_whole_and_jax(case):
+    layer, (jcfg, cfg), axis, m, _, b = CASES[case]
+    defs = LAYERS[layer][1]
+    jparams, params = _params(defs(cfg))
+    xs, pos = _inputs(b, cfg.d_model)
+
+    jcache, jouts = _jax_cache(layer, b, jcfg), []
+    prefill, decode = _jax_step(layer, jcfg, False), _jax_step(layer, jcfg, True)
+    for i, (x, ps) in enumerate(zip(xs, pos)):
+        out, jcache = (decode if i else prefill)(jparams, jnp.asarray(x), jnp.asarray(ps), jcache)
+        jouts.append(np.asarray(out))
+    with torch.no_grad():
+        wouts, wcache = _serve_port(layer, params, cfg,
+                                    {k: v[0] for k, v in _port_cache(layer, b, cfg).items()},
+                                    xs, pos)
+    wouts = [o.numpy() for o in wouts]
+    routs, rcache = _ranks(layer, case, defs(cfg), params, cfg, b, xs, pos)
+    tol = MLSTM_RANKS_TOL if layer == "mlstm" else RANKS_TOL
+
+    for i, (r, w, j) in enumerate(zip(routs, wouts, jouts)):
+        _close(w, j, JAX_TOL, f"{case}: call {i}, whole against JAX")
+        _close(r, w, tol, f"{case}: call {i}, ranks against whole")
+        _close(r, j, JAX_TOL, f"{case}: call {i}, ranks against JAX")
+    for k, j in jcache.items():
+        j = np.asarray(j)
+        w = wcache[k].numpy()
+        _close(w, j, JAX_TOL, f"{case}: cache {k}, whole against JAX")
+        _close(rcache[k], w, tol, f"{case}: cache {k}, ranks against whole")
+
+
+def test_cases_split_what_they_say():
+    """The cases' caches split as their docstrings say: the kv heads over
+    model or whole, the latent cache whole, Mamba's state by the ``inner``
+    rule only, the cells' state by heads, and the sequence over data."""
+    def cache_dims(case):
+        layer, (_, cfg), axis, m, overrides, b = CASES[case]
+        sizes = {"data": m if axis == "data" else 1, "model": m if axis == "model" else 1}
+        rules = dict(default_act_rules(), **overrides)
+        return {k: tuple(lay) for k, lay in leaf_dims(
+            cache_shardings(_port_cache(layer, b, cfg), Mesh(sizes), rules),
+            Mesh(sizes)).items()}
+
+    # (the dimension data splits, the one model splits): the batch of two
+    # splits over data=1, the batch of one over none
+    assert cache_dims("attn_kv_split")["k"] == (1, 3)
+    assert cache_dims("attn_kv_whole")["k"] == (1, None)
+    assert cache_dims("attn_kv_whole_uneven")["v"] == (1, None)
+    assert cache_dims("mla_naive")["c_kv"] == (1, None)
+    assert cache_dims("mamba_inner_rule")["ssm"] == (1, 2)
+    assert cache_dims("mamba_inner_rule")["conv"] == (1, 3)
+    assert cache_dims("mamba_whole_state")["ssm"] == (1, None)
+    assert cache_dims("mlstm")["c"] == (1, 2)
+    assert cache_dims("mlstm_h3_over_2")["c"] == (1, None)
+    assert cache_dims("slstm")["m"] == (1, 2)
+    assert cache_dims("attn_seq_data4")["k"] == (2, None)
+    assert cache_dims("mla_seq_data2")["k_rope"] == (2, None)
+
+
+def test_serving_rows_follow_the_batch_rule():
+    """A rank's rows of a serving batch: its block where the rules split
+    the batch over every data-parallel axis, every row where they split it
+    over none (batch 1), and a ``ValueError`` where they would split it
+    over only some (two rows over pod=2,data=2)."""
+    from repro_torch.sharding import serving_rows
+
+    mesh = Mesh({"pod": 2, "data": 2, "model": 1}, rank=3)
+    rules = default_act_rules(multi_pod=True)
+    assert serving_rows(8, mesh, rules) == (6, 2, True)
+    assert serving_rows(1, mesh, rules) == (0, 1, False)
+    assert serving_rows(3, mesh, rules) == (0, 3, False)
+    with pytest.raises(ValueError, match="every data-parallel axis"):
+        serving_rows(2, mesh, rules)
+
+
+def test_cache_block_is_make_cache_at_one_rank_and_a_block_beyond():
+    """``placement.cache_block`` over one rank allocates what the family's
+    ``make_cache`` does (the xLSTM stabiliser at -1e9, every other leaf 0);
+    over model=2 each leaf at its block's shape, the rules of
+    ``ShardCtx.with_rules``, which keeps the specs and flags."""
+    from repro_torch.models import build_model
+
+    for arch in ("xlstm-350m", "jamba-1.5-large-398b", "deepseek-v3-671b"):
+        model = build_model(smoke_config(arch))
+        whole = model.make_cache(2, 8, "cpu")
+        one = cache_block(model.make_cache(2, 8, "meta"), Mesh({"data": 1, "model": 1}),
+                          default_act_rules(), "cpu")
+        for k, v in tree_leaves_with_paths(whole):
+            got = dict(tree_leaves_with_paths(one))[k]
+            assert got.dtype == v.dtype and torch.equal(got, v), (arch, k)
+    model = build_model(smoke_config("xlstm-350m"))
+    mesh = Mesh({"data": 1, "model": 2}, rank=1, groups={("model",): object()})
+    ctx = ShardCtx(mesh, rows_split=False).with_rules(heads=("model",))
+    assert not ctx.rows_split and ctx.act_rules["heads"] == ("model",)
+    block = cache_block(model.make_cache(2, 8, "meta"), mesh, ctx.act_rules, "cpu")
+    assert block["sub0"]["c"].shape == (1, 2, 2, 64, 64)
+    assert block["sub1"]["m"].shape == (1, 2, 2, 32)
+    assert float(block["sub1"]["m"].max()) == -1e9
+
+
+def test_launch_counts_lose_no_update_across_rank_threads(monkeypatch):
+    """The model ranks of one process launch K3 on threads (the card's
+    phase 19): every wrapper's count (flash's, the fused CE head's, LAMB's
+    and the copy counter) adds under ``launches.LOCK``, which a recording
+    lock in its place sees taken once a count.  Then sixteen threads, more
+    than the cores, each add 2000 through flash's count under a switch
+    interval of 1 µs: none is lost."""
+    import importlib
+    import sys
+    import threading
+
+    from repro_torch.kernels import COPIES, LAUNCHES, VARIANT_LAUNCHES
+    from repro_torch.kernels.flash_attention import _count
+    from repro_torch.kernels.fused_ce import _count as ce_count
+
+    launches = importlib.import_module("repro_torch.kernels.launches")
+
+    class Recording:
+        def __init__(self):
+            self.lock, self.taken = threading.Lock(), 0
+
+        def __enter__(self):
+            self.lock.acquire()
+            self.taken += 1
+
+        def __exit__(self, *exc):
+            self.lock.release()
+
+    saved = (dict(LAUNCHES), {k: dict(v) for k, v in VARIANT_LAUNCHES.items()}, dict(COPIES))
+    counts = [lambda: _count("flash_fwd", torch.bfloat16),
+              lambda: ce_count("fused_ce_fwd", "mma"),
+              lambda: launches.count_launch("lamb_moments"),
+              lambda: launches.count_copy("flash_do")]
+    old = sys.getswitchinterval()
+    try:
+        for count in counts:
+            rec = Recording()
+            monkeypatch.setattr(launches, "LOCK", rec)
+            count()
+            count()
+            assert rec.taken == 2
+        monkeypatch.undo()
+        before = (LAUNCHES["flash_fwd"], VARIANT_LAUNCHES["flash_fwd"]["mma"])
+        sys.setswitchinterval(1e-6)
+        C.run_plain_ranks(lambda g: [_count("flash_fwd", torch.bfloat16) for _ in range(2000)],
+                          16, timeout=60)
+        assert LAUNCHES["flash_fwd"] - before[0] == 16 * 2000
+        assert VARIANT_LAUNCHES["flash_fwd"]["mma"] - before[1] == 16 * 2000
+    finally:
+        sys.setswitchinterval(old)
+        LAUNCHES.update(saved[0])
+        for k, v in saved[1].items():
+            VARIANT_LAUNCHES[k].update(v)
+        COPIES.update(saved[2])

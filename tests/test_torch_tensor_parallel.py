@@ -331,8 +331,11 @@ def test_attention_refuses_split_heads_with_whole_kv_heads_and_a_cache():
     """Heads split over model=2 while a single kv head stays whole run:
     each rank's q heads attend against the whole kv head, and the two
     ranks' partial outputs (a group of one process sums nothing) add up
-    to the whole attention, as do their partial kv gradients.  A KV cache
-    of split heads still raises (serving on a mesh, item 11 (e))."""
+    to the whole attention, as do their partial kv gradients.  With a KV
+    cache (serving on a mesh, which raised before item 11 (e)) each rank's
+    cache holds the whole kv head: a prefill of 4 positions and a decode
+    step on each rank add up to the whole layer's, and every rank's cache
+    equals the whole one."""
     import torch.distributed as dist
 
     cfg = ModelConfig(**dict(TINY, n_kv_heads=1, activation_dtype="float32"))
@@ -359,12 +362,22 @@ def test_attention_refuses_split_heads_with_whole_kv_heads_and_a_cache():
                 (out * dy).sum().backward()
             outs.append(out.detach())
             kv_grads.append((half["wk"].grad, half["wv"].grad))
-        cfg2 = ModelConfig(**TINY)
-        two = {"wq": full["wq"][:, :2], "wk": full["wk"][:, :1].expand(64, 1, 16),
-               "wv": full["wv"][:, :1].expand(64, 1, 16), "wo": full["wo"][:2]}
-        with use_sharding(_fake_tp_ctx(cfg2)):
-            with pytest.raises(NotImplementedError, match="item 11 \\(e\\)"):
-                attention(two, x, pos, cfg2, cache=init_kv_cache(2, 8, cfg2))
+        x1, pos1 = torch.randn(2, 1, 64), torch.full((2, 1), 4)
+
+        def serve(p, ctx):
+            cache = init_kv_cache(2, 8, cfg, torch.float32)
+            with torch.no_grad(), use_sharding(ctx):
+                return (attention(p, x, pos, cfg, cache=cache),
+                        attention(p, x1, pos1, cfg, cache=cache, decode=True), cache)
+
+        whole_serve = serve(full, None)
+        served = []
+        for r in range(2):
+            half = {k: (v[:, 2 * r:2 * r + 2] if k == "wq" else
+                        v[2 * r:2 * r + 2] if k == "wo" else v) for k, v in full.items()}
+            mesh = Mesh({"data": 1, "model": 2}, rank=r, groups={("model",): dist.group.WORLD})
+            served.append(serve(half, ShardCtx(mesh, param_specs=specs_for(
+                build_model(cfg).defs, mesh))))
     finally:
         dist.destroy_process_group()
     torch.testing.assert_close(outs[0] + outs[1], want.detach(), rtol=1e-5, atol=1e-5)
@@ -372,6 +385,12 @@ def test_attention_refuses_split_heads_with_whole_kv_heads_and_a_cache():
                                rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(kv_grads[0][1] + kv_grads[1][1], whole["wv"].grad,
                                rtol=1e-5, atol=1e-5)
+    for i in range(2):   # the prefill and the decode step
+        torch.testing.assert_close(served[0][i] + served[1][i], whole_serve[i],
+                                   rtol=1e-5, atol=1e-5)
+    for k, v in whole_serve[2].items():
+        for r in range(2):
+            torch.testing.assert_close(served[r][2][k], v, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("arch", MODEL_AXIS_ARCHS)
