@@ -296,6 +296,43 @@ Phases, each of which raises (and so exits non-zero) on failure:
    within 3x the whole bf16 call's distance from fp32; (d) K3 on one
    model=4 rank's heads at (a)'s prefill shape (B 8, 4 of 16 q heads, 2 of 8
    kv, S 128, causal) timed beside its plain version, its bound and SDPA.
+20. the continuous engine on a mesh (after phase 19, before phase 6's
+   timings; the ranks are threads of ``launch.mesh.run_plain_mesh``, each
+   mesh with plain groups over data, model and every rank, its host group
+   the last; bf16, random weights from seed 0, flash on): (a)
+   granite-moe-1b-a400m at full width, 6 of its 24 layers, served by ``ContinuousEngine(
+   shard_ctx=)`` over data=2,model=2 (an 8-slot pool of 256 positions, 4
+   slots a data rank), 16 seeded prompts of 32-128 tokens, 16 greedy
+   tokens each, every arrival at 0, with a NaN sample (request 3), a
+   corrupted slot (request 5, quarantined 4 steps) and a stall past the
+   watchdog's SLO at step 6 (the SLO 3x the slowest warm mesh step, the
+   stall 1.25x the SLO), beside the whole-model ``ContinuousEngine`` on
+   the same scenario: every rank's statuses, attempts, reasons and tokens
+   alike, its events' kinds and request ids rank 0's and the whole
+   engine's, rank 0 alone writing; the terminal counts, retries, quarantines and degraded flag
+   the whole engine's; each rank's pool a quarter of the whole's (its k/v;
+   the index whole); K3 6 layers x 4 ranks a prefill, retries included,
+   all ``mma``, each call held against its plain version; the first
+   admission's gathered prefill logits within 3x the whole bf16 call's
+   distance from fp32 (token partings from the whole run logged); then in
+   fp32, 4 requests through 4 slots (2 a data rank), each block of each
+   rank fed the whole engine's input (a decode step's rows the rank's
+   block of them) and kept to its top-k sets, as phase 19's check: every
+   block within 1e-4 of the whole block's update, every gathered logits
+   call (the 4 prefills and the 3 decode steps that give each request 3
+   tokens) within 1e-4 of its size; (b) a
+   second ``generate`` of 8 requests on (a)'s engines with rank 1's drain
+   flag alone up from its 3rd poll and no grace: every rank drains at the
+   same iteration and sheds the same requests; (c) smollm-360m at full
+   width, one slot under ``cache_seq`` over data=4 (16,384 positions, 4,096
+   a rank), a 16,000-token prompt and 8 greedy tokens: the first decode
+   step's gathered logits by (a)'s 3x rule, each rank's pool a quarter of
+   the whole's; then (a)'s fp32 check on the prompt's first 2,047 tokens in
+   a 4,096-position cache (1,024 a rank), the prefill and 2 decode steps,
+   the first writing in rank 1's block, the second in rank 2's; (d) the agreed readings per loop iteration and their host
+   milliseconds beside (a)'s decode-step wall; K3 on one model=2 rank's
+   heads at (a)'s prefill shape (B 1, 8 of 16 q heads, 4 of 8 kv, S 128,
+   causal) timed beside its plain version, its bound and SDPA.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -5106,7 +5143,10 @@ class _BlockProbe:
     run's n-th input, its output is held to the whole's n-th output relative
     to the size of the whole block's update, and its n-th route call keeps the
     whole run's expert set, the gates from its own logits (a token whose own
-    set differs logs the whole run's gap).  "free": rank 0's block outputs
+    set differs logs the whole run's gap); where a rank computes fewer rows
+    than the whole run (a decode step over its rows of a slot pool), its
+    rows are the ``block``-th block of the whole's that :meth:`enter`
+    names.  "free": rank 0's block outputs
     against the whole's relative to the whole's, and each route call's tokens
     whose set differs (nothing forced).  "perturb": a whole run again with the
     embeddings scaled by 1 ± 2^-24 (a rounding-size change) and the whole
@@ -5120,9 +5160,16 @@ class _BlockProbe:
         self.w_in, self.w_out, self.w_idx, self.w_gap = [], [], [], []
         self.errs, self.flips = {}, {}
 
-    def enter(self, rank):
-        self.local.rank, self.local.nb, self.local.nr = rank, 0, 0
+    def enter(self, rank, block=0):
+        self.local.rank, self.local.block, self.local.nb, self.local.nr = rank, block, 0, 0
         self.errs[rank], self.flips[rank] = [], []
+
+    def _mine(self, w, rows):
+        """The whole run's ``w`` at this rank's ``rows`` rows."""
+        if w.shape[0] == rows:
+            return w
+        b = getattr(self.local, "block", 0)
+        return w[b * rows:(b + 1) * rows]
 
     def read(self):
         """``{rank: (block errors, differing sets by route call, the whole
@@ -5146,15 +5193,16 @@ class _BlockProbe:
                 self.w_in.append(x.float())
                 self.w_out.append(out.float())
                 return out, aux
+            w_in, want = self.w_in[n], self.w_out[n]
             if self.mode == "force":
-                if x.shape != self.w_in[n].shape:
+                w_in, want = self._mine(w_in, x.shape[0]), self._mine(want, x.shape[0])
+                if x.shape != w_in.shape:
                     raise AssertionError(f"block call {n}: rank {rank}'s input "
                                          f"{tuple(x.shape)}, the whole's "
                                          f"{tuple(self.w_in[n].shape)}")
-                x = self.w_in[n].to(x.dtype)
+                x = w_in.to(x.dtype)
             out, aux = real(bp, x, positions, cfg, **kw)
-            want = self.w_out[n]
-            scale = (want - self.w_in[n]) if self.mode == "force" else want
+            scale = (want - w_in) if self.mode == "force" else want
             if rank in (None, 0) or self.mode == "force":
                 self.errs[rank].append((out.float() - want).abs().max() / scale.abs().max())
             return out, aux
@@ -5173,9 +5221,9 @@ class _BlockProbe:
                 self.w_idx.append(idx)
                 self.w_gap.append(top[:, -2] - top[:, -1])
                 return gates, idx, aux
-            want = self.w_idx[n]
+            want = self._mine(self.w_idx[n], idx.shape[0])
             differ = (idx.sort(-1).values != want.sort(-1).values).any(-1)
-            self.flips[rank].append((differ, self.w_gap[n]))
+            self.flips[rank].append((differ, self._mine(self.w_gap[n], idx.shape[0])))
             if self.mode == "free":
                 return gates, idx, aux
             g = probs.gather(1, want)
@@ -5635,6 +5683,496 @@ def run_serve_mesh(device, rate: float) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 20: the continuous engine on a mesh
+# ---------------------------------------------------------------------------
+
+CONT_MESH = {"data": 2, "model": 2}
+# granite-moe-1b's full width cut to 6 of its 24 layers: four thread ranks
+# on one card run host-serial, a decode step about four whole steps (1.2 s
+# at 24 layers, 0.4-0.55 s at 8), and phase 20 keeps within its minute
+CONT_LAYERS = 6
+CONT_SLOTS, CONT_MAX_LEN, CONT_REQUESTS, CONT_NEW = 8, 256, 16, 16
+CONT_PROMPTS = (32, 128)   # prompt lengths drawn from [32, 128]
+# the watchdog's SLO: CONT_SLO_FACTOR times the slowest of the mesh's warm
+# decode steps past the first (four thread ranks on one card run
+# host-serial, a step about four whole steps); the stall at CONT_STALL_STEP
+# CONT_STALL_FACTOR times the SLO
+CONT_WARM_NEW, CONT_SLO_FACTOR, CONT_STALL_FACTOR, CONT_STALL_STEP = 4, 3.0, 1.25, 6
+# (a)'s fp32 check: 4 requests through a 4-slot pool (2 slots a data rank,
+# admitted two a loop iteration, so both data ranks' rows run), 3 tokens each
+FORCED_SLOTS, FORCED_NEW = 4, 3
+CONT_QUARANTINE = 4
+DRAIN_REQUESTS, DRAIN_POLL = 8, 3
+SEQ_RANKS, SEQ_MAX_LEN, SEQ_PROMPT, SEQ_NEW = 4, 16384, 16000, 8
+# (c)'s fp32 check: the prompt's first 2,047 tokens in a 4,096-position
+# cache (1,024 a rank), FORCED_NEW tokens, so the two decode steps write
+# position 2,047 in rank 1's block and 2,048 in rank 2's
+SEQ_LOCAL = (2047, 4096)
+K3_CONT_TIMING = [("continuous model=2 rank", 1, 8, 4, 128, 64, True)]
+
+
+class _GatheredLogits:
+    """The first ``keep`` results of ``continuous.gather_logits`` on each
+    thread (each call's gathered (rows, V) logits, in fp32), by the rank
+    :meth:`enter` told it runs (None: a thread it was not told of, the
+    whole engine's)."""
+
+    def __init__(self, keep: int):
+        import threading
+
+        self.keep, self.local, self.calls = keep, threading.local(), {}
+
+    def enter(self, rank: int, block: int = 0) -> None:
+        self.local.rank = rank
+
+    def installed(self):
+        import contextlib
+
+        from repro_torch.serve import continuous
+
+        real = continuous.gather_logits
+
+        def recorded(last, ctx, vocab):
+            out = real(last, ctx, vocab)
+            calls = self.calls.setdefault(getattr(self.local, "rank", None), [])
+            if len(calls) < self.keep:
+                calls.append(out.float().clone())
+            return out
+
+        @contextlib.contextmanager
+        def patch():
+            continuous.gather_logits = recorded
+            try:
+                yield self
+            finally:
+                continuous.gather_logits = real
+        return patch()
+
+
+def _cont_ranks(device, sizes, fn, probes=()):
+    """``fn(mesh)`` on each rank of ``sizes``, a thread each of
+    ``run_plain_mesh``, each of ``probes`` told the rank and its index over
+    the data-parallel axes; returns the ranks' results and the wall
+    seconds."""
+    import torch
+
+    from repro_torch.launch.mesh import run_plain_mesh
+    from repro_torch.sharding.axes import batch_axes
+
+    def rank(mesh):
+        torch.cuda.set_device(device.index or 0)   # a new thread has no current context
+        for probe in probes:
+            probe.enter(mesh.rank, mesh.index(batch_axes(mesh)))
+        return fn(mesh)
+
+    t0 = time.perf_counter()
+    out = run_plain_mesh(rank, sizes, timeout=600)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _outcome(reqs) -> list:
+    return [(r.status.value, r.attempts, r.shed_reason or r.fail_reason,
+             tuple(int(t) for t in r.out_tokens)) for r in reqs]
+
+
+def _stats(events) -> dict:
+    stats = [e for e in events if e["event"] == "serve_stats"][-1]
+    return {k: stats[k] for k in ("submitted", "completed", "shed", "timed_out", "failed",
+                                  "retries", "quarantines", "degraded", "decode_steps")}
+
+
+def _from_fp32(label, model, params, prompt, forced, got, max_len) -> tuple:
+    """(the ranks' logits' max |diff| from an fp32 run, the whole bf16
+    call's): the whole model's logits after the prefill of ``prompt`` and
+    each token of ``forced`` (teacher-forced, the static Engine), the last
+    of them against ``got``; raises past MESH_FACTOR times."""
+    import numpy as np
+
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine
+
+    toks, forced = np.asarray(prompt, np.int32)[None], np.asarray(forced, np.int32)[None]
+    whole = Engine(model, params, max_len=max_len).replay(toks, forced)[:, -1]
+    f32 = build_model(model.cfg.replace(activation_dtype="float32"))
+    ref = Engine(f32, params, max_len=max_len).replay(toks, forced)[:, -1]
+    d_mesh = float((got - ref).abs().max())
+    d_whole = float((whole - ref).abs().max())
+    log(f"continuous mesh {label}: gathered bf16 logits, max |diff| from fp32: the ranks' "
+        f"{d_mesh:.4g}, the whole bf16 call's {d_whole:.4g} (top logit "
+        f"{float(ref.abs().max()):.4g}; rule {MESH_FACTOR}x)")
+    if not d_mesh <= MESH_FACTOR * d_whole:
+        raise AssertionError(f"continuous mesh {label}: the ranks left the whole run: "
+                             f"{d_mesh} against {d_whole}")
+    return d_mesh, d_whole
+
+
+def _continuous_forced(label, device, model, params, specs, sizes, n_slots, max_len,
+                       rules=None) -> dict:
+    """The fp32 ``ContinuousEngine`` over the mesh ``sizes`` against the
+    whole model's, on ``specs`` (``[(prompt, max_new_tokens)]``, greedy,
+    every arrival at 0), each block of each rank fed the whole run's input
+    and kept to its top-k sets (:class:`_BlockProbe` "force"; a decode
+    step's rows the rank's block of the whole step's): every block call
+    within LOCAL_TOL of the whole block's update, every kept set that
+    differs a tie within FLIP_GAP, every gathered logits call (each
+    admission's prefill, each decode step's (n_slots, V)) within LOCAL_TOL
+    of its size, and where an argmax moved, the whole's top-2 margin within
+    LOCAL_TOL of its size; then each rank's pool (its k/v or state block,
+    the index whole) within LOCAL_TOL of its block of the whole engine's,
+    every position ever written included.  Returns the errors, the calls
+    and the seconds."""
+    import torch
+
+    from repro_torch.checkpoint.io import tree_leaves_with_paths
+    from repro_torch.models import build_model
+    from repro_torch.serve import ContinuousEngine, ServeRequest
+    from repro_torch.sharding import ShardCtx, cache_shardings, leaf_dims
+    from repro_torch.sharding.collectives import shard_block
+
+    f32 = build_model(model.cfg.replace(activation_dtype="float32"))
+
+    def run(ctx=None):
+        eng = ContinuousEngine(f32, params, n_slots=n_slots, max_len=max_len, shard_ctx=ctx)
+        eng.generate([ServeRequest(p, max_new_tokens=n, rid=i) for i, (p, n) in enumerate(specs)])
+        return eng.pool
+
+    rec, logits = _BlockProbe(), _GatheredLogits(1 << 20)
+    with torch.no_grad(), rec.installed(), logits.installed():
+        whole_pool = dict(tree_leaves_with_paths(run().cache))
+    meta = f32.make_cache(n_slots, max_len, "meta")
+
+    def rank(mesh):
+        """This rank's pool against its block of the whole engine's: the
+        largest leaf difference over the whole leaf's size."""
+        pool = run(ShardCtx(mesh).with_rules(**(rules or {})))
+        lays = leaf_dims(cache_shardings(meta, mesh, pool.ctx.act_rules), mesh)
+        err = 0.0
+        for path, leaf in tree_leaves_with_paths(pool.cache):
+            want = whole_pool[path]
+            if path.endswith("/index"):
+                err = max(err, float(not torch.equal(leaf, want)))
+                continue
+            want = shard_block(want, lays[path], mesh)
+            size = float(want.abs().max()) or 1.0
+            err = max(err, float((leaf.float() - want.float()).abs().max()) / size)
+        return err
+
+    force = rec.moved("force")
+    t0 = time.perf_counter()
+    with force.installed(), logits.installed():
+        pool_err = max(_cont_ranks(device, sizes, rank, (force, logits))[0])
+    t_force = time.perf_counter() - t0
+    readings = force.read()
+    whole = logits.calls.pop(None)
+    step_err, faults = [], []
+    for r, got in sorted(logits.calls.items()):
+        if len(got) != len(whole):
+            raise AssertionError(f"continuous mesh {label}: rank {r} gathered {len(got)} "
+                                 f"logits, the whole engine {len(whole)}")
+        for i, (g, w) in enumerate(zip(got, whole)):
+            size = w.abs().amax(-1)
+            step_err.append(float(((g - w).abs().amax(-1) / size).max()))
+            top = w.topk(2, -1).values
+            moved = g.argmax(-1) != w.argmax(-1)
+            margin = (top[:, 0] - top[:, 1]) / size
+            if moved.any() and float(margin[moved].max()) > LOCAL_TOL:
+                faults.append(f"rank {r} call {i}: an argmax moved at margin "
+                              f"{float(margin[moved].max()):.3g}")
+    block_err = max(max(e) for e, _, _ in readings.values())
+    gaps = [g for _, _, v in readings.values() for g in v]
+    n_flips = sum(sum(f) for _, f, _ in readings.values())
+    log(f"continuous mesh {label} fp32, each block fed the whole engine's input "
+        f"({len(readings[0][0])} block calls a rank, {len(whole)} gathered logits calls, "
+        f"{t_force:.2f} s): a block's output against the whole's, over the whole block's "
+        f"update, max {block_err:.3g} (tol {LOCAL_TOL}); the gathered logits max "
+        f"{max(step_err):.3g} of their size; top-k sets of a token that differed from the "
+        f"whole run's {n_flips}, the whole run's k-th to (k+1)-th gap there max "
+        f"{max(gaps) if gaps else None} (tol {FLIP_GAP}); {faults or 'no argmax moved'}; "
+        f"a rank's pool against its block of the whole's, max {pool_err:.3g} of its size")
+    if block_err > LOCAL_TOL or max(step_err) > LOCAL_TOL or faults \
+            or (gaps and max(gaps) > FLIP_GAP) or pool_err > LOCAL_TOL:
+        raise AssertionError(f"continuous mesh {label}: fp32 blocks on the whole engine's "
+                             f"inputs left it: block {block_err}, logits {max(step_err)}, "
+                             f"pool {pool_err}, flips at gaps {sorted(gaps)[-4:]}, {faults}")
+    del rec, force, logits, whole, whole_pool
+    torch.cuda.empty_cache()
+    return dict(block_err=block_err, logits_err=max(step_err), pool_err=pool_err,
+                kept_flips=n_flips, block_calls=len(readings[0][0]), s=t_force)
+
+
+def check_continuous_mesh(device) -> dict:
+    """(a), (b) and (d) of phase 20 (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import reset_launches
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import attention
+    from repro_torch.serve import ContinuousEngine, KVPool, ServeFaultInjector, \
+        ServeFaultSpec, ServeRequest
+    from repro_torch.sharding import ShardCtx
+    from repro_torch.telemetry import EventLog, read_events
+
+    cfg = get_config(MOE_ARCH).replace(use_flash_kernel=True, n_layers=CONT_LAYERS)
+    model = build_model(cfg)
+    params = model.init(0, device)
+    rng = np.random.default_rng(20)
+    lens = rng.integers(CONT_PROMPTS[0], CONT_PROMPTS[1] + 1, size=CONT_REQUESTS)
+    prompts = [rng.integers(0, min(cfg.vocab_size, 1024), size=n).astype(np.int32)
+               for n in lens]
+    drain_prompts = prompts[:DRAIN_REQUESTS]
+
+    def reqs(ps):
+        return [ServeRequest(p, max_new_tokens=CONT_NEW, rid=i) for i, p in enumerate(ps)]
+
+    def watched(eng, walls):
+        """``eng`` with each step wall its watchdog takes kept in ``walls``."""
+        watchdog = eng._watchdog
+        eng._watchdog = lambda w: (walls.append(w), watchdog(w))[1]
+        return eng
+
+    def warm(mesh=None):
+        """One request through a fresh engine without faults, so that the
+        first step's one-time costs fall outside the watchdog's readings;
+        returns its decode steps' walls."""
+        walls = []
+        watched(ContinuousEngine(model, params, n_slots=CONT_SLOTS, max_len=CONT_MAX_LEN,
+                                 shard_ctx=None if mesh is None else ShardCtx(mesh)),
+                walls).generate([ServeRequest(prompts[0], max_new_tokens=CONT_WARM_NEW, rid=0)])
+        return walls
+
+    # the SLO from the mesh's warm steps (every rank's walls are rank 0's)
+    warm_walls = _cont_ranks(device, CONT_MESH, warm)[0][0]
+    slo = CONT_SLO_FACTOR * max(warm_walls[1:])
+    stall = CONT_STALL_FACTOR * slo
+    faults = (("sample_nan", 3, 0.0), ("slot_corrupt", 5, 0.0),
+              ("decode_stall", CONT_STALL_STEP, stall))
+    log(f"continuous mesh (a): the mesh's warm decode steps {[round(w, 4) for w in warm_walls]} "
+        f"s; the watchdog's SLO {slo:.3f} s, the stall at step {CONT_STALL_STEP} {stall:.3f} s")
+
+    def engine(mesh=None, log=None):
+        inj = ServeFaultInjector([ServeFaultSpec(k, at, stall_s=st) for k, at, st in faults])
+        return ContinuousEngine(model, params, n_slots=CONT_SLOTS, max_len=CONT_MAX_LEN,
+                                faults=inj, quarantine_steps=CONT_QUARANTINE,
+                                stall_slo_s=slo, telemetry=log,
+                                shard_ctx=None if mesh is None else ShardCtx(mesh))
+
+    # the whole model's engine on the same scenario
+    warm()
+    whole_log = EventLog.memory()
+    t0 = time.perf_counter()
+    whole = _outcome(engine(log=whole_log).generate(reqs(prompts)))
+    torch.cuda.synchronize()
+    t_whole = time.perf_counter() - t0
+    whole_stats = _stats(whole_log.events)
+
+    real, errs = attention.flash_sdpa, []
+
+    def held(q, k, v, **kw):
+        o = real(q, k, v, **kw)
+        ref = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                              kw.get("kv_valid"), causal=kw["causal"], window=kw["window"],
+                              plain=True).transpose(1, 2).float()
+        atol = 1e-4 * max(1.0, float(ref.abs().max()))
+        errs.append((bool(torch.allclose(o.float(), ref, rtol=1e-2, atol=atol)),
+                     float((o.float() - ref).abs().max()), q.shape[2], k.shape[2]))
+        return o
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    paths = [build / f"continuous_events_rank{r}.jsonl" for r in range(4)]
+    for path in paths:
+        path.unlink(missing_ok=True)
+    probe = _GatheredLogits(1)
+
+    def rank(mesh):
+        walls = []
+        eng = watched(engine(mesh, EventLog(paths[mesh.rank])), walls)
+        out = _outcome(eng.generate(reqs(prompts)))
+        # (a)'s counts, read on rank 0 before it agrees (b)'s first reading,
+        # which no rank passes before every rank has
+        counts = _counts() if mesh.rank == 0 else None
+        eng.telemetry.close()
+        first = dict(agreements=eng.agreements, agreement_s=eng.agreement_s,
+                     iterations=eng.iterations, walls=walls, counts=counts,
+                     events=None if mesh.rank == 0 else list(eng.telemetry.events))
+        polls = iter(range(1, 1 << 30))
+        eng.telemetry = EventLog.memory()
+        drained = eng.generate(reqs(drain_prompts), drain_grace_s=0.0,
+                               should_drain=(lambda: next(polls) >= DRAIN_POLL)
+                               if mesh.rank == 1 else None)
+        drain_events = [(e["event"], e.get("rid"), e.get("queued"), e.get("in_flight"))
+                        for e in eng.telemetry.events]
+        return out, first, eng.pool.nbytes, (_outcome(drained), drain_events,
+                                             eng.iterations)
+
+    torch.cuda.synchronize()
+    reset_launches()
+    attention.flash_sdpa = held
+    try:
+        with probe.installed():
+            got, wall = _cont_ranks(device, CONT_MESH, rank, (probe,))
+    finally:
+        attention.flash_sdpa = real
+    launches, designs, _ = got[0][1]["counts"]
+    outs = [g[0] for g in got]
+    if any(o != outs[0] for o in outs):
+        raise AssertionError("continuous mesh (a): the ranks' outcomes differ")
+    events0 = read_events(paths[0])
+    wrote = [p.exists() for p in paths]
+    kinds0 = [(e["event"], e.get("rid")) for e in events0]
+    same_events = all([(e["event"], e.get("rid")) for e in g[1]["events"]] == kinds0
+                      for g in got[1:])
+    # the whole engine decided alike: its events' kinds and rids in order
+    whole_events = [(e["event"], e.get("rid")) for e in whole_log.events] == kinds0
+    mesh_stats = _stats(events0)
+    for path in paths:
+        path.unlink(missing_ok=True)
+    prefills = sum(a for _, a, _, _ in outs[0])
+    errs = errs[:CONT_LAYERS * 4 * prefills]   # (a)'s calls; (b)'s are held alike
+    want = {k: (CONT_LAYERS * 4 * prefills if k == "flash_fwd" else 0) for k in launches}
+    heads = sorted({(e[2], e[3]) for e in errs})
+    idx = 4 * cfg.n_layers * CONT_SLOTS
+    whole_pool = KVPool(model, CONT_SLOTS, CONT_MAX_LEN, "meta").nbytes
+    pool_bytes = [g[2] for g in got]
+    statuses = {s: sum(o[0] == s for o in outs[0]) for s in ("completed", "failed")}
+    same_tokens = sum(a[3] == b[3] for a, b in zip(outs[0], whole))
+    first = got[0][1]
+    walls = first["walls"]
+    stall_at = walls.index(max(walls)) if walls else None
+    healthy = [w for i, w in enumerate(walls) if i != stall_at]
+    log(f"continuous mesh (a) granite-moe-1b ({CONT_LAYERS} layers) data=2,model=2, "
+        f"{CONT_SLOTS} slots: the ranks' "
+        f"run {wall:.2f} s, the whole engine's {t_whole:.2f} s; statuses {statuses}, "
+        f"attempts {[o[1] for o in outs[0]]}; the mesh's stats {mesh_stats}, the whole's "
+        f"{whole_stats}; events {len(events0)} on rank 0, every rank's kinds and rids "
+        f"rank 0's: {same_events}, the whole engine's: {whole_events}; logs written {wrote}; token sequences identical to the "
+        f"whole run's {same_tokens} of {len(outs[0])} (logged only: routing ties part the "
+        f"random-init MoE); pool bytes a rank {pool_bytes}, whole {whole_pool}; K3 "
+        f"{launches['flash_fwd']} launches over {prefills} prefills {designs['flash_fwd']}, "
+        f"{sum(e[0] for e in errs)} of {len(errs)} calls within the rule of their plain "
+        f"version (|o| diff max {max(e[1] for e in errs):.3g}), (q heads, kv heads) {heads}")
+    if not same_events or not whole_events or wrote != [True, False, False, False] \
+            or mesh_stats != whole_stats \
+            or launches != want or designs["flash_fwd"] != {"mma": want["flash_fwd"], "fma": 0} \
+            or not all(e[0] for e in errs) or heads != [(cfg.n_heads // 2, cfg.n_kv_heads // 2)] \
+            or any(4 * (b - idx) != whole_pool - idx for b in pool_bytes) \
+            or [o[:3] for o in outs[0]] != [o[:3] for o in whole] \
+            or [len(o[3]) for o in outs[0]] != [len(o[3]) for o in whole]:
+        raise AssertionError(f"continuous mesh (a): events alike {same_events}, wrote {wrote}, "
+                             f"stats {mesh_stats} against {whole_stats}, launches "
+                             f"{launches} {designs['flash_fwd']} want {want}, pool "
+                             f"{pool_bytes} of {whole_pool}")
+    d_mesh, d_whole = _from_fp32("(a) the first admission's prefill", model, params,
+                                 prompts[0], [], probe.calls[0][0], CONT_MAX_LEN)
+
+    # (b): one drain flag
+    drains = [g[3] for g in got]
+    shed = [i for i, o in enumerate(drains[0][0]) if o[0] == "shed"]
+    log(f"continuous mesh (b): rank 1's drain flag alone from its poll {DRAIN_POLL}: every "
+        f"rank's outcome alike {all(d[0] == drains[0][0] for d in drains)}, its events alike "
+        f"{all(d[1] == drains[0][1] for d in drains)}, loop iterations "
+        f"{[d[2] for d in drains]}; shed {shed}, drain event "
+        f"{[e for e in drains[0][1] if e[0] == 'serve_drain']}")
+    if any(d != drains[0] for d in drains) or not shed \
+            or not any(e[0] == "serve_drain" for e in drains[0][1]):
+        raise AssertionError(f"continuous mesh (b): the ranks drained apart: {drains}")
+
+    # (d): the agreement's cost
+    per_iter = first["agreements"] / max(1, first["iterations"])
+    log(f"continuous mesh (d): {first['agreements']} agreed readings over "
+        f"{first['iterations']} loop iterations ({per_iter:.2f} an iteration), "
+        f"{1e3 * first['agreement_s']:.2f} ms of rank 0's host time in all "
+        f"({1e3 * first['agreement_s'] / max(1, first['agreements']):.3f} ms each); (a)'s "
+        f"decode steps on the mesh {len(walls)}, wall mean "
+        f"{1e3 * sum(healthy) / max(1, len(healthy)):.1f} ms, max {1e3 * max(healthy):.1f} ms "
+        f"without the stalled step {stall_at} ({1e3 * max(walls):.1f} ms)")
+
+    # fp32: the prefills and first decode steps, each block on the whole
+    # engine's input
+    forced = _continuous_forced("(a)", device, model, params,
+                                [(p, FORCED_NEW) for p in prompts[:FORCED_SLOTS]],
+                                CONT_MESH, FORCED_SLOTS, CONT_MAX_LEN)
+    del params
+    torch.cuda.empty_cache()
+    return dict(launches=launches, designs=designs, prefills=prefills, wall_s=wall,
+                whole_s=t_whole, pool_bytes=pool_bytes, whole_pool_bytes=whole_pool,
+                d_mesh=d_mesh, d_whole=d_whole, identical=same_tokens, shed=shed,
+                agreements=first["agreements"], iterations=first["iterations"],
+                agreement_ms=1e3 * first["agreement_s"], slo_s=slo, stall_s=stall,
+                step_ms=1e3 * sum(healthy) / max(1, len(healthy)), forced=forced)
+
+
+def check_continuous_seq_split(device) -> dict:
+    """(c) of phase 20: smollm-360m, one slot under ``cache_seq`` over four
+    data ranks."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import reset_launches
+    from repro_torch.models import build_model
+    from repro_torch.serve import ContinuousEngine, KVPool, ServeRequest
+    from repro_torch.sharding import ShardCtx
+
+    cfg = get_config(LONG_ARCH).replace(use_flash_kernel=True)
+    model = build_model(cfg)
+    params = model.init(0, device)
+    prompt = np.random.default_rng(20).integers(0, min(cfg.vocab_size, 1024), size=SEQ_PROMPT
+                                                ).astype(np.int32)
+    probe = _GatheredLogits(2)   # the prefill's, then the first decode step's
+
+    def rank(mesh):
+        eng = ContinuousEngine(model, params, n_slots=1, max_len=SEQ_MAX_LEN,
+                               shard_ctx=ShardCtx(mesh).with_rules(cache_seq=("data",)))
+        out = eng.generate([ServeRequest(prompt, max_new_tokens=SEQ_NEW, rid=0)])
+        return [int(t) for t in out[0].out_tokens], eng.pool.nbytes, eng.pool.ctx.cache_seq_split
+
+    torch.cuda.synchronize()
+    reset_launches()
+    with probe.installed():
+        got, wall = _cont_ranks(device, {"data": SEQ_RANKS, "model": 1}, rank, (probe,))
+    launches, designs, _ = _counts()
+    toks = got[0][0]
+    idx = 4 * cfg.n_layers
+    whole_pool = KVPool(model, 1, SEQ_MAX_LEN, "meta").nbytes
+    pool_bytes = [g[1] for g in got]
+    log(f"continuous mesh (c) smollm-360m, one slot of {SEQ_MAX_LEN} positions over data="
+        f"{SEQ_RANKS} ({SEQ_MAX_LEN // SEQ_RANKS} a rank), a {SEQ_PROMPT}-token prompt, "
+        f"{SEQ_NEW} tokens: the ranks' run {wall:.2f} s; tokens alike "
+        f"{all(g[0] == toks for g in got)}; pool bytes a rank {pool_bytes}, whole "
+        f"{whole_pool}; K3 {launches['flash_fwd']} {designs['flash_fwd']}")
+    if any(g[0] != toks for g in got) or not all(g[2] for g in got) \
+            or any(SEQ_RANKS * (b - idx) != whole_pool - idx for b in pool_bytes) \
+            or launches["flash_fwd"] != cfg.n_layers * SEQ_RANKS or len(toks) != SEQ_NEW:
+        raise AssertionError(f"continuous mesh (c): tokens {[g[0] for g in got]}, pool "
+                             f"{pool_bytes} of {whole_pool}, launches {launches}")
+    d_mesh, d_whole = _from_fp32("(c) the first decode step", model, params, prompt, toks[:1],
+                                 probe.calls[0][1], SEQ_MAX_LEN)
+    forced = _continuous_forced("(c)", device, model, params,
+                                [(prompt[:SEQ_LOCAL[0]], FORCED_NEW)],
+                                {"data": SEQ_RANKS, "model": 1}, 1, SEQ_LOCAL[1],
+                                rules={"cache_seq": ("data",)})
+    del params
+    torch.cuda.empty_cache()
+    return dict(launches=launches, wall_s=wall, pool_bytes=pool_bytes,
+                whole_pool_bytes=whole_pool, d_mesh=d_mesh, d_whole=d_whole, forced=forced)
+
+
+def run_continuous_mesh(device, rate: float) -> dict:
+    """Phase 20; returns (a)'s, (c)'s and the K3 timing's numbers."""
+    t0 = time.perf_counter()
+    out = {"pool": check_continuous_mesh(device)}
+    out["seq"] = check_continuous_seq_split(device)
+    out["k3"] = time_flash(device, rate, K3_CONT_TIMING, every=True)[K3_CONT_TIMING[0][0]]
+    log(f"continuous mesh: phase 20 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 6: timing
 # ---------------------------------------------------------------------------
 
@@ -5987,6 +6525,7 @@ def main() -> None:
     run_model_axis(device)
     run_dryrun_phase(device)
     serve_mesh = run_serve_mesh(device, rate)
+    cont_mesh = run_continuous_mesh(device, rate)
     timing = {**time_kernels(device, rate), **time_flash(device, rate),
               **time_fused_ce(device, rate)}
     moe_timing = {**time_kernels(device, rate, MOE_ARCH),
@@ -6085,6 +6624,13 @@ def main() -> None:
         launches=serve_mesh["model"]["launches"]["flash_fwd"],
         long_context_launches=serve_mesh["long"]["launches"]["flash_fwd"],
         **serve_mesh["k3"]["flash_fwd"])
+    # phase 20: K3's launches on the continuous engine's prefills over
+    # data=2,model=2 (retries included) and over data=4 at one slot, and
+    # its times on one model=2 rank's heads at (a)'s prefill shape
+    by_name["flash_fwd"]["continuous_model2_rank"] = dict(
+        launches=cont_mesh["pool"]["launches"]["flash_fwd"],
+        seq_split_launches=cont_mesh["seq"]["launches"]["flash_fwd"],
+        **cont_mesh["k3"]["flash_fwd"])
     log(card)   # again near the end, where a truncated log still shows it
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

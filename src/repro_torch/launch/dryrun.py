@@ -30,7 +30,7 @@ under four counters:
 Nothing is allocated on any device, no process group is made, and nothing
 of JAX runs.  ``launch/roofline.py`` turns the counts into the H100's
 compute, memory and collective terms.  A prefill or decode runs as one
-rank of the static ``Engine`` on the mesh does (``serve/engine.serving_ctx``):
+rank of the static ``Engine`` on the mesh does (``placement.serving_ctx``):
 its rows of the batch, its block of the cache (its kv heads, its ``inner``
 slice, its block of positions under the ``cache_seq`` rule) and its
 parameter blocks gathered over the data-parallel ranks.  Any error fails
@@ -56,7 +56,7 @@ from repro_torch.kernels import cost as kernel_cost
 from repro_torch.launch.mesh import counting_mesh, make_production_mesh
 from repro_torch.launch.roofline import PEAK_OPS, analyze, model_flops
 from repro_torch.models.api import build_model
-from repro_torch.serve.engine import make_decode_step, make_prefill_step, serving_ctx
+from repro_torch.serve.engine import make_decode_step, make_prefill_step
 from repro_torch.sharding import (
     ShardCtx,
     batch_shardings,
@@ -64,6 +64,7 @@ from repro_torch.sharding import (
     default_act_rules,
     default_param_rules,
     leaf_dims,
+    serving_ctx,
     shard_tree,
     specs_for,
     use_sharding,

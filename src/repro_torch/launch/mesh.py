@@ -16,7 +16,9 @@ backend to the other.
 (``data=16,model=16``, or ``pod=2,data=16,model=16``), abstract;
 :func:`counting_mesh` gives a mesh rank 0's groups of
 :class:`~repro_torch.sharding.collectives.CountingGroup`, which count what
-a step would move and call nothing (the dry-run's mesh).
+a step would move and call nothing (the dry-run's mesh);
+:func:`run_plain_mesh` runs every rank of a mesh as a thread of one
+process, its groups plain groups (one card, or the CPU in a test).
 """
 from __future__ import annotations
 
@@ -287,6 +289,33 @@ def init_distributed(device, spec: str = "", *, model_parallel: int = 1
     mesh.groups = _axis_groups(mesh, [a for a in axes_list if a])
     mesh.host_group = dist.group.WORLD if backend == "gloo" else dist.new_group(backend="gloo")
     return mesh, dev
+
+
+def run_plain_mesh(fn, shape: Mapping[str, int], timeout: float = 600.0) -> list:
+    """``[fn(mesh) for each rank of a mesh of shape]``, the ranks threads of
+    one process (``collectives.run_rank_threads``), in rank order.  Each
+    rank's mesh holds the groups :func:`init_distributed` makes, one over
+    each axis, one over the data-parallel axes and one over every axis, each
+    a :class:`~repro_torch.sharding.collectives.PlainGroup` (every
+    collective is its plain version over the ranks' tensors); the one over
+    every axis is also its ``host_group``.  A rank that raises breaks every
+    group's barrier, and the first error is raised."""
+    from repro_torch.sharding.axes import batch_axes
+    from repro_torch.sharding.collectives import PlainGroup, PlainRanks, run_rank_threads
+
+    meshes = [Mesh(shape, rank=r) for r in range(Mesh(shape).size)]
+    names = meshes[0].axis_names
+    axes_list = [(a,) for a in names] + [batch_axes(meshes[0]), names]
+    shared: Dict = {}
+    for mesh in meshes:
+        mesh.groups = {}
+        for axes in (a for a in axes_list if a):
+            fixed = tuple(mesh.coords()[a] for a in names if a not in axes)
+            ranks = shared.setdefault((axes, fixed), PlainRanks(mesh.extent(axes), timeout))
+            mesh.groups[axes] = PlainGroup(ranks, mesh.index(axes))
+        mesh.host_group = mesh.groups[names]
+    return run_rank_threads([lambda m=m: fn(m) for m in meshes],
+                            [g.barrier for g in shared.values()], timeout)
 
 
 def shutdown_distributed() -> None:

@@ -33,6 +33,13 @@ deterministic fault list (``kind@ordinal[:persist][:stall=S]``, see
 ``serve/faults.py``), and SIGTERM/SIGINT trigger a graceful drain: no new
 admissions, in-flight work finishes within ``--drain-grace`` seconds, the
 rest is shed, and the process exits with a clean terminal-state summary.
+
+No flag serves on a mesh, as the reference's launcher has none: serving
+on a mesh is the library call, one engine a rank over the mesh of
+``launch.mesh.init_distributed`` (or ``run_plain_mesh``'s thread ranks),
+``Engine(model, params, shard_ctx=ShardCtx(mesh))`` or
+``ContinuousEngine(model, params, shard_ctx=ShardCtx(mesh))``, every rank
+given the same requests.
 """
 from __future__ import annotations
 

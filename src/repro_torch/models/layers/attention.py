@@ -39,12 +39,14 @@ reference's ``cache_seq`` rule; long-context decode at batch 1, every rank
 holding every row) rank r of N holds positions [r·T/N, (r+1)·T/N): prefill
 computes k and v for the whole prompt and attends over it whole (K3 with
 flash), each rank copying the positions that fall in its block; a decode
-step's k/v are written by the rank that owns ``index`` alone, each rank
-scores its own positions under the absolute-position mask and keeps its
-row max, sum and unnormalised output in fp32 (``softmax_partial``), and
-the data group combines them (``combine_partials``: the max all-reduced, the
-rescaled sums and outputs all-reduced).  A block with no valid key adds
-e^(−1e9) = 0, as the reference's −1e9 bias does.
+step's k/v are written by the rank that owns ``index`` alone (for the slot
+pool's (B,) index, each row by the rank that owns that row's), each rank
+scores its own positions under the absolute-position mask (each row
+against its own valid length) and keeps its row max, sum and unnormalised
+output in fp32 (``softmax_partial``), and the data group combines them
+(``combine_partials``: the max all-reduced, the rescaled sums and outputs
+all-reduced).  A block with no valid key for a row adds e^(−1e9) = 0
+there, as the reference's −1e9 bias does.
 """
 from __future__ import annotations
 
@@ -194,22 +196,25 @@ def write_decode(cache: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
     positions [idx, idx + S), its start clamped so they fit as
     ``dynamic_update_slice`` clamps it; a (B,) ``index`` (the slot pool)
     writes row b at idx[b].  Neither reads the index on the host.  With
-    ``seq`` (a scalar index, one token) the cache holds this rank's block
-    of positions and only the rank whose block holds ``index`` writes: the
-    others write their block's row back unchanged."""
+    ``seq`` (one-token steps) the cache holds this rank's block of
+    positions, and row b is written only by the rank whose block holds its
+    index (one index for the batch, or each slot's own): the other ranks
+    write their block's row back unchanged."""
     idx = cache["index"]
     s = next(iter(new.values())).shape[1]
     t = cache[next(iter(new))].shape[1]
     if seq is not None:
-        if idx.ndim or s != 1:
-            raise ValueError("a cache split along its sequence takes one-token steps "
-                             "at one index for the batch")
-        local = torch.clamp(idx, 0, t * seq.size - 1).long() - seq.index * t
+        if s != 1:
+            raise ValueError("a cache split along its sequence takes one-token steps")
+        b = next(iter(new.values())).shape[0]
+        rows = torch.arange(b, device=idx.device)
+        local = (torch.clamp(idx, 0, t * seq.size - 1).long() - seq.index * t).expand(b)
         mine = (local >= 0) & (local < t)
-        pos = torch.clamp(local, 0, t - 1).reshape(1)
+        pos = torch.clamp(local, 0, t - 1)
         for name, x in new.items():
-            old = cache[name].index_select(1, pos)
-            cache[name].index_copy_(1, pos, torch.where(mine, x.to(old.dtype), old))
+            old = cache[name][rows, pos]
+            write = mine.view(b, *[1] * (old.dim() - 1))
+            cache[name][rows, pos] = torch.where(write, x[:, 0].to(old.dtype), old)
         valid = idx + s
     elif idx.ndim == 0:
         start = torch.clamp(idx, 0, t - s).long()

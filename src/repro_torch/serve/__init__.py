@@ -1,6 +1,13 @@
 """Serving (port of ``repro.serve``): the static and continuous-batching
 engines over the model's KV cache, the slot pool, the FCFS scheduler, the
-fault injector and per-row sampling."""
+fault injector and per-row sampling.
+
+On a mesh, one engine a rank: ``Engine(model, params,
+shard_ctx=ShardCtx(mesh))`` or ``ContinuousEngine(model, params,
+shard_ctx=ShardCtx(mesh))`` (for one long-context slot,
+``ShardCtx(mesh).with_rules(cache_seq=("data",))``), every rank called with
+the same requests; the ranks agree every host reading the continuous
+engine decides on, and rank 0 alone writes its telemetry."""
 from repro_torch.serve.continuous import (
     ContinuousEngine,
     make_pool_decode_step,

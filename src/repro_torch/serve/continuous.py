@@ -43,6 +43,27 @@ Every submitted request ends in exactly one terminal
 :class:`~repro_torch.serve.scheduler.RequestStatus`; ``generate`` asserts the
 four terminal counts are disjoint and sum to the submitted total.
 
+On a mesh (``shard_ctx=ShardCtx(mesh)``, one engine a rank, as the
+reference's one ``ContinuousEngine`` under ``use_sharding``) each rank
+holds its parameter blocks (gathered over the data-parallel ranks once a
+``generate``, as the static Engine gathers them once a batch) and its
+block of the slot pool (``kv_pool.KVPool``: its rows of slots, its heads
+and ``inner`` slice, under ``cache_seq`` its block of positions, the index
+and host mirror whole).  Every data rank prefills each admission at batch
+1 on its heads; a decode step runs the rank's rows, and the (n_slots, V)
+logits are gathered over ``model`` and the data ranks, from which every
+rank samples with the same seeded generator.  Every decision is made alike
+on every rank because every host reading it rests on is agreed
+(``collectives.agree_clock`` over the mesh's host group): each read of the
+clock is rank 0's, the drain poll is any rank's flag, and the watchdog
+takes rank 0's step time, so timestamps, timeouts, deadline sweeps,
+degraded mode, terminal states and ``serving_stats`` are identical on
+every rank.  The fault injector, quarantines and retry backoff key on
+request ids and step numbers, which every rank shares.  Only rank 0's
+``EventLog`` is written: another rank keeps its events in memory
+(``telemetry.events``, for a check against rank 0's) where it was given an
+enabled log, else nothing.
+
 Determinism caveat: greedy outputs match the static ``Engine`` token-for-token
 on the dense family where the matrix products give the same bits at every
 batch size (the CPU).  On the card cuBLAS may pick another kernel for
@@ -59,7 +80,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.api import Model
-from repro_torch.serve.engine import params_device
+from repro_torch.serve.engine import RankParams, gather_logits, params_device
 from repro_torch.serve.faults import ServeFaultInjector
 from repro_torch.serve.kv_pool import KVPool, reset_inactive
 from repro_torch.serve.sampling import sample_tokens
@@ -69,7 +90,8 @@ from repro_torch.serve.scheduler import (
     RequestStatus,
     ServeRequest,
 )
-from repro_torch.sharding.context import ShardCtx
+from repro_torch.sharding.collectives import agree_clock
+from repro_torch.sharding.context import ShardCtx, use_sharding
 from repro_torch.telemetry import EventLog
 
 TokenCallback = Callable[[ServeRequest, int], None]
@@ -79,7 +101,9 @@ def make_pool_prefill(model: Model, max_len: int):
     """(params, tokens(1, S)) → (last-token logits (1, V), batch-1 cache).
 
     The cache is built at the pool's max_len so insertion into the pool is a
-    single fixed-shape slot copy per leaf.
+    single fixed-shape slot copy per leaf.  (The reference's pool calls as
+    functions; the engine runs its own, ``ContinuousEngine._prefill`` and
+    ``_decode``, which take a rank's block on a mesh.)
     """
 
     def prefill(params, tokens):
@@ -100,8 +124,8 @@ def make_pool_decode_step(model: Model, *, greedy: bool = False):
     uploads them after slot churn), and the step draws from ``gen``, a
     generator on the device, so the hot loop reads nothing back.
 
-    ``greedy=True`` is the argmax-only variant (no draw / top-k sort); the
-    engine dispatches it whenever every active slot has temperature 0.
+    ``greedy=True`` is the argmax-only variant (no draw / top-k sort), as
+    the engine's step takes whenever every active slot has temperature 0.
     """
 
     def step(params, cache, tokens, positions, active, temps, top_k, gen):
@@ -138,11 +162,13 @@ class ContinuousEngine:
     Invariant: the decode step shape is pinned to (n_slots, 1) for the
     engine's lifetime, on the device ``params`` live on.
 
-    ``shard_ctx`` is the reference's parameter: a context over a mesh of
-    one rank serves as without one; a mesh of more than one rank raises
-    ``NotImplementedError`` (the slot pool on a mesh, whose scheduler's
-    admissions, deadlines and timeouts must be decided once and shared by
-    every rank, is ROADMAP.md queue 1, item 11 (f)).
+    ``shard_ctx``: this rank's engine over its mesh (see the module
+    docstring); ``params`` are then the whole tree or this rank's blocks of
+    it.  A mesh of more than one rank needs its host group
+    (``init_distributed``, or ``launch.mesh.run_plain_mesh`` for ranks as
+    threads), over which the ranks agree.  ``agreements`` and
+    ``agreement_s`` count the last ``generate``'s agreed readings and their
+    host seconds (0 on one process), ``iterations`` its loop iterations.
     """
 
     def __init__(
@@ -164,17 +190,31 @@ class ContinuousEngine:
         degrade_recovery_steps: int = 16,
         shard_ctx: Optional[ShardCtx] = None,
     ):
-        if shard_ctx is not None and shard_ctx.mesh.size > 1:
-            raise NotImplementedError(
-                "ContinuousEngine on a mesh of more than one rank (the slot pool and the "
-                "scheduler's decisions shared over the ranks) is not ported (ROADMAP.md "
-                "queue 1, item 11 (f)); the static Engine serves on a mesh")
         self.shard_ctx = shard_ctx
         self.model = model
-        self.params = params
         self.n_slots = n_slots
         self.max_len = max_len
         self.device = params_device(params)
+        self._rank: Optional[RankParams] = None   # this rank's blocks on a mesh
+        self._host = None   # the group the ranks agree over (None: one process)
+        self._rank_log = False   # telemetry is another rank's log, kept in memory
+        pool_ctx = None
+        if shard_ctx is not None:
+            mesh = shard_ctx.mesh
+            if mesh.size > 1 and mesh.host_group is None:
+                raise ValueError("ContinuousEngine(shard_ctx=) over more than one rank needs "
+                                 "the mesh's host group (init_distributed), over which the "
+                                 "ranks agree on one clock, one drain flag and one writer")
+            self._rank = RankParams(model, params, shard_ctx)
+            params = self._rank.blocks
+            pool_ctx = ShardCtx(mesh, shard_ctx.act_rules, self._rank.specs)
+            self._host = mesh.host_group if mesh.size > 1 else None
+            if mesh.rank != 0:   # one writer: another rank's events stay in memory
+                enabled = telemetry is not None and telemetry.enabled
+                telemetry = EventLog.memory() if enabled else None
+                self._rank_log = enabled
+        self.params = params
+        self._call = params   # the parameters calls compute with (gathered on a mesh)
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         self.scheduler = scheduler or FCFSScheduler()
         # telemetry: per-request lifecycle + per-generate aggregate counters
@@ -189,10 +229,7 @@ class ContinuousEngine:
         self.stall_slo_s = stall_slo_s
         self.degrade_max_new_tokens = degrade_max_new_tokens
         self.degrade_recovery_steps = degrade_recovery_steps
-        self.pool = KVPool(model, n_slots, max_len, self.device)
-        self._prefill = make_pool_prefill(model, max_len)
-        self._decode_sample = make_pool_decode_step(model)
-        self._decode_greedy = make_pool_decode_step(model, greedy=True)
+        self.pool = KVPool(model, n_slots, max_len, self.device, shard_ctx=pool_ctx)
         # per-slot host mirrors; device copies are refreshed lazily (only
         # after slot churn) so steady-state steps upload nothing
         self._slot_req: Dict[int, ServeRequest] = {}
@@ -209,8 +246,50 @@ class ContinuousEngine:
         self._run_steps = 0        # decode steps this generate (fault keying)
         self._n_retries = 0
         self._n_quarantines = 0
+        self.agreements = 0
+        self.agreement_s = 0.0
+        self.iterations = 0
 
     # ---- internals -------------------------------------------------------
+    def _agree(self, now: float, drain: bool = False, step_wall: float = 0.0) -> tuple:
+        """``(now, drain, step_wall)`` as every rank reads them (rank 0's
+        clock and step time, any rank's flag); on one process the
+        arguments."""
+        if self._host is None:
+            return now, bool(drain), step_wall
+        t = time.perf_counter()
+        out = agree_clock(now, drain, step_wall, self._host)
+        self.agreements += 1
+        self.agreement_s += time.perf_counter() - t
+        return out
+
+    def _prefill(self, tokens: torch.Tensor):
+        """The batch-1 prefill into one row of the pool's layout: the last
+        position's logits (gathered over ``model`` on a mesh, where every
+        data rank prefills on its heads) and the cache :meth:`KVPool.insert`
+        takes."""
+        pool = self.pool
+        with use_sharding(pool.row_ctx):
+            logits, cache = self.model.prefill(self._call, {"tokens": tokens}, pool.row_cache())
+            return gather_logits(logits[:, -1], pool.row_ctx, self.model.cfg.vocab_size), cache
+
+    def _decode(self, greedy: bool, tokens, positions, active, temps, top_k):
+        """One step over every slot: the model over this rank's rows of the
+        pool (every row on one process), the (n_slots, V) logits gathered on
+        a mesh, every rank sampling them alike, the pool's index moved on.
+        Returns the (n_slots,) tokens and positions, both forced to 0 on
+        empty slots, so idle slots never advance."""
+        pool = self.pool
+        start, n = pool.rows
+        with use_sharding(pool.ctx):
+            logits, _ = self.model.decode(self._call, {"tokens": tokens[start:start + n, None]},
+                                          pool.decode_view(), positions[start:start + n, None])
+            last = gather_logits(logits[:, -1], pool.ctx, self.model.cfg.vocab_size)
+        nxt = (torch.argmax(last, dim=-1).to(torch.int32) if greedy
+               else sample_tokens(self.gen, last, temps, top_k))
+        pool.advance(active)
+        return torch.where(active, nxt, 0), torch.where(active, positions + 1, 0)
+
     def _device_state(self) -> tuple:
         if self._dev is None:
             self._dev = tuple(
@@ -326,10 +405,9 @@ class ContinuousEngine:
                 1, min(req.max_new_tokens, self.degrade_max_new_tokens))
         slot = self.pool.acquire()
         assert slot is not None, "admit() respects free-slot budget"
-        prompt = np.asarray(req.prompt, np.int32)
-        last, cache1 = self._prefill(
-            self.params,
-            torch.from_numpy(prompt[None].copy()).to(self.device, non_blocking=True))
+        prompt = torch.from_numpy(np.asarray(req.prompt, np.int32)[None].copy()).to(
+            self.device, non_blocking=True)
+        last, cache1 = self._prefill(prompt)
         tok = int(
             sample_tokens(
                 self.gen, last,
@@ -337,7 +415,7 @@ class ContinuousEngine:
                 torch.full((1,), req.top_k, dtype=torch.int32, device=self.device),
             )[0]
         )
-        self.pool.insert(cache1, slot, len(prompt))
+        self.pool.insert(cache1, slot, len(req.prompt))
         self._dev = None  # slot churn: device per-slot state is stale
         # fault-injection point: the first sample of this attempt.  A real
         # detector would check np.isnan(logits) / cache health here.
@@ -393,15 +471,8 @@ class ContinuousEngine:
     ) -> None:
         active = self.pool.active_mask.copy()
         tokens_d, pos_d, active_d, temps_d, topk_d = self._device_state()
-        decode = (
-            self._decode_greedy
-            if float(self._temps[active].max(initial=0.0)) <= 0.0
-            else self._decode_sample
-        )
-        toks_d, pos_d, self.pool.cache = decode(
-            self.params, self.pool.cache, tokens_d, pos_d, active_d,
-            temps_d, topk_d, self.gen,
-        )
+        greedy = float(self._temps[active].max(initial=0.0)) <= 0.0
+        toks_d, pos_d = self._decode(greedy, tokens_d, pos_d, active_d, temps_d, topk_d)
         toks = toks_d.cpu().numpy()  # the loop's one device→host sync
         now = clock()  # after the sync: timestamps include the step's work
         self.pool.lengths[active] += 1
@@ -476,11 +547,16 @@ class ContinuousEngine:
         shed/timed-out union).  Invariants: wall-clock latencies stay
         consistent even when the virtual clock fast-forwards across idle
         gaps between arrivals, and every request submitted since the last
-        ``generate`` ends in exactly one terminal state (asserted).
+        ``generate`` ends in exactly one terminal state (asserted).  On a
+        mesh every rank calls it with the same requests, and each rank's
+        ``should_drain`` is polled alike: the drain starts on every rank
+        once any rank's returns True.
         """
         submitted = [self.submit(r) for r in requests] if requests else []
         t0 = time.perf_counter()
         offset = 0.0  # virtual fast-forward while idle
+        if self._rank_log:
+            self.telemetry.events.clear()   # this generate's events alone
         telem = self.telemetry.enabled
         # host-side counters (ints per loop iteration — no device syncs)
         queue_samples: List[int] = []
@@ -489,16 +565,29 @@ class ContinuousEngine:
         self._run_steps = 0
         self._n_retries = 0
         self._n_quarantines = 0
+        self.agreements, self.agreement_s, self.iterations = 0, 0.0, 0
         draining = False
         drain_deadline = math.inf
+        # the last decode step's wall seconds, until the next agreed reading
+        # hands the watchdog (every rank) rank 0's
+        step_wall: Optional[float] = None
 
-        def clock() -> float:
+        def raw() -> float:
             return time.perf_counter() - t0 + offset
 
+        def clock() -> float:
+            return self._agree(raw())[0]
+
+        if self._rank is not None:
+            self._call = self._rank.call()
         while self.scheduler.has_pending() or self._slot_req:
-            now = clock()
-            if (not draining and should_drain is not None
-                    and should_drain()):
+            self.iterations += 1
+            polled = (not draining and should_drain is not None and should_drain())
+            now, drain, wall = self._agree(raw(), polled, step_wall or 0.0)
+            if step_wall is not None:
+                self._watchdog(wall)
+                step_wall = None
+            if not draining and drain:
                 draining = True
                 drain_deadline = now + max(0.0, drain_grace_s)
                 shed = self.scheduler.drain(now)
@@ -554,9 +643,12 @@ class ContinuousEngine:
                 if stall > 0.0:
                     time.sleep(stall)
             self._step(clock, on_token)
-            self._watchdog(time.perf_counter() - t_step)
+            step_wall = time.perf_counter() - t_step
             self._run_steps += 1
             n_steps += 1
+        if step_wall is not None:
+            self._watchdog(self._agree(raw(), False, step_wall)[2])
+        self._call = self.params
         self._release_quarantined(force=True)
 
         # exact, disjoint terminal accounting over everything submitted

@@ -14,7 +14,7 @@ gathers them over the data-parallel ranks, FSDP), its rows of the batch
 they do not: ``placement.serving_rows``) and its block of the cache
 (``placement.cache_block`` of a meta ``Model.make_cache``: heads,
 ``inner`` slice and, under the ``cache_seq`` rule, its block of
-positions; :func:`serving_ctx` says which).  The last position's logits, the rank's vocab columns and
+positions; ``placement.serving_ctx`` says which).  The last position's logits, the rank's vocab columns and
 rows, are gathered over ``model`` and over the data-parallel ranks into
 the batch's whole (B, V), from which every rank samples with the same
 seeded generator: every rank returns every request's tokens, those one
@@ -35,13 +35,7 @@ from repro_torch.serve.sampling import sample_tokens
 from repro_torch.sharding.axes import batch_axes, specs_for
 from repro_torch.sharding.collectives import gather_leaf, shard_block
 from repro_torch.sharding.context import ShardCtx, use_sharding
-from repro_torch.sharding.placement import (
-    cache_block,
-    cache_seq_split,
-    cache_shardings,
-    leaf_dims,
-    serving_rows,
-)
+from repro_torch.sharding.placement import cache_block, leaf_dims, serving_ctx, serving_rows
 
 
 def make_prefill_step(model: Model):
@@ -89,16 +83,56 @@ def params_device(params) -> torch.device:
     return next(iter(params.values())).device
 
 
-def serving_ctx(ctx: ShardCtx, param_specs, cache, batch: int) -> ShardCtx:
-    """The context a prefill or decode of ``batch`` rows over ``cache`` (the
-    whole ``make_cache`` tree, meta tensors enough) runs under on ``ctx``'s
-    mesh and rules: the parameters' ``param_specs``, ``rows_split`` where
-    the rules split the batch's rows over the data-parallel ranks, and
-    ``cache_seq_split`` where the cache's specs split its sequence."""
-    mesh, rules = ctx.mesh, ctx.act_rules
-    split = serving_rows(batch, mesh, rules)[2]
-    seq = cache_seq_split(cache, cache_shardings(cache, mesh, rules))
-    return ShardCtx(mesh, rules, param_specs, cache_seq_split=seq, rows_split=split)
+class RankParams:
+    """This rank's blocks of a model's parameters on ``shard_ctx``'s mesh:
+    ``specs`` (the context's, by default the reference's parameter rules),
+    their ``layouts``, and ``blocks`` cut from ``params``, each leaf the
+    whole or already this rank's block.  :meth:`call` gathers each block
+    over the data-parallel ranks (FSDP), its ``model`` split kept: the
+    parameters a serving call computes with."""
+
+    def __init__(self, model: Model, params, shard_ctx: ShardCtx):
+        self.ctx = shard_ctx
+        mesh = shard_ctx.mesh
+        self.specs = dict(shard_ctx.param_specs) or specs_for(model.defs, mesh)
+        self.layouts = leaf_dims(self.specs, mesh)
+        whole = model.abstract_params()
+        self.blocks = {k: self._block(k, v, whole[k]) for k, v in params.items()}
+
+    def _block(self, path: str, x: torch.Tensor, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's block of leaf ``path`` from ``x``, the whole leaf (of
+        ``whole``'s shape) or already the block."""
+        lay, mesh = self.layouts[path], self.ctx.mesh
+        mine = shard_block(whole, lay, mesh).shape
+        if x.shape == mine:
+            return x
+        if x.shape == whole.shape:
+            return shard_block(x, lay, mesh)
+        raise ValueError(f"parameter {path} of shape {tuple(x.shape)} is neither the whole "
+                         f"{tuple(whole.shape)} nor this rank's block {tuple(mine)}")
+
+    def call(self):
+        """The parameters a call computes with: each block gathered over the
+        data-parallel ranks, its ``model`` split kept."""
+        mesh = self.ctx.mesh
+        if mesh.extent(batch_axes(mesh)) == 1:
+            return self.blocks
+        group = self.ctx.dp_group
+        return {k: gather_leaf(v, self.layouts[k].data, group) for k, v in self.blocks.items()}
+
+
+def gather_logits(last: torch.Tensor, ctx: ShardCtx, vocab: int) -> torch.Tensor:
+    """A call's (rows, V or V/M) last-position logits under ``ctx`` → the
+    batch's (B, V): gathered over ``model`` where the vocab is split, over
+    the data-parallel ranks where each holds its own rows (without a
+    context, ``last`` itself)."""
+    if ctx is None:
+        return last
+    if last.shape[-1] != vocab:
+        last = gather_leaf(last.contiguous(), 1, ctx.model_axis.group)
+    if ctx.data_axis is not None:
+        last = gather_leaf(last.contiguous(), 0, ctx.data_axis.group)
+    return last
 
 
 class Engine:
@@ -106,7 +140,8 @@ class Engine:
     device of ``params``; with ``shard_ctx``, one rank's engine over its
     mesh (see the module docstring).  ``params`` are then the whole tree or
     this rank's blocks of it (under ``shard_ctx.param_specs``, by default
-    the reference's parameter rules); the Engine keeps the blocks."""
+    the reference's parameter rules); the Engine keeps the blocks
+    (:class:`RankParams`)."""
 
     def __init__(
         self,
@@ -124,43 +159,16 @@ class Engine:
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         self._prefill = make_prefill_step(model)
         self._decode = make_decode_step(model)
+        self._rank = None
         if shard_ctx is not None:
-            mesh = shard_ctx.mesh
-            self._specs = dict(shard_ctx.param_specs) or specs_for(model.defs, mesh)
-            self._layouts = leaf_dims(self._specs, mesh)
-            whole = model.abstract_params()
-            params = {k: self._block(k, v, whole[k]) for k, v in params.items()}
+            self._rank = RankParams(model, params, shard_ctx)
+            params = self._rank.blocks
         self.params = params
         self.cache_bytes = 0   # this rank's cache, set by each batch
 
-    def _block(self, path: str, x: torch.Tensor, whole: torch.Tensor) -> torch.Tensor:
-        """This rank's block of leaf ``path`` from ``x``, the whole leaf (of
-        ``whole``'s shape) or already the block."""
-        lay, mesh = self._layouts[path], self.shard_ctx.mesh
-        mine = shard_block(whole, lay, mesh).shape
-        if x.shape == mine:
-            return x
-        if x.shape == whole.shape:
-            return shard_block(x, lay, mesh)
-        raise ValueError(f"parameter {path} of shape {tuple(x.shape)} is neither the whole "
-                         f"{tuple(whole.shape)} nor this rank's block {tuple(mine)}")
-
-    def _call_params(self):
-        """The parameters a call computes with: each block gathered over the
-        data-parallel ranks (FSDP), its ``model`` split kept."""
-        mesh = self.shard_ctx.mesh
-        if mesh.extent(batch_axes(mesh)) == 1:
-            return self.params
-        group = self.shard_ctx.dp_group
-        return {k: gather_leaf(v, self._layouts[k].data, group) for k, v in self.params.items()}
-
     def _gather(self, last: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
         """(rows, V or V/M) last-position logits → the batch's (B, V)."""
-        if last.shape[-1] != self.model.cfg.vocab_size:
-            last = gather_leaf(last.contiguous(), 1, ctx.model_axis.group)
-        if ctx.data_axis is not None:
-            last = gather_leaf(last.contiguous(), 0, ctx.data_axis.group)
-        return last
+        return gather_logits(last, ctx, self.model.cfg.vocab_size)
 
     def _sample(self, logits, temperatures: torch.Tensor):
         """Per-row sampling: each request keeps its own temperature."""
@@ -179,12 +187,12 @@ class Engine:
             cache = self.model.make_cache(b, self.max_len, self.device)
         else:
             meta = self.model.make_cache(b, self.max_len, "meta")
-            ctx = serving_ctx(self.shard_ctx, self._specs, meta, b)
+            ctx = serving_ctx(self.shard_ctx, self._rank.specs, meta, b)
             start, rows, _ = serving_rows(b, ctx.mesh, ctx.act_rules)
             cache = cache_block(meta, ctx.mesh, ctx.act_rules, self.device)
         with use_sharding(ctx):
             if ctx is not None:
-                params = self._call_params()
+                params = self._rank.call()
             tokens = torch.from_numpy(toks[start:start + rows]).to(self.device)
             last, cache = self._prefill(params, {"tokens": tokens}, cache)
             tok = choose(0, last if ctx is None else self._gather(last, ctx))

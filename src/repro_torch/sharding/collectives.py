@@ -34,7 +34,8 @@ each rank then holds one block.
 * :func:`agree_any`, :func:`broadcast_int` and :func:`barrier` carry
   control flags and small integers over the mesh's host group (gloo, CPU
   tensors): no device launch and no device synchronisation.  They are
-  never a route for device tensors.
+  never a route for device tensors.  :func:`agree_clock` gives a serving
+  loop's ranks one clock, one drain flag and one step time in one of them.
 
 Each has a plain single-process version (``*_plain``) that takes every
 rank's operand at once: what the tests hold the collectives to.
@@ -463,6 +464,36 @@ def barrier(group) -> None:
         _dist().barrier(group=_host_group(group))
 
 
+# below any reading: the MAX over the ranks keeps rank 0's
+_UNSET = -(2 ** 62)
+
+
+def _ns(seconds: float) -> int:
+    return int(round(seconds * 1e9))
+
+
+def agree_clock(now: float, drain: bool, step_wall: float, group
+                ) -> Tuple[float, bool, float]:
+    """One reading of a serving loop's host state that every rank of
+    ``group`` shares: rank 0's clock ``now``, whether any rank's ``drain``
+    flag is up, and rank 0's ``step_wall`` (seconds).  The times travel as
+    integer nanoseconds, so every rank reads the same float.  One int64
+    all-reduce (MAX) of three entries over the host group, each rank but 0
+    sending a floor under its clock; on a :class:`PlainGroup` its plain
+    version over the ranks' readings.  ``group`` None, or a group of one
+    rank: the arguments, and no collective."""
+    if group is None or group_size(group) == 1:
+        return now, bool(drain), step_wall
+    if is_plain(group):
+        return agree_clock_plain(group.exchange((now, drain, step_wall)))[group.index]
+    first = group_rank(group) == 0
+    t = torch.tensor([_ns(now) if first else _UNSET, int(bool(drain)),
+                      _ns(step_wall) if first else _UNSET], dtype=torch.int64)
+    _dist().all_reduce(t, op=_op("max"), group=_host_group(group))
+    now_ns, flag, wall_ns = t.tolist()
+    return now_ns / 1e9, bool(flag), wall_ns / 1e9
+
+
 # ---------------------------------------------------------------------------
 # plain versions: every rank's operand at once, in one process
 # ---------------------------------------------------------------------------
@@ -530,6 +561,50 @@ def barrier_plain(arrived: Sequence[bool]) -> bool:
     return all(arrived)
 
 
+def agree_clock_plain(readings: Sequence[Tuple[float, bool, float]]
+                      ) -> List[Tuple[float, bool, float]]:
+    """Every rank's agreed ``(now, drain, step_wall)`` from each rank's
+    reading: rank 0's clock and wall time to the nanosecond, any rank's
+    flag."""
+    now, _, wall = readings[0]
+    agreed = (_ns(now) / 1e9, any(bool(r[1]) for r in readings), _ns(wall) / 1e9)
+    return [agreed] * len(readings)
+
+
+def run_rank_threads(fns: Sequence[Callable[[], object]], barriers: Sequence[threading.Barrier],
+                     timeout: float = 600.0) -> list:
+    """``[fn() for fn in fns]``, each call on a thread of its own; a call
+    that raises breaks every one of ``barriers`` (the plain groups' the
+    ranks meet at) so that no other waits, and the first error (not a
+    broken barrier) is raised."""
+    out: list = [None] * len(fns)
+    errors: list = []
+
+    def abort() -> None:
+        for b in barriers:
+            b.abort()
+
+    def one(r: int) -> None:
+        try:
+            out[r] = fns[r]()
+        except BaseException as e:   # noqa: BLE001 — re-raised below
+            errors.append(e)
+            abort()
+
+    threads = [threading.Thread(target=one, args=(r,), daemon=True) for r in range(len(fns))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout)
+    if any(t.is_alive() for t in threads):
+        abort()
+        raise TimeoutError(f"plain ranks still running after {timeout} s")
+    if errors:
+        raise next((e for e in errors if not isinstance(e, threading.BrokenBarrierError)),
+                   errors[0])
+    return out
+
+
 def run_plain_ranks(fn: Callable[[PlainGroup], object], size: int,
                     timeout: float = 600.0, tally: Optional[CollectiveTally] = None) -> list:
     """``[fn(group) for each of size ranks]``, each call on a thread of its
@@ -541,25 +616,5 @@ def run_plain_ranks(fn: Callable[[PlainGroup], object], size: int,
     meeting at a barrier would wait for each other forever).  With
     ``tally``, rank 0's collectives count into it (:class:`PlainRanks`)."""
     ranks = PlainRanks(size, timeout, tally)
-    out: list = [None] * size
-    errors: list = []
-
-    def one(r: int) -> None:
-        try:
-            out[r] = fn(PlainGroup(ranks, r))
-        except BaseException as e:   # noqa: BLE001 — re-raised below
-            errors.append(e)
-            ranks.barrier.abort()
-
-    threads = [threading.Thread(target=one, args=(r,), daemon=True) for r in range(size)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout)
-    if any(t.is_alive() for t in threads):
-        ranks.barrier.abort()
-        raise TimeoutError(f"plain ranks still running after {timeout} s")
-    if errors:
-        raise next((e for e in errors if not isinstance(e, threading.BrokenBarrierError)),
-                   errors[0])
-    return out
+    return run_rank_threads([lambda r=r: fn(PlainGroup(ranks, r)) for r in range(size)],
+                            [ranks.barrier], timeout)

@@ -91,7 +91,7 @@ def leaf_layout(spec: Spec, mesh) -> Layout:
 class ShardCtx:
     """A mesh, the activation rule set annotations resolve against, and the
     parameters' specs (``{path: spec}``, optional).  Two flags describe a
-    serving call's batch and cache (``serve/engine.serving_ctx`` sets
+    serving call's batch and cache (``placement.serving_ctx`` sets
     them from the specs): ``cache_seq_split``, the cache's sequence is
     split over the data-parallel axes (``placement.cache_seq_split``:
     each rank holds one block of positions, :func:`cache_seq_axis`), and

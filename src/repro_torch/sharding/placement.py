@@ -34,7 +34,7 @@ import torch
 from repro_torch.checkpoint.io import tree_leaves_with_paths, tree_map_with_paths
 from repro_torch.sharding.axes import Spec, batch_axes, dp_size, resolve_spec, specs_for
 from repro_torch.sharding.collectives import all_reduce, gather_block, shard_block
-from repro_torch.sharding.context import Layout, leaf_layout
+from repro_torch.sharding.context import Layout, ShardCtx, leaf_layout
 
 # Logical axes of every named model input, keyed by batch-dict field.
 BATCH_AXES: Dict[str, Tuple[Optional[str], ...]] = {
@@ -142,6 +142,18 @@ def cache_seq_split(cache, specs: Mapping[str, Spec]) -> bool:
             if i < len(specs[p]) and specs[p][i] is not None:
                 return True
     return False
+
+
+def serving_ctx(ctx: ShardCtx, param_specs, cache, batch: int) -> ShardCtx:
+    """The context a prefill or decode of ``batch`` rows over ``cache`` (the
+    whole ``make_cache`` tree, meta tensors enough) runs under on ``ctx``'s
+    mesh and rules: the parameters' ``param_specs``, ``rows_split`` where
+    the rules split the batch's rows over the data-parallel ranks, and
+    ``cache_seq_split`` where the cache's specs split its sequence."""
+    mesh, rules = ctx.mesh, ctx.act_rules
+    split = serving_rows(batch, mesh, rules)[2]
+    seq = cache_seq_split(cache, cache_shardings(cache, mesh, rules))
+    return ShardCtx(mesh, rules, param_specs, cache_seq_split=seq, rows_split=split)
 
 
 def batch_rows(n: int, mesh) -> Tuple[int, int]:

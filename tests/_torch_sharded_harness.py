@@ -92,6 +92,18 @@ plants must fail the bounds):
                in fp32; planted: the mLSTM's RMS without its sum over
                model, a rank computing on its stored up-projection block
                (xlstm, jamba), the MLA latents' gradients left partial
+
+Serving on the mesh (each rank's engine checks its outcome against rank
+0's and its cache or pool against its block; rank 0 runs the single
+process beside it, for ``continuous`` over two data ranks alone):
+
+  serve        the static ``Engine(shard_ctx=)`` for :data:`SERVE_ARCHS`
+  continuous   ``ContinuousEngine(shard_ctx=)``: greedy for
+               :data:`SERVE_ARCHS`, over two data ranks a pool the ranks do
+               not divide and one slot under ``cache_seq``, then faults, a
+               stall on rank 1 alone and rank 1's drain flag alone, with
+               rank 0 the one writer; and ``agree_clock`` against its plain
+               version
 """
 from __future__ import annotations
 
@@ -120,7 +132,7 @@ from repro_torch.launch.mesh import init_distributed, shutdown_distributed
 from repro_torch.models import build_model
 from repro_torch.sharding import ShardCtx, dp_size, leaf_dims, per_device_state_bytes, specs_for
 from repro_torch.sharding import collectives as C
-from repro_torch.telemetry import EventLog
+from repro_torch.telemetry import EventLog, read_events
 from repro_torch.train import FaultInjector, FaultSpec, SupervisorConfig, Trainer, TrainState
 from repro_torch.train.step import make_train_step
 from repro_torch.train.trainer import TERM_KEYS
@@ -1068,6 +1080,194 @@ def scenario_serve(c: Ctx) -> dict:
     return out if c.rank0 else {}
 
 
+# ContinuousEngine(shard_ctx=): six requests through four slots (admissions
+# mid-decode, so the slots' positions differ), every arrival at 0 so that
+# the slots alone decide the batch's make-up; three slots, which two data
+# ranks do not divide (every rank holds every slot); one slot under
+# cache_seq over data, two requests in turn.  One prompt length a case: the
+# JAX engine compiles its prefill once for each
+CONT_LENS, CONT_NEW = (8,) * 6, (6, 3, 5, 6, 2, 4)
+CONT_SLOTS, CONT_ROWS_WHOLE = 4, 3
+CONT_ROWS_WHOLE_ARCHS = ("granite-moe-1b-a400m",)   # the MoE: rows couple
+# both requests cross into rank 1's block
+CONT_B1_LENS, CONT_B1_NEW = (SERVE_B1_LEN,) * 2, (6, 3)
+# faults on smollm-smoke: a NaN sample (rid 1), a corrupted slot (rid 2,
+# quarantined 2 steps) and a stall at step 2 past the watchdog's SLO, whose
+# degraded mode caps later admissions at 2 new tokens and never recovers;
+# the SLO stands far past a step of a loaded host (a few ms here)
+CONT_FAULTS = (("sample_nan", 1, 0.0), ("slot_corrupt", 2, 0.0), ("decode_stall", 2, 1.5))
+CONT_SLO = 1.0
+# a stall on rank 1's injector alone at step 1, inside which request 0's
+# latency budget ends (the steps before it take far less); and rank 1's
+# drain flag alone, up from its 3rd poll
+SKEW_STALL, SKEW_TIMEOUT, DRAIN_POLL = 1.5, 1.0, 3
+# the fields of a lifecycle event that read the wall clock
+WALL_FIELDS = ("seq", "t", "ttft_s", "latency_s", "step_s")
+STATS_KEYS = ("submitted", "completed", "shed", "timed_out", "failed", "retries",
+              "quarantines", "drained", "degraded", "decode_steps")
+
+
+def continuous_specs(cfg, lens=CONT_LENS, news=CONT_NEW, seed: int = 2) -> list:
+    """``[(prompt, max_new_tokens)]`` of a continuous run, rid its index."""
+    return list(zip(serve_prompts(cfg, lens, seed), news))
+
+
+def lifecycle(events) -> list:
+    """A log's events without their wall-clock fields; ``serve_stats`` its
+    counts alone."""
+    out = []
+    for ev in events:
+        keep = {k: v for k, v in ev.items() if k not in WALL_FIELDS}
+        if ev["event"] == "serve_stats":
+            keep = {"event": "serve_stats", **{k: ev[k] for k in STATS_KEYS}}
+        out.append(keep)
+    return out
+
+
+def _cont_run(model, params, specs, mesh=None, rules=None, slots=CONT_SLOTS, faults=(),
+              timeouts=None, drain_at=None, log=None, **kw):
+    """``(engine, outcome)``: ``ContinuousEngine`` over ``mesh`` (None: one
+    process) on ``specs``, each request's tokens, status, attempts and
+    reason in the outcome."""
+    import itertools
+
+    from repro_torch.serve import ContinuousEngine, ServeFaultInjector, ServeFaultSpec, \
+        ServeRequest
+
+    ctx = None if mesh is None else ShardCtx(mesh).with_rules(**(rules or {}))
+    inj = ServeFaultInjector([ServeFaultSpec(k, at, stall_s=st) for k, at, st in faults])
+    eng = ContinuousEngine(model, params, n_slots=slots, max_len=SERVE_MAX_LEN, shard_ctx=ctx,
+                           seed=3, faults=inj if faults else None, telemetry=log, **kw)
+    reqs = [ServeRequest(p, max_new_tokens=n, rid=i, timeout_s=(timeouts or {}).get(i))
+            for i, (p, n) in enumerate(specs)]
+    polls = itertools.count(1)
+    drain = None if drain_at is None else (lambda: next(polls) >= drain_at)
+    out = eng.generate(reqs, should_drain=drain, drain_grace_s=0.0)
+    return eng, [dict(tokens=[int(t) for t in r.out_tokens], status=r.status.value,
+                      attempts=r.attempts, reason=r.shed_reason or r.fail_reason)
+                 for r in out]
+
+
+def _every_rank_alike(label: str, value) -> None:
+    every = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(every, value)
+    if any(v != every[0] for v in every):
+        raise AssertionError(f"{label}: the ranks differ: {every}")
+
+
+def _pool_block_bytes(model, mesh, rules, slots: int) -> tuple:
+    """(this rank's block of a pool of ``slots`` under ``rules``, the whole
+    pool): every leaf's bytes, the widened index whole on every rank."""
+    from repro_torch.sharding import cache_block
+
+    meta = model.make_cache(slots, SERVE_MAX_LEN, "meta")
+
+    def size(tree):
+        return sum(x.numel() * x.element_size() * (slots if p.endswith("/index") else 1)
+                   for p, x in tree_leaves_with_paths(tree))
+
+    return size(cache_block(meta, mesh, rules, "meta")), size(meta)
+
+
+def scenario_continuous(c: Ctx) -> dict:
+    """``ContinuousEngine(shard_ctx=)`` over this mesh (fp32 activations):
+    each of :data:`SERVE_ARCHS` greedy through :data:`CONT_SLOTS` slots,
+    and over two data ranks :data:`CONT_ROWS_WHOLE_ARCHS` through three
+    slots (rows whole on every rank) and :data:`SERVE_SEQ_SPLIT` through one
+    slot under ``cache_seq`` over data; then on smollm-smoke the faults, the
+    skewed stall and the one-rank drain flag.  Every rank checks that its
+    outcome equals rank 0's and its pool is its block's bytes (the rows of
+    slots each holds are reported); over two data ranks, where every case
+    runs, rank 0 runs the single-process engine beside each and reports
+    both."""
+    from repro_torch.telemetry import EventLog
+
+    mesh, r = c.mesh, c.mesh.rank
+    readings = (0.25 * (r + 1), r == 1, 0.5 * (r + 1))
+    every = [None] * mesh.size
+    torch.distributed.all_gather_object(every, readings)
+    out = {"agree_clock": list(C.agree_clock(*readings, mesh.host_group))
+           == list(C.agree_clock_plain(every)[r])}
+    _every_rank_alike("agree_clock", out["agree_clock"])
+
+    built = {}
+
+    def case(label, arch, specs, rules=None, slots=CONT_SLOTS, single=None, rank=None,
+             single_first=False, **kw):
+        """One run on every rank (``kw`` its engine's arguments, ``rank``
+        a rank's own on top) and over two data ranks rank 0's single
+        process (``single``'s, default ``kw``; with ``single_first`` before
+        the mesh's run)."""
+        if arch not in built:
+            model = build_model(serve_config(arch))
+            built[arch] = model, _serve_params(model, c.init)
+        model, params = built[arch]
+        alone = c.rank0 and c.dp == 2
+
+        def one_process():
+            return _cont_run(model, params, specs, slots=slots,
+                             **(kw if single is None else single))[1]
+
+        first = one_process() if alone and single_first else None
+        eng, got = _cont_run(model, params, specs, mesh, rules, slots,
+                             **dict(kw, **(rank or {}).get(r, {})))
+        _every_rank_alike(f"{arch} {label} outcome", got)
+        rows = [None] * mesh.size
+        torch.distributed.all_gather_object(rows, eng.pool.rows)
+        block, whole = _pool_block_bytes(model, mesh, eng.pool.ctx.act_rules, slots)
+        if eng.pool.nbytes != block:
+            raise AssertionError(f"{arch} {label}: rank {r}'s pool holds {eng.pool.nbytes} "
+                                 f"bytes, its block {block}")
+        row = {"mesh": got, "rows": rows, "pool_bytes": block,
+               "whole_pool_bytes": whole, "agreements": eng.agreements}
+        if alone:
+            row["single"] = first if single_first else one_process()
+        return eng, row
+
+    for arch in SERVE_ARCHS:
+        cfg = serve_config(arch)
+        entry = {"greedy": case("greedy", arch, continuous_specs(cfg))[1]}
+        if c.dp == 2 and arch in CONT_ROWS_WHOLE_ARCHS:
+            entry["rows_whole"] = case("rows_whole", arch, continuous_specs(cfg),
+                                       slots=CONT_ROWS_WHOLE)[1]
+        if c.dp == 2 and arch in SERVE_SEQ_SPLIT:
+            entry["seq_split"] = case("seq_split", arch,
+                                      continuous_specs(cfg, CONT_B1_LENS, CONT_B1_NEW, seed=1),
+                                      rules={"cache_seq": ("data",)}, slots=1)[1]
+        out[arch] = entry
+    if c.dp != 2:
+        return out if c.rank0 else {}
+
+    arch = "smollm-360m"
+    specs = continuous_specs(serve_config(arch))
+    path = os.path.join(c.out, f"continuous_events_rank{r}.jsonl")
+    if os.path.exists(path):
+        os.remove(path)
+    single_log = EventLog.memory()
+    eng, row = case("faults", arch, specs, faults=CONT_FAULTS, stall_slo_s=CONT_SLO,
+                    degrade_max_new_tokens=2, degrade_recovery_steps=100, quarantine_steps=2,
+                    log=EventLog(path), single=dict(faults=CONT_FAULTS, stall_slo_s=CONT_SLO,
+                                                    degrade_max_new_tokens=2,
+                                                    degrade_recovery_steps=100,
+                                                    quarantine_steps=2, log=single_log))
+    eng.telemetry.close()
+    events = (read_events(path) if r == 0 else eng.telemetry.events)
+    _every_rank_alike("faults: event kinds and rids", [(e["event"], e.get("rid")) for e in events])
+    wrote = [None] * mesh.size
+    torch.distributed.all_gather_object(wrote, os.path.exists(path))
+    row["wrote"] = wrote
+    if c.rank0:
+        row["events"], row["single_events"] = lifecycle(events), lifecycle(single_log.events)
+    out["faults"] = row
+    skew = (("decode_stall", 1, SKEW_STALL),)
+    out["skewed"] = case("skewed", arch, specs[:4], single_first=True,
+                         timeouts={0: SKEW_TIMEOUT}, rank={1: {"faults": skew}},
+                         single=dict(faults=skew, timeouts={0: SKEW_TIMEOUT}))[1]
+    out["drain"] = case("drain", arch, specs, rank={1: {"drain_at": DRAIN_POLL}},
+                        single=dict(drain_at=DRAIN_POLL))[1]
+    return out if c.rank0 else {}
+
+
 SCENARIOS = {
     "collectives": scenario_collectives,
     "equiv": scenario_equiv,
@@ -1088,10 +1288,11 @@ SCENARIOS = {
     "ep": scenario_ep,
     "recurrent_mla": scenario_recurrent_mla,
     "serve": scenario_serve,
+    "continuous": scenario_continuous,
 }
 # run only when named
 NAMED_ONLY = ("tp_", "host_collectives", "spike_rollback", "gqa", "moe_data", "ep",
-              "recurrent_mla", "serve")
+              "recurrent_mla", "serve", "continuous")
 
 
 # ---------------------------------------------------------------------------

@@ -33,7 +33,36 @@ xlstm-smoke (the mLSTM's and sLSTM's state by heads).
 * Each rank's cache holds its block's bytes (every rank checks its own),
   fewer than the whole cache's where anything of it splits.
 
-Budget: 150 s on its xdist worker (about 40 s alone).
+The continuous engine, ``ContinuousEngine(shard_ctx=)`` (harness scenario
+``continuous``, in the same worlds), every arrival at 0 so that the slots
+alone decide the batch's make-up (the MoE couples rows):
+
+* Six requests through four slots (admissions mid-decode), greedy: every
+  rank's tokens equal the single-process port engine's (run once, beside
+  the data=2,model=2 world) and the JAX ``ContinuousEngine``'s, on both
+  meshes and for the five families.
+* Over two data ranks: three slots, which the ranks do not divide (every
+  rank holds every slot), for granite-moe-smoke, whose MoE couples the
+  rows and counts them once over the ranks; and one
+  slot under ``cache_seq=("data",)`` for smollm-smoke and jamba-smoke, two
+  requests in turn, the first's decode crossing into rank 1's block.  Their
+  tokens equal the single process's and the JAX engine's.
+* Each rank's pool is its block (every rank checks its own bytes), its
+  rows of slots where the data ranks divide them.
+* On smollm-smoke at data=2,model=2: a NaN sample, a corrupted slot and a
+  stall past the watchdog's SLO together; a stall on rank 1's injector
+  alone inside which a request's latency budget ends (rank 0 runs its
+  single process first, so the ranks reach ``generate`` seconds apart);
+  and rank 1's drain flag alone.  Every rank's statuses, attempts, reasons
+  and tokens are alike (every rank checks) and equal the single process's
+  under the same faults; rank 0's lifecycle events, without their wall
+  times, equal the single process's, and no other rank wrote a log.
+* ``collectives.agree_clock`` over the gloo host group equals its plain
+  version.
+
+Budget: 240 s on its xdist worker (about 65 s alone, most of it the JAX
+engines' compiles; 182 s in a whole run of the suite with six workers on
+a loaded host).
 """
 
 import jax
@@ -47,11 +76,17 @@ from repro.models import build_model as jax_build_model
 from repro_torch.nn import flatten
 from test_torch_sharded_train import _harness, _report
 from _torch_sharded_harness import (
+    CONT_B1_LENS,
+    CONT_B1_NEW,
+    CONT_ROWS_WHOLE,
+    CONT_ROWS_WHOLE_ARCHS,
+    CONT_SLOTS,
     SERVE_ARCHS,
     SERVE_B1_LEN,
     SERVE_MAX_LEN,
     SERVE_NEW,
     SERVE_SEQ_SPLIT,
+    continuous_specs,
     serve_config,
     serve_prompts,
 )
@@ -61,6 +96,13 @@ JAMBA_LOGITS_TOL = 5e-5
 MESHES = {"data=2,model=2": 4, "data=1,model=2": 2}
 
 
+def _jax_continuous(jmodel, jparams, specs, slots):
+    eng = jax_serve.ContinuousEngine(jmodel, jparams, n_slots=slots, max_len=SERVE_MAX_LEN)
+    out = eng.generate([jax_serve.ServeRequest(p, max_new_tokens=n, rid=i)
+                        for i, (p, n) in enumerate(specs)])
+    return [[int(t) for t in r.out_tokens] for r in out]
+
+
 def _jax_tokens(jmodel, jparams, prompts):
     out = jax_serve.Engine(jmodel, jparams, max_len=SERVE_MAX_LEN).generate_batch(
         [jax_serve.Request(p, max_new_tokens=SERVE_NEW) for p in prompts])
@@ -68,7 +110,7 @@ def _jax_tokens(jmodel, jparams, prompts):
 
 
 @pytest.fixture(scope="module")
-def served(tmp_path_factory):
+def worlds(tmp_path_factory):
     root = tmp_path_factory.mktemp("serve_mesh")
     init = root / "init"
     init.mkdir()
@@ -82,18 +124,38 @@ def served(tmp_path_factory):
                  **{k: np.asarray(v, np.float32) for k, v in flatten(jparams).items()})
         models[arch] = (jmodel, jparams)
     procs = {mesh: _harness(world, root / f"w{world}", "--mesh", mesh, "--init", str(init),
-                            "serve")
+                            "serve", "continuous")
              for mesh, world in MESHES.items()}
     jax_out = {}
     for arch, (jmodel, jparams) in models.items():
         cfg = serve_config(arch)
-        jax_out[arch] = {"greedy": _jax_tokens(jmodel, jparams, serve_prompts(cfg))}
+        jax_out[arch] = {"greedy": _jax_tokens(jmodel, jparams, serve_prompts(cfg)),
+                         "continuous": _jax_continuous(jmodel, jparams, continuous_specs(cfg),
+                                                       CONT_SLOTS)}
         if arch in SERVE_SEQ_SPLIT:
             jax_out[arch]["batch1_seq_split"] = _jax_tokens(
                 jmodel, jparams, serve_prompts(cfg, (SERVE_B1_LEN,), seed=1))
-    reports = {mesh: _report(proc, root / f"w{MESHES[mesh]}")["serve"]
+            jax_out[arch]["continuous_seq_split"] = _jax_continuous(
+                jmodel, jparams, continuous_specs(cfg, CONT_B1_LENS, CONT_B1_NEW, seed=1), 1)
+        if arch in CONT_ROWS_WHOLE_ARCHS:
+            jax_out[arch]["continuous_rows_whole"] = _jax_continuous(
+                jmodel, jparams, continuous_specs(cfg), CONT_ROWS_WHOLE)
+    reports = {mesh: _report(proc, root / f"w{MESHES[mesh]}")
                for mesh, proc in procs.items()}
     return reports, jax_out
+
+
+@pytest.fixture(scope="module")
+def served(worlds):
+    """The static Engine's reports by mesh, and the JAX package's tokens."""
+    return {m: r["serve"] for m, r in worlds[0].items()}, worlds[1]
+
+
+@pytest.fixture(scope="module")
+def continuous(worlds):
+    """The continuous engine's reports by mesh, and the JAX package's
+    tokens."""
+    return {m: r["continuous"] for m, r in worlds[0].items()}, worlds[1]
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
@@ -145,13 +207,109 @@ def test_each_rank_holds_its_cache_block(served, mesh):
                 assert 0 < row["cache_bytes"] < row["whole_cache_bytes"], (arch, name)
 
 
-def test_continuous_engine_takes_shard_ctx_and_refuses_a_mesh():
-    """``ContinuousEngine(shard_ctx=)``, the reference's parameter: over one
-    rank it serves the tokens it serves without a context; over a mesh of
-    two ranks it raises naming item 11 (f), before anything runs."""
+def _tokens_of(rows):
+    return [r["tokens"] for r in rows]
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_continuous_greedy_tokens_equal_one_process_and_jax(continuous, arch, mesh):
+    """Both meshes' tokens against the single process (run once, beside
+    the data=2,model=2 world) and the JAX engine."""
+    row = continuous[0][mesh][arch]["greedy"]
+    single = continuous[0]["data=2,model=2"][arch]["greedy"]["single"]
+    assert _tokens_of(row["mesh"]) == _tokens_of(single) == continuous[1][arch]["continuous"]
+    assert all(r["status"] == "completed" for r in row["mesh"])
+    assert ("single" in row) == (mesh == "data=2,model=2")
+
+
+@pytest.mark.parametrize("arch", CONT_ROWS_WHOLE_ARCHS)
+def test_continuous_slots_the_data_ranks_do_not_divide(continuous, arch):
+    """Three slots over two data ranks: every rank holds every slot, and the
+    tokens are the single process's and the JAX engine's."""
+    row = continuous[0]["data=2,model=2"][arch]["rows_whole"]
+    assert row["rows"] == [[0, CONT_ROWS_WHOLE]] * 4
+    assert _tokens_of(row["mesh"]) == _tokens_of(row["single"]) \
+        == continuous[1][arch]["continuous_rows_whole"]
+
+
+@pytest.mark.parametrize("arch", SERVE_SEQ_SPLIT)
+def test_continuous_one_slot_with_the_cache_sequence_over_data(continuous, arch):
+    """One slot under ``cache_seq`` over two data ranks: each rank holds its
+    half of the positions (half the k/v bytes), and two requests in turn
+    serve the single process's and the JAX engine's tokens."""
+    row = continuous[0]["data=2,model=2"][arch]["seq_split"]
+    assert row["rows"] == [[0, 1]] * 4
+    assert row["pool_bytes"] < row["whole_pool_bytes"]
+    assert _tokens_of(row["mesh"]) == _tokens_of(row["single"]) \
+        == continuous[1][arch]["continuous_seq_split"]
+    assert "seq_split" not in continuous[0]["data=1,model=2"][arch]
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_continuous_pool_holds_the_ranks_rows(continuous, mesh):
+    """Four slots: over two data ranks each rank holds its two rows (data
+    rank 0 slots 0-1, data rank 1 slots 2-3), over one every slot; a
+    rank's pool is smaller than the whole where anything of it splits (not
+    smollm's one kv head nor the MLA's latents over ``model`` alone)."""
+    want = ([[0, 2], [0, 2], [2, 2], [2, 2]] if mesh == "data=2,model=2"
+            else [[0, CONT_SLOTS]] * 2)
+    for arch, entry in continuous[0][mesh].items():
+        if arch not in SERVE_ARCHS:
+            continue
+        row = entry["greedy"]
+        assert row["rows"] == want, arch
+        if mesh == "data=1,model=2" and arch in ("smollm-360m", "deepseek-v3-671b"):
+            assert row["pool_bytes"] == row["whole_pool_bytes"], arch
+        else:
+            assert 0 < row["pool_bytes"] < row["whole_pool_bytes"], arch
+
+
+def test_continuous_faults_decide_alike_and_rank_zero_writes(continuous):
+    """The NaN sample, the corrupted slot and the stall: the statuses,
+    attempts, reasons and tokens of the single process, a retry of each
+    fault and the degraded cap on later admissions; rank 0's lifecycle
+    events equal the single process's, and rank 0 alone wrote its log."""
+    row = continuous[0]["data=2,model=2"]["faults"]
+    assert row["mesh"] == row["single"]
+    assert [r["attempts"] for r in row["mesh"][1:3]] == [2, 2]
+    assert any(len(r["tokens"]) == 2 for r in row["mesh"][3:])
+    assert row["events"] == row["single_events"]
+    kinds = {e["event"] for e in row["events"]}
+    assert {"serve_retry", "serve_quarantine", "serve_degraded", "serve_stats"} <= kinds
+    assert row["wrote"] == [True, False, False, False]
+
+
+def test_continuous_stall_on_one_rank_decides_alike(continuous):
+    """A stall on rank 1's injector alone, with the ranks reaching
+    ``generate`` apart: request 0's budget ends inside the stall and it
+    times out on every rank, as in the single process with that stall."""
+    row = continuous[0]["data=2,model=2"]["skewed"]
+    assert row["mesh"] == row["single"]
+    assert [r["status"] for r in row["mesh"]] == ["timed_out"] + ["completed"] * 3
+
+
+def test_continuous_drain_flag_on_one_rank_sheds_alike(continuous):
+    """Rank 1's drain flag alone: every rank drains at the same iteration
+    and sheds the single process's requests."""
+    row = continuous[0]["data=2,model=2"]["drain"]
+    assert row["mesh"] == row["single"]
+    shed = [i for i, r in enumerate(row["mesh"]) if r["status"] == "shed"]
+    assert shed and all(row["mesh"][i]["reason"] == "drain" for i in shed)
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_agree_clock_on_gloo_equals_its_plain_version(continuous, mesh):
+    assert continuous[0][mesh]["agree_clock"] is True
+
+
+def test_continuous_engine_over_one_rank_serves_as_without_a_context():
+    """``ContinuousEngine(shard_ctx=)`` over a mesh of one rank serves the
+    tokens it serves without a context, and agrees over no group; over two
+    rank threads its ranks serve them too, agreeing once a reading."""
     import torch
 
-    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.mesh import Mesh, run_plain_mesh
     from repro_torch.models import build_model
     from repro_torch.serve import ContinuousEngine, ServeRequest
     from repro_torch.sharding import ShardCtx
@@ -162,9 +320,14 @@ def test_continuous_engine_takes_shard_ctx_and_refuses_a_mesh():
 
     def tokens(ctx):
         eng = ContinuousEngine(model, params, n_slots=2, max_len=SERVE_MAX_LEN, shard_ctx=ctx)
-        return [list(r.out_tokens) for r in eng.generate(
+        out = [list(r.out_tokens) for r in eng.generate(
             [ServeRequest(p, max_new_tokens=SERVE_NEW) for p in prompts])]
+        return out, eng.agreements
 
-    assert tokens(ShardCtx(Mesh({"data": 1, "model": 1}))) == tokens(None)
-    with pytest.raises(NotImplementedError, match="item 11 \\(f\\)"):
-        ContinuousEngine(model, params, shard_ctx=ShardCtx(Mesh({"data": 1, "model": 2})))
+    whole, none = tokens(None)
+    assert none == 0
+    assert tokens(ShardCtx(Mesh({"data": 1, "model": 1}))) == (whole, 0)
+    ranks = run_plain_mesh(lambda mesh: tokens(ShardCtx(mesh)), {"data": 1, "model": 2},
+                           timeout=120)
+    assert ranks[0][0] == ranks[1][0] == whole
+    assert ranks[0][1] == ranks[1][1] > 0

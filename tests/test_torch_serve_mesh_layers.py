@@ -30,7 +30,22 @@ Everything is fp32.  The ranks' outputs and their final cache or state
 mLSTM's within ``MLSTM_RANKS_TOL`` 3e-4 (its exponential gates magnify
 the order of the row-parallel q, k, v and gate sums: measured 1.4e-5 of
 the scale), and both against the JAX layer within ``JAX_TOL`` 3e-4 (the
-bounds of ``tests/test_torch_model_axis_layers.py``).  Budget: 90 s on one worker.
+bounds of ``tests/test_torch_model_axis_layers.py``).
+
+The slot pool on a mesh (``KVPool(shard_ctx=)``): for each family's cache,
+each rank of data=2,model=2 holds its block (four slots, two a data rank;
+or three slots the data ranks do not divide under ``cache_seq``), and
+inserts, an evict, a quarantine and its release, a decode step's
+``advance`` and ``reset_inactive`` leave the blocks laid whole equal to the
+whole pool, the index whole on every rank, and every block but the slot
+owner's untouched by an insert.  The pool's per-slot index under the
+sequence split: attention (also under a sliding window, at data=4) and MLA
+decode three rows of their own lengths, one of which has no valid key in
+a rank's block, on each rank's block of positions, against the whole
+cache within ``RANKS_TOL``.
+
+Budget: 90 s on one worker (about 20 s alone; 36-50 s in a whole run of
+the suite with six workers).
 """
 import jax
 import jax.numpy as jnp
@@ -390,3 +405,213 @@ def test_launch_counts_lose_no_update_across_rank_threads(monkeypatch):
         for k, v in saved[1].items():
             VARIANT_LAUNCHES[k].update(v)
         COPIES.update(saved[2])
+
+
+# ---------------------------------------------------------------------------
+# the slot pool on a mesh: each rank's block against the whole pool
+# ---------------------------------------------------------------------------
+
+POOL_ARCHS = ("smollm-360m", "granite-moe-1b-a400m", "deepseek-v3-671b",
+              "jamba-1.5-large-398b", "xlstm-350m")
+POOL_MESH = {"data": 2, "model": 2}
+# (slots, rule overrides): four slots, two a data rank; three, which the
+# data ranks do not divide, under cache_seq (each rank its block of positions)
+POOL_LAYOUTS = {"rows": (4, {}), "seq": (3, {"cache_seq": ("data",)})}
+POOL_LEN = 8
+
+
+def _pool_blocks(pools, lays, whole):
+    """Every leaf of the ranks' pools laid whole (the blocks concatenated
+    along the dimension data splits and the one model splits), the index
+    checked whole and equal on every rank."""
+    from repro_torch.launch.mesh import Mesh
+
+    out = {}
+    for k, w in tree_leaves_with_paths(whole.cache):
+        leaves = [dict(tree_leaves_with_paths(p.cache))[k] for p in pools]
+        if k.endswith("/index"):
+            for leaf in leaves:
+                assert torch.equal(leaf, w), k
+            out[k] = leaves[0]
+            continue
+        lay = lays[k]
+        coords = [Mesh(POOL_MESH, rank=r).coords() for r in range(len(pools))]
+        by_data = [C.gather_leaf_plain([x for x, c in zip(leaves, coords) if c["data"] == d],
+                                       lay.model) for d in range(POOL_MESH["data"])]
+        out[k] = C.gather_leaf_plain(by_data, lay.data)
+    return out
+
+
+@pytest.mark.parametrize("layout", list(POOL_LAYOUTS))
+@pytest.mark.parametrize("arch", POOL_ARCHS)
+def test_pool_ops_on_rank_blocks_equal_the_whole_pool(arch, layout):
+    """``KVPool(shard_ctx=)`` on each rank of data=2,model=2 against the
+    whole pool: two inserts, an evict, a quarantine and its release, a
+    decode step over each rank's ``decode_view`` and its ``advance``, and
+    ``reset_inactive``.  After each, the
+    ranks' blocks laid whole equal the whole pool, the (layers, slots)
+    index is whole and equal on every rank, the host mirrors agree, and an
+    insert changes no block but its slot's owner's."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import build_model
+    from repro_torch.serve import KVPool
+    from repro_torch.serve.kv_pool import reset_inactive
+
+    slots, overrides = POOL_LAYOUTS[layout]
+    model = build_model(smoke_config(arch).replace(**F32))
+    rules = dict(default_act_rules(), **overrides)
+    whole = KVPool(model, slots, POOL_LEN, "cpu")
+    gen = torch.Generator().manual_seed(7)
+    for _, leaf in tree_leaves_with_paths(whole.cache):
+        if leaf.is_floating_point():
+            leaf.copy_(torch.randn(leaf.shape, generator=gen))
+    n = Mesh(POOL_MESH).size
+    meshes = [Mesh(POOL_MESH, rank=r) for r in range(n)]
+    specs = specs_for(model.defs, meshes[0])
+    pools = [KVPool(model, slots, POOL_LEN, "cpu", shard_ctx=ShardCtx(m, rules, specs))
+             for m in meshes]
+    meta = model.make_cache(slots, POOL_LEN, "meta")
+    lays = leaf_dims(cache_shardings(meta, meshes[0], rules), meshes[0])
+    for m, pool in zip(meshes, pools):   # the whole pool's state, each rank's block of it
+        for k, leaf in tree_leaves_with_paths(pool.cache):
+            if not k.endswith("/index"):
+                leaf.copy_(C.shard_block(dict(tree_leaves_with_paths(whole.cache))[k],
+                                         lays[k], m))
+
+    def check(label):
+        for k, got in _pool_blocks(pools, lays, whole).items():
+            assert torch.equal(got, dict(tree_leaves_with_paths(whole.cache))[k]), (label, k)
+        for pool in pools:
+            assert (pool.lengths == whole.lengths).all() and pool._free == whole._free, label
+            assert pool.n_free == whole.n_free, label
+
+    if layout == "rows":
+        assert [p.rows for p in pools] == [(0, 2), (0, 2), (2, 2), (2, 2)]
+        assert not pools[0].ctx.cache_seq_split and pools[0].ctx.rows_split
+    else:
+        assert [p.rows for p in pools] == [(0, slots)] * n
+        # the xLSTM's state has no sequence to split
+        assert pools[0].ctx.cache_seq_split == (arch != "xlstm-350m")
+        assert pools[0].row_ctx.cache_seq_split == pools[0].ctx.cache_seq_split
+    assert not pools[0].row_ctx.rows_split
+    check("fresh")
+    for length in (5, 3):
+        taken = {p.acquire() for p in [whole, *pools]}
+        assert len(taken) == 1
+        slot = taken.pop()
+        single = whole.row_cache()
+        for _, leaf in tree_leaves_with_paths(single):
+            if leaf.is_floating_point():
+                leaf.copy_(torch.randn(leaf.shape, generator=gen))
+        before = [{k: v.clone() for k, v in tree_leaves_with_paths(p.cache)} for p in pools]
+        whole.insert(single, slot, length)
+        for m, pool, old in zip(meshes, pools, before):
+            row = {k: v.shape for k, v in tree_leaves_with_paths(pool.row_cache())}
+            mine = {}
+            for k, v in tree_leaves_with_paths(single):
+                lay = lays[k] if not k.endswith("/index") else None
+                block = v if lay is None else C.shard_block(
+                    v, lay._replace(data=None if lay.data == 1 else lay.data), m)
+                assert block.shape == row[k], (k, block.shape, row[k])
+                mine[k] = block
+            nested = {seg: {} for seg in single}
+            for k, v in mine.items():
+                seg, name = k.split("/")
+                nested[seg][name] = v
+            pool.insert(nested, slot, length)
+            start, rows = pool.rows
+            if not start <= slot < start + rows:
+                for k, v in tree_leaves_with_paths(pool.cache):
+                    if not k.endswith("/index"):
+                        assert torch.equal(v, old[k]), ("a rank that does not own the slot "
+                                                        "wrote it", k)
+        check(f"insert {slot}")
+    for p in [whole, *pools]:
+        p.evict(1)
+    check("evict")
+    for p in [whole, *pools]:
+        p.quarantine(0)
+    check("quarantine")
+    for p in [whole, *pools]:
+        p.release(0)
+    check("release")
+    for p in [whole, *pools]:
+        p.insert(p.row_cache(), p.acquire(), 2)
+    active = torch.from_numpy(whole.active_mask)
+    for leaves in whole.cache.values():   # a decode step over every row, then the clamp
+        if "index" in leaves:
+            leaves["index"].add_(1)
+    reset_inactive(whole.cache, active)
+    for pool in pools:   # the step moves its view's index, then the pool's advance
+        for leaves in pool.decode_view().values():
+            if "index" in leaves:
+                leaves["index"].add_(1)
+        pool.advance(active)
+    check("advance")
+    for p in [whole, *pools]:
+        reset_inactive(p.cache, torch.zeros(slots, dtype=torch.bool))
+    check("reset_inactive")
+
+
+# the per-slot index under the sequence split: three rows at lengths 2, 7
+# and 12 of a 16-position cache over data=2 and data=4 (row 0 has no valid
+# key past rank 0's block), three decode steps crossing block boundaries
+SLOT_LENGTHS, SLOT_STEPS = (2, 7, 12), 3
+SLOT_CASES = {
+    "attn_data2": ("attention", _pair("smollm-360m", **F32), 2),
+    "attn_data4_window": ("attention", _pair("smollm-360m", sliding_window=4, **F32), 4),
+    "mla_data2": ("mla", _pair("deepseek-v3-671b", **F32), 2),
+}
+
+
+@pytest.mark.parametrize("case", list(SLOT_CASES))
+def test_per_slot_decode_over_the_sequence_split_equals_the_whole_cache(case):
+    """``write_decode`` with the slot pool's (B,) index on each data rank's
+    block of positions: each row written by the rank whose block holds its
+    index alone, each rank's keys masked against each row's own length and
+    the ranks' partial softmaxes combined; the outputs and the final cache
+    (blocks laid whole) against the whole cache's."""
+    layer, (_, cfg), m = SLOT_CASES[case]
+    defs = LAYERS[layer][1]
+    _, params = _params(defs(cfg))
+    b = len(SLOT_LENGTHS)
+    whole = {k: v[0] for k, v in _port_cache(layer, b, cfg).items()}
+    gen = torch.Generator().manual_seed(11)
+    for k, v in whole.items():
+        if k != "index":
+            v.copy_(torch.randn(v.shape, generator=gen))
+    whole["index"] = torch.tensor(SLOT_LENGTHS, dtype=torch.int32)
+    start = whole["index"].clone()
+    xs = [torch.randn((b, 1, cfg.d_model), generator=gen) for _ in range(SLOT_STEPS)]
+    sizes = {"data": m, "model": 1}
+    rules = dict(default_act_rules(), cache_seq=("data",))
+    specs = specs_for(defs(cfg), Mesh(sizes))
+
+    def serve(cache):
+        outs = []
+        for i, x in enumerate(xs):
+            pos = (start + i)[:, None]
+            outs.append(_port_step(layer, params, x, pos, cfg, cache, decode=True)[0])
+        return outs, cache
+
+    cache0 = {k: v.clone() for k, v in whole.items()}
+    with torch.no_grad():
+        wouts, wcache = serve(whole)
+
+    def rank(group):
+        mesh = Mesh(sizes, rank=group.index, groups={("data",): group})
+        cache = {k: (v.clone() if k == "index" else C.shard_leaf(v, 1, m, group.index))
+                 for k, v in cache0.items()}
+        ctx = ShardCtx(mesh, rules, specs, cache_seq_split=True, rows_split=False)
+        with torch.no_grad(), use_sharding(ctx):
+            return serve(cache)
+
+    got = C.run_plain_ranks(rank, m)
+    for outs, cache in got:
+        for i, (a, w) in enumerate(zip(outs, wouts)):
+            _close(a.numpy(), w.numpy(), RANKS_TOL, f"{case}: step {i}")
+        assert torch.equal(cache["index"], wcache["index"])
+    for k, w in wcache.items():
+        if k != "index":
+            laid = C.gather_leaf_plain([g[1][k] for g in got], 1)
+            _close(laid.numpy(), w.numpy(), RANKS_TOL, f"{case}: cache {k}")
