@@ -333,12 +333,31 @@ Phases, each of which raises (and so exits non-zero) on failure:
    milliseconds beside (a)'s decode-step wall; K3 on one model=2 rank's
    heads at (a)'s prefill shape (B 1, 8 of 16 q heads, 4 of 8 kv, S 128,
    causal) timed beside its plain version, its bound and SDPA.
+21. any parameter layout and the dry-run's loop count (after phase 20,
+   before phase 6's timings): (a) K1/K2 on a data=2,model=2 rank's blocks
+   of BERT-large's 13 leaves stored under ``--param-rule embed=data,model``
+   (``embed`` over data and model together), by phase 15 (b)'s contract,
+   each block's kernel against its plain version, and one rank's blocks
+   timed beside the bound; (b) BERT-large at full width cut to 8 layers,
+   batch 8 x seq 128, bf16, fused LAMB, flash and the fused CE head,
+   trained 3 steps by the Trainer over data=2,model=2 thread ranks
+   (``launch.mesh.run_plain_mesh``; each rank's backward runs through the
+   graph the ranks' plain collectives join) under that rule and then under
+   the default rules: step 1's loss bit-equal, steps 2-3 within a bf16 ulp
+   of the loss, K3 launched alike; (c) phase 12's xlstm-350m step traced
+   by the dry-run with each sLSTM loop counted from three of its steps:
+   argument bytes equal to phase 12's state and batch, the peak within
+   10% of phase 12's ``max_memory_allocated`` over its timed steps, phase
+   12's busy at least the roofline's larger term; then the count against
+   the unrolled trace under this machine's torch (2 layers, 64 positions,
+   a prefill and a train step on the 256-rank mesh).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -2835,11 +2854,16 @@ def run_xlstm_training(device) -> dict:
     del prof
     busy, n_launch = sum(ms for _, ms, _ in rows), sum(n for *_, n in rows)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    # what phase 21 (c) holds the dry-run's trace of this step to: the
+    # state's and a batch's bytes, and the peak over the timed steps
+    args_bytes = _tensor_bytes(trainer.state) + _tensor_bytes(batches[1])
+    torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     start.record()
     trainer.fit(iter(batches[1:]), 2)
     end.record()
     torch.cuda.synchronize()
+    step_peak = torch.cuda.max_memory_allocated(device)
     step_wall = (time.perf_counter() - t0) * 1e3 / 2
     span = start.elapsed_time(end) / 2
     groups: dict = {}
@@ -2849,10 +2873,13 @@ def run_xlstm_training(device) -> dict:
                                                         "nvjet")) else "other")
         groups[g] = groups.get(g, 0.0) + ms
     timing = dict(wall_ms=step_wall, span_ms=span, busy_ms=busy, launches=n_launch,
-                  idle=1 - busy / span, peak_gib=peak, groups=groups)
+                  idle=1 - busy / span, peak_gib=peak, groups=groups, args_bytes=args_bytes,
+                  step_peak=step_peak)
     log(f"xlstm timing step: wall {step_wall:.1f} ms, span {span:.1f} ms, busy {busy:.2f} ms "
         f"in {n_launch} launches, idle share {timing['idle']:.3f}, peak {peak:.2f} GiB "
-        f"(the profiled step took {t_prof:.1f} s, its aggregation {t_agg:.1f} s); busy by "
+        f"(the profiled step took {t_prof:.1f} s, its aggregation {t_agg:.1f} s), "
+        f"max_memory_allocated over the timed steps {step_peak / 2**30:.3f} GiB, the state's "
+        f"and a batch's bytes {args_bytes}; busy by "
         f"group "
         + ", ".join(f"{g} {ms:.2f}" for g, ms in sorted(groups.items(), key=lambda x: -x[1]))
         + "; costliest kernels: " + "; ".join(
@@ -3969,14 +3996,26 @@ def check_vocab_slices(device) -> dict:
     return out
 
 
-def check_tp_blocks(device, arch: str = "bert-large", mesh=None, label: str = "tp (b)"
-                    ) -> None:
+def _param_specs(model, mesh, rules=()):
+    """``model``'s parameter specs on ``mesh`` under the default rules with
+    the ``name=a,b`` overrides ``rules`` (the launchers' ``--param-rule``)."""
+    from repro_torch.sharding import default_param_rules, override_rules, specs_for
+
+    return specs_for(model.defs, mesh, override_rules(
+        default_param_rules(multi_pod="pod" in mesh.shape), rules) if rules else None)
+
+
+def check_tp_blocks(device, arch: str = "bert-large", mesh=None, label: str = "tp (b)",
+                    rules=()) -> None:
     """(b) K1/K2 on the blocks of ``arch``'s leaves over ``mesh`` (BERT-large's
-    13 over data=2,model=2; phase 17 granite-moe-1b's 12 over model=4): each
-    rank's per-layer partials, zero where the world rule leaves the rank
-    out (``ShardCtx.counts``), summed over the ranks within 1e-6 relative
-    of K1 on the whole leaf; with the whole leaf's ratio, K2 writes each
-    block bit-equal to the whole leaf's."""
+    13 over data=2,model=2; phase 17 granite-moe-1b's 12 over model=4;
+    phase 21 BERT-large's stored under ``rules``): each rank's per-layer
+    partials, zero where the world rule leaves the rank out
+    (``ShardCtx.counts``), summed over the ranks within 1e-6 relative of K1
+    on the whole leaf, and K1 on each block within 1e-6 relative of its
+    plain version; with the whole leaf's ratio, K2 writes each block
+    bit-equal to the whole leaf's, and K1 + K2 on each block are within
+    phase 3's tolerances of the plain pair's."""
     import torch
 
     from repro_torch.configs import get_config
@@ -3985,15 +4024,15 @@ def check_tp_blocks(device, arch: str = "bert-large", mesh=None, label: str = "t
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import build_model
     from repro_torch.nn import flatten
-    from repro_torch.sharding import ShardCtx, specs_for
+    from repro_torch.sharding import ShardCtx
     from repro_torch.sharding.collectives import shard_block
 
     mesh = mesh or TP_MESH
     model = build_model(get_config(arch).replace(use_flash_kernel=False,
                                                  use_fused_ce_head=False))
     world = mesh["data"] * mesh["model"]
-    ranks = [ShardCtx(Mesh(mesh, rank=r), param_specs=specs_for(model.defs, Mesh(mesh)))
-             for r in range(world)]
+    specs = _param_specs(model, Mesh(mesh), rules)
+    ranks = [ShardCtx(Mesh(mesh, rank=r), param_specs=specs) for r in range(world)]
     axes = model.layer_axes()
     gen = torch.Generator(device=device).manual_seed(6)
     c = bias_corrections(torch.tensor(5, device=device), 0.9, 0.999, device)
@@ -4007,35 +4046,52 @@ def check_tp_blocks(device, arch: str = "bert-large", mesh=None, label: str = "t
         m = 1e-4 * torch.randn(p.shape, generator=gen, device=device)
         v = 1e-8 * torch.rand(p.shape, generator=gen, device=device)
         blocks = [tuple(shard_block(t, lay, ctx.mesh) for t in (x, g, m, v)) for ctx in ranks]
+        plain = [tuple(t.clone() for t in b) for b in blocks]
+        starts = [b[0].clone() for b in blocks]
         xsq, usq = lamb_moments(x, g, m, v, c, layers)
         sums = [lamb_moments(*t, c, layers) for t in blocks]
         sx, su = (torch.stack([s[j] if ctx.counts(k) else torch.zeros_like(s[j])
                                for s, ctx in zip(sums, ranks)]).sum(0) for j in (0, 1))
         rel = max(float(((sx - xsq).abs() / xsq).max()), float(((su - usq).abs() / usq).max()))
+        # each block's K1 against its plain version on the same block
+        for t, got in zip(plain, sums):
+            for want, have in zip(lamb_moments(*t, c, layers, plain=True), got):
+                rel = max(rel, float(((have - want).abs() / want).max()))
         ratio = trust_ratio(xsq, usq) * lr
         lamb_apply(x, m, v, c, ratio, layers)
-        for t in blocks:
+        for t, q in zip(blocks, plain):
             lamb_apply(t[0], t[2], t[3], c, ratio, layers)
+            lamb_apply(q[0], q[2], q[3], c, ratio, layers, plain=True)
         torch.cuda.synchronize()
         equal = all(torch.equal(shard_block(whole, lay, ctx.mesh), part)
                     for ctx, t in zip(ranks, blocks)
                     for whole, part in zip((x, m, v), (t[0], t[2], t[3])))
+        # each block's K1 + K2 against the plain pair on the same block, by
+        # phase 3's tolerances: m', v' a few ulps, x' 1e-4 of its step
+        for t, q, x0 in zip(blocks, plain, starts):
+            near = (torch.allclose(t[2], q[2], rtol=1e-5, atol=1e-9)
+                    and torch.allclose(t[3], q[3], rtol=1e-5, atol=1e-14)
+                    and bool(((t[0] - q[0]).abs() <= 1e-4 * (q[0] - x0).abs()
+                              + 1.2e-7 * q[0].abs() + 1e-12).all()))
+            if not near:
+                raise AssertionError(f"{label}: {k}'s block kernels leave their plain version")
         counted = [r for r, ctx in enumerate(ranks) if ctx.counts(k)]
-        log(f"{label} {k:22s} {str(tuple(p.shape)):22s} data dim {lay.data} model dim "
-            f"{lay.model}, counted on ranks {counted}: partials rel {rel:.2e}, x' m' v' "
-            f"blocks bit-equal {equal}")
+        log(f"{label} {k:22s} {str(tuple(p.shape)):22s} splits {lay.splits}, counted on "
+            f"ranks {counted}: partials rel {rel:.2e}, x' m' v' blocks bit-equal {equal}")
         if rel > 1e-6 or not equal:
             raise AssertionError(f"{label}: {k} breaks the block contract")
         worst = max(worst, rel)
-        if lay.data is not None and lay.model is not None:
+        cut = set(lay.axes)
+        if {"data", "model"} <= cut:
             split["both"] += 1
         elif lay.split:
-            split["data" if lay.data is not None else "model"] += 1
-        del x, g, m, v, blocks
+            split["model" if cut == {"model"} else "data"] += 1
+        del x, g, m, v, blocks, plain, starts
     torch.cuda.empty_cache()
-    log(f"{label}: of {len(flatten(model.defs))} leaves of {arch} over {mesh}, split over "
-        f"data and model {split['both']}, data alone {split['data']}, model alone "
-        f"{split['model']}; worst partials rel {worst:.2e}")
+    log(f"{label}: of {len(flatten(model.defs))} leaves of {arch} over {mesh}"
+        f"{' stored under ' + ','.join(rules) if rules else ''}, split over data and model "
+        f"{split['both']}, data alone {split['data']}, model alone {split['model']}; worst "
+        f"partials rel {worst:.2e}")
 
 
 # (label, rows, in, out, product): BERT-large's MLP over model=2 at the main
@@ -6173,6 +6229,167 @@ def run_continuous_mesh(device, rate: float) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 21: any parameter layout, any mesh axis, and the dry-run's loop count
+# ---------------------------------------------------------------------------
+
+# the parameter rules (a) and (b) store BERT-large under: ``embed`` over data
+# and model together (q/k/v cut along embed with their heads whole)
+LAYOUT_RULES = ("embed=data,model",)
+LAYOUT_MESH = {"data": 2, "model": 2}
+# (b): BERT-large at full width cut to 8 of its 24 layers (four thread ranks
+# dispatch host-serial, and each rank's backward runs through the graph the
+# ranks share), batch 8 x seq 128, bf16, fused LAMB, flash, the fused CE head
+LAYOUT_LAYERS, LAYOUT_BATCH, LAYOUT_SEQ, LAYOUT_STEPS = 8, 8, 128, 3
+# (c): phase 12's step as the dry-run traces it
+XLSTM_TC = dict(accum_steps=2, precision="bf16", use_fused_lamb=True)
+# (c): the loop count against the unrolled trace at the suite's size
+LOOP_CHECK_LAYERS, LOOP_CHECK_SEQ = 2, 64
+
+
+def check_layout_blocks(device, rate: float) -> dict:
+    """(a) K1/K2 on the blocks a data=2,model=2 rank stores of BERT-large's
+    13 leaves under LAYOUT_RULES, by phase 15 (b)'s contract (and each
+    kernel against its plain version on the blocks), then timed over one
+    rank's blocks beside the bound from ``kernels/cost.py``."""
+    check_tp_blocks(device, label="layout (a)", rules=LAYOUT_RULES)
+    return time_kernels(device, rate, "bert-large", shards=LAYOUT_MESH["data"],
+                        model_ranks=LAYOUT_MESH["model"], rules=LAYOUT_RULES)
+
+
+def run_layout_mesh(device) -> dict:
+    """(b) BERT-large (LAYOUT_LAYERS layers at full width) trained
+    LAYOUT_STEPS steps by the Trainer over data=2,model=2 thread ranks
+    (``launch.mesh.run_plain_mesh``), its params and moments stored under
+    LAYOUT_RULES and then under the default rules: the layers compute in the
+    default layout either way, so step 1's loss is bit-equal, steps 2-3
+    within one bf16 ulp of the loss (phase 15 (d)'s rule), and K3 launches
+    alike.  Returns each run's launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import DataPipeline
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch.mesh import run_plain_mesh
+    from repro_torch.models import build_model
+    from repro_torch.sharding import default_param_rules, override_rules
+    from repro_torch.train import Trainer
+
+    cfg = get_config("bert-large").replace(n_layers=LAYOUT_LAYERS)
+    model = build_model(cfg)
+    tc = TrainConfig(optimizer="lamb", learning_rate=1e-3, precision="bf16",
+                     use_fused_lamb=True)
+    runs = {}
+    for name, rules in (("rules", LAYOUT_RULES), ("default", ())):
+        def rank(mesh, rules=rules):
+            pr = override_rules(default_param_rules(), rules) if rules else None
+            tr = Trainer(model, tc, device=device, mesh=mesh, param_rules=pr, log_every=1,
+                         log_fn=lambda msg: None)
+            tr.fit(DataPipeline(cfg, LAYOUT_BATCH, LAYOUT_SEQ, device=device, seed=0,
+                                rows=tr.batch_rows), LAYOUT_STEPS)
+            stored = {k: tuple(v.shape) for k, v in tr.state.params.items()}
+            return [h["loss/total"] for h in tr.history], stored
+
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        outs = run_plain_mesh(rank, LAYOUT_MESH)
+        torch.cuda.synchronize()
+        launches, designs, _ = _counts()
+        runs[name] = dict(losses=[o[0] for o in outs], stored=outs[0][1], launches=launches,
+                          designs=designs, wall_s=time.perf_counter() - t0)
+        log(f"layout (b) {name}: {cfg.name} at {LAYOUT_LAYERS} layers, batch {LAYOUT_BATCH} x "
+            f"seq {LAYOUT_SEQ}, {LAYOUT_STEPS} steps over {LAYOUT_MESH} thread ranks in "
+            f"{runs[name]['wall_s']:.1f} s: losses by rank {runs[name]['losses']}; rank 0 "
+            f"stores wq {outs[0][1]['blocks/attn/wq']}, wo {outs[0][1]['blocks/attn/wo']}; "
+            f"launches {launches}; designs {designs}")
+    a, b = runs["rules"], runs["default"]
+    if any(losses != run["losses"][0] for run in (a, b) for losses in run["losses"]):
+        raise AssertionError("layout (b): a run's ranks logged different losses")
+    first, rest = a["losses"][0], b["losses"][0]
+    ulps = [abs(x - y) / float(bf16_ulp(torch.tensor(y))) for x, y in zip(first, rest)]
+    log(f"layout (b): losses under {','.join(LAYOUT_RULES)} {first}, default {rest}; step 1 "
+        f"bit-equal {first[0] == rest[0]}; bf16 ulps of the loss by step {ulps}")
+    if first[0] != rest[0] or max(ulps) > 1.0:
+        raise AssertionError("layout (b): the stored layout moved the step's products")
+    if a["launches"]["flash_fwd"] != b["launches"]["flash_fwd"] or not all(
+            a["launches"][k] > 0 for k in KERNELS):
+        raise AssertionError(f"layout (b): launches {a['launches']} against {b['launches']}")
+    if a["stored"] == b["stored"]:
+        raise AssertionError("layout (b): the rules stored the default layout")
+    return {name: r["launches"] for name, r in runs.items()}
+
+
+def check_loop_count(device, xlstm: dict) -> dict:
+    """(c) Phase 12's xlstm-350m step (batch 16 x seq 256, accum 2, bf16,
+    fused LAMB) traced by the dry-run on an abstract data=1 mesh, each
+    sLSTM loop counted from three of its steps: its argument bytes equal the
+    real state's and batch's, its peak within DRY_PEAK_TOL of phase 12's
+    ``max_memory_allocated`` over its timed steps, phase 12's profiled busy
+    at least the roofline's larger term.  Then, under this machine's torch,
+    the loop count against the unrolled trace at LOOP_CHECK_LAYERS layers
+    and LOOP_CHECK_SEQ positions on the 256-rank mesh, a prefill and a
+    train step: every count equal, the peak within 1%."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import abstract_mesh, make_production_mesh
+    from repro_torch.models.api import build_model
+
+    timing = xlstm["timing"]
+    model = build_model(get_config(XLSTM_ARCH))
+    shape = InputShape("phase 12 step", XLSTM_SEQ, XLSTM_BATCH, "train")
+    # (b)'s thread ranks leave graphs behind: collected here, so that what
+    # is freed during the trace does not hide what it might allocate
+    gc.collect()
+    allocated = torch.cuda.memory_allocated()
+    rec = dryrun.trace(model, shape, abstract_mesh((1,), ("data",)), tc_kw=XLSTM_TC)
+    if torch.cuda.memory_allocated() > allocated:
+        raise AssertionError("the dry-run allocated on the card")
+    mem, rl = rec["memory"], rec["roofline"]
+    off = mem["peak_memory_in_bytes"] / timing["step_peak"] - 1
+    bound = max(rl["compute_s"], rl["memory_s"]) * 1e3
+    log(f"loops (c): {XLSTM_ARCH} x batch {XLSTM_BATCH} x seq {XLSTM_SEQ} traced in "
+        f"{rec['trace_s']:.2f} s: memory {json.dumps(mem)}, cost {json.dumps(rec['cost'])}; "
+        f"argument bytes {mem['argument_size_in_bytes']}, phase 12's state and batch "
+        f"{timing['args_bytes']}; peak {mem['peak_memory_in_bytes'] / 2**30:.3f} GiB traced, "
+        f"phase 12's {timing['step_peak'] / 2**30:.3f} GiB ({off:+.2%}); roofline compute "
+        f"{rl['compute_s'] * 1e3:.3f} ms, memory {rl['memory_s'] * 1e3:.3f} ms, phase 12's "
+        f"busy {timing['busy_ms']:.3f} ms ({bound / timing['busy_ms']:.4f} of it)")
+    if mem["argument_size_in_bytes"] != timing["args_bytes"]:
+        raise AssertionError("loops (c): the traced argument bytes differ from the real "
+                             "state's and batch's")
+    if abs(off) > DRY_PEAK_TOL:
+        raise AssertionError(f"loops (c): the traced peak is {off:+.1%} off the card's")
+    if timing["busy_ms"] < bound:
+        raise AssertionError(f"loops (c): busy {timing['busy_ms']:.3f} ms below the "
+                             f"roofline's {bound:.3f}")
+    small = build_model(get_config(XLSTM_ARCH).replace(n_layers=LOOP_CHECK_LAYERS))
+    for kind, batch in (("prefill", 32), ("train", 256)):
+        shape = InputShape("loops", LOOP_CHECK_SEQ, batch, kind)
+        counted, unrolled = (dryrun.trace(small, shape, make_production_mesh(), loops=loops)
+                             for loops in (True, False))
+        peaks = [r["memory"]["peak_memory_in_bytes"] for r in (counted, unrolled)]
+        same = all(counted[k] == unrolled[k] for k in ("cost", "kernels", "collectives"))
+        log(f"loops (c) {kind}: counted in {counted['trace_s']:.2f} s, unrolled in "
+            f"{unrolled['trace_s']:.2f} s; counts equal {same}; peaks {peaks}")
+        if not same or abs(peaks[0] / peaks[1] - 1) > 0.01:
+            raise AssertionError(f"loops (c): the {kind} loop count left the unrolled trace")
+    return dict(trace_s=rec["trace_s"], memory=mem, bound_ms=bound, peak_off=off)
+
+
+def run_layouts(device, rate: float, recurrent: dict) -> dict:
+    """Phase 21; returns (a)'s timings and (b)'s launches."""
+    t0 = time.perf_counter()
+    out = {"blocks": check_layout_blocks(device, rate), "mesh": run_layout_mesh(device),
+           "loops": check_loop_count(device, recurrent["xlstm_training"])}
+    log(f"layouts: phase 21 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 6: timing
 # ---------------------------------------------------------------------------
 
@@ -6199,11 +6416,12 @@ def cuda_ms(fn, reps: int = 10) -> float:
 
 
 def time_kernels(device, rate: float, arch: str = "bert-large", shards: int = 1,
-                 model_ranks: int = 1) -> dict:
+                 model_ranks: int = 1, rules=()) -> dict:
     """K1 and K2 over one full update of ``arch``'s leaves, plain, kernel
     (and with the guard's flag), kernel, plain, beside their bound.  With
     ``shards`` N > 1 or ``model_ranks`` M > 1: over the blocks one rank of a
-    ``data=N,model=M`` mesh holds (phases 14 and 15)."""
+    ``data=N,model=M`` mesh holds (phases 14 and 15), stored under the
+    parameter rules' overrides ``rules`` (phase 21)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -6212,23 +6430,21 @@ def time_kernels(device, rate: float, arch: str = "bert-large", shards: int = 1,
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import build_model
     from repro_torch.nn import flatten
-    from repro_torch.sharding import leaf_layout, specs_for
+    from repro_torch.sharding import leaf_layout
+    from repro_torch.sharding.collectives import shard_block
 
     model = build_model(get_config(arch).replace(
         use_flash_kernel=False, use_fused_ce_head=False))
     axes = model.layer_axes()
     mesh = Mesh({"data": shards, "model": model_ranks})
-    specs = specs_for(model.defs, mesh)
+    specs = _param_specs(model, mesh, rules)
     gen = torch.Generator(device=device).manual_seed(1)
     leaves = []
     for k, p in flatten(model.defs).items():
         layers = p.shape[0] if axes[k] == 0 else 1
-        shape = list(p.shape)
-        if shards > 1 or model_ranks > 1:
-            lay = leaf_layout(specs[k], mesh)
-            for dim, n_split in ((lay.data, shards), (lay.model, model_ranks)):
-                if dim is not None:
-                    shape[dim] //= n_split
+        # rank 0's block
+        shape = shard_block(torch.empty(p.shape, device="meta"), leaf_layout(specs[k], mesh),
+                            mesh).shape
         x = 0.05 * torch.randn(shape, generator=gen, device=device)
         g = 1e-3 * torch.randn(shape, generator=gen, device=device)
         m = torch.zeros_like(x)
@@ -6274,7 +6490,8 @@ def time_kernels(device, rate: float, arch: str = "bert-large", shards: int = 1,
                          library_ms=None, ok_ms=min(times[name]["ok"]),
                          timed_launches=timed[name])
         where = (arch if shards == model_ranks == 1
-                 else f"{arch} data={shards},model={model_ranks} block")
+                 else f"{arch} data={shards},model={model_ranks} block"
+                 + (f" stored under {','.join(rules)}" if rules else ""))
         log(f"time {name} {where}: kernel {times[name]['cuda']} ms, with ok=1 "
             f"{times[name]['ok']} ms, plain {times[name]['plain']} ms "
             f"over {n} elements in {len(leaves)} leaves; bound {bound:.3f} ms "
@@ -6365,7 +6582,8 @@ def time_flash_widths(device, rate: float) -> dict:
     kernels' own) forward and forward + backward at WIDTH_DIMS, b 8, h 16,
     s 512, bidirectional, bf16, beside the forward's plain version, its
     bound at the real head dim, and ``scaled_dot_product_attention``'s
-    forward + backward as a yardstick.  Returns the times by head dim."""
+    forward alone and forward + backward as yardsticks.  Returns the times
+    by head dim."""
     import torch
     import torch.nn.functional as F
 
@@ -6382,6 +6600,7 @@ def time_flash_widths(device, rate: float) -> dict:
         with torch.no_grad():
             fwd = cuda_ms(lambda: flash_attention(q, k, v, causal=False))
             plain = cuda_ms(lambda: flash_attention(q, k, v, causal=False, plain=True))
+            sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
         both = cuda_ms(lambda: torch.autograd.grad(flash_attention(qg, kg, vg, causal=False),
                                                    (qg, kg, vg), do))
         sdpa = cuda_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(qg, kg, vg),
@@ -6389,7 +6608,7 @@ def time_flash_widths(device, rate: float) -> dict:
         # the forward's bound at the real head dim
         out[d] = dict(fwd_ms=fwd, fwd_bwd_ms=both, plain_fwd_ms=plain,
                       **bound_of(cost.flash_fwd(b, h, h, s, s, d, torch.bfloat16), rate),
-                      sdpa_fwd_bwd_ms=sdpa)
+                      sdpa_fwd_ms=sdpa_fwd, sdpa_fwd_bwd_ms=sdpa)
         del q, k, v, do, qg, kg, vg
     base = out[64]
     for d, r in out.items():
@@ -6398,7 +6617,8 @@ def time_flash_widths(device, rate: float) -> dict:
             f"({r['fwd_ms'] / base['fwd_ms']:.2f}x D 64), forward + backward "
             f"{r['fwd_bwd_ms']:.4f} ms ({r['fwd_bwd_ms'] / base['fwd_bwd_ms']:.2f}x D 64); "
             f"forward's plain version {r['plain_fwd_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
-            f"by {r['bound_by']}; SDPA forward + backward {r['sdpa_fwd_bwd_ms']:.4f} ms")
+            f"by {r['bound_by']}; SDPA forward {r['sdpa_fwd_ms']:.4f} ms, forward + backward "
+            f"{r['sdpa_fwd_bwd_ms']:.4f} ms")
     torch.cuda.empty_cache()
     return out
 
@@ -6526,6 +6746,7 @@ def main() -> None:
     run_dryrun_phase(device)
     serve_mesh = run_serve_mesh(device, rate)
     cont_mesh = run_continuous_mesh(device, rate)
+    layouts = run_layouts(device, rate, recurrent)
     timing = {**time_kernels(device, rate), **time_flash(device, rate),
               **time_fused_ce(device, rate)}
     moe_timing = {**time_kernels(device, rate, MOE_ARCH),
@@ -6631,6 +6852,16 @@ def main() -> None:
         launches=cont_mesh["pool"]["launches"]["flash_fwd"],
         seq_split_launches=cont_mesh["seq"]["launches"]["flash_fwd"],
         **cont_mesh["k3"]["flash_fwd"])
+    # phase 21: K1/K2 over a data=2,model=2 rank's blocks of BERT-large
+    # stored under LAYOUT_RULES (the launches of their timing), and every
+    # kernel's launches in (b)'s runs over thread ranks, under the rules and
+    # under the default layout
+    for k in ("lamb_moments", "lamb_apply"):
+        by_name[k]["bert_large_embed_data_model_block"] = dict(
+            launches=layouts["blocks"][k].pop("timed_launches"), **layouts["blocks"][k])
+    for k in KERNELS:
+        by_name[k]["layout_mesh"] = {name: launches[k]
+                                     for name, launches in layouts["mesh"].items()}
     log(card)   # again near the end, where a truncated log still shows it
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -52,7 +52,7 @@ import torch
 from repro_torch.kernels import cost
 from repro_torch.kernels.flash_attention import aligned16
 from repro_torch.kernels.launches import count_launch, register
-from repro_torch.sharding.collectives import all_reduce, copy_to_model
+from repro_torch.sharding.collectives import all_reduce, copy_to_model, replicated
 
 DESIGNS = ("mma", "fma")   # bf16 on the tensor cores (mma.sync); fp32 FMA
 register("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw", variants=DESIGNS)
@@ -509,6 +509,8 @@ def fused_ce(
         h, w = h.to(wide), w.to(wide)
     whole = v if model is None else v * model.size
     lbl = torch.clamp(labels.to(device=h.device, dtype=torch.int32), 0, whole - 1).contiguous()
-    if model is not None:
-        h = copy_to_model(h, model.group)
-    return FusedCE.apply(h, w, lbl, model, min(block_v, v), plain)
+    if model is None:
+        return FusedCE.apply(h, w, lbl, model, min(block_v, v), plain)
+    nll, correct = FusedCE.apply(copy_to_model(h, model.group), w, lbl, model,
+                                 min(block_v, v), plain)
+    return replicated(nll, model.group), correct

@@ -27,14 +27,19 @@ under four counters:
     (``sharding/collectives.CountingGroup``): operand bytes by kind and by
     the mesh axes each group spans.
 
+A loop over time (``models/layers/scan.scan``, the xLSTM cells'
+``lax.scan``) is counted from three of its steps, scaled to its length
+(:class:`LoopCounter`): every count and the peak equal the unrolled
+trace's, at a cost that does not grow with the loop.
+
 Nothing is allocated on any device, no process group is made, and nothing
 of JAX runs.  ``launch/roofline.py`` turns the counts into the H100's
 compute, memory and collective terms.  A prefill or decode runs as one
 rank of the static ``Engine`` on the mesh does (``placement.serving_ctx``):
 its rows of the batch, its block of the cache (its kv heads, its ``inner``
 slice, its block of positions under the ``cache_seq`` rule) and its
-parameter blocks gathered over the data-parallel ranks.  Any error fails
-the record.
+parameter blocks, stored as the parameter rules say (``--param-rule``)
+and taken to the layers' layout.  Any error fails the record.
 """
 from __future__ import annotations
 
@@ -46,7 +51,7 @@ from typing import Any, Dict, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten
+from torch.utils._pytree import tree_flatten, tree_unflatten
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.checkpoint.io import tree_leaves_with_paths
@@ -56,7 +61,8 @@ from repro_torch.kernels import cost as kernel_cost
 from repro_torch.launch.mesh import counting_mesh, make_production_mesh
 from repro_torch.launch.roofline import PEAK_OPS, analyze, model_flops
 from repro_torch.models.api import build_model
-from repro_torch.serve.engine import make_decode_step, make_prefill_step
+from repro_torch.models.layers.scan import counted_by
+from repro_torch.serve.engine import RankParams, make_decode_step, make_prefill_step
 from repro_torch.sharding import (
     ShardCtx,
     batch_shardings,
@@ -64,12 +70,13 @@ from repro_torch.sharding import (
     default_act_rules,
     default_param_rules,
     leaf_dims,
+    override_rules,
     serving_ctx,
     shard_tree,
     specs_for,
     use_sharding,
 )
-from repro_torch.sharding.collectives import CollectiveTally, gather_leaf
+from repro_torch.sharding.collectives import CollectiveTally
 from repro_torch.train.step import make_train_step
 
 # the CUDA caching allocator's block: every allocation is rounded up to it
@@ -111,7 +118,9 @@ class MetaCounter(TorchDispatchMode):
         self.bytes_accessed = 0
         self.live = 0
         self.peak = 0
+        # the storages alive: key -> (weak reference, rounded size, serial)
         self._tracked: Dict[int, Any] = {}
+        self.serial = 0   # the storages made so far
 
     def known(self, tensors) -> None:
         for t in tensors:
@@ -128,9 +137,16 @@ class MetaCounter(TorchDispatchMode):
             self._tracked.pop(key, None)
             self.live -= size
 
-        self._tracked[key] = weakref.ref(st, dead)
+        self._tracked[key] = (weakref.ref(st, dead), size, self.serial)
+        self.serial += 1
         self.live += size
         self.peak = max(self.peak, self.live)
+
+    def alive_made(self, first: int, end: int) -> int:
+        """The rounded bytes of the storages made from serial ``first`` to
+        ``end`` (exclusive) that are still alive."""
+        return sum(e[1] for e in self._tracked.values()
+                   if e is not None and first <= e[2] < end)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -175,23 +191,188 @@ def _unique_bytes(tensors, rounded: bool = False) -> int:
     return sum(seen.values())
 
 
-def count(fn, args, *, sharding: Optional[ShardCtx] = None) -> Dict[str, Any]:
+class _Counts:
+    """Every count of :func:`count` at once: the aten ops' flops (by module
+    and op) and their flops by rate, the bytes accessed, the kernels'
+    tallies and rates and the collectives' tally.  :meth:`snapshot` reads
+    them as ``{path: number}``; :meth:`add` adds a difference of two
+    snapshots ``n`` times."""
+
+    def __init__(self, flops: FlopCounterMode, meta: MetaCounter, kernels: dict,
+                 k_by_rate: dict, tally: Optional[CollectiveTally]):
+        self.flops, self.meta, self.tally = flops, meta, tally
+        self._dicts = {"by_rate": meta.flops_by_rate, "kernels": kernels,
+                       "k_by_rate": k_by_rate}
+        if tally is not None:
+            self._dicts.update(kinds=tally.by_kind, axes=tally.by_axis)
+
+    def snapshot(self) -> Dict[tuple, int]:
+        out = {("bytes",): self.meta.bytes_accessed}
+        for mod, ops in self.flops.flop_counts.items():
+            out.update({("flops", mod, op): n for op, n in ops.items()})
+        for name, d in self._dicts.items():
+            for k, v in d.items():
+                if isinstance(v, dict):
+                    out.update({(name, k, f): n for f, n in v.items()})
+                else:
+                    out[(name, k)] = v
+        if self.tally is not None:
+            out[("count",)] = self.tally.count
+        return out
+
+    def add(self, after: Dict[tuple, int], before: Dict[tuple, int], n: int) -> None:
+        for path, v in after.items():
+            d = n * (v - before.get(path, 0))
+            if not d:
+                continue
+            if path == ("bytes",):
+                self.meta.bytes_accessed += d
+            elif path == ("count",):
+                self.tally.count += d
+            elif path[0] == "flops":
+                self.flops.flop_counts[path[1]][path[2]] += d
+            elif len(path) == 3:
+                entry = self._dicts[path[0]].setdefault(path[1], {})
+                entry[path[2]] = entry.get(path[2], 0) + d
+            else:
+                self._dicts[path[0]][path[1]] = self._dicts[path[0]].get(path[1], 0) + d
+
+
+class _Mark(torch.autograd.Function):
+    """The identity on ``xs``, whose backward calls ``hook()`` first: in
+    the backward of a counted loop it runs after every node made later
+    than it and before every node made earlier (the engine runs the ready
+    node made last first)."""
+
+    @staticmethod
+    def forward(ctx, hook, *xs):
+        ctx.hook = hook
+        ctx.set_materialize_grads(False)
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.hook()
+        return (None, *grads)
+
+
+class _Stacked(torch.autograd.Function):
+    """The ``torch.stack`` of a loop's ``length`` outputs, of which the
+    counted steps' ``ys`` are the first: an allocation, whose backward
+    hands each counted step its slice."""
+
+    @staticmethod
+    def forward(ctx, length: int, dim: int, *ys):
+        ctx.dim, ctx.n = dim, len(ys)
+        shape = list(ys[0].shape)
+        shape.insert(dim % (len(shape) + 1), length)
+        return ys[0].new_empty(shape)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (None, None, *(grad.select(ctx.dim, t) for t in range(ctx.n)))
+
+
+# the steps a counted loop runs: the first (its carry made outside, its
+# gradient not needed), a middle one and the last
+LOOP_STEPS = 3
+
+
+class LoopCounter:
+    """Stands in for each loop over time (``models/layers/scan.scan``) of
+    more than :data:`LOOP_STEPS` steps under :func:`count`, so that a
+    trace of T positions costs what one of three does and counts what the
+    unrolled loop does.
+
+    It runs the first, a middle and the last step as the loop would and
+    adds T - 3 times the middle step's counts: flops and flops by rate,
+    bytes accessed, kernel tallies and collectives.  The first step differs
+    (its carry, zeros and m = -1e9, needs no gradient) and the last is the
+    one whose backward reaches the accumulated gradients first, so neither
+    stands for the others.  ``torch.stack`` of the outputs is counted on the
+    three and scaled to T; the result is an allocation of T.  In the
+    backward, :class:`_Mark` nodes around the middle step take its counts,
+    added T - 3 times.  The peak: the storages the middle step made that
+    are still alive after the last (what autograd saved, the carry the next
+    step saved, the output the loop keeps) stand in for the T - 3 others,
+    as one meta allocation made after the last step (and the last step's
+    peak raised by it), cut to what survives the stack after it and freed
+    where the backward leaves the middle steps."""
+
+    def __init__(self, counts: _Counts):
+        self.counts = counts
+
+    def __call__(self, step, carry, xs, dim: int, out_dim: int):
+        length = xs[0].shape[dim]
+        if length <= LOOP_STEPS or any(x.device.type != "meta" for x in xs):
+            return None
+        counts, meta = self.counts, self.counts.meta
+        extra = length - LOOP_STEPS
+        held: Dict[str, Any] = {}
+
+        def after_middle():   # the backward reaches the middle step
+            held["bwd"] = counts.snapshot()
+
+        def before_middle():  # the backward leaves the middle step
+            counts.add(counts.snapshot(), held.pop("bwd"), extra)
+            held.pop("filler", None)
+
+        hooks = (before_middle, after_middle)
+        ys, serials, snaps = [], [], []
+        for t in range(LOOP_STEPS):
+            serials.append(meta.serial)
+            snaps.append(counts.snapshot())
+            if t == LOOP_STEPS - 1:
+                peak, meta.peak = meta.peak, meta.live
+            carry, y = step(carry, *(x.select(dim, t) for x in xs))
+            if y is not None:
+                ys.append(y)
+            if t < LOOP_STEPS - 1:
+                flat, spec = tree_flatten(carry)
+                carry = tree_unflatten(list(_Mark.apply(hooks[t], *flat)), spec)
+                del flat
+            del y
+        counts.add(snaps[2], snaps[1], extra)
+        last_peak, meta.peak = meta.peak, max(peak, meta.peak)
+        kept = extra * meta.alive_made(serials[1], serials[2])
+        held["filler"] = torch.empty(kept, dtype=torch.uint8, device="meta")
+        meta.peak = max(meta.peak, last_peak + kept)
+        out = None
+        if ys:
+            before = counts.snapshot()
+            torch.stack(ys, out_dim)
+            after = counts.snapshot()
+            per = {k: (v - before.get(k, 0)) // LOOP_STEPS for k, v in after.items()}
+            counts.add(per, {}, extra)
+            out = _Stacked.apply(length, out_dim, *ys)
+            ys.clear()   # the loop's list of outputs dies with it
+            held.pop("filler")
+            kept = extra * meta.alive_made(serials[1], serials[2])
+            held["filler"] = torch.empty(kept, dtype=torch.uint8, device="meta")
+        return carry, out
+
+
+def count(fn, args, *, sharding: Optional[ShardCtx] = None,
+          tally: Optional[CollectiveTally] = None, loops: bool = True) -> Dict[str, Any]:
     """Run ``fn(*args)`` (meta tensors) once under ``sharding`` and the
     counters and return the counts: ``memory`` (the reference's keys),
     ``cost`` (``flops``: the aten ops' plus the kernels' operations;
     ``bytes accessed``: the aten ops' plus the kernels'; ``flops_by_rate``:
     the flops by the peak they run at, ``"bfloat16"`` or ``"float32"``), ``kernels``
     (``{name: {"launches", "bytes", "operations"}}``) and ``trace_s``.  The
-    collectives count into the tally of the mesh the caller built ``fn``
-    on."""
+    collectives count into ``tally``, that of the mesh the caller built
+    ``fn`` on.  With ``loops`` each loop over time is counted from three
+    of its steps (:class:`LoopCounter`), else unrolled."""
     arg_tensors = _tensors(args)
     flops = FlopCounterMode(display=False)
     counter = MetaCounter(flops)
     counter.known(arg_tensors)
     kernels: Dict[str, Dict[str, int]] = {}
     k_by_rate: Dict[str, int] = {}
+    loop = LoopCounter(_Counts(flops, counter, kernels, k_by_rate, tally)) if loops else None
     t0 = time.perf_counter()
-    with use_sharding(sharding), kernel_cost.counting(kernels, k_by_rate), flops, counter:
+    with use_sharding(sharding), kernel_cost.counting(kernels, k_by_rate), flops, counter, \
+            counted_by(loop):
         out = fn(*args)
     trace_s = time.perf_counter() - t0
     out_tensors = _tensors(out)
@@ -237,24 +418,24 @@ def build_train(model, shape: InputShape, mesh, rules, optimizer: str,
 
 
 def _serving(fn, model, mesh, rules, param_rules, batch: int, cache=None):
-    """``fn(params, ...)`` on rank 0's parameter blocks: each leaf gathered
-    over the data-parallel ranks first (FSDP, as the Engine gathers them),
-    without autograd, under the context the Engine's call of ``batch`` rows
-    over ``cache`` (whole, meta) runs under; with rank 0's block of
-    ``cache``."""
+    """``fn(params, ...)`` on rank 0's parameter blocks in the layout the
+    parameter rules store them in: each leaf taken to the layout the
+    layers compute in first (FSDP's gather over the data-parallel ranks
+    under the default rules), as the Engine does (``RankParams``), without
+    autograd, under the context the Engine's call of ``batch`` rows over
+    ``cache`` (whole, meta) runs under; with rank 0's block of ``cache``."""
     specs = specs_for(model.defs, mesh, param_rules)
-    layouts = leaf_dims(specs, mesh)
     ctx = ShardCtx(mesh, rules, specs)
+    rank = RankParams(model, model.abstract_params(), ctx)
     if cache is not None:
         ctx = serving_ctx(ctx, specs, cache, batch)
         cache = cache_block(cache, mesh, rules, "meta")
 
     def run(params, *rest):
         with torch.no_grad():
-            whole = {k: gather_leaf(v, layouts[k].data, ctx.dp_group) for k, v in params.items()}
-            return fn(whole, *rest)
+            return fn(rank.compute_blocks(params), *rest)
 
-    return run, shard_tree(model.abstract_params(), layouts, mesh), cache, ctx
+    return run, rank.blocks, cache, ctx
 
 
 def build_prefill(model, shape: InputShape, mesh, rules, param_rules=None):
@@ -317,15 +498,10 @@ def dryrun_rules(mesh, act_rule_sets=None, param_rule_sets=None):
     rules = default_act_rules(multi_pod=multi_pod)
     rules["cache_seq"] = ("pod", "data")
     rules["inner"] = ("model",)
-    for item in act_rule_sets or []:
-        k, _, v = item.partition("=")
-        rules[k] = tuple(x for x in v.split(",") if x) or None
+    rules = override_rules(rules, act_rule_sets or [])
     param_rules = None
     if param_rule_sets:
-        param_rules = default_param_rules(multi_pod=multi_pod)
-        for item in param_rule_sets:
-            k, _, v = item.partition("=")
-            param_rules[k] = tuple(x for x in v.split(",") if x) or None
+        param_rules = override_rules(default_param_rules(multi_pod=multi_pod), param_rule_sets)
     return rules, param_rules
 
 
@@ -343,7 +519,7 @@ def call_for(model, shape: InputShape, mesh, rules, optimizer: str = "lamb",
 
 
 def trace(model, shape: InputShape, mesh, *, optimizer: str = "lamb", rules=None,
-          param_rules=None, tc_kw=None) -> Dict[str, Any]:
+          param_rules=None, tc_kw=None, loops: bool = True) -> Dict[str, Any]:
     """The counts (:func:`count`) of rank 0's call of ``shape`` on ``mesh``
     (an abstract mesh: its counting groups are made here), with the
     collectives' tally and the roofline."""
@@ -352,7 +528,7 @@ def trace(model, shape: InputShape, mesh, *, optimizer: str = "lamb", rules=None
     tally = CollectiveTally()
     cmesh = counting_mesh(mesh, tally)
     fn, args, ctx = call_for(model, shape, cmesh, rules, optimizer, param_rules, tc_kw)
-    counts = count(fn, args, sharding=ctx)
+    counts = count(fn, args, sharding=ctx, tally=tally, loops=loops)
     tokens = shape.global_batch * (1 if shape.kind == "decode" else shape.seq_len)
     mf = model_flops(shape.kind, model.active_param_count(), tokens) / mesh.size
     counts.update(

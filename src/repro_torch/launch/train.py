@@ -68,7 +68,17 @@ each held to the single process:
         -m repro_torch.launch.train --arch jamba-1.5-large-398b --smoke \
         --steps 3 --device cpu --mesh data=1,model=2
 
-The flags mirror ``repro.launch.train``.
+Any mesh axis runs: a rank on an axis besides ``pod``, ``data`` and
+``model`` (``--mesh data=1,model=1,pipe=2``) holds the same rows as its
+peers on that axis.  ``--param-rule name=a,b`` (as the reference's dry-run
+takes it) changes the layout that stores params and moments: a dimension
+split over ``data`` and ``model`` together (``embed=data,model``), over
+part of the data-parallel axes (``embed=data`` on ``pod × data``), any
+layout the rules give; the step gathers each leaf into the default
+rules' layout to compute and sends its gradient back to its block.
+
+The flags mirror ``repro.launch.train``; ``--param-rule`` is the
+reference dry-run's.
 """
 from __future__ import annotations
 
@@ -92,10 +102,9 @@ from repro_torch.launch.mesh import (
     shutdown_distributed,
 )
 from repro_torch.models import build_model
-from repro_torch.sharding import dp_size
+from repro_torch.sharding import default_param_rules, dp_size, override_rules
 from repro_torch.telemetry import EventLog, RunReport
 from repro_torch.train import DivergenceError, SupervisorConfig, Trainer
-from repro_torch.train.trainer import check_mesh_supported
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -146,6 +155,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="mesh axes, e.g. data=4,model=2 (one rank per device, under "
                          "torch.distributed.run); params + LAMB moments are "
                          "FSDP-sharded over data, heads/ff/vocab split over model")
+    ap.add_argument("--param-rule", action="append", default=[],
+                    help="parameter sharding rule override name=axis1,axis2 "
+                         "(repeatable; an empty value replicates that logical axis): "
+                         "the layout that stores params and moments, e.g. "
+                         "embed=data,model; the layers compute in the default one")
     ap.add_argument("--model-parallel", type=int, default=1,
                     help="legacy spelling: model-axis size of the host mesh "
                          "(ignored when --mesh is given)")
@@ -215,11 +229,13 @@ def build(args: argparse.Namespace, *, remat: Optional[str] = None, **trainer_kw
     if remat is not None:
         cfg = cfg.replace(remat=remat)
     mesh = _mesh_plan(args)
+    param_rules = None
     if mesh is not None:
-        # what a mesh does not run raises before any process group is made
-        check_mesh_supported(mesh)
         mesh, device = init_distributed(device, args.mesh,
                                         model_parallel=args.model_parallel)
+        if args.param_rule:
+            param_rules = override_rules(
+                default_param_rules(multi_pod="pod" in mesh.shape), args.param_rule)
     model = build_model(cfg)
     lr, schedule = lr_schedule(args)
     writer = mesh is None or mesh.rank == 0
@@ -248,6 +264,7 @@ def build(args: argparse.Namespace, *, remat: Optional[str] = None, **trainer_kw
                     if args.rollback_on_spike else None),
         preempt_grace=args.preempt_grace,
         mesh=mesh,
+        param_rules=param_rules,
     )
     trainer = Trainer(model, tc, device=device, **{**kw, **trainer_kw})
     data = DataPipeline(cfg, args.batch, args.seq, device=device, seed=args.seed,

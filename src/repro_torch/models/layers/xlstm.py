@@ -7,11 +7,12 @@ log-gate stabilisation over a (B, H, S, S) decay matrix in fp32; decode is
 the O(d²) recurrent form: the matrix memory C (B, H, dh, dh), the
 normaliser n and the stabiliser m, all fp32.  A prefill with state rolls the
 whole prompt through the recurrence to build it, as the reference's
-``lax.scan`` does (a Python loop over time here).
+``lax.scan`` does (``layers/scan.scan``: a Python loop over time).
 
 sLSTM is sequential (the recurrent R_z/R_i/R_f/R_o are block-diagonal per
-head): a Python loop over time in fp32, the reference's ``lax.scan``.  No
-TPU kernel of the reference covers either cell: they run as PyTorch ops.
+head): a loop over time in fp32 (``layers/scan.scan``), the reference's
+``lax.scan``.  No TPU kernel of the reference covers either cell: they run
+as PyTorch ops.
 
 Layouts and paths are the reference's, so the bridge carries weights over
 by path; casts sit where the reference's do (weights cast to the
@@ -58,6 +59,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers.scan import scan
 from repro_torch.models.layers.tensor_parallel import (
     column_matmul,
     paired_columns,
@@ -191,11 +193,9 @@ def mlstm_block(
         h = h[:, :, None]                                       # (B, H, 1, Dh)
     else:
         h = mlstm_parallel(q, k, v, i_pre, f_pre)
-        if state is not None:
-            new_state = state
-            for t in range(s):
-                new_state, _ = mlstm_recurrent_step(new_state, q[:, :, t], k[:, :, t],
-                                                    v[:, :, t], i_pre[:, :, t], f_pre[:, :, t])
+        if state is not None:   # the prompt rolled through the recurrence, h dropped
+            new_state, _ = scan(lambda st, *x: (mlstm_recurrent_step(st, *x)[0], None),
+                                state, (q, k, v, i_pre, f_pre), dim=2)
 
     h = h.transpose(1, 2).reshape(b, s, -1)
     if tp is None:
@@ -276,24 +276,23 @@ def slstm_block(
     r = torch.stack([p[f"r_{g}"].to(torch.float32) for g in GATES])        # (4, H, Dh, Dh)
     bias = torch.stack([p[f"b_{g}"].to(torch.float32) for g in GATES])[:, None]  # (4,1,H,Dh)
     st = state if state is not None else init_slstm_state(b, cfg, x.device, hh)
-    c, n, m, h_prev = st["c"], st["n"], st["m"], st["h"]
     one = torch.ones((), device=x.device)   # max(n, 1): torch.maximum splits ties as JAX's
-    hs = []
-    for t in range(s):
-        rec = (h_prev.transpose(0, 1) @ r).transpose(1, 2)                  # (4, B, H, Dh)
-        i_t, f_t, z_t, o_t = (pre[:, :, t] + rec + bias).unbind(0)
-        log_fm = F.logsigmoid(f_t) + m
+
+    def step(st, pre_t):
+        rec = (st["h"].transpose(0, 1) @ r).transpose(1, 2)                # (4, B, H, Dh)
+        i_t, f_t, z_t, o_t = (pre_t + rec + bias).unbind(0)
+        log_fm = F.logsigmoid(f_t) + st["m"]
         m_new = torch.maximum(log_fm, i_t)
         i_eff = torch.exp(i_t - m_new)
         f_eff = torch.exp(log_fm - m_new)
-        c = f_eff * c + i_eff * torch.tanh(z_t)
-        n = f_eff * n + i_eff
-        h_prev = torch.sigmoid(o_t) * c / torch.maximum(n, one)
-        m = m_new
-        hs.append(h_prev)
-    new_state = {"c": c, "n": n, "m": m, "h": h_prev}
+        c = f_eff * st["c"] + i_eff * torch.tanh(z_t)
+        n = f_eff * st["n"] + i_eff
+        h = torch.sigmoid(o_t) * c / torch.maximum(n, one)
+        return {"c": c, "n": n, "m": m_new, "h": h}, h
 
-    y = torch.stack(hs, 1).reshape(b, s, hh * dh).to(dtype)
+    new_state, hs = scan(step, {k: st[k] for k in ("c", "n", "m", "h")}, (pre,), dim=2,
+                         out_dim=1)
+    y = hs.reshape(b, s, hh * dh).to(dtype)
     if tp is not None:   # every rank's heads, concatenated
         y = gather_from_model(y, -1, tp.group)
     y = _rms(y, p["out_norm"])

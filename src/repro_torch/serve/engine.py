@@ -33,8 +33,8 @@ from repro_torch.checkpoint.io import tree_leaves_with_paths
 from repro_torch.models.api import Model
 from repro_torch.serve.sampling import sample_tokens
 from repro_torch.sharding.axes import batch_axes, specs_for
-from repro_torch.sharding.collectives import gather_leaf, shard_block
-from repro_torch.sharding.context import ShardCtx, use_sharding
+from repro_torch.sharding.collectives import gather_leaf, shard_block, to_compute
+from repro_torch.sharding.context import ShardCtx, compute_layout, use_sharding
 from repro_torch.sharding.placement import cache_block, leaf_dims, serving_ctx, serving_rows
 
 
@@ -87,15 +87,24 @@ class RankParams:
     """This rank's blocks of a model's parameters on ``shard_ctx``'s mesh:
     ``specs`` (the context's, by default the reference's parameter rules),
     their ``layouts``, and ``blocks`` cut from ``params``, each leaf the
-    whole or already this rank's block.  :meth:`call` gathers each block
-    over the data-parallel ranks (FSDP), its ``model`` split kept: the
-    parameters a serving call computes with."""
+    whole or already this rank's block.  :meth:`call` takes each block to
+    the layout the layers compute in (``collectives.to_compute``: under the
+    default rules FSDP's gather over the data-parallel ranks, the ``model``
+    split kept): the parameters a serving call computes with."""
 
     def __init__(self, model: Model, params, shard_ctx: ShardCtx):
         self.ctx = shard_ctx
         mesh = shard_ctx.mesh
         self.specs = dict(shard_ctx.param_specs) or specs_for(model.defs, mesh)
         self.layouts = leaf_dims(self.specs, mesh)
+        compute = specs_for(model.defs, mesh)
+        self.compute = {k: compute_layout(compute[k], mesh) for k in self.specs}
+        # over one data-parallel rank the default layout's blocks are the
+        # compute blocks themselves
+        dp = batch_axes(mesh)
+        self._as_stored = mesh.extent(dp) == 1 and all(
+            tuple(s for s in self.layouts[k].splits if s[1] != dp) == self.compute[k].splits
+            for k in self.specs)
         whole = model.abstract_params()
         self.blocks = {k: self._block(k, v, whole[k]) for k, v in params.items()}
 
@@ -111,14 +120,19 @@ class RankParams:
         raise ValueError(f"parameter {path} of shape {tuple(x.shape)} is neither the whole "
                          f"{tuple(whole.shape)} nor this rank's block {tuple(mine)}")
 
-    def call(self):
-        """The parameters a call computes with: each block gathered over the
-        data-parallel ranks, its ``model`` split kept."""
+    def compute_blocks(self, blocks) -> Dict[str, torch.Tensor]:
+        """``blocks`` (this rank's, in the storage layouts) in the layouts
+        the layers compute in."""
+        if self._as_stored:
+            return blocks
         mesh = self.ctx.mesh
-        if mesh.extent(batch_axes(mesh)) == 1:
-            return self.blocks
-        group = self.ctx.dp_group
-        return {k: gather_leaf(v, self.layouts[k].data, group) for k, v in self.blocks.items()}
+        return {k: to_compute(v, self.layouts[k], self.compute[k], mesh)
+                for k, v in blocks.items()}
+
+    def call(self):
+        """The parameters a call computes with (:meth:`compute_blocks` of
+        the rank's blocks)."""
+        return self.compute_blocks(self.blocks)
 
 
 def gather_logits(last: torch.Tensor, ctx: ShardCtx, vocab: int) -> torch.Tensor:

@@ -55,6 +55,17 @@ def default_param_rules(multi_pod: bool = False) -> dict:
     }
 
 
+def override_rules(rules: Mapping, overrides: Sequence[str]) -> dict:
+    """``rules`` with each ``name=a,b`` of ``overrides`` replacing its entry
+    (an empty value replicates that logical axis), as the reference's
+    dry-run reads ``--act-rule`` and ``--param-rule``."""
+    out = dict(rules)
+    for item in overrides:
+        k, _, v = item.partition("=")
+        out[k] = tuple(x for x in v.split(",") if x) or None
+    return out
+
+
 def default_act_rules(multi_pod: bool = False) -> dict:
     """Default logical→mesh rules for *activations* (data parallel over
     ``batch``, tensor parallel over head/ff/expert/vocab axes)."""

@@ -5,14 +5,18 @@ A leaf split over a group of ``N`` ranks along dimension ``dim`` lives on
 each rank as one contiguous slice of ``dim``: rank ``i`` holds rows
 ``[i·n, (i+1)·n)``, ``n = size/N``.  A leaf may be split along two
 dimensions, ``embed`` over the data-parallel ranks and a head, ff or vocab
-dimension over ``model`` (its :class:`~repro_torch.sharding.context.Layout`):
-each rank then holds one block.
+dimension over ``model``, or along one dimension over an ordered tuple of
+axes (its :class:`~repro_torch.sharding.context.Layout`, any spec
+``resolve_spec`` gives): each rank then holds one block.
 
 * :func:`shard_leaf` keeps the rank's slice of a whole leaf (no traffic),
   :func:`shard_block` its block;
 * :func:`gather_leaf` rebuilds the whole leaf along one dimension on every
   rank of a group (``all_gather_into_tensor``), :func:`gather_block` along
-  both;
+  every split;
+* :func:`to_compute` takes a parameter's block from the layout that stores
+  it to the one the layers compute in, and :func:`to_storage` its gradient
+  back, summed over the data-parallel ranks;
 * :func:`scatter_grad` sums every rank's whole gradient and leaves each
   rank its slice (``reduce_scatter_tensor``); a leaf that is not split
   is all-reduced whole instead;
@@ -264,6 +268,10 @@ def scatter_grad(g: torch.Tensor, dim: Optional[int], group) -> torch.Tensor:
     as it lies."""
     if dim is None:
         return all_reduce(g, "sum", group)
+    if is_plain(group):
+        out = scatter_grad_plain(group.exchange(g), dim)[group.index]
+        group.record("reduce-scatter", out)
+        return out
     n = group_size(group)
     rows = _blocks(g.shape, dim)
     src = g.reshape(rows, n, -1).transpose(0, 1).contiguous()
@@ -296,28 +304,105 @@ def all_reduce(x: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
     return out
 
 
-def shard_block(x: torch.Tensor, layout, mesh) -> torch.Tensor:
-    """This rank's block of a whole leaf with ``layout`` on ``mesh`` (its
-    slice along ``layout.data`` by its data-parallel index, then along
-    ``layout.model`` by its ``model`` coordinate); no traffic."""
-    from repro_torch.sharding.axes import batch_axes, dp_size
+def _axes_group(mesh, axes: Sequence[str]):
+    """The mesh's group over ``axes`` where it holds one whose rank order is
+    the tuple's mixed radix (the axes in mesh order), else None."""
+    key = tuple(axes)
+    groups = mesh.groups or {}
+    if key in groups and key == tuple(a for a in mesh.axis_names if a in key):
+        return groups[key]
+    return None
 
-    x = shard_leaf(x, layout.data, dp_size(mesh), mesh.index(batch_axes(mesh)))
-    if layout.model is not None:
-        x = shard_leaf(x, layout.model, mesh.shape["model"], mesh.coords()["model"])
+
+def _gather_axes(x: torch.Tensor, dim: int, axes: Sequence[str], mesh) -> torch.Tensor:
+    """``x`` gathered along ``dim`` over ``axes`` (mixed radix, the first
+    the most significant): over their group where the mesh has one, else
+    axis by axis from the least significant."""
+    group = _axes_group(mesh, axes)
+    if group is not None:
+        return gather_leaf(x, dim, group)
+    for a in reversed(tuple(axes)):
+        x = gather_leaf(x, dim, mesh.group((a,)))
+    return x
+
+
+def _dp_first(layout) -> list:
+    """``layout``'s splits, the data-parallel one first (FSDP's gather
+    before the others, as the reference's two-axis layouts ran)."""
+    return sorted(layout.splits, key=lambda s: s[1] != layout.dp)
+
+
+def shard_block(x: torch.Tensor, layout, mesh) -> torch.Tensor:
+    """This rank's block of a whole leaf with ``layout`` on ``mesh``: along
+    each split dimension its slice by its mixed-radix index over the
+    split's axes; no traffic."""
+    for dim, axes in layout.splits:
+        x = shard_leaf(x, dim, mesh.extent(axes), mesh.index(axes))
     return x
 
 
 def gather_block(x: torch.Tensor, layout, mesh) -> torch.Tensor:
     """The whole leaf on every rank from this rank's block: gathered along
-    ``layout.data`` over the data-parallel group, then along
-    ``layout.model`` over ``model``."""
-    from repro_torch.sharding.axes import batch_axes
-
-    x = gather_leaf(x, layout.data, mesh.group(batch_axes(mesh)))
-    if layout.model is not None:
-        x = gather_leaf(x, layout.model, mesh.group(("model",)))
+    each split dimension over its axes, the data-parallel split first."""
+    for dim, axes in _dp_first(layout):
+        x = _gather_axes(x, dim, axes, mesh)
     return x
+
+
+def _kept(storage, compute):
+    """The ``model`` split that storage and compute share, if any."""
+    return next((s for s in compute.splits if s in storage.splits), None)
+
+
+def to_compute(x: torch.Tensor, storage, compute, mesh) -> torch.Tensor:
+    """This rank's compute block of a leaf (``compute``: its ``model``
+    split alone, :func:`~repro_torch.sharding.context.compute_layout`) from
+    its block under ``storage`` (any layout of the parameter rules): every
+    storage split the compute layout does not share gathered, then the
+    compute block cut, which moves nothing.  Under the default rules that
+    is FSDP's one gather over the data-parallel group."""
+    keep = _kept(storage, compute)
+    for dim, axes in _dp_first(storage):
+        if (dim, axes) != keep:
+            x = _gather_axes(x, dim, axes, mesh)
+    for dim, axes in compute.splits:
+        if (dim, axes) != keep:
+            x = shard_leaf(x, dim, mesh.extent(axes), mesh.index(axes))
+    return x
+
+
+def to_storage(g: torch.Tensor, storage, compute, mesh) -> torch.Tensor:
+    """The storage block of a gradient from this rank's compute block of
+    it, summed over the data-parallel ranks (each holds its rows' sum; the
+    ranks of one data-parallel coordinate hold the same one).
+
+    The compute block is gathered over ``model`` into the whole leaf where
+    storage does not keep its split, then reduce-scattered over the
+    data-parallel axes along the storage dimension they cut (all-reduced
+    over those that cut none) and cut to the rank's part along every other
+    storage axis.  Under the default rules that is one reduce-scatter over
+    the data-parallel group (:func:`scatter_grad`)."""
+    dp = storage.dp
+    keep = _kept(storage, compute)
+    for dim, axes in compute.splits:
+        if (dim, axes) != keep:
+            g = _gather_axes(g, dim, axes, mesh)
+    coords = mesh.coords()
+    for dim, axes in storage.splits:
+        if (dim, axes) == keep:
+            continue
+        if axes == dp:   # FSDP's one reduce-scatter over the data-parallel group
+            g = scatter_grad(g, dim, mesh.group(dp))
+            continue
+        for a in axes:   # the most significant first: each a contiguous part
+            g = (scatter_grad(g, dim, mesh.group((a,))) if a in dp
+                 else shard_leaf(g, dim, mesh.shape[a], coords[a]))
+    whole = tuple(a for a in dp if a not in storage.axes)
+    if whole:   # summed over the data-parallel axes that cut no dimension
+        group = _axes_group(mesh, whole)
+        for grp in ([group] if group is not None else [mesh.group((a,)) for a in whole]):
+            g = all_reduce(g, "sum", grp)
+    return g
 
 
 def sum_over(x: torch.Tensor, group) -> torch.Tensor:
@@ -369,6 +454,17 @@ def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
                      if wide else x)
         return reduce_from_model_plain(group.exchange(x))
     return _ReduceFromModel.apply(x, group)
+
+
+def replicated(x: torch.Tensor, group) -> torch.Tensor:
+    """``x``, which every rank of ``group`` holds alike from a combine that
+    its graph does not show (a custom Function's forward that reduces over
+    the ranks).  Over plain ranks, whose graphs are one, its gradient then
+    reaches every rank's ``x``, as the sum of the ranks' partials in the
+    backward does on real ranks; elsewhere it is ``x``."""
+    if group is None or not is_plain(group):
+        return x
+    return x.detach() + sum(p - p.detach() for p in group.exchange(x))
 
 
 class _SumAcross(torch.autograd.Function):

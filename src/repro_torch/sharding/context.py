@@ -8,8 +8,8 @@ slice through :func:`model_parallel`.
 
 Beyond the reference, the context carries the parameters' specs: where
 GSPMD keeps every reduction over a sharded array global by itself, the port
-asks the context how each leaf is laid out (:meth:`ShardCtx.layout`: the
-dimension the data-parallel axes split, and the one ``model`` splits), and
+asks the context how each leaf is laid out (:meth:`ShardCtx.layout`: each
+dimension it is cut along and the mesh axes that cut it), and
 the norms of ``core.strategy``, ``optim.base`` and ``kernels.ops`` sum the
 partials of every split leaf over the whole world in one collective, each
 counted once (:meth:`ShardCtx.counts`).  The model's layers ask it for the
@@ -21,30 +21,49 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict, Mapping, NamedTuple, Optional, Sequence
+from typing import Dict, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 from repro_torch.sharding.axes import Spec, batch_axes, default_act_rules, mesh_sizes
 
 _state = threading.local()
 
-# what a mesh still does not run (ROADMAP.md queue 1): mesh axes besides
-# pod, data and model, and a dimension split over both data and model
-UNPORTED = "ROADMAP.md queue 1, item 11 (b2)"
+Split = Tuple[int, Tuple[str, ...]]
 
 
 class Layout(NamedTuple):
-    """How a leaf lies over the mesh: the dimension the data-parallel axes
-    split (FSDP, ``embed``) and the one ``model`` splits (tensor and
-    expert parallelism: ``heads``, ``kv_heads``, ``ff``, ``vocab``,
-    ``experts``, ``inner``); None where the leaf is whole along that
-    axis."""
+    """How a leaf lies over the mesh: ``splits``, each dimension it is cut
+    along with the mesh axes that cut it, in the spec's order (the block
+    index along a dimension is mixed-radix over those axes' coordinates,
+    the first the most significant, as GSPMD lays it out), and ``dp``, the
+    mesh's data-parallel axes.  The leaf is replicated over every axis it
+    is not cut along.
 
-    data: Optional[int] = None
-    model: Optional[int] = None
+    Two properties name the dimensions of the layouts the reference's
+    default rules give: ``data``, the dimension the data-parallel axes
+    split together (FSDP, ``embed``), and ``model``, the one ``model``
+    splits alone (tensor and expert parallelism: ``heads``, ``kv_heads``,
+    ``ff``, ``vocab``, ``experts``, ``inner``); None where no dimension is
+    so split."""
+
+    splits: Tuple[Split, ...] = ()
+    dp: Tuple[str, ...] = ()
+
+    @property
+    def data(self) -> Optional[int]:
+        return next((d for d, axes in self.splits if axes == self.dp and axes), None)
+
+    @property
+    def model(self) -> Optional[int]:
+        return next((d for d, axes in self.splits if axes == ("model",)), None)
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        """Every mesh axis the leaf is cut over."""
+        return tuple(a for _, axes in self.splits for a in axes)
 
     @property
     def split(self) -> bool:
-        return self.data is not None or self.model is not None
+        return bool(self.splits)
 
 
 WHOLE = Layout()
@@ -61,31 +80,31 @@ class ModelAxis(NamedTuple):
 
 
 def leaf_layout(spec: Spec, mesh) -> Layout:
-    """The :class:`Layout` of a leaf with ``spec`` on ``mesh``.
+    """The :class:`Layout` of a leaf with ``spec`` on ``mesh``: any spec
+    ``resolve_spec`` gives, a dimension cut over one axis or an ordered
+    tuple of them.
 
-    Data-parallel axes split a dimension even at size 1 (the slice is then
-    the whole leaf); a ``model`` entry splits only at more than one rank.
-    A dimension split over both, or over only part of the data-parallel
-    axes, is not ported and raises."""
+    Data-parallel axes cut a dimension even at size 1 (the slice is then
+    the whole leaf); every other axis only at more than one rank."""
     sizes = mesh_sizes(mesh)
     dp = batch_axes(mesh)
-    data = model = None
+    splits = []
     for i, entry in enumerate(spec):
         if entry is None:
             continue
         axes = (entry,) if isinstance(entry, str) else tuple(entry)
-        split = tuple(a for a in axes if sizes[a] > 1 or a in dp)
-        if not split:
-            continue
-        if split == dp:
-            data = i
-        elif split == ("model",):
-            model = i
-        else:
-            raise NotImplementedError(
-                f"spec {spec} splits dimension {i} over {split}: a dimension splits "
-                f"over the data-parallel axes {dp} or over 'model' alone ({UNPORTED})")
-    return Layout(data, model)
+        cut = tuple(a for a in axes if sizes[a] > 1 or a in dp)
+        if cut:
+            splits.append((i, cut))
+    return Layout(tuple(splits), dp)
+
+
+def compute_layout(spec: Spec, mesh) -> Layout:
+    """The layout a leaf computes in, whatever layout stores it: ``spec``'s
+    (the default rules') ``model`` split, whole over every other axis (the
+    data-parallel gather of FSDP done).  The layers run on these blocks."""
+    lay = leaf_layout(spec, mesh)
+    return Layout(tuple(s for s in lay.splits if s[1] == ("model",)), lay.dp)
 
 
 class ShardCtx:
@@ -134,8 +153,10 @@ class ShardCtx:
     @property
     def dp_group(self):
         """The process group over the data-parallel axes: the ranks that
-        share this rank's ``model`` coordinate."""
-        return self.mesh.group(batch_axes(self.mesh))
+        share this rank's coordinates on every other axis (None on a mesh
+        without one)."""
+        axes = batch_axes(self.mesh)
+        return self.mesh.group(axes) if axes else None
 
     @property
     def world_group(self):
@@ -180,13 +201,12 @@ class ShardCtx:
     def counts(self, path: Optional[str]) -> bool:
         """Whether this rank's partial of leaf ``path`` counts in a sum
         over the world: only on the ranks whose coordinate is 0 along every
-        axis the leaf is not split over, so each block is counted once (a
+        axis the leaf is not cut over, so each block is counted once (a
         layer-norm scale, split over ``data`` alone, on model rank 0; ``bq``,
-        split over ``model`` alone, on data rank 0)."""
-        lay = self.layout(path)
-        if lay.data is None and self.mesh.index(batch_axes(self.mesh)) != 0:
-            return False
-        return lay.model is not None or self.mesh.coords().get("model", 0) == 0
+        split over ``model`` alone, on data rank 0; a leaf whole over a
+        ``pipe`` axis on its rank 0)."""
+        cut = self.layout(path).axes
+        return all(c == 0 for a, c in self.mesh.coords().items() if a not in cut)
 
 
 def current() -> Optional[ShardCtx]:

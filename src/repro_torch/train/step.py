@@ -26,7 +26,14 @@ from repro_torch.kernels import fused_lamb, fused_lamb_init, make_fused_lamb_ste
 from repro_torch.models.api import Model
 from repro_torch.optim.base import global_norm
 from repro_torch.sharding import ShardCtx, specs_for, use_sharding
-from repro_torch.sharding.collectives import all_reduce, gather_leaf, scatter_grad, shard_block
+from repro_torch.sharding.collectives import (
+    all_reduce,
+    is_plain,
+    shard_block,
+    to_compute,
+    to_storage,
+)
+from repro_torch.sharding.context import Layout, compute_layout
 from repro_torch.telemetry.trust import PER_LAYER_KEY
 from repro_torch.train.faults import apply_grad_faults, apply_loss_faults, split_faults
 from repro_torch.train.loss import check_fused_ce_supported, loss_for
@@ -180,6 +187,7 @@ def make_loss_fn(model: Model) -> Callable:
 def _weighted_sums(
     loss_fn: Callable, params: nn.Params, batch: Dict[str, torch.Tensor], n_micro: int,
     unreachable: frozenset = frozenset(), *, weighted: bool = True, seeded: bool = False,
+    joined: bool = False,
 ) -> Tuple[nn.Params, Metrics, torch.Tensor]:
     """``(Σ_i w_i g_i, Σ_i w_i m_i, Σ_i w_i)`` over ``n_micro`` slices of
     ``batch``, ``w_i`` the slice's supervised-token count (1 when the loss
@@ -193,7 +201,9 @@ def _weighted_sums(
     router's) then reaches each rank's rows at the ranks' summed weight
     through the backward of its sum over them, whatever each rank's own
     count.  Unseeded is the reference's order, whose bf16 roundings every
-    other run keeps.
+    other run keeps.  ``joined``: the graph is shared with other ranks
+    (threads of one process over plain collectives, which join the ranks'
+    graphs in the forward), so the backward keeps it for theirs.
     """
     for x in batch.values():
         if x.shape[0] % n_micro:
@@ -214,7 +224,8 @@ def _weighted_sums(
             w = torch.ones((), dtype=torch.float32, device=loss.device)
         # an untied head's gradient comes back transposed from the fused CE
         # head and is laid out again
-        grads = torch.autograd.grad(loss, leaves, grad_outputs=w if seeded else None)
+        grads = torch.autograd.grad(loss, leaves, grad_outputs=w if seeded else None,
+                                    retain_graph=joined)
         g = {k: t.to(torch.float32).contiguous() for k, t in zip(keys, grads)}
         g.update({k: torch.zeros(params[k].shape, dtype=torch.float32,
                                  device=params[k].device) for k in unreachable})
@@ -265,46 +276,59 @@ def _microbatch_grads(
 
 def _sharded_grads(
     loss_fn: Callable, shards: nn.Params, batch: Dict[str, torch.Tensor], n_micro: int,
-    unreachable: frozenset, compute_dtype, dims: Dict[str, Optional[int]], group,
-    seeded: bool = False,
+    unreachable: frozenset, compute_dtype, layouts: Dict[str, Tuple[Layout, Layout]], mesh,
+    group, seeded: bool = False, joined: bool = False,
 ) -> Tuple[nn.Params, Metrics]:
     """:func:`_microbatch_grads` over the data-parallel ranks, FSDP-style.
 
-    ``shards`` are this rank's blocks of the fp32 masters and ``batch`` its
-    rows; ``dims`` gives each leaf's data-parallel dimension and ``group``
-    is the data-parallel group of this rank's ``model`` coordinate.  The
-    compute copy is cast on the block and then gathered along ``dims`` over
-    ``group`` only: a leaf split over ``model`` stays this rank's heads, ff
-    columns or vocab rows, which the model's tensor-parallel layers compute
-    on.  The rank's ``Σ_i w_i g_i`` is reduce-scattered back to its block
-    over the same group (a leaf not split over it: all-reduced) and divided
-    by the global token weight, all-reduced from the ranks'
-    ``tokens/supervised``.  Metrics get the same weighting in one
-    all-reduce; ``tokens/supervised`` is the global sum.  The ``model``
-    ranks of one data coordinate hold the same rows and the same loss, so
-    the sums over ``group`` are the global batch's.  The ranks ×
+    ``shards`` are this rank's blocks of the fp32 masters in the layout the
+    parameter rules store them in, and ``batch`` its rows; ``layouts`` gives
+    each leaf's ``(storage, compute)`` layouts and ``group`` is the
+    data-parallel group of this rank's other coordinates.  The compute
+    copy is cast on the block and moved to the compute layout
+    (``collectives.to_compute``: under the default rules FSDP's gather over
+    ``group``), in which a leaf split over ``model`` is this rank's heads, ff
+    columns or vocab rows, what the model's tensor-parallel layers compute
+    on.  The rank's ``Σ_i w_i g_i`` goes back to its storage block summed
+    over the data-parallel ranks (``collectives.to_storage``: under the
+    default rules a reduce-scatter over ``group``, an all-reduce for a leaf
+    not split over it) and is divided by the global token weight,
+    all-reduced from the ranks' ``tokens/supervised``.  Metrics get the same
+    weighting in one all-reduce; ``tokens/supervised`` is the global sum.
+    The ranks of one data coordinate hold the same rows and the same loss,
+    so the sums over ``group`` are the global batch's.  The ranks ×
     micro-batches are one token-weighted accumulation, so the result is the
     global batch's token-mean gradient.  ``seeded`` (an MoE model over more
     than one data-parallel rank) starts each backward pass at the rank's
     weight (:func:`_weighted_sums`), so the router's global loss terms
     reach every rank's rows at the micro-batch's whole weight, counted once
-    in the reduce-scatter.
+    in the reduce-scatter.  ``joined``: the ranks are threads whose plain
+    collectives join their graphs (``launch.mesh.run_plain_mesh``); each
+    takes its gradient through the joined graph, a function of every
+    rank's leaves, and a leaf whole over ``model`` then sums its copies'
+    gradients over the model ranks, what ``copy_to_model``'s backward sums
+    on real ranks.
     """
     with torch.no_grad():
-        full = {k: gather_leaf(v if compute_dtype is None or not v.is_floating_point()
-                               else v.to(nn.torch_dtype(compute_dtype)), dims[k], group)
+        full = {k: to_compute(v if compute_dtype is None or not v.is_floating_point()
+                              else v.to(nn.torch_dtype(compute_dtype)), *layouts[k], mesh)
                 for k, v in shards.items()}
     full = {k: v.detach().requires_grad_(True) for k, v in full.items()}
     g_sum, m_sum, w = _weighted_sums(loss_fn, full, batch, n_micro, unreachable,
-                                     seeded=seeded)
+                                     seeded=seeded, joined=joined)
     del full
+    # over joined ranks a leaf whole over model has one copy a rank, whose
+    # gradient holds the uses of that rank's copy alone
+    copies = (mesh.group(("model",)) if joined and mesh.shape.get("model", 1) > 1 else None)
     with torch.no_grad():
         grads = {}
         for k in list(g_sum):
             g = g_sum.pop(k)
+            if copies is not None and layouts[k][1].model is None and k not in unreachable:
+                g = all_reduce(g, "sum", copies)
             grads[k] = (torch.zeros(shards[k].shape, dtype=torch.float32,
                                     device=g.device)
-                        if k in unreachable else scatter_grad(g, dims[k], group))
+                        if k in unreachable else to_storage(g, *layouts[k], mesh))
         keys = list(m_sum)
         packed = all_reduce(torch.stack([w] + [m_sum[k].to(torch.float32) for k in keys]),
                             "sum", group)
@@ -352,7 +376,12 @@ def make_train_step(model: Model, tc: TrainConfig, schedule=None, *,
     together, and the optimizer runs on the blocks under the ambient
     :class:`~repro_torch.sharding.ShardCtx`, which keeps every norm and
     trust ratio the whole leaf's.  Metrics are global.  ``param_rules``
-    (default ``sharding.default_param_rules``) decide the param specs.
+    (default ``sharding.default_param_rules``) decide the layout that
+    stores each leaf and its moments: any layout ``resolve_spec`` gives (a
+    dimension over ``data`` and ``model`` together, over part of the
+    data-parallel axes, beside any other mesh axis).  The layers compute in
+    the default rules' layout whatever the storage, so the step's products
+    are the default layout's (:func:`_sharded_grads`).
     ``init_fn(seed, "meta")`` makes a state of meta tensors with nothing
     drawn (the dry-run's, ``launch/dryrun.py``).
     """
@@ -365,12 +394,23 @@ def make_train_step(model: Model, tc: TrainConfig, schedule=None, *,
     ctx = None
     if mesh is not None:
         ctx = ShardCtx(mesh, param_specs=specs_for(model.defs, mesh, param_rules))
-        dims = {k: ctx.layout(k).data for k in ctx.param_specs}
+        compute = specs_for(model.defs, mesh)
+        layouts = {k: (ctx.layout(k), compute_layout(compute[k], mesh))
+                   for k in ctx.param_specs}
         group = ctx.dp_group
         # the router's global terms over more than one data rank need the
         # seeded order (:func:`_weighted_sums`); every other run keeps the
         # reference's, and with it the single process's bf16 roundings
         seeded = bool(model.cfg.n_experts) and ctx.data_axis is not None
+        # ranks as threads of one process (``launch.mesh.run_plain_mesh``):
+        # each takes its gradient through the graph their plain collectives
+        # join, none meeting the others inside a backward (on a card every
+        # backward runs on the device's one autograd thread)
+        joined = mesh.size > 1 and is_plain((mesh.groups or {}).get(mesh.axis_names))
+        if joined and seeded:
+            raise ValueError("an MoE over plain data ranks: its router's global terms would "
+                             "reach each rank at that rank's weight alone; run the data "
+                             "ranks as processes")
 
     def draw(seed: int, device: torch.device) -> nn.Params:
         if ctx is None:
@@ -390,7 +430,8 @@ def make_train_step(model: Model, tc: TrainConfig, schedule=None, *,
             del cast
         else:
             grads, metrics = _sharded_grads(loss_fn, params, batch, n_micro, unreachable,
-                                            compute_dtype, dims, group, seeded)
+                                            compute_dtype, layouts, mesh, group, seeded,
+                                            joined)
         grads = apply_grad_faults(grads, faults)
         metrics = apply_loss_faults(metrics, faults)
         metrics["grad_norm"] = global_norm(grads)

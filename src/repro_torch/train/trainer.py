@@ -86,7 +86,6 @@ from repro_torch.sharding.collectives import (
     gather_block,
     shard_block,
 )
-from repro_torch.sharding.context import UNPORTED
 from repro_torch.telemetry import EventLog, SpanRecorder, TrustRecorder, run_provenance
 from repro_torch.telemetry.trust import PER_LAYER_KEY
 from repro_torch.train.preempt import PreemptionHandler
@@ -108,16 +107,6 @@ TERM_KEYS = ("loss/moe_lb", "moe/drop_fraction", "loss/moe_z", "loss/mtp")
 def _batch_examples(batch) -> int:
     """Examples in one step's batch: the leading dim of any leaf."""
     return int(next(iter(batch.values())).shape[0])
-
-
-def check_mesh_supported(mesh) -> None:
-    """Raise ``NotImplementedError`` naming its ROADMAP.md item for what a
-    mesh does not run yet: mesh axes besides ``pod``, ``data`` and
-    ``model`` (item 11 (b2)).  Every arch trains over ``data × model``."""
-    other = {a: n for a, n in mesh.shape.items() if a not in ("pod", "data", "model")}
-    if any(n > 1 for n in other.values()):
-        raise NotImplementedError(f"mesh axes {other}: only 'pod', 'data' and 'model' "
-                                  f"are ported ({UNPORTED})")
 
 
 # the rank-0 verdicts a rollback broadcasts when it cannot restore
@@ -156,6 +145,7 @@ class Trainer:
         supervisor: Optional[SupervisorConfig] = None,
         preempt_grace: Optional[float] = None,
         mesh=None,
+        param_rules=None,
     ):
         self.model = model
         self.tc = train_cfg
@@ -171,7 +161,6 @@ class Trainer:
                 raise ValueError("Trainer(mesh=) over more than one rank needs the mesh's "
                                  "host group (init_distributed), over which the ranks "
                                  "agree on one verdict, one flag and one writer")
-            check_mesh_supported(mesh)
             self._dp = dp_size(mesh)
             if mesh.rank != 0:   # only rank 0 logs and writes
                 log_fn, telemetry = (lambda s: None), None
@@ -201,7 +190,9 @@ class Trainer:
         self._run_started = False
         self.history: List[Dict[str, float]] = []
         self.examples_seen = 0
-        self._init_fn, self._step_fn = make_train_step(model, train_cfg, schedule, mesh=mesh)
+        self.param_rules = param_rules
+        self._init_fn, self._step_fn = make_train_step(model, train_cfg, schedule, mesh=mesh,
+                                                       param_rules=param_rules)
         self.state: Optional[TrainState] = None
 
     def init(self, seed: Optional[int] = None) -> TrainState:
@@ -245,7 +236,8 @@ class Trainer:
         if self._state_dims is None:
             target = self.state if self.state is not None else self.init()
             self._state_dims = leaf_dims(
-                train_state_shardings(self.model.defs, target, self.mesh), self.mesh)
+                train_state_shardings(self.model.defs, target, self.mesh, self.param_rules),
+                self.mesh)
         return self._state_dims
 
     def gather_state(self) -> TrainState:
@@ -706,7 +698,8 @@ class Trainer:
                 "stage_start", stage=si, name=stage.name, seq_len=stage.seq_len,
                 batch_size=stage.batch_size, steps=stage.steps,
                 learning_rate=stage.learning_rate, warmup_steps=stage.warmup_steps)
-            _, step_fn = make_train_step(self.model, self.tc, stage.schedule, mesh=self.mesh)
+            _, step_fn = make_train_step(self.model, self.tc, stage.schedule, mesh=self.mesh,
+                                         param_rules=self.param_rules)
             if si > 0:
                 _reset_schedule_counts(self.state.opt_state)
             # on a mesh each stage's batch must split over the ranks (the

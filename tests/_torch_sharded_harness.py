@@ -46,6 +46,9 @@ Tensor parallelism (a ``model`` axis of more than one rank):
                runs with the column products' input-gradient sum dropped: the trust
                ratios, and the first step's grad norm, must move past the
                bound
+  tp_layout    ``mlm_fused_ce_f32`` with params and moments stored under
+               ``--param-rule embed=data,model`` against the default layout,
+               and each rank's blocks written for the test to check
 
 Robustness over the mesh (one verdict, one flag, one writer):
 
@@ -584,6 +587,49 @@ def scenario_tp_collectives(c: Ctx) -> dict:
 
 def scenario_tp_equiv(c: Ctx) -> dict:
     return {v: _equiv(c, "tp", v, cfg, tc) for v, (cfg, tc) in tp_variants().items()}
+
+
+# the parameter rules of ``tp_layout``: ``embed`` split over data and model
+# together, so that q/k/v are stored cut along embed with their heads whole
+# and the output projection along heads over model and embed over data
+LAYOUT_RULES = ("embed=data,model",)
+
+
+def scenario_tp_layout(c: Ctx) -> dict:
+    """``mlm_fused_ce_f32`` (bert-smoke, fp32 activations, fused LAMB) stored
+    under ``LAYOUT_RULES`` against the same run under the default rules:
+    each run's losses and each leaf's largest difference and value; each
+    rank's blocks of the params and moments under ``LAYOUT_RULES``
+    (``tp_layout_rank<r>.npz``) and the whole state they gather to
+    (``tp_layout_whole.npz``), for the test to cut by the reference's
+    ``resolve_spec``."""
+    from repro_torch.sharding import default_param_rules, override_rules
+
+    cfg, tc = tp_variants()["mlm_fused_ce_f32"]
+    model = build_model(cfg)
+    state = initial_state(cfg, tc, c.init)
+    rules = override_rules(default_param_rules(multi_pod="pod" in c.mesh.shape), LAYOUT_RULES)
+    runs = {}
+    for name, param_rules in (("default", None), ("rules", rules)):
+        tr = _quiet(model, tc, c.mesh, param_rules=param_rules)
+        tr.place_state(_clone(state))
+        tr.fit(DataPipeline(cfg, BATCH, SEQ, device="cpu", seed=0, rows=tr.batch_rows), STEPS)
+        runs[name] = tr
+    tr = runs["rules"]
+    blocks = {p: x.float().numpy() for p, x in tree_leaves_with_paths(tr.state)
+              if isinstance(x, torch.Tensor) and x.is_floating_point()}
+    np.savez(os.path.join(c.out, f"tp_layout_rank{c.mesh.rank}.npz"), **blocks)
+    whole = {name: r.gather_state() for name, r in runs.items()}
+    if not c.rank0:
+        return {}
+    np.savez(os.path.join(c.out, "tp_layout_whole.npz"),
+             **{p: x.float().numpy() for p, x in tree_leaves_with_paths(whole["rules"])
+                if p in blocks})
+    a, b = whole["rules"].params, whole["default"].params
+    return {"losses": {name: _losses(r) for name, r in runs.items()},
+            "leaf_diff": {k: [float((a[k] - b[k]).abs().max()), float(b[k].abs().max())]
+                          for k in b},
+            "stored": {k: list(x.shape) for k, x in tr.state.params.items()}}
 
 
 def scenario_tp_planted(c: Ctx) -> dict:
@@ -1281,6 +1327,7 @@ SCENARIOS = {
     "tp_collectives": scenario_tp_collectives,
     "tp_equiv": scenario_tp_equiv,
     "tp_planted": scenario_tp_planted,
+    "tp_layout": scenario_tp_layout,
     "host_collectives": scenario_host_collectives,
     "spike_rollback": scenario_spike_rollback,
     "gqa": scenario_gqa,

@@ -11,9 +11,9 @@ records' skips (the records themselves, ``ok`` on both meshes, are
 bound column from ``kernels/cost.py``.
 
 No JAX compile runs here: the JAX side is its plan, its definitions, its
-specs and its HLO byte rule.  Budget: about 30 s on one worker; the traces
-of every ``train_4k`` record take minutes and run outside the suite
-(``CHANGES.md`` lists their times).
+specs and its HLO byte rule.  Budget: about 45 s on one worker; the
+traces of the other ``train_4k`` records take up to a few minutes under
+the suite's load and run outside it (``CHANGES.md`` lists their times).
 """
 import dataclasses
 import importlib
@@ -105,15 +105,20 @@ def test_param_counts_equal_the_reference(arch):
     assert all(v.device.type == "meta" for v in params.values())
 
 
-def _reference_state_bytes(arch: str, multi_pod: bool) -> int:
+def _reference_state_bytes(arch: str, multi_pod: bool, overrides=()) -> int:
     """Σ over the reference's leaves of their shard under its resolve_spec on
-    the production mesh: params in param_dtype and LAMB's two fp32 moments."""
+    the production mesh (its default param rules with ``overrides``, the
+    dry-run's ``--param-rule name=a,b``): params in param_dtype and LAMB's
+    two fp32 moments."""
     cfg = jax_configs.get_config(arch)
     shape = (2, 16, 16) if multi_pod else (16, 16)
     names = ("pod", "data", "model") if multi_pod else ("data", "model")
     mesh = jax_mesh.abstract_mesh(shape, names)
     sizes = dict(zip(names, shape))
     rules = jax_axes.default_param_rules(multi_pod=multi_pod)
+    for item in overrides:
+        k, _, v = item.partition("=")
+        rules[k] = tuple(x for x in v.split(",") if x) or None
     itemsize = np.dtype(jax.numpy.dtype(cfg.param_dtype)).itemsize
     total = 0
     for p in jax.tree.leaves(jax_build_model(cfg).defs, is_leaf=jax_nn.is_param):
@@ -130,18 +135,59 @@ def _reference_state_bytes(arch: str, multi_pod: bool) -> int:
     return total
 
 
+def _state_bytes(arch: str, mesh_name: str, overrides=()) -> int:
+    """Rank 0's params and LAMB moments in the dry-run's train step on the
+    production mesh, under the ``--param-rule`` ``overrides``."""
+    mesh = counting_mesh(make_production_mesh(multi_pod=MESHES[mesh_name]), C.CollectiveTally())
+    rules, param_rules = dryrun.dryrun_rules(mesh, param_rule_sets=overrides)
+    _, (state, _), _ = dryrun.build_train(build_model(get_config(arch)), SHAPES["train_4k"],
+                                          mesh, rules, "lamb", param_rules)
+    assert all(x.device.type == "meta" for _, x in tree_leaves_with_paths(state))
+    ours = sum(x.numel() * x.element_size() for p, x in tree_leaves_with_paths(state.params))
+    return ours + sum(x.numel() * x.element_size()
+                      for p, x in tree_leaves_with_paths(state.opt_state)
+                      if "/mu/" in f"/{p}" or "/nu/" in f"/{p}")
+
+
 @pytest.mark.parametrize("mesh_name", list(MESHES))
 @pytest.mark.parametrize("arch", ARCHS)
 def test_per_device_state_bytes_equal_the_reference_shards(arch, mesh_name):
-    mesh = counting_mesh(make_production_mesh(multi_pod=MESHES[mesh_name]), C.CollectiveTally())
-    rules, _ = dryrun.dryrun_rules(mesh)
-    _, (state, _), _ = dryrun.build_train(build_model(get_config(arch)), SHAPES["train_4k"],
-                                          mesh, rules, "lamb")
-    ours = sum(x.numel() * x.element_size() for p, x in tree_leaves_with_paths(state.params))
-    ours += sum(x.numel() * x.element_size() for p, x in tree_leaves_with_paths(state.opt_state)
-                if "/mu/" in f"/{p}" or "/nu/" in f"/{p}")
-    assert all(x.device.type == "meta" for _, x in tree_leaves_with_paths(state))
-    assert ours == _reference_state_bytes(arch, MESHES[mesh_name])
+    assert _state_bytes(arch, mesh_name) == _reference_state_bytes(arch, MESHES[mesh_name])
+
+
+# the dry-run's --param-rule the meta tests store the state under: embed
+# over data and model together
+EMBED_DATA_MODEL = ("embed=data,model",)
+
+
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+@pytest.mark.parametrize("arch", ["bert-large", "granite-moe-1b-a400m"])
+def test_per_device_state_bytes_under_a_param_rule_equal_the_reference_shards(arch,
+                                                                               mesh_name):
+    """Under ``--param-rule embed=data,model`` as under the default rules:
+    the bytes of the reference's shards (granite-moe's experts keep
+    ``model``, so its ``embed`` drops it there, as ``resolve_spec`` does)."""
+    ours = _state_bytes(arch, mesh_name, EMBED_DATA_MODEL)
+    assert ours == _reference_state_bytes(arch, MESHES[mesh_name], EMBED_DATA_MODEL)
+    assert ours != _reference_state_bytes(arch, MESHES[mesh_name])
+
+
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+@pytest.mark.parametrize("arch,sname", [("bert-large", "train_4k"),
+                                        ("smollm-360m", "decode_32k")])
+def test_param_rule_records_are_ok(arch, sname, mesh_name):
+    """The dry-run under ``--param-rule embed=data,model``: the state is
+    stored as the rule says and taken to the layers' layout to compute, so
+    a train step's and a decode's records are ``ok``.  On the one-pod mesh
+    BERT-large's leaves are gathered over the group of both axes (its rank
+    order the rule's block order): megabytes, where the default layout
+    moves only the norms' partials over that group (1,316 bytes)."""
+    rec = dryrun.run_dryrun(arch, sname, multi_pod=MESHES[mesh_name],
+                            param_rule_sets=list(EMBED_DATA_MODEL))
+    assert rec["status"] == "ok", rec.get("note")
+    assert rec["param_rules"] == list(EMBED_DATA_MODEL) and rec["roofline"]["memory_s"] > 0
+    if arch == "bert-large" and mesh_name == "1pod":
+        assert rec["collectives"]["data,model"]["bytes"] > 2 ** 20, rec["collectives"]
 
 
 @pytest.mark.parametrize("group", [1, 2, 16])
@@ -296,25 +342,10 @@ def test_only_item_11e_refusals_make_a_record_unported(monkeypatch):
     assert not hasattr(dryrun, "UNPORTED")
 
 
-# the serving records whose meta trace would take hours at the production
-# prompt (the xLSTM cells' Python time loops: about 0.2 s of meta dispatch a
-# position over xlstm-350m's 24 blocks, about 1.8 h at 32768 positions):
-# traced on the same mesh at this many positions
-SHORT_PROMPTS = {("xlstm-350m", "prefill_32k"): 64}
-
-
 def check_serving_record(arch: str, sname: str, multi_pod: bool) -> str:
     """The dry-run's record of (arch, shape) on a production mesh: ``ok``
-    (or, at :data:`SHORT_PROMPTS`, the same trace at a short prompt) or
-    the reference's skip with its note.  Returns the status."""
-    cfg, note = full_plan()[(arch, sname)]
-    if (arch, sname) in SHORT_PROMPTS:
-        shape = dataclasses.replace(SHAPES[sname], seq_len=SHORT_PROMPTS[(arch, sname)])
-        counts = dryrun.trace(build_model(cfg), shape,
-                              make_production_mesh(multi_pod=multi_pod))
-        assert counts["memory"]["argument_size_in_bytes"] > 0
-        assert counts["roofline"]["memory_s"] > 0
-        return "ok"
+    or the reference's skip with its note.  Returns the status."""
+    _, note = full_plan()[(arch, sname)]
     rec = dryrun.run_dryrun(arch, sname, multi_pod=multi_pod)
     assert rec["status"] in ("ok", "skipped"), rec
     if rec["status"] == "skipped":
@@ -323,6 +354,41 @@ def check_serving_record(arch: str, sname: str, multi_pod: bool) -> str:
         assert rec["devices"] == (512 if multi_pod else 256)
         assert rec["roofline"]["memory_s"] > 0
     return rec["status"]
+
+
+@pytest.mark.parametrize("kind,batch", [("prefill", 32), ("train", 256)])
+def test_loop_count_equals_the_unrolled_trace(kind, batch):
+    """A loop over time counted from three of its steps
+    (``dryrun.LoopCounter``) against the same loop unrolled, on
+    xlstm-350m's widths cut to one (mLSTM, sLSTM) pair at 64 positions on
+    the one-pod mesh: a prefill (no gradient; the mLSTM's roll, whose
+    outputs are dropped, and the sLSTM's) and a train step (the sLSTM's
+    loop with its backward).  Flops, flops by rate, bytes accessed, kernel
+    tallies and collectives are equal; so is every memory figure
+    (measured: the peak to the byte; the bound is 1%)."""
+    model = build_model(get_config("xlstm-350m").replace(n_layers=2))
+    shape = InputShape("loops", seq_len=64, global_batch=batch, kind=kind)
+    mesh = make_production_mesh()
+    counted, unrolled = (dryrun.trace(model, shape, mesh, loops=loops) for loops in (True, False))
+    for key in ("cost", "kernels", "collectives"):
+        assert counted[key] == unrolled[key], key
+    assert counted["cost"]["flops"] > 0 and counted["cost"]["bytes accessed"] > 0
+    assert counted["collectives"]
+    peak = unrolled["memory"].pop("peak_memory_in_bytes")
+    assert counted["memory"].pop("peak_memory_in_bytes") == pytest.approx(peak, rel=0.01)
+    assert {k: v for k, v in counted["memory"].items() if k != "temp_size_in_bytes"} == {
+        k: v for k, v in unrolled["memory"].items() if k != "temp_size_in_bytes"}
+
+
+def test_xlstm_train_record_is_ok():
+    """xlstm-350m's ``train_4k`` record at 4096 positions on the one-pod
+    mesh: its sLSTM loops counted from three steps each (about 5 s, where
+    the unrolled trace took half an hour)."""
+    rec = dryrun.run_dryrun("xlstm-350m", "train_4k")
+    assert rec["status"] == "ok", rec.get("note")
+    assert rec["tokens"] == 256 * 4096 and rec["trace_s"] < 60
+    assert rec["memory"]["peak_memory_in_bytes"] > rec["memory"]["argument_size_in_bytes"] > 0
+    assert sum(rec["cost"]["flops_by_rate"].values()) == rec["cost"]["flops"] > 0
 
 
 SERVING_RECORDS = [(arch, sname) for (arch, sname) in full_plan()

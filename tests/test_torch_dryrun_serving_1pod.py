@@ -5,13 +5,13 @@ long-context record of ``full_plan()`` is ``ok`` or the reference's skip
 rank of the static ``Engine`` on the mesh runs it: its rows, its block of
 the cache (its kv heads, its ``inner`` slice, at batch 1 its block of
 positions under the reference's ``cache_seq`` rule) and its parameter
-blocks.  xlstm-350m's
-``prefill_32k`` traces at a 64-position prompt (``SHORT_PROMPTS``).
+blocks.  xlstm-350m's ``prefill_32k`` traces at its 32,768 positions, each
+loop over time counted from three of its steps (``dryrun.LoopCounter``).
 
 Budget: 150 s on one worker (the one-pod mesh's records took 137 s in the
-whole suite as one test, about 50 s alone: the prefills of
-jamba-1.5-large and deepseek-v3 about 5 s each, xlstm-350m's short
-prefill 19 s).
+whole suite as one test, about 50 s alone when xlstm-350m's prefill was
+traced at 64 positions; that prefill now takes about 2 s, the prefills of
+jamba-1.5-large and deepseek-v3 about 5 s each).
 """
 import pytest
 

@@ -5,12 +5,14 @@ reference's skip (``…_1pod.py``: the one-pod mesh's).  Each traces rank
 0's call as one rank of the static ``Engine`` on the mesh runs it: its
 rows, its block of the cache (its kv heads, its ``inner`` slice, at batch
 1 its block of positions under the reference's ``cache_seq`` rule) and
-its parameter blocks.  xlstm-350m's ``prefill_32k`` traces at a
-64-position prompt (``SHORT_PROMPTS``).
+its parameter blocks.  xlstm-350m's ``prefill_32k`` traces at its 32,768
+positions, each loop over time counted from three of its steps
+(``dryrun.LoopCounter``).
 
-Budget: 150 s on one worker (measured 99 s in the whole suite, about
-50 s alone: the prefills of jamba-1.5-large and deepseek-v3 about 5 s
-each, xlstm-350m's short prefill 15–21 s).
+Budget: 150 s on one worker (measured 99 s in the whole suite when
+xlstm-350m's prefill was traced at 64 positions, 15–21 s of it; that
+prefill now takes about 2 s, the prefills of jamba-1.5-large and
+deepseek-v3 about 5 s each).
 """
 import pytest
 

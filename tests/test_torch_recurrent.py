@@ -251,6 +251,83 @@ def test_slstm_gradients_match_jax():
                                    err_msg=key)
 
 
+def _slstm_loop(pre, r, bias, st):
+    """The sLSTM's time loop as written before ``layers/scan.scan``."""
+    c, n, m, h_prev = st["c"], st["n"], st["m"], st["h"]
+    one = torch.ones(())
+    hs = []
+    for t in range(pre.shape[2]):
+        rec = (h_prev.transpose(0, 1) @ r).transpose(1, 2)
+        i_t, f_t, z_t, o_t = (pre[:, :, t] + rec + bias).unbind(0)
+        log_fm = torch.nn.functional.logsigmoid(f_t) + m
+        m_new = torch.maximum(log_fm, i_t)
+        i_eff = torch.exp(i_t - m_new)
+        f_eff = torch.exp(log_fm - m_new)
+        c = f_eff * c + i_eff * torch.tanh(z_t)
+        n = f_eff * n + i_eff
+        h_prev = torch.sigmoid(o_t) * c / torch.maximum(n, one)
+        m = m_new
+        hs.append(h_prev)
+    return {"c": c, "n": n, "m": m, "h": h_prev}, torch.stack(hs, 1)
+
+
+def _mlstm_roll(state, q, k, v, i_pre, f_pre):
+    """The mLSTM prefill's roll as written before ``layers/scan.scan``."""
+    for t in range(q.shape[2]):
+        state, _ = xlstm.mlstm_recurrent_step(state, q[:, :, t], k[:, :, t], v[:, :, t],
+                                              i_pre[:, :, t], f_pre[:, :, t])
+    return state
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_is_bit_equal_to_the_loops_it_replaced(dtype, monkeypatch):
+    """Each block's ``scan`` (the sLSTM's loop, the mLSTM prefill's roll)
+    on the inputs the block hands it, against the loop it replaced: the
+    outputs, the state and the gradients of the inputs bit-equal, in fp32
+    and in bf16 activations (both loops run in fp32)."""
+    cfg = smoke_config("xlstm-350m").replace(activation_dtype="float32")
+    calls = []
+
+    def recording(step, carry, xs, **kw):
+        xs = [x.detach().requires_grad_() for x in xs]
+        carry = {k: v.detach().requires_grad_() for k, v in carry.items()}
+        calls.append((step, carry, xs, xlstm_scan(step, carry, xs, **kw)))
+        return calls[-1][-1]
+
+    xlstm_scan = xlstm.scan
+    monkeypatch.setattr(xlstm, "scan", recording)
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal((2, 9, cfg.d_model))
+                         .astype(np.float32)).to(dtype)
+    for i, defs in enumerate((xlstm.slstm_defs(cfg), xlstm.mlstm_defs(cfg))):
+        p = init_params(defs, i, torch.device("cpu"))
+        p = {k: v + 0.1 * torch.randn(v.shape, generator=torch.Generator().manual_seed(i))
+             for k, v in p.items()}
+        if i == 0:
+            xlstm.slstm_block(p, x, cfg, state=xlstm.init_slstm_state(2, cfg))
+        else:
+            xlstm.mlstm_block(p, x, cfg, state=xlstm.init_mlstm_state(2, cfg))
+    (_, s_carry, s_xs, (s_state, s_hs)), (_, m_carry, m_xs, (m_state, m_hs)) = calls
+    p = init_params(xlstm.slstm_defs(cfg), 0, torch.device("cpu"))
+    p = {k: v + 0.1 * torch.randn(v.shape, generator=torch.Generator().manual_seed(0))
+         for k, v in p.items()}
+    r = torch.stack([p[f"r_{g}"] for g in xlstm.GATES])
+    bias = torch.stack([p[f"b_{g}"] for g in xlstm.GATES])[:, None]
+    want_state, want_hs = _slstm_loop(s_xs[0], r, bias, s_carry)
+    assert torch.equal(s_hs, want_hs) and m_hs is None
+    for k in want_state:
+        assert torch.equal(s_state[k], want_state[k]), k
+    wants = _mlstm_roll(m_carry, *m_xs)
+    for k in wants:
+        assert torch.equal(m_state[k], wants[k]), k
+    for got, want, inputs in ((list(s_state.values()) + [s_hs], list(want_state.values())
+                               + [want_hs], s_xs), (list(m_state.values()),
+                                                    list(wants.values()), m_xs + [m_carry["c"]])):
+        gg, gw = (torch.autograd.grad(sum(t.sin().sum() for t in ts), inputs,
+                                      retain_graph=True, allow_unused=True) for ts in (got, want))
+        assert [a is None for a in gg] == [b is None for b in gw]
+        assert all(a is None or torch.equal(a, b) for a, b in zip(gg, gw))
+
+
 def _mamba_pair(seed):
     jcfg, cfg = _layer_pair(mamba_expand=2, mamba_d_state=4, mamba_d_conv=3)
     jp, p = _layer_params(jax_mamba.mamba_defs(jcfg), seed)

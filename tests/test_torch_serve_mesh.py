@@ -20,10 +20,9 @@ xlstm-smoke (the mLSTM's and sLSTM's state by heads).
   ``LOGITS_TOL`` 1e-5 of their scale (max |logit|, at least 1) of the
   single process's; jamba-smoke's within ``JAMBA_LOGITS_TOL`` 5e-5
   (measured 1.5e-5 here, 2.2e-5 on the port's seed-0 weights, the other
-  families at most 3.9e-6; the likely cause, its Mamba layers'
-  row-parallel ``x_proj`` sums feeding ``exp(dt·A)`` through the scan, is
-  not measured against the model's own forward over two ``model`` ranks:
-  an open question in PERF.md).
+  families at most 3.9e-6).  The cause is the order of the row-parallel
+  sums alone, which its attention sub-layer magnifies
+  (:func:`test_jamba_parts_from_one_process_by_its_row_sums_alone`).
 * A seeded temperature run (0.8) draws the single process's tokens.
 * Over two data ranks, smollm-smoke and jamba-smoke at batch 1 under the
   dry-run's rules (the cache's sequence over ``data``, Mamba's state over
@@ -68,12 +67,14 @@ a loaded host).
 import jax
 import numpy as np
 import pytest
+import torch
 
 from _torch_threads import one_cpu_thread  # noqa: F401
 import repro.serve as jax_serve
 from repro.configs import smoke_config as jax_smoke_config
 from repro.models import build_model as jax_build_model
 from repro_torch.nn import flatten
+from repro_torch.sharding import collectives as C
 from test_torch_sharded_train import _harness, _report
 from _torch_sharded_harness import (
     CONT_B1_LENS,
@@ -331,3 +332,55 @@ def test_continuous_engine_over_one_rank_serves_as_without_a_context():
                            timeout=120)
     assert ranks[0][0] == ranks[1][0] == whole
     assert ranks[0][1] == ranks[1][1] > 0
+
+
+def _split_rows(h, w, tp):
+    """``h @ w`` as two ``model`` ranks sum it: each half of the
+    contraction in fp32, the halves added in rank order."""
+    assert tp is None
+    k = h.shape[-1] // 2
+    parts = [h[..., :k].float() @ w[:k].float(), h[..., k:].float() @ w[k:].float()]
+    return C.reduce_from_model_plain(parts).to(h.dtype)
+
+
+def test_jamba_parts_from_one_process_by_its_row_sums_alone(monkeypatch):
+    """jamba-smoke's fp32 forward (the port's seed-0 weights, 4 prompts of 8
+    tokens) over two plain ``model`` ranks against one process.  The ranks'
+    logits part from the one process's by 1.7e-5 of their scale.  Sub-layer
+    by sub-layer the parting is 6e-7 to 1.9e-6 through the first Mamba,
+    MLP, Mamba and MoE sub-layers, then 5.5e-4 at the attention sub-layer,
+    whose output reaches 48 (1.1e-5 of it), and 1.7e-5 to 2.9e-5 after it.
+    With Mamba's ``x_proj`` products alone summed as the ranks sum them the
+    logits' parting is 1.0e-5.  With every row-parallel product (Mamba's
+    ``x_proj`` and ``out_proj``, the attention's and the MLPs' output
+    projections) so summed, the one process's logits are bit-equal to the
+    ranks': the order of those sums is all of the parting.  (The MoE's
+    partials add one gate-weighted row each to zeros: exact.)"""
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import attention, mamba, mlp
+    from repro_torch.sharding import ShardCtx, leaf_layout, specs_for, use_sharding
+
+    cfg = serve_config("jamba-1.5-large-398b")
+    model = build_model(cfg)
+    params = model.init(0, torch.device("cpu"))
+    tokens = torch.from_numpy(make_batch(cfg, np.random.default_rng(0), 4, 8)["tokens"])
+    sizes = {"data": 1, "model": 2}
+    specs = specs_for(model.defs, Mesh(sizes))
+
+    def rank(group):
+        mesh = Mesh(sizes, rank=group.index, groups={("model",): group})
+        block = {k: C.shard_block(v, leaf_layout(specs[k], mesh), mesh)
+                 for k, v in params.items()}
+        with torch.no_grad(), use_sharding(ShardCtx(mesh, param_specs=specs)):
+            return model.apply(block, {"tokens": tokens})[0]
+
+    ranks = torch.cat(C.run_plain_ranks(rank, 2), -1)
+    with torch.no_grad():
+        whole = model.apply(params, {"tokens": tokens})[0]
+        scale = max(1.0, float(whole.abs().max()))
+        assert 0 < float((ranks - whole).abs().max()) / scale <= JAMBA_LOGITS_TOL
+        for module in (mamba, attention, mlp):
+            monkeypatch.setattr(module, "row_matmul", _split_rows)
+        assert torch.equal(model.apply(params, {"tokens": tokens})[0], ranks)

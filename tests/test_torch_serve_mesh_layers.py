@@ -290,7 +290,7 @@ def test_cases_split_what_they_say():
         layer, (_, cfg), axis, m, overrides, b = CASES[case]
         sizes = {"data": m if axis == "data" else 1, "model": m if axis == "model" else 1}
         rules = dict(default_act_rules(), **overrides)
-        return {k: tuple(lay) for k, lay in leaf_dims(
+        return {k: (lay.data, lay.model) for k, lay in leaf_dims(
             cache_shardings(_port_cache(layer, b, cfg), Mesh(sizes), rules),
             Mesh(sizes)).items()}
 
@@ -510,8 +510,10 @@ def test_pool_ops_on_rank_blocks_equal_the_whole_pool(arch, layout):
             mine = {}
             for k, v in tree_leaves_with_paths(single):
                 lay = lays[k] if not k.endswith("/index") else None
+                # a row's block: the split of the batch dimension (1) dropped
                 block = v if lay is None else C.shard_block(
-                    v, lay._replace(data=None if lay.data == 1 else lay.data), m)
+                    v, lay._replace(splits=tuple(sp for sp in lay.splits
+                                                 if sp != (1, lay.dp))), m)
                 assert block.shape == row[k], (k, block.shape, row[k])
                 mine[k] = block
             nested = {seg: {} for seg in single}
@@ -615,3 +617,41 @@ def test_per_slot_decode_over_the_sequence_split_equals_the_whole_cache(case):
         if k != "index":
             laid = C.gather_leaf_plain([g[1][k] for g in got], 1)
             _close(laid.numpy(), w.numpy(), RANKS_TOL, f"{case}: cache {k}")
+
+
+def test_engines_serve_from_blocks_stored_under_a_param_rule():
+    """smollm-smoke in fp32 over data=2,model=2 thread ranks, its params
+    stored under ``--param-rule embed=data,model`` (each 2-D leaf cut into
+    four blocks along ``embed``): both engines take each block to the
+    layers' layout (``RankParams``: gathered over data and model, cut to
+    the rank's heads), and every rank's greedy tokens equal the single
+    process's."""
+    from repro_torch.launch.mesh import run_plain_mesh
+    from repro_torch.models import build_model
+    from repro_torch.serve import ContinuousEngine, Engine, Request, ServeRequest
+    from repro_torch.sharding import ShardCtx, default_param_rules, override_rules, specs_for
+
+    cfg = smoke_config("smollm-360m").replace(activation_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(0, torch.device("cpu"))
+    prompts = [np.random.default_rng(i).integers(0, cfg.vocab_size, n).astype(np.int32)
+               for i, n in enumerate((6, 4, 6, 5))]
+    rules = override_rules(default_param_rules(), ["embed=data,model"])
+
+    def serve(mesh=None):
+        ctx = None if mesh is None else ShardCtx(mesh, param_specs=specs_for(
+            model.defs, mesh, rules))
+        static = Engine(model, params, max_len=12, shard_ctx=ctx).generate_batch(
+            [Request(p, max_new_tokens=4) for p in prompts])
+        cont = ContinuousEngine(model, params, n_slots=2, max_len=12, shard_ctx=ctx)
+        done = cont.generate([ServeRequest(p, max_new_tokens=4, rid=i)
+                              for i, p in enumerate(prompts)])
+        blocks = None if ctx is None else cont._rank.blocks
+        return ([[int(t) for t in r.out_tokens] for r in static],
+                [[int(t) for t in r.out_tokens] for r in done], blocks)
+
+    static, cont, _ = serve()
+    outs = run_plain_mesh(serve, {"data": 2, "model": 2})
+    assert outs[0][2]["blocks/attn/wq"].shape[1] == params["blocks/attn/wq"].shape[1] // 4
+    for got_static, got_cont, _ in outs:
+        assert got_static == static and got_cont == cont

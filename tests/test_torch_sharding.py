@@ -167,15 +167,78 @@ def test_batch_rows_split_the_global_batch(n, mesh):
 def test_shard_dim_on_a_data_only_mesh(spec, want):
     """The data-parallel dimension of a leaf's layout; ``model`` of size 1
     splits nothing."""
-    assert leaf_layout(spec, Mesh({"data": 4, "model": 1})) == (want, None)
+    lay = leaf_layout(spec, Mesh({"data": 4, "model": 1}))
+    assert (lay.data, lay.model) == (want, None)
 
 
 def test_shard_dim_refuses_the_model_axis():
-    """``model`` splits its own dimension; one dimension split over both
-    axes at once is still not ported."""
-    assert leaf_layout((None, "data", "model"), Mesh({"data": 2, "model": 2})) == (1, 2)
-    with pytest.raises(NotImplementedError, match="item 11 \\(b2\\)"):
-        leaf_layout((("data", "model"),), Mesh({"data": 2, "model": 2}))
+    """``model`` splits its own dimension, and any spec ``resolve_spec``
+    gives is a layout: one dimension over ``data`` and ``model`` together
+    (mixed radix, ``data`` the most significant), over part of the
+    data-parallel axes, over an axis besides ``pod``, ``data`` and
+    ``model``; an axis of one rank cuts nothing unless it is
+    data-parallel."""
+    lay = leaf_layout((None, "data", "model"), Mesh({"data": 2, "model": 2}))
+    assert (lay.data, lay.model, lay.splits) == (1, 2, ((1, ("data",)), (2, ("model",))))
+    both = leaf_layout((("data", "model"),), Mesh({"data": 2, "model": 2}))
+    assert (both.data, both.model, both.splits) == (None, None, ((0, ("data", "model")),))
+    part = leaf_layout(("data",), Mesh({"pod": 2, "data": 2}))
+    assert (part.data, part.splits, part.dp) == (None, ((0, ("data",)),), ("pod", "data"))
+    pipe = leaf_layout(("pipe", "model"), Mesh({"data": 1, "model": 1, "pipe": 2}))
+    assert pipe.splits == ((0, ("pipe",)),) and pipe.axes == ("pipe",)
+    x = torch.arange(8 * 3).reshape(8, 3)
+    sizes = {"data": 2, "model": 2}
+    for r in range(4):
+        mesh = Mesh(sizes, rank=r)
+        c = mesh.coords()
+        assert torch.equal(C.shard_block(x, both, mesh),
+                           x[2 * (2 * c["data"] + c["model"]):][:2])
+
+
+@pytest.mark.parametrize("shape,rules", [({"pod": 2, "data": 2}, ["embed=data"]),
+                                         ({"data": 1, "model": 1, "pipe": 2}, []),
+                                         ({"data": 2, "model": 2}, ["embed=data,model"])])
+def test_any_layout_and_mesh_axis_train_as_one_process(shape, rules):
+    """bert-smoke in fp32 with fused LAMB and the fused CE head, 2 steps over
+    plain ranks (threads of this process): ``embed`` stored over ``data``
+    alone on a ``pod × data`` mesh (the gradient reduce-scattered over data,
+    summed over pod); a ``pipe`` axis beside data and model (each pipe rank
+    the same rows, each leaf's norm partial counted on pipe rank 0 alone);
+    and ``embed`` over data and model together, the layers computing on
+    their heads, ff columns and vocab rows over the graph the ranks'
+    plain collectives join.  The losses and the whole params equal the
+    single process's within the fp32 sums' order, at the gloo runs' bounds
+    (``LOSS_TOL`` 1e-5, ``PARAM_TOL`` 2e-5, tests/test_torch_sharded_train.py;
+    measured at most 4.8e-7 in loss and 8.3e-7 in params)."""
+    from repro_torch.data import DataPipeline
+    from repro_torch.launch.mesh import run_plain_mesh
+    from repro_torch.models import build_model
+    from repro_torch.sharding import default_param_rules, override_rules
+    from repro_torch.train import Trainer
+
+    cfg = smoke_config("bert-large").replace(activation_dtype="float32")
+    tc = TrainConfig(optimizer="lamb", learning_rate=1e-3, use_fused_lamb=True)
+    model = build_model(cfg)
+
+    def fit(mesh=None):
+        rules_ = None
+        if mesh is not None and rules:
+            rules_ = override_rules(default_param_rules(multi_pod="pod" in mesh.shape), rules)
+        tr = Trainer(model, tc, device="cpu", log_every=1, log_fn=lambda s: None, mesh=mesh,
+                     param_rules=rules_)
+        tr.fit(DataPipeline(cfg, 8, 16, device="cpu", seed=0,
+                            rows=tr.batch_rows if mesh is not None else None), 2)
+        return [h["loss/total"] for h in tr.history], tr.gather_state().params, tr.state.params
+
+    losses, whole, _ = fit()
+    outs = run_plain_mesh(fit, shape)
+    if "pod" in shape:   # embed over data alone: half the FSDP blocks of pod x data
+        assert outs[0][2]["embed"].shape == (whole["embed"].shape[0], 64)
+    for got, params, _ in outs:
+        np.testing.assert_allclose(got, losses, rtol=0, atol=1e-5)
+        for k, x in params.items():
+            np.testing.assert_allclose(x.numpy(), whole[k].numpy(), rtol=0, atol=2e-5,
+                                       err_msg=k)
 
 
 @pytest.mark.parametrize("optimizer,fused", [("lamb", True), ("lamb", False),

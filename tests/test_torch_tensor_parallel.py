@@ -103,13 +103,13 @@ def test_rank_layouts_match_jax_specs(arch, mesh):
     jspecs = _flat_specs(jax_specs_for(jax_build_model(jax_cfg).defs,
                                        jax_abstract_mesh(tuple(sizes.values()), tuple(sizes))))
     assert layouts.keys() == jspecs.keys()
-    assert {k: tuple(v) for k, v in layouts.items()} == {
+    assert {k: (v.data, v.model) for k, v in layouts.items()} == {
         k: _jax_layout(s, sizes) for k, s in jspecs.items()}
     whole = model.init(0, torch.device("cpu"))
     n_data, n_model = sizes["data"], sizes["model"]
     blocks = {r: shard_tree(whole, layouts, Mesh(sizes, rank=r)) for r in range(n_data * n_model)}
     for k, x in whole.items():
-        data, mdim = layouts[k]
+        data, mdim = layouts[k].data, layouts[k].model
         rows = []
         for d in range(n_data):
             parts = [blocks[d * n_model + m][k] for m in range(n_model)]
@@ -413,7 +413,7 @@ def test_model_apply_over_plain_model_ranks_matches_whole(arch):
                         Mesh({"data": 1, "model": 2}))
 
     def rank(group):
-        block = {k: C.shard_leaf(v, layouts[k][1], 2, group.index) for k, v in whole.items()}
+        block = {k: C.shard_leaf(v, layouts[k].model, 2, group.index) for k, v in whole.items()}
         with use_sharding(_fake_tp_ctx(cfg, group.index, group)):
             return model.apply(block, batch)
 

@@ -47,6 +47,9 @@ import numpy as np
 import pytest
 
 from _torch_threads import one_cpu_thread  # noqa: F401
+from test_torch_tensor_parallel import _flat_specs
+from repro.launch.mesh import abstract_mesh as jax_abstract_mesh
+from repro.models import build_model as jax_build_model
 from test_torch_sharded_train import (
     JAX_LOSS_TOL,
     JAX_PARAM_TOL,
@@ -88,7 +91,8 @@ def runs(tmp_path_factory):
                      for k, (cfg, kw) in list(jax_runs.items())})
     trainers = _jax_trainers(str(init), jax_runs)
     dirs = {w: root / f"w{w}" for w in MESHES}
-    proc4 = _harness(4, dirs[4], "--init", str(init), "--mesh", MESHES[4], *SCENARIOS)
+    proc4 = _harness(4, dirs[4], "--init", str(init), "--mesh", MESHES[4], *SCENARIOS,
+                     "tp_layout")
     jax_refs = _jax_references(trainers)
     reports = {4: _report(proc4, dirs[4])}
     reports[2] = _report(_harness(2, dirs[2], "--init", str(init), "--mesh", MESHES[2],
@@ -214,3 +218,63 @@ def test_tp_checkpoint_restores_bit_equal(runs, where):
     assert abs(ck[f"{where}_losses"][0] - saved["losses"][-1]) < LOSS_TOL, (ck, saved)
     with open(os.path.join(runs["dirs"][4], "checkpoint_dp.json")) as f:
         assert json.load(f)["mesh"] == {"data": 2, "model": 2}
+
+
+# tp_layout's params after 3 steps against the default layout's: each
+# leaf's largest difference over its largest value, floored at 1 (measured:
+# at most 2.1e-8, the layer-norm biases, 7.1e-6 of their largest value)
+LAYOUT_LEAF_TOL = 1e-6
+
+
+def _gspmd_block(x, spec, sizes, coords):
+    """The block of ``x`` that ``spec`` (a JAX PartitionSpec's entries)
+    gives the rank at ``coords``: along each dimension split over a tuple
+    of axes, the slice at the mixed-radix index of its coordinates, the
+    first axis the most significant, as GSPMD lays it out."""
+    for dim, entry in enumerate(spec):
+        axes = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+        n, index = 1, 0
+        for a in axes:
+            n, index = n * sizes[a], index * sizes[a] + coords[a]
+        size = x.shape[dim] // n
+        x = np.take(x, range(index * size, (index + 1) * size), axis=dim)
+    return x
+
+
+def test_param_rules_store_the_reference_shards_and_compute_as_the_default(runs):
+    """``mlm_fused_ce_f32`` on data=2,model=2 with params and LAMB moments
+    stored under ``--param-rule embed=data,model``: q/k/v cut along embed
+    over (data, model) with their heads whole, the output projection's heads
+    over model and embed over data.  The layers compute in the default
+    layout, so the first step's loss is bit-equal to the default layout's
+    and, after 3 steps, every leaf is within ``LAYOUT_LEAF_TOL`` of it (the
+    trust ratios' norms sum their partials over other blocks, which rounds
+    otherwise in fp32 from the second step).  Each rank's
+    blocks of the params and moments are the shard the JAX package's
+    ``resolve_spec`` gives its coordinates."""
+    from repro.sharding import axes as jax_axes
+
+    report = runs["reports"][4]["tp_layout"]
+    losses = report["losses"]
+    assert losses["rules"][0] == losses["default"][0], losses
+    assert len(losses["rules"]) == STEPS
+    for k, (diff, scale) in report["leaf_diff"].items():
+        assert diff <= LAYOUT_LEAF_TOL * max(1.0, scale), (k, diff, scale)
+    with np.load(os.path.join(runs["dirs"][4], "tp_layout_whole.npz")) as f:
+        whole = {k: f[k] for k in f.files}
+    sizes = {"data": 2, "model": 2}
+    rules = dict(jax_axes.default_param_rules(), embed=("data", "model"))
+    jcfg = _jax_cfg("bert").replace(activation_dtype="float32")
+    specs = _flat_specs(jax_axes.specs_for(jax_build_model(jcfg).defs,
+                                           jax_abstract_mesh((2, 2), ("data", "model")), rules))
+    assert specs["blocks/attn/wq"] == (None, ("data", "model"))   # trailing Nones dropped
+    assert specs["blocks/attn/wo"] == (None, "model", None, "data")
+    for r in range(4):
+        coords = {"data": r // 2, "model": r % 2}
+        with np.load(os.path.join(runs["dirs"][4], f"tp_layout_rank{r}.npz")) as f:
+            assert sorted(f.files) == sorted(whole)
+            for path in f.files:
+                leaf = path.split("/", 2)[-1] if path.startswith("opt_state/") else \
+                    path.split("/", 1)[1]
+                want = _gspmd_block(whole[path], specs[leaf], sizes, coords)
+                np.testing.assert_array_equal(f[path], want, err_msg=f"rank {r} {path}")

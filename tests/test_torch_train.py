@@ -398,14 +398,25 @@ def test_launcher_optimizer_runs_to_done(extra, capsys):
         assert all(set(TRUST_KEYS) <= set(h) for h in trainer.history)
 
 
-# deepseek-v3 over model=2 runs since expert parallelism and MLA heads
-# (tests/test_torch_sharding.py's MESH_RUNS); a mesh axis besides pod, data
-# and model still raises, before any process group is made
+# what the launcher refused before and now runs: a mesh axis besides pod,
+# data and model, and parameters stored under any rule (--param-rule); two
+# pipe ranks train as one process in tests/test_torch_sharding.py
+# (test_any_layout_and_mesh_axis_train_as_one_process)
 @pytest.mark.parametrize("extra", [["--arch", "deepseek-v3-671b", "--mesh",
                                     "data=1,model=1,pipe=2"]])
-def test_launcher_unported_options_raise(extra):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_launcher_unported_options_raise(extra, capsys):
+    """The mesh is taken and raises only for the ranks it lacks; over one
+    rank of it, with ``embed`` stored over data and model, it trains to
+    ``status=ok``."""
+    with pytest.raises(ValueError, match="needs 2 devices but only 1"):
         launch_train.main(SMOKE + ["--device", "cpu"] + extra)
+    one = [a.replace("pipe=2", "pipe=1") for a in extra]
+    trainer = launch_train.main(SMOKE + ["--device", "cpu", "--param-rule", "embed=data,model"]
+                                + one)
+    out = capsys.readouterr().out
+    assert "done: step=2 " in out and "status=ok" in out
+    assert trainer.mesh.shape == {"data": 1, "model": 1, "pipe": 1}
+    assert trainer.param_rules["embed"] == ("data", "model")
 
 
 def test_launcher_skip_nonfinite_runs_to_done(capsys):
